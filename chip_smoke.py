@@ -17,10 +17,21 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. serving: a synthetic city (the port's ``build_city``) through the port's
    loader and DSMGenerator at batch 8 on both paths, the GeoTIFF's data
    block read back, tiles/s, peak memory and the kernel launch counts of
-   the timed run.
+   the timed run;
+6. train: the flagship training step (batch 8, 16384-point buckets, 8
+   mini-steps per optimizer step, remat) on random patches of the same city
+   with its nDSM as target, through the port's training loader and
+   ``train/loop.py``, on the fused2 kernel path and the unsorted plain path
+   from the same weights on the same patches: 1 warm-up and 2 timed
+   optimizer steps each, window losses compared, mini-step ms, train
+   patches/s, peak memory and the launches per fused2 mini-step.
+
+Phase 3 also holds every backward (K5 at the eight levels, the pool2 and
+scatter_plane2 backwards on K1/K2) against its plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-kernel table as JSON. Imports nothing of JAX or of the JAX package
+kernel table as JSON, ``launches`` from the timed training run (the slice's
+main path) and ``launches_serve`` from the timed serving run. Imports nothing of JAX or of the JAX package
 (``tomosar2height_tpu``), and checks that at the end. Needs one CUDA card and
 nvcc.
 """
@@ -133,10 +144,27 @@ def _xavier(gen, fan_in, fan_out, device):
     return ((torch.rand(fan_in, fan_out, generator=gen) * 2 - 1) * a).to(device)
 
 
-def _compare(got, ref):
-    """(max |got - ref|, passes |d| <= TOL + TOL*|ref| everywhere)."""
+def _compare(got, ref, atol=TOL, rtol=TOL):
+    """(max |got - ref|, passes |d| <= atol + rtol*|ref| everywhere)."""
     d = (got - ref).abs()
-    return float(d.max()), bool((d <= TOL + TOL * ref.abs()).all())
+    return float(d.max()), bool((d <= atol + rtol * ref.abs()).all())
+
+
+# K5 (tests/test_fused_level_bwd.py:109-110): d_plane and d_c_last at 2e-5 abs
+# + 2e-4 rel; weight gradients are sums over ~1e5 rows, so 3e-4 * max|ref| abs
+# + 3e-4 rel
+BWD_TOL = (2e-5, 2e-4)
+WEIGHT_RTOL = 3e-4
+# K5 is compared on the rows whose fc_comm pre-activations all lie at least
+# this far from ReLU's kink (in the plain forward): the kernel and cuBLAS sum
+# the pre-activation in other orders (they differ by a few 1e-6 at F=512), so
+# at the kink one may open a gate the other keeps shut, and either is right.
+# One such row moves its four pixels of d_plane by O(0.1) and dw_in as much.
+KINK = 2e-5
+
+
+def _weight_tol(ref):
+    return WEIGHT_RTOL * float(ref.abs().max()), WEIGHT_RTOL
 
 
 def check_kernels(seed: int = 0):
@@ -145,6 +173,7 @@ def check_kernels(seed: int = 0):
 
     from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
     from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
+    from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 
     dev = torch.device(DEVICE)
     _, _, apts, amask, acell, _ = flagship_batch(seed)
@@ -160,12 +189,13 @@ def check_kernels(seed: int = 0):
     log("kernels", f"B={b} Npad={npad} valid={int(amask.sum())} reso={reso}")
     rows = []
 
-    def entry(name, source, replaces, pairs, kfn, pfn):
-        errs = [_compare(k, p) for k, p in pairs]
+    def entry(name, source, replaces, pairs, kfn, pfn, tol=f"{TOL:g} abs+rel"):
+        """pairs: (kernel, plain[, atol, rtol]) tuples."""
+        errs = [_compare(*pair) for pair in pairs]
         err = max(e for e, _ in errs)
         ok = all(o for _, o in errs)
         ms, plain_ms = cuda_ms(kfn), cuda_ms(pfn)
-        log("kernels", f"{name}: max|d| {err:.3g} (tol {TOL:g} abs+rel) "
+        log("kernels", f"{name}: max|d| {err:.3g} (tol {tol}) "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: {err}")
@@ -175,7 +205,7 @@ def check_kernels(seed: int = 0):
 
     ncell = reso * reso
     pairs = []
-    for kind in ("max", "mean"):
+    for kind in ("max", "mean", "sum"):
         k = pk.pool_reduce(vals, cells, mask, ncell, kind)
         p = pk.pool_reduce_plain(vals, cells, mask, ncell, kind)
         pairs.append((k, p))
@@ -199,7 +229,27 @@ def check_kernels(seed: int = 0):
           lambda: pk.scatter_plane2(vals, cells, mask, reso),
           lambda: pk.scatter_plane2_plain(vals, cells, mask, reso))
 
+    # the backwards of pool2 (K1 mean/sum, then K2) and scatter_plane2 (K2)
+    g = torch.randn(vals.shape, generator=gen).to(dev)
+    pairs, bwd_args = [], []
+    for kind in ("max", "mean"):
+        out = pk.pool2(vals, cells, mask, reso, kind)
+        a = (g, vals, out, cells, mask, reso, kind)
+        pairs.append((pk.pool2_bwd(*a), pk.pool2_bwd_plain(*a)))
+        bwd_args.append(a)
+    entry("pool2_bwd", "tomosar2height_tpu_torch/ops/cuda/pool2_kernel.py",
+          "tomosar2height_tpu/ops/pallas/pool2_kernel.py:492", pairs,
+          lambda: [pk.pool2_bwd(*a) for a in bwd_args],
+          lambda: [pk.pool2_bwd_plain(*a) for a in bwd_args])
+    g_plane = torch.randn(b, reso, reso, vals.shape[-1], generator=gen).to(dev)
+    a = (g_plane, cells, mask, kc)
+    entry("scatter_plane2_bwd", "tomosar2height_tpu_torch/ops/cuda/pool2_kernel.py",
+          "tomosar2height_tpu/ops/pallas/pool2_kernel.py:424",
+          [(pk.scatter_plane2_bwd(*a), pk.scatter_plane2_bwd_plain(*a))],
+          lambda: pk.scatter_plane2_bwd(*a), lambda: pk.scatter_plane2_bwd_plain(*a))
+
     pairs, kfns, pfns = [], [], []
+    bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
     for r, f, fl in LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
         c_last = (torch.randn(b, npad, fl, generator=gen).to(dev)
@@ -213,14 +263,51 @@ def check_kernels(seed: int = 0):
         if not torch.equal(ko[2], po[2]):
             raise AssertionError(f"fused_level counts differ at {(r, f, fl)}")
         e0, e1 = _compare(ko[0], po[0]), _compare(ko[1], po[1])
-        log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
-            f"{e0[0]:.3g} c_out {e1[0]:.3g}")
         pairs += [(ko[0], po[0]), (ko[1], po[1])]
         kfns.append(lambda a=args: lk.fused_level(*a))
         pfns.append(lambda a=args: lk.fused_level_plain(*a))
+        # K5 on random output cotangents, rows off the ReLU kink (KINK), with
+        # the counts of the forward on those rows
+        pre = grid_sample_2d(plane, xy) @ w[0] + w[1]
+        mask5 = mask & ~(pre.abs() < KINK).any(-1)
+        del pre
+        counts5 = lk.fused_level(plane, c_last, w, xy, cells, mask5, r, reso)[2]
+        g_p = torch.randn(b, r, r, f, generator=gen).to(dev)
+        g_c = torch.randn(b, npad, f, generator=gen).to(dev)
+        bargs = (plane, c_last, w, xy, cells, mask5, counts5, g_p, g_c, r, reso)
+        kb, pb = lk.fused_level_bwd(*bargs), lk.fused_level_bwd_plain(*bargs)
+        level_pairs = [(kb[0], pb[0], *BWD_TOL), (kb[1], pb[1], *BWD_TOL)]
+        level_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
+        bwd_pairs += level_pairs
+        ed = max(_compare(*pair)[0] for pair in level_pairs)
+        log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
+            f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
+            f"{int(mask5.sum())} of {int(mask.sum())} rows (the rest within {KINK:g} "
+            f"of the ReLU kink)")
+        bwd_k.append(lambda a=bargs: lk.fused_level_bwd(*a))
+        bwd_p.append(lambda a=bargs: lk.fused_level_bwd_plain(*a))
+        # K5's reductions alone, on random rows of this level's shapes
+        m = b * npad
+        for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False)):
+            ra = torch.randn(m, ka, generator=gen).to(dev)
+            rb = torch.randn(m, nb, generator=gen).to(dev)
+            kr = lk.level_bwd_reduce(ra, rb, bias)
+            pr = lk.level_bwd_reduce_plain(ra, rb, bias)
+            red_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kr, pr) if y is not None]
+            red_k.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce(*a))
+            red_p.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce_plain(*a))
     entry("fused_level", "tomosar2height_tpu_torch/csrc/level.cu",
           "tomosar2height_tpu/ops/pallas/level_kernel.py:110", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns])
+    bwd_tol = (f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; weights "
+               f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
+    entry("fused_level_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", bwd_pairs,
+          lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p], bwd_tol)
+    entry("level_bwd_reduce", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
+          lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
+          f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     torch.cuda.synchronize()
     return rows
 
@@ -257,7 +344,8 @@ def check_model(seed: int = 0):
         torch.cuda.synchronize()
         ms = cuda_ms(lambda: model(*fused_args), iters=5, warmup=1)
         plain_ms = cuda_ms(lambda: model(*plain_args), iters=5, warmup=1)
-    if h_fused.shape != (pts.shape[0], 512, 512, 1) or not torch.isfinite(h_fused).all():
+    side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+    if h_fused.shape != (pts.shape[0], side, side, 1) or not torch.isfinite(h_fused).all():
         raise AssertionError(f"bad heights: {tuple(h_fused.shape)}")
     err = float((h_fused - h_plain).abs().max())
     tol = _height_tol(cfg)
@@ -315,8 +403,9 @@ def serve(seed: int = 0):
         raise AssertionError(f"rasters differ in shape/transform/NaN mask: {da.shape}")
     err = float(np.abs(da[~nan] - db[~nan]).max())
     tol = _height_tol(cfg)
-    want = {"pool_reduce": 4 * n_batches, "pool_gather": 4 * n_batches,
-            "scatter_plane2": n_batches, "fused_level": 8 * n_batches}
+    want = {**dict.fromkeys(launches, 0), "pool_reduce": 4 * n_batches,
+            "pool_gather": 4 * n_batches, "scatter_plane2": n_batches,
+            "fused_level": 8 * n_batches}
     log("serve", f"{stats['n_patches']} tiles in {n_batches} batches of "
         f"{gen.data_loader.batch_size} | "
         f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
@@ -332,16 +421,106 @@ def serve(seed: int = 0):
     return launches
 
 
+# kernel launches of one fused2 training mini-step with remat: the encoder's
+# forward (K1 4, K2 4, K3 1, K4 8) runs twice, the second time recomputed in
+# the backward; the backward adds the max-pools' K1 'sum' + K2 (4 each), the
+# plane scatter's K2 (1) and K5 at the eight levels (a row pass and three
+# weight-gradient reductions each)
+TRAIN_LAUNCHES = {"pool_reduce": 12, "pool_gather": 13, "scatter_plane2": 2,
+                  "fused_level": 16, "fused_level_bwd": 8, "level_bwd_reduce": 24,
+                  "pool2_bwd": 4, "scatter_plane2_bwd": 1}
+
+
+def train_phase(seed: int = 0):
+    """The flagship training step on random patches of the synthetic city,
+    fused2 kernel path against the unsorted plain path from the same weights
+    on the same patches: 1 warm-up and 2 timed optimizer steps each."""
+    import torch
+
+    from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
+
+    w, h = CITY["W"], CITY["H"]
+    ndsm, pts = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+    cfg, model = flagship_model(seed)
+    tcfg, dcfg = cfg["training"], cfg["dataset"]
+    bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
+    reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
+    state0 = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    runs = {}
+    for name, sort in (("fused2", True), ("plain", False)):
+        # one optimizer step's patches per epoch; det_stream keys every patch
+        # and subsample by (seed, epoch, position): both paths see the same
+        ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k,
+                          dsm=dsm)
+        loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
+                             fixed_bucket=dcfg["points"]["train_bucket"],
+                             sort_reso=reso if sort else None, shuffle=True,
+                             drop_last=True, seed=seed, det_stream=True)
+        model.load_state_dict(state0)
+        trainer = Trainer(model, tcfg)
+        sched = build_scheduler(tcfg)
+        warm = train(trainer, sched, loader, tcfg, max_iteration=1)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out = train(trainer, sched, loader, tcfg, max_iteration=2)
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        losses = [r["loss"] for r in warm["windows"] + out["windows"]]
+        moved = any(not torch.equal(v, state0[n]) for n, v in model.state_dict().items())
+        runs[name] = {"losses": losses, "ms": out["median_step_ms"],
+                      "patches_s": out["n_patches"] / wall, "wall": wall,
+                      "n": out["n_ministeps"], "patches": out["n_patches"],
+                      "peak": torch.cuda.max_memory_allocated(), "launches": launches,
+                      "lrs": [r["lr"] for r in warm["windows"] + out["windows"]],
+                      "grad_norm": [r["grad_norm"] for r in warm["windows"] + out["windows"]]}
+        r = runs[name]
+        log("train", f"{name}: window losses {[f'{x:.6f}' for x in losses]} | grad_norm "
+            f"{[f'{x:.4g}' for x in r['grad_norm']]} | lr {r['lrs']} | mini-step "
+            f"{r['ms']:.1f} ms (median of {r['n']}, CUDA events) | {r['patches']} "
+            f"patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s | peak "
+            f"{r['peak'] / 2**30:.2f} GiB | parameters moved {moved}")
+        if not all(np.isfinite(losses)) or not moved:
+            raise AssertionError(f"{name}: losses {losses}, parameters moved {moved}")
+    fused, plain = runs["fused2"], runs["plain"]
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
+    want = {key: v * fused["n"] for key, v in TRAIN_LAUNCHES.items()}
+    per_step = {key: v / fused["n"] for key, v in fused["launches"].items()}
+    # the L1 loss moves by at most the heights' own difference: the model
+    # phase's bound
+    tol = _height_tol(cfg)
+    err = max(abs(a - b) for a, b in zip(fused["losses"], plain["losses"]))
+    log("train", f"fused2 vs plain window losses: max|d| {err:.3g} m (tol {tol:.3g} m) | "
+        f"mini-step fused2 {fused['ms']:.1f} ms, plain {plain['ms']:.1f} ms | launches per "
+        f"fused2 mini-step {per_step}")
+    if err > tol:
+        raise AssertionError(f"fused2 and plain window losses differ by {err} m")
+    if fused["launches"] != want:
+        raise AssertionError(f"launch counts {fused['launches']}, expected {want}")
+    return fused["launches"]
+
+
 def main():
     card()
     build()
     rows = check_kernels()
     check_model()
-    launches = serve()
+    serve_launches = serve()
+    launches = train_phase()
     import torch
 
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_serve"] = serve_launches.get(row["name"], 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))
     if loaded:

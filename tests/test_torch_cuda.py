@@ -1,13 +1,16 @@
-"""The PyTorch port's CUDA kernels K1-K4 against their plain versions, on the
-card. Marked ``cuda``: they skip where no CUDA card is present (the kernels
-have no CPU mode). This file imports no JAX, so it runs on a machine without
+"""The PyTorch port's CUDA kernels K1-K5 against their plain versions, on the
+card, forward and backward. Marked ``cuda``: they skip where no CUDA card is
+present (the kernels have no CPU mode). This file imports no JAX, so it runs on a machine without
 it; there, skip ``tests/conftest.py`` (which imports JAX):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-It also holds the numpy input builders that ``test_torch_pool2.py`` and
-``test_torch_level.py`` feed to the JAX package. Tolerance 1e-5 (rtol and
-atol): float atomics sum in another order than the plain versions.
+It also holds the numpy input builders that ``test_torch_pool2*.py`` and
+``test_torch_level*.py`` feed to the JAX package. Tolerance 1e-5 (rtol and
+atol): float atomics sum in another order than the plain versions. K5's
+d_plane and d_c_last: 2e-5 abs + 2e-4 rel (tests/test_fused_level_bwd.py);
+its weight gradients are sums over every row, so 3e-4 * max|ref| abs + 3e-4
+rel.
 """
 
 from __future__ import annotations
@@ -52,6 +55,31 @@ def aligned_batch(seed: int, b: int = 3, n: int = 700, reso: int = RESO, f: int 
     return pts, mask, cells, toff, vals
 
 
+def tied_batch(seed: int, b: int = 3, n: int = 600, reso: int = RESO, f: int = 8):
+    """b aligned patches full of tied cell maxima: entry 0 crowds its points
+    into a few cells and repeats one point ten times, every value is one of
+    {0, 1, 2}; the last entry is an empty patch."""
+    rng = np.random.default_rng(seed)
+    npad = aligned_bucket_size(n, reso)
+    pts = np.full((b, npad, 3), 0.5, np.float32)
+    mask = np.zeros((b, npad), bool)
+    cells = np.zeros((b, npad), np.int32)
+    toff = np.zeros((b, reso * reso // 1024 + 1), np.int32)
+    for i in range(b):
+        p = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+        m = rng.random(n) > 0.1
+        if i == 0:
+            p[:, :2] = rng.uniform(0.30, 0.36, (n, 2))
+            p[10:20] = p[10]  # duplicate points
+            m[10:20] = True
+        if i == b - 1:
+            m[:] = False
+        a = host_morton_bucket_aligned(p, m, reso)
+        pts[i], mask[i], cells[i], toff[i] = a["points"], a["mask"], a["cells"], a["tile_offsets"]
+    vals = rng.integers(0, 3, (b, npad, f)).astype(np.float32)
+    return pts, mask, cells, toff, vals
+
+
 def level_inputs(reso, level_reso, f, fl, seed, b=2, n=700, empty_last=False):
     """Aligned points plus a plane, c_last and fc_comm/fc_c weights."""
     rng = np.random.default_rng(seed)
@@ -75,6 +103,15 @@ def level_inputs(reso, level_reso, f, fl, seed, b=2, n=700, empty_last=False):
     s = lambda fan, *sh: rng.normal(0, min(0.2, fan ** -0.5), sh).astype(np.float32)  # noqa: E731
     weights = (s(f, f, 2 * f), s(1, 2 * f), s(2 * f, 2 * f, f), s(1, f), s(fl, fl, f), s(1, f))
     return pts, mask, cells, toff, plane, c_last, weights
+
+
+def level_cotangents(inp, seed):
+    """Output cotangents (g_plane, g_c) for :func:`level_inputs`."""
+    rng = np.random.default_rng(seed)
+    _, mask, _, _, plane, _, _ = inp
+    g_p = rng.normal(0, 1, plane.shape).astype(np.float32)
+    g_c = rng.normal(0, 1, mask.shape + (plane.shape[-1],)).astype(np.float32)
+    return g_p, g_c
 
 
 def t(x, device="cpu"):
@@ -124,6 +161,43 @@ class TestPool2Kernels:
         assert torch.equal(counts, want_counts)
         assert runtime.LAUNCHES["scatter_plane2"] == n0 + 1
 
+    def test_sum_kind_matches_plain(self, cuda):
+        _, mask, cells, _, vals = tied_batch(0)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        got = pk.pool_reduce(v, c, m, RESO * RESO, "sum")
+        want = pk.pool_reduce_plain(v, c, m, RESO * RESO, "sum")
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    def test_pool2_backward_matches_plain(self, cuda, kind):
+        _, mask, cells, _, vals = tied_batch(1)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        g = torch.randn(v.shape, generator=torch.Generator().manual_seed(0)).to(cuda)
+        out = pk.pool2(v, c, m, RESO, kind)
+        before = dict(runtime.LAUNCHES)
+        got = pk.pool2_bwd(g, v, out, c, m, RESO, kind)
+        want = pk.pool2_bwd_plain(g, v, out, c, m, RESO, kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert runtime.LAUNCHES["pool_reduce"] == before["pool_reduce"] + 1
+        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"] + 1
+        assert runtime.LAUNCHES["pool2_bwd"] == before["pool2_bwd"] + 1
+
+    def test_scatter_plane2_backward_matches_plain(self, cuda):
+        _, mask, cells, _, vals = aligned_batch(2)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        _, counts = pk.scatter_plane2(v, c, m, RESO)
+        g = torch.randn((v.shape[0], RESO, RESO, v.shape[-1]),
+                        generator=torch.Generator().manual_seed(1)).to(cuda)
+        before = dict(runtime.LAUNCHES)
+        got = pk.scatter_plane2_bwd(g, c, m, counts)
+        want = pk.scatter_plane2_bwd_plain(g, c, m, counts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"] + 1
+        assert runtime.LAUNCHES["scatter_plane2_bwd"] == before["scatter_plane2_bwd"] + 1
+
     def test_wrong_dtype_raises(self, cuda):
         _, mask, cells, _, vals = aligned_batch(0)
         with pytest.raises(TypeError):
@@ -145,3 +219,47 @@ class TestLevelKernel:
         torch.testing.assert_close(got[1], want[1], **TOL)
         assert torch.equal(got[2], want[2])
         assert (got[1][-1] == 0).all()  # the empty patch
+
+
+def assert_level_grads_close(got, want):
+    """K5's tolerance: see the module docstring."""
+    torch.testing.assert_close(got[0], want[0], atol=2e-5, rtol=2e-4)
+    torch.testing.assert_close(got[1], want[1], atol=2e-5, rtol=2e-4)
+    for a, b in zip(got[2], want[2]):
+        torch.testing.assert_close(a, b, atol=3e-4 * float(b.abs().max()), rtol=3e-4)
+
+
+@pytest.mark.cuda
+class TestLevelBackwardKernel:
+    @pytest.mark.parametrize("reso,level_reso,f,fl", [
+        (64, 64, 8, 4), (64, 32, 16, 16), (32, 32, 8, 8), (256, 32, 512, 256),
+        (256, 64, 256, 512)])
+    def test_matches_plain(self, cuda, reso, level_reso, f, fl):
+        inp = level_inputs(reso, level_reso, f, fl, seed=9, empty_last=True)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        _, _, counts = run_level(inp, reso, level_reso, device=cuda)
+        g_p, g_c = (t(x, cuda) for x in level_cotangents(inp, seed=3))
+        args = (t(plane, cuda), t(c_last, cuda), tuple(t(w, cuda) for w in weights),
+                t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda), counts, g_p, g_c,
+                level_reso, reso)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level_bwd(*args)
+        want = lk.fused_level_bwd_plain(*args)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_level_bwd"] == before["fused_level_bwd"] + 1
+        assert runtime.LAUNCHES["level_bwd_reduce"] == before["level_bwd_reduce"] + 3
+        assert_level_grads_close(got, want)
+        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()  # the empty patch
+
+    def test_autograd_runs_the_kernels(self, cuda):
+        inp = level_inputs(64, 32, 16, 16, seed=4)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        p = t(plane, cuda).requires_grad_()
+        w = tuple(t(x, cuda).requires_grad_() for x in weights)
+        n0 = runtime.LAUNCHES["fused_level_bwd"]
+        po, co, _ = lk.fused_level(p, t(c_last, cuda), w, t(pts[..., :2], cuda),
+                                   t(cells, cuda), t(mask, cuda), 32, 64)
+        (po.sum() + co.sum()).backward()
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_level_bwd"] == n0 + 1
+        assert torch.isfinite(p.grad).all() and all(torch.isfinite(x.grad).all() for x in w)

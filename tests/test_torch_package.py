@@ -29,6 +29,8 @@ def test_importing_every_module_loads_no_jax():
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert len(names) >= 20, names\n"
+        "assert {'tomosar2height_tpu_torch.train.' + m for m in\n"
+        "        ('loop', 'schedule', 'trainer')} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tomosar2height_tpu'))\n"
         "assert not bad, bad\n"

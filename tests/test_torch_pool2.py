@@ -76,7 +76,9 @@ class TestPlainVsJax:
     def test_rejects_other_devices_and_kinds(self, batch):
         _, mask, cells, _, vals = batch
         with pytest.raises(ValueError):
-            pk.pool_reduce(t(vals), t(cells), t(mask), RESO * RESO, "sum")
+            pk.pool_reduce(t(vals), t(cells), t(mask), RESO * RESO, "min")
+        with pytest.raises(ValueError):  # K1 sums, but pool2 has no 'sum' pooling
+            pk.pool2(t(vals), t(cells), t(mask), RESO, "sum")
         with pytest.raises(ValueError, match="device"):
             pk.pool2(t(vals).to("meta"), t(cells), t(mask), RESO, "max")
 

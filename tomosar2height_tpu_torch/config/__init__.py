@@ -1,8 +1,8 @@
-"""The flagship serving configuration as a dict literal.
+"""The flagship serving and training configuration as a dict literal.
 
 The JAX package composes its config from YAML (``tomosar2height_tpu/config``);
-the port's serving path needs only these values, so it carries them as a
-literal and reads no YAML. They equal ``compose()`` of ``dataset=berlin``
+the port's serving and training paths need only these values, so it carries
+them as a literal and reads no YAML. They equal ``compose()`` of ``dataset=berlin``
 (depth-5 ALTO U-Net, cloud only) with ``dataset.points.sort=true`` and
 ``model.encoder_kwargs.sorted_impl=fused2`` (pinned by a test).
 """
@@ -25,21 +25,33 @@ _FLAGSHIP = {
             "mode": "conv", "use_footprint": False, "hidden_dim": 32, "out_dim": 1,
             "output_size": 512, "sample_mode": "bilinear", "leaky": False,
         },
+        "remat": True,
     },
     "dataset": {
         "patch_size": [512, 512],
-        "sliding_window": {"test_strip": [256, 256]},
+        "sliding_window": {"test_strip": [256, 256], "val_strip": [512, 512]},
         "normalize": {"x_range": [0.0, 1.0], "y_range": [0.0, 1.0],
                       "z_shift": "local_min", "z_bound": [-33.7, 156.5]},
         "points": {"bucket_sizes": [2048, 4096, 8192, 16384, 32768, 65536],
                    "train_bucket": 16384, "sort": True},
     },
-    "training": {"val_batch_size": 8},
+    "training": {
+        "batch_size": 8, "val_batch_size": 8, "optimize_every": 8,
+        "grad_reduction": "mean", "wire_dsm_dtype": "float16",
+        "learning_rate": 0.0001,
+        "scheduler": {"type": "CyclicLR", "kwargs": {
+            "base_lr": 0.0001, "max_lr": 0.0005, "mode": "triangular2",
+            "gamma": 1.0, "step_size_up": 500, "step_size_down": 500}},
+        "random_dataset_length": 6400, "lock_seed": True, "weight_ce": 10.0,
+        "augmentation": {"flip": False, "rotate": False},
+        "max_iteration": 10000, "print_every": 1, "validate_every": 100,
+        "model_selection_metric": "loss_l1",
+    },
     "dsm_generation": {"pixel_size": [1, 1], "half_blend_percent": [0.5, 0.5],
                        "crs_epsg": 25833},
 }
 
 
 def flagship_config() -> dict:
-    """A fresh copy of the flagship serving config."""
+    """A fresh copy of the flagship config."""
     return copy.deepcopy(_FLAGSHIP)

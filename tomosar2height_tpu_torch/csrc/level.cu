@@ -12,7 +12,8 @@
 // them in shared memory: the sampled features (k-major), the hidden layer
 // (k-major) and two staged 32x128 tiles of whichever weight matrix it is
 // contracting (double-buffered: the next tile's loads fly during the current
-// tile's FMAs); c_last reuses the sample's space once the hidden layer exists.
+// tile's FMAs; the block GEMM is in tile_gemm.cuh); c_last reuses the
+// sample's space once the hidden layer exists.
 // Each of the 256 threads holds a 4-point x 4-column fp32 accumulator tile of
 // a 32x128 output slab; a warp owns 16 columns of all 32 points. The plane scatter is an atomicAdd per output element
 // into a zeroed (B,R,R,F) buffer, then a finalize pass divides by the counts.
@@ -28,72 +29,14 @@
 #include <algorithm>
 
 #include "common.cuh"
+#include "tile_gemm.cuh"
 
 namespace t2h {
-
-constexpr int kP = 32;    // points per block
-constexpr int kNT = 128;  // output columns per pass
-constexpr int kKT = 32;   // weight rows staged per step
-
-constexpr int kStage = kKT * kNT / kThreads;  // weight values each thread stages
 
 size_t level_smem_bytes(int F, int Fl) {
   const int ka = std::max(F, Fl);
   return sizeof(float) *
          ((size_t)ka * kP + (size_t)2 * F * kP + (size_t)2 * kKT * kNT);
-}
-
-__device__ __forceinline__ void fma_step(float (&acc)[4][4], const float* A,
-                                         const float* Wt, int k, int kk, int row0,
-                                         int col0) {
-  const float4 a = *reinterpret_cast<const float4*>(A + k * kP + row0);
-  const float4 w = *reinterpret_cast<const float4*>(Wt + kk * kNT + col0);
-  const float av[4] = {a.x, a.y, a.z, a.w};
-  const float wv[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
-}
-
-// acc[i][j] += sum_k A[k][row0+i] * W[k][n0+col0+j] for k < K.
-// A: shared, k-major with row length kP. W: global row-major (K, N), staged
-// through two shared tiles Ws[2][kKT][kNT]: the next tile's global loads are
-// in flight (in registers) while the current tile's FMAs run.
-__device__ __forceinline__ void gemm_tile(float (&acc)[4][4], const float* A, int K,
-                                          const float* __restrict__ W, int N, int n0,
-                                          float* Ws, int tid, int row0, int col0) {
-  float stage[kStage];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int m = 0; m < kStage; ++m) {
-      const int e = tid + m * kThreads;
-      const int k = k0 + e / kNT;
-      const int n = n0 + e % kNT;
-      stage[m] = (k < K && n < N) ? __ldg(W + (long long)k * N + n) : 0.0f;
-    }
-  };
-  auto store = [&](float* buf) {
-#pragma unroll
-    for (int m = 0; m < kStage; ++m) buf[tid + m * kThreads] = stage[m];
-  };
-  const int ntiles = (K + kKT - 1) / kKT;
-  load(0);
-  store(Ws);
-  __syncthreads();
-  for (int t = 0; t < ntiles; ++t) {
-    const float* cur = Ws + (t & 1) * (kKT * kNT);
-    const int k0 = t * kKT;
-    if (t + 1 < ntiles) load(k0 + kKT);
-    if (K - k0 >= kKT) {
-#pragma unroll
-      for (int kk = 0; kk < kKT; ++kk) fma_step(acc, A, cur, k0 + kk, kk, row0, col0);
-    } else {
-      for (int kk = 0; kk < K - k0; ++kk) fma_step(acc, A, cur, k0 + kk, kk, row0, col0);
-    }
-    if (t + 1 < ntiles) store(Ws + ((t + 1) & 1) * (kKT * kNT));
-    __syncthreads();
-  }
 }
 
 __global__ void __launch_bounds__(kThreads)

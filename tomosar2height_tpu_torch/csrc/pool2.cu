@@ -1,9 +1,14 @@
 // Local pooling and plane scatter of point features: the Hopper versions of
 // the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py.
 //
-//   K1 t2h_pool_reduce   <- _reduce_kernel        (per-cell max / mean)
+//   K1 t2h_pool_reduce   <- _reduce_kernel        (per-cell max / mean / sum)
 //   K2 t2h_pool_gather   <- _gather_kernel        (each point reads its cell back)
 //   K3 t2h_scatter_plane <- _scatter_plane_kernel (scatter-mean into a row-major plane)
+//
+// The backwards of pool2 and scatter_plane2 run on K1 and K2 as the JAX
+// custom_vjps do (pool2_kernel.py:424-453, :492-517): K1 'sum' gives the
+// max-pool's per-cell cotangent sum; K2 with a row-major read and a per-cell
+// count divisor gives the scatter-mean transpose g_plane[cell] / count.
 //
 // The TPU kernels walk a sequential (batch, 128-point chunk) grid and keep a
 // tile's accumulator in VMEM, which is why they need the chunk metadata
@@ -23,7 +28,7 @@
 
 namespace t2h {
 
-// kind: 0 = max (start -inf, atomic max), 1 = mean (start 0, atomic add).
+// kind: 0 = max (start -inf, atomic max), 1 = mean, 2 = sum (start 0, atomic add).
 __global__ void pool_reduce_accum(const float* __restrict__ values,
                                   const int* __restrict__ cells,
                                   const uint8_t* __restrict__ mask,
@@ -62,10 +67,13 @@ __global__ void pool_reduce_finalize(float* __restrict__ acc,
   }
 }
 
+// reso > 0: cellv (and counts) are row-major planes of side reso, so the
+// Morton id is converted first. counts != nullptr: divide by max(count, 1).
 __global__ void pool_gather(const float* __restrict__ cellv,
                             const int* __restrict__ cells,
-                            const uint8_t* __restrict__ mask, float* __restrict__ out,
-                            int N, int F, int ncell, long long total) {
+                            const uint8_t* __restrict__ mask,
+                            const int* __restrict__ counts, float* __restrict__ out,
+                            int N, int F, int ncell, int reso, long long total) {
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
        t += (long long)gridDim.x * blockDim.x) {
     const long long p = t / F;
@@ -74,7 +82,12 @@ __global__ void pool_gather(const float* __restrict__ cellv,
     float v = 0.0f;
     if (mask[p] && cell >= 0 && cell < ncell) {
       const long long b = p / N;
-      v = cellv[(b * ncell + cell) * F + f];
+      const long long row = b * ncell + (reso > 0 ? morton_to_rowmajor(cell, reso) : cell);
+      v = cellv[row * F + f];
+      if (counts != nullptr) {
+        const int c = counts[row];
+        v = v / static_cast<float>(c > 1 ? c : 1);
+      }
     }
     out[t] = v;
   }
@@ -125,19 +138,22 @@ int t2h_pool_reduce(const float* values, const int* cells, const uint8_t* mask,
   if (np > 0)
     pool_reduce_accum<<<grid_for(np), kThreads, 0, stream>>>(
         values, cells, mask, cellv, counts, N, F, ncell, np, kind);
-  if (nv > 0)
+  if (nv > 0 && kind != 2)  // a sum needs no finalize: empty cells stay 0
     pool_reduce_finalize<<<grid_for(nv), kThreads, 0, stream>>>(cellv, counts, nv,
                                                                  F, kind);
   return static_cast<int>(cudaGetLastError());
 }
 
-// cellv (B,ncell,F), cells (B,N), mask (B,N) -> out (B,N,F); 0 on pad rows.
+// cellv (B,ncell,F) in Morton order (reso 0) or a row-major (B,reso,reso,F)
+// plane (reso > 0), cells (B,N) Morton ids, mask (B,N), counts (B,ncell) or
+// null -> out (B,N,F) = cellv[cell] (/ max(count,1)); 0 on pad rows.
 int t2h_pool_gather(const float* cellv, const int* cells, const uint8_t* mask,
-                    float* out, int B, int N, int F, int ncell, cudaStream_t stream) {
+                    const int* counts, float* out, int B, int N, int F, int ncell,
+                    int reso, cudaStream_t stream) {
   const long long np = (long long)B * N * F;
   if (np > 0)
-    pool_gather<<<grid_for(np), kThreads, 0, stream>>>(cellv, cells, mask, out, N, F,
-                                                       ncell, np);
+    pool_gather<<<grid_for(np), kThreads, 0, stream>>>(cellv, cells, mask, counts, out,
+                                                       N, F, ncell, reso, np);
   return static_cast<int>(cudaGetLastError());
 }
 

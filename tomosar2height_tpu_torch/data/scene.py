@@ -1,20 +1,22 @@
-"""Sliding-window patches of an in-memory scene, for serving.
+"""Patches of an in-memory scene, for serving and training.
 
-The serving subset of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset``
-(regular patching, cloud only, no target, no augmentation): the same
-anchors, the same float64 world -> unit-square normalization with a per-patch
-z shift (dataset.py:245-310), the same crop index, so a patch here is
-bit-identical to the JAX dataset's numpy path (its C++ fast path for
-patches of >= 4096 points rounds the same transform to within ~1e-7). Chunks
-come in as arrays rather than through ``chunk_info.yaml`` and ``.npz`` files.
-The port keeps this copy of the patch math because it imports nothing of
-the JAX package; ``tests/test_torch_generator.py`` pins it to
-``TomoSARDataset``.
+The cloud-only subset of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset``
+without augmentation: sliding-window anchors (serving, validation) or random
+anchors (training, dataset.py:252-261), the same float64 world ->
+unit-square normalization with a per-patch z shift (dataset.py:265-301), the
+same crop index, and with a GT nDSM raster the target crop, flipped to y-up
+(dataset.py:337-346). A patch here is bit-identical to the JAX dataset's
+numpy path (its C++ fast path for patches of >= 4096 points rounds the same
+transform to within ~1e-7). Chunks come in as arrays and the nDSM as an
+in-memory raster rather than through ``chunk_info.yaml``, ``.npz`` files and
+a GeoTIFF. The port keeps this copy of the patch math because it imports
+nothing of the JAX package; ``tests/test_torch_generator.py`` and
+``tests/test_torch_train.py`` pin it to ``TomoSARDataset``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -27,7 +29,7 @@ from tomosar2height_tpu_torch.geo import (
 
 
 class SceneDataset:
-    """Regular-patching dataset over in-memory chunks.
+    """Patch dataset over in-memory chunks.
 
     Args:
         chunks: one dict per chunk with ``name``, ``min_bound``/``max_bound``
@@ -35,21 +37,43 @@ class SceneDataset:
         cfg_dataset: the ``dataset`` config node (patch_size,
             sliding_window.<split>_strip, normalize.{x_range, y_range,
             z_bound, z_shift}).
-        split: which sliding-window stride to use.
+        split: which sliding-window stride to use (regular patching).
+        random_sample: random anchors instead of the sliding window; chunk
+            ``idx % len(chunks)``, one ``rng.random(2)`` draw per patch.
+        random_length: the dataset's length when ``random_sample``.
+        dsm: the GT nDSM as ``(data (H, W) f32, raster)`` with ``raster`` a
+            :class:`~tomosar2height_tpu_torch.geo.RasterData` of its grid; each
+            valid patch then carries its target crop ``dsm`` (h, w), y-up.
+        flip_augm, rotate_augm: the JAX dataset's augmentations, not ported.
     """
 
-    random_sample = False
-
-    def __init__(self, chunks: Sequence[Dict], cfg_dataset: Dict, split: str = "test"):
+    def __init__(self, chunks: Sequence[Dict], cfg_dataset: Dict, split: str = "test",
+                 random_sample: bool = False, random_length: Optional[int] = None,
+                 dsm=None, flip_augm: bool = False, rotate_augm: bool = False):
+        if flip_augm or rotate_augm:
+            raise NotImplementedError(
+                "flip/rotate augmentation is not ported yet (ROADMAP A12); the "
+                "flagship trains with both off")
         self.patch_size = np.asarray(cfg_dataset["patch_size"], dtype=np.float64)
         norm = cfg_dataset["normalize"]
         if norm.get("z_shift", "local_min") != "local_min":
             raise NotImplementedError(f"z_shift={norm['z_shift']!r}: only local_min "
                                       "is ported (ROADMAP A7)")
+        self.random_sample = bool(random_sample)
+        self.random_length = int(random_length) if random_length is not None else 10
+        self.dsm_data, self.dsm = (None, None) if dsm is None else dsm
+        if self.dsm is not None:
+            a, _, _, _, e, _ = self.dsm.transform
+            shape = self.patch_size / np.array([a, -e])
+            if not np.all(np.floor(shape) == shape):
+                raise ValueError("patch size must be a multiple of the DSM pixel size")
+            self._dsm_pixel_size = np.array([a, -e], dtype=np.float64)
+            self._dsm_patch_shape = shape.astype(np.int64)
         self.chunk_info_ls: List[Dict] = []
         self.data: List[Dict] = []
         self.anchor_points: List[Dict] = []
-        strip = np.asarray(cfg_dataset["sliding_window"][f"{split}_strip"], np.float64)
+        strip = (None if self.random_sample
+                 else np.asarray(cfg_dataset["sliding_window"][f"{split}_strip"], np.float64))
         for k, ch in enumerate(chunks):
             pts = np.ascontiguousarray(ch["points"], dtype=np.float64)
             info = {"name": ch["name"], "min_bound": list(ch["min_bound"]),
@@ -57,6 +81,8 @@ class SceneDataset:
             self.chunk_info_ls.append(info)
             self.data.append({"name": ch["name"], "inputs": pts,
                               "index": GridIndex2D(pts, cell_size=float(self.patch_size[0]) / 2.0)})
+            if self.random_sample:
+                continue
             mn = np.asarray(info["min_bound"], dtype=np.float64)
             mx = np.asarray(info["max_bound"], dtype=np.float64)
             px = np.arange(mn[0], mx[0] - self.patch_size[0], strip[0])
@@ -79,17 +105,26 @@ class SceneDataset:
         self.shift_norm[1, 3] = (yr[1] - yr[0]) / 2.0
 
     def __len__(self) -> int:
-        return len(self.anchor_points)
+        return self.random_length if self.random_sample else len(self.anchor_points)
 
     def _normalize_points(self, inputs, normalize_mat):
         inputs_norm = apply_transform(inputs, normalize_mat).astype(np.float32)
         inputs_norm, _ = crop_pc_2d(inputs_norm, self._min_norm_bound, self._max_norm_bound)
         return inputs_norm
 
-    def __getitem__(self, idx: int) -> dict:
-        a = self.anchor_points[idx]
-        chunk = self.data[a["chunk"]]
-        min_bound = a["anchor"].astype(np.float64)
+    def __getitem__(self, idx: int, rng: Optional[np.random.Generator] = None) -> dict:
+        """Patch ``idx``; ``rng`` draws a random anchor (the global numpy
+        generator when None, as the JAX dataset)."""
+        if self.random_sample:
+            k = idx % len(self.data)
+            mn = np.asarray(self.chunk_info_ls[k]["min_bound"], dtype=np.float64)[:2]
+            mx = np.asarray(self.chunk_info_ls[k]["max_bound"], dtype=np.float64)[:2]
+            rand = (rng if rng is not None else np.random).random(2)
+            anchor = rand * (mx - mn - self.patch_size[:2]) + mn  # no image: no snap
+        else:
+            k, anchor = self.anchor_points[idx]["chunk"], self.anchor_points[idx]["anchor"]
+        chunk = self.data[k]
+        min_bound = anchor.astype(np.float64)
         max_bound = min_bound + self.patch_size
         name = f"{chunk['name']}-patch{idx}"
         inputs, _ = chunk["index"].query(chunk["inputs"], min_bound, max_bound)
@@ -101,6 +136,16 @@ class SceneDataset:
         transform_mat[2, 3] = float(inputs[:, 2].min())  # local_min z shift
         # the JAX dataset's flip and rotation are identities when serving
         normalize_mat = self.shift_norm @ invert_transform(transform_mat)
-        return {"name": name, "inputs": self._normalize_points(inputs, normalize_mat),
-                "min_bound": min_bound.copy(), "max_bound": max_bound.copy(),
-                "is_valid": True}
+        out = {"name": name, "inputs": self._normalize_points(inputs, normalize_mat),
+               "min_bound": min_bound.copy(), "max_bound": max_bound.copy(),
+               "is_valid": True}
+        if self.dsm is not None:
+            # the anchor names the bottom-left pixel: crop the rows north of it
+            center = min_bound + self._dsm_pixel_size / 2.0
+            col, row = self.dsm.query_col_row(center[0], center[1])
+            h, w = self._dsm_patch_shape
+            crop = self.dsm_data[row - h + 1: row + 1, col: col + w]
+            if crop.shape != (h, w):
+                raise ValueError(f"{name}: target crop {crop.shape} leaves the nDSM")
+            out["dsm"] = np.ascontiguousarray(crop[::-1], dtype=np.float32)
+        return out

@@ -9,6 +9,7 @@ from typing import Any, Dict, Optional
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
 from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
@@ -21,7 +22,7 @@ class TomoSAR2Height(nn.Module):
                  encoder: str = "pointnet_local_pool",
                  encoder_kwargs: Optional[Dict[str, Any]] = None,
                  decoder_kwargs: Optional[Dict[str, Any]] = None,
-                 z_scale: float = 1.0):
+                 z_scale: float = 1.0, remat: bool = False):
         super().__init__()
         if use_image or not use_cloud:
             raise NotImplementedError(
@@ -35,6 +36,11 @@ class TomoSAR2Height(nn.Module):
         self.decoder = PixelwiseDecoder(kwargs.get("feature_dim", 32),
                                         **dict(decoder_kwargs or {}))
         self.z_scale = float(z_scale)
+        # rematerialize the point encoder (ALTO U-Net included) in the
+        # backward, as the JAX model's nn.remat (models/model.py:46-49,90-91):
+        # its activations are dropped after the forward and recomputed, K1-K4
+        # included, when the backward needs them
+        self.remat = bool(remat)
 
     def forward(self, input_cloud: torch.Tensor, cloud_mask: torch.Tensor,
                 input_image: Optional[torch.Tensor] = None,
@@ -44,11 +50,14 @@ class TomoSAR2Height(nn.Module):
         metadata) -> (height (B, S, S, out_dim) in meters, None): the JAX
         model's signature; ``input_image`` and the footprint output stay None
         until the image slice."""
-        if input_cloud.dtype != torch.float32:
+        if not input_cloud.is_floating_point():
             raise NotImplementedError(
-                "only float32 points are ported; the u16 point wire is ROADMAP A11")
-        planes = self.point_encoder(input_cloud, cloud_mask, cloud_cells,
-                                    cloud_offsets)
+                "only float points are ported; the u16 point wire is ROADMAP A11")
+        args = (input_cloud, cloud_mask, cloud_cells, cloud_offsets)
+        if self.remat and torch.is_grad_enabled():
+            planes = checkpoint(self.point_encoder, *args, use_reentrant=False)
+        else:
+            planes = self.point_encoder(*args)
         pa, _ = self.decoder(planes)
         return pa * self.z_scale, None  # reference model.py:67
 
@@ -68,4 +77,5 @@ def build_model(cfg) -> TomoSAR2Height:
         encoder_kwargs=dict(cfg_model.get("encoder_kwargs", {}) or {}),
         decoder_kwargs=dict(cfg_model.get("decoder_pixel_kwargs", {}) or {}),
         z_scale=float(z_bound[1]) - float(z_bound[0]),
+        remat=bool(cfg_model.get("remat", False)),
     )

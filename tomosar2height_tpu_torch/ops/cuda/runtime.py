@@ -1,10 +1,12 @@
 """Build, load and call the port's CUDA kernels (``csrc/*.cu``).
 
-The sources compile with ``nvcc`` for ``sm_90a`` into one shared library with
-a plain C interface, loaded with ``ctypes``. The library is built on first
-use into ``tomosar2height_tpu_torch/_build/`` (listed in ``.gitignore``),
-named by a hash of the sources and flags, so an edited source rebuilds and an
-unchanged one loads at once. Nothing is built or loaded at import time.
+Each source compiles with ``nvcc`` for ``sm_90a`` to an object file, all of
+them at once (one compiler process per source), and the objects link into one
+shared library with a plain C interface, loaded with ``ctypes``. The library
+is built on first use into ``tomosar2height_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the sources and flags, so an edited source
+rebuilds and an unchanged one loads at once. Nothing is built or loaded at
+import time.
 
 Each kernel wrapper adds one to its entry of :data:`LAUNCHES` where it
 launches its kernel, so a run can show which kernels its main path went
@@ -29,10 +31,11 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"pool_reduce": 0, "pool_gather": 0, "scatter_plane2": 0,
-            "fused_level": 0}
+            "fused_level": 0, "fused_level_bwd": 0, "level_bwd_reduce": 0,
+            "pool2_bwd": 0, "scatter_plane2_bwd": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -47,9 +50,11 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every function returns cudaError_t as int)
     "t2h_pool_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "t2h_pool_gather": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "t2h_pool_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "t2h_scatter_plane": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
+    "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
+    "t2h_level_bwd_reduce": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -83,24 +88,47 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds) -> str:
+    """Run the commands at once and wait for every one; raise if one failed.
+    Returns their joined output."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    outs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
+    for cmd, out, rc in outs:
+        if rc != 0:
+            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    return "".join(out for _, out, _ in outs)
+
+
+def _build(so_path: str, tag: str) -> str:
+    """Compile every source to an object, all at once, then link the shared
+    library; returns the compilers' output."""
+    nvcc = nvcc_path()
+    srcs = _sources()
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o") for s in srcs]
+    log = _run_all([nvcc, *NVCC_FLAGS, "-c", "-o", o, s] for s, o in zip(srcs, objs))
+    tmp = f"{so_path}.{tag}.tmp"
+    log += _run_all([[nvcc, "-shared", "-o", tmp, *objs]])
+    for obj in objs:
+        os.remove(obj)
+    os.replace(tmp, so_path)
+    return log
+
+
 def library() -> ctypes.CDLL:
     """The kernels' shared library: built with nvcc if missing, then loaded."""
     global _lib
     if _lib is not None:
         return _lib
-    so_path = os.path.join(BUILD_DIR, f"libt2h_kernels_{_digest()}.so")
+    digest = _digest()
+    so_path = os.path.join(BUILD_DIR, f"libt2h_kernels_{digest}.so")
     built, seconds, log = False, 0.0, ""
     if not os.path.exists(so_path):
         os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so_path}.{os.getpid()}.tmp"
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *_sources()]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = _build(so_path, f"{digest}.{os.getpid()}")
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-        os.replace(tmp, so_path)
         built = True
     lib = ctypes.CDLL(so_path)
     for name, argtypes in _SIGNATURES.items():

@@ -11,18 +11,11 @@ from __future__ import annotations
 import torch
 
 
-def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
-    """Bilinear sample of a (B, H, W, C) plane (row = y, col = x) at (B, N, 2)
-    xy in [0, 1]; returns (B, N, C)."""
-    b, h, w, c = plane.shape
+def _corners(coords: torch.Tensor, h: int, w: int):
+    """Pixel indices (x0, y0, x1, y1) and weights (wx, wy), each (B, N, 1)
+    for the weights, of the bilinear sample at xy in [0, 1]."""
     x = (coords[..., 0] * (w - 1)).clamp(0.0, w - 1)
     y = (coords[..., 1] * (h - 1)).clamp(0.0, h - 1)
-    flat = plane.reshape(b, h * w, c)
-
-    def take(yi, xi):
-        idx = (yi * w + xi).long()[..., None].expand(*yi.shape, c)
-        return torch.gather(flat, 1, idx)
-
     x0 = torch.floor(x).to(torch.int32).clamp(0, w - 1)
     y0 = torch.floor(y).to(torch.int32).clamp(0, h - 1)
     wx = (x - x0.to(x.dtype))[..., None]
@@ -30,6 +23,36 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     # at the last pixel the +1 neighbour has weight exactly 0: clamp its index
     x1 = (x0 + 1).clamp(max=w - 1)
     y1 = (y0 + 1).clamp(max=h - 1)
+    return x0, y0, x1, y1, wx, wy
+
+
+def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """Bilinear sample of a (B, H, W, C) plane (row = y, col = x) at (B, N, 2)
+    xy in [0, 1]; returns (B, N, C)."""
+    b, h, w, c = plane.shape
+    flat = plane.reshape(b, h * w, c)
+
+    def take(yi, xi):
+        idx = (yi * w + xi).long()[..., None].expand(*yi.shape, c)
+        return torch.gather(flat, 1, idx)
+
+    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
     top = take(y0, x0) * (1 - wx) + take(y0, x1) * wx
     bot = take(y1, x0) * (1 - wx) + take(y1, x1) * wx
     return top * (1 - wy) + bot * wy
+
+
+def grid_sample_2d_adjoint(g: torch.Tensor, coords: torch.Tensor, h: int,
+                           w: int) -> torch.Tensor:
+    """The transpose of :func:`grid_sample_2d`: add each point's (B, N, C)
+    cotangent into its four pixels of a (B, H, W, C) plane, weighted as the
+    sample weighs them."""
+    b, n, c = g.shape
+    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
+    base = (torch.arange(b, device=g.device) * (h * w))[:, None]
+    out = torch.zeros(b * h * w, c, device=g.device, dtype=g.dtype)
+    for yi, xi, wgt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
+                        (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
+        idx = (base + (yi * w + xi).long()).reshape(-1)
+        out.index_add_(0, idx, (g * wgt).reshape(b * n, c))
+    return out.reshape(b, h, w, c)

@@ -45,15 +45,21 @@ def segment_counts(index: torch.Tensor, num_segments: int,
     return counts[: b * num_segments].reshape(b, num_segments, 1)
 
 
-def segment_mean(values: torch.Tensor, index: torch.Tensor, num_segments: int,
-                 mask: Optional[torch.Tensor] = None,
-                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Masked per-cell mean of (B, N, C) values -> (B, num_segments, C)."""
+def segment_sum(values: torch.Tensor, index: torch.Tensor, num_segments: int,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked per-cell sum of (B, N, C) values -> (B, num_segments, C)."""
     b, n, c = values.shape
     seg = _flat_segments(index, mask, num_segments)
     sums = torch.zeros(b * num_segments + 1, c, device=values.device,
                        dtype=values.dtype).index_add_(0, seg, values.reshape(b * n, c))
-    sums = sums[: b * num_segments].reshape(b, num_segments, c)
+    return sums[: b * num_segments].reshape(b, num_segments, c)
+
+
+def segment_mean(values: torch.Tensor, index: torch.Tensor, num_segments: int,
+                 mask: Optional[torch.Tensor] = None,
+                 counts: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Masked per-cell mean of (B, N, C) values -> (B, num_segments, C)."""
+    sums = segment_sum(values, index, num_segments, mask)
     if counts is None:
         counts = segment_counts(index, num_segments, mask)
     return sums / counts.to(sums.dtype).clamp_min(1.0)

@@ -145,3 +145,15 @@ def morton_to_plane(vec: torch.Tensor, reso: int) -> torch.Tensor:
     xs = tuple(2 + 2 * i for i in range(bits))
     perm = (0,) + ys + xs + (2 * bits + 1,)
     return x.permute(perm).reshape(b, reso, reso, c)
+
+
+def plane_to_morton(plane: torch.Tensor) -> torch.Tensor:
+    """(B, reso, reso, C) row-major -> (B, reso*reso, C) Morton-ordered; the
+    inverse of :func:`morton_to_plane`."""
+    b, reso, _, c = plane.shape
+    bits = int(reso).bit_length() - 1
+    x = plane.reshape((b,) + (2,) * (2 * bits) + (c,))
+    # row-major dims after the reshape: (y_{b-1}, ..., y_0, x_{b-1}, ..., x_0)
+    perm = (0,) + tuple(d for i in range(bits) for d in (1 + i, 1 + bits + i)) \
+        + (2 * bits + 1,)
+    return x.permute(perm).reshape(b, reso * reso, c)
