@@ -10,15 +10,26 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build: the kernels (``tomosar2height_tpu_torch/csrc/*.cu``) with nvcc for
    sm_90a, into ``tomosar2height_tpu_torch/_build/``;
 3. kernels: each kernel against its plain torch version at the flagship
-   shapes (batch 8, 16384-point buckets on the aligned layout), with the
-   median time of each over 20 runs (CUDA events);
+   shapes (batch 8, 16384-point buckets on the aligned layout; the conv
+   kernels K6-K8 at every shape of a batch-8 fusion forward), with the
+   median time of each over 20 runs (3-5 for the conv chains; CUDA events),
+   of one PyTorch library call computing the same function where there is
+   one, and the bound (bytes over the HBM rate or fp32 operations over the
+   fp32 peak, whichever is larger);
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
    loader and DSMGenerator at batch 8 on both paths, the GeoTIFF's data
    block read back, tiles/s, peak memory and the kernel launch counts of
    the timed run;
-6. train: the flagship training step (batch 8, 16384-point buckets, 8
+6. fusion-serve: the cloud+image fusion network (``fusion_config()``: the
+   flagship plus the depth-6 image U-Net over the city's RGB image) serving
+   the same city at batch 8 in three variants from one set of weights:
+   fused2 + fused_convs + fused_head (K1-K4, K6, K7), unsorted with
+   FAST_CONV (K8 only) and unsorted plain (no kernel); tiles/s, forward ms,
+   peak memory and launches per forward of each, the launch counts asserted
+   and the two kernel rasters held to the plain one;
+7. train: the flagship training step (batch 8, 16384-point buckets, 8
    mini-steps per optimizer step, remat) on random patches of the same city
    with its nDSM as target, through the port's training loader and
    ``train/loop.py``, on the fused2 kernel path and the unsorted plain path
@@ -30,8 +41,10 @@ Phase 3 also holds every backward (K5 at the eight levels, the pool2 and
 scatter_plane2 backwards on K1/K2) against its plain version.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
-kernel table as JSON, ``launches`` from the timed training run (the slice's
-main path) and ``launches_serve`` from the timed serving run. Imports nothing of JAX or of the JAX package
+kernel table as JSON: ``launches`` from the timed training run for K1-K5
+and the backwards, from the timed fusion-serve runs for K6-K8 (each the
+main path that runs it), ``launches_serve`` from the timed cloud-only
+serving run. Imports nothing of JAX or of the JAX package
 (``tomosar2height_tpu``), and checks that at the end. Needs one CUDA card and
 nvcc.
 """
@@ -50,6 +63,11 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 TOL = 1e-5  # f32 kernel vs plain, atol and rtol (the JAX package's own)
 DEVICE = "cuda"
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
+# and fp32 FLOP/s outside the tensor cores; a bound is the larger of bytes
+# over the first and operations over the second
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -115,6 +133,18 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
+def bound(nbytes: float, flops: float):
+    """(least ms the card could take, what bounds it) for a function that
+    must move ``nbytes`` (inputs read once, outputs written once) and do
+    ``flops`` fp32 operations."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
 def flagship_batch(seed: int, b: int = 8, n: int = 16384, reso: int = 256):
     """B patches of n uniform points (5% masked), unsorted and on the aligned
     layout (points, mask, cells, tile offsets; trimmed as the loader does)."""
@@ -167,6 +197,32 @@ def _weight_tol(ref):
     return WEIGHT_RTOL * float(ref.abs().max()), WEIGHT_RTOL
 
 
+def _entry_fn(rows):
+    def entry(name, source, replaces, pairs, kfn, pfn, work, lfn=None,
+              tol=f"{TOL:g} abs+rel", iters=20):
+        """pairs: (kernel, plain[, atol, rtol]) tuples; work: (bytes, flops)
+        the function needs on these inputs; lfn: one PyTorch call computing
+        the same function (timed as a yardstick), or None."""
+        errs = [_compare(*pair) for pair in pairs]
+        err = max(e for e, _ in errs)
+        ok = all(o for _, o in errs)
+        ms, plain_ms = cuda_ms(kfn, iters), cuda_ms(pfn, iters)
+        lib_ms = cuda_ms(lfn, iters) if lfn is not None else None
+        bound_ms, bound_by = bound(*work)
+        log("kernels", f"{name}: max|d| {err:.3g} (tol {tol}) "
+            f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
+            f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms | bound "
+            f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, "
+            f"{work[1] / 1e12:.4f} TFLOP)")
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: {err}")
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "max_abs_err": err, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": lib_ms})
+    return entry
+
+
 def check_kernels(seed: int = 0):
     """Each kernel against its plain version at the flagship shapes."""
     import torch
@@ -189,19 +245,7 @@ def check_kernels(seed: int = 0):
     log("kernels", f"B={b} Npad={npad} valid={int(amask.sum())} reso={reso}")
     rows = []
 
-    def entry(name, source, replaces, pairs, kfn, pfn, tol=f"{TOL:g} abs+rel"):
-        """pairs: (kernel, plain[, atol, rtol]) tuples."""
-        errs = [_compare(*pair) for pair in pairs]
-        err = max(e for e, _ in errs)
-        ok = all(o for _, o in errs)
-        ms, plain_ms = cuda_ms(kfn), cuda_ms(pfn)
-        log("kernels", f"{name}: max|d| {err:.3g} (tol {tol}) "
-            f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms")
-        if not ok:
-            raise AssertionError(f"{name} disagrees with its plain version: {err}")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms})
+    entry = _entry_fn(rows)
 
     ncell = reso * reso
     pairs = []
@@ -210,16 +254,30 @@ def check_kernels(seed: int = 0):
         p = pk.pool_reduce_plain(vals, cells, mask, ncell, kind)
         pairs.append((k, p))
     cellv = pairs[0][1]
+    # the library yardsticks index the flat (B * ncell) cells; masked rows go
+    # to one spare row
+    nf = vals.shape[-1]
+    flat = torch.where(mask & (cells >= 0),
+                       cells + ncell * torch.arange(b, device=dev)[:, None],
+                       torch.full_like(cells, b * ncell)).reshape(-1).long()
+    flat_f = flat[:, None].expand(-1, nf)
+    vals_flat = vals.reshape(-1, nf)
+    out_bytes = b * ncell * nf * 4
     entry("pool_reduce", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:46", pairs,
           lambda: pk.pool_reduce(vals, cells, mask, ncell, "max"),
-          lambda: pk.pool_reduce_plain(vals, cells, mask, ncell, "max"))
+          lambda: pk.pool_reduce_plain(vals, cells, mask, ncell, "max"),
+          (nbytes(vals, cells, mask) + out_bytes, vals.numel()),
+          lambda: torch.zeros(b * ncell + 1, nf, device=dev).scatter_reduce_(
+              0, flat_f, vals_flat, "amax", include_self=False))
     entry("pool_gather", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:133",
           [(pk.pool_gather(cellv, cells, mask),
             pk.pool_gather_plain(cellv, cells, mask))],
           lambda: pk.pool_gather(cellv, cells, mask),
-          lambda: pk.pool_gather_plain(cellv, cells, mask))
+          lambda: pk.pool_gather_plain(cellv, cells, mask),
+          (nbytes(cellv, cells, mask, vals), 0),
+          lambda: cellv.reshape(-1, nf).index_select(0, flat.clamp_max(b * ncell - 1)))
     kp, kc = pk.scatter_plane2(vals, cells, mask, reso)
     pp, pc = pk.scatter_plane2_plain(vals, cells, mask, reso)
     if not torch.equal(kc, pc):
@@ -227,7 +285,10 @@ def check_kernels(seed: int = 0):
     entry("scatter_plane2", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:263", [(kp, pp)],
           lambda: pk.scatter_plane2(vals, cells, mask, reso),
-          lambda: pk.scatter_plane2_plain(vals, cells, mask, reso))
+          lambda: pk.scatter_plane2_plain(vals, cells, mask, reso),
+          (nbytes(vals, cells, mask, kp, kc), vals.numel()),
+          lambda: torch.zeros(b * ncell + 1, nf, device=dev).scatter_reduce_(
+              0, flat_f, vals_flat, "mean", include_self=False))
 
     # the backwards of pool2 (K1 mean/sum, then K2) and scatter_plane2 (K2)
     g = torch.randn(vals.shape, generator=gen).to(dev)
@@ -240,16 +301,21 @@ def check_kernels(seed: int = 0):
     entry("pool2_bwd", "tomosar2height_tpu_torch/ops/cuda/pool2_kernel.py",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:492", pairs,
           lambda: [pk.pool2_bwd(*a) for a in bwd_args],
-          lambda: [pk.pool2_bwd_plain(*a) for a in bwd_args])
+          lambda: [pk.pool2_bwd_plain(*a) for a in bwd_args],
+          (sum(nbytes(*a[:5], vals) for a in bwd_args), 2 * vals.numel()))
     g_plane = torch.randn(b, reso, reso, vals.shape[-1], generator=gen).to(dev)
     a = (g_plane, cells, mask, kc)
     entry("scatter_plane2_bwd", "tomosar2height_tpu_torch/ops/cuda/pool2_kernel.py",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:424",
           [(pk.scatter_plane2_bwd(*a), pk.scatter_plane2_bwd_plain(*a))],
-          lambda: pk.scatter_plane2_bwd(*a), lambda: pk.scatter_plane2_bwd_plain(*a))
+          lambda: pk.scatter_plane2_bwd(*a), lambda: pk.scatter_plane2_bwd_plain(*a),
+          (nbytes(*a, vals), vals.numel()))
 
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
+    red_l = []
+    work = {k: [0, 0] for k in ("level", "bwd", "reduce")}
+    valid = int(mask.sum())
     for r, f, fl in LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
         c_last = (torch.randn(b, npad, fl, generator=gen).to(dev)
@@ -264,6 +330,8 @@ def check_kernels(seed: int = 0):
             raise AssertionError(f"fused_level counts differ at {(r, f, fl)}")
         e0, e1 = _compare(ko[0], po[0]), _compare(ko[1], po[1])
         pairs += [(ko[0], po[0]), (ko[1], po[1])]
+        work["level"][0] += nbytes(plane, c_last, xy, cells, mask, *w, *ko)
+        work["level"][1] += 2 * valid * (4 * f * f + f * fl)
         kfns.append(lambda a=args: lk.fused_level(*a))
         pfns.append(lambda a=args: lk.fused_level_plain(*a))
         # K5 on random output cotangents, rows off the ReLU kink (KINK), with
@@ -279,6 +347,9 @@ def check_kernels(seed: int = 0):
         level_pairs = [(kb[0], pb[0], *BWD_TOL), (kb[1], pb[1], *BWD_TOL)]
         level_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
         bwd_pairs += level_pairs
+        work["bwd"][0] += nbytes(plane, c_last, xy, cells, mask5, counts5, g_p, g_c, *w,
+                                 kb[0], kb[1], *kb[2])
+        work["bwd"][1] += 2 * int(mask5.sum()) * (10 * f * f + 2 * f * fl)
         ed = max(_compare(*pair)[0] for pair in level_pairs)
         log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
             f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
@@ -294,22 +365,138 @@ def check_kernels(seed: int = 0):
             kr = lk.level_bwd_reduce(ra, rb, bias)
             pr = lk.level_bwd_reduce_plain(ra, rb, bias)
             red_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kr, pr) if y is not None]
+            work["reduce"][0] += nbytes(ra, rb, *kr)
+            work["reduce"][1] += 2 * m * ka * nb
+            red_l.append(lambda a=(ra, rb): torch.matmul(a[0].t(), a[1]))
             red_k.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce(*a))
             red_p.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce_plain(*a))
     entry("fused_level", "tomosar2height_tpu_torch/csrc/level.cu",
           "tomosar2height_tpu/ops/pallas/level_kernel.py:110", pairs,
-          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns])
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work["level"])
     bwd_tol = (f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; weights "
                f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     entry("fused_level_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", bwd_pairs,
-          lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p], bwd_tol)
+          lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p], work["bwd"],
+          tol=bwd_tol)
     entry("level_bwd_reduce", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
-          lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
-          f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
+          lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p], work["reduce"],
+          lambda: [fn() for fn in red_l],
+          tol=f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     torch.cuda.synchronize()
+    check_conv_kernels(entry, seed)
     return rows
+
+
+# (H = W, Cin, C, pool) of the 20 conv pairs of a fusion forward (K7): the
+# nine ALTO levels, then the eleven image U-Net levels; each pair is
+# Cin -> C -> C. The decoder (K6): 512^2, 32 -> 64 -> 128 -> 64, head 288 -> 1.
+ALTO_PAIRS = [(256, 32, 32, False), (256, 32, 64, False), (128, 64, 128, False),
+              (64, 128, 256, False), (32, 256, 512, False), (64, 512, 256, False),
+              (128, 256, 128, False), (256, 128, 64, False), (256, 64, 32, False)]
+IMAGE_PAIRS = [(512, 3, 32, True), (256, 32, 64, True), (128, 64, 128, True),
+               (64, 128, 256, True), (32, 256, 512, True), (16, 512, 1024, False),
+               (32, 1024, 512, False), (64, 512, 256, False), (128, 256, 128, False),
+               (256, 128, 64, False), (512, 64, 32, False)]
+DECODER = (512, 32, (64, 128, 64), 1)
+# (H = W, Cin, Cout) of the 43 Conv3x3 of a fusion forward under FAST_CONV (K8)
+CONVS = ([c for h, cin, f, _ in ALTO_PAIRS + IMAGE_PAIRS for c in ((h, cin, f), (h, f, f))]
+         + [(512, 32, 64), (512, 64, 128), (512, 128, 64)])
+
+
+def _conv_w(gen, cin, cout, k, dev):
+    """HWIO weights at std min(0.2, fan_in^-0.5), biases at std 0.1 (the
+    tests' draw: activations stay O(1) through the chain)."""
+    import torch
+
+    std = min(0.2, (k * k * cin) ** -0.5)
+    return ((torch.randn(k, k, cin, cout, generator=gen) * std).to(dev),
+            (torch.randn(cout, generator=gen) * 0.1).to(dev))
+
+
+def _check_or_explain(name, got, want, plain_fn, args):
+    """Hold got to want at TOL; where they disagree, log each one's distance
+    from a float64 run of the plain version, to show which side is off."""
+    err, ok = _compare(got, want)
+    if not ok:
+        ref = plain_fn(*(a.double() for a in args))
+        ref = ref[0] if isinstance(ref, tuple) else ref
+        log("kernels", f"{name}: max|d| {err:.3g} over tol; against float64: kernel "
+            f"{float((got.double() - ref).abs().max()):.3g}, plain "
+            f"{float((want.double() - ref).abs().max()):.3g}")
+    return got, want
+
+
+def check_conv_kernels(entry, seed: int = 0):
+    """K8 at the 43 convs, K7 at the 20 pairs and K6 at the decoder of a
+    batch-8 fusion forward, each against its plain version; K8 also beside
+    one ``F.conv2d`` (cuDNN, full fp32) per conv."""
+    import torch
+    import torch.nn.functional as F
+
+    from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
+    from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
+    from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator().manual_seed(seed + 7)
+    b = 8
+    x_of = lambda h, c: torch.randn(b, h, h, c, generator=gen).to(dev)  # noqa: E731
+
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    for h, cin, cout in CONVS:
+        x = x_of(h, cin)
+        w, bias = _conv_w(gen, cin, cout, 3, dev)
+        args = (x, w, bias)
+        pairs.append(_check_or_explain(f"conv3x3 {h}^2 {cin}->{cout}", ck.conv3x3(*args, True),
+                                       ck.conv3x3_plain(*args, True),
+                                       lambda *a: ck.conv3x3_plain(*a, True), args))
+        x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+        work[0] += nbytes(x, w, bias) + b * h * h * cout * 4
+        work[1] += 2 * b * h * h * 9 * cin * cout
+        kfns.append(lambda a=args: ck.conv3x3(*a, True))
+        pfns.append(lambda a=args: ck.conv3x3_plain(*a, True))
+        lfns.append(lambda a=(x_nchw, w_oihw, bias): F.conv2d(*a, padding=1))
+    entry("conv3x3", "tomosar2height_tpu_torch/csrc/conv.cu",
+          "tomosar2height_tpu/ops/pallas/conv_kernel.py:43", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
+          lambda: [fn() for fn in lfns], iters=3)
+    del pairs, kfns, pfns, lfns
+
+    pairs, kfns, pfns, work = [], [], [], [0, 0]
+    for h, cin, c, pool in ALTO_PAIRS + IMAGE_PAIRS:
+        x = x_of(h, cin)
+        args = (x, *_conv_w(gen, cin, c, 3, dev), *_conv_w(gen, c, c, 3, dev))
+        ky, kp = cpk.conv_pair(*args, pool)
+        py, pp = cpk.conv_pair_plain(*args, pool)
+        name = f"conv_pair {h}^2 {cin}->{c}->{c}"
+        pairs.append(_check_or_explain(name, ky, py, lambda *a: cpk.conv_pair_plain(*a, pool),
+                                       args))
+        if pool:
+            pairs.append((kp, pp))
+        work[0] += nbytes(*args, ky, kp)
+        work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
+        kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
+        pfns.append(lambda a=args, p=pool: cpk.conv_pair_plain(*a, p))
+    entry("conv_pair", "tomosar2height_tpu_torch/csrc/convpair.cu",
+          "tomosar2height_tpu/ops/pallas/convpair_kernel.py:36", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work, iters=3)
+    del pairs, kfns, pfns
+
+    h, c0, (c1, c2, c3), co = DECODER
+    x = x_of(h, c0)
+    args = (x, *_conv_w(gen, c0, c1, 3, dev), *_conv_w(gen, c1, c2, 3, dev),
+            *_conv_w(gen, c2, c3, 3, dev), *_conv_w(gen, c0 + c1 + c2 + c3, co, 1, dev))
+    got = dk.conv_decoder(*args)
+    flops = 2 * b * h * h * (9 * (c0 * c1 + c1 * c2 + c2 * c3) + (c0 + c1 + c2 + c3) * co)
+    entry("conv_decoder", "tomosar2height_tpu_torch/csrc/decoder.cu",
+          "tomosar2height_tpu/ops/pallas/decoder_kernel.py:85",
+          [_check_or_explain("conv_decoder", got, dk.conv_decoder_plain(*args),
+                             dk.conv_decoder_plain, args)],
+          lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
+          (nbytes(*args, got), flops), iters=5)
+    torch.cuda.synchronize()
 
 
 def flagship_model(seed: int):
@@ -320,8 +507,8 @@ def flagship_model(seed: int):
     from tomosar2height_tpu_torch.models import build_model, init_weights
 
     cfg = flagship_config()
-    model = init_weights(build_model(cfg), torch.Generator().manual_seed(seed))
-    return cfg, model.to(DEVICE).eval()
+    model = init_weights(build_model(cfg, DEVICE), torch.Generator().manual_seed(seed))
+    return cfg, model.eval()
 
 
 def _height_tol(cfg) -> float:
@@ -369,7 +556,7 @@ def serve(seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import runtime
 
     w, h = CITY["W"], CITY["H"]
-    _, pts = build_city(seed, **CITY)
+    _, pts, _ = build_city(seed, **CITY)
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
                "points": pts}]
     cfg, model = flagship_model(seed)
@@ -421,6 +608,104 @@ def serve(seed: int = 0):
     return launches
 
 
+# kernel launches per batch-8 forward of the fusion network on its kernel
+# path (fused2 + fused_convs + fused_head; the footprint head is skipped when
+# serving) and on the FAST_CONV path (unsorted, every Conv3x3 on K8)
+FUSION_LAUNCHES = {"pool_reduce": 4, "pool_gather": 4, "scatter_plane2": 1,
+                   "fused_level": 8, "conv_pair": len(ALTO_PAIRS + IMAGE_PAIRS),
+                   "conv_decoder": 1}
+FAST_CONV_LAUNCHES = {"conv3x3": len(CONVS)}
+
+
+def fusion_serve(seed: int = 0):
+    """The cloud+image fusion network serving the synthetic city with its RGB
+    image, batch 8, in three variants from the same weights: (a) fused2 +
+    fused_convs + fused_head (K1-K4, K6, K7), (b) unsorted with FAST_CONV (K8
+    only), (c) unsorted plain (no kernel). Each timed run is the second
+    ``generate_dsm`` of its variant, launches counted from 0 around it; (a)
+    and (b) are held to (c)."""
+    import tempfile
+
+    import torch
+
+    from tomosar2height_tpu_torch.config import fusion_config
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+    from tomosar2height_tpu_torch.infer.generator import make_generator
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.models.blocks import set_fast_conv
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    w, h = CITY["W"], CITY["H"]
+    _, pts, rgb = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    image = (rgb, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+    cfg = fusion_config()
+    model = init_weights(build_model(cfg, DEVICE), torch.Generator().manual_seed(seed))
+    plain_cfg = json.loads(json.dumps(cfg))
+    plain_cfg["dataset"]["points"]["sort"] = False
+    plain_cfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = False
+    plain_cfg["model"]["encoder2_kwargs"]["fused_convs"] = False
+    plain_cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
+    plain_model = build_model(plain_cfg, DEVICE)
+    plain_model.load_state_dict(model.state_dict())
+    variants = {"kernels": (cfg, model.eval(), False, FUSION_LAUNCHES),
+                "fast_conv": (plain_cfg, plain_model.eval(), True, FAST_CONV_LAUNCHES),
+                "plain": (plain_cfg, plain_model, False, {})}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, (vcfg, vmodel, fast, per_batch) in variants.items():
+            set_fast_conv(fast)
+            gen = make_generator(vmodel, vcfg, chunks, image=image)
+            n_batches = len(gen.data_loader)
+            batch = next(iter(gen.data_loader))
+            up = {k: torch.from_numpy(batch[k]).to(DEVICE)
+                  for k in ("points", "point_mask", "image", "cell_offsets") if k in batch}
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: vmodel(up["points"], up["point_mask"], up["image"],
+                                                None, up.get("cell_offsets"),
+                                                footprint=False), iters=3, warmup=1)
+            gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runtime.reset_launches()
+            r = gen.generate_dsm(os.path.join(tmp, f"{name}.tif"))
+            torch.cuda.synchronize()
+            launches = dict(runtime.LAUNCHES)
+            set_fast_conv(False)
+            stats = gen.last_stats
+            want = {k: per_batch.get(k, 0) * n_batches for k in launches}
+            out[name] = {"raster": r.data, "transform": r.transform, "launches": launches,
+                         "fwd_ms": fwd_ms}
+            log("fusion-serve", f"{name}: {stats['n_patches']} tiles in {n_batches} batches "
+                f"| {stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
+                f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
+                f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
+                f"{stats['finalize_write_s']:.3f}) | forward {fwd_ms:.1f} ms per batch "
+                f"(median of 3) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+                f"launches per forward {({k: v / n_batches for k, v in launches.items() if v})}")
+            if launches != want:
+                raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+    ref = out["plain"]["raster"]
+    nan = np.isnan(ref)
+    if ref.shape != (h, w) or nan.all():
+        raise AssertionError(f"bad plain raster {ref.shape}")
+    tol = _height_tol(cfg)
+    for name in ("kernels", "fast_conv"):
+        da = out[name]["raster"]
+        if (da.shape != ref.shape or out[name]["transform"] != out["plain"]["transform"]
+                or not np.array_equal(np.isnan(da), nan)):
+            raise AssertionError(f"{name}: raster differs from plain in shape/transform/NaN")
+        err = float(np.abs(da[~nan] - ref[~nan]).max())
+        log("fusion-serve", f"{name} vs plain raster {da.shape}: max|d| {err:.3g} m (tol "
+            f"{tol:.3g} m), NaN px {int(nan.sum())}, |h| max {float(ref[~nan].max()):.3g} m")
+        if err > tol:
+            raise AssertionError(f"{name} and plain rasters differ by {err} m")
+    return {k: v for name in ("kernels", "fast_conv")
+            for k, v in out[name]["launches"].items() if v}
+
+
 # kernel launches of one fused2 training mini-step with remat: the encoder's
 # forward (K1 4, K2 4, K3 1, K4 8) runs twice, the second time recomputed in
 # the backward; the backward adds the max-pools' K1 'sum' + K2 (4 each), the
@@ -444,7 +729,7 @@ def train_phase(seed: int = 0):
     from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
 
     w, h = CITY["W"], CITY["H"]
-    ndsm, pts = build_city(seed, **CITY)
+    ndsm, pts, _ = build_city(seed, **CITY)
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
                "points": pts}]
     dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
@@ -493,7 +778,8 @@ def train_phase(seed: int = 0):
     fused, plain = runs["fused2"], runs["plain"]
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
-    want = {key: v * fused["n"] for key, v in TRAIN_LAUNCHES.items()}
+    want = {**dict.fromkeys(fused["launches"], 0),
+            **{key: v * fused["n"] for key, v in TRAIN_LAUNCHES.items()}}
     per_step = {key: v / fused["n"] for key, v in fused["launches"].items()}
     # the L1 loss moves by at most the heights' own difference: the model
     # phase's bound
@@ -515,11 +801,13 @@ def main():
     rows = check_kernels()
     check_model()
     serve_launches = serve()
+    fusion_launches = fusion_serve()
     launches = train_phase()
     import torch
 
     for row in rows:
-        row["launches"] = launches[row["name"]]
+        # K1-K5 and the backwards: the training step; K6-K8: fusion serving
+        row["launches"] = launches.get(row["name"]) or fusion_launches[row["name"]]
         row["launches_serve"] = serve_launches.get(row["name"], 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))

@@ -1,5 +1,5 @@
-"""The PyTorch port's CUDA kernels K1-K5 against their plain versions, on the
-card, forward and backward. Marked ``cuda``: they skip where no CUDA card is
+"""The PyTorch port's CUDA kernels K1-K8 against their plain versions, on the
+card, forward and backward (K6-K8 backward: the plain composition's). Marked ``cuda``: they skip where no CUDA card is
 present (the kernels have no CPU mode). This file imports no JAX, so it runs on a machine without
 it; there, skip ``tests/conftest.py`` (which imports JAX):
 
@@ -10,7 +10,8 @@ It also holds the numpy input builders that ``test_torch_pool2*.py`` and
 atol): float atomics sum in another order than the plain versions. K5's
 d_plane and d_c_last: 2e-5 abs + 2e-4 rel (tests/test_fused_level_bwd.py);
 its weight gradients are sums over every row, so 3e-4 * max|ref| abs + 3e-4
-rel.
+rel. The conv kernels K6-K8: 1e-5 abs + rel (fp32 FMA in another order than
+cuDNN's full-fp32 convolutions).
 """
 
 from __future__ import annotations
@@ -19,6 +20,9 @@ import numpy as np
 import pytest
 import torch
 
+from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
+from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
+from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
 from tomosar2height_tpu_torch.ops.cuda import runtime
@@ -130,6 +134,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -263,3 +268,83 @@ class TestLevelBackwardKernel:
         torch.cuda.synchronize()
         assert runtime.LAUNCHES["fused_level_bwd"] == n0 + 1
         assert torch.isfinite(p.grad).all() and all(torch.isfinite(x.grad).all() for x in w)
+
+
+def conv_weights(rng, cin, cout, k=3):
+    """HWIO weights at std min(0.2, fan_in^-0.5) and small biases."""
+    std = min(0.2, (k * k * cin) ** -0.5)
+    return (rng.normal(0, std, (k, k, cin, cout)).astype(np.float32),
+            rng.normal(0, 0.1, cout).astype(np.float32))
+
+
+@pytest.mark.cuda
+class TestConvKernels:
+    @pytest.mark.parametrize("h,w,cin,cout,relu", [
+        (24, 16, 5, 12, True), (24, 24, 3, 32, False), (16, 16, 64, 72, True),
+        (32, 32, 40, 1, True)])
+    def test_conv3x3_matches_plain(self, cuda, h, w, cin, cout, relu):
+        rng = np.random.default_rng(0)
+        x = t(rng.normal(0, 1, (2, h, w, cin)).astype(np.float32), cuda)
+        k, b = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        n0 = runtime.LAUNCHES["conv3x3"]
+        got = ck.conv3x3(x, k, b, relu)
+        want = ck.conv3x3_plain(x, k, b, relu)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["conv3x3"] == n0 + 1
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("h,w,cin,c1,c2,pool", [
+        (24, 16, 3, 8, 12, True), (24, 24, 32, 32, 32, False), (16, 16, 64, 128, 128, True),
+        (8, 8, 256, 512, 512, False), (16, 16, 512, 1024, 1024, True),
+        (8, 16, 40, 36, 64, True), (12, 16, 8, 16, 320, True)])
+    def test_conv_pair_matches_plain(self, cuda, h, w, cin, c1, c2, pool):
+        rng = np.random.default_rng(1)
+        x = t(rng.normal(0, 1, (2, h, w, cin)).astype(np.float32), cuda)
+        w1, b1 = (t(a, cuda) for a in conv_weights(rng, cin, c1))
+        w2, b2 = (t(a, cuda) for a in conv_weights(rng, c1, c2))
+        n0 = runtime.LAUNCHES["conv_pair"]
+        got = cpk.conv_pair(x, w1, b1, w2, b2, pool)
+        want = cpk.conv_pair_plain(x, w1, b1, w2, b2, pool)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["conv_pair"] == n0 + 1
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        if pool:
+            torch.testing.assert_close(got[1], want[1], **TOL)
+        else:
+            assert got[1] is None
+
+    @pytest.mark.parametrize("h,w,cin,cout", [(24, 16, 4, 2), (64, 64, 32, 1)])
+    def test_conv_decoder_matches_plain(self, cuda, h, w, cin, cout):
+        rng = np.random.default_rng(2)
+        x = t(rng.normal(0, 1, (2, h, w, cin)).astype(np.float32), cuda)
+        ws = [conv_weights(rng, cin, 64), conv_weights(rng, 64, 128),
+              conv_weights(rng, 128, 64), conv_weights(rng, cin + 256, cout, k=1)]
+        args = [x] + [t(a, cuda) for pair in ws for a in pair]
+        n0 = runtime.LAUNCHES["conv_decoder"]
+        got = dk.conv_decoder(*args)
+        want = dk.conv_decoder_plain(*args)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["conv_decoder"] == n0 + 1
+        torch.testing.assert_close(got, want, **TOL)
+
+    def test_backward_is_the_plain_composition(self, cuda):
+        rng = np.random.default_rng(3)
+        x = t(rng.normal(0, 1, (2, 16, 16, 8)).astype(np.float32), cuda).requires_grad_()
+        w1, b1 = (t(a, cuda).requires_grad_() for a in conv_weights(rng, 8, 16))
+        w2, b2 = (t(a, cuda).requires_grad_() for a in conv_weights(rng, 16, 16))
+        y, p = cpk.conv_pair(x, w1, b1, w2, b2, True)
+        (y.sum() + (p ** 2).sum()).backward()
+        got = [a.grad.clone() for a in (x, w1, b1, w2, b2)]
+        for a in (x, w1, b1, w2, b2):
+            a.grad = None
+        y, p = cpk.conv_pair_plain(x, w1, b1, w2, b2, True)
+        (y.sum() + (p ** 2).sum()).backward()
+        for g, a in zip(got, (x, w1, b1, w2, b2)):
+            torch.testing.assert_close(g, a.grad, rtol=1e-4, atol=1e-4)
+
+    def test_non_contiguous_input_raises(self, cuda):
+        rng = np.random.default_rng(4)
+        x = t(rng.normal(0, 1, (2, 3, 16, 16)).astype(np.float32), cuda).permute(0, 2, 3, 1)
+        k, b = (t(a, cuda) for a in conv_weights(rng, 3, 8))
+        with pytest.raises(ValueError, match="contiguous"):
+            ck.conv3x3(x, k, b)

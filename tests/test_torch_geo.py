@@ -84,8 +84,10 @@ def test_geotiff_bytes_match(tmp_path, rng, monkeypatch, rows, cols, epsg, bigti
 def test_build_city_matches_script():
     import make_synthetic_city as msc
 
-    ndsm, pts = synthetic.build_city(3, density=0.1, n_buildings=6, W=200, H=150)
+    ndsm, pts, rgb = synthetic.build_city(3, density=0.1, n_buildings=6, W=200, H=150)
     ref = msc.build_city(3, density=0.1, n_buildings=6, W=200, H=150)
     np.testing.assert_array_equal(ndsm, ref[0])
     np.testing.assert_array_equal(pts, ref[3])
+    assert rgb.dtype == ref[4].dtype
+    np.testing.assert_array_equal(rgb, ref[4])
     assert (synthetic.X0, synthetic.Y0) == (msc.X0, msc.Y0)

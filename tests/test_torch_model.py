@@ -86,7 +86,7 @@ def params(data):
 
 
 def _port(sorted_impl, params):
-    model = build_model(small_cfg(sorted_impl))
+    model = build_model(small_cfg(sorted_impl), device="cpu")
     load_flax_params(model, params)
     return model.eval()
 
@@ -104,17 +104,17 @@ class TestBridge:
             np.testing.assert_array_equal(np.asarray(a[k]), b[k], err_msg=str(k))
 
     def test_keys_cover_the_port(self, params):
-        model = build_model(small_cfg("fused2"))
+        model = build_model(small_cfg("fused2"), device="cpu")
         assert set(flax_to_state_dict(params)) == set(model.state_dict())
 
     def test_seeded_init_is_xavier(self):
-        model = build_model(small_cfg("fused2"))
+        model = build_model(small_cfg("fused2"), device="cpu")
         init_weights(model, torch.Generator().manual_seed(0))
         w = model.point_encoder.fc_pos.weight.detach()
         bound = (6.0 / (w.shape[0] + w.shape[1])) ** 0.5
         assert float(w.abs().max()) <= bound
         assert float(model.point_encoder.fc_pos.bias.detach().abs().max()) == 0.0
-        again = init_weights(build_model(small_cfg("fused2")),
+        again = init_weights(build_model(small_cfg("fused2"), device="cpu"),
                              torch.Generator().manual_seed(0))
         for k, v in model.state_dict().items():
             assert torch.equal(v, again.state_dict()[k]), k
@@ -167,7 +167,7 @@ class TestForward:
 
     def test_unported_paths_raise(self):
         for impl in ("cumsum", "pallas", "fused"):
-            model = build_model(small_cfg(impl))
+            model = build_model(small_cfg(impl), device="cpu")
             pts = torch.rand(1, 8, 3)
             with pytest.raises(NotImplementedError, match="ROADMAP"):
                 model(pts, torch.ones(1, 8, dtype=torch.bool), None,

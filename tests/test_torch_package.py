@@ -31,6 +31,9 @@ def test_importing_every_module_loads_no_jax():
         "assert len(names) >= 20, names\n"
         "assert {'tomosar2height_tpu_torch.train.' + m for m in\n"
         "        ('loop', 'schedule', 'trainer')} <= set(names), names\n"
+        "assert {'tomosar2height_tpu_torch.' + m for m in\n"
+        "        ('models.unet', 'ops.cuda.conv_kernel', 'ops.cuda.convpair_kernel',\n"
+        "         'ops.cuda.decoder_kernel')} <= set(names), names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tomosar2height_tpu'))\n"
         "assert not bad, bad\n"

@@ -123,7 +123,8 @@ def jax_setup():
 
 
 def port_trainer(params, optimize_every=2):
-    model = load_flax_params(build_model(train_cfg()), jax.tree.map(np.asarray, params))
+    model = load_flax_params(build_model(train_cfg(), device="cpu"),
+                             jax.tree.map(np.asarray, params))
     return Trainer(model, {"optimize_every": optimize_every, "wire_dsm_dtype": "float32"})
 
 
@@ -222,7 +223,7 @@ class TestTrainStep:
 class TestTrainerUnits:
     def test_accumulation_masking_and_wire(self):
         torch.manual_seed(0)
-        model = build_model(train_cfg())
+        model = build_model(train_cfg(), device="cpu")
         trainer = Trainer(model, {"optimize_every": 2})  # f16 wire by default
         batches = make_batches(3, 2, valid=[True, False])
         p0 = [p.detach().clone() for p in trainer.params]
@@ -250,7 +251,7 @@ class TestTrainerUnits:
         grads = {}
         for red in ("mean", "sum"):
             torch.manual_seed(1)
-            trainer = Trainer(build_model(train_cfg()),
+            trainer = Trainer(build_model(train_cfg(), device="cpu"),
                               {"optimize_every": 2, "grad_reduction": red})
             seen = []
             trainer.optimizer.step = lambda: seen.append(  # noqa: E731
@@ -263,7 +264,8 @@ class TestTrainerUnits:
 
     def test_footprint_loss_not_ported(self):
         with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            Trainer(build_model(train_cfg()), {"optimize_every": 1}, use_footprint=True)
+            Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1},
+                    use_footprint=True)
 
 
 class TestSchedulers:
@@ -307,7 +309,7 @@ class _ListLoader:
 class TestLoop:
     def test_iterations_schedule_and_skips(self):
         torch.manual_seed(0)
-        trainer = Trainer(build_model(train_cfg()), {"optimize_every": 2})
+        trainer = Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 2})
         batches = make_batches(5, 3) + make_batches(6, 1, valid=[False, False])
         cfg = {"scheduler": {"type": "CyclicLR"}, "validate_every": 2, "print_every": 1,
                "model_selection_metric": "loss_l1"}
@@ -325,7 +327,7 @@ class TestLoop:
         assert out["step_ms"] == [] and out["median_step_ms"] is None  # no card here
 
     def test_no_valid_batch_raises(self):
-        trainer = Trainer(build_model(train_cfg()), {"optimize_every": 1})
+        trainer = Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1})
         with pytest.raises(RuntimeError, match="no batch"):
             port_loop.train(trainer, schedule.CyclicLR(1e-4, 5e-4),
                             _ListLoader(make_batches(7, 1, valid=[False, False])),

@@ -5,6 +5,8 @@ the port's serving and training paths need only these values, so it carries
 them as a literal and reads no YAML. They equal ``compose()`` of ``dataset=berlin``
 (depth-5 ALTO U-Net, cloud only) with ``dataset.points.sort=true`` and
 ``model.encoder_kwargs.sorted_impl=fused2`` (pinned by a test).
+:func:`fusion_config` is the cloud+image fusion network on the same keys
+(``use_image=true`` with the kernel flags set, also pinned).
 """
 
 from __future__ import annotations
@@ -55,3 +57,23 @@ _FLAGSHIP = {
 def flagship_config() -> dict:
     """A fresh copy of the flagship config."""
     return copy.deepcopy(_FLAGSHIP)
+
+
+def fusion_config() -> dict:
+    """The cloud+image fusion network: the flagship plus a depth-6 image
+    U-Net over the berlin RGB crop, its plane summed into the decoder's;
+    ``compose()`` of ``dataset=berlin use_image=true dataset.points.sort=true
+    model.encoder_kwargs.sorted_impl=fused2`` with ``fused_convs`` (K7) on
+    both U-Nets and the decoder's ``fused_head`` (K6)."""
+    cfg = flagship_config()
+    cfg["use_image"] = True
+    model = cfg["model"]
+    model["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = True
+    model["encoder2"] = "unet"
+    model["encoder2_kwargs"] = {"num_classes": 32, "in_channels": 3, "depth": 6,
+                                "merge_mode": "concat", "start_filts": 32,
+                                "fused_convs": True}
+    model["decoder_pixel_kwargs"]["fused_head"] = True
+    cfg["dataset"]["satellite_image"] = {"normalize": {
+        "mean": [688.8, 521.7, 239.2], "std": [344.1, 291.0, 247.2]}}
+    return cfg

@@ -65,7 +65,8 @@ class PatchLoader:
     bool, patch_valid (B,) bool, min_bound/max_bound (B, 2) f64, name list;
     with ``sort_reso`` (the aligned layout) also cell (B, N) int32 and
     cell_offsets (B, T + 1) int32; dsm (B, H, W) f32 when the patches carry
-    targets; with ``det_stream`` also ``_stream_pos`` (epoch, next batch). A
+    targets; image (B, H, W, C) f32 when they carry image crops (zeros on pad
+    entries); with ``det_stream`` also ``_stream_pos`` (epoch, next batch). A
     short last batch is padded with invalid patches, so every batch has
     ``batch_size`` entries.
     """
@@ -164,7 +165,7 @@ class PatchLoader:
             points = np.zeros((bsz, bucket, 3), dtype=np.float32)
             point_mask = np.zeros((bsz, bucket), dtype=bool)
         patch_valid = np.zeros((bsz,), dtype=bool)
-        dsm = None
+        dsm = image = None
         min_bound = np.zeros((bsz, 2), dtype=np.float64)
         max_bound = np.zeros((bsz, 2), dtype=np.float64)
         names = []
@@ -186,11 +187,17 @@ class PatchLoader:
                 if dsm is None:
                     dsm = np.zeros((bsz,) + p["dsm"].shape, dtype=np.float32)
                 dsm[i] = p["dsm"]
+            if "image" in p:
+                if image is None:
+                    image = np.zeros((bsz,) + p["image"].shape, dtype=np.float32)
+                image[i] = p["image"]
 
         out = {"patch_valid": patch_valid, "min_bound": min_bound,
                "max_bound": max_bound, "name": names}
         if dsm is not None:
             out["dsm"] = dsm
+        if image is not None:
+            out["image"] = image
         if self.sort_reso:
             points, point_mask, cells, offsets = trim_aligned_batch(
                 points, point_mask, cells, offsets)

@@ -1,11 +1,12 @@
 """Patches of an in-memory scene, for serving and training.
 
-The cloud-only subset of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset``
-without augmentation: sliding-window anchors (serving, validation) or random
+The subset of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset`` without
+augmentation: sliding-window anchors (serving, validation) or random
 anchors (training, dataset.py:252-261), the same float64 world ->
 unit-square normalization with a per-patch z shift (dataset.py:265-301), the
-same crop index, and with a GT nDSM raster the target crop, flipped to y-up
-(dataset.py:337-346). A patch here is bit-identical to the JAX dataset's
+same crop index, with a GT nDSM raster the target crop, flipped to y-up
+(dataset.py:337-346), and with a satellite image its normalized crop, y-up
+and HWC (the f32 image wire, dataset.py:84-92,112-115,316-335). A patch here is bit-identical to the JAX dataset's
 numpy path (its C++ fast path for patches of >= 4096 points rounds the same
 transform to within ~1e-7). Chunks come in as arrays and the nDSM as an
 in-memory raster rather than through ``chunk_info.yaml``, ``.npz`` files and
@@ -44,12 +45,17 @@ class SceneDataset:
         dsm: the GT nDSM as ``(data (H, W) f32, raster)`` with ``raster`` a
             :class:`~tomosar2height_tpu_torch.geo.RasterData` of its grid; each
             valid patch then carries its target crop ``dsm`` (h, w), y-up.
+        image: the satellite image as ``(data (C, H, W), raster)``, raw values
+            normalized once here by ``cfg_dataset['satellite_image']
+            ['normalize']`` (mean, std per channel, in float64, kept as f32);
+            each valid patch then carries its crop ``image`` (h, w, C) f32,
+            y-up, and random anchors snap to the image's pixel grid.
         flip_augm, rotate_augm: the JAX dataset's augmentations, not ported.
     """
 
     def __init__(self, chunks: Sequence[Dict], cfg_dataset: Dict, split: str = "test",
                  random_sample: bool = False, random_length: Optional[int] = None,
-                 dsm=None, flip_augm: bool = False, rotate_augm: bool = False):
+                 dsm=None, image=None, flip_augm: bool = False, rotate_augm: bool = False):
         if flip_augm or rotate_augm:
             raise NotImplementedError(
                 "flip/rotate augmentation is not ported yet (ROADMAP A12); the "
@@ -69,6 +75,19 @@ class SceneDataset:
                 raise ValueError("patch size must be a multiple of the DSM pixel size")
             self._dsm_pixel_size = np.array([a, -e], dtype=np.float64)
             self._dsm_patch_shape = shape.astype(np.int64)
+        self.image_data, self.image = (None, None) if image is None else image
+        if self.image is not None:
+            norm_img = cfg_dataset["satellite_image"]["normalize"]
+            mean = np.asarray(norm_img["mean"], dtype=np.float64)[:, None, None]
+            std = np.asarray(norm_img["std"], dtype=np.float64)[:, None, None]
+            self.image_data = ((np.asarray(self.image_data, dtype=np.float64) - mean)
+                               / std).astype(np.float32)
+            a, _, _, _, e, _ = self.image.transform
+            self._image_pixel_size = np.array([a, -e], dtype=np.float64)
+            shape = self.patch_size / self._image_pixel_size
+            if not np.all(np.floor(shape) == shape):
+                raise ValueError("patch size must be a multiple of the image pixel size")
+            self._image_patch_shape = shape.astype(np.int64)
         self.chunk_info_ls: List[Dict] = []
         self.data: List[Dict] = []
         self.anchor_points: List[Dict] = []
@@ -120,7 +139,10 @@ class SceneDataset:
             mn = np.asarray(self.chunk_info_ls[k]["min_bound"], dtype=np.float64)[:2]
             mx = np.asarray(self.chunk_info_ls[k]["max_bound"], dtype=np.float64)[:2]
             rand = (rng if rng is not None else np.random).random(2)
-            anchor = rand * (mx - mn - self.patch_size[:2]) + mn  # no image: no snap
+            anchor = rand * (mx - mn - self.patch_size[:2])
+            if self.image is not None:  # snap to the image pixel grid
+                anchor = np.floor(anchor / self._image_pixel_size) * self._image_pixel_size
+            anchor = anchor + mn
         else:
             k, anchor = self.anchor_points[idx]["chunk"], self.anchor_points[idx]["anchor"]
         chunk = self.data[k]
@@ -139,13 +161,22 @@ class SceneDataset:
         out = {"name": name, "inputs": self._normalize_points(inputs, normalize_mat),
                "min_bound": min_bound.copy(), "max_bound": max_bound.copy(),
                "is_valid": True}
+        if self.image is not None:
+            out["image"] = self._crop(self.image_data, self.image, self._image_pixel_size,
+                                      self._image_patch_shape, min_bound, name)
         if self.dsm is not None:
-            # the anchor names the bottom-left pixel: crop the rows north of it
-            center = min_bound + self._dsm_pixel_size / 2.0
-            col, row = self.dsm.query_col_row(center[0], center[1])
-            h, w = self._dsm_patch_shape
-            crop = self.dsm_data[row - h + 1: row + 1, col: col + w]
-            if crop.shape != (h, w):
-                raise ValueError(f"{name}: target crop {crop.shape} leaves the nDSM")
-            out["dsm"] = np.ascontiguousarray(crop[::-1], dtype=np.float32)
+            out["dsm"] = self._crop(self.dsm_data[None], self.dsm, self._dsm_pixel_size,
+                                    self._dsm_patch_shape, min_bound, name)[..., 0]
         return out
+
+    @staticmethod
+    def _crop(data, raster, pixel_size, shape, min_bound, name) -> np.ndarray:
+        """The patch's (h, w, C) f32 crop of a (C, H, W) raster, y-up: the
+        anchor names the bottom-left pixel, so the rows north of it."""
+        center = min_bound + pixel_size / 2.0
+        col, row = raster.query_col_row(center[0], center[1])
+        h, w = shape
+        crop = data[:, row - h + 1: row + 1, col: col + w]
+        if crop.shape[1:] != (h, w):
+            raise ValueError(f"{name}: crop {crop.shape[1:]} leaves the raster")
+        return np.ascontiguousarray(np.moveaxis(crop[:, ::-1], 0, -1), dtype=np.float32)

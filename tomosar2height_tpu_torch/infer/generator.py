@@ -9,8 +9,10 @@ Pixel origins and the written file are bit-identical to the JAX package's.
 
 The forward of batch k runs on the card while the host blends batch k-1: the
 patch rasters come back through a pinned buffer with an event, so the only
-waits are on results the host needs. Multi-GPU meshes, the on-device blend,
-the f16 raster wire and the image inputs are not ported yet.
+waits are on results the host needs. With ``use_image`` each batch's image
+crops upload beside the points (the f32 image wire). Multi-GPU meshes, the
+on-device blend, the f16 raster wire and the u8 and device-crop image wires
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -56,13 +58,16 @@ class DSMGenerator:
     """Full-scene nDSM generator over a sliding-window PatchLoader."""
 
     def __init__(self, model: torch.nn.Module, data_loader, dsm_pixel_size,
-                 half_blend_percent=None, crs_epsg: Optional[int] = 25832):
+                 half_blend_percent=None, crs_epsg: Optional[int] = 25832,
+                 use_image: bool = False):
         """
         Args:
-            model: the port's ``TomoSAR2Height`` (cloud only), on its device.
-            data_loader: PatchLoader over a regular-patching dataset.
+            model: the port's ``TomoSAR2Height``, on its device.
+            data_loader: PatchLoader over a regular-patching dataset (with
+                image crops when ``use_image``).
         """
         self.model = model
+        self.use_image = bool(use_image)
         self.device = next(model.parameters()).device
         self.data_loader = data_loader
         self.pixel_size = np.asarray(dsm_pixel_size, dtype=np.float64)
@@ -91,8 +96,8 @@ class DSMGenerator:
             self.r_bound = max(self.r_bound, r)
             self.t_bound = max(self.t_bound, t)
 
-    def _forward_impl(self, points, mask, cells, offsets) -> torch.Tensor:
-        pa, _ = self.model(points, mask, None, cells, offsets)
+    def _forward_impl(self, points, mask, image, cells, offsets) -> torch.Tensor:
+        pa, _ = self.model(points, mask, image, cells, offsets, footprint=False)
         # un-flip rows: the model works y-up, the raster is north-up
         return pa[..., 0].flip(1)
 
@@ -101,10 +106,14 @@ class DSMGenerator:
         The aligned layout's cell ids are not uploaded: the model recomputes
         them from points + mask, bit-exact (the JAX default wire_cells)."""
         def up(key):
-            return torch.from_numpy(np.ascontiguousarray(batch[key])).to(self.device)
+            t = torch.from_numpy(np.ascontiguousarray(batch[key]))
+            if self.device.type == "cuda":  # pinned: the copy overlaps the host
+                return t.pin_memory().to(self.device, non_blocking=True)
+            return t.to(self.device)
 
         offsets = up("cell_offsets") if "cell_offsets" in batch else None
-        return self._forward_impl(up("points"), up("point_mask"), None, offsets)
+        image = up("image") if self.use_image else None
+        return self._forward_impl(up("points"), up("point_mask"), image, None, offsets)
 
     def _fetch(self, h_dev: torch.Tensor):
         """Start the device -> host copy; returns (host tensor, ready event)."""
@@ -207,18 +216,23 @@ class DSMGenerator:
         return tiff_data
 
 
-def make_generator(model: torch.nn.Module, cfg, chunks) -> DSMGenerator:
+def make_generator(model: torch.nn.Module, cfg, chunks, image=None) -> DSMGenerator:
     """The serving stack of the JAX package's ``test.py`` over in-memory
-    chunks: dataset -> loader (the aligned layout when
-    ``dataset.points.sort``) -> generator."""
+    chunks (and, when ``cfg['use_image']``, the scene's satellite ``image``
+    as ``(data (C, H, W), raster)``): dataset -> loader (the aligned layout
+    when ``dataset.points.sort``) -> generator."""
     cfg_data = cfg["dataset"]
     sort = bool(cfg_data["points"].get("sort", False))
+    use_image = bool(cfg["use_image"])
+    if use_image and image is None:
+        raise ValueError("use_image: pass the scene's satellite image")
     loader = PatchLoader(
-        SceneDataset(chunks, cfg_data, "test"), cfg["training"]["val_batch_size"],
+        SceneDataset(chunks, cfg_data, "test", image=image if use_image else None),
+        cfg["training"]["val_batch_size"],
         cfg_data["points"]["bucket_sizes"],
         fixed_bucket=cfg_data["points"]["train_bucket"],
         sort_reso=cfg["model"]["encoder_kwargs"]["plane_resolution"] if sort else None)
     dsm = cfg["dsm_generation"]
     return DSMGenerator(model, loader, dsm["pixel_size"],
                         half_blend_percent=dsm.get("half_blend_percent"),
-                        crs_epsg=dsm.get("crs_epsg"))
+                        crs_epsg=dsm.get("crs_epsg"), use_image=use_image)

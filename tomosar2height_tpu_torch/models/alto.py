@@ -10,7 +10,8 @@ previous level's point features, scatter-mean back into the plane.
 On the ``fused2`` layout (Morton-aligned points, ``cache['impl'] == 'fused2'``)
 a round trip at resolution >= 32 is ONE kernel call
 (``ops/cuda/level_kernel.fused_level``); otherwise the composed plain ops run.
-Both read the same ``fc_comm``/``fc_c`` parameters. Planes are NCHW-logical in
+Both read the same ``fc_comm``/``fc_c`` parameters. Under ``fused_convs`` each
+level's conv pair is one K7 call (``ops/cuda/convpair_kernel.conv_pair``). Planes are NCHW-logical in
 ``channels_last`` memory; the public interface is NHWC.
 """
 
@@ -25,6 +26,8 @@ from tomosar2height_tpu_torch.models.blocks import (
     MLP2,
     Conv3x3,
     conv1x1,
+    fusable,
+    fused_pair,
     max_pool_2x2,
     upconv2x2,
 )
@@ -63,13 +66,22 @@ def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):
     return _scatter_plane(xy, c, reso, mask, cache), c
 
 
+def _conv_pair(level: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """The level-opening conv3x3(relu) x2 (reference alto.py:97-138): one K7
+    call under ``fused_convs`` where the JAX package fuses it, else the
+    composed convs; the same parameters either way."""
+    if fusable(level.fused_convs, x):
+        return fused_pair(level.conv1, level.conv2, x, False)[0]
+    return level.conv2(level.conv1(x))
+
+
 class AltoDownConv(nn.Module):
     """Encoder level (reference alto.py:48-138)."""
 
     def __init__(self, in_channels: int, features: int, level: int, pooling: bool,
-                 prev_features: Optional[int], c_dim: int):
+                 prev_features: Optional[int], c_dim: int, fused_convs: bool = False):
         super().__init__()
-        self.level, self.pooling = level, pooling
+        self.level, self.pooling, self.fused_convs = level, pooling, fused_convs
         self.conv1 = Conv3x3(in_channels, features, relu=True)
         self.conv2 = Conv3x3(features, features, relu=True)
         self.res1x1 = conv1x1(prev_features, features) if prev_features else None
@@ -77,7 +89,7 @@ class AltoDownConv(nn.Module):
         self.fc_c = nn.Linear(c_dim, features)
 
     def forward(self, xy, x, x_after_conv, c_last, mask, cache):
-        x = self.conv2(self.conv1(x))
+        x = _conv_pair(self, x)
         if x_after_conv is not None:
             prev = max_pool_2x2(x_after_conv) if self.level >= 2 else x_after_conv
             x = x + self.res1x1(prev)
@@ -94,9 +106,10 @@ class AltoUpConv(nn.Module):
     point round trip."""
 
     def __init__(self, up_channels: int, features: int, level: int, depth: int,
-                 prev_features: int, c_dim: int):
+                 prev_features: int, c_dim: int, fused_convs: bool = False):
         super().__init__()
         self.last = level == depth - 2
+        self.fused_convs = fused_convs
         if self.last:
             self.upconv_noup = conv1x1(up_channels, features)
         else:
@@ -112,7 +125,7 @@ class AltoUpConv(nn.Module):
 
     def forward(self, xy, from_down, from_up, x_after_conv, c_last, mask, cache):
         from_up = self.upconv_noup(from_up) if self.last else self.upconv(from_up)
-        x = self.conv2(self.conv1(torch.cat([from_up, from_down], dim=1)))
+        x = _conv_pair(self, torch.cat([from_up, from_down], dim=1))
         x = x + (self.res1x1(x_after_conv) if self.last else self.res_up(x_after_conv))
         x_after_conv = x
         if self.last:
@@ -139,22 +152,19 @@ class AltoUNet(nn.Module):
                 f"AltoUNet merge_mode={merge_mode!r} up_mode={up_mode!r} "
                 f"sample_mode={sample_mode!r}: only concat/transpose/bilinear is "
                 "ported (ROADMAP A3)")
-        if fused_convs:
-            raise NotImplementedError(
-                "unet_kwargs.fused_convs (the fused conv-pair kernel) is not "
-                "ported yet (ROADMAP B7)")
         self.depth = depth
         feats = [start_filts * (2 ** i) for i in range(depth)]
         cin, cd = in_channels, c_dim
         for i in range(depth):
             pooling = 0 < i < depth - 1
             prev = feats[i - 1] if i > 0 else None
-            self.add_module(f"down{i}", AltoDownConv(cin, feats[i], i, pooling, prev, cd))
+            self.add_module(f"down{i}", AltoDownConv(cin, feats[i], i, pooling, prev, cd,
+                                                     fused_convs))
             cin = cd = feats[i]
         up_in = prev = feats[-1]
         for i in range(depth - 1):
             f = feats[depth - 2 - i]
-            self.add_module(f"up{i}", AltoUpConv(up_in, f, i, depth, prev, cd))
+            self.add_module(f"up{i}", AltoUpConv(up_in, f, i, depth, prev, cd, fused_convs))
             up_in = prev = cd = f
         self.conv_final = conv1x1(start_filts, num_classes)
 

@@ -15,13 +15,21 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import conv3x3
+from tomosar2height_tpu_torch.ops.cuda.convpair_kernel import conv_pair
+
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Xavier-uniform kernels and zero biases, drawn in module order from
-    ``generator`` (the JAX package's init, models/blocks.py:13)."""
+    ``generator`` (the JAX package's init, models/blocks.py:13). The draws
+    are made on the CPU and copied to the module's device, so a CPU
+    generator gives the same weights on any device."""
     for m in module.modules():
         if isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
-            nn.init.xavier_uniform_(m.weight, generator=generator)
+            w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
+            nn.init.xavier_uniform_(w, generator=generator)
+            with torch.no_grad():
+                m.weight.copy_(w)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)
     return module
@@ -45,16 +53,65 @@ class ResnetBlockFC(nn.Module):
         return x_s + dx
 
 
+# 3x3 conv backend: False (default) = F.conv2d; True = the hand-written
+# kernel K8 (ops/cuda/conv_kernel.py); None = K8 on CUDA tensors. The JAX
+# package's FAST_CONV (models/blocks.py:57-79), whose None means "on a TPU".
+FAST_CONV = {"enabled": False}
+
+
+def set_fast_conv(enabled: Optional[bool]) -> None:
+    """Select the backend of every ``Conv3x3`` called from now on."""
+    FAST_CONV["enabled"] = enabled
+
+
+def _fast_conv_on(x: torch.Tensor) -> bool:
+    on = FAST_CONV["enabled"]
+    return x.is_cuda if on is None else bool(on)
+
+
+def nhwc(x: torch.Tensor) -> torch.Tensor:
+    """The (B, H, W, C) view of an NCHW plane: no copy on ``channels_last``
+    memory (the U-Nets' planes)."""
+    return x.permute(0, 2, 3, 1).contiguous()
+
+
+def nchw(y: torch.Tensor) -> torch.Tensor:
+    """The NCHW (``channels_last`` memory) view of an NHWC tensor."""
+    return y.permute(0, 3, 1, 2)
+
+
+def hwio(conv: nn.Conv2d) -> torch.Tensor:
+    """A conv's (O, I, kh, kw) weight as the kernels' (kh, kw, I, O)."""
+    return conv.weight.permute(2, 3, 1, 0).contiguous()
+
+
 class Conv3x3(nn.Conv2d):
-    """3x3 SAME conv with an optional fused ReLU (NCHW)."""
+    """3x3 SAME conv with an optional fused ReLU (NCHW); K8 under
+    :func:`set_fast_conv`."""
 
     def __init__(self, cin: int, cout: int, relu: bool = False):
         super().__init__(cin, cout, 3, padding=1)
         self.use_relu = relu
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if _fast_conv_on(x):
+            return nchw(conv3x3(nhwc(x), hwio(self), self.bias, self.use_relu))
         y = super().forward(x)
         return torch.relu(y) if self.use_relu else y
+
+
+def fusable(fused_convs: bool, x: torch.Tensor) -> bool:
+    """Whether a level's conv pair runs as one K7 call: the JAX package's
+    rule (models/unet.py:18-23, models/alto.py:176) on an NCHW plane."""
+    h, w = x.shape[-2:]
+    return fused_convs and h % 8 == 0 and h >= 8 and w % 8 == 0
+
+
+def fused_pair(conv1: Conv3x3, conv2: Conv3x3, x: torch.Tensor, pool: bool):
+    """K7 over conv1 -> conv2 (both with ReLU) on an NCHW plane: (y, pooled
+    or None), NCHW on ``channels_last`` memory."""
+    y, pooled = conv_pair(nhwc(x), hwio(conv1), conv1.bias, hwio(conv2), conv2.bias, pool)
+    return nchw(y), (nchw(pooled) if pool else None)
 
 
 def conv1x1(cin: int, cout: int) -> nn.Conv2d:

@@ -1,6 +1,6 @@
-"""TomoSAR2Height model shell: point encoder + pixel decoder + z-rescale.
-Counterpart of ``tomosar2height_tpu/models/model.py`` (reference
-model.py:8-86), cloud-only.
+"""TomoSAR2Height model shell: point encoder (+ image U-Net) + pixel decoder
++ z-rescale. Counterpart of ``tomosar2height_tpu/models/model.py``
+(reference model.py:8-86).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
 from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
+from tomosar2height_tpu_torch.models.unet import UNet
 
 
 class TomoSAR2Height(nn.Module):
@@ -21,18 +22,23 @@ class TomoSAR2Height(nn.Module):
     def __init__(self, use_cloud: bool = True, use_image: bool = False,
                  encoder: str = "pointnet_local_pool",
                  encoder_kwargs: Optional[Dict[str, Any]] = None,
+                 encoder2: str = "unet",
+                 encoder2_kwargs: Optional[Dict[str, Any]] = None,
                  decoder_kwargs: Optional[Dict[str, Any]] = None,
                  z_scale: float = 1.0, remat: bool = False):
         super().__init__()
-        if use_image or not use_cloud:
+        if not use_cloud:
+            raise NotImplementedError("the image-only network is not ported (ROADMAP A9)")
+        if use_image and encoder2 != "unet":
             raise NotImplementedError(
-                "only the cloud-only network is ported; the image U-Net fusion "
-                "is ROADMAP A9")
+                f"encoder2={encoder2!r}: only the U-Net image encoder is ported "
+                "(ROADMAP A11)")
         if encoder != "pointnet_local_pool":
             raise NotImplementedError(
                 f"encoder={encoder!r} is not ported yet (ROADMAP A11)")
         kwargs = dict(encoder_kwargs or {})
         self.point_encoder = LocalPoolPointnet(**kwargs)
+        self.image_encoder = UNet(**dict(encoder2_kwargs or {})) if use_image else None
         self.decoder = PixelwiseDecoder(kwargs.get("feature_dim", 32),
                                         **dict(decoder_kwargs or {}))
         self.z_scale = float(z_scale)
@@ -45,37 +51,50 @@ class TomoSAR2Height(nn.Module):
     def forward(self, input_cloud: torch.Tensor, cloud_mask: torch.Tensor,
                 input_image: Optional[torch.Tensor] = None,
                 cloud_cells: Optional[torch.Tensor] = None,
-                cloud_offsets: Optional[torch.Tensor] = None):
-        """(B, N, 3) padded normalized points, (B, N) mask (+ aligned-layout
-        metadata) -> (height (B, S, S, out_dim) in meters, None): the JAX
-        model's signature; ``input_image`` and the footprint output stay None
-        until the image slice."""
+                cloud_offsets: Optional[torch.Tensor] = None, footprint: bool = True):
+        """(B, N, 3) padded normalized points, (B, N) mask, with ``use_image``
+        the (B, H, W, 3) NHWC normalized image (+ aligned-layout metadata) ->
+        (height (B, S, S, out_dim) in meters, footprint logits or None): the
+        JAX model's signature. ``footprint=False`` skips the footprint head,
+        as the JAX generator's jit drops it (infer/generator.py:285)."""
         if not input_cloud.is_floating_point():
             raise NotImplementedError(
                 "only float points are ported; the u16 point wire is ROADMAP A11")
+        if self.image_encoder is not None and input_image is None:
+            raise ValueError("use_image: the model needs input_image (B, H, W, 3)")
         args = (input_cloud, cloud_mask, cloud_cells, cloud_offsets)
         if self.remat and torch.is_grad_enabled():
             planes = checkpoint(self.point_encoder, *args, use_reentrant=False)
         else:
             planes = self.point_encoder(*args)
-        pa, _ = self.decoder(planes)
-        return pa * self.z_scale, None  # reference model.py:67
+        if self.image_encoder is not None:
+            planes = {**planes, "image": self.image_encoder(input_image)}
+        pa, pb = self.decoder(planes, footprint)
+        return pa * self.z_scale, pb  # reference model.py:67
 
 
-def build_model(cfg) -> TomoSAR2Height:
+def build_model(cfg, device="cuda") -> TomoSAR2Height:
     """Build the network from the global config tree (same keys as the JAX
-    package's ``build_model``)."""
+    package's ``build_model``) on ``device``: the card unless the caller asks
+    for ``"cpu"``; there is no fallback. Seeded weights:
+    ``blocks.init_weights`` (equal on every device)."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("build_model: no CUDA card here; pass device='cpu' to "
+                           "build on the CPU")
     cfg_model = cfg["model"]
     dtype = cfg_model.get("dtype", "float32")
     if dtype != "float32":
         raise NotImplementedError(f"model.dtype={dtype!r}: bf16 is ROADMAP A3")
     z_bound = cfg["dataset"]["normalize"]["z_bound"]
-    return TomoSAR2Height(
+    model = TomoSAR2Height(
         use_cloud=bool(cfg["use_cloud"]),
         use_image=bool(cfg["use_image"]),
         encoder=cfg_model.get("encoder", "pointnet_local_pool"),
         encoder_kwargs=dict(cfg_model.get("encoder_kwargs", {}) or {}),
+        encoder2=cfg_model.get("encoder2", "unet"),
+        encoder2_kwargs=dict(cfg_model.get("encoder2_kwargs", {}) or {}),
         decoder_kwargs=dict(cfg_model.get("decoder_pixel_kwargs", {}) or {}),
         z_scale=float(z_bound[1]) - float(z_bound[0]),
         remat=bool(cfg_model.get("remat", False)),
     )
+    return model.to(device)

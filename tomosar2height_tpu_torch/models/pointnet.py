@@ -48,7 +48,7 @@ class LocalPoolPointnet(nn.Module):
         if unet_type != "alto":
             raise NotImplementedError(
                 f"unet_type={unet_type!r}: only the ALTO U-Net is ported "
-                "(the plain U-Net comes with the image slice, ROADMAP A9)")
+                "for the point plane (ROADMAP A11)")
         self.reso = plane_resolution
         self.scatter_type = scatter_type
         self.sorted_impl = sorted_impl

@@ -1,0 +1,71 @@
+"""A fused conv3x3+ReLU pair with an optional 2x2 max pool, NHWC.
+
+Counterpart of ``tomosar2height_tpu/ops/pallas/convpair_kernel.py``. The
+CUDA kernel K7 (``csrc/convpair.cu``) replaces ``_pair_kernel``
+(convpair_kernel.py:36, launched by ``_pair_impl``): under ``fused_convs``
+it opens every ALTO level (``models/alto.py``) and every image U-Net level
+(``models/unet.py``), the down-levels with its pooled output. What bounds it
+on the H100 and how the design answers it is noted in the CUDA source. A CPU
+tensor takes :func:`conv_pair_plain`, a CUDA tensor the kernel; there is no
+fallback. The backward is the plain composition's autograd, as the JAX
+custom_vjp's (convpair_kernel.py:161-170).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import PlainVjp, conv3x3_plain
+
+
+def conv_pair_plain(x, w1, b1, w2, b2, pool: bool = False):
+    """relu(conv(relu(conv(x, w1) + b1), w2) + b2) and, with ``pool``, its
+    2x2 max pool. x (B, H, W, Cin) NHWC; w1 (3, 3, Cin, C1), w2 (3, 3, C1, C2)
+    HWIO. Returns (y (B, H, W, C2), pooled (B, H/2, W/2, C2) or None)."""
+    y = conv3x3_plain(conv3x3_plain(x, w1, b1, True), w2, b2, True)
+    if not pool:
+        return y, None
+    return y, F.max_pool2d(y.permute(0, 3, 1, 2), 2, 2).permute(0, 2, 3, 1)
+
+
+def _conv_pair_kernel(x, w1, b1, w2, b2, pool: bool):
+    dev = x.device
+    bsz, h, wd, cin = x.shape
+    c1, c2 = w1.shape[-1], w2.shape[-1]
+    f32 = torch.float32
+    runtime.require(x, "x", f32, (bsz, h, wd, cin), dev)
+    runtime.require(w1, "w1", f32, (3, 3, cin, c1), dev)
+    runtime.require(b1, "b1", f32, (c1,), dev)
+    runtime.require(w2, "w2", f32, (3, 3, c1, c2), dev)
+    runtime.require(b2, "b2", f32, (c2,), dev)
+    if c2 > 1024:
+        raise ValueError(f"conv_pair: {c2} output channels; the kernel takes <= 1024")
+    if pool and (h % 2 or wd % 2):
+        raise ValueError(f"conv_pair: pooling needs an even plane, got {h}x{wd}")
+    y = torch.empty((bsz, h, wd, c2), device=dev, dtype=f32)
+    pooled = torch.empty((bsz, h // 2, wd // 2, c2), device=dev, dtype=f32) if pool else None
+    err = runtime.library().t2h_conv_pair(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        y.data_ptr(), pooled.data_ptr() if pool else None, bsz, h, wd, cin, c1, c2,
+        runtime.stream_ptr(dev))
+    runtime.check(err, "conv_pair")
+    runtime.LAUNCHES["conv_pair"] += 1
+    return (y, pooled) if pool else y
+
+
+def conv_pair(x, w1, b1, w2, b2, pool: bool = False):
+    """K7: the conv pair (+ pool). Same arguments and returns as
+    :func:`conv_pair_plain`; on a CUDA tensor every input must be a
+    contiguous f32 tensor (the NHWC view of a ``channels_last`` plane is),
+    C2 <= 1024, and H and W even when pooling. Differentiable (plain
+    backward)."""
+    if runtime.on_cpu(x):
+        return conv_pair_plain(x, w1, b1, w2, b2, pool)
+    if pool:
+        return PlainVjp.apply(lambda *a: _conv_pair_kernel(*a, True),
+                              lambda *a: conv_pair_plain(*a, True), x, w1, b1, w2, b2)
+    y = PlainVjp.apply(lambda *a: _conv_pair_kernel(*a, False),
+                       lambda *a: conv_pair_plain(*a, False)[0], x, w1, b1, w2, b2)
+    return y, None

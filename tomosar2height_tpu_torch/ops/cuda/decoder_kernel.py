@@ -1,0 +1,69 @@
+"""The whole ConvDecoder (three conv3x3+ReLU and the dense-skip 1x1 head) in
+one kernel, NHWC.
+
+Counterpart of ``tomosar2height_tpu/ops/pallas/decoder_kernel.py``. The CUDA
+kernel K6 (``csrc/decoder.cu``) replaces ``_decoder_kernel``
+(decoder_kernel.py:85, launched by ``_fused_fwd_impl``); the pixel decoder
+runs it under ``decoder_pixel_kwargs.fused_head``. What bounds it on the
+H100 and how the design answers it is noted in the CUDA source. A CPU tensor
+takes :func:`conv_decoder_plain`, a CUDA tensor the kernel; there is no
+fallback. The backward is the plain composition's autograd, as the JAX
+custom_vjp's (decoder_kernel.py:274-279).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import PlainVjp, conv3x3_plain
+
+
+def conv_decoder_plain(x, w1, b1, w2, b2, w3, b3, w4, b4):
+    """x (B, H, W, C) NHWC; w1..w3 (3, 3, Cin, Cout) HWIO; w4 (1, 1, C + C1 +
+    C2 + C3, Cout) -> (B, H, W, Cout): x1..x3 = relu(conv3x3) in a chain, then
+    b4 + [x, x1, x2, x3] @ w4, the concat never built (the JAX
+    ``_xla_decoder``)."""
+    x1 = conv3x3_plain(x, w1, b1, True)
+    x2 = conv3x3_plain(x1, w2, b2, True)
+    x3 = conv3x3_plain(x2, w3, b3, True)
+    out, off = b4, 0
+    for p in (x, x1, x2, x3):
+        c = p.shape[-1]
+        out = out + p @ w4[0, 0, off:off + c]
+        off += c
+    return out
+
+
+def _conv_decoder_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4):
+    dev = x.device
+    bsz, h, wd, c0 = x.shape
+    c1, c2, c3, co = w1.shape[-1], w2.shape[-1], w3.shape[-1], w4.shape[-1]
+    f32 = torch.float32
+    runtime.require(x, "x", f32, (bsz, h, wd, c0), dev)
+    for name, t, shape in (("w1", w1, (3, 3, c0, c1)), ("b1", b1, (c1,)),
+                           ("w2", w2, (3, 3, c1, c2)), ("b2", b2, (c2,)),
+                           ("w3", w3, (3, 3, c2, c3)), ("b3", b3, (c3,)),
+                           ("w4", w4, (1, 1, c0 + c1 + c2 + c3, co)), ("b4", b4, (co,))):
+        runtime.require(t, name, f32, shape, dev)
+    out = torch.empty((bsz, h, wd, co), device=dev, dtype=f32)
+    err = runtime.library().t2h_conv_decoder(
+        x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(),
+        bsz, h, wd, c0, c1, c2, c3, co, runtime.stream_ptr(dev))
+    runtime.check(err, "conv_decoder")
+    runtime.LAUNCHES["conv_decoder"] += 1
+    return out
+
+
+def conv_decoder(x, w1, b1, w2, b2, w3, b3, w4, b4):
+    """K6: the fused ConvDecoder. Same arguments and return as
+    :func:`conv_decoder_plain`; on a CUDA tensor every input must be a
+    contiguous f32 tensor. A block keeps an 8x8 tile's four activations in
+    shared memory (about 4 * (196 C + 144 C1 + 100 C2 + 64 C3 + 4096) bytes,
+    154 KB at the flagship's 32/64/128/64); wider ones fail their launch,
+    which raises. Differentiable (plain backward)."""
+    args = (x, w1, b1, w2, b2, w3, b3, w4, b4)
+    if runtime.on_cpu(x):
+        return conv_decoder_plain(*args)
+    return PlainVjp.apply(_conv_decoder_kernel, conv_decoder_plain, *args)

@@ -35,7 +35,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 LAUNCHES = {"pool_reduce": 0, "pool_gather": 0, "scatter_plane2": 0,
             "fused_level": 0, "fused_level_bwd": 0, "level_bwd_reduce": 0,
-            "pool2_bwd": 0, "scatter_plane2_bwd": 0}
+            "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
+            "conv_decoder": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -55,6 +56,9 @@ _SIGNATURES = {
     "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
     "t2h_level_bwd_reduce": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
+    "t2h_conv_pair": [_P] * 7 + [_I] * 6 + [_P],
+    "t2h_conv_decoder": [_P] * 10 + [_I] * 8 + [_P],
 }
 
 

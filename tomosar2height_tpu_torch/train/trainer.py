@@ -5,8 +5,8 @@ PyTorch. The same step semantics:
 
 - loss: the masked per-patch mean L1 of the height raster against the GT nDSM
   (``masked_patch_mean``, trainer.py:71-75, :173-187); invalid (empty) patches
-  stay in the batch and weigh 0. ``loss_ce`` is 0: the footprint head comes
-  with the image slice (ROADMAP A9);
+  stay in the batch and weigh 0. ``loss_ce`` is 0: the footprint head's BCE
+  loss comes with training the fusion config (ROADMAP A9b);
 - accumulation: the mean of ``optimize_every`` mini-step gradients
   (``optax.MultiSteps``); ``grad_reduction='sum'`` scales it back up by the
   window length (trainer.py:196-197);
@@ -62,8 +62,12 @@ class Trainer:
                  use_footprint: bool = False):
         if use_footprint:
             raise NotImplementedError(
-                "the footprint head and its BCE loss come with the image slice "
-                "(ROADMAP A9)")
+                "the footprint head's BCE loss comes with training the fusion "
+                "config (ROADMAP A9b)")
+        if getattr(model, "image_encoder", None) is not None:
+            raise NotImplementedError(
+                "training the cloud+image fusion network (the image in "
+                "prepare_batch) is not ported yet (ROADMAP A9b)")
         self.model = model
         self.device = next(model.parameters()).device
         self.optimize_every = int(cfg_training["optimize_every"])
