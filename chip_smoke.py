@@ -37,14 +37,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
    optimizer steps each, window losses compared, mini-step ms, train
    patches/s, peak memory and the launches per fused2 mini-step.
 
+8. sorted-serve: the same city served with ``sorted_config(impl)`` for
+   impl 'fused' (K9, K10, K12), 'pallas' (K11; with mean pooling also K13)
+   and 'cumsum' (no kernel) from one set of weights, each raster held to the
+   unsorted plain path's, launches per forward asserted;
+9. munich-depth6: one batch-8 fused2 forward at ALTO depth 6, whose first up
+   level runs K4 at Fl = 1024, held to the plain path.
+
 Phase 3 also holds every backward (K5 at the eight levels, the pool2 and
-scatter_plane2 backwards on K1/K2) against its plain version.
+scatter_plane2 backwards on K1/K2) against its plain version, K4/K5 at the
+depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every shape of a
+flagship forward on the 'fused' and 'pallas' layouts.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table as JSON: ``launches`` from the timed training run for K1-K5
-and the backwards, from the timed fusion-serve runs for K6-K8 (each the
-main path that runs it), ``launches_serve`` from the timed cloud-only
-serving run. Imports nothing of JAX or of the JAX package
+and the backwards, from the timed fusion-serve runs for K6-K8, from the
+timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
+the main path that runs it; K14 is on none, 0), ``launches_serve`` from the
+timed cloud-only serving run. Imports nothing of JAX or of the JAX package
 (``tomosar2height_tpu``), and checks that at the end. Needs one CUDA card and
 nvcc.
 """
@@ -145,9 +155,11 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
 
 
-def flagship_batch(seed: int, b: int = 8, n: int = 16384, reso: int = 256):
+def flagship_batch(seed: int, b: int = 8, n: int = 16384, reso: int = 256,
+                   tile_cells: int = 1024):
     """B patches of n uniform points (5% masked), unsorted and on the aligned
-    layout (points, mask, cells, tile offsets; trimmed as the loader does)."""
+    layout with ``tile_cells``-cell tiles (points, mask, cells, tile offsets;
+    trimmed as the loader does)."""
     from tomosar2height_tpu_torch.ops.sorted_scatter import (
         host_morton_bucket_aligned,
         trim_aligned_batch,
@@ -156,10 +168,26 @@ def flagship_batch(seed: int, b: int = 8, n: int = 16384, reso: int = 256):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(0.001, 0.999, (b, n, 3)).astype(np.float32)
     mask = rng.random((b, n)) > 0.05
-    aligned = [host_morton_bucket_aligned(pts[i], mask[i], reso) for i in range(b)]
+    aligned = [host_morton_bucket_aligned(pts[i], mask[i], reso, tile_cells=tile_cells)
+               for i in range(b)]
     apts, amask, acell, toff = trim_aligned_batch(*(
         np.stack([a[k] for a in aligned]) for k in ("points", "mask", "cells", "tile_offsets")))
     return pts, mask, apts, amask, acell, toff
+
+
+def sorted_layout(pts, mask, reso: int = 256):
+    """The plain sorted layout of a batch (the loader's for 'pallas' and
+    'cumsum'): points and mask reordered, cells (pads reso**2), per-cell
+    offsets."""
+    from tomosar2height_tpu_torch.ops.sorted_scatter import host_morton_bucket
+
+    spts, smask = np.empty_like(pts), np.empty_like(mask)
+    cells = np.empty(mask.shape, np.int32)
+    offs = np.empty((len(pts), reso * reso + 1), np.int32)
+    for i in range(len(pts)):
+        order, cells[i], offs[i] = host_morton_bucket(pts[i], mask[i], reso)
+        spts[i], smask[i] = pts[i][order], mask[i][order]
+    return spts, smask, cells, offs
 
 
 # (reso, F, Fl) of the eight level round trips of the flagship forward
@@ -385,8 +413,56 @@ def check_kernels(seed: int = 0):
           lambda: [fn() for fn in red_l],
           tol=f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     torch.cuda.synchronize()
+    check_wide_level(seed)
     check_conv_kernels(entry, seed)
+    check_tile_kernels(entry, seed)
     return rows
+
+
+def check_wide_level(seed: int = 0):
+    """K4 and K5 at the first up level of a depth-6 U-Net, (R, F, Fl) =
+    (32, 512, 1024), at the flagship shapes: c_last is contracted in 512-row
+    K-chunks (logged beside the kernel table, not in K4's row)."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+    from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
+
+    dev = torch.device(DEVICE)
+    _, _, apts, amask, acell, _ = flagship_batch(seed + 3)
+    gen = torch.Generator().manual_seed(seed + 3)
+    xy = torch.from_numpy(apts[..., :2]).to(dev).contiguous()
+    mask = torch.from_numpy(amask).to(dev)
+    cells = torch.from_numpy(acell).to(dev)
+    b, npad = amask.shape
+    r, f, fl = 32, 512, 1024
+    plane = torch.randn(b, r, r, f, generator=gen).to(dev)
+    c_last = (torch.randn(b, npad, fl, generator=gen).to(dev) * mask[..., None]).contiguous()
+    w = (_xavier(gen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
+         _xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
+         _xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
+    args = (plane, c_last, w, xy, cells, mask, r, 256)
+    ko, po = lk.fused_level(*args), lk.fused_level_plain(*args)
+    pre = grid_sample_2d(plane, xy) @ w[0] + w[1]
+    mask5 = mask & ~(pre.abs() < KINK).any(-1)
+    del pre
+    counts5 = lk.fused_level(plane, c_last, w, xy, cells, mask5, r, 256)[2]
+    g_p = torch.randn(b, r, r, f, generator=gen).to(dev)
+    g_c = torch.randn(b, npad, f, generator=gen).to(dev)
+    bargs = (plane, c_last, w, xy, cells, mask5, counts5, g_p, g_c, r, 256)
+    kb, pb = lk.fused_level_bwd(*bargs), lk.fused_level_bwd_plain(*bargs)
+    fwd = [_compare(ko[0], po[0]), _compare(ko[1], po[1])]
+    bwd = [_compare(kb[0], pb[0], *BWD_TOL), _compare(kb[1], pb[1], *BWD_TOL)]
+    bwd += [_compare(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
+    ok = torch.equal(ko[2], po[2]) and all(o for _, o in fwd + bwd)
+    ms = cuda_ms(lambda: lk.fused_level(*args), iters=10)
+    bwd_ms = cuda_ms(lambda: lk.fused_level_bwd(*bargs), iters=5)
+    log("kernels", f"fused_level R={r} F={f} Fl={fl} (depth-6 up level): forward max|d| "
+        f"{max(e for e, _ in fwd):.3g} (tol {TOL:g}), {ms:.3f} ms | backward max|d| "
+        f"{max(e for e, _ in bwd):.3g} on {int(mask5.sum())} of {int(mask.sum())} rows, "
+        f"{bwd_ms:.3f} ms | {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("K4/K5 disagree with their plain versions at Fl=1024")
 
 
 # (H = W, Cin, C, pool) of the 20 conv pairs of a fusion forward (K7): the
@@ -496,6 +572,134 @@ def check_conv_kernels(entry, seed: int = 0):
                              dk.conv_decoder_plain, args)],
           lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
           (nbytes(*args, got), flops), iters=5)
+    torch.cuda.synchronize()
+
+
+# (reso, F) of the tile kernels' calls in a flagship forward on the 'fused'
+# and 'pallas' paths: the plane scatter at 256^2 (F=32), then the eight level
+# round trips (LEVEL_SHAPES' reso and F); the sample (K9) at the eight levels
+TILE_SCATTER_SHAPES = [(256, 32)] + [(r, f) for r, f, _ in LEVEL_SHAPES]
+TILE_GATHER_SHAPES = [(r, f) for r, f, _ in LEVEL_SHAPES]
+
+
+def _scatter_mean_yardstick(vals, cells, shift, ncell, dev):
+    """One ``scatter_reduce`` mean over the flat (B * ncell) cells, rows with
+    no cell in one spare row: the library call that computes a tile
+    scatter-mean."""
+    import torch
+
+    b, n, f = vals.shape
+    cell = cells.long() >> shift
+    flat = torch.where(cell < ncell, cell + ncell * torch.arange(b, device=dev)[:, None],
+                       torch.full_like(cell, b * ncell)).reshape(-1)
+    idx = flat[:, None].expand(-1, f)
+    src = vals.reshape(-1, f)
+    return lambda: torch.zeros(b * ncell + 1, f, device=dev).scatter_reduce_(
+        0, idx, src, "mean", include_self=False)
+
+
+def check_tile_kernels(entry, seed: int = 0):
+    """K9-K14 against their plain versions at every shape one flagship
+    forward gives them: K9/K12/K10 on the aligned layout with 256-cell tiles
+    ('fused'), K11/K13 on the plain sorted layout ('pallas'), K14 at 256-32;
+    B=8, 16384-point buckets."""
+    import torch
+    import torch.nn.functional as F
+
+    from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
+    from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
+    from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
+
+    dev = torch.device(DEVICE)
+    pts, mask_np, apts, amask, acell, toff_np = flagship_batch(seed + 5, tile_cells=256)
+    gen = torch.Generator().manual_seed(seed + 5)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    xy, mask, cells, toff = up(apts[..., :2]), up(amask), up(acell), up(toff_np)
+    b, npad = amask.shape
+    log("kernels", f"tile kernels: B={b} Npad={npad} (256-cell tiles) valid={int(amask.sum())}")
+
+    def level_toff(r):
+        return toff[:, :: 4 ** ((256).bit_length() - r.bit_length())].contiguous()
+
+    def rows_of(f, n=npad, m=mask):
+        return (torch.randn(b, n, f, generator=gen).to(dev) * m[..., None]).contiguous()
+
+    # K9: the eight round trips' samples
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    for r, f in TILE_GATHER_SHAPES:
+        plane = torch.randn(b, r, r, f, generator=gen).to(dev)
+        a = (plane, xy, level_toff(r))
+        out = gk.tile_gather(*a)
+        pairs.append((out, gk.tile_gather_plain(*a)))
+        work[0] += nbytes(plane, xy, out)
+        work[1] += 8 * b * npad * f
+        kfns.append(lambda a=a: gk.tile_gather(*a))
+        pfns.append(lambda a=a: gk.tile_gather_plain(*a))
+        grid = (2 * xy - 1)[:, :, None, :]
+        lfns.append(lambda p=plane.permute(0, 3, 1, 2), g=grid: F.grid_sample(
+            p, g, padding_mode="border", align_corners=True))
+    entry("tile_gather", "tomosar2height_tpu_torch/csrc/tile_gather.cu",
+          "tomosar2height_tpu/ops/pallas/gather_kernel.py:69", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
+          lambda: [fn() for fn in lfns])
+    del pairs, kfns, pfns, lfns
+
+    # K10: the four poolings (F=32 at 256^2), max and mean
+    vals = rows_of(32)
+    pairs = [(tpk.tile_pool(vals, cells, toff, k), tpk.tile_pool_plain(vals, cells, toff, k))
+             for k in ("max", "mean")]
+    entry("tile_pool", "tomosar2height_tpu_torch/csrc/tile_pool.cu",
+          "tomosar2height_tpu/ops/pallas/pool_kernel.py:36", pairs,
+          lambda: tpk.tile_pool(vals, cells, toff, "max"),
+          lambda: tpk.tile_pool_plain(vals, cells, toff, "max"),
+          (nbytes(vals, cells, toff, pairs[0][0]), vals.numel()))
+
+    # K12 (the nine scatters, plus 16^2 at F=1024) and K14 (256-32) on 'fused'
+    for name, source_line, shapes, fn, plain, toff_of in (
+            ("aligned_scatter_mean_plane", 242, TILE_SCATTER_SHAPES + [(16, 1024)],
+             sk.aligned_scatter_mean_plane, sk.aligned_scatter_mean_plane_plain, level_toff),
+            ("scatter_mean_plane_v3", 495, [(256, 32), (128, 128), (64, 256), (32, 512)],
+             sk.scatter_mean_plane_v3, sk.scatter_mean_plane_v3_plain, lambda r: toff)):
+        pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+        for r, f in shapes:
+            a = (rows_of(f), cells, toff_of(r), r, 256)
+            out = fn(*a)
+            pairs.append((out, plain(*a)))
+            work[0] += nbytes(*a[:3], out)
+            work[1] += a[0].numel()
+            kfns.append(lambda a=a, fn=fn: fn(*a))
+            pfns.append(lambda a=a, plain=plain: plain(*a))
+            lfns.append(_scatter_mean_yardstick(a[0], cells, 2 * (9 - r.bit_length()),
+                                                r * r, dev))
+        entry(name, "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
+              f"tomosar2height_tpu/ops/pallas/scatter_kernel.py:{source_line}", pairs,
+              lambda k=kfns: [fn() for fn in k], lambda p=pfns: [fn() for fn in p], work,
+              lambda l=lfns: [fn() for fn in l])
+        del pairs, kfns, pfns, lfns
+
+    # K11 and K13 on the plain sorted layout: the nine plane scatters (K11)
+    # and the mean poolings (K13), at every level's width
+    spts, smask, scells, soffs = (up(x) for x in sorted_layout(pts, mask_np))
+    for name, source_line, fn, plain in (
+            ("scatter_mean_plane", 124, sk.scatter_mean_plane, sk.scatter_mean_plane_plain),
+            ("scatter_mean", 65, sk.scatter_mean, sk.scatter_mean_plain)):
+        pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+        for r, f in TILE_SCATTER_SHAPES:
+            shift = 2 * (9 - r.bit_length())
+            a = (rows_of(f, smask.shape[1], smask), (scells >> shift).contiguous(),
+                 soffs[:, :: 4 ** (shift // 2)].contiguous(), r)
+            out = fn(*a)
+            pairs.append((out, plain(*a)))
+            work[0] += nbytes(*a[:3], out)
+            work[1] += a[0].numel()
+            kfns.append(lambda a=a, fn=fn: fn(*a))
+            pfns.append(lambda a=a, plain=plain: plain(*a))
+            lfns.append(_scatter_mean_yardstick(a[0], a[1], 0, r * r, dev))
+        entry(name, "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
+              f"tomosar2height_tpu/ops/pallas/scatter_kernel.py:{source_line}", pairs,
+              lambda k=kfns: [fn() for fn in k], lambda p=pfns: [fn() for fn in p], work,
+              lambda l=lfns: [fn() for fn in l])
+        del pairs, kfns, pfns, lfns
     torch.cuda.synchronize()
 
 
@@ -706,6 +910,147 @@ def fusion_serve(seed: int = 0):
             for k, v in out[name]["launches"].items() if v}
 
 
+# kernel launches per batch-8 forward on the 'fused' path (K9 at the eight
+# round trips, all at reso >= 32; K10 at the four poolings; K12 at the plane
+# and the eight round trips) and on 'pallas' with max pooling (K11 at the nine
+# scatters); 'cumsum' launches none. 'pallas' with mean pooling adds K13 at
+# the four poolings.
+SORTED_LAUNCHES = {"fused": {"tile_gather": 8, "tile_pool": 4,
+                             "aligned_scatter_mean_plane": 9},
+                   "pallas": {"scatter_mean_plane": 9}, "cumsum": {}}
+PALLAS_MEAN_LAUNCHES = {"scatter_mean_plane": 9, "scatter_mean": 4}
+
+
+def _city(seed: int):
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+
+    w, h = CITY["W"], CITY["H"]
+    _, pts, _ = build_city(seed, **CITY)
+    return [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+             "points": pts}]
+
+
+def sorted_serve(seed: int = 0):
+    """The synthetic city served with ``sorted_config('fused')``, ``('pallas')``
+    and ``('cumsum')`` on one set of random weights, each raster held to the
+    unsorted plain path's; launches per forward asserted (SORTED_LAUNCHES),
+    and one batch of 'pallas' with mean pooling (K13)."""
+    import tempfile
+
+    import torch
+
+    from tomosar2height_tpu_torch.config import sorted_config
+    from tomosar2height_tpu_torch.infer.generator import make_generator
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    chunks = _city(seed)
+    plain_cfg = sorted_config("cumsum")
+    plain_cfg["dataset"]["points"]["sort"] = False
+    plain = init_weights(build_model(plain_cfg, DEVICE), torch.Generator().manual_seed(seed))
+    state = plain.state_dict()
+    tol = _height_tol(plain_cfg)
+    launches_all = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref = make_generator(plain.eval(), plain_cfg, chunks).generate_dsm(
+            os.path.join(tmp, "plain.tif"))
+        nan = np.isnan(ref.data)
+        if nan.all():
+            raise AssertionError("the plain raster is all NaN")
+        for impl, per_batch in SORTED_LAUNCHES.items():
+            cfg = sorted_config(impl)
+            model = build_model(cfg, DEVICE)
+            model.load_state_dict(state)
+            gen = make_generator(model.eval(), cfg, chunks)
+            n_batches = len(gen.data_loader)
+            batch = next(iter(gen.data_loader))
+            keys = ("points", "point_mask", "cell", "cell_offsets")
+            dev = {k: torch.from_numpy(batch[k]).to(DEVICE) for k in keys}
+            fwd_args = (dev["points"], dev["point_mask"], None,
+                        None if gen.data_loader.aligned else dev["cell"], dev["cell_offsets"])
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: model(*fwd_args, footprint=False), iters=3, warmup=1)
+            gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runtime.reset_launches()
+            r = gen.generate_dsm(os.path.join(tmp, f"{impl}.tif"))
+            torch.cuda.synchronize()
+            launches = dict(runtime.LAUNCHES)
+            peak = torch.cuda.max_memory_allocated()
+            stats = gen.last_stats
+            want = {k: per_batch.get(k, 0) * n_batches for k in launches}
+            da = r.data
+            same = (da.shape == ref.data.shape and r.transform == ref.transform
+                    and np.array_equal(np.isnan(da), nan))
+            err = float(np.abs(da[~nan] - ref.data[~nan]).max()) if same else float("inf")
+            log("sorted-serve", f"{impl}: {stats['n_patches']} tiles in {n_batches} batches "
+                f"| {stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
+                f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
+                f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
+                f"{stats['finalize_write_s']:.3f}) | forward {fwd_ms:.1f} ms per batch "
+                f"(median of 3) | peak {peak / 2**30:.2f} GiB | raster vs plain max|d| "
+                f"{err:.3g} m (tol {tol:.3g} m), NaN px {int(nan.sum())} | launches per "
+                f"forward {({k: v / n_batches for k, v in launches.items() if v})}")
+            if not same or err > tol:
+                raise AssertionError(f"{impl}: raster differs from plain ({err} m)")
+            if launches != want:
+                raise AssertionError(f"{impl}: launch counts {launches}, expected {want}")
+            launches_all.update({k: v for k, v in launches.items() if v})
+            if impl == "pallas":
+                mcfg = sorted_config("pallas")
+                mcfg["model"]["encoder_kwargs"]["scatter_type"] = "mean"
+                mean_model = build_model(mcfg, DEVICE)
+                mean_model.load_state_dict(state)
+                runtime.reset_launches()
+                with torch.inference_mode():
+                    h = mean_model.eval()(*fwd_args, footprint=False)[0]
+                torch.cuda.synchronize()
+                got = {k: v for k, v in runtime.LAUNCHES.items() if v}
+                log("sorted-serve", f"pallas, scatter_type=mean: one batch, heights "
+                    f"{tuple(h.shape)} finite {bool(torch.isfinite(h).all())} | launches {got}")
+                if got != PALLAS_MEAN_LAUNCHES or not torch.isfinite(h).all():
+                    raise AssertionError(f"pallas mean: launches {got}, expected "
+                                         f"{PALLAS_MEAN_LAUNCHES}")
+                launches_all["scatter_mean"] = got.get("scatter_mean", 0)
+    return launches_all
+
+
+def munich_depth6(seed: int = 0):
+    """One batch-8 fused2 forward of the flagship with the munich dataset's
+    ALTO depth 6 (conf/dataset/munich.yaml): its first up level runs K4 at
+    (R, F, Fl) = (32, 512, 1024). Held to the unsorted plain path; K4 runs at
+    the nine round trips at reso >= 32."""
+    import torch
+
+    from tomosar2height_tpu_torch.config import flagship_config
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    cfg = flagship_config()
+    cfg["model"]["encoder_kwargs"]["unet_kwargs"]["depth"] = 6
+    model = init_weights(build_model(cfg, DEVICE), torch.Generator().manual_seed(seed)).eval()
+    pts, mask, apts, amask, _, toff = flagship_batch(seed + 2)
+    up = lambda x: torch.from_numpy(x).to(DEVICE)  # noqa: E731
+    runtime.reset_launches()
+    with torch.inference_mode():
+        h, _ = model(up(apts), up(amask), None, None, up(toff))
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in runtime.LAUNCHES.items() if v}
+        h_plain, _ = model(up(pts), up(mask))
+        ms = cuda_ms(lambda: model(up(apts), up(amask), None, None, up(toff)), iters=3,
+                     warmup=1)
+    side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+    err = float((h - h_plain).abs().max())
+    tol = _height_tol(cfg)
+    log("munich-depth6", f"fused2 vs plain heights {tuple(h.shape)}: max|d| {err:.3g} m "
+        f"(tol {tol:.3g} m) | forward {ms:.1f} ms (median of 3) | launches {launches}")
+    if h.shape != (len(pts), side, side, 1) or not torch.isfinite(h).all() or err > tol:
+        raise AssertionError(f"munich depth 6: heights differ by {err} m")
+    if launches.get("fused_level") != 9:
+        raise AssertionError(f"munich depth 6: launches {launches}, expected K4 9")
+
+
 # kernel launches of one fused2 training mini-step with remat: the encoder's
 # forward (K1 4, K2 4, K3 1, K4 8) runs twice, the second time recomputed in
 # the backward; the backward adds the max-pools' K1 'sum' + K2 (4 each), the
@@ -802,13 +1147,18 @@ def main():
     check_model()
     serve_launches = serve()
     fusion_launches = fusion_serve()
+    sorted_launches = sorted_serve()
+    munich_depth6()
     launches = train_phase()
     import torch
 
     for row in rows:
-        # K1-K5 and the backwards: the training step; K6-K8: fusion serving
-        row["launches"] = launches.get(row["name"]) or fusion_launches[row["name"]]
-        row["launches_serve"] = serve_launches.get(row["name"], 0)
+        # K1-K5 and the backwards: the training step; K6-K8: fusion serving;
+        # K9-K13: sorted serving (K14 is on no model path)
+        name = row["name"]
+        row["launches"] = (launches.get(name) or fusion_launches.get(name)
+                           or sorted_launches.get(name, 0))
+        row["launches_serve"] = serve_launches.get(name, 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))
     if loaded:

@@ -1,17 +1,19 @@
-"""The PyTorch port's CUDA kernels K1-K8 against their plain versions, on the
-card, forward and backward (K6-K8 backward: the plain composition's). Marked ``cuda``: they skip where no CUDA card is
-present (the kernels have no CPU mode). This file imports no JAX, so it runs on a machine without
-it; there, skip ``tests/conftest.py`` (which imports JAX):
+"""The PyTorch port's CUDA kernels K1-K14 against their plain versions, on the
+card, forward and backward (K6-K12 backward: the plain composition's). Marked
+``cuda``: they skip where no CUDA card is present (the kernels have no CPU
+mode). This file imports no JAX, so it runs on a machine without it; there,
+skip ``tests/conftest.py`` (which imports JAX):
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-It also holds the numpy input builders that ``test_torch_pool2*.py`` and
-``test_torch_level*.py`` feed to the JAX package. Tolerance 1e-5 (rtol and
-atol): float atomics sum in another order than the plain versions. K5's
-d_plane and d_c_last: 2e-5 abs + 2e-4 rel (tests/test_fused_level_bwd.py);
-its weight gradients are sums over every row, so 3e-4 * max|ref| abs + 3e-4
-rel. The conv kernels K6-K8: 1e-5 abs + rel (fp32 FMA in another order than
-cuDNN's full-fp32 convolutions).
+It also holds the numpy input functions that ``test_torch_pool2*.py``,
+``test_torch_level*.py`` and ``test_torch_tile_kernels.py`` feed to the JAX
+package. Tolerance 1e-5 (rtol and atol): float atomics sum in another order
+than the plain versions. K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
+(tests/test_fused_level_bwd.py); its weight gradients are sums over every
+row, so 3e-4 * max|ref| abs + 3e-4 rel. The conv kernels K6-K8: 1e-5 abs +
+rel (fp32 FMA in another order than cuDNN's full-fp32 convolutions). The
+backwards of K9/K10/K12 are the plain composition's autograd: 1e-5.
 """
 
 from __future__ import annotations
@@ -25,9 +27,15 @@ from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
 from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
+from tomosar2height_tpu_torch.ops import fused
+from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
+from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
 from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
+from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
     aligned_bucket_size,
+    host_morton_bucket,
     host_morton_bucket_aligned,
 )
 
@@ -116,6 +124,56 @@ def level_cotangents(inp, seed):
     g_p = rng.normal(0, 1, plane.shape).astype(np.float32)
     g_c = rng.normal(0, 1, mask.shape + (plane.shape[-1],)).astype(np.float32)
     return g_p, g_c
+
+
+def tile_batch(seed: int, b: int = 2, n: int = 900, reso: int = RESO, f: int = 32,
+               edge: str = "none"):
+    """b patches on the aligned layout with 256-cell tiles (the ``fused``
+    kernels' contract: tests/test_pallas_aligned.py) and junk values on the
+    pad rows. ``edge`` names the cases to build: 'empty' masks every point
+    of the last entry, 'border' puts points on the plane's edges and
+    corners, 'one_cell' puts every point of entry 0 into one cell."""
+    rng = np.random.default_rng(seed)
+    npad = aligned_bucket_size(n, reso, tile_cells=256)
+    pts = np.zeros((b, npad, 3), np.float32)
+    mask = np.zeros((b, npad), bool)
+    cells = np.zeros((b, npad), np.int32)
+    toff = np.zeros((b, reso * reso // 256 + 1), np.int32)
+    for i in range(b):
+        p = rng.uniform(0.001, 0.999, (n, 3)).astype(np.float32)
+        m = rng.random(n) > 0.1
+        if "border" in edge:
+            p[: n // 4, 0] = rng.uniform(0.0, 0.01, n // 4)
+            p[n // 4: n // 2, 1] = rng.uniform(0.99, 1.0, n // 4)
+            p[:4, :2] = [[0.0, 0.0], [1.0, 1.0], [0.0, 1.0], [1.0, 0.0]]
+        if "one_cell" in edge and i == 0:
+            p[:, :2] = 0.51
+        if "empty" in edge and i == b - 1:
+            m[:] = False
+        a = host_morton_bucket_aligned(p, m, reso, tile_cells=256)
+        pts[i], mask[i], cells[i], toff[i] = a["points"], a["mask"], a["cells"], a["tile_offsets"]
+    vals = rng.normal(size=(b, npad, f)).astype(np.float32)
+    vals[~mask] = 1e9  # junk on pad rows must not leak
+    return pts, mask, cells, toff, vals
+
+
+def sorted_batch(seed: int, b: int = 2, n: int = 1024, n_valid: int = 900,
+                 reso: int = 32, f: int = 8, one_cell: bool = False):
+    """b patches on the plain sorted layout (tests/test_pallas_kernel.py):
+    values, cells at ``reso`` (pads reso**2) and per-cell offsets."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(0.001, 0.999, (b, n, 3)).astype(np.float32)
+    if one_cell:
+        pts[:] = 0.51
+    mask = np.zeros((b, n), bool)
+    mask[:, :n_valid] = True
+    vals = rng.normal(size=(b, n, f)).astype(np.float32)
+    cells = np.empty((b, n), np.int32)
+    offs = np.empty((b, reso * reso + 1), np.int32)
+    for i in range(b):
+        order, cells[i], offs[i] = host_morton_bucket(pts[i], mask[i], reso)
+        vals[i] = vals[i][order]
+    return vals, cells, offs
 
 
 def t(x, device="cpu"):
@@ -212,7 +270,8 @@ class TestPool2Kernels:
 @pytest.mark.cuda
 class TestLevelKernel:
     @pytest.mark.parametrize("reso,level_reso,f,fl", [
-        (64, 64, 8, 4), (64, 32, 16, 16), (32, 32, 8, 8), (256, 32, 512, 256)])
+        (64, 64, 8, 4), (64, 32, 16, 16), (32, 32, 8, 8), (256, 32, 512, 256),
+        (256, 32, 512, 1024), (64, 32, 64, 600)])
     def test_matches_plain(self, cuda, reso, level_reso, f, fl):
         inp = level_inputs(reso, level_reso, f, fl, seed=7, empty_last=True)
         n0 = runtime.LAUNCHES["fused_level"]
@@ -255,6 +314,36 @@ class TestLevelBackwardKernel:
         assert runtime.LAUNCHES["level_bwd_reduce"] == before["level_bwd_reduce"] + 3
         assert_level_grads_close(got, want)
         assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()  # the empty patch
+
+    @pytest.mark.parametrize("fl", [1024])
+    def test_wide_c_last_at_flagship_size(self, cuda, fl):
+        """K4 and K5 at the first up level of a depth-6 U-Net (R=32, F=512,
+        Fl=1024) on B=8 patches of the flagship's 16384 points. K5 is held on
+        the rows whose fc_comm pre-activations lie >= 2e-5 from ReLU's kink
+        (chip_smoke.KINK): there the kernel and cuBLAS may open other gates."""
+        inp = level_inputs(256, 32, 512, fl, seed=5, b=8, n=16384)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        n0 = dict(runtime.LAUNCHES)
+        got = run_level(inp, 256, 32, device=cuda)
+        want = run_level(inp, 256, 32, fn=lk.fused_level_plain, device=cuda)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_level"] == n0["fused_level"] + 1
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        torch.testing.assert_close(got[1], want[1], **TOL)
+        w = tuple(t(x, cuda) for x in weights)
+        xy = t(pts[..., :2], cuda)
+        pre = grid_sample_2d(t(plane, cuda), xy) @ w[0] + w[1]
+        m5 = t(mask, cuda) & ~(pre.abs() < 2e-5).any(-1)
+        args = (t(plane, cuda), t(c_last, cuda), w, xy, t(cells, cuda), m5)
+        counts = lk.fused_level(*args, 32, 256)[2]
+        g_p, g_c = (t(x, cuda) for x in level_cotangents(inp, seed=6))
+        bargs = args + (counts, g_p, g_c, 32, 256)
+        got_b = lk.fused_level_bwd(*bargs)
+        want_b = lk.fused_level_bwd_plain(*bargs)
+        torch.cuda.synchronize()
+        assert runtime.LAUNCHES["fused_level_bwd"] == n0["fused_level_bwd"] + 1
+        assert got_b[1].shape == (8, mask.shape[1], fl)
+        assert_level_grads_close(got_b, want_b)
 
     def test_autograd_runs_the_kernels(self, cuda):
         inp = level_inputs(64, 32, 16, 16, seed=4)
@@ -348,3 +437,112 @@ class TestConvKernels:
         k, b = (t(a, cuda) for a in conv_weights(rng, 3, 8))
         with pytest.raises(ValueError, match="contiguous"):
             ck.conv3x3(x, k, b)
+
+
+def _launched(name, before, n=1):
+    assert runtime.LAUNCHES[name] == before[name] + n, name
+
+
+@pytest.mark.cuda
+class TestTileKernels:
+    """K9-K14 (the ``fused``/``pallas`` paths' kernels) at the edge cases of
+    tests/test_pallas_aligned.py and tests/test_pallas_kernel.py."""
+
+    @pytest.mark.parametrize("reso,finest,edge", [
+        (64, 64, "none"), (32, 64, "empty"), (32, 32, "border"), (256, 256, "none")])
+    def test_tile_gather(self, cuda, reso, finest, edge):
+        pts, mask, _, toff, _ = tile_batch(13, reso=finest, edge=edge)
+        rng = np.random.default_rng(1)
+        plane = t(rng.normal(size=(2, reso, reso, 48)).astype(np.float32), cuda)
+        xy = t(pts[..., :2], cuda)
+        lvl_toff = t(toff[:, :: 4 ** ((finest.bit_length() - reso.bit_length()))], cuda)
+        before = dict(runtime.LAUNCHES)
+        got = gk.tile_gather(plane, xy, lvl_toff)
+        want = gk.tile_gather_plain(plane, xy, lvl_toff)
+        torch.cuda.synchronize()
+        _launched("tile_gather", before)
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    @pytest.mark.parametrize("edge", ["none", "one_cell", "empty"])
+    def test_tile_pool(self, cuda, kind, edge):
+        _, mask, cells, toff, vals = tile_batch(41, f=40, edge=edge)
+        v, c, tt = t(vals, cuda), t(cells, cuda), t(toff, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = tpk.tile_pool(v, c, tt, kind)
+        want = tpk.tile_pool_plain(v, c, tt, kind)
+        torch.cuda.synchronize()
+        _launched("tile_pool", before)
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[t(~mask, cuda)] == 0).all()
+
+    @pytest.mark.parametrize("reso,finest,f,edge", [
+        (64, 64, 32, "none"), (32, 64, 40, "empty"), (16, 64, 1024, "none"),
+        (64, 64, 8, "one_cell")])
+    def test_aligned_scatter_mean_plane(self, cuda, reso, finest, f, edge):
+        _, _, cells, toff, vals = tile_batch(7, reso=finest, f=f, edge=edge)
+        level = finest.bit_length() - reso.bit_length()
+        v, c = t(vals, cuda), t(cells, cuda)
+        lvl_toff = t(toff[:, :: 4 ** level], cuda)
+        before = dict(runtime.LAUNCHES)
+        got = sk.aligned_scatter_mean_plane(v, c, lvl_toff, reso, finest)
+        want = sk.aligned_scatter_mean_plane_plain(v, c, lvl_toff, reso, finest)
+        got_v3 = sk.scatter_mean_plane_v3(v, c, t(toff, cuda), reso, finest)
+        torch.cuda.synchronize()
+        _launched("aligned_scatter_mean_plane", before)
+        _launched("scatter_mean_plane_v3", before)
+        torch.testing.assert_close(got, want, **TOL)
+        torch.testing.assert_close(got_v3, want, **TOL)
+        if edge == "empty":
+            assert (got[-1] == 0).all()
+
+    @pytest.mark.parametrize("reso,f,one_cell", [(32, 8, False), (16, 4, False),
+                                                 (16, 4, True), (64, 96, False)])
+    def test_sorted_scatter_mean(self, cuda, reso, f, one_cell):
+        vals, cells, offs = sorted_batch(3, reso=reso, f=f, one_cell=one_cell)
+        v, c, o = t(vals, cuda), t(cells, cuda), t(offs, cuda)
+        before = dict(runtime.LAUNCHES)
+        plane = sk.scatter_mean_plane(v, c, o, reso)
+        vec = sk.scatter_mean(v, c, o, reso)
+        torch.cuda.synchronize()
+        _launched("scatter_mean_plane", before)
+        _launched("scatter_mean", before)
+        torch.testing.assert_close(plane, sk.scatter_mean_plane_plain(v, c, o, reso), **TOL)
+        torch.testing.assert_close(vec, sk.scatter_mean_plain(v, c, o, reso), **TOL)
+
+    def test_forward_only_kernels_refuse_a_gradient(self, cuda):
+        vals, cells, offs = sorted_batch(3)
+        v = t(vals, cuda).requires_grad_()
+        with pytest.raises(RuntimeError, match="forward-only"):
+            sk.scatter_mean_plane(v, t(cells, cuda), t(offs, cuda), 32)
+
+    def test_backwards_are_the_plain_compositions(self, cuda):
+        pts, mask, cells, toff, vals = tile_batch(21, f=16)
+        vals[~mask] = 0.0
+        m, c, tt = t(mask, cuda), t(cells, cuda), t(toff, cuda)
+        rng = np.random.default_rng(2)
+        plane = t(rng.normal(size=(2, RESO, RESO, 16)).astype(np.float32), cuda)
+        xy = t(pts[..., :2], cuda)
+
+        def grads(on_kernel):
+            p = plane.clone().requires_grad_()
+            v = t(vals, cuda).requires_grad_()
+            if on_kernel:
+                s = fused.tile_gather(p, xy, m, tt, RESO)
+                q = fused.tile_pool(v, c, tt, m, RESO, "max")
+                o = fused.tile_scatter_mean(v, c, tt, RESO, RESO)
+            else:
+                s = fused._gather_plain(p, xy, m, tt)
+                q = fused._masked(m, tpk.tile_pool_plain(v, c, tt, "max"))
+                o = sk.aligned_scatter_mean_plane_plain(v, c, tt, RESO, RESO)
+            ((s ** 2).sum() + (q * v).sum() + (o ** 2).sum()).backward()
+            return p.grad, v.grad
+
+        before = dict(runtime.LAUNCHES)
+        got = grads(True)
+        want = grads(False)
+        torch.cuda.synchronize()
+        for name in ("tile_gather", "tile_pool", "aligned_scatter_mean_plane"):
+            _launched(name, before)
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, **TOL)

@@ -5,10 +5,11 @@ A tiny synthetic city is built as tests/test_e2e.py does. The port's
 versions on the CPU), the JAX ``DSMGenerator`` its plain unsorted path, with
 the same small model and weights. The rasters must share shape, transform and
 NaN mask, and agree within 2e-4 * z_scale meters; so must the rasters of the
+port's Morton-sorted paths (``fused``, ``pallas``, ``cumsum``) and of the
 cloud+image network, the port with its kernel flags set, from the city's RGB
 image. Also pinned here: the port's serving dataset (image crops included)
-and loader against the JAX ones (bit-identical), and the port's flagship and
-fusion config literals against ``compose()``.
+and loader (every layout) against the JAX ones (bit-identical), and the
+port's flagship, sorted and fusion config literals against ``compose()``.
 """
 
 from __future__ import annotations
@@ -29,9 +30,18 @@ from tomosar2height_tpu.config import compose  # noqa: E402
 from tomosar2height_tpu.config.compose import default_conf_dir  # noqa: E402
 from tomosar2height_tpu.data import PatchLoader as JaxPatchLoader  # noqa: E402
 from tomosar2height_tpu.data import TomoSARDataset, build_dataset  # noqa: E402
+from tomosar2height_tpu.data import tile_cells_for_impl as jax_tile_cells  # noqa: E402
 from tomosar2height_tpu.geo import RasterReader  # noqa: E402
-from tomosar2height_tpu_torch.config import flagship_config, fusion_config  # noqa: E402
-from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset  # noqa: E402
+from tomosar2height_tpu_torch.config import (  # noqa: E402
+    flagship_config,
+    fusion_config,
+    sorted_config,
+)
+from tomosar2height_tpu_torch.data import (  # noqa: E402
+    PatchLoader,
+    SceneDataset,
+    tile_cells_for_impl,
+)
 from tomosar2height_tpu_torch.geo import RasterData  # noqa: E402
 from tomosar2height_tpu_torch.infer.generator import make_generator  # noqa: E402
 from tomosar2height_tpu_torch.models import build_model  # noqa: E402
@@ -103,12 +113,51 @@ def image_city(city):
     return root, cfg, chunks, (data, raster)
 
 
-def _fused2_cfg(cfg):
-    """The composed config with the fused2 serving path switched on."""
+def _sorted_cfg(cfg, impl="fused2"):
+    """The composed config with a sorted serving path (fused2 by default)
+    switched on."""
     out = copy.deepcopy(cfg)
-    out["model"]["encoder_kwargs"]["sorted_impl"] = "fused2"
+    out["model"]["encoder_kwargs"]["sorted_impl"] = impl
     out["dataset"]["points"]["sort"] = True
     return out
+
+
+@pytest.fixture(scope="module")
+def jax_raster(city, tmp_path_factory):
+    """The JAX DSMGenerator's raster of the city on its plain path, and the
+    flax parameters it used."""
+    import jax.numpy as jnp
+
+    from tomosar2height_tpu.infer import DSMGenerator as JaxDSMGenerator
+    from tomosar2height_tpu.models import build_model as jax_build_model
+
+    _, cfg, ds, _ = city
+    jloader = JaxPatchLoader(ds, 2, [BUCKET], fixed_bucket=BUCKET)
+    jmodel = jax_build_model(cfg)
+    sample = jloader.collate([ds[0]])
+    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(sample["points"]),
+                         jnp.asarray(sample["point_mask"]))
+    dsm = cfg["dsm_generation"]
+    jgen = JaxDSMGenerator(jmodel, lambda: params, jloader, dsm["pixel_size"],
+                           half_blend_percent=dsm.get("half_blend_percent"),
+                           crs_epsg=dsm.get("crs_epsg"), use_cloud=True,
+                           use_image=False)
+    path = str(tmp_path_factory.mktemp("jax_raster") / "jax.tif")
+    jgen.generate_dsm(path)
+    return RasterReader(path), jax.tree.map(np.asarray, params)
+
+
+def _assert_raster_matches(path, ref, cfg):
+    a = RasterReader(path)
+    assert a.shape == ref.shape == (320, 320)
+    assert a.T == ref.T
+    da, db = a.get_data(), ref.get_data()
+    nan = np.isnan(db)
+    assert nan.any() and not nan.all()
+    np.testing.assert_array_equal(np.isnan(da), nan)
+    z = cfg["dataset"]["normalize"]["z_bound"]
+    np.testing.assert_allclose(da[~nan], db[~nan], rtol=0, atol=2e-4 * (z[1] - z[0]))
+    assert (da[~nan] >= 0).all()
 
 
 def test_scene_patches_match_tomosar_dataset(city):
@@ -163,43 +212,57 @@ def test_loader_batches_match(city, aligned):
     assert n == len(ref) == 5
 
 
-def test_generated_raster_matches_jax(city, tmp_path):
-    import jax.numpy as jnp
-
-    from tomosar2height_tpu.infer import DSMGenerator as JaxDSMGenerator
-    from tomosar2height_tpu.models import build_model as jax_build_model
-
+@pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
+def test_sorted_layout_batches_match(city, impl):
+    """The layout each sorted_impl reads, as test.py:53-63 asks the JAX
+    loader for it: aligned with 256-cell tiles ('fused'), plain sorted with
+    per-cell offsets and pads at reso**2 ('pallas', 'cumsum')."""
     _, cfg, ds, chunks = city
-    jloader = JaxPatchLoader(ds, 2, [BUCKET], fixed_bucket=BUCKET)
-    jmodel = jax_build_model(cfg)
-    sample = jloader.collate([ds[0]])
-    params = jmodel.init(jax.random.PRNGKey(0), jnp.asarray(sample["points"]),
-                         jnp.asarray(sample["point_mask"]))
-    dsm = cfg["dsm_generation"]
-    jgen = JaxDSMGenerator(jmodel, lambda: params, jloader, dsm["pixel_size"],
-                           half_blend_percent=dsm.get("half_blend_percent"),
-                           crs_epsg=dsm.get("crs_epsg"), use_cloud=True,
-                           use_image=False)
-    jgen.generate_dsm(str(tmp_path / "jax.tif"))
+    aligned = impl in ("fused", "fused2")
+    assert tile_cells_for_impl(impl) == jax_tile_cells(impl)
+    mine = PatchLoader(SceneDataset(chunks, cfg["dataset"], "test"), 2, [BUCKET],
+                       fixed_bucket=BUCKET, sort_reso=64, aligned=aligned,
+                       tile_cells=tile_cells_for_impl(impl))
+    ref = JaxPatchLoader(ds, 2, [BUCKET], fixed_bucket=BUCKET, sort_reso=64,
+                         aligned=aligned, tile_cells=jax_tile_cells(impl))
+    n = 0
+    for a, b in zip(mine, ref):
+        n += 1
+        assert set(b) - {"name"} <= set(a)
+        for k in set(b) - {"name"}:
+            np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
+        width = 64 * 64 // 256 + 1 if aligned else 64 * 64 + 1
+        assert a["cell_offsets"].shape == (2, width)
+    assert n == len(ref) == 5
 
-    pcfg = _fused2_cfg(cfg)
-    model = load_flax_params(build_model(pcfg, device="cpu"),
-                             jax.tree.map(np.asarray, params)).eval()
+
+def test_generated_raster_matches_jax(city, jax_raster, tmp_path):
+    _, cfg, _, chunks = city
+    ref, params = jax_raster
+    pcfg = _sorted_cfg(cfg)
+    model = load_flax_params(build_model(pcfg, device="cpu"), params).eval()
     gen = make_generator(model, pcfg, chunks)
     assert gen.data_loader.sort_reso == 64
     gen.generate_dsm(str(tmp_path / "port.tif"))
     assert gen.last_stats["n_patches"] == 9
+    _assert_raster_matches(str(tmp_path / "port.tif"), ref, cfg)
 
-    a, b = RasterReader(str(tmp_path / "port.tif")), RasterReader(str(tmp_path / "jax.tif"))
-    assert a.shape == b.shape == (320, 320)
-    assert a.T == b.T
-    da, db = a.get_data(), b.get_data()
-    nan = np.isnan(db)
-    assert nan.any() and not nan.all()
-    np.testing.assert_array_equal(np.isnan(da), nan)
-    z = cfg["dataset"]["normalize"]["z_bound"]
-    np.testing.assert_allclose(da[~nan], db[~nan], rtol=0, atol=2e-4 * (z[1] - z[0]))
-    assert (da[~nan] >= 0).all()
+
+@pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
+def test_sorted_raster_matches_jax(city, jax_raster, tmp_path, impl):
+    """The port's generator on each Morton-sorted path (its layout from
+    ``make_generator``, the kernels' plain versions here) serves the JAX
+    plain path's raster."""
+    _, cfg, _, chunks = city
+    ref, params = jax_raster
+    pcfg = _sorted_cfg(cfg, impl)
+    model = load_flax_params(build_model(pcfg, device="cpu"), params).eval()
+    gen = make_generator(model, pcfg, chunks)
+    assert gen.data_loader.aligned == (impl == "fused")
+    assert gen.data_loader.tile_cells == tile_cells_for_impl(impl)
+    gen.generate_dsm(str(tmp_path / "port.tif"))
+    assert gen.last_stats["n_patches"] == 9
+    _assert_raster_matches(str(tmp_path / "port.tif"), ref, cfg)
 
 
 def test_generated_image_raster_matches_jax(image_city, tmp_path):
@@ -227,7 +290,7 @@ def test_generated_image_raster_matches_jax(image_city, tmp_path):
                            crs_epsg=dsm.get("crs_epsg"), use_cloud=True, use_image=True)
     jgen.generate_dsm(str(tmp_path / "jax.tif"))
 
-    pcfg = _fused2_cfg(cfg)
+    pcfg = _sorted_cfg(cfg)
     pcfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = True
     pcfg["model"]["encoder2_kwargs"]["fused_convs"] = True
     pcfg["model"]["decoder_pixel_kwargs"]["fused_head"] = True
@@ -259,6 +322,20 @@ def test_flagship_literal_matches_compose():
         "dataset=berlin", "dataset.points.sort=true",
         "model.encoder_kwargs.sorted_impl=fused2"])
     for path, value in _leaves(flagship_config()):
+        node = cfg
+        for k in path:
+            node = node[k]
+        assert node == value, path
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
+def test_sorted_literal_matches_compose(impl):
+    cfg = compose(default_conf_dir(), overrides=[
+        "dataset=berlin", "dataset.points.sort=true",
+        f"model.encoder_kwargs.sorted_impl={impl}"])
+    mine = sorted_config(impl)
+    assert mine["model"]["encoder_kwargs"]["sorted_impl"] == impl
+    for path, value in _leaves(mine):
         node = cfg
         for k in path:
             node = node[k]

@@ -166,9 +166,9 @@ class TestForward:
                                    atol=2e-4 * Z_SCALE)
 
     def test_unported_paths_raise(self):
-        for impl in ("cumsum", "pallas", "fused"):
-            model = build_model(small_cfg(impl), device="cpu")
-            pts = torch.rand(1, 8, 3)
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
-                model(pts, torch.ones(1, 8, dtype=torch.bool), None,
-                      torch.zeros(1, 5, dtype=torch.int32), torch.zeros(1, 5, dtype=torch.int32))
+        """Every sorted_impl runs now (tests/test_torch_sorted_model.py); the
+        point encoder's plain U-Net (unet_type='unet') is still unported."""
+        cfg = small_cfg("cumsum")
+        cfg["model"]["encoder_kwargs"]["unet_type"] = "unet"
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model(cfg, device="cpu")

@@ -33,7 +33,9 @@ def test_importing_every_module_loads_no_jax():
         "        ('loop', 'schedule', 'trainer')} <= set(names), names\n"
         "assert {'tomosar2height_tpu_torch.' + m for m in\n"
         "        ('models.unet', 'ops.cuda.conv_kernel', 'ops.cuda.convpair_kernel',\n"
-        "         'ops.cuda.decoder_kernel')} <= set(names), names\n"
+        "         'ops.cuda.decoder_kernel', 'ops.cuda.gather_kernel',\n"
+        "         'ops.cuda.pool_kernel', 'ops.cuda.scatter_kernel', 'ops.fused')\n"
+        "        } <= set(names), names\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'tomosar2height_tpu'))\n"
         "assert not bad, bad\n"

@@ -6,7 +6,8 @@ them as a literal and reads no YAML. They equal ``compose()`` of ``dataset=berli
 (depth-5 ALTO U-Net, cloud only) with ``dataset.points.sort=true`` and
 ``model.encoder_kwargs.sorted_impl=fused2`` (pinned by a test).
 :func:`fusion_config` is the cloud+image fusion network on the same keys
-(``use_image=true`` with the kernel flags set, also pinned).
+(``use_image=true`` with the kernel flags set, also pinned), and
+:func:`sorted_config` the flagship on another Morton-sorted path.
 """
 
 from __future__ import annotations
@@ -76,4 +77,13 @@ def fusion_config() -> dict:
     model["decoder_pixel_kwargs"]["fused_head"] = True
     cfg["dataset"]["satellite_image"] = {"normalize": {
         "mean": [688.8, 521.7, 239.2], "std": [344.1, 291.0, 247.2]}}
+    return cfg
+
+
+def sorted_config(impl: str) -> dict:
+    """The flagship with ``model.encoder_kwargs.sorted_impl=impl`` ('fused',
+    'pallas', 'cumsum' or 'fused2'): ``compose()`` of ``dataset=berlin
+    dataset.points.sort=true model.encoder_kwargs.sorted_impl=<impl>``."""
+    cfg = flagship_config()
+    cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
     return cfg

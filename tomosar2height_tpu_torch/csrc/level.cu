@@ -13,7 +13,10 @@
 // (k-major) and two staged 32x128 tiles of whichever weight matrix it is
 // contracting (double-buffered: the next tile's loads fly during the current
 // tile's FMAs; the block GEMM is in tile_gemm.cuh); c_last reuses the
-// sample's space once the hidden layer exists.
+// sample's space once the hidden layer exists. That space holds
+// max(F, min(Fl, 512)) rows: a wider c_last (Fl = 1024 at the first up level
+// of a depth-6 U-Net, whose F is 512) is contracted in 512-row K-chunks, each
+// loaded into the same space, once per 128-column output pass.
 // Each of the 256 threads holds a 4-point x 4-column fp32 accumulator tile of
 // a 32x128 output slab; a warp owns 16 columns of all 32 points. The plane scatter is an atomicAdd per output element
 // into a zeroed (B,R,R,F) buffer, then a finalize pass divides by the counts.
@@ -26,20 +29,45 @@
 // write zeros to c_out and skip the matmuls. Tensor cores (wgmma) and TMA
 // staging are left for later work.
 
-#include <algorithm>
-
+#include "bilinear.cuh"
 #include "common.cuh"
 #include "tile_gemm.cuh"
 
 namespace t2h {
 
-size_t level_smem_bytes(int F, int Fl) {
-  const int ka = std::max(F, Fl);
-  return sizeof(float) *
-         ((size_t)ka * kP + (size_t)2 * F * kP + (size_t)2 * kKT * kNT);
+constexpr int kKc = 512;  // c_last rows contracted per K-chunk
+
+// Rows of the shared sample / c_last buffer: the sample's F, and c_last's Fl
+// up to one K-chunk.
+__host__ __device__ inline int level_a_rows(int F, int Fl) {
+  const int kc = Fl < kKc ? Fl : kKc;
+  return F > kc ? F : kc;
 }
 
-__global__ void __launch_bounds__(kThreads)
+size_t level_smem_bytes(int F, int Fl) {
+  return sizeof(float) * ((size_t)level_a_rows(F, Fl) * kP + (size_t)2 * F * kP +
+                          (size_t)2 * kKT * kNT);
+}
+
+// c_last columns [k0, k0 + kc) of the block's rows -> A[k][r] (0 past N).
+__device__ __forceinline__ void load_clast(float* A, const float* __restrict__ clast,
+                                           long long row0, int rows, int Fl, int k0,
+                                           int kc, int tid) {
+  for (int e = tid; e < kP * kc; e += kThreads) {
+    const int r = e / kc;
+    const int k = e - r * kc;
+    A[k * kP + r] = r < rows ? clast[(row0 + r) * Fl + k0 + k] : 0.0f;
+  }
+}
+
+// kChunked: c_last is wider than A (Fl > max(F, 512)) and is contracted in
+// K-chunks; a separate instantiation, so that the levels whose c_last fits
+// keep the one-pass code. At most 128 registers a thread (two blocks an SM
+// where shared memory allows it, F <= 128): uncapped, ptxas gave the
+// one-pass code 156 and the F <= 128 levels ran 24-29% slower (measured with
+// tools/time_level.py).
+template <bool kChunked>
+__global__ void __launch_bounds__(kThreads, 2)
 fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,
                 const float* __restrict__ xy, const int* __restrict__ cells,
                 const uint8_t* __restrict__ mask, const float* __restrict__ w_in,
@@ -59,18 +87,14 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   const int row0 = 4 * (lane & 7);
   const int col0 = 16 * (tid >> 5) + 4 * (lane >> 3);
   const int H = 2 * F;
-  const int ka = max(F, Fl);
+  const int ka = level_a_rows(F, Fl);
   float* A = reinterpret_cast<float*>(smem4);  // [ka][kP]: sample, then c_last
   float* Hs = A + (size_t)ka * kP;             // [H][kP]: hidden layer
   float* Ws = Hs + (size_t)H * kP;             // [2][kKT][kNT]: staged weights
 
   __shared__ int s_valid[kP];
   __shared__ int s_cell[kP];  // row-major cell at this level, -1 if none
-  __shared__ int s_base[kP];  // y0 * R + x0
-  __shared__ int s_dx[kP];    // pixel offset of the x+1 neighbour (0 at the edge)
-  __shared__ int s_dy[kP];    // pixel offset of the y+1 neighbour (0 at the edge)
-  __shared__ float s_wx[kP];
-  __shared__ float s_wy[kP];
+  __shared__ Corner s_corner[kP];
   __shared__ int s_any;
 
   const long long RR = (long long)R * R;
@@ -78,21 +102,12 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   __syncthreads();
   if (tid < kP) {
     const int i = i0 + tid;
-    int valid = 0, cellr = -1, base = 0, dx = 0, dy = 0;
-    float wx = 0.0f, wy = 0.0f;
+    int valid = 0, cellr = -1;
+    Corner corner = {};
     if (i < N) {
       const long long p = (long long)b * N + i;
       valid = mask[p] != 0;
-      const float rmax = static_cast<float>(R - 1);
-      const float x = fminf(fmaxf(xy[2 * p] * rmax, 0.0f), rmax);
-      const float y = fminf(fmaxf(xy[2 * p + 1] * rmax, 0.0f), rmax);
-      const int x0 = min(max(static_cast<int>(floorf(x)), 0), R - 1);
-      const int y0 = min(max(static_cast<int>(floorf(y)), 0), R - 1);
-      wx = x - static_cast<float>(x0);
-      wy = y - static_cast<float>(y0);
-      dx = x0 + 1 < R ? 1 : 0;
-      dy = y0 + 1 < R ? R : 0;
-      base = y0 * R + x0;
+      corner = bilinear_corner(xy[2 * p], xy[2 * p + 1], R);
       const int c = cells[p];
       if (valid && c >= 0 && (c >> shift) < RR) {
         cellr = morton_to_rowmajor(c >> shift, R);
@@ -102,11 +117,7 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
     }
     s_valid[tid] = valid;
     s_cell[tid] = cellr;
-    s_base[tid] = base;
-    s_dx[tid] = dx;
-    s_dy[tid] = dy;
-    s_wx[tid] = wx;
-    s_wy[tid] = wy;
+    s_corner[tid] = corner;
   }
   __syncthreads();
 
@@ -123,17 +134,7 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   for (int e = tid; e < kP * F; e += kThreads) {
     const int r = e / F;
     const int c = e - r * F;
-    float v = 0.0f;
-    if (i0 + r < N && s_valid[r]) {
-      const long long o = (long long)s_base[r] * F + c;
-      const long long ox = (long long)s_dx[r] * F;
-      const long long oy = (long long)s_dy[r] * F;
-      const float wx = s_wx[r], wy = s_wy[r];
-      const float top = pl[o] * (1.0f - wx) + pl[o + ox] * wx;
-      const float bot = pl[o + oy] * (1.0f - wx) + pl[o + oy + ox] * wx;
-      v = top * (1.0f - wy) + bot * wy;
-    }
-    A[c * kP + r] = v;
+    A[c * kP + r] = i0 + r < N && s_valid[r] ? bilinear_at(pl, s_corner[r], R, F, c) : 0.0f;
   }
   __syncthreads();
 
@@ -156,21 +157,31 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
     }
   }
 
-  // --- c_last -> A[k][r] (the sample is no longer needed) ----------------------
-  for (int e = tid; e < kP * Fl; e += kThreads) {
-    const int r = e / Fl;
-    const int k = e - r * Fl;
-    A[k * kP + r] =
-        i0 + r < N ? clast[((long long)b * N + i0 + r) * Fl + k] : 0.0f;
+  // --- c_last -> A[k][r] (the sample is no longer needed): whole when it fits,
+  // else one K-chunk at a time inside each output pass ---------------------------
+  const long long row_b = (long long)b * N + i0;
+  const int rows = min(kP, N - i0);
+  if (!kChunked) {
+    load_clast(A, clast, row_b, rows, Fl, 0, Fl, tid);
+    __syncthreads();
   }
-  __syncthreads();
 
   // --- o = h @ w_out + c_last @ w_c + b_out + b_c; write c_out; scatter ------------
   float* po = plane_out + (long long)b * RR * F;
   for (int n0 = 0; n0 < F; n0 += kNT) {
     float acc[4][4] = {};
     gemm_tile(acc, Hs, H, w_out, F, n0, Ws, tid, row0, col0);
-    gemm_tile(acc, A, Fl, w_c, F, n0, Ws, tid, row0, col0);
+    if (!kChunked) {
+      gemm_tile(acc, A, Fl, w_c, F, n0, Ws, tid, row0, col0);
+    } else {
+      // each gemm_tile ends with a barrier, so the next chunk may overwrite A
+      for (int k0 = 0; k0 < Fl; k0 += ka) {
+        const int kc = min(ka, Fl - k0);
+        load_clast(A, clast, row_b, rows, Fl, k0, kc, tid);
+        __syncthreads();
+        gemm_tile(acc, A, kc, w_c + (long long)k0 * F, F, n0, Ws, tid, row0, col0);
+      }
+    }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int r = row0 + i;
@@ -214,12 +225,12 @@ int t2h_fused_level(const float* plane, const float* clast, const float* xy,
   }
   if ((long long)B * N > 0) {
     const size_t smem = level_smem_bytes(F, Fl);
+    auto kernel = Fl > level_a_rows(F, Fl) ? fused_level_fwd<true> : fused_level_fwd<false>;
     cudaError_t err = cudaFuncSetAttribute(
-        fused_level_fwd, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     const dim3 grid((N + kP - 1) / kP, B);
-    fused_level_fwd<<<grid, kThreads, smem, stream>>>(
+    kernel<<<grid, kThreads, smem, stream>>>(
         plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, b_c,
         plane_out, c_out, counts, N, R, F, Fl, shift);
   }

@@ -41,10 +41,13 @@
 // forward; the scratch traffic (6F floats written, read back once per
 // output-tile column) is small beside it. Shared memory per phase-1 block:
 // 4 * 32 * 3F + 32 KB of staging, 224 KB at F=512, so one block per SM, as
-// K4. Tensor cores (wgmma) and TMA staging are left for later work.
+// K4; it does not grow with Fl (d_c_last leaves each 128-column pass from
+// registers), so the Fl = 1024 level of a depth-6 U-Net fits as it is.
+// Tensor cores (wgmma) and TMA staging are left for later work.
 
 #include <algorithm>
 
+#include "bilinear.cuh"
 #include "common.cuh"
 #include "tile_gemm.cuh"
 
@@ -106,15 +109,13 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
       const long long p = (long long)b * N + i;
       valid = mask[p] != 0;
       if (valid) {
-        const float rmax = static_cast<float>(R - 1);
-        const float x = fminf(fmaxf(xy[2 * p] * rmax, 0.0f), rmax);
-        const float y = fminf(fmaxf(xy[2 * p + 1] * rmax, 0.0f), rmax);
-        x0 = min(max(static_cast<int>(floorf(x)), 0), R - 1);
-        y0 = min(max(static_cast<int>(floorf(y)), 0), R - 1);
-        wx = x - static_cast<float>(x0);
-        wy = y - static_cast<float>(y0);
-        dx = x0 + 1 < R ? 1 : 0;
-        dy = y0 + 1 < R ? 1 : 0;
+        const Corner corner = bilinear_corner(xy[2 * p], xy[2 * p + 1], R);
+        x0 = corner.x0;
+        y0 = corner.y0;
+        dx = corner.dx;
+        dy = corner.dy;
+        wx = corner.wx;
+        wy = corner.wy;
         const int c = cells[p];
         if (c >= 0 && (c >> shift) < RR) {
           cellr = morton_to_rowmajor(c >> shift, R);
@@ -167,13 +168,8 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
     const int c = e - r * F;
     float v = 0.0f;
     if (s_valid[r]) {
-      const long long o = ((long long)s_y0[r] * R + s_x0[r]) * F + c;
-      const long long ox = (long long)s_dx[r] * F;
-      const long long oy = (long long)s_dy[r] * R * F;
-      const float wx = s_wx[r], wy = s_wy[r];
-      const float top = pl[o] * (1.0f - wx) + pl[o + ox] * wx;
-      const float bot = pl[o + oy] * (1.0f - wx) + pl[o + oy + ox] * wx;
-      v = top * (1.0f - wy) + bot * wy;
+      const Corner corner = {s_x0[r], s_y0[r], s_dx[r], s_dy[r], s_wx[r], s_wy[r]};
+      v = bilinear_at(pl, corner, R, F, c);
     }
     X[c * kP + r] = v;
     if (i0 + r < N) s_buf[(rowb + r) * F + c] = v;

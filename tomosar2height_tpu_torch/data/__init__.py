@@ -1,4 +1,8 @@
 """Host-side data path of the port (numpy): serving patches and batching."""
 
-from tomosar2height_tpu_torch.data.pipeline import PatchLoader, pick_bucket  # noqa: F401
+from tomosar2height_tpu_torch.data.pipeline import (  # noqa: F401
+    PatchLoader,
+    pick_bucket,
+    tile_cells_for_impl,
+)
 from tomosar2height_tpu_torch.data.scene import SceneDataset  # noqa: F401

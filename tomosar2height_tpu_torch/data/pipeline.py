@@ -2,16 +2,18 @@
 
 Counterpart of ``tomosar2height_tpu/data/pipeline.py``. ``PatchLoader``
 keeps the JAX loader's batch contract for serving and training: every patch
-pads (or subsamples) into a point bucket; with ``sort_reso`` the patch
-becomes the Morton-aligned layout the ``fused2`` kernels read (points, mask,
-cells, tile offsets of 1024-cell tiles), and the batch is trimmed to a
-4096-row multiple. Training adds the epoch shuffle, ``drop_last``, the GT
-target ``dsm`` and the deterministic stream (``det_stream``: every batch a
-pure function of seed, epoch and position). The rng draws are the JAX
-loader's, so both loaders give identical batches for one dataset. The plain
-sorted layout, prefetch threads, worker pools, the u16 point wire and
-``set_position`` (resume, with checkpoints) are not ported yet (ROADMAP A6,
-A11).
+pads (or subsamples) into a point bucket; with ``sort_reso`` the patch is
+Morton-sorted, into the aligned layout (``aligned``, the default here:
+points, mask, cells and tile offsets of ``tile_cells``-cell tiles, the batch
+trimmed to a 4096-row multiple) or the plain sorted layout (points and mask
+reordered, cells with pads at sort_reso**2, per-cell offsets; no trim).
+:func:`tile_cells_for_impl` gives the tile size each ``sorted_impl`` reads.
+Training adds the epoch shuffle, ``drop_last``, the GT target ``dsm`` and the
+deterministic stream (``det_stream``: every batch a pure function of seed,
+epoch and position). The rng draws are the JAX loader's, so both loaders give
+identical batches for one dataset. Prefetch threads, worker pools, the u16
+point wire and ``set_position`` (resume, with checkpoints) are not ported yet
+(ROADMAP A6, A11).
 """
 
 from __future__ import annotations
@@ -25,11 +27,18 @@ from tomosar2height_tpu_torch.ops.sorted_scatter import (
     ALIGNED_TILE_CELLS,
     PAD_CELL_SENTINEL,
     aligned_bucket_size,
+    host_morton_bucket,
     host_morton_bucket_aligned,
     trim_aligned_batch,
 )
 
 log = logging.getLogger(__name__)
+
+
+def tile_cells_for_impl(sorted_impl: str) -> int:
+    """Aligned-layout Morton tile size the model's kernel path reads: 256
+    (16x16) for ``fused``, 1024 (32x32) for ``fused2``."""
+    return 256 if sorted_impl == "fused" else ALIGNED_TILE_CELLS
 
 
 def pick_bucket(n: int, bucket_sizes: Sequence[int]) -> int:
@@ -63,8 +72,9 @@ class PatchLoader:
 
     Yields dicts of numpy arrays: points (B, N, 3) f32, point_mask (B, N)
     bool, patch_valid (B,) bool, min_bound/max_bound (B, 2) f64, name list;
-    with ``sort_reso`` (the aligned layout) also cell (B, N) int32 and
-    cell_offsets (B, T + 1) int32; dsm (B, H, W) f32 when the patches carry
+    with ``sort_reso`` also cell (B, N) int32 and cell_offsets, (B, T + 1)
+    int32 tile offsets on the aligned layout or (B, sort_reso**2 + 1) per-cell
+    offsets on the plain sorted one; dsm (B, H, W) f32 when the patches carry
     targets; image (B, H, W, C) f32 when they carry image crops (zeros on pad
     entries); with ``det_stream`` also ``_stream_pos`` (epoch, next batch). A
     short last batch is padded with invalid patches, so every batch has
@@ -74,12 +84,15 @@ class PatchLoader:
     def __init__(self, dataset, batch_size: int, bucket_sizes: Sequence[int],
                  fixed_bucket: Optional[int] = None, sort_reso: Optional[int] = None,
                  shuffle: bool = False, drop_last: bool = False, seed: int = 0,
-                 det_stream: bool = False):
+                 det_stream: bool = False, aligned: bool = True,
+                 tile_cells: Optional[int] = None):
         self.dataset = dataset
         self.batch_size = int(batch_size)
         self.bucket_sizes = sorted(int(b) for b in bucket_sizes)
         self.fixed_bucket = int(fixed_bucket) if fixed_bucket else None
         self.sort_reso = int(sort_reso) if sort_reso else None
+        self.aligned = bool(aligned) and self.sort_reso is not None
+        self.tile_cells = int(tile_cells or ALIGNED_TILE_CELLS)
         self.shuffle = bool(shuffle)
         self.drop_last = bool(drop_last)
         self.seed = int(seed)
@@ -154,9 +167,9 @@ class PatchLoader:
                 self.overflow_patches += 1
                 self.overflow_points += cnt - bucket
 
-        if self.sort_reso:
-            npad = aligned_bucket_size(bucket, self.sort_reso)
-            ntiles = (self.sort_reso * self.sort_reso) // ALIGNED_TILE_CELLS
+        if self.aligned:
+            npad = aligned_bucket_size(bucket, self.sort_reso, tile_cells=self.tile_cells)
+            ntiles = (self.sort_reso * self.sort_reso) // self.tile_cells
             points = np.full((bsz, npad, 3), 0.5, dtype=np.float32)
             point_mask = np.zeros((bsz, npad), dtype=bool)
             cells = np.full((bsz, npad), PAD_CELL_SENTINEL, dtype=np.int32)
@@ -164,6 +177,10 @@ class PatchLoader:
         else:
             points = np.zeros((bsz, bucket, 3), dtype=np.float32)
             point_mask = np.zeros((bsz, bucket), dtype=bool)
+            if self.sort_reso:
+                ncell = self.sort_reso * self.sort_reso
+                cells = np.full((bsz, bucket), ncell, dtype=np.int32)
+                offsets = np.zeros((bsz, ncell + 1), dtype=np.int32)
         patch_valid = np.zeros((bsz,), dtype=bool)
         dsm = image = None
         min_bound = np.zeros((bsz, 2), dtype=np.float64)
@@ -177,10 +194,15 @@ class PatchLoader:
                 continue
             patch_valid[i] = True
             pts_i, mask_i = pad_points(p["inputs"], bucket, rng)
-            if self.sort_reso:
-                a = host_morton_bucket_aligned(pts_i, mask_i, self.sort_reso)
+            if self.aligned:
+                a = host_morton_bucket_aligned(pts_i, mask_i, self.sort_reso,
+                                               tile_cells=self.tile_cells)
                 points[i], point_mask[i] = a["points"], a["mask"]
                 cells[i], offsets[i] = a["cells"], a["tile_offsets"]
+            elif self.sort_reso:
+                order, cells[i], offsets[i] = host_morton_bucket(pts_i, mask_i,
+                                                                 self.sort_reso)
+                points[i], point_mask[i] = pts_i[order], mask_i[order]
             else:
                 points[i], point_mask[i] = pts_i, mask_i
             if "dsm" in p:
@@ -198,9 +220,10 @@ class PatchLoader:
             out["dsm"] = dsm
         if image is not None:
             out["image"] = image
-        if self.sort_reso:
+        if self.aligned:
             points, point_mask, cells, offsets = trim_aligned_batch(
                 points, point_mask, cells, offsets)
+        if self.sort_reso:
             out["cell"], out["cell_offsets"] = cells, offsets
         out["points"], out["point_mask"] = points, point_mask
         return out

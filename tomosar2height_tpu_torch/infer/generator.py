@@ -26,7 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
+from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset, tile_cells_for_impl
 from tomosar2height_tpu_torch.geo import RasterData
 from tomosar2height_tpu_torch.geo.raster import cal_dsm_shape
 
@@ -103,8 +103,9 @@ class DSMGenerator:
 
     def _dispatch(self, batch) -> torch.Tensor:
         """Upload one batch and issue its forward (asynchronous on a card).
-        The aligned layout's cell ids are not uploaded: the model recomputes
-        them from points + mask, bit-exact (the JAX default wire_cells)."""
+        The aligned layouts' cell ids are not uploaded: the model recomputes
+        them from points + mask, bit-exact (the JAX default wire_cells); the
+        plain sorted layout ships them."""
         def up(key):
             t = torch.from_numpy(np.ascontiguousarray(batch[key]))
             if self.device.type == "cuda":  # pinned: the copy overlaps the host
@@ -112,8 +113,9 @@ class DSMGenerator:
             return t.to(self.device)
 
         offsets = up("cell_offsets") if "cell_offsets" in batch else None
+        cells = up("cell") if offsets is not None and not self.data_loader.aligned else None
         image = up("image") if self.use_image else None
-        return self._forward_impl(up("points"), up("point_mask"), image, None, offsets)
+        return self._forward_impl(up("points"), up("point_mask"), image, cells, offsets)
 
     def _fetch(self, h_dev: torch.Tensor):
         """Start the device -> host copy; returns (host tensor, ready event)."""
@@ -219,10 +221,14 @@ class DSMGenerator:
 def make_generator(model: torch.nn.Module, cfg, chunks, image=None) -> DSMGenerator:
     """The serving stack of the JAX package's ``test.py`` over in-memory
     chunks (and, when ``cfg['use_image']``, the scene's satellite ``image``
-    as ``(data (C, H, W), raster)``): dataset -> loader (the aligned layout
-    when ``dataset.points.sort``) -> generator."""
+    as ``(data (C, H, W), raster)``): dataset -> loader -> generator. With
+    ``dataset.points.sort`` the loader ships the layout that
+    ``model.encoder_kwargs.sorted_impl`` reads (test.py:53-63): aligned with
+    256-cell tiles for ``fused``, 1024 for ``fused2``, the plain sorted layout
+    for ``pallas``/``cumsum``."""
     cfg_data = cfg["dataset"]
     sort = bool(cfg_data["points"].get("sort", False))
+    impl = cfg["model"]["encoder_kwargs"].get("sorted_impl", "cumsum")
     use_image = bool(cfg["use_image"])
     if use_image and image is None:
         raise ValueError("use_image: pass the scene's satellite image")
@@ -231,7 +237,8 @@ def make_generator(model: torch.nn.Module, cfg, chunks, image=None) -> DSMGenera
         cfg["training"]["val_batch_size"],
         cfg_data["points"]["bucket_sizes"],
         fixed_bucket=cfg_data["points"]["train_bucket"],
-        sort_reso=cfg["model"]["encoder_kwargs"]["plane_resolution"] if sort else None)
+        sort_reso=cfg["model"]["encoder_kwargs"]["plane_resolution"] if sort else None,
+        aligned=impl in ("fused", "fused2"), tile_cells=tile_cells_for_impl(impl))
     dsm = cfg["dsm_generation"]
     return DSMGenerator(model, loader, dsm["pixel_size"],
                         half_blend_percent=dsm.get("half_blend_percent"),

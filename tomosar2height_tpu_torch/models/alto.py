@@ -9,8 +9,12 @@ previous level's point features, scatter-mean back into the plane.
 
 On the ``fused2`` layout (Morton-aligned points, ``cache['impl'] == 'fused2'``)
 a round trip at resolution >= 32 is ONE kernel call
-(``ops/cuda/level_kernel.fused_level``); otherwise the composed plain ops run.
-Both read the same ``fc_comm``/``fc_c`` parameters. Under ``fused_convs`` each
+(``ops/cuda/level_kernel.fused_level``); otherwise it is composed: the sample
+(K9 ``tile_gather`` on the ``fused`` layout at resolution >= 32, else
+``grid_sample_2d``), the MLPs, and the scatter-mean (K12 on ``fused``; K11 or
+cumulative sums over the coarsened per-cell offsets on ``pallas``/``cumsum``;
+plain segment ops otherwise). Every path reads the same ``fc_comm``/``fc_c``
+parameters. Under ``fused_convs`` each
 level's conv pair is one K7 call (``ops/cuda/convpair_kernel.conv_pair``). Planes are NCHW-logical in
 ``channels_last`` memory; the public interface is NHWC.
 """
@@ -31,14 +35,34 @@ from tomosar2height_tpu_torch.models.blocks import (
     max_pool_2x2,
     upconv2x2,
 )
-from tomosar2height_tpu_torch.ops.cuda.level_kernel import fused_level
+from tomosar2height_tpu_torch.ops.cuda.level_kernel import fused_level, level_shift
+from tomosar2height_tpu_torch.ops.fused import tile_gather, tile_scatter_mean
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 from tomosar2height_tpu_torch.ops.scatter import cell_index, segment_counts, segment_mean
+from tomosar2height_tpu_torch.ops.sorted_scatter import (
+    coarsen_offsets,
+    coarsen_tile_offsets,
+    scatter_mean_plane_morton,
+)
 
 
 def _scatter_plane(xy, c, reso, mask, cache) -> torch.Tensor:
-    """Plain scatter_mean of point features into a (B, C, reso, reso) plane
-    (reference alto.py:76-88); cell ids and counts cached per resolution."""
+    """scatter_mean of point features into a (B, C, reso, reso) plane
+    (reference alto.py:76-88). Sorted layouts reuse the finest sort: offsets
+    every 4**level-th, Morton ids shifted by 2*level (alto.py:47-73); the
+    plain path caches cell ids and counts per resolution."""
+    impl = cache.get("impl")
+    if impl in ("fused", "pallas", "cumsum"):
+        shift = level_shift(reso, cache["finest"])
+        if impl == "fused":
+            toff = coarsen_tile_offsets(cache["tile_offsets"], shift // 2)
+            plane = tile_scatter_mean(c.contiguous(), cache["cells"], toff, reso,
+                                      cache["finest"])
+        else:
+            plane = scatter_mean_plane_morton(
+                c, coarsen_offsets(cache["offsets"], shift // 2), cache["cells"] >> shift,
+                reso, impl)
+        return plane.permute(0, 3, 1, 2)
     idx = cache.get(reso)
     if idx is None:
         idx = cache[reso] = cell_index(xy, reso)
@@ -48,6 +72,19 @@ def _scatter_plane(xy, c, reso, mask, cache) -> torch.Tensor:
     plane = segment_mean(c, idx, reso * reso, mask, counts=counts)
     b, _, f = c.shape
     return plane.reshape(b, reso, reso, f).permute(0, 3, 1, 2)
+
+
+def _sample_plane(x, xy, mask, cache) -> torch.Tensor:
+    """Bilinear sample of the NCHW plane at the points (reference
+    alto.py:90-95): K9 on the ``fused`` layout at resolution >= 32
+    (alto.py:91-105), else ``grid_sample_2d``."""
+    plane = x.permute(0, 2, 3, 1)
+    reso = plane.shape[1]
+    if cache.get("impl") == "fused" and reso >= 32:
+        toff = coarsen_tile_offsets(cache["tile_offsets"],
+                                    level_shift(reso, cache["finest"]) // 2)
+        return tile_gather(plane.contiguous(), cache["xy"], mask, toff, reso)
+    return grid_sample_2d(plane, xy)
 
 
 def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):
@@ -62,7 +99,7 @@ def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):
         plane_out, c, _ = fused_level(plane, c_last.contiguous(), weights, cache["xy"],
                                       cache["cells"], mask, reso, cache["finest"])
         return plane_out.permute(0, 3, 1, 2), c
-    c = level.fc_comm(grid_sample_2d(x.permute(0, 2, 3, 1), xy)) + level.fc_c(c_last)
+    c = level.fc_comm(_sample_plane(x, xy, mask, cache)) + level.fc_c(c_last)
     return _scatter_plane(xy, c, reso, mask, cache), c
 
 
@@ -176,8 +213,10 @@ class AltoUNet(nn.Module):
             plane: (B, R, R, C_in) NHWC initial plane.
             c: (B, N, C_in) initial point features.
             mask: (B, N) bool validity.
-            buckets: {'impl': 'fused2', 'cells': (B, N) int32 finest Morton
-                ids} on the aligned layout, else None (plain ops).
+            buckets: the point encoder's sorted-layout metadata, else None
+                (plain ops): {'impl', 'cells': (B, N) int32 finest Morton ids}
+                plus 'tile_offsets' (``fused``, 256-cell tiles) or 'offsets'
+                (``pallas``/``cumsum``, per cell).
 
         Returns:
             (B, R, R, num_classes) NHWC plane.

@@ -2,13 +2,20 @@
 then a scatter to a feature plane refined by the ALTO U-Net.
 
 Counterpart of ``tomosar2height_tpu/models/pointnet.py`` (reference
-encoder/pointnet.py:13-111). Two of its paths are ported:
+encoder/pointnet.py:13-111). Its paths, chosen by ``sorted_impl`` when the
+loader ships Morton-sorted rows (``offsets`` given), else unsorted:
 
-- ``fused2`` on the Morton-aligned layout (cells + tile offsets from the
-  loader): pooling is ``pool2`` (kernels K1+K2), the plane is
-  ``scatter_plane2`` (K3) and the U-Net's round trips are ``fused_level`` (K4);
-- the unsorted plain path (no cells/offsets): cell ids from the coordinates
-  and plain torch segment ops.
+- ``fused2`` on the aligned layout with 1024-cell tiles: pooling is ``pool2``
+  (K1+K2), the plane ``scatter_plane2`` (K3), the U-Net's round trips
+  ``fused_level`` (K4);
+- ``fused`` on the aligned layout with 256-cell tiles: pooling is
+  ``tile_pool`` (K10), the plane ``tile_scatter_mean`` (K12), the U-Net
+  samples with ``tile_gather`` (K9) and scatters with K12;
+- ``pallas`` and ``cumsum`` on the plain sorted layout (per-cell offsets, pads
+  at reso**2): max pooling by ``segment_max``, mean pooling and the planes by
+  the tile kernels K13/K11 (``pallas``) or cumulative sums (``cumsum``);
+- the unsorted plain path: cell ids from the coordinates and plain torch
+  segment ops.
 """
 
 from __future__ import annotations
@@ -21,16 +28,23 @@ import torch.nn as nn
 from tomosar2height_tpu_torch.models.alto import AltoUNet
 from tomosar2height_tpu_torch.models.blocks import ResnetBlockFC
 from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import pool2, scatter_plane2
+from tomosar2height_tpu_torch.ops.fused import tile_pool, tile_scatter_mean
 from tomosar2height_tpu_torch.ops.scatter import (
     cell_index,
     pool_local_max,
     pool_local_mean,
+    segment_max,
     segment_mean,
 )
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
     PAD_CELL_SENTINEL,
+    gather_cells_sorted,
     morton_cells_device,
+    scatter_mean_morton,
+    scatter_mean_plane_morton,
 )
+
+SORTED_IMPLS = ("cumsum", "pallas", "fused", "fused2")
 
 
 class LocalPoolPointnet(nn.Module):
@@ -45,6 +59,8 @@ class LocalPoolPointnet(nn.Module):
         super().__init__()
         if scatter_type not in ("max", "mean"):
             raise ValueError(f"Invalid scatter type: {scatter_type}")
+        if sorted_impl not in SORTED_IMPLS:
+            raise ValueError(f"sorted_impl={sorted_impl!r}: one of {SORTED_IMPLS}")
         if unet_type != "alto":
             raise NotImplementedError(
                 f"unet_type={unet_type!r}: only the ALTO U-Net is ported "
@@ -66,27 +82,38 @@ class LocalPoolPointnet(nn.Module):
         Args:
             points: (B, N, 3) normalized to [0, 1].
             mask: (B, N) bool validity.
-            cells: (B, N) int32 finest Morton ids of the aligned layout; when
+            cells: (B, N) int32 finest Morton ids of the sorted layout; when
                 None but ``offsets`` is given they are recomputed from the
                 points (bit-exact with the loader's).
-            offsets: (B, T + 1) tile offsets of the aligned layout; their
-                presence selects the sorted path.
+            offsets: the sorted layout's offsets, whose presence selects the
+                ``sorted_impl`` path: (B, T + 1) tile offsets of the aligned
+                layout (``fused``/``fused2``), else (B, R*R + 1) per-cell
+                offsets.
         """
         reso = self.reso
         b = points.shape[0]
         xy = points[..., :2]
-        if offsets is not None:
-            if self.sorted_impl != "fused2":
-                raise NotImplementedError(
-                    f"sorted_impl={self.sorted_impl!r}: of the sorted paths only "
-                    "'fused2' is ported; 'cumsum'/'pallas' wait for ROADMAP A11 "
-                    "and 'fused' for ROADMAP B9")
+        impl = self.sorted_impl if offsets is not None else None
+        if impl is not None:
             if cells is None:
-                cells = morton_cells_device(points, mask, reso, int(PAD_CELL_SENTINEL))
+                # pads: the sentinel on the aligned layouts, reso**2 on the plain
+                # sorted one (pointnet.py:83-86)
+                pad = int(PAD_CELL_SENTINEL) if impl in ("fused", "fused2") else reso * reso
+                cells = morton_cells_device(points, mask, reso, pad)
             cells = cells.to(torch.int32).contiguous()
-
+        if impl == "fused2":
             def pool_fn(values):
                 return pool2(values, cells, mask, reso, self.scatter_type)
+        elif impl == "fused":
+            def pool_fn(values):
+                return tile_pool(values, cells, offsets, mask, reso, self.scatter_type)
+        elif impl is not None:
+            def pool_fn(values):
+                if self.scatter_type == "max":
+                    pooled = segment_max(values, cells, reso * reso, mask)
+                else:
+                    pooled = scatter_mean_morton(values, offsets, cells, reso, impl)
+                return gather_cells_sorted(pooled, cells)
         else:
             index = cell_index(xy, reso)
             pool = pool_local_max if self.scatter_type == "max" else pool_local_mean
@@ -99,9 +126,15 @@ class LocalPoolPointnet(nn.Module):
             net = getattr(self, f"block{i}")(torch.cat([net, pool_fn(net)], dim=-1))
         net = self.fc_c(torch.relu(net))
 
-        if offsets is not None:
+        if impl == "fused2":
             plane, _ = scatter_plane2(net, cells, mask, reso)
-            buckets = {"impl": "fused2", "cells": cells}
+            buckets = {"impl": impl, "cells": cells}
+        elif impl == "fused":
+            plane = tile_scatter_mean(net, cells, offsets, reso, reso)
+            buckets = {"impl": impl, "cells": cells, "tile_offsets": offsets}
+        elif impl is not None:
+            plane = scatter_mean_plane_morton(net, offsets, cells, reso, impl)
+            buckets = {"impl": impl, "cells": cells, "offsets": offsets}
         else:
             plane = segment_mean(net, index, reso * reso, mask)
             plane = plane.reshape(b, reso, reso, net.shape[-1])

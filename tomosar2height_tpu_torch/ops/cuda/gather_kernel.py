@@ -1,0 +1,60 @@
+"""Bilinear sample of a plane at Morton-aligned points: K9.
+
+Counterpart of ``tomosar2height_tpu/ops/pallas/gather_kernel.py``. The CUDA
+kernel K9 (``csrc/tile_gather.cu`` ``t2h_tile_gather``) replaces
+``_gather_kernel`` (gather_kernel.py:69, launched by ``_tile_gather_impl``,
+``pallas_tile_gather``): grid_sample with the border clamp and
+align_corners=True (``ops/sampling.py``) at every row of the tiles' ranges.
+The TPU kernel's lane-packed coordinate rows (``make_aux``) and tile windows
+exist for the MXU and Mosaic; the kernel here reads the (B, N, 2) coordinates
+and only the last tile offset. Rows past the last tile's range come out 0
+(the TPU kernel leaves them undefined); pad rows inside the ranges are
+sampled and left for the caller's mask
+(:func:`tomosar2height_tpu_torch.ops.fused.tile_gather`). A CPU tensor takes
+:func:`tile_gather_plain`, a CUDA tensor the kernel; there is no fallback.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
+
+
+def _past_last_tile(tile_offsets, n: int) -> torch.Tensor:
+    """(B, N) bool: rows at or past each entry's last tile offset."""
+    rows = torch.arange(n, device=tile_offsets.device)
+    return rows[None, :] >= tile_offsets[:, -1:].long()
+
+
+def tile_gather_plain(plane, xy, tile_offsets) -> torch.Tensor:
+    """K9's function: (B, R, R, F) plane, (B, N, 2) xy in [0, 1], (B, T + 1)
+    tile offsets -> (B, N, F) samples, 0 past the last tile's range."""
+    out = grid_sample_2d(plane, xy)
+    past = _past_last_tile(tile_offsets, xy.shape[1])
+    return torch.where(past[..., None], torch.zeros_like(out), out)
+
+
+def tile_gather(plane, xy, tile_offsets) -> torch.Tensor:
+    """K9: the same arguments and return as :func:`tile_gather_plain`; on a
+    CUDA tensor plane is (B, R, R, F) f32, xy (B, N, 2) f32 and tile_offsets
+    (B, R*R/256 + 1) int32 at this resolution, all contiguous. Not
+    differentiable itself: the model calls it through
+    ``ops.fused.tile_gather``."""
+    if runtime.on_cpu(plane):
+        return tile_gather_plain(plane, xy, tile_offsets)
+    dev = plane.device
+    b, r, _, f = plane.shape
+    n = xy.shape[1]
+    t = tile_offsets.shape[1] - 1
+    runtime.require(plane, "plane", torch.float32, (b, r, r, f), dev)
+    runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
+    runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
+    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    err = runtime.library().t2h_tile_gather(
+        plane.data_ptr(), xy.data_ptr(), tile_offsets.data_ptr(), out.data_ptr(), b, n, r,
+        f, t, runtime.stream_ptr(dev))
+    runtime.check(err, "tile_gather")
+    runtime.LAUNCHES["tile_gather"] += 1
+    return out

@@ -216,9 +216,11 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
         cells 0), c_out (B, N, F) new point features (0 on masked rows),
         counts (B, R, R) int32 points per cell.
 
-    A block keeps 4 * 32 * (max(F, Fl) + 2F + 256) bytes in shared memory,
-    so levels up to F = Fl = 512 fit the H100's 227 KB; a wider one fails
-    its launch, which raises.
+    A block keeps 4 * 32 * (max(F, min(Fl, 512)) + 2F + 256) bytes in shared
+    memory (a c_last wider than that is contracted in 512-row K-chunks), so
+    every level with F <= 512 fits the H100's 227 KB, Fl = 1024 included (the
+    first up level of a depth-6 U-Net); a wider F fails its launch, which
+    raises. K5 keeps 4 * 32 * (3F + 256) bytes, whatever Fl.
     """
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 

@@ -36,7 +36,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES = {"pool_reduce": 0, "pool_gather": 0, "scatter_plane2": 0,
             "fused_level": 0, "fused_level_bwd": 0, "level_bwd_reduce": 0,
             "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
-            "conv_decoder": 0}
+            "conv_decoder": 0, "tile_gather": 0, "tile_pool": 0,
+            "scatter_mean_plane": 0, "aligned_scatter_mean_plane": 0, "scatter_mean": 0,
+            "scatter_mean_plane_v3": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -59,6 +61,9 @@ _SIGNATURES = {
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 7 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 10 + [_I] * 8 + [_P],
+    "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
+    "t2h_tile_pool": [_P] * 4 + [_I] * 5 + [_P],
+    "t2h_tile_scatter_mean": [_P] * 4 + [_I] * 8 + [_P],
 }
 
 

@@ -1,0 +1,179 @@
+"""Scatter-mean of Morton-tile-grouped rows: K11, K12, K13 and K14.
+
+Counterpart of ``tomosar2height_tpu/ops/pallas/scatter_kernel.py``. Its four
+Pallas kernels compute one function on one contract: rows grouped by 16x16
+Morton tile (256 cells), each tile's rows contiguous; a row adds into cell
+``(cell >> shift) - 256 t`` of its tile t when that lies in [0, 256), else
+nowhere (pad rows, ``PAD_CELL_SENTINEL``, rows of another tile); each cell's
+mean is written, 0 for an empty cell. One CUDA kernel computes it
+(``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean``), and each TPU kernel
+keeps its own launcher, plain version and launch count:
+
+- K11 :func:`scatter_mean_plane` <- ``_scatter_tile_kernel_plane``
+  (scatter_kernel.py:124, ``pallas_scatter_mean_plane``): the plain sorted
+  layout (per-cell offsets, pads at ``reso*reso``) -> row-major plane;
+- K12 :func:`aligned_scatter_mean_plane` <- ``_aligned_scatter_kernel``
+  (scatter_kernel.py:242, ``pallas_aligned_scatter_mean_plane``): the aligned
+  layout, tile offsets at this resolution, finest ids shifted by 2*level;
+- K13 :func:`scatter_mean` <- ``_scatter_tile_kernel`` (scatter_kernel.py:65,
+  ``pallas_scatter_mean``): as K11, Morton-ordered (B, reso*reso, C) output;
+- K14 :func:`scatter_mean_plane_v3` <- ``_scatter_v3_kernel``
+  (scatter_kernel.py:495, ``pallas_scatter_mean_plane_v3``): K12's function
+  from the finest tile offsets, strided by 4**level here.
+
+A CPU tensor takes the plain version (``*_plain``: a masked segment mean over
+the rows that belong to their tile), a CUDA tensor the kernel; there is no
+fallback. K11, K13 and K14 are forward-only, as the JAX functions are (bare
+``jax.jit``s with no vjp): they raise when a gradient is asked for. K12 is
+differentiable through :func:`tomosar2height_tpu_torch.ops.fused.tile_scatter_mean`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda.level_kernel import level_shift
+from tomosar2height_tpu_torch.ops.scatter import segment_mean
+from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane
+
+TILE_CELLS = 256
+"""Cells of a 16x16 Morton tile."""
+
+
+# --- plain versions ---------------------------------------------------------------
+
+
+def tile_rows(cells, toff, shift: int, ncell: int):
+    """(index, valid) of (B, N) rows under (B, T + 1) tile offsets: each
+    row's cell ``cells >> shift`` (0 where invalid), and whether that cell
+    lies in the 256-cell tile whose row range holds the row."""
+    b, n = cells.shape
+    toff = toff.to(torch.int32).contiguous()
+    rows = torch.arange(n, device=cells.device, dtype=torch.int32).expand(b, n).contiguous()
+    row_tile = torch.searchsorted(toff, rows, right=True) - 1
+    cell = cells.long() >> shift
+    valid = (cells >= 0) & (cell < ncell) & (cell // TILE_CELLS == row_tile)
+    return torch.where(valid, cell, torch.zeros_like(cell)), valid
+
+
+def _tile_mean_plain(values, cells, toff, reso: int, shift: int, morton_out: bool):
+    """The shared function over tile offsets ``toff`` (B, T + 1)."""
+    ncell = reso * reso
+    idx, valid = tile_rows(cells, toff, shift, ncell)
+    vec = segment_mean(values, idx, ncell, valid)
+    return vec if morton_out else morton_to_plane(vec, reso)
+
+
+def scatter_mean_plane_plain(values, cells, offsets, reso: int):
+    """K11's function: (B, N, C) values, (B, N) ids at ``reso``, (B, reso**2 + 1)
+    per-cell offsets -> (B, reso, reso, C) row-major plane."""
+    return _tile_mean_plain(values, cells, offsets[:, ::TILE_CELLS], reso, 0, False)
+
+
+def scatter_mean_plain(values, cells, offsets, reso: int):
+    """K13's function: as :func:`scatter_mean_plane_plain`, Morton-ordered
+    (B, reso**2, C)."""
+    return _tile_mean_plain(values, cells, offsets[:, ::TILE_CELLS], reso, 0, True)
+
+
+def aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso: int, finest: int):
+    """K12's function: (B, Npad, F) values, (B, Npad) finest ids, (B, T + 1)
+    tile offsets at ``reso`` -> (B, reso, reso, F)."""
+    return _tile_mean_plain(values, cells, tile_offsets, reso, level_shift(reso, finest),
+                            False)
+
+
+def scatter_mean_plane_v3_plain(values, cells, tile_offsets, reso: int, finest: int):
+    """K14's function: K12's, from the finest tile offsets."""
+    level = level_shift(reso, finest) // 2
+    return _tile_mean_plain(values, cells, tile_offsets[:, ::4 ** level], reso,
+                            2 * level, False)
+
+
+# --- kernels ----------------------------------------------------------------------
+
+
+def _forward_only(values, name: str) -> None:
+    if torch.is_grad_enabled() and values.requires_grad:
+        raise RuntimeError(f"{name} is forward-only: the JAX kernel it ports has no "
+                           "vjp (train on the 'fused' or 'fused2' layout)")
+
+
+def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
+            morton_out: bool):
+    """Launch ``t2h_tile_scatter_mean``; tile t of entry b spans rows
+    [toff[b, t*step], toff[b, (t+1)*step])."""
+    dev = values.device
+    b, n, f = values.shape
+    if (reso * reso) % TILE_CELLS:
+        raise ValueError(f"{name}: reso**2 = {reso * reso} is not a multiple of "
+                         f"{TILE_CELLS}")
+    tiles = reso * reso // TILE_CELLS
+    runtime.require(values, "values", torch.float32, (b, n, f), dev)
+    runtime.require(cells, "cells", torch.int32, (b, n), dev)
+    runtime.require(toff, "tile offsets", torch.int32, (b, toff.shape[1]), dev)
+    if toff.shape[1] < tiles * step + 1:
+        raise ValueError(f"{name}: {toff.shape[1]} tile offsets, need {tiles * step + 1}")
+    shape = (b, reso * reso, f) if morton_out else (b, reso, reso, f)
+    out = torch.empty(shape, device=dev, dtype=torch.float32)
+    err = runtime.library().t2h_tile_scatter_mean(
+        values.data_ptr(), cells.data_ptr(), toff.data_ptr(), out.data_ptr(), b, n, f,
+        reso, shift, toff.shape[1], step, int(morton_out), runtime.stream_ptr(dev))
+    runtime.check(err, name)
+    runtime.LAUNCHES[name] += 1
+    return out
+
+
+def scatter_mean_plane(values, cells, offsets, reso: int):
+    """K11: Morton-sorted rows -> (B, reso, reso, C) row-major plane.
+
+    Args:
+        values: (B, N, C) f32, Morton-cell-sorted.
+        cells: (B, N) int32 Morton ids at ``reso`` (pads >= reso**2).
+        offsets: (B, reso**2 + 1) int32 per-cell segment offsets.
+    Forward-only.
+    """
+    _forward_only(values, "scatter_mean_plane")
+    if runtime.on_cpu(values):
+        return scatter_mean_plane_plain(values, cells, offsets, reso)
+    return _launch("scatter_mean_plane", values, cells, offsets, reso, 0, TILE_CELLS,
+                   False)
+
+
+def scatter_mean(values, cells, offsets, reso: int):
+    """K13: as :func:`scatter_mean_plane`, but the Morton-ordered cell vector
+    (B, reso**2, C). Forward-only."""
+    _forward_only(values, "scatter_mean")
+    if runtime.on_cpu(values):
+        return scatter_mean_plain(values, cells, offsets, reso)
+    return _launch("scatter_mean", values, cells, offsets, reso, 0, TILE_CELLS, True)
+
+
+def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: int):
+    """K12: aligned-layout rows -> (B, reso, reso, F) row-major plane.
+
+    Args:
+        values: (B, Npad, F) f32.
+        cells: (B, Npad) int32 finest Morton ids (``PAD_CELL_SENTINEL`` on pads).
+        tile_offsets: (B, reso**2 / 256 + 1) int32 row offsets at this
+            resolution (every 4**level-th finest tile offset).
+        finest: the resolution of ``cells``.
+    Not differentiable itself: the model calls it through
+    ``ops.fused.tile_scatter_mean``.
+    """
+    if runtime.on_cpu(values):
+        return aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso, finest)
+    return _launch("aligned_scatter_mean_plane", values, cells, tile_offsets, reso,
+                   level_shift(reso, finest), 1, False)
+
+
+def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):
+    """K14: K12's function from the FINEST tile offsets (B, finest**2 / 256 + 1),
+    coarsened inside (every 4**level-th). Forward-only."""
+    _forward_only(values, "scatter_mean_plane_v3")
+    if runtime.on_cpu(values):
+        return scatter_mean_plane_v3_plain(values, cells, tile_offsets, reso, finest)
+    shift = level_shift(reso, finest)
+    return _launch("scatter_mean_plane_v3", values, cells, tile_offsets, reso, shift,
+                   4 ** (shift // 2), False)

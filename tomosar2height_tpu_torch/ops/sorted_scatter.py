@@ -1,10 +1,18 @@
-"""Morton-sorted point layouts: the host half (numpy) plus the device-side
-cell-id recompute and the Morton -> row-major plane permutation (torch).
+"""Morton-sorted point layouts: the host half (numpy) plus the device side
+(torch): the cell-id recompute, the Morton <-> row-major plane permutations
+and the segmented reductions over cell-sorted rows.
 
 Counterpart of ``tomosar2height_tpu/ops/sorted_scatter.py``. The host
 functions are copies of the JAX module's (that module imports JAX at its top),
 so a batch built here is bit-identical to one built there: same Morton ids,
-same ``PCHUNK``-aligned 1024-cell tiles, same pad rows.
+same ``PCHUNK``-aligned tiles, same pad rows.
+
+On the device, a segment reduction over sorted rows is a cumulative sum, two
+gathers and a difference (:func:`sorted_segment_mean`, the ``cumsum`` path);
+coarser resolutions reuse the finest sort, since a Morton parent covers a
+contiguous run of children (:func:`coarsen_offsets`). ``impl='pallas'``
+routes the per-cell means through the tile kernels K11/K13
+(``ops/cuda/scatter_kernel.py``) where the plane holds whole 256-cell tiles.
 """
 
 from __future__ import annotations
@@ -157,3 +165,78 @@ def plane_to_morton(plane: torch.Tensor) -> torch.Tensor:
     perm = (0,) + tuple(d for i in range(bits) for d in (1 + i, 1 + bits + i)) \
         + (2 * bits + 1,)
     return x.permute(perm).reshape(b, reso * reso, c)
+
+
+def coarsen_tile_offsets(tile_offsets: torch.Tensor, levels: int) -> torch.Tensor:
+    """Tile offsets of a 2**levels coarser plane: every 4**levels-th (a coarse
+    tile is the union of 4**levels consecutive fine Morton tiles)."""
+    return tile_offsets[..., :: 4 ** levels]
+
+
+def coarsen_offsets(offsets: torch.Tensor, levels: int) -> torch.Tensor:
+    """Per-cell offsets of a 2**levels coarser resolution: every 4**levels-th
+    (Morton parents cover contiguous runs of children)."""
+    return offsets[..., :: 4 ** levels]
+
+
+def sorted_segment_sum_counts(values: torch.Tensor, offsets: torch.Tensor):
+    """Per-segment (sums (B, S, C), counts (B, S, 1)) of cell-sorted (B, N, C)
+    values with (B, S + 1) segment offsets; rows past ``offsets[:, -1]`` (the
+    pads) are in no segment.
+
+    The JAX package sums in float32; the port's cumulative sum runs in
+    float64, so a segment's sum does not inherit the rounding of a large
+    running total (a float32 total of 1e4 rounds in steps of ~1e-3)."""
+    b, _, c = values.shape
+    csum = torch.cumsum(values, dim=1, dtype=torch.float64)
+    csum = torch.cat([csum.new_zeros(b, 1, c), csum], dim=1)  # (B, N + 1, C)
+    starts, ends = offsets[:, :-1].long(), offsets[:, 1:].long()
+
+    def take(idx):
+        return torch.gather(csum, 1, idx[..., None].expand(*idx.shape, c))
+
+    sums = (take(ends) - take(starts)).to(values.dtype)
+    counts = (ends - starts)[..., None].to(values.dtype)
+    return sums, counts
+
+
+def sorted_segment_mean(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """Per-cell mean over cell-sorted rows; empty cells are 0."""
+    sums, counts = sorted_segment_sum_counts(values, offsets)
+    return sums / counts.clamp_min(1.0)
+
+
+def gather_cells_sorted(cell_values: torch.Tensor, cell_ids: torch.Tensor) -> torch.Tensor:
+    """Per-row gather-back of (B, S, C) cell values at (B, N) ids; ids past
+    the last cell (the plain sorted layout's pads, ``S``) are clipped, and
+    their rows must be masked downstream."""
+    s, c = cell_values.shape[1], cell_values.shape[-1]
+    idx = cell_ids.long().clamp_max(s - 1)
+    return torch.gather(cell_values, 1, idx[..., None].expand(*idx.shape, c))
+
+
+def scatter_mean_morton(values: torch.Tensor, offsets: torch.Tensor, cells: torch.Tensor,
+                        reso: int, impl: str = "cumsum") -> torch.Tensor:
+    """Morton-ordered per-cell mean (B, reso**2, C) of cell-sorted rows:
+    K13 under ``impl='pallas'`` where reso**2 holds whole 256-cell tiles,
+    else the cumsum path."""
+    if impl == "pallas" and (reso * reso) % 256 == 0:
+        from tomosar2height_tpu_torch.ops.cuda.scatter_kernel import scatter_mean
+
+        return scatter_mean(values.contiguous(), cells.contiguous(), offsets.contiguous(),
+                            reso)
+    return sorted_segment_mean(values, offsets)
+
+
+def scatter_mean_plane_morton(values: torch.Tensor, offsets: torch.Tensor,
+                              cells: torch.Tensor, reso: int,
+                              impl: str = "cumsum") -> torch.Tensor:
+    """Cell-sorted rows -> row-major NHWC plane (B, reso, reso, C): K11 under
+    ``impl='pallas'`` where reso**2 holds whole 256-cell tiles, else
+    :func:`sorted_segment_mean` + :func:`morton_to_plane`."""
+    if impl == "pallas" and (reso * reso) % 256 == 0:
+        from tomosar2height_tpu_torch.ops.cuda.scatter_kernel import scatter_mean_plane
+
+        return scatter_mean_plane(values.contiguous(), cells.contiguous(),
+                                  offsets.contiguous(), reso)
+    return morton_to_plane(sorted_segment_mean(values, offsets), reso)
