@@ -8,14 +8,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
 1. card: name, power limit, torch/CUDA/nvcc versions; TF32 off for matmuls
    and convolutions (the plain versions are full float32);
 2. build: the kernels (``tomosar2height_tpu_torch/csrc/*.cu``) with nvcc for
-   sm_90a, into ``tomosar2height_tpu_torch/_build/``;
+   sm_90a, into ``tomosar2height_tpu_torch/_build/``; ptxas's register
+   counts of K4 and K5's reduction, and a check that their SASS holds TF32
+   tensor-core instructions (HMMA; ``cuobjdump -sass``);
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout; the conv
    kernels K6-K8 at every shape of a batch-8 fusion forward), with the
    median time of each over 20 runs (3-5 for the conv chains; CUDA events),
    of one PyTorch library call computing the same function where there is
-   one, and the bound (bytes over the HBM rate or fp32 operations over the
-   fp32 peak, whichever is larger);
+   one, and the bound (bytes over the HBM rate or operations over the peak
+   of the kernel's route, whichever is larger: fp32 FMA, or 3xTF32 on the
+   tensor cores for K4 and K5's weight sums, whose log lines also give the
+   bound were those operations on fp32 FMA);
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -73,11 +77,18 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 TOL = 1e-5  # f32 kernel vs plain, atol and rtol (the JAX package's own)
 DEVICE = "cuda"
-# the H100 SXM's published peaks (NVIDIA's H100 datasheet): HBM bytes/s
-# and fp32 FLOP/s outside the tensor cores; a bound is the larger of bytes
-# over the first and operations over the second
+# the H100 SXM's published peaks (NVIDIA's H100 datasheet, 700 W): HBM
+# bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on them; a
+# bound is the larger of bytes over the HBM rate and operations over the rate
+# of the kernel's route: fp32 FMA, or 3xTF32 (K4 and K5's weight sums: three
+# TF32 products per fp32 product, so a third of the TF32 rate)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
+TF32_FLOP_S = 495e12
+TF32X3_FLOP_S = TF32_FLOP_S / 3
+# the kernels that must hold TF32 tensor-core instructions (HMMA) in their
+# SASS: K4 and K5's weight-gradient reduction
+TENSOR_CORE_KERNELS = ("fused_level_fwd", "atb_tf32x3")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -121,7 +132,50 @@ def build():
         f.write(info["log"])
     log("build", f"{'built' if info['built'] else 'loaded'} {os.path.basename(info['path'])}"
         f" | nvcc {info['seconds']:.1f} s | load {time.perf_counter() - t0:.1f} s")
+    log("build", f"ptxas registers/spill bytes: {ptxas_registers(info['log'])}")
+    check_sass(info["path"], runtime.nvcc_path())
     return info
+
+
+def ptxas_registers(build_log: str) -> dict:
+    """{kernel<template arguments>: "registers/spill bytes"} of the
+    tensor-core kernels, from nvcc's -Xptxas -v report."""
+    import re
+
+    regs, key, spill = {}, None, 0
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+            key = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+            if key:
+                args = re.findall(r"Li(\d+)E", name[name.index(key):].split("Ev")[0])
+                key = f"{key}<{','.join(args)}>"
+            spill = 0
+        elif key and "spill stores" in line:
+            spill = int(line.split("bytes stack frame,")[1].split("bytes spill stores")[0])
+        elif key and "Used" in line and "registers" in line:
+            regs[key] = f"{int(line.split('Used')[1].split('registers')[0])}/{spill}"
+            key = None
+    return regs
+
+
+def check_sass(so_path: str, nvcc: str) -> None:
+    """Fail unless every kernel in TENSOR_CORE_KERNELS holds TF32 HMMA
+    instructions in the built library's SASS (cuobjdump beside nvcc)."""
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = _run([cuobjdump, "-sass", so_path])
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = next((k for k in TENSOR_CORE_KERNELS if k in line), None)
+            if fn:
+                counts.setdefault(fn, 0)
+        elif fn and "HMMA" in line and "TF32" in line:
+            counts[fn] += 1
+    log("build", f"TF32 HMMA instructions in the SASS: {counts}")
+    missing = [k for k in TENSOR_CORE_KERNELS if not counts.get(k)]
+    if missing:
+        raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -143,11 +197,15 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, ops):
     """(least ms the card could take, what bounds it) for a function that
     must move ``nbytes`` (inputs read once, outputs written once) and do
-    ``flops`` fp32 operations."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+    ``ops``: a number of fp32 operations on the fp32-FMA route, or
+    ``(flops, rate)`` pairs, one for each route the function's parts take
+    (FP32_FLOP_S or TF32X3_FLOP_S)."""
+    if not isinstance(ops, (list, tuple)):
+        ops = [(ops, FP32_FLOP_S)]
+    t_bytes, t_ops = nbytes / HBM_BYTES_S, sum(f / rate for f, rate in ops)
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -228,26 +286,35 @@ def _weight_tol(ref):
 def _entry_fn(rows):
     def entry(name, source, replaces, pairs, kfn, pfn, work, lfn=None,
               tol=f"{TOL:g} abs+rel", iters=20):
-        """pairs: (kernel, plain[, atol, rtol]) tuples; work: (bytes, flops)
-        the function needs on these inputs; lfn: one PyTorch call computing
-        the same function (timed as a yardstick), or None."""
+        """pairs: (kernel, plain[, atol, rtol]) tuples; work: (bytes, ops)
+        the function needs on these inputs, ops as ``bound`` takes them;
+        lfn: one PyTorch call computing the same function (timed as a
+        yardstick), or None. A row with operations on the tensor cores also
+        logs, for comparison, its bound were they all on fp32 FMA."""
         errs = [_compare(*pair) for pair in pairs]
         err = max(e for e, _ in errs)
         ok = all(o for _, o in errs)
         ms, plain_ms = cuda_ms(kfn, iters), cuda_ms(pfn, iters)
         lib_ms = cuda_ms(lfn, iters) if lfn is not None else None
         bound_ms, bound_by = bound(*work)
+        ops = work[1] if isinstance(work[1], (list, tuple)) else [(work[1], FP32_FLOP_S)]
+        flops = sum(f for f, _ in ops)
+        route = " + ".join(f"{f / 1e12:.4f} TFLOP at "
+                           f"{'3xTF32' if rate == TF32X3_FLOP_S else 'fp32 FMA'}"
+                           for f, rate in ops)
+        fp32 = ""
+        if any(rate != FP32_FLOP_S for _, rate in ops):
+            fp32 = f"; all on fp32 FMA {bound(work[0], flops)[0]:.4f} ms"
         log("kernels", f"{name}: max|d| {err:.3g} (tol {tol}) "
             f"{'ok' if ok else 'FAIL'} | kernel {ms:.4f} ms | plain {plain_ms:.4f} ms | "
             f"library {'-' if lib_ms is None else f'{lib_ms:.4f}'} ms | bound "
-            f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, "
-            f"{work[1] / 1e12:.4f} TFLOP)")
+            f"{bound_ms:.4f} ms ({bound_by}: {work[0] / 1e9:.3f} GB, {route}{fp32})")
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version: {err}")
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "max_abs_err": err, "ms": ms,
-                     "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                     "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+               "bound_by": bound_by, "library_ms": lib_ms}
+        rows.append(row)
     return entry
 
 
@@ -342,7 +409,9 @@ def check_kernels(seed: int = 0):
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
     red_l = []
-    work = {k: [0, 0] for k in ("level", "bwd", "reduce")}
+    # bytes, then operations: K4's and the reductions' on 3xTF32; K5's row
+    # pass on fp32 FMA and its weight sums on 3xTF32
+    work = {"level": [0, 0], "bwd": [0, 0, 0], "reduce": [0, 0]}
     valid = int(mask.sum())
     for r, f, fl in LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
@@ -377,7 +446,8 @@ def check_kernels(seed: int = 0):
         bwd_pairs += level_pairs
         work["bwd"][0] += nbytes(plane, c_last, xy, cells, mask5, counts5, g_p, g_c, *w,
                                  kb[0], kb[1], *kb[2])
-        work["bwd"][1] += 2 * int(mask5.sum()) * (10 * f * f + 2 * f * fl)
+        work["bwd"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
+        work["bwd"][2] += 2 * int(mask5.sum()) * (4 * f * f + f * fl)
         ed = max(_compare(*pair)[0] for pair in level_pairs)
         log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
             f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
@@ -400,16 +470,19 @@ def check_kernels(seed: int = 0):
             red_p.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce_plain(*a))
     entry("fused_level", "tomosar2height_tpu_torch/csrc/level.cu",
           "tomosar2height_tpu/ops/pallas/level_kernel.py:110", pairs,
-          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work["level"])
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
+          (work["level"][0], [(work["level"][1], TF32X3_FLOP_S)]))
     bwd_tol = (f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; weights "
                f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     entry("fused_level_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", bwd_pairs,
-          lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p], work["bwd"],
+          lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p],
+          (work["bwd"][0], [(work["bwd"][1], FP32_FLOP_S), (work["bwd"][2], TF32X3_FLOP_S)]),
           tol=bwd_tol)
     entry("level_bwd_reduce", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
-          lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p], work["reduce"],
+          lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
+          (work["reduce"][0], [(work["reduce"][1], TF32X3_FLOP_S)]),
           lambda: [fn() for fn in red_l],
           tol=f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
     torch.cuda.synchronize()
@@ -582,10 +655,10 @@ TILE_SCATTER_SHAPES = [(256, 32)] + [(r, f) for r, f, _ in LEVEL_SHAPES]
 TILE_GATHER_SHAPES = [(r, f) for r, f, _ in LEVEL_SHAPES]
 
 
-def _scatter_mean_yardstick(vals, cells, shift, ncell, dev):
-    """One ``scatter_reduce`` mean over the flat (B * ncell) cells, rows with
-    no cell in one spare row: the library call that computes a tile
-    scatter-mean."""
+def _scatter_yardstick(vals, cells, shift, ncell, dev, reduce="mean"):
+    """One ``scatter_reduce`` (mean, or amax for a max pooling) over the flat
+    (B * ncell) cells, rows with no cell in one spare row: the library call
+    that computes a tile scatter-mean (or pooling)."""
     import torch
 
     b, n, f = vals.shape
@@ -595,7 +668,7 @@ def _scatter_mean_yardstick(vals, cells, shift, ncell, dev):
     idx = flat[:, None].expand(-1, f)
     src = vals.reshape(-1, f)
     return lambda: torch.zeros(b * ncell + 1, f, device=dev).scatter_reduce_(
-        0, idx, src, "mean", include_self=False)
+        0, idx, src, reduce, include_self=False)
 
 
 def check_tile_kernels(entry, seed: int = 0):
@@ -652,7 +725,8 @@ def check_tile_kernels(entry, seed: int = 0):
           "tomosar2height_tpu/ops/pallas/pool_kernel.py:36", pairs,
           lambda: tpk.tile_pool(vals, cells, toff, "max"),
           lambda: tpk.tile_pool_plain(vals, cells, toff, "max"),
-          (nbytes(vals, cells, toff, pairs[0][0]), vals.numel()))
+          (nbytes(vals, cells, toff, pairs[0][0]), vals.numel()),
+          _scatter_yardstick(vals, cells, 0, 256 * 256, dev, "amax"))
 
     # K12 (the nine scatters, plus 16^2 at F=1024) and K14 (256-32) on 'fused'
     for name, source_line, shapes, fn, plain, toff_of in (
@@ -669,7 +743,7 @@ def check_tile_kernels(entry, seed: int = 0):
             work[1] += a[0].numel()
             kfns.append(lambda a=a, fn=fn: fn(*a))
             pfns.append(lambda a=a, plain=plain: plain(*a))
-            lfns.append(_scatter_mean_yardstick(a[0], cells, 2 * (9 - r.bit_length()),
+            lfns.append(_scatter_yardstick(a[0], cells, 2 * (9 - r.bit_length()),
                                                 r * r, dev))
         entry(name, "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
               f"tomosar2height_tpu/ops/pallas/scatter_kernel.py:{source_line}", pairs,
@@ -694,7 +768,7 @@ def check_tile_kernels(entry, seed: int = 0):
             work[1] += a[0].numel()
             kfns.append(lambda a=a, fn=fn: fn(*a))
             pfns.append(lambda a=a, plain=plain: plain(*a))
-            lfns.append(_scatter_mean_yardstick(a[0], a[1], 0, r * r, dev))
+            lfns.append(_scatter_yardstick(a[0], a[1], 0, r * r, dev))
         entry(name, "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
               f"tomosar2height_tpu/ops/pallas/scatter_kernel.py:{source_line}", pairs,
               lambda k=kfns: [fn() for fn in k], lambda p=pfns: [fn() for fn in p], work,

@@ -359,6 +359,71 @@ class TestLevelBackwardKernel:
         assert torch.isfinite(p.grad).all() and all(torch.isfinite(x.grad).all() for x in w)
 
 
+@pytest.mark.cuda
+class TestTensorCoreLevelKernels:
+    """K4 and K5's weight-gradient reduction run on the tensor cores at fp32
+    accuracy (3xTF32): held to their plain versions at ragged shapes, with
+    the tolerances above unchanged."""
+
+    @pytest.mark.parametrize("m,ka,nb,bias", [
+        (50001, 32, 32, True), (50001, 512, 64, True), (20011, 1024, 1024, False),
+        (4099, 512, 1024, True), (163843, 32, 1024, True), (777, 33, 65, True),
+        (3001, 1024, 32, False)])
+    def test_reduce_matches_plain(self, cuda, m, ka, nb, bias):
+        """M not a multiple of the 32-row step or of the split; Ka 32, 512
+        with the bias column, 1024; Nb 32, 64, 1024; odd widths take the
+        4-byte copies."""
+        rng = np.random.default_rng(m + ka + nb)
+        a = t(rng.normal(size=(m, ka)).astype(np.float32), cuda)
+        b = t(rng.normal(size=(m, nb)).astype(np.float32), cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_bwd_reduce(a, b, bias)
+        want = lk.level_bwd_reduce_plain(a, b, bias)
+        torch.cuda.synchronize()
+        _launched("level_bwd_reduce", before)
+        assert got[0].shape == (ka, nb) and (got[1] is None) == (not bias)
+        for x, y in zip(got, want):
+            if y is not None:
+                torch.testing.assert_close(x, y, atol=3e-4 * float(y.abs().max()), rtol=3e-4)
+
+    def test_reduce_is_bit_equal_run_to_run(self, cuda):
+        rng = np.random.default_rng(11)
+        a = t(rng.normal(size=(100003, 512)).astype(np.float32), cuda)
+        b = t(rng.normal(size=(100003, 1024)).astype(np.float32), cuda)
+        first = lk.level_bwd_reduce(a, b, True)
+        second = lk.level_bwd_reduce(a, b, True)
+        torch.cuda.synchronize()
+        assert torch.equal(first[0], second[0]) and torch.equal(first[1], second[1])
+
+    @pytest.mark.parametrize("f,fl", [(32, 32), (64, 32), (256, 128), (512, 256)])
+    def test_level_c_out_is_bit_equal_run_to_run(self, cuda, f, fl):
+        """c_out has no atomics: runs that differ in a bit read shared memory
+        that no thread wrote."""
+        inp = level_inputs(256, 64, f, fl, seed=19, b=2, n=4000)
+        first = run_level(inp, 256, 64, device=cuda)[1]
+        for _ in range(5):
+            assert torch.equal(run_level(inp, 256, 64, device=cuda)[1], first)
+
+    @pytest.mark.parametrize("level_reso,f,fl", [(256, 32, 32), (32, 512, 1024),
+                                                 (32, 512, 256), (64, 256, 512)])
+    def test_level_ragged_rows_and_padding_blocks(self, cuda, level_reso, f, fl):
+        """N not a multiple of the block's 64 rows, and a patch whose every
+        row is padding (all its blocks take the shortcut)."""
+        inp = level_inputs(256, level_reso, f, fl, seed=17, b=3, n=3000, empty_last=True)
+        cut = inp[1].shape[1] - 37
+        inp = tuple(x[:, :cut] if i in (0, 1, 2, 5) else x for i, x in enumerate(inp))
+        before = dict(runtime.LAUNCHES)
+        got = run_level(inp, 256, level_reso, device=cuda)
+        want = run_level(inp, 256, level_reso, fn=lk.fused_level_plain, device=cuda)
+        torch.cuda.synchronize()
+        _launched("fused_level", before)
+        assert got[1].shape == (3, cut, f)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        torch.testing.assert_close(got[1], want[1], **TOL)
+        assert torch.equal(got[2], want[2])
+        assert (got[1][-1] == 0).all() and (got[1][t(~inp[1], cuda)] == 0).all()
+
+
 def conv_weights(rng, cin, cout, k=3):
     """HWIO weights at std min(0.2, fan_in^-0.5) and small biases."""
     std = min(0.2, (k * k * cin) ** -0.5)

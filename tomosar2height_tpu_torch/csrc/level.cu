@@ -8,99 +8,145 @@
 //
 // The TPU kernel walks a sequential (batch, point-chunk) grid, keeps one
 // tile's plane window and accumulator in VMEM and flushes the tile on its last
-// chunk. Here a block owns 32 consecutive points and keeps everything for
-// them in shared memory: the sampled features (k-major), the hidden layer
-// (k-major) and two staged 32x128 tiles of whichever weight matrix it is
-// contracting (double-buffered: the next tile's loads fly during the current
-// tile's FMAs; the block GEMM is in tile_gemm.cuh); c_last reuses the
-// sample's space once the hidden layer exists. That space holds
-// max(F, min(Fl, 512)) rows: a wider c_last (Fl = 1024 at the first up level
-// of a depth-6 U-Net, whose F is 512) is contracted in 512-row K-chunks, each
-// loaded into the same space, once per 128-column output pass.
-// Each of the 256 threads holds a 4-point x 4-column fp32 accumulator tile of
-// a 32x128 output slab; a warp owns 16 columns of all 32 points. The plane scatter is an atomicAdd per output element
-// into a zeroed (B,R,R,F) buffer, then a finalize pass divides by the counts.
+// chunk. Here a block owns kBM = 64 consecutive points. Its three GEMMs run on
+// the tensor cores at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh); the
+// block's output o (64 x F) stays in registers from the first product to the
+// epilogue (a warp owns 32 rows x F/8 columns at F = 128 and 512, of 16
+// warps; F/4 of 8 warps at the other widths). In order:
+//   1. o = c_last @ w_c: c_last comes through the shared A buffer in K-chunks
+//      of FP columns (FP: F rounded up to a power of two >= 32), so any Fl
+//      fits (Fl = 1024 at the first up level of a depth-6 U-Net);
+//   2. the sample s -> A buffer, then for each 64-column chunk of the hidden
+//      layer: h_c = relu(s @ w_in[:, chunk] + b_in) into a 64 x 64 shared
+//      tile, o += h_c @ w_out[chunk, :]. The hidden layer (2F floats a row)
+//      never exists whole, so 64 rows fit at F = 512.
+// The weights stream through a ring of shared slots by cp.async, as one
+// sequence of tiles (w_c's, then w_in's and w_out's chunk by chunk), so the
+// next tiles' copies fly across the phase boundaries too; each slot is
+// consumed after one block barrier. Shared strides are padded against bank
+// conflicts. The plane scatter is an atomicAdd per output element into a
+// zeroed (B,R,R,F) buffer, then a finalize pass divides by the counts.
 //
-// Bound on the H100: fp32 FMAs of the three matmuls, ~1.9M MAC per point per
-// forward summed over the eight levels (the 32^2 level with F=512 alone is
-// 1.2M); the plane traffic is small beside it. The inner loop issues two
-// 16-byte shared loads per 16 FMAs, two shared wavefronts per warp; at F=512 one block fills 224 KB of shared
-// memory, so one block runs per SM. Blocks whose 32 rows are all padding
-// write zeros to c_out and skip the matmuls. Tensor cores (wgmma) and TMA
-// staging are left for later work.
+// Bound on the H100: the MACs, ~1.9M per point per forward summed over the
+// eight levels (the 32^2 level with F=512 alone 1.2M), three TF32 products
+// each; the plane traffic is small beside it. 64 rows a block halve the
+// weight reads from L2 of a 32-row block (4.5 MB a block at F = 512).
+// Shared memory: 211 KiB at F = 512 (a 2-slot ring), 136 KiB at F = 256,
+// 104 KiB at F = 128 (one block an SM), 88 KiB at F = 64 (two blocks of 8
+// warps). Blocks whose 64 rows are all padding write zeros to
+// c_out and skip the products. What holds it back: the hidden chunk's
+// product gives each warp two m16n8 tiles a k8 step, so there the operand
+// splits cost more issue slots than the MMAs; a wider chunk does not fit
+// the shared memory at F = 512 beside the 64-row sample.
 
 #include "bilinear.cuh"
 #include "common.cuh"
-#include "tile_gemm.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace t2h {
 
-constexpr int kKc = 512;  // c_last rows contracted per K-chunk
+constexpr int kBM = 64;   // points per block
+constexpr int kHC = 64;   // hidden columns per chunk
 
-// Rows of the shared sample / c_last buffer: the sample's F, and c_last's Fl
-// up to one K-chunk.
-__host__ __device__ inline int level_a_rows(int F, int Fl) {
-  const int kc = Fl < kKc ? Fl : kKc;
-  return F > kc ? F : kc;
-}
+// Per width class FP, the threads of a block and so the register cap
+// (ptxas's counts and the A/B are in PERF.md):
+// - F = 128 and 512: 512 threads, one block an SM, 128 registers a thread;
+//   ptxas spills 116 and 208 bytes. At F = 512, 256 threads would hold 128
+//   floats of o a thread: 255 registers spilled 1320 bytes and ran slower.
+// - F = 256: 256 threads, one block an SM, 255 registers: o is 64 floats a
+//   thread and nothing spills (ran faster than 512 threads with spills).
+// - F <= 64: 256 threads, two blocks an SM, 128 registers (64-116 bytes
+//   spilled).
+// Warps are 2 row halves x kWQ column groups, of o and of the hidden chunk
+// alike.
+template <int FP>
+struct LevelCfg {
+  static constexpr int kT = FP == 128 || FP == 512 ? 512 : 256;
+  static constexpr int kWQ = kT / 64;
+  static constexpr int kWN = FP / kWQ;  // a warp's o columns
+  static constexpr int kNT = kWN / 8;
+  static constexpr int kWH = kHC / kWQ;  // a warp's hidden-chunk columns
+  static constexpr int kNT1 = kWH / 8;
+  static constexpr int kKS1 = FP >= 64 ? 64 : 32;   // w_in tile rows (<= FP: As's width)
+  static constexpr int kKS2 = FP >= 256 ? 16 : 32;  // w_out/w_c tile rows
+  static constexpr int kLdA = FP + 4;     // A buffer (c_last chunk, then the sample)
+  static constexpr int kLdH = kHC + 4;    // hidden chunk
+  static constexpr int kLdW1 = kHC + 8;   // w_in tile
+  static constexpr int kLdW2 = FP + 8;    // w_out / w_c tile
+  static constexpr int kSlot = kKS1 * kLdW1 > kKS2 * kLdW2 ? kKS1 * kLdW1 : kKS2 * kLdW2;
+  static constexpr int kStages = FP >= 512 ? 2 : 3;
+  static constexpr int kMinBlocks = FP >= 128 ? 1 : 2;
+  static constexpr size_t kSmem =
+      sizeof(float) * ((size_t)kBM * kLdA + (size_t)kBM * kLdH + (size_t)kStages * kSlot);
+  static_assert(kKS1 <= FP && kKS2 <= FP && FP % kKS2 == 0 && kHC % kKS2 == 0,
+                "tiles must not reach past the A buffer or a K-chunk");
+};
 
-size_t level_smem_bytes(int F, int Fl) {
-  return sizeof(float) * ((size_t)level_a_rows(F, Fl) * kP + (size_t)2 * F * kP +
-                          (size_t)2 * kKT * kNT);
-}
-
-// c_last columns [k0, k0 + kc) of the block's rows -> A[k][r] (0 past N).
-__device__ __forceinline__ void load_clast(float* A, const float* __restrict__ clast,
-                                           long long row0, int rows, int Fl, int k0,
-                                           int kc, int tid) {
-  for (int e = tid; e < kP * kc; e += kThreads) {
-    const int r = e / kc;
-    const int k = e - r * kc;
-    A[k * kP + r] = r < rows ? clast[(row0 + r) * Fl + k0 + k] : 0.0f;
+// acc (a warp's 32 rows x 8*NT columns) += A[rows wm.., KS columns] @
+// W[KS rows][columns wc..]: A row-major in shared (stride lda), W a staged
+// tile (stride ldw). Two k8 steps chain in the tensor cores per rounded add.
+template <int KS, int NT>
+__device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* A, int lda,
+                                         const float* W, int ldw, int wm, int wc, int lane) {
+  static_assert(KS % 16 == 0, "tiles hold pairs of k8 steps");
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 16) {
+    FragA a[2][2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        load_a_row(a[f][mt], A + (wm + 16 * mt) * lda + kk + 8 * f, lda, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      FragB bf[2];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) load_b(bf[f], W + (kk + 8 * f) * ldw + wc + nt * 8, ldw, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma3(s, a[0][mt], bf[0]);
+        mma3(s, a[1][mt], bf[1]);
+        add4(acc[mt][nt], s);
+      }
+    }
   }
 }
 
-// kChunked: c_last is wider than A (Fl > max(F, 512)) and is contracted in
-// K-chunks; a separate instantiation, so that the levels whose c_last fits
-// keep the one-pass code. At most 128 registers a thread (two blocks an SM
-// where shared memory allows it, F <= 128): uncapped, ptxas gave the
-// one-pass code 156 and the F <= 128 levels ran 24-29% slower (measured with
-// tools/time_level.py).
-template <bool kChunked>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int FP>
+__global__ void __launch_bounds__(LevelCfg<FP>::kT, LevelCfg<FP>::kMinBlocks)
 fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,
                 const float* __restrict__ xy, const int* __restrict__ cells,
                 const uint8_t* __restrict__ mask, const float* __restrict__ w_in,
                 const float* __restrict__ b_in, const float* __restrict__ w_out,
                 const float* __restrict__ b_out, const float* __restrict__ w_c,
                 const float* __restrict__ b_c, float* __restrict__ plane_out,
-                float* __restrict__ c_out, int* __restrict__ counts, int N, int R,
-                int F, int Fl, int shift) {
+                float* __restrict__ c_out, int* __restrict__ counts, int N, int R, int F,
+                int Fl, int shift, bool vec_w, bool vec_c) {
+  using C = LevelCfg<FP>;
   extern __shared__ float4 smem4[];
-  const int b = blockIdx.y;
-  const int i0 = blockIdx.x * kP;
-  const int tid = threadIdx.x;
-  // warp w owns output columns [16w, 16w + 16) of a 128-column pass for all
-  // 32 rows; lane = 8 row groups x 4 column groups of 4x4. A warp's shared
-  // reads per step are then 128 B of A and 64 B of W (2 wavefronts).
-  const int lane = tid & 31;
-  const int row0 = 4 * (lane & 7);
-  const int col0 = 16 * (tid >> 5) + 4 * (lane >> 3);
-  const int H = 2 * F;
-  const int ka = level_a_rows(F, Fl);
-  float* A = reinterpret_cast<float*>(smem4);  // [ka][kP]: sample, then c_last
-  float* Hs = A + (size_t)ka * kP;             // [H][kP]: hidden layer
-  float* Ws = Hs + (size_t)H * kP;             // [2][kKT][kNT]: staged weights
+  float* As = reinterpret_cast<float*>(smem4);  // [kBM][kLdA]: c_last chunk, then s
+  float* Hs = As + kBM * C::kLdA;               // [kBM][kLdH]: a hidden chunk
+  float* ring = Hs + kBM * C::kLdH;             // [kStages][kSlot]: weight tiles
 
-  __shared__ int s_valid[kP];
-  __shared__ int s_cell[kP];  // row-major cell at this level, -1 if none
-  __shared__ Corner s_corner[kP];
+  __shared__ int s_valid[kBM];
+  __shared__ int s_cell[kBM];  // row-major cell at this level, -1 if none
+  __shared__ Corner s_corner[kBM];
   __shared__ int s_any;
 
+  const int b = blockIdx.y;
+  const int i0 = blockIdx.x * kBM;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp / C::kWQ) * 32;
+  const int wq = warp % C::kWQ;
+  const int H = 2 * F;
   const long long RR = (long long)R * R;
+
   if (tid == 0) s_any = 0;
   __syncthreads();
-  if (tid < kP) {
+  if (tid < kBM) {
     const int i = i0 + tid;
     int valid = 0, cellr = -1;
     Corner corner = {};
@@ -121,84 +167,173 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   }
   __syncthreads();
 
-  if (!s_any) {  // all 32 rows are padding: c_out is exactly 0 there
-    for (int e = tid; e < kP * F; e += kThreads) {
-      const int r = e / F;
-      if (i0 + r < N) c_out[((long long)b * N + i0 + r) * F + (e - r * F)] = 0.0f;
-    }
+  const long long row_b = (long long)b * N + i0;
+  const int rows = min(kBM, N - i0);
+  if (!s_any) {  // all 64 rows are padding: c_out is exactly 0 there
+    for (int e = tid; e < rows * F; e += C::kT) c_out[row_b * F + e] = 0.0f;
     return;
   }
 
-  // --- bilinear sample -> A[c][r] ---------------------------------------------
-  const float* pl = plane + (long long)b * RR * F;
-  for (int e = tid; e < kP * F; e += kThreads) {
-    const int r = e / F;
-    const int c = e - r * F;
-    A[c * kP + r] = i0 + r < N && s_valid[r] ? bilinear_at(pl, s_corner[r], R, F, c) : 0.0f;
-  }
-  __syncthreads();
+  // The tile sequence: nC tiles of w_c (kKS2 rows each), then per hidden
+  // chunk n1 tiles of w_in (kKS1 x kHC) and n2 of w_out (kKS2 x FP).
+  const int nC = (Fl + C::kKS2 - 1) / C::kKS2;
+  const int n1 = (F + C::kKS1 - 1) / C::kKS1;
+  constexpr int n2 = kHC / C::kKS2;
+  const int nH = (H + kHC - 1) / kHC;
+  const int T = nC + nH * (n1 + n2);
+  auto issue = [&](int t) {
+    if (t < T) {
+      float* slot = ring + (t % C::kStages) * C::kSlot;
+      if (t < nC) {
+        cp_tile<C::kKS2, FP, C::kT>(slot, C::kLdW2, w_c, F, (long long)t * C::kKS2, Fl, 0, F,
+                                    vec_w, tid);
+      } else {
+        const int u = t - nC;
+        const int c = u / (n1 + n2);
+        const int v = u - c * (n1 + n2);
+        if (v < n1) {
+          cp_tile<C::kKS1, kHC, C::kT>(slot, C::kLdW1, w_in, H, v * C::kKS1, F, c * kHC, H,
+                                       vec_w, tid);
+        } else {
+          cp_tile<C::kKS2, FP, C::kT>(slot, C::kLdW2, w_out, F, c * kHC + (v - n1) * C::kKS2,
+                                      H, 0, F, vec_w, tid);
+        }
+      }
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
 
-  // --- h = relu(s @ w_in + b_in) -> Hs[n][r] ------------------------------------
-  for (int n0 = 0; n0 < H; n0 += kNT) {
-    float acc[4][4] = {};
-    gemm_tile(acc, A, F, w_in, H, n0, Ws, tid, row0, col0);
+  float acc[2][C::kNT][4] = {};  // o: rows wm.., columns wq * kWN..
+  float hacc[2][C::kNT1][4];     // h chunk: rows wm.., columns wq * kWH..
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + col0 + j;
-      if (n < H) {
-        const float bias = b_in[n];
-        float4 h;
-        h.x = fmaxf(acc[0][j] + bias, 0.0f);
-        h.y = fmaxf(acc[1][j] + bias, 0.0f);
-        h.z = fmaxf(acc[2][j] + bias, 0.0f);
-        h.w = fmaxf(acc[3][j] + bias, 0.0f);
-        *reinterpret_cast<float4*>(Hs + n * kP + row0) = h;
-      }
-    }
-  }
-
-  // --- c_last -> A[k][r] (the sample is no longer needed): whole when it fits,
-  // else one K-chunk at a time inside each output pass ---------------------------
-  const long long row_b = (long long)b * N + i0;
-  const int rows = min(kP, N - i0);
-  if (!kChunked) {
-    load_clast(A, clast, row_b, rows, Fl, 0, Fl, tid);
-    __syncthreads();
-  }
-
-  // --- o = h @ w_out + c_last @ w_c + b_out + b_c; write c_out; scatter ------------
-  float* po = plane_out + (long long)b * RR * F;
-  for (int n0 = 0; n0 < F; n0 += kNT) {
-    float acc[4][4] = {};
-    gemm_tile(acc, Hs, H, w_out, F, n0, Ws, tid, row0, col0);
-    if (!kChunked) {
-      gemm_tile(acc, A, Fl, w_c, F, n0, Ws, tid, row0, col0);
-    } else {
-      // each gemm_tile ends with a barrier, so the next chunk may overwrite A
-      for (int k0 = 0; k0 < Fl; k0 += ka) {
-        const int kc = min(ka, Fl - k0);
-        load_clast(A, clast, row_b, rows, Fl, k0, kc, tid);
+  for (int t = 0; t < C::kStages - 1; ++t) issue(t);
+  for (int t = 0; t < T; ++t) {
+    int kind, off, c = 0, v = 0;  // kind 0: w_c, 1: w_in, 2: w_out
+    if (t < nC) {
+      kind = 0;
+      const int k = t * C::kKS2;
+      off = k % FP;
+      if (off == 0) {  // the next K-chunk of c_last -> As (zeros past Fl and N)
         __syncthreads();
-        gemm_tile(acc, A, kc, w_c + (long long)k0 * F, F, n0, Ws, tid, row0, col0);
+        if (vec_c) {
+          for (int e = tid; e < kBM * FP / 4; e += C::kT) {
+            const int r = e / (FP / 4);
+            const int cc = (e - r * (FP / 4)) * 4;
+            float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+            if (r < rows && k + cc < Fl)
+              x = *reinterpret_cast<const float4*>(clast + (row_b + r) * Fl + k + cc);
+            *reinterpret_cast<float4*>(As + r * C::kLdA + cc) = x;
+          }
+        } else {
+          for (int e = tid; e < kBM * FP; e += C::kT) {
+            const int r = e / FP;
+            const int cc = e - r * FP;
+            As[r * C::kLdA + cc] =
+                r < rows && k + cc < Fl ? clast[(row_b + r) * Fl + k + cc] : 0.0f;
+          }
+        }
+      }
+    } else {
+      const int u = t - nC;
+      c = u / (n1 + n2);
+      v = u - c * (n1 + n2);
+      if (v < n1) {
+        kind = 1;
+        off = v * C::kKS1;
+        if (v == 0) {
+          if (c == 0) {  // the bilinear sample -> As (zeros past F)
+            __syncthreads();
+            const float* pl = plane + (long long)b * RR * F;
+            for (int e = tid; e < kBM * FP; e += C::kT) {
+              const int r = e / FP;
+              const int cc = e - r * FP;
+              As[r * C::kLdA + cc] = cc < F && r < rows && s_valid[r]
+                                         ? bilinear_at(pl, s_corner[r], R, F, cc)
+                                         : 0.0f;
+            }
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < C::kNT1; ++nt)
+#pragma unroll
+              for (int i = 0; i < 4; ++i) hacc[mt][nt][i] = 0.0f;
+        }
+      } else {
+        kind = 2;
+        off = (v - n1) * C::kKS2;
       }
     }
+    cp_async_wait<C::kStages - 2>();
+    __syncthreads();  // tile t landed for every thread; tile t - 1's slot is free
+    issue(t + C::kStages - 1);
+    const float* W = ring + (t % C::kStages) * C::kSlot;
+    if (kind == 0) {
+      warp_mma<C::kKS2, C::kNT>(acc, As + off, C::kLdA, W, C::kLdW2, wm, wq * C::kWN, lane);
+    } else if (kind == 2) {
+      warp_mma<C::kKS2, C::kNT>(acc, Hs + off, C::kLdH, W, C::kLdW2, wm, wq * C::kWN, lane);
+    } else {
+      warp_mma<C::kKS1, C::kNT1>(hacc, As + off, C::kLdA, W, C::kLdW1, wm, wq * C::kWH, lane);
+      if (v == n1 - 1) {  // h chunk c = relu(. + b_in) -> Hs (0 past 2F)
+        const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+        for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+          for (int nt = 0; nt < C::kNT1; ++nt)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              const int r = wm + mt * 16 + g + (i >> 1) * 8;
+              const int col = wq * C::kWH + nt * 8 + 2 * q + (i & 1);
+              const int n = c * kHC + col;
+              Hs[r * C::kLdH + col] = n < H ? fmaxf(hacc[mt][nt][i] + b_in[n], 0.0f) : 0.0f;
+            }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+  // --- o + b_out + b_c (0 on padding rows) -> c_out; scatter into the plane ------
+  float* po = plane_out + (long long)b * RR * F;
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      const int r = row0 + i;
-      if (i0 + r >= N) continue;
-      const int cellr = s_cell[r];
+      const int r = wm + mt * 16 + g + (i >> 1) * 8;
+      if (r >= rows) continue;
       const bool valid = s_valid[r] != 0;
-      float* crow = c_out + ((long long)b * N + i0 + r) * F;
+      const int cellr = s_cell[r];
+      float* crow = c_out + (row_b + r) * F;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = n0 + col0 + j;
+      for (int nt = 0; nt < C::kNT; ++nt) {
+        const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
         if (n >= F) continue;
-        const float o = valid ? acc[i][j] + b_out[n] + b_c[n] : 0.0f;
+        const float o = valid ? acc[mt][nt][i] + b_out[n] + b_c[n] : 0.0f;
         crow[n] = o;
         if (cellr >= 0) atomicAdd(po + (long long)cellr * F + n, o);
       }
     }
-  }
+}
+
+template <int FP>
+cudaError_t launch_level(const float* plane, const float* clast, const float* xy,
+                         const int* cells, const uint8_t* mask, const float* w_in,
+                         const float* b_in, const float* w_out, const float* b_out,
+                         const float* w_c, const float* b_c, float* plane_out,
+                         float* c_out, int* counts, int B, int N, int R, int F, int Fl,
+                         int shift, cudaStream_t stream) {
+  using C = LevelCfg<FP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_level_fwd<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  if (err != cudaSuccess) return err;
+  const bool vec_w = F % 4 == 0 && aligned16(w_in) && aligned16(w_out) && aligned16(w_c);
+  const bool vec_c = Fl % 4 == 0 && aligned16(clast);
+  const dim3 grid((N + kBM - 1) / kBM, B);
+  fused_level_fwd<FP><<<grid, C::kT, C::kSmem, stream>>>(
+      plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, b_c, plane_out, c_out,
+      counts, N, R, F, Fl, shift, vec_w, vec_c);
+  return cudaGetLastError();
 }
 
 }  // namespace t2h
@@ -210,7 +345,7 @@ extern "C" {
 // plane (B,R,R,F) NHWC, c_last (B,N,Fl), xy (B,N,2), cells (B,N) finest Morton
 // ids, mask (B,N) u8; weights row-major (in, out): w_in (F,2F), w_out (2F,F),
 // w_c (Fl,F) -> plane_out (B,R,R,F) scatter-mean (empty cells 0), c_out
-// (B,N,F) (0 on padding rows), counts (B,R,R) i32.
+// (B,N,F) (0 on padding rows), counts (B,R,R) i32. F <= 512; any Fl.
 int t2h_fused_level(const float* plane, const float* clast, const float* xy,
                     const int* cells, const uint8_t* mask, const float* w_in,
                     const float* b_in, const float* w_out, const float* b_out,
@@ -224,15 +359,24 @@ int t2h_fused_level(const float* plane, const float* clast, const float* xy,
     fill_i32<<<grid_for(nc), kThreads, 0, stream>>>(counts, nc, 0);
   }
   if ((long long)B * N > 0) {
-    const size_t smem = level_smem_bytes(F, Fl);
-    auto kernel = Fl > level_a_rows(F, Fl) ? fused_level_fwd<true> : fused_level_fwd<false>;
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
+    if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err;
+#define T2H_LEVEL(FP)                                                                   \
+  case FP:                                                                              \
+    err = launch_level<FP>(plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, \
+                           b_c, plane_out, c_out, counts, B, N, R, F, Fl, shift, stream); \
+    break;
+    switch (fp) {
+      T2H_LEVEL(32)
+      T2H_LEVEL(64)
+      T2H_LEVEL(128)
+      T2H_LEVEL(256)
+      default:
+      T2H_LEVEL(512)
+    }
+#undef T2H_LEVEL
     if (err != cudaSuccess) return static_cast<int>(err);
-    const dim3 grid((N + kP - 1) / kP, B);
-    kernel<<<grid, kThreads, smem, stream>>>(
-        plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, b_c,
-        plane_out, c_out, counts, N, R, F, Fl, shift);
   }
   if (nv > 0)
     divide_by_counts<<<grid_for(nv), kThreads, 0, stream>>>(plane_out, counts, nv, F);

@@ -28,33 +28,39 @@
 //    summed in shared memory first (X is free by then) and flushed with one
 //    global atomic per touched (pixel, channel) -- the CUDA form of the TPU
 //    kernel's per-tile halo window; else each corner is a global atomicAdd.
-// 2. t2h_level_bwd_reduce (atb_partial + sum_splits), three calls: each
-//    weight gradient is A^T B over all M rows, a hand-written tiled fp32
-//    reduction: a block owns one 64 x 64 output tile and one contiguous row
-//    split (split-K), an extra all-ones column of A gives the bias gradient,
-//    and a second pass sums the splits in a fixed order. No atomics: the
-//    weight gradients are deterministic; d_plane is order-dependent (~1e-7
+// 2. t2h_level_bwd_reduce (atb_tf32x3 + sum_splits), three calls: each
+//    weight gradient is A^T B over all M rows, split-K on the tensor cores
+//    at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh): a block owns one
+//    128 x 128 output tile (64 where Ka or Nb is 64 or less) and one
+//    contiguous row split, its rows streamed through a 3-stage cp.async
+//    ring of 32-row steps; the blocks of the first k-tile also sum the
+//    columns of the B tiles they hold (the bias gradient), and a second pass
+//    sums the splits in a fixed order. No atomics: the weight gradients are
+//    deterministic, bit-equal run to run; d_plane is order-dependent (~1e-7
 //    relative) as K3/K4's sums are.
 //
-// Bound on the H100: fp32 FMAs. A row costs 10F^2 + 2F*Fl MAC (6F^2 + F*Fl in
-// phase 1, 4F^2 + F*Fl in phase 2), ~2.9M at the F=512 level, 2.4x K4's
-// forward; the scratch traffic (6F floats written, read back once per
-// output-tile column) is small beside it. Shared memory per phase-1 block:
+// Bound on the H100: the MACs. A row costs 10F^2 + 2F*Fl MAC (6F^2 + F*Fl in
+// phase 1 on fp32 FMAs, 4F^2 + F*Fl in phase 2 on the tensor cores, three
+// TF32 products each), ~2.9M at the F=512 level, 2.4x K4's forward. Phase
+// 2's scratch rows are read once per output-tile column or row (128-wide
+// tiles: 4-8 times at F=512, mostly from L2, since the blocks of one split
+// run side by side). Shared memory per phase-1 block:
 // 4 * 32 * 3F + 32 KB of staging, 224 KB at F=512, so one block per SM, as
-// K4; it does not grow with Fl (d_c_last leaves each 128-column pass from
-// registers), so the Fl = 1024 level of a depth-6 U-Net fits as it is.
-// Tensor cores (wgmma) and TMA staging are left for later work.
+// K4 was; it does not grow with Fl (d_c_last leaves each 128-column pass
+// from registers), so the Fl = 1024 level of a depth-6 U-Net fits as it is.
+// The row pass keeps fp32 FMAs (tile_gemm.cuh).
 
 #include <algorithm>
 
 #include "bilinear.cuh"
 #include "common.cuh"
+#include "mma_tf32x3.cuh"
 #include "tile_gemm.cuh"
 
 namespace t2h {
 
-constexpr int kRT = 64;  // reduction output tile side (rows of A^T and cols of B)
-constexpr int kRM = 32;  // rows per reduction step
+constexpr int kRM = 32;      // rows per reduction step
+constexpr int kRStages = 3;  // reduction steps in flight
 
 size_t level_bwd_smem_bytes(int F) {
   return sizeof(float) * ((size_t)3 * F * kP + (size_t)2 * kKT * kNT);
@@ -298,66 +304,143 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   }
 }
 
-// part[split][k][n] = sum over the split's rows m of A'[m][k] * Bm[m][n],
-// where A' is A (M x Ka) with column Ka all ones when Kout == Ka + 1 (the
-// bias gradient, colsum of Bm). Block: one kRT x kRT output tile, one split.
-__global__ void __launch_bounds__(kThreads)
-atb_partial(const float* __restrict__ A, const float* __restrict__ Bm, long long M,
-            int Ka, int Kout, int Nb, long long rows_per_split, float* __restrict__ part) {
-  __shared__ __align__(16) float As[kRM][kRT];
-  __shared__ __align__(16) float Bs[kRM][kRT];
-  const int n0 = blockIdx.x * kRT;
-  const int k0 = blockIdx.y * kRT;
+// part[split][k][n] = sum over the split's rows m of A[m][k] * Bm[m][n] on
+// the tensor cores (3xTF32, mma_tf32x3.cuh), k < Ka; with a bias (Kout ==
+// Ka + 1) the blocks of the first k-tile also sum the columns of the Bm
+// tiles they hold into part row Ka. Block: one BK x BN output tile, one
+// split; the split's rows stream through a ring of kRStages shared stages of
+// kRM rows (cp.async, so the next steps' loads fly during this step's MMAs).
+// A warp's 32 x 64 output tile is held twice (the running sum and a step's
+// chain), ~220 registers (ptxas): one block of 8 warps an SM.
+// A stage holds A's rows column-major for the MMA (A^T is the left operand)
+// and Bm's rows row-major, both padded to a stride of 8 (mod 32) floats.
+constexpr int kRThreads = 256;  // threads of a reduction block
+
+template <int BK, int BN>
+struct ReduceTile {
+  static constexpr int kWarpsK = BK >= 128 ? 4 : 2;
+  static constexpr int kWarpsN = kRThreads / 32 / kWarpsK;
+  static constexpr int kWK = BK / kWarpsK;  // a warp's output rows (32)
+  static constexpr int kWN = BN / kWarpsN;  // and columns
+  static constexpr int kMT = kWK / 16;
+  static constexpr int kNT = kWN / 8;
+  static constexpr int kLdA = BK + 8;
+  static constexpr int kLdB = BN + 8;
+  static constexpr int kStage = kRM * (kLdA + kLdB);
+  static constexpr size_t kSmem = sizeof(float) * kRStages * kStage;
+};
+
+template <int BK, int BN>
+__global__ void __launch_bounds__(kRThreads, 1)
+atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long M, int Ka,
+           int Nb, long long rows_per_split, int Kout, bool vec_a, bool vec_b,
+           float* __restrict__ part) {
+  using T = ReduceTile<BK, BN>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  __shared__ float s_bias[kRThreads];
+  const int n0 = blockIdx.x * BN;
+  const int k0 = blockIdx.y * BK;
   const long long m_begin = blockIdx.z * rows_per_split;
   const long long m_end = min(M, m_begin + rows_per_split);
+  const int steps = m_end > m_begin ? static_cast<int>((m_end - m_begin + kRM - 1) / kRM) : 0;
   const int tid = threadIdx.x;
-  const int ty = tid >> 4;  // 16 x 16 threads, 4 x 4 outputs each
-  const int tx = tid & 15;
-  float acc[4][4] = {};
-  for (long long m0 = m_begin; m0 < m_end; m0 += kRM) {
-    for (int e = tid; e < kRM * kRT; e += kThreads) {
-      const int r = e / kRT;
-      const int c = e - r * kRT;
-      const long long m = m0 + r;
-      const int k = k0 + c;
-      const int n = n0 + c;
-      float a = 0.0f, bv = 0.0f;
-      if (m < m_end) {
-        if (k < Ka) {
-          a = A[m * Ka + k];
-        } else if (k < Kout) {
-          a = 1.0f;
-        }
-        if (n < Nb) bv = Bm[m * Nb + n];
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wk = (warp / T::kWarpsN) * T::kWK;
+  const int wn = (warp % T::kWarpsN) * T::kWN;
+  const bool bias = Kout > Ka && blockIdx.y == 0;
+  constexpr int kBRows = kRM * BN / kRThreads;  // rows of a stage each thread sums
+  const int bcol = tid % BN;
+  const int brow = (tid / BN) * kBRows;
+
+  auto issue = [&](int s) {
+    if (s < steps) {
+      float* st = sm + (s % kRStages) * T::kStage;
+      const long long m0 = m_begin + (long long)s * kRM;
+      cp_tile<kRM, BK, kRThreads>(st, T::kLdA, A, Ka, m0, m_end, k0, Ka, vec_a, tid);
+      cp_tile<kRM, BN, kRThreads>(st + kRM * T::kLdA, T::kLdB, Bm, Nb, m0, m_end, n0, Nb,
+                                  vec_b, tid);
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+  float acc[T::kMT][T::kNT][4] = {};
+  float bsum = 0.0f;
+#pragma unroll
+  for (int s = 0; s < kRStages - 1; ++s) issue(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kRStages - 2>();
+    __syncthreads();  // step s landed for every thread; step s - 1's slot is free
+    issue(s + kRStages - 1);
+    const float* As = sm + (s % kRStages) * T::kStage;
+    const float* Bs = As + kRM * T::kLdA;
+    // the step's four k8 steps chain in the tensor cores into tmp, which
+    // joins acc by a rounded add (mma_tf32x3.cuh)
+    float tmp[T::kMT][T::kNT][4] = {};
+#pragma unroll
+    for (int kk = 0; kk < kRM; kk += 8) {
+      FragA a[T::kMT];
+#pragma unroll
+      for (int mt = 0; mt < T::kMT; ++mt)
+        load_a_col(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
+#pragma unroll
+      for (int nt = 0; nt < T::kNT; ++nt) {
+        FragB bf;
+        load_b(bf, Bs + kk * T::kLdB + wn + nt * 8, T::kLdB, lane);
+#pragma unroll
+        for (int mt = 0; mt < T::kMT; ++mt) mma3(tmp[mt][nt], a[mt], bf);
       }
-      As[r][c] = a;
-      Bs[r][c] = bv;
     }
-    __syncthreads();
-#pragma unroll 8
-    for (int kk = 0; kk < kRM; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 w = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float wv[4] = {w.x, w.y, w.z, w.w};
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
+    for (int mt = 0; mt < T::kMT; ++mt)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], wv[j], acc[i][j]);
+      for (int nt = 0; nt < T::kNT; ++nt) add4(acc[mt][nt], tmp[mt][nt]);
+    if (bias) {
+#pragma unroll
+      for (int r = 0; r < kBRows; ++r) bsum += Bs[(brow + r) * T::kLdB + bcol];
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+
   float* out = part + (long long)blockIdx.z * Kout * Nb;
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int k = k0 + ty * 4 + i;
-    if (k >= Kout) continue;
+  for (int mt = 0; mt < T::kMT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + tx * 4 + j;
-      if (n < Nb) out[(long long)k * Nb + n] = acc[i][j];
+    for (int nt = 0; nt < T::kNT; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int k = k0 + wk + mt * 16 + g + (i >> 1) * 8;
+        const int n = n0 + wn + nt * 8 + 2 * t + (i & 1);
+        if (k < Ka && n < Nb) out[(long long)k * Nb + n] = acc[mt][nt][i];
+      }
+  if (bias) {  // the column sums' partial rows, added in a fixed order
+    s_bias[tid] = bsum;
+    __syncthreads();
+    if (tid < BN && n0 + tid < Nb) {
+      float v = 0.0f;
+      for (int p = 0; p < kRThreads / BN; ++p) v += s_bias[p * BN + tid];
+      out[(long long)Ka * Nb + n0 + tid] = v;
     }
   }
+}
+
+template <int BK, int BN>
+cudaError_t launch_atb(const float* A, const float* Bm, int M, int Ka, int Nb, int Kout,
+                       int splits, float* part, cudaStream_t stream) {
+  using T = ReduceTile<BK, BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      atb_tf32x3<BK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const long long rps = ((long long)M + splits - 1) / splits;
+  const dim3 grid((Nb + BN - 1) / BN, (Ka + BK - 1) / BK, splits);
+  const bool vec_a = Ka % 4 == 0 && aligned16(A);
+  const bool vec_b = Nb % 4 == 0 && aligned16(Bm);
+  atb_tf32x3<BK, BN><<<grid, kRThreads, T::kSmem, stream>>>(A, Bm, M, Ka, Nb, rps, Kout,
+                                                            vec_a, vec_b, part);
+  return cudaGetLastError();
 }
 
 // Sum the splits in order: rows k < Ka -> dw (Ka x Nb), row Ka -> db (Nb).
@@ -412,16 +495,32 @@ int t2h_fused_level_bwd(const float* plane, const float* xy, const int* cells,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The side of a reduction's output tile along a gradient side of n: 128, or
+// 64 where n is 64 or less.
+static int reduce_tile(int n) { return n > 64 ? 128 : 64; }
+
+// Output tiles of a (Ka x Nb) weight gradient; the wrapper sizes its row
+// splits by them. Returns the count, not an error code.
+int t2h_level_bwd_reduce_tiles(int Ka, int Nb) {
+  const int tk = reduce_tile(Ka), tn = reduce_tile(Nb);
+  return ((Ka + tk - 1) / tk) * ((Nb + tn - 1) / tn);
+}
+
 // Phase 2, one weight gradient: A (M,Ka), Bm (M,Nb) -> dw = A^T Bm (Ka,Nb)
-// and, when db is not null, db = colsum(Bm) (Nb). part: splits * (Ka+1) * Nb
-// floats of scratch.
+// and, when db is not null, db = colsum(Bm) (Nb). Output tiles of
+// reduce_tile(Ka) x reduce_tile(Nb), `splits` row splits; part: splits *
+// (Ka+1) * Nb floats of scratch.
 int t2h_level_bwd_reduce(const float* A, const float* Bm, int M, int Ka, int Nb,
                          int splits, float* part, float* dw, float* db,
                          cudaStream_t stream) {
   const int Kout = db != nullptr ? Ka + 1 : Ka;
-  const long long rps = ((long long)M + splits - 1) / splits;
-  const dim3 grid((Nb + kRT - 1) / kRT, (Kout + kRT - 1) / kRT, splits);
-  atb_partial<<<grid, kThreads, 0, stream>>>(A, Bm, M, Ka, Kout, Nb, rps, part);
+  const bool wide_k = reduce_tile(Ka) == 128, wide_n = reduce_tile(Nb) == 128;
+  const cudaError_t err =
+      wide_k ? (wide_n ? launch_atb<128, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<128, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream))
+             : (wide_n ? launch_atb<64, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<64, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
   sum_splits<<<grid_for((long long)Kout * Nb), kThreads, 0, stream>>>(part, splits, Ka,
                                                                       Kout, Nb, dw, db);
   return static_cast<int>(cudaGetLastError());

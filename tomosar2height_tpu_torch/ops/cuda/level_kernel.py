@@ -27,6 +27,8 @@ torch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
@@ -94,18 +96,25 @@ def level_bwd_reduce_plain(a, b, bias: bool):
     return a.t() @ b, (b.sum(0) if bias else None)
 
 
-def _splits(m: int, k_out: int, n: int, device: torch.device) -> int:
-    """Row splits of K5's weight-gradient reduction: about four blocks per SM
-    over the (k_out x n) output's 64 x 64 tiles, at least 1024 rows a split."""
-    tiles = -(-k_out // 64) * -(-n // 64)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-4 * sms // tiles), -(-m // 1024)))
+def _splits(m: int, k: int, n: int, device: torch.device) -> int:
+    """Row splits of K5's weight-gradient reduction: two blocks an SM over
+    the output's tiles (two waves of its one block an SM; the kernel picks
+    the tile), at most one per 512 rows."""
+    tiles = runtime.library().t2h_level_bwd_reduce_tiles(k, n)
+    return max(1, min(2 * _sm_count(device.index) // tiles, -(-m // 512)))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def level_bwd_reduce(a, b, bias: bool):
     """K5's second kernel, one weight gradient: the same returns as
-    :func:`level_bwd_reduce_plain`, a hand-written split-K fp32 reduction
-    over the rows (``csrc/level_bwd.cu`` ``t2h_level_bwd_reduce``)."""
+    :func:`level_bwd_reduce_plain`, a hand-written split-K reduction over
+    the rows on the tensor cores at fp32 accuracy (3xTF32;
+    ``csrc/level_bwd.cu`` ``t2h_level_bwd_reduce``). Deterministic: the
+    splits are summed in a fixed order."""
     if runtime.on_cpu(a):
         return level_bwd_reduce_plain(a, b, bias)
     dev = a.device
@@ -113,7 +122,7 @@ def level_bwd_reduce(a, b, bias: bool):
     n = b.shape[1]
     runtime.require(a, "a", torch.float32, (m, k), dev)
     runtime.require(b, "b", torch.float32, (m, n), dev)
-    splits = _splits(m, k + bias, n, dev)
+    splits = _splits(m, k, n, dev)
     part = torch.empty(splits * (k + bias) * n, device=dev, dtype=torch.float32)
     dw = torch.empty((k, n), device=dev, dtype=torch.float32)
     db = torch.empty(n, device=dev, dtype=torch.float32) if bias else None
@@ -216,11 +225,12 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
         cells 0), c_out (B, N, F) new point features (0 on masked rows),
         counts (B, R, R) int32 points per cell.
 
-    A block keeps 4 * 32 * (max(F, min(Fl, 512)) + 2F + 256) bytes in shared
-    memory (a c_last wider than that is contracted in 512-row K-chunks), so
-    every level with F <= 512 fits the H100's 227 KB, Fl = 1024 included (the
-    first up level of a depth-6 U-Net); a wider F fails its launch, which
-    raises. K5 keeps 4 * 32 * (3F + 256) bytes, whatever Fl.
+    K4 runs its three products on the tensor cores at fp32 accuracy
+    (3xTF32, ``csrc/mma_tf32x3.cuh``), 64 points a block; it takes F <= 512
+    and any Fl (c_last is contracted in K-chunks of F's width rounded up to
+    a power of two, so Fl = 1024 at the first up level of a depth-6 U-Net
+    fits); a wider F fails its launch, which raises. K5 keeps
+    4 * 32 * (3F + 256) bytes of shared memory, whatever Fl.
     """
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 

@@ -51,13 +51,15 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 _SIGNATURES = {
-    # name: argtypes (every function returns cudaError_t as int)
+    # name: argtypes (every function returns an int: cudaError_t, or the
+    # count that t2h_level_bwd_reduce_tiles computes)
     "t2h_pool_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "t2h_pool_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "t2h_scatter_plane": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
-    "t2h_level_bwd_reduce": [_P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "t2h_level_bwd_reduce": [_P, _P] + [_I] * 4 + [_P] * 4,
+    "t2h_level_bwd_reduce_tiles": [_I, _I],
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 7 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 10 + [_I] * 8 + [_P],

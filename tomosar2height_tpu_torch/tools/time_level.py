@@ -1,5 +1,6 @@
-"""K4 (``fused_level``) at the eight level round trips of a flagship forward,
-timed on the card, from the port in a given checkout.
+"""K4 (``fused_level``) and K5's weight-gradient reductions
+(``level_bwd_reduce``, three a level) at the eight level round trips of a
+flagship forward, timed on the card, from the port in a given checkout.
 
     python -m tomosar2height_tpu_torch.tools.time_level [--root DIR]
 
@@ -7,8 +8,13 @@ timed on the card, from the port in a given checkout.
 ``chip_smoke.py`` (the flagship batch, ``LEVEL_SHAPES``, the weight draw and
 the CUDA-event timer) are imported from there, so that two commits can be
 compared on one card in one call, in turns (parent, change, change,
-parent). Prints the median ms of all eight levels and of each, the card's
-name and power limit. Needs one CUDA card.
+parent). Prints the median ms of all eight levels and of each, for K4 and
+for the 24 reductions (on random rows of each level's shapes, as
+``chip_smoke.check_kernels`` draws them, beside ``torch.matmul`` of the same
+product), the card's name and power limit. With ``--profile``, also the
+device time by kernel name of one pass of the 24 reductions and of the 24
+``torch.matmul`` calls (``torch.profiler``) and the device busy share of
+each pass. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import argparse
 import os
 import subprocess
 import sys
+import time
 
 
 def main() -> None:
@@ -24,6 +31,7 @@ def main() -> None:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     ap.add_argument("--iters", type=int, default=20)
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -48,19 +56,58 @@ def main() -> None:
     mask = torch.from_numpy(amask).to(dev)
     cells = torch.from_numpy(acell).to(dev)
     b, npad = amask.shape
-    fns = {}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    fns, red, mm = {}, {}, {}
+    m = b * npad
     for r, f, fl in cs.LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
         c_last = (torch.randn(b, npad, fl, generator=gen).to(dev) * mask[..., None]).contiguous()
         w = (cs._xavier(gen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
              cs._xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
              cs._xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
-        fns[f"{r}/{f}/{fl}"] = lambda a=(plane, c_last, w, xy, cells, mask, r, 256): \
-            lk.fused_level(*a)
-    per = {k: round(cs.cuda_ms(fn, iters=args.iters), 4) for k, fn in fns.items()}
-    total = cs.cuda_ms(lambda: [fn() for fn in fns.values()], iters=args.iters)
-    print(f"K4 {root}: {total:.4f} ms for the eight levels (median of {args.iters}); "
-          f"by level (R/F/Fl) {per}", flush=True)
+        key = f"{r}/{f}/{fl}"
+        fns[key] = lambda a=(plane, c_last, w, xy, cells, mask, r, 256): lk.fused_level(*a)
+        rows = [(torch.randn(m, ka, generator=gen).to(dev),
+                 torch.randn(m, nb, generator=gen).to(dev), bias)
+                for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False))]
+        red[key] = lambda rows=rows: [lk.level_bwd_reduce(*x) for x in rows]
+        mm[key] = lambda rows=rows: [torch.matmul(x[0].t(), x[1]) for x in rows]
+    for name, group in (("K4", fns), ("reduce", red), ("torch.matmul", mm)):
+        per = {k: round(cs.cuda_ms(fn, iters=args.iters), 4) for k, fn in group.items()}
+        total = cs.cuda_ms(lambda g=group: [fn() for fn in g.values()], iters=args.iters)
+        print(f"{name} {root}: {total:.4f} ms for the eight levels (median of "
+              f"{args.iters}); by level (R/F/Fl) {per}", flush=True)
+    if args.profile:
+        for name, group in (("reduce", red), ("torch.matmul", mm)):
+            _profile(name, lambda g=group: [fn() for fn in g.values()])
+
+
+def _profile(name: str, fn) -> None:
+    """Device ms by kernel name of one call of ``fn`` (after two warm ones),
+    and the busy share of its host wall."""
+    import torch
+
+    from tomosar2height_tpu_torch.tools.profile_forward import _busy_ms
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    by_name: dict = {}
+    for e in events:
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
+    busy = _busy_ms(events)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"{name} profile: device {sum(by_name.values()):.4f} ms, busy {busy:.4f} of "
+          f"{wall:.4f} ms host wall (profiler on); by kernel "
+          + "; ".join(f"{ms:.4f} {k[:60]}" for k, ms in top), flush=True)
 
 
 if __name__ == "__main__":
