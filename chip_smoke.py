@@ -9,7 +9,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and convolutions (the plain versions are full float32);
 2. build: the kernels (``tomosar2height_tpu_torch/csrc/*.cu``) with nvcc for
    sm_90a, into ``tomosar2height_tpu_torch/_build/``; ptxas's register
-   counts of K4 and K5's reduction, and a check that their SASS holds TF32
+   counts of the tensor-core kernels (K4, K5's row pass and reduction, K7's
+   implicit-GEMM conv), and a check that the SASS of each holds TF32
    tensor-core instructions (HMMA; ``cuobjdump -sass``);
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout; the conv
@@ -18,8 +19,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    of one PyTorch library call computing the same function where there is
    one, and the bound (bytes over the HBM rate or operations over the peak
    of the kernel's route, whichever is larger: fp32 FMA, or 3xTF32 on the
-   tensor cores for K4 and K5's weight sums, whose log lines also give the
-   bound were those operations on fp32 FMA);
+   tensor cores for K4, K5 (its row pass and weight sums, each also a row of
+   its own) and K7, whose log lines also give the bound were those
+   operations on fp32 FMA); K7's time at each of its 20 shapes beside two
+   cuDNN convs';
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -39,7 +42,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``train/loop.py``, on the fused2 kernel path and the unsorted plain path
    from the same weights on the same patches: 1 warm-up and 2 timed
    optimizer steps each, window losses compared, mini-step ms, train
-   patches/s, peak memory and the launches per fused2 mini-step.
+   patches/s, peak memory and the launches per fused2 mini-step; then the
+   fused2 run once more from the same weights on the same patches, to log
+   whether every parameter comes out bit-equal (the scatters add with
+   float atomics) and held to the first run's window losses.
 
 8. sorted-serve: the same city served with ``sorted_config(impl)`` for
    impl 'fused' (K9, K10, K12), 'pallas' (K11; with mean pooling also K13)
@@ -87,8 +93,9 @@ FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
 TF32X3_FLOP_S = TF32_FLOP_S / 3
 # the kernels that must hold TF32 tensor-core instructions (HMMA) in their
-# SASS: K4 and K5's weight-gradient reduction
-TENSOR_CORE_KERNELS = ("fused_level_fwd", "atb_tf32x3")
+# SASS: K4, K5's row pass and weight-gradient reduction, K7's convs
+TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
+                       "conv3x3_igemm")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -408,10 +415,10 @@ def check_kernels(seed: int = 0):
 
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
-    red_l = []
-    # bytes, then operations: K4's and the reductions' on 3xTF32; K5's row
-    # pass on fp32 FMA and its weight sums on 3xTF32
-    work = {"level": [0, 0], "bwd": [0, 0, 0], "reduce": [0, 0]}
+    red_l, rows_pairs, rows_k, rows_p = [], [], [], []
+    # bytes, then operations, all on 3xTF32: K4's; K5's (its row pass, then
+    # its weight sums); the row pass alone; the reductions alone
+    work = {"level": [0, 0], "bwd": [0, 0, 0], "rows": [0, 0], "reduce": [0, 0]}
     valid = int(mask.sum())
     for r, f, fl in LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
@@ -448,6 +455,20 @@ def check_kernels(seed: int = 0):
                                  kb[0], kb[1], *kb[2])
         work["bwd"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
         work["bwd"][2] += 2 * int(mask5.sum()) * (4 * f * f + f * fl)
+        # the row pass alone: d_plane, d_c_last, and its scratch rows on the
+        # rows it computes (s and h at K4's tolerance, d_o exact up to the
+        # count's division, d_h at K5's)
+        kr, pr = lk.fused_level_bwd_rows(*bargs), lk.fused_level_bwd_rows_plain(*bargs)
+        v5 = mask5.reshape(-1)
+        rows_pairs += [(kr[0], pr[0], *BWD_TOL), (kr[1], pr[1], *BWD_TOL)]
+        rows_pairs += [(k[v5], p[v5], *tol) for k, p, tol in zip(
+            kr[2:], pr[2:], ((TOL, TOL), (TOL, TOL), (TOL, TOL), BWD_TOL))]
+        work["rows"][0] += nbytes(plane, xy, cells, mask5, counts5, g_p, g_c, w[0], w[1], w[2],
+                                  w[4], *kr)
+        work["rows"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
+        rows_k.append(lambda a=bargs: lk.fused_level_bwd_rows(*a))
+        rows_p.append(lambda a=bargs: lk.fused_level_bwd_rows_plain(*a))
+        del kr, pr
         ed = max(_compare(*pair)[0] for pair in level_pairs)
         log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
             f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
@@ -477,8 +498,13 @@ def check_kernels(seed: int = 0):
     entry("fused_level_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", bwd_pairs,
           lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p],
-          (work["bwd"][0], [(work["bwd"][1], FP32_FLOP_S), (work["bwd"][2], TF32X3_FLOP_S)]),
+          (work["bwd"][0], [(work["bwd"][1], TF32X3_FLOP_S), (work["bwd"][2], TF32X3_FLOP_S)]),
           tol=bwd_tol)
+    entry("fused_level_bwd_rows", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", rows_pairs,
+          lambda: [fn() for fn in rows_k], lambda: [fn() for fn in rows_p],
+          (work["rows"][0], [(work["rows"][1], TF32X3_FLOP_S)]),
+          tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; s, h, d_o {TOL:g} abs+rel")
     entry("level_bwd_reduce", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
           lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
@@ -613,7 +639,7 @@ def check_conv_kernels(entry, seed: int = 0):
           lambda: [fn() for fn in lfns], iters=3)
     del pairs, kfns, pfns, lfns
 
-    pairs, kfns, pfns, work = [], [], [], [0, 0]
+    pairs, kfns, pfns, work, by_shape = [], [], [], [0, 0], []
     for h, cin, c, pool in ALTO_PAIRS + IMAGE_PAIRS:
         x = x_of(h, cin)
         args = (x, *_conv_w(gen, cin, c, 3, dev), *_conv_w(gen, c, c, 3, dev))
@@ -628,9 +654,13 @@ def check_conv_kernels(entry, seed: int = 0):
         work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
         kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
         pfns.append(lambda a=args, p=pool: cpk.conv_pair_plain(*a, p))
+        by_shape.append(f"{h}^2 {cin}->{c}{' pool' if pool else ''} "
+                        f"{cuda_ms(kfns[-1], 3, 1):.3f}/{cuda_ms(pfns[-1], 3, 1):.3f}")
+    log("kernels", "conv_pair by shape, kernel/plain ms (median of 3): " + "; ".join(by_shape))
     entry("conv_pair", "tomosar2height_tpu_torch/csrc/convpair.cu",
           "tomosar2height_tpu/ops/pallas/convpair_kernel.py:36", pairs,
-          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work, iters=3)
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
+          (work[0], [(work[1], TF32X3_FLOP_S)]), iters=3)
     del pairs, kfns, pfns
 
     h, c0, (c1, c2, c3), co = DECODER
@@ -1138,7 +1168,10 @@ TRAIN_LAUNCHES = {"pool_reduce": 12, "pool_gather": 13, "scatter_plane2": 2,
 def train_phase(seed: int = 0):
     """The flagship training step on random patches of the synthetic city,
     fused2 kernel path against the unsorted plain path from the same weights
-    on the same patches: 1 warm-up and 2 timed optimizer steps each."""
+    on the same patches: 1 warm-up and 2 timed optimizer steps each. Then
+    the fused2 path once more, as it ran the first time: whether the
+    parameters come out bit-equal (run-to-run determinism on the card) is
+    logged, and its window losses are held to the first run's."""
     import torch
 
     from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
@@ -1158,7 +1191,7 @@ def train_phase(seed: int = 0):
     reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
     state0 = {n: v.detach().clone() for n, v in model.state_dict().items()}
     runs = {}
-    for name, sort in (("fused2", True), ("plain", False)):
+    for name, sort in (("fused2", True), ("plain", False), ("fused2 again", True)):
         # one optimizer step's patches per epoch; det_stream keys every patch
         # and subsample by (seed, epoch, position): both paths see the same
         ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k,
@@ -1180,7 +1213,8 @@ def train_phase(seed: int = 0):
         launches = dict(runtime.LAUNCHES)
         losses = [r["loss"] for r in warm["windows"] + out["windows"]]
         moved = any(not torch.equal(v, state0[n]) for n, v in model.state_dict().items())
-        runs[name] = {"losses": losses, "ms": out["median_step_ms"],
+        runs[name] = {"state": {n: v.detach().clone() for n, v in model.state_dict().items()},
+                      "losses": losses, "ms": out["median_step_ms"],
                       "patches_s": out["n_patches"] / wall, "wall": wall,
                       "n": out["n_ministeps"], "patches": out["n_patches"],
                       "peak": torch.cuda.max_memory_allocated(), "launches": launches,
@@ -1194,7 +1228,20 @@ def train_phase(seed: int = 0):
             f"{r['peak'] / 2**30:.2f} GiB | parameters moved {moved}")
         if not all(np.isfinite(losses)) or not moved:
             raise AssertionError(f"{name}: losses {losses}, parameters moved {moved}")
-    fused, plain = runs["fused2"], runs["plain"]
+    fused, plain, again = runs["fused2"], runs["plain"], runs["fused2 again"]
+    tol = _height_tol(cfg)
+    # C1: the scatters (K1 mean/sum, K3, K4's plane, K5's d_plane) add with
+    # float atomics, so two runs may round differently
+    diff = {n: float((again["state"][n].double() - v.double()).abs().max())
+            for n, v in fused["state"].items() if v.is_floating_point()}
+    unequal = [n for n, d in diff.items() if d > 0]
+    err_again = max(abs(a - b) for a, b in zip(fused["losses"], again["losses"]))
+    log("train", f"determinism: fused2 run twice from the same weights on the same patches: "
+        f"parameters bit-equal {not unequal} ({len(unequal)} of {len(diff)} tensors differ, "
+        f"largest max|d| {max(diff.values()):.3g}) | window losses max|d| {err_again:.3g} m "
+        f"(tol {tol:.3g} m)")
+    if err_again > tol:
+        raise AssertionError(f"two fused2 runs' window losses differ by {err_again} m")
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
     want = {**dict.fromkeys(fused["launches"], 0),
@@ -1202,7 +1249,6 @@ def train_phase(seed: int = 0):
     per_step = {key: v / fused["n"] for key, v in fused["launches"].items()}
     # the L1 loss moves by at most the heights' own difference: the model
     # phase's bound
-    tol = _height_tol(cfg)
     err = max(abs(a - b) for a, b in zip(fused["losses"], plain["losses"]))
     log("train", f"fused2 vs plain window losses: max|d| {err:.3g} m (tol {tol:.3g} m) | "
         f"mini-step fused2 {fused['ms']:.1f} ms, plain {plain['ms']:.1f} ms | launches per "
@@ -1230,8 +1276,9 @@ def main():
         # K1-K5 and the backwards: the training step; K6-K8: fusion serving;
         # K9-K13: sorted serving (K14 is on no model path)
         name = row["name"]
-        row["launches"] = (launches.get(name) or fusion_launches.get(name)
-                           or sorted_launches.get(name, 0))
+        key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
+        row["launches"] = (launches.get(key) or fusion_launches.get(key)
+                           or sorted_launches.get(key, 0))
         row["launches_serve"] = serve_launches.get(name, 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))

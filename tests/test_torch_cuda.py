@@ -12,8 +12,10 @@ package. Tolerance 1e-5 (rtol and atol): float atomics sum in another order
 than the plain versions. K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
 (tests/test_fused_level_bwd.py); its weight gradients are sums over every
 row, so 3e-4 * max|ref| abs + 3e-4 rel. The conv kernels K6-K8: 1e-5 abs +
-rel (fp32 FMA in another order than cuDNN's full-fp32 convolutions). The
-backwards of K9/K10/K12 are the plain composition's autograd: 1e-5.
+rel (fp32 FMA, or for K7 3xTF32 on the tensor cores, in another order than
+cuDNN's full-fp32 convolutions). The backwards of K9/K10/K12 are the plain
+composition's autograd: 1e-5. The port's own cuDNN convolutions run in full
+float32 under PyTorch's default flags (TF32 on for cuDNN): held to float64.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from tomosar2height_tpu_torch.models.blocks import Conv3x3
 from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
 from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
 from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
@@ -424,6 +427,67 @@ class TestTensorCoreLevelKernels:
         assert (got[1][-1] == 0).all() and (got[1][t(~inp[1], cuda)] == 0).all()
 
 
+def kink_free(inp, level_reso, reso, device, kink=2e-5):
+    """K5's arguments for :func:`level_inputs` on the rows whose fc_comm
+    pre-activations lie >= ``kink`` from ReLU's (chip_smoke.KINK): there
+    the kernel and cuBLAS may open other gates. Returns (args, mask)."""
+    pts, mask, cells, _, plane, c_last, weights = inp
+    w = tuple(t(x, device) for x in weights)
+    xy = t(pts[..., :2], device)
+    pre = grid_sample_2d(t(plane, device), xy) @ w[0] + w[1]
+    m5 = t(mask, device) & ~(pre.abs() < kink).any(-1)
+    args = (t(plane, device), t(c_last, device), w, xy, t(cells, device), m5)
+    counts = lk.fused_level(*args, level_reso, reso)[2]
+    g_p, g_c = (t(x, device) for x in level_cotangents(inp, seed=8))
+    return args + (counts, g_p, g_c, level_reso, reso), m5
+
+
+@pytest.mark.cuda
+class TestTensorCoreRowPass:
+    """K5's row pass on the tensor cores (3xTF32, 64 rows a block, the hidden
+    layer in 64-column chunks): d_plane and d_c_last at K5's tolerance, its
+    scratch rows (s, h, d_o at 1e-5; d_h at K5's) on the rows it computes,
+    and the whole K5 at its tolerance."""
+
+    @pytest.mark.parametrize("level_reso,f,fl", [
+        (256, 32, 32), (128, 128, 64), (64, 256, 512), (32, 512, 256), (32, 512, 1024),
+        (64, 8, 4), (32, 9, 6)])
+    def test_ragged_rows_and_padding_blocks(self, cuda, level_reso, f, fl):
+        """N not a multiple of 64, a patch of padding only (its blocks take
+        the shortcut); F = 512 runs 16 hidden chunks, Fl = 1024 two column
+        chunks of d_c_last; odd widths take the 4-byte copies."""
+        inp = level_inputs(256, level_reso, f, fl, seed=31, b=3, n=3000, empty_last=True)
+        cut = inp[1].shape[1] - 37
+        inp = tuple(x[:, :cut] if i in (0, 1, 2, 5) else x for i, x in enumerate(inp))
+        args, m5 = kink_free(inp, level_reso, 256, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level_bwd_rows(*args)
+        want = lk.fused_level_bwd_rows_plain(*args)
+        torch.cuda.synchronize()
+        _launched("fused_level_bwd", before)
+        assert got[1].shape == (3, cut, fl) and got[3].shape == (3 * cut, 2 * f)
+        bwd = dict(atol=2e-5, rtol=2e-4)
+        torch.testing.assert_close(got[0], want[0], **bwd)
+        torch.testing.assert_close(got[1], want[1], **bwd)
+        v = m5.reshape(-1)
+        for a, b, tol in zip(got[2:], want[2:], (TOL, TOL, TOL, bwd)):
+            torch.testing.assert_close(a[v], b[v], **tol)
+        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()  # the empty patch
+        assert all((x.reshape(3, cut, -1)[-1] == 0).all() for x in got[2:])
+        assert_level_grads_close(lk.fused_level_bwd(*args), lk.fused_level_bwd_plain(*args))
+
+    @pytest.mark.parametrize("level_reso,f,fl", [(256, 32, 32), (64, 256, 128),
+                                                 (32, 512, 256)])
+    def test_rows_are_bit_equal_run_to_run(self, cuda, level_reso, f, fl):
+        """Everything but d_plane (float atomics) comes without atomics."""
+        inp = level_inputs(256, level_reso, f, fl, seed=37, b=2, n=4000)
+        args, _ = kink_free(inp, level_reso, 256, cuda)
+        first = lk.fused_level_bwd_rows(*args)
+        for _ in range(3):
+            again = lk.fused_level_bwd_rows(*args)
+            assert all(torch.equal(a, b) for a, b in zip(again[1:], first[1:]))
+
+
 def conv_weights(rng, cin, cout, k=3):
     """HWIO weights at std min(0.2, fan_in^-0.5) and small biases."""
     std = min(0.2, (k * k * cin) ** -0.5)
@@ -466,6 +530,74 @@ class TestConvKernels:
             torch.testing.assert_close(got[1], want[1], **TOL)
         else:
             assert got[1] is None
+
+    @pytest.mark.parametrize("b,h,w,cin,c1,c2,pool", [
+        (2, 128, 136, 8, 16, 32, True), (2, 128, 136, 32, 64, 64, True),
+        (2, 128, 136, 16, 128, 128, False), (3, 12, 16, 8, 16, 320, True),
+        (2, 10, 14, 5, 6, 7, True), (8, 16, 16, 64, 128, 256, True)])
+    def test_conv_pair_tiles_and_odd_widths(self, cuda, b, h, w, cin, c1, c2, pool):
+        """Every tile the rule picks: 128-pixel tiles where the grid has two
+        blocks an SM (34816 pixels), 64 below; 32-, 64- and 128-channel
+        tiles, a ragged last one at 320. Tiles span images (12 x 16 = 192
+        pixels an image) and at 16^2 batch rows; odd widths take the 4-byte
+        copies and stores. One form: two passes."""
+        rng = np.random.default_rng(5)
+        x = t(rng.normal(0, 1, (b, h, w, cin)).astype(np.float32), cuda)
+        w1, b1 = (t(a, cuda) for a in conv_weights(rng, cin, c1))
+        w2, b2 = (t(a, cuda) for a in conv_weights(rng, c1, c2))
+        before = dict(runtime.LAUNCHES)
+        got = cpk.conv_pair(x, w1, b1, w2, b2, pool)
+        want = cpk.conv_pair_plain(x, w1, b1, w2, b2, pool)
+        torch.cuda.synchronize()
+        _launched("conv_pair", before)
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        if pool:
+            torch.testing.assert_close(got[1], want[1], **TOL)
+
+    def test_conv_pair_pads_the_intermediate_with_zeros(self, cuda):
+        """relu(b1) is 5 here: conv2's input outside the image must be 0
+        (SAME padding of the intermediate), not relu(b1)."""
+        rng = np.random.default_rng(6)
+        x = t(rng.normal(0, 1, (2, 16, 24, 8)).astype(np.float32), cuda)
+        w1, _ = (t(a, cuda) for a in conv_weights(rng, 8, 16))
+        w2, b2 = (t(a, cuda) for a in conv_weights(rng, 16, 32))
+        b1 = torch.full((16,), 5.0, device=cuda)
+        got = cpk.conv_pair(x, w1, b1, w2, b2, True)
+        want = cpk.conv_pair_plain(x, w1, b1, w2, b2, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got[0], want[0], **TOL)
+        torch.testing.assert_close(got[1], want[1], **TOL)
+
+    @pytest.mark.parametrize("h,cin,c", [(64, 32, 64), (16, 512, 1024)])
+    def test_conv_pair_is_bit_equal_run_to_run(self, cuda, h, cin, c):
+        rng = np.random.default_rng(7)
+        x = t(rng.normal(0, 1, (8, h, h, cin)).astype(np.float32), cuda)
+        w1, b1 = (t(a, cuda) for a in conv_weights(rng, cin, c))
+        w2, b2 = (t(a, cuda) for a in conv_weights(rng, c, c))
+        first = cpk.conv_pair(x, w1, b1, w2, b2, True)
+        for _ in range(3):
+            again = cpk.conv_pair(x, w1, b1, w2, b2, True)
+            assert torch.equal(again[0], first[0]) and torch.equal(again[1], first[1])
+
+    def test_conv3x3_layer_is_fp32_under_default_flags(self, cuda):
+        """PyTorch runs a float32 cuDNN convolution in TF32 unless
+        ``torch.backends.cudnn.allow_tf32`` is False, and True is its
+        default. The port's layers run in full float32 all the same: a
+        Conv3x3 at 64 channels within 1e-5 of float64 (TF32 is ~1e-3 off),
+        and the caller's flag is left as it was."""
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            torch.manual_seed(0)
+            conv = Conv3x3(64, 64, relu=True).to(cuda)
+            x = torch.randn(2, 64, 32, 32, device=cuda)
+            got = conv(x)
+            want = torch.relu(torch.nn.functional.conv2d(
+                x.double(), conv.weight.double(), conv.bias.double(), padding=1))
+            torch.cuda.synchronize()
+            assert torch.backends.cudnn.allow_tf32
+            torch.testing.assert_close(got.double(), want, **TOL)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
 
     @pytest.mark.parametrize("h,w,cin,cout", [(24, 16, 4, 2), (64, 64, 32, 1)])
     def test_conv_decoder_matches_plain(self, cuda, h, w, cin, cout):

@@ -1,7 +1,8 @@
-"""Why K4 and K5's weight-gradient reduction take three TF32 products.
+"""Why the tensor-core kernels take three TF32 products.
 
-Both kernels (``csrc/level.cu``, ``csrc/level_bwd.cu``) multiply on the
-tensor cores with the split of ``csrc/mma_tf32x3.cuh``: each fp32 operand x
+K4 (``csrc/level.cu``), K5's row pass and weight-gradient reduction
+(``csrc/level_bwd.cu``) and K7's implicit-GEMM convs (``csrc/igemm_conv.cuh``)
+multiply on the tensor cores with the split of ``csrc/mma_tf32x3.cuh``: each fp32 operand x
 becomes hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a product is
 lo*hi + hi*lo + hi*hi. This file emulates that arithmetic on the CPU with
 integer ops on the floats' bits (``cvt.rna``: round the 13 dropped mantissa
@@ -14,7 +15,13 @@ to the fp32 accumulator), and holds the result to float64:
 - an A^T B over 131072 rows split as the reduction splits it: within the
   weight gradients' tolerance (3e-4 * max|ref| abs + 3e-4 rel;
   chip_smoke.WEIGHT_RTOL);
+- K5's row pass at F = 512, Fl = 256: its four contractions within K4's
+  1e-5 (pre) and K5's 2e-5 abs + 2e-4 rel (d_c_last, d_h, d_s);
+- a conv over K = 9 * 1024 (K7's deepest): within 1e-5 abs + rel;
 - and one TF32 pass alone is not within 1e-5 at K4's widths.
+
+The float64 products of every k8 step come from batched matmuls; only the
+ordered fp32 adds run in a Python loop.
 
 What it leaves out: the tensor cores truncate as they add inside a chain of
 MMAs into one accumulator, and the emulation rounds each k8 step exactly. It
@@ -47,6 +54,35 @@ def split(x: torch.Tensor):
     return hi, to_tf32(x - hi)
 
 
+def k8_products(x: torch.Tensor, y: torch.Tensor, s0: int, s1: int) -> torch.Tensor:
+    """The exact (float64) product of each k8 step s0 <= s < s1 of x (..., M,
+    K) @ y (..., K, N): (s1 - s0, ..., M, N), in one batched matmul."""
+    xs = x[..., 8 * s0:8 * s1].double().unflatten(-1, (s1 - s0, 8)).movedim(-2, 0)
+    ys = y[..., 8 * s0:8 * s1, :].double().unflatten(-2, (s1 - s0, 8)).movedim(-3, 0)
+    return xs @ ys
+
+
+def mma_sum(terms, batch_steps: int = 32) -> torch.Tensor:
+    """sum over k8 steps, in order, of each (x, y) term's step product, each
+    added to an fp32 accumulator with one rounding (K padded to a multiple
+    of 8 with zeros). The products come batched, ``batch_steps`` steps at a
+    time; only the ordered fp32 adds run one by one."""
+    x0, y0 = terms[0]
+    k = x0.shape[-1]
+    pad = (-k) % 8
+    terms = [(torch.nn.functional.pad(x, (0, pad)),
+              torch.nn.functional.pad(y, (0, 0, 0, pad))) for x, y in terms]
+    acc = torch.zeros(x0.shape[:-1] + y0.shape[-1:], dtype=torch.float32)
+    steps = (k + pad) // 8
+    for s0 in range(0, steps, batch_steps):
+        s1 = min(steps, s0 + batch_steps)
+        prods = [k8_products(x, y, s0, s1) for x, y in terms]
+        for i in range(s1 - s0):
+            for p in prods:
+                acc = (acc.double() + p[i]).float()
+    return acc
+
+
 def mma_matmul(a: torch.Tensor, w: torch.Tensor, passes: int = 3) -> torch.Tensor:
     """a (M, K) @ w (K, N) as the kernels take it: k8 steps in order, each
     adding its three (or one) TF32 products, summed exactly, to an fp32
@@ -54,12 +90,7 @@ def mma_matmul(a: torch.Tensor, w: torch.Tensor, passes: int = 3) -> torch.Tenso
     a_hi, a_lo = split(a.float())
     w_hi, w_lo = split(w.float())
     terms = [(a_lo, w_hi), (a_hi, w_lo), (a_hi, w_hi)] if passes == 3 else [(a_hi, w_hi)]
-    acc = torch.zeros(a.shape[0], w.shape[1], dtype=torch.float32)
-    for k in range(0, a.shape[1], 8):
-        for x, y in terms:
-            step = x[:, k:k + 8].double() @ y[k:k + 8].double()
-            acc = (acc.double() + step).float()
-    return acc
+    return mma_sum(terms)
 
 
 def _xavier(rng, fan_in, fan_out):
@@ -130,11 +161,7 @@ def test_three_tf32_products_hold_the_weight_gradient_tolerance():
     truth = a.double().t() @ b.double()
     at_hi, at_lo = split(a.t().reshape(ka, splits, m // splits).transpose(0, 1))
     b_hi, b_lo = split(b.reshape(splits, m // splits, nb))
-    acc = torch.zeros(splits, ka, nb, dtype=torch.float32)
-    for k in range(0, m // splits, 8):
-        for x, y in ((at_lo, b_hi), (at_hi, b_lo), (at_hi, b_hi)):
-            step = x[:, :, k:k + 8].double() @ y[:, k:k + 8].double()
-            acc = (acc.double() + step).float()
+    acc = mma_sum([(at_lo, b_hi), (at_hi, b_lo), (at_hi, b_hi)])
     got = torch.zeros(ka, nb, dtype=torch.float32)
     for sp in range(splits):
         got = got + acc[sp]
@@ -144,3 +171,60 @@ def test_three_tf32_products_hold_the_weight_gradient_tolerance():
     # ~2^-11 off in every product
     one = (to_tf32(a).double().t() @ to_tf32(b).double())
     assert float((one - truth).abs().max()) > 10 * float((got.double() - truth).abs().max())
+
+
+BWD_TOL = (2e-5, 2e-4)  # K5's d_plane and d_c_last (chip_smoke.BWD_TOL)
+
+
+def test_three_tf32_products_hold_the_row_pass_tolerances():
+    """K5's row pass at the F = 512 level (Fl = 256), its four contractions
+    in the kernel's order: pre = s W_in (+ b_in), d_c_last = d_o W_c^T,
+    d_h = (d_o W_out^T) [pre > 0], d_s = d_h W_in^T (the hidden layer's
+    64-column chunks in order, which is the k order). pre within K4's 1e-5
+    (it opens the gates), d_c_last and d_s within K5's 2e-5 abs + 2e-4 rel;
+    the gate is the float64 one on both sides (the kink is the card tests'
+    business, chip_smoke.KINK)."""
+    f, fl, rows = 512, 256, 256
+    rng = np.random.default_rng(23)
+    s = torch.from_numpy(rng.normal(size=(rows, f)).astype(np.float32))
+    d_o = torch.from_numpy(rng.normal(size=(rows, f)).astype(np.float32))
+    w_in, w_out, w_c = (torch.from_numpy(_xavier(rng, *sh))
+                        for sh in ((f, 2 * f), (2 * f, f), (fl, f)))
+    b_in = torch.from_numpy(rng.normal(0, 0.1, 2 * f).astype(np.float32))
+    pre_t = s.double() @ w_in.double() + b_in.double()
+    gate = pre_t > 0
+    pre = mma_matmul(s, w_in) + b_in
+    assert _within(pre, pre_t, TOL, TOL), float((pre.double() - pre_t).abs().max())
+    d_c = mma_matmul(d_o, w_c.t())
+    assert _within(d_c, d_o.double() @ w_c.double().t(), *BWD_TOL)
+    d_h = mma_matmul(d_o, w_out.t()) * gate
+    d_h_t = (d_o.double() @ w_out.double().t()) * gate
+    assert _within(d_h, d_h_t, *BWD_TOL)
+    d_s = mma_matmul(d_h, w_in.t())
+    d_s_t = d_h_t @ w_in.double().t()
+    assert _within(d_s, d_s_t, *BWD_TOL), float((d_s.double() - d_s_t).abs().max())
+
+
+def test_three_tf32_products_hold_the_conv_tolerance_at_k_9216():
+    """K7's second conv at the deepest image level (1024 input channels):
+    an implicit GEMM over K = 9 * 1024 (tap-major, then channel, the
+    kernel's order) of a relu'd input on an 8x8 plane with SAME padding,
+    weights at std fan_in^-0.5 (chip_smoke's draw), held to float64 at K7's
+    1e-5 abs + rel."""
+    cin, cout, side = 1024, 32, 8
+    rng = np.random.default_rng(29)
+    x = torch.from_numpy(np.maximum(rng.normal(size=(1, side, side, cin)), 0)
+                         .astype(np.float32))
+    w = torch.from_numpy(rng.normal(0, (9 * cin) ** -0.5, (3, 3, cin, cout))
+                         .astype(np.float32))
+    b = torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32))
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    cols = torch.cat([xp[0, dy:dy + side, dx:dx + side].reshape(side * side, cin)
+                      for dy in range(3) for dx in range(3)], 1)
+    w_k = w.reshape(9 * cin, cout)
+    truth = cols.double() @ w_k.double() + b.double()
+    got = mma_matmul(cols, w_k) + b
+    assert _within(got, truth, TOL, TOL), float((got.double() - truth).abs().max())
+    conv = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
+                                      w.double().permute(3, 2, 0, 1), b.double(), padding=1)
+    torch.testing.assert_close(conv.permute(0, 2, 3, 1).reshape(-1, cout), truth)

@@ -5,7 +5,8 @@
   K1-K5's plain versions here, with remat; in float64, see the test) against
   ``jax.grad`` of the JAX ``Trainer._loss`` on the fused2 path (its Pallas
   kernels in interpret mode), same weights through the bridge, at
-  2e-4 * max|g| + 2e-4 rel per parameter; the f32 loss at 1e-5.
+  2e-4 * max|g| + 2e-4 rel per parameter; the f32 loss at 1e-5. Once more
+  on the default f16 target wire on both sides, at the same tolerances.
 - A 3-window trajectory (optimize_every 2) of the port ``Trainer`` against
   the JAX ``Trainer``: window losses at 1e-4 rel; the final parameters as
   updates, |p_port - p_jax| / |p_jax - p_0|, at 2e-3 over all parameters
@@ -17,7 +18,8 @@
 - The schedulers against JAX ``schedule.py``; the training loader
   (random anchors, targets, shuffle, drop_last, det_stream) and validation
   patches against the JAX ``PatchLoader`` + ``TomoSARDataset`` on a tiny
-  on-disk synthetic dataset; the loop's iteration bookkeeping.
+  on-disk synthetic dataset; the loop's iteration bookkeeping, and its
+  per-window step times (no CUDA event outlives its window).
 """
 
 from __future__ import annotations
@@ -122,10 +124,10 @@ def jax_setup():
     return trainer, replicate(state, trainer.mesh)
 
 
-def port_trainer(params, optimize_every=2):
+def port_trainer(params, optimize_every=2, wire="float32"):
     model = load_flax_params(build_model(train_cfg(), device="cpu"),
                              jax.tree.map(np.asarray, params))
-    return Trainer(model, {"optimize_every": optimize_every, "wire_dsm_dtype": "float32"})
+    return Trainer(model, {"optimize_every": optimize_every, "wire_dsm_dtype": wire})
 
 
 def _assert_tree_close(got: dict, want: dict, rel: float):
@@ -136,6 +138,27 @@ def _assert_tree_close(got: dict, want: dict, rel: float):
         w = np.asarray(b[k])
         np.testing.assert_allclose(a[k], w, rtol=rel, atol=rel * float(np.abs(w).max()),
                                    err_msg=str(k))
+
+
+def _gradients_match_jax(jtrainer, params, batch, wire):
+    """One step's loss (f32 at 1e-5) and gradients (the port in float64, at
+    2e-4 * max|g| + 2e-4 rel) against the JAX trainer's, both on ``wire``;
+    returns the port's trainer."""
+    jbatch = jtrainer.prepare_batch(batch)
+    (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtrainer._loss, has_aux=True))(
+        params, jbatch)
+    trainer = port_trainer(params, wire=wire)
+    loss32, _ = trainer.loss(trainer.prepare_batch(batch))
+    np.testing.assert_allclose(float(loss32.detach()), float(jloss), rtol=1e-5)
+    trainer.model.double()
+    dev = trainer.prepare_batch(batch)
+    loss, _ = trainer.loss({**dev, "points": dev["points"].double()})
+    names = [k for k, _ in trainer.model.named_parameters()]
+    grads = torch.autograd.grad(loss, trainer.params)
+    np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
+    _assert_tree_close(state_dict_to_flax(dict(zip(names, grads))),
+                       jax.tree.map(np.asarray, jgrads), 2e-4)
+    return trainer
 
 
 class TestTrainStep:
@@ -153,21 +176,21 @@ class TestTrainStep:
         tolerance; the f32 step is held by the loss here and by the
         trajectory test below."""
         jtrainer, state = jax_setup
-        batch = make_batches(seed, 1)[0]
-        jbatch = jtrainer.prepare_batch(batch)
-        (jloss, _), jgrads = jax.jit(jax.value_and_grad(jtrainer._loss, has_aux=True))(
-            state.params, jbatch)
-        trainer = port_trainer(state.params)
-        loss32, _ = trainer.loss(trainer.prepare_batch(batch))
-        np.testing.assert_allclose(float(loss32.detach()), float(jloss), rtol=1e-5)
-        trainer.model.double()
-        dev = trainer.prepare_batch(batch)
-        loss, _ = trainer.loss({**dev, "points": dev["points"].double()})
-        names = [k for k, _ in trainer.model.named_parameters()]
-        grads = torch.autograd.grad(loss, trainer.params)
-        np.testing.assert_allclose(float(loss.detach()), float(jloss), rtol=1e-5)
-        _assert_tree_close(state_dict_to_flax(dict(zip(names, grads))),
-                           jax.tree.map(np.asarray, jgrads), 2e-4)
+        _gradients_match_jax(jtrainer, state.params, make_batches(seed, 1)[0], "float32")
+
+    def test_f16_wire_gradients_match_jax(self, jax_setup):
+        """The default wire (``wire_dsm_dtype: float16``) on both sides: the
+        target is rounded to f16 before the loss (at these 0-30 m targets by
+        up to 2^-7 m; 0.125 m at the top of a 256-512 m range), the same
+        rounding in both packages, so the f32 wire's tolerances hold."""
+        model = jax_build_model(train_cfg())
+        jtrainer = JaxTrainer(model, {"optimize_every": 2, "wire_dsm_dtype": "float16"},
+                              use_cloud=True, mesh=make_mesh(1), donate=False)
+        batch = make_batches(1, 1)[0]
+        trainer = _gradients_match_jax(jtrainer, jax_setup[1].params, batch, "float16")
+        dsm = trainer.prepare_batch(batch)["dsm"]
+        assert dsm.dtype == torch.float16
+        assert not np.array_equal(dsm.float().numpy(), batch["dsm"])  # the wire rounded
 
     @pytest.fixture(scope="class")
     def trajectory(self, jax_setup):
@@ -325,6 +348,61 @@ class TestLoop:
         assert np.isfinite(out["loss_val_best"])
         assert all(np.isfinite(w["loss"]) and w["time_step_s"] > 0 for w in out["windows"])
         assert out["step_ms"] == [] and out["median_step_ms"] is None  # no card here
+
+    def test_step_events_are_read_and_dropped_per_window(self, monkeypatch):
+        """On a card every mini-step is bracketed by two CUDA events. They
+        are read into the window's record when it closes and then dropped:
+        no event outlives its window. A fake trainer on a 'cuda' device and
+        fake events (a clock that advances on each record) stand in for the
+        card."""
+
+        class FakeEvent:
+            live = 0
+            clock = 0.0
+
+            def __init__(self, enable_timing=False):
+                FakeEvent.live += 1
+
+            def __del__(self):
+                FakeEvent.live -= 1
+
+            def record(self):
+                FakeEvent.clock += 1.5
+                self.t = FakeEvent.clock
+
+            def synchronize(self):
+                pass
+
+            def elapsed_time(self, end):
+                return end.t - self.t
+
+        class FakeTrainer:
+            device = torch.device("cuda")
+            accumulated_steps = 0
+            last_avg_loss = 1.0
+            last_avg_loss_dict: dict = {}
+            most_live = 0
+
+            def prepare_batch(self, batch):
+                return batch
+
+            def train_step(self, batch, lr):
+                # this step's two events exist; the open window's earlier ones may
+                assert FakeEvent.live <= 2 * (self.accumulated_steps + 1)
+                FakeTrainer.most_live = max(FakeTrainer.most_live, FakeEvent.live)
+                self.accumulated_steps = (self.accumulated_steps + 1) % 3
+
+        monkeypatch.setattr(port_loop.torch.cuda, "Event", FakeEvent)
+        batches = [{"patch_valid": np.array([True])} for _ in range(4)]
+        out = port_loop.train(FakeTrainer(), schedule.CyclicLR(1e-4, 5e-4),
+                              _ListLoader(batches), {"scheduler": {"type": "CyclicLR"}},
+                              max_iteration=3)
+        assert out["n_ministeps"] == 9 and FakeTrainer.most_live == 6
+        # each step spans its end event's record after its start's: 1.5 ms
+        assert out["step_ms"] == [1.5] * 9 and out["median_step_ms"] == 1.5
+        assert [w["step_ms_median"] for w in out["windows"]] == [1.5] * 3
+        del out
+        assert FakeEvent.live == 0
 
     def test_no_valid_batch_raises(self):
         trainer = Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1})

@@ -1,0 +1,251 @@
+// A 3x3 SAME convolution + bias + ReLU, NHWC x HWIO -> NHWC, as an implicit
+// GEMM on the tensor cores at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh),
+// with an optional 2x2 max pool in its epilogue. The core of K7
+// (convpair.cu); K6 (decoder.cu) and K8 (conv.cu) stay on the fp32-FMA block
+// conv of conv3x3.cuh for now and can move onto this one.
+//
+// The GEMM: M = output pixels (B*H*W), N = output channels, K = 9 * Cin,
+// walked tap by tap in kCBK-channel steps (tap-major, then channel: HWIO's
+// row order, so a weight step is kCBK consecutive rows of the (9 Cin, Cout)
+// matrix). A block owns a BM-pixel x BN-channel output tile. Its M rows are
+// consecutive in a pixel order over the whole batch, so a tile spans image
+// rows and, at the deep levels (16^2 at batch 8 is 2048 pixels), batch rows:
+// each weight step serves BM pixels. With a pool the order is by 2x2 window
+// (pixel m is corner m % 4 of window m / 4, windows row-major over the
+// batch), so every tile holds whole windows and pooled row j is window j.
+//
+// Per K step, through a kCStages-deep cp.async ring: the A tile is a
+// gather, row m the kCBK channels of input pixel (y + dy, x + dx), zero
+// outside the image (SAME padding) and past Cin, in 16-byte copies; the B
+// tile is a plain copy of the weight rows. Where Cin is not a multiple of 4
+// (3 at the image U-Net's first conv) the K steps run over the flat K =
+// 9 Cin instead (column k of a step: tap k / Cin, channel k % Cin), in
+// 4-byte copies, so K pads to a multiple of kCBK once and not per tap.
+// Warps own 32 x 32 output tiles (warp_mma: two k8 steps chain in the
+// tensor cores per rounded add, K4's rule). The epilogue stages
+// relu(acc + bias) in shared memory, then writes y (NHWC rows, 16-byte
+// stores) and, with a pool, the max of each window's four rows.
+//
+// Bound on the H100: the MACs, 9 Cin Cout per output pixel, three TF32
+// products each (495/3 TFLOP/s). The A gather re-reads each input pixel
+// 9 times (once a tap) from L2 and each N tile re-reads the A tiles; the
+// weights are read once per M tile.
+
+#pragma once
+
+#include "common.cuh"
+#include "mma_tf32x3.cuh"
+
+namespace t2h {
+
+constexpr int kCBK = 32;     // input channels per K step
+constexpr int kCStages = 3;  // K steps in flight
+
+template <int BM, int BN>
+struct ConvTile {
+  static constexpr int kWarpsN = BN / 32;
+  static constexpr int kT = 32 * (BM / 32) * kWarpsN;  // threads
+  // blocks an SM that ptxas must leave room for: 512 threads' worth, so at
+  // most 128 registers a thread and two 256-thread blocks an SM
+  static constexpr int kMinBlocks = 512 / kT;
+  static constexpr int kLdA = kCBK + 4;  // A [BM][kLdA]: row-major, 4 (mod 32)
+  static constexpr int kLdB = BN + 8;    // B [kCBK][kLdB]: 8 (mod 32)
+  static constexpr int kLdC = BN + 4;    // the epilogue's staging [BM][kLdC]
+  static constexpr int kStage = BM * kLdA + kCBK * kLdB;
+  static constexpr int kChunks = BM * (kCBK / 4) / kT;  // A float4s a thread copies a step
+  static constexpr size_t kSmem =
+      sizeof(float) * (kCStages * kStage > BM * kLdC ? kCStages * kStage : BM * kLdC);
+  static_assert(kT % (kCBK / 4) == 0 && (BM * (kCBK / 4)) % kT == 0, "A copy layout");
+};
+
+struct ConvGeom {
+  int B, H, W, Cin, Cout, M;
+  bool quad;  // pixel order by 2x2 window (a pool in the epilogue)
+};
+
+// Output pixel m -> (image b, row y, column x).
+__device__ __forceinline__ void conv_pixel(const ConvGeom& g, int m, int& b, int& y, int& x) {
+  if (g.quad) {
+    const int h2 = g.H >> 1, w2 = g.W >> 1;
+    const int j = m >> 2;
+    b = j / (h2 * w2);
+    const int r = j - b * h2 * w2;
+    const int wy = r / w2;
+    y = 2 * wy + ((m >> 1) & 1);
+    x = 2 * (r - wy * w2) + (m & 1);
+  } else {
+    b = m / (g.H * g.W);
+    const int r = m - b * g.H * g.W;
+    y = r / g.W;
+    x = r - y * g.W;
+  }
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(ConvTile<BM, BN>::kT, ConvTile<BM, BN>::kMinBlocks)
+conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* __restrict__ y,
+              float* __restrict__ pooled, ConvGeom g, bool vec_a, bool vec_b) {
+  using T = ConvTile<BM, BN>;
+  extern __shared__ float4 smem4[];
+  float* sm = reinterpret_cast<float*>(smem4);
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int wm = (warp / T::kWarpsN) * 32;
+  const int wn = (warp % T::kWarpsN) * 32;
+  const int nc = (g.Cin + kCBK - 1) / kCBK;
+  const int kflat = 9 * g.Cin;
+  const int steps = vec_a ? 9 * nc : (kflat + kCBK - 1) / kCBK;
+
+  // the tile's output pixels: image row of (b, y, x) and (y, x); y = -4
+  // marks a row past M
+  __shared__ int s_pix[BM], s_y[BM], s_x[BM];
+  for (int r = tid; r < BM; r += T::kT) {
+    int b = 0, yy = -4, xx = 0;
+    if (m0 + r < g.M) conv_pixel(g, m0 + r, b, yy, xx);
+    s_pix[r] = (b * g.H + yy) * g.W + xx;
+    s_y[r] = yy;
+    s_x[r] = xx;
+  }
+  __syncthreads();
+
+  // one gathered A element (or float4): row r, tap offset (dy, dx), channel
+  // ch of the input pixel; zero outside the image or past Cin
+  auto a_src = [&](int r, int dy, int dx, int ch, bool& ok) {
+    const int sy = s_y[r] + dy, sx = s_x[r] + dx;
+    ok = sy >= 0 && sy < g.H && sx >= 0 && sx < g.W && ch < g.Cin;
+    return x + (long long)(s_pix[r] + dy * g.W + dx) * g.Cin + ch;
+  };
+  auto issue = [&](int s) {
+    if (s < steps) {
+      float* As = sm + (s % kCStages) * T::kStage;
+      float* Bs = As + BM * T::kLdA;
+      if (vec_a) {  // step s: tap s / nc, channels (s % nc) * kCBK ..
+        const int tap = s / nc;
+        const int c0 = (s - tap * nc) * kCBK;
+        const int dy = tap / 3 - 1, dx = tap % 3 - 1;
+        const int c4 = 4 * (tid % (kCBK / 4));
+#pragma unroll
+        for (int i = 0; i < T::kChunks; ++i) {
+          const int r = tid / (kCBK / 4) + i * (T::kT / (kCBK / 4));
+          bool ok;
+          const float* src = a_src(r, dy, dx, c0 + c4, ok);
+          cp_async16(As + r * T::kLdA + c4, ok ? src : x, ok ? 16 : 0);
+        }
+        cp_tile<kCBK, BN, T::kT>(Bs, T::kLdB, w, g.Cout, (long long)tap * g.Cin + c0,
+                                 (long long)tap * g.Cin + g.Cin, n0, g.Cout, vec_b, tid);
+      } else {  // step s: flat k = s * kCBK .. (tap k / Cin, channel k % Cin)
+        for (int e = tid; e < BM * kCBK; e += T::kT) {
+          const int r = e / kCBK, c = e - r * kCBK;
+          const int k = s * kCBK + c;
+          const int tap = k / g.Cin;
+          bool ok;
+          const float* src = a_src(r, tap / 3 - 1, tap % 3 - 1, k - tap * g.Cin, ok);
+          ok = ok && k < kflat;
+          cp_async4(As + r * T::kLdA + c, ok ? src : x, ok ? 4 : 0);
+        }
+        cp_tile<kCBK, BN, T::kT>(Bs, T::kLdB, w, g.Cout, (long long)s * kCBK, kflat, n0,
+                                 g.Cout, vec_b, tid);
+      }
+    }
+    cp_async_commit();  // empty groups keep the wait count uniform
+  };
+
+  float acc[2][4][4] = {};
+#pragma unroll
+  for (int s = 0; s < kCStages - 1; ++s) issue(s);
+  for (int s = 0; s < steps; ++s) {
+    cp_async_wait<kCStages - 2>();
+    __syncthreads();  // step s landed for every thread; step s - 1's slot is free
+    issue(s + kCStages - 1);
+    const float* As = sm + (s % kCStages) * T::kStage;
+    warp_mma<kCBK, 4>(acc, As, T::kLdA, As + BM * T::kLdA, T::kLdB, wm, wn, lane);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: stage the tile
+
+  float* Cs = sm;
+  const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = wm + mt * 16 + gq + (i >> 1) * 8;
+        const int c = wn + nt * 8 + 2 * q + (i & 1);
+        const int n = n0 + c;
+        Cs[r * T::kLdC + c] = n < g.Cout ? fmaxf(acc[mt][nt][i] + __ldg(bias + n), 0.0f) : 0.0f;
+      }
+  __syncthreads();
+  const bool vec_y = g.Cout % 4 == 0;
+  for (int e = tid; e < BM * (BN / 4); e += T::kT) {
+    const int r = e / (BN / 4), c = (e - r * (BN / 4)) * 4;
+    const int m = m0 + r;
+    if (m >= g.M || n0 + c >= g.Cout) continue;
+    int b, yy, xx;
+    conv_pixel(g, m, b, yy, xx);
+    float* dst = y + ((long long)(b * g.H + yy) * g.W + xx) * g.Cout + n0 + c;
+    const float* src = Cs + r * T::kLdC + c;
+    if (vec_y) {
+      *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+    } else {
+      for (int j = 0; j < 4 && n0 + c + j < g.Cout; ++j) dst[j] = src[j];
+    }
+  }
+  if (pooled != nullptr) {
+    for (int e = tid; e < (BM / 4) * BN; e += T::kT) {
+      const int j = e / BN, c = e - j * BN;
+      const int m = m0 + 4 * j;
+      if (m >= g.M || n0 + c >= g.Cout) continue;
+      const float* t = Cs + 4 * j * T::kLdC + c;
+      const float v = fmaxf(fmaxf(t[0], t[T::kLdC]), fmaxf(t[2 * T::kLdC], t[3 * T::kLdC]));
+      pooled[(long long)(m >> 2) * g.Cout + n0 + c] = v;
+    }
+  }
+}
+
+template <int BM, int BN>
+cudaError_t launch_igemm(const float* x, const float* w, const float* bias, float* y,
+                         float* pooled, const ConvGeom& g, cudaStream_t stream) {
+  using T = ConvTile<BM, BN>;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_igemm<BM, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((g.M + BM - 1) / BM, (g.Cout + BN - 1) / BN);
+  const bool vec_a = g.Cin % 4 == 0 && aligned16(x);
+  const bool vec_b = g.Cout % 4 == 0 && aligned16(w);
+  conv3x3_igemm<BM, BN><<<grid, T::kT, T::kSmem, stream>>>(x, w, bias, y, pooled, g, vec_a,
+                                                           vec_b);
+  return cudaGetLastError();
+}
+
+// relu(conv3x3(x, w) + bias) -> y (B, H, W, Cout) and, when pooled is not
+// null, its 2x2 max pool -> pooled (B, H/2, W/2, Cout) (H, W even). The tile:
+// BN = 32, 64 or 128 output channels (the least that covers Cout, at most
+// 128); BM = 128 pixels, or 64 where 128 would give fewer than two blocks an
+// SM (the deep levels: 16^2 x 1024 at batch 8 gives 256 blocks of 64).
+inline cudaError_t conv3x3_relu(const float* x, const float* w, const float* bias, float* y,
+                                float* pooled, int B, int H, int W, int Cin, int Cout,
+                                cudaStream_t stream) {
+  const ConvGeom g = {B, H, W, Cin, Cout, B * H * W, pooled != nullptr};
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  const int bn = Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128;
+  const bool wide = (long long)((g.M + 127) / 128) * ((Cout + bn - 1) / bn) >= 2LL * sms;
+#define T2H_IGEMM(BM, BN) launch_igemm<BM, BN>(x, w, bias, y, pooled, g, stream)
+  if (bn == 32) return wide ? T2H_IGEMM(128, 32) : T2H_IGEMM(64, 32);
+  if (bn == 64) return wide ? T2H_IGEMM(128, 64) : T2H_IGEMM(64, 64);
+  return wide ? T2H_IGEMM(128, 128) : T2H_IGEMM(64, 128);
+#undef T2H_IGEMM
+}
+
+}  // namespace t2h

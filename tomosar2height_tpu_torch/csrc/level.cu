@@ -82,37 +82,6 @@ struct LevelCfg {
                 "tiles must not reach past the A buffer or a K-chunk");
 };
 
-// acc (a warp's 32 rows x 8*NT columns) += A[rows wm.., KS columns] @
-// W[KS rows][columns wc..]: A row-major in shared (stride lda), W a staged
-// tile (stride ldw). Two k8 steps chain in the tensor cores per rounded add.
-template <int KS, int NT>
-__device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* A, int lda,
-                                         const float* W, int ldw, int wm, int wc, int lane) {
-  static_assert(KS % 16 == 0, "tiles hold pairs of k8 steps");
-#pragma unroll
-  for (int kk = 0; kk < KS; kk += 16) {
-    FragA a[2][2];
-#pragma unroll
-    for (int f = 0; f < 2; ++f)
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-        load_a_row(a[f][mt], A + (wm + 16 * mt) * lda + kk + 8 * f, lda, lane);
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      FragB bf[2];
-#pragma unroll
-      for (int f = 0; f < 2; ++f) load_b(bf[f], W + (kk + 8 * f) * ldw + wc + nt * 8, ldw, lane);
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma3(s, a[0][mt], bf[0]);
-        mma3(s, a[1][mt], bf[1]);
-        add4(acc[mt][nt], s);
-      }
-    }
-  }
-}
-
 template <int FP>
 __global__ void __launch_bounds__(LevelCfg<FP>::kT, LevelCfg<FP>::kMinBlocks)
 fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,

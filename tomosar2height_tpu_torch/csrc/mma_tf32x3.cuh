@@ -1,7 +1,9 @@
-// The tensor-core GEMM core of the ALTO level kernels (K4 level.cu, K5's
-// weight-gradient reduction in level_bwd.cu): warp-level
-// mma.sync.m16n8k8 TF32 products at fp32 accuracy (3xTF32), fragments loaded
-// from padded shared tiles, and the cp.async copies that fill those tiles.
+// The tensor-core GEMM core of the port's 3xTF32 kernels (K4 level.cu, K5's
+// row pass and weight-gradient reduction in level_bwd.cu, K7's implicit-GEMM
+// convs in igemm_conv.cuh): warp-level mma.sync.m16n8k8 TF32 products at
+// fp32 accuracy (3xTF32), fragments loaded from padded shared tiles, a
+// warp's 32-row block product (warp_mma), and the cp.async copies that fill
+// those tiles.
 //
 // 3xTF32: each fp32 operand x splits in registers into hi = rna_tf32(x) and
 // lo = rna_tf32(x - hi) (x - hi is exact in fp32; split_tf32). The product a*b is taken
@@ -106,6 +108,41 @@ __device__ __forceinline__ void load_b(FragB& f, const float* p, int ld, int lan
   const float* q = p + t * ld + g;
   split_tf32(q[0], f.hi[0], f.lo[0]);
   split_tf32(q[4 * ld], f.hi[1], f.lo[1]);
+}
+
+// acc (a warp's 32 rows x 8*NT columns) += A[rows wm.., KS columns] @
+// W[KS rows][columns wc..]: A row-major in shared (stride lda), W a staged
+// tile (stride ldw). Two k8 steps chain in the tensor cores per rounded
+// add. With Clip, n-tiles whose first column (wc + 8 nt) is nlim or more
+// are skipped.
+template <int KS, int NT, bool Clip = false>
+__device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* A, int lda,
+                                         const float* W, int ldw, int wm, int wc, int lane,
+                                         int nlim = 1 << 30) {
+  static_assert(KS % 16 == 0, "tiles hold pairs of k8 steps");
+#pragma unroll
+  for (int kk = 0; kk < KS; kk += 16) {
+    FragA a[2][2];
+#pragma unroll
+    for (int f = 0; f < 2; ++f)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        load_a_row(a[f][mt], A + (wm + 16 * mt) * lda + kk + 8 * f, lda, lane);
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      if (Clip && wc + 8 * nt >= nlim) continue;
+      FragB bf[2];
+#pragma unroll
+      for (int f = 0; f < 2; ++f) load_b(bf[f], W + (kk + 8 * f) * ldw + wc + nt * 8, ldw, lane);
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma3(s, a[0][mt], bf[0]);
+        mma3(s, a[1][mt], bf[1]);
+        add4(acc[mt][nt], s);
+      }
+    }
+  }
 }
 
 // --- cp.async ------------------------------------------------------------------

@@ -5,6 +5,8 @@ Attribute names follow the flax module names, so a ``state_dict`` key is the
 flax parameter path joined with dots (``utils/torch_port.py`` relies on it).
 Convolutions are NCHW-logical; the U-Net keeps its planes in
 ``torch.channels_last`` memory, so an NHWC view of a plane costs no copy.
+Every conv layer runs its cuDNN convolution in full float32, whatever the
+caller's TF32 flags (``ops/cuda/conv_kernel.fp32_convs``).
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from tomosar2height_tpu_torch.ops.cuda.conv_kernel import conv3x3
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import conv3x3, in_fp32_convs
 from tomosar2height_tpu_torch.ops.cuda.convpair_kernel import conv_pair
 
 
@@ -93,6 +95,7 @@ class Conv3x3(nn.Conv2d):
         super().__init__(cin, cout, 3, padding=1)
         self.use_relu = relu
 
+    @in_fp32_convs
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if _fast_conv_on(x):
             return nchw(conv3x3(nhwc(x), hwio(self), self.bias, self.use_relu))
@@ -114,13 +117,31 @@ def fused_pair(conv1: Conv3x3, conv2: Conv3x3, x: torch.Tensor, pool: bool):
     return nchw(y), (nchw(pooled) if pool else None)
 
 
+class Conv1x1(nn.Conv2d):
+    """1x1 conv (full float32)."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 1)
+
+    forward = in_fp32_convs(nn.Conv2d.forward)
+
+
+class UpConv2x2(nn.ConvTranspose2d):
+    """2x2 stride-2 transpose conv (full float32): exactly 2x the spatial
+    size."""
+
+    def __init__(self, cin: int, cout: int):
+        super().__init__(cin, cout, 2, stride=2)
+
+    forward = in_fp32_convs(nn.ConvTranspose2d.forward)
+
+
 def conv1x1(cin: int, cout: int) -> nn.Conv2d:
-    return nn.Conv2d(cin, cout, 1)
+    return Conv1x1(cin, cout)
 
 
 def upconv2x2(cin: int, cout: int) -> nn.ConvTranspose2d:
-    """2x2 stride-2 transpose conv: exactly 2x the spatial size."""
-    return nn.ConvTranspose2d(cin, cout, 2, stride=2)
+    return UpConv2x2(cin, cout)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:

@@ -12,6 +12,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from tomosar2height_tpu_torch.models.blocks import Conv3x3, hwio
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import in_fp32_convs
 from tomosar2height_tpu_torch.ops.cuda.decoder_kernel import conv_decoder
 from tomosar2height_tpu_torch.ops.resize import resize_bilinear
 
@@ -19,11 +20,12 @@ from tomosar2height_tpu_torch.ops.resize import resize_bilinear
 class Conv1x1Split(nn.Conv2d):
     """1x1 conv over a virtual channel concat, applied per part with sliced
     weights and summed: the concat (288 channels at 512^2) is never built.
-    Parameters as ``nn.Conv2d(sum(Ci), out, 1)``."""
+    Parameters as ``nn.Conv2d(sum(Ci), out, 1)``; full float32."""
 
     def __init__(self, cin: int, cout: int):
         super().__init__(cin, cout, 1)
 
+    @in_fp32_convs
     def forward(self, parts) -> torch.Tensor:
         out, off = None, 0
         for p in parts:

@@ -10,14 +10,46 @@ design answers it is noted in the CUDA source. A CPU tensor takes
 The three conv kernels (K6, K7, K8) differentiate as the JAX custom_vjps
 do: the backward is the autograd of the plain composition in f32
 (conv_kernel.py:153-171), run by :class:`PlainVjp`; no backward kernel.
+
+PyTorch runs a float32 cuDNN convolution in TF32 (about three decimal
+digits) unless ``torch.backends.cudnn.allow_tf32`` is False, and that flag
+is True by default. :func:`fp32_convs` turns it off around every cuDNN
+convolution of the port (the plain versions here, the model's conv layers,
+the backwards that :class:`PlainVjp` and ``Trainer.train_step`` run), so
+the port computes in full float32 whatever the caller's flags are.
 """
 
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 import torch.nn.functional as F
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
+
+
+@contextlib.contextmanager
+def fp32_convs():
+    """A scope in which cuDNN convolutions (forward, and the backwards that
+    autograd runs inside it) compute in full float32, not TF32; the
+    caller's ``torch.backends.cudnn.allow_tf32`` is restored on exit."""
+    prev = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = prev
+
+
+def in_fp32_convs(fn):
+    """``fn`` run inside :func:`fp32_convs`."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        with fp32_convs():
+            return fn(*args, **kwargs)
+    return wrapped
 
 
 class PlainVjp(torch.autograd.Function):
@@ -34,7 +66,7 @@ class PlainVjp(torch.autograd.Function):
     @staticmethod
     def backward(ctx, *grads):
         args = ctx.saved_tensors
-        with torch.enable_grad():
+        with torch.enable_grad(), fp32_convs():
             leaves = [a.detach().requires_grad_(need)
                       for a, need in zip(args, ctx.needs_input_grad[2:])]
             outs = ctx.plain(*leaves)
@@ -46,9 +78,10 @@ class PlainVjp(torch.autograd.Function):
         return (None, None, *(next(got) if a.requires_grad else None for a in leaves))
 
 
+@in_fp32_convs
 def conv3x3_plain(x, w, b, relu: bool = False):
     """x (B, H, W, Cin) NHWC, w (3, 3, Cin, Cout) HWIO, b (Cout,) ->
-    (B, H, W, Cout): ``F.conv2d`` SAME + bias (+ReLU)."""
+    (B, H, W, Cout): ``F.conv2d`` SAME + bias (+ReLU), in full float32."""
     y = F.conv2d(x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1), b, padding=1)
     return (torch.relu(y) if relu else y).permute(0, 2, 3, 1)
 

@@ -5,8 +5,9 @@ CUDA kernel K7 (``csrc/convpair.cu``) replaces ``_pair_kernel``
 (convpair_kernel.py:36, launched by ``_pair_impl``): under ``fused_convs``
 it opens every ALTO level (``models/alto.py``) and every image U-Net level
 (``models/unet.py``), the down-levels with its pooled output. What bounds it
-on the H100 and how the design answers it is noted in the CUDA source. A CPU
-tensor takes :func:`conv_pair_plain`, a CUDA tensor the kernel; there is no
+on the H100 and how the design answers it is noted in the CUDA source
+(``csrc/convpair.cu`` on the implicit-GEMM core ``csrc/igemm_conv.cuh``). A
+CPU tensor takes :func:`conv_pair_plain`, a CUDA tensor the kernel; there is no
 fallback. The backward is the plain composition's autograd, as the JAX
 custom_vjp's (convpair_kernel.py:161-170).
 """
@@ -40,16 +41,15 @@ def _conv_pair_kernel(x, w1, b1, w2, b2, pool: bool):
     runtime.require(b1, "b1", f32, (c1,), dev)
     runtime.require(w2, "w2", f32, (3, 3, c1, c2), dev)
     runtime.require(b2, "b2", f32, (c2,), dev)
-    if c2 > 1024:
-        raise ValueError(f"conv_pair: {c2} output channels; the kernel takes <= 1024")
     if pool and (h % 2 or wd % 2):
         raise ValueError(f"conv_pair: pooling needs an even plane, got {h}x{wd}")
+    mid = torch.empty((bsz, h, wd, c1), device=dev, dtype=f32)  # relu(conv1)
     y = torch.empty((bsz, h, wd, c2), device=dev, dtype=f32)
     pooled = torch.empty((bsz, h // 2, wd // 2, c2), device=dev, dtype=f32) if pool else None
     err = runtime.library().t2h_conv_pair(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        y.data_ptr(), pooled.data_ptr() if pool else None, bsz, h, wd, cin, c1, c2,
-        runtime.stream_ptr(dev))
+        mid.data_ptr(), y.data_ptr(), pooled.data_ptr() if pool else None, bsz, h, wd, cin,
+        c1, c2, runtime.stream_ptr(dev))
     runtime.check(err, "conv_pair")
     runtime.LAUNCHES["conv_pair"] += 1
     return (y, pooled) if pool else y
@@ -59,8 +59,9 @@ def conv_pair(x, w1, b1, w2, b2, pool: bool = False):
     """K7: the conv pair (+ pool). Same arguments and returns as
     :func:`conv_pair_plain`; on a CUDA tensor every input must be a
     contiguous f32 tensor (the NHWC view of a ``channels_last`` plane is),
-    C2 <= 1024, and H and W even when pooling. Differentiable (plain
-    backward)."""
+    and H and W even when pooling. The kernel runs the two convs as implicit
+    GEMMs on the tensor cores at fp32 accuracy (3xTF32), relu(conv1) through
+    a (B, H, W, C1) scratch tensor. Differentiable (plain backward)."""
     if runtime.on_cpu(x):
         return conv_pair_plain(x, w1, b1, w2, b2, pool)
     if pool:

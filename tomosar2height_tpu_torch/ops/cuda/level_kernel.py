@@ -19,7 +19,7 @@ level_kernel.py:494), a CUDA tensor the kernel; there is no fallback.
 JAX custom_vjp, level_kernel.py:605-664) differentiable in the plane, c_last
 and the six weights. Its backward is K5 (``csrc/level_bwd.cu``, replacing
 ``_level_bwd_kernel``, level_bwd_kernel.py:68): a row pass
-(:func:`fused_level_bwd`) and three weight-gradient reductions
+(:func:`fused_level_bwd_rows`) and three weight-gradient reductions
 (:func:`level_bwd_reduce`, the kernel's ``dwi_ref += ...`` sums, :260-279),
 or on the CPU :func:`fused_level_bwd_plain`, which writes K5's math out in
 torch.
@@ -62,11 +62,10 @@ def fused_level_plain(plane, c_last, weights, xy, cells, mask, reso: int,
     return plane_out, c_out, counts
 
 
-def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane,
-                          g_c, reso: int, finest: int):
-    """K5's math in plain torch: the cotangents of :func:`fused_level` w.r.t.
-    (plane, c_last, weights) for the output cotangents (g_plane, g_c), with
-    the forward's counts. Same returns as :func:`fused_level_bwd`."""
+def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane,
+                               g_c, reso: int, finest: int):
+    """K5's row pass in plain torch. Same arguments and returns as
+    :func:`fused_level_bwd_rows`."""
     w_in, b_in, w_out, b_out, w_c, b_c = weights
     r = plane.shape[1]
     s = grid_sample_2d(plane, xy)
@@ -84,9 +83,19 @@ def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_pla
     def rows(t):
         return t.reshape(-1, t.shape[-1])
 
-    dw_in, db_in = level_bwd_reduce_plain(rows(s), rows(d_h), True)
-    dw_out, db_out = level_bwd_reduce_plain(rows(h), rows(d_o), True)
-    dw_c, _ = level_bwd_reduce_plain(rows(c_last), rows(d_o), False)
+    return d_plane, d_c_last, rows(s), rows(h), rows(d_o), rows(d_h)
+
+
+def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
+                          reso: int, finest: int):
+    """K5's math in plain torch: the cotangents of :func:`fused_level` w.r.t.
+    (plane, c_last, weights) for the output cotangents (g_plane, g_c), with
+    the forward's counts. Same returns as :func:`fused_level_bwd`."""
+    d_plane, d_c_last, s, h, d_o, d_h = fused_level_bwd_rows_plain(
+        plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c, reso, finest)
+    dw_in, db_in = level_bwd_reduce_plain(s, d_h, True)
+    dw_out, db_out = level_bwd_reduce_plain(h, d_o, True)
+    dw_c, _ = level_bwd_reduce_plain(c_last.reshape(-1, c_last.shape[-1]), d_o, False)
     return d_plane, d_c_last, (dw_in, db_in, dw_out, db_out, dw_c, db_out.clone())
 
 
@@ -134,26 +143,28 @@ def level_bwd_reduce(a, b, bias: bool):
     return dw, db
 
 
-def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
-                    reso: int, finest: int):
-    """K5: the backward of :func:`fused_level`. One row pass
-    (``t2h_fused_level_bwd``: d_plane, d_c_last and the rows the weight
-    gradients need), then three :func:`level_bwd_reduce` calls.
+def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
+                         reso: int, finest: int):
+    """K5's row pass (``t2h_fused_level_bwd``): d_plane, d_c_last and the
+    rows the weight gradients need, on the tensor cores at fp32 accuracy
+    (3xTF32), 64 rows a block.
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
     cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
 
     Returns:
-        d_plane (B, R, R, F), d_c_last (B, N, Fl), and the weight cotangents
-        (dw_in, db_in, dw_out, db_out, dw_c, db_c), db_c equal to db_out
-        (both biases add into o).
+        d_plane (B, R, R, F), d_c_last (B, N, Fl), and the rows (M = B*N):
+        s (M, F) the recomputed sample, h (M, 2F), d_o (M, F), d_h (M, 2F).
+        Padding rows weigh 0 in every gradient (d_o and d_h are 0 there);
+        the kernel's s is 0 there too, the plain version samples them.
 
-    Allocates 6F floats of scratch per row (B*N rows) for the weight-gradient
-    reduction: ~2 GB at the flagship's F=512 level, freed on return.
+    Takes F <= 512 and any Fl: its shared memory (219 KB at F = 512) does
+    not grow with Fl. Allocates the 6F floats a row of those rows: ~2 GB at
+    the flagship's F=512 level.
     """
     if runtime.on_cpu(plane):
-        return fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts,
-                                     g_plane, g_c, reso, finest)
+        return fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts,
+                                          g_plane, g_c, reso, finest)
     dev = plane.device
     b, r, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[-1]
@@ -178,9 +189,34 @@ def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_
         runtime.stream_ptr(dev))
     runtime.check(err, "fused_level_bwd")
     runtime.LAUNCHES["fused_level_bwd"] += 1
+    return d_plane, d_c_last, s, hs, d_o, d_h
+
+
+def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
+                    reso: int, finest: int):
+    """K5: the backward of :func:`fused_level`. One row pass
+    (:func:`fused_level_bwd_rows`: d_plane, d_c_last and the rows the weight
+    gradients need), then three :func:`level_bwd_reduce` calls.
+
+    Args: the forward's inputs, its counts (B, R, R) int32, and the output
+    cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
+
+    Returns:
+        d_plane (B, R, R, F), d_c_last (B, N, Fl), and the weight cotangents
+        (dw_in, db_in, dw_out, db_out, dw_c, db_c), db_c equal to db_out
+        (both biases add into o).
+
+    The row pass's 6F floats of scratch a row (B*N rows), ~2 GB at the
+    flagship's F=512 level, are freed on return.
+    """
+    if runtime.on_cpu(plane):
+        return fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts,
+                                     g_plane, g_c, reso, finest)
+    d_plane, d_c_last, s, hs, d_o, d_h = fused_level_bwd_rows(
+        plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c, reso, finest)
     dw_in, db_in = level_bwd_reduce(s, d_h, True)
     dw_out, db_out = level_bwd_reduce(hs, d_o, True)
-    dw_c, _ = level_bwd_reduce(c_last.reshape(m, fl), d_o, False)
+    dw_c, _ = level_bwd_reduce(c_last.reshape(-1, c_last.shape[-1]), d_o, False)
     return d_plane, d_c_last, (dw_in, db_in, dw_out, db_out, dw_c, db_out.clone())
 
 
@@ -229,8 +265,7 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
     (3xTF32, ``csrc/mma_tf32x3.cuh``), 64 points a block; it takes F <= 512
     and any Fl (c_last is contracted in K-chunks of F's width rounded up to
     a power of two, so Fl = 1024 at the first up level of a depth-6 U-Net
-    fits); a wider F fails its launch, which raises. K5 keeps
-    4 * 32 * (3F + 256) bytes of shared memory, whatever Fl.
+    fits); a wider F raises. K5 takes the same F and Fl.
     """
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 

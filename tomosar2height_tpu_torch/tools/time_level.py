@@ -1,6 +1,7 @@
-"""K4 (``fused_level``) and K5's weight-gradient reductions
-(``level_bwd_reduce``, three a level) at the eight level round trips of a
-flagship forward, timed on the card, from the port in a given checkout.
+"""K4 (``fused_level``), K5 (``fused_level_bwd``), K5's row pass alone and
+its weight-gradient reductions (``level_bwd_reduce``, three a level) at the
+eight level round trips of a flagship forward, timed on the card, from the
+port in a given checkout.
 
     python -m tomosar2height_tpu_torch.tools.time_level [--root DIR]
 
@@ -8,10 +9,12 @@ flagship forward, timed on the card, from the port in a given checkout.
 ``chip_smoke.py`` (the flagship batch, ``LEVEL_SHAPES``, the weight draw and
 the CUDA-event timer) are imported from there, so that two commits can be
 compared on one card in one call, in turns (parent, change, change,
-parent). Prints the median ms of all eight levels and of each, for K4 and
-for the 24 reductions (on random rows of each level's shapes, as
-``chip_smoke.check_kernels`` draws them, beside ``torch.matmul`` of the same
-product), the card's name and power limit. With ``--profile``, also the
+parent). Prints the median ms of all eight levels and of each, for K4, for
+K5 and its row pass on random output cotangents with the forward's counts
+(the row pass through its C entry point ``t2h_fused_level_bwd``, whose
+arguments both trees share), and for the 24 reductions (on random rows of
+each level's shapes, as ``chip_smoke.check_kernels`` draws them, beside
+``torch.matmul`` of the same product), the card's name and power limit. With ``--profile``, also the
 device time by kernel name of one pass of the 24 reductions and of the 24
 ``torch.matmul`` calls (``torch.profiler``) and the device busy share of
 each pass. Needs one CUDA card.
@@ -41,6 +44,7 @@ def main() -> None:
 
     import chip_smoke as cs
     from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+    from tomosar2height_tpu_torch.ops.cuda import runtime
 
     if not torch.cuda.is_available():
         raise SystemExit("no CUDA device: this timing runs only on a GPU")
@@ -57,7 +61,7 @@ def main() -> None:
     cells = torch.from_numpy(acell).to(dev)
     b, npad = amask.shape
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns, red, mm = {}, {}, {}
+    fns, bwd, rows_fns, red, mm = {}, {}, {}, {}, {}
     m = b * npad
     for r, f, fl in cs.LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
@@ -67,12 +71,19 @@ def main() -> None:
              cs._xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
         key = f"{r}/{f}/{fl}"
         fns[key] = lambda a=(plane, c_last, w, xy, cells, mask, r, 256): lk.fused_level(*a)
+        counts = lk.fused_level(plane, c_last, w, xy, cells, mask, r, 256)[2]
+        g_p = torch.randn(b, r, r, f, generator=gen).to(dev)
+        g_c = torch.randn(b, npad, f, generator=gen).to(dev)
+        bargs = (plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, 256)
+        bwd[key] = lambda a=bargs: lk.fused_level_bwd(*a)
+        rows_fns[key] = _row_pass(lk, runtime, bargs)
         rows = [(torch.randn(m, ka, generator=gen).to(dev),
                  torch.randn(m, nb, generator=gen).to(dev), bias)
                 for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False))]
         red[key] = lambda rows=rows: [lk.level_bwd_reduce(*x) for x in rows]
         mm[key] = lambda rows=rows: [torch.matmul(x[0].t(), x[1]) for x in rows]
-    for name, group in (("K4", fns), ("reduce", red), ("torch.matmul", mm)):
+    for name, group in (("K4", fns), ("K5", bwd), ("K5 rows", rows_fns), ("reduce", red),
+                        ("torch.matmul", mm)):
         per = {k: round(cs.cuda_ms(fn, iters=args.iters), 4) for k, fn in group.items()}
         total = cs.cuda_ms(lambda g=group: [fn() for fn in g.values()], iters=args.iters)
         print(f"{name} {root}: {total:.4f} ms for the eight levels (median of "
@@ -80,6 +91,29 @@ def main() -> None:
     if args.profile:
         for name, group in (("reduce", red), ("torch.matmul", mm)):
             _profile(name, lambda g=group: [fn() for fn in g.values()])
+
+
+def _row_pass(lk, runtime, bargs):
+    """K5's row pass alone, through its C entry point, outputs allocated
+    once: the entry point takes the same arguments in both trees."""
+    import torch
+
+    plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, reso = bargs
+    b, _, _, f = plane.shape
+    n, fl = c_last.shape[1], c_last.shape[2]
+    m = b * n
+    outs = [torch.empty(shape, device=plane.device) for shape in
+            ((b, r, r, f), (b, n, fl), (m, f), (m, 2 * f), (m, f), (m, 2 * f))]
+    w_out_t, w_c_t, w_in_t = (x.t().contiguous() for x in (w[2], w[4], w[0]))
+    ptrs = [t.data_ptr() for t in (plane, xy, cells, mask, counts, g_p, g_c, w[0], w[1],
+                                   w_out_t, w_c_t, w_in_t, *outs)]
+    lib, stream = runtime.library(), runtime.stream_ptr(plane.device)
+    shift = lk.level_shift(r, reso)
+
+    def fn():
+        runtime.check(lib.t2h_fused_level_bwd(*ptrs, b, n, r, f, fl, shift, stream),
+                      "fused_level_bwd")
+    return fn
 
 
 def _profile(name: str, fn) -> None:

@@ -10,7 +10,9 @@ iteration, ReduceLROnPlateau on each validation; validation runs every
 (host clock) split each iteration into loader (collate + upload enqueue),
 step (the mini-steps' launches; the card runs behind), log (the window's
 metric read, which waits for the card) and aux (validation). On a CUDA device
-every mini-step is also bracketed by CUDA events.
+every mini-step is also bracketed by CUDA events; a window's events live
+until the window closes, where its mini-step times are read into its record
+and the events dropped, so a long run holds none past its window.
 
 Not here yet: checkpoints and resume (ROADMAP A6), ``visualize()`` with the
 DSMEvaluator (A7), the wandb logger, prefetch threads and worker pools (A11).
@@ -54,10 +56,12 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
     ``cfg_training['max_iteration']``).
 
     Returns a dict: ``windows`` (one record per iteration: iteration, lr it trained
-    with, the window's mean metrics, phase seconds), ``val`` (validation
-    records), ``step_ms`` (per-mini-step CUDA-event milliseconds on a CUDA
-    device, else empty), ``n_ministeps``, ``n_patches`` (valid patches
-    stepped), ``stream_pos`` and ``loss_val_best``.
+    with, the window's mean metrics, phase seconds and, on a CUDA device,
+    ``step_ms_median``: the median CUDA-event milliseconds of its
+    mini-steps), ``val`` (validation records), ``step_ms`` (per-mini-step
+    CUDA-event milliseconds on a CUDA device, else empty; read as each
+    window closes), ``median_step_ms``, ``n_ministeps``, ``n_patches``
+    (valid patches stepped), ``stream_pos`` and ``loss_val_best``.
     """
     max_iteration = int(max_iteration if max_iteration is not None
                         else cfg_training["max_iteration"])
@@ -66,7 +70,7 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
     print_every = int(cfg_training.get("print_every", 0) or 0)
     metric_key = cfg_training.get("model_selection_metric", "loss_l1")
     cuda = trainer.device.type == "cuda"
-    events = []
+    events = []  # the open window's (start, end) CUDA events
     out = {"windows": [], "val": [], "step_ms": [], "n_ministeps": 0, "n_patches": 0,
            "stream_pos": None, "loss_val_best": float("inf")}
     ph = dict.fromkeys(("loader", "step", "log", "aux"), 0.0)
@@ -84,12 +88,12 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
             ph["loader"] += t1 - t0
             lr = scheduler.lr
             if cuda:
-                ev = (torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
-                ev[0].record()
+                events.append((torch.cuda.Event(enable_timing=True),
+                               torch.cuda.Event(enable_timing=True)))
+                events[-1][0].record()
             trainer.train_step(batch, lr)
             if cuda:
-                ev[1].record()
-                events.append(ev)
+                events[-1][1].record()
             ph["step"] += time.perf_counter() - t1
             out["n_ministeps"] += 1
             out["n_patches"] += n_valid
@@ -114,12 +118,21 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
                 out["loss_val_best"] = min(out["loss_val_best"], val[metric_key])
             t_end = time.perf_counter()
             ph["log"], ph["aux"] = t_aux - t_log, t_end - t_aux
+            if events:
+                times = _event_ms(events)
+                record["step_ms_median"] = float(np.median(times))
+                out["step_ms"] += times
+                events = []
             out["windows"].append({**record, **{f"time_{k}_s": v for k, v in ph.items()}})
             ph = dict.fromkeys(ph, 0.0)
         if out["n_ministeps"] == n_before:
             raise RuntimeError("the training loader yielded no batch with a valid patch")
-    if events:
-        torch.cuda.synchronize(trainer.device)
-        out["step_ms"] = [float(s.elapsed_time(e)) for s, e in events]
     out["median_step_ms"] = float(np.median(out["step_ms"])) if out["step_ms"] else None
     return out
+
+
+def _event_ms(events) -> list:
+    """Milliseconds between each (start, end) pair of CUDA events, once the
+    last end has been reached."""
+    events[-1][1].synchronize()
+    return [float(s.elapsed_time(e)) for s, e in events]

@@ -21,7 +21,9 @@ PyTorch. The same step semantics:
 - wire: the DSM target is clipped to the wire dtype's range and cast
   (float16 by default, trainer.py:240-246), the loss computes in f32; no
   cell ids are sent, the model recomputes them from points and mask (the
-  JAX default ``wire_cells='device'``, trainer.py:237-238).
+  JAX default ``wire_cells='device'``, trainer.py:237-238);
+- precision: every cuDNN convolution of the step, backward included, runs
+  in full float32 whatever the caller's TF32 flags (``fp32_convs``).
 """
 
 from __future__ import annotations
@@ -30,6 +32,8 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
 
 METRIC_KEYS = ("loss", "loss_l1", "loss_ce", "grad_norm", "param_norm")
 EVAL_KEYS = ("loss", "loss_l1", "loss_ce")
@@ -133,8 +137,11 @@ class Trainer:
         if not isinstance(batch.get("points"), torch.Tensor):
             batch = self.prepare_batch(batch)
         self.model.train()
-        loss, metrics = self.loss(batch)
-        grads = torch.autograd.grad(loss, self.params, allow_unused=True)
+        # the conv backwards (dgrad, wgrad) run in this call, outside the
+        # layers' own float32 scopes: the step holds one of its own
+        with fp32_convs():
+            loss, metrics = self.loss(batch)
+            grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
         with torch.no_grad():
             step_vec = torch.stack([metrics["loss"], metrics["loss_l1"], metrics["loss_ce"],
