@@ -9,20 +9,22 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and convolutions (the plain versions are full float32);
 2. build: the kernels (``tomosar2height_tpu_torch/csrc/*.cu``) with nvcc for
    sm_90a, into ``tomosar2height_tpu_torch/_build/``; ptxas's register
-   counts of the tensor-core kernels (K4, K5's row pass and reduction, K7's
-   implicit-GEMM conv), and a check that the SASS of each holds TF32
-   tensor-core instructions (HMMA; ``cuobjdump -sass``);
+   counts of the tensor-core kernels (K4, K5's row pass and reduction, the
+   implicit-GEMM conv of K6-K8 and K6's head conv), and a check that the
+   SASS of every instance of each holds TF32 tensor-core instructions
+   (HMMA; ``cuobjdump -sass``);
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout; the conv
-   kernels K6-K8 at every shape of a batch-8 fusion forward), with the
+   kernels K6-K8 at every shape of a batch-8 fusion forward, held to their
+   plain versions run in float64 on the same inputs), with the
    median time of each over 20 runs (3-5 for the conv chains; CUDA events),
    of one PyTorch library call computing the same function where there is
    one, and the bound (bytes over the HBM rate or operations over the peak
    of the kernel's route, whichever is larger: fp32 FMA, or 3xTF32 on the
    tensor cores for K4, K5 (its row pass and weight sums, each also a row of
-   its own) and K7, whose log lines also give the bound were those
-   operations on fp32 FMA); K7's time at each of its 20 shapes beside two
-   cuDNN convs';
+   its own) and K6-K8 (K6's head on fp32 FMA), whose log lines also give the
+   bound were those operations on fp32 FMA); K8's time at each of its 43
+   shapes beside cuDNN's, K7's at each of its 20 beside two cuDNN convs';
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -86,16 +88,17 @@ DEVICE = "cuda"
 # the H100 SXM's published peaks (NVIDIA's H100 datasheet, 700 W): HBM
 # bytes/s, fp32 FLOP/s outside the tensor cores, dense TF32 FLOP/s on them; a
 # bound is the larger of bytes over the HBM rate and operations over the rate
-# of the kernel's route: fp32 FMA, or 3xTF32 (K4 and K5's weight sums: three
-# TF32 products per fp32 product, so a third of the TF32 rate)
+# of the kernel's route: fp32 FMA, or 3xTF32 (K4, K5, K6-K8: three TF32
+# products per fp32 product, so a third of the TF32 rate)
 HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
 TF32X3_FLOP_S = TF32_FLOP_S / 3
 # the kernels that must hold TF32 tensor-core instructions (HMMA) in their
-# SASS: K4, K5's row pass and weight-gradient reduction, K7's convs
+# SASS: K4, K5's row pass and weight-gradient reduction, the implicit-GEMM
+# conv of K6's first two passes, K7 and K8, and K6's third conv with the head
 TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
-                       "conv3x3_igemm")
+                       "conv3x3_igemm", "conv3x3_head_igemm")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -167,20 +170,25 @@ def ptxas_registers(build_log: str) -> dict:
 
 
 def check_sass(so_path: str, nvcc: str) -> None:
-    """Fail unless every kernel in TENSOR_CORE_KERNELS holds TF32 HMMA
-    instructions in the built library's SASS (cuobjdump beside nvcc)."""
+    """Fail unless every kernel in TENSOR_CORE_KERNELS is in the built
+    library's SASS (cuobjdump beside nvcc) and every instance of each (each
+    template instance in each source's cubin) holds TF32 HMMA instructions."""
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = _run([cuobjdump, "-sass", so_path])
-    counts, fn = {}, None
+    found, fn = [], None  # [key, symbol, HMMA count] per function instance
     for line in sass.splitlines():
         if "Function : " in line:
-            fn = next((k for k in TENSOR_CORE_KERNELS if k in line), None)
+            name = line.split("Function : ")[1].strip()
+            key = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
+            fn = [key, name, 0] if key else None
             if fn:
-                counts.setdefault(fn, 0)
+                found.append(fn)
         elif fn and "HMMA" in line and "TF32" in line:
-            counts[fn] += 1
-    log("build", f"TF32 HMMA instructions in the SASS: {counts}")
-    missing = [k for k in TENSOR_CORE_KERNELS if not counts.get(k)]
+            fn[2] += 1
+    counts = {k: [c for key, _, c in found if key == k] for k in TENSOR_CORE_KERNELS}
+    log("build", f"TF32 HMMA instructions in the SASS, by instance: {counts}")
+    missing = ([k for k, v in counts.items() if not v]
+               + [name for _, name, c in found if c == 0])
     if missing:
         raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
 
@@ -325,6 +333,31 @@ def _entry_fn(rows):
     return entry
 
 
+def _explain_level(shape, ko, po, args):
+    """Where K4 and its plain version disagree: log each one's distance from
+    the plain version in float64, the worst c_out element, and whether a
+    second kernel run gives the same c_out (ROADMAP C3)."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+
+    plane, c_last, w, xy = args[:4]
+    ref = lk.fused_level_plain(plane.double(), c_last.double(), tuple(t.double() for t in w),
+                               xy.double(), *args[4:])
+    again = lk.fused_level(*args)
+    d = (ko[1].double() - ref[1]).abs()
+    j = int(d.argmax())
+    at = tuple(int(v) for v in torch.unravel_index(torch.tensor(j), d.shape))
+    log("kernels", f"fused_level {shape} over tol; against float64: c_out kernel "
+        f"{float(d.max()):.3g} plain {float((po[1].double() - ref[1]).abs().max()):.3g}, "
+        f"plane kernel {float((ko[0].double() - ref[0]).abs().max()):.3g} plain "
+        f"{float((po[0].double() - ref[0]).abs().max()):.3g}; worst c_out {at}: kernel "
+        f"{float(ko[1].reshape(-1)[j]):.8g} plain {float(po[1].reshape(-1)[j]):.8g} "
+        f"float64 {float(ref[1].reshape(-1)[j]):.8g}; rerun c_out equal "
+        f"{torch.equal(again[1], ko[1])}, max|rerun - first| "
+        f"{float((again[1] - ko[1]).abs().max()):.3g}")
+
+
 def check_kernels(seed: int = 0):
     """Each kernel against its plain version at the flagship shapes."""
     import torch
@@ -433,6 +466,8 @@ def check_kernels(seed: int = 0):
         if not torch.equal(ko[2], po[2]):
             raise AssertionError(f"fused_level counts differ at {(r, f, fl)}")
         e0, e1 = _compare(ko[0], po[0]), _compare(ko[1], po[1])
+        if not (e0[1] and e1[1]):
+            _explain_level((r, f, fl), ko, po, args)
         pairs += [(ko[0], po[0]), (ko[1], po[1])]
         work["level"][0] += nbytes(plane, c_last, xy, cells, mask, *w, *ko)
         work["level"][1] += 2 * valid * (4 * f * f + f * fl)
@@ -590,23 +625,32 @@ def _conv_w(gen, cin, cout, k, dev):
             (torch.randn(cout, generator=gen) * 0.1).to(dev))
 
 
-def _check_or_explain(name, got, want, plain_fn, args):
-    """Hold got to want at TOL; where they disagree, log each one's distance
-    from a float64 run of the plain version, to show which side is off."""
-    err, ok = _compare(got, want)
-    if not ok:
-        ref = plain_fn(*(a.double() for a in args))
-        ref = ref[0] if isinstance(ref, tuple) else ref
-        log("kernels", f"{name}: max|d| {err:.3g} over tol; against float64: kernel "
-            f"{float((got.double() - ref).abs().max()):.3g}, plain "
-            f"{float((want.double() - ref).abs().max()):.3g}")
-    return got, want
+def _held_to_float64(name, got, want, plain_fn, args):
+    """[(kernel output, the plain version's in float64)]: a conv kernel is
+    held at TOL to its plain version run in float64 on the same inputs,
+    since the fp32 plain version (cuDNN) is itself up to 2.1e-5 off float64
+    at K = 9 * 1024 (32^2, 1024 -> 512). got and want (the fp32 plain
+    outputs) are tensors or tuples of them (None skipped); where got and
+    want differ by more than TOL, log each one's distance from float64."""
+    ref = plain_fn(*(a.double() for a in args))
+    pairs = []
+    for g, w, r in zip(*((t if isinstance(t, tuple) else (t,)) for t in (got, want, ref))):
+        if g is None:
+            continue
+        err, ok = _compare(g, w)
+        if not ok:
+            log("kernels", f"{name}: max|d| {err:.3g} from fp32 plain, over tol; against "
+                f"float64: kernel {float((g.double() - r).abs().max()):.3g}, fp32 plain "
+                f"{float((w.double() - r).abs().max()):.3g}")
+        pairs.append((g, r))
+    return pairs
 
 
 def check_conv_kernels(entry, seed: int = 0):
     """K8 at the 43 convs, K7 at the 20 pairs and K6 at the decoder of a
-    batch-8 fusion forward, each against its plain version; K8 also beside
-    one ``F.conv2d`` (cuDNN, full fp32) per conv."""
+    batch-8 fusion forward, each held to its plain version run in float64
+    (``_held_to_float64``) and timed beside the fp32 plain version; K8 also
+    beside one ``F.conv2d`` (cuDNN, full fp32) per conv."""
     import torch
     import torch.nn.functional as F
 
@@ -619,24 +663,28 @@ def check_conv_kernels(entry, seed: int = 0):
     b = 8
     x_of = lambda h, c: torch.randn(b, h, h, c, generator=gen).to(dev)  # noqa: E731
 
-    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    pairs, kfns, pfns, lfns, work, by_shape = [], [], [], [], [0, 0], []
     for h, cin, cout in CONVS:
         x = x_of(h, cin)
         w, bias = _conv_w(gen, cin, cout, 3, dev)
         args = (x, w, bias)
-        pairs.append(_check_or_explain(f"conv3x3 {h}^2 {cin}->{cout}", ck.conv3x3(*args, True),
-                                       ck.conv3x3_plain(*args, True),
-                                       lambda *a: ck.conv3x3_plain(*a, True), args))
+        pairs += _held_to_float64(f"conv3x3 {h}^2 {cin}->{cout}", ck.conv3x3(*args, True),
+                                  ck.conv3x3_plain(*args, True),
+                                  lambda *a: ck.conv3x3_plain(*a, True), args)
         x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
         work[0] += nbytes(x, w, bias) + b * h * h * cout * 4
         work[1] += 2 * b * h * h * 9 * cin * cout
         kfns.append(lambda a=args: ck.conv3x3(*a, True))
         pfns.append(lambda a=args: ck.conv3x3_plain(*a, True))
         lfns.append(lambda a=(x_nchw, w_oihw, bias): F.conv2d(*a, padding=1))
+        by_shape.append(f"{h}^2 {cin}->{cout} {cuda_ms(kfns[-1], 3, 1):.3f}/"
+                        f"{cuda_ms(pfns[-1], 3, 1):.3f}/{cuda_ms(lfns[-1], 3, 1):.3f}")
+    log("kernels", "conv3x3 by shape, kernel/plain/F.conv2d ms (median of 3): "
+        + "; ".join(by_shape))
     entry("conv3x3", "tomosar2height_tpu_torch/csrc/conv.cu",
           "tomosar2height_tpu/ops/pallas/conv_kernel.py:43", pairs,
-          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
-          lambda: [fn() for fn in lfns], iters=3)
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
+          (work[0], [(work[1], TF32X3_FLOP_S)]), lambda: [fn() for fn in lfns], iters=3)
     del pairs, kfns, pfns, lfns
 
     pairs, kfns, pfns, work, by_shape = [], [], [], [0, 0], []
@@ -646,10 +694,8 @@ def check_conv_kernels(entry, seed: int = 0):
         ky, kp = cpk.conv_pair(*args, pool)
         py, pp = cpk.conv_pair_plain(*args, pool)
         name = f"conv_pair {h}^2 {cin}->{c}->{c}"
-        pairs.append(_check_or_explain(name, ky, py, lambda *a: cpk.conv_pair_plain(*a, pool),
-                                       args))
-        if pool:
-            pairs.append((kp, pp))
+        pairs += _held_to_float64(name, (ky, kp), (py, pp),
+                                  lambda *a: cpk.conv_pair_plain(*a, pool), args)
         work[0] += nbytes(*args, ky, kp)
         work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
         kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
@@ -668,13 +714,15 @@ def check_conv_kernels(entry, seed: int = 0):
     args = (x, *_conv_w(gen, c0, c1, 3, dev), *_conv_w(gen, c1, c2, 3, dev),
             *_conv_w(gen, c2, c3, 3, dev), *_conv_w(gen, c0 + c1 + c2 + c3, co, 1, dev))
     got = dk.conv_decoder(*args)
-    flops = 2 * b * h * h * (9 * (c0 * c1 + c1 * c2 + c2 * c3) + (c0 + c1 + c2 + c3) * co)
+    # the three convs on 3xTF32, the 1x1 head on fp32 FMA
+    ops = [(2 * b * h * h * 9 * (c0 * c1 + c1 * c2 + c2 * c3), TF32X3_FLOP_S),
+           (2 * b * h * h * (c0 + c1 + c2 + c3) * co, FP32_FLOP_S)]
     entry("conv_decoder", "tomosar2height_tpu_torch/csrc/decoder.cu",
           "tomosar2height_tpu/ops/pallas/decoder_kernel.py:85",
-          [_check_or_explain("conv_decoder", got, dk.conv_decoder_plain(*args),
-                             dk.conv_decoder_plain, args)],
+          _held_to_float64("conv_decoder", got, dk.conv_decoder_plain(*args),
+                           dk.conv_decoder_plain, args),
           lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
-          (nbytes(*args, got), flops), iters=5)
+          (nbytes(*args, got), ops), iters=5)
     torch.cuda.synchronize()
 
 
@@ -918,7 +966,9 @@ def serve(seed: int = 0):
 
 # kernel launches per batch-8 forward of the fusion network on its kernel
 # path (fused2 + fused_convs + fused_head; the footprint head is skipped when
-# serving) and on the FAST_CONV path (unsorted, every Conv3x3 on K8)
+# serving) and on the FAST_CONV path (unsorted, every Conv3x3 on K8). These
+# count wrapper calls: one K6 call is three CUDA launches (its three convs),
+# one K7 call two.
 FUSION_LAUNCHES = {"pool_reduce": 4, "pool_gather": 4, "scatter_plane2": 1,
                    "fused_level": 8, "conv_pair": len(ALTO_PAIRS + IMAGE_PAIRS),
                    "conv_decoder": 1}

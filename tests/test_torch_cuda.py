@@ -12,8 +12,8 @@ package. Tolerance 1e-5 (rtol and atol): float atomics sum in another order
 than the plain versions. K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
 (tests/test_fused_level_bwd.py); its weight gradients are sums over every
 row, so 3e-4 * max|ref| abs + 3e-4 rel. The conv kernels K6-K8: 1e-5 abs +
-rel (fp32 FMA, or for K7 3xTF32 on the tensor cores, in another order than
-cuDNN's full-fp32 convolutions). The backwards of K9/K10/K12 are the plain
+rel (3xTF32 on the tensor cores, in another order than cuDNN's full-fp32
+convolutions; K6's head in fp32 FMA). The backwards of K9/K10/K12 are the plain
 composition's autograd: 1e-5. The port's own cuDNN convolutions run in full
 float32 under PyTorch's default flags (TF32 on for cuDNN): held to float64.
 """
@@ -511,6 +511,53 @@ class TestConvKernels:
         assert runtime.LAUNCHES["conv3x3"] == n0 + 1
         torch.testing.assert_close(got, want, **TOL)
 
+    @pytest.mark.parametrize("relu", [True, False])
+    @pytest.mark.parametrize("h,w,cin,cout", [
+        (111, 107, 3, 32), (37, 29, 33, 72), (13, 19, 33, 130), (9, 11, 1024, 40)])
+    def test_conv3x3_ragged_shapes(self, cuda, h, w, cin, cout, relu):
+        """K8 on the implicit-GEMM core at batch 3, planes no tile divides:
+        Cin 3 and 33 take the flat-K steps and 4-byte copies, 1024 the
+        per-tap steps; 111 x 107 x 3 pixels take 128-pixel tiles, the others
+        64; Cout 130 leaves a ragged second 128-channel tile."""
+        rng = np.random.default_rng(8)
+        x = t(rng.normal(0, 1, (3, h, w, cin)).astype(np.float32), cuda)
+        k, b = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        before = dict(runtime.LAUNCHES)
+        got = ck.conv3x3(x, k, b, relu)
+        want = ck.conv3x3_plain(x, k, b, relu)
+        torch.cuda.synchronize()
+        _launched("conv3x3", before)
+        torch.testing.assert_close(got, want, **TOL)
+        assert bool((got < 0).any()) != relu
+
+    def test_conv3x3_unaligned_input_takes_the_scalar_copies(self, cuda):
+        """A contiguous tensor whose address is 4 bytes past a 16-byte
+        boundary (Cin and Cout multiples of 4): the kernel must copy it in
+        4-byte steps and read nothing outside it."""
+        rng = np.random.default_rng(9)
+        n = 2 * 12 * 20 * 8
+        x = torch.empty(n + 1, device=cuda)[1:].view(2, 12, 20, 8)
+        x.copy_(t(rng.normal(0, 1, (2, 12, 20, 8)).astype(np.float32), cuda))
+        buf = torch.empty(9 * 8 * 16 + 1, device=cuda)
+        k = buf[1:].view(3, 3, 8, 16)
+        kw, b = conv_weights(rng, 8, 16)
+        k.copy_(t(kw, cuda))
+        b = t(b, cuda)
+        assert x.data_ptr() % 16 and k.data_ptr() % 16 and x.is_contiguous()
+        got = ck.conv3x3(x, k, b, True)
+        want = ck.conv3x3_plain(x, k, b, True)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("h,cin,cout", [(64, 32, 64), (16, 512, 1024), (96, 3, 32)])
+    def test_conv3x3_is_bit_equal_run_to_run(self, cuda, h, cin, cout):
+        rng = np.random.default_rng(10)
+        x = t(rng.normal(0, 1, (8, h, h, cin)).astype(np.float32), cuda)
+        k, b = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        first = ck.conv3x3(x, k, b, False)
+        for _ in range(3):
+            assert torch.equal(ck.conv3x3(x, k, b, False), first)
+
     @pytest.mark.parametrize("h,w,cin,c1,c2,pool", [
         (24, 16, 3, 8, 12, True), (24, 24, 32, 32, 32, False), (16, 16, 64, 128, 128, True),
         (8, 8, 256, 512, 512, False), (16, 16, 512, 1024, 1024, True),
@@ -612,6 +659,60 @@ class TestConvKernels:
         torch.cuda.synchronize()
         assert runtime.LAUNCHES["conv_decoder"] == n0 + 1
         torch.testing.assert_close(got, want, **TOL)
+
+    @staticmethod
+    def _decoder_args(rng, b, h, w, c0, co, c3=64, device="cuda"):
+        x = t(rng.normal(0, 1, (b, h, w, c0)).astype(np.float32), device)
+        ws = [conv_weights(rng, c0, 64), conv_weights(rng, 64, 128),
+              conv_weights(rng, 128, c3), conv_weights(rng, c0 + 192 + c3, co, k=1)]
+        return [x] + [t(a, device) for pair in ws for a in pair]
+
+    @pytest.mark.parametrize("c0", [3, 32, 33])
+    @pytest.mark.parametrize("co", [1, 2])
+    def test_conv_decoder_input_and_output_widths(self, cuda, c0, co):
+        """K6's three passes at C0 3 and 33 (conv1 on the flat-K steps), 32,
+        and a head of 1 or 2 outputs, at batch 3 on a 13 x 21 plane."""
+        args = self._decoder_args(np.random.default_rng(11), 3, 13, 21, c0, co)
+        before = dict(runtime.LAUNCHES)
+        got = dk.conv_decoder(*args)
+        want = dk.conv_decoder_plain(*args)
+        torch.cuda.synchronize()
+        _launched("conv_decoder", before)
+        torch.testing.assert_close(got, want, **TOL)
+
+    @pytest.mark.parametrize("b,h,w,c3", [(2, 130, 136, 64), (1, 9, 7, 64), (2, 10, 12, 20)])
+    def test_conv_decoder_head_tiles(self, cuda, b, h, w, c3):
+        """The head's tiles: 128 pixels where the grid has two blocks an SM
+        (35360 pixels), 64 below; one 64-channel tile, ragged at C3 = 20."""
+        args = self._decoder_args(np.random.default_rng(12), b, h, w, 32, 1, c3)
+        got = dk.conv_decoder(*args)
+        want = dk.conv_decoder_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+
+    def test_conv_decoder_pads_x1_and_x2_with_zeros(self, cuda):
+        """relu(b1) and relu(b2) are 5 here: the inputs of conv2 and conv3
+        outside the image must be 0 (SAME padding), not relu(bias)."""
+        args = self._decoder_args(np.random.default_rng(13), 2, 16, 24, 32, 1)
+        args[2] = torch.full((64,), 5.0, device=cuda)
+        args[4] = torch.full((128,), 5.0, device=cuda)
+        got = dk.conv_decoder(*args)
+        want = dk.conv_decoder_plain(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+
+    def test_conv_decoder_refuses_a_c3_one_tile_cannot_cover(self, cuda):
+        args = self._decoder_args(np.random.default_rng(14), 1, 8, 8, 32, 1, c3=dk.MAX_C3 + 1)
+        before = dict(runtime.LAUNCHES)
+        with pytest.raises(ValueError, match="C3 = 65"):
+            dk.conv_decoder(*args)
+        assert runtime.LAUNCHES == before
+
+    def test_conv_decoder_is_bit_equal_run_to_run(self, cuda):
+        args = self._decoder_args(np.random.default_rng(15), 8, 64, 64, 32, 1)
+        first = dk.conv_decoder(*args)
+        for _ in range(3):
+            assert torch.equal(dk.conv_decoder(*args), first)
 
     def test_backward_is_the_plain_composition(self, cuda):
         rng = np.random.default_rng(3)

@@ -1,8 +1,8 @@
 """Why the tensor-core kernels take three TF32 products.
 
 K4 (``csrc/level.cu``), K5's row pass and weight-gradient reduction
-(``csrc/level_bwd.cu``) and K7's implicit-GEMM convs (``csrc/igemm_conv.cuh``)
-multiply on the tensor cores with the split of ``csrc/mma_tf32x3.cuh``: each fp32 operand x
+(``csrc/level_bwd.cu``) and the implicit-GEMM convs of K6, K7 and K8
+(``csrc/igemm_conv.cuh``) multiply on the tensor cores with the split of ``csrc/mma_tf32x3.cuh``: each fp32 operand x
 becomes hi = rna_tf32(x) and lo = rna_tf32(x - hi), and a product is
 lo*hi + hi*lo + hi*hi. This file emulates that arithmetic on the CPU with
 integer ops on the floats' bits (``cvt.rna``: round the 13 dropped mantissa
@@ -18,6 +18,10 @@ to the fp32 accumulator), and holds the result to float64:
 - K5's row pass at F = 512, Fl = 256: its four contractions within K4's
   1e-5 (pre) and K5's 2e-5 abs + 2e-4 rel (d_c_last, d_h, d_s);
 - a conv over K = 9 * 1024 (K7's deepest): within 1e-5 abs + rel;
+- K6's chain, three convs 32 -> 64 -> 128 -> 64 each reading the last one's
+  rounded output, and its 288 -> 1 head in fp32: x1..x3 and the output
+  within 1e-5 abs + rel of the float64 plain decoder;
+- K8 without its ReLU, on the flat-K steps (Cin 3 and 33): within 1e-5;
 - and one TF32 pass alone is not within 1e-5 at K4's widths.
 
 The float64 products of every k8 step come from batched matmuls; only the
@@ -37,6 +41,9 @@ from __future__ import annotations
 import numpy as np
 import pytest
 import torch
+
+from tomosar2height_tpu_torch.ops.cuda.conv_kernel import conv3x3_plain
+from tomosar2height_tpu_torch.ops.cuda.decoder_kernel import conv_decoder_plain
 
 TOL = 1e-5
 WEIGHT_RTOL = 3e-4
@@ -228,3 +235,70 @@ def test_three_tf32_products_hold_the_conv_tolerance_at_k_9216():
     conv = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2),
                                       w.double().permute(3, 2, 0, 1), b.double(), padding=1)
     torch.testing.assert_close(conv.permute(0, 2, 3, 1).reshape(-1, cout), truth)
+
+
+def im2col(x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, W, C) -> (B * H * W, 9 C) with SAME zero padding, in the
+    implicit GEMM's K order (tap-major, then channel; HWIO's row order). For
+    C a multiple of 8 the kernel's per-tap 32-channel steps group the k8
+    steps as these flat columns do, and C % 4 != 0 takes the flat steps."""
+    b, h, w, c = x.shape
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    return torch.cat([xp[:, dy:dy + h, dx:dx + w].reshape(-1, c)
+                      for dy in range(3) for dx in range(3)], 1)
+
+
+def conv_mma(x, w, b, relu: bool):
+    """A 3x3 SAME conv as igemm_conv.cuh computes it: the implicit GEMM in
+    3xTF32 k8 steps, then + bias (one fp32 rounding) and the optional ReLU."""
+    bsz, h, wd, _ = x.shape
+    y = mma_matmul(im2col(x), w.reshape(-1, w.shape[-1])) + b
+    return (torch.relu(y) if relu else y).reshape(bsz, h, wd, -1)
+
+
+def _conv_case(rng, cin, cout):
+    return (torch.from_numpy(rng.normal(0, min(0.2, (9 * cin) ** -0.5), (3, 3, cin, cout))
+                             .astype(np.float32)),
+            torch.from_numpy(rng.normal(0, 0.1, cout).astype(np.float32)))
+
+
+def test_three_tf32_products_hold_the_decoder_chain_tolerance():
+    """K6 on a 12 x 12 plane: conv1 32 -> 64, conv2 64 -> 128, conv3 128 ->
+    64, each on the previous conv's rounded output (the scratch x1, x2 and
+    the staged x3), then the 288 -> 1 head in fp32 (its four parts in the
+    plain composition's order). Rounding compounds through the chain; every
+    stage is held to the float64 plain decoder at 1e-5 abs + rel."""
+    rng = np.random.default_rng(31)
+    widths = (32, 64, 128, 64)
+    x = torch.from_numpy(rng.normal(size=(1, 12, 12, widths[0])).astype(np.float32))
+    convs = [_conv_case(rng, ci, co) for ci, co in zip(widths, widths[1:])]
+    w4 = torch.from_numpy(rng.normal(0, sum(widths) ** -0.5, (1, 1, sum(widths), 1))
+                          .astype(np.float32))
+    b4 = torch.from_numpy(rng.normal(0, 0.1, 1).astype(np.float32))
+    acts, truth = [x], [x.double()]
+    for w, b in convs:
+        acts.append(conv_mma(acts[-1], w, b, True))
+        truth.append(conv3x3_plain(truth[-1], w.double(), b.double(), True))
+    out, off = b4, 0
+    for a in acts:
+        out = out + a @ w4[0, 0, off:off + a.shape[-1]]
+        off += a.shape[-1]
+    want = conv_decoder_plain(*(a.double() for a in (x, *convs[0], *convs[1], *convs[2],
+                                                      w4, b4)))
+    for i, (a, ref) in enumerate(zip(acts[1:], truth[1:]), 1):
+        assert _within(a, ref, TOL, TOL), (i, float((a.double() - ref).abs().max()))
+    assert _within(out, want, TOL, TOL), float((out.double() - want).abs().max())
+
+
+@pytest.mark.parametrize("cin,cout", [(3, 32), (33, 40)])
+def test_three_tf32_products_hold_the_conv_tolerance_without_relu(cin, cout):
+    """K8 with ``relu=False`` on a 10 x 14 plane at batch 2, Cin 3 and 33
+    (the flat-K steps, K padded once): within 1e-5 abs + rel of float64,
+    negative outputs included."""
+    rng = np.random.default_rng(37 + cin)
+    x = torch.from_numpy(rng.normal(size=(2, 10, 14, cin)).astype(np.float32))
+    w, b = _conv_case(rng, cin, cout)
+    got = conv_mma(x, w, b, False)
+    want = conv3x3_plain(x.double(), w.double(), b.double(), False)
+    assert bool((want < 0).any())
+    assert _within(got, want, TOL, TOL), float((got.double() - want).abs().max())

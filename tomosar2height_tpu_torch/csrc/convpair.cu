@@ -40,10 +40,9 @@ int t2h_conv_pair(const float* x, const float* w1, const float* b1, const float*
                   const float* b2, float* mid, float* y, float* pooled, int B, int H, int W,
                   int Cin, int C1, int C2, cudaStream_t stream) {
   if ((long long)B * H * W * C2 == 0) return 0;
-  if (pooled != nullptr && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = conv3x3_relu(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, stream);
+  cudaError_t err = conv3x3_bias(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, true, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(conv3x3_relu(mid, w2, b2, y, pooled, B, H, W, C1, C2, stream));
+  return static_cast<int>(conv3x3_bias(mid, w2, b2, y, pooled, B, H, W, C1, C2, true, stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,8 @@
-// A 3x3 SAME convolution + bias + ReLU, NHWC x HWIO -> NHWC, as an implicit
+// A 3x3 SAME convolution + bias (+ReLU), NHWC x HWIO -> NHWC, as an implicit
 // GEMM on the tensor cores at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh),
-// with an optional 2x2 max pool in its epilogue. The core of K7
-// (convpair.cu); K6 (decoder.cu) and K8 (conv.cu) stay on the fp32-FMA block
-// conv of conv3x3.cuh for now and can move onto this one.
+// with an optional 2x2 max pool (after a ReLU) or the conv decoder's 1x1 head
+// in its epilogue. The one conv core of the port: K6 (decoder.cu), K7
+// (convpair.cu) and K8 (conv.cu) run their 3x3 convs on it.
 //
 // The GEMM: M = output pixels (B*H*W), N = output channels, K = 9 * Cin,
 // walked tap by tap in kCBK-channel steps (tap-major, then channel: HWIO's
@@ -23,8 +23,10 @@
 // 4-byte copies, so K pads to a multiple of kCBK once and not per tap.
 // Warps own 32 x 32 output tiles (warp_mma: two k8 steps chain in the
 // tensor cores per rounded add, K4's rule). The epilogue stages
-// relu(acc + bias) in shared memory, then writes y (NHWC rows, 16-byte
-// stores) and, with a pool, the max of each window's four rows.
+// acc + bias (through a ReLU where asked) in shared memory, then writes y
+// (NHWC rows, 16-byte stores) and, with a pool, the max of each window's four
+// rows; or, in conv3x3_head_igemm, contracts each staged row with the
+// decoder head's weights instead of writing it (DecoderHead).
 //
 // Bound on the H100: the MACs, 9 Cin Cout per output pixel, three TF32
 // products each (495/3 TFLOP/s). The A gather re-reads each input pixel
@@ -61,6 +63,21 @@ struct ConvTile {
 struct ConvGeom {
   int B, H, W, Cin, Cout, M;
   bool quad;  // pixel order by 2x2 window (a pool in the epilogue)
+  bool relu;  // relu(acc + bias); the pool takes it
+};
+
+// The conv decoder's dense-skip 1x1 head, run in its third conv's epilogue:
+// out (M, CO) = b4 + x0 w4[0:C0] + x1 w4[C0:C0+C1] + x2 w4[..C0+C1+C2] +
+// x3 w4[C0+C1+C2:], x3 the conv's staged tile (C3 = its Cout); x0..x2 (M,
+// C0..C2) and w4 (C0+C1+C2+C3, CO) row-major in global memory.
+struct DecoderHead {
+  const float* x0;
+  const float* x1;
+  const float* x2;
+  const float* w4;
+  const float* b4;
+  float* out;
+  int C0, C1, C2, CO;
 };
 
 // Output pixel m -> (image b, row y, column x).
@@ -81,14 +98,15 @@ __device__ __forceinline__ void conv_pixel(const ConvGeom& g, int m, int& b, int
   }
 }
 
+// The block's output tile: act(conv(x, w) + bias) for its BM pixels x BN
+// channels, staged in sm ([BM][kLdC], 0 past Cout) for the epilogue; every
+// thread returns after the barrier that completes it.
 template <int BM, int BN>
-__global__ void __launch_bounds__(ConvTile<BM, BN>::kT, ConvTile<BM, BN>::kMinBlocks)
-conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
-              const float* __restrict__ bias, float* __restrict__ y,
-              float* __restrict__ pooled, ConvGeom g, bool vec_a, bool vec_b) {
+__device__ __forceinline__ void igemm_tile(const float* __restrict__ x,
+                                           const float* __restrict__ w,
+                                           const float* __restrict__ bias, const ConvGeom& g,
+                                           bool vec_a, bool vec_b, float* sm) {
   using T = ConvTile<BM, BN>;
-  extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
   const int m0 = blockIdx.x * BM;
   const int n0 = blockIdx.y * BN;
   const int tid = threadIdx.x;
@@ -165,9 +183,9 @@ conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
     warp_mma<kCBK, 4>(acc, As, T::kLdA, As + BM * T::kLdA, T::kLdB, wm, wn, lane);
   }
   cp_async_wait<0>();
-  __syncthreads();  // the ring is free: stage the tile
+  __syncthreads();
 
-  float* Cs = sm;
+  float* Cs = sm;  // the ring is free: stage the tile
   const int gq = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -178,9 +196,24 @@ conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
         const int r = wm + mt * 16 + gq + (i >> 1) * 8;
         const int c = wn + nt * 8 + 2 * q + (i & 1);
         const int n = n0 + c;
-        Cs[r * T::kLdC + c] = n < g.Cout ? fmaxf(acc[mt][nt][i] + __ldg(bias + n), 0.0f) : 0.0f;
+        const float v = n < g.Cout ? acc[mt][nt][i] + __ldg(bias + n) : 0.0f;
+        Cs[r * T::kLdC + c] = g.relu ? fmaxf(v, 0.0f) : v;
       }
   __syncthreads();
+}
+
+template <int BM, int BN>
+__global__ void __launch_bounds__(ConvTile<BM, BN>::kT, ConvTile<BM, BN>::kMinBlocks)
+conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* __restrict__ y,
+              float* __restrict__ pooled, ConvGeom g, bool vec_a, bool vec_b) {
+  using T = ConvTile<BM, BN>;
+  extern __shared__ float4 smem4[];
+  const float* Cs = reinterpret_cast<const float*>(smem4);
+  igemm_tile<BM, BN>(x, w, bias, g, vec_a, vec_b, reinterpret_cast<float*>(smem4));
+  const int m0 = blockIdx.x * BM;
+  const int n0 = blockIdx.y * BN;
+  const int tid = threadIdx.x;
   const bool vec_y = g.Cout % 4 == 0;
   for (int e = tid; e < BM * (BN / 4); e += T::kT) {
     const int r = e / (BN / 4), c = (e - r * (BN / 4)) * 4;
@@ -208,6 +241,70 @@ conv3x3_igemm(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// K6's third conv with the decoder head in its epilogue: one block covers
+// every output channel (BN >= C3, one block column), and x3 never leaves
+// shared memory. A warp takes one staged row (pixel) at a time, lanes over
+// the channels of each part, four sums reduced by shuffles and added in the
+// plain composition's part order. The head is 288 of ~166k MACs a pixel at
+// the flagship widths, so fp32 FMA serves it; x0..x2 are read at the tile's
+// pixels (x2 was just gathered, mostly from L2).
+template <int BM, int BN>
+__global__ void __launch_bounds__(ConvTile<BM, BN>::kT, ConvTile<BM, BN>::kMinBlocks)
+conv3x3_head_igemm(const float* __restrict__ x, const float* __restrict__ w,
+                   const float* __restrict__ bias, ConvGeom g, bool vec_a, bool vec_b,
+                   DecoderHead h) {
+  using T = ConvTile<BM, BN>;
+  extern __shared__ float4 smem4[];
+  const float* Cs = reinterpret_cast<const float*>(smem4);
+  igemm_tile<BM, BN>(x, w, bias, g, vec_a, vec_b, reinterpret_cast<float*>(smem4));
+  const int lane = threadIdx.x & 31;
+  const int m0 = blockIdx.x * BM;
+  const int c01 = h.C0 + h.C1, c012 = c01 + h.C2;
+  for (int r = threadIdx.x >> 5; r < BM && m0 + r < g.M; r += T::kT / 32) {
+    const long long m = m0 + r;
+    const float* p0 = h.x0 + m * h.C0;
+    const float* p1 = h.x1 + m * h.C1;
+    const float* p2 = h.x2 + m * h.C2;
+    const float* p3 = Cs + r * T::kLdC;
+    for (int o = 0; o < h.CO; ++o) {
+      const float* w4 = h.w4 + o;
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      for (int k = lane; k < h.C0; k += 32)
+        s[0] = fmaf(__ldg(p0 + k), __ldg(w4 + k * h.CO), s[0]);
+      for (int k = lane; k < h.C1; k += 32)
+        s[1] = fmaf(__ldg(p1 + k), __ldg(w4 + (h.C0 + k) * h.CO), s[1]);
+      for (int k = lane; k < h.C2; k += 32)
+        s[2] = fmaf(__ldg(p2 + k), __ldg(w4 + (c01 + k) * h.CO), s[2]);
+      for (int k = lane; k < g.Cout; k += 32)
+        s[3] = fmaf(p3[k], __ldg(w4 + (c012 + k) * h.CO), s[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int d = 16; d > 0; d /= 2) s[i] += __shfl_xor_sync(0xffffffffu, s[i], d);
+      if (lane == 0) h.out[m * h.CO + o] = (((__ldg(h.b4 + o) + s[0]) + s[1]) + s[2]) + s[3];
+    }
+  }
+}
+
+inline int sm_count() {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return sms;
+}
+
+// The tile: BN = 32, 64 or 128 output channels (the least that covers Cout,
+// at most 128); BM = 128 pixels, or 64 where 128 would give fewer than two
+// blocks an SM (the deep levels: 16^2 x 1024 at batch 8 gives 256 blocks of
+// 64).
+inline int tile_bn(int Cout) { return Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128; }
+inline bool tile_wide(const ConvGeom& g, int bn) {
+  return (long long)((g.M + 127) / 128) * ((g.Cout + bn - 1) / bn) >= 2LL * sm_count();
+}
+
 template <int BM, int BN>
 cudaError_t launch_igemm(const float* x, const float* w, const float* bias, float* y,
                          float* pooled, const ConvGeom& g, cudaStream_t stream) {
@@ -224,28 +321,48 @@ cudaError_t launch_igemm(const float* x, const float* w, const float* bias, floa
   return cudaGetLastError();
 }
 
-// relu(conv3x3(x, w) + bias) -> y (B, H, W, Cout) and, when pooled is not
-// null, its 2x2 max pool -> pooled (B, H/2, W/2, Cout) (H, W even). The tile:
-// BN = 32, 64 or 128 output channels (the least that covers Cout, at most
-// 128); BM = 128 pixels, or 64 where 128 would give fewer than two blocks an
-// SM (the deep levels: 16^2 x 1024 at batch 8 gives 256 blocks of 64).
-inline cudaError_t conv3x3_relu(const float* x, const float* w, const float* bias, float* y,
+template <int BM, int BN>
+cudaError_t launch_head(const float* x, const float* w, const float* bias, const ConvGeom& g,
+                        const DecoderHead& h, cudaStream_t stream) {
+  using T = ConvTile<BM, BN>;
+  cudaError_t err = cudaFuncSetAttribute(conv3x3_head_igemm<BM, BN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(T::kSmem));
+  if (err != cudaSuccess) return err;
+  const bool vec_a = g.Cin % 4 == 0 && aligned16(x);
+  const bool vec_b = g.Cout % 4 == 0 && aligned16(w);
+  conv3x3_head_igemm<BM, BN><<<(g.M + BM - 1) / BM, T::kT, T::kSmem, stream>>>(
+      x, w, bias, g, vec_a, vec_b, h);
+  return cudaGetLastError();
+}
+
+// conv3x3(x, w) + bias, through a ReLU where relu is set, -> y (B, H, W,
+// Cout) and, when pooled is not null, its 2x2 max pool -> pooled (B, H/2,
+// W/2, Cout) (H, W even; the pool only after a ReLU).
+inline cudaError_t conv3x3_bias(const float* x, const float* w, const float* bias, float* y,
                                 float* pooled, int B, int H, int W, int Cin, int Cout,
-                                cudaStream_t stream) {
-  const ConvGeom g = {B, H, W, Cin, Cout, B * H * W, pooled != nullptr};
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  const int bn = Cout <= 32 ? 32 : Cout <= 64 ? 64 : 128;
-  const bool wide = (long long)((g.M + 127) / 128) * ((Cout + bn - 1) / bn) >= 2LL * sms;
+                                bool relu, cudaStream_t stream) {
+  if (pooled != nullptr && (!relu || H % 2 || W % 2)) return cudaErrorInvalidValue;
+  const ConvGeom g = {B, H, W, Cin, Cout, B * H * W, pooled != nullptr, relu};
+  const int bn = tile_bn(Cout);
+  const bool wide = tile_wide(g, bn);
 #define T2H_IGEMM(BM, BN) launch_igemm<BM, BN>(x, w, bias, y, pooled, g, stream)
   if (bn == 32) return wide ? T2H_IGEMM(128, 32) : T2H_IGEMM(64, 32);
   if (bn == 64) return wide ? T2H_IGEMM(128, 64) : T2H_IGEMM(64, 64);
   return wide ? T2H_IGEMM(128, 128) : T2H_IGEMM(64, 128);
 #undef T2H_IGEMM
+}
+
+// The decoder head over [h.x0, h.x1, h.x2, relu(conv3x3(x, w) + bias)] ->
+// h.out (B, H, W, h.CO); x3 = the relu'd conv (Cout <= 64 channels, one
+// block column; the model's is 64) is never written.
+inline cudaError_t conv3x3_head(const float* x, const float* w, const float* bias, int B,
+                                int H, int W, int Cin, int Cout, const DecoderHead& h,
+                                cudaStream_t stream) {
+  if (Cout > 64) return cudaErrorInvalidValue;
+  const ConvGeom g = {B, H, W, Cin, Cout, B * H * W, false, true};
+  return tile_wide(g, 64) ? launch_head<128, 64>(x, w, bias, g, h, stream)
+                          : launch_head<64, 64>(x, w, bias, g, h, stream);
 }
 
 }  // namespace t2h

@@ -4,8 +4,10 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/conv_kernel.py``. The CUDA
 kernel K8 (``csrc/conv.cu``) replaces ``_conv_kernel`` (conv_kernel.py:43,
 launched by ``_conv_impl``); every ``Conv3x3`` of the model runs it under
 ``models.blocks.set_fast_conv(True)``. What bounds it on the H100 and how the
-design answers it is noted in the CUDA source. A CPU tensor takes
-:func:`conv3x3_plain`, a CUDA tensor the kernel; there is no fallback.
+design answers it is noted in the CUDA source: one implicit GEMM on the
+tensor cores at fp32 accuracy (3xTF32, ``csrc/igemm_conv.cuh``). A CPU
+tensor takes :func:`conv3x3_plain`, a CUDA tensor the kernel; there is no
+fallback.
 
 The three conv kernels (K6, K7, K8) differentiate as the JAX custom_vjps
 do: the backward is the autograd of the plain composition in f32

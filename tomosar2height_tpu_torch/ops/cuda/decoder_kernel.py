@@ -5,7 +5,10 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/decoder_kernel.py``. The CUDA
 kernel K6 (``csrc/decoder.cu``) replaces ``_decoder_kernel``
 (decoder_kernel.py:85, launched by ``_fused_fwd_impl``); the pixel decoder
 runs it under ``decoder_pixel_kwargs.fused_head``. What bounds it on the
-H100 and how the design answers it is noted in the CUDA source. A CPU tensor
+H100 and how the design answers it is noted in the CUDA source: three
+implicit-GEMM convs on the tensor cores at fp32 accuracy (3xTF32, on
+``csrc/igemm_conv.cuh``), three CUDA launches a call, the head in the third
+conv's epilogue. A CPU tensor
 takes :func:`conv_decoder_plain`, a CUDA tensor the kernel; there is no
 fallback. The backward is the plain composition's autograd, as the JAX
 custom_vjp's (decoder_kernel.py:274-279).
@@ -35,10 +38,17 @@ def conv_decoder_plain(x, w1, b1, w2, b2, w3, b3, w4, b4):
     return out
 
 
+MAX_C3 = 64
+"""Widest x3 the kernel takes: one block's tile covers all of its channels."""
+
+
 def _conv_decoder_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4):
     dev = x.device
     bsz, h, wd, c0 = x.shape
     c1, c2, c3, co = w1.shape[-1], w2.shape[-1], w3.shape[-1], w4.shape[-1]
+    if c3 > MAX_C3:
+        raise ValueError(f"conv_decoder: the kernel runs the head on one tile of x3's "
+                         f"channels, at most {MAX_C3}; got C3 = {c3}")
     f32 = torch.float32
     runtime.require(x, "x", f32, (bsz, h, wd, c0), dev)
     for name, t, shape in (("w1", w1, (3, 3, c0, c1)), ("b1", b1, (c1,)),
@@ -46,11 +56,14 @@ def _conv_decoder_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4):
                            ("w3", w3, (3, 3, c2, c3)), ("b3", b3, (c3,)),
                            ("w4", w4, (1, 1, c0 + c1 + c2 + c3, co)), ("b4", b4, (co,))):
         runtime.require(t, name, f32, shape, dev)
+    x1 = torch.empty((bsz, h, wd, c1), device=dev, dtype=f32)  # relu(conv1)
+    x2 = torch.empty((bsz, h, wd, c2), device=dev, dtype=f32)  # relu(conv2)
     out = torch.empty((bsz, h, wd, co), device=dev, dtype=f32)
     err = runtime.library().t2h_conv_decoder(
         x.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), out.data_ptr(),
-        bsz, h, wd, c0, c1, c2, c3, co, runtime.stream_ptr(dev))
+        w3.data_ptr(), b3.data_ptr(), w4.data_ptr(), b4.data_ptr(), x1.data_ptr(),
+        x2.data_ptr(), out.data_ptr(), bsz, h, wd, c0, c1, c2, c3, co,
+        runtime.stream_ptr(dev))
     runtime.check(err, "conv_decoder")
     runtime.LAUNCHES["conv_decoder"] += 1
     return out
@@ -59,10 +72,10 @@ def _conv_decoder_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4):
 def conv_decoder(x, w1, b1, w2, b2, w3, b3, w4, b4):
     """K6: the fused ConvDecoder. Same arguments and return as
     :func:`conv_decoder_plain`; on a CUDA tensor every input must be a
-    contiguous f32 tensor. A block keeps an 8x8 tile's four activations in
-    shared memory (about 4 * (196 C + 144 C1 + 100 C2 + 64 C3 + 4096) bytes,
-    154 KB at the flagship's 32/64/128/64); wider ones fail their launch,
-    which raises. Differentiable (plain backward)."""
+    contiguous f32 tensor, and C3 (x3's width) at most :data:`MAX_C3`, the
+    model's, else it raises. x1 and x2 go through (B, H, W, C1) and
+    (B, H, W, C2) scratch tensors; x3 stays in the kernel. Differentiable
+    (plain backward)."""
     args = (x, w1, b1, w2, b2, w3, b3, w4, b4)
     if runtime.on_cpu(x):
         return conv_decoder_plain(*args)

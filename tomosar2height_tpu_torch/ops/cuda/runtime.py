@@ -62,7 +62,7 @@ _SIGNATURES = {
     "t2h_level_bwd_reduce_tiles": [_I, _I],
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
-    "t2h_conv_decoder": [_P] * 10 + [_I] * 8 + [_P],
+    "t2h_conv_decoder": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
     "t2h_tile_pool": [_P] * 4 + [_I] * 5 + [_P],
     "t2h_tile_scatter_mean": [_P] * 4 + [_I] * 8 + [_P],
