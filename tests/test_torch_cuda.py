@@ -1,5 +1,7 @@
 """The PyTorch port's CUDA kernels K1-K14 against their plain versions, on the
-card, forward and backward (K6-K12 backward: the plain composition's). Marked
+card, forward and backward (K6-K12 backward: the plain composition's; K1 +
+K2 are one run kernel on pool2's path, K2 alone on scatter_plane2's
+backward). Marked
 ``cuda``: they skip where no CUDA card is present (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine without it; there,
 skip ``tests/conftest.py`` (which imports JAX):
@@ -8,8 +10,9 @@ skip ``tests/conftest.py`` (which imports JAX):
 
 It also holds the numpy input functions that ``test_torch_pool2*.py``,
 ``test_torch_level*.py`` and ``test_torch_tile_kernels.py`` feed to the JAX
-package. Tolerance 1e-5 (rtol and atol): float atomics sum in another order
-than the plain versions. K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
+package. Tolerance 1e-5 (rtol and atol): the kernels sum in another order
+than the plain versions (the run kernel in row order, K3 with float
+atomics). K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
 (tests/test_fused_level_bwd.py); its weight gradients are sums over every
 row, so 3e-4 * max|ref| abs + 3e-4 rel. The conv kernels K6-K8: 1e-5 abs +
 rel (3xTF32 on the tensor cores, in another order than cuDNN's full-fp32
@@ -92,6 +95,50 @@ def tied_batch(seed: int, b: int = 3, n: int = 600, reso: int = RESO, f: int = 8
         a = host_morton_bucket_aligned(p, m, reso)
         pts[i], mask[i], cells[i], toff[i] = a["points"], a["mask"], a["cells"], a["tile_offsets"]
     vals = rng.integers(0, 3, (b, npad, f)).astype(np.float32)
+    return pts, mask, cells, toff, vals
+
+
+def run_batch(seed: int, reso: int = RESO, f: int = 8, holes: bool = False):
+    """Aligned patches built against the run kernel's partition into 32-row
+    spans (``kSpan`` in ``csrc/pool2.cu``): entry 0 fills cells of
+    tile 0 with 37 points each (runs longer than a span, and since 37 is prime
+    to 32 a run straddles every span edge up to row 37 * cells) and puts a few
+    points in every other tile, so every tile ends in pad rows; entry 1 puts
+    300 points into one cell among scattered ones; entry 2 crowds its points
+    into a few cells with values in {0, 1, 2} (ties in max); entry 3 has no
+    valid row. ``holes`` clears the mask of every fifth row of entry 0 and 1
+    while keeping its cell (rows of a run the pooling must skip: not a
+    layout the loader makes, and not one the JAX kernel masks the same way)."""
+    rng = np.random.default_rng(seed)
+    side = 32  # cells per side of a 1024-cell tile
+    n = 1200
+    npad = aligned_bucket_size(n, reso)
+    pts = np.full((4, npad, 3), 0.5, np.float32)
+    mask = np.zeros((4, npad), bool)
+    cells = np.zeros((4, npad), np.int32)
+    toff = np.zeros((4, reso * reso // 1024 + 1), np.int32)
+    for i in range(4):
+        p = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+        m = np.ones(n, bool)
+        if i == 0:  # 24 cells x 37 points in tile 0 (x, y < side / reso)
+            cx = rng.choice(side * side, 24, replace=False)
+            ix, iy = cx % side, cx // side
+            xy = (np.stack([ix, iy], -1).repeat(37, 0) + rng.uniform(0.1, 0.9, (888, 2))) / reso
+            p[:888, :2] = xy
+        if i == 1:
+            p[:300, :2] = (np.array([40, 21]) + rng.uniform(0.1, 0.9, (300, 2))) / reso
+        if i == 2:
+            p[:, :2] = rng.uniform(0.30, 0.36, (n, 2))
+        if i == 3:
+            m[:] = False
+        a = host_morton_bucket_aligned(p, m, reso)
+        pts[i], mask[i], cells[i], toff[i] = a["points"], a["mask"], a["cells"], a["tile_offsets"]
+    vals = rng.normal(size=(4, npad, f)).astype(np.float32)
+    vals[2] = rng.integers(0, 3, (npad, f))
+    if holes:
+        for i in (0, 1):
+            rows = np.flatnonzero(mask[i])[::5]
+            mask[i, rows] = False
     return pts, mask, cells, toff, vals
 
 
@@ -213,8 +260,9 @@ class TestPool2Kernels:
             assert torch.equal(got, want)
         else:
             torch.testing.assert_close(got, want, **TOL)
-        assert runtime.LAUNCHES["pool_reduce"] == before["pool_reduce"] + 1
-        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"] + 1
+        # one launch of the run kernel, no gather
+        assert runtime.LAUNCHES["pool2"] == before["pool2"] + 1
+        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"]
 
     def test_scatter_plane2_matches_plain(self, cuda):
         _, mask, cells, _, vals = aligned_batch(1)
@@ -230,8 +278,8 @@ class TestPool2Kernels:
     def test_sum_kind_matches_plain(self, cuda):
         _, mask, cells, _, vals = tied_batch(0)
         v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
-        got = pk.pool_reduce(v, c, m, RESO * RESO, "sum")
-        want = pk.pool_reduce_plain(v, c, m, RESO * RESO, "sum")
+        got = pk.pool2_fwd(v, c, m, RESO, "sum")
+        want = pk.pool2_plain(v, c, m, RESO, "sum")
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL)
 
@@ -246,9 +294,69 @@ class TestPool2Kernels:
         want = pk.pool2_bwd_plain(g, v, out, c, m, RESO, kind)
         torch.cuda.synchronize()
         torch.testing.assert_close(got, want, **TOL)
-        assert runtime.LAUNCHES["pool_reduce"] == before["pool_reduce"] + 1
-        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"] + 1
         assert runtime.LAUNCHES["pool2_bwd"] == before["pool2_bwd"] + 1
+        assert runtime.LAUNCHES["pool2"] == before["pool2"]
+        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"]
+
+    @pytest.mark.parametrize("holes", [False, True])
+    @pytest.mark.parametrize("f", [8, 40])
+    @pytest.mark.parametrize("kind", ["max", "mean", "sum"])
+    def test_run_layouts_match_plain(self, cuda, kind, f, holes):
+        """Runs of 300 rows, runs across every span edge, ties, an empty
+        entry, rows cleared inside a run; F = 40 takes two feature chunks.
+        Sums are held to the plain version in float64: in float32 on the
+        card it adds with atomics in any order, which over a 300-row run
+        moves a sum by up to ~1e-5, as far as the kernel's fixed row order
+        does (in a numpy emulation of that order, up to 0.34 of TOL from
+        float64 on these layouts, 0.86 on the backward's), so the two
+        float32 sums can differ by more than TOL."""
+        _, mask, cells, _, vals = run_batch(2, f=f, holes=holes)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        got = pk.pool2_fwd(v, c, m, RESO, kind)
+        torch.cuda.synchronize()
+        if kind == "max":
+            assert torch.equal(got, pk.pool2_plain(v, c, m, RESO, kind))
+        else:
+            want = pk.pool2_plain(v.double(), c, m, RESO, kind)
+            torch.testing.assert_close(got.double(), want, **TOL)
+
+    @pytest.mark.parametrize("holes", [False, True])
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    def test_run_layouts_backward_match_plain(self, cuda, kind, holes):
+        """As the forward, held to the plain version in float64."""
+        _, mask, cells, _, vals = run_batch(4, f=40, holes=holes)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        g = torch.randn(v.shape, generator=torch.Generator().manual_seed(2)).to(cuda)
+        out = pk.pool2(v, c, m, RESO, kind)
+        got = pk.pool2_bwd(g, v, out, c, m, RESO, kind)
+        want = pk.pool2_bwd_plain(g.double(), v.double(), out.double(), c, m, RESO, kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.double(), want, **TOL)
+
+    def test_bit_equal_run_to_run(self, cuda):
+        """The run kernel sums in row order: forward and backward repeat
+        bit for bit."""
+        _, mask, cells, _, vals = run_batch(5, f=32)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        g = torch.randn(v.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+        for kind in ("max", "mean"):
+            out = pk.pool2(v, c, m, RESO, kind)
+            assert torch.equal(out, pk.pool2(v, c, m, RESO, kind))
+            dv = pk.pool2_bwd(g, v, out, c, m, RESO, kind)
+            assert torch.equal(dv, pk.pool2_bwd(g, v, out, c, m, RESO, kind))
+
+    def test_allocates_no_cell_buffer(self, cuda):
+        """At reso 256 a (B, reso^2, F) cell buffer would be 7x the output:
+        the forward allocates its output alone."""
+        _, mask, cells, _, vals = aligned_batch(0, reso=256)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = pk.pool2_fwd(v, c, m, 256, "mean")
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before <= out.numel() * 4 + 512
+        torch.testing.assert_close(out, pk.pool2_plain(v, c, m, 256, "mean"), **TOL)
 
     def test_scatter_plane2_backward_matches_plain(self, cuda):
         _, mask, cells, _, vals = aligned_batch(2)

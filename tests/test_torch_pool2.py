@@ -1,5 +1,5 @@
-"""Kernels K1-K3 of the PyTorch port (``ops/cuda/pool2_kernel.py``): their
-plain versions against the JAX ``pool2`` / ``scatter_plane2`` (Pallas, in
+"""Kernels K1-K3 of the PyTorch port (``ops/cuda/pool2_kernel.py``; K1 + K2
+are one run kernel on pool2's path): their plain versions against the JAX ``pool2`` / ``scatter_plane2`` (Pallas, in
 interpret mode off-TPU) on the same Morton-aligned inputs, covering ties,
 empty cells, pad rows and an empty patch. Tolerance 1e-5; max pooling exact.
 The CUDA kernels themselves are held to these plain versions on a card by
@@ -65,19 +65,20 @@ class TestPlainVsJax:
         assert (plane.numpy()[counts.numpy() == 0] == 0).all()  # empty cells
 
     def test_reduce_gather_halves(self, batch):
+        """The plain reduce and gather-back halves compose into pool2."""
         pts, mask, cells, toff, vals = batch
         ncell = RESO * RESO
-        cellv = pk.pool_reduce(t(vals), t(cells), t(mask), ncell, "max")
+        cellv = pk.pool_reduce_plain(t(vals), t(cells), t(mask), ncell, "max")
         assert cellv.shape == (vals.shape[0], ncell, F)
         np.testing.assert_array_equal(
-            pk.pool_gather(cellv, t(cells), t(mask)).numpy(),
+            pk.pool_gather_plain(cellv, t(cells), t(mask)).numpy(),
             pk.pool2(t(vals), t(cells), t(mask), RESO, "max").numpy())
 
     def test_rejects_other_devices_and_kinds(self, batch):
         _, mask, cells, _, vals = batch
         with pytest.raises(ValueError):
-            pk.pool_reduce(t(vals), t(cells), t(mask), RESO * RESO, "min")
-        with pytest.raises(ValueError):  # K1 sums, but pool2 has no 'sum' pooling
+            pk.pool2_fwd(t(vals), t(cells), t(mask), RESO, "min")
+        with pytest.raises(ValueError):  # the kernel sums, but pool2 has no 'sum' pooling
             pk.pool2(t(vals), t(cells), t(mask), RESO, "sum")
         with pytest.raises(ValueError, match="device"):
             pk.pool2(t(vals).to("meta"), t(cells), t(mask), RESO, "max")

@@ -1,4 +1,4 @@
-"""K1's ``sum`` kind and the backwards of ``pool2`` and ``scatter_plane2`` in
+"""The run kernel's ``sum`` kind (``pool2_fwd``) and the backwards of ``pool2`` and ``scatter_plane2`` in
 the port (``ops/cuda/pool2_kernel.py``, their plain versions on the CPU)
 against the JAX package: ``chunkgrid_pool(..., 'sum')`` and ``jax.grad`` of
 the JAX ``pool2`` / ``scatter_plane2``, whose custom_vjps run the Pallas K1/K2
@@ -54,11 +54,11 @@ class TestSumKind:
         _, mask, cells, toff, vals = batch
         cells_row, ct, _ = _meta(cells, toff, mask.shape[1])
         want = np.asarray(chunkgrid_pool(jnp.asarray(vals), cells_row, ct, N_TILES, "sum"))
-        cellv = pk.pool_reduce(t(vals), t(cells), t(mask), RESO * RESO, "sum")
-        got = pk.pool_gather(cellv, t(cells), t(mask)).numpy()
+        got = pk.pool2_fwd(t(vals), t(cells), t(mask), RESO, "sum").numpy()
         np.testing.assert_allclose(got, np.where(mask[..., None], want, 0), **TOL)
         # an empty cell sums to 0, and the sum is count * mean
-        mean = pk.pool_reduce(t(vals), t(cells), t(mask), RESO * RESO, "mean")
+        cellv = pk.pool_reduce_plain(t(vals), t(cells), t(mask), RESO * RESO, "sum")
+        mean = pk.pool_reduce_plain(t(vals), t(cells), t(mask), RESO * RESO, "mean")
         counts = np.zeros(cellv.shape[:2], np.int64)
         for i in range(mask.shape[0]):
             np.add.at(counts[i], cells[i][mask[i]], 1)

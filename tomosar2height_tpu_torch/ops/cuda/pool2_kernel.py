@@ -1,13 +1,16 @@
 """Local pooling (reduce + gather-back) and the encoder's plane scatter on the
 Morton-aligned layout.
 
-Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. Three CUDA
-kernels (``csrc/pool2.cu``) replace its three Pallas kernels:
+Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
+(``csrc/pool2.cu``) replace its three Pallas kernels:
 
-- K1 :func:`pool_reduce` <- ``_reduce_kernel`` (pool2_kernel.py:46): per-cell
-  max, mean or sum of point features; an empty cell gives 0.
-- K2 :func:`pool_gather` <- ``_gather_kernel`` (pool2_kernel.py:133): each
-  point reads its cell's value back; pad rows give 0.
+- K1 + K2 on pool2's path, one kernel (``pool_runs``): ``_reduce_kernel``
+  (pool2_kernel.py:46) then ``_gather_kernel`` (:133), as
+  ``_chunkgrid_pool_jit`` (:221) runs them. Each valid row gets the max, mean
+  or sum of the valid rows of its cell, pad rows 0, in one atomic-free pass
+  over the sorted runs (:func:`pool2_fwd`, :func:`pool2_bwd`).
+- K2 alone (``t2h_pool_gather``) for ``scatter_plane2``'s backward: each
+  valid row reads a row-major plane at its cell (:func:`scatter_plane2_bwd`).
 - K3 :func:`scatter_plane2` <- ``_scatter_plane_kernel`` (pool2_kernel.py:263):
   masked scatter-mean into a row-major NHWC plane, plus per-cell counts.
 
@@ -17,20 +20,27 @@ bounds them on the H100 and how the design answers it is noted in the CUDA
 source. A CPU tensor takes the plain torch version (``*_plain``), a CUDA
 tensor the kernel; there is no fallback between the two.
 
-:func:`pool2` and :func:`scatter_plane2` are differentiable in ``values``
-(``torch.autograd.Function``s); their backwards run on K1 and K2 as the JAX
-custom_vjps do (pool2_kernel.py:424-453, :492-517):
+**Contract of the run kernel:** in each batch entry the rows that hold one
+cell id, and so the cell's valid rows, are contiguous (the mask may clear
+rows among them), as on the aligned layout (``ops/sorted_scatter.py``,
+:func:`host_morton_bucket_aligned`: Morton-sorted rows, pads only at tile
+ends). A run is a maximal range of rows with one in-range cell id; a cell
+split into two runs would pool as two cells, unchecked. The plain versions
+(:func:`pool2_plain`, :func:`pool2_bwd_plain`) take any order and are the
+oracle.
 
-- mean pool: one more masked mean pool of the cotangent;
-- max pool: ``cell_sum = pool2(g, 'sum')``, then ``dv = where(values == out,
-  cell_sum, 0)``: every tied point gets the whole cell sum;
+:func:`pool2` and :func:`scatter_plane2` are differentiable in ``values``
+(``torch.autograd.Function``s); their backwards follow the JAX custom_vjps
+(pool2_kernel.py:424-453, :492-517):
+
+- mean pool: the run mean of the masked cotangent;
+- max pool: ``dv = where(values == out, run_sum(g), 0)``: every tied point
+  gets the whole cell sum (the tie gate is fused into the kernel);
 - scatter_plane2: ``dv[i] = g_plane[cell_i] / max(count, 1)`` on valid rows,
   one K2 launch reading the row-major plane.
 """
 
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -108,7 +118,6 @@ def scatter_plane2_bwd_plain(g_plane, cells, mask, counts) -> torch.Tensor:
 
 # --- kernels ----------------------------------------------------------------------
 
-
 def _check_points(values, cells, mask):
     dev = values.device
     b, n, f = values.shape
@@ -118,90 +127,74 @@ def _check_points(values, cells, mask):
     return b, n, f
 
 
-def pool_reduce(values, cells, mask, ncell: int, kind: str) -> torch.Tensor:
-    """K1: per-cell ``kind`` ('max' | 'mean' | 'sum') reduce -> (B, ncell, F),
-    Morton order; empty cells 0."""
-    if kind not in _KINDS:
-        raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
-    if runtime.on_cpu(values):
-        return pool_reduce_plain(values, cells, mask, ncell, kind)
-    b, n, f = _check_points(values, cells, mask)
-    lib = runtime.library()
-    cellv = torch.empty((b, ncell, f), device=values.device, dtype=torch.float32)
-    counts = torch.empty((b, ncell), device=values.device, dtype=torch.int32)
-    err = lib.t2h_pool_reduce(values.data_ptr(), cells.data_ptr(), mask.data_ptr(),
-                              cellv.data_ptr(), counts.data_ptr(), b, n, f, ncell,
-                              _KINDS[kind], runtime.stream_ptr(values.device))
-    runtime.check(err, "pool_reduce")
-    runtime.LAUNCHES["pool_reduce"] += 1
-    return cellv
-
-
-def _gather(cellv, cells, mask, counts, reso: int) -> torch.Tensor:
-    """Launch K2 on (B, ncell, F) Morton cell values (reso 0) or a row-major
-    (B, reso, reso, F) plane with its (B, reso, reso) counts (reso > 0)."""
-    dev = cellv.device
-    b, f = cellv.shape[0], cellv.shape[-1]
-    ncell = math.prod(cellv.shape[1:-1])
-    n = cells.shape[-1]
-    runtime.require(cellv, "cellv", torch.float32, tuple(cellv.shape), dev)
-    runtime.require(cells, "cells", torch.int32, (b, n), dev)
-    runtime.require(mask, "mask", torch.bool, (b, n), dev)
-    if counts is not None:
-        runtime.require(counts, "counts", torch.int32, tuple(cellv.shape[:-1]), dev)
-    lib = runtime.library()
-    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = lib.t2h_pool_gather(cellv.data_ptr(), cells.data_ptr(), mask.data_ptr(),
-                              0 if counts is None else counts.data_ptr(),
-                              out.data_ptr(), b, n, f, ncell, reso,
-                              runtime.stream_ptr(dev))
-    runtime.check(err, "pool_gather")
-    runtime.LAUNCHES["pool_gather"] += 1
+def _pool_runs(x, cells, mask, reso: int, kind: str, tie=None) -> torch.Tensor:
+    """Launch the run kernel on (B, N, F) rows; ``tie`` = (values, out) gates
+    a 'sum' by values == out (max pooling's backward)."""
+    b, n, f = _check_points(x, cells, mask)
+    if tie is not None:
+        for name, t in zip(("values", "out"), tie):
+            runtime.require(t, name, torch.float32, (b, n, f), x.device)
+    out = torch.empty_like(x)
+    a, c = (0, 0) if tie is None else (tie[0].data_ptr(), tie[1].data_ptr())
+    err = runtime.library().t2h_pool_runs(
+        x.data_ptr(), cells.data_ptr(), mask.data_ptr(), a, c, out.data_ptr(), b, n, f,
+        reso * reso, _KINDS[kind], runtime.stream_ptr(x.device))
+    runtime.check(err, "pool_runs")
     return out
 
 
-def pool_gather(cellv, cells, mask) -> torch.Tensor:
-    """K2: per-point gather-back of (B, ncell, F) cell values -> (B, N, F);
-    0 on pad rows."""
-    if runtime.on_cpu(cellv):
-        return pool_gather_plain(cellv, cells, mask)
-    if cellv.dim() != 3:
-        raise ValueError(f"cellv: shape {tuple(cellv.shape)}, expected (B, ncell, F)")
-    return _gather(cellv, cells, mask, None, 0)
-
-
-def _pool2(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
-    return pool_gather(pool_reduce(values, cells, mask, reso * reso, kind),
-                       cells, mask)
+def pool2_fwd(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
+    """K1 + K2: each valid row gets the ``kind`` ('max' | 'mean' | 'sum') of
+    the valid rows of its cell, pad rows 0; one launch on the sorted runs
+    (the contract above). Counted in ``LAUNCHES['pool2']``."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be one of {sorted(_KINDS)}, got {kind!r}")
+    if runtime.on_cpu(values):
+        return pool2_plain(values, cells, mask, reso, kind)
+    out = _pool_runs(values, cells, mask, reso, kind)
+    runtime.LAUNCHES["pool2"] += 1
+    return out
 
 
 def pool2_bwd(g, values, out, cells, mask, reso: int, kind: str) -> torch.Tensor:
-    """Backward of :func:`pool2`: K1 ('mean', or 'sum' for max pooling) then
-    K2; the max-pool tie gate is one elementwise select. Counted once per
-    call in ``LAUNCHES['pool2_bwd']`` besides K1's and K2's own counts."""
+    """Backward of :func:`pool2`, one launch of the run kernel: the run mean
+    of g ('mean'), or the run sum of g where ``values == out`` ('max').
+    Counted in ``LAUNCHES['pool2_bwd']``."""
     if runtime.on_cpu(g):
         return pool2_bwd_plain(g, values, out, cells, mask, reso, kind)
+    dv = _pool_runs(g, cells, mask, reso, "mean" if kind == "mean" else "sum",
+                    None if kind == "mean" else (values, out))
     runtime.LAUNCHES["pool2_bwd"] += 1
-    if kind == "mean":
-        return _pool2(g, cells, mask, reso, "mean")
-    cell_sum = _pool2(g, cells, mask, reso, "sum")
-    return torch.where(values == out, cell_sum, torch.zeros_like(cell_sum))
+    return dv
 
 
 def scatter_plane2_bwd(g_plane, cells, mask, counts) -> torch.Tensor:
     """Backward of :func:`scatter_plane2`: K2 reading the row-major cotangent
     plane at each valid row's cell, divided by max(count, 1). Counted in
-    ``LAUNCHES['scatter_plane2_bwd']`` besides K2's own count."""
+    ``LAUNCHES['scatter_plane2_bwd']`` besides K2's own ``pool_gather``."""
     if runtime.on_cpu(g_plane):
         return scatter_plane2_bwd_plain(g_plane, cells, mask, counts)
+    dev = g_plane.device
+    b, reso, _, f = g_plane.shape
+    n = cells.shape[-1]
+    runtime.require(g_plane, "g_plane", torch.float32, (b, reso, reso, f), dev)
+    runtime.require(cells, "cells", torch.int32, (b, n), dev)
+    runtime.require(mask, "mask", torch.bool, (b, n), dev)
+    runtime.require(counts, "counts", torch.int32, (b, reso, reso), dev)
+    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    err = runtime.library().t2h_pool_gather(
+        g_plane.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(),
+        out.data_ptr(), b, n, f, reso, runtime.stream_ptr(dev))
+    runtime.check(err, "pool_gather")
+    runtime.LAUNCHES["pool_gather"] += 1
     runtime.LAUNCHES["scatter_plane2_bwd"] += 1
-    return _gather(g_plane, cells, mask, counts, g_plane.shape[1])
+    return out
 
 
 class _Pool2(torch.autograd.Function):
     @staticmethod
     def forward(ctx, values, cells, mask, reso: int, kind: str):
-        out = _pool2(values, cells, mask, reso, kind)
+        out = pool2_fwd(values, cells, mask, reso, kind)
         ctx.save_for_backward(values, cells, mask, out)
         ctx.reso, ctx.kind = reso, kind
         return out
@@ -228,12 +221,15 @@ class _ScatterPlane2(torch.autograd.Function):
 
 
 def pool2(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
-    """Masked pool_local on the aligned layout: K1 then K2; differentiable in
-    ``values`` (backward: :func:`pool2_bwd`).
+    """Masked pool_local on the aligned layout (:func:`pool2_fwd`, one launch
+    of the run kernel); differentiable in ``values`` (backward:
+    :func:`pool2_bwd`). Needs the aligned layout's contiguous cells on a card
+    (module docstring).
 
     Args:
         values: (B, N, F) f32 point features.
-        cells: (B, N) int32 finest Morton ids (PAD_CELL_SENTINEL on pads).
+        cells: (B, N) int32 finest Morton ids (PAD_CELL_SENTINEL on pads),
+            the rows of each cell, and so its valid rows, contiguous.
         mask: (B, N) bool validity.
         reso: plane resolution of ``cells``.
         kind: 'max' | 'mean'.

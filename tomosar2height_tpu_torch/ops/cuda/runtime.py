@@ -33,7 +33,7 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"pool_reduce": 0, "pool_gather": 0, "scatter_plane2": 0,
+LAUNCHES = {"pool2": 0, "pool_gather": 0, "scatter_plane2": 0,
             "fused_level": 0, "fused_level_bwd": 0, "level_bwd_reduce": 0,
             "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
             "conv_decoder": 0, "tile_gather": 0, "tile_pool": 0,
@@ -53,8 +53,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every function returns an int: cudaError_t, or the
     # count that t2h_level_bwd_reduce_tiles computes)
-    "t2h_pool_reduce": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "t2h_pool_gather": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "t2h_pool_runs": [_P] * 6 + [_I] * 5 + [_P],
+    "t2h_pool_gather": [_P] * 5 + [_I] * 4 + [_P],
     "t2h_scatter_plane": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
