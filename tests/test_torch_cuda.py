@@ -378,6 +378,127 @@ class TestPool2Kernels:
             pk.pool2(t(vals, cuda).double(), t(cells, cuda), t(mask, cuda), RESO, "max")
 
 
+def _flagship(tile_cells: int):
+    """chip_smoke's flagship batch on the card: (cells, mask, tile offsets)
+    of B = 8 16384-point buckets on the aligned layout."""
+    import chip_smoke as cs
+
+    _, _, _, amask, acell, toff = cs.flagship_batch(0, tile_cells=tile_cells)
+    return (torch.from_numpy(x).cuda() for x in (acell, amask, toff))
+
+
+def _rows(mask, f, seed):
+    g = torch.Generator().manual_seed(seed)
+    return (torch.randn(*mask.shape, f, generator=g).cuda() * mask[..., None]).contiguous()
+
+
+def _scatter_runs_into(values, cells, mask, toff, reso, shift, plane, counts, flags):
+    """``t2h_scatter_runs`` straight into given outputs (the wrappers allocate
+    their own)."""
+    b, n, f = values.shape
+    err = runtime.library().t2h_scatter_runs(
+        values.data_ptr(), cells.data_ptr(), 0 if mask is None else mask.data_ptr(),
+        0 if toff is None else toff.data_ptr(), plane.data_ptr(),
+        0 if counts is None else counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift,
+        0 if toff is None else toff.shape[1], runtime.stream_ptr(values.device))
+    runtime.check(err, "scatter_runs")
+
+
+@pytest.mark.cuda
+class TestScatterRuns:
+    """K3 and K12 on the run scatter (``csrc/pool2.cu`` ``scatter_runs``) at
+    the flagship's shapes: held to their plain versions, bit-equal on a
+    second launch, every cell written (NaN-filled outputs come out finite),
+    and the model paths' launch counts those of ``chip_smoke.py``."""
+
+    def test_scatter_plane2_at_the_flagship(self, cuda):
+        cells, mask, _ = _flagship(1024)
+        v = _rows(mask, 32, 0)
+        before = dict(runtime.LAUNCHES)
+        plane, counts = pk.scatter_plane2(v, cells, mask, 256)
+        again = pk.scatter_plane2(v, cells, mask, 256)
+        want_plane, want_counts = pk.scatter_plane2_plain(v, cells, mask, 256)
+        torch.cuda.synchronize()
+        _launched("scatter_plane2", before, 2)
+        torch.testing.assert_close(plane, want_plane, **TOL)
+        assert torch.equal(counts, want_counts)
+        assert torch.equal(plane, again[0]) and torch.equal(counts, again[1])
+
+    @pytest.mark.parametrize("reso,f", [(256, 32), (256, 64), (128, 128), (64, 256),
+                                        (32, 512), (16, 1024)])
+    def test_aligned_scatter_at_the_flagship(self, cuda, reso, f):
+        cells, mask, toff = _flagship(256)
+        v = _rows(mask, f, reso)
+        lvl = toff[:, :: 4 ** (9 - reso.bit_length())].contiguous()
+        before = dict(runtime.LAUNCHES)
+        got = sk.aligned_scatter_mean_plane(v, cells, lvl, reso, 256)
+        again = sk.aligned_scatter_mean_plane(v, cells, lvl, reso, 256)
+        want = sk.aligned_scatter_mean_plane_plain(v, cells, lvl, reso, 256)
+        torch.cuda.synchronize()
+        _launched("aligned_scatter_mean_plane", before, 2)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+
+    @pytest.mark.parametrize("f", [32, 40, 6])
+    def test_every_cell_is_written(self, cuda, f):
+        """Into a plane and counts pre-filled with NaN and -1, flags with 1:
+        the clear, the run pass and the zero pass leave nothing unwritten
+        (F = 40 and 6: a second feature chunk, the scalar zero pass)."""
+        cells, mask, toff = _flagship(256)
+        v = _rows(mask, f, 1)
+        b = v.shape[0]
+        for reso, shift, m, tt in ((256, 0, mask, None), (32, 6, None, toff[:, ::64])):
+            tt = None if tt is None else tt.contiguous()
+            plane = torch.full((b, reso, reso, f), float("nan"), device=cuda)
+            counts = torch.full((b, reso, reso), -1, device=cuda, dtype=torch.int32)
+            flags = torch.ones((b, reso, reso), device=cuda, dtype=torch.uint8)
+            _scatter_runs_into(v, cells, m, tt, reso, shift, plane,
+                               counts if m is not None else None, flags)
+            torch.cuda.synchronize()
+            assert torch.isfinite(plane).all()
+            if m is not None:
+                want = pk.scatter_plane2_plain(v, cells, m, reso)
+                assert torch.equal(counts, want[1])
+            else:
+                want = (sk.aligned_scatter_mean_plane_plain(v, cells, tt, reso, 256),)
+            torch.testing.assert_close(plane, want[0], **TOL)
+
+    def test_model_paths_launch_as_the_smoke_counts(self, cuda):
+        """One fused2 training mini-step (remat) and one 'fused' forward
+        launch what ``chip_smoke.TRAIN_LAUNCHES`` and ``SORTED_LAUNCHES``
+        say, K3 and K12 among them."""
+        import chip_smoke as cs
+        from tomosar2height_tpu_torch.config import flagship_config, sorted_config
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+        from tomosar2height_tpu_torch.train import Trainer
+
+        cfg = flagship_config()
+        model = init_weights(build_model(cfg, "cuda"), torch.Generator().manual_seed(0))
+        _, _, apts, amask, _, toff = cs.flagship_batch(1, b=2)
+        side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+        batch = {"points": apts, "point_mask": amask, "cell_offsets": toff,
+                 "dsm": np.zeros((2, side, side), np.float32),
+                 "patch_valid": np.ones(2, bool)}
+        runtime.reset_launches()
+        Trainer(model, cfg["training"]).train_step(batch, 1e-4)
+        torch.cuda.synchronize()
+        assert {k: v for k, v in runtime.LAUNCHES.items() if v} == cs.TRAIN_LAUNCHES
+
+        fcfg = sorted_config("fused")
+        fused_model = build_model(fcfg, "cuda")
+        fused_model.load_state_dict(model.state_dict())
+        _, _, apts, amask, _, toff = cs.flagship_batch(2, b=2, tile_cells=256)
+        runtime.reset_launches()
+        with torch.inference_mode():
+            h = fused_model.eval()(*(torch.from_numpy(x).cuda() for x in (apts, amask)),
+                                   None, None, torch.from_numpy(toff).cuda(),
+                                   footprint=False)[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(h).all()
+        assert ({k: v for k, v in runtime.LAUNCHES.items() if v}
+                == cs.SORTED_LAUNCHES["fused"])
+
+
 @pytest.mark.cuda
 class TestLevelKernel:
     @pytest.mark.parametrize("reso,level_reso,f,fl", [

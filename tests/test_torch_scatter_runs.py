@@ -1,0 +1,339 @@
+"""The run scatter (``csrc/pool2.cu`` ``scatter_runs``: K3 ``scatter_plane2``
+and K12 ``aligned_scatter_mean_plane``), emulated in numpy step by step as the
+kernel takes it: the flags are cleared; the mark pass sets the flag of every
+cell that holds a valid row; in the run part, warps own 32-row spans
+(``SPAN``, the kernel's ``kSpan``), a run belongs to the warp whose span holds
+its head, a segmented scan in row order sums each run, the last run reads on
+past the span to its end, and each run with a valid row writes its cell's
+mean (and count, K3) once; the zero part writes 0 to every cell whose flag
+is clear. The emulation is held to the plain versions
+(``scatter_plane2_plain``, ``aligned_scatter_mean_plane_plain``) and through
+them to the JAX ``scatter_plane2`` and ``pallas_aligned_scatter_mean_plane``
+(Pallas in interpret mode), on layouts made to hit the partition's edges: a
+cell of 300 rows, runs straddling every span edge, a batch entry with no
+valid row, every tile padded, rows cleared from the mask inside a run (K3;
+``test_torch_cuda.run_batch``), rows of another tile (K12), and the fused
+layout's levels from 256^2 down to 16^2. Every plane cell must be written
+exactly once, and a mutant of the read-on or of the zero pass must fail.
+Tolerance 1e-5 abs + rel (the kernel sums in row order, the plain version in
+scatter order)."""
+
+from __future__ import annotations
+
+import inspect
+import os
+
+import numpy as np
+import pytest
+
+jax = pytest.importorskip("jax")
+torch = pytest.importorskip("torch")
+import jax.numpy as jnp  # noqa: E402
+
+from tomosar2height_tpu.ops.pallas.level_kernel import (  # noqa: E402
+    chunk_metadata,
+    empty_tile_mask,
+    make_cells_row,
+)
+from tomosar2height_tpu.ops.pallas.pool2_kernel import (  # noqa: E402
+    scatter_plane2 as jax_scatter_plane2,
+)
+from tomosar2height_tpu.ops.pallas.scatter_kernel import (  # noqa: E402
+    pallas_aligned_scatter_mean_plane,
+)
+from test_torch_cuda import RESO, run_batch, t  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk  # noqa: E402
+from tomosar2height_tpu_torch.ops.sorted_scatter import (  # noqa: E402
+    PAD_CELL_SENTINEL,
+    aligned_bucket_size,
+    host_morton_bucket_aligned,
+    trim_aligned_batch,
+)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+SPAN = 32  # rows a warp owns: kSpan in csrc/pool2.cu
+FINEST = 256  # the fused layout's finest resolution, 256-cell tiles
+LEVELS = (256, 128, 64, 32, 16)
+SOURCE = os.path.join(os.path.dirname(pk.__file__), "..", "..", "csrc", "pool2.cu")
+
+
+def _compact(v):
+    v = v & 0x55555555
+    v = (v | (v >> 1)) & 0x33333333
+    v = (v | (v >> 2)) & 0x0F0F0F0F
+    v = (v | (v >> 4)) & 0x00FF00FF
+    return (v | (v >> 8)) & 0x0000FFFF
+
+
+def rowmajor(code, reso):
+    """morton_to_rowmajor of csrc/common.cuh."""
+    return _compact(code >> 1) * reso + _compact(code)
+
+
+def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, mutant=None):
+    """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``, K12
+    with ``toff`` (B, T + 1) tile offsets at ``reso`` and ``shift``. Returns
+    (plane (B, reso, reso, F), counts (B, reso, reso), writes (B, reso, reso):
+    how often each plane cell was stored). ``mutant``: 'no_read_on' drops the
+    walk past the span, 'no_zero_pass' the zero pass."""
+    b, n, f = x.shape
+    ncell = reso * reso
+    plane = np.full((b, ncell, f), np.nan, np.float32)
+    counts = np.full((b, ncell), -1, np.int64)
+    writes = np.zeros((b, ncell), np.int64)
+    flags = np.zeros((b, ncell), bool)  # cleared
+    raw = cells.astype(np.int64)
+    key = np.where((raw >= 0) & ((raw >> shift) < ncell), raw >> shift, -1)
+    # key of row r at [i, r + 1]: -1 before the entry and past it
+    keys = np.concatenate([np.full((b, 1), -1), key, np.full((b, SPAN + 1), -1)], axis=1)
+
+    def valid(i, r, c):
+        if toff is None:
+            return bool(mask[i, r])
+        return toff[i, c >> 8] <= r < toff[i, (c >> 8) + 1]
+
+    for i in range(b):  # the mark pass, a row at a time
+        for r in np.flatnonzero(key[i] >= 0):
+            if valid(i, r, key[i, r]):
+                flags[i, rowmajor(int(key[i, r]), reso)] = True
+    for i in range(b):  # the run part, warp by warp
+        for s0 in range(0, n, SPAN):
+            ks = keys[i, s0:s0 + SPAN + 2]
+            c, prev, nxt = ks[1:-1], ks[:-2], ks[2:]
+            heads = (c >= 0) & (prev != c)
+            if not heads.any():
+                continue  # every run here is an earlier warp's
+            first = int(np.argmax(heads))
+            acc, cnt, sums, cnts = np.zeros(f, np.float32), 0, [], []
+            for k in range(SPAN):  # segmented scan in row order
+                if heads[k]:
+                    acc, cnt = np.zeros(f, np.float32), 0
+                if k >= first and c[k] >= 0 and valid(i, s0 + k, c[k]):
+                    acc, cnt = acc + x[i, s0 + k], cnt + 1
+                sums.append(acc)
+                cnts.append(cnt)
+            cont = c[-1] >= 0 and nxt[-1] == c[-1]
+            if cont and mutant != "no_read_on":  # the last run past the span
+                j = s0 + SPAN
+                while keys[i, j + 1] == c[-1]:
+                    if valid(i, j, c[-1]):
+                        acc, cnt = acc + x[i, j], cnt + 1
+                    j += 1
+            for k in range(first, SPAN):  # each own run's end: its cell, once
+                if c[k] < 0 or (nxt[k] == c[k] and k < SPAN - 1):
+                    continue
+                last = k == SPAN - 1 and cont
+                total, count = (acc, cnt) if last else (sums[k], cnts[k])
+                if count == 0:
+                    continue
+                dst = rowmajor(int(c[k]), reso)
+                plane[i, dst] = total / np.float32(count)
+                counts[i, dst] = count
+                writes[i, dst] += 1
+    if mutant != "no_zero_pass":  # the zero part: the cells whose flag is clear
+        plane[~flags] = 0
+        counts[~flags] = 0
+        writes[~flags] += 1
+    return (plane.reshape(b, reso, reso, f), counts.reshape(b, reso, reso),
+            writes.reshape(b, reso, reso))
+
+
+def tile_run_batch(seed: int, f: int = 8, foreign: bool = False):
+    """Four patches on the fused layout (finest 256^2, 256-cell tiles),
+    trimmed as the loader trims them: entry 0 puts 24 cells x 37 points into
+    finest tile 0 (runs across every span edge there, and one run of 888+
+    rows at 16^2) and 300 points into one cell of tile 9; entry 1 spreads its
+    points over the plane; entry 2 crowds them into a few cells; entry 3 has
+    no valid row. ``foreign`` writes a cell of the last quarter of the plane
+    into the first pad row of each padded tile among the first 64 (the first
+    quarter): rows of another tile at every level down to 32^2."""
+    rng = np.random.default_rng(seed)
+    n = 1500
+    npad = aligned_bucket_size(n, FINEST, tile_cells=256)
+    out = {k: [] for k in ("points", "mask", "cells", "tile_offsets")}
+    for i in range(4):
+        p = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+        m = np.ones(n, bool)
+        if i == 0:
+            cx = rng.choice(256, 24, replace=False)  # cells of 16 x 16 tile 0
+            xy = np.stack([cx % 16, cx // 16], -1).repeat(37, 0) + rng.uniform(0.1, 0.9, (888, 2))
+            p[:888, :2] = xy / FINEST
+            p[888:1188, :2] = (np.array([40, 21]) + rng.uniform(0.1, 0.9, (300, 2))) / FINEST
+            p[1188:, :2] = rng.uniform(0.0, 0.25, (n - 1188, 2))
+        if i == 2:
+            p[:, :2] = rng.uniform(0.30, 0.36, (n, 2))
+        if i == 3:
+            m[:] = False
+        a = host_morton_bucket_aligned(p, m, FINEST, tile_cells=256)
+        assert a["cells"].shape == (npad,)
+        for k in out:
+            out[k].append(a[k])
+    pts, mask, cells, toff = trim_aligned_batch(*(np.stack(out[k]) for k in out))
+    cells = cells.copy()
+    if foreign:
+        for i in range(3):
+            for tt in range(64):
+                lo, hi = toff[i, tt], toff[i, tt + 1]
+                pads = np.flatnonzero(cells[i, lo:hi] == PAD_CELL_SENTINEL)
+                if pads.size:
+                    cells[i, lo + pads[0]] = rng.integers(3 * 65536 // 4, 65536)
+    vals = rng.normal(size=mask.shape + (f,)).astype(np.float32)
+    vals[~mask] = 1e9  # junk on pad rows must not leak
+    return pts, mask, cells, toff, vals
+
+
+def level_toff(toff, reso):
+    return np.ascontiguousarray(toff[:, :: 4 ** (FINEST.bit_length() - reso.bit_length())])
+
+
+def level_shift(reso):
+    return 2 * (FINEST.bit_length() - reso.bit_length())
+
+
+def _scatter_k3(vals, cells, mask, mutant=None):
+    return emulate_scatter(vals, cells, RESO, mask=mask, mutant=mutant)
+
+
+def _scatter_k12(vals, cells, toff, reso, mutant=None):
+    return emulate_scatter(vals, cells, reso, toff=level_toff(toff, reso),
+                           shift=level_shift(reso), mutant=mutant)
+
+
+def _runs_per_cell(key):
+    """{cell: number of runs} of one entry's row keys (-1 out of range)."""
+    heads = np.flatnonzero((key >= 0) & np.r_[True, key[1:] != key[:-1]])
+    return np.bincount(key[heads])
+
+
+@pytest.fixture(scope="module", params=[False, True], ids=["aligned", "holes"])
+def k3_layout(request):
+    return run_batch(3, holes=request.param)
+
+
+@pytest.fixture(scope="module")
+def k12_layout():
+    return tile_run_batch(11)
+
+
+def test_layouts_reach_the_partition_edges(k12_layout):
+    _, mask, cells, toff, _ = k12_layout
+    ok = cells < PAD_CELL_SENTINEL
+    edges = [s for s in range(SPAN, cells.shape[1], SPAN)
+             if ok[0, s] and cells[0, s] == cells[0, s - 1]]
+    assert len(edges) >= 26  # runs of 37 rows straddle every span edge of tile 0
+    assert np.bincount(cells[0][mask[0]]).max() == 300
+    used = np.diff(toff[:3], axis=1)
+    assert ((used % 128) == 0).all() and (used > 0).sum() >= 3
+    for i in range(3):  # every used tile ends in pad rows
+        for lo, hi in zip(toff[i], toff[i, 1:]):
+            if hi > lo:
+                assert cells[i, hi - 1] == PAD_CELL_SENTINEL or mask[i, lo:hi].all()
+    assert not mask[3].any()
+    _, _, fcells, _, _ = tile_run_batch(11, foreign=True)
+    assert (fcells != cells).sum() >= 10
+
+
+@pytest.mark.parametrize("reso", LEVELS)
+def test_fused_layout_holds_one_run_per_cell(k12_layout, reso):
+    """On the fused layout every occupied cell at every level down to 16^2 is
+    one run (a coarse cell lies inside one finest tile, pads only at its
+    ends): the run kernel's contract. At 16^2 a cell is a whole finest tile."""
+    _, mask, cells, _, _ = k12_layout
+    for i in range(mask.shape[0]):
+        key = np.where(mask[i], cells[i].astype(np.int64) >> level_shift(reso), -1)
+        key = np.where(cells[i] < PAD_CELL_SENTINEL, key, -1)
+        runs = _runs_per_cell(key)
+        assert (runs <= 1).all(), reso
+    if reso == 16:  # entry 0's tile 0 is one run of 888+ rows, across 28 spans
+        key = np.where(mask[0], cells[0] >> 8, -1)
+        assert np.count_nonzero(key == 0) >= 888 and _runs_per_cell(key)[0] == 1
+
+
+def test_k3_emulation_matches_plain(k3_layout):
+    _, mask, cells, _, vals = k3_layout
+    got, counts, writes = _scatter_k3(vals, cells, mask)
+    assert (writes == 1).all()  # every plane cell stored once
+    want, want_counts = pk.scatter_plane2_plain(t(vals), t(cells), t(mask), RESO)
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
+    np.testing.assert_array_equal(counts, want_counts.numpy())
+    assert (got[-1] == 0).all() and (counts[-1] == 0).all()  # the empty entry
+
+
+@pytest.mark.parametrize("reso,foreign", [(r, False) for r in LEVELS]
+                         + [(r, True) for r in LEVELS if r >= 32])
+def test_k12_emulation_matches_plain(k12_layout, reso, foreign):
+    """Every level of the fused layout; with rows of another tile down to
+    32^2 (16^2 is one tile, where no row lies in another)."""
+    _, _, cells, toff, vals = tile_run_batch(11, foreign=True) if foreign else k12_layout
+    got, _, writes = _scatter_k12(vals, cells, toff, reso)
+    assert (writes == 1).all()
+    want = sk.aligned_scatter_mean_plane_plain(t(vals), t(cells), t(level_toff(toff, reso)),
+                                               reso, FINEST)
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
+    assert (got[-1] == 0).all()
+
+
+def test_k3_emulation_matches_jax_scatter_plane2():
+    """On the aligned layout proper (the JAX kernel masks rows by ``mask``)."""
+    _, mask, cells, toff, vals = run_batch(3)
+    ct, _ = chunk_metadata(jnp.asarray(toff), mask.shape[1], RESO, RESO)
+    want = np.asarray(jax_scatter_plane2(
+        jnp.asarray(vals), make_cells_row(jnp.asarray(cells)), ct,
+        empty_tile_mask(jnp.asarray(toff), RESO, RESO), jnp.asarray(mask), RESO))
+    got, _, _ = _scatter_k3(vals, cells, mask)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("reso", [32, 16])
+def test_k12_emulation_matches_jax(k12_layout, reso):
+    """The Pallas kernel in interpret mode at the coarse levels, where runs
+    are longest."""
+    _, _, cells, toff, vals = k12_layout
+    want = np.asarray(pallas_aligned_scatter_mean_plane(
+        jnp.asarray(vals), jnp.asarray(cells.reshape(cells.shape[0], -1, 128)),
+        jnp.asarray(level_toff(toff, reso)), reso, FINEST, interpret=True))
+    got, _, _ = _scatter_k12(vals, cells, toff, reso)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mutant", ["no_read_on", "no_zero_pass"])
+def test_mutants_fail(k3_layout, k12_layout, mutant):
+    """Without the walk past the span, runs longer than their head's span
+    lose rows; without the zero pass, empty cells are never written."""
+    _, mask, cells, _, vals = k3_layout
+    got, _, writes = _scatter_k3(vals, cells, mask, mutant)
+    want = pk.scatter_plane2_plain(t(vals), t(cells), t(mask), RESO)[0].numpy()
+    assert (writes != 1).any() or not np.allclose(got, want, **TOL)
+    _, _, cells, toff, vals = k12_layout
+    got, _, writes = _scatter_k12(vals, cells, toff, 16, mutant)
+    want = sk.aligned_scatter_mean_plane_plain(t(vals), t(cells), t(level_toff(toff, 16)), 16,
+                                               FINEST).numpy()
+    assert (writes != 1).any() or not np.allclose(got, want, **TOL)
+
+
+def test_emulation_sums_in_row_order(k3_layout):
+    """A run's mean is its float32 left fold in row order over its count, so
+    the kernel's result is fixed; the 300-row run shows it."""
+    _, mask, cells, _, vals = k3_layout
+    cell = np.bincount(cells[1][mask[1]]).argmax()
+    rows = np.flatnonzero(mask[1] & (cells[1] == cell))
+    fold = np.zeros(vals.shape[-1], np.float32)
+    for r in rows:
+        fold = fold + vals[1, r]
+    got, counts, _ = _scatter_k3(vals, cells, mask)
+    y, x = divmod(rowmajor(int(cell), RESO), RESO)
+    assert counts[1, y, x] == rows.size
+    np.testing.assert_array_equal(got[1, y, x], fold / np.float32(rows.size))
+
+
+def test_kernel_source_matches_the_emulation():
+    """The emulated span is the kernel's; the run scatter adds with no atomic,
+    and the atomic plane scatter is gone."""
+    src = open(SOURCE).read()
+    assert f"constexpr int kSpan = {SPAN};" in src
+    body = src[src.index("scatter_runs(const float*"):src.index("}  // namespace t2h")]
+    assert "atomic" not in body
+    assert "scatter_plane_accum" not in src and "t2h_scatter_plane(" not in src
+    for wrapper in (pk._scatter_plane2, sk.aligned_scatter_mean_plane):
+        assert "t2h_scatter_runs" in inspect.getsource(wrapper)

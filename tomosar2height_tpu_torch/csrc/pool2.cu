@@ -1,13 +1,17 @@
 // Local pooling and plane scatter of point features: the Hopper versions of
-// the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py.
+// the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py,
+// and of the aligned tile scatter-mean of scatter_kernel.py.
 //
 //   K1 + K2 pool_runs    <- _reduce_kernel (:46) then _gather_kernel (:133), as
 //                           _chunkgrid_pool_jit (:221) runs them: pool2's forward
 //                           (max / mean / sum) and its backward (pool2_bwd, :492)
 //   K2 t2h_pool_gather   <- _gather_kernel (:133) as _scatter_plane2_bwd (:424)
 //                           runs it: each row reads a row-major plane at its cell
-//   K3 t2h_scatter_plane <- _scatter_plane_kernel (:263): scatter-mean into a
-//                           row-major plane
+//   K3 scatter_runs      <- _scatter_plane_kernel (:263): masked scatter-mean
+//                           into a row-major plane, with the cells' counts
+//   K12 scatter_runs     <- scatter_kernel.py _aligned_scatter_kernel (:242):
+//                           the same over the aligned layout's 256-cell tiles at
+//                           a coarser level, a row adding only inside its tile
 //
 // pool_runs: one launch, no atomics, no cell buffer. Contract: in each batch
 // entry the rows that hold one cell id, and so the cell's valid rows, are
@@ -44,6 +48,38 @@
 // ~11 us at 3.35 TB/s (the tie gate reads values and out on the valid rows
 // besides). A warp issues all loads of its span before it reduces, so it
 // waits about two memory latencies (cell ids and mask, then rows).
+
+// scatter_runs (K3, K12): the same partition, writing each run's mean to its
+// cell of a row-major plane (B, reso, reso, F) instead of back to its rows.
+// A row's cell is cells >> shift at this resolution (K3: shift 0); it is in
+// range when cells >= 0 and the cell < reso^2. A row is valid when, besides,
+// K3: its mask is set; K12 (TILED): the row lies in the row range
+// [toff[t], toff[t + 1]) of the 256-cell tile t = cell >> 8 that holds its
+// cell (a pad, PAD_CELL_SENTINEL, is never in range). Runs are as above, on
+// the cell at this resolution. On the fused layout (256-cell finest tiles,
+// pads only at finest-tile ends) a cell at level l <= 4 covers 4^l finest
+// cells inside one finest tile, so its rows are contiguous and no pad falls
+// among them: each occupied cell is one run down to 16^2
+// (tests/test_torch_scatter_runs.py holds this at 16^2). A run with a valid
+// row writes its cell's mean (K3: and count) once, by the warp of its head,
+// from its row-order sum; a run with none writes nothing.
+// Three steps in one stream: the flags (B * reso^2 bytes) are cleared; the
+// mark pass sets the flag of every cell that holds a valid row (a thread a
+// row, all storing 1); then one launch whose blocks alternate between the
+// run part (the occupied cells) and the zero part (0 to every cell, and
+// count, whose flag is clear), so the latency-bound walk of the runs and the
+// bandwidth-bound zeros (most of the plane: >= 75% of the cells at 256^2)
+// overlap, and no warp walks a gap of empty cells. Each plane cell and each
+// count is written once; no float atomic; bit-equal run to run. Cell ids
+// cannot be binary-searched (pads carry the sentinel mid-entry), so every
+// row's id is read. The run part's grid is sized by spans x feature chunks,
+// not by tiles, so a level of few tiles (32^2, 16^2) gets as many warps as
+// 256^2; a lane takes 1, 2 or 4 features (F < 64, < 128, from 128 on).
+//
+// Bound on the H100: bytes: values on the valid rows, every row's cell id (and
+// mask, K3; tile offsets, K12), the plane and counts written once (+ the
+// flags). K3 at B = 8, Npad = 20480, F = 32: ~16 MB of values and ~67 MB of
+// plane, ~26 us at 3.35 TB/s; the zeros are most of it.
 
 #include "common.cuh"
 
@@ -241,22 +277,252 @@ __global__ void pool_gather(const float* __restrict__ plane, const int* __restri
   }
 }
 
-__global__ void scatter_plane_accum(const float* __restrict__ values,
-                                    const int* __restrict__ cells,
-                                    const uint8_t* __restrict__ mask,
-                                    float* __restrict__ plane, int* __restrict__ counts,
-                                    int N, int F, int reso, long long total) {
+// A row's cell at this resolution, or -1 when it is out of range (pads,
+// negative ids).
+__device__ __forceinline__ int level_cell(int raw, int shift, int ncell) {
+  const int c = raw >> shift;
+  return raw >= 0 && c < ncell ? c : -1;
+}
+
+// The zero part: 0 to every plane cell (and count) whose flag is clear.
+// Block `block` of `blocks`; a thread takes kZeroItems items, a grid's width
+// apart (each store coalesced), their flags loaded first; an item is a float4
+// (vec: F % 4 == 0) or a float; q = items a cell, qshift = log2(q) when q is
+// a power of two (no division), else -1.
+constexpr int kZeroItems = 4;
+
+__device__ __forceinline__ void zero_empty_cells(float* __restrict__ plane,
+                                                 int* __restrict__ counts,
+                                                 const uint8_t* __restrict__ flags,
+                                                 unsigned block, unsigned blocks, unsigned n,
+                                                 unsigned q, int qshift, bool vec) {
+  const unsigned stride = blocks * blockDim.x;
+  const unsigned i0 = block * blockDim.x + threadIdx.x;
+  unsigned cell[kZeroItems];
+  bool empty[kZeroItems];
+#pragma unroll
+  for (int k = 0; k < kZeroItems; ++k) {
+    const unsigned i = i0 + k * stride;
+    cell[k] = qshift >= 0 ? i >> qshift : i / q;
+    empty[k] = i < n && !flags[cell[k]];
+  }
+#pragma unroll
+  for (int k = 0; k < kZeroItems; ++k) {
+    if (!empty[k]) continue;
+    const unsigned i = i0 + k * stride;
+    if (vec) {
+      reinterpret_cast<float4*>(plane)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    } else {
+      plane[i] = 0.0f;
+    }
+    if (counts != nullptr && i == cell[k] * q) counts[cell[k]] = 0;
+  }
+}
+
+// The mark pass: flags[cell] = 1 for every cell that holds a valid row; a
+// thread a row (blockIdx.y = batch entry). Rows of one cell store the same
+// byte, so their order does not matter.
+template <bool TILED>
+__global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restrict__ mask,
+                           const int* __restrict__ toff, uint8_t* __restrict__ flags, int N,
+                           int reso, int shift, int toff_row) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const long long b = blockIdx.y;
   const int ncell = reso * reso;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long p = t / F;
-    const int f = static_cast<int>(t - p * F);
-    const int cell = cells[p];
-    if (!mask[p] || cell < 0 || cell >= ncell) continue;
-    const long long b = p / N;
-    const long long row = b * ncell + morton_to_rowmajor(cell, reso);
-    atomicAdd(plane + row * F + f, values[t]);
-    if (f == 0) atomicAdd(counts + row, 1);
+  const int c = level_cell(cells[b * N + row], shift, ncell);
+  if (c < 0) return;
+  const int* to = TILED ? toff + b * toff_row : nullptr;
+  if (TILED ? to[c >> 8] <= row && row < to[(c >> 8) + 1] : mask[b * N + row] != 0)
+    flags[b * ncell + morton_to_rowmajor(c, reso)] = 1;
+}
+
+// VEC consecutive features of a row, loaded and stored as one vector.
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&a)[VEC],
+                                           int count) {
+  const float n = static_cast<float>(count);
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(a[0] / n, a[1] / n, a[2] / n, a[3] / n);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(a[0] / n, a[1] / n);
+  } else {
+    *p = a[0] / n;
+  }
+}
+
+// K3 (TILED false: mask) and K12 (TILED true: tile offsets, no mask): the run
+// part and the zero part in one launch, after the mark pass. The run part's
+// warp = (batch entry, span, chunk of 32 * VEC features), chunk fastest, so a
+// block's warps share the span's ids in L1 when there are 8 chunks or more;
+// a lane loads VEC features of a row at once (VEC 4: a row's 128 features
+// are one 512-byte load). The span's rows load in groups of 32 / VEC (4 KB a
+// warp in flight, 32 registers of values) and are summed as they come, each
+// run's end written at once. Three blocks an SM (<= 80 registers).
+template <bool TILED, int VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
+             const uint8_t* __restrict__ mask, const int* __restrict__ toff,
+             float* __restrict__ plane, int* __restrict__ counts,
+             const uint8_t* __restrict__ flags, int B, int N, int F, int reso, int shift,
+             int toff_row, unsigned run_blocks, unsigned zero_blocks, unsigned zero_n,
+             unsigned zero_q, int zero_qshift) {
+  constexpr int kGroup = kSpan / VEC;  // rows loaded at once
+  // blocks alternate between the two parts while both have blocks left
+  const unsigned pairs = min(run_blocks, zero_blocks);
+  const bool zero_part = blockIdx.x < 2 * pairs ? blockIdx.x & 1u : run_blocks < zero_blocks;
+  const unsigned part_block = blockIdx.x < 2 * pairs ? blockIdx.x >> 1 : blockIdx.x - pairs;
+  if (zero_part) {
+    zero_empty_cells(plane, counts, flags, part_block, zero_blocks, zero_n, zero_q,
+                     zero_qshift, F % 4 == 0);
+    return;
+  }
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)part_block * blockDim.x + threadIdx.x) >> 5;
+  const int chunks = (F + 32 * VEC - 1) / (32 * VEC);
+  const int spans = (N + kSpan - 1) / kSpan;
+  if (warp >= (long long)B * spans * chunks) return;  // warp-uniform
+  const int fc = static_cast<int>(warp % chunks);
+  const long long bs = warp / chunks;
+  const long long b = bs / spans;
+  const int s0 = static_cast<int>(bs - b * spans) * kSpan;
+  const long long base = b * N;  // first row of batch entry b
+  const int* cb = cells + base;
+  const uint8_t* mb = TILED ? nullptr : mask + base;
+  const int* to = TILED ? toff + b * toff_row : nullptr;
+  const int ncell = reso * reso;
+
+  // lane = row of the span: its cell, -1 out of range; the neighbours' by
+  // shuffles, lanes 0 and 31 read the rows beside the span
+  const int row = s0 + lane;
+  const bool in = row < N;
+  const int c = in ? level_cell(cb[row], shift, ncell) : -1;
+  const bool mk = !TILED && in && mb[row] != 0;
+  int edge = -1;
+  if (lane == 0 && s0 > 0) edge = level_cell(cb[s0 - 1], shift, ncell);
+  if (lane == kSpan - 1 && row + 1 < N) edge = level_cell(cb[row + 1], shift, ncell);
+  int cprev = __shfl_up_sync(kFull, c, 1);
+  int cnext = __shfl_down_sync(kFull, c, 1);
+  if (lane == 0) cprev = edge;
+  if (lane == kSpan - 1) cnext = edge;
+  const bool ok = c >= 0;
+  const unsigned heads = __ballot_sync(kFull, ok && cprev != c);
+  if (heads == 0) return;  // warp-uniform: every run here is an earlier warp's
+  bool m = mk;
+  if (TILED) m = ok && to[c >> 8] <= row && row < to[(c >> 8) + 1];
+  const unsigned before = (heads & (0u - heads)) - 1u;  // below the first head
+  const unsigned own = __ballot_sync(kFull, m) & ~before;  // valid rows of own runs
+  const bool cont = (__ballot_sync(kFull, ok && cnext == c) & ~before) >> (kSpan - 1);
+  // a run's last row in the span (the next row holds another cell); the
+  // last run, if it goes on, is written after the walk past the span
+  const unsigned ends =
+      __ballot_sync(kFull, ok && (cnext != c || lane == kSpan - 1)) & ~before &
+      ~(cont ? 1u << (kSpan - 1) : 0u);
+  // lane k: the valid rows of the run that ends at row k, from its head on
+  const unsigned upto = lane == kSpan - 1 ? kFull : (2u << lane) - 1u;
+  const unsigned hb = heads & upto;
+  const int run_count = __popc(own & upto & ~(hb ? (1u << (31 - __clz(hb))) - 1u : 0u));
+
+  const int f = (fc * 32 + lane) * VEC;
+  const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
+  const float* xf = x + base * F + f;
+  float* pb = plane + b * ncell * F + f;
+  const int my_dst = ok ? morton_to_rowmajor(c, reso) : 0;  // lane k: row k's cell
+  auto write = [&](int k, const float (&a)[VEC], int count) {
+    const int dst = __shfl_sync(kFull, my_dst, k);
+    if (fin) store_mean<VEC>(pb + (long long)dst * F, a, count);
+    if (!TILED && fc == 0 && lane == 0) counts[b * ncell + dst] = count;
+  };
+
+  // the span's own runs in row order, a group of rows at a time
+  float acc[VEC] = {};
+#pragma unroll
+  for (int g = 0; g < kSpan; g += kGroup) {
+    float v[kGroup][VEC];
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      if (fin && (own >> (g + k) & 1u)) {
+        load_vec<VEC>(xf + (long long)(s0 + g + k) * F, v[k]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kGroup; ++k) {
+      const int r = g + k;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        if (heads >> r & 1u) acc[e] = 0.0f;
+        if (own >> r & 1u) acc[e] += v[k][e];
+      }
+      if (ends >> r & 1u) {
+        const int count = __shfl_sync(kFull, run_count, r);
+        if (count > 0) write(r, acc, count);
+      }
+    }
+  }
+
+  // the last run past the span, in row order, 32 rows a step; the next
+  // step's ids (and mask) load while this step's rows do
+  if (cont) {
+    int count = __shfl_sync(kFull, run_count, kSpan - 1);
+    int lo = 0, hi = 0;
+    const int c_last = __shfl_sync(kFull, c, kSpan - 1);
+    if (TILED) {
+      lo = to[c_last >> 8];
+      hi = to[(c_last >> 8) + 1];
+    }
+    int j0 = s0 + kSpan;
+    int cn = j0 + lane < N ? cb[j0 + lane] : -1;
+    bool mn = !TILED && j0 + lane < N && mb[j0 + lane] != 0;
+    for (;;) {
+      const int j = j0 + lane;
+      const unsigned same = __ballot_sync(kFull, level_cell(cn, shift, ncell) == c_last);
+      const int len = same == kFull ? kSpan : __ffs(~same) - 1;
+      const unsigned tv =
+          __ballot_sync(kFull, lane < len && (TILED ? lo <= j && j < hi : mn));
+      if (len == kSpan) {
+        cn = j + kSpan < N ? cb[j + kSpan] : -1;
+        if (!TILED) mn = j + kSpan < N && mb[j + kSpan] != 0;
+      }
+#pragma unroll
+      for (int g = 0; g < kSpan; g += kGroup) {
+        float v[kGroup][VEC];
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k) {
+          if (fin && (tv >> (g + k) & 1u)) {
+            load_vec<VEC>(xf + (long long)(j0 + g + k) * F, v[k]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+          }
+        }
+#pragma unroll
+        for (int k = 0; k < kGroup; ++k)
+          if (tv >> (g + k) & 1u) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] += v[k][e];
+          }
+      }
+      count += __popc(tv);
+      if (len < kSpan) break;
+      j0 += kSpan;
+    }
+    if (count > 0) write(kSpan - 1, acc, count);
   }
 }
 
@@ -307,23 +573,59 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
-// values (B,N,F), cells (B,N) Morton ids at `reso`, mask (B,N) ->
-// plane (B,reso,reso,F) row-major scatter-mean, counts (B,reso,reso) i32.
-int t2h_scatter_plane(const float* values, const int* cells, const uint8_t* mask,
-                      float* plane, int* counts, int B, int N, int F, int reso,
-                      cudaStream_t stream) {
-  const long long nc = (long long)B * reso * reso;
-  const long long nv = nc * F;
-  const long long np = (long long)B * N * F;
-  if (nv > 0) {
-    fill_f32<<<grid_for(nv), kThreads, 0, stream>>>(plane, nv, 0.0f);
-    fill_i32<<<grid_for(nc), kThreads, 0, stream>>>(counts, nc, 0);
+// values (B,N,F) f32, cells (B,N) i32 Morton ids (finest; the cell at reso
+// is cells >> shift), flags (B,reso,reso) u8 scratch -> plane (B,reso,reso,F)
+// row-major scatter-mean of the valid rows, 0 on empty cells. Either K3:
+// mask (B,N) u8, toff null, counts (B,reso,reso) i32 written; or K12: mask
+// null, toff (B,toff_row) i32 row offsets of the reso^2/256 tiles (reso^2 a
+// multiple of 256), counts null. Three launches: clear, mark, runs + zeros.
+int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
+                     const int* toff, float* plane, int* counts, uint8_t* flags, int B,
+                     int N, int F, int reso, int shift, int toff_row, cudaStream_t stream) {
+  const bool tiled = toff != nullptr;
+  const long long ncells = (long long)B * reso * reso;
+  const bool vec = F % 4 == 0;
+  const long long items = ncells * (vec ? F / 4 : F);
+  if (tiled == (mask != nullptr) || tiled == (counts != nullptr) || items >= (1LL << 31) ||
+      (tiled && (reso * reso) % 256 != 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (items == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (N > 0) {
+    const dim3 grid((N + kThreads - 1) / kThreads, B);
+    if (tiled)
+      mark_cells<true><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift,
+                                                      toff_row);
+    else
+      mark_cells<false><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso,
+                                                       shift, toff_row);
   }
-  if (np > 0)
-    scatter_plane_accum<<<grid_for(np), kThreads, 0, stream>>>(
-        values, cells, mask, plane, counts, N, F, reso, np);
-  if (nv > 0)
-    divide_by_counts<<<grid_for(nv), kThreads, 0, stream>>>(plane, counts, nv, F);
+  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
+  // not aligned to 16 bytes)
+  const bool aligned = reinterpret_cast<uintptr_t>(values) % 16 == 0;
+  const int run_vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
+  const long long threads =
+      (long long)B * ((N + kSpan - 1) / kSpan) * ((F + 32 * run_vec - 1) / (32 * run_vec)) * 32;
+  const unsigned run_blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const unsigned q = vec ? F / 4 : F;
+  const int qshift = (q & (q - 1)) == 0 ? __builtin_ctz(q) : -1;
+  const unsigned zero_blocks =
+      static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems));
+#define T2H_SCATTER_RUNS(T, V)                                                            \
+  scatter_runs<T, V><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(                  \
+      values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
+      run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
+  if (tiled) {
+    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2);
+    else T2H_SCATTER_RUNS(true, 1);
+  } else {
+    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2);
+    else T2H_SCATTER_RUNS(false, 1);
+  }
+#undef T2H_SCATTER_RUNS
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,20 +1,22 @@
-// Morton-tile scatter-mean: the Hopper version of four Pallas kernels in
+// Morton-tile scatter-mean: the Hopper version of three Pallas kernels in
 // tomosar2height_tpu/ops/pallas/scatter_kernel.py that compute one function
 // on one contract:
 //
 //   K11 _scatter_tile_kernel_plane (pallas_scatter_mean_plane)   -> row-major plane
-//   K12 _aligned_scatter_kernel (pallas_aligned_scatter_mean_plane) -> row-major plane
 //   K13 _scatter_tile_kernel (pallas_scatter_mean)               -> Morton cell vector
 //   K14 _scatter_v3_kernel (pallas_scatter_mean_plane_v3)        -> row-major plane
 //
+// (K12, _aligned_scatter_kernel, the same function on the aligned tile
+// offsets at a level, runs on csrc/pool2.cu's scatter_runs: no atomics, each
+// cell written once, bit-equal run to run.)
+//
 // The function: rows come grouped by 16x16 Morton tile (256 cells), each
 // tile's rows contiguous, [toff[t], toff[t+1]); a row adds its values to cell
-// (cell >> shift) - 256 t of its tile when that lies in [0, 256), else nothing
-// (pad rows, PAD_CELL_SENTINEL, rows of a neighbouring tile); each cell's
-// mean is written, 0 for an empty cell. The launchers differ only in where
-// the tile offsets come from (K11/K13: every 256th per-cell offset; K12: the
-// aligned tile offsets at this resolution; K14: the finest tile offsets,
-// every 4^level-th) and in the output order.
+// (cell >> shift) - 256 t of its tile when that lies in [0, 256), else
+// nothing (pad rows, PAD_CELL_SENTINEL, rows of a neighbouring tile); each
+// cell's mean is written, 0 for an empty cell. The launchers differ only in
+// where the tile offsets come from (K11/K13: every 256th per-cell offset;
+// K14: the finest tile offsets, every 4^level-th) and in the output order.
 //
 // The TPU kernels build one-hot matrices and contract them on the MXU, a
 // chunk of 128 rows at a time over a sequential grid. Here a block owns one
@@ -22,9 +24,9 @@
 // w takes rows w, w + 8, ...; lane = feature), add them into a 256 x 32
 // shared-memory accumulator and the cell counts with shared atomics, and the
 // block writes its 256 cells once. A block owns its cells, so there are no
-// global atomics and no zero-fill, unlike K3. The sums are not bit-
-// reproducible run to run: the eight warps add into a cell in no fixed order
-// (float addition is not associative); the counts are exact.
+// global atomics and no zero-fill. The sums are not bit-reproducible run to
+// run: the eight warps add into a cell in no fixed order (float addition is
+// not associative); the counts are exact.
 //
 // Bound on the H100: bytes. Each input row is read once (F floats and its
 // cell id) and each output cell written once: at the flagship's 256^2 level

@@ -12,7 +12,11 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
 - K2 alone (``t2h_pool_gather``) for ``scatter_plane2``'s backward: each
   valid row reads a row-major plane at its cell (:func:`scatter_plane2_bwd`).
 - K3 :func:`scatter_plane2` <- ``_scatter_plane_kernel`` (pool2_kernel.py:263):
-  masked scatter-mean into a row-major NHWC plane, plus per-cell counts.
+  masked scatter-mean into a row-major NHWC plane, plus per-cell counts, on
+  the same runs (``scatter_runs``, which also serves K12 in
+  ``scatter_kernel.py``): each run's row-order mean and count written to
+  its cell once, the empty cells (marked first) zeroed in the same launch;
+  no atomics.
 
 They read only the finest Morton cell ids and the mask: the TPU's chunk
 metadata (ct/pt/tmask) served its sequential grid and has no use here. What
@@ -20,14 +24,15 @@ bounds them on the H100 and how the design answers it is noted in the CUDA
 source. A CPU tensor takes the plain torch version (``*_plain``), a CUDA
 tensor the kernel; there is no fallback between the two.
 
-**Contract of the run kernel:** in each batch entry the rows that hold one
-cell id, and so the cell's valid rows, are contiguous (the mask may clear
-rows among them), as on the aligned layout (``ops/sorted_scatter.py``,
-:func:`host_morton_bucket_aligned`: Morton-sorted rows, pads only at tile
-ends). A run is a maximal range of rows with one in-range cell id; a cell
-split into two runs would pool as two cells, unchecked. The plain versions
-(:func:`pool2_plain`, :func:`pool2_bwd_plain`) take any order and are the
-oracle.
+**Contract of the run kernels** (``pool_runs``, ``scatter_runs``): in each
+batch entry the rows that hold one cell id, and so the cell's valid rows,
+are contiguous (the mask may clear rows among them), as on the aligned
+layout (``ops/sorted_scatter.py``, :func:`host_morton_bucket_aligned`:
+Morton-sorted rows, pads only at tile ends). A run is a maximal range of
+rows with one in-range cell id; a cell split into two runs would pool as two
+cells (or, scattered, keep one run's mean), unchecked. The plain versions
+(:func:`pool2_plain`, :func:`pool2_bwd_plain`, :func:`scatter_plane2_plain`)
+take any order and are the oracle.
 
 :func:`pool2` and :func:`scatter_plane2` are differentiable in ``values``
 (``torch.autograd.Function``s); their backwards follow the JAX custom_vjps
@@ -251,12 +256,13 @@ def _scatter_plane2(values, cells, mask, reso: int):
     if runtime.on_cpu(values):
         return scatter_plane2_plain(values, cells, mask, reso)
     b, n, f = _check_points(values, cells, mask)
-    lib = runtime.library()
-    plane = torch.empty((b, reso, reso, f), device=values.device, dtype=torch.float32)
-    counts = torch.empty((b, reso, reso), device=values.device, dtype=torch.int32)
-    err = lib.t2h_scatter_plane(values.data_ptr(), cells.data_ptr(), mask.data_ptr(),
-                                plane.data_ptr(), counts.data_ptr(), b, n, f, reso,
-                                runtime.stream_ptr(values.device))
+    dev = values.device
+    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    counts = torch.empty((b, reso, reso), device=dev, dtype=torch.int32)
+    flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
+    err = runtime.library().t2h_scatter_runs(
+        values.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, plane.data_ptr(),
+        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, runtime.stream_ptr(dev))
     runtime.check(err, "scatter_plane2")
     runtime.LAUNCHES["scatter_plane2"] += 1
     return plane, counts

@@ -5,9 +5,16 @@ Pallas kernels compute one function on one contract: rows grouped by 16x16
 Morton tile (256 cells), each tile's rows contiguous; a row adds into cell
 ``(cell >> shift) - 256 t`` of its tile t when that lies in [0, 256), else
 nowhere (pad rows, ``PAD_CELL_SENTINEL``, rows of another tile); each cell's
-mean is written, 0 for an empty cell. One CUDA kernel computes it
-(``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean``), and each TPU kernel
-keeps its own launcher, plain version and launch count:
+mean is written, 0 for an empty cell. Two CUDA kernels compute it, and
+each TPU kernel keeps its own launcher, plain version and launch count:
+K11, K13 and K14 run ``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean`` (a
+block a tile, shared-memory atomics); K12 runs ``csrc/pool2.cu``
+``t2h_scatter_runs``, K3's atomic-free pass over the Morton-sorted runs
+(a warp sums each run in row order and writes its cell once; the empty
+cells, marked first, are zeroed in the same launch: bit-equal run to run).
+Its contract is the fused layout's: a cell's rows at this resolution are
+contiguous (true down to 16^2, where a cell is one finest 256-cell tile),
+pads only between cells.
 
 - K11 :func:`scatter_mean_plane` <- ``_scatter_tile_kernel_plane``
   (scatter_kernel.py:124, ``pallas_scatter_mean_plane``): the plain sorted
@@ -100,10 +107,9 @@ def _forward_only(values, name: str) -> None:
                            "vjp (train on the 'fused' or 'fused2' layout)")
 
 
-def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
-            morton_out: bool):
-    """Launch ``t2h_tile_scatter_mean``; tile t of entry b spans rows
-    [toff[b, t*step], toff[b, (t+1)*step])."""
+def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
+    """Raise unless the arguments fit a launch over ``reso``'s 256-cell tiles,
+    tile t of entry b spanning rows [toff[b, t*step], toff[b, (t+1)*step])."""
     dev = values.device
     b, n, f = values.shape
     if (reso * reso) % TILE_CELLS:
@@ -115,6 +121,15 @@ def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
     runtime.require(toff, "tile offsets", torch.int32, (b, toff.shape[1]), dev)
     if toff.shape[1] < tiles * step + 1:
         raise ValueError(f"{name}: {toff.shape[1]} tile offsets, need {tiles * step + 1}")
+
+
+def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
+            morton_out: bool):
+    """Launch ``t2h_tile_scatter_mean`` (K11, K13, K14); tile t of entry b
+    spans rows [toff[b, t*step], toff[b, (t+1)*step])."""
+    dev = values.device
+    b, n, f = values.shape
+    _check_tiles(name, values, cells, toff, reso, step)
     shape = (b, reso * reso, f) if morton_out else (b, reso, reso, f)
     out = torch.empty(shape, device=dev, dtype=torch.float32)
     err = runtime.library().t2h_tile_scatter_mean(
@@ -164,8 +179,18 @@ def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: i
     """
     if runtime.on_cpu(values):
         return aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso, finest)
-    return _launch("aligned_scatter_mean_plane", values, cells, tile_offsets, reso,
-                   level_shift(reso, finest), 1, False)
+    dev = values.device
+    b, n, f = values.shape
+    _check_tiles("aligned_scatter_mean_plane", values, cells, tile_offsets, reso, 1)
+    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
+    err = runtime.library().t2h_scatter_runs(
+        values.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(), plane.data_ptr(),
+        0, flags.data_ptr(), b, n, f, reso, level_shift(reso, finest),
+        tile_offsets.shape[1], runtime.stream_ptr(dev))
+    runtime.check(err, "aligned_scatter_mean_plane")
+    runtime.LAUNCHES["aligned_scatter_mean_plane"] += 1
+    return plane
 
 
 def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):
