@@ -65,11 +65,13 @@ Phase 3 also holds every backward (K5 at the eight levels, pool2's on its
 run kernel (K1 + K2 in one launch, forward and backward each run twice and
 held bit-equal), scatter_plane2's on K2) against its plain version, K4/K5 at the
 depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every shape of a
-flagship forward on the 'fused' and 'pallas' layouts. K3 and K12 run on the
-run scatter (``scatter_runs``: each run's cell written once, the empty cells
-zeroed in the same launch), each also held bit-equal on a second launch;
-K12 is timed on three copies of its inputs and logged at each of its 10
-shapes. Bounds count per-row inputs only on the rows a kernel reads them for.
+flagship forward on the 'fused' and 'pallas' layouts. K3, K11 and K12 run
+on the run scatter (``scatter_runs``: each run's cell written once, the
+empty cells zeroed in the same launch), K10 on pool2's run kernel under the
+tile rule, each also held bit-equal on a second launch; K10, K11 and K12 are
+timed on three copies of their inputs, K10 logged by kind, K11 at each of its
+9 shapes and K12 at each of its 10. Bounds count per-row inputs only on the
+rows a kernel reads them for.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table as JSON: ``launches`` from the timed training run for K1-K5
@@ -110,8 +112,8 @@ TF32X3_FLOP_S = TF32_FLOP_S / 3
 # conv of K6's first two passes, K7 and K8, and K6's third conv with the head
 TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
                        "conv3x3_igemm", "conv3x3_head_igemm")
-# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path; K3 and K12),
-# whose register budget sets three blocks an SM
+# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K3, K11
+# and K12), whose register budget sets three blocks an SM
 RUN_KERNELS = ("pool_runs", "scatter_runs", "mark_cells")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
@@ -990,54 +992,79 @@ def check_tile_kernels(entry, seed: int = 0):
           lambda: [fn() for fn in lfns])
     del pairs, kfns, pfns, lfns
 
-    # K10: the four poolings (F=32 at 256^2), max and mean; every row written
+    # K10: the four poolings (F=32 at 256^2), max and mean, on pool2's run
+    # kernel under the tile rule: three copies of its inputs in turn (as
+    # pool2.cu's rows), each kind logged, a second launch held bit-equal;
+    # every row written
     vals = rows_of(32)
-    pairs = [(tpk.tile_pool(vals, cells, toff, k), tpk.tile_pool_plain(vals, cells, toff, k))
-             for k in ("max", "mean")]
-    entry("tile_pool", "tomosar2height_tpu_torch/csrc/tile_pool.cu",
+    copies = [(vals, cells, toff)] + [tuple(x.clone() for x in (vals, cells, toff))
+                                      for _ in range(2)]
+    pairs, by_kind, repeat = [], [], True
+    for k in ("max", "mean"):
+        out = tpk.tile_pool(vals, cells, toff, k)
+        pairs.append((out, tpk.tile_pool_plain(vals, cells, toff, k)))
+        repeat = repeat and torch.equal(out, tpk.tile_pool(vals, cells, toff, k))
+        ms = graph_ms([lambda a=a, k=k: tpk.tile_pool(*a, k) for a in copies])
+        by_kind.append(f"{k} {ms:.4f}")
+    log("kernels", f"tile_pool by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
+        f"bit-equal on a second launch: {repeat}")
+    if not repeat:
+        raise AssertionError("tile_pool differs between two launches")
+    entry("tile_pool", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool_kernel.py:36", pairs,
-          lambda: tpk.tile_pool(vals, cells, toff, "max"),
-          lambda: tpk.tile_pool_plain(vals, cells, toff, "max"),
+          [lambda a=a: tpk.tile_pool(*a, "max") for a in copies],
+          [lambda a=a: tpk.tile_pool_plain(*a, "max") for a in copies],
           (scatter_bytes(vals, cells, toff, 0, 256, pairs[0][0], in_tiles), vals.numel()),
           _scatter_yardstick(vals, cells, 0, 256 * 256, dev, "amax"))
-    del pairs, vals
+    del pairs, vals, copies
 
-    # K12 (the nine scatters, plus 16^2 at F=1024) on the run scatter: three
-    # copies of its inputs in turn (as pool2.cu's rows), each shape logged,
-    # a second launch held bit-equal. It reads every row's id, and clears and
-    # reads B * r^2 bytes of flags
+    def run_scatter_row(name, replaces, fn, plain, shapes):
+        """The row of a run scatter (K11, K12: ``scatter_runs``): ``shapes``
+        lists (label, the call's arguments on each of three input copies,
+        bytes(out), library yardstick) per shape; each shape timed on the
+        copies in turn (as pool2.cu's rows) and logged kernel/plain/bound,
+        a second launch held bit-equal."""
+        args, pairs, lfns, work, by_shape, repeat = [[], [], []], [], [], [0, 0], [], True
+        for label, shape_args, bytes_of, lfn in shapes:
+            a = shape_args[0]
+            out = fn(*a)
+            pairs.append((out, plain(*a)))
+            repeat = repeat and torch.equal(out, fn(*a))
+            moved = bytes_of(out)
+            work[0] += moved
+            work[1] += a[0].numel()
+            ms = graph_ms([lambda a=a: fn(*a) for a in shape_args])
+            by_shape.append(f"{label} {ms:.4f}/{graph_ms(lambda: plain(*a), 3, 1):.4f}/"
+                            f"{bound(moved, a[0].numel())[0]:.4f}")
+            for k, sa in enumerate(shape_args):
+                args[k].append(sa)
+            lfns.append(lfn)
+        log("kernels", f"{name} by shape, kernel (three copies)/plain/bound ms: "
+            f"{'; '.join(by_shape)} | bit-equal on a second launch: {repeat}")
+        if not repeat:
+            raise AssertionError(f"{name} differs between two launches")
+        entry(name, "tomosar2height_tpu_torch/csrc/pool2.cu", replaces, pairs,
+              [lambda sa=sa: [fn(*a) for a in sa] for sa in args],
+              [lambda sa=sa: [plain(*a) for a in sa] for sa in args],
+              work, lambda: [f() for f in lfns])
+
+    # K12 (the nine scatters, plus 16^2 at F=1024) on the run scatter. It
+    # reads every row's id, and clears and reads B * r^2 bytes of flags
     copies = [(cells, toff)] + [(cells.clone(), toff.clone()) for _ in range(2)]
-    args, pairs, lfns, work, by_shape, repeat = [[], [], []], [], [], [0, 0], [], True
+    shapes = []
     for r, f in TILE_SCATTER_SHAPES + [(16, 1024)]:
         shift = 2 * (9 - r.bit_length())
         v = rows_of(f)
-        shape_args = [(v if k == 0 else v.clone(), c, t[:, :: 4 ** (shift // 2)].contiguous(),
-                       r, 256) for k, (c, t) in enumerate(copies)]
-        a = shape_args[0]
-        out = sk.aligned_scatter_mean_plane(*a)
-        pairs.append((out, sk.aligned_scatter_mean_plane_plain(*a)))
-        repeat = repeat and torch.equal(out, sk.aligned_scatter_mean_plane(*a))
-        moved = (scatter_bytes(a[0], cells, a[2], shift, r, out, torch.ones_like(mask))
-                 + b * r * r)
-        work[0] += moved
-        work[1] += a[0].numel()
-        ms = graph_ms([lambda a=a: sk.aligned_scatter_mean_plane(*a) for a in shape_args])
-        by_shape.append(f"{r}^2 F={f} {ms:.4f}/"
-                        f"{graph_ms(lambda: sk.aligned_scatter_mean_plane_plain(*a), 3, 1):.4f}/"
-                        f"{bound(moved, a[0].numel())[0]:.4f}")
-        for k, sa in enumerate(shape_args):
-            args[k].append(sa)
-        lfns.append(_scatter_yardstick(a[0], cells, shift, r * r, dev))
-    log("kernels", "aligned_scatter_mean_plane by shape, kernel (three copies)/plain/bound "
-        f"ms: {'; '.join(by_shape)} | bit-equal on a second launch: {repeat}")
-    if not repeat:
-        raise AssertionError("aligned_scatter_mean_plane differs between two launches")
-    entry("aligned_scatter_mean_plane", "tomosar2height_tpu_torch/csrc/pool2.cu",
-          "tomosar2height_tpu/ops/pallas/scatter_kernel.py:242", pairs,
-          [lambda sa=sa: [sk.aligned_scatter_mean_plane(*a) for a in sa] for sa in args],
-          [lambda sa=sa: [sk.aligned_scatter_mean_plane_plain(*a) for a in sa] for sa in args],
-          work, lambda: [fn() for fn in lfns])
-    del args, pairs, lfns, copies
+        sa = [(v if k == 0 else v.clone(), c, t[:, :: 4 ** (shift // 2)].contiguous(), r, 256)
+              for k, (c, t) in enumerate(copies)]
+        shapes.append((f"{r}^2 F={f}", sa,
+                       lambda out, a=sa[0], shift=shift, r=r: b * r * r + scatter_bytes(
+                           a[0], cells, a[2], shift, r, out, torch.ones_like(mask)),
+                       _scatter_yardstick(v, cells, shift, r * r, dev)))
+    run_scatter_row("aligned_scatter_mean_plane",
+                    "tomosar2height_tpu/ops/pallas/scatter_kernel.py:242",
+                    sk.aligned_scatter_mean_plane, sk.aligned_scatter_mean_plane_plain, shapes)
+    del shapes, copies
 
     # K14 (256-32 .. 32-512) on 'fused', from the finest tile offsets: it
     # walks the rows inside the tiles' ranges
@@ -1059,32 +1086,49 @@ def check_tile_kernels(entry, seed: int = 0):
           lambda: [fn() for fn in lfns])
     del pairs, kfns, pfns, lfns
 
-    # K11 and K13 on the plain sorted layout: the nine plane scatters (K11)
-    # and the mean poolings (K13), at every level's width; they walk the
-    # valid rows (pads sort past the last tile)
+    # K11 on the plain sorted layout: the nine plane scatters, on the run
+    # scatter (tile offsets every 256th per-cell offset, read in place). Its
+    # bound counts the ids of the rows it walks as the valid rows (pads sort
+    # past the last tile)
     spts, smask, scells, soffs = (up(x) for x in sorted_layout(pts, mask_np))
-    for name, source_line, fn, plain in (
-            ("scatter_mean_plane", 124, sk.scatter_mean_plane, sk.scatter_mean_plane_plain),
-            ("scatter_mean", 65, sk.scatter_mean, sk.scatter_mean_plain)):
-        pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
-        for r, f in TILE_SCATTER_SHAPES:
-            shift = 2 * (9 - r.bit_length())
-            a = (rows_of(f, smask.shape[1], smask), (scells >> shift).contiguous(),
-                 soffs[:, :: 4 ** (shift // 2)].contiguous(), r)
-            out = fn(*a)
-            pairs.append((out, plain(*a)))
-            tl = a[2][:, ::256]
-            walked = torch.arange(a[1].shape[1], device=dev)[None, :] < tl[:, -1:]
-            work[0] += scatter_bytes(a[0], a[1], tl, 0, r, out, walked)
-            work[1] += a[0].numel()
-            kfns.append(lambda a=a, fn=fn: fn(*a))
-            pfns.append(lambda a=a, plain=plain: plain(*a))
-            lfns.append(_scatter_yardstick(a[0], a[1], 0, r * r, dev))
-        entry(name, "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
-              f"tomosar2height_tpu/ops/pallas/scatter_kernel.py:{source_line}", pairs,
-              lambda k=kfns: [fn() for fn in k], lambda p=pfns: [fn() for fn in p], work,
-              lambda l=lfns: [fn() for fn in l])
-        del pairs, kfns, pfns, lfns
+    copies = [(scells, soffs)] + [(scells.clone(), soffs.clone()) for _ in range(2)]
+    shapes = []
+    for r, f in TILE_SCATTER_SHAPES:
+        shift = 2 * (9 - r.bit_length())
+        v = rows_of(f, smask.shape[1], smask)
+        sa = [(v if k == 0 else v.clone(), (c >> shift).contiguous(),
+               o[:, :: 4 ** (shift // 2)].contiguous(), r) for k, (c, o) in enumerate(copies)]
+        tl = sa[0][2][:, ::256]
+        walked = torch.arange(smask.shape[1], device=dev)[None, :] < tl[:, -1:]
+        shapes.append((f"{r}^2 F={f}", sa,
+                       lambda out, a=sa[0], tl=tl, r=r, w=walked: scatter_bytes(
+                           a[0], a[1], tl, 0, r, out, w),
+                       _scatter_yardstick(v, sa[0][1], 0, r * r, dev)))
+    run_scatter_row("scatter_mean_plane", "tomosar2height_tpu/ops/pallas/scatter_kernel.py:124",
+                    sk.scatter_mean_plane, sk.scatter_mean_plane_plain, shapes)
+    del shapes, copies
+
+    # K13 on the plain sorted layout: the mean poolings, at every level's
+    # width; it walks the valid rows
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    for r, f in TILE_SCATTER_SHAPES:
+        shift = 2 * (9 - r.bit_length())
+        a = (rows_of(f, smask.shape[1], smask), (scells >> shift).contiguous(),
+             soffs[:, :: 4 ** (shift // 2)].contiguous(), r)
+        out = sk.scatter_mean(*a)
+        pairs.append((out, sk.scatter_mean_plain(*a)))
+        tl = a[2][:, ::256]
+        walked = torch.arange(a[1].shape[1], device=dev)[None, :] < tl[:, -1:]
+        work[0] += scatter_bytes(a[0], a[1], tl, 0, r, out, walked)
+        work[1] += a[0].numel()
+        kfns.append(lambda a=a: sk.scatter_mean(*a))
+        pfns.append(lambda a=a: sk.scatter_mean_plain(*a))
+        lfns.append(_scatter_yardstick(a[0], a[1], 0, r * r, dev))
+    entry("scatter_mean", "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
+          "tomosar2height_tpu/ops/pallas/scatter_kernel.py:65", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
+          lambda: [fn() for fn in lfns])
+    del pairs, kfns, pfns, lfns
     torch.cuda.synchronize()
 
 

@@ -1,7 +1,8 @@
 """The PyTorch port's CUDA kernels K1-K14 against their plain versions, on the
 card, forward and backward (K6-K12 backward: the plain composition's; K1 +
-K2 are one run kernel on pool2's path, K2 alone on scatter_plane2's
-backward). Marked
+K2 are one run kernel on pool2's path, which also serves K10 under the tile
+rule, K2 alone on scatter_plane2's backward; K3, K11 and K12 one run
+scatter). Marked
 ``cuda``: they skip where no CUDA card is present (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine without it; there,
 skip ``tests/conftest.py`` (which imports JAX):
@@ -40,13 +41,16 @@ from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
+    PAD_CELL_SENTINEL,
     aligned_bucket_size,
     host_morton_bucket,
     host_morton_bucket_aligned,
+    trim_aligned_batch,
 )
 
 RESO = 64
 TOL = dict(rtol=1e-5, atol=1e-5)
+FINEST = 256  # the fused layout's finest resolution, 256-cell tiles
 
 
 def aligned_batch(seed: int, b: int = 3, n: int = 700, reso: int = RESO, f: int = 8):
@@ -140,6 +144,102 @@ def run_batch(seed: int, reso: int = RESO, f: int = 8, holes: bool = False):
             rows = np.flatnonzero(mask[i])[::5]
             mask[i, rows] = False
     return pts, mask, cells, toff, vals
+
+
+def _run_points(rng, i: int, n: int, pads: bool = False):
+    """Points and mask of entry i of :func:`tile_run_batch` and
+    :func:`sorted_run_batch` at FINEST: entry 0 puts 24 cells x 37 points
+    into finest tile 0, 300 into one cell of tile 9 and the rest into the
+    first quarter; entry 1 spreads its points over the plane (``pads``:
+    masks a tenth); entry 2 crowds them into a few cells; entry 3 has no
+    valid point."""
+    p = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
+    m = np.ones(n, bool)
+    if i == 0:
+        cx = rng.choice(256, 24, replace=False)  # cells of 16 x 16 tile 0
+        xy = np.stack([cx % 16, cx // 16], -1).repeat(37, 0) + rng.uniform(0.1, 0.9, (888, 2))
+        p[:888, :2] = xy / FINEST
+        p[888:1188, :2] = (np.array([40, 21]) + rng.uniform(0.1, 0.9, (300, 2))) / FINEST
+        p[1188:, :2] = rng.uniform(0.0, 0.25, (n - 1188, 2))
+    if i == 1 and pads:
+        m = rng.random(n) > 0.1
+    if i == 2:
+        p[:, :2] = rng.uniform(0.30, 0.36, (n, 2))
+    if i == 3:
+        m[:] = False
+    return p, m
+
+
+def tile_run_batch(seed: int, f: int = 8, foreign: bool = False, past: bool = False):
+    """Four patches on the fused layout (finest 256^2, 256-cell tiles),
+    trimmed as the loader trims them: entry 0 puts 24 cells x 37 points into
+    finest tile 0 (runs across every span edge there, and one run of 888+
+    rows at 16^2) and 300 points into one cell of tile 9; entry 1 spreads its
+    points over the plane; entry 2 crowds them into a few cells; entry 3 has
+    no valid row. ``foreign`` writes a cell of the last quarter of the plane
+    into the first pad row of each padded tile among the first 64 (the first
+    quarter): rows of another tile at every level down to 32^2. ``past``
+    writes a cell of tile 0 into the last row of each entry whose tiles end
+    before it: a row past the last tile."""
+    rng = np.random.default_rng(seed)
+    n = 1500
+    npad = aligned_bucket_size(n, FINEST, tile_cells=256)
+    out = {k: [] for k in ("points", "mask", "cells", "tile_offsets")}
+    for i in range(4):
+        p, m = _run_points(rng, i, n)
+        a = host_morton_bucket_aligned(p, m, FINEST, tile_cells=256)
+        assert a["cells"].shape == (npad,)
+        for k in out:
+            out[k].append(a[k])
+    pts, mask, cells, toff = trim_aligned_batch(*(np.stack(out[k]) for k in out))
+    cells = cells.copy()
+    if foreign:
+        for i in range(3):
+            for tt in range(64):
+                lo, hi = toff[i, tt], toff[i, tt + 1]
+                pads = np.flatnonzero(cells[i, lo:hi] == PAD_CELL_SENTINEL)
+                if pads.size:
+                    cells[i, lo + pads[0]] = rng.integers(3 * 65536 // 4, 65536)
+    if past:
+        for i in range(4):
+            if toff[i, -1] < cells.shape[1]:
+                cells[i, -1] = rng.integers(0, 256)
+    vals = rng.normal(size=mask.shape + (f,)).astype(np.float32)
+    vals[~mask] = 1e9  # junk on pad rows must not leak
+    return pts, mask, cells, toff, vals
+
+
+def sorted_run_batch(seed: int, f: int = 8, moved: bool = False):
+    """Four patches on the plain sorted layout at the finest resolution
+    (``host_morton_bucket``: rows Morton-sorted, pads at the end with id
+    FINEST**2, per-cell offsets), the points of :func:`tile_run_batch`: entry
+    0 puts 24 cells x 37 points into finest tile 0 (runs across every span
+    edge) and 300 into one cell of tile 9; entry 1 spreads its points over
+    the plane and masks a tenth (pads); entry 2 crowds them into a few cells;
+    entry 3 has no valid row. ``moved`` writes a cell of the last quarter of
+    the plane into the first row of each occupied tile among the first 64
+    (the first quarter): rows out of their tile at every level down to 32^2;
+    and a cell of tile 0 into the last row of each entry that has pads: a row
+    past the last tile."""
+    rng = np.random.default_rng(seed)
+    n = 1500
+    ncell = FINEST * FINEST
+    vals = rng.normal(size=(4, n, f)).astype(np.float32)
+    cells = np.empty((4, n), np.int32)
+    offs = np.empty((4, ncell + 1), np.int32)
+    for i in range(4):
+        p, m = _run_points(rng, i, n, pads=True)
+        _, cells[i], offs[i] = host_morton_bucket(p, m, FINEST)
+        vals[i, offs[i, -1]:] = 1e9  # junk on pad rows must not leak
+    if moved:
+        for i in range(4):
+            for tt in range(64):
+                lo, hi = offs[i, 256 * tt], offs[i, 256 * (tt + 1)]
+                if hi > lo:
+                    cells[i, lo] = rng.integers(3 * ncell // 4, ncell)
+            if offs[i, -1] < n:
+                cells[i, -1] = rng.integers(0, 256)
+    return vals, cells, offs
 
 
 def level_inputs(reso, level_reso, f, fl, seed, b=2, n=700, empty_last=False):
@@ -392,16 +492,30 @@ def _rows(mask, f, seed):
     return (torch.randn(*mask.shape, f, generator=g).cuda() * mask[..., None]).contiguous()
 
 
-def _scatter_runs_into(values, cells, mask, toff, reso, shift, plane, counts, flags):
+def _scatter_runs_into(values, cells, mask, toff, reso, shift, plane, counts, flags,
+                       step=1):
     """``t2h_scatter_runs`` straight into given outputs (the wrappers allocate
-    their own)."""
+    their own); ``step``: the tile-offset step (K12 1, K11 256)."""
     b, n, f = values.shape
     err = runtime.library().t2h_scatter_runs(
         values.data_ptr(), cells.data_ptr(), 0 if mask is None else mask.data_ptr(),
         0 if toff is None else toff.data_ptr(), plane.data_ptr(),
         0 if counts is None else counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift,
-        0 if toff is None else toff.shape[1], runtime.stream_ptr(values.device))
+        0 if toff is None else toff.shape[1], step, runtime.stream_ptr(values.device))
     runtime.check(err, "scatter_runs")
+
+
+def _sorted_flagship(reso: int):
+    """chip_smoke's flagship batch on the plain sorted layout at ``reso`` as
+    ``check_tile_kernels`` gives it to K11: (mask, ids >> shift, per-cell
+    offsets strided by 4**level) of B = 8 16384-point buckets."""
+    import chip_smoke as cs
+
+    pts, mask, *_ = cs.flagship_batch(5, tile_cells=256)
+    _, smask, scells, soffs = cs.sorted_layout(pts, mask)
+    shift = 2 * (9 - reso.bit_length())
+    return (torch.from_numpy(np.ascontiguousarray(x)).cuda()
+            for x in (smask, scells >> shift, soffs[:, :: 4 ** (shift // 2)]))
 
 
 @pytest.mark.cuda
@@ -464,9 +578,9 @@ class TestScatterRuns:
             torch.testing.assert_close(plane, want[0], **TOL)
 
     def test_model_paths_launch_as_the_smoke_counts(self, cuda):
-        """One fused2 training mini-step (remat) and one 'fused' forward
-        launch what ``chip_smoke.TRAIN_LAUNCHES`` and ``SORTED_LAUNCHES``
-        say, K3 and K12 among them."""
+        """One fused2 training mini-step (remat), one 'fused' and one
+        'pallas' forward launch what ``chip_smoke.TRAIN_LAUNCHES`` and
+        ``SORTED_LAUNCHES`` say, K3, K10, K11 and K12 among them."""
         import chip_smoke as cs
         from tomosar2height_tpu_torch.config import flagship_config, sorted_config
         from tomosar2height_tpu_torch.models import build_model, init_weights
@@ -497,6 +611,121 @@ class TestScatterRuns:
         assert torch.isfinite(h).all()
         assert ({k: v for k, v in runtime.LAUNCHES.items() if v}
                 == cs.SORTED_LAUNCHES["fused"])
+
+        pallas_model = build_model(sorted_config("pallas"), "cuda")
+        pallas_model.load_state_dict(model.state_dict())
+        pts, mask, *_ = cs.flagship_batch(2, b=2, tile_cells=256)
+        spts, smask, scells, soffs = (torch.from_numpy(x).cuda()
+                                      for x in cs.sorted_layout(pts, mask))
+        runtime.reset_launches()
+        with torch.inference_mode():
+            h = pallas_model.eval()(spts, smask, None, scells, soffs, footprint=False)[0]
+        torch.cuda.synchronize()
+        assert torch.isfinite(h).all()
+        assert ({k: v for k, v in runtime.LAUNCHES.items() if v}
+                == cs.SORTED_LAUNCHES["pallas"])
+
+
+@pytest.mark.cuda
+class TestTileRuns:
+    """K11 (``scatter_mean_plane``, the plain sorted layout) on the run
+    scatter with the tile-offset step 256, and K10 (``tile_pool``) on
+    ``pool_runs`` under the tile rule: held to their plain versions at the
+    flagship's shapes and on the layouts of ``test_torch_scatter_runs.py``
+    and ``test_torch_pool2_runs.py``, bit-equal on a second launch, every
+    cell or row written (NaN-filled outputs come out finite)."""
+
+    @pytest.mark.parametrize("reso,f", [(256, 32), (256, 64), (128, 128), (64, 256),
+                                        (32, 512)])
+    def test_scatter_mean_plane_at_the_flagship(self, cuda, reso, f):
+        mask, cells, offs = _sorted_flagship(reso)
+        v = _rows(mask, f, reso)
+        before = dict(runtime.LAUNCHES)
+        got = sk.scatter_mean_plane(v, cells, offs, reso)
+        again = sk.scatter_mean_plane(v, cells, offs, reso)
+        want = sk.scatter_mean_plane_plain(v, cells, offs, reso)
+        torch.cuda.synchronize()
+        _launched("scatter_mean_plane", before, 2)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+
+    @pytest.mark.parametrize("reso,moved", [(256, False), (64, False), (16, False),
+                                            (256, True), (32, True)])
+    def test_scatter_mean_plane_on_the_run_layouts(self, cuda, reso, moved):
+        """Runs across span edges, a 300-row cell, pads, an empty entry; rows
+        out of their tile and a row past the last tile (``moved``)."""
+        vals, cells, offs = sorted_run_batch(13, f=40, moved=moved)
+        shift = 2 * (FINEST.bit_length() - reso.bit_length())
+        v, c = t(vals, cuda), t(cells >> shift, cuda)
+        o = t(offs[:, :: 4 ** (shift // 2)], cuda)
+        got = sk.scatter_mean_plane(v, c, o, reso)
+        want = sk.scatter_mean_plane_plain(v, c, o, reso)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[-1] == 0).all()
+
+    @pytest.mark.parametrize("f", [32, 40, 6])
+    def test_scatter_mean_plane_writes_every_cell(self, cuda, f):
+        """Into a plane pre-filled with NaN and flags with 1, at 256^2 and 32^2
+        (F = 40 and 6: a second feature chunk, the scalar zero pass)."""
+        for reso in (256, 32):
+            mask, cells, offs = _sorted_flagship(reso)
+            v = _rows(mask, f, 1)
+            b = v.shape[0]
+            plane = torch.full((b, reso, reso, f), float("nan"), device=cuda)
+            flags = torch.ones((b, reso, reso), device=cuda, dtype=torch.uint8)
+            _scatter_runs_into(v, cells, None, offs, reso, 0, plane, None, flags, step=256)
+            torch.cuda.synchronize()
+            assert torch.isfinite(plane).all()
+            torch.testing.assert_close(plane, sk.scatter_mean_plane_plain(v, cells, offs, reso),
+                                       **TOL)
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    def test_tile_pool_at_the_flagship(self, cuda, kind):
+        cells, mask, toff = _flagship(256)
+        v = _rows(mask, 32, 3)
+        before = dict(runtime.LAUNCHES)
+        got = tpk.tile_pool(v, cells, toff, kind)
+        again = tpk.tile_pool(v, cells, toff, kind)
+        want = tpk.tile_pool_plain(v, cells, toff, kind)
+        torch.cuda.synchronize()
+        _launched("tile_pool", before, 2)
+        if kind == "max":
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    @pytest.mark.parametrize("edges", [False, True])
+    def test_tile_pool_on_the_run_layouts(self, cuda, kind, edges):
+        """Pads at tile ends (junk values), runs across span edges, a 300-row
+        cell, an empty entry; rows of another tile and rows past the last
+        tile with in-range ids (``edges``): all but the valid rows 0."""
+        _, mask, cells, toff, vals = tile_run_batch(11, f=40, foreign=edges, past=edges)
+        v, c, tt = t(vals, cuda), t(cells, cuda), t(toff, cuda)
+        got = tpk.tile_pool(v, c, tt, kind)
+        want = tpk.tile_pool_plain(v, c, tt, kind)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[t(~mask, cuda)] == 0).all()
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    def test_tile_pool_writes_every_row(self, cuda, kind):
+        """Into an output pre-filled with NaN: every row, pads and rows past
+        the last tile included, is written."""
+        cells, mask, toff = _flagship(256)
+        v = _rows(mask, 40, 4)
+        b, n, f = v.shape
+        out = torch.full_like(v, float("nan"))
+        err = runtime.library().t2h_pool_runs(
+            v.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), 0, 0, out.data_ptr(), b, n,
+            f, (toff.shape[1] - 1) * 256, {"max": 0, "mean": 1}[kind],
+            runtime.stream_ptr(cuda))
+        runtime.check(err, "pool_runs")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, tpk.tile_pool_plain(v, cells, toff, kind), **TOL)
 
 
 @pytest.mark.cuda

@@ -1,5 +1,6 @@
-"""The partition of ``pool2``'s run kernel (``csrc/pool2.cu`` ``pool_runs``),
-emulated in numpy step by step as the kernel takes it: warps own 32-row spans
+"""The partition of ``pool2``'s run kernel (``csrc/pool2.cu`` ``pool_runs``,
+which also serves K10 ``tile_pool`` under the tile rule), emulated in numpy
+step by step as the kernel takes it: warps own 32-row spans
 (``SPAN``, the kernel's ``kSpan``), a run belongs to the warp whose span holds its
 head, a segmented scan in row order reduces each run, the last run reads on
 past the span to its end, and a backward fill hands each row its run's result.
@@ -9,8 +10,16 @@ in interpret mode), on layouts from ``host_morton_bucket_aligned`` made to hit
 the partition's edges (``test_torch_cuda.run_batch``): a cell of 300 rows,
 runs straddling every span edge, a batch entry with no valid row, ties in max,
 every tile padded, and rows cleared from the mask inside a run. Each row must
-be written exactly once. Tolerance 1e-5 abs + rel (the kernel sums in row
-order, the plain version in scatter order); max exact."""
+be written exactly once. K10's cases replace the mask by the tile rule (a
+row is valid when its cell's 256-cell tile's row range holds it) on the
+fused layout (``test_torch_cuda.tile_run_batch``: pads at tile ends,
+runs across span edges, a 300-row cell, an empty entry, rows of another tile
+in pad rows, rows past the last tile with in-range ids), held to
+``tile_pool_plain`` and to the JAX ``pallas_tile_pool`` (interpret mode, on
+the rows inside the tiles: it leaves the rest undefined); a mutant without
+the read-on or without the tile check must fail. Tolerance 1e-5 abs + rel
+(the kernel sums in row order, the plain version in scatter order); max
+exact."""
 
 from __future__ import annotations
 
@@ -28,8 +37,11 @@ from tomosar2height_tpu.ops.pallas.level_kernel import (  # noqa: E402
     make_cells_row,
 )
 from tomosar2height_tpu.ops.pallas.pool2_kernel import pool2 as jax_pool2  # noqa: E402
-from test_torch_cuda import RESO, run_batch, t  # noqa: E402
+from tomosar2height_tpu.ops.pallas.pool_kernel import pallas_tile_pool  # noqa: E402
+from test_torch_cuda import RESO, run_batch, t, tile_run_batch  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk  # noqa: E402
+from tomosar2height_tpu_torch.ops.sorted_scatter import PAD_CELL_SENTINEL  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 NCELL = RESO * RESO
@@ -37,10 +49,13 @@ SPAN = 32  # rows a warp owns: kSpan in csrc/pool2.cu
 SOURCE = os.path.join(os.path.dirname(pk.__file__), "..", "..", "csrc", "pool2.cu")
 
 
-def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN):
+def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN, toff=None, mutant=None):
     """The run kernel in numpy, warp by warp: returns (out, writes), writes
     counting how often each row was stored. x (B, N, F) f32; kind 'max' |
-    'mean' | 'sum'; tie (values, out) gates a sum as max pooling's backward."""
+    'mean' | 'sum'; tie (values, out) gates a sum as max pooling's backward;
+    toff (B, T + 1) tile offsets: K10's tile rule in place of ``mask``.
+    ``mutant``: 'no_read_on' drops the walk past the span, 'no_tile_check'
+    takes every row with an in-range id as valid."""
     b, n, _ = x.shape
     out = np.full_like(x, np.nan)
     writes = np.zeros((b, n), np.int64)
@@ -57,11 +72,19 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN):
         def cell(r):
             return int(cells[i, r]) if 0 <= r < n else -1
 
+        def is_valid(r):
+            c = cell(r)
+            if not 0 <= c < ncell:
+                return False
+            if toff is None:
+                return bool(mask[i, r])
+            return mutant == "no_tile_check" or toff[i, c >> 8] <= r < toff[i, (c >> 8) + 1]
+
         for s0 in range(0, n, span):
             rows = range(s0, s0 + span)
             ok = [0 <= cell(r) < ncell for r in rows]
             heads = [ok[k] and cell(r - 1) != cell(r) for k, r in enumerate(rows)]
-            valid = [ok[k] and bool(mask[i, r]) for k, r in enumerate(rows)]
+            valid = [is_valid(r) for r in rows]
             first = heads.index(True) if any(heads) else span
             own = [valid[k] and k >= first for k in range(span)]
             cont = ok[-1] and first < span and cell(s0 + span) == cell(s0 + span - 1)
@@ -75,14 +98,14 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN):
                 v.append(acc)
             # the last run past the span
             tail = []
-            if cont:
+            if cont and mutant != "no_read_on":
                 j = s0 + span
                 while cell(j) == cell(s0 + span - 1):
-                    tail.append(j)
+                    if is_valid(j):
+                        tail.append(j)
                     j += 1
                 for j in tail:
-                    if mask[i, j]:
-                        acc = comb(acc, x[i, j])
+                    acc = comb(acc, x[i, j])
             # backward fill
             cur = np.zeros(x.shape[-1], np.float32)
             for k in reversed(range(span)):
@@ -93,7 +116,7 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN):
                     a = v[k]
                     if k == span - 1 and cont:
                         a = acc
-                        count += int(mask[i, tail].sum())
+                        count += len(tail)
                     cur = finalize(a, count)
                 v[k] = cur
             # store: own rows and rows that are not valid; then the tail
@@ -103,9 +126,8 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN):
                 out[i, r] = gated(v[k], r, i) if own[k] else 0
                 writes[i, r] += 1
             for j in tail:
-                if mask[i, j]:
-                    out[i, j] = gated(v[-1], j, i)
-                    writes[i, j] += 1
+                out[i, j] = gated(v[-1], j, i)
+                writes[i, j] += 1
     return out, writes
 
 
@@ -207,3 +229,86 @@ def test_kernel_source_matches_the_emulation():
     body = src[src.index("pool_runs(const float*"):src.index("__global__ void pool_gather")]
     assert "atomic" not in body
     assert "t2h_pool_reduce" not in src  # the cell-buffer reduce is retired
+
+
+# --- K10: the tile rule ---------------------------------------------------------
+
+
+@pytest.fixture(scope="module", params=["fused", "foreign"])
+def k10_layout(request):
+    """The fused layout; 'foreign' adds rows of another tile in pad rows and
+    rows past the last tile with in-range ids."""
+    edges = request.param == "foreign"
+    return tile_run_batch(11, foreign=edges, past=edges)
+
+
+def _tile_pool_emulated(layout, kind, mutant=None):
+    _, mask, cells, toff, vals = layout
+    return emulate_runs(vals, cells, mask, (toff.shape[1] - 1) * 256, kind, toff=toff,
+                        mutant=mutant)
+
+
+def test_k10_layouts_reach_the_edges():
+    _, mask, cells, toff, vals = tile_run_batch(11, foreign=True, past=True)
+    n = cells.shape[1]
+    ok = cells < PAD_CELL_SENTINEL
+    assert sum(1 for s in range(SPAN, n, SPAN) if ok[0, s] and cells[0, s] == cells[0, s - 1]) >= 26
+    assert (toff % 128 == 0).all() and (toff[:, -1] < n).sum() == 3 and toff[3, -1] == 0
+    past = [i for i in range(4) if toff[i, -1] < n]
+    assert all(cells[i, -1] < 256 for i in past)  # in range, past the last tile
+    rows = np.arange(n)[None, :]
+    tile_of_row = np.searchsorted(toff[0], np.arange(n), side="right") - 1
+    foreign = ok[0] & (rows[0] < toff[0, -1]) & ((cells[0] >> 8) != tile_of_row)
+    assert foreign.sum() >= 3 and not mask[0, foreign].any()
+    assert (vals[~mask] == 1e9).all() and not mask[3].any()
+
+
+@pytest.mark.parametrize("kind", ["max", "mean"])
+def test_k10_emulation_matches_plain(k10_layout, kind):
+    """Every row written once; every row that is not valid (pads, rows of
+    another tile, rows past the last tile) 0."""
+    _, mask, cells, toff, vals = k10_layout
+    got, writes = _tile_pool_emulated(k10_layout, kind)
+    assert (writes == 1).all()
+    want = tpk.tile_pool_plain(t(vals), t(cells), t(toff), kind).numpy()
+    _assert_close(got, want, kind)
+    assert (got[~mask] == 0).all()
+
+
+@pytest.mark.parametrize("kind", ["max", "mean"])
+def test_k10_emulation_matches_jax(kind):
+    """The Pallas kernel in interpret mode, on the rows inside the tiles."""
+    layout = tile_run_batch(11, foreign=True, past=True)
+    _, _, cells, toff, vals = layout
+    want = np.asarray(pallas_tile_pool(jnp.asarray(vals), jnp.asarray(cells.reshape(4, -1, 128)),
+                                       jnp.asarray(toff), kind, interpret=True))
+    got, _ = _tile_pool_emulated(layout, kind)
+    inside = np.arange(cells.shape[1])[None, :] < toff[:, -1:]
+    _assert_close(got[inside], want[inside], kind)
+
+
+@pytest.mark.parametrize("mutant", ["no_read_on", "no_tile_check"])
+def test_k10_mutants_fail(mutant):
+    """Without the walk past the span, runs longer than a span lose rows;
+    without the tile check, the junk on rows of another tile leaks."""
+    layout = tile_run_batch(11, foreign=True, past=True)
+    _, _, cells, toff, vals = layout
+    got, _ = _tile_pool_emulated(layout, "mean", mutant)
+    want = tpk.tile_pool_plain(t(vals), t(cells), t(toff), "mean").numpy()
+    assert not np.allclose(got, want, **TOL)
+
+
+def test_k10_launches_the_run_kernel():
+    """K10's wrapper launches ``t2h_pool_runs`` with the tile offsets and no
+    mask; ``csrc/tile_pool.cu`` and its entry are gone."""
+    import inspect
+
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    src = inspect.getsource(tpk.tile_pool)
+    assert "t2h_pool_runs" in src and "tile_offsets.data_ptr()" in src
+    assert "t2h_tile_pool" not in runtime._SIGNATURES
+    assert not os.path.exists(os.path.join(os.path.dirname(SOURCE), "tile_pool.cu"))
+    body = open(SOURCE).read()
+    body = body[body.index("pool_runs(const float*"):body.index("__global__ void pool_gather")]
+    assert "TILED" in body and "in_tile(" in body

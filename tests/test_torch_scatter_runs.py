@@ -1,22 +1,27 @@
-"""The run scatter (``csrc/pool2.cu`` ``scatter_runs``: K3 ``scatter_plane2``
-and K12 ``aligned_scatter_mean_plane``), emulated in numpy step by step as the
-kernel takes it: the flags are cleared; the mark pass sets the flag of every
-cell that holds a valid row; in the run part, warps own 32-row spans
-(``SPAN``, the kernel's ``kSpan``), a run belongs to the warp whose span holds
-its head, a segmented scan in row order sums each run, the last run reads on
-past the span to its end, and each run with a valid row writes its cell's
-mean (and count, K3) once; the zero part writes 0 to every cell whose flag
-is clear. The emulation is held to the plain versions
-(``scatter_plane2_plain``, ``aligned_scatter_mean_plane_plain``) and through
-them to the JAX ``scatter_plane2`` and ``pallas_aligned_scatter_mean_plane``
-(Pallas in interpret mode), on layouts made to hit the partition's edges: a
-cell of 300 rows, runs straddling every span edge, a batch entry with no
-valid row, every tile padded, rows cleared from the mask inside a run (K3;
-``test_torch_cuda.run_batch``), rows of another tile (K12), and the fused
-layout's levels from 256^2 down to 16^2. Every plane cell must be written
-exactly once, and a mutant of the read-on or of the zero pass must fail.
-Tolerance 1e-5 abs + rel (the kernel sums in row order, the plain version in
-scatter order)."""
+"""The run scatter (``csrc/pool2.cu`` ``scatter_runs``: K3 ``scatter_plane2``,
+K11 ``scatter_mean_plane`` and K12 ``aligned_scatter_mean_plane``), emulated
+in numpy step by step as the kernel takes it: the flags are cleared; the
+mark pass sets the flag of every cell that holds a valid row; in the run
+part, warps own 32-row spans (``SPAN``, the kernel's ``kSpan``), a run
+belongs to the warp whose span holds its head, a segmented scan in row order
+sums each run, the last run reads on past the span to its end, and each run
+with a valid row writes its cell's mean (and count, K3) once; the zero part
+writes 0 to every cell whose flag is clear. The emulation is held to the
+plain versions (``scatter_plane2_plain``, ``scatter_mean_plane_plain``,
+``aligned_scatter_mean_plane_plain``) and through them to the JAX
+``scatter_plane2``, ``pallas_scatter_mean_plane`` and
+``pallas_aligned_scatter_mean_plane`` (Pallas in interpret mode), on layouts
+made to hit the partition's edges (``test_torch_cuda.run_batch``,
+``tile_run_batch``, ``sorted_run_batch``): a cell of 300 rows, runs
+straddling every span edge, a batch entry with no valid row, every tile
+padded, rows cleared from the mask inside a run (K3), rows of another tile
+(K11, K12), a row past the last tile (K11), the fused layout's levels from
+256^2 down to 16^2 (K12) and the plain sorted layout's, its ids shifted and
+its per-cell offsets strided as ``chip_smoke.check_tile_kernels`` does (K11,
+which reads every 256th offset: the tile-offset step). Every plane cell must
+be written exactly once, and a mutant of the read-on, of the zero pass or of
+K11's step must fail. Tolerance 1e-5 abs + rel (the kernel sums in row
+order, the plain version in scatter order)."""
 
 from __future__ import annotations
 
@@ -40,20 +45,22 @@ from tomosar2height_tpu.ops.pallas.pool2_kernel import (  # noqa: E402
 )
 from tomosar2height_tpu.ops.pallas.scatter_kernel import (  # noqa: E402
     pallas_aligned_scatter_mean_plane,
+    pallas_scatter_mean_plane,
 )
-from test_torch_cuda import RESO, run_batch, t  # noqa: E402
+from test_torch_cuda import (  # noqa: E402
+    FINEST,
+    RESO,
+    run_batch,
+    sorted_run_batch,
+    t,
+    tile_run_batch,
+)
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk  # noqa: E402
-from tomosar2height_tpu_torch.ops.sorted_scatter import (  # noqa: E402
-    PAD_CELL_SENTINEL,
-    aligned_bucket_size,
-    host_morton_bucket_aligned,
-    trim_aligned_batch,
-)
+from tomosar2height_tpu_torch.ops.sorted_scatter import PAD_CELL_SENTINEL  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPAN = 32  # rows a warp owns: kSpan in csrc/pool2.cu
-FINEST = 256  # the fused layout's finest resolution, 256-cell tiles
 LEVELS = (256, 128, 64, 32, 16)
 SOURCE = os.path.join(os.path.dirname(pk.__file__), "..", "..", "csrc", "pool2.cu")
 
@@ -71,12 +78,15 @@ def rowmajor(code, reso):
     return _compact(code >> 1) * reso + _compact(code)
 
 
-def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, mutant=None):
-    """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``, K12
-    with ``toff`` (B, T + 1) tile offsets at ``reso`` and ``shift``. Returns
-    (plane (B, reso, reso, F), counts (B, reso, reso), writes (B, reso, reso):
-    how often each plane cell was stored). ``mutant``: 'no_read_on' drops the
-    walk past the span, 'no_zero_pass' the zero pass."""
+def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutant=None):
+    """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``; K11 and
+    K12 with ``toff``, tile t of entry i spanning rows [toff[i, t * step],
+    toff[i, (t + 1) * step]) (K12: tile offsets at ``reso``, step 1; K11:
+    per-cell offsets, step 256), and ``shift``. Returns (plane (B, reso,
+    reso, F), counts (B, reso, reso), writes (B, reso, reso): how often each
+    plane cell was stored). ``mutant``: 'no_read_on' drops the walk past the
+    span, 'no_zero_pass' the zero pass, 'no_step' reads the tile offsets with
+    step 1 whatever ``step`` says."""
     b, n, f = x.shape
     ncell = reso * reso
     plane = np.full((b, ncell, f), np.nan, np.float32)
@@ -88,10 +98,12 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, mutant=None):
     # key of row r at [i, r + 1]: -1 before the entry and past it
     keys = np.concatenate([np.full((b, 1), -1), key, np.full((b, SPAN + 1), -1)], axis=1)
 
+    st = 1 if mutant == "no_step" else step
+
     def valid(i, r, c):
         if toff is None:
             return bool(mask[i, r])
-        return toff[i, c >> 8] <= r < toff[i, (c >> 8) + 1]
+        return toff[i, (c >> 8) * st] <= r < toff[i, ((c >> 8) + 1) * st]
 
     for i in range(b):  # the mark pass, a row at a time
         for r in np.flatnonzero(key[i] >= 0):
@@ -139,48 +151,10 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, mutant=None):
             writes.reshape(b, reso, reso))
 
 
-def tile_run_batch(seed: int, f: int = 8, foreign: bool = False):
-    """Four patches on the fused layout (finest 256^2, 256-cell tiles),
-    trimmed as the loader trims them: entry 0 puts 24 cells x 37 points into
-    finest tile 0 (runs across every span edge there, and one run of 888+
-    rows at 16^2) and 300 points into one cell of tile 9; entry 1 spreads its
-    points over the plane; entry 2 crowds them into a few cells; entry 3 has
-    no valid row. ``foreign`` writes a cell of the last quarter of the plane
-    into the first pad row of each padded tile among the first 64 (the first
-    quarter): rows of another tile at every level down to 32^2."""
-    rng = np.random.default_rng(seed)
-    n = 1500
-    npad = aligned_bucket_size(n, FINEST, tile_cells=256)
-    out = {k: [] for k in ("points", "mask", "cells", "tile_offsets")}
-    for i in range(4):
-        p = rng.uniform(0.0, 1.0, (n, 3)).astype(np.float32)
-        m = np.ones(n, bool)
-        if i == 0:
-            cx = rng.choice(256, 24, replace=False)  # cells of 16 x 16 tile 0
-            xy = np.stack([cx % 16, cx // 16], -1).repeat(37, 0) + rng.uniform(0.1, 0.9, (888, 2))
-            p[:888, :2] = xy / FINEST
-            p[888:1188, :2] = (np.array([40, 21]) + rng.uniform(0.1, 0.9, (300, 2))) / FINEST
-            p[1188:, :2] = rng.uniform(0.0, 0.25, (n - 1188, 2))
-        if i == 2:
-            p[:, :2] = rng.uniform(0.30, 0.36, (n, 2))
-        if i == 3:
-            m[:] = False
-        a = host_morton_bucket_aligned(p, m, FINEST, tile_cells=256)
-        assert a["cells"].shape == (npad,)
-        for k in out:
-            out[k].append(a[k])
-    pts, mask, cells, toff = trim_aligned_batch(*(np.stack(out[k]) for k in out))
-    cells = cells.copy()
-    if foreign:
-        for i in range(3):
-            for tt in range(64):
-                lo, hi = toff[i, tt], toff[i, tt + 1]
-                pads = np.flatnonzero(cells[i, lo:hi] == PAD_CELL_SENTINEL)
-                if pads.size:
-                    cells[i, lo + pads[0]] = rng.integers(3 * 65536 // 4, 65536)
-    vals = rng.normal(size=mask.shape + (f,)).astype(np.float32)
-    vals[~mask] = 1e9  # junk on pad rows must not leak
-    return pts, mask, cells, toff, vals
+def level_sorted(cells, offs, reso):
+    """K11's arguments at ``reso``: ids shifted, per-cell offsets strided."""
+    shift = level_shift(reso)
+    return np.ascontiguousarray(cells >> shift), np.ascontiguousarray(offs[:, :: 4 ** (shift // 2)])
 
 
 def level_toff(toff, reso):
@@ -200,6 +174,16 @@ def _scatter_k12(vals, cells, toff, reso, mutant=None):
                            shift=level_shift(reso), mutant=mutant)
 
 
+def _scatter_k11(vals, cells, offs, reso, mutant=None):
+    c, o = level_sorted(cells, offs, reso)
+    return emulate_scatter(vals, c, reso, toff=o, step=256, mutant=mutant)
+
+
+def _k11_plain(vals, cells, offs, reso):
+    c, o = level_sorted(cells, offs, reso)
+    return sk.scatter_mean_plane_plain(t(vals), t(c), t(o), reso).numpy()
+
+
 def _runs_per_cell(key):
     """{cell: number of runs} of one entry's row keys (-1 out of range)."""
     heads = np.flatnonzero((key >= 0) & np.r_[True, key[1:] != key[:-1]])
@@ -214,6 +198,11 @@ def k3_layout(request):
 @pytest.fixture(scope="module")
 def k12_layout():
     return tile_run_batch(11)
+
+
+@pytest.fixture(scope="module")
+def k11_layout():
+    return sorted_run_batch(13)
 
 
 def test_layouts_reach_the_partition_edges(k12_layout):
@@ -335,5 +324,83 @@ def test_kernel_source_matches_the_emulation():
     body = src[src.index("scatter_runs(const float*"):src.index("}  // namespace t2h")]
     assert "atomic" not in body
     assert "scatter_plane_accum" not in src and "t2h_scatter_plane(" not in src
-    for wrapper in (pk._scatter_plane2, sk.aligned_scatter_mean_plane):
-        assert "t2h_scatter_runs" in inspect.getsource(wrapper)
+    assert "t2h_scatter_runs" in inspect.getsource(pk._scatter_plane2)
+    assert "t2h_scatter_runs" in inspect.getsource(sk._scatter_runs)
+    for wrapper, step in ((sk.scatter_mean_plane, "TILE_CELLS)"),
+                          (sk.aligned_scatter_mean_plane, ", 1)")):
+        src = inspect.getsource(wrapper)
+        assert "_scatter_runs(" in src and step in src and "t2h_tile_scatter_mean" not in src
+
+
+def test_sorted_layout_reaches_the_partition_edges(k11_layout):
+    """K11's layout: pads only at the end, runs across every span edge of
+    entry 0's tile 0, a 300-row cell, an entry with pads, an empty entry;
+    the moved rows lie in the first quarter and hold cells of the last."""
+    vals, cells, offs = k11_layout
+    ncell = FINEST * FINEST
+    for i in range(4):
+        assert (np.diff(cells[i]) >= 0).all()  # Morton-sorted, pads last
+        assert (cells[i, offs[i, -1]:] == ncell).all() and (cells[i, :offs[i, -1]] < ncell).all()
+    edges = [s for s in range(SPAN, offs[0, -1], SPAN) if cells[0, s] == cells[0, s - 1]]
+    assert len(edges) >= 26
+    assert np.bincount(cells[0]).max() == 300
+    assert 0 < offs[1, -1] < cells.shape[1] and offs[3, -1] == 0
+    _, mcells, _ = sorted_run_batch(13, moved=True)
+    changed = np.argwhere(mcells != cells)
+    assert len(changed) >= 10
+    for i, r in changed:
+        if r < offs[i, -1]:
+            assert mcells[i, r] >= 3 * ncell // 4 and r < offs[i, 64 * 256]
+        else:
+            assert r == cells.shape[1] - 1 and mcells[i, r] < 256
+
+
+@pytest.mark.parametrize("reso", LEVELS)
+def test_sorted_layout_holds_one_run_per_cell(k11_layout, reso):
+    """On the plain sorted layout every occupied cell at every level is one
+    run: the run kernel's contract."""
+    _, cells, offs = k11_layout
+    c, _ = level_sorted(cells, offs, reso)
+    for key in np.where(c < reso * reso, c, -1).astype(np.int64):
+        assert (_runs_per_cell(key) <= 1).all(), reso
+
+
+@pytest.mark.parametrize("reso,moved", [(r, False) for r in LEVELS]
+                         + [(r, True) for r in LEVELS if r >= 32])
+def test_k11_emulation_matches_plain(k11_layout, reso, moved):
+    """K11 at every level of the plain sorted layout, tile offsets every
+    256th per-cell offset; with rows out of their tile and a row past the
+    last tile down to 32^2 (16^2 is one tile, where a moved row would split
+    its cell's run)."""
+    vals, cells, offs = sorted_run_batch(13, moved=True) if moved else k11_layout
+    got, _, writes = _scatter_k11(vals, cells, offs, reso)
+    assert (writes == 1).all()
+    np.testing.assert_allclose(got, _k11_plain(vals, cells, offs, reso), **TOL)
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("reso,moved", [(32, False), (16, False), (32, True)])
+def test_k11_emulation_matches_jax(reso, moved):
+    """The Pallas kernel in interpret mode at the coarse levels, where runs
+    are longest; its 128-row chunk windows see the moved rows in no tile of
+    their cells."""
+    vals, cells, offs = sorted_run_batch(13, moved=moved)
+    c, o = level_sorted(cells, offs, reso)
+    want = np.asarray(pallas_scatter_mean_plane(jnp.asarray(vals), jnp.asarray(c),
+                                                jnp.asarray(o), reso, interpret=True))
+    got, _, _ = _scatter_k11(vals, cells, offs, reso)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("mutant", ["no_read_on", "no_zero_pass", "no_step"])
+def test_k11_mutants_fail(k11_layout, mutant):
+    """K11 at 64^2 (runs past their span: 37-row cells) and 16^2: without the
+    walk past the span, the zero pass, or the step of 256 (tile t's rows
+    taken from cell t's offsets), the emulation leaves the plain version."""
+    vals, cells, offs = k11_layout
+    failed = []
+    for reso in (64, 16):
+        got, _, writes = _scatter_k11(vals, cells, offs, reso, mutant)
+        want = _k11_plain(vals, cells, offs, reso)
+        failed.append((writes != 1).any() or not np.allclose(got, want, **TOL))
+    assert any(failed)

@@ -1,10 +1,14 @@
 // Local pooling and plane scatter of point features: the Hopper versions of
 // the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py,
-// and of the aligned tile scatter-mean of scatter_kernel.py.
+// of the aligned tile pool of pool_kernel.py, and of two tile scatter-means of
+// scatter_kernel.py.
 //
 //   K1 + K2 pool_runs    <- _reduce_kernel (:46) then _gather_kernel (:133), as
 //                           _chunkgrid_pool_jit (:221) runs them: pool2's forward
 //                           (max / mean / sum) and its backward (pool2_bwd, :492)
+//   K10 pool_runs        <- pool_kernel.py _pool_kernel (:36): the same reduce and
+//                           gather-back over the aligned layout's 256-cell tiles,
+//                           a row pooling only inside its tile (TILED)
 //   K2 t2h_pool_gather   <- _gather_kernel (:133) as _scatter_plane2_bwd (:424)
 //                           runs it: each row reads a row-major plane at its cell
 //   K3 scatter_runs      <- _scatter_plane_kernel (:263): masked scatter-mean
@@ -12,6 +16,9 @@
 //   K12 scatter_runs     <- scatter_kernel.py _aligned_scatter_kernel (:242):
 //                           the same over the aligned layout's 256-cell tiles at
 //                           a coarser level, a row adding only inside its tile
+//   K11 scatter_runs     <- scatter_kernel.py _scatter_tile_kernel_plane (:124):
+//                           K12's function on the plain sorted layout, the tile
+//                           offsets every 256th of the per-cell offsets
 //
 // pool_runs: one launch, no atomics, no cell buffer. Contract: in each batch
 // entry the rows that hold one cell id, and so the cell's valid rows, are
@@ -24,8 +31,11 @@
 // the plain version's). Per row i:
 //   out[i] = reduce over the valid rows j of run(i) of x[j]   (i valid)
 //   out[i] = 0                                               (i not valid)
-// valid = mask && 0 <= cell < ncell; max of a run with no valid row is never
-// read; mean divides by the run's valid count; with the tie gate (max
+// valid = 0 <= cell < ncell and, K1 + K2: mask; K10 (TILED, no mask): the row
+// lies in the row range [toff[t], toff[t + 1]) of the 256-cell tile t = cell >> 8
+// (pads, rows of another tile and rows past the last tile are not valid).
+// A max of a run with no valid row is never read; mean divides by the run's
+// valid count; with the tie gate (max
 // pooling's backward, x = g) a row keeps the run's sum only where
 // tie_a[i] == tie_b[i] (values == pooled output), else 0.
 //
@@ -46,23 +56,27 @@
 // (B, cells, F) buffer: at B = 8, Npad = 20480, F = 32 that is values on the
 // valid rows (a quarter of the rows are pads) + out + cells + mask = 37.7 MB,
 // ~11 us at 3.35 TB/s (the tie gate reads values and out on the valid rows
-// besides). A warp issues all loads of its span before it reduces, so it
+// besides; K10 reads B * (T + 1) tile offsets, which stay in L1, in place of
+// the mask). A warp issues all loads of its span before it reduces, so it
 // waits about two memory latencies (cell ids and mask, then rows).
 
-// scatter_runs (K3, K12): the same partition, writing each run's mean to its
-// cell of a row-major plane (B, reso, reso, F) instead of back to its rows.
-// A row's cell is cells >> shift at this resolution (K3: shift 0); it is in
-// range when cells >= 0 and the cell < reso^2. A row is valid when, besides,
-// K3: its mask is set; K12 (TILED): the row lies in the row range
-// [toff[t], toff[t + 1]) of the 256-cell tile t = cell >> 8 that holds its
-// cell (a pad, PAD_CELL_SENTINEL, is never in range). Runs are as above, on
-// the cell at this resolution. On the fused layout (256-cell finest tiles,
-// pads only at finest-tile ends) a cell at level l <= 4 covers 4^l finest
-// cells inside one finest tile, so its rows are contiguous and no pad falls
-// among them: each occupied cell is one run down to 16^2
-// (tests/test_torch_scatter_runs.py holds this at 16^2). A run with a valid
-// row writes its cell's mean (K3: and count) once, by the warp of its head,
-// from its row-order sum; a run with none writes nothing.
+// scatter_runs (K3, K11, K12): the same partition, writing each run's mean to
+// its cell of a row-major plane (B, reso, reso, F) instead of back to its rows.
+// A row's cell is cells >> shift at this resolution (K3, K11: shift 0); it is
+// in range when cells >= 0 and the cell < reso^2. A row is valid when, besides,
+// K3: its mask is set; K11, K12 (TILED): the row lies in the row range
+// [toff[t * step], toff[(t + 1) * step]) of the 256-cell tile t = cell >> 8
+// that holds its cell (K12: step 1, tile offsets at this resolution; K11: step
+// 256, the per-cell offsets read in place; a pad, PAD_CELL_SENTINEL on the
+// aligned layout, reso^2 on the plain sorted one, is never in range). Runs are
+// as above, on the cell at this resolution. On the fused layout (256-cell
+// finest tiles, pads only at finest-tile ends) a cell at level l <= 4 covers 4^l
+// finest cells inside one finest tile, so its rows are contiguous and no pad
+// falls among them: each occupied cell is one run down to 16^2
+// (tests/test_torch_scatter_runs.py holds this at 16^2); on the plain sorted
+// layout (Morton-sorted rows, pads at the end) every cell is one run. A run
+// with a valid row writes its cell's mean (K3: and count) once, by the warp of
+// its head, from its row-order sum; a run with none writes nothing.
 // Three steps in one stream: the flags (B * reso^2 bytes) are cleared; the
 // mark pass sets the flag of every cell that holds a valid row (a thread a
 // row, all storing 1); then one launch whose blocks alternate between the
@@ -77,7 +91,7 @@
 // 256^2; a lane takes 1, 2 or 4 features (F < 64, < 128, from 128 on).
 //
 // Bound on the H100: bytes: values on the valid rows, every row's cell id (and
-// mask, K3; tile offsets, K12), the plane and counts written once (+ the
+// mask, K3; tile offsets, K11 and K12), the plane and counts written once (+ the
 // flags). K3 at B = 8, Npad = 20480, F = 32: ~16 MB of values and ~67 MB of
 // plane, ~26 us at 3.35 TB/s; the zeros are most of it.
 
@@ -105,27 +119,38 @@ __device__ __forceinline__ float run_finalize(float acc, int count) {
   return KIND == 1 ? acc / static_cast<float>(count > 1 ? count : 1) : acc;
 }
 
+// The tile check (TILED): whether row lies in the row range of the 256-cell
+// tile t = c >> 8 that holds in-range cell c, [to[t * step], to[(t + 1) * step]).
+__device__ __forceinline__ bool in_tile(const int* __restrict__ to, int step, int c,
+                                        int row) {
+  const int t = c >> 8;
+  return to[t * step] <= row && row < to[(t + 1) * step];
+}
+
 // One 32-row step of a run's walk past its head's span: *len = how many rows
-// from j0 on still hold cell c (32: the run goes on); returns their valid bits.
+// from j0 on still hold cell c (32: the run goes on); returns their valid bits
+// (the mask; TILED: the rows in [lo, hi), the row range of c's tile).
+template <bool TILED>
 __device__ __forceinline__ unsigned run_step(const int* __restrict__ cb,
-                                             const uint8_t* __restrict__ mb, int j0,
-                                             int N, int c, int lane, int* len) {
+                                             const uint8_t* __restrict__ mb, int lo, int hi,
+                                             int j0, int N, int c, int lane, int* len) {
   const int j = j0 + lane;
   const unsigned same = __ballot_sync(kFull, j < N && cb[j] == c);
   *len = same == kFull ? kSpan : __ffs(~same) - 1;
-  return __ballot_sync(kFull, lane < *len && mb[j] != 0);
+  return __ballot_sync(kFull, lane < *len && (TILED ? lo <= j && j < hi : mb[j] != 0));
 }
 
-// TIE: the max-pool backward's gate (KIND 2 only). A warp's lanes take 32
-// features of every row; F > 32 loops over feature chunks. Three blocks an SM
-// (<= 80 registers) without the gate; with it, two (its 96 loads in flight
-// take 128 registers, and spill under 80).
-template <int KIND, bool TIE>
+// TIE: the max-pool backward's gate (KIND 2 only). TILED: K10's validity,
+// the tile offsets toff (B, ncell / 256 + 1) in place of the mask. A warp's
+// lanes take 32 features of every row; F > 32 loops over feature chunks.
+// Three blocks an SM (<= 80 registers) without the gate; with it, two (its 96
+// loads in flight take 128 registers, and spill under 80).
+template <int KIND, bool TIE, bool TILED>
 __global__ void __launch_bounds__(kThreads, TIE ? 2 : 3)
 pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
-          const uint8_t* __restrict__ mask, const float* __restrict__ tie_a,
-          const float* __restrict__ tie_b, float* __restrict__ out, int B, int N,
-          int F, int ncell) {
+          const uint8_t* __restrict__ mask, const int* __restrict__ toff,
+          const float* __restrict__ tie_a, const float* __restrict__ tie_b,
+          float* __restrict__ out, int B, int N, int F, int ncell) {
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int spans = (N + kSpan - 1) / kSpan;
@@ -134,14 +159,16 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   const int s0 = static_cast<int>(warp - b * spans) * kSpan;
   const long long base = b * N;  // first row of batch entry b
   const int* cb = cells + base;
-  const uint8_t* mb = mask + base;
+  const uint8_t* mb = TILED ? nullptr : mask + base;
+  const int* to = TILED ? toff + b * ((ncell >> 8) + 1) : nullptr;
 
   // lane = row of the span; -1 (no cell) past the end; the neighbours' ids by
   // shuffles, lanes 0 and 31 read the rows beside the span
   const int row = s0 + lane;
   const bool in = row < N;
   const int c = in ? cb[row] : -1;
-  const bool m = in && mb[row] != 0;
+  const bool ok = c >= 0 && c < ncell;
+  const bool m = TILED ? ok && in_tile(to, 1, c, row) : in && mb[row] != 0;
   int edge = -1;
   if (lane == 0 && s0 > 0) edge = cb[s0 - 1];
   if (lane == kSpan - 1 && row + 1 < N) edge = cb[row + 1];
@@ -149,7 +176,6 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   int cnext = __shfl_down_sync(kFull, c, 1);
   if (lane == 0) cprev = edge;
   if (lane == kSpan - 1) cnext = edge;
-  const bool ok = c >= 0 && c < ncell;
   const unsigned heads = __ballot_sync(kFull, ok && cprev != c);
   const unsigned same_next = __ballot_sync(kFull, ok && cnext == c);
   // a run's last row in the span: the next row holds another cell, or lane 31
@@ -159,6 +185,11 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   const unsigned own = valid & ~before;  // valid rows of runs headed in this span
   const bool cont = (same_next & ~before) >> (kSpan - 1);  // the last run goes on
   const int c_last = __shfl_sync(kFull, c, kSpan - 1);
+  int lo = 0, hi = 0;  // TILED: the row range of the last run's tile
+  if (TILED && cont) {
+    lo = to[c_last >> 8];
+    hi = to[(c_last >> 8) + 1];
+  }
   // lane k: the valid rows of the run that ends at row k, from its head on
   const unsigned upto = lane == kSpan - 1 ? kFull : (2u << lane) - 1u;
   const unsigned hb = heads & upto;
@@ -203,7 +234,7 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
     if (cont) {
       for (int len = kSpan; len == kSpan; tail_rows += len) {
         const int j0 = s0 + kSpan + tail_rows;
-        const unsigned tv = run_step(cb, mb, j0, N, c_last, lane, &len);
+        const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
 #pragma unroll
         for (int k = 0; k < kSpan; ++k)
           if (fin && (tv >> k & 1u)) acc = run_combine<KIND>(acc, xf[(long long)(j0 + k) * F]);
@@ -243,7 +274,7 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
       const float r = v[kSpan - 1];
       for (int done = 0, len = kSpan; len == kSpan; done += len) {
         const int j0 = s0 + kSpan + done;
-        const unsigned tv = run_step(cb, mb, j0, N, c_last, lane, &len);
+        const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
 #pragma unroll
         for (int k = 0; k < kSpan; ++k) {
           if (!fin || !(tv >> k & 1u)) continue;
@@ -325,7 +356,7 @@ __device__ __forceinline__ void zero_empty_cells(float* __restrict__ plane,
 template <bool TILED>
 __global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restrict__ mask,
                            const int* __restrict__ toff, uint8_t* __restrict__ flags, int N,
-                           int reso, int shift, int toff_row) {
+                           int reso, int shift, int toff_row, int toff_step) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= N) return;
   const long long b = blockIdx.y;
@@ -333,7 +364,7 @@ __global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restr
   const int c = level_cell(cells[b * N + row], shift, ncell);
   if (c < 0) return;
   const int* to = TILED ? toff + b * toff_row : nullptr;
-  if (TILED ? to[c >> 8] <= row && row < to[(c >> 8) + 1] : mask[b * N + row] != 0)
+  if (TILED ? in_tile(to, toff_step, c, row) : mask[b * N + row] != 0)
     flags[b * ncell + morton_to_rowmajor(c, reso)] = 1;
 }
 
@@ -364,7 +395,7 @@ __device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&
   }
 }
 
-// K3 (TILED false: mask) and K12 (TILED true: tile offsets, no mask): the run
+// K3 (TILED false: mask) and K11, K12 (TILED true: tile offsets, no mask): the run
 // part and the zero part in one launch, after the mark pass. The run part's
 // warp = (batch entry, span, chunk of 32 * VEC features), chunk fastest, so a
 // block's warps share the span's ids in L1 when there are 8 chunks or more;
@@ -378,8 +409,8 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
              const uint8_t* __restrict__ mask, const int* __restrict__ toff,
              float* __restrict__ plane, int* __restrict__ counts,
              const uint8_t* __restrict__ flags, int B, int N, int F, int reso, int shift,
-             int toff_row, unsigned run_blocks, unsigned zero_blocks, unsigned zero_n,
-             unsigned zero_q, int zero_qshift) {
+             int toff_row, int toff_step, unsigned run_blocks, unsigned zero_blocks,
+             unsigned zero_n, unsigned zero_q, int zero_qshift) {
   constexpr int kGroup = kSpan / VEC;  // rows loaded at once
   // blocks alternate between the two parts while both have blocks left
   const unsigned pairs = min(run_blocks, zero_blocks);
@@ -422,7 +453,7 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
   const unsigned heads = __ballot_sync(kFull, ok && cprev != c);
   if (heads == 0) return;  // warp-uniform: every run here is an earlier warp's
   bool m = mk;
-  if (TILED) m = ok && to[c >> 8] <= row && row < to[(c >> 8) + 1];
+  if (TILED) m = ok && in_tile(to, toff_step, c, row);
   const unsigned before = (heads & (0u - heads)) - 1u;  // below the first head
   const unsigned own = __ballot_sync(kFull, m) & ~before;  // valid rows of own runs
   const bool cont = (__ballot_sync(kFull, ok && cnext == c) & ~before) >> (kSpan - 1);
@@ -483,8 +514,8 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
     int lo = 0, hi = 0;
     const int c_last = __shfl_sync(kFull, c, kSpan - 1);
     if (TILED) {
-      lo = to[c_last >> 8];
-      hi = to[(c_last >> 8) + 1];
+      lo = to[(c_last >> 8) * toff_step];
+      hi = to[((c_last >> 8) + 1) * toff_step];
     }
     int j0 = s0 + kSpan;
     int cn = j0 + lane < N ? cb[j0 + lane] : -1;
@@ -537,26 +568,32 @@ const char* t2h_error_string(int err) {
 }
 
 // x (B,N,F) f32, cells (B,N) i32 Morton ids (each cell's rows contiguous),
-// mask (B,N) u8 -> out (B,N,F): each valid row gets its run's
+// and either mask (B,N) u8 (K1 + K2, toff null) or toff (B,ncell/256+1) i32
+// row offsets of the 256-cell tiles (K10, mask null; ncell a multiple of 256,
+// kind 0 or 1, no tie) -> out (B,N,F): each valid row gets its run's
 // max (kind 0), mean (1) or sum (2), the other rows 0. tie_a/tie_b (B,N,F)
 // or both null: with them (kind 2 only) a row keeps its value only where
 // tie_a == tie_b. One launch.
-int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const float* tie_a,
-                  const float* tie_b, float* out, int B, int N, int F, int ncell, int kind,
-                  cudaStream_t stream) {
+int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const int* toff,
+                  const float* tie_a, const float* tie_b, float* out, int B, int N, int F,
+                  int ncell, int kind, cudaStream_t stream) {
   const bool tie = tie_a != nullptr;
-  if (kind < 0 || kind > 2 || tie != (tie_b != nullptr) || (tie && kind != 2))
+  const bool tiled = toff != nullptr;
+  if (kind < 0 || kind > 2 || tie != (tie_b != nullptr) || (tie && kind != 2) ||
+      tiled == (mask != nullptr) || (tiled && (tie || kind == 2 || ncell % 256 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * 32;
   if (threads == 0 || F == 0) return static_cast<int>(cudaGetLastError());
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-#define T2H_RUNS(K, T)                                                                 \
-  pool_runs<K, T><<<blocks, kThreads, 0, stream>>>(x, cells, mask, tie_a, tie_b, out, B, N, \
-                                                   F, ncell)
-  if (tie) T2H_RUNS(2, true);
-  else if (kind == 0) T2H_RUNS(0, false);
-  else if (kind == 1) T2H_RUNS(1, false);
-  else T2H_RUNS(2, false);
+#define T2H_RUNS(K, T, TL)                                                          \
+  pool_runs<K, T, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a, tie_b, \
+                                                       out, B, N, F, ncell)
+  if (tiled && kind == 0) T2H_RUNS(0, false, true);
+  else if (tiled) T2H_RUNS(1, false, true);
+  else if (tie) T2H_RUNS(2, true, false);
+  else if (kind == 0) T2H_RUNS(0, false, false);
+  else if (kind == 1) T2H_RUNS(1, false, false);
+  else T2H_RUNS(2, false, false);
 #undef T2H_RUNS
   return static_cast<int>(cudaGetLastError());
 }
@@ -576,18 +613,22 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
 // values (B,N,F) f32, cells (B,N) i32 Morton ids (finest; the cell at reso
 // is cells >> shift), flags (B,reso,reso) u8 scratch -> plane (B,reso,reso,F)
 // row-major scatter-mean of the valid rows, 0 on empty cells. Either K3:
-// mask (B,N) u8, toff null, counts (B,reso,reso) i32 written; or K12: mask
-// null, toff (B,toff_row) i32 row offsets of the reso^2/256 tiles (reso^2 a
-// multiple of 256), counts null. Three launches: clear, mark, runs + zeros.
+// mask (B,N) u8, toff null, counts (B,reso,reso) i32 written; or K11, K12:
+// mask null, toff (B,toff_row) i32, tile t of the reso^2/256 tiles spanning
+// rows [toff[t * toff_step], toff[(t + 1) * toff_step]) (K12: tile offsets,
+// step 1; K11: per-cell offsets, step 256; reso^2 a multiple of 256), counts
+// null. Three launches: clear, mark, runs + zeros.
 int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      const int* toff, float* plane, int* counts, uint8_t* flags, int B,
-                     int N, int F, int reso, int shift, int toff_row, cudaStream_t stream) {
+                     int N, int F, int reso, int shift, int toff_row, int toff_step,
+                     cudaStream_t stream) {
   const bool tiled = toff != nullptr;
   const long long ncells = (long long)B * reso * reso;
   const bool vec = F % 4 == 0;
   const long long items = ncells * (vec ? F / 4 : F);
   if (tiled == (mask != nullptr) || tiled == (counts != nullptr) || items >= (1LL << 31) ||
-      (tiled && (reso * reso) % 256 != 0))
+      (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
+                 toff_row < (reso * reso / 256) * toff_step + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (items == 0) return static_cast<int>(cudaGetLastError());
   cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
@@ -596,10 +637,10 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
     const dim3 grid((N + kThreads - 1) / kThreads, B);
     if (tiled)
       mark_cells<true><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift,
-                                                      toff_row);
+                                                      toff_row, toff_step);
     else
       mark_cells<false><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso,
-                                                       shift, toff_row);
+                                                       shift, toff_row, toff_step);
   }
   // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
   // not aligned to 16 bytes)
@@ -615,7 +656,7 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
 #define T2H_SCATTER_RUNS(T, V)                                                            \
   scatter_runs<T, V><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(                  \
       values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
-      run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
+      toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
   if (tiled) {
     if (run_vec == 4) T2H_SCATTER_RUNS(true, 4);
     else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2);

@@ -1,22 +1,22 @@
-// Morton-tile scatter-mean: the Hopper version of three Pallas kernels in
+// Morton-tile scatter-mean: the Hopper version of two Pallas kernels in
 // tomosar2height_tpu/ops/pallas/scatter_kernel.py that compute one function
 // on one contract:
 //
-//   K11 _scatter_tile_kernel_plane (pallas_scatter_mean_plane)   -> row-major plane
 //   K13 _scatter_tile_kernel (pallas_scatter_mean)               -> Morton cell vector
 //   K14 _scatter_v3_kernel (pallas_scatter_mean_plane_v3)        -> row-major plane
 //
-// (K12, _aligned_scatter_kernel, the same function on the aligned tile
-// offsets at a level, runs on csrc/pool2.cu's scatter_runs: no atomics, each
-// cell written once, bit-equal run to run.)
+// (K11, _scatter_tile_kernel_plane, and K12, _aligned_scatter_kernel, the
+// same function into a row-major plane on the plain sorted layout and on the
+// aligned tile offsets at a level, run on csrc/pool2.cu's scatter_runs: no
+// atomics, each cell written once, bit-equal run to run.)
 //
 // The function: rows come grouped by 16x16 Morton tile (256 cells), each
 // tile's rows contiguous, [toff[t], toff[t+1]); a row adds its values to cell
 // (cell >> shift) - 256 t of its tile when that lies in [0, 256), else
 // nothing (pad rows, PAD_CELL_SENTINEL, rows of a neighbouring tile); each
 // cell's mean is written, 0 for an empty cell. The launchers differ only in
-// where the tile offsets come from (K11/K13: every 256th per-cell offset;
-// K14: the finest tile offsets, every 4^level-th) and in the output order.
+// where the tile offsets come from (K13: every 256th per-cell offset; K14:
+// the finest tile offsets, every 4^level-th) and in the output order.
 //
 // The TPU kernels build one-hot matrices and contract them on the MXU, a
 // chunk of 128 rows at a time over a sequential grid. Here a block owns one

@@ -8,12 +8,14 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
   (pool2_kernel.py:46) then ``_gather_kernel`` (:133), as
   ``_chunkgrid_pool_jit`` (:221) runs them. Each valid row gets the max, mean
   or sum of the valid rows of its cell, pad rows 0, in one atomic-free pass
-  over the sorted runs (:func:`pool2_fwd`, :func:`pool2_bwd`).
+  over the sorted runs (:func:`pool2_fwd`, :func:`pool2_bwd`). The same
+  kernel, with the tile check in place of the mask, serves K10 in
+  ``pool_kernel.py``.
 - K2 alone (``t2h_pool_gather``) for ``scatter_plane2``'s backward: each
   valid row reads a row-major plane at its cell (:func:`scatter_plane2_bwd`).
 - K3 :func:`scatter_plane2` <- ``_scatter_plane_kernel`` (pool2_kernel.py:263):
   masked scatter-mean into a row-major NHWC plane, plus per-cell counts, on
-  the same runs (``scatter_runs``, which also serves K12 in
+  the same runs (``scatter_runs``, which also serves K11 and K12 in
   ``scatter_kernel.py``): each run's row-order mean and count written to
   its cell once, the empty cells (marked first) zeroed in the same launch;
   no atomics.
@@ -142,7 +144,7 @@ def _pool_runs(x, cells, mask, reso: int, kind: str, tie=None) -> torch.Tensor:
     out = torch.empty_like(x)
     a, c = (0, 0) if tie is None else (tie[0].data_ptr(), tie[1].data_ptr())
     err = runtime.library().t2h_pool_runs(
-        x.data_ptr(), cells.data_ptr(), mask.data_ptr(), a, c, out.data_ptr(), b, n, f,
+        x.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, a, c, out.data_ptr(), b, n, f,
         reso * reso, _KINDS[kind], runtime.stream_ptr(x.device))
     runtime.check(err, "pool_runs")
     return out
@@ -262,7 +264,7 @@ def _scatter_plane2(values, cells, mask, reso: int):
     flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
     err = runtime.library().t2h_scatter_runs(
         values.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, plane.data_ptr(),
-        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, runtime.stream_ptr(dev))
+        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, 0, runtime.stream_ptr(dev))
     runtime.check(err, "scatter_plane2")
     runtime.LAUNCHES["scatter_plane2"] += 1
     return plane, counts

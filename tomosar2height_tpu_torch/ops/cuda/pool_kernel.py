@@ -1,16 +1,21 @@
 """Fused local pooling on the aligned layout with 256-cell tiles: K10.
 
-Counterpart of ``tomosar2height_tpu/ops/pallas/pool_kernel.py``. The CUDA
-kernel K10 (``csrc/tile_pool.cu`` ``t2h_tile_pool``) replaces ``_pool_kernel``
-(pool_kernel.py:36, launched by ``_pool_impl``, ``pallas_tile_pool``): each
-row of tile t's range whose finest Morton id lies in the tile's 256 cells
-reduces into its cell (max or mean, an empty cell 0), and reads the cell's
-value back; the other rows (pads, and rows past the last tile's range, which
-the TPU kernel leaves undefined) give 0. The TPU kernel's id lane and
-one-hot matmuls exist for the MXU; the kernel here reads the ids as they
-are. A CPU tensor takes :func:`tile_pool_plain`, a CUDA tensor the kernel;
-there is no fallback. Differentiable through
-:func:`tomosar2height_tpu_torch.ops.fused.tile_pool`.
+Counterpart of ``tomosar2height_tpu/ops/pallas/pool_kernel.py``. K10 replaces
+``_pool_kernel`` (pool_kernel.py:36, launched by ``_pool_impl``,
+``pallas_tile_pool``): each row of tile t's range whose finest Morton id lies
+in the tile's 256 cells reduces into its cell (max or mean, an empty cell 0),
+and reads the cell's value back; the other rows (pads, rows of another tile,
+and rows past the last tile's range, which the TPU kernel leaves undefined)
+give 0. It runs on pool2's run kernel (``csrc/pool2.cu`` ``pool_runs``, C
+entry ``t2h_pool_runs``) with the tile check in place of the mask: one
+atomic-free pass over the Morton-sorted runs, each run reduced in row order
+by one warp and written back to its rows, so both kinds are bit-equal run to
+run. Its contract is the fused layout's: each cell's rows are contiguous
+(``ops/sorted_scatter.host_morton_bucket_aligned``: rows Morton-sorted, pads
+only at tile ends). The TPU kernel's id lane and one-hot matmuls exist for
+the MXU; the kernel here reads the ids as they are. A CPU tensor takes
+:func:`tile_pool_plain`, a CUDA tensor the kernel; there is no fallback.
+Differentiable through :func:`tomosar2height_tpu_torch.ops.fused.tile_pool`.
 """
 
 from __future__ import annotations
@@ -38,8 +43,9 @@ def tile_pool_plain(values, cells, tile_offsets, kind: str) -> torch.Tensor:
 def tile_pool(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     """K10: the same arguments and return as :func:`tile_pool_plain`; on a
     CUDA tensor values (B, Npad, F) f32, cells (B, Npad) int32 and
-    tile_offsets (B, T + 1) int32, all contiguous. Not differentiable itself:
-    the model calls it through ``ops.fused.tile_pool``."""
+    tile_offsets (B, T + 1) int32, all contiguous, each cell's rows contiguous
+    (module docstring). Not differentiable itself: the model calls it through
+    ``ops.fused.tile_pool``."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'max' or 'mean', got {kind!r}")
     if runtime.on_cpu(values):
@@ -51,9 +57,9 @@ def tile_pool(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
     out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_tile_pool(
-        values.data_ptr(), cells.data_ptr(), tile_offsets.data_ptr(), out.data_ptr(), b,
-        n, f, t, _KINDS[kind], runtime.stream_ptr(dev))
+    err = runtime.library().t2h_pool_runs(
+        values.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(), 0, 0,
+        out.data_ptr(), b, n, f, t * TILE_CELLS, _KINDS[kind], runtime.stream_ptr(dev))
     runtime.check(err, "tile_pool")
     runtime.LAUNCHES["tile_pool"] += 1
     return out

@@ -7,14 +7,17 @@ Morton tile (256 cells), each tile's rows contiguous; a row adds into cell
 nowhere (pad rows, ``PAD_CELL_SENTINEL``, rows of another tile); each cell's
 mean is written, 0 for an empty cell. Two CUDA kernels compute it, and
 each TPU kernel keeps its own launcher, plain version and launch count:
-K11, K13 and K14 run ``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean`` (a
-block a tile, shared-memory atomics); K12 runs ``csrc/pool2.cu``
-``t2h_scatter_runs``, K3's atomic-free pass over the Morton-sorted runs
-(a warp sums each run in row order and writes its cell once; the empty
-cells, marked first, are zeroed in the same launch: bit-equal run to run).
-Its contract is the fused layout's: a cell's rows at this resolution are
-contiguous (true down to 16^2, where a cell is one finest 256-cell tile),
-pads only between cells.
+K11 and K12 run ``csrc/pool2.cu`` ``t2h_scatter_runs``, K3's atomic-free
+pass over the Morton-sorted runs with the tile check on (a warp sums each
+run in row order and writes its cell once; the empty cells, marked first,
+are zeroed in the same launch: bit-equal run to run); K11 reads its tile
+offsets in place, every 256th of the per-cell offsets (step 256), K12 its
+tile offsets at this resolution (step 1). Their contract: a cell's rows at
+this resolution are contiguous (the plain sorted layout's rows are sorted,
+pads at the end; on the fused layout true down to 16^2, where a cell is one
+finest 256-cell tile, pads only between cells). K13 and K14 run
+``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean`` (a block a tile,
+shared-memory atomics).
 
 - K11 :func:`scatter_mean_plane` <- ``_scatter_tile_kernel_plane``
   (scatter_kernel.py:124, ``pallas_scatter_mean_plane``): the plain sorted
@@ -125,8 +128,8 @@ def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
 
 def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
             morton_out: bool):
-    """Launch ``t2h_tile_scatter_mean`` (K11, K13, K14); tile t of entry b
-    spans rows [toff[b, t*step], toff[b, (t+1)*step])."""
+    """Launch ``t2h_tile_scatter_mean`` (K13, K14); tile t of entry b spans
+    rows [toff[b, t*step], toff[b, (t+1)*step])."""
     dev = values.device
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
@@ -138,6 +141,24 @@ def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
     return out
+
+
+def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int):
+    """Launch ``t2h_scatter_runs`` with the tile check (K11, K12): a row adds
+    into its cell ``cells >> shift`` when it lies in the rows
+    [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t."""
+    dev = values.device
+    b, n, f = values.shape
+    _check_tiles(name, values, cells, toff, reso, step)
+    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
+    err = runtime.library().t2h_scatter_runs(
+        values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), plane.data_ptr(), 0,
+        flags.data_ptr(), b, n, f, reso, shift, toff.shape[1], step,
+        runtime.stream_ptr(dev))
+    runtime.check(err, name)
+    runtime.LAUNCHES[name] += 1
+    return plane
 
 
 def scatter_mean_plane(values, cells, offsets, reso: int):
@@ -152,8 +173,7 @@ def scatter_mean_plane(values, cells, offsets, reso: int):
     _forward_only(values, "scatter_mean_plane")
     if runtime.on_cpu(values):
         return scatter_mean_plane_plain(values, cells, offsets, reso)
-    return _launch("scatter_mean_plane", values, cells, offsets, reso, 0, TILE_CELLS,
-                   False)
+    return _scatter_runs("scatter_mean_plane", values, cells, offsets, reso, 0, TILE_CELLS)
 
 
 def scatter_mean(values, cells, offsets, reso: int):
@@ -179,18 +199,8 @@ def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: i
     """
     if runtime.on_cpu(values):
         return aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso, finest)
-    dev = values.device
-    b, n, f = values.shape
-    _check_tiles("aligned_scatter_mean_plane", values, cells, tile_offsets, reso, 1)
-    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
-    flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
-    err = runtime.library().t2h_scatter_runs(
-        values.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(), plane.data_ptr(),
-        0, flags.data_ptr(), b, n, f, reso, level_shift(reso, finest),
-        tile_offsets.shape[1], runtime.stream_ptr(dev))
-    runtime.check(err, "aligned_scatter_mean_plane")
-    runtime.LAUNCHES["aligned_scatter_mean_plane"] += 1
-    return plane
+    return _scatter_runs("aligned_scatter_mean_plane", values, cells, tile_offsets, reso,
+                         level_shift(reso, finest), 1)
 
 
 def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):

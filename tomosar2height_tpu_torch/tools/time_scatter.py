@@ -1,17 +1,21 @@
-"""K3 (``scatter_plane2``) and K12 (``aligned_scatter_mean_plane``) timed on the
-card at the flagship's shapes, from the port in a given checkout.
+"""K3 (``scatter_plane2``), K11 (``scatter_mean_plane``) and K12
+(``aligned_scatter_mean_plane``) timed on the card at the flagship's shapes,
+from the port in a given checkout.
 
     python -m tomosar2height_tpu_torch.tools.time_scatter [--root DIR]
 
 ``--root`` is the root of a checkout (default: this one); its package is
 imported from there, so that two commits can be compared on one card in one
-call, in turns (parent, change, change, parent): both functions take the same
+call, in turns (parent, change, change, parent): the functions take the same
 arguments in both trees. The batches, shapes and timers are this checkout's
 ``chip_smoke.py``: K3 at B = 8, 16384-point buckets on the 1024-cell aligned
 layout, 256^2, F = 32; K12 at each of its 10 shapes (``TILE_SCATTER_SHAPES``
-and 16^2 at F = 1024) on the 256-cell layout (Npad 32768). Prints the card's
-name and power limit, then for K3, for each K12 shape and for K12's 10
-shapes together: the median device ms of one call replayed from a CUDA graph
+and 16^2 at F = 1024) on the 256-cell layout (Npad 32768); K11 at each of
+its 9 (``TILE_SCATTER_SHAPES``) on the plain sorted layout of the same
+points, ids shifted and per-cell offsets strided to each level as
+``check_tile_kernels`` gives them. Prints the card's name and power limit,
+then for K3, for each K12 and K11 shape and for each one's shapes
+together: the median device ms of one call replayed from a CUDA graph
 (``graph_ms``) on three copies of the inputs in turn (as ``chip_smoke.py``
 times it) and on one copy (warm in L2 from the replay before), and the kernel
 launches each call makes (``runtime.LAUNCHES``). Needs one CUDA card.
@@ -65,7 +69,7 @@ def main() -> None:
     calls["K3 scatter_plane2 256^2 F=32"] = [
         lambda s=s: pk.scatter_plane2(*s, 256) for s in sets]
 
-    _, _, _, amask, acell, toff = cs.flagship_batch(5, tile_cells=256)
+    pts, pmask, _, amask, acell, toff = cs.flagship_batch(5, tile_cells=256)
     mask, cells, toff = (torch.from_numpy(x).to(dev) for x in (amask, acell, toff))
     copies = [(cells, toff)] + [(cells.clone(), toff.clone()) for _ in range(2)]
     every = [[], [], []]
@@ -79,6 +83,21 @@ def main() -> None:
             every[k].append(fns[-1])
         calls[f"K12 shape {i} {r}^2 F={f}"] = fns
     calls["K12 all 10 shapes"] = [lambda fs=fs: [fn() for fn in fs] for fs in every]
+
+    _, smask, scells, soffs = (torch.from_numpy(x).to(dev) for x in cs.sorted_layout(pts, pmask))
+    copies = [(scells, soffs)] + [(scells.clone(), soffs.clone()) for _ in range(2)]
+    every = [[], [], []]
+    for i, (r, f) in enumerate(cs.TILE_SCATTER_SHAPES):
+        shift = 2 * (9 - r.bit_length())
+        v = rows(smask, f)
+        fns = []
+        for k, (c, o) in enumerate(copies):
+            a = (v if k == 0 else v.clone(), (c >> shift).contiguous(),
+                 o[:, :: 4 ** (shift // 2)].contiguous(), r)
+            fns.append(lambda a=a: sk.scatter_mean_plane(*a))
+            every[k].append(fns[-1])
+        calls[f"K11 shape {i} {r}^2 F={f}"] = fns
+    calls["K11 all 9 shapes"] = [lambda fs=fs: [fn() for fn in fs] for fs in every]
     for name, fns in calls.items():
         runtime.reset_launches()
         fns[0]()
