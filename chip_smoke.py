@@ -63,15 +63,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
 
 Phase 3 also holds every backward (K5 at the eight levels, pool2's on its
 run kernel (K1 + K2 in one launch, forward and backward each run twice and
-held bit-equal), scatter_plane2's on K2) against its plain version, K4/K5 at the
+held bit-equal), scatter_plane2's on K2 alone (a warp a 32-row span, each
+run's cell read once; held bit-equal on a second launch) against its plain
+version, K4/K5 at the
 depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every shape of a
-flagship forward on the 'fused' and 'pallas' layouts. K3, K11 and K12 run
+flagship forward on the 'fused' and 'pallas' layouts. K3 and K11-K13 run
 on the run scatter (``scatter_runs``: each run's cell written once, the
-empty cells zeroed in the same launch), K10 on pool2's run kernel under the
-tile rule, each also held bit-equal on a second launch; K10, K11 and K12 are
-timed on three copies of their inputs, K10 logged by kind, K11 at each of its
-9 shapes and K12 at each of its 10. Bounds count per-row inputs only on the
-rows a kernel reads them for.
+empty cells zeroed in the same launch; K13 in Morton order), K10 on pool2's
+run kernel under the tile rule, each also held bit-equal on a second launch;
+K10-K13 are timed on three copies of their inputs, K10 logged by kind, K11
+and K13 at each of their 9 shapes and K12 at each of its 10. Bounds count
+per-row inputs only on the rows a kernel reads them for.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table as JSON: ``launches`` from the timed training run for K1-K5
@@ -112,9 +114,9 @@ TF32X3_FLOP_S = TF32_FLOP_S / 3
 # conv of K6's first two passes, K7 and K8, and K6's third conv with the head
 TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
                        "conv3x3_igemm", "conv3x3_head_igemm")
-# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K3, K11
-# and K12), whose register budget sets three blocks an SM
-RUN_KERNELS = ("pool_runs", "scatter_runs", "mark_cells")
+# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
+# K3 and K11-K13), whose register budget sets three blocks an SM
+RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -606,10 +608,16 @@ def check_kernels(seed: int = 0):
         s["gp_pad"] = torch.cat([s["gp"].reshape(-1, nf), torch.zeros(1, nf, device=dev)])
         s["kc_pad"] = torch.cat([s["kc"].reshape(-1), torch.ones(1, device=dev,
                                                                   dtype=torch.int32)])
+    # K2 alone, held bit-equal on a second launch
     a = (g_plane, cells, mask, kc)
+    k2 = pk.scatter_plane2_bwd(*a)
+    k2_repeat = torch.equal(k2, pk.scatter_plane2_bwd(*a))
+    log("kernels", f"scatter_plane2_bwd bit-equal on a second launch: {k2_repeat}")
+    if not k2_repeat:
+        raise AssertionError("scatter_plane2_bwd differs between two launches")
     entry("scatter_plane2_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:133",
-          [(pk.scatter_plane2_bwd(*a), pk.scatter_plane2_bwd_plain(*a))],
+          [(k2, pk.scatter_plane2_bwd_plain(*a))],
           [lambda s=s: pk.scatter_plane2_bwd(s["gp"], s["c"], s["m"], s["kc"]) for s in sets],
           [lambda s=s: pk.scatter_plane2_bwd_plain(s["gp"], s["c"], s["m"], s["kc"])
            for s in sets],
@@ -1019,7 +1027,7 @@ def check_tile_kernels(entry, seed: int = 0):
     del pairs, vals, copies
 
     def run_scatter_row(name, replaces, fn, plain, shapes):
-        """The row of a run scatter (K11, K12: ``scatter_runs``): ``shapes``
+        """The row of a run scatter (K11-K13: ``scatter_runs``): ``shapes``
         lists (label, the call's arguments on each of three input copies,
         bytes(out), library yardstick) per shape; each shape timed on the
         copies in turn (as pool2.cu's rows) and logged kernel/plain/bound,
@@ -1087,9 +1095,10 @@ def check_tile_kernels(entry, seed: int = 0):
     del pairs, kfns, pfns, lfns
 
     # K11 on the plain sorted layout: the nine plane scatters, on the run
-    # scatter (tile offsets every 256th per-cell offset, read in place). Its
-    # bound counts the ids of the rows it walks as the valid rows (pads sort
-    # past the last tile)
+    # scatter (tile offsets every 256th per-cell offset, read in place); K13
+    # on the same inputs: the mean poolings, at every level's width, into the
+    # Morton-ordered cell vector. Their bounds count the ids of the rows they
+    # walk as the valid rows (pads sort past the last tile)
     spts, smask, scells, soffs = (up(x) for x in sorted_layout(pts, mask_np))
     copies = [(scells, soffs)] + [(scells.clone(), soffs.clone()) for _ in range(2)]
     shapes = []
@@ -1106,29 +1115,9 @@ def check_tile_kernels(entry, seed: int = 0):
                        _scatter_yardstick(v, sa[0][1], 0, r * r, dev)))
     run_scatter_row("scatter_mean_plane", "tomosar2height_tpu/ops/pallas/scatter_kernel.py:124",
                     sk.scatter_mean_plane, sk.scatter_mean_plane_plain, shapes)
+    run_scatter_row("scatter_mean", "tomosar2height_tpu/ops/pallas/scatter_kernel.py:65",
+                    sk.scatter_mean, sk.scatter_mean_plain, shapes)
     del shapes, copies
-
-    # K13 on the plain sorted layout: the mean poolings, at every level's
-    # width; it walks the valid rows
-    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
-    for r, f in TILE_SCATTER_SHAPES:
-        shift = 2 * (9 - r.bit_length())
-        a = (rows_of(f, smask.shape[1], smask), (scells >> shift).contiguous(),
-             soffs[:, :: 4 ** (shift // 2)].contiguous(), r)
-        out = sk.scatter_mean(*a)
-        pairs.append((out, sk.scatter_mean_plain(*a)))
-        tl = a[2][:, ::256]
-        walked = torch.arange(a[1].shape[1], device=dev)[None, :] < tl[:, -1:]
-        work[0] += scatter_bytes(a[0], a[1], tl, 0, r, out, walked)
-        work[1] += a[0].numel()
-        kfns.append(lambda a=a: sk.scatter_mean(*a))
-        pfns.append(lambda a=a: sk.scatter_mean_plain(*a))
-        lfns.append(_scatter_yardstick(a[0], a[1], 0, r * r, dev))
-    entry("scatter_mean", "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
-          "tomosar2height_tpu/ops/pallas/scatter_kernel.py:65", pairs,
-          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
-          lambda: [fn() for fn in lfns])
-    del pairs, kfns, pfns, lfns
     torch.cuda.synchronize()
 
 

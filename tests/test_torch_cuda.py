@@ -1,8 +1,8 @@
 """The PyTorch port's CUDA kernels K1-K14 against their plain versions, on the
 card, forward and backward (K6-K12 backward: the plain composition's; K1 +
 K2 are one run kernel on pool2's path, which also serves K10 under the tile
-rule, K2 alone on scatter_plane2's backward; K3, K11 and K12 one run
-scatter). Marked
+rule, K2 alone on scatter_plane2's backward, in any row order; K3 and
+K11-K13 one run scatter, K13 storing in Morton order). Marked
 ``cuda``: they skip where no CUDA card is present (the kernels have no CPU
 mode). This file imports no JAX, so it runs on a machine without it; there,
 skip ``tests/conftest.py`` (which imports JAX):
@@ -472,6 +472,53 @@ class TestPool2Kernels:
         assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"] + 1
         assert runtime.LAUNCHES["scatter_plane2_bwd"] == before["scatter_plane2_bwd"] + 1
 
+    @pytest.mark.parametrize("order", ["sorted", "unsorted"])
+    @pytest.mark.parametrize("f", [8, 40, 64, 128])
+    @pytest.mark.parametrize("holes", [False, True])
+    def test_scatter_plane2_backward_on_the_run_layouts(self, cuda, holes, f, order):
+        """K2 alone on runs of 300 rows, runs across every span edge, masked
+        rows inside runs, pads and an empty entry, and on the same rows in a
+        random order (K2 takes any order); F = 40, 64 and 128 take two, two
+        and four chunks of 32 features. Held to the plain version and
+        bit-equal on a second launch."""
+        _, mask, cells, _, vals = run_batch(6, f=f, holes=holes)
+        if order == "unsorted":
+            perm = np.stack([np.random.default_rng(i).permutation(mask.shape[1])
+                             for i in range(mask.shape[0])])
+            mask, cells = (np.take_along_axis(x, perm, 1) for x in (mask, cells))
+            vals = np.take_along_axis(vals, perm[..., None], 1)
+        v, c, m = t(vals, cuda), t(cells, cuda), t(mask, cuda)
+        _, counts = pk.scatter_plane2_plain(v, c, m, RESO)
+        g = torch.randn((v.shape[0], RESO, RESO, f),
+                        generator=torch.Generator().manual_seed(f)).to(cuda)
+        got = pk.scatter_plane2_bwd(g, c, m, counts)
+        again = pk.scatter_plane2_bwd(g, c, m, counts)
+        want = pk.scatter_plane2_bwd_plain(g, c, m, counts)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+        assert (got[~m] == 0).all()
+
+    @pytest.mark.parametrize("f", [32, 6])
+    def test_scatter_plane2_backward_writes_every_row(self, cuda, f):
+        """At the flagship's shapes, into an output pre-filled with NaN: every
+        row, pads included, is written (F = 6: one partial chunk)."""
+        cells, mask, _ = _flagship(1024)
+        v = _rows(mask, f, 2)
+        _, counts = pk.scatter_plane2(v, cells, mask, 256)
+        g = torch.randn((v.shape[0], 256, 256, f),
+                        generator=torch.Generator().manual_seed(3)).to(cuda)
+        out = torch.full_like(v, float("nan"))
+        b, n, _ = v.shape
+        err = runtime.library().t2h_pool_gather(
+            g.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(), out.data_ptr(),
+            b, n, f, 256, runtime.stream_ptr(cuda))
+        runtime.check(err, "pool_gather")
+        torch.cuda.synchronize()
+        assert torch.isfinite(out).all()
+        torch.testing.assert_close(out, pk.scatter_plane2_bwd_plain(g, cells, mask, counts),
+                                   **TOL)
+
     def test_wrong_dtype_raises(self, cuda):
         _, mask, cells, _, vals = aligned_batch(0)
         with pytest.raises(TypeError):
@@ -493,15 +540,17 @@ def _rows(mask, f, seed):
 
 
 def _scatter_runs_into(values, cells, mask, toff, reso, shift, plane, counts, flags,
-                       step=1):
+                       step=1, morton=False):
     """``t2h_scatter_runs`` straight into given outputs (the wrappers allocate
-    their own); ``step``: the tile-offset step (K12 1, K11 256)."""
+    their own); ``step``: the tile-offset step (K12 1, K11 and K13 256);
+    ``morton``: K13's Morton-order store."""
     b, n, f = values.shape
     err = runtime.library().t2h_scatter_runs(
         values.data_ptr(), cells.data_ptr(), 0 if mask is None else mask.data_ptr(),
         0 if toff is None else toff.data_ptr(), plane.data_ptr(),
         0 if counts is None else counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift,
-        0 if toff is None else toff.shape[1], step, runtime.stream_ptr(values.device))
+        0 if toff is None else toff.shape[1], step, int(morton),
+        runtime.stream_ptr(values.device))
     runtime.check(err, "scatter_runs")
 
 
@@ -537,6 +586,23 @@ class TestScatterRuns:
         torch.testing.assert_close(plane, want_plane, **TOL)
         assert torch.equal(counts, want_counts)
         assert torch.equal(plane, again[0]) and torch.equal(counts, again[1])
+
+    def test_scatter_plane2_backward_at_the_flagship(self, cuda):
+        """K2 alone at the flagship's shapes: held to the plain version and
+        bit-equal on a second launch."""
+        cells, mask, _ = _flagship(1024)
+        v = _rows(mask, 32, 4)
+        _, counts = pk.scatter_plane2(v, cells, mask, 256)
+        g = torch.randn((v.shape[0], 256, 256, 32),
+                        generator=torch.Generator().manual_seed(4)).to(cuda)
+        before = dict(runtime.LAUNCHES)
+        got = pk.scatter_plane2_bwd(g, cells, mask, counts)
+        again = pk.scatter_plane2_bwd(g, cells, mask, counts)
+        want = pk.scatter_plane2_bwd_plain(g, cells, mask, counts)
+        torch.cuda.synchronize()
+        _launched("pool_gather", before, 2)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
 
     @pytest.mark.parametrize("reso,f", [(256, 32), (256, 64), (128, 128), (64, 256),
                                         (32, 512), (16, 1024)])
@@ -628,8 +694,9 @@ class TestScatterRuns:
 
 @pytest.mark.cuda
 class TestTileRuns:
-    """K11 (``scatter_mean_plane``, the plain sorted layout) on the run
-    scatter with the tile-offset step 256, and K10 (``tile_pool``) on
+    """K11 (``scatter_mean_plane``, the plain sorted layout) and K13
+    (``scatter_mean``, the same into the Morton-ordered cell vector) on the
+    run scatter with the tile-offset step 256, and K10 (``tile_pool``) on
     ``pool_runs`` under the tile rule: held to their plain versions at the
     flagship's shapes and on the layouts of ``test_torch_scatter_runs.py``
     and ``test_torch_pool2_runs.py``, bit-equal on a second launch, every
@@ -679,6 +746,55 @@ class TestTileRuns:
             assert torch.isfinite(plane).all()
             torch.testing.assert_close(plane, sk.scatter_mean_plane_plain(v, cells, offs, reso),
                                        **TOL)
+
+    @pytest.mark.parametrize("reso,f", [(256, 32), (256, 64), (128, 128), (64, 256),
+                                        (32, 512)])
+    def test_scatter_mean_at_the_flagship(self, cuda, reso, f):
+        """K13 (the Morton-ordered cell vector) at every width of
+        ``chip_smoke.TILE_SCATTER_SHAPES``."""
+        mask, cells, offs = _sorted_flagship(reso)
+        v = _rows(mask, f, reso + 1)
+        before = dict(runtime.LAUNCHES)
+        got = sk.scatter_mean(v, cells, offs, reso)
+        again = sk.scatter_mean(v, cells, offs, reso)
+        want = sk.scatter_mean_plain(v, cells, offs, reso)
+        torch.cuda.synchronize()
+        _launched("scatter_mean", before, 2)
+        assert got.shape == (v.shape[0], reso * reso, f)
+        torch.testing.assert_close(got, want, **TOL)
+        assert torch.equal(got, again)
+
+    @pytest.mark.parametrize("reso,moved", [(256, False), (64, False), (16, False),
+                                            (256, True), (32, True)])
+    def test_scatter_mean_on_the_run_layouts(self, cuda, reso, moved):
+        """K13 on K11's run layouts: runs across span edges, a 300-row cell,
+        pads, an empty entry; rows out of their tile and a row past the last
+        tile (``moved``)."""
+        vals, cells, offs = sorted_run_batch(13, f=40, moved=moved)
+        shift = 2 * (FINEST.bit_length() - reso.bit_length())
+        v, c = t(vals, cuda), t(cells >> shift, cuda)
+        o = t(offs[:, :: 4 ** (shift // 2)], cuda)
+        got = sk.scatter_mean(v, c, o, reso)
+        want = sk.scatter_mean_plain(v, c, o, reso)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, **TOL)
+        assert (got[-1] == 0).all()
+
+    @pytest.mark.parametrize("f", [32, 6])
+    def test_scatter_mean_writes_every_cell(self, cuda, f):
+        """Into a cell vector pre-filled with NaN and flags with 1, at 256^2
+        and 32^2 (F = 6: the scalar zero pass)."""
+        for reso in (256, 32):
+            mask, cells, offs = _sorted_flagship(reso)
+            v = _rows(mask, f, 5)
+            b = v.shape[0]
+            vec = torch.full((b, reso * reso, f), float("nan"), device=cuda)
+            flags = torch.ones((b, reso * reso), device=cuda, dtype=torch.uint8)
+            _scatter_runs_into(v, cells, None, offs, reso, 0, vec, None, flags, step=256,
+                               morton=True)
+            torch.cuda.synchronize()
+            assert torch.isfinite(vec).all()
+            torch.testing.assert_close(vec, sk.scatter_mean_plain(v, cells, offs, reso), **TOL)
 
     @pytest.mark.parametrize("kind", ["max", "mean"])
     def test_tile_pool_at_the_flagship(self, cuda, kind):

@@ -170,5 +170,5 @@ def test_missing_image_and_fusion_training_raise(data):
     args = [torch.from_numpy(data[k]) for k in ("apts", "amask")]
     with pytest.raises(ValueError, match="input_image"):
         model(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP: fusion training"):
         Trainer(model, {"optimize_every": 1})

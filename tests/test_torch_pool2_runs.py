@@ -17,9 +17,15 @@ runs across span edges, a 300-row cell, an empty entry, rows of another tile
 in pad rows, rows past the last tile with in-range ids), held to
 ``tile_pool_plain`` and to the JAX ``pallas_tile_pool`` (interpret mode, on
 the rows inside the tiles: it leaves the rest undefined); a mutant without
-the read-on or without the tile check must fail. Tolerance 1e-5 abs + rel
-(the kernel sums in row order, the plain version in scatter order); max
-exact."""
+the read-on or without the tile check must fail. K2 alone (``pool_gather``,
+``scatter_plane2``'s backward) on the same partition: a warp's lanes take
+its span's rows, a valid row loads its cell's plane row (divided by the
+count) only where the previous valid row of the span holds another cell, and
+every row takes the latest load; held to ``scatter_plane2_bwd_plain`` and to
+the vjp of the JAX ``scatter_plane2`` (its gather kernel in interpret mode)
+on the same layouts and on unsorted rows; mutants that reuse a value across
+a cell change must fail. Tolerance 1e-5 abs + rel (the kernel sums in row
+order, the plain version in scatter order); max exact."""
 
 from __future__ import annotations
 
@@ -36,9 +42,14 @@ from tomosar2height_tpu.ops.pallas.level_kernel import (  # noqa: E402
     chunk_metadata,
     make_cells_row,
 )
+from tomosar2height_tpu.ops.pallas.level_kernel import empty_tile_mask  # noqa: E402
 from tomosar2height_tpu.ops.pallas.pool2_kernel import pool2 as jax_pool2  # noqa: E402
+from tomosar2height_tpu.ops.pallas.pool2_kernel import (  # noqa: E402
+    scatter_plane2 as jax_scatter_plane2,
+)
 from tomosar2height_tpu.ops.pallas.pool_kernel import pallas_tile_pool  # noqa: E402
 from test_torch_cuda import RESO, run_batch, t, tile_run_batch  # noqa: E402
+from test_torch_scatter_runs import rowmajor  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk  # noqa: E402
 from tomosar2height_tpu_torch.ops.sorted_scatter import PAD_CELL_SENTINEL  # noqa: E402
@@ -226,7 +237,7 @@ def test_kernel_source_matches_the_emulation():
     atomic (K3's scatter in the same file keeps its atomics)."""
     src = open(SOURCE).read()
     assert f"constexpr int kSpan = {SPAN};" in src
-    body = src[src.index("pool_runs(const float*"):src.index("__global__ void pool_gather")]
+    body = src[src.index("pool_runs(const float*"):src.index("// K2 alone")]
     assert "atomic" not in body
     assert "t2h_pool_reduce" not in src  # the cell-buffer reduce is retired
 
@@ -310,5 +321,128 @@ def test_k10_launches_the_run_kernel():
     assert "t2h_tile_pool" not in runtime._SIGNATURES
     assert not os.path.exists(os.path.join(os.path.dirname(SOURCE), "tile_pool.cu"))
     body = open(SOURCE).read()
-    body = body[body.index("pool_runs(const float*"):body.index("__global__ void pool_gather")]
+    body = body[body.index("pool_runs(const float*"):body.index("// K2 alone")]
     assert "TILED" in body and "in_tile(" in body
+
+
+# --- K2 alone: scatter_plane2's backward -----------------------------------------
+
+
+def emulate_gather(g_plane, cells, mask, counts, mutant=None):
+    """``pool_gather`` in numpy, warp by warp: returns (out, writes, loads),
+    writes counting how often each row was stored and loads how many plane
+    rows were read. g_plane (B, reso, reso, F) and counts (B, reso, reso)
+    row-major. ``mutant``: 'stale' loads at the span's first valid row only
+    (every later row reuses it across cell changes), 'prev_row' compares a
+    row's cell with the previous row's whether or not that row is valid."""
+    b, reso, _, f = g_plane.shape
+    ncell = reso * reso
+    n = cells.shape[1]
+    flat, cnt = g_plane.reshape(b, ncell, f), counts.reshape(b, ncell)
+    out = np.full((b, n, f), np.nan, np.float32)
+    writes = np.zeros((b, n), np.int64)
+    loads = 0
+    for i in range(b):
+        def dst(r):  # lane r's row-major cell, -1 where the row is not valid
+            c = int(cells[i, r])
+            return rowmajor(c, reso) if mask[i, r] and 0 <= c < ncell else -1
+
+        for s0 in range(0, n, SPAN):
+            rows = range(s0, min(s0 + SPAN, n))
+            d = [dst(r) for r in rows]
+            cur, last = np.zeros(f, np.float32), None
+            for k, r in enumerate(rows):
+                if mutant == "prev_row":
+                    c = int(cells[i, r - 1]) if k else -1
+                    last = rowmajor(c, reso) if k and 0 <= c < ncell else None
+                if d[k] >= 0 and (last is None or (d[k] != last and mutant != "stale")):
+                    cur = flat[i, d[k]] / np.float32(max(int(cnt[i, d[k]]), 1))
+                    loads += 1
+                if d[k] >= 0:
+                    last = d[k]
+                out[i, r] = cur if d[k] >= 0 else 0
+                writes[i, r] += 1
+    return out, writes, loads
+
+
+def _gather_args(layout, seed=7):
+    """(g_plane, cells, mask, counts) on a layout: the forward's counts, a
+    random cotangent plane."""
+    _, mask, cells, _, vals = layout
+    counts = pk.scatter_plane2_plain(t(vals), t(cells), t(mask), RESO)[1].numpy()
+    g = np.random.default_rng(seed).normal(size=(mask.shape[0], RESO, RESO, vals.shape[-1]))
+    return g.astype(np.float32), cells, mask, counts
+
+
+def unsorted(layout, seed=8):
+    """The layout's rows in a random order within each entry."""
+    pts, mask, cells, toff, vals = layout
+    order = np.stack([np.random.default_rng(seed + i).permutation(mask.shape[1])
+                      for i in range(mask.shape[0])])
+
+    def take(x):
+        return np.take_along_axis(x, order.reshape(order.shape + (1,) * (x.ndim - 2)), 1)
+
+    return take(pts), take(mask), take(cells), toff, take(vals)
+
+
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_gather_emulation_matches_plain(layout, order):
+    """Runs across span edges, a 300-row cell, masked rows inside runs
+    ('holes'), pads and an empty entry; and the same rows unsorted, which
+    load more often and give the same result. Every row written once; the
+    division is the plain version's, so the result is its bits."""
+    lay = layout if order == "sorted" else unsorted(layout)
+    g, cells, mask, counts = _gather_args(lay)
+    got, writes, loads = emulate_gather(g, cells, mask, counts)
+    assert (writes == 1).all()
+    want = pk.scatter_plane2_bwd_plain(t(g), t(cells), t(mask), t(counts)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert (got[~mask] == 0).all() and (got[-1] == 0).all()
+    _, _, sorted_loads = emulate_gather(*_gather_args(layout))
+    m = layout[1]
+    spans = sum(np.count_nonzero(m[:, s:s + SPAN].any(axis=1)) for s in range(0, m.shape[1], SPAN))
+    assert spans <= sorted_loads < int(m.sum())  # a run inside a span reads its cell once
+    if order == "unsorted":
+        assert loads > sorted_loads
+
+
+def test_gather_emulation_matches_jax_vjp():
+    """The vjp of the JAX ``scatter_plane2`` (its gather kernel in interpret
+    mode), on the aligned layout proper (the JAX forward counts rows by cell
+    id, so no holes)."""
+    _, mask, cells, toff, vals = layout_ = run_batch(3)
+    g, _, _, counts = _gather_args(layout_)
+    ct, _ = chunk_metadata(jnp.asarray(toff), mask.shape[1], RESO, RESO)
+    cells_row = make_cells_row(jnp.asarray(cells))
+    tmask = empty_tile_mask(jnp.asarray(toff), RESO, RESO)
+    _, vjp = jax.vjp(lambda v: jax_scatter_plane2(v, cells_row, ct, tmask, jnp.asarray(mask),
+                                                  RESO), jnp.asarray(vals))
+    (want,) = vjp(jnp.asarray(g))
+    got, _, _ = emulate_gather(g, cells, mask, counts)
+    np.testing.assert_allclose(got, np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("mutant", ["stale", "prev_row"])
+def test_gather_mutants_fail(mutant):
+    """Reusing the loaded value across a cell change ('stale'), or deciding
+    the reuse on the previous row even where that row is masked ('prev_row':
+    a run whose head is cleared then takes the run before it), leaves the
+    plain version."""
+    g, cells, mask, counts = _gather_args(run_batch(3, holes=True))
+    got, _, _ = emulate_gather(g, cells, mask, counts, mutant)
+    want = pk.scatter_plane2_bwd_plain(t(g), t(cells), t(mask), t(counts)).numpy()
+    assert not np.allclose(got, want, **TOL)
+
+
+def test_gather_source_matches_the_emulation():
+    """K2 alone runs on the span partition: no atomic, no element loop with
+    64-bit divides, the reuse decided on the previous valid row; its wrapper
+    launches ``t2h_pool_gather``."""
+    import inspect
+
+    src = open(SOURCE).read()
+    body = src[src.index("pool_gather(const float*"):src.index("// A row's cell at this")]
+    assert "atomic" not in body and "long long t" not in body and "grid_for" not in body
+    assert "__shfl_sync(kFull, dst, below" in body and "dprev != dst" in body
+    assert "t2h_pool_gather" in inspect.getsource(pk.scatter_plane2_bwd)

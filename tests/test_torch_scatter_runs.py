@@ -1,5 +1,6 @@
 """The run scatter (``csrc/pool2.cu`` ``scatter_runs``: K3 ``scatter_plane2``,
-K11 ``scatter_mean_plane`` and K12 ``aligned_scatter_mean_plane``), emulated
+K11 ``scatter_mean_plane``, K12 ``aligned_scatter_mean_plane`` and K13
+``scatter_mean``, which stores each cell at its Morton index), emulated
 in numpy step by step as the kernel takes it: the flags are cleared; the
 mark pass sets the flag of every cell that holds a valid row; in the run
 part, warps own 32-row spans (``SPAN``, the kernel's ``kSpan``), a run
@@ -8,9 +9,10 @@ sums each run, the last run reads on past the span to its end, and each run
 with a valid row writes its cell's mean (and count, K3) once; the zero part
 writes 0 to every cell whose flag is clear. The emulation is held to the
 plain versions (``scatter_plane2_plain``, ``scatter_mean_plane_plain``,
-``aligned_scatter_mean_plane_plain``) and through them to the JAX
-``scatter_plane2``, ``pallas_scatter_mean_plane`` and
-``pallas_aligned_scatter_mean_plane`` (Pallas in interpret mode), on layouts
+``aligned_scatter_mean_plane_plain``, ``scatter_mean_plain``) and through
+them to the JAX ``scatter_plane2``, ``pallas_scatter_mean_plane``,
+``pallas_aligned_scatter_mean_plane`` and ``pallas_scatter_mean`` (Pallas in
+interpret mode), on layouts
 made to hit the partition's edges (``test_torch_cuda.run_batch``,
 ``tile_run_batch``, ``sorted_run_batch``): a cell of 300 rows, runs
 straddling every span edge, a batch entry with no valid row, every tile
@@ -18,9 +20,10 @@ padded, rows cleared from the mask inside a run (K3), rows of another tile
 (K11, K12), a row past the last tile (K11), the fused layout's levels from
 256^2 down to 16^2 (K12) and the plain sorted layout's, its ids shifted and
 its per-cell offsets strided as ``chip_smoke.check_tile_kernels`` does (K11,
-which reads every 256th offset: the tile-offset step). Every plane cell must
-be written exactly once, and a mutant of the read-on, of the zero pass or of
-K11's step must fail. Tolerance 1e-5 abs + rel (the kernel sums in row
+which reads every 256th offset: the tile-offset step; K13 on the same).
+Every plane cell must be written exactly once, and a mutant of the read-on,
+of the zero pass, of K11's step or of K13's order (flags in one order, the
+store in the other) must fail. Tolerance 1e-5 abs + rel (the kernel sums in row
 order, the plain version in scatter order)."""
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ from tomosar2height_tpu.ops.pallas.pool2_kernel import (  # noqa: E402
 )
 from tomosar2height_tpu.ops.pallas.scatter_kernel import (  # noqa: E402
     pallas_aligned_scatter_mean_plane,
+    pallas_scatter_mean,
     pallas_scatter_mean_plane,
 )
 from test_torch_cuda import (  # noqa: E402
@@ -78,15 +82,19 @@ def rowmajor(code, reso):
     return _compact(code >> 1) * reso + _compact(code)
 
 
-def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutant=None):
-    """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``; K11 and
-    K12 with ``toff``, tile t of entry i spanning rows [toff[i, t * step],
-    toff[i, (t + 1) * step]) (K12: tile offsets at ``reso``, step 1; K11:
-    per-cell offsets, step 256), and ``shift``. Returns (plane (B, reso,
+def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, morton=False,
+                    mutant=None):
+    """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``; K11-K13
+    with ``toff``, tile t of entry i spanning rows [toff[i, t * step],
+    toff[i, (t + 1) * step]) (K12: tile offsets at ``reso``, step 1; K11,
+    K13: per-cell offsets, step 256), and ``shift``. Returns (plane (B, reso,
     reso, F), counts (B, reso, reso), writes (B, reso, reso): how often each
-    plane cell was stored). ``mutant``: 'no_read_on' drops the walk past the
-    span, 'no_zero_pass' the zero pass, 'no_step' reads the tile offsets with
-    step 1 whatever ``step`` says."""
+    plane cell was stored); with ``morton`` (K13) the flags and the output
+    are in Morton order, (B, reso**2, F), (B, reso**2), (B, reso**2).
+    ``mutant``: 'no_read_on' drops the walk past the span, 'no_zero_pass'
+    the zero pass, 'no_step' reads the tile offsets with step 1 whatever
+    ``step`` says, 'mixed_order' stores row-major while the flags are in
+    ``morton``'s order."""
     b, n, f = x.shape
     ncell = reso * reso
     plane = np.full((b, ncell, f), np.nan, np.float32)
@@ -100,6 +108,10 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutan
 
     st = 1 if mutant == "no_step" else step
 
+    def index(c, store=False):  # a cell's place in the flags and the output
+        return int(c) if morton and not (store and mutant == "mixed_order") else rowmajor(
+            int(c), reso)
+
     def valid(i, r, c):
         if toff is None:
             return bool(mask[i, r])
@@ -108,7 +120,7 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutan
     for i in range(b):  # the mark pass, a row at a time
         for r in np.flatnonzero(key[i] >= 0):
             if valid(i, r, key[i, r]):
-                flags[i, rowmajor(int(key[i, r]), reso)] = True
+                flags[i, index(key[i, r])] = True
     for i in range(b):  # the run part, warp by warp
         for s0 in range(0, n, SPAN):
             ks = keys[i, s0:s0 + SPAN + 2]
@@ -139,7 +151,7 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutan
                 total, count = (acc, cnt) if last else (sums[k], cnts[k])
                 if count == 0:
                     continue
-                dst = rowmajor(int(c[k]), reso)
+                dst = index(c[k], store=True)
                 plane[i, dst] = total / np.float32(count)
                 counts[i, dst] = count
                 writes[i, dst] += 1
@@ -147,6 +159,8 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, mutan
         plane[~flags] = 0
         counts[~flags] = 0
         writes[~flags] += 1
+    if morton:
+        return plane, counts, writes
     return (plane.reshape(b, reso, reso, f), counts.reshape(b, reso, reso),
             writes.reshape(b, reso, reso))
 
@@ -174,9 +188,9 @@ def _scatter_k12(vals, cells, toff, reso, mutant=None):
                            shift=level_shift(reso), mutant=mutant)
 
 
-def _scatter_k11(vals, cells, offs, reso, mutant=None):
+def _scatter_k11(vals, cells, offs, reso, mutant=None, morton=False):
     c, o = level_sorted(cells, offs, reso)
-    return emulate_scatter(vals, c, reso, toff=o, step=256, mutant=mutant)
+    return emulate_scatter(vals, c, reso, toff=o, step=256, morton=morton, mutant=mutant)
 
 
 def _k11_plain(vals, cells, offs, reso):
@@ -404,3 +418,64 @@ def test_k11_mutants_fail(k11_layout, mutant):
         want = _k11_plain(vals, cells, offs, reso)
         failed.append((writes != 1).any() or not np.allclose(got, want, **TOL))
     assert any(failed)
+
+
+# --- K13: K11's function into the Morton-ordered cell vector ----------------------
+
+
+def _k13_plain(vals, cells, offs, reso):
+    c, o = level_sorted(cells, offs, reso)
+    return sk.scatter_mean_plain(t(vals), t(c), t(o), reso).numpy()
+
+
+@pytest.mark.parametrize("reso,moved", [(r, False) for r in LEVELS]
+                         + [(r, True) for r in LEVELS if r >= 32])
+def test_k13_emulation_matches_plain(k11_layout, reso, moved):
+    """K13 at every level of the plain sorted layout, as K11 (tile offsets
+    every 256th per-cell offset; rows out of their tile and a row past the
+    last tile down to 32^2), each cell stored at its Morton index."""
+    vals, cells, offs = sorted_run_batch(13, moved=True) if moved else k11_layout
+    got, _, writes = _scatter_k11(vals, cells, offs, reso, morton=True)
+    assert got.shape == (4, reso * reso, vals.shape[-1])
+    assert (writes == 1).all()
+    np.testing.assert_allclose(got, _k13_plain(vals, cells, offs, reso), **TOL)
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("reso,moved", [(32, False), (16, False), (32, True)])
+def test_k13_emulation_matches_jax(reso, moved):
+    """``pallas_scatter_mean`` in interpret mode at the coarse levels."""
+    vals, cells, offs = sorted_run_batch(13, moved=moved)
+    c, o = level_sorted(cells, offs, reso)
+    want = np.asarray(pallas_scatter_mean(jnp.asarray(vals), jnp.asarray(c), jnp.asarray(o),
+                                          reso, interpret=True))
+    got, _, _ = _scatter_k11(vals, cells, offs, reso, morton=True)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("reso", [256, 32])
+def test_k13_mixed_order_fails(k11_layout, reso):
+    """Flags in Morton order but the means stored row-major: the zero part
+    then clears occupied cells and leaves others unwritten."""
+    vals, cells, offs = k11_layout
+    got, _, writes = _scatter_k11(vals, cells, offs, reso, "mixed_order", morton=True)
+    assert (writes != 1).any()
+    assert not np.allclose(got, _k13_plain(vals, cells, offs, reso), **TOL)
+
+
+def test_k13_launches_the_run_kernel():
+    """K13's wrapper launches ``t2h_scatter_runs`` with the step of 256 and
+    the Morton-order store (flags and output (B, reso**2)); only K14 is left
+    on ``t2h_tile_scatter_mean``; the store index is the mark pass's."""
+    src = inspect.getsource(sk.scatter_mean)
+    assert "_scatter_runs(" in src and "TILE_CELLS" in src and "morton=True" in src
+    assert "t2h_tile_scatter_mean" not in src and "_launch(" not in src
+    assert "int(morton)" in inspect.getsource(sk._scatter_runs)
+    assert "_launch(" in inspect.getsource(sk.scatter_mean_plane_v3)
+    body = open(SOURCE).read()
+    mark = body[body.index("void mark_cells("):body.index("void store_mean(")]
+    runs = body[body.index("scatter_runs(const float*"):body.index("}  // namespace t2h")]
+    assert "MORTON ? c : morton_to_rowmajor(c, reso)" in mark
+    assert "MORTON ? c : morton_to_rowmajor(c, reso)" in runs
+    tile = open(os.path.join(os.path.dirname(SOURCE), "tile_scatter.cu")).read()
+    assert "morton_out" not in tile  # the Morton-order store went with K13

@@ -286,7 +286,7 @@ class TestTrainerUnits:
             torch.testing.assert_close(b, 2 * a)
 
     def test_footprint_loss_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
+        with pytest.raises(NotImplementedError, match="ROADMAP: fusion training"):
             Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1},
                     use_footprint=True)
 
@@ -488,5 +488,5 @@ class TestTrainingLoader:
 
     def test_augmentation_not_ported(self, city):
         jds = TomoSARDataset("val", city["dataset"], random_sample=False, load_image=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        with pytest.raises(NotImplementedError, match="ROADMAP: augmentation"):
             _port_dataset(jds, city, split="val", flip_augm=True)

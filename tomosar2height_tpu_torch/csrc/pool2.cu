@@ -1,6 +1,6 @@
 // Local pooling and plane scatter of point features: the Hopper versions of
 // the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py,
-// of the aligned tile pool of pool_kernel.py, and of two tile scatter-means of
+// of the aligned tile pool of pool_kernel.py, and of three tile scatter-means of
 // scatter_kernel.py.
 //
 //   K1 + K2 pool_runs    <- _reduce_kernel (:46) then _gather_kernel (:133), as
@@ -9,8 +9,9 @@
 //   K10 pool_runs        <- pool_kernel.py _pool_kernel (:36): the same reduce and
 //                           gather-back over the aligned layout's 256-cell tiles,
 //                           a row pooling only inside its tile (TILED)
-//   K2 t2h_pool_gather   <- _gather_kernel (:133) as _scatter_plane2_bwd (:424)
-//                           runs it: each row reads a row-major plane at its cell
+//   K2 pool_gather       <- _gather_kernel (:133) as _scatter_plane2_bwd (:424)
+//                           runs it: each row reads a row-major plane at its
+//                           cell, a warp a 32-row span, each run's cell read once
 //   K3 scatter_runs      <- _scatter_plane_kernel (:263): masked scatter-mean
 //                           into a row-major plane, with the cells' counts
 //   K12 scatter_runs     <- scatter_kernel.py _aligned_scatter_kernel (:242):
@@ -19,6 +20,9 @@
 //   K11 scatter_runs     <- scatter_kernel.py _scatter_tile_kernel_plane (:124):
 //                           K12's function on the plain sorted layout, the tile
 //                           offsets every 256th of the per-cell offsets
+//   K13 scatter_runs     <- scatter_kernel.py _scatter_tile_kernel (:65): K11's
+//                           function into the Morton-ordered cell vector
+//                           (B, reso^2, F) (MORTON)
 //
 // pool_runs: one launch, no atomics, no cell buffer. Contract: in each batch
 // entry the rows that hold one cell id, and so the cell's valid rows, are
@@ -60,14 +64,15 @@
 // the mask). A warp issues all loads of its span before it reduces, so it
 // waits about two memory latencies (cell ids and mask, then rows).
 
-// scatter_runs (K3, K11, K12): the same partition, writing each run's mean to
-// its cell of a row-major plane (B, reso, reso, F) instead of back to its rows.
-// A row's cell is cells >> shift at this resolution (K3, K11: shift 0); it is
-// in range when cells >= 0 and the cell < reso^2. A row is valid when, besides,
-// K3: its mask is set; K11, K12 (TILED): the row lies in the row range
+// scatter_runs (K3, K11, K12, K13): the same partition, writing each run's
+// mean to its cell of a row-major plane (B, reso, reso, F) (K13: of the
+// Morton-ordered cell vector (B, reso^2, F)) instead of back to its rows.
+// A row's cell is cells >> shift at this resolution (K3, K11, K13: shift 0);
+// it is in range when cells >= 0 and the cell < reso^2. A row is valid when,
+// besides, K3: its mask is set; K11-K13 (TILED): the row lies in the row range
 // [toff[t * step], toff[(t + 1) * step]) of the 256-cell tile t = cell >> 8
-// that holds its cell (K12: step 1, tile offsets at this resolution; K11: step
-// 256, the per-cell offsets read in place; a pad, PAD_CELL_SENTINEL on the
+// that holds its cell (K12: step 1, tile offsets at this resolution; K11, K13:
+// step 256, the per-cell offsets read in place; a pad, PAD_CELL_SENTINEL on the
 // aligned layout, reso^2 on the plain sorted one, is never in range). Runs are
 // as above, on the cell at this resolution. On the fused layout (256-cell
 // finest tiles, pads only at finest-tile ends) a cell at level l <= 4 covers 4^l
@@ -91,7 +96,7 @@
 // 256^2; a lane takes 1, 2 or 4 features (F < 64, < 128, from 128 on).
 //
 // Bound on the H100: bytes: values on the valid rows, every row's cell id (and
-// mask, K3; tile offsets, K11 and K12), the plane and counts written once (+ the
+// mask, K3; tile offsets, K11-K13), the plane and counts written once (+ the
 // flags). K3 at B = 8, Npad = 20480, F = 32: ~16 MB of values and ~67 MB of
 // plane, ~26 us at 3.35 TB/s; the zeros are most of it.
 
@@ -286,25 +291,84 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   }
 }
 
-// Each valid row reads the row-major plane (B, reso, reso, F) at its Morton
-// cell, divided by max(count, 1); 0 on the other rows.
-__global__ void pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
-                            const uint8_t* __restrict__ mask,
-                            const int* __restrict__ counts, float* __restrict__ out,
-                            int N, int F, int reso, long long total) {
+// K2 alone (scatter_plane2's backward): each valid row (mask set, 0 <= cell <
+// reso^2) reads the row-major plane (B, reso, reso, F) at its Morton cell,
+// divided by max(count, 1); every other row gets 0. pool_runs' partition:
+// warp = (batch entry, 32-row span, chunk of 32 features), chunk fastest;
+// lane k takes row k's cell id and mask byte (one coalesced load each), its
+// row-major cell (morton_to_rowmajor once a row) and that cell's count. A
+// valid row loads its plane row only where its cell differs from the
+// previous valid row's in the span (a new run, or the span's first valid
+// row); the loads of a group of 16 rows go out before the group's stores (32
+// at once, with their 32 addresses, spill at 80 registers), each loaded
+// value is divided by its cell's count once (the plain version's division,
+// so the result is its bits), and the rows then take the latest load in row
+// order from a register. So each run inside a span reads its plane row and
+// count once, and each row is written once, by one warp, with no atomic:
+// bit-equal run to run. Correctness does not depend on the order of the rows
+// (unlike scatter_plane2's forward on scatter_runs, which needs the runs
+// contract): unsorted rows only load more often. No 64-bit divide: a thread
+// splits its warp index once, in 32 bits.
+//
+// Bound on the H100: bytes: the plane and counts at the occupied cells,
+// every row's cell id and mask, the output written once. At B = 8, Npad =
+// 20480, F = 32 the output alone is 21 MB (~6.3 us at 3.35 TB/s); all of it
+// ~36 MB, ~11 us.
+constexpr int kGatherGroup = 16;  // rows loaded at once
+
+__global__ void __launch_bounds__(kThreads, 3)
+pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
+            const uint8_t* __restrict__ mask, const int* __restrict__ counts,
+            float* __restrict__ out, int N, int F, int reso, unsigned warps, unsigned spans,
+            unsigned chunks) {
+  const int lane = threadIdx.x & 31;
+  const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= warps) return;  // warp-uniform
+  const unsigned fc = warp % chunks;
+  const unsigned bs = warp / chunks;
+  const unsigned b = bs / spans;
+  const int s0 = static_cast<int>(bs - b * spans) * kSpan;
+  const long long base = (long long)b * N;  // first row of batch entry b
   const int ncell = reso * reso;
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < total;
-       t += (long long)gridDim.x * blockDim.x) {
-    const long long p = t / F;
-    const int f = static_cast<int>(t - p * F);
-    const int cell = cells[p];
-    float v = 0.0f;
-    if (mask[p] && cell >= 0 && cell < ncell) {
-      const long long row = p / N * ncell + morton_to_rowmajor(cell, reso);
-      const int c = counts[row];
-      v = plane[row * F + f] / static_cast<float>(c > 1 ? c : 1);
+
+  // lane = row of the span: its row-major cell (-1: not valid) and count
+  const int row = s0 + lane;
+  int dst = -1;
+  float n = 1.0f;
+  if (row < N) {
+    const int c = cells[base + row];
+    if (mask[base + row] != 0 && c >= 0 && c < ncell) {
+      dst = morton_to_rowmajor(c, reso);
+      const int k = counts[(long long)b * ncell + dst];
+      n = static_cast<float>(k > 1 ? k : 1);
     }
-    out[t] = v;
+  }
+  const unsigned valid = __ballot_sync(kFull, dst >= 0);
+  const unsigned below = valid & ((1u << lane) - 1u);  // valid rows before this one
+  const int dprev = __shfl_sync(kFull, dst, below ? 31 - __clz(below) : lane);
+  const unsigned loads = __ballot_sync(kFull, dst >= 0 && (below == 0 || dprev != dst));
+  const int rows = min(kSpan, N - s0);
+
+  const int f = fc * 32 + lane;
+  const bool fin = f < F;
+  const float* pb = plane + (long long)b * ncell * F + f;
+  float* ob = out + base * F + f;
+  float cur = 0.0f;  // the latest load, divided
+#pragma unroll
+  for (int g = 0; g < kSpan; g += kGatherGroup) {
+    float v[kGatherGroup];
+#pragma unroll
+    for (int k = 0; k < kGatherGroup; ++k) {
+      const int d = __shfl_sync(kFull, dst, g + k);
+      v[k] = fin && (loads >> (g + k) & 1u) ? pb[(long long)d * F] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kGatherGroup; ++k) {
+      const int r = g + k;
+      const float nr = __shfl_sync(kFull, n, r);
+      if (loads >> r & 1u) cur = v[k] / nr;
+      if (fin && r < rows) ob[(long long)(s0 + r) * F] = valid >> r & 1u ? cur : 0.0f;
+    }
   }
 }
 
@@ -352,8 +416,10 @@ __device__ __forceinline__ void zero_empty_cells(float* __restrict__ plane,
 
 // The mark pass: flags[cell] = 1 for every cell that holds a valid row; a
 // thread a row (blockIdx.y = batch entry). Rows of one cell store the same
-// byte, so their order does not matter.
-template <bool TILED>
+// byte, so their order does not matter. The flags are laid out as the
+// output (MORTON: cell c at c, else at its row-major index), since the zero
+// part walks the two together.
+template <bool TILED, bool MORTON>
 __global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restrict__ mask,
                            const int* __restrict__ toff, uint8_t* __restrict__ flags, int N,
                            int reso, int shift, int toff_row, int toff_step) {
@@ -365,7 +431,7 @@ __global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restr
   if (c < 0) return;
   const int* to = TILED ? toff + b * toff_row : nullptr;
   if (TILED ? in_tile(to, toff_step, c, row) : mask[b * N + row] != 0)
-    flags[b * ncell + morton_to_rowmajor(c, reso)] = 1;
+    flags[b * ncell + (MORTON ? c : morton_to_rowmajor(c, reso))] = 1;
 }
 
 // VEC consecutive features of a row, loaded and stored as one vector.
@@ -395,15 +461,16 @@ __device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&
   }
 }
 
-// K3 (TILED false: mask) and K11, K12 (TILED true: tile offsets, no mask): the run
-// part and the zero part in one launch, after the mark pass. The run part's
+// K3 (TILED false: mask) and K11, K12, K13 (TILED true: tile offsets, no mask;
+// K13 MORTON: the output in Morton order): the run part and the zero part in
+// one launch, after the mark pass. The run part's
 // warp = (batch entry, span, chunk of 32 * VEC features), chunk fastest, so a
 // block's warps share the span's ids in L1 when there are 8 chunks or more;
 // a lane loads VEC features of a row at once (VEC 4: a row's 128 features
 // are one 512-byte load). The span's rows load in groups of 32 / VEC (4 KB a
 // warp in flight, 32 registers of values) and are summed as they come, each
 // run's end written at once. Three blocks an SM (<= 80 registers).
-template <bool TILED, int VEC>
+template <bool TILED, int VEC, bool MORTON>
 __global__ void __launch_bounds__(kThreads, 3)
 scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
              const uint8_t* __restrict__ mask, const int* __restrict__ toff,
@@ -471,7 +538,8 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
   const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
   const float* xf = x + base * F + f;
   float* pb = plane + b * ncell * F + f;
-  const int my_dst = ok ? morton_to_rowmajor(c, reso) : 0;  // lane k: row k's cell
+  // lane k: row k's cell in the output (the index the mark pass flagged)
+  const int my_dst = ok ? (MORTON ? c : morton_to_rowmajor(c, reso)) : 0;
   auto write = [&](int k, const float (&a)[VEC], int count) {
     const int dst = __shfl_sync(kFull, my_dst, k);
     if (fin) store_mean<VEC>(pb + (long long)dst * F, a, count);
@@ -599,34 +667,43 @@ int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const i
 }
 
 // plane (B,reso,reso,F) row-major, cells (B,N) Morton ids, mask (B,N), counts
-// (B,reso,reso) -> out (B,N,F) = plane[cell] / max(count,1); 0 on pad rows.
+// (B,reso,reso) -> out (B,N,F) = plane[cell] / max(count,1) on the valid
+// rows, 0 on the others. One launch; any row order.
 int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
                     const int* counts, float* out, int B, int N, int F, int reso,
                     cudaStream_t stream) {
-  const long long np = (long long)B * N * F;
-  if (np > 0)
-    pool_gather<<<grid_for(np), kThreads, 0, stream>>>(plane, cells, mask, counts, out, N,
-                                                       F, reso, np);
+  const long long spans = (N + kSpan - 1) / kSpan;
+  const long long chunks = (F + 31) / 32;
+  const long long warps = (long long)B * spans * chunks;
+  if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
+  if (warps > 0)
+    pool_gather<<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads, 0,
+                  stream>>>(plane, cells, mask, counts, out, N, F, reso,
+                            static_cast<unsigned>(warps), static_cast<unsigned>(spans),
+                            static_cast<unsigned>(chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
 // values (B,N,F) f32, cells (B,N) i32 Morton ids (finest; the cell at reso
 // is cells >> shift), flags (B,reso,reso) u8 scratch -> plane (B,reso,reso,F)
-// row-major scatter-mean of the valid rows, 0 on empty cells. Either K3:
-// mask (B,N) u8, toff null, counts (B,reso,reso) i32 written; or K11, K12:
-// mask null, toff (B,toff_row) i32, tile t of the reso^2/256 tiles spanning
-// rows [toff[t * toff_step], toff[(t + 1) * toff_step]) (K12: tile offsets,
-// step 1; K11: per-cell offsets, step 256; reso^2 a multiple of 256), counts
-// null. Three launches: clear, mark, runs + zeros.
+// row-major scatter-mean of the valid rows, 0 on empty cells; morton != 0:
+// the Morton-ordered cell vector (B,reso*reso,F) instead, the flags in the
+// same order (tiled only). Either K3: mask (B,N) u8, toff null, counts
+// (B,reso,reso) i32 written; or K11, K12, K13: mask null, toff (B,toff_row)
+// i32, tile t of the reso^2/256 tiles spanning rows [toff[t * toff_step],
+// toff[(t + 1) * toff_step]) (K12: tile offsets, step 1; K11, K13: per-cell
+// offsets, step 256; reso^2 a multiple of 256), counts null. Three launches:
+// clear, mark, runs + zeros.
 int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      const int* toff, float* plane, int* counts, uint8_t* flags, int B,
                      int N, int F, int reso, int shift, int toff_row, int toff_step,
-                     cudaStream_t stream) {
+                     int morton, cudaStream_t stream) {
   const bool tiled = toff != nullptr;
   const long long ncells = (long long)B * reso * reso;
   const bool vec = F % 4 == 0;
   const long long items = ncells * (vec ? F / 4 : F);
   if (tiled == (mask != nullptr) || tiled == (counts != nullptr) || items >= (1LL << 31) ||
+      (morton && !tiled) ||
       (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
                  toff_row < (reso * reso / 256) * toff_step + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -635,12 +712,13 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (N > 0) {
     const dim3 grid((N + kThreads - 1) / kThreads, B);
-    if (tiled)
-      mark_cells<true><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift,
-                                                      toff_row, toff_step);
-    else
-      mark_cells<false><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso,
-                                                       shift, toff_row, toff_step);
+#define T2H_MARK(T, M)                                                                   \
+  mark_cells<T, M><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift, \
+                                                  toff_row, toff_step)
+    if (morton) T2H_MARK(true, true);
+    else if (tiled) T2H_MARK(true, false);
+    else T2H_MARK(false, false);
+#undef T2H_MARK
   }
   // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
   // not aligned to 16 bytes)
@@ -653,18 +731,22 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
   const int qshift = (q & (q - 1)) == 0 ? __builtin_ctz(q) : -1;
   const unsigned zero_blocks =
       static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems));
-#define T2H_SCATTER_RUNS(T, V)                                                            \
-  scatter_runs<T, V><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(                  \
+#define T2H_SCATTER_RUNS(T, V, M)                                                         \
+  scatter_runs<T, V, M><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(               \
       values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
       toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
-  if (tiled) {
-    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2);
-    else T2H_SCATTER_RUNS(true, 1);
+  if (morton) {
+    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, true);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, true);
+    else T2H_SCATTER_RUNS(true, 1, true);
+  } else if (tiled) {
+    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, false);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, false);
+    else T2H_SCATTER_RUNS(true, 1, false);
   } else {
-    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2);
-    else T2H_SCATTER_RUNS(false, 1);
+    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4, false);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2, false);
+    else T2H_SCATTER_RUNS(false, 1, false);
   }
 #undef T2H_SCATTER_RUNS
   return static_cast<int>(cudaGetLastError());

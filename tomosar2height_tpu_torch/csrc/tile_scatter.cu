@@ -1,24 +1,23 @@
-// Morton-tile scatter-mean: the Hopper version of two Pallas kernels in
-// tomosar2height_tpu/ops/pallas/scatter_kernel.py that compute one function
-// on one contract:
+// Morton-tile scatter-mean into a row-major plane: the Hopper version of
+// K14, _scatter_v3_kernel (pallas_scatter_mean_plane_v3) in
+// tomosar2height_tpu/ops/pallas/scatter_kernel.py, on no model path. It is
+// the last kernel in this file, and its next step is csrc/pool2.cu's
+// scatter_runs with a tile-offset step of 4^level, as K11-K13 took.
 //
-//   K13 _scatter_tile_kernel (pallas_scatter_mean)               -> Morton cell vector
-//   K14 _scatter_v3_kernel (pallas_scatter_mean_plane_v3)        -> row-major plane
-//
-// (K11, _scatter_tile_kernel_plane, and K12, _aligned_scatter_kernel, the
-// same function into a row-major plane on the plain sorted layout and on the
-// aligned tile offsets at a level, run on csrc/pool2.cu's scatter_runs: no
-// atomics, each cell written once, bit-equal run to run.)
+// (K11 _scatter_tile_kernel_plane, K12 _aligned_scatter_kernel and K13
+// _scatter_tile_kernel, the same function on the plain sorted layout, on the
+// aligned tile offsets at a level and into the Morton cell vector, run on
+// csrc/pool2.cu's scatter_runs: no atomics, each cell written once, bit-equal
+// run to run.)
 //
 // The function: rows come grouped by 16x16 Morton tile (256 cells), each
 // tile's rows contiguous, [toff[t], toff[t+1]); a row adds its values to cell
 // (cell >> shift) - 256 t of its tile when that lies in [0, 256), else
 // nothing (pad rows, PAD_CELL_SENTINEL, rows of a neighbouring tile); each
-// cell's mean is written, 0 for an empty cell. The launchers differ only in
-// where the tile offsets come from (K13: every 256th per-cell offset; K14:
-// the finest tile offsets, every 4^level-th) and in the output order.
+// cell's mean is written, 0 for an empty cell. K14 takes its tile offsets
+// from the finest ones, every 4^level-th (toff_step).
 //
-// The TPU kernels build one-hot matrices and contract them on the MXU, a
+// The TPU kernel builds one-hot matrices and contracts them on the MXU, a
 // chunk of 128 rows at a time over a sequential grid. Here a block owns one
 // (tile, batch entry, 32-feature chunk): its warps walk the tile's rows (warp
 // w takes rows w, w + 8, ...; lane = feature), add them into a 256 x 32
@@ -46,7 +45,7 @@ constexpr int kUnroll = 4;
 __global__ void __launch_bounds__(kThreads)
 tile_scatter_mean(const float* __restrict__ values, const int* __restrict__ cells,
                   const int* __restrict__ toff, float* __restrict__ out, int N, int F,
-                  int R, int shift, int toff_row, int toff_step, int morton_out) {
+                  int R, int shift, int toff_row, int toff_step) {
   __shared__ float acc[kTileCells][kFc];
   __shared__ int cnt[kTileCells];
   const int t = blockIdx.x;
@@ -96,8 +95,7 @@ tile_scatter_mean(const float* __restrict__ values, const int* __restrict__ cell
     const int l = e - q * kFc;
     if (f0 + l >= F) continue;
     const int c = cnt[q];
-    const int m = base + q;
-    const int dst = morton_out ? m : morton_to_rowmajor(m, R);
+    const int dst = morton_to_rowmajor(base + q, R);
     ob[(long long)dst * F + f0 + l] = acc[q][l] / static_cast<float>(c > 1 ? c : 1);
   }
 }
@@ -111,18 +109,15 @@ extern "C" {
 // values (B,N,F) f32, cells (B,N) i32 Morton ids (finest, or at this
 // resolution with shift 0), tile offsets: tile t of entry b spans rows
 // [toff[b*toff_row + t*toff_step], toff[b*toff_row + (t+1)*toff_step]) ->
-// out (B,R,R,F) row-major (morton_out 0) or (B,R*R,F) Morton order (1).
-// R*R must be a multiple of 256.
+// out (B,R,R,F) row-major. R*R must be a multiple of 256.
 int t2h_tile_scatter_mean(const float* values, const int* cells, const int* toff,
                           float* out, int B, int N, int F, int R, int shift,
-                          int toff_row, int toff_step, int morton_out,
-                          cudaStream_t stream) {
+                          int toff_row, int toff_step, cudaStream_t stream) {
   const int tiles = R * R / kTileCells;
   if ((long long)B * tiles * F > 0) {
     const dim3 grid(tiles, B, (F + kFc - 1) / kFc);
     tile_scatter_mean<<<grid, kThreads, 0, stream>>>(values, cells, toff, out, N, F, R,
-                                                     shift, toff_row, toff_step,
-                                                     morton_out);
+                                                     shift, toff_row, toff_step);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,7 +13,7 @@ deterministic stream (``det_stream``: every batch a pure function of seed,
 epoch and position). The rng draws are the JAX loader's, so both loaders give
 identical batches for one dataset. Prefetch threads, worker pools, the u16
 point wire and ``set_position`` (resume, with checkpoints) are not ported yet
-(ROADMAP A6, A11).
+(ROADMAP: checkpoints; wires and the host side).
 """
 
 from __future__ import annotations

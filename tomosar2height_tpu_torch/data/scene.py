@@ -58,13 +58,13 @@ class SceneDataset:
                  dsm=None, image=None, flip_augm: bool = False, rotate_augm: bool = False):
         if flip_augm or rotate_augm:
             raise NotImplementedError(
-                "flip/rotate augmentation is not ported yet (ROADMAP A12); the "
+                "flip/rotate augmentation is not ported yet (ROADMAP: augmentation); the "
                 "flagship trains with both off")
         self.patch_size = np.asarray(cfg_dataset["patch_size"], dtype=np.float64)
         norm = cfg_dataset["normalize"]
         if norm.get("z_shift", "local_min") != "local_min":
             raise NotImplementedError(f"z_shift={norm['z_shift']!r}: only local_min "
-                                      "is ported (ROADMAP A7)")
+                                      "is ported (ROADMAP: datasets on disk)")
         self.random_sample = bool(random_sample)
         self.random_length = int(random_length) if random_length is not None else 10
         self.dsm_data, self.dsm = (None, None) if dsm is None else dsm

@@ -188,7 +188,7 @@ class AltoUNet(nn.Module):
             raise NotImplementedError(
                 f"AltoUNet merge_mode={merge_mode!r} up_mode={up_mode!r} "
                 f"sample_mode={sample_mode!r}: only concat/transpose/bilinear is "
-                "ported (ROADMAP A3)")
+                "ported (ROADMAP: alternates)")
         self.depth = depth
         feats = [start_filts * (2 ** i) for i in range(depth)]
         cin, cd = in_channels, c_dim

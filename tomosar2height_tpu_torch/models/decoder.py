@@ -76,7 +76,7 @@ class PixelwiseDecoder(nn.Module):
         if mode != "conv" or leaky:
             raise NotImplementedError(
                 f"decoder mode={mode!r}, leaky={leaky}: only the conv decoder "
-                "with ReLU is ported (ROADMAP A3)")
+                "with ReLU is ported (ROADMAP: alternates)")
         self.output_size = output_size
         self.conv_decoder = ConvDecoder(in_channels, out_dim, fused_head)
         self.conv_decoder_footprint = (ConvDecoder(in_channels, out_dim, fused_head)

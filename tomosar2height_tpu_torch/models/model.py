@@ -28,14 +28,14 @@ class TomoSAR2Height(nn.Module):
                  z_scale: float = 1.0, remat: bool = False):
         super().__init__()
         if not use_cloud:
-            raise NotImplementedError("the image-only network is not ported (ROADMAP A9)")
+            raise NotImplementedError("the image-only network is not ported (ROADMAP: alternates)")
         if use_image and encoder2 != "unet":
             raise NotImplementedError(
                 f"encoder2={encoder2!r}: only the U-Net image encoder is ported "
-                "(ROADMAP A11)")
+                "(ROADMAP: alternates)")
         if encoder != "pointnet_local_pool":
             raise NotImplementedError(
-                f"encoder={encoder!r} is not ported yet (ROADMAP A11)")
+                f"encoder={encoder!r} is not ported yet (ROADMAP: alternates)")
         kwargs = dict(encoder_kwargs or {})
         self.point_encoder = LocalPoolPointnet(**kwargs)
         self.image_encoder = UNet(**dict(encoder2_kwargs or {})) if use_image else None
@@ -59,7 +59,7 @@ class TomoSAR2Height(nn.Module):
         as the JAX generator's jit drops it (infer/generator.py:285)."""
         if not input_cloud.is_floating_point():
             raise NotImplementedError(
-                "only float points are ported; the u16 point wire is ROADMAP A11")
+                "only float points are ported; the u16 point wire is ROADMAP: wires")
         if self.image_encoder is not None and input_image is None:
             raise ValueError("use_image: the model needs input_image (B, H, W, 3)")
         args = (input_cloud, cloud_mask, cloud_cells, cloud_offsets)
@@ -84,7 +84,7 @@ def build_model(cfg, device="cuda") -> TomoSAR2Height:
     cfg_model = cfg["model"]
     dtype = cfg_model.get("dtype", "float32")
     if dtype != "float32":
-        raise NotImplementedError(f"model.dtype={dtype!r}: bf16 is ROADMAP A3")
+        raise NotImplementedError(f"model.dtype={dtype!r}: bf16 is ROADMAP: bf16")
     z_bound = cfg["dataset"]["normalize"]["z_bound"]
     model = TomoSAR2Height(
         use_cloud=bool(cfg["use_cloud"]),

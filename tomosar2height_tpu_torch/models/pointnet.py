@@ -64,7 +64,7 @@ class LocalPoolPointnet(nn.Module):
         if unet_type != "alto":
             raise NotImplementedError(
                 f"unet_type={unet_type!r}: only the ALTO U-Net is ported "
-                "for the point plane (ROADMAP A11)")
+                "for the point plane (ROADMAP: alternates)")
         self.reso = plane_resolution
         self.scatter_type = scatter_type
         self.sorted_impl = sorted_impl

@@ -74,7 +74,7 @@ class UNet(nn.Module):
         if (up_mode, merge_mode) != ("transpose", "concat"):
             raise NotImplementedError(
                 f"UNet up_mode={up_mode!r} merge_mode={merge_mode!r}: only "
-                "transpose/concat is ported (ROADMAP A3)")
+                "transpose/concat is ported (ROADMAP: alternates)")
         self.depth = depth
         cin = in_channels
         for i in range(depth):

@@ -11,11 +11,13 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
   over the sorted runs (:func:`pool2_fwd`, :func:`pool2_bwd`). The same
   kernel, with the tile check in place of the mask, serves K10 in
   ``pool_kernel.py``.
-- K2 alone (``t2h_pool_gather``) for ``scatter_plane2``'s backward: each
-  valid row reads a row-major plane at its cell (:func:`scatter_plane2_bwd`).
+- K2 alone (``pool_gather``) for ``scatter_plane2``'s backward: each valid
+  row reads a row-major plane at its cell (:func:`scatter_plane2_bwd`); a
+  warp takes a 32-row span, as ``pool_runs`` does, and reads each run's cell
+  once (rows in any order: unsorted ones only read more).
 - K3 :func:`scatter_plane2` <- ``_scatter_plane_kernel`` (pool2_kernel.py:263):
   masked scatter-mean into a row-major NHWC plane, plus per-cell counts, on
-  the same runs (``scatter_runs``, which also serves K11 and K12 in
+  the same runs (``scatter_runs``, which also serves K11-K13 in
   ``scatter_kernel.py``): each run's row-order mean and count written to
   its cell once, the empty cells (marked first) zeroed in the same launch;
   no atomics.
@@ -44,7 +46,9 @@ take any order and are the oracle.
 - max pool: ``dv = where(values == out, run_sum(g), 0)``: every tied point
   gets the whole cell sum (the tie gate is fused into the kernel);
 - scatter_plane2: ``dv[i] = g_plane[cell_i] / max(count, 1)`` on valid rows,
-  one K2 launch reading the row-major plane.
+  one K2 launch reading the row-major plane. It divides, as the plain
+  version does (bit-equal to it); JAX multiplies by ``1 / max(count, 1)``
+  (pool2_kernel.py:448), within one rounding of that.
 """
 
 from __future__ import annotations
@@ -264,7 +268,8 @@ def _scatter_plane2(values, cells, mask, reso: int):
     flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
     err = runtime.library().t2h_scatter_runs(
         values.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, plane.data_ptr(),
-        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, 0, runtime.stream_ptr(dev))
+        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, 0, 0,
+        runtime.stream_ptr(dev))
     runtime.check(err, "scatter_plane2")
     runtime.LAUNCHES["scatter_plane2"] += 1
     return plane, counts

@@ -55,7 +55,7 @@ _SIGNATURES = {
     # count that t2h_level_bwd_reduce_tiles computes)
     "t2h_pool_runs": [_P] * 7 + [_I] * 5 + [_P],
     "t2h_pool_gather": [_P] * 5 + [_I] * 4 + [_P],
-    "t2h_scatter_runs": [_P] * 7 + [_I] * 7 + [_P],
+    "t2h_scatter_runs": [_P] * 7 + [_I] * 8 + [_P],
     "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
     "t2h_level_bwd_reduce": [_P, _P] + [_I] * 4 + [_P] * 4,
@@ -64,7 +64,7 @@ _SIGNATURES = {
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
-    "t2h_tile_scatter_mean": [_P] * 4 + [_I] * 8 + [_P],
+    "t2h_tile_scatter_mean": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

@@ -7,17 +7,18 @@ Morton tile (256 cells), each tile's rows contiguous; a row adds into cell
 nowhere (pad rows, ``PAD_CELL_SENTINEL``, rows of another tile); each cell's
 mean is written, 0 for an empty cell. Two CUDA kernels compute it, and
 each TPU kernel keeps its own launcher, plain version and launch count:
-K11 and K12 run ``csrc/pool2.cu`` ``t2h_scatter_runs``, K3's atomic-free
-pass over the Morton-sorted runs with the tile check on (a warp sums each
-run in row order and writes its cell once; the empty cells, marked first,
-are zeroed in the same launch: bit-equal run to run); K11 reads its tile
-offsets in place, every 256th of the per-cell offsets (step 256), K12 its
-tile offsets at this resolution (step 1). Their contract: a cell's rows at
-this resolution are contiguous (the plain sorted layout's rows are sorted,
-pads at the end; on the fused layout true down to 16^2, where a cell is one
-finest 256-cell tile, pads only between cells). K13 and K14 run
-``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean`` (a block a tile,
-shared-memory atomics).
+K11, K12 and K13 run ``csrc/pool2.cu`` ``t2h_scatter_runs``, K3's
+atomic-free pass over the Morton-sorted runs with the tile check on (a warp
+sums each run in row order and writes its cell once; the empty cells,
+marked first, are zeroed in the same launch: bit-equal run to run); K11 and
+K13 read their tile offsets in place, every 256th of the per-cell offsets
+(step 256), K12 its tile offsets at this resolution (step 1); K13 stores
+each cell at its Morton index (``morton``), the others at its row-major
+one. Their contract: a cell's rows at this resolution are contiguous (the
+plain sorted layout's rows are sorted, pads at the end; on the fused layout
+true down to 16^2, where a cell is one finest 256-cell tile, pads only
+between cells). K14 runs ``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean``
+(a block a tile, shared-memory atomics).
 
 - K11 :func:`scatter_mean_plane` <- ``_scatter_tile_kernel_plane``
   (scatter_kernel.py:124, ``pallas_scatter_mean_plane``): the plain sorted
@@ -126,39 +127,41 @@ def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
         raise ValueError(f"{name}: {toff.shape[1]} tile offsets, need {tiles * step + 1}")
 
 
-def _launch(name, values, cells, toff, reso: int, shift: int, step: int,
-            morton_out: bool):
-    """Launch ``t2h_tile_scatter_mean`` (K13, K14); tile t of entry b spans
-    rows [toff[b, t*step], toff[b, (t+1)*step])."""
+def _launch(name, values, cells, toff, reso: int, shift: int, step: int):
+    """Launch ``t2h_tile_scatter_mean`` (K14) into a row-major plane; tile t
+    of entry b spans rows [toff[b, t*step], toff[b, (t+1)*step])."""
     dev = values.device
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
-    shape = (b, reso * reso, f) if morton_out else (b, reso, reso, f)
-    out = torch.empty(shape, device=dev, dtype=torch.float32)
+    out = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
     err = runtime.library().t2h_tile_scatter_mean(
         values.data_ptr(), cells.data_ptr(), toff.data_ptr(), out.data_ptr(), b, n, f,
-        reso, shift, toff.shape[1], step, int(morton_out), runtime.stream_ptr(dev))
+        reso, shift, toff.shape[1], step, runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
     return out
 
 
-def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int):
-    """Launch ``t2h_scatter_runs`` with the tile check (K11, K12): a row adds
+def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int,
+                  morton: bool = False):
+    """Launch ``t2h_scatter_runs`` with the tile check (K11-K13): a row adds
     into its cell ``cells >> shift`` when it lies in the rows
-    [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t."""
+    [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t. Returns the
+    row-major plane (B, reso, reso, F), or with ``morton`` the Morton-ordered
+    cell vector (B, reso**2, F)."""
     dev = values.device
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
-    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
-    flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
+    cells_shape = (b, reso * reso) if morton else (b, reso, reso)
+    out = torch.empty(cells_shape + (f,), device=dev, dtype=torch.float32)
+    flags = torch.empty(cells_shape, device=dev, dtype=torch.uint8)
     err = runtime.library().t2h_scatter_runs(
-        values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), plane.data_ptr(), 0,
-        flags.data_ptr(), b, n, f, reso, shift, toff.shape[1], step,
+        values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), out.data_ptr(), 0,
+        flags.data_ptr(), b, n, f, reso, shift, toff.shape[1], step, int(morton),
         runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
-    return plane
+    return out
 
 
 def scatter_mean_plane(values, cells, offsets, reso: int):
@@ -182,7 +185,8 @@ def scatter_mean(values, cells, offsets, reso: int):
     _forward_only(values, "scatter_mean")
     if runtime.on_cpu(values):
         return scatter_mean_plain(values, cells, offsets, reso)
-    return _launch("scatter_mean", values, cells, offsets, reso, 0, TILE_CELLS, True)
+    return _scatter_runs("scatter_mean", values, cells, offsets, reso, 0, TILE_CELLS,
+                         morton=True)
 
 
 def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: int):
@@ -211,4 +215,4 @@ def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):
         return scatter_mean_plane_v3_plain(values, cells, tile_offsets, reso, finest)
     shift = level_shift(reso, finest)
     return _launch("scatter_mean_plane_v3", values, cells, tile_offsets, reso, shift,
-                   4 ** (shift // 2), False)
+                   4 ** (shift // 2))

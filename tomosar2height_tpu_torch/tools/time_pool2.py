@@ -1,17 +1,20 @@
-"""``pool2``'s forward and backward (max and mean pooling), and K10
-(``tile_pool``, max and mean), timed on the card at the flagship shapes (B =
-8, 16384-point buckets on the aligned layout, F = 32, 256^2 cells; K10 on
-256-cell tiles, Npad 32768), from the port in a given checkout.
+"""``pool2``'s forward and backward (max and mean pooling), K2 alone
+(``scatter_plane2_bwd``) and K10 (``tile_pool``, max and mean), timed on the
+card at the flagship shapes (B = 8, 16384-point buckets on the aligned
+layout, F = 32, 256^2 cells; K10 on 256-cell tiles, Npad 32768), from the
+port in a given checkout.
 
     python -m tomosar2height_tpu_torch.tools.time_pool2 [--root DIR]
 
 ``--root`` is the root of a checkout (default: this one); its package is
 imported from there, so that two commits can be compared on one card in one
-call, in turns (parent, change, change, parent): ``pool2``, ``pool2_bwd``
-and ``tile_pool`` take the same arguments in both trees. The flagship
+call, in turns (parent, change, change, parent): ``pool2``, ``pool2_bwd``,
+``scatter_plane2_bwd`` and ``tile_pool`` take the same arguments in both
+trees. The flagship
 batches and the timers are this checkout's ``chip_smoke.py``. Prints the
 card's name and power limit, then for each (forward, backward) x (max, mean)
-call, for the forward and the backward over both kinds, and for K10's two
+call, for the forward and the backward over both kinds, for K2 alone (the
+plane cotangent at the cells of the forward's counts) and for K10's two
 kinds (as ``chip_smoke.py`` times it): the median ms of one call between
 two CUDA events (``cuda_ms``: on an idle card this includes the Python
 wrapper's host time), the median device ms of one call replayed from a CUDA
@@ -77,6 +80,12 @@ def main() -> None:
         both = [fns for name, fns in calls.items() if name.startswith(f"pool2 {part}")]
         calls[f"pool2 {part} max + mean"] = [lambda fs=fs: [fn() for fn in fs]
                                              for fs in zip(*both)]
+    g_plane = torch.randn(b, 256, 256, 32, generator=gen).to(dev)
+    counts = pk.scatter_plane2(vals, cells, mask, 256)[1]
+    gsets = [(g_plane, cells, mask, counts)] + [
+        tuple(t.clone() for t in (g_plane, cells, mask, counts)) for _ in range(2)]
+    calls["K2 alone scatter_plane2_bwd"] = [lambda s=s: pk.scatter_plane2_bwd(*s)
+                                            for s in gsets]
     _, _, _, amask, acell, toff = cs.flagship_batch(5, tile_cells=256)
     tmask, tcells, toff = (torch.from_numpy(x).to(dev) for x in (amask, acell, toff))
     tv = (torch.randn(*amask.shape, 32, generator=gen).to(dev) * tmask[..., None]).contiguous()

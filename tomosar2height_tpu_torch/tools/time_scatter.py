@@ -1,6 +1,6 @@
-"""K3 (``scatter_plane2``), K11 (``scatter_mean_plane``) and K12
-(``aligned_scatter_mean_plane``) timed on the card at the flagship's shapes,
-from the port in a given checkout.
+"""K3 (``scatter_plane2``), K11 (``scatter_mean_plane``), K12
+(``aligned_scatter_mean_plane``) and K13 (``scatter_mean``) timed on the card
+at the flagship's shapes, from the port in a given checkout.
 
     python -m tomosar2height_tpu_torch.tools.time_scatter [--root DIR]
 
@@ -13,9 +13,9 @@ layout, 256^2, F = 32; K12 at each of its 10 shapes (``TILE_SCATTER_SHAPES``
 and 16^2 at F = 1024) on the 256-cell layout (Npad 32768); K11 at each of
 its 9 (``TILE_SCATTER_SHAPES``) on the plain sorted layout of the same
 points, ids shifted and per-cell offsets strided to each level as
-``check_tile_kernels`` gives them. Prints the card's name and power limit,
-then for K3, for each K12 and K11 shape and for each one's shapes
-together: the median device ms of one call replayed from a CUDA graph
+``check_tile_kernels`` gives them, and K13 on K11's inputs. Prints the
+card's name and power limit, then for K3, for each K12, K11 and K13 shape
+and for each one's shapes together: the median device ms of one call replayed from a CUDA graph
 (``graph_ms``) on three copies of the inputs in turn (as ``chip_smoke.py``
 times it) and on one copy (warm in L2 from the replay before), and the kernel
 launches each call makes (``runtime.LAUNCHES``). Needs one CUDA card.
@@ -86,18 +86,21 @@ def main() -> None:
 
     _, smask, scells, soffs = (torch.from_numpy(x).to(dev) for x in cs.sorted_layout(pts, pmask))
     copies = [(scells, soffs)] + [(scells.clone(), soffs.clone()) for _ in range(2)]
-    every = [[], [], []]
-    for i, (r, f) in enumerate(cs.TILE_SCATTER_SHAPES):
+    sorted_args = []
+    for r, f in cs.TILE_SCATTER_SHAPES:
         shift = 2 * (9 - r.bit_length())
         v = rows(smask, f)
-        fns = []
-        for k, (c, o) in enumerate(copies):
-            a = (v if k == 0 else v.clone(), (c >> shift).contiguous(),
-                 o[:, :: 4 ** (shift // 2)].contiguous(), r)
-            fns.append(lambda a=a: sk.scatter_mean_plane(*a))
-            every[k].append(fns[-1])
-        calls[f"K11 shape {i} {r}^2 F={f}"] = fns
-    calls["K11 all 9 shapes"] = [lambda fs=fs: [fn() for fn in fs] for fs in every]
+        sorted_args.append([(v if k == 0 else v.clone(), (c >> shift).contiguous(),
+                             o[:, :: 4 ** (shift // 2)].contiguous(), r)
+                            for k, (c, o) in enumerate(copies)])
+    for label, fn in (("K11", sk.scatter_mean_plane), ("K13", sk.scatter_mean)):
+        every = [[], [], []]
+        for i, ((r, f), sa) in enumerate(zip(cs.TILE_SCATTER_SHAPES, sorted_args)):
+            fns = [lambda a=a, fn=fn: fn(*a) for a in sa]
+            for k in range(3):
+                every[k].append(fns[k])
+            calls[f"{label} shape {i} {r}^2 F={f}"] = fns
+        calls[f"{label} all 9 shapes"] = [lambda fs=fs: [fn() for fn in fs] for fs in every]
     for name, fns in calls.items():
         runtime.reset_launches()
         fns[0]()

@@ -14,8 +14,9 @@ every mini-step is also bracketed by CUDA events; a window's events live
 until the window closes, where its mini-step times are read into its record
 and the events dropped, so a long run holds none past its window.
 
-Not here yet: checkpoints and resume (ROADMAP A6), ``visualize()`` with the
-DSMEvaluator (A7), the wandb logger, prefetch threads and worker pools (A11).
+Not here yet: checkpoints and resume (ROADMAP: checkpoints), ``visualize()``
+with the DSMEvaluator (ROADMAP: evaluation), the wandb logger, prefetch
+threads and worker pools (ROADMAP: wires and the host side).
 """
 
 from __future__ import annotations

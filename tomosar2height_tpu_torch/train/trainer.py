@@ -6,7 +6,7 @@ PyTorch. The same step semantics:
 - loss: the masked per-patch mean L1 of the height raster against the GT nDSM
   (``masked_patch_mean``, trainer.py:71-75, :173-187); invalid (empty) patches
   stay in the batch and weigh 0. ``loss_ce`` is 0: the footprint head's BCE
-  loss comes with training the fusion config (ROADMAP A9b);
+  loss comes with training the fusion config (ROADMAP: fusion training);
 - accumulation: the mean of ``optimize_every`` mini-step gradients
   (``optax.MultiSteps``); ``grad_reduction='sum'`` scales it back up by the
   window length (trainer.py:196-197);
@@ -67,11 +67,11 @@ class Trainer:
         if use_footprint:
             raise NotImplementedError(
                 "the footprint head's BCE loss comes with training the fusion "
-                "config (ROADMAP A9b)")
+                "config (ROADMAP: fusion training)")
         if getattr(model, "image_encoder", None) is not None:
             raise NotImplementedError(
                 "training the cloud+image fusion network (the image in "
-                "prepare_batch) is not ported yet (ROADMAP A9b)")
+                "prepare_batch) is not ported yet (ROADMAP: fusion training)")
         self.model = model
         self.device = next(model.parameters()).device
         self.optimize_every = int(cfg_training["optimize_every"])
@@ -80,7 +80,7 @@ class Trainer:
             raise ValueError(f"Invalid grad_reduction: {self.grad_reduction}")
         self.wire_dsm_dtype = np.dtype(str(cfg_training.get("wire_dsm_dtype", "float16")))
         if cfg_training.get("wire_cells", "device") != "device":
-            raise NotImplementedError("only wire_cells='device' is ported (ROADMAP A11)")
+            raise NotImplementedError("only wire_cells='device' is ported (ROADMAP: wires)")
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = torch.optim.AdamW(
             self.params, lr=float(cfg_training.get("learning_rate", 1e-4)),
