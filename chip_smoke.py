@@ -33,14 +33,16 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. serving: a synthetic city (the port's ``build_city``) through the port's
    loader and DSMGenerator at batch 8 on both paths, the GeoTIFF's data
    block read back, tiles/s, peak memory and the kernel launch counts of
-   the timed run;
+   the timed run, its raster held bit-equal to the warm-up run's;
 6. fusion-serve: the cloud+image fusion network (``fusion_config()``: the
    flagship plus the depth-6 image U-Net over the city's RGB image) serving
    the same city at batch 8 in three variants from one set of weights:
    fused2 + fused_convs + fused_head (K1-K4, K6, K7), unsorted with
    FAST_CONV (K8 only) and unsorted plain (no kernel); tiles/s, forward ms,
    peak memory and launches per forward of each, the launch counts asserted
-   and the two kernel rasters held to the plain one;
+   and the two kernel rasters held to the plain one, the kernel path's
+   timed raster bit-equal to its warm-up run's (the unsorted paths' plain
+   scatters add with atomics: logged);
 7. train: the flagship training step (batch 8, 16384-point buckets, 8
    mini-steps per optimizer step, remat) on random patches of the same city
    with its nDSM as target, through the port's training loader and
@@ -48,11 +50,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    from the same weights on the same patches: 1 warm-up and 2 timed
    optimizer steps each, window losses compared, mini-step ms, train
    patches/s, peak memory and the launches per fused2 mini-step; then the
-   fused2 run once more from the same weights on the same patches, to log
-   whether every parameter comes out bit-equal (K4's plane scatter and K5's
-   d_plane add with float atomics and cuDNN's backward is not deterministic;
-   K1-K3 sum in row order; which tensors differ is logged by module) and
-   held to the first run's window losses.
+   fused2 run once more from the same weights on the same patches, whose
+   parameters and window losses must be bit-equal to the first run's (every
+   kernel writes each output once in a fixed order, and the step keeps
+   cuDNN to deterministic algorithms; which tensors differ is logged by
+   module).
 
 8. sorted-serve: the same city served with ``sorted_config(impl)`` for
    impl 'fused' (K9, K10, K12), 'pallas' (K11; with mean pooling also K13)
@@ -61,19 +63,24 @@ Phases, one line each; any failure raises and the script exits non-zero:
 9. munich-depth6: one batch-8 fused2 forward at ALTO depth 6, whose first up
    level runs K4 at Fl = 1024, held to the plain path.
 
-Phase 3 also holds every backward (K5 at the eight levels, pool2's on its
-run kernel (K1 + K2 in one launch, forward and backward each run twice and
-held bit-equal), scatter_plane2's on K2 alone (a warp a 32-row span, each
-run's cell read once; held bit-equal on a second launch) against its plain
-version, K4/K5 at the
-depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every shape of a
-flagship forward on the 'fused' and 'pallas' layouts. K3 and K11-K13 run
-on the run scatter (``scatter_runs``: each run's cell written once, the
-empty cells zeroed in the same launch; K13 in Morton order), K10 on pool2's
-run kernel under the tile rule, each also held bit-equal on a second launch;
-K10-K13 are timed on three copies of their inputs, K10 logged by kind, K11
-and K13 at each of their 9 shapes and K12 at each of its 10. Bounds count
-per-row inputs only on the rows a kernel reads them for.
+Phase 3 also holds every backward (K5 at the eight levels: its row pass,
+its d_plane pass (a warp a pixel, the rows of its rectangle of finest
+cells in a fixed order; beside ``F.grid_sample``'s backward) and its weight
+sums, each a row of its own, pool2's on its run kernel (K1 + K2 in one
+launch, forward and backward each run twice and held bit-equal),
+scatter_plane2's on K2 alone (a warp a 32-row span, each run's cell read
+once; held bit-equal on a second launch) against its plain version, K4/K5
+at the depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every
+shape of a flagship forward on the 'fused' and 'pallas' layouts. K3, K4's
+plane and K11-K14 run on the run scatter (``scatter_runs``: each run's
+cell written once, the empty cells zeroed in the same launch; K13 in Morton
+order), K10 on pool2's run kernel under the tile rule; K4, K5 (and its
+d_plane pass alone) and every run kernel are also held bit-equal on a
+second launch, and K4 at each flagship level over STRESS_LAUNCHES launches
+(``stress_level``). K10-K13 are timed on three copies of their inputs, K10
+logged by kind, K11 and K13 at each of their 9 shapes and K12 at each of
+its 10. Bounds count per-row inputs only on the rows a kernel reads them
+for.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table as JSON: ``launches`` from the timed training run for K1-K5
@@ -115,8 +122,10 @@ TF32X3_FLOP_S = TF32_FLOP_S / 3
 TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
                        "conv3x3_igemm", "conv3x3_head_igemm")
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
-# K3 and K11-K13), whose register budget sets three blocks an SM
-RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells")
+# K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
+# and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the gather)
+RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells", "cell_rows",
+               "d_plane_gather")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -630,9 +639,12 @@ def check_kernels(seed: int = 0):
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
     red_l, rows_pairs, rows_k, rows_p = [], [], [], []
+    dp_pairs, dp_k, dp_p, dp_l, level_args = [], [], [], [], []
     # bytes, then operations, all on 3xTF32: K4's; K5's (its row pass, then
-    # its weight sums); the row pass alone; the reductions alone
-    work = {"level": [0, 0], "bwd": [0, 0, 0], "rows": [0, 0], "reduce": [0, 0]}
+    # its weight sums); the row pass alone; the reductions alone; and the
+    # d_plane pass's bytes and fp32 operations
+    work = {"level": [0, 0], "bwd": [0, 0, 0], "rows": [0, 0], "reduce": [0, 0],
+            "d_plane": [0, 0]}
     valid = int(mask.sum())
     for r, f, fl in LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
@@ -642,10 +654,15 @@ def check_kernels(seed: int = 0):
              _xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
              _xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
         args = (plane, c_last, w, xy, cells, mask, r, reso)
+        level_args.append(args)
         ko = lk.fused_level(*args)
         po = lk.fused_level_plain(*args)
         if not torch.equal(ko[2], po[2]):
             raise AssertionError(f"fused_level counts differ at {(r, f, fl)}")
+        # K4's plane on the run scatter: plane, c_out and counts bit-equal on
+        # a second launch
+        if not all(torch.equal(x, y) for x, y in zip(lk.fused_level(*args), ko)):
+            raise AssertionError(f"fused_level differs between two launches at {(r, f, fl)}")
         e0, e1 = _compare(ko[0], po[0]), _compare(ko[1], po[1])
         if not (e0[1] and e1[1]):
             _explain_level((r, f, fl), ko, po, args)
@@ -664,6 +681,11 @@ def check_kernels(seed: int = 0):
         g_c = torch.randn(b, npad, f, generator=gen).to(dev)
         bargs = (plane, c_last, w, xy, cells, mask5, counts5, g_p, g_c, r, reso)
         kb, pb = lk.fused_level_bwd(*bargs), lk.fused_level_bwd_plain(*bargs)
+        again = lk.fused_level_bwd(*bargs)
+        if not all(torch.equal(x, y) for x, y in zip(again[:2] + again[2], kb[:2] + kb[2])):
+            raise AssertionError(f"fused_level_bwd differs between two launches at "
+                                 f"{(r, f, fl)}")
+        del again
         level_pairs = [(kb[0], pb[0], *BWD_TOL), (kb[1], pb[1], *BWD_TOL)]
         level_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
         bwd_pairs += level_pairs
@@ -671,20 +693,43 @@ def check_kernels(seed: int = 0):
                                  kb[0], kb[1], *kb[2])
         work["bwd"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
         work["bwd"][2] += 2 * int(mask5.sum()) * (4 * f * f + f * fl)
-        # the row pass alone: d_plane, d_c_last, and its scratch rows on the
-        # rows it computes (s and h at K4's tolerance, d_o exact up to the
-        # count's division, d_h at K5's)
+        # the row pass alone: d_c_last, and its scratch rows on the rows it
+        # computes (s and h at K4's tolerance, d_o exact up to the count's
+        # division, d_h and d_s at K5's)
         kr, pr = lk.fused_level_bwd_rows(*bargs), lk.fused_level_bwd_rows_plain(*bargs)
         v5 = mask5.reshape(-1)
-        rows_pairs += [(kr[0], pr[0], *BWD_TOL), (kr[1], pr[1], *BWD_TOL)]
+        rows_pairs += [(kr[0], pr[0], *BWD_TOL)]
         rows_pairs += [(k[v5], p[v5], *tol) for k, p, tol in zip(
-            kr[2:], pr[2:], ((TOL, TOL), (TOL, TOL), (TOL, TOL), BWD_TOL))]
+            kr[1:], pr[1:], ((TOL, TOL), (TOL, TOL), (TOL, TOL), BWD_TOL, BWD_TOL))]
         work["rows"][0] += nbytes(plane, xy, cells, mask5, counts5, g_p, g_c, w[0], w[1], w[2],
                                   w[4], *kr)
         work["rows"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
         rows_k.append(lambda a=bargs: lk.fused_level_bwd_rows(*a))
         rows_p.append(lambda a=bargs: lk.fused_level_bwd_rows_plain(*a))
-        del kr, pr
+        # the d_plane pass on the kernel's d_s: held to the plain transpose
+        # of the same d_s, bit-equal on a second launch. Bytes: d_s and xy on
+        # the valid rows, every row's cell id and mask, the finest cells' row
+        # ranges written and read, d_plane written once; operations: a
+        # multiply-add a corner and feature. Yardstick: the d_input of
+        # F.grid_sample's backward on the same rows
+        d_s = kr[-1].view(b, npad, f)
+        dargs = (d_s, xy, cells, mask5, r, reso)
+        kd, pd = lk.level_d_plane(*dargs), lk.level_d_plane_plain(*dargs)
+        if not torch.equal(lk.level_d_plane(*dargs), kd):
+            raise AssertionError(f"level_d_plane differs between two launches at {(r, f)}")
+        dp_pairs.append((kd, pd, *BWD_TOL))
+        n5 = int(mask5.sum())
+        work["d_plane"][0] += (n5 * (f + 2) * 4 + nbytes(cells, mask5, kd)
+                               + 2 * 2 * b * reso * reso * 4)
+        work["d_plane"][1] += 2 * 4 * n5 * f
+        dp_k.append(lambda a=dargs: lk.level_d_plane(*a))
+        dp_p.append(lambda a=dargs: lk.level_d_plane_plain(*a))
+        gin = plane.permute(0, 3, 1, 2).contiguous()
+        gout = d_s.permute(0, 2, 1)[..., None].contiguous()
+        grid = (2 * xy - 1)[:, :, None, :].contiguous()
+        dp_l.append(lambda a=(gout, gin, grid): torch.ops.aten.grid_sampler_2d_backward(
+            *a, 0, 1, True, [True, False])[0])
+        del kr, pr, pd
         ed = max(_compare(*pair)[0] for pair in level_pairs)
         log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
             f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
@@ -727,7 +772,16 @@ def check_kernels(seed: int = 0):
           (work["reduce"][0], [(work["reduce"][1], TF32X3_FLOP_S)]),
           lambda: [fn() for fn in red_l],
           tol=f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
+    entry("level_d_plane", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", dp_pairs,
+          lambda: [fn() for fn in dp_k], lambda: [fn() for fn in dp_p],
+          tuple(work["d_plane"]), lambda: [fn() for fn in dp_l],
+          tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel")
+    log("kernels", "K4 (plane, c_out, counts), K5 (d_plane, d_c_last, weights) and K5's "
+        "d_plane pass bit-equal on a second launch at every level: True")
+    del dp_pairs, dp_k, dp_p, dp_l
     torch.cuda.synchronize()
+    stress_level(level_args)
     check_wide_level(seed)
     check_conv_kernels(entry, seed)
     check_tile_kernels(entry, seed)
@@ -735,6 +789,38 @@ def check_kernels(seed: int = 0):
     # later phases' peak memory holds what the parent's does
     torch._C._cuda_clearCublasWorkspaces()
     return rows
+
+
+STRESS_LAUNCHES = 200
+
+
+def stress_level(level_args):
+    """K4's rare disagreement with its plain version (ROADMAP: K4 stress
+    check): K4 at every flagship level (``level_args``: its arguments
+    at each of LEVEL_SHAPES), STRESS_LAUNCHES launches each, every one
+    bit-equal (plane, c_out, counts) to the first, which is within TOL of
+    the plain version. On a failure ``_explain_level`` logs both sides'
+    distance from float64, then the smoke fails."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+
+    t0 = time.perf_counter()
+    for shape, args in zip(LEVEL_SHAPES, level_args):
+        first, po = lk.fused_level(*args), lk.fused_level_plain(*args)
+        ok = _compare(first[0], po[0])[1] and _compare(first[1], po[1])[1]
+        bad = 0
+        for _ in range(STRESS_LAUNCHES - 1):
+            again = lk.fused_level(*args)
+            bad += not all(torch.equal(x, y) for x, y in zip(again, first))
+        if not ok or bad:
+            _explain_level(shape, first, po, args)
+            raise AssertionError(f"fused_level {shape}: within TOL of plain {ok}, {bad} of "
+                                 f"{STRESS_LAUNCHES - 1} launches differ from the first")
+        del first, po
+    log("kernels", f"C3 stress: K4 at the {len(level_args)} levels, {STRESS_LAUNCHES} "
+        f"launches each: every launch bit-equal to the first, the first within {TOL:g} of "
+        f"plain ({time.perf_counter() - t0:.1f} s)")
 
 
 def check_wide_level(seed: int = 0):
@@ -1074,13 +1160,16 @@ def check_tile_kernels(entry, seed: int = 0):
                     sk.aligned_scatter_mean_plane, sk.aligned_scatter_mean_plane_plain, shapes)
     del shapes, copies
 
-    # K14 (256-32 .. 32-512) on 'fused', from the finest tile offsets: it
-    # walks the rows inside the tiles' ranges
+    # K14 (256-32 .. 32-512) on 'fused', on the run scatter from the finest
+    # tile offsets (read every 4**level-th), held bit-equal on a second
+    # launch; its bound counts the ids of the rows inside the tiles' ranges
     pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
     for r, f in [(256, 32), (128, 128), (64, 256), (32, 512)]:
         shift = 2 * (9 - r.bit_length())
         a = (rows_of(f), cells, toff, r, 256)
         out = sk.scatter_mean_plane_v3(*a)
+        if not torch.equal(sk.scatter_mean_plane_v3(*a), out):
+            raise AssertionError(f"scatter_mean_plane_v3 differs between two launches at {r}")
         pairs.append((out, sk.scatter_mean_plane_v3_plain(*a)))
         tl = toff[:, :: 4 ** (shift // 2)].contiguous()
         work[0] += scatter_bytes(a[0], cells, tl, shift, r, out, in_tiles)
@@ -1088,7 +1177,8 @@ def check_tile_kernels(entry, seed: int = 0):
         kfns.append(lambda a=a: sk.scatter_mean_plane_v3(*a))
         pfns.append(lambda a=a: sk.scatter_mean_plane_v3_plain(*a))
         lfns.append(_scatter_yardstick(a[0], cells, shift, r * r, dev))
-    entry("scatter_mean_plane_v3", "tomosar2height_tpu_torch/csrc/tile_scatter.cu",
+    log("kernels", "scatter_mean_plane_v3 bit-equal on a second launch at its 4 shapes: True")
+    entry("scatter_mean_plane_v3", "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/scatter_kernel.py:495", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
           lambda: [fn() for fn in lfns])
@@ -1188,12 +1278,14 @@ def serve(seed: int = 0):
     plain_gen = make_generator(model, plain_cfg, chunks)
     n_batches = len(gen.data_loader)
     with tempfile.TemporaryDirectory() as tmp:
-        gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+        warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runtime.reset_launches()
         a = gen.generate_dsm(os.path.join(tmp, "fused2.tif"))
         launches = dict(runtime.LAUNCHES)
+        # every kernel on the path writes each output once in a fixed order
+        repeat = np.array_equal(warm.data, a.data, equal_nan=True)
         stats = dict(gen.last_stats)
         peak = torch.cuda.max_memory_allocated()
         b = plain_gen.generate_dsm(os.path.join(tmp, "plain.tif"))
@@ -1213,7 +1305,8 @@ def serve(seed: int = 0):
     err = float(np.abs(da[~nan] - db[~nan]).max())
     tol = _height_tol(cfg)
     want = {**dict.fromkeys(launches, 0), "pool2": 4 * n_batches,
-            "scatter_plane2": n_batches, "fused_level": 8 * n_batches}
+            "scatter_plane2": n_batches, "fused_level": 8 * n_batches,
+            "fused_level_scatter": 8 * n_batches}
     log("serve", f"{stats['n_patches']} tiles in {n_batches} batches of "
         f"{gen.data_loader.batch_size} | "
         f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
@@ -1221,9 +1314,12 @@ def serve(seed: int = 0):
         f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
         f"{stats['finalize_write_s']:.3f}) | peak {peak / 2**30:.2f} GiB | raster "
         f"{da.shape} fused2 vs plain max|d| {err:.3g} m (tol {tol:.3g} m), "
-        f"NaN px {int(nan.sum())} | launches {launches}")
+        f"NaN px {int(nan.sum())}, fused2 bit-equal to its warm-up run {repeat} | "
+        f"launches {launches}")
     if err > tol:
         raise AssertionError(f"fused2 and plain rasters differ by {err} m")
+    if not repeat:
+        raise AssertionError("two fused2 runs of the same scene gave different rasters")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     return launches
@@ -1234,8 +1330,8 @@ def serve(seed: int = 0):
 # serving) and on the FAST_CONV path (unsorted, every Conv3x3 on K8). These
 # count wrapper calls: one K6 call is three CUDA launches (its three convs),
 # one K7 call two.
-FUSION_LAUNCHES = {"pool2": 4, "scatter_plane2": 1,
-                   "fused_level": 8, "conv_pair": len(ALTO_PAIRS + IMAGE_PAIRS),
+FUSION_LAUNCHES = {"pool2": 4, "scatter_plane2": 1, "fused_level": 8,
+                   "fused_level_scatter": 8, "conv_pair": len(ALTO_PAIRS + IMAGE_PAIRS),
                    "conv_decoder": 1}
 FAST_CONV_LAUNCHES = {"conv3x3": len(CONVS)}
 
@@ -1289,13 +1385,14 @@ def fusion_serve(seed: int = 0):
                 fwd_ms = cuda_ms(lambda: vmodel(up["points"], up["point_mask"], up["image"],
                                                 None, up.get("cell_offsets"),
                                                 footprint=False), iters=3, warmup=1)
-            gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             runtime.reset_launches()
             r = gen.generate_dsm(os.path.join(tmp, f"{name}.tif"))
             torch.cuda.synchronize()
             launches = dict(runtime.LAUNCHES)
+            repeat = np.array_equal(warm.data, r.data, equal_nan=True)
             set_fast_conv(False)
             stats = gen.last_stats
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}
@@ -1307,9 +1404,15 @@ def fusion_serve(seed: int = 0):
                 f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
                 f"{stats['finalize_write_s']:.3f}) | forward {fwd_ms:.1f} ms per batch "
                 f"(median of 3) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
-                f"launches per forward {({k: v / n_batches for k, v in launches.items() if v})}")
+                f"bit-equal to its warm-up run {repeat} | launches per forward "
+                f"{({k: v / n_batches for k, v in launches.items() if v})}")
             if launches != want:
                 raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+            # the kernel path adds in fixed orders; the unsorted paths'
+            # plain scatters add with atomics on the card (logged only)
+            if name == "kernels" and not repeat:
+                raise AssertionError("two runs of the fusion kernel path gave different "
+                                     "rasters")
     ref = out["plain"]["raster"]
     nan = np.isnan(ref)
     if ref.shape != (h, w) or nan.all():
@@ -1471,23 +1574,23 @@ def munich_depth6(seed: int = 0):
 
 
 # kernel launches of one fused2 training mini-step with remat: the encoder's
-# forward (pool2's run kernel 4, K3 1, K4 8) runs twice, the second time
-# recomputed in the backward; the backward adds the max-pools' run kernel (4,
-# ``pool2_bwd``), the plane scatter's K2 (1, counted as ``pool_gather`` and
-# ``scatter_plane2_bwd``) and K5 at the eight levels (a row pass and three
-# weight-gradient reductions each)
+# forward (pool2's run kernel 4, K3 1, K4 8, each with its run scatter) runs
+# twice, the second time recomputed in the backward; the backward adds the
+# max-pools' run kernel (4, ``pool2_bwd``), the plane scatter's K2 (1, counted
+# as ``pool_gather`` and ``scatter_plane2_bwd``) and K5 at the eight levels (a
+# row pass, the d_plane pass and three weight-gradient reductions each)
 TRAIN_LAUNCHES = {"pool2": 8, "pool2_bwd": 4, "pool_gather": 1, "scatter_plane2": 2,
-                  "fused_level": 16, "fused_level_bwd": 8, "level_bwd_reduce": 24,
-                  "scatter_plane2_bwd": 1}
+                  "fused_level": 16, "fused_level_scatter": 16, "fused_level_bwd": 8,
+                  "level_d_plane": 8, "level_bwd_reduce": 24, "scatter_plane2_bwd": 1}
 
 
 def train_phase(seed: int = 0):
     """The flagship training step on random patches of the synthetic city,
     fused2 kernel path against the unsorted plain path from the same weights
     on the same patches: 1 warm-up and 2 timed optimizer steps each. Then
-    the fused2 path once more, as it ran the first time: whether the
-    parameters come out bit-equal (run-to-run determinism on the card) is
-    logged, and its window losses are held to the first run's."""
+    the fused2 path once more, as it ran the first time: its parameters and
+    window losses must come out bit-equal to the first run's (every kernel
+    adds in a fixed order and the step keeps cuDNN deterministic)."""
     import torch
 
     from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
@@ -1546,12 +1649,11 @@ def train_phase(seed: int = 0):
             raise AssertionError(f"{name}: losses {losses}, parameters moved {moved}")
     fused, plain, again = runs["fused2"], runs["plain"], runs["fused2 again"]
     tol = _height_tol(cfg)
-    # C1: K4's plane scatter and K5's d_plane add with float atomics and
-    # cuDNN's backward is not deterministic, so two runs may round
-    # differently; pool2's run kernel and K3's run scatter sum in row order
+    # run-to-run determinism: every kernel writes each output once in a fixed
+    # order, and the step keeps cuDNN to deterministic algorithms
     diff = {n: float((again["state"][n].double() - v.double()).abs().max())
             for n, v in fused["state"].items() if v.is_floating_point()}
-    unequal = [n for n, d in diff.items() if d > 0]
+    unequal = [n for n, v in fused["state"].items() if not torch.equal(again["state"][n], v)]
     err_again = max(abs(a - b) for a, b in zip(fused["losses"], again["losses"]))
     by_module: dict = {}
     for n in unequal:
@@ -1559,12 +1661,12 @@ def train_phase(seed: int = 0):
         by_module[key] = by_module.get(key, 0) + 1
     log("train", f"determinism: fused2 run twice from the same weights on the same patches: "
         f"parameters bit-equal {not unequal} ({len(unequal)} of {len(diff)} tensors differ, "
-        f"largest max|d| {max(diff.values()):.3g}) | window losses max|d| {err_again:.3g} m "
-        f"(tol {tol:.3g} m) | differing tensors by module {by_module}; equal "
-        f"{sorted(n for n, d in diff.items() if d == 0)} | still atomic: K4's plane "
-        f"scatter, K5's d_plane, cuDNN's backward (K1-K3 sum in row order)")
-    if err_again > tol:
-        raise AssertionError(f"two fused2 runs' window losses differ by {err_again} m")
+        f"largest max|d| {max(diff.values()):.3g}) | window losses equal "
+        f"{fused['losses'] == again['losses']} (max|d| {err_again:.3g} m) | differing "
+        f"tensors by module {by_module}")
+    if unequal or fused["losses"] != again["losses"]:
+        raise AssertionError(f"two fused2 runs differ: {len(unequal)} tensors, window losses "
+                             f"by {err_again} m")
     if any(plain["launches"].values()):
         raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
     want = {**dict.fromkeys(fused["launches"], 0),
@@ -1596,8 +1698,9 @@ def main():
     import torch
 
     for row in rows:
-        # K1-K5 and the backwards: the training step; K6-K8: fusion serving;
-        # K9-K13: sorted serving (K14 is on no model path)
+        # K1-K5 (K5's d_plane pass too) and the backwards: the training step;
+        # K6-K8: fusion serving; K9-K13: sorted serving (K14 is on no model
+        # path)
         name = row["name"]
         key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
         row["launches"] = (launches.get(key) or fusion_launches.get(key)

@@ -12,7 +12,8 @@ skip ``tests/conftest.py`` (which imports JAX):
 It also holds the numpy input functions that ``test_torch_pool2*.py``,
 ``test_torch_level*.py`` and ``test_torch_tile_kernels.py`` feed to the JAX
 package. Tolerance 1e-5 (rtol and atol): the kernels sum in another order
-than the plain versions (the run kernel in row order, K3 with float
+than the plain versions (the run kernels in row order, K5's d_plane pass in
+its pixels' rectangle order), and every kernel is bit-equal run to run (no
 atomics). K5's d_plane and d_c_last: 2e-5 abs + 2e-4 rel
 (tests/test_fused_level_bwd.py); its weight gradients are sums over every
 row, so 3e-4 * max|ref| abs + 3e-4 rel. The conv kernels K6-K8: 1e-5 abs +
@@ -851,15 +852,28 @@ class TestLevelKernel:
         (256, 32, 512, 1024), (64, 32, 64, 600)])
     def test_matches_plain(self, cuda, reso, level_reso, f, fl):
         inp = level_inputs(reso, level_reso, f, fl, seed=7, empty_last=True)
-        n0 = runtime.LAUNCHES["fused_level"]
+        before = dict(runtime.LAUNCHES)
         got = run_level(inp, reso, level_reso, device=cuda)
         want = run_level(inp, reso, level_reso, fn=lk.fused_level_plain, device=cuda)
         torch.cuda.synchronize()
-        assert runtime.LAUNCHES["fused_level"] == n0 + 1
+        _launched("fused_level", before)
+        _launched("fused_level_scatter", before)
         torch.testing.assert_close(got[0], want[0], **TOL)
         torch.testing.assert_close(got[1], want[1], **TOL)
         assert torch.equal(got[2], want[2])
         assert (got[1][-1] == 0).all()  # the empty patch
+
+    @pytest.mark.parametrize("level_reso,f,fl", [(256, 32, 32), (128, 128, 64),
+                                                 (64, 256, 128), (32, 512, 256)])
+    def test_plane_and_counts_are_bit_equal_run_to_run(self, cuda, level_reso, f, fl):
+        """K4's plane is the run scatter of c_out: each cell written once
+        from its run's row-order sum, so the plane, the counts and c_out are
+        bit-equal on every launch."""
+        inp = level_inputs(256, level_reso, f, fl, seed=23, b=2, n=4000)
+        first = run_level(inp, 256, level_reso, device=cuda)
+        for _ in range(3):
+            again = run_level(inp, 256, level_reso, device=cuda)
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
 
 
 def assert_level_grads_close(got, want):
@@ -1029,7 +1043,8 @@ class TestTensorCoreRowPass:
     def test_ragged_rows_and_padding_blocks(self, cuda, level_reso, f, fl):
         """N not a multiple of 64, a patch of padding only (its blocks take
         the shortcut); F = 512 runs 16 hidden chunks, Fl = 1024 two column
-        chunks of d_c_last; odd widths take the 4-byte copies."""
+        chunks of d_c_last; odd widths take the 4-byte copies. The d_plane
+        pass on the kernel's d_s against the plain adjoint of the same d_s."""
         inp = level_inputs(256, level_reso, f, fl, seed=31, b=3, n=3000, empty_last=True)
         cut = inp[1].shape[1] - 37
         inp = tuple(x[:, :cut] if i in (0, 1, 2, 5) else x for i, x in enumerate(inp))
@@ -1039,27 +1054,63 @@ class TestTensorCoreRowPass:
         want = lk.fused_level_bwd_rows_plain(*args)
         torch.cuda.synchronize()
         _launched("fused_level_bwd", before)
-        assert got[1].shape == (3, cut, fl) and got[3].shape == (3 * cut, 2 * f)
+        assert got[0].shape == (3, cut, fl) and got[2].shape == (3 * cut, 2 * f)
         bwd = dict(atol=2e-5, rtol=2e-4)
         torch.testing.assert_close(got[0], want[0], **bwd)
-        torch.testing.assert_close(got[1], want[1], **bwd)
         v = m5.reshape(-1)
-        for a, b, tol in zip(got[2:], want[2:], (TOL, TOL, TOL, bwd)):
+        for a, b, tol in zip(got[1:], want[1:], (TOL, TOL, TOL, bwd, bwd)):
             torch.testing.assert_close(a[v], b[v], **tol)
-        assert (got[0][-1] == 0).all() and (got[1][-1] == 0).all()  # the empty patch
-        assert all((x.reshape(3, cut, -1)[-1] == 0).all() for x in got[2:])
+        assert (got[0][-1] == 0).all()  # the empty patch
+        assert all((x.reshape(3, cut, -1)[-1] == 0).all() for x in got[1:])
+        xy, cells = args[3], args[4]
+        d_s = got[-1].view(3, cut, f)
+        d_plane = lk.level_d_plane(d_s, xy, cells, m5, level_reso, 256)
+        torch.testing.assert_close(
+            d_plane, lk.level_d_plane_plain(d_s, xy, cells, m5, level_reso, 256), **bwd)
+        assert (d_plane[-1] == 0).all()
         assert_level_grads_close(lk.fused_level_bwd(*args), lk.fused_level_bwd_plain(*args))
 
     @pytest.mark.parametrize("level_reso,f,fl", [(256, 32, 32), (64, 256, 128),
                                                  (32, 512, 256)])
     def test_rows_are_bit_equal_run_to_run(self, cuda, level_reso, f, fl):
-        """Everything but d_plane (float atomics) comes without atomics."""
+        """The row pass, the d_plane pass and the whole K5 come without
+        atomics: bit-equal on every launch."""
         inp = level_inputs(256, level_reso, f, fl, seed=37, b=2, n=4000)
         args, _ = kink_free(inp, level_reso, 256, cuda)
         first = lk.fused_level_bwd_rows(*args)
+        whole = lk.fused_level_bwd(*args)
         for _ in range(3):
             again = lk.fused_level_bwd_rows(*args)
-            assert all(torch.equal(a, b) for a, b in zip(again[1:], first[1:]))
+            assert all(torch.equal(a, b) for a, b in zip(again, first))
+            w2 = lk.fused_level_bwd(*args)
+            assert torch.equal(w2[0], whole[0]) and torch.equal(w2[1], whole[1])
+            assert all(torch.equal(a, b) for a, b in zip(w2[2], whole[2]))
+
+
+@pytest.mark.cuda
+class TestDPlanePass:
+    """K5's d_plane pass (``level_d_plane``: a warp a pixel walks its
+    rectangle of finest cells in a fixed order) against the plain bilinear
+    transpose at K5's tolerance, on the level layouts (points at u = 0 and 1),
+    random d_s, every width class, an empty entry; bit-equal on a second
+    launch; one launch counted."""
+
+    @pytest.mark.parametrize("level_reso,f", [(256, 32), (256, 64), (128, 128),
+                                              (64, 256), (32, 512), (64, 8), (32, 9)])
+    def test_matches_plain_and_is_bit_equal(self, cuda, level_reso, f):
+        inp = level_inputs(256, level_reso, f, 4, seed=43, b=3, n=3000, empty_last=True)
+        pts, mask, cells = inp[:3]
+        rng = np.random.default_rng(f)
+        d_s = t(rng.normal(size=mask.shape + (f,)).astype(np.float32), cuda)
+        xy, c, m = t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_d_plane(d_s, xy, c, m, level_reso, 256)
+        torch.cuda.synchronize()
+        _launched("level_d_plane", before)
+        want = lk.level_d_plane_plain(d_s.double(), xy.double(), c, m, level_reso, 256)
+        torch.testing.assert_close(got.double(), want, atol=2e-5, rtol=2e-4)
+        assert (got[-1] == 0).all()
+        assert torch.equal(lk.level_d_plane(d_s, xy, c, m, level_reso, 256), got)
 
 
 def conv_weights(rng, cin, cout, k=3):
@@ -1365,6 +1416,8 @@ class TestTileKernels:
         _launched("scatter_mean_plane_v3", before)
         torch.testing.assert_close(got, want, **TOL)
         torch.testing.assert_close(got_v3, want, **TOL)
+        # K14 on the run scatter: bit-equal on a second launch
+        assert torch.equal(sk.scatter_mean_plane_v3(v, c, t(toff, cuda), reso, finest), got_v3)
         if edge == "empty":
             assert (got[-1] == 0).all()
 

@@ -98,6 +98,34 @@ class TestSamplingResize:
         want = np.asarray(jresize.resize_bilinear(jnp.asarray(x), hw))
         np.testing.assert_allclose(got, want, **TOL)
 
+    @pytest.mark.parametrize("hw", [(16, 16), (32, 48), (7, 5), (512, 512)])
+    def test_resize_bilinear_gradient(self, rng, hw):
+        """The backward's contraction with the interpolation matrices: the
+        adjoint of the float32 forward, held to ``F.interpolate``'s own
+        backward on the CPU (the same float32 weights, summed in another
+        order) and, at the small sizes, to ``jax.grad`` of the JAX resize
+        (the same contraction with weights made in float64, which at 512^2
+        move by up to ~1.5e-5 relative); each matrix row holds at most two
+        weights summing to 1."""
+        x = rng.normal(size=(2, 8, 12, 3)).astype(np.float32)
+        if hw == (512, 512):  # the decoder's 256^2 -> 512^2
+            x = rng.normal(size=(1, 256, 256, 2)).astype(np.float32)
+        g = rng.normal(size=(x.shape[0],) + hw + (x.shape[-1],)).astype(np.float32)
+        xt = _t(x).requires_grad_()
+        (resize.resize_bilinear(xt, hw) * _t(g)).sum().backward()
+        xf = _t(x).requires_grad_()
+        y = torch.nn.functional.interpolate(xf.permute(0, 3, 1, 2), size=hw,
+                                            mode="bilinear", align_corners=True)
+        (y.permute(0, 2, 3, 1) * _t(g)).sum().backward()
+        np.testing.assert_allclose(xt.grad.numpy(), xf.grad.numpy(), **TOL)
+        if hw != (512, 512):
+            want = jax.grad(lambda v: (jresize.resize_bilinear(v, hw) * g).sum())(
+                jnp.asarray(x))
+            np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want), **TOL)
+        m = resize.interp_matrix(hw[0], x.shape[1], torch.zeros(()))
+        np.testing.assert_allclose(m.sum(1).numpy(), 1.0, rtol=0, atol=1e-6)
+        assert int((m != 0).sum(1).max()) <= 2
+
 
 class TestMortonLayout:
     @pytest.mark.parametrize("reso", [4, 64, 256])

@@ -50,6 +50,7 @@ from tomosar2height_tpu.ops.pallas.scatter_kernel import (  # noqa: E402
     pallas_aligned_scatter_mean_plane,
     pallas_scatter_mean,
     pallas_scatter_mean_plane,
+    pallas_scatter_mean_plane_v3,
 )
 from test_torch_cuda import (  # noqa: E402
     FINEST,
@@ -338,7 +339,8 @@ def test_kernel_source_matches_the_emulation():
     body = src[src.index("scatter_runs(const float*"):src.index("}  // namespace t2h")]
     assert "atomic" not in body
     assert "scatter_plane_accum" not in src and "t2h_scatter_plane(" not in src
-    assert "t2h_scatter_runs" in inspect.getsource(pk._scatter_plane2)
+    assert "scatter_runs_masked(" in inspect.getsource(pk._scatter_plane2)
+    assert "t2h_scatter_runs" in inspect.getsource(pk.scatter_runs_masked)
     assert "t2h_scatter_runs" in inspect.getsource(sk._scatter_runs)
     for wrapper, step in ((sk.scatter_mean_plane, "TILE_CELLS)"),
                           (sk.aligned_scatter_mean_plane, ", 1)")):
@@ -465,17 +467,64 @@ def test_k13_mixed_order_fails(k11_layout, reso):
 
 def test_k13_launches_the_run_kernel():
     """K13's wrapper launches ``t2h_scatter_runs`` with the step of 256 and
-    the Morton-order store (flags and output (B, reso**2)); only K14 is left
-    on ``t2h_tile_scatter_mean``; the store index is the mark pass's."""
+    the Morton-order store (flags and output (B, reso**2)); no wrapper is
+    left on ``t2h_tile_scatter_mean``, whose file went with K14; the store
+    index is the mark pass's."""
     src = inspect.getsource(sk.scatter_mean)
     assert "_scatter_runs(" in src and "TILE_CELLS" in src and "morton=True" in src
     assert "t2h_tile_scatter_mean" not in src and "_launch(" not in src
     assert "int(morton)" in inspect.getsource(sk._scatter_runs)
-    assert "_launch(" in inspect.getsource(sk.scatter_mean_plane_v3)
+    assert "t2h_tile_scatter_mean" not in inspect.getsource(sk)
     body = open(SOURCE).read()
     mark = body[body.index("void mark_cells("):body.index("void store_mean(")]
     runs = body[body.index("scatter_runs(const float*"):body.index("}  // namespace t2h")]
     assert "MORTON ? c : morton_to_rowmajor(c, reso)" in mark
     assert "MORTON ? c : morton_to_rowmajor(c, reso)" in runs
-    tile = open(os.path.join(os.path.dirname(SOURCE), "tile_scatter.cu")).read()
-    assert "morton_out" not in tile  # the Morton-order store went with K13
+    assert not os.path.exists(os.path.join(os.path.dirname(SOURCE), "tile_scatter.cu"))
+
+
+# --- K14: K12's function from the finest tile offsets, read every 4**level-th ------
+
+
+def _scatter_k14(vals, cells, toff, reso, mutant=None):
+    shift = level_shift(reso)
+    return emulate_scatter(vals, cells, reso, toff=toff, shift=shift, step=4 ** (shift // 2),
+                           mutant=mutant)
+
+
+@pytest.mark.parametrize("reso,foreign", [(r, False) for r in LEVELS]
+                         + [(r, True) for r in LEVELS if r >= 32])
+def test_k14_emulation_matches_plain(k12_layout, reso, foreign):
+    """K14 at every level of the fused layout, the finest tile offsets read
+    in place with a step of 4**level; with rows of another tile down to
+    32^2."""
+    _, _, cells, toff, vals = tile_run_batch(11, foreign=True) if foreign else k12_layout
+    got, _, writes = _scatter_k14(vals, cells, toff, reso)
+    assert (writes == 1).all()
+    want = sk.scatter_mean_plane_v3_plain(t(vals), t(cells), t(toff), reso, FINEST)
+    np.testing.assert_allclose(got, want.numpy(), **TOL)
+    assert (got[-1] == 0).all()
+
+
+@pytest.mark.parametrize("reso", [64, 32])
+def test_k14_emulation_matches_jax(k12_layout, reso):
+    """``pallas_scatter_mean_plane_v3`` in interpret mode at K14's coarse
+    shapes, where runs are longest."""
+    _, _, cells, toff, vals = k12_layout
+    want = np.asarray(pallas_scatter_mean_plane_v3(
+        jnp.asarray(vals), jnp.asarray(cells.reshape(cells.shape[0], -1, 128)),
+        jnp.asarray(toff), reso, FINEST, interpret=True))
+    got, _, _ = _scatter_k14(vals, cells, toff, reso)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_k14_launches_the_run_kernel(k12_layout):
+    """K14's wrapper launches ``t2h_scatter_runs`` with the step of
+    4**level; read with step 1 (tile t's rows taken from finest tile t's
+    offsets) the emulation leaves the plain version."""
+    src = inspect.getsource(sk.scatter_mean_plane_v3)
+    assert "_scatter_runs(" in src and "4 ** (shift // 2)" in src and "_launch(" not in src
+    _, _, cells, toff, vals = k12_layout
+    got, _, writes = _scatter_k14(vals, cells, toff, 32, "no_step")
+    want = sk.scatter_mean_plane_v3_plain(t(vals), t(cells), t(toff), 32, FINEST).numpy()
+    assert (writes != 1).any() or not np.allclose(got, want, **TOL)

@@ -285,6 +285,33 @@ class TestTrainerUnits:
         for a, b in zip(grads["mean"], grads["sum"]):
             torch.testing.assert_close(b, 2 * a)
 
+    def test_step_keeps_cudnn_deterministic(self):
+        """The step's conv scope asks cuDNN for deterministic algorithms
+        (its backward convs run there), full float32 too; a layer's own
+        scope inside keeps that; the caller's flags come back after."""
+        from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
+
+        cudnn = torch.backends.cudnn
+        prev = cudnn.allow_tf32, cudnn.deterministic
+        try:
+            cudnn.allow_tf32, cudnn.deterministic = True, False
+            with fp32_convs(deterministic=True):
+                with fp32_convs():
+                    assert cudnn.deterministic and not cudnn.allow_tf32
+                assert cudnn.deterministic and not cudnn.allow_tf32
+            assert cudnn.allow_tf32 and not cudnn.deterministic
+            torch.manual_seed(0)
+            trainer = Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1})
+            seen = []
+            loss = trainer.loss
+            trainer.loss = lambda b: (seen.append((cudnn.deterministic, cudnn.allow_tf32)),
+                                      loss(b))[1]
+            trainer.train_step(make_batches(5, 1)[0], 1e-3)
+            assert seen == [(True, False)]
+            assert cudnn.allow_tf32 and not cudnn.deterministic
+        finally:
+            cudnn.allow_tf32, cudnn.deterministic = prev
+
     def test_footprint_loss_not_ported(self):
         with pytest.raises(NotImplementedError, match="ROADMAP: fusion training"):
             Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1},

@@ -30,39 +30,4 @@ __device__ __forceinline__ int morton_to_rowmajor(int code, int reso) {
   return compact1by1(code >> 1) * reso + compact1by1(code);
 }
 
-// Float max through integer atomics. Non-negative floats order like signed
-// ints; floats with the sign bit set order inversely as unsigned ints. The
-// sign bit (not v >= 0) picks the branch so that -0.0 still lands.
-__device__ __forceinline__ void atomic_max_f32(float* addr, float v) {
-  if (!signbit(v)) {
-    atomicMax(reinterpret_cast<int*>(addr), __float_as_int(v));
-  } else {
-    atomicMin(reinterpret_cast<unsigned int*>(addr), __float_as_uint(v));
-  }
-}
-
-// One copy per translation unit: no relocatable device code is needed.
-static __global__ void fill_f32(float* __restrict__ p, long long n, float v) {
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
-       t += (long long)gridDim.x * blockDim.x)
-    p[t] = v;
-}
-
-static __global__ void fill_i32(int* __restrict__ p, long long n, int v) {
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
-       t += (long long)gridDim.x * blockDim.x)
-    p[t] = v;
-}
-
-// Divide per-cell sums in place by max(count, 1): the scatter-mean finalize.
-static __global__ void divide_by_counts(float* __restrict__ acc,
-                                        const int* __restrict__ counts,
-                                        long long n, int F) {
-  for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n;
-       t += (long long)gridDim.x * blockDim.x) {
-    const int c = counts[t / F];
-    acc[t] = acc[t] / static_cast<float>(c > 1 ? c : 1);
-  }
-}
-
 }  // namespace t2h

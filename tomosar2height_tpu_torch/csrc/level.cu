@@ -3,8 +3,11 @@
 //
 // Per point: bilinear sample of the (B,R,R,F) plane (border clamp,
 // align_corners=True), h = relu(s @ w_in + b_in), o = h @ w_out + b_out +
-// c_last @ w_c + b_c, o = 0 on padding rows; then a masked scatter-mean of o
-// into the plane at this level's resolution (cell = finest Morton id >> shift).
+// c_last @ w_c + b_c, o = 0 on padding rows -> c_out. The masked scatter-mean
+// of o into the plane at this level's resolution (cell = finest Morton id >>
+// shift) is a second launch, csrc/pool2.cu's scatter_runs on c_out (the
+// wrapper, ops/cuda/level_kernel.py, makes it): each cell written once from
+// its run's row-order sum, no atomics, so K4 is bit-equal run to run.
 //
 // The TPU kernel walks a sequential (batch, point-chunk) grid, keeps one
 // tile's plane window and accumulator in VMEM and flushes the tile on its last
@@ -24,8 +27,7 @@
 // sequence of tiles (w_c's, then w_in's and w_out's chunk by chunk), so the
 // next tiles' copies fly across the phase boundaries too; each slot is
 // consumed after one block barrier. Shared strides are padded against bank
-// conflicts. The plane scatter is an atomicAdd per output element into a
-// zeroed (B,R,R,F) buffer, then a finalize pass divides by the counts.
+// conflicts. Each c_out element is written once, from registers.
 //
 // Bound on the H100: the MACs, ~1.9M per point per forward summed over the
 // eight levels (the 32^2 level with F=512 alone 1.2M), three TF32 products
@@ -85,13 +87,12 @@ struct LevelCfg {
 template <int FP>
 __global__ void __launch_bounds__(LevelCfg<FP>::kT, LevelCfg<FP>::kMinBlocks)
 fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,
-                const float* __restrict__ xy, const int* __restrict__ cells,
-                const uint8_t* __restrict__ mask, const float* __restrict__ w_in,
-                const float* __restrict__ b_in, const float* __restrict__ w_out,
-                const float* __restrict__ b_out, const float* __restrict__ w_c,
-                const float* __restrict__ b_c, float* __restrict__ plane_out,
-                float* __restrict__ c_out, int* __restrict__ counts, int N, int R, int F,
-                int Fl, int shift, bool vec_w, bool vec_c) {
+                const float* __restrict__ xy, const uint8_t* __restrict__ mask,
+                const float* __restrict__ w_in, const float* __restrict__ b_in,
+                const float* __restrict__ w_out, const float* __restrict__ b_out,
+                const float* __restrict__ w_c, const float* __restrict__ b_c,
+                float* __restrict__ c_out, int N, int R, int F, int Fl, bool vec_w,
+                bool vec_c) {
   using C = LevelCfg<FP>;
   extern __shared__ float4 smem4[];
   float* As = reinterpret_cast<float*>(smem4);  // [kBM][kLdA]: c_last chunk, then s
@@ -99,7 +100,6 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   float* ring = Hs + kBM * C::kLdH;             // [kStages][kSlot]: weight tiles
 
   __shared__ int s_valid[kBM];
-  __shared__ int s_cell[kBM];  // row-major cell at this level, -1 if none
   __shared__ Corner s_corner[kBM];
   __shared__ int s_any;
 
@@ -117,21 +117,15 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   __syncthreads();
   if (tid < kBM) {
     const int i = i0 + tid;
-    int valid = 0, cellr = -1;
+    int valid = 0;
     Corner corner = {};
     if (i < N) {
       const long long p = (long long)b * N + i;
       valid = mask[p] != 0;
       corner = bilinear_corner(xy[2 * p], xy[2 * p + 1], R);
-      const int c = cells[p];
-      if (valid && c >= 0 && (c >> shift) < RR) {
-        cellr = morton_to_rowmajor(c >> shift, R);
-        atomicAdd(counts + (long long)b * RR + cellr, 1);
-      }
       if (valid) s_any = 1;
     }
     s_valid[tid] = valid;
-    s_cell[tid] = cellr;
     s_corner[tid] = corner;
   }
   __syncthreads();
@@ -261,8 +255,7 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   }
   cp_async_wait<0>();
 
-  // --- o + b_out + b_c (0 on padding rows) -> c_out; scatter into the plane ------
-  float* po = plane_out + (long long)b * RR * F;
+  // --- o + b_out + b_c (0 on padding rows) -> c_out ----------------------------
   const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
@@ -271,26 +264,22 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
       const int r = wm + mt * 16 + g + (i >> 1) * 8;
       if (r >= rows) continue;
       const bool valid = s_valid[r] != 0;
-      const int cellr = s_cell[r];
       float* crow = c_out + (row_b + r) * F;
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
         const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
         if (n >= F) continue;
-        const float o = valid ? acc[mt][nt][i] + b_out[n] + b_c[n] : 0.0f;
-        crow[n] = o;
-        if (cellr >= 0) atomicAdd(po + (long long)cellr * F + n, o);
+        crow[n] = valid ? acc[mt][nt][i] + b_out[n] + b_c[n] : 0.0f;
       }
     }
 }
 
 template <int FP>
 cudaError_t launch_level(const float* plane, const float* clast, const float* xy,
-                         const int* cells, const uint8_t* mask, const float* w_in,
-                         const float* b_in, const float* w_out, const float* b_out,
-                         const float* w_c, const float* b_c, float* plane_out,
-                         float* c_out, int* counts, int B, int N, int R, int F, int Fl,
-                         int shift, cudaStream_t stream) {
+                         const uint8_t* mask, const float* w_in, const float* b_in,
+                         const float* w_out, const float* b_out, const float* w_c,
+                         const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
+                         cudaStream_t stream) {
   using C = LevelCfg<FP>;
   cudaError_t err = cudaFuncSetAttribute(
       fused_level_fwd<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -300,8 +289,8 @@ cudaError_t launch_level(const float* plane, const float* clast, const float* xy
   const bool vec_c = Fl % 4 == 0 && aligned16(clast);
   const dim3 grid((N + kBM - 1) / kBM, B);
   fused_level_fwd<FP><<<grid, C::kT, C::kSmem, stream>>>(
-      plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, b_c, plane_out, c_out,
-      counts, N, R, F, Fl, shift, vec_w, vec_c);
+      plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, N, R, F, Fl, vec_w,
+      vec_c);
   return cudaGetLastError();
 }
 
@@ -311,45 +300,34 @@ using namespace t2h;
 
 extern "C" {
 
-// plane (B,R,R,F) NHWC, c_last (B,N,Fl), xy (B,N,2), cells (B,N) finest Morton
-// ids, mask (B,N) u8; weights row-major (in, out): w_in (F,2F), w_out (2F,F),
-// w_c (Fl,F) -> plane_out (B,R,R,F) scatter-mean (empty cells 0), c_out
-// (B,N,F) (0 on padding rows), counts (B,R,R) i32. F <= 512; any Fl.
+// plane (B,R,R,F) NHWC, c_last (B,N,Fl), xy (B,N,2), mask (B,N) u8; weights
+// row-major (in, out): w_in (F,2F), w_out (2F,F), w_c (Fl,F) -> c_out (B,N,F)
+// (0 on padding rows). F <= 512; any Fl. The plane scatter-mean of c_out is
+// t2h_scatter_runs (csrc/pool2.cu), launched after this by the wrapper.
 int t2h_fused_level(const float* plane, const float* clast, const float* xy,
-                    const int* cells, const uint8_t* mask, const float* w_in,
-                    const float* b_in, const float* w_out, const float* b_out,
-                    const float* w_c, const float* b_c, float* plane_out,
-                    float* c_out, int* counts, int B, int N, int R, int F, int Fl,
-                    int shift, cudaStream_t stream) {
-  const long long nc = (long long)B * R * R;
-  const long long nv = nc * F;
-  if (nv > 0) {
-    fill_f32<<<grid_for(nv), kThreads, 0, stream>>>(plane_out, nv, 0.0f);
-    fill_i32<<<grid_for(nc), kThreads, 0, stream>>>(counts, nc, 0);
-  }
-  if ((long long)B * N > 0) {
-    const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
-    if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err;
-#define T2H_LEVEL(FP)                                                                   \
-  case FP:                                                                              \
-    err = launch_level<FP>(plane, clast, xy, cells, mask, w_in, b_in, w_out, b_out, w_c, \
-                           b_c, plane_out, c_out, counts, B, N, R, F, Fl, shift, stream); \
+                    const uint8_t* mask, const float* w_in, const float* b_in,
+                    const float* w_out, const float* b_out, const float* w_c,
+                    const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
+                    cudaStream_t stream) {
+  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
+  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
+  cudaError_t err;
+#define T2H_LEVEL(FP)                                                                     \
+  case FP:                                                                                \
+    err = launch_level<FP>(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c,    \
+                           c_out, B, N, R, F, Fl, stream);                                \
     break;
-    switch (fp) {
-      T2H_LEVEL(32)
-      T2H_LEVEL(64)
-      T2H_LEVEL(128)
-      T2H_LEVEL(256)
-      default:
-      T2H_LEVEL(512)
-    }
-#undef T2H_LEVEL
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch (fp) {
+    T2H_LEVEL(32)
+    T2H_LEVEL(64)
+    T2H_LEVEL(128)
+    T2H_LEVEL(256)
+    default:
+    T2H_LEVEL(512)
   }
-  if (nv > 0)
-    divide_by_counts<<<grid_for(nv), kThreads, 0, stream>>>(plane_out, counts, nv, F);
-  return static_cast<int>(cudaGetLastError());
+#undef T2H_LEVEL
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -16,13 +16,15 @@
 // The TPU kernel walks a sequential (batch, chunk) grid and accumulates the
 // weight gradients in revisited VMEM output blocks, and the plane gradient in
 // per-tile halo windows folded back XLA-side (windows_to_plane). Blocks on the
-// card run in parallel and in no order, so the work is split in two phases:
+// card run in parallel and in no order, so the work is split in three
+// phases, each writing every output element once, in a fixed order, with no
+// atomics: K5 is bit-equal run to run.
 //
 // 1. fused_level_bwd_rows: a block owns kRB = 64 consecutive rows, and its
 //    four contractions run on the tensor cores at fp32 accuracy (3xTF32
 //    mma.sync, mma_tf32x3.cuh; K4's warp layout and chain-length rule). The
-//    shared A buffer [64][F] holds the sample s, then d_o, then the d_plane
-//    window. In order, each weight tile arriving through one cp.async ring:
+//    shared A buffer [64][F] holds the sample s, then d_o. In order, each
+//    weight tile arriving through one cp.async ring:
 //      a. per 64-column chunk of the hidden layer: pre = s W_in[:, chunk]
 //         into registers; h = relu(pre + b_in) to scratch, and each thread
 //         keeps its elements' gates [pre > 0] as bits in shared memory;
@@ -33,17 +35,8 @@
 //         registers (a warp owns 32 rows x F/8 or F/4 columns of d_s, as K4
 //         its o). The hidden layer (2F floats a row) never exists whole in
 //         shared memory, so 64 rows fit at F = 512 (219 KB).
-//    The rows' s, h, d_o and d_h go to scratch (M x 6F floats, M = B*N
-//    rows) for phase 2. d_plane is a scatter of d_s through the four
-//    bilinear weights: the block lists the distinct pixels its rows'
-//    corners touch (a shared hash table), groups the corners by pixel (a
-//    counting sort), and a thread per (pixel, channel) sums that pixel's
-//    shares of d_s (staged in the A buffer) and adds them to d_plane with
-//    one global atomic -- the CUDA form of the TPU kernel's per-tile halo
-//    window. Morton-sorted rows at the coarse levels share pixels (a
-//    block's 256 corners touch a median 16 pixels at R = 32, 33 at 64, 82
-//    at 128 on the flagship's points), so the atomics fall 3-16x there, and
-//    no float atomics go to shared memory.
+//    The rows' s, h, d_o, d_h and d_s go to scratch (M x 7F floats, M = B*N
+//    rows): s, h, d_o and d_h for phase 2, d_s for phase 3.
 // 2. t2h_level_bwd_reduce (atb_tf32x3 + sum_splits), three calls: each
 //    weight gradient is A^T B over all M rows, split-K on the tensor cores
 //    at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh): a block owns one
@@ -51,9 +44,19 @@
 //    contiguous row split, its rows streamed through a 3-stage cp.async
 //    ring of 32-row steps; the blocks of the first k-tile also sum the
 //    columns of the B tiles they hold (the bias gradient), and a second pass
-//    sums the splits in a fixed order. No atomics: the weight gradients are
-//    deterministic, bit-equal run to run; d_plane is order-dependent (~1e-7
-//    relative) as K3/K4's sums are.
+//    sums the splits in a fixed order.
+// 3. t2h_level_d_plane (cell_rows + d_plane_gather): d_plane, the bilinear
+//    transpose of d_s, gathered by its pixels. Pixel (px, py) receives from
+//    the rows whose corner has x0 in {px-1, px} and y0 in {py-1, py}, so u *
+//    (R-1) in [px-1, px+1): their finest cells (the host's trunc(u * fr),
+//    fr the finest resolution) lie in a rectangle, widened by one cell on
+//    each side against rounding (cell_span). A mark pass writes each finest
+//    cell's row range [start, end) (its rows are contiguous on the aligned
+//    layout: the run head writes start, the run tail end); a warp a
+//    (pixel, feature chunk), lanes on features, walks the rectangle's cells
+//    in row-major order and each cell's rows in row order, recomputes each
+//    row's corner with bilinear_corner and adds w * d_s where the corner
+//    touches the pixel. Each pixel is written once, from one fixed-order sum.
 //
 // Bound on the H100: the MACs. A row costs 10F^2 + 2F*Fl MAC (6F^2 + F*Fl
 // in phase 1, 4F^2 + F*Fl in phase 2), three TF32 products each, ~2.9M at
@@ -68,6 +71,10 @@
 // hidden chunk (pre, d_o W_out^T) give each warp one or two n-tiles a k8
 // step, so the operand splits outweigh the MMAs there; F-wide chunks with
 // d_h read back from scratch spilled at F = 512 and ran slower at F = 256.
+// Phase 3 is bound by bytes (d_s on the valid rows, d_plane written once);
+// each d_s row is read by its four pixels' warps, mostly from L2, and a
+// warp's walk is a chain of dependent loads (offsets, corners, d_s), which
+// the loads of 8 rows at once shorten.
 
 #include <algorithm>
 
@@ -80,9 +87,7 @@ namespace t2h {
 constexpr int kRM = 32;      // rows per reduction step
 constexpr int kRStages = 3;  // reduction steps in flight
 
-constexpr int kRB = 64;     // rows per row-pass block
-constexpr int kHash = 256;  // buckets of a block's pixel table
-static_assert(4 * kRB <= kHash, "every corner of the block's rows has a bucket");
+constexpr int kRB = 64;   // rows per row-pass block
 constexpr int kRHC = 64;  // hidden columns per chunk
 
 // Per width class FP (F rounded up to a power of two >= 32), K4's layout
@@ -126,13 +131,13 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
                      const float* __restrict__ g_c, const float* __restrict__ w_in,
                      const float* __restrict__ b_in, const float* __restrict__ w_out_t,
                      const float* __restrict__ w_c_t, const float* __restrict__ w_in_t,
-                     float* __restrict__ d_plane, float* __restrict__ d_clast,
-                     float* __restrict__ s_buf, float* __restrict__ h_buf,
-                     float* __restrict__ do_buf, float* __restrict__ dh_buf, int N,
-                     int R, int F, int Fl, int shift, bool vec_h, bool vec_f, bool vec_l) {
+                     float* __restrict__ d_clast, float* __restrict__ s_buf,
+                     float* __restrict__ h_buf, float* __restrict__ do_buf,
+                     float* __restrict__ dh_buf, float* __restrict__ ds_buf, int N, int R,
+                     int F, int Fl, int shift, bool vec_h, bool vec_f, bool vec_l) {
   using C = RowCfg<FP>;
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [kRB][kLdA]: s, d_o, d_plane window
+  float* As = reinterpret_cast<float*>(smem4);  // [kRB][kLdA]: s, then d_o
   float* Hs = As + kRB * C::kLdA;               // [kRB][kLdH]: a d_h chunk
   float* ring = Hs + kRB * C::kLdH;             // [kStages][kSlot]: weight tiles
   uint32_t* gate = reinterpret_cast<uint32_t*>(ring + C::kStages * C::kSlot);  // [words][kT]
@@ -141,17 +146,7 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   __shared__ int s_cell[kRB];  // row-major cell at this level, -1 if none
   __shared__ Corner s_corner[kRB];
   __shared__ float s_cnt[kRB];  // max(count, 1) of the row's cell
-  // d_plane's scatter: the distinct pixels the rows' corners touch (an
-  // open-addressing table of pixel ids, then of their slots), (row, corner)
-  // -> bucket; slot -> pixel;
-  // the slots' first corners in s_first (slot order), the corners (row *
-  // 4 + corner) grouped by slot in s_corners
-  __shared__ int s_key[kHash];
-  __shared__ int s_bucket[4 * kRB];
-  __shared__ int s_pix[4 * kRB];
-  __shared__ int s_first[4 * kRB + 1];
-  __shared__ int s_corners[4 * kRB];
-  __shared__ int s_any, s_nslot;
+  __shared__ int s_any;
 
   const int b = blockIdx.y;
   const int i0 = blockIdx.x * kRB;
@@ -164,12 +159,7 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   const int H = 2 * F;
   const long long RR = (long long)R * R;
 
-  if (tid == 0) {
-    s_any = 0;
-    s_nslot = 0;
-  }
-  for (int e = tid; e < kHash; e += C::kT) s_key[e] = -1;
-  for (int e = tid; e <= 4 * kRB; e += C::kT) s_first[e] = 0;
+  if (tid == 0) s_any = 0;
   __syncthreads();
   if (tid < kRB) {
     const int i = i0 + tid;
@@ -207,34 +197,10 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
     for (int e = tid; e < rows * F; e += C::kT) {
       s_buf[rowb * F + e] = 0.0f;
       do_buf[rowb * F + e] = 0.0f;
+      ds_buf[rowb * F + e] = 0.0f;
     }
     for (int e = tid; e < rows * Fl; e += C::kT) d_clast[rowb * Fl + e] = 0.0f;
     return;
-  }
-
-  // --- the distinct pixels of the rows' corners, each a slot of the window -----
-  if (tid < kRB * 4) {
-    const int r = tid >> 2, k = tid & 3;
-    int h = -1;
-    if (s_valid[r]) {
-      const Corner cr = s_corner[r];
-      const int p = (cr.y0 + (k >> 1) * cr.dy) * R + cr.x0 + (k & 1) * cr.dx;
-      h = static_cast<int>((static_cast<unsigned>(p) * 0x9E3779B1u) >> 24);
-      for (;;) {
-        const int prev = atomicCAS(&s_key[h], -1, p);
-        if (prev == -1 || prev == p) break;
-        h = (h + 1) & (kHash - 1);
-      }
-    }
-    s_bucket[tid] = h;
-  }
-  __syncthreads();
-  for (int e = tid; e < kHash; e += C::kT) {
-    const int p = s_key[e];
-    if (p < 0) continue;
-    const int slot = atomicAdd(&s_nslot, 1);
-    s_pix[slot] = p;
-    s_key[e] = slot;
   }
 
   // --- the bilinear sample -> As (zeros past F and on padding), scratch s ------
@@ -397,63 +363,20 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   }
   cp_async_wait<0>();
 
-  // --- d_s (acc), scattered through the bilinear weights -------------------------
-  // d_s -> As [row][n]; the corners grouped by pixel (a counting sort over
-  // the slots); then a thread per (pixel, channel) sums its corners' shares
-  // and adds them to d_plane with one global atomic: no shared atomics on
-  // floats, which serialize where a warp's rows share a pixel.
-  __syncthreads();  // every warp is done with As
+  // --- d_s (acc) -> scratch, for the d_plane pass ---------------------------------
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < C::kNT; ++nt)
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + mt * 16 + g + (i >> 1) * 8;
+      if (r >= rows) continue;
+      float* drow = ds_buf + (rowb + r) * F;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = wm + mt * 16 + g + (i >> 1) * 8;
-        As[r * C::kLdA + wq * C::kWN + nt * 8 + 2 * q + (i & 1)] = acc[mt][nt][i];
+      for (int nt = 0; nt < C::kNT; ++nt) {
+        const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
+        if (n < F) drow[n] = acc[mt][nt][i];
       }
-  const int nslot = s_nslot;
-  int slot = -1, place = -1;  // this thread's corner (tid < 4 kRB): its slot and place
-  if (tid < 4 * kRB && s_bucket[tid] >= 0) {
-    slot = s_key[s_bucket[tid]];
-    place = atomicAdd(&s_first[slot + 1], 1);
-  }
-  __syncthreads();
-  if (warp == 0) {  // s_first: exclusive scan of the slots' counts (in s_first[1..])
-    constexpr int kPer = 4 * kRB / 32;
-    int run = 0, part[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      run += s_first[1 + lane * kPer + j];
-      part[j] = run;
     }
-    int incl = run;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int up = __shfl_up_sync(0xffffffffu, incl, d);
-      if (lane >= d) incl += up;
-    }
-    const int before = incl - run;
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) s_first[1 + lane * kPer + j] = before + part[j];
-  }
-  __syncthreads();
-  if (slot >= 0) s_corners[s_first[slot] + place] = tid;
-  __syncthreads();
-  float* dp = d_plane + (long long)b * RR * F;
-  for (int e = tid; e < nslot * F; e += C::kT) {
-    const int sl = e / F;
-    const int n = e - sl * F;
-    float sum = 0.0f;
-    for (int j = s_first[sl]; j < s_first[sl + 1]; ++j) {
-      const int rk = s_corners[j];
-      const Corner cr = s_corner[rk >> 2];
-      const float wx = rk & 1 ? cr.wx : 1.0f - cr.wx;
-      const float wy = rk & 2 ? cr.wy : 1.0f - cr.wy;
-      sum += wx * wy * As[(rk >> 2) * C::kLdA + n];
-    }
-    if (sum != 0.0f) atomicAdd(dp + (long long)s_pix[sl] * F + n, sum);
-  }
 }
 
 template <int FP>
@@ -461,8 +384,8 @@ cudaError_t launch_rows(const float* plane, const float* xy, const int* cells,
                         const uint8_t* mask, const int* counts, const float* g_plane,
                         const float* g_c, const float* w_in, const float* b_in,
                         const float* w_out_t, const float* w_c_t, const float* w_in_t,
-                        float* d_plane, float* d_clast, float* s_buf, float* h_buf,
-                        float* do_buf, float* dh_buf, int B, int N, int R, int F, int Fl,
+                        float* d_clast, float* s_buf, float* h_buf, float* do_buf,
+                        float* dh_buf, float* ds_buf, int B, int N, int R, int F, int Fl,
                         int shift, cudaStream_t stream) {
   using C = RowCfg<FP>;
   cudaError_t err = cudaFuncSetAttribute(fused_level_bwd_rows<FP>,
@@ -475,8 +398,7 @@ cudaError_t launch_rows(const float* plane, const float* xy, const int* cells,
   const dim3 grid((N + kRB - 1) / kRB, B);
   fused_level_bwd_rows<FP><<<grid, C::kT, C::kSmem, stream>>>(
       plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t, w_c_t, w_in_t,
-      d_plane, d_clast, s_buf, h_buf, do_buf, dh_buf, N, R, F, Fl, shift, vec_h, vec_f,
-      vec_l);
+      d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, N, R, F, Fl, shift, vec_h, vec_f, vec_l);
   return cudaGetLastError();
 }
 
@@ -636,6 +558,181 @@ __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, i
   }
 }
 
+// --- phase 3: d_plane, gathered by its pixels ------------------------------------
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kMargin = 1;  // finest cells added on each side of a pixel's rectangle
+constexpr int kLoads = 8;   // d_s rows a warp loads at once
+
+// The mark pass: each finest cell's row range [start, end) in batch entry
+// blockIdx.y, at the cell's row-major index (a thread a row). A cell's rows
+// are contiguous (one run), so only its first row writes start and only its
+// last writes end; cells with no row keep the zeros the entry point's memset
+// left. Rows whose cell is out of range (pads) mark nothing.
+__global__ void cell_rows(const int* __restrict__ cells, int* __restrict__ start,
+                          int* __restrict__ end, int N, int fr) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= N) return;
+  const long long b = blockIdx.y;
+  const int* cb = cells + b * N;
+  const int c = cb[row];
+  const int ncell = fr * fr;
+  if (c < 0 || c >= ncell) return;
+  const long long at = b * ncell + morton_to_rowmajor(c, fr);
+  if (row == 0 || cb[row - 1] != c) start[at] = row;
+  if (row == N - 1 || cb[row + 1] != c) end[at] = row + 1;
+}
+
+// The finest cells [lo, hi] along one axis that can hold a row whose corner
+// touches pixel p of R: x0 in {p - 1, p} means u * (R - 1) in [p - 1, p + 1),
+// so the row's cell trunc(u * fr) lies in [floor((p - 1) fr / (R - 1)),
+// floor((p + 1) fr / (R - 1))] (integer division: exact); kMargin cells more
+// on each side take a cell that the host's rounding put one over.
+__device__ __forceinline__ void cell_span(int p, int R, int fr, int& lo, int& hi) {
+  if (R < 2) {
+    lo = 0;
+    hi = fr - 1;
+    return;
+  }
+  lo = p >= 1 ? static_cast<int>((long long)(p - 1) * fr / (R - 1)) - kMargin : 0;
+  hi = static_cast<int>((long long)(p + 1) * fr / (R - 1)) + kMargin;
+  lo = max(lo, 0);
+  hi = min(hi, fr - 1);
+}
+
+// The weight with which a row's sample reads pixel (px, py): the sum of its
+// corners' weights there, in grid_sample_2d_adjoint's corner order (two
+// corners meet only on the last pixel, where the +1 one weighs 0).
+__device__ __forceinline__ float corner_weight(const Corner& c, int px, int py) {
+  const int x1 = c.x0 + c.dx, y1 = c.y0 + c.dy;
+  const float ax = 1.0f - c.wx, ay = 1.0f - c.wy;
+  float w = 0.0f;
+  if (c.y0 == py) {
+    if (c.x0 == px) w += ax * ay;
+    if (x1 == px) w += c.wx * ay;
+  }
+  if (y1 == py) {
+    if (c.x0 == px) w += ax * c.wy;
+    if (x1 == px) w += c.wx * c.wy;
+  }
+  return w;
+}
+
+template <int VEC>
+__device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
+  } else if constexpr (VEC == 2) {
+    const float2 t = *reinterpret_cast<const float2*>(p);
+    r[0] = t.x, r[1] = t.y;
+  } else {
+    r[0] = *p;
+  }
+}
+
+// A warp a (pixel, chunk of 32 * VEC features), chunk fastest, lanes on
+// features. The pixel's rectangle of finest cells is walked 32 cells at a
+// time in row-major order: lane k loads cell k's row range, a warp scan
+// places each cell's rows in one list (cell order, then row order), and the
+// list is read 32 rows a step, lane l taking row l: its mask, xy and corner
+// weight at the pixel. The rows of nonzero weight are added in list order,
+// their d_s loaded kLoads at a time, so the sum, and the pixel's one store,
+// are the same in every run.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
+               const uint8_t* __restrict__ mask, const int* __restrict__ start,
+               const int* __restrict__ end, float* __restrict__ d_plane, int N, int R, int F,
+               int fr, long long warps, int chunks) {
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= warps) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int fc = static_cast<int>(warp % chunks);
+  const long long pix = warp / chunks;  // b * R^2 + py * R + px
+  const int RR = R * R;
+  const long long b = pix / RR;
+  const int p = static_cast<int>(pix - b * RR);
+  const int py = p / R, px = p - (p / R) * R;
+  int lox, hix, loy, hiy;
+  cell_span(px, R, fr, lox, hix);
+  cell_span(py, R, fr, loy, hiy);
+  const int span_x = hix - lox + 1;
+  const int ncells = span_x * (hiy - loy + 1);
+  const int f = (fc * 32 + lane) * VEC;
+  const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
+  const long long base = b * N;
+  const float* dsf = ds + base * F + f;
+  const long long cell0 = b * fr * fr;
+
+  float acc[VEC] = {};
+  for (int c0 = 0; c0 < ncells; c0 += 32) {
+    const int k = c0 + lane;
+    int st = 0, n = 0;
+    if (k < ncells) {
+      const int ky = k / span_x;
+      const long long at = cell0 + (long long)(loy + ky) * fr + lox + (k - ky * span_x);
+      st = start[at];
+      n = end[at] - st;
+    }
+    int incl = n;  // inclusive prefix sum of the lanes' row counts
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int up = __shfl_up_sync(kFullMask, incl, d);
+      if (lane >= d) incl += up;
+    }
+    const int total = __shfl_sync(kFullMask, incl, 31);
+    const int excl = incl - n;
+    for (int t0 = 0; t0 < total; t0 += 32) {
+      const int tt = t0 + lane;
+      int j = 0;  // the lane (cell) whose rows hold list entry tt: the first with incl > tt
+#pragma unroll
+      for (int s = 16; s > 0; s >>= 1)
+        if (__shfl_sync(kFullMask, incl, j + s - 1) <= tt) j += s;
+      const int row = __shfl_sync(kFullMask, st, j) + tt - __shfl_sync(kFullMask, excl, j);
+      float w = 0.0f;
+      if (tt < total && mask[base + row] != 0) {
+        const long long q = 2 * (base + row);
+        w = corner_weight(bilinear_corner(xy[q], xy[q + 1], R), px, py);
+      }
+      unsigned hits = __ballot_sync(kFullMask, w != 0.0f);
+      while (hits != 0u) {  // warp-uniform
+        float v[kLoads][VEC], wv[kLoads];
+        int got = 0;
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u) {
+          wv[u] = 0.0f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) v[u][e] = 0.0f;
+          if (hits != 0u) {
+            const int h = __ffs(hits) - 1;
+            hits &= hits - 1u;
+            wv[u] = __shfl_sync(kFullMask, w, h);
+            const int r = __shfl_sync(kFullMask, row, h);
+            if (fin) load_row<VEC>(dsf + (long long)r * F, v[u]);
+            got = u + 1;
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kLoads; ++u)
+          if (u < got) {
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[e] += wv[u] * v[u][e];
+          }
+      }
+    }
+  }
+  if (!fin) return;
+  float* out = d_plane + pix * F + f;
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+  } else if constexpr (VEC == 2) {
+    *reinterpret_cast<float2*>(out) = make_float2(acc[0], acc[1]);
+  } else {
+    *out = acc[0];
+  }
+}
+
 }  // namespace t2h
 
 using namespace t2h;
@@ -646,39 +743,71 @@ extern "C" {
 // cells (B,N) finest Morton ids, mask (B,N) u8) plus K4's counts (B,R,R) i32
 // and the cotangents g_plane (B,R,R,F), g_c (B,N,F). Weights row-major: w_in
 // (F,2F), b_in (2F), and the transposes w_out_t (F,2F), w_c_t (F,Fl), w_in_t
-// (2F,F). Outputs: d_plane (B,R,R,F), d_clast (B,N,Fl), and the rows for
-// phase 2: s_buf (B*N,F), h_buf (B*N,2F), do_buf (B*N,F), dh_buf (B*N,2F).
-// F <= 512; any Fl.
+// (2F,F). Outputs: d_clast (B,N,Fl) and the rows: s_buf (B*N,F), h_buf
+// (B*N,2F), do_buf (B*N,F), dh_buf (B*N,2F) for phase 2, ds_buf (B*N,F) (d_s)
+// for phase 3. F <= 512; any Fl.
 int t2h_fused_level_bwd(const float* plane, const float* xy, const int* cells,
                         const uint8_t* mask, const int* counts, const float* g_plane,
                         const float* g_c, const float* w_in, const float* b_in,
                         const float* w_out_t, const float* w_c_t, const float* w_in_t,
-                        float* d_plane, float* d_clast, float* s_buf, float* h_buf,
-                        float* do_buf, float* dh_buf, int B, int N, int R, int F,
-                        int Fl, int shift, cudaStream_t stream) {
-  const long long nv = (long long)B * R * R * F;
-  if (nv > 0) fill_f32<<<grid_for(nv), kThreads, 0, stream>>>(d_plane, nv, 0.0f);
-  if ((long long)B * N > 0) {
-    if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
-    const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
-    cudaError_t err;
-#define T2H_ROWS(FP)                                                                      \
-  case FP:                                                                                \
+                        float* d_clast, float* s_buf, float* h_buf, float* do_buf,
+                        float* dh_buf, float* ds_buf, int B, int N, int R, int F, int Fl,
+                        int shift, cudaStream_t stream) {
+  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
+  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
+  cudaError_t err;
+#define T2H_ROWS(FP)                                                                        \
+  case FP:                                                                                  \
     err = launch_rows<FP>(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t, \
-                          w_c_t, w_in_t, d_plane, d_clast, s_buf, h_buf, do_buf, dh_buf, B, \
-                          N, R, F, Fl, shift, stream);                                     \
+                          w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, B, N, \
+                          R, F, Fl, shift, stream);                                          \
     break;
-    switch (fp) {
-      T2H_ROWS(32)
-      T2H_ROWS(64)
-      T2H_ROWS(128)
-      T2H_ROWS(256)
-      default:
-      T2H_ROWS(512)
-    }
-#undef T2H_ROWS
-    if (err != cudaSuccess) return static_cast<int>(err);
+  switch (fp) {
+    T2H_ROWS(32)
+    T2H_ROWS(64)
+    T2H_ROWS(128)
+    T2H_ROWS(256)
+    default:
+    T2H_ROWS(512)
   }
+#undef T2H_ROWS
+  return static_cast<int>(err);
+}
+
+// Phase 3. ds (B*N,F) the rows' d_s, xy (B,N,2), cells (B,N) finest Morton
+// ids at fr (each finest cell's rows contiguous, pads out of range), mask
+// (B,N) u8; offs: 2 * B * fr * fr ints of scratch -> d_plane (B,R,R,F), each
+// pixel written once. A row's cell must lie within kMargin cells (each axis)
+// of trunc(u * fr), as the host's layout makes it. Three launches: clear the
+// offsets, mark, gather.
+int t2h_level_d_plane(const float* ds, const float* xy, const int* cells, const uint8_t* mask,
+                      int* offs, float* d_plane, int B, int N, int R, int F, int fr,
+                      cudaStream_t stream) {
+  if (R < 1 || fr < R || (long long)fr * fr >= (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ncell = (long long)B * fr * fr;
+  if ((long long)B * R * R * F == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(offs, 0, 2 * ncell * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (N > 0)
+    cell_rows<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
+        cells, offs, offs + ncell, N, fr);
+  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for rows not
+  // aligned to 16 bytes)
+  const bool aligned = aligned16(ds) && aligned16(d_plane);
+  const int vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
+  const int chunks = (F + 32 * vec - 1) / (32 * vec);
+  const long long warps = (long long)B * R * R * chunks;
+  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+#define T2H_GATHER(V)                                                                     \
+  d_plane_gather<V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(              \
+      ds, xy, mask, offs, offs + ncell, d_plane, N, R, F, fr, warps, chunks)
+  if (vec == 4) T2H_GATHER(4);
+  else if (vec == 2) T2H_GATHER(2);
+  else T2H_GATHER(1);
+#undef T2H_GATHER
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,7 +1,7 @@
 // Local pooling and plane scatter of point features: the Hopper versions of
 // the three chunk-grid Pallas kernels in tomosar2height_tpu/ops/pallas/pool2_kernel.py,
-// of the aligned tile pool of pool_kernel.py, and of three tile scatter-means of
-// scatter_kernel.py.
+// of the aligned tile pool of pool_kernel.py, of the four tile scatter-means of
+// scatter_kernel.py, and of the plane scatter of level_kernel.py's K4.
 //
 //   K1 + K2 pool_runs    <- _reduce_kernel (:46) then _gather_kernel (:133), as
 //                           _chunkgrid_pool_jit (:221) runs them: pool2's forward
@@ -23,6 +23,13 @@
 //   K13 scatter_runs     <- scatter_kernel.py _scatter_tile_kernel (:65): K11's
 //                           function into the Morton-ordered cell vector
 //                           (B, reso^2, F) (MORTON)
+//   K14 scatter_runs     <- scatter_kernel.py _scatter_v3_kernel (:495): K12's
+//                           function, the tile offsets every 4^level-th of
+//                           the finest ones
+//   K4's plane           <- level_kernel.py _level_kernel (:110), its masked
+//   scatter_runs            scatter-mean of the level's point features
+//                           (c_out, csrc/level.cu) at the level's shift, with
+//                           the counts, as K3
 //
 // pool_runs: one launch, no atomics, no cell buffer. Contract: in each batch
 // entry the rows that hold one cell id, and so the cell's valid rows, are
@@ -64,21 +71,25 @@
 // the mask). A warp issues all loads of its span before it reduces, so it
 // waits about two memory latencies (cell ids and mask, then rows).
 
-// scatter_runs (K3, K11, K12, K13): the same partition, writing each run's
+// scatter_runs (K3, K4's plane, K11-K14): the same partition, writing each run's
 // mean to its cell of a row-major plane (B, reso, reso, F) (K13: of the
 // Morton-ordered cell vector (B, reso^2, F)) instead of back to its rows.
 // A row's cell is cells >> shift at this resolution (K3, K11, K13: shift 0);
 // it is in range when cells >= 0 and the cell < reso^2. A row is valid when,
-// besides, K3: its mask is set; K11-K13 (TILED): the row lies in the row range
-// [toff[t * step], toff[(t + 1) * step]) of the 256-cell tile t = cell >> 8
-// that holds its cell (K12: step 1, tile offsets at this resolution; K11, K13:
-// step 256, the per-cell offsets read in place; a pad, PAD_CELL_SENTINEL on the
-// aligned layout, reso^2 on the plain sorted one, is never in range). Runs are
+// besides, K3 and K4: its mask is set; K11-K14 (TILED): the row lies in the
+// row range [toff[t * step], toff[(t + 1) * step]) of the 256-cell tile t =
+// cell >> 8 that holds its cell (K12: step 1, tile offsets at this
+// resolution; K11, K13: step 256, the per-cell offsets read in place; K14:
+// step 4^level, the finest tile offsets read in place; a pad,
+// PAD_CELL_SENTINEL on the aligned layout, reso^2 on the plain sorted one, is
+// never in range). Runs are
 // as above, on the cell at this resolution. On the fused layout (256-cell
 // finest tiles, pads only at finest-tile ends) a cell at level l <= 4 covers 4^l
 // finest cells inside one finest tile, so its rows are contiguous and no pad
 // falls among them: each occupied cell is one run down to 16^2
-// (tests/test_torch_scatter_runs.py holds this at 16^2); on the plain sorted
+// (tests/test_torch_scatter_runs.py holds this at 16^2; on fused2's layout,
+// 1024-cell finest tiles, K4's levels down to 32^2 the same,
+// tests/test_torch_level_runs.py); on the plain sorted
 // layout (Morton-sorted rows, pads at the end) every cell is one run. A run
 // with a valid row writes its cell's mean (K3: and count) once, by the warp of
 // its head, from its row-order sum; a run with none writes nothing.
@@ -461,7 +472,7 @@ __device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&
   }
 }
 
-// K3 (TILED false: mask) and K11, K12, K13 (TILED true: tile offsets, no mask;
+// K3 and K4's plane (TILED false: mask) and K11-K14 (TILED true: tile offsets, no mask;
 // K13 MORTON: the output in Morton order): the run part and the zero part in
 // one launch, after the mark pass. The run part's
 // warp = (batch entry, span, chunk of 32 * VEC features), chunk fastest, so a
@@ -689,11 +700,12 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
 // row-major scatter-mean of the valid rows, 0 on empty cells; morton != 0:
 // the Morton-ordered cell vector (B,reso*reso,F) instead, the flags in the
 // same order (tiled only). Either K3: mask (B,N) u8, toff null, counts
-// (B,reso,reso) i32 written; or K11, K12, K13: mask null, toff (B,toff_row)
-// i32, tile t of the reso^2/256 tiles spanning rows [toff[t * toff_step],
-// toff[(t + 1) * toff_step]) (K12: tile offsets, step 1; K11, K13: per-cell
-// offsets, step 256; reso^2 a multiple of 256), counts null. Three launches:
-// clear, mark, runs + zeros.
+// (B,reso,reso) i32 written (K4's plane the same, at its level's shift); or
+// K11-K14: mask null, toff (B,toff_row) i32, tile t of the reso^2/256 tiles
+// spanning rows [toff[t * toff_step], toff[(t + 1) * toff_step]) (K12: tile
+// offsets, step 1; K11, K13: per-cell offsets, step 256; K14: finest tile
+// offsets, step 4^level; reso^2 a multiple of 256), counts null. Three
+// launches: clear, mark, runs + zeros.
 int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      const int* toff, float* plane, int* counts, uint8_t* flags, int B,
                      int N, int F, int reso, int shift, int toff_row, int toff_step,

@@ -18,7 +18,10 @@ digits) unless ``torch.backends.cudnn.allow_tf32`` is False, and that flag
 is True by default. :func:`fp32_convs` turns it off around every cuDNN
 convolution of the port (the plain versions here, the model's conv layers,
 the backwards that :class:`PlainVjp` and ``Trainer.train_step`` run), so
-the port computes in full float32 whatever the caller's flags are.
+the port computes in full float32 whatever the caller's flags are. The
+training step's scope also asks cuDNN for deterministic algorithms
+(``deterministic=True``): some of its default backward algorithms add in
+no fixed order, and the JAX reference trains bit-exactly run to run.
 """
 
 from __future__ import annotations
@@ -33,16 +36,21 @@ from tomosar2height_tpu_torch.ops.cuda import runtime
 
 
 @contextlib.contextmanager
-def fp32_convs():
+def fp32_convs(deterministic: bool = False):
     """A scope in which cuDNN convolutions (forward, and the backwards that
-    autograd runs inside it) compute in full float32, not TF32; the
-    caller's ``torch.backends.cudnn.allow_tf32`` is restored on exit."""
-    prev = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = False
+    autograd runs inside it) compute in full float32, not TF32; with
+    ``deterministic``, also only with deterministic algorithms (an inner
+    scope without it keeps the outer one's choice). The caller's
+    ``torch.backends.cudnn`` flags are restored on exit."""
+    cudnn = torch.backends.cudnn
+    prev = cudnn.allow_tf32, cudnn.deterministic
+    cudnn.allow_tf32 = False
+    if deterministic:
+        cudnn.deterministic = True
     try:
         yield
     finally:
-        torch.backends.cudnn.allow_tf32 = prev
+        cudnn.allow_tf32, cudnn.deterministic = prev
 
 
 def in_fp32_convs(fn):

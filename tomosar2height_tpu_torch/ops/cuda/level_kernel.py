@@ -1,28 +1,42 @@
 """One fused ALTO level round trip (sample -> MLP -> scatter) and its backward.
 
-Counterpart of ``tomosar2height_tpu/ops/pallas/level_kernel.py``. The CUDA
-kernel K4 (``csrc/level.cu``) replaces ``_level_kernel`` (level_kernel.py:110,
-launched by ``_fused_level_impl``): bilinear-sample the plane at each point
-(border clamp, align_corners=True), run ``fc_comm`` (Linear(F,2F) -> ReLU ->
-Linear(2F,F)) plus the ``fc_c`` skip from the previous level's point
-features, zero the padding rows, and scatter-mean the result into the plane at
-this level's resolution (cell = finest Morton id >> 2*level).
+Counterpart of ``tomosar2height_tpu/ops/pallas/level_kernel.py``. K4
+replaces ``_level_kernel`` (level_kernel.py:110, launched by
+``_fused_level_impl``) with two launches: ``csrc/level.cu`` bilinear-samples
+the plane at each point (border clamp, align_corners=True), runs
+``fc_comm`` (Linear(F,2F) -> ReLU -> Linear(2F,F)) plus the ``fc_c`` skip
+from the previous level's point features and zeros the padding rows (c_out);
+then ``csrc/pool2.cu``'s run scatter (``pool2_kernel.scatter_runs_masked``)
+writes the masked scatter-mean of c_out into the plane at this level's
+resolution (cell = finest Morton id >> 2*level), each cell once from its
+run's row-order sum, with the counts. No atomics: K4 is bit-equal run to
+run.
 
-The kernel reads only the points, cell ids and mask; the TPU's chunk
+The kernels read only the points, cell ids and mask; the TPU's chunk
 metadata, lane padding and empty-tile mask have no use here (empty cells
-come out 0 by construction). What bounds it on the H100 and how the design
-answers it is noted in the CUDA source. A CPU tensor takes
+come out 0 by construction). What bounds them on the H100 and how the
+designs answer it is noted in the CUDA sources. A CPU tensor takes
 :func:`fused_level_plain` (the counterpart of ``_level_ref``,
-level_kernel.py:494), a CUDA tensor the kernel; there is no fallback.
+level_kernel.py:494), a CUDA tensor the kernels; there is no fallback.
+
+**Contract on the card**: the fused2 aligned layout, the only one K4 is
+called on (``models/alto.py``, reso >= 32). Each coarse cell's valid rows
+form one run (a cell of at most 8 x 8 finest cells lies inside one
+1024-cell tile, whose pads fall only at its end), as the run scatter needs;
+each finest cell's rows are contiguous and a row's finest cell is
+trunc(xy * finest) up to one cell, as K5's d_plane pass needs
+(``tests/test_torch_level_runs.py`` holds both). Other row orders are the
+plain version's.
 
 :func:`fused_level` is a ``torch.autograd.Function`` (the counterpart of the
 JAX custom_vjp, level_kernel.py:605-664) differentiable in the plane, c_last
 and the six weights. Its backward is K5 (``csrc/level_bwd.cu``, replacing
 ``_level_bwd_kernel``, level_bwd_kernel.py:68): a row pass
-(:func:`fused_level_bwd_rows`) and three weight-gradient reductions
-(:func:`level_bwd_reduce`, the kernel's ``dwi_ref += ...`` sums, :260-279),
-or on the CPU :func:`fused_level_bwd_plain`, which writes K5's math out in
-torch.
+(:func:`fused_level_bwd_rows`), the d_plane pass (:func:`level_d_plane`: the
+bilinear transpose of the rows' d_s, gathered by its pixels in a fixed
+order) and three weight-gradient reductions (:func:`level_bwd_reduce`, the
+kernel's ``dwi_ref += ...`` sums, :260-279), all bit-equal run to run; or on
+the CPU :func:`fused_level_bwd_plain`, which writes K5's math out in torch.
 """
 
 from __future__ import annotations
@@ -32,7 +46,7 @@ import functools
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
-from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import pool_gather_plain
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import pool_gather_plain, scatter_runs_masked
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d, grid_sample_2d_adjoint
 from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
 from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
@@ -67,7 +81,6 @@ def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, 
     """K5's row pass in plain torch. Same arguments and returns as
     :func:`fused_level_bwd_rows`."""
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    r = plane.shape[1]
     s = grid_sample_2d(plane, xy)
     pre = s @ w_in + b_in
     h = torch.relu(pre)
@@ -77,13 +90,19 @@ def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, 
     d_o = torch.where(mask[..., None], g_c + g_pt, torch.zeros_like(g_c))
     d_h = (d_o @ w_out.t()) * (pre > 0)
     d_s = d_h @ w_in.t()
-    d_plane = grid_sample_2d_adjoint(d_s, xy, r, r)
     d_c_last = d_o @ w_c.t()
 
     def rows(t):
         return t.reshape(-1, t.shape[-1])
 
-    return d_plane, d_c_last, rows(s), rows(h), rows(d_o), rows(d_h)
+    return d_c_last, rows(s), rows(h), rows(d_o), rows(d_h), rows(d_s)
+
+
+def level_d_plane_plain(d_s, xy, cells, mask, reso: int, finest: int):
+    """K5's d_plane in plain torch. Same arguments and returns as
+    :func:`level_d_plane`."""
+    d_s = torch.where(mask[..., None], d_s, torch.zeros_like(d_s))
+    return grid_sample_2d_adjoint(d_s, xy, reso, reso)
 
 
 def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
@@ -91,8 +110,9 @@ def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_pla
     """K5's math in plain torch: the cotangents of :func:`fused_level` w.r.t.
     (plane, c_last, weights) for the output cotangents (g_plane, g_c), with
     the forward's counts. Same returns as :func:`fused_level_bwd`."""
-    d_plane, d_c_last, s, h, d_o, d_h = fused_level_bwd_rows_plain(
+    d_c_last, s, h, d_o, d_h, d_s = fused_level_bwd_rows_plain(
         plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c, reso, finest)
+    d_plane = level_d_plane_plain(d_s.reshape(g_c.shape), xy, cells, mask, reso, finest)
     dw_in, db_in = level_bwd_reduce_plain(s, d_h, True)
     dw_out, db_out = level_bwd_reduce_plain(h, d_o, True)
     dw_c, _ = level_bwd_reduce_plain(c_last.reshape(-1, c_last.shape[-1]), d_o, False)
@@ -145,22 +165,23 @@ def level_bwd_reduce(a, b, bias: bool):
 
 def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
                          reso: int, finest: int):
-    """K5's row pass (``t2h_fused_level_bwd``): d_plane, d_c_last and the
-    rows the weight gradients need, on the tensor cores at fp32 accuracy
-    (3xTF32), 64 rows a block.
+    """K5's row pass (``t2h_fused_level_bwd``): d_c_last and the rows the
+    weight gradients and the d_plane pass need, on the tensor cores at fp32
+    accuracy (3xTF32), 64 rows a block.
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
     cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
 
     Returns:
-        d_plane (B, R, R, F), d_c_last (B, N, Fl), and the rows (M = B*N):
-        s (M, F) the recomputed sample, h (M, 2F), d_o (M, F), d_h (M, 2F).
-        Padding rows weigh 0 in every gradient (d_o and d_h are 0 there);
-        the kernel's s is 0 there too, the plain version samples them.
+        d_c_last (B, N, Fl), and the rows (M = B*N): s (M, F) the recomputed
+        sample, h (M, 2F), d_o (M, F), d_h (M, 2F), d_s (M, F) the sample's
+        cotangent. Padding rows weigh 0 in every gradient (d_o, d_h and d_s
+        are 0 there); the kernel's s is 0 there too, the plain version
+        samples them.
 
     Takes F <= 512 and any Fl: its shared memory (219 KB at F = 512) does
-    not grow with Fl. Allocates the 6F floats a row of those rows: ~2 GB at
-    the flagship's F=512 level.
+    not grow with Fl. Allocates the 7F floats a row of those rows: ~2.3 GB
+    at the flagship's F=512 level. Each output element is written once.
     """
     if runtime.on_cpu(plane):
         return fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts,
@@ -178,25 +199,60 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
     m = b * n
     new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)  # noqa: E731
     w_out_t, w_c_t, w_in_t = (w.t().contiguous() for w in (w_out, w_c, w_in))
-    d_plane, d_c_last = new(b, r, r, f), new(b, n, fl)
-    s, hs, d_o, d_h = new(m, f), new(m, h), new(m, f), new(m, h)
+    d_c_last = new(b, n, fl)
+    s, hs, d_o, d_h, d_s = new(m, f), new(m, h), new(m, f), new(m, h), new(m, f)
     err = runtime.library().t2h_fused_level_bwd(
         plane.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(),
         counts.data_ptr(), g_plane.data_ptr(), g_c.data_ptr(), w_in.data_ptr(),
         b_in.data_ptr(), w_out_t.data_ptr(), w_c_t.data_ptr(), w_in_t.data_ptr(),
-        d_plane.data_ptr(), d_c_last.data_ptr(), s.data_ptr(), hs.data_ptr(),
-        d_o.data_ptr(), d_h.data_ptr(), b, n, r, f, fl, level_shift(reso, finest),
-        runtime.stream_ptr(dev))
+        d_c_last.data_ptr(), s.data_ptr(), hs.data_ptr(), d_o.data_ptr(), d_h.data_ptr(),
+        d_s.data_ptr(), b, n, r, f, fl, level_shift(reso, finest), runtime.stream_ptr(dev))
     runtime.check(err, "fused_level_bwd")
     runtime.LAUNCHES["fused_level_bwd"] += 1
-    return d_plane, d_c_last, s, hs, d_o, d_h
+    return d_c_last, s, hs, d_o, d_h, d_s
+
+
+def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int):
+    """K5's d_plane pass (``t2h_level_d_plane``): the bilinear transpose of the
+    rows' sample cotangents, d_plane[b, y, x] = sum over the valid rows whose
+    sample reads pixel (x, y) of its weight times d_s, each pixel written
+    once from one fixed-order sum (bit-equal run to run).
+
+    Args:
+        d_s: (B, N, F) f32 the rows' d_s (:func:`fused_level_bwd_rows`).
+        xy, cells, mask: the forward's (B, N, 2) f32, (B, N) int32 finest
+            Morton ids at ``finest``, (B, N) bool.
+        reso: the plane's resolution R; finest: the layout's.
+
+    Returns d_plane (B, R, R, F). On the card the rows of each finest cell
+    must be contiguous and a row's cell within one cell of trunc(xy *
+    finest), as on the aligned layout (the module's contract).
+    """
+    if runtime.on_cpu(d_s):
+        return level_d_plane_plain(d_s, xy, cells, mask, reso, finest)
+    dev = d_s.device
+    b, n, f = d_s.shape
+    runtime.require(d_s, "d_s", torch.float32, (b, n, f), dev)
+    runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
+    runtime.require(cells, "cells", torch.int32, (b, n), dev)
+    runtime.require(mask, "mask", torch.bool, (b, n), dev)
+    if finest < reso:
+        raise ValueError(f"finest resolution {finest} < reso {reso}")
+    d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    offs = torch.empty(2 * b * finest * finest, device=dev, dtype=torch.int32)
+    err = runtime.library().t2h_level_d_plane(
+        d_s.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(), offs.data_ptr(),
+        d_plane.data_ptr(), b, n, reso, f, finest, runtime.stream_ptr(dev))
+    runtime.check(err, "level_d_plane")
+    runtime.LAUNCHES["level_d_plane"] += 1
+    return d_plane
 
 
 def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
                     reso: int, finest: int):
     """K5: the backward of :func:`fused_level`. One row pass
-    (:func:`fused_level_bwd_rows`: d_plane, d_c_last and the rows the weight
-    gradients need), then three :func:`level_bwd_reduce` calls.
+    (:func:`fused_level_bwd_rows`: d_c_last and the rows), the d_plane pass
+    (:func:`level_d_plane`), then three :func:`level_bwd_reduce` calls.
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
     cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
@@ -206,14 +262,17 @@ def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_
         (dw_in, db_in, dw_out, db_out, dw_c, db_c), db_c equal to db_out
         (both biases add into o).
 
-    The row pass's 6F floats of scratch a row (B*N rows), ~2 GB at the
-    flagship's F=512 level, are freed on return.
+    The row pass's 7F floats of scratch a row (B*N rows), ~2.3 GB at the
+    flagship's F=512 level, are freed on return, d_s (F of them) before the
+    reductions.
     """
     if runtime.on_cpu(plane):
         return fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts,
                                      g_plane, g_c, reso, finest)
-    d_plane, d_c_last, s, hs, d_o, d_h = fused_level_bwd_rows(
+    d_c_last, s, hs, d_o, d_h, d_s = fused_level_bwd_rows(
         plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c, reso, finest)
+    d_plane = level_d_plane(d_s.view(g_c.shape), xy, cells, mask, reso, finest)
+    del d_s
     dw_in, db_in = level_bwd_reduce(s, d_h, True)
     dw_out, db_out = level_bwd_reduce(hs, d_o, True)
     dw_c, _ = level_bwd_reduce(c_last.reshape(-1, c_last.shape[-1]), d_o, False)
@@ -265,7 +324,8 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
     (3xTF32, ``csrc/mma_tf32x3.cuh``), 64 points a block; it takes F <= 512
     and any Fl (c_last is contracted in K-chunks of F's width rounded up to
     a power of two, so Fl = 1024 at the first up level of a depth-6 U-Net
-    fits); a wider F raises. K5 takes the same F and Fl.
+    fits); a wider F raises. K5 takes the same F and Fl. On the card the
+    rows must follow the aligned layout (the module's contract).
     """
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 
@@ -300,17 +360,15 @@ def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int
     b, r, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[-1]
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    f32 = torch.float32
-    lib = runtime.library()
-    plane_out = torch.empty((b, r, r, f), device=dev, dtype=f32)
-    c_out = torch.empty((b, n, f), device=dev, dtype=f32)
-    counts = torch.empty((b, r, r), device=dev, dtype=torch.int32)
-    err = lib.t2h_fused_level(
-        plane.data_ptr(), c_last.data_ptr(), xy.data_ptr(), cells.data_ptr(),
-        mask.data_ptr(), w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(),
-        b_out.data_ptr(), w_c.data_ptr(), b_c.data_ptr(), plane_out.data_ptr(),
-        c_out.data_ptr(), counts.data_ptr(), b, n, r, f, fl,
-        level_shift(reso, finest), runtime.stream_ptr(dev))
+    c_out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    err = runtime.library().t2h_fused_level(
+        plane.data_ptr(), c_last.data_ptr(), xy.data_ptr(), mask.data_ptr(),
+        w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
+        w_c.data_ptr(), b_c.data_ptr(), c_out.data_ptr(), b, n, r, f, fl,
+        runtime.stream_ptr(dev))
     runtime.check(err, "fused_level")
     runtime.LAUNCHES["fused_level"] += 1
+    plane_out, counts = scatter_runs_masked(c_out, cells, mask, reso,
+                                            level_shift(reso, finest))
+    runtime.LAUNCHES["fused_level_scatter"] += 1
     return plane_out, c_out, counts

@@ -17,10 +17,11 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
   once (rows in any order: unsorted ones only read more).
 - K3 :func:`scatter_plane2` <- ``_scatter_plane_kernel`` (pool2_kernel.py:263):
   masked scatter-mean into a row-major NHWC plane, plus per-cell counts, on
-  the same runs (``scatter_runs``, which also serves K11-K13 in
-  ``scatter_kernel.py``): each run's row-order mean and count written to
-  its cell once, the empty cells (marked first) zeroed in the same launch;
-  no atomics.
+  the same runs (``scatter_runs``, :func:`scatter_runs_masked`, which also
+  serves K4's plane in ``level_kernel.py`` and K11-K14 in
+  ``scatter_kernel.py``): each run's row-order mean and count written to its
+  cell once, the empty cells (marked first) zeroed in the same launch; no
+  atomics.
 
 They read only the finest Morton cell ids and the mask: the TPU's chunk
 metadata (ct/pt/tmask) served its sequential grid and has no use here. What
@@ -261,6 +262,18 @@ def scatter_plane2(values, cells, mask, reso: int):
 def _scatter_plane2(values, cells, mask, reso: int):
     if runtime.on_cpu(values):
         return scatter_plane2_plain(values, cells, mask, reso)
+    out = scatter_runs_masked(values, cells, mask, reso, 0)
+    runtime.LAUNCHES["scatter_plane2"] += 1
+    return out
+
+
+def scatter_runs_masked(values, cells, mask, reso: int, shift: int):
+    """Launch the run scatter (``t2h_scatter_runs``) with the mask: the masked
+    scatter-mean of (B, N, F) ``values`` into cell ``cells >> shift`` of a
+    row-major plane -> (plane (B, reso, reso, F), counts (B, reso, reso)
+    int32), each cell written once. K3 (shift 0) and K4's plane
+    (``level_kernel``, the level's shift) take it; their wrappers count the
+    launch. Each cell's valid rows must be one run (the module's contract)."""
     b, n, f = _check_points(values, cells, mask)
     dev = values.device
     plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
@@ -268,8 +281,7 @@ def _scatter_plane2(values, cells, mask, reso: int):
     flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
     err = runtime.library().t2h_scatter_runs(
         values.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, plane.data_ptr(),
-        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, 0, 0, 0, 0,
+        counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift, 0, 0, 0,
         runtime.stream_ptr(dev))
-    runtime.check(err, "scatter_plane2")
-    runtime.LAUNCHES["scatter_plane2"] += 1
+    runtime.check(err, "scatter_runs")
     return plane, counts

@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 LAUNCHES = {"pool2": 0, "pool_gather": 0, "scatter_plane2": 0,
-            "fused_level": 0, "fused_level_bwd": 0, "level_bwd_reduce": 0,
+            "fused_level": 0, "fused_level_scatter": 0, "fused_level_bwd": 0,
+            "level_d_plane": 0, "level_bwd_reduce": 0,
             "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
             "conv_decoder": 0, "tile_gather": 0, "tile_pool": 0,
             "scatter_mean_plane": 0, "aligned_scatter_mean_plane": 0, "scatter_mean": 0,
@@ -56,15 +57,15 @@ _SIGNATURES = {
     "t2h_pool_runs": [_P] * 7 + [_I] * 5 + [_P],
     "t2h_pool_gather": [_P] * 5 + [_I] * 4 + [_P],
     "t2h_scatter_runs": [_P] * 7 + [_I] * 8 + [_P],
-    "t2h_fused_level": [_P] * 14 + [_I] * 6 + [_P],
+    "t2h_fused_level": [_P] * 11 + [_I] * 5 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
+    "t2h_level_d_plane": [_P] * 6 + [_I] * 5 + [_P],
     "t2h_level_bwd_reduce": [_P, _P] + [_I] * 4 + [_P] * 4,
     "t2h_level_bwd_reduce_tiles": [_I, _I],
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
-    "t2h_tile_scatter_mean": [_P] * 4 + [_I] * 7 + [_P],
 }
 
 

@@ -5,20 +5,19 @@ Pallas kernels compute one function on one contract: rows grouped by 16x16
 Morton tile (256 cells), each tile's rows contiguous; a row adds into cell
 ``(cell >> shift) - 256 t`` of its tile t when that lies in [0, 256), else
 nowhere (pad rows, ``PAD_CELL_SENTINEL``, rows of another tile); each cell's
-mean is written, 0 for an empty cell. Two CUDA kernels compute it, and
+mean is written, 0 for an empty cell. One CUDA kernel computes it, and
 each TPU kernel keeps its own launcher, plain version and launch count:
-K11, K12 and K13 run ``csrc/pool2.cu`` ``t2h_scatter_runs``, K3's
-atomic-free pass over the Morton-sorted runs with the tile check on (a warp
-sums each run in row order and writes its cell once; the empty cells,
-marked first, are zeroed in the same launch: bit-equal run to run); K11 and
-K13 read their tile offsets in place, every 256th of the per-cell offsets
-(step 256), K12 its tile offsets at this resolution (step 1); K13 stores
-each cell at its Morton index (``morton``), the others at its row-major
-one. Their contract: a cell's rows at this resolution are contiguous (the
-plain sorted layout's rows are sorted, pads at the end; on the fused layout
-true down to 16^2, where a cell is one finest 256-cell tile, pads only
-between cells). K14 runs ``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean``
-(a block a tile, shared-memory atomics).
+``csrc/pool2.cu`` ``t2h_scatter_runs``, K3's atomic-free pass over the
+Morton-sorted runs with the tile check on (a warp sums each run in row
+order and writes its cell once; the empty cells, marked first, are zeroed
+in the same launch: bit-equal run to run). K11 and K13 read their tile
+offsets in place, every 256th of the per-cell offsets (step 256), K12 its
+tile offsets at this resolution (step 1), K14 every 4**level-th of the
+finest tile offsets (step 4**level); K13 stores each cell at its Morton
+index (``morton``), the others at its row-major one. Their contract: a
+cell's rows at this resolution are contiguous (the plain sorted layout's
+rows are sorted, pads at the end; on the fused layout true down to 16^2,
+where a cell is one finest 256-cell tile, pads only between cells).
 
 - K11 :func:`scatter_mean_plane` <- ``_scatter_tile_kernel_plane``
   (scatter_kernel.py:124, ``pallas_scatter_mean_plane``): the plain sorted
@@ -30,7 +29,7 @@ between cells). K14 runs ``csrc/tile_scatter.cu`` ``t2h_tile_scatter_mean``
   ``pallas_scatter_mean``): as K11, Morton-ordered (B, reso*reso, C) output;
 - K14 :func:`scatter_mean_plane_v3` <- ``_scatter_v3_kernel``
   (scatter_kernel.py:495, ``pallas_scatter_mean_plane_v3``): K12's function
-  from the finest tile offsets, strided by 4**level here.
+  from the finest tile offsets, read in place every 4**level-th.
 
 A CPU tensor takes the plain version (``*_plain``: a masked segment mean over
 the rows that belong to their tile), a CUDA tensor the kernel; there is no
@@ -127,24 +126,9 @@ def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
         raise ValueError(f"{name}: {toff.shape[1]} tile offsets, need {tiles * step + 1}")
 
 
-def _launch(name, values, cells, toff, reso: int, shift: int, step: int):
-    """Launch ``t2h_tile_scatter_mean`` (K14) into a row-major plane; tile t
-    of entry b spans rows [toff[b, t*step], toff[b, (t+1)*step])."""
-    dev = values.device
-    b, n, f = values.shape
-    _check_tiles(name, values, cells, toff, reso, step)
-    out = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_tile_scatter_mean(
-        values.data_ptr(), cells.data_ptr(), toff.data_ptr(), out.data_ptr(), b, n, f,
-        reso, shift, toff.shape[1], step, runtime.stream_ptr(dev))
-    runtime.check(err, name)
-    runtime.LAUNCHES[name] += 1
-    return out
-
-
 def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int,
                   morton: bool = False):
-    """Launch ``t2h_scatter_runs`` with the tile check (K11-K13): a row adds
+    """Launch ``t2h_scatter_runs`` with the tile check (K11-K14): a row adds
     into its cell ``cells >> shift`` when it lies in the rows
     [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t. Returns the
     row-major plane (B, reso, reso, F), or with ``morton`` the Morton-ordered
@@ -214,5 +198,5 @@ def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):
     if runtime.on_cpu(values):
         return scatter_mean_plane_v3_plain(values, cells, tile_offsets, reso, finest)
     shift = level_shift(reso, finest)
-    return _launch("scatter_mean_plane_v3", values, cells, tile_offsets, reso, shift,
-                   4 ** (shift // 2))
+    return _scatter_runs("scatter_mean_plane_v3", values, cells, tile_offsets, reso, shift,
+                         4 ** (shift // 2))

@@ -11,8 +11,10 @@ the CUDA-event timer) are imported from there, so that two commits can be
 compared on one card in one call, in turns (parent, change, change,
 parent). Prints the median ms of all eight levels and of each, for K4, for
 K5 and its row pass on random output cotangents with the forward's counts
-(the row pass through its C entry point ``t2h_fused_level_bwd``, whose
-arguments both trees share), and for the 24 reductions (on random rows of
+(the row pass through its C entry point ``t2h_fused_level_bwd``: a tree
+with ``level_kernel.level_d_plane`` writes d_s there where an older one
+writes d_plane, and runs the d_plane pass apart, which is then timed on its
+own), and for the 24 reductions (on random rows of
 each level's shapes, as ``chip_smoke.check_kernels`` draws them, beside
 ``torch.matmul`` of the same product), the card's name and power limit. With ``--profile``, also the
 device time by kernel name of one pass of the 24 reductions and of the 24
@@ -61,7 +63,7 @@ def main() -> None:
     cells = torch.from_numpy(acell).to(dev)
     b, npad = amask.shape
     torch.backends.cuda.matmul.allow_tf32 = False
-    fns, bwd, rows_fns, red, mm = {}, {}, {}, {}, {}
+    fns, bwd, rows_fns, red, mm, dplane = {}, {}, {}, {}, {}, {}
     m = b * npad
     for r, f, fl in cs.LEVEL_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen).to(dev)
@@ -77,13 +79,19 @@ def main() -> None:
         bargs = (plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, 256)
         bwd[key] = lambda a=bargs: lk.fused_level_bwd(*a)
         rows_fns[key] = _row_pass(lk, runtime, bargs)
+        if hasattr(lk, "level_d_plane"):
+            d_s = torch.randn(b, npad, f, generator=gen).to(dev)
+            dplane[key] = lambda a=(d_s, xy, cells, mask, r, 256): lk.level_d_plane(*a)
         rows = [(torch.randn(m, ka, generator=gen).to(dev),
                  torch.randn(m, nb, generator=gen).to(dev), bias)
                 for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False))]
         red[key] = lambda rows=rows: [lk.level_bwd_reduce(*x) for x in rows]
         mm[key] = lambda rows=rows: [torch.matmul(x[0].t(), x[1]) for x in rows]
-    for name, group in (("K4", fns), ("K5", bwd), ("K5 rows", rows_fns), ("reduce", red),
-                        ("torch.matmul", mm)):
+    groups = [("K4", fns), ("K5", bwd), ("K5 rows", rows_fns), ("reduce", red),
+              ("torch.matmul", mm)]
+    if dplane:
+        groups.append(("K5 d_plane", dplane))
+    for name, group in groups:
         per = {k: round(cs.cuda_ms(fn, iters=args.iters), 4) for k, fn in group.items()}
         total = cs.cuda_ms(lambda g=group: [fn() for fn in g.values()], iters=args.iters)
         print(f"{name} {root}: {total:.4f} ms for the eight levels (median of "
@@ -95,15 +103,17 @@ def main() -> None:
 
 def _row_pass(lk, runtime, bargs):
     """K5's row pass alone, through its C entry point, outputs allocated
-    once: the entry point takes the same arguments in both trees."""
+    once: the entry point takes 18 pointers in every tree, d_plane first in
+    a tree without ``level_d_plane``, d_s last in one with it."""
     import torch
 
     plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, reso = bargs
     b, _, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[2]
     m = b * n
-    outs = [torch.empty(shape, device=plane.device) for shape in
-            ((b, r, r, f), (b, n, fl), (m, f), (m, 2 * f), (m, f), (m, 2 * f))]
+    shapes = [(b, n, fl), (m, f), (m, 2 * f), (m, f), (m, 2 * f)]
+    shapes = shapes + [(m, f)] if hasattr(lk, "level_d_plane") else [(b, r, r, f)] + shapes
+    outs = [torch.empty(shape, device=plane.device) for shape in shapes]
     w_out_t, w_c_t, w_in_t = (x.t().contiguous() for x in (w[2], w[4], w[0]))
     ptrs = [t.data_ptr() for t in (plane, xy, cells, mask, counts, g_p, g_c, w[0], w[1],
                                    w_out_t, w_c_t, w_in_t, *outs)]

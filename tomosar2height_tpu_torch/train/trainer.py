@@ -23,7 +23,10 @@ PyTorch. The same step semantics:
   cell ids are sent, the model recomputes them from points and mask (the
   JAX default ``wire_cells='device'``, trainer.py:237-238);
 - precision: every cuDNN convolution of the step, backward included, runs
-  in full float32 whatever the caller's TF32 flags (``fp32_convs``).
+  in full float32 whatever the caller's TF32 flags, with deterministic
+  algorithms only (``fp32_convs(deterministic=True)``): with the port's
+  kernels, which add in fixed orders, a step on the card is bit-equal run
+  to run, as the JAX reference's is.
 """
 
 from __future__ import annotations
@@ -138,8 +141,9 @@ class Trainer:
             batch = self.prepare_batch(batch)
         self.model.train()
         # the conv backwards (dgrad, wgrad) run in this call, outside the
-        # layers' own float32 scopes: the step holds one of its own
-        with fp32_convs():
+        # layers' own float32 scopes: the step holds one of its own, which
+        # also keeps cuDNN to deterministic algorithms (bit-exact steps)
+        with fp32_convs(deterministic=True):
             loss, metrics = self.loss(batch)
             grads = torch.autograd.grad(loss, self.params, allow_unused=True)
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(self.params, grads)]
