@@ -47,8 +47,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    mini-steps per optimizer step, remat) on random patches of the same city
    with its nDSM as target, through the port's training loader and
    ``train/loop.py``, on the fused2 kernel path and the unsorted plain path
-   from the same weights on the same patches: 1 warm-up and 2 timed
-   optimizer steps each, window losses compared, mini-step ms, train
+   from the same weights on the same patches: 1 warm-up and 1 timed
+   optimizer step each, window losses compared, mini-step ms, train
    patches/s, peak memory and the launches per fused2 mini-step; then the
    fused2 run once more from the same weights on the same patches, whose
    parameters and window losses must be bit-equal to the first run's (every
@@ -61,7 +61,18 @@ Phases, one line each; any failure raises and the script exits non-zero:
    and 'cumsum' (no kernel) from one set of weights, each raster held to the
    unsorted plain path's, launches per forward asserted;
 9. munich-depth6: one batch-8 fused2 forward at ALTO depth 6, whose first up
-   level runs K4 at Fl = 1024, held to the plain path.
+   level runs K4 at Fl = 1024, held to the plain path;
+10. headline-train: the headline network (``headline_config()``: the
+   cloud+image network with ALTO depth 6 and the footprint head) trained at
+   full width, batch 8, ``optimize_every`` 8, on random patches of the city
+   with its nDSM and RGB image: the kernel path (fused2 + K6/K7) for 3
+   optimizer steps with a checkpoint after each through ``train/loop.py``
+   (launches per mini-step asserted against HEADLINE_TRAIN_LAUNCHES), the
+   plain path from the same weights on the same patches (loss_l1 and
+   loss_ce of each window held within their tolerances), the checkpoint's
+   size and round trip, then a child process that resumes from the
+   iteration-1 checkpoint and runs iterations 2-3: its parameters must be
+   bit-equal to the uninterrupted run's and its window losses equal.
 
 Phase 3 also holds every backward (K5 at the eight levels: its row pass,
 its d_plane pass (a warp a pixel, the rows of its rectangle of finest
@@ -84,7 +95,8 @@ for.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is the
 kernel table as JSON: ``launches`` from the timed training run for K1-K5
-and the backwards, from the timed fusion-serve runs for K6-K8, from the
+and the backwards, from the timed fusion-serve runs and the headline-train
+kernel run for K6 and K7, from the fusion-serve runs for K8, from the
 timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
 the main path that runs it; K14 is on none, 0; so is ``pool2_mean``, the
 run kernel's mean pooling, as the flagship pools by max), ``launches_serve`` from the
@@ -1587,7 +1599,7 @@ TRAIN_LAUNCHES = {"pool2": 8, "pool2_bwd": 4, "pool_gather": 1, "scatter_plane2"
 def train_phase(seed: int = 0):
     """The flagship training step on random patches of the synthetic city,
     fused2 kernel path against the unsorted plain path from the same weights
-    on the same patches: 1 warm-up and 2 timed optimizer steps each. Then
+    on the same patches: 1 warm-up and 1 timed optimizer step each. Then
     the fused2 path once more, as it ran the first time: its parameters and
     window losses must come out bit-equal to the first run's (every kernel
     adds in a fixed order and the step keeps cuDNN deterministic)."""
@@ -1627,7 +1639,7 @@ def train_phase(seed: int = 0):
         torch.cuda.reset_peak_memory_stats()
         runtime.reset_launches()
         t0 = time.perf_counter()
-        out = train(trainer, sched, loader, tcfg, max_iteration=2)
+        out = train(trainer, sched, loader, tcfg, max_iteration=1)
         wall = time.perf_counter() - t0
         launches = dict(runtime.LAUNCHES)
         losses = [r["loss"] for r in warm["windows"] + out["windows"]]
@@ -1685,6 +1697,238 @@ def train_phase(seed: int = 0):
     return fused["launches"]
 
 
+# kernel launches of one headline training mini-step (``headline_config``:
+# fused2 + fused_convs + fused_head, ALTO depth 6, the footprint head), with
+# remat: the encoder's forward (pool2's run kernel 4, K3 1, K4 at the nine
+# round trips at reso >= 32, each with its run scatter, K7 at the 11 ALTO
+# conv pairs) runs twice, the second time recomputed in the backward; the
+# image U-Net's 11 conv pairs (K7) once, K6 for the height and the footprint
+# heads; the backward adds pool2's backward (4), K2 for the plane scatter and
+# K5 at the nine levels (a row pass, the d_plane pass and three weight sums
+# each). K6's and K7's backwards are the plain composition's: no launch.
+HEADLINE_TRAIN_LAUNCHES = {"pool2": 8, "pool2_bwd": 4, "pool_gather": 1, "scatter_plane2": 2,
+                           "fused_level": 18, "fused_level_scatter": 18,
+                           "fused_level_bwd": 9, "level_d_plane": 9, "level_bwd_reduce": 27,
+                           "scatter_plane2_bwd": 1, "conv_pair": 33, "conv_decoder": 2}
+
+
+def _footprint_tol(cfg) -> float:
+    """loss_ce moves by at most weight_ce x the footprint logits' own
+    difference (the BCE is 1-Lipschitz in the logit), held at the JAX
+    package's 2e-4 on logits (tests/test_fused_model.py:73)."""
+    return 2e-4 * cfg["training"]["weight_ce"]
+
+
+def _headline_parts(seed: int, kernels: bool):
+    """The headline config (``kernels``: fused2 + K6/K7; else the unsorted
+    path with the kernel flags off), its training keys with a checkpoint
+    every iteration and no validation, and a det_stream loader of one
+    optimizer step's random patches a pass over the synthetic city, with the
+    city's nDSM as target and its RGB image."""
+    from tomosar2height_tpu_torch.config import headline_config
+    from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+
+    cfg = headline_config()
+    if not kernels:
+        cfg["dataset"]["points"]["sort"] = False
+        cfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = False
+        cfg["model"]["encoder2_kwargs"]["fused_convs"] = False
+        cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
+    w, h = CITY["W"], CITY["H"]
+    ndsm, pts, rgb = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    grid = RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0))
+    tcfg = {**cfg["training"], "checkpoint_every": 1, "validate_every": 0}
+    dcfg = cfg["dataset"]
+    bsz = tcfg["batch_size"]
+    ds = SceneDataset(chunks, dcfg, random_sample=True,
+                      random_length=bsz * tcfg["optimize_every"], dsm=(ndsm, grid),
+                      image=(rgb, grid))
+    reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
+    loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
+                         fixed_bucket=dcfg["points"]["train_bucket"],
+                         sort_reso=reso if kernels else None, shuffle=True, drop_last=True,
+                         seed=seed, det_stream=True)
+    return cfg, tcfg, loader
+
+
+def _headline_trainer(cfg, tcfg, model):
+    from tomosar2height_tpu_torch.train import Trainer, build_scheduler
+
+    trainer = Trainer(model, tcfg, use_cloud=cfg["use_cloud"], use_image=cfg["use_image"],
+                      use_footprint=cfg["use_footprint"], weight_ce=tcfg["weight_ce"])
+    return trainer, build_scheduler(tcfg)
+
+
+def headline_resume(ckpt_path: str, out_path: str, seed: int = 0) -> None:
+    """The resume half of "headline-train", run in a child process: a fresh
+    network, trainer, scheduler and loader, resumed from ``ckpt_path``
+    through ``train/loop.py`` up to iteration 3; the final state dict, the
+    window records and the launches go to ``out_path`` (``torch.save``)."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from tomosar2height_tpu_torch.models import build_model
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import train
+    from tomosar2height_tpu_torch.train.checkpoint import CheckpointIO
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, tcfg, loader = _headline_parts(seed, True)
+    model = build_model(cfg, DEVICE)  # its weights come from the checkpoint
+    trainer, sched = _headline_trainer(cfg, tcfg, model)
+    io = CheckpointIO(os.path.dirname(out_path))
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    out = train(trainer, sched, loader, {**tcfg, "checkpoint_every": 0}, max_iteration=3,
+                checkpoint_io=io, resume_from=ckpt_path)
+    torch.cuda.synchronize()
+    torch.save({"state": {n: v.detach().cpu() for n, v in model.state_dict().items()},
+                "windows": out["windows"], "resumed": out["resumed"], "n_iter": out["n_iter"],
+                "launches": dict(runtime.LAUNCHES), "wall": time.perf_counter() - t0},
+               out_path)
+
+
+def headline_train(seed: int = 0):
+    """The headline network trained at full width on the synthetic city with
+    its RGB image, batch 8, ``optimize_every`` 8: the kernel path (fused2 +
+    K6/K7) for 3 optimizer steps with a checkpoint after each (the first the
+    warm-up, the timed run the other two), launches per mini-step asserted;
+    the plain path (unsorted, kernel flags off) from the same weights on the
+    same patches, window losses held within ``_height_tol`` (loss_l1) and
+    ``_footprint_tol`` (loss_ce); the checkpoint's size and round trip; then
+    a child process resumes from the iteration-1 checkpoint and runs
+    iterations 2-3: 0 tensors may differ from the uninterrupted run, and the
+    window losses must be equal."""
+    import gc
+    import tempfile
+
+    import torch
+
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import train
+    from tomosar2height_tpu_torch.train.checkpoint import CheckpointIO
+
+    cfg, tcfg, loader = _headline_parts(seed, True)
+    model = init_weights(build_model(cfg, DEVICE), torch.Generator().manual_seed(seed))
+    state0 = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    k = tcfg["optimize_every"]
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        io = CheckpointIO(os.path.join(tmp, "kernels"))
+        for name in ("kernels", "plain"):
+            if name == "plain":
+                pcfg, ptcfg, loader = _headline_parts(seed, False)
+                model = build_model(pcfg, DEVICE)
+                model.load_state_dict(state0)
+            trainer, sched = _headline_trainer(cfg, tcfg, model)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runtime.reset_launches()
+            out = train(trainer, sched, loader, tcfg, max_iteration=3,
+                        checkpoint_io=io if name == "kernels" else None)
+            torch.cuda.synchronize()
+            timed = out["windows"][1:]
+            wall = sum(w["time_loader_s"] + w["time_step_s"] + w["time_log_s"] for w in timed)
+            patches = sum(w["n_patches"] for w in timed)
+            runs[name] = {"windows": out["windows"], "launches": dict(runtime.LAUNCHES),
+                          "ms": float(np.median(out["step_ms"][k:])), "n": len(out["step_ms"]),
+                          "patches_s": patches / wall, "patches": patches, "wall": wall,
+                          "peak": torch.cuda.max_memory_allocated(),
+                          "aux": [w["time_aux_s"] for w in out["windows"]]}
+            r = runs[name]
+            gn = [f"{w['grad_norm']:.4g}" for w in out["windows"]]
+            log("headline-train", f"{name}: window losses "
+                f"{[round(w['loss'], 6) for w in out['windows']]} (l1 "
+                f"{[round(w['loss_l1'], 6) for w in out['windows']]}, ce "
+                f"{[round(w['loss_ce'], 6) for w in out['windows']]}) | grad_norm "
+                f"{gn} | mini-step "
+                f"{r['ms']:.1f} ms (median of the timed {r['n'] - k}, CUDA events) | "
+                f"{patches} patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s "
+                f"(windows 2-3, checkpoints not counted) | peak {r['peak'] / 2**30:.2f} GiB"
+                + (f" | checkpoint writes {[round(x, 3) for x in r['aux']]} s"
+                   if name == "kernels" else ""))
+            if not all(np.isfinite(w["loss"]) for w in out["windows"]):
+                raise AssertionError(f"{name}: window losses not finite")
+            if name == "kernels":
+                # the round trip: the last checkpoint (its write is the last
+                # window's aux time) read back into the run's objects
+                final = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
+                os.remove(os.path.join(io.checkpoint_dir, "model_2.ckpt"))
+                path = os.path.join(io.checkpoint_dir, "model_3.ckpt")
+                size = os.path.getsize(path)
+                t0 = time.perf_counter()
+                io.load(path)
+                torch.cuda.synchronize()
+                read_s = time.perf_counter() - t0
+                os.remove(path)
+                back = [n for n, v in model.state_dict().items()
+                        if not torch.equal(v.cpu(), final[n])]
+                io.module_dict.clear()  # release the run's model and optimizer
+                log("headline-train", f"checkpoint: {size / 2**20:.1f} MiB (model, AdamW "
+                    f"state and window, scheduler), written in {r['aux'][-1]:.3f} s, read "
+                    f"and loaded in {read_s:.3f} s; parameters after the round trip "
+                    f"bit-equal {not back}")
+                if back:
+                    raise AssertionError(f"the checkpoint round trip changed {back[:4]}")
+            del trainer, sched, out
+        kern, plain = runs["kernels"], runs["plain"]
+        if any(plain["launches"].values()):
+            raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
+        want = {**dict.fromkeys(kern["launches"], 0),
+                **{key: v * kern["n"] for key, v in HEADLINE_TRAIN_LAUNCHES.items()}}
+        per_step = {key: v / kern["n"] for key, v in kern["launches"].items() if v}
+        tol, tol_ce = _height_tol(cfg), _footprint_tol(cfg)
+        err = max(abs(a["loss_l1"] - b["loss_l1"])
+                  for a, b in zip(kern["windows"], plain["windows"]))
+        err_ce = max(abs(a["loss_ce"] - b["loss_ce"])
+                     for a, b in zip(kern["windows"], plain["windows"]))
+        log("headline-train", f"kernels vs plain window losses: loss_l1 max|d| {err:.3g} m "
+            f"(tol {tol:.3g} m), loss_ce max|d| {err_ce:.3g} (tol {tol_ce:.3g}) | mini-step "
+            f"kernels {kern['ms']:.1f} ms, plain {plain['ms']:.1f} ms | launches per kernel "
+            f"mini-step {per_step}")
+        if err > tol or err_ce > tol_ce:
+            raise AssertionError(f"kernel and plain window losses differ: loss_l1 {err}, "
+                                 f"loss_ce {err_ce}")
+        if kern["launches"] != want:
+            raise AssertionError(f"launch counts {kern['launches']}, expected {want}")
+        # the resume, in a process of its own: no cuDNN plan or allocator
+        # state carries over
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        child_out = os.path.join(tmp, "child", "final.pt")
+        os.makedirs(os.path.dirname(child_out))
+        code = (f"import chip_smoke; chip_smoke.headline_resume("
+                f"{os.path.join(io.checkpoint_dir, 'model_1.ckpt')!r}, {child_out!r}, {seed})")
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                           text=True, timeout=900)
+        child_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"the resume process failed ({r.returncode}): "
+                                 f"{r.stderr[-3000:]}")
+        child = torch.load(child_out)
+    differ = [n for n, v in final.items() if not torch.equal(child["state"][n], v)]
+    keys = ("loss", "loss_l1", "loss_ce")
+    got = [[w[key] for key in keys] for w in child["windows"]]
+    ref = [[w[key] for key in keys] for w in kern["windows"][1:]]
+    log("headline-train", f"resume in a child process from the iteration-1 checkpoint "
+        f"({child_s:.1f} s, iterations {[w['iteration'] for w in child['windows']]}): "
+        f"{len(differ)} of {len(final)} tensors differ from the uninterrupted run | window "
+        f"losses of iterations 2-3 equal {got == ref}")
+    if (not child["resumed"] or child["n_iter"] != 3 or differ or got != ref
+            or sorted(child["state"]) != sorted(final)):
+        raise AssertionError(f"the resumed run differs: {len(differ)} tensors "
+                             f"({differ[:4]}), window losses {got} vs {ref}")
+    return {key: kern["launches"][key] for key in ("conv_pair", "conv_decoder")}
+
+
 def main():
     card()
     build()
@@ -1695,15 +1939,17 @@ def main():
     sorted_launches = sorted_serve()
     munich_depth6()
     launches = train_phase()
+    headline_launches = headline_train()
     import torch
 
     for row in rows:
-        # K1-K5 (K5's d_plane pass too) and the backwards: the training step;
-        # K6-K8: fusion serving; K9-K13: sorted serving (K14 is on no model
-        # path)
+        # K1-K5 (K5's d_plane pass too) and the backwards: the flagship
+        # training step; K6 and K7: fusion serving and headline training; K8:
+        # fusion serving; K9-K13: sorted serving (K14 is on no model path)
         name = row["name"]
         key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
-        row["launches"] = (launches.get(key) or fusion_launches.get(key)
+        row["launches"] = (launches.get(key)
+                           or fusion_launches.get(key, 0) + headline_launches.get(key, 0)
                            or sorted_launches.get(key, 0))
         row["launches_serve"] = serve_launches.get(name, 0)
     loaded = sorted(m for m in sys.modules

@@ -1113,6 +1113,36 @@ class TestDPlanePass:
         assert torch.equal(lk.level_d_plane(d_s, xy, c, m, level_reso, 256), got)
 
 
+# (R, F, Fl) of the nine K4/K5 levels of a depth-6 ALTO U-Net on the 256^2
+# plane (the headline network, conf/dataset/munich.yaml)
+DEPTH6_LEVELS = [(256, 32, 32), (256, 64, 32), (128, 128, 64), (64, 256, 128),
+                 (32, 512, 256), (32, 512, 1024), (64, 256, 512), (128, 128, 256),
+                 (256, 64, 128)]
+
+
+@pytest.mark.cuda
+class TestDepth6Levels:
+    """K5 at every level of a depth-6 U-Net, (32, 512, 1024) included,
+    against its plain backward at K5's rule (rows off the ReLU kink), and
+    bit-equal on a second launch."""
+
+    @pytest.mark.parametrize("level_reso,f,fl", DEPTH6_LEVELS)
+    def test_matches_plain_and_is_bit_equal(self, cuda, level_reso, f, fl):
+        inp = level_inputs(256, level_reso, f, fl, seed=47, b=2, n=4000, empty_last=True)
+        args, _ = kink_free(inp, level_reso, 256, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level_bwd(*args)
+        torch.cuda.synchronize()
+        _launched("fused_level_bwd", before)
+        _launched("level_d_plane", before)
+        _launched("level_bwd_reduce", before, 3)
+        assert got[1].shape == (2, inp[1].shape[1], fl)
+        assert_level_grads_close(got, lk.fused_level_bwd_plain(*args))
+        again = lk.fused_level_bwd(*args)
+        assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+        assert all(torch.equal(a, b) for a, b in zip(again[2], got[2]))
+
+
 def conv_weights(rng, cin, cout, k=3):
     """HWIO weights at std min(0.2, fan_in^-0.5) and small biases."""
     std = min(0.2, (k * k * cin) ** -0.5)
@@ -1471,3 +1501,68 @@ class TestTileKernels:
             _launched(name, before)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, **TOL)
+
+
+@pytest.mark.cuda
+class TestHeadlineStep:
+    """One mini-step of the headline network (``headline_config``: ALTO depth
+    6, the image U-Net, the footprint head) at full width on 2 patches: the
+    kernel path (fused2 + K6/K7) launches what
+    ``chip_smoke.HEADLINE_TRAIN_LAUNCHES`` counts, the plain path (unsorted,
+    kernel flags off) none; from the same weights on the same points their
+    loss_l1 agree within the smoke's 2e-4 * z_scale, loss_ce within 2e-4 *
+    weight_ce, and their gradients within 1e-3 of the gradient's norm over
+    all parameters and 1e-2 of each tensor's (the paths add in other orders,
+    and a ReLU gate within rounding of its kink may open on one path only)."""
+
+    def test_kernel_step_matches_plain(self, cuda):
+        import chip_smoke as cs
+        from tomosar2height_tpu_torch.config import headline_config
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+        from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
+        from tomosar2height_tpu_torch.train import Trainer
+
+        cfg = headline_config()
+        model = init_weights(build_model(cfg, "cuda"), torch.Generator().manual_seed(0))
+        plain_cfg = headline_config()
+        plain_cfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = False
+        plain_cfg["model"]["encoder2_kwargs"]["fused_convs"] = False
+        plain_cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
+        plain = build_model(plain_cfg, "cuda")
+        plain.load_state_dict(model.state_dict())
+        pts, mask, apts, amask, _, toff = cs.flagship_batch(1, b=2)
+        rng = np.random.default_rng(2)
+        side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+        common = {"image": rng.normal(0, 1, (2, side, side, 3)).astype(np.float32),
+                  "dsm": np.where(rng.random((2, side, side)) < 0.5, 0.0,
+                                  rng.uniform(1, 40, (2, side, side))).astype(np.float32),
+                  "patch_valid": np.ones(2, bool)}
+        tcfg = cfg["training"]
+
+        def step(m, batch):
+            trainer = Trainer(m, tcfg, use_image=True, use_footprint=True,
+                              weight_ce=tcfg["weight_ce"])
+            dev = trainer.prepare_batch(batch)
+            runtime.reset_launches()
+            with fp32_convs(deterministic=True):
+                loss, metrics = trainer.loss(dev)
+                grads = torch.autograd.grad(loss, trainer.params)
+            torch.cuda.synchronize()
+            launched = {k: v for k, v in runtime.LAUNCHES.items() if v}
+            return {k: float(v) for k, v in metrics.items()}, grads, launched
+
+        km, kg, kl = step(model, {"points": apts, "point_mask": amask, "cell_offsets": toff,
+                                  **common})
+        assert kl == cs.HEADLINE_TRAIN_LAUNCHES
+        pm, pg, pl = step(plain, {"points": pts, "point_mask": mask, **common})
+        assert pl == {}
+        z = cfg["dataset"]["normalize"]["z_bound"]
+        assert abs(km["loss_l1"] - pm["loss_l1"]) <= 2e-4 * (z[1] - z[0]), (km, pm)
+        assert abs(km["loss_ce"] - pm["loss_ce"]) <= 2e-4 * tcfg["weight_ce"], (km, pm)
+        names = [n for n, _ in model.named_parameters()]
+        err = {n: float((a - b).norm()) for n, a, b in zip(names, kg, pg)}
+        ref = {n: float(b.norm()) for n, b in zip(names, pg)}
+        worst = max(names, key=lambda n: err[n] / max(ref[n], 1e-30))
+        total = np.sqrt(sum(e ** 2 for e in err.values()) / sum(r ** 2 for r in ref.values()))
+        assert total <= 1e-3, (total, worst, err[worst] / ref[worst])
+        assert err[worst] <= 1e-2 * ref[worst], (worst, err[worst], ref[worst])

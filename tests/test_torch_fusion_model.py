@@ -30,7 +30,6 @@ from tomosar2height_tpu.ops.sorted_scatter import (  # noqa: E402
 from tomosar2height_tpu_torch.models import build_model  # noqa: E402
 from tomosar2height_tpu_torch.models.blocks import set_fast_conv  # noqa: E402
 from tomosar2height_tpu_torch.ops.resize import resize_bilinear  # noqa: E402
-from tomosar2height_tpu_torch.train import Trainer  # noqa: E402
 from tomosar2height_tpu_torch.utils.torch_port import load_flax_params  # noqa: E402
 
 RESO = 32
@@ -163,12 +162,9 @@ def test_unported_unet_modes_raise():
         build_model(cfg, device="cpu")
 
 
-def test_missing_image_and_fusion_training_raise(data):
-    """The fusion network without its image raises, and so does a Trainer
-    for it: the image is not in ``prepare_batch`` yet."""
+def test_missing_image_raises(data):
+    """The fusion network without its image raises."""
     model = build_model(fusion_cfg(False, False), device="cpu").eval()
     args = [torch.from_numpy(data[k]) for k in ("apts", "amask")]
     with pytest.raises(ValueError, match="input_image"):
         model(*args)
-    with pytest.raises(NotImplementedError, match="ROADMAP: fusion training"):
-        Trainer(model, {"optimize_every": 1})

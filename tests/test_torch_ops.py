@@ -91,6 +91,39 @@ class TestSamplingResize:
         want = np.asarray(jsampling.grid_sample_2d(jnp.asarray(plane), jnp.asarray(xy)))
         np.testing.assert_allclose(got, want, **TOL)
 
+    @pytest.mark.parametrize("hw", [(16, 16), (8, 8), (9, 13)])
+    def test_bilinear_matrix_is_the_sample_and_its_transpose(self, rng, hw):
+        """The dense form of the sample (fused2's levels below 32^2): its
+        product with the plane is the JAX grid_sample at 1e-5, the
+        transposed product the adjoint, and the border clamp adds only
+        zeros where two corners share a pixel (each row sums to 1)."""
+        plane = rng.normal(size=(2,) + hw + (4,)).astype(np.float32)
+        xy = rng.uniform(-0.1, 1.1, (2, 300, 2)).astype(np.float32)
+        xy[0, :4] = [[0, 0], [1, 1], [1, 0], [0, 1]]
+        mat = sampling.bilinear_matrix(_t(xy), *hw)
+        got = torch.bmm(mat, _t(plane).reshape(2, hw[0] * hw[1], 4)).numpy()
+        want = np.asarray(jsampling.grid_sample_2d(jnp.asarray(plane), jnp.asarray(xy)))
+        np.testing.assert_allclose(got, want, **TOL)
+        np.testing.assert_allclose(mat.sum(-1).numpy(), 1.0, rtol=0, atol=1e-6)
+        assert int((mat > 0).sum(-1).max()) <= 4
+        g = _t(rng.normal(size=(2, 300, 4)).astype(np.float32))
+        adj = torch.bmm(mat.transpose(1, 2), g).reshape(2, *hw, 4)
+        torch.testing.assert_close(adj, sampling.grid_sample_2d_adjoint(g, _t(xy), *hw), **TOL)
+
+    def test_cell_matrix_gives_the_cell_means(self, points):
+        """The dense form of the scatter-mean (fused2's levels below 32^2)
+        against the JAX segment_mean at 1e-5, counts exact."""
+        pts, mask, vals, reso = points
+        mat = scatter.cell_matrix(_t(pts[..., :2]), reso, _t(mask))
+        counts = mat.sum(1)[..., None]
+        means = torch.bmm(mat.transpose(1, 2), _t(vals)) / counts.clamp_min(1.0)
+        idx = jscatter.cell_index(jnp.asarray(pts[..., :2]), reso)
+        want = jscatter.segment_mean(jnp.asarray(vals), idx, reso * reso, jnp.asarray(mask))
+        np.testing.assert_allclose(means.numpy(), np.asarray(want), **TOL)
+        np.testing.assert_array_equal(counts.numpy(), np.asarray(
+            jscatter.segment_counts(idx, reso * reso, jnp.asarray(mask))))
+        assert torch.equal(mat.sum(-1), _t(mask).float())
+
     @pytest.mark.parametrize("hw", [(16, 16), (32, 48), (7, 5)])
     def test_resize_bilinear(self, rng, hw):
         x = rng.normal(size=(2, 8, 12, 3)).astype(np.float32)

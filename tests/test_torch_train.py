@@ -312,11 +312,6 @@ class TestTrainerUnits:
         finally:
             cudnn.allow_tf32, cudnn.deterministic = prev
 
-    def test_footprint_loss_not_ported(self):
-        with pytest.raises(NotImplementedError, match="ROADMAP: fusion training"):
-            Trainer(build_model(train_cfg(), device="cpu"), {"optimize_every": 1},
-                    use_footprint=True)
-
 
 class TestSchedulers:
     CASES = [

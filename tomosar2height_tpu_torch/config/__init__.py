@@ -6,8 +6,10 @@ them as a literal and reads no YAML. They equal ``compose()`` of ``dataset=berli
 (depth-5 ALTO U-Net, cloud only) with ``dataset.points.sort=true`` and
 ``model.encoder_kwargs.sorted_impl=fused2`` (pinned by a test).
 :func:`fusion_config` is the cloud+image fusion network on the same keys
-(``use_image=true`` with the kernel flags set, also pinned), and
-:func:`sorted_config` the flagship on another Morton-sorted path.
+(``use_image=true`` with the kernel flags set, also pinned),
+:func:`headline_config` the same network on munich's keys (ALTO depth 6, the
+footprint head), and :func:`sorted_config` the flagship on another
+Morton-sorted path.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import copy
 _FLAGSHIP = {
     "use_cloud": True,
     "use_image": False,
+    "use_footprint": False,
     "model": {
         "encoder": "pointnet_local_pool",
         "encoder_kwargs": {
@@ -48,7 +51,7 @@ _FLAGSHIP = {
         "random_dataset_length": 6400, "lock_seed": True, "weight_ce": 10.0,
         "augmentation": {"flip": False, "rotate": False},
         "max_iteration": 10000, "print_every": 1, "validate_every": 100,
-        "model_selection_metric": "loss_l1",
+        "checkpoint_every": 100, "model_selection_metric": "loss_l1",
     },
     "dsm_generation": {"pixel_size": [1, 1], "half_blend_percent": [0.5, 0.5],
                        "crs_epsg": 25833},
@@ -77,6 +80,23 @@ def fusion_config() -> dict:
     model["decoder_pixel_kwargs"]["fused_head"] = True
     cfg["dataset"]["satellite_image"] = {"normalize": {
         "mean": [688.8, 521.7, 239.2], "std": [344.1, 291.0, 247.2]}}
+    return cfg
+
+
+def headline_config() -> dict:
+    """The paper's headline network: the fusion network on munich's keys,
+    ``compose()`` of ``dataset=munich use_image=true dataset.points.sort=true
+    model.encoder_kwargs.sorted_impl=fused2`` with the kernel flags of
+    :func:`fusion_config`: ALTO depth 6, the footprint head
+    (``use_footprint``), munich's image normalization and ``z_bound``."""
+    cfg = fusion_config()
+    cfg["use_footprint"] = True
+    cfg["model"]["encoder_kwargs"]["unet_kwargs"]["depth"] = 6
+    cfg["model"]["decoder_pixel_kwargs"]["use_footprint"] = True
+    cfg["dataset"]["satellite_image"]["normalize"] = {
+        "mean": [885.1, 823.6, 622.6], "std": [406.0, 350.2, 332.9]}
+    cfg["dataset"]["normalize"]["z_bound"] = [465.5, 599.5]
+    cfg["dsm_generation"]["crs_epsg"] = 25832
     return cfg
 
 

@@ -11,9 +11,9 @@ reordered, cells with pads at sort_reso**2, per-cell offsets; no trim).
 Training adds the epoch shuffle, ``drop_last``, the GT target ``dsm`` and the
 deterministic stream (``det_stream``: every batch a pure function of seed,
 epoch and position). The rng draws are the JAX loader's, so both loaders give
-identical batches for one dataset. Prefetch threads, worker pools, the u16
-point wire and ``set_position`` (resume, with checkpoints) are not ported yet
-(ROADMAP: checkpoints; wires and the host side).
+identical batches for one dataset; :meth:`PatchLoader.set_position` restarts
+that stream where a checkpoint left it. Prefetch threads, worker pools and
+the u16 point wire are not ported yet (ROADMAP: wires and the host side).
 """
 
 from __future__ import annotations
@@ -98,6 +98,7 @@ class PatchLoader:
         self.seed = int(seed)
         self.det_stream = bool(det_stream)
         self._epoch = 0
+        self._start_batch = 0
         self.overflow_patches = 0
         self.overflow_points = 0
 
@@ -106,6 +107,19 @@ class PatchLoader:
         if self.drop_last:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
+
+    def set_position(self, epoch: int, batch_idx: int) -> None:
+        """Restart the stream at (epoch, batch_idx): the ``_stream_pos`` a
+        det_stream batch carries names the position after it, so a
+        checkpointed position replays from the next batch; past the epoch's
+        last batch it rolls over to the next epoch's first
+        (pipeline.py:198-209). Requires ``det_stream``."""
+        if not self.det_stream:
+            raise ValueError("set_position requires det_stream=True")
+        if batch_idx >= len(self):
+            epoch, batch_idx = epoch + 1, 0
+        self._epoch = int(epoch) - 1  # __iter__ pre-increments it
+        self._start_batch = int(batch_idx)
 
     def _item(self, i: int, pos: int) -> dict:
         """dataset[i]; under det_stream drawn with a generator keyed by
@@ -128,9 +142,10 @@ class PatchLoader:
             np.random.default_rng(self.seed + self._epoch).shuffle(idx)
         if self.drop_last:
             idx = idx[: (len(idx) // self.batch_size) * self.batch_size]
+        start, self._start_batch = self._start_batch, 0
         batch: List[dict] = []
-        bi = 0
-        for pos, i in enumerate(idx):
+        bi = start
+        for pos, i in enumerate(idx[start * self.batch_size:], start * self.batch_size):
             batch.append(self._item(int(i), pos))
             if len(batch) == self.batch_size:
                 yield self._finish(batch, bi, rng)

@@ -9,7 +9,11 @@ previous level's point features, scatter-mean back into the plane.
 
 On the ``fused2`` layout (Morton-aligned points, ``cache['impl'] == 'fused2'``)
 a round trip at resolution >= 32 is ONE kernel call
-(``ops/cuda/level_kernel.fused_level``); otherwise it is composed: the sample
+(``ops/cuda/level_kernel.fused_level``); below 32 (the bottom level of a
+depth-6 U-Net) the sample and the scatter-mean are dense products with the
+level's bilinear and cell matrices (``bilinear_matrix``, ``cell_matrix``),
+which add in a fixed order both ways, as the kernels do. Otherwise a round
+trip is composed: the sample
 (K9 ``tile_gather`` on the ``fused`` layout at resolution >= 32, else
 ``grid_sample_2d``), the MLPs, and the scatter-mean (K12 on ``fused``; K11 or
 cumulative sums over the coarsened per-cell offsets on ``pallas``/``cumsum``;
@@ -37,8 +41,13 @@ from tomosar2height_tpu_torch.models.blocks import (
 )
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import fused_level, level_shift
 from tomosar2height_tpu_torch.ops.fused import tile_gather, tile_scatter_mean
-from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
-from tomosar2height_tpu_torch.ops.scatter import cell_index, segment_counts, segment_mean
+from tomosar2height_tpu_torch.ops.sampling import bilinear_matrix, grid_sample_2d
+from tomosar2height_tpu_torch.ops.scatter import (
+    cell_index,
+    cell_matrix,
+    segment_counts,
+    segment_mean,
+)
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
     coarsen_offsets,
     coarsen_tile_offsets,
@@ -99,6 +108,20 @@ def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):
         plane_out, c, _ = fused_level(plane, c_last.contiguous(), weights, cache["xy"],
                                       cache["cells"], mask, reso, cache["finest"])
         return plane_out.permute(0, 3, 1, 2), c
+    if cache.get("impl") == "fused2":
+        # no atomics below 32 either: the plain segment ops add with them
+        mats = cache.get(("dense", reso))
+        if mats is None:
+            cells = cell_matrix(xy, reso, mask, x.dtype)
+            mats = cache[("dense", reso)] = (bilinear_matrix(xy, reso, reso).to(x.dtype),
+                                             cells.transpose(1, 2),
+                                             cells.sum(1)[..., None].clamp_min(1.0))
+        sample, members, counts = mats
+        b, ch = x.shape[:2]
+        s = torch.bmm(sample, x.permute(0, 2, 3, 1).reshape(b, reso * reso, ch))
+        c = level.fc_comm(s) + level.fc_c(c_last)
+        plane = torch.bmm(members, c) / counts
+        return plane.reshape(b, reso, reso, -1).permute(0, 3, 1, 2), c
     c = level.fc_comm(_sample_plane(x, xy, mask, cache)) + level.fc_c(c_last)
     return _scatter_plane(xy, c, reso, mask, cache), c
 

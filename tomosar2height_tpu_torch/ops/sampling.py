@@ -42,6 +42,21 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return top * (1 - wy) + bot * wy
 
 
+def bilinear_matrix(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(B, N, H*W) weights of :func:`grid_sample_2d`: row i holds point i's
+    four bilinear weights at its pixels, so ``bilinear_matrix(xy, H, W) @
+    plane.reshape(B, H*W, C)`` is the sample, and the transposed product its
+    adjoint, both as dense products in a fixed order. Where two of a point's
+    corners share a pixel (the clamp at the last pixel), one of their weights
+    is exactly 0, so the one add that can collide adds a zero."""
+    b, n, _ = coords.shape
+    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
+    idx = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1], -1).long()
+    wts = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy], -1)
+    out = torch.zeros(b, n, h * w, device=coords.device, dtype=coords.dtype)
+    return out.scatter_add_(2, idx, wts)
+
+
 def grid_sample_2d_adjoint(g: torch.Tensor, coords: torch.Tensor, h: int,
                            w: int) -> torch.Tensor:
     """The transpose of :func:`grid_sample_2d`: add each point's (B, N, C)

@@ -24,6 +24,18 @@ def cell_index(coords: torch.Tensor, reso: int) -> torch.Tensor:
     return xi[..., 0] + reso * xi[..., 1]
 
 
+def cell_matrix(coords: torch.Tensor, reso: int, mask: torch.Tensor,
+                dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(B, N, reso**2) membership of each valid point in its cell
+    (:func:`cell_index`): 1 at its cell, a masked point's row all 0. Its
+    transpose times (B, N, C) values sums each cell, a dense product in a
+    fixed order."""
+    b, n = mask.shape
+    idx = cell_index(coords, reso)[..., None]
+    out = torch.zeros(b, n, reso * reso, device=coords.device, dtype=dtype)
+    return out.scatter_(2, idx, mask[..., None].to(dtype))
+
+
 def _flat_segments(index: torch.Tensor, mask: Optional[torch.Tensor],
                    num_segments: int) -> torch.Tensor:
     b, _ = index.shape

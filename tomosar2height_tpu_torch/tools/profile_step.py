@@ -1,25 +1,31 @@
-"""The flagship fused2 training mini-step on the card, with or without
-cuDNN's deterministic algorithms, and the convolution kernels cuDNN ran.
+"""A fused2 training mini-step on the card, with or without cuDNN's
+deterministic algorithms, and the convolution kernels cuDNN ran.
 
     python -m tomosar2height_tpu_torch.tools.profile_step [--root DIR]
-        [--deterministic 0|1]
+        [--deterministic 0|1] [--config flagship|headline]
 
-Builds the flagship network (random weights from seed 0) and a Trainer
-(batch 8, ``optimize_every`` 8, remat) as ``chip_smoke.train_phase`` does,
-on one batch of 8 random patches of 16384 points on the aligned layout
-(``chip_smoke.flagship_batch``) with random targets. After 8 warm
+Builds the flagship network (``--config flagship``, the default) or the
+headline network (``headline``: ``config.headline_config()``, the
+cloud+image network with ALTO depth 6 and the footprint head, K6 and K7 on)
+with random weights from seed 0 and a Trainer (batch 8, ``optimize_every``
+8, remat) as ``chip_smoke`` does, on one batch of 8 random patches of 16384
+points on the aligned layout (``chip_smoke.flagship_batch``) with random
+targets (half the pixels ground) and, for the headline network, a random
+normalized image. After 8 warm
 mini-steps it times 16 with CUDA events (median), then records 8 with
 ``torch.profiler`` and prints the device time a mini-step by kernel name
 for the kernels cuDNN and cuBLAS ran (names holding conv, wgrad, dgrad,
 cudnn, xmma, implicit, gemm or sm90), the convolution backwards by input
 shapes with their device time, the device busy time a mini-step, the peak
-memory, the card's name and power limit. ``--deterministic``
+memory, the card's name and power limit, then the time of the port's own
+kernels and the largest device kernels of any origin. ``--deterministic``
 sets the step's ``cudnn.deterministic`` (1: the port's training step as
 it is; 0: cuDNN free to pick any algorithm), by the scope that
 ``Trainer.train_step`` takes (``ops/cuda/conv_kernel.fp32_convs``); in a
 tree whose step has no such choice it only sets the flag around the run.
 cuDNN's choice depends on the process's history, so run each setting in a
-fresh process. ``--root`` is the root of a checkout (default: this one).
+fresh process. ``--root`` is the root of a checkout (default: this one;
+``--config headline`` needs a tree that has the headline network).
 Needs one CUDA card.
 """
 
@@ -39,6 +45,7 @@ def main() -> None:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     ap.add_argument("--deterministic", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--config", choices=("flagship", "headline"), default="flagship")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -76,7 +83,14 @@ def main() -> None:
                 torch.backends.cudnn.deterministic = prev
 
     tr.fp32_convs = step_scope  # the step's scope, with this run's choice
-    cfg, model = cs.flagship_model(0)
+    if args.config == "headline":
+        from tomosar2height_tpu_torch.config import headline_config
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+
+        cfg = headline_config()
+        model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
+    else:
+        cfg, model = cs.flagship_model(0)
     tcfg = cfg["training"]
     _, _, apts, amask, _, toff = cs.flagship_batch(1)
     b = len(apts)
@@ -84,8 +98,14 @@ def main() -> None:
     rng = np.random.default_rng(2)
     batch = {"points": apts, "point_mask": amask, "cell_offsets": toff,
              "patch_valid": np.ones(b, bool),
-             "dsm": rng.uniform(0, 40, (b, side, side)).astype(np.float32)}
-    trainer = Trainer(model, tcfg)
+             "dsm": np.where(rng.random((b, side, side)) < 0.5, 0.0,
+                             rng.uniform(0, 40, (b, side, side))).astype(np.float32)}
+    if args.config == "headline":
+        batch["image"] = rng.normal(0, 1, (b, side, side, 3)).astype(np.float32)
+        trainer = Trainer(model, tcfg, use_image=True, use_footprint=True,
+                          weight_ce=tcfg["weight_ce"])
+    else:
+        trainer = Trainer(model, tcfg)
     dev = trainer.prepare_batch(batch)
     for _ in range(8):
         trainer.train_step(dev, 1e-4)
@@ -109,15 +129,20 @@ def main() -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = prof.events()
+    port_kernels = cs.TENSOR_CORE_KERNELS + cs.RUN_KERNELS + ("sum_splits", "tile_gather")
     by_name: dict = {}
+    every: dict = {}
     total = 0.0
     for ev in events:
         if ev.device_type == torch.autograd.DeviceType.CUDA:
             ms = ev.time_range.elapsed_us() / 1e3
             total += ms
-            if any(w in ev.name.lower() for w in KERNEL_WORDS):
+            every[ev.name] = every.get(ev.name, 0.0) + ms
+            if (any(w in ev.name.lower() for w in KERNEL_WORDS)
+                    and not any(k in ev.name for k in port_kernels)):
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
-    print(f"mini-step cudnn.deterministic={det}: {float(np.median(times)):.2f} ms "
+    print(f"{args.config} mini-step cudnn.deterministic={det}: "
+          f"{float(np.median(times)):.2f} ms "
           f"(median of 16, CUDA events; min {min(times):.2f}, max {max(times):.2f}) | "
           f"device {total / steps:.2f} ms, busy {_busy_ms(events) / steps:.2f} ms a "
           f"mini-step of {wall / steps:.2f} ms host wall (profiler on) | peak "
@@ -126,6 +151,11 @@ def main() -> None:
     print(f"cuDNN/cuBLAS kernels: {conv / steps:.2f} ms a mini-step; by kernel "
           "(ms a mini-step):", flush=True)
     for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:20]:
+        print(f"  {ms / steps:8.3f}  {name[:150]}", flush=True)
+    port = {n: ms for n, ms in every.items() if any(k in n for k in port_kernels)}
+    print(f"the port's kernels: {sum(port.values()) / steps:.2f} ms a mini-step; every "
+          "device kernel by name, the largest 25 (ms a mini-step):", flush=True)
+    for name, ms in sorted(every.items(), key=lambda kv: -kv[1])[:25]:
         print(f"  {ms / steps:8.3f}  {name[:150]}", flush=True)
     shapes = [a for a in prof.key_averages(group_by_input_shape=True)
               if a.key == "aten::convolution_backward"]

@@ -9,25 +9,37 @@ iteration, ReduceLROnPlateau on each validation; validation runs every
 ``validate_every`` iterations when a validation loader is given. Phase timers
 (host clock) split each iteration into loader (collate + upload enqueue),
 step (the mini-steps' launches; the card runs behind), log (the window's
-metric read, which waits for the card) and aux (validation). On a CUDA device
-every mini-step is also bracketed by CUDA events; a window's events live
-until the window closes, where its mini-step times are read into its record
-and the events dropped, so a long run holds none past its window.
+metric read, which waits for the card) and aux (validation and
+checkpoints). On a CUDA device every mini-step is also bracketed by CUDA
+events; a window's events live until the window closes, where its mini-step
+times are read into its record and the events dropped, so a long run holds
+none past its window.
 
-Not here yet: checkpoints and resume (ROADMAP: checkpoints), ``visualize()``
-with the DSMEvaluator (ROADMAP: evaluation), the wandb logger, prefetch
+Checkpoints (``train/checkpoint.py``, train.py:191-299): with a
+``CheckpointIO`` the loop registers the model, the trainer (its optimizer
+state) and the scheduler, resumes from ``resume_from`` when that file
+exists (``n_iter``, ``loss_val_best``, ``training_time`` and, under
+``det_stream``, the loader's stream position), and after the scheduler's
+step writes ``model_best.ckpt`` when validation improves on
+``model_selection_metric`` and ``model_{n_iter}.ckpt`` every
+``checkpoint_every`` iterations, from one read of the card an iteration.
+
+Not here yet: ``visualize()``, which needs the DSMEvaluator (ROADMAP:
+datasets on disk, config, CLI and evaluation), the wandb logger, prefetch
 threads and worker pools (ROADMAP: wires and the host side).
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
 from typing import Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
 
+from tomosar2height_tpu_torch.train.checkpoint import CheckpointIO
 from tomosar2height_tpu_torch.train.schedule import ITERATION_SCHEDULERS, SchedulerBase
 from tomosar2height_tpu_torch.train.trainer import Trainer
 
@@ -52,30 +64,73 @@ def prepared_batches(loader, trainer: Trainer) -> Iterator[Tuple[dict, Optional[
 
 
 def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training: Dict,
-          val_loader=None, max_iteration: Optional[int] = None) -> Dict:
-    """Run optimizer steps until ``max_iteration`` (default
-    ``cfg_training['max_iteration']``).
+          val_loader=None, max_iteration: Optional[int] = None,
+          checkpoint_io: Optional[CheckpointIO] = None,
+          resume_from: Optional[str] = None) -> Dict:
+    """Run optimizer steps until iteration ``max_iteration`` (default
+    ``cfg_training['max_iteration']``), counted from the checkpoint resumed.
+
+    ``resume_from`` names a checkpoint file; a bare name (such as
+    ``checkpoint.DEFAULT_MODEL_FILE``) is looked up in
+    ``checkpoint_io.checkpoint_dir``. A missing file trains from scratch.
 
     Returns a dict: ``windows`` (one record per iteration: iteration, lr it trained
-    with, the window's mean metrics, phase seconds and, on a CUDA device,
-    ``step_ms_median``: the median CUDA-event milliseconds of its
+    with, the window's mean metrics, valid patches, phase seconds and, on a
+    CUDA device, ``step_ms_median``: the median CUDA-event milliseconds of its
     mini-steps), ``val`` (validation records), ``step_ms`` (per-mini-step
     CUDA-event milliseconds on a CUDA device, else empty; read as each
     window closes), ``median_step_ms``, ``n_ministeps``, ``n_patches``
-    (valid patches stepped), ``stream_pos`` and ``loss_val_best``.
+    (valid patches stepped), ``stream_pos``, ``loss_val_best``, ``n_iter``
+    and ``resumed`` (whether a checkpoint was loaded).
     """
+    t_start = time.time()
     max_iteration = int(max_iteration if max_iteration is not None
                         else cfg_training["max_iteration"])
     sched_type = cfg_training["scheduler"]["type"]
     validate_every = int(cfg_training.get("validate_every", 0) or 0)
+    checkpoint_every = int(cfg_training.get("checkpoint_every", 0) or 0)
     print_every = int(cfg_training.get("print_every", 0) or 0)
     metric_key = cfg_training.get("model_selection_metric", "loss_l1")
     cuda = trainer.device.type == "cuda"
     events = []  # the open window's (start, end) CUDA events
     out = {"windows": [], "val": [], "step_ms": [], "n_ministeps": 0, "n_patches": 0,
-           "stream_pos": None, "loss_val_best": float("inf")}
+           "stream_pos": None, "loss_val_best": float("inf"), "resumed": False}
     ph = dict.fromkeys(("loader", "step", "log", "aux"), 0.0)
-    n_iter = 0
+    n_iter, time_before = 0, 0.0
+    if checkpoint_io is not None:
+        checkpoint_io.register_modules(model=trainer.model, optimizer=trainer,
+                                       scheduler=scheduler)
+        if resume_from:
+            path = (resume_from if os.path.dirname(resume_from)
+                    else os.path.join(checkpoint_io.checkpoint_dir, resume_from))
+            try:
+                loaded = checkpoint_io.load(
+                    path, resume_scheduler=cfg_training.get("resume_scheduler", True))
+            except FileNotFoundError:
+                log.info("Training from scratch.")
+            else:
+                out["resumed"] = True
+                n_iter = int(loaded.get("n_iter", 0))
+                out["loss_val_best"] = float(loaded.get("loss_val_best", np.inf))
+                time_before = float(loaded.get("training_time", 0.0))
+                pos = loaded.get("stream_pos")
+                if pos and getattr(train_loader, "det_stream", False):
+                    train_loader.set_position(int(pos[0]), int(pos[1]))
+                    out["stream_pos"] = (int(pos[0]), int(pos[1]))
+                log.info("Resuming from %s at iteration %d.", path, n_iter)
+    # model_best and model_{n} may fall on one iteration: read the card once
+    snap = {"iter": None, "data": None}
+
+    def save_ckpt(name: str):
+        if snap["iter"] != n_iter:
+            snap.update(iter=n_iter, data=checkpoint_io.snapshot())
+        pos = out["stream_pos"]
+        checkpoint_io.write(os.path.join(checkpoint_io.checkpoint_dir, name), snap["data"],
+                            n_iter=n_iter, loss_val_best=out["loss_val_best"],
+                            stream_pos=list(pos) if pos else None,
+                            training_time=time.time() - t_start + time_before)
+
+    window_patches = 0  # a window may span two passes of the loader
     while n_iter < max_iteration:
         n_before = out["n_ministeps"]
         batches = prepared_batches(train_loader, trainer)
@@ -98,6 +153,7 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
             ph["step"] += time.perf_counter() - t1
             out["n_ministeps"] += 1
             out["n_patches"] += n_valid
+            window_patches += n_valid
             if pos is not None:
                 out["stream_pos"] = pos
             if trainer.accumulated_steps != 0:
@@ -105,7 +161,8 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
             n_iter += 1
             t_log = time.perf_counter()
             record = {"iteration": n_iter, "lr": lr, "loss": trainer.last_avg_loss,
-                      **trainer.last_avg_loss_dict}
+                      **trainer.last_avg_loss_dict, "n_patches": window_patches}
+            window_patches = 0
             if print_every and n_iter % print_every == 0:
                 log.info("Iteration %d, Loss = %.5f", n_iter, record["loss"])
             if sched_type in ITERATION_SCHEDULERS:
@@ -116,7 +173,12 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
                 out["val"].append({"iteration": n_iter, **val})
                 if sched_type == "ReduceLROnPlateau":
                     scheduler.step(val[metric_key])
-                out["loss_val_best"] = min(out["loss_val_best"], val[metric_key])
+                if val[metric_key] < out["loss_val_best"]:
+                    out["loss_val_best"] = val[metric_key]
+                    if checkpoint_io is not None:
+                        save_ckpt("model_best.ckpt")
+            if checkpoint_io is not None and checkpoint_every and n_iter % checkpoint_every == 0:
+                save_ckpt(f"model_{n_iter}.ckpt")
             t_end = time.perf_counter()
             ph["log"], ph["aux"] = t_aux - t_log, t_end - t_aux
             if events:
@@ -129,6 +191,7 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
         if out["n_ministeps"] == n_before:
             raise RuntimeError("the training loader yielded no batch with a valid patch")
     out["median_step_ms"] = float(np.median(out["step_ms"])) if out["step_ms"] else None
+    out["n_iter"] = n_iter
     return out
 
 

@@ -3,10 +3,14 @@
 Counterpart of ``tomosar2height_tpu/train/trainer.py`` on one device, eager
 PyTorch. The same step semantics:
 
+- inputs: the points (``use_cloud``) and, with ``use_image``, the
+  normalized image crop (trainer.py:160-169); the f32 image wire only;
 - loss: the masked per-patch mean L1 of the height raster against the GT nDSM
   (``masked_patch_mean``, trainer.py:71-75, :173-187); invalid (empty) patches
-  stay in the batch and weigh 0. ``loss_ce`` is 0: the footprint head's BCE
-  loss comes with training the fusion config (ROADMAP: fusion training);
+  stay in the batch and weigh 0. With ``use_footprint`` also ``loss_ce``:
+  ``weight_ce`` x the masked patch mean of the footprint logits' binary
+  cross-entropy against ``dsm > FOOTPRINT_THRESHOLD``, in the logits form
+  ``optax.sigmoid_binary_cross_entropy`` computes; else ``loss_ce`` is 0;
 - accumulation: the mean of ``optimize_every`` mini-step gradients
   (``optax.MultiSteps``); ``grad_reduction='sum'`` scales it back up by the
   window length (trainer.py:196-197);
@@ -14,6 +18,7 @@ PyTorch. The same step semantics:
   weight_decay=0.01)``, the update optax builds as ``scale_by_adam ->
   add_decayed_weights(0.01) -> scale(-lr)`` (trainer.py:56-68), biases
   decayed too; the learning rate is set at each optimizer step;
+  ``utils/torch_port.py`` carries its state to and from optax's;
 - metrics: ``[loss, loss_l1, loss_ce, grad_norm, param_norm]`` summed on the
   device over the window (grad_norm of each mini-step's own gradient,
   param_norm of the parameters it ran with), read by the host once per window
@@ -35,12 +40,14 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
 
+FOOTPRINT_THRESHOLD = 1e-4  # dsm above it is "building" (trainer.py:34)
 METRIC_KEYS = ("loss", "loss_l1", "loss_ce", "grad_norm", "param_norm")
 EVAL_KEYS = ("loss", "loss_l1", "loss_ce")
-DEVICE_KEYS = ("points", "point_mask", "dsm", "patch_valid", "cell_offsets")
+DEVICE_KEYS = ("points", "point_mask", "image", "dsm", "patch_valid", "cell_offsets")
 
 
 def masked_patch_mean(per_pixel: torch.Tensor, patch_valid: torch.Tensor) -> torch.Tensor:
@@ -48,6 +55,12 @@ def masked_patch_mean(per_pixel: torch.Tensor, patch_valid: torch.Tensor) -> tor
     per_patch = per_pixel.reshape(per_pixel.shape[0], -1).mean(dim=1)
     w = patch_valid.to(per_patch.dtype)
     return (per_patch * w).sum() / w.sum().clamp_min(1.0)
+
+
+def sigmoid_bce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-element binary cross-entropy on logits, the form of
+    ``optax.sigmoid_binary_cross_entropy``: finite for any finite logit."""
+    return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -62,20 +75,30 @@ class Trainer:
         model: the network (``build_model``), already on its device.
         cfg_training: the ``training`` config node (optimize_every,
             grad_reduction, wire_dsm_dtype, learning_rate).
-        use_footprint: the footprint head's BCE loss (not ported).
+        use_cloud, use_image: the inputs the model reads (the config's keys);
+            the image-only network is not ported.
+        use_footprint: the footprint head's BCE loss, weighted by
+            ``weight_ce``; the model needs the head.
+        image_norm: the u8 image wire's (mean, std); not ported, must be None.
     """
 
     def __init__(self, model: torch.nn.Module, cfg_training: Dict,
-                 use_footprint: bool = False):
-        if use_footprint:
-            raise NotImplementedError(
-                "the footprint head's BCE loss comes with training the fusion "
-                "config (ROADMAP: fusion training)")
-        if getattr(model, "image_encoder", None) is not None:
-            raise NotImplementedError(
-                "training the cloud+image fusion network (the image in "
-                "prepare_batch) is not ported yet (ROADMAP: fusion training)")
+                 use_cloud: bool = True, use_image: bool = False,
+                 use_footprint: bool = False, weight_ce: float = 10.0,
+                 image_norm=None):
+        if not use_cloud:
+            raise NotImplementedError("the image-only network is not ported "
+                                      "(ROADMAP: alternates)")
+        if image_norm is not None:
+            raise NotImplementedError("the u8 image wire (image_norm) is not ported "
+                                      "(ROADMAP: wires)")
+        if use_footprint and model.decoder.conv_decoder_footprint is None:
+            raise ValueError("use_footprint: the model has no footprint head "
+                             "(decoder_pixel_kwargs.use_footprint)")
         self.model = model
+        self.use_image = bool(use_image)
+        self.use_footprint = bool(use_footprint)
+        self.weight_ce = float(weight_ce)
         self.device = next(model.parameters()).device
         self.optimize_every = int(cfg_training["optimize_every"])
         self.grad_reduction = str(cfg_training.get("grad_reduction", "mean"))
@@ -123,11 +146,18 @@ class Trainer:
 
     def loss(self, batch: Dict[str, torch.Tensor]):
         """(loss, {'loss', 'loss_l1', 'loss_ce'}) of a prepared batch."""
-        pa, _ = self.model(batch["points"], batch["point_mask"], None,
-                           batch.get("cell"), batch.get("cell_offsets"))
+        image = batch.get("image") if self.use_image else None
+        pa, pb = self.model(batch["points"], batch["point_mask"], image,
+                            batch.get("cell"), batch.get("cell_offsets"),
+                            footprint=self.use_footprint)
         dsm = batch["dsm"].float()  # the wire dtype may be f16
-        loss_l1 = masked_patch_mean((pa[..., 0] - dsm).abs(), batch["patch_valid"])
-        loss_ce = torch.zeros((), device=loss_l1.device)
+        valid = batch["patch_valid"]
+        loss_l1 = masked_patch_mean((pa[..., 0] - dsm).abs(), valid)
+        if self.use_footprint:
+            target = (dsm > FOOTPRINT_THRESHOLD).to(pb.dtype)
+            loss_ce = self.weight_ce * masked_patch_mean(sigmoid_bce(pb[..., 0], target), valid)
+        else:
+            loss_ce = torch.zeros((), dtype=loss_l1.dtype, device=loss_l1.device)
         loss = loss_l1 + loss_ce
         return loss, {"loss": loss, "loss_l1": loss_l1, "loss_ce": loss_ce}
 

@@ -15,6 +15,14 @@ read as ``weight``. Layout rules (the conversions are pure permutations):
 
 The fused2 and composed paths of the JAX package declare the same tree, so one
 bridge serves both.
+
+The optimizer state crosses too (:func:`optimizer_to_optax`,
+:func:`load_optax_state`): a :class:`~tomosar2height_tpu_torch.train.Trainer`'s
+AdamW state and accumulation window as the state dict of the optax state
+that the JAX ``make_optimizer(optimize_every)`` builds (flax
+``to_state_dict``: namedtuples and tuples as dicts of their fields and
+indices), with every tree laid out as the weights are. Trees come out with
+their keys sorted, as JAX's pytree functions leave them.
 """
 
 from __future__ import annotations
@@ -105,3 +113,94 @@ def load_flax_params(model: torch.nn.Module, params) -> torch.nn.Module:
             raise ValueError(f"{k}: shape {tuple(v.shape)} vs model {tuple(own[k].shape)}")
     model.load_state_dict(sd)
     return model
+
+
+def sort_tree(tree):
+    """A copy of a nested dict with every level's keys sorted."""
+    if not isinstance(tree, dict):
+        return tree
+    return {k: sort_tree(tree[k]) for k in sorted(tree)}
+
+
+def _named_tree(trainer, tensors) -> dict:
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    return sort_tree(state_dict_to_flax(dict(zip(names, tensors))))
+
+
+def optimizer_to_optax(trainer) -> dict:
+    """The state dict of optax's optimizer state for ``trainer``:
+
+    - ``inner_opt_state/0/{count, mu, nu}``: AdamW's ``step``, ``exp_avg`` and
+      ``exp_avg_sq`` (``scale_by_adam``); ``/1``, ``/2`` the empty states of
+      the weight decay and the sign flip;
+    - with ``optimize_every`` > 1 the ``optax.MultiSteps`` fields around it:
+      ``mini_step`` (the position in the window), ``gradient_step`` (windows
+      applied), ``acc_grads`` (optax's running mean of the window's gradients:
+      ``_grad_sum / mini_step``, times the window length under
+      ``grad_reduction='sum'``; zeros at a window boundary) and an empty
+      ``skip_state``.
+    Every leaf is a numpy array (int32 counters)."""
+    params = trainer.params
+    states = [trainer.optimizer.state.get(p, {}) for p in params]
+    count = int(states[0]["step"]) if states and "step" in states[0] else 0
+    zeros = [torch.zeros_like(p) for p in params]
+    adam = {"count": np.asarray(count, np.int32),
+            "mu": _named_tree(trainer, [s.get("exp_avg", z) for s, z in zip(states, zeros)]),
+            "nu": _named_tree(trainer, [s.get("exp_avg_sq", z)
+                                        for s, z in zip(states, zeros)])}
+    inner = {"0": adam, "1": {}, "2": {}}
+    k = trainer.optimize_every
+    if k == 1:
+        return inner
+    m = trainer.accumulated_steps
+    scale = (k if trainer.grad_reduction == "sum" else 1) / max(m, 1)
+    return {"mini_step": np.asarray(m, np.int32), "gradient_step": np.asarray(count, np.int32),
+            "inner_opt_state": inner,
+            "acc_grads": _named_tree(trainer, [g * scale for g in trainer._grad_sum]),
+            "skip_state": {}}
+
+
+def _leaves_in_param_order(trainer, tree) -> list:
+    sd = flax_to_state_dict(tree)
+    names = [n for n, p in trainer.model.named_parameters() if p.requires_grad]
+    missing = sorted(set(names) - set(sd))
+    if missing:
+        raise KeyError(f"optimizer tree lacks {missing[:8]}")
+    return [sd[n] for n in names]
+
+
+def load_optax_state(trainer, tree) -> None:
+    """Set ``trainer``'s AdamW state and window from an optax state dict
+    (:func:`optimizer_to_optax`'s layout, e.g. read from a JAX checkpoint).
+    A count of 0 leaves AdamW's state empty, as a fresh optimizer's."""
+    k = trainer.optimize_every
+    if k == 1:
+        inner, m = tree, 0
+    else:
+        inner, m = tree["inner_opt_state"], int(tree["mini_step"])
+    adam = inner["0"]
+    count = int(adam["count"])
+    params = trainer.params
+    mu, nu = _leaves_in_param_order(trainer, adam["mu"]), _leaves_in_param_order(trainer, adam["nu"])
+    for p, a, b in zip(params, mu, nu):
+        if tuple(a.shape) != tuple(p.shape) or tuple(b.shape) != tuple(p.shape):
+            raise ValueError(f"optimizer state shape {tuple(a.shape)} vs parameter "
+                             f"{tuple(p.shape)}")
+    trainer.optimizer.state.clear()
+    if count:
+        for p, a, b in zip(params, mu, nu):
+            trainer.optimizer.state[p] = {
+                "step": torch.tensor(float(count), dtype=torch.float32),
+                "exp_avg": a.to(device=p.device, dtype=p.dtype),
+                "exp_avg_sq": b.to(device=p.device, dtype=p.dtype)}
+    with torch.no_grad():
+        if m:
+            scale = m / (k if trainer.grad_reduction == "sum" else 1)
+            acc = _leaves_in_param_order(trainer, tree["acc_grads"])
+            for g, a in zip(trainer._grad_sum, acc):
+                g.copy_(a.to(g.device) * scale)
+        else:
+            for g in trainer._grad_sum:
+                g.zero_()
+    trainer.accumulated_steps = m
+    trainer.mini_step = count * k + m
