@@ -72,7 +72,19 @@ Phases, one line each; any failure raises and the script exits non-zero:
    loss_ce of each window held within their tolerances), the checkpoint's
    size and round trip, then a child process that resumes from the
    iteration-1 checkpoint and runs iterations 2-3: its parameters must be
-   bit-equal to the uninterrupted run's and its window losses equal.
+   bit-equal to the uninterrupted run's and its window losses equal;
+11. cli: the entry points on the city written to disk (``write_city``: LAS,
+   nDSM, masks, RGB): ``cli.build_dataset`` (two 1024 m chunks),
+   ``cli.train`` (the headline network at full width, batch 8,
+   ``optimize_every`` 8, 2 iterations with validation, a checkpoint and the
+   vis split's nDSM each) and ``cli.test`` on the checkpoint it wrote; the
+   build's seconds, train patches/s, test tiles/s, the checkpoint's MiB and
+   the report's RMSE/MAE/NMAD beside the card's name and power limit; the
+   test raster bit-equal to an in-process DSMGenerator that loads the same
+   checkpoint over the in-memory SceneDataset of the same city, the report's
+   statistics within STAT_TOL of a float64 recomputation from the two
+   rasters, ``metrics.jsonl`` holding both iterations' losses and ``nDSM/``
+   entries, and every kernel of the path launched.
 
 Phase 3 also holds every backward (K5 at the eight levels: its row pass,
 its d_plane pass (a warp a pixel, the rows of its rectangle of finest
@@ -100,7 +112,7 @@ kernel run for K6 and K7, from the fusion-serve runs for K8, from the
 timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
 the main path that runs it; K14 is on none, 0; so is ``pool2_mean``, the
 run kernel's mean pooling, as the flagship pools by max), ``launches_serve`` from the
-timed cloud-only serving run. Imports nothing of JAX or of the JAX package
+timed cloud-only serving run, ``launches_cli`` from the "cli" phase. Imports nothing of JAX or of the JAX package
 (``tomosar2height_tpu``), and checks that at the end. Needs one CUDA card and
 nvcc.
 """
@@ -1929,8 +1941,226 @@ def headline_train(seed: int = 0):
     return {key: kern["launches"][key] for key in ("conv_pair", "conv_decoder")}
 
 
+# the "cli" phase's city on disk: CITY's scene of the other phases (build_city's
+# 90 buildings) written as scripts/make_synthetic_city.py writes its files,
+# two 1024 m chunks (train; val, vis and test)
+CLI_CHUNKS = ([0.0, 1024.0, 2048.0], [0.0, 1024.0])  # x, and y above the scene's Y0
+# kernels the cli phase must launch: training (forward, backward) and serving
+CLI_TRAIN_KERNELS = ("pool2", "pool2_bwd", "pool_gather", "scatter_plane2",
+                     "scatter_plane2_bwd", "fused_level", "fused_level_scatter",
+                     "fused_level_bwd", "level_d_plane", "level_bwd_reduce", "conv_pair",
+                     "conv_decoder")
+CLI_TEST_KERNELS = ("pool2", "scatter_plane2", "fused_level", "fused_level_scatter",
+                    "conv_pair", "conv_decoder")
+STAT_TOL = 1e-5  # the evaluator's float32 sums against float64, relative (+ 1e-5 m)
+
+
+def _cli_overrides(root: str) -> list:
+    """``dataset=synthetic`` on the city under ``root`` with the headline
+    network (``headline_config()``'s model subtree: ALTO depth 6, the image
+    U-Net, the footprint head, fused2 and the conv kernel flags), the base
+    config's point buckets, batch 8, ``optimize_every`` 8, 2 iterations,
+    validation, a checkpoint and the vis split's nDSM every iteration."""
+    from tomosar2height_tpu_torch.config import CONV_KERNELS, KERNEL_PATH
+    from tomosar2height_tpu_torch.data.synthetic import Y0
+
+    xs, ys = CLI_CHUNKS
+    return ["dataset=synthetic", f"gt_dsm={root}/raster/ndsm.tif",
+            f"mask_files.building={root}/raster/footprint.tif",
+            f"input_pointcloud_folder={root}/cloud", f"output.output_folder={root}/generated",
+            f"dataset.path={root}/generated", f"dataset.satellite_image.folder={root}/raster",
+            f"dataset.mask_files.building={root}/raster/footprint.tif",
+            f"dataset.mask_files.type={root}/raster/building_class.tif",
+            f"training.out_dir={root}/outputs", f"chunk.chunk_x={xs}",
+            f"chunk.chunk_y={[Y0 + y for y in ys]}", "use_image=true",
+            "model.encoder_kwargs.unet_kwargs.depth=6",
+            "dataset.points.bucket_sizes=[2048,4096,8192,16384,32768,65536]",
+            "dataset.points.train_bucket=16384", "training.batch_size=8",
+            "training.optimize_every=8", "training.val_batch_size=8",
+            "training.max_iteration=2", "training.validate_every=1",
+            "training.checkpoint_every=1", "training.visualize_every=1"
+            ] + KERNEL_PATH + CONV_KERNELS
+
+
+def _f64_stats(dsm, gt, masks) -> dict:
+    """The evaluator's statistics recomputed in float64 from the two rasters
+    (scene window of the GT, NaN dropped), per mask."""
+    r = dsm.astype(np.float64) - gt.astype(np.float64)
+    out = {}
+    for key, m in {"overall": np.ones(r.shape, bool), **masks}.items():
+        v = r[m]
+        v = v[~np.isnan(v)]
+        med = np.median(v)
+        out[key] = {"max": v.max(), "min": v.min(), "MAE": np.abs(v).mean(),
+                    "RMSE": np.sqrt((v ** 2).mean()), "abs_median": np.median(np.abs(v)),
+                    "median": med, "n_pixel": v.size,
+                    "NMAD": 1.4826 * np.median(np.abs(v - med))}
+    return out
+
+
+def cli_phase(smi: str, seed: int = 0):
+    """The port's entry points on the synthetic city written to disk:
+    ``cli.build_dataset``, ``cli.train`` (the headline network, 2 iterations
+    on the kernel path) and ``cli.test`` on the checkpoint it wrote; the
+    test raster held bit-equal to an in-process DSMGenerator that loads the
+    same checkpoint over the in-memory SceneDataset of the same city, the
+    report's statistics to a float64 recomputation from the two rasters,
+    ``metrics.jsonl`` read back. Returns the launches of the phase."""
+    import tempfile
+
+    import torch
+    from scipy import ndimage
+
+    from tomosar2height_tpu_torch.cli import build_dataset as cli_build
+    from tomosar2height_tpu_torch.cli import test as cli_test
+    from tomosar2height_tpu_torch.cli import train as cli_train
+    from tomosar2height_tpu_torch.config import compose, default_conf_dir, headline_config
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, write_city
+    from tomosar2height_tpu_torch.geo import RasterData, RasterReader, crop_pc_2d, load_pc
+    from tomosar2height_tpu_torch.infer import print_statistics
+    from tomosar2height_tpu_torch.infer.generator import make_generator
+    from tomosar2height_tpu_torch.models import build_model
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train.checkpoint import CheckpointIO
+
+    w, h = CITY["W"], CITY["H"]
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        city = write_city(root, seed, **CITY, n_buildings=90)
+        write_s = time.perf_counter() - t0
+        ov = _cli_overrides(root)
+        cfg = compose(default_conf_dir(), overrides=ov)
+        if cfg["model"].to_dict() != headline_config()["model"].to_dict():
+            raise AssertionError("the cli phase's network is not the headline network")
+        t0 = time.perf_counter()
+        chunks = cli_build.main(ov)
+        build_s = time.perf_counter() - t0
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out = cli_train.run(ov)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_launches = dict(runtime.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wins = out["windows"]
+        stepped = sum(x["time_loader_s"] + x["time_step_s"] + x["time_log_s"] for x in wins)
+        patches_s = sum(x["n_patches"] for x in wins) / stepped
+        ckpt_dir = os.path.join(out["run_dir"], "check_points")
+        ckpt_mib = os.path.getsize(os.path.join(ckpt_dir, "model_2.ckpt")) / 2**20
+        del out
+
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        res = cli_test.run(ov)
+        torch.cuda.synchronize()
+        test_s = time.perf_counter() - t0
+        test_launches = dict(runtime.LAUNCHES)
+        gstats = res["generator"].last_stats
+        dsm = RasterReader(res["dsm_path"]).get_data()
+
+        # the same checkpoint, in process, over the city held in memory
+        model = build_model(cfg, DEVICE)
+        CheckpointIO(os.path.join(root, "inproc"), model=model).load(
+            os.path.join(ckpt_dir, "model_best.ckpt"), resume_scheduler=False)
+        info = chunks[cfg["dataset"]["test_chunks"][0]]
+        pts, _ = crop_pc_2d(load_pc(city["cloud"]), info["min_bound"][:2],
+                            info["max_bound"][:2])
+        rgb = RasterReader(city["rgb"])
+        image = (np.stack([rgb.get_data(b) for b in (1, 2, 3)]),
+                 RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+        gen = make_generator(model, cfg, [{"name": info["name"], "points": pts,
+                                           "min_bound": info["min_bound"],
+                                           "max_bound": info["max_bound"]}], image=image)
+        runtime.reset_launches()
+        inproc = gen.generate_dsm(os.path.join(root, "inproc.tif")).data
+        inproc_launches = dict(runtime.LAUNCHES)
+        bit_equal = dsm.shape == inproc.shape and np.array_equal(dsm, inproc, equal_nan=True)
+        del model, gen
+
+        # the report against float64 from the two rasters
+        gt_reader = RasterReader(city["ndsm"])
+        col, row = gt_reader.query_col_row(*(res["raster"].T * (0.5, 0.5)))
+        win = (slice(row, row + dsm.shape[0]), slice(col, col + dsm.shape[1]))
+        building = ndimage.binary_dilation(
+            RasterReader(city["footprint"]).get_data().astype(bool), iterations=2)[win]
+        btype = RasterReader(city["building_class"]).get_data()
+        masks = {"terrain": ~building, "building": building, "non_building": btype[win] == 0,
+                 "residential": ndimage.binary_dilation(btype == 1, iterations=2)[win],
+                 "non_residential": ndimage.binary_dilation(btype == 2, iterations=2)[win],
+                 "building_combined": ndimage.binary_dilation(btype > 0, iterations=2)[win]}
+        want = _f64_stats(dsm, gt_reader.get_data()[win], masks)
+        stats = res["stats"]
+        worst = 0.0
+        for key, ref in want.items():
+            for stat, v in ref.items():
+                got = stats[key][stat]
+                if stat == "n_pixel":
+                    if got != v:
+                        raise AssertionError(f"{key} n_pixel {got} != {v}")
+                    continue
+                err = abs(got - v) / (STAT_TOL * abs(v) + STAT_TOL)
+                worst = max(worst, err)
+                if err > 1.0:
+                    raise AssertionError(f"{key} {stat}: report {got}, float64 {v}")
+        with open(res["eval_path"]) as f:
+            report = f.read()
+        text = print_statistics(stats, f"TomoSAR2Height-synthetic-iter{res['n_iter']}",
+                                has_binary=True, has_ternary=True)
+        overall = next(line.split() for line in report.splitlines()
+                       if line.startswith("Overall"))
+        printed = dict(zip(("MAE", "RMSE", "abs_median", "max", "min", "median", "NMAD"),
+                           map(float, overall[1:8])))
+        report_ok = (report.splitlines()[1:] == text.splitlines()[1:] and all(
+            abs(v - want["overall"][k]) <= 5e-5 + STAT_TOL * abs(want["overall"][k])
+            for k, v in printed.items()))
+        with open(os.path.join(os.path.dirname(ckpt_dir), "wandb", "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f][1:]
+        jsonl_ok = ([r["_step"] for r in recs] == [1, 2]
+                    and all(np.isfinite(r["train/loss"]) and "val/loss" in r
+                            and "nDSM/overall/RMSE" in r and "nDSM/building/NMAD" in r
+                            for r in recs))
+    ov_ = stats["overall"]
+    log("cli", f"{smi} | write_city {write_s:.2f} s ({city['n_points']} points), "
+        f"build_dataset {build_s:.3f} s ({len(chunks)} chunks) | cli.train "
+        f"{train_s:.1f} s: {patches_s:.2f} train patches/s (2 windows, checkpoints, "
+        f"validation and visualization not counted), mini-step "
+        f"{out_ms(wins)} ms, peak {peak / 2**30:.2f} GiB, checkpoint {ckpt_mib:.1f} MiB | "
+        f"cli.test {test_s:.2f} s: {gstats['patches_per_s']:.2f} tiles/s "
+        f"({gstats['n_patches']} tiles, iteration {res['n_iter']}) | report RMSE "
+        f"{ov_['RMSE']:.4f} MAE {ov_['MAE']:.4f} NMAD {ov_['NMAD']:.4f} m, building RMSE "
+        f"{stats['building']['RMSE']:.4f} m")
+    log("cli", f"checks: cli.test raster {dsm.shape} bit-equal to the in-process generator "
+        f"on the in-memory city {bit_equal} | report vs float64 recomputation: worst "
+        f"{worst:.3g} of its tolerance ({STAT_TOL:g} rel + {STAT_TOL:g} m), eval.txt "
+        f"{report_ok} | metrics.jsonl iterations and nDSM entries {jsonl_ok} | launches "
+        f"cli.train {_nonzero(train_launches)}, cli.test {_nonzero(test_launches)}, "
+        f"in-process {_nonzero(inproc_launches)}")
+    if not bit_equal:
+        raise AssertionError("cli.test and the in-process generator gave different rasters")
+    if not report_ok or not jsonl_ok:
+        raise AssertionError(f"eval.txt {report_ok}, metrics.jsonl {jsonl_ok}")
+    missing = ([k for k in CLI_TRAIN_KERNELS if not train_launches.get(k)]
+               + [k for k in CLI_TEST_KERNELS if not test_launches.get(k)])
+    if missing:
+        raise AssertionError(f"the cli phase did not launch {missing}")
+    return {k: train_launches.get(k, 0) + test_launches.get(k, 0)
+            for k in set(train_launches) | set(test_launches)}
+
+
+def _nonzero(counts: dict) -> dict:
+    return {k: v for k, v in counts.items() if v}
+
+
+def out_ms(windows) -> str:
+    """The windows' median CUDA-event mini-step milliseconds."""
+    return ", ".join(f"{x.get('step_ms_median', float('nan')):.1f}" for x in windows)
+
+
 def main():
-    card()
+    smi = card()
     build()
     rows = check_kernels()
     check_model()
@@ -1940,6 +2170,7 @@ def main():
     munich_depth6()
     launches = train_phase()
     headline_launches = headline_train()
+    cli_launches = cli_phase(smi)
     import torch
 
     for row in rows:
@@ -1952,6 +2183,7 @@ def main():
                            or fusion_launches.get(key, 0) + headline_launches.get(key, 0)
                            or sorted_launches.get(key, 0))
         row["launches_serve"] = serve_launches.get(name, 0)
+        row["launches_cli"] = cli_launches.get(key, 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))
     if loaded:

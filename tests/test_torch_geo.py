@@ -91,3 +91,30 @@ def test_build_city_matches_script():
     assert rgb.dtype == ref[4].dtype
     np.testing.assert_array_equal(rgb, ref[4])
     assert (synthetic.X0, synthetic.Y0) == (msc.X0, msc.Y0)
+
+
+@pytest.mark.parametrize("n_buildings", [None, 7])
+def test_write_city_files_match_script(tmp_path, n_buildings):
+    """``write_city``'s files are the script's byte for byte, with the
+    script's count of buildings by default; with ``n_buildings`` its scene
+    is ``build_city``'s."""
+    import make_synthetic_city as msc
+
+    W, H = 160, 96
+    got = synthetic.write_city(str(tmp_path / "port"), seed=2, density=0.05, W=W, H=H,
+                               n_buildings=n_buildings)
+    names = ["raster/ndsm.tif", "raster/footprint.tif", "raster/building_class.tif",
+             "raster/rgb.tif", "cloud/city.las"]
+    if n_buildings is None:
+        assert got["n_buildings"] == 10
+        msc.main(str(tmp_path / "ref"), seed=2, density=0.05, width=W, height=H)
+        for name in names:
+            assert ((tmp_path / "port" / name).read_bytes()
+                    == (tmp_path / "ref" / name).read_bytes()), name
+    else:
+        ndsm, pts, rgb = synthetic.build_city(2, 0.05, n_buildings, W, H)
+        np.testing.assert_array_equal(geo.RasterReader(got["ndsm"]).get_data(), ndsm)
+        back = geo.RasterReader(got["rgb"])
+        np.testing.assert_array_equal(np.stack([back.get_data(b) for b in (1, 2, 3)]), rgb)
+        # LAS keeps mm integers: half a mm, plus float64 rounding at 5e6 m
+        np.testing.assert_allclose(geo.load_pc(got["cloud"]), pts, rtol=0, atol=5e-4 + 1e-8)

@@ -2,16 +2,16 @@
 NVIDIA Hopper card (H100).
 
 The JAX package stays the reference; every module here has a counterpart of
-the same name there (``ops/``, ``models/``, ``data/``, ``infer/``, ``utils/``,
-``geo/``). This package imports ``torch``, numpy and the standard library,
-and nothing of ``jax``, ``flax`` or the JAX package; its host code (geo math,
-GeoTIFF writer, Morton layout, blend) is numpy.
+the same name there (``config/``, ``ops/``, ``models/``, ``data/``,
+``infer/``, ``train/``, ``utils/``, ``geo/``), and ``cli/`` holds the
+counterparts of its ``scripts/build_dataset.py``, ``train.py`` and
+``test.py``. This package imports ``torch``, numpy, scipy, PyYAML, msgpack,
+tabulate and the standard library, and nothing of ``jax``, ``flax`` or the
+JAX package; its host code (geo math, GeoTIFF and point-cloud files, Morton
+layout, blend, evaluation) is numpy.
 
-Covered so far: the serving path of the flagship cloud-only network on the
-``fused2`` layout, in float32 — Morton-aligned loader, LocalPoolPointnet,
-ALTO U-Net, conv decoder, sliding-window nDSM generation. The Pallas kernels
-on that path (``pool2``, ``scatter_plane2``, ``fused_level``) are CUDA C++
-kernels for ``sm_90a`` under ``csrc/``, built with ``nvcc`` on first use.
+The Pallas kernels of the JAX package are CUDA C++ kernels for ``sm_90a``
+under ``csrc/``, built with ``nvcc`` on first use (``ops/cuda/``).
 """
 
 __version__ = "0.1.0"

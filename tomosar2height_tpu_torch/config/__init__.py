@@ -1,109 +1,106 @@
-"""The flagship serving and training configuration as a dict literal.
+"""The port's configuration: ``compose()`` of its own YAML tree (``conf/``, a
+byte-equal copy of the JAX package's), and the named configurations the
+smoke, the tools and the tests build.
 
-The JAX package composes its config from YAML (``tomosar2height_tpu/config``);
-the port's serving and training paths need only these values, so it carries
-them as a literal and reads no YAML. They equal ``compose()`` of ``dataset=berlin``
-(depth-5 ALTO U-Net, cloud only) with ``dataset.points.sort=true`` and
-``model.encoder_kwargs.sorted_impl=fused2`` (pinned by a test).
-:func:`fusion_config` is the cloud+image fusion network on the same keys
-(``use_image=true`` with the kernel flags set, also pinned),
+:func:`flagship_config` is ``compose()`` of ``dataset=berlin`` (depth-5 ALTO
+U-Net, cloud only) on the fused2 kernel path; :func:`fusion_config` the
+cloud+image fusion network on the same keys with the conv kernel flags
+(``fused_convs`` on both U-Nets, K7; the decoder's ``fused_head``, K6);
 :func:`headline_config` the same network on munich's keys (ALTO depth 6, the
-footprint head), and :func:`sorted_config` the flagship on another
-Morton-sorted path.
+footprint head); :func:`sorted_config` the flagship on another Morton-sorted
+path. :func:`select_device` reads the ``device`` node.
 """
 
 from __future__ import annotations
 
-import copy
+import logging
+from typing import Optional
 
-_FLAGSHIP = {
-    "use_cloud": True,
-    "use_image": False,
-    "use_footprint": False,
-    "model": {
-        "encoder": "pointnet_local_pool",
-        "encoder_kwargs": {
-            "hidden_dim": 32, "feature_dim": 32, "plane_resolution": 256,
-            "scatter_type": "max", "sorted_impl": "fused2", "unet_type": "alto",
-            "unet_kwargs": {"depth": 5, "merge_mode": "concat", "start_filts": 32},
-        },
-        "decoder_pixel_kwargs": {
-            "mode": "conv", "use_footprint": False, "hidden_dim": 32, "out_dim": 1,
-            "output_size": 512, "sample_mode": "bilinear", "leaky": False,
-        },
-        "remat": True,
-    },
-    "dataset": {
-        "patch_size": [512, 512],
-        "sliding_window": {"test_strip": [256, 256], "val_strip": [512, 512]},
-        "normalize": {"x_range": [0.0, 1.0], "y_range": [0.0, 1.0],
-                      "z_shift": "local_min", "z_bound": [-33.7, 156.5]},
-        "points": {"bucket_sizes": [2048, 4096, 8192, 16384, 32768, 65536],
-                   "train_bucket": 16384, "sort": True},
-    },
-    "training": {
-        "batch_size": 8, "val_batch_size": 8, "optimize_every": 8,
-        "grad_reduction": "mean", "wire_dsm_dtype": "float16",
-        "learning_rate": 0.0001,
-        "scheduler": {"type": "CyclicLR", "kwargs": {
-            "base_lr": 0.0001, "max_lr": 0.0005, "mode": "triangular2",
-            "gamma": 1.0, "step_size_up": 500, "step_size_down": 500}},
-        "random_dataset_length": 6400, "lock_seed": True, "weight_ce": 10.0,
-        "augmentation": {"flip": False, "rotate": False},
-        "max_iteration": 10000, "print_every": 1, "validate_every": 100,
-        "checkpoint_every": 100, "model_selection_metric": "loss_l1",
-    },
-    "dsm_generation": {"pixel_size": [1, 1], "half_blend_percent": [0.5, 0.5],
-                       "crs_epsg": 25833},
-}
+import torch
+
+from tomosar2height_tpu_torch.config.compose import (  # noqa: F401
+    Config,
+    compose,
+    default_conf_dir,
+    parse_cli_overrides,
+)
+
+log = logging.getLogger(__name__)
+
+KERNEL_PATH = ["dataset.points.sort=true", "model.encoder_kwargs.sorted_impl=fused2"]
+CONV_KERNELS = ["model.encoder_kwargs.unet_kwargs.fused_convs=true",
+                "model.encoder2_kwargs.fused_convs=true",
+                "model.decoder_pixel_kwargs.fused_head=true"]
 
 
-def flagship_config() -> dict:
-    """A fresh copy of the flagship config."""
-    return copy.deepcopy(_FLAGSHIP)
+def _compose(overrides) -> Config:
+    return compose(default_conf_dir(), overrides=overrides)
 
 
-def fusion_config() -> dict:
-    """The cloud+image fusion network: the flagship plus a depth-6 image
-    U-Net over the berlin RGB crop, its plane summed into the decoder's;
-    ``compose()`` of ``dataset=berlin use_image=true dataset.points.sort=true
-    model.encoder_kwargs.sorted_impl=fused2`` with ``fused_convs`` (K7) on
-    both U-Nets and the decoder's ``fused_head`` (K6)."""
-    cfg = flagship_config()
-    cfg["use_image"] = True
-    model = cfg["model"]
-    model["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = True
-    model["encoder2"] = "unet"
-    model["encoder2_kwargs"] = {"num_classes": 32, "in_channels": 3, "depth": 6,
-                                "merge_mode": "concat", "start_filts": 32,
-                                "fused_convs": True}
-    model["decoder_pixel_kwargs"]["fused_head"] = True
-    cfg["dataset"]["satellite_image"] = {"normalize": {
-        "mean": [688.8, 521.7, 239.2], "std": [344.1, 291.0, 247.2]}}
-    return cfg
+def flagship_config() -> Config:
+    """The flagship: ``dataset=berlin dataset.points.sort=true
+    model.encoder_kwargs.sorted_impl=fused2``."""
+    return _compose(["dataset=berlin"] + KERNEL_PATH)
 
 
-def headline_config() -> dict:
-    """The paper's headline network: the fusion network on munich's keys,
-    ``compose()`` of ``dataset=munich use_image=true dataset.points.sort=true
-    model.encoder_kwargs.sorted_impl=fused2`` with the kernel flags of
-    :func:`fusion_config`: ALTO depth 6, the footprint head
+def fusion_config() -> Config:
+    """The cloud+image fusion network: the flagship plus a depth-6 image U-Net
+    over the berlin RGB crop, its plane summed into the decoder's
+    (``use_image=true``), with ``fused_convs`` (K7) on both U-Nets and the
+    decoder's ``fused_head`` (K6)."""
+    return _compose(["dataset=berlin", "use_image=true"] + KERNEL_PATH + CONV_KERNELS)
+
+
+def headline_config() -> Config:
+    """The paper's headline network: the fusion network on munich's keys
+    (``dataset=munich use_image=true`` with the kernel flags of
+    :func:`fusion_config`): ALTO depth 6, the footprint head
     (``use_footprint``), munich's image normalization and ``z_bound``."""
-    cfg = fusion_config()
-    cfg["use_footprint"] = True
-    cfg["model"]["encoder_kwargs"]["unet_kwargs"]["depth"] = 6
-    cfg["model"]["decoder_pixel_kwargs"]["use_footprint"] = True
-    cfg["dataset"]["satellite_image"]["normalize"] = {
-        "mean": [885.1, 823.6, 622.6], "std": [406.0, 350.2, 332.9]}
-    cfg["dataset"]["normalize"]["z_bound"] = [465.5, 599.5]
-    cfg["dsm_generation"]["crs_epsg"] = 25832
-    return cfg
+    return _compose(["dataset=munich", "use_image=true"] + KERNEL_PATH + CONV_KERNELS)
 
 
-def sorted_config(impl: str) -> dict:
+def sorted_config(impl: str) -> Config:
     """The flagship with ``model.encoder_kwargs.sorted_impl=impl`` ('fused',
-    'pallas', 'cumsum' or 'fused2'): ``compose()`` of ``dataset=berlin
-    dataset.points.sort=true model.encoder_kwargs.sorted_impl=<impl>``."""
-    cfg = flagship_config()
-    cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
-    return cfg
+    'pallas', 'cumsum' or 'fused2')."""
+    return _compose(["dataset=berlin", "dataset.points.sort=true",
+                     f"model.encoder_kwargs.sorted_impl={impl}"])
+
+
+def select_device(cfg) -> torch.device:
+    """The device the ``device`` node names.
+
+    - ``platform``: null (the default) is the card, and with no card this
+      raises: nothing falls back to the CPU. ``'cpu'`` is the CPU (the tests);
+      ``'cuda'``/``'gpu'`` the card as null. Anything else raises.
+    - ``dtype``: float32 only (bf16 is ROADMAP: bf16).
+    - ``mesh.data``: the port runs on one card; -1 (all cards) runs on the
+      first, a count above 1 raises (ROADMAP: data parallelism).
+    - ``distributed.*``: a multi-process cluster raises (ROADMAP: data
+      parallelism) when any of its keys is set.
+    - ``donate`` has nothing to do here: the port's optimizer updates the
+      parameters in place, which is what donating buffers buys JAX.
+    """
+    cfg = Config(cfg)
+    platform: Optional[str] = cfg.select("device.platform")
+    dtype = str(cfg.select("device.dtype", "float32"))
+    if dtype != "float32":
+        raise NotImplementedError(f"device.dtype={dtype!r}: bf16 is ROADMAP: bf16")
+    mesh = int(cfg.select("device.mesh.data", -1) or -1)
+    if mesh > 1:
+        raise NotImplementedError(f"device.mesh.data={mesh}: the port runs on one card "
+                                  "(ROADMAP: data parallelism)")
+    dist = cfg.select("device.distributed") or {}
+    if any(v is not None for v in dist.values()):
+        raise NotImplementedError(f"device.distributed={dict(dist)}: multi-process runs "
+                                  "are ROADMAP: data parallelism")
+    if platform in (None, "cuda", "gpu"):
+        if not torch.cuda.is_available():
+            raise RuntimeError("device.platform=null names the card, and there is no CUDA "
+                               "card here; pass device.platform=cpu to run on the CPU")
+        if mesh == -1 and torch.cuda.device_count() > 1:
+            log.info("device.mesh.data=-1: the port runs on the first of %d cards",
+                     torch.cuda.device_count())
+        return torch.device("cuda")
+    if platform == "cpu":
+        return torch.device("cpu")
+    raise ValueError(f"device.platform={platform!r}: null (the card) or 'cpu'")

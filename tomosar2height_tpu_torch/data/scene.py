@@ -1,18 +1,18 @@
-"""Patches of an in-memory scene, for serving and training.
+"""Patches of a scene held in memory, for serving and training.
 
-The subset of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset`` without
-augmentation: sliding-window anchors (serving, validation) or random
+The patch math of ``tomosar2height_tpu/data/dataset.py:TomoSARDataset``
+without augmentation: sliding-window anchors (serving, validation) or random
 anchors (training, dataset.py:252-261), the same float64 world ->
-unit-square normalization with a per-patch z shift (dataset.py:265-301), the
-same crop index, with a GT nDSM raster the target crop, flipped to y-up
-(dataset.py:337-346), and with a satellite image its normalized crop, y-up
-and HWC (the f32 image wire, dataset.py:84-92,112-115,316-335). A patch here is bit-identical to the JAX dataset's
-numpy path (its C++ fast path for patches of >= 4096 points rounds the same
-transform to within ~1e-7). Chunks come in as arrays and the nDSM as an
-in-memory raster rather than through ``chunk_info.yaml``, ``.npz`` files and
-a GeoTIFF. The port keeps this copy of the patch math because it imports
-nothing of the JAX package; ``tests/test_torch_generator.py`` and
-``tests/test_torch_train.py`` pin it to ``TomoSARDataset``.
+unit-square normalization with a per-patch z shift (``local_min``, the
+patch's lowest point, or ``global_min``, the lower z bound;
+dataset.py:244-301), the same crop index, with a GT nDSM raster the target
+crop, flipped to y-up (dataset.py:337-346), and with a satellite image its
+normalized crop, y-up and HWC (the f32 image wire,
+dataset.py:84-92,112-115,316-335). A patch here is bit-identical to the JAX
+dataset's numpy path (its C++ fast path for patches of >= 4096 points rounds
+the same transform to within ~1e-7). Chunks come in as arrays and rasters;
+:class:`~tomosar2height_tpu_torch.data.dataset.TomoSARDataset` reads them
+from a built dataset on disk and hands them here.
 """
 
 from __future__ import annotations
@@ -62,9 +62,9 @@ class SceneDataset:
                 "flagship trains with both off")
         self.patch_size = np.asarray(cfg_dataset["patch_size"], dtype=np.float64)
         norm = cfg_dataset["normalize"]
-        if norm.get("z_shift", "local_min") != "local_min":
-            raise NotImplementedError(f"z_shift={norm['z_shift']!r}: only local_min "
-                                      "is ported (ROADMAP: datasets on disk)")
+        self.z_shift = norm.get("z_shift", "local_min")
+        if self.z_shift not in ("local_min", "global_min"):
+            raise ValueError(f"Unknown shift strategy: {self.z_shift}")
         self.random_sample = bool(random_sample)
         self.random_length = int(random_length) if random_length is not None else 10
         self.dsm_data, self.dsm = (None, None) if dsm is None else dsm
@@ -115,7 +115,7 @@ class SceneDataset:
         xr, yr = norm["x_range"], norm["y_range"]
         self._min_norm_bound = [xr[0], yr[0]]
         self._max_norm_bound = [xr[1], yr[1]]
-        z_bound = norm["z_bound"]
+        z_bound = self.z_bound = norm["z_bound"]
         self.scale_mat = np.diag([self.patch_size[0] / (xr[1] - xr[0]),
                                   self.patch_size[1] / (yr[1] - yr[0]),
                                   z_bound[1] - z_bound[0], 1.0]).astype(np.float64)
@@ -155,7 +155,8 @@ class SceneDataset:
                     "max_bound": max_bound.copy(), "is_valid": False}
         transform_mat = self.scale_mat.copy()
         transform_mat[0:2, 3] = (min_bound + max_bound) / 2.0
-        transform_mat[2, 3] = float(inputs[:, 2].min())  # local_min z shift
+        transform_mat[2, 3] = (float(inputs[:, 2].min()) if self.z_shift == "local_min"
+                               else float(self.z_bound[0]))
         # the JAX dataset's flip and rotation are identities when serving
         normalize_mat = self.shift_norm @ invert_transform(transform_mat)
         out = {"name": name, "inputs": self._normalize_points(inputs, normalize_mat),

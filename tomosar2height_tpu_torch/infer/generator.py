@@ -202,7 +202,7 @@ class DSMGenerator:
             out = dsm_acc / weight_acc
         out = np.maximum(out, 0.0)
         tiff_data.data = out.astype(np.float32)
-        tiff_data.write(save_to)
+        tiff_data.write_to_file(save_to)
         t_finalize = time.perf_counter() - t0
         total = time.perf_counter() - start
         self.last_stats = {

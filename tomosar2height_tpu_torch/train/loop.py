@@ -24,9 +24,18 @@ step writes ``model_best.ckpt`` when validation improves on
 ``model_selection_metric`` and ``model_{n_iter}.ckpt`` every
 ``checkpoint_every`` iterations, from one read of the card an iteration.
 
-Not here yet: ``visualize()``, which needs the DSMEvaluator (ROADMAP:
-datasets on disk, config, CLI and evaluation), the wandb logger, prefetch
-threads and worker pools (ROADMAP: wires and the host side).
+Metrics (train.py:260-313): with a ``MetricLogger`` every iteration appends
+one record at its end: ``iteration``, ``lr``, ``train/<metric>``,
+``misc/training_time``, ``misc/time_<phase>_s``, ``val/<metric>`` when it
+validated, the ``visualize`` callable's metrics (``nDSM/<mask>/<stat>``:
+the entry point generates the vis split's nDSM and evaluates it) every
+``visualize_every`` iterations, and at ``print_every`` the device's memory
+(``misc/device_bytes_in_use``, ``misc/device_peak_bytes``, CUDA only) and
+the host's RSS (``misc/host_rss_bytes``); the logger's ``watch`` adds the
+per-module parameter norms. Visualization counts as aux time.
+
+Not here yet: prefetch threads and worker pools (ROADMAP: wires and the host
+side).
 """
 
 from __future__ import annotations
@@ -34,7 +43,7 @@ from __future__ import annotations
 import logging
 import os
 import time
-from typing import Dict, Iterator, Optional, Tuple
+from typing import Callable, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -63,21 +72,37 @@ def prepared_batches(loader, trainer: Trainer) -> Iterator[Tuple[dict, Optional[
         yield nxt
 
 
+def memory_metrics(device: torch.device) -> Dict[str, int]:
+    """The device's allocated and peak bytes (CUDA) and the host's RSS."""
+    out = {}
+    if device.type == "cuda":
+        out["misc/device_bytes_in_use"] = int(torch.cuda.memory_allocated(device))
+        out["misc/device_peak_bytes"] = int(torch.cuda.max_memory_allocated(device))
+    with open("/proc/self/statm") as f:
+        out["misc/host_rss_bytes"] = int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+    return out
+
+
 def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training: Dict,
           val_loader=None, max_iteration: Optional[int] = None,
           checkpoint_io: Optional[CheckpointIO] = None,
-          resume_from: Optional[str] = None) -> Dict:
+          resume_from: Optional[str] = None, metric_logger=None,
+          visualize: Optional[Callable[[int], Dict[str, float]]] = None) -> Dict:
     """Run optimizer steps until iteration ``max_iteration`` (default
     ``cfg_training['max_iteration']``), counted from the checkpoint resumed.
 
     ``resume_from`` names a checkpoint file; a bare name (such as
     ``checkpoint.DEFAULT_MODEL_FILE``) is looked up in
     ``checkpoint_io.checkpoint_dir``. A missing file trains from scratch.
+    ``metric_logger`` (a ``utils.logging.MetricLogger``) takes one record an
+    iteration; ``visualize(n_iter)`` runs every ``visualize_every``
+    iterations and returns metrics for the record (and ``vis``).
 
     Returns a dict: ``windows`` (one record per iteration: iteration, lr it trained
     with, the window's mean metrics, valid patches, phase seconds and, on a
     CUDA device, ``step_ms_median``: the median CUDA-event milliseconds of its
-    mini-steps), ``val`` (validation records), ``step_ms`` (per-mini-step
+    mini-steps), ``val`` (validation records), ``vis`` (``visualize``'s
+    records), ``step_ms`` (per-mini-step
     CUDA-event milliseconds on a CUDA device, else empty; read as each
     window closes), ``median_step_ms``, ``n_ministeps``, ``n_patches``
     (valid patches stepped), ``stream_pos``, ``loss_val_best``, ``n_iter``
@@ -90,10 +115,12 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
     validate_every = int(cfg_training.get("validate_every", 0) or 0)
     checkpoint_every = int(cfg_training.get("checkpoint_every", 0) or 0)
     print_every = int(cfg_training.get("print_every", 0) or 0)
+    visualize_every = int(cfg_training.get("visualize_every", 0) or 0) if visualize else 0
     metric_key = cfg_training.get("model_selection_metric", "loss_l1")
     cuda = trainer.device.type == "cuda"
     events = []  # the open window's (start, end) CUDA events
-    out = {"windows": [], "val": [], "step_ms": [], "n_ministeps": 0, "n_patches": 0,
+    out = {"windows": [], "val": [], "vis": [], "step_ms": [], "n_ministeps": 0,
+           "n_patches": 0,
            "stream_pos": None, "loss_val_best": float("inf"), "resumed": False}
     ph = dict.fromkeys(("loader", "step", "log", "aux"), 0.0)
     n_iter, time_before = 0, 0.0
@@ -168,9 +195,11 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
             if sched_type in ITERATION_SCHEDULERS:
                 scheduler.step()
             t_aux = time.perf_counter()
+            metrics = {}
             if val_loader is not None and validate_every and n_iter % validate_every == 0:
                 val = trainer.evaluate(val_loader)
                 out["val"].append({"iteration": n_iter, **val})
+                metrics.update({f"val/{k}": v for k, v in val.items()})
                 if sched_type == "ReduceLROnPlateau":
                     scheduler.step(val[metric_key])
                 if val[metric_key] < out["loss_val_best"]:
@@ -179,8 +208,20 @@ def train(trainer: Trainer, scheduler: SchedulerBase, train_loader, cfg_training
                         save_ckpt("model_best.ckpt")
             if checkpoint_io is not None and checkpoint_every and n_iter % checkpoint_every == 0:
                 save_ckpt(f"model_{n_iter}.ckpt")
+            if visualize_every and n_iter % visualize_every == 0:
+                vis = visualize(n_iter)
+                out["vis"].append({"iteration": n_iter, **vis})
+                metrics.update(vis)
             t_end = time.perf_counter()
             ph["log"], ph["aux"] = t_aux - t_log, t_end - t_aux
+            if metric_logger is not None:
+                if print_every and n_iter % print_every == 0:
+                    metrics.update(memory_metrics(trainer.device))
+                metric_logger.log({
+                    "iteration": n_iter, "train/loss": record["loss"], "lr": lr,
+                    **{f"train/{k}": v for k, v in trainer.last_avg_loss_dict.items()},
+                    "misc/training_time": time.time() - t_start + time_before,
+                    **{f"misc/time_{k}_s": v for k, v in ph.items()}, **metrics}, step=n_iter)
             if events:
                 times = _event_ms(events)
                 record["step_ms_median"] = float(np.median(times))

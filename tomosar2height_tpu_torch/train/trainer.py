@@ -226,6 +226,17 @@ class Trainer:
         d.pop("loss")
         return d
 
+    @torch.no_grad()
+    def module_norms(self) -> Dict[str, float]:
+        """L2 norm of each top-level module's parameters (the flax tree's
+        top-level names), reduced on the device and read in one copy
+        (trainer.py:294-314)."""
+        groups: Dict[str, list] = {}
+        for name, p in self.model.named_parameters():
+            groups.setdefault(name.split(".")[0], []).append(p)
+        vec = torch.stack([global_norm(ps) for ps in groups.values()])
+        return dict(zip(groups, vec.cpu().double().tolist()))
+
     # -- evaluation ---------------------------------------------------------------
 
     @torch.no_grad()
