@@ -33,18 +33,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
 5. serving: a synthetic city (the port's ``build_city``) through the port's
    loader and DSMGenerator at batch 8 on both paths, the GeoTIFF's data
    block read back, tiles/s, peak memory and the kernel launch counts of
-   the timed run, its raster held bit-equal to the warm-up run's;
+   the timed run (the synchronous loader), its raster held bit-equal to the
+   warm-up run's; then the loader with SERVE_WORKERS patch threads and a
+   prefetch thread SERVE_PREFETCH batches ahead, its raster bit-equal to the
+   synchronous one, tiles/s and loader seconds of both;
 6. fusion-serve: the cloud+image fusion network (``fusion_config()``: the
    flagship plus the depth-6 image U-Net over the city's RGB image) serving
-   the same city at batch 8 in three variants from one set of weights:
+   the same city at batch 8 in three variants from one set of weights
+   (forward ms: the model's forward on one batch):
    fused2 + fused_convs + fused_head (K1-K4, K6, K7), unsorted with
    FAST_CONV (K8 only) and unsorted plain (no kernel); tiles/s, forward ms,
    peak memory and launches per forward of each, the launch counts asserted
    and the two kernel rasters held to the plain one, the kernel path's
    timed raster bit-equal to its warm-up run's (the unsorted paths' plain
-   scatters add with atomics: logged);
-7. train: the flagship training step (batch 8, 16384-point buckets, 8
-   mini-steps per optimizer step, remat) on random patches of the same city
+   scatters add with atomics: logged); then the kernel path on every wire
+   (u16 points, u8 image crops cut on the card from the resident scene
+   image, the host's cell ids, f16 tile rasters), held to the f32 wires'
+   raster within the JAX package's bounds for them (the u16 one on the
+   distribution, the f16 rounding of the heights) with equal NaN masks,
+   its forward ms the model's plus the wires' work on the card (the crops,
+   the u8 normalisation, the f16 cast);
+7. train: the flagship training step (batch 8, 16384-point buckets,
+   TRAIN_OPTIMIZE_EVERY mini-steps per optimizer step, remat) on random
+   patches of the same city
    with its nDSM as target, through the port's training loader and
    ``train/loop.py``, on the fused2 kernel path and the unsorted plain path
    from the same weights on the same patches: 1 warm-up and 1 timed
@@ -62,22 +73,35 @@ Phases, one line each; any failure raises and the script exits non-zero:
    unsorted plain path's, launches per forward asserted;
 9. munich-depth6: one batch-8 fused2 forward at ALTO depth 6, whose first up
    level runs K4 at Fl = 1024, held to the plain path;
-10. headline-train: the headline network (``headline_config()``: the
+10. sorted-train: the flagship on the 'fused' layout with flip/rotate
+   augmentation (``sorted_config('fused')``), batch 8, 8 mini-steps per
+   optimizer step, det_stream, the loader's prefetch thread: a warm-up and a
+   timed optimizer step; the first step again on the unsorted plain path on
+   the same patches (window losses within 2e-4 * z_scale) and on 'fused'
+   from the same weights (every parameter and the window loss bit-equal to
+   the first run's after that step: K9, K10 and K12's backwards add in fixed
+   orders), launches per mini-step asserted (SORTED_TRAIN_LAUNCHES), train
+   patches/s, mini-step ms and peak memory; one 'cumsum' step and its rerun,
+   bit-equal as well (differing tensors counted; its samples' backward on
+   K5's d_plane pass, CUMSUM_TRAIN_LAUNCHES); 'pallas' refused by
+   ``cli.train`` in a child process beside the steps;
+11. headline-train: the headline network (``headline_config()``: the
    cloud+image network with ALTO depth 6 and the footprint head) trained at
    full width, batch 8, ``optimize_every`` 8, on random patches of the city
-   with its nDSM and RGB image: the kernel path (fused2 + K6/K7) for 3
-   optimizer steps with a checkpoint after each through ``train/loop.py``
+   with its nDSM and RGB image: the kernel path (fused2 + K6/K7) for
+   HEADLINE_STEPS (2) optimizer steps, a checkpoint after each, through
+   ``train/loop.py``
    (launches per mini-step asserted against HEADLINE_TRAIN_LAUNCHES), the
    plain path from the same weights on the same patches (loss_l1 and
    loss_ce of each window held within their tolerances), the checkpoint's
    size and round trip, then a child process that resumes from the
-   iteration-1 checkpoint and runs iterations 2-3: its parameters must be
+   iteration-1 checkpoint and runs iteration 2: its parameters must be
    bit-equal to the uninterrupted run's and its window losses equal;
-11. cli: the entry points on the city written to disk (``write_city``: LAS,
+12. cli: the entry points on the city written to disk (``write_city``: LAS,
    nDSM, masks, RGB): ``cli.build_dataset`` (two 1024 m chunks),
    ``cli.train`` (the headline network at full width, batch 8,
-   ``optimize_every`` 8, 2 iterations with validation, a checkpoint and the
-   vis split's nDSM each) and ``cli.test`` on the checkpoint it wrote; the
+   ``optimize_every`` 8, 2 iterations, validation, a checkpoint and the vis
+   split's nDSM at the second) and ``cli.test`` on the checkpoint it wrote; the
    build's seconds, train patches/s, test tiles/s, the checkpoint's MiB and
    the report's RMSE/MAE/NMAD beside the card's name and power limit; the
    test raster bit-equal to an in-process DSMGenerator that loads the same
@@ -94,7 +118,11 @@ launch, forward and backward each run twice and held bit-equal),
 scatter_plane2's on K2 alone (a warp a 32-row span, each run's cell read
 once; held bit-equal on a second launch) against its plain version, K4/K5
 at the depth-6 level (R, F, Fl) = (32, 512, 1024), and K9-K14 at every
-shape of a flagship forward on the 'fused' and 'pallas' layouts. K3, K4's
+shape of a flagship forward on the 'fused' and 'pallas' layouts, and the
+'fused' layout's backwards at every shape of its training step (K9's on
+K5's d_plane pass, K10's on the run kernel with max's cotangent split among
+tied rows, on integral values too, K12's on K2 alone with the forward's
+counts), each bit-equal on a second launch. K3, K4's
 plane and K11-K14 run on the run scatter (``scatter_runs``: each run's
 cell written once, the empty cells zeroed in the same launch; K13 in Morton
 order), K10 on pool2's run kernel under the tile rule; K4, K5 (and its
@@ -111,8 +139,11 @@ and the backwards, from the timed fusion-serve runs and the headline-train
 kernel run for K6 and K7, from the fusion-serve runs for K8, from the
 timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
 the main path that runs it; K14 is on none, 0; so is ``pool2_mean``, the
-run kernel's mean pooling, as the flagship pools by max), ``launches_serve`` from the
-timed cloud-only serving run, ``launches_cli`` from the "cli" phase. Imports nothing of JAX or of the JAX package
+run kernel's mean pooling, as the flagship pools by max), from the timed
+'fused' training run for the fused layout's backwards, ``launches_serve`` from the
+timed cloud-only serving run, ``launches_sorted_train`` from that 'fused'
+training run, ``launches_cli`` from the "cli" phase. Each phase's seconds are
+logged ("time"). Imports nothing of JAX or of the JAX package
 (``tomosar2height_tpu``), and checks that at the end. Needs one CUDA card and
 nvcc.
 """
@@ -501,6 +532,7 @@ def check_kernels(seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
     from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 
+    t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     _, _, apts, amask, acell, _ = flagship_batch(seed)
     b, npad = amask.shape
@@ -805,10 +837,14 @@ def check_kernels(seed: int = 0):
         "d_plane pass bit-equal on a second launch at every level: True")
     del dp_pairs, dp_k, dp_p, dp_l
     torch.cuda.synchronize()
-    stress_level(level_args)
-    check_wide_level(seed)
-    check_conv_kernels(entry, seed)
-    check_tile_kernels(entry, seed)
+    log("time", f"kernels: K1-K5 done at {time.perf_counter() - t_start:.1f} s")
+    for part, fn, args in (("C3 stress", stress_level, (level_args,)),
+                           ("depth-6 level", check_wide_level, (seed,)),
+                           ("K6-K8", check_conv_kernels, (entry, seed)),
+                           ("K9-K14 and the fused backwards", check_tile_kernels,
+                            (entry, seed))):
+        fn(*args)
+        log("time", f"kernels: {part} done at {time.perf_counter() - t_start:.1f} s")
     # free the cuBLAS workspace of graph_ms's stream (32 MiB), so that the
     # later phases' peak memory holds what the parent's does
     torch._C._cuda_clearCublasWorkspaces()
@@ -1184,6 +1220,8 @@ def check_tile_kernels(entry, seed: int = 0):
                     sk.aligned_scatter_mean_plane, sk.aligned_scatter_mean_plane_plain, shapes)
     del shapes, copies
 
+    check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes)
+
     # K14 (256-32 .. 32-512) on 'fused', on the run scatter from the finest
     # tile offsets (read every 4**level-th), held bit-equal on a second
     # launch; its bound counts the ids of the rows inside the tiles' ranges
@@ -1235,6 +1273,130 @@ def check_tile_kernels(entry, seed: int = 0):
     torch.cuda.synchronize()
 
 
+def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes):
+    """The fused layout's backwards (its training step) against their plain
+    versions at every shape a flagship step gives them, each bit-equal on a
+    second launch: K9's on K5's d_plane pass (the eight samples, K5's d_plane
+    rule; yardstick F.grid_sample's backward), K10's on the run kernel (max:
+    each run's cotangent split among its rows tied with the max; mean; on
+    three input copies, and once more on integral values, whose cells tie),
+    K12's on K2 alone at the level's shift with the forward's counts (its
+    ten shapes; yardstick an index_select as K2's)."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+    from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
+    from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
+
+    gen = torch.Generator().manual_seed(17)
+    n_valid = int(mask.sum())
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    for r, f in TILE_GATHER_SHAPES:
+        g = (torch.randn(b, npad, f, generator=gen).to(dev) * mask[..., None]).contiguous()
+        a = (g, xy, cells, mask, r, 256)
+        out = gk.tile_gather_bwd(*a)
+        if not torch.equal(gk.tile_gather_bwd(*a), out):
+            raise AssertionError(f"tile_gather_bwd differs between two launches at {r}")
+        pairs.append((out, lk.level_d_plane_plain(*a), *BWD_TOL))
+        # g and xy on the valid rows, every row's id and mask, the finest
+        # cells' row ranges cleared, written and read, d_plane written once;
+        # a multiply-add a corner and feature
+        work[0] += (n_valid * (f + 2) * 4 + nbytes(cells, mask, out)
+                    + 2 * 2 * b * 256 * 256 * 4)
+        work[1] += 2 * 4 * n_valid * f
+        kfns.append(lambda a=a: gk.tile_gather_bwd(*a))
+        pfns.append(lambda a=a: lk.level_d_plane_plain(*a))
+        gin = torch.empty(b, f, r, r, device=dev)
+        gout = g.permute(0, 2, 1)[..., None].contiguous()
+        grid = (2 * xy - 1)[:, :, None, :].contiguous()
+        lfns.append(lambda a=(gout, gin, grid): torch.ops.aten.grid_sampler_2d_backward(
+            *a, 0, 1, True, [True, False])[0])
+    log("kernels", "tile_gather_bwd bit-equal on a second launch at its 8 shapes: True")
+    entry("tile_gather_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/fused.py:65", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),
+          lambda: [fn() for fn in lfns], tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel")
+    del pairs, kfns, pfns, lfns
+
+    # K10's backward at the four poolings' width (F=32 at 256^2)
+    vals = rows_of(32)
+    g = rows_of(32)
+    ties = (torch.randint(0, 3, vals.shape, generator=gen).to(dev).float()
+            * mask[..., None]).contiguous()
+    pairs, by_kind, repeat = [], [], True
+    copies = {}
+    for k in ("max", "mean"):
+        out = tpk.tile_pool(vals, cells, toff, k)
+        a = (g, vals, out, cells, toff, k)
+        dv = tpk.tile_pool_bwd(*a)
+        pairs.append((dv, tpk.tile_pool_bwd_plain(*a)))
+        repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
+        copies[k] = [a] + [tuple(x.clone() if torch.is_tensor(x) else x for x in a)
+                           for _ in range(2)]
+        ms = graph_ms([lambda a=a: tpk.tile_pool_bwd(*a) for a in copies[k]])
+        by_kind.append(f"{k} {ms:.4f}")
+    t_out = tpk.tile_pool(ties, cells, toff, "max")
+    a = (g, ties, t_out, cells, toff, "max")
+    dv = tpk.tile_pool_bwd(*a)
+    pairs.append((dv, tpk.tile_pool_bwd_plain(*a)))
+    repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
+    tied = int(((ties == t_out) & mask[..., None]).sum())
+    log("kernels", f"tile_pool_bwd by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
+        f"on integral values {tied} tied row features | bit-equal on a second launch: "
+        f"{repeat}")
+    if not repeat:
+        raise AssertionError("tile_pool_bwd differs between two launches")
+    in_tiles = torch.arange(npad, device=dev)[None, :] < toff[:, -1:]
+    entry("tile_pool_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+          "tomosar2height_tpu/ops/pallas/fused.py:118", pairs,
+          [lambda a=a: tpk.tile_pool_bwd(*a) for a in copies["max"]],
+          [lambda a=a: tpk.tile_pool_bwd_plain(*a) for a in copies["max"]],
+          # g, values and out on the valid rows (the gate), ids and tile
+          # offsets, dv written
+          (scatter_bytes(g, cells, toff, 0, 256, pairs[0][0], in_tiles)
+           + 2 * n_valid * 32 * 4, 2 * g.numel()), None)
+    del pairs, copies
+
+    # K12's backward at its ten shapes, with the forward's counts
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    arange_b = torch.arange(b, device=dev)[:, None]
+    for r, f in TILE_SCATTER_SHAPES + [(16, 1024)]:
+        shift = 2 * (9 - r.bit_length())
+        tl = toff[:, :: 4 ** (shift // 2)].contiguous()
+        _, counts = sk.aligned_scatter_mean_plane(rows_of(f), cells, tl, r, 256,
+                                                  with_counts=True)
+        gp = torch.randn(b, r, r, f, generator=gen).to(dev)
+        a = (gp, cells, counts, r, 256)
+        dv = sk.aligned_scatter_mean_plane_bwd(*a)
+        if not torch.equal(sk.aligned_scatter_mean_plane_bwd(*a), dv):
+            raise AssertionError(f"aligned_scatter_mean_plane_bwd differs between two "
+                                 f"launches at {r}")
+        pairs.append((dv, sk.aligned_scatter_mean_plane_bwd_plain(*a)))
+        occupied = int((counts > 0).sum())
+        work[0] += (nbytes(gp, counts) * occupied // counts.numel()
+                    + nbytes(cells, dv))
+        work[1] += dv.numel()
+        kfns.append(lambda a=a: sk.aligned_scatter_mean_plane_bwd(*a))
+        pfns.append(lambda a=a: sk.aligned_scatter_mean_plane_bwd_plain(*a))
+        # the yardstick: one index_select of the row-major plane (a zero row
+        # appended for the pad rows) and one of the counts, then the division
+        c = cells.long() >> shift
+        ok = c < r * r
+        rm = morton_rowmajor(torch.where(ok, c, 0), r) + r * r * arange_b
+        rm = torch.where(ok, rm, torch.full_like(rm, b * r * r)).reshape(-1)
+        gp_pad = torch.cat([gp.reshape(-1, f), torch.zeros(1, f, device=dev)])
+        kc_pad = torch.cat([counts.reshape(-1), torch.ones(1, device=dev, dtype=torch.int32)])
+        lfns.append(lambda a=(gp_pad, kc_pad, rm): a[0].index_select(0, a[2])
+                    / a[1].index_select(0, a[2]).clamp_min(1)[:, None])
+    log("kernels", "aligned_scatter_mean_plane_bwd bit-equal on a second launch at its 10 "
+        "shapes: True")
+    entry("aligned_scatter_mean_plane_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+          "tomosar2height_tpu/ops/pallas/fused.py:149", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),
+          lambda: [fn() for fn in lfns])
+
+
 def flagship_model(seed: int):
     """The full-width flagship network, weights from a seeded generator."""
     import torch
@@ -1280,6 +1442,9 @@ def check_model(seed: int = 0):
     return {"err": err, "ms": ms, "plain_ms": plain_ms}
 
 
+SERVE_WORKERS, SERVE_PREFETCH = 4, 2  # the serving phase's worker-pool run
+
+
 def serve(seed: int = 0):
     """A synthetic city through the port's loader and DSMGenerator, batch 8,
     on the fused2 kernel path (timed, launches counted) and the plain path."""
@@ -1296,10 +1461,15 @@ def serve(seed: int = 0):
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
                "points": pts}]
     cfg, model = flagship_model(seed)
+    # the timed run on the synchronous loader; then its worker pool
+    cfg["dataloader"] = {"n_workers": 0, "prefetch": 0}
     gen = make_generator(model, cfg, chunks)
     plain_cfg = json.loads(json.dumps(cfg))
     plain_cfg["dataset"]["points"]["sort"] = False
     plain_gen = make_generator(model, plain_cfg, chunks)
+    pool_cfg = json.loads(json.dumps(cfg))
+    pool_cfg["dataloader"] = {"n_workers": SERVE_WORKERS, "prefetch": SERVE_PREFETCH}
+    pool_gen = make_generator(model, pool_cfg, chunks)
     n_batches = len(gen.data_loader)
     with tempfile.TemporaryDirectory() as tmp:
         warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
@@ -1312,8 +1482,12 @@ def serve(seed: int = 0):
         repeat = np.array_equal(warm.data, a.data, equal_nan=True)
         stats = dict(gen.last_stats)
         peak = torch.cuda.max_memory_allocated()
+        pool_gen.generate_dsm(os.path.join(tmp, "pool_warmup.tif"))
+        pooled = pool_gen.generate_dsm(os.path.join(tmp, "pool.tif"))
+        pool_stats = dict(pool_gen.last_stats)
+        runtime.reset_launches()
         b = plain_gen.generate_dsm(os.path.join(tmp, "plain.tif"))
-        if runtime.LAUNCHES != launches:
+        if any(runtime.LAUNCHES.values()):
             raise AssertionError("the plain path launched a kernel")
         da, db = a.data, b.data
         shape_ok = da.shape == db.shape == (h, w) and a.transform == b.transform
@@ -1340,13 +1514,22 @@ def serve(seed: int = 0):
         f"{da.shape} fused2 vs plain max|d| {err:.3g} m (tol {tol:.3g} m), "
         f"NaN px {int(nan.sum())}, fused2 bit-equal to its warm-up run {repeat} | "
         f"launches {launches}")
+    pool_equal = np.array_equal(pooled.data, a.data, equal_nan=True)
+    log("serve", f"loader with {SERVE_WORKERS} workers and prefetch {SERVE_PREFETCH}: "
+        f"{pool_stats['patches_per_s']:.2f} tiles/s, loader {pool_stats['loader_s']:.3f} s "
+        f"({pool_stats['total_s']:.3f} s) against the synchronous loader's "
+        f"{stats['patches_per_s']:.2f} tiles/s, loader {stats['loader_s']:.3f} s | raster "
+        f"bit-equal to the synchronous one {pool_equal}")
     if err > tol:
         raise AssertionError(f"fused2 and plain rasters differ by {err} m")
     if not repeat:
         raise AssertionError("two fused2 runs of the same scene gave different rasters")
+    if not pool_equal:
+        raise AssertionError("the worker pool's raster differs from the synchronous one")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
     return launches
+
 
 
 # kernel launches per batch-8 forward of the fusion network on its kernel
@@ -1366,7 +1549,7 @@ def fusion_serve(seed: int = 0):
     fused_convs + fused_head (K1-K4, K6, K7), (b) unsorted with FAST_CONV (K8
     only), (c) unsorted plain (no kernel). Each timed run is the second
     ``generate_dsm`` of its variant, launches counted from 0 around it; (a)
-    and (b) are held to (c)."""
+    and (b) are held to (c); then (a) on every wire, held to (a)."""
     import tempfile
 
     import torch
@@ -1393,22 +1576,39 @@ def fusion_serve(seed: int = 0):
     plain_cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
     plain_model = build_model(plain_cfg, DEVICE)
     plain_model.load_state_dict(model.state_dict())
-    variants = {"kernels": (cfg, model.eval(), False, FUSION_LAUNCHES),
-                "fast_conv": (plain_cfg, plain_model.eval(), True, FAST_CONV_LAUNCHES),
-                "plain": (plain_cfg, plain_model, False, {})}
+    # the kernel path on every wire: u16 points, u8 image crops cut on the
+    # card from the resident scene image, the host's cell ids, f16 rasters
+    wires_cfg = json.loads(json.dumps(cfg))
+    wires_cfg["dataset"]["points"]["wire"] = "uint16"
+    wires_cfg["dataset"]["satellite_image"].update(wire="uint8", crop="device")
+    variants = {"kernels": (cfg, model.eval(), False, FUSION_LAUNCHES, {}),
+                "fast_conv": (plain_cfg, plain_model.eval(), True, FAST_CONV_LAUNCHES, {}),
+                "plain": (plain_cfg, plain_model, False, {}, {}),
+                "wires": (wires_cfg, model, False, FUSION_LAUNCHES,
+                          {"wire_dtype": "float16", "wire_cells": "host"})}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
-        for name, (vcfg, vmodel, fast, per_batch) in variants.items():
+        for name, (vcfg, vmodel, fast, per_batch, gen_kw) in variants.items():
             set_fast_conv(fast)
-            gen = make_generator(vmodel, vcfg, chunks, image=image)
+            gen = make_generator(vmodel, vcfg, chunks, image=image, **gen_kw)
             n_batches = len(gen.data_loader)
             batch = next(iter(gen.data_loader))
             up = {k: torch.from_numpy(batch[k]).to(DEVICE)
-                  for k in ("points", "point_mask", "image", "cell_offsets") if k in batch}
+                  for k in ("points", "point_mask", "image", "cell", "cell_offsets")
+                  if k in batch}
             with torch.inference_mode():
-                fwd_ms = cuda_ms(lambda: vmodel(up["points"], up["point_mask"], up["image"],
-                                                None, up.get("cell_offsets"),
-                                                footprint=False), iters=3, warmup=1)
+                if name == "wires":
+                    # the model's forward plus the wires' work on the card:
+                    # the crops, the u8 normalisation, the f16 cast
+                    def fwd():
+                        img = gen._device_crops(batch["image_origin"])
+                        return gen._forward_impl(up["points"], up["point_mask"], img,
+                                                 up["cell"], up.get("cell_offsets"))
+                else:
+                    def fwd():
+                        return vmodel(up["points"], up["point_mask"], up["image"], None,
+                                      up.get("cell_offsets"), footprint=False)
+                fwd_ms = cuda_ms(fwd, iters=3, warmup=1)
             warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -1434,8 +1634,8 @@ def fusion_serve(seed: int = 0):
                 raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
             # the kernel path adds in fixed orders; the unsorted paths'
             # plain scatters add with atomics on the card (logged only)
-            if name == "kernels" and not repeat:
-                raise AssertionError("two runs of the fusion kernel path gave different "
+            if name in ("kernels", "wires") and not repeat:
+                raise AssertionError(f"two runs of the fusion {name} path gave different "
                                      "rasters")
     ref = out["plain"]["raster"]
     nan = np.isnan(ref)
@@ -1452,8 +1652,29 @@ def fusion_serve(seed: int = 0):
             f"{tol:.3g} m), NaN px {int(nan.sum())}, |h| max {float(ref[~nan].max()):.3g} m")
         if err > tol:
             raise AssertionError(f"{name} and plain rasters differ by {err} m")
-    return {k: v for name in ("kernels", "fast_conv")
-            for k, v in out[name]["launches"].items() if v}
+    # the wires against the f32 wires on the same kernel path, within the JAX
+    # package's bounds for them: the u16 quantization moves a point across a
+    # cell edge now and then, so its bound is on the distribution
+    # (tests/test_wire_cells.py:161-186: mean |d| <= 1e-3 * scale, under 0.5%
+    # of the pixels past 0.05 * scale), and the f16 raster rounds each height
+    # by up to 2^-11 of it; NaN masks equal
+    ref, da = out["kernels"]["raster"], out["wires"]["raster"]
+    if da.shape != ref.shape or not np.array_equal(np.isnan(da), nan):
+        raise AssertionError("wires: raster differs from the f32 wires in shape/NaN mask")
+    d = np.abs(da[~nan] - ref[~nan])
+    scale = max(1.0, float(np.abs(ref[~nan]).max()))
+    r16 = scale * 2.0 ** -11
+    mean, far = float(d.mean()), float((d > 0.05 * scale + r16).mean())
+    log("fusion-serve", f"wires vs f32 wires raster: mean|d| {mean:.3g} m (tol "
+        f"{1e-3 * scale + r16:.3g} m), max|d| {float(d.max()):.3g} m, pixels past "
+        f"{0.05 * scale + r16:.3g} m {far:.3g} (tol 5e-3)")
+    if mean > 1e-3 * scale + r16 or far >= 5e-3:
+        raise AssertionError(f"wires raster off the f32 wires: mean {mean}, far {far}")
+    total: dict = {}
+    for name in ("kernels", "fast_conv", "wires"):
+        for k, v in out[name]["launches"].items():
+            total[k] = total.get(k, 0) + v
+    return _nonzero(total)
 
 
 # kernel launches per batch-8 forward on the 'fused' path (K9 at the eight
@@ -1608,6 +1829,11 @@ TRAIN_LAUNCHES = {"pool2": 8, "pool2_bwd": 4, "pool_gather": 1, "scatter_plane2"
                   "level_d_plane": 8, "level_bwd_reduce": 24, "scatter_plane2_bwd": 1}
 
 
+# mini-steps an optimizer step in phase "train": half the flagship's 8, to
+# keep the smoke's time (phase "sorted-train" keeps 8)
+TRAIN_OPTIMIZE_EVERY = 4
+
+
 def train_phase(seed: int = 0):
     """The flagship training step on random patches of the synthetic city,
     fused2 kernel path against the unsorted plain path from the same weights
@@ -1630,6 +1856,7 @@ def train_phase(seed: int = 0):
     dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
     cfg, model = flagship_model(seed)
     tcfg, dcfg = cfg["training"], cfg["dataset"]
+    tcfg["optimize_every"] = TRAIN_OPTIMIZE_EVERY
     bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
     reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
     state0 = {n: v.detach().clone() for n, v in model.state_dict().items()}
@@ -1709,6 +1936,163 @@ def train_phase(seed: int = 0):
     return fused["launches"]
 
 
+# kernel launches of one training mini-step on the 'fused' layout with remat:
+# the encoder's forward (K10 at the four poolings, K12 at the plane and the
+# eight round trips, K9 at the eight samples) runs twice, the second time
+# recomputed in the backward; the backward runs each one's backward once: K9's
+# on K5's d_plane pass (counted as ``level_d_plane`` too), K10's on the run
+# kernel, K12's on K2 alone (counted as ``pool_gather`` too)
+SORTED_TRAIN_LAUNCHES = {"tile_gather": 16, "tile_pool": 8, "aligned_scatter_mean_plane": 18,
+                         "tile_gather_bwd": 8, "level_d_plane": 8, "tile_pool_bwd": 4,
+                         "aligned_scatter_mean_plane_bwd": 9, "pool_gather": 9}
+# ... and of one 'cumsum' mini-step: its samples' backward, K5's d_plane pass
+# at the eight round trips (``ops/fused.sorted_sample``); the rest is torch
+CUMSUM_TRAIN_LAUNCHES = {"level_d_plane": 8}
+
+
+def _differing(a: dict, b: dict) -> list:
+    """Names of the tensors of two state dicts that are not bit-equal."""
+    import torch
+
+    return [n for n, v in a.items() if not torch.equal(b[n], v)]
+
+
+def sorted_train(seed: int = 0):
+    """The flagship trained on the 'fused' layout with flip/rotate
+    augmentation (``sorted_config('fused')``, ``training.augmentation`` on),
+    batch 8, ``optimize_every`` 8, det_stream, the loader's prefetch thread:
+    a warm-up and a timed optimizer step; the first step again from the same
+    weights on the unsorted plain path (the same patches and augmentation
+    draws: window losses within 2e-4 * z_scale) and on 'fused' once more:
+    every parameter and the window loss bit-equal to the first run's after
+    its first step. Then one 'cumsum' step and its rerun, bit-equal too (its
+    segment sums and gather-backs differentiate in a fixed order, its samples
+    on K5's d_plane pass; the differing tensors are counted), and 'pallas'
+    refused by ``cli.train`` in a child process that runs beside the steps
+    (its scatter-means are forward-only, as the JAX kernel has no gradient;
+    the model's refusal is ``tests/test_torch_cuda.py``'s)."""
+    import torch
+
+    from tomosar2height_tpu_torch.config import sorted_config
+    from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset, tile_cells_for_impl
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
+
+    w, h = CITY["W"], CITY["H"]
+    ndsm, pts, _ = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+    models, state0 = {}, None
+    for impl in ("fused", "cumsum"):
+        cfg = sorted_config(impl)
+        cfg["training"]["augmentation"]["flip"] = cfg["training"]["augmentation"]["rotate"] = True
+        models[impl] = (cfg, build_model(cfg, DEVICE))
+        if state0 is None:
+            init_weights(models[impl][1], torch.Generator().manual_seed(seed))
+            state0 = {n: v.detach().clone() for n, v in models[impl][1].state_dict().items()}
+    cfg = models["fused"][0]
+    tcfg, dcfg = cfg["training"], cfg["dataset"]
+    bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
+    reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
+    aug = tcfg["augmentation"]
+
+    def run(impl, sort, steps):
+        cfg_i, model = models[impl]
+        ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k, dsm=dsm,
+                          flip_augm=aug["flip"], rotate_augm=aug["rotate"])
+        loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
+                             fixed_bucket=dcfg["points"]["train_bucket"],
+                             sort_reso=reso if sort else None, aligned=impl == "fused",
+                             tile_cells=tile_cells_for_impl(impl), shuffle=True,
+                             drop_last=True, seed=seed, det_stream=True,
+                             prefetch=cfg_i["dataloader"]["prefetch"])
+        model.load_state_dict(state0)
+        trainer = Trainer(model, cfg_i["training"])
+        sched = build_scheduler(cfg_i["training"])
+        windows, first = [], None
+        if steps > 1:
+            windows += train(trainer, sched, loader, cfg_i["training"], max_iteration=1)[
+                "windows"]
+            first = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out = train(trainer, sched, loader, cfg_i["training"], max_iteration=1)
+        wall = time.perf_counter() - t0
+        launches = dict(runtime.LAUNCHES)
+        windows += out["windows"]
+        return {"state": {n: v.detach().clone() for n, v in model.state_dict().items()},
+                "first": first, "losses": [r["loss"] for r in windows],
+                "ms": out["median_step_ms"],
+                "patches_s": out["n_patches"] / wall, "n": out["n_ministeps"],
+                "patches": out["n_patches"], "wall": wall,
+                "peak": torch.cuda.max_memory_allocated(), "launches": launches}
+
+    # the refusal runs beside the steps: a process of its own, since the
+    # smoke holds no exception handler
+    refusal = subprocess.Popen(
+        [sys.executable, "-m", "tomosar2height_tpu_torch.cli.train", "dataset=berlin",
+         "dataset.points.sort=true", "model.encoder_kwargs.sorted_impl=pallas"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    runs = {}
+    for name, impl, sort, steps in (("fused", "fused", True, 2), ("plain", "fused", False, 1),
+                                    ("fused again", "fused", True, 1),
+                                    ("cumsum", "cumsum", True, 1),
+                                    ("cumsum again", "cumsum", True, 1)):
+        r = runs[name] = run(impl, sort, steps)
+        moved = any(not torch.equal(v, state0[n]) for n, v in r["state"].items())
+        log("sorted-train", f"{name}: window losses {[f'{x:.6f}' for x in r['losses']]} | "
+            f"mini-step {r['ms']:.1f} ms (median of {r['n']}, CUDA events) | "
+            f"{r['patches']} patches in {r['wall']:.3f} s = {r['patches_s']:.2f} train "
+            f"patches/s | peak {r['peak'] / 2**30:.2f} GiB | parameters moved {moved}")
+        if not all(np.isfinite(r["losses"])) or not moved:
+            raise AssertionError(f"{name}: losses {r['losses']}, parameters moved {moved}")
+    fused, plain, again = runs["fused"], runs["plain"], runs["fused again"]
+    unequal = _differing(fused["first"], again["state"])
+    cumsum_unequal = _differing(runs["cumsum"]["state"], runs["cumsum again"]["state"])
+    err = max(abs(a - b) for a, b in zip(fused["losses"], plain["losses"]))
+    tol = _height_tol(cfg)
+    per_step = {key: v / fused["n"] for key, v in fused["launches"].items() if v}
+    log("sorted-train", f"determinism: fused run twice from the same weights on the same "
+        f"patches: {len(unequal)} of {len(fused['state'])} tensors differ after the first "
+        f"step, window losses equal {fused['losses'][:1] == again['losses']} | cumsum run "
+        f"twice: {len(cumsum_unequal)} of {len(fused['state'])} tensors differ "
+        f"({sorted(cumsum_unequal)[:6]}), window losses equal "
+        f"{runs['cumsum']['losses'] == runs['cumsum again']['losses']} | fused vs plain "
+        f"window losses max|d| {err:.3g} m (tol {tol:.3g} m) | mini-step fused "
+        f"{fused['ms']:.1f} ms, plain {plain['ms']:.1f} ms, cumsum {runs['cumsum']['ms']:.1f} "
+        f"ms | launches per fused mini-step {per_step}")
+    if unequal or fused["losses"][:1] != again["losses"]:
+        raise AssertionError(f"two fused runs differ: {len(unequal)} tensors")
+    if cumsum_unequal or runs["cumsum"]["losses"] != runs["cumsum again"]["losses"]:
+        raise AssertionError(f"two cumsum runs differ: {len(cumsum_unequal)} tensors")
+    if err > tol:
+        raise AssertionError(f"fused and plain window losses differ by {err} m")
+    if any(plain["launches"].values()):
+        raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
+    cumsum_want = {**dict.fromkeys(runs["cumsum"]["launches"], 0),
+                   **{key: v * runs["cumsum"]["n"] for key, v in CUMSUM_TRAIN_LAUNCHES.items()}}
+    if runs["cumsum"]["launches"] != cumsum_want:
+        raise AssertionError(f"cumsum launch counts {runs['cumsum']['launches']}, expected "
+                             f"{cumsum_want}")
+    want = {**dict.fromkeys(fused["launches"], 0),
+            **{key: v * fused["n"] for key, v in SORTED_TRAIN_LAUNCHES.items()}}
+    if fused["launches"] != want:
+        raise AssertionError(f"launch counts {fused['launches']}, expected {want}")
+    # 'pallas' does not train: the entry point refuses the layout
+    _, err = refusal.communicate(timeout=300)
+    said = err.strip().splitlines()[-1:]
+    log("sorted-train", f"pallas refused by cli.train: exit {refusal.returncode}, {said}")
+    if refusal.returncode == 0 or "no gradient either" not in str(said):
+        raise AssertionError(f"cli.train did not refuse pallas: {refusal.returncode} {said}")
+    return fused["launches"]
+
+
 # kernel launches of one headline training mini-step (``headline_config``:
 # fused2 + fused_convs + fused_head, ALTO depth 6, the footprint head), with
 # remat: the encoder's forward (pool2's run kernel 4, K3 1, K4 at the nine
@@ -1778,7 +2162,7 @@ def _headline_trainer(cfg, tcfg, model):
 def headline_resume(ckpt_path: str, out_path: str, seed: int = 0) -> None:
     """The resume half of "headline-train", run in a child process: a fresh
     network, trainer, scheduler and loader, resumed from ``ckpt_path``
-    through ``train/loop.py`` up to iteration 3; the final state dict, the
+    through ``train/loop.py`` up to iteration HEADLINE_STEPS; the final state dict, the
     window records and the launches go to ``out_path`` (``torch.save``)."""
     import torch
 
@@ -1796,8 +2180,8 @@ def headline_resume(ckpt_path: str, out_path: str, seed: int = 0) -> None:
     io = CheckpointIO(os.path.dirname(out_path))
     runtime.reset_launches()
     t0 = time.perf_counter()
-    out = train(trainer, sched, loader, {**tcfg, "checkpoint_every": 0}, max_iteration=3,
-                checkpoint_io=io, resume_from=ckpt_path)
+    out = train(trainer, sched, loader, {**tcfg, "checkpoint_every": 0},
+                max_iteration=HEADLINE_STEPS, checkpoint_io=io, resume_from=ckpt_path)
     torch.cuda.synchronize()
     torch.save({"state": {n: v.detach().cpu() for n, v in model.state_dict().items()},
                 "windows": out["windows"], "resumed": out["resumed"], "n_iter": out["n_iter"],
@@ -1805,17 +2189,21 @@ def headline_resume(ckpt_path: str, out_path: str, seed: int = 0) -> None:
                out_path)
 
 
+HEADLINE_STEPS = 2  # optimizer steps of each path: the warm-up and one timed
+
+
 def headline_train(seed: int = 0):
     """The headline network trained at full width on the synthetic city with
     its RGB image, batch 8, ``optimize_every`` 8: the kernel path (fused2 +
-    K6/K7) for 3 optimizer steps with a checkpoint after each (the first the
-    warm-up, the timed run the other two), launches per mini-step asserted;
-    the plain path (unsorted, kernel flags off) from the same weights on the
-    same patches, window losses held within ``_height_tol`` (loss_l1) and
-    ``_footprint_tol`` (loss_ce); the checkpoint's size and round trip; then
-    a child process resumes from the iteration-1 checkpoint and runs
-    iterations 2-3: 0 tensors may differ from the uninterrupted run, and the
-    window losses must be equal."""
+    K6/K7) for HEADLINE_STEPS optimizer steps with a checkpoint after each
+    (the first the warm-up, the timed run the second), launches per
+    mini-step asserted; the plain path (unsorted, kernel flags off) from the
+    same weights on the same patches for as many steps, its window losses
+    held within ``_height_tol`` (loss_l1) and ``_footprint_tol`` (loss_ce);
+    the checkpoint's size and round trip; then a child process resumes from
+    the iteration-1 checkpoint and runs on to iteration HEADLINE_STEPS: 0
+    tensors may differ from the uninterrupted run, and the window losses
+    must be equal."""
     import gc
     import tempfile
 
@@ -1842,7 +2230,7 @@ def headline_train(seed: int = 0):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             runtime.reset_launches()
-            out = train(trainer, sched, loader, tcfg, max_iteration=3,
+            out = train(trainer, sched, loader, tcfg, max_iteration=HEADLINE_STEPS,
                         checkpoint_io=io if name == "kernels" else None)
             torch.cuda.synchronize()
             timed = out["windows"][1:]
@@ -1862,7 +2250,8 @@ def headline_train(seed: int = 0):
                 f"{gn} | mini-step "
                 f"{r['ms']:.1f} ms (median of the timed {r['n'] - k}, CUDA events) | "
                 f"{patches} patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s "
-                f"(windows 2-3, checkpoints not counted) | peak {r['peak'] / 2**30:.2f} GiB"
+                f"(windows 2-{len(out['windows'])}, checkpoints not counted) | peak "
+                f"{r['peak'] / 2**30:.2f} GiB"
                 + (f" | checkpoint writes {[round(x, 3) for x in r['aux']]} s"
                    if name == "kernels" else ""))
             if not all(np.isfinite(w["loss"]) for w in out["windows"]):
@@ -1871,8 +2260,7 @@ def headline_train(seed: int = 0):
                 # the round trip: the last checkpoint (its write is the last
                 # window's aux time) read back into the run's objects
                 final = {n: v.detach().cpu().clone() for n, v in model.state_dict().items()}
-                os.remove(os.path.join(io.checkpoint_dir, "model_2.ckpt"))
-                path = os.path.join(io.checkpoint_dir, "model_3.ckpt")
+                path = os.path.join(io.checkpoint_dir, f"model_{HEADLINE_STEPS}.ckpt")
                 size = os.path.getsize(path)
                 t0 = time.perf_counter()
                 io.load(path)
@@ -1933,8 +2321,8 @@ def headline_train(seed: int = 0):
     log("headline-train", f"resume in a child process from the iteration-1 checkpoint "
         f"({child_s:.1f} s, iterations {[w['iteration'] for w in child['windows']]}): "
         f"{len(differ)} of {len(final)} tensors differ from the uninterrupted run | window "
-        f"losses of iterations 2-3 equal {got == ref}")
-    if (not child["resumed"] or child["n_iter"] != 3 or differ or got != ref
+        f"losses of iterations 2-{HEADLINE_STEPS} equal {got == ref}")
+    if (not child["resumed"] or child["n_iter"] != HEADLINE_STEPS or differ or got != ref
             or sorted(child["state"]) != sorted(final)):
         raise AssertionError(f"the resumed run differs: {len(differ)} tensors "
                              f"({differ[:4]}), window losses {got} vs {ref}")
@@ -1960,7 +2348,8 @@ def _cli_overrides(root: str) -> list:
     network (``headline_config()``'s model subtree: ALTO depth 6, the image
     U-Net, the footprint head, fused2 and the conv kernel flags), the base
     config's point buckets, batch 8, ``optimize_every`` 8, 2 iterations,
-    validation, a checkpoint and the vis split's nDSM every iteration."""
+    validation, a checkpoint and the vis split's nDSM at the second (every
+    iteration until PR 15: two of its four 1.1 GB checkpoint writes go)."""
     from tomosar2height_tpu_torch.config import CONV_KERNELS, KERNEL_PATH
     from tomosar2height_tpu_torch.data.synthetic import Y0
 
@@ -1977,8 +2366,8 @@ def _cli_overrides(root: str) -> list:
             "dataset.points.bucket_sizes=[2048,4096,8192,16384,32768,65536]",
             "dataset.points.train_bucket=16384", "training.batch_size=8",
             "training.optimize_every=8", "training.val_batch_size=8",
-            "training.max_iteration=2", "training.validate_every=1",
-            "training.checkpoint_every=1", "training.visualize_every=1"
+            "training.max_iteration=2", "training.validate_every=2",
+            "training.checkpoint_every=2", "training.visualize_every=2"
             ] + KERNEL_PATH + CONV_KERNELS
 
 
@@ -2119,9 +2508,9 @@ def cli_phase(smi: str, seed: int = 0):
         with open(os.path.join(os.path.dirname(ckpt_dir), "wandb", "metrics.jsonl")) as f:
             recs = [json.loads(line) for line in f][1:]
         jsonl_ok = ([r["_step"] for r in recs] == [1, 2]
-                    and all(np.isfinite(r["train/loss"]) and "val/loss" in r
-                            and "nDSM/overall/RMSE" in r and "nDSM/building/NMAD" in r
-                            for r in recs))
+                    and all(np.isfinite(r["train/loss"]) for r in recs)
+                    and "val/loss" in recs[1] and "nDSM/overall/RMSE" in recs[1]
+                    and "nDSM/building/NMAD" in recs[1])
     ov_ = stats["overall"]
     log("cli", f"{smi} | write_city {write_s:.2f} s ({city['n_points']} points), "
         f"build_dataset {build_s:.3f} s ({len(chunks)} chunks) | cli.train "
@@ -2159,30 +2548,44 @@ def out_ms(windows) -> str:
     return ", ".join(f"{x.get('step_ms_median', float('nan')):.1f}" for x in windows)
 
 
+def timed(phase: str, fn, *args):
+    """``fn(*args)``, its wall seconds logged under ``phase``."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log("time", f"phase {phase}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main():
+    t0 = time.perf_counter()
     smi = card()
-    build()
-    rows = check_kernels()
-    check_model()
-    serve_launches = serve()
-    fusion_launches = fusion_serve()
-    sorted_launches = sorted_serve()
-    munich_depth6()
-    launches = train_phase()
-    headline_launches = headline_train()
-    cli_launches = cli_phase(smi)
+    timed("build", build)
+    rows = timed("kernels", check_kernels)
+    timed("model", check_model)
+    serve_launches = timed("serve", serve)
+    fusion_launches = timed("fusion-serve", fusion_serve)
+    sorted_launches = timed("sorted-serve", sorted_serve)
+    timed("munich-depth6", munich_depth6)
+    launches = timed("train", train_phase)
+    sorted_train_launches = timed("sorted-train", sorted_train)
+    headline_launches = timed("headline-train", headline_train)
+    cli_launches = timed("cli", cli_phase, smi)
+    log("time", f"all phases {time.perf_counter() - t0:.1f} s")
     import torch
 
     for row in rows:
         # K1-K5 (K5's d_plane pass too) and the backwards: the flagship
         # training step; K6 and K7: fusion serving and headline training; K8:
-        # fusion serving; K9-K13: sorted serving (K14 is on no model path)
+        # fusion serving; K9-K13: sorted serving (K14 is on no model path);
+        # the fused layout's backwards: its training step
         name = row["name"]
         key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
         row["launches"] = (launches.get(key)
                            or fusion_launches.get(key, 0) + headline_launches.get(key, 0)
-                           or sorted_launches.get(key, 0))
+                           or sorted_launches.get(key, 0)
+                           or sorted_train_launches.get(key, 0))
         row["launches_serve"] = serve_launches.get(name, 0)
+        row["launches_sorted_train"] = sorted_train_launches.get(key, 0)
         row["launches_cli"] = cli_launches.get(key, 0)
     loaded = sorted(m for m in sys.modules
                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "tomosar2height_tpu"))

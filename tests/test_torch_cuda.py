@@ -513,7 +513,7 @@ class TestPool2Kernels:
         b, n, _ = v.shape
         err = runtime.library().t2h_pool_gather(
             g.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(), out.data_ptr(),
-            b, n, f, 256, runtime.stream_ptr(cuda))
+            b, n, f, 256, 0, runtime.stream_ptr(cuda))
         runtime.check(err, "pool_gather")
         torch.cuda.synchronize()
         assert torch.isfinite(out).all()
@@ -1483,11 +1483,11 @@ class TestTileKernels:
             p = plane.clone().requires_grad_()
             v = t(vals, cuda).requires_grad_()
             if on_kernel:
-                s = fused.tile_gather(p, xy, m, tt, RESO)
+                s = fused.tile_gather(p, xy, m, c, tt, RESO, RESO)
                 q = fused.tile_pool(v, c, tt, m, RESO, "max")
                 o = fused.tile_scatter_mean(v, c, tt, RESO, RESO)
             else:
-                s = fused._gather_plain(p, xy, m, tt)
+                s = fused._masked(m, grid_sample_2d(p, xy))
                 q = fused._masked(m, tpk.tile_pool_plain(v, c, tt, "max"))
                 o = sk.aligned_scatter_mean_plane_plain(v, c, tt, RESO, RESO)
             ((s ** 2).sum() + (q * v).sum() + (o ** 2).sum()).backward()
@@ -1497,7 +1497,8 @@ class TestTileKernels:
         got = grads(True)
         want = grads(False)
         torch.cuda.synchronize()
-        for name in ("tile_gather", "tile_pool", "aligned_scatter_mean_plane"):
+        for name in ("tile_gather", "tile_pool", "aligned_scatter_mean_plane",
+                     "tile_gather_bwd", "tile_pool_bwd", "aligned_scatter_mean_plane_bwd"):
             _launched(name, before)
         for a, b in zip(got, want):
             torch.testing.assert_close(a, b, **TOL)
@@ -1566,3 +1567,161 @@ class TestHeadlineStep:
         total = np.sqrt(sum(e ** 2 for e in err.values()) / sum(r ** 2 for r in ref.values()))
         assert total <= 1e-3, (total, worst, err[worst] / ref[worst])
         assert err[worst] <= 1e-2 * ref[worst], (worst, err[worst], ref[worst])
+
+
+@pytest.mark.cuda
+class TestFusedBackwards:
+    """The ``fused`` layout's backwards on the card: K9's (K5's d_plane pass),
+    K10's (the run kernel, max's cotangent split among tied rows) and K12's
+    (K2 alone at the level's shift) against their plain versions, on layouts
+    with an empty entry and cells whose max ties, each bit-equal on a second
+    launch; then one ``fused`` training mini-step at full width against the
+    unsorted plain path, and its gradients bit-equal on a rerun."""
+
+    @pytest.mark.parametrize("reso,finest,edge", [(64, 64, "empty"), (32, 64, "border"),
+                                                  (32, 32, "one_cell")])
+    def test_tile_gather_bwd(self, cuda, reso, finest, edge):
+        pts, mask, cells, _, _ = tile_batch(5, n=800, reso=finest, f=24, edge=edge)
+        g = torch.randn(*mask.shape, 24, generator=torch.Generator().manual_seed(3))
+        args = (g.to(cuda), t(pts[..., :2].copy(), cuda), t(cells, cuda), t(mask, cuda), reso,
+                finest)
+        before = dict(runtime.LAUNCHES)
+        got = gk.tile_gather_bwd(*args)
+        again = gk.tile_gather_bwd(*args)
+        torch.cuda.synchronize()
+        _launched("tile_gather_bwd", before, 2)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, lk.level_d_plane_plain(*args), rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("impl,reso", [("cumsum", 256), ("cumsum", 32), ("fused", 16)])
+    def test_sorted_sample_bwd(self, cuda, impl, reso):
+        """``fused.sorted_sample``'s backward, K5's d_plane pass, on the plain
+        sorted layout (pads at the end, id 256^2) and on the aligned layout
+        of 256-cell tiles below 32^2: against the plain transpose of the
+        masked cotangent, bit-equal on a second backward."""
+        import chip_smoke as cs
+        from tomosar2height_tpu_torch.ops import fused
+
+        pts, mask, apts, amask, acells, _ = cs.flagship_batch(2, b=2, n=4000, tile_cells=256)
+        if impl == "cumsum":
+            apts, amask, acells, _ = cs.sorted_layout(pts, mask)
+        xy, m, c = t(apts[..., :2].copy(), cuda), t(amask, cuda), t(acells, cuda)
+        gen = torch.Generator().manual_seed(5)
+        plane = torch.randn(2, reso, reso, 40, generator=gen).to(cuda).requires_grad_()
+        g = torch.randn(*amask.shape, 40, generator=gen).to(cuda)
+        before = dict(runtime.LAUNCHES)
+        got, again = (torch.autograd.grad(fused.sorted_sample(plane, xy, m, c, 256), plane, g)[0]
+                      for _ in range(2))
+        torch.cuda.synchronize()
+        _launched("level_d_plane", before, 2)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, lk.level_d_plane_plain(g, xy, c, m, reso, 256),
+                                   rtol=2e-4, atol=2e-5)
+
+    @pytest.mark.parametrize("kind,ties", [("max", False), ("max", True), ("mean", False)])
+    def test_tile_pool_bwd(self, cuda, kind, ties):
+        _, mask, cells, toff, vals = tile_batch(11, n=900, reso=64, f=40, edge="empty")
+        if ties:
+            vals = np.where(mask[..., None], np.random.default_rng(4).integers(0, 3, vals.shape),
+                            vals).astype(np.float32)
+        v, c, tt = t(vals, cuda), t(cells, cuda), t(toff, cuda)
+        g = (torch.randn(vals.shape, generator=torch.Generator().manual_seed(5)).to(cuda)
+             * t(mask, cuda)[..., None]).contiguous()
+        out = tpk.tile_pool(v, c, tt, kind)
+        before = dict(runtime.LAUNCHES)
+        got = tpk.tile_pool_bwd(g, v, out, c, tt, kind)
+        again = tpk.tile_pool_bwd(g, v, out, c, tt, kind)
+        torch.cuda.synchronize()
+        _launched("tile_pool_bwd", before, 2)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(got, tpk.tile_pool_bwd_plain(g, v, out, c, tt, kind), **TOL)
+
+    @pytest.mark.parametrize("reso", [64, 32, 16])
+    def test_tile_scatter_bwd(self, cuda, reso):
+        _, _, cells, toff, vals = tile_batch(7, n=900, reso=64, f=24, edge="empty")
+        lvl = t(toff[:, :: 4 ** (64 .bit_length() - reso.bit_length())], cuda)
+        c = t(cells, cuda)
+        _, counts = sk.aligned_scatter_mean_plane(t(vals, cuda), c, lvl, reso, 64,
+                                                  with_counts=True)
+        _, want_counts = sk.aligned_scatter_mean_plane_plain(t(vals, cuda), c, lvl, reso, 64,
+                                                             with_counts=True)
+        assert torch.equal(counts, want_counts)
+        g = torch.randn(2, reso, reso, 24, generator=torch.Generator().manual_seed(6)).to(cuda)
+        before = dict(runtime.LAUNCHES)
+        got = sk.aligned_scatter_mean_plane_bwd(g, c, counts, reso, 64)
+        again = sk.aligned_scatter_mean_plane_bwd(g, c, counts, reso, 64)
+        torch.cuda.synchronize()
+        _launched("aligned_scatter_mean_plane_bwd", before, 2)
+        _launched("pool_gather", before, 2)
+        assert torch.equal(got, again)
+        torch.testing.assert_close(
+            got, sk.aligned_scatter_mean_plane_bwd_plain(g, c, counts, reso, 64), **TOL)
+
+    @pytest.mark.parametrize("impl", ["fused", "cumsum"])
+    def test_sorted_step_matches_plain_and_repeats(self, cuda, impl):
+        """The flagship at full width on 2 patches: the ``fused`` path
+        launches what ``chip_smoke.SORTED_TRAIN_LAUNCHES`` counts (``cumsum``
+        what ``CUMSUM_TRAIN_LAUNCHES`` counts: its samples' backward on K5's
+        d_plane pass), its loss is the plain path's within 2e-4 * z_scale and its
+        gradients within 1e-3 of the gradient's norm overall and 1e-2 of each
+        tensor's; a second step from the same weights gives the same
+        gradients, bit for bit (``cumsum``: its segment sums, gather-backs
+        and samples differentiate in a fixed order)."""
+        import chip_smoke as cs
+        from tomosar2height_tpu_torch.config import sorted_config
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+        from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
+        from tomosar2height_tpu_torch.train import Trainer
+
+        cfg = sorted_config(impl)
+        model = init_weights(build_model(cfg, "cuda"), torch.Generator().manual_seed(0))
+        pts, mask, apts, amask, _, toff = cs.flagship_batch(1, b=2, tile_cells=256)
+        if impl == "cumsum":
+            apts, amask, _, toff = cs.sorted_layout(pts, mask)
+        side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+        rng = np.random.default_rng(2)
+        common = {"dsm": rng.uniform(0, 40, (2, side, side)).astype(np.float32),
+                  "patch_valid": np.ones(2, bool)}
+
+        def step(batch):
+            trainer = Trainer(model, cfg["training"])
+            dev = trainer.prepare_batch(batch)
+            runtime.reset_launches()
+            with fp32_convs(deterministic=True):
+                loss, _ = trainer.loss(dev)
+                grads = torch.autograd.grad(loss, trainer.params)
+            torch.cuda.synchronize()
+            return float(loss), grads, {k: v for k, v in runtime.LAUNCHES.items() if v}
+
+        fused = {"points": apts, "point_mask": amask, "cell_offsets": toff, **common}
+        kl, kg, launched = step(fused)
+        assert launched == (cs.SORTED_TRAIN_LAUNCHES if impl == "fused"
+                            else cs.CUMSUM_TRAIN_LAUNCHES)
+        _, kg2, _ = step(fused)
+        assert all(torch.equal(a, b) for a, b in zip(kg, kg2))
+        pl, pg, plain_launched = step({"points": pts, "point_mask": mask, **common})
+        assert plain_launched == {}
+        z = cfg["dataset"]["normalize"]["z_bound"]
+        assert abs(kl - pl) <= 2e-4 * (z[1] - z[0]), (kl, pl)
+        names = [n for n, _ in model.named_parameters()]
+        err = {n: float((a - b).norm()) for n, a, b in zip(names, kg, pg)}
+        ref = {n: float(b.norm()) for n, b in zip(names, pg)}
+        worst = max(names, key=lambda n: err[n] / max(ref[n], 1e-30))
+        total = np.sqrt(sum(e ** 2 for e in err.values()) / sum(r ** 2 for r in ref.values()))
+        assert total <= 1e-3, (total, worst, err[worst] / ref[worst])
+        assert err[worst] <= 1e-2 * ref[worst], (worst, err[worst], ref[worst])
+
+
+@pytest.mark.cuda
+def test_u16_points_dequantize_on_the_card(cuda):
+    """The u16 wire's upload and its one f32 multiply on the card give the
+    host's dequantized coordinates, bit for bit."""
+    from tomosar2height_tpu_torch.ops.sorted_scatter import (
+        dequantize_points,
+        dequantize_points_np,
+    )
+
+    q = np.random.default_rng(0).integers(0, 65536, (4, 1000, 3)).astype(np.uint16)
+    dev = torch.from_numpy(q).pin_memory().to(cuda, non_blocking=True)
+    got = dequantize_points(dev).cpu().numpy()
+    np.testing.assert_array_equal(got, dequantize_points_np(q))

@@ -180,8 +180,6 @@ def test_patches_without_image_or_target(built):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("dataset.satellite_image.wire=uint8", "ROADMAP: wires and the host side"),
-    ("dataset.satellite_image.crop=device", "ROADMAP: wires and the host side"),
     ("dataset.satellite_image.pairs=[rgb.tif,rgb.tif]", "ROADMAP: alternates"),
 ])
 def test_unported_options_raise(built, override, match):
@@ -192,10 +190,13 @@ def test_unported_options_raise(built, override, match):
 
 
 def test_augmentation_and_unknown_shift_raise(built):
+    """Augmentation runs now (tests/test_torch_augment.py holds it to the JAX
+    dataset); an unknown z shift still raises."""
     root, _ = built
     cfg = compose(default_conf_dir(), overrides=overrides(root))
-    with pytest.raises(NotImplementedError, match="ROADMAP: augmentation"):
-        TomoSARDataset("train", cfg["dataset"], random_sample=True, flip_augm=True)
+    ds = TomoSARDataset("train", cfg["dataset"], random_sample=True, random_length=2,
+                        flip_augm=True)
+    assert ds.flip_augm and "flip" in ds.__getitem__(0, np.random.default_rng(0))
     cfg = compose(default_conf_dir(), overrides=overrides(root)
                   + ["dataset.normalize.z_shift=median"])
     with pytest.raises(ValueError, match="shift strategy"):

@@ -296,9 +296,6 @@ def test_trainer_raises_for_what_is_not_ported(params):
     model = port_trainer(params).model
     with pytest.raises(NotImplementedError, match="ROADMAP: alternates"):
         Trainer(model, {"optimize_every": 1}, use_cloud=False, use_image=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP: wires"):
-        Trainer(model, {"optimize_every": 1}, use_image=True,
-                image_norm=(np.zeros(3, np.float32), np.ones(3, np.float32)))
     no_head = build_model(fusion_train_cfg(footprint=False), device="cpu")
     with pytest.raises(ValueError, match="footprint head"):
         Trainer(no_head, {"optimize_every": 1}, use_image=True, use_footprint=True)

@@ -63,7 +63,9 @@ SOURCE = os.path.join(os.path.dirname(pk.__file__), "..", "..", "csrc", "pool2.c
 def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN, toff=None, mutant=None):
     """The run kernel in numpy, warp by warp: returns (out, writes), writes
     counting how often each row was stored. x (B, N, F) f32; kind 'max' |
-    'mean' | 'sum'; tie (values, out) gates a sum as max pooling's backward;
+    'mean' | 'sum' | 'split'; tie (values, out) gates a sum as max pooling's
+    backward: 'sum' gives each tied row the run's sum (pool2's), 'split'
+    divides it by the run's tied valid rows, feature by feature (K10's);
     toff (B, T + 1) tile offsets: K10's tile rule in place of ``mask``.
     ``mutant``: 'no_read_on' drops the walk past the span, 'no_tile_check'
     takes every row with an in-range id as valid."""
@@ -73,8 +75,17 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN, toff=None, mu
     ident = np.float32(-np.inf if kind == "max" else 0.0)
     comb = np.maximum if kind == "max" else np.add
 
-    def finalize(a, count):  # a run with no valid row gives no row its value
+    def finalize(a, count, tied):  # a run with no valid row gives no row its value
+        if kind == "split":
+            return np.where(tied > 0, a / np.maximum(tied, 1).astype(np.float32),
+                            np.float32(0))
         return a / np.float32(max(count, 1)) if kind == "mean" else a
+
+    def ties(i, rows):
+        """Per feature, how many of ``rows`` of entry i tie (split only)."""
+        if kind != "split" or not rows:
+            return np.zeros(x.shape[-1], np.int64)
+        return sum((tie[0][i, r] == tie[1][i, r]).astype(np.int64) for r in rows)
 
     def gated(r, row, i):
         return r if tie is None else np.where(tie[0][i, row] == tie[1][i, row], r, 0)
@@ -124,11 +135,14 @@ def emulate_runs(x, cells, mask, ncell, kind, tie=None, span=SPAN, toff=None, mu
                 if ok[k] and (cell(r + 1) != cell(r) or k == span - 1):
                     hs = [h for h in range(k + 1) if heads[h]]
                     count = sum(own[hs[-1]:k + 1]) if hs else 0
+                    tied = ties(i, [s0 + h for h in range(hs[-1], k + 1) if own[h]]
+                                if hs else [])
                     a = v[k]
                     if k == span - 1 and cont:
                         a = acc
                         count += len(tail)
-                    cur = finalize(a, count)
+                        tied = tied + ties(i, tail)
+                    cur = finalize(a, count, tied)
                 v[k] = cur
             # store: own rows and rows that are not valid; then the tail
             for k, r in enumerate(rows):
@@ -307,6 +321,36 @@ def test_k10_mutants_fail(mutant):
     got, _ = _tile_pool_emulated(layout, "mean", mutant)
     want = tpk.tile_pool_plain(t(vals), t(cells), t(toff), "mean").numpy()
     assert not np.allclose(got, want, **TOL)
+
+
+def _k10_bwd_case(layout, ties: bool):
+    """K10's max-pool backward inputs: the cotangent on the valid rows, the
+    values (integral, so that cells tie in their max, with ``ties``) and
+    K10's forward output."""
+    _, mask, cells, toff, vals = layout
+    rng = np.random.default_rng(12)
+    if ties:
+        vals = np.where(mask[..., None], rng.integers(0, 3, vals.shape), vals).astype(np.float32)
+    g = (rng.normal(size=vals.shape) * mask[..., None]).astype(np.float32)
+    out = tpk.tile_pool_plain(t(vals), t(cells), t(toff), "max").numpy()
+    return g, vals, out, cells, toff, mask
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_k10_backward_emulation_matches_plain(k10_layout, ties):
+    """K10's max backward on the run kernel (kind 3): each run's cotangent
+    sum split among its tied rows, feature by feature, as the vjp of the
+    plain version and JAX's segment_max split it (held to JAX in
+    tests/test_torch_sorted_train.py)."""
+    g, vals, out, cells, toff, mask = _k10_bwd_case(k10_layout, ties)
+    ncell = (toff.shape[1] - 1) * 256
+    got, writes = emulate_runs(g, cells, mask, ncell, "split", (vals, out), toff=toff)
+    assert (writes == 1).all()
+    want = tpk.tile_pool_bwd_plain(t(g), t(vals), t(out), t(cells), t(toff), "max").numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    if ties:  # the whole sum to every tied row (pool2's rule) is not K10's
+        whole, _ = emulate_runs(g, cells, mask, ncell, "sum", (vals, out), toff=toff)
+        assert not np.allclose(whole, want, **TOL)
 
 
 def test_k10_launches_the_run_kernel():

@@ -343,7 +343,7 @@ def test_kernel_source_matches_the_emulation():
     assert "t2h_scatter_runs" in inspect.getsource(pk.scatter_runs_masked)
     assert "t2h_scatter_runs" in inspect.getsource(sk._scatter_runs)
     for wrapper, step in ((sk.scatter_mean_plane, "TILE_CELLS)"),
-                          (sk.aligned_scatter_mean_plane, ", 1)")):
+                          (sk.aligned_scatter_mean_plane, ", 1, with_counts")):
         src = inspect.getsource(wrapper)
         assert "_scatter_runs(" in src and step in src and "t2h_tile_scatter_mean" not in src
 

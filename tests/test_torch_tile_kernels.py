@@ -66,7 +66,7 @@ class TestTileGather:
         assert (got[past] == 0).all()
 
     def test_grad_matches_jax_vjp(self):
-        pts, mask, _, toff, _ = tile_batch(21, n=300, reso=32)
+        pts, mask, cells, toff, _ = tile_batch(21, n=300, reso=32)
         rng = np.random.default_rng(23)
         plane = rng.normal(size=(2, 32, 32, 16)).astype(np.float32)
         cot = rng.normal(size=mask.shape + (16,)).astype(np.float32)
@@ -75,7 +75,8 @@ class TestTileGather:
             p, ax, ay, jnp.asarray(mask), jnp.asarray(toff), 32) * cot).sum())(
                 jnp.asarray(plane))
         p = t(plane).requires_grad_()
-        (fused.tile_gather(p, t(pts[..., :2]), t(mask), t(toff), 32) * t(cot)).sum().backward()
+        (fused.tile_gather(p, t(pts[..., :2]), t(mask), t(cells), t(toff), 32, 32)
+         * t(cot)).sum().backward()
         np.testing.assert_allclose(p.grad.numpy(), np.asarray(want), **GRAD_TOL)
 
 

@@ -508,7 +508,3 @@ class TestTrainingLoader:
             for k in a:
                 np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]), err_msg=k)
 
-    def test_augmentation_not_ported(self, city):
-        jds = TomoSARDataset("val", city["dataset"], random_sample=False, load_image=False)
-        with pytest.raises(NotImplementedError, match="ROADMAP: augmentation"):
-            _port_dataset(jds, city, split="val", flip_augm=True)

@@ -18,9 +18,14 @@ import os
 import sys
 from typing import List, Optional
 
-from tomosar2height_tpu_torch.cli.common import loader_kwargs, run_dir
+from tomosar2height_tpu_torch.cli.common import run_dir
 from tomosar2height_tpu_torch.config import compose, default_conf_dir, select_device
-from tomosar2height_tpu_torch.data import PatchLoader, TomoSARDataset
+from tomosar2height_tpu_torch.data import (
+    PatchLoader,
+    TomoSARDataset,
+    loader_kwargs,
+    prefetch_depth,
+)
 from tomosar2height_tpu_torch.infer import DSMEvaluator, DSMGenerator, print_statistics
 from tomosar2height_tpu_torch.models import build_model
 from tomosar2height_tpu_torch.train.checkpoint import DEFAULT_MODEL_FILE, CheckpointIO
@@ -48,7 +53,9 @@ def run(overrides: Optional[List[str]] = None) -> Optional[dict]:
 
     dataset = TomoSARDataset("test", dcfg, random_sample=False, load_target=False,
                              load_image=cfg["use_image"])
-    loader = PatchLoader(dataset, tcfg["val_batch_size"], **loader_kwargs(cfg))
+    # the JAX test.py's loader: the config's workers and prefetch, f32 points
+    loader = PatchLoader(dataset, tcfg["val_batch_size"], prefetch=prefetch_depth(cfg),
+                         **{**loader_kwargs(cfg), "wire_points": "float32"})
     log.info("Dataset path: '%s'", dcfg["path"])
     model = build_model(cfg, device)
     io = CheckpointIO(os.path.join(out_dir, "check_points"), model=model)

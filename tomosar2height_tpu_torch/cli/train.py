@@ -10,9 +10,13 @@ holds ``check_points/`` (``model_<n>.ckpt`` every ``checkpoint_every``,
 metrics.jsonl`` and the log. Seeds locked with ``training.lock_seed``;
 ``training.resume_from`` names a checkpoint to resume from (a missing file
 trains from scratch). The device is ``device.platform`` (null: the card).
-Training runs on the unsorted path or on fused2 (``dataset.points.sort=true
-model.encoder_kwargs.sorted_impl=fused2``); the other sorted layouts are
-ROADMAP: training on the other sorted layouts.
+Training runs on the unsorted path or on a Morton-sorted layout
+(``dataset.points.sort=true model.encoder_kwargs.sorted_impl=fused2``,
+``fused`` or ``cumsum``; ``pallas`` raises: its scatter-means have no
+gradient, in the JAX package too), with ``training.augmentation.flip`` /
+``rotate``, the loader's ``dataloader.prefetch`` and ``n_workers``, the
+wires ``dataset.points.wire``, ``dataset.satellite_image.wire`` (the u8
+crops normalize inside the step) and ``training.wire_cells``.
 """
 
 from __future__ import annotations
@@ -24,9 +28,14 @@ from typing import List, Optional
 
 import torch
 
-from tomosar2height_tpu_torch.cli.common import loader_kwargs, run_dir
+from tomosar2height_tpu_torch.cli.common import run_dir
 from tomosar2height_tpu_torch.config import compose, default_conf_dir, select_device
-from tomosar2height_tpu_torch.data import PatchLoader, TomoSARDataset
+from tomosar2height_tpu_torch.data import (
+    PatchLoader,
+    TomoSARDataset,
+    loader_kwargs,
+    prefetch_depth,
+)
 from tomosar2height_tpu_torch.infer import DSMEvaluator, DSMGenerator
 from tomosar2height_tpu_torch.models import build_model, init_weights
 from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
@@ -44,9 +53,11 @@ def run(overrides: Optional[List[str]] = None) -> dict:
     tcfg, dcfg = cfg["training"], cfg["dataset"]
     device = select_device(cfg)
     impl = cfg["model"]["encoder_kwargs"].get("sorted_impl", "cumsum")
-    if dcfg["points"].get("sort", False) and impl != "fused2":
-        raise NotImplementedError(f"training on sorted_impl={impl!r}: ROADMAP: training on "
-                                  "the other sorted layouts")
+    if dcfg["points"].get("sort", False) and impl == "pallas":
+        raise NotImplementedError(
+            "training on sorted_impl='pallas': its tile scatter-means are forward-only, "
+            "as the JAX package's kernel has no gradient either (train on fused2, fused "
+            "or cumsum)")
     out_dir = run_dir(cfg)
     tiff_dir = os.path.join(out_dir, "tiff")
     os.makedirs(tiff_dir, exist_ok=True)
@@ -70,7 +81,8 @@ def run(overrides: Optional[List[str]] = None) -> dict:
         # det_stream under lock_seed: every batch a pure function of (seed,
         # epoch, position), which the checkpoints record
         "train": PatchLoader(datasets["train"], tcfg["batch_size"], shuffle=True,
-                             drop_last=True, det_stream=bool(tcfg["lock_seed"]), **common),
+                             drop_last=True, det_stream=bool(tcfg["lock_seed"]),
+                             prefetch=prefetch_depth(cfg), **common),
         "val": PatchLoader(datasets["val"], tcfg["val_batch_size"], **common),
         "vis": PatchLoader(datasets["vis"], tcfg["val_batch_size"], **common),
     }
@@ -79,7 +91,8 @@ def run(overrides: Optional[List[str]] = None) -> dict:
 
     model = init_weights(build_model(cfg, device), torch.Generator().manual_seed(0))
     trainer = Trainer(model, tcfg, use_cloud=cfg["use_cloud"], use_image=cfg["use_image"],
-                      use_footprint=cfg["use_footprint"], weight_ce=tcfg["weight_ce"])
+                      use_footprint=cfg["use_footprint"], weight_ce=tcfg["weight_ce"],
+                      image_norm=datasets["train"].image_norm)
     scheduler = build_scheduler(tcfg)
     log.info("Total model parameters: %d", sum(p.numel() for p in model.parameters()))
     logger.watch(trainer.module_norms, log_freq=tcfg["print_every"])

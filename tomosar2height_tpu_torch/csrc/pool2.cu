@@ -8,10 +8,15 @@
 //                           (max / mean / sum) and its backward (pool2_bwd, :492)
 //   K10 pool_runs        <- pool_kernel.py _pool_kernel (:36): the same reduce and
 //                           gather-back over the aligned layout's 256-cell tiles,
-//                           a row pooling only inside its tile (TILED)
+//                           a row pooling only inside its tile (TILED); and its
+//                           backward (fused.py _tile_pool_bwd, :118): max's
+//                           cotangent split evenly among a run's tied rows
+//                           (kind 3), mean's the run mean of the cotangent
 //   K2 pool_gather       <- _gather_kernel (:133) as _scatter_plane2_bwd (:424)
 //                           runs it: each row reads a row-major plane at its
-//                           cell, a warp a 32-row span, each run's cell read once
+//                           cell, a warp a 32-row span, each run's cell read once;
+//                           K12's backward (fused.py _tile_scatter_bwd, :149)
+//                           the same at a coarser level (cell = id >> shift)
 //   K3 scatter_runs      <- _scatter_plane_kernel (:263): masked scatter-mean
 //                           into a row-major plane, with the cells' counts
 //   K12 scatter_runs     <- scatter_kernel.py _aligned_scatter_kernel (:242):
@@ -48,7 +53,10 @@
 // A max of a run with no valid row is never read; mean divides by the run's
 // valid count; with the tie gate (max
 // pooling's backward, x = g) a row keeps the run's sum only where
-// tie_a[i] == tie_b[i] (values == pooled output), else 0.
+// tie_a[i] == tie_b[i] (values == pooled output), else 0: kind 2 (pool2's
+// backward, JAX pool2_kernel.py:492) gives each tied row the whole sum, kind 3
+// (K10's backward, the vjp of segment_max, fused.py:118) divides it by the
+// number of the run's valid rows that tie, feature by feature.
 //
 // Partition: warp w of batch entry b owns the span of kSpan = 32 rows
 // [32 w, 32 w + 32) (one ballot), lanes on features (a row of 32 f32 is one
@@ -118,7 +126,7 @@ namespace t2h {
 constexpr int kSpan = 32;  // rows a warp owns (tests/test_torch_pool2_runs.py SPAN)
 constexpr unsigned kFull = 0xffffffffu;
 
-// kind: 0 = max, 1 = mean, 2 = sum.
+// kind: 0 = max, 1 = mean, 2 = sum, 3 = sum split among the tied rows.
 template <int KIND>
 __device__ __forceinline__ float run_identity() {
   return KIND == 0 ? __uint_as_float(0xff800000u) : 0.0f;  // -inf or 0
@@ -156,7 +164,7 @@ __device__ __forceinline__ unsigned run_step(const int* __restrict__ cb,
   return __ballot_sync(kFull, lane < *len && (TILED ? lo <= j && j < hi : mb[j] != 0));
 }
 
-// TIE: the max-pool backward's gate (KIND 2 only). TILED: K10's validity,
+// TIE: the max-pool backward's gate (KIND 2 and 3). TILED: K10's validity,
 // the tile offsets toff (B, ncell / 256 + 1) in place of the mask. A warp's
 // lanes take 32 features of every row; F > 32 loops over feature chunks.
 // Three blocks an SM (<= 80 registers) without the gate; with it, two (its 96
@@ -245,15 +253,19 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
       v[k] = acc;
     }
 
-    // the last run past the span, in row order
-    int tail_rows = 0, tail_count = 0;
+    // the last run past the span, in row order (KIND 3: and its tied rows)
+    int tail_rows = 0, tail_count = 0, tail_tied = 0;
     if (cont) {
       for (int len = kSpan; len == kSpan; tail_rows += len) {
         const int j0 = s0 + kSpan + tail_rows;
         const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
 #pragma unroll
-        for (int k = 0; k < kSpan; ++k)
-          if (fin && (tv >> k & 1u)) acc = run_combine<KIND>(acc, xf[(long long)(j0 + k) * F]);
+        for (int k = 0; k < kSpan; ++k) {
+          if (!fin || !(tv >> k & 1u)) continue;
+          const long long i = (long long)(j0 + k) * F;
+          acc = run_combine<KIND>(acc, xf[i]);
+          if (KIND == 3 && af[i] == bf[i]) ++tail_tied;
+        }
         tail_count += __popc(tv);
       }
     }
@@ -265,11 +277,20 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
       if (ends >> k & 1u) {
         int count = __shfl_sync(kFull, run_count, k);
         float a = v[k];
+        int ntied = 0;  // KIND 3: this lane's tied rows of the run, from its head to k
+        if (KIND == 3) {
+          const unsigned upk = k == kSpan - 1 ? kFull : (2u << k) - 1u;
+          const unsigned hk = heads & upk;  // 0: an earlier warp's run, written by it
+          const unsigned from = hk ? ~((1u << (31 - __clz(hk))) - 1u) : 0u;
+          ntied = __popc(tied & own & upk & from);
+        }
         if (k == kSpan - 1 && cont) {
           a = acc;
           count += tail_count;
+          ntied += tail_tied;
         }
-        cur = run_finalize<KIND>(a, count);
+        cur = KIND == 3 ? (ntied > 0 ? a / static_cast<float>(ntied) : 0.0f)
+                        : run_finalize<KIND>(a, count);
       }
       v[k] = cur;
     }
@@ -302,8 +323,10 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   }
 }
 
-// K2 alone (scatter_plane2's backward): each valid row (mask set, 0 <= cell <
-// reso^2) reads the row-major plane (B, reso, reso, F) at its Morton cell,
+// K2 alone (scatter_plane2's backward; K12's backward at a coarser level,
+// cell = id >> shift, with no mask: every row whose cell is in range): each
+// valid row (mask set or no mask, 0 <= cell < reso^2) reads the row-major
+// plane (B, reso, reso, F) at its Morton cell,
 // divided by max(count, 1); every other row gets 0. pool_runs' partition:
 // warp = (batch entry, 32-row span, chunk of 32 features), chunk fastest;
 // lane k takes row k's cell id and mask byte (one coalesced load each), its
@@ -330,8 +353,8 @@ constexpr int kGatherGroup = 16;  // rows loaded at once
 __global__ void __launch_bounds__(kThreads, 3)
 pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
             const uint8_t* __restrict__ mask, const int* __restrict__ counts,
-            float* __restrict__ out, int N, int F, int reso, unsigned warps, unsigned spans,
-            unsigned chunks) {
+            float* __restrict__ out, int N, int F, int reso, int shift, unsigned warps,
+            unsigned spans, unsigned chunks) {
   const int lane = threadIdx.x & 31;
   const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (warp >= warps) return;  // warp-uniform
@@ -347,8 +370,9 @@ pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
   int dst = -1;
   float n = 1.0f;
   if (row < N) {
-    const int c = cells[base + row];
-    if (mask[base + row] != 0 && c >= 0 && c < ncell) {
+    const int raw = cells[base + row];
+    const int c = raw >> shift;
+    if ((mask == nullptr || mask[base + row] != 0) && raw >= 0 && c < ncell) {
       dst = morton_to_rowmajor(c, reso);
       const int k = counts[(long long)b * ncell + dst];
       n = static_cast<float>(k > 1 ? k : 1);
@@ -554,7 +578,7 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
   auto write = [&](int k, const float (&a)[VEC], int count) {
     const int dst = __shfl_sync(kFull, my_dst, k);
     if (fin) store_mean<VEC>(pb + (long long)dst * F, a, count);
-    if (!TILED && fc == 0 && lane == 0) counts[b * ncell + dst] = count;
+    if (counts != nullptr && fc == 0 && lane == 0) counts[b * ncell + dst] = count;
   };
 
   // the span's own runs in row order, a group of rows at a time
@@ -647,19 +671,21 @@ const char* t2h_error_string(int err) {
 }
 
 // x (B,N,F) f32, cells (B,N) i32 Morton ids (each cell's rows contiguous),
-// and either mask (B,N) u8 (K1 + K2, toff null) or toff (B,ncell/256+1) i32
-// row offsets of the 256-cell tiles (K10, mask null; ncell a multiple of 256,
-// kind 0 or 1, no tie) -> out (B,N,F): each valid row gets its run's
-// max (kind 0), mean (1) or sum (2), the other rows 0. tie_a/tie_b (B,N,F)
-// or both null: with them (kind 2 only) a row keeps its value only where
-// tie_a == tie_b. One launch.
+// and either mask (B,N) u8 (K1 + K2, toff null; kind 0-2) or toff
+// (B,ncell/256+1) i32 row offsets of the 256-cell tiles (K10, mask null;
+// ncell a multiple of 256; kind 0 or 1, or 3 with the tie) -> out (B,N,F):
+// each valid row gets its run's max (kind 0), mean (1), sum (2) or sum split
+// among its tied rows (3), the other rows 0. tie_a/tie_b (B,N,F) or both
+// null: with them (kind 2 or 3) a row keeps its value only where tie_a ==
+// tie_b; kind 3 needs them. One launch.
 int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const int* toff,
                   const float* tie_a, const float* tie_b, float* out, int B, int N, int F,
                   int ncell, int kind, cudaStream_t stream) {
   const bool tie = tie_a != nullptr;
   const bool tiled = toff != nullptr;
-  if (kind < 0 || kind > 2 || tie != (tie_b != nullptr) || (tie && kind != 2) ||
-      tiled == (mask != nullptr) || (tiled && (tie || kind == 2 || ncell % 256 != 0)))
+  if (kind < 0 || kind > 3 || tie != (tie_b != nullptr) || (tie && kind < 2) ||
+      (kind == 3 && !(tie && tiled)) || tiled == (mask != nullptr) ||
+      (tiled && (kind == 2 || ncell % 256 != 0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * 32;
   if (threads == 0 || F == 0) return static_cast<int>(cudaGetLastError());
@@ -667,7 +693,8 @@ int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const i
 #define T2H_RUNS(K, T, TL)                                                          \
   pool_runs<K, T, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a, tie_b, \
                                                        out, B, N, F, ncell)
-  if (tiled && kind == 0) T2H_RUNS(0, false, true);
+  if (tiled && kind == 3) T2H_RUNS(3, true, true);
+  else if (tiled && kind == 0) T2H_RUNS(0, false, true);
   else if (tiled) T2H_RUNS(1, false, true);
   else if (tie) T2H_RUNS(2, true, false);
   else if (kind == 0) T2H_RUNS(0, false, false);
@@ -677,11 +704,12 @@ int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const i
   return static_cast<int>(cudaGetLastError());
 }
 
-// plane (B,reso,reso,F) row-major, cells (B,N) Morton ids, mask (B,N), counts
-// (B,reso,reso) -> out (B,N,F) = plane[cell] / max(count,1) on the valid
-// rows, 0 on the others. One launch; any row order.
+// plane (B,reso,reso,F) row-major, cells (B,N) Morton ids (the cell at reso
+// is cells >> shift), mask (B,N) or null (every row whose cell is in range),
+// counts (B,reso,reso) -> out (B,N,F) = plane[cell] / max(count,1) on the
+// valid rows, 0 on the others. One launch; any row order.
 int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
-                    const int* counts, float* out, int B, int N, int F, int reso,
+                    const int* counts, float* out, int B, int N, int F, int reso, int shift,
                     cudaStream_t stream) {
   const long long spans = (N + kSpan - 1) / kSpan;
   const long long chunks = (F + 31) / 32;
@@ -689,7 +717,7 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
   if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
   if (warps > 0)
     pool_gather<<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads, 0,
-                  stream>>>(plane, cells, mask, counts, out, N, F, reso,
+                  stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
                             static_cast<unsigned>(warps), static_cast<unsigned>(spans),
                             static_cast<unsigned>(chunks));
   return static_cast<int>(cudaGetLastError());
@@ -704,7 +732,8 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
 // K11-K14: mask null, toff (B,toff_row) i32, tile t of the reso^2/256 tiles
 // spanning rows [toff[t * toff_step], toff[(t + 1) * toff_step]) (K12: tile
 // offsets, step 1; K11, K13: per-cell offsets, step 256; K14: finest tile
-// offsets, step 4^level; reso^2 a multiple of 256), counts null. Three
+// offsets, step 4^level; reso^2 a multiple of 256), counts null or, not in
+// Morton order, written as K3's (K12 in training, for its backward). Three
 // launches: clear, mark, runs + zeros.
 int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      const int* toff, float* plane, int* counts, uint8_t* flags, int B,
@@ -714,8 +743,8 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
   const long long ncells = (long long)B * reso * reso;
   const bool vec = F % 4 == 0;
   const long long items = ncells * (vec ? F / 4 : F);
-  if (tiled == (mask != nullptr) || tiled == (counts != nullptr) || items >= (1LL << 31) ||
-      (morton && !tiled) ||
+  if (tiled == (mask != nullptr) || (!tiled && counts == nullptr) || items >= (1LL << 31) ||
+      (morton && (!tiled || counts != nullptr)) ||
       (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
                  toff_row < (reso * reso / 256) * toff_step + 1)))
     return static_cast<int>(cudaErrorInvalidValue);

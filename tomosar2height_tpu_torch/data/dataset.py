@@ -5,9 +5,10 @@ its arguments: it reads the builder's ``chunk_info.yaml`` and each chunk's
 ``input_point_cloud.npz`` under ``cfg_dataset['path']``, the GT nDSM
 (``dsm_gt_path``) and the satellite image (``satellite_image.folder`` /
 ``pairs``), and hands them to :class:`SceneDataset`, whose patch math is the
-JAX dataset's. Not here yet: flip/rotate augmentation (ROADMAP:
-augmentation), the u8 image wire and the device crop (ROADMAP: wires and the
-host side) and stereo image pairs (ROADMAP: alternates); each raises.
+JAX dataset's: flip/rotate augmentation, the f32 or u8 image wire
+(``satellite_image.wire``) and the host or device crop
+(``satellite_image.crop``). Not here yet: stereo image pairs (ROADMAP:
+alternates), which raise.
 """
 
 from __future__ import annotations
@@ -40,12 +41,6 @@ class TomoSARDataset(SceneDataset):
         image = None
         images_dic = cfg_dataset.get("satellite_image") if load_image else None
         if images_dic is not None:
-            wire = str(images_dic.get("wire", "float32"))
-            crop = str(images_dic.get("crop", "host"))
-            if wire != "float32" or crop != "host":
-                raise NotImplementedError(
-                    f"satellite_image.wire={wire!r}, crop={crop!r}: the port ships f32 crops "
-                    "cut on the host (ROADMAP: wires and the host side)")
             pairs = list(images_dic["pairs"])
             if len(pairs) != 1:
                 raise NotImplementedError(f"satellite_image.pairs={pairs}: stereo image "

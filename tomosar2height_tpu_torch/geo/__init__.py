@@ -22,6 +22,8 @@ from tomosar2height_tpu_torch.geo.raster import (  # noqa: F401
 )
 from tomosar2height_tpu_torch.geo.tiff import read_tiff  # noqa: F401
 from tomosar2height_tpu_torch.geo.transform import (  # noqa: F401
+    FLIP_MATRICES,
+    ROT_MATRICES,
     Affine,
     apply_transform,
     invert_transform,

@@ -1,10 +1,12 @@
 """4x4 homogeneous point transforms (float64) and the 2D affine geo-transform.
 Counterpart of ``tomosar2height_tpu/geo/transform.py`` (``apply_transform``,
-``invert_transform``, ``Affine``), with the same arithmetic."""
+``invert_transform``, ``Affine``, the augmentation's ``ROT_MATRICES`` and
+``FLIP_MATRICES``), with the same arithmetic."""
 
 from __future__ import annotations
 
 import math
+from typing import Dict, Sequence
 
 import numpy as np
 
@@ -75,3 +77,34 @@ def apply_transform(points: np.ndarray, m: np.ndarray) -> np.ndarray:
 def invert_transform(m: np.ndarray) -> np.ndarray:
     """Inverse of a 4x4 homogeneous transform."""
     return np.linalg.inv(np.asarray(m, dtype=np.float64))
+
+
+def rotation_matrix_z(angle_rad: float) -> np.ndarray:
+    """4x4 homogeneous rotation about the +z axis (right-handed, CCW positive)."""
+    c, s = math.cos(angle_rad), math.sin(angle_rad)
+    m = np.eye(4, dtype=np.float64)
+    m[0, 0], m[0, 1] = c, -s
+    m[1, 0], m[1, 1] = s, c
+    return m
+
+
+def reflection_matrix(normal: Sequence[float]) -> np.ndarray:
+    """4x4 householder reflection through the plane with unit ``normal`` at the origin."""
+    n = np.asarray(normal, dtype=np.float64)
+    n = n / np.linalg.norm(n)
+    m = np.eye(4, dtype=np.float64)
+    m[:3, :3] -= 2.0 * np.outer(n, n)
+    return m
+
+
+# 90-degree clockwise rotations about z (k quarter turns), reference dataset.py:30-35
+ROT_MATRICES: Dict[int, np.ndarray] = {
+    k: rotation_matrix_z(-k * math.pi / 2.0) for k in range(4)
+}
+
+# Axis flips: -1 identity, 0 -> x := -x, 1 -> y := -y, reference dataset.py:38-42
+FLIP_MATRICES: Dict[int, np.ndarray] = {
+    -1: np.eye(4, dtype=np.float64),
+    0: reflection_matrix([1.0, 0.0, 0.0]),
+    1: reflection_matrix([0.0, 1.0, 0.0]),
+}

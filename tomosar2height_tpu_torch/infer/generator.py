@@ -10,9 +10,17 @@ Pixel origins and the written file are bit-identical to the JAX package's.
 The forward of batch k runs on the card while the host blends batch k-1: the
 patch rasters come back through a pinned buffer with an event, so the only
 waits are on results the host needs. With ``use_image`` each batch's image
-crops upload beside the points (the f32 image wire). Multi-GPU meshes, the
-on-device blend, the f16 raster wire and the u8 and device-crop image wires
-are not ported yet.
+crops upload beside the points: normalized f32 crops, or raw u8 crops that
+the card normalizes with the dataset's ``image_norm`` (the u8 wire,
+generator.py:102-104, :280-284); on the device-crop wire the scene image
+uploads once and each tile's crop is sliced from it on the card and flipped
+y-up (generator.py:105-112, :265-279). The wires of the JAX generator:
+``wire_dtype='float16'`` brings the tile rasters down in f16, halving the
+download (the JAX package rounds its stitched raster instead, on the device
+blend the port does not have yet), ``wire_cells='host'``
+uploads the aligned layouts' cell ids instead of the model recomputing them
+(generator.py:154-159, :307). Multi-GPU meshes and the on-device blend are
+not ported yet (ROADMAP: data parallelism).
 """
 
 from __future__ import annotations
@@ -26,7 +34,8 @@ from typing import Optional
 import numpy as np
 import torch
 
-from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset, tile_cells_for_impl
+from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
+from tomosar2height_tpu_torch.data.pipeline import loader_kwargs, prefetch_depth
 from tomosar2height_tpu_torch.geo import RasterData
 from tomosar2height_tpu_torch.geo.raster import cal_dsm_shape
 
@@ -59,21 +68,37 @@ class DSMGenerator:
 
     def __init__(self, model: torch.nn.Module, data_loader, dsm_pixel_size,
                  half_blend_percent=None, crs_epsg: Optional[int] = 25832,
-                 use_image: bool = False):
+                 use_image: bool = False, wire_dtype: str = "float32",
+                 wire_cells: str = "device"):
         """
         Args:
             model: the port's ``TomoSAR2Height``, on its device.
             data_loader: PatchLoader over a regular-patching dataset (with
-                image crops when ``use_image``).
+                image crops, or their origins on the device-crop wire, when
+                ``use_image``).
+            wire_dtype: 'float32' or 'float16', the tile rasters' download.
+            wire_cells: 'device' (the model recomputes the aligned layouts'
+                cell ids) or 'host' (they upload).
         """
         self.model = model
         self.use_image = bool(use_image)
         self.device = next(model.parameters()).device
         self.data_loader = data_loader
+        self.wire_dtype = np.dtype(wire_dtype)
+        if self.wire_dtype not in (np.float32, np.float16):
+            raise ValueError(f"Invalid wire_dtype: {wire_dtype}")
+        if wire_cells not in ("device", "host"):
+            raise ValueError(f"Invalid wire_cells: {wire_cells}")
+        self.wire_cells = wire_cells
+        dataset = data_loader.dataset
+        norm = getattr(dataset, "image_norm", None) if self.use_image else None
+        self._image_norm = None if norm is None else tuple(
+            torch.as_tensor(x, device=self.device) for x in norm)
+        self._device_image = self.use_image and getattr(dataset, "image_crop_device", False)
+        self._scene_dev = None
         self.pixel_size = np.asarray(dsm_pixel_size, dtype=np.float64)
         self.half_blend_percent = list(half_blend_percent or [0.5, 0.5])
         self.crs_epsg = crs_epsg
-        dataset = data_loader.dataset
         assert not dataset.random_sample, "Only regular patching is accepted."
         self.patch_size = np.asarray(dataset.patch_size, dtype=np.float64)
         self._calculate_bounds(dataset.chunk_info_ls)
@@ -97,15 +122,33 @@ class DSMGenerator:
             self.t_bound = max(self.t_bound, t)
 
     def _forward_impl(self, points, mask, image, cells, offsets) -> torch.Tensor:
+        if image is not None and self._image_norm is not None:
+            mean, std = self._image_norm
+            image = (image.to(torch.float32) - mean) / std
         pa, _ = self.model(points, mask, image, cells, offsets, footprint=False)
         # un-flip rows: the model works y-up, the raster is north-up
-        return pa[..., 0].flip(1)
+        h = pa[..., 0].flip(1)
+        return h.to(torch.float16) if self.wire_dtype == np.float16 else h
+
+    def _scene_image(self) -> torch.Tensor:
+        """The device-crop wire's scene image (H, W, C), uploaded once."""
+        if self._scene_dev is None:
+            scene = self.data_loader.dataset.scene_image_hwc()
+            self._scene_dev = torch.from_numpy(scene).to(self.device)
+        return self._scene_dev
+
+    def _device_crops(self, origins: np.ndarray) -> torch.Tensor:
+        """(B, h, w, C) crops sliced from the resident scene image at the
+        (B, 2) host origins, rows flipped y-up: the host crop's bytes."""
+        h, w = (int(v) for v in self.data_loader.dataset._image_patch_shape)
+        scene = self._scene_image()
+        return torch.stack([scene[r:r + h, c:c + w] for r, c in origins.tolist()]).flip(1)
 
     def _dispatch(self, batch) -> torch.Tensor:
         """Upload one batch and issue its forward (asynchronous on a card).
-        The aligned layouts' cell ids are not uploaded: the model recomputes
-        them from points + mask, bit-exact (the JAX default wire_cells); the
-        plain sorted layout ships them."""
+        On ``wire_cells='device'`` the aligned layouts' cell ids are not
+        uploaded: the model recomputes them from points + mask, bit-exact (the
+        JAX default); the plain sorted layout ships them either way."""
         def up(key):
             t = torch.from_numpy(np.ascontiguousarray(batch[key]))
             if self.device.type == "cuda":  # pinned: the copy overlaps the host
@@ -113,15 +156,20 @@ class DSMGenerator:
             return t.to(self.device)
 
         offsets = up("cell_offsets") if "cell_offsets" in batch else None
-        cells = up("cell") if offsets is not None and not self.data_loader.aligned else None
-        image = up("image") if self.use_image else None
+        ship_cells = not self.data_loader.aligned or self.wire_cells == "host"
+        cells = up("cell") if offsets is not None and ship_cells else None
+        image = None
+        if self._device_image:
+            image = self._device_crops(batch["image_origin"])
+        elif self.use_image:
+            image = up("image")
         return self._forward_impl(up("points"), up("point_mask"), image, cells, offsets)
 
     def _fetch(self, h_dev: torch.Tensor):
         """Start the device -> host copy; returns (host tensor, ready event)."""
         if h_dev.device.type != "cuda":
-            return h_dev.float(), None
-        h_host = torch.empty(h_dev.shape, dtype=torch.float32, pin_memory=True)
+            return h_dev, None
+        h_host = torch.empty(h_dev.shape, dtype=h_dev.dtype, pin_memory=True)
         h_host.copy_(h_dev, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
@@ -218,28 +266,29 @@ class DSMGenerator:
         return tiff_data
 
 
-def make_generator(model: torch.nn.Module, cfg, chunks, image=None) -> DSMGenerator:
+def make_generator(model: torch.nn.Module, cfg, chunks, image=None,
+                   wire_dtype: str = "float32", wire_cells: str = "device") -> DSMGenerator:
     """The serving stack of the JAX package's ``test.py`` over in-memory
     chunks (and, when ``cfg['use_image']``, the scene's satellite ``image``
-    as ``(data (C, H, W), raster)``): dataset -> loader -> generator. With
-    ``dataset.points.sort`` the loader ships the layout that
-    ``model.encoder_kwargs.sorted_impl`` reads (test.py:53-63): aligned with
-    256-cell tiles for ``fused``, 1024 for ``fused2``, the plain sorted layout
-    for ``pallas``/``cumsum``."""
-    cfg_data = cfg["dataset"]
-    sort = bool(cfg_data["points"].get("sort", False))
-    impl = cfg["model"]["encoder_kwargs"].get("sorted_impl", "cumsum")
+    as ``(data (C, H, W), raster)``, on the config's image wire and crop):
+    dataset -> loader -> generator. With ``dataset.points.sort`` the loader
+    ships the layout that ``model.encoder_kwargs.sorted_impl`` reads
+    (test.py:53-63): aligned with 256-cell tiles for ``fused``, 1024 for
+    ``fused2``, the plain sorted layout for ``pallas``/``cumsum``; its
+    prefetch thread and worker pool are ``dataloader.prefetch`` and
+    ``dataloader.n_workers``, its point wire ``dataset.points.wire``
+    (:func:`~tomosar2height_tpu_torch.data.pipeline.loader_kwargs`,
+    :func:`~tomosar2height_tpu_torch.data.pipeline.prefetch_depth`).
+    ``wire_dtype`` and ``wire_cells`` go to the generator."""
     use_image = bool(cfg["use_image"])
     if use_image and image is None:
         raise ValueError("use_image: pass the scene's satellite image")
     loader = PatchLoader(
-        SceneDataset(chunks, cfg_data, "test", image=image if use_image else None),
-        cfg["training"]["val_batch_size"],
-        cfg_data["points"]["bucket_sizes"],
-        fixed_bucket=cfg_data["points"]["train_bucket"],
-        sort_reso=cfg["model"]["encoder_kwargs"]["plane_resolution"] if sort else None,
-        aligned=impl in ("fused", "fused2"), tile_cells=tile_cells_for_impl(impl))
+        SceneDataset(chunks, cfg["dataset"], "test", image=image if use_image else None),
+        cfg["training"]["val_batch_size"], prefetch=prefetch_depth(cfg),
+        **loader_kwargs(cfg))
     dsm = cfg["dsm_generation"]
     return DSMGenerator(model, loader, dsm["pixel_size"],
                         half_blend_percent=dsm.get("half_blend_percent"),
-                        crs_epsg=dsm.get("crs_epsg"), use_image=use_image)
+                        crs_epsg=dsm.get("crs_epsg"), use_image=use_image,
+                        wire_dtype=wire_dtype, wire_cells=wire_cells)

@@ -40,7 +40,7 @@ from tomosar2height_tpu_torch.models.blocks import (
     upconv2x2,
 )
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import fused_level, level_shift
-from tomosar2height_tpu_torch.ops.fused import tile_gather, tile_scatter_mean
+from tomosar2height_tpu_torch.ops.fused import sorted_sample, tile_gather, tile_scatter_mean
 from tomosar2height_tpu_torch.ops.sampling import bilinear_matrix, grid_sample_2d
 from tomosar2height_tpu_torch.ops.scatter import (
     cell_index,
@@ -86,13 +86,20 @@ def _scatter_plane(xy, c, reso, mask, cache) -> torch.Tensor:
 def _sample_plane(x, xy, mask, cache) -> torch.Tensor:
     """Bilinear sample of the NCHW plane at the points (reference
     alto.py:90-95): K9 on the ``fused`` layout at resolution >= 32
-    (alto.py:91-105), else ``grid_sample_2d``."""
+    (alto.py:91-105); on the other sorted layouts (and ``fused`` below 32)
+    ``sorted_sample``: ``grid_sample_2d`` whose backward is K5's d_plane
+    pass, as K9's is, so that they train bit-equal run to run; on the
+    unsorted plain path ``grid_sample_2d``."""
     plane = x.permute(0, 2, 3, 1)
     reso = plane.shape[1]
-    if cache.get("impl") == "fused" and reso >= 32:
+    impl = cache.get("impl")
+    if impl == "fused" and reso >= 32:
         toff = coarsen_tile_offsets(cache["tile_offsets"],
                                     level_shift(reso, cache["finest"]) // 2)
-        return tile_gather(plane.contiguous(), cache["xy"], mask, toff, reso)
+        return tile_gather(plane.contiguous(), cache["xy"], mask, cache["cells"], toff, reso,
+                           cache["finest"])
+    if impl is not None:
+        return sorted_sample(plane, cache["xy"], mask, cache["cells"], cache["finest"])
     return grid_sample_2d(plane, xy)
 
 

@@ -14,6 +14,7 @@ from torch.utils.checkpoint import checkpoint
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
 from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
 from tomosar2height_tpu_torch.models.unet import UNet
+from tomosar2height_tpu_torch.ops.sorted_scatter import dequantize_points
 
 
 class TomoSAR2Height(nn.Module):
@@ -56,10 +57,14 @@ class TomoSAR2Height(nn.Module):
         the (B, H, W, 3) NHWC normalized image (+ aligned-layout metadata) ->
         (height (B, S, S, out_dim) in meters, footprint logits or None): the
         JAX model's signature. ``footprint=False`` skips the footprint head,
-        as the JAX generator's jit drops it (infer/generator.py:285)."""
-        if not input_cloud.is_floating_point():
-            raise NotImplementedError(
-                "only float points are ported; the u16 point wire is ROADMAP: wires")
+        as the JAX generator's jit drops it (infer/generator.py:285). Points
+        on the u16 wire (uint16) are dequantized first, by the loader's f32
+        multiply (models/model.py:78-84), so the cell ids recomputed from them
+        are the loader's."""
+        if input_cloud.dtype == torch.uint16:
+            input_cloud = dequantize_points(input_cloud)
+        elif not input_cloud.is_floating_point():
+            raise TypeError(f"points: float or uint16 (the u16 wire), got {input_cloud.dtype}")
         if self.image_encoder is not None and input_image is None:
             raise ValueError("use_image: the model needs input_image (B, H, W, 3)")
         args = (input_cloud, cloud_mask, cloud_cells, cloud_offsets)

@@ -38,7 +38,7 @@ from tomosar2height_tpu_torch.ops.scatter import (
 )
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
     PAD_CELL_SENTINEL,
-    gather_cells_sorted,
+    gather_sorted_rows,
     morton_cells_device,
     scatter_mean_morton,
     scatter_mean_plane_morton,
@@ -113,7 +113,7 @@ class LocalPoolPointnet(nn.Module):
                     pooled = segment_max(values, cells, reso * reso, mask)
                 else:
                     pooled = scatter_mean_morton(values, offsets, cells, reso, impl)
-                return gather_cells_sorted(pooled, cells)
+                return gather_sorted_rows(pooled, cells, offsets)
         else:
             index = cell_index(xy, reso)
             pool = pool_local_max if self.scatter_type == "max" else pool_local_mean

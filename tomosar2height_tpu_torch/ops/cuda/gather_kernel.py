@@ -12,12 +12,24 @@ and only the last tile offset. Rows past the last tile's range come out 0
 sampled and left for the caller's mask
 (:func:`tomosar2height_tpu_torch.ops.fused.tile_gather`). A CPU tensor takes
 :func:`tile_gather_plain`, a CUDA tensor the kernel; there is no fallback.
+
+Its backward (:func:`tile_gather_bwd`, the JAX ``_tile_gather_bwd``,
+``ops/pallas/fused.py:65``: grid_sample's vjp of the masked cotangent into
+the plane) is K5's d_plane pass (``csrc/level_bwd.cu``
+``t2h_level_d_plane``, :func:`~tomosar2height_tpu_torch.ops.cuda.level_kernel.level_d_plane`):
+a mark pass writes each finest cell's row range, then a warp a (pixel,
+feature chunk) adds the rows of its rectangle of finest cells in a fixed
+order, each pixel written once. Its contract holds on the fused layout as on
+fused2's: each finest cell's rows are contiguous (Morton-sorted inside each
+256-cell tile, pads with the sentinel id only at tile ends, which the mark
+pass skips).
 """
 
 from __future__ import annotations
 
 import torch
 
+from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
 
@@ -58,3 +70,16 @@ def tile_gather(plane, xy, tile_offsets) -> torch.Tensor:
     runtime.check(err, "tile_gather")
     runtime.LAUNCHES["tile_gather"] += 1
     return out
+
+
+def tile_gather_bwd(g, xy, cells, mask, reso: int, finest: int) -> torch.Tensor:
+    """K9's backward: the cotangent (B, R, R, F) of the plane for the
+    samples' cotangent ``g`` (B, N, F), the masked rows' ignored; xy (B, N, 2)
+    f32 and cells (B, N) int32 finest Morton ids at ``finest`` as K9's
+    layout holds them. One K5 d_plane pass on a card
+    (``LAUNCHES['level_d_plane']``, and ``['tile_gather_bwd']``); on the CPU
+    the plain transpose (``level_d_plane_plain``)."""
+    d_plane = lk.level_d_plane(g, xy, cells, mask, reso, finest)
+    if not runtime.on_cpu(g):
+        runtime.LAUNCHES["tile_gather_bwd"] += 1
+    return d_plane

@@ -196,7 +196,7 @@ def scatter_plane2_bwd(g_plane, cells, mask, counts) -> torch.Tensor:
     out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
     err = runtime.library().t2h_pool_gather(
         g_plane.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-        out.data_ptr(), b, n, f, reso, runtime.stream_ptr(dev))
+        out.data_ptr(), b, n, f, reso, 0, runtime.stream_ptr(dev))
     runtime.check(err, "pool_gather")
     runtime.LAUNCHES["pool_gather"] += 1
     runtime.LAUNCHES["scatter_plane2_bwd"] += 1

@@ -16,6 +16,15 @@ only at tile ends). The TPU kernel's id lane and one-hot matmuls exist for
 the MXU; the kernel here reads the ids as they are. A CPU tensor takes
 :func:`tile_pool_plain`, a CUDA tensor the kernel; there is no fallback.
 Differentiable through :func:`tomosar2height_tpu_torch.ops.fused.tile_pool`.
+
+Its backward (:func:`tile_pool_bwd`) is the same kernel again, as the JAX
+``_tile_pool_bwd`` (``ops/pallas/fused.py:118``, the vjp of ``segment_max``/
+``segment_mean`` and the gather-back) computes it: for 'mean' the run mean
+of the cotangent (K10's forward on g); for 'max' the run's cotangent sum
+split evenly among the run's rows that tie with the max, feature by
+feature (``t2h_pool_runs`` kind 3: the tie gate counts them, no atomics).
+pool2's backward on fused2 gives each tied row the whole sum instead (the
+JAX pool2's rule); the two layouts keep their packages' rules.
 """
 
 from __future__ import annotations
@@ -24,9 +33,15 @@ import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda.scatter_kernel import TILE_CELLS, tile_rows
-from tomosar2height_tpu_torch.ops.scatter import gather_cells, segment_max, segment_mean
+from tomosar2height_tpu_torch.ops.scatter import (
+    gather_cells,
+    segment_max,
+    segment_mean,
+    segment_sum,
+)
 
 _KINDS = {"max": 0, "mean": 1}
+_SPLIT = 3  # t2h_pool_runs: the run sum split among its tied rows
 
 
 def tile_pool_plain(values, cells, tile_offsets, kind: str) -> torch.Tensor:
@@ -63,3 +78,49 @@ def tile_pool(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     runtime.check(err, "tile_pool")
     runtime.LAUNCHES["tile_pool"] += 1
     return out
+
+
+def tile_pool_bwd_plain(g, values, out, cells, tile_offsets, kind: str) -> torch.Tensor:
+    """The cotangent of :func:`tile_pool_plain` w.r.t. ``values`` at ``g``
+    (B, Npad, F), ``out`` its forward, written out as autograd computes it
+    (and JAX's segment_max/segment_mean vjps): 'mean' -> the mean pool of g;
+    'max' -> each cell's sum of g over its valid rows, split evenly among the
+    rows where ``values == out``, feature by feature, 0 on the others."""
+    ncell = (tile_offsets.shape[1] - 1) * TILE_CELLS
+    idx, valid = tile_rows(cells, tile_offsets, 0, ncell)
+    g = torch.where(valid[..., None], g, torch.zeros_like(g))
+    if kind == "mean":
+        return tile_pool_plain(g, cells, tile_offsets, "mean")
+    tied = valid[..., None] & (values == out)
+    sums = segment_sum(g, idx, ncell, valid)
+    ties = segment_sum(tied.to(g.dtype), idx, ncell, valid)
+    share = gather_cells(sums / ties.clamp_min(1.0), idx)
+    return torch.where(tied, share, torch.zeros_like(share))
+
+
+def tile_pool_bwd(g, values, out, cells, tile_offsets, kind: str) -> torch.Tensor:
+    """K10's backward, one launch of the run kernel under the tile rule:
+    'mean' -> the run mean of ``g``; 'max' -> the run sum of ``g`` divided by
+    the number of the run's rows where ``values == out`` (``out`` K10's
+    forward), on those rows, 0 elsewhere. Shapes as :func:`tile_pool`.
+    Counted in ``LAUNCHES['tile_pool_bwd']``."""
+    if kind not in _KINDS:
+        raise ValueError(f"kind must be 'max' or 'mean', got {kind!r}")
+    if runtime.on_cpu(g):
+        return tile_pool_bwd_plain(g, values, out, cells, tile_offsets, kind)
+    dev = g.device
+    b, n, f = g.shape
+    t = tile_offsets.shape[1] - 1
+    for name, x in (("g", g), ("values", values), ("out", out)):
+        runtime.require(x, name, torch.float32, (b, n, f), dev)
+    runtime.require(cells, "cells", torch.int32, (b, n), dev)
+    runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
+    dv = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    tie = kind == "max"
+    err = runtime.library().t2h_pool_runs(
+        g.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(),
+        values.data_ptr() if tie else 0, out.data_ptr() if tie else 0, dv.data_ptr(), b, n,
+        f, t * TILE_CELLS, _SPLIT if tie else _KINDS["mean"], runtime.stream_ptr(dev))
+    runtime.check(err, "tile_pool_bwd")
+    runtime.LAUNCHES["tile_pool_bwd"] += 1
+    return dv

@@ -39,7 +39,8 @@ LAUNCHES = {"pool2": 0, "pool_gather": 0, "scatter_plane2": 0,
             "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
             "conv_decoder": 0, "tile_gather": 0, "tile_pool": 0,
             "scatter_mean_plane": 0, "aligned_scatter_mean_plane": 0, "scatter_mean": 0,
-            "scatter_mean_plane_v3": 0}
+            "scatter_mean_plane_v3": 0, "tile_gather_bwd": 0, "tile_pool_bwd": 0,
+            "aligned_scatter_mean_plane_bwd": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`."""
 
 BUILD_INFO: dict = {}
@@ -55,7 +56,7 @@ _SIGNATURES = {
     # name: argtypes (every function returns an int: cudaError_t, or the
     # count that t2h_level_bwd_reduce_tiles computes)
     "t2h_pool_runs": [_P] * 7 + [_I] * 5 + [_P],
-    "t2h_pool_gather": [_P] * 5 + [_I] * 4 + [_P],
+    "t2h_pool_gather": [_P] * 5 + [_I] * 5 + [_P],
     "t2h_scatter_runs": [_P] * 7 + [_I] * 8 + [_P],
     "t2h_fused_level": [_P] * 11 + [_I] * 5 + [_P],
     "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],

@@ -35,7 +35,13 @@ A CPU tensor takes the plain version (``*_plain``: a masked segment mean over
 the rows that belong to their tile), a CUDA tensor the kernel; there is no
 fallback. K11, K13 and K14 are forward-only, as the JAX functions are (bare
 ``jax.jit``s with no vjp): they raise when a gradient is asked for. K12 is
-differentiable through :func:`tomosar2height_tpu_torch.ops.fused.tile_scatter_mean`.
+differentiable through :func:`tomosar2height_tpu_torch.ops.fused.tile_scatter_mean`:
+its forward then also writes the cells' counts, and its backward
+(:func:`aligned_scatter_mean_plane_bwd`, the JAX ``_tile_scatter_bwd``,
+``ops/pallas/fused.py:149``: each row takes its cell's plane cotangent over
+the cell's count, pad rows 0) is K2 alone (``csrc/pool2.cu``
+``pool_gather``) at the level's shift with no mask: a warp a 32-row span,
+each run's cell read once, each row written once.
 """
 
 from __future__ import annotations
@@ -44,8 +50,8 @@ import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import level_shift
-from tomosar2height_tpu_torch.ops.scatter import segment_mean
-from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane
+from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
+from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
 
 TILE_CELLS = 256
 """Cells of a 16x16 Morton tile."""
@@ -67,12 +73,18 @@ def tile_rows(cells, toff, shift: int, ncell: int):
     return torch.where(valid, cell, torch.zeros_like(cell)), valid
 
 
-def _tile_mean_plain(values, cells, toff, reso: int, shift: int, morton_out: bool):
-    """The shared function over tile offsets ``toff`` (B, T + 1)."""
+def _tile_mean_plain(values, cells, toff, reso: int, shift: int, morton_out: bool,
+                     with_counts: bool = False):
+    """The shared function over tile offsets ``toff`` (B, T + 1); with
+    ``with_counts`` also the row-major (B, reso, reso) int32 counts."""
     ncell = reso * reso
     idx, valid = tile_rows(cells, toff, shift, ncell)
-    vec = segment_mean(values, idx, ncell, valid)
-    return vec if morton_out else morton_to_plane(vec, reso)
+    counts = segment_counts(idx, ncell, valid)
+    vec = segment_mean(values, idx, ncell, valid, counts=counts)
+    out = vec if morton_out else morton_to_plane(vec, reso)
+    if with_counts:
+        return out, morton_to_plane(counts, reso)[..., 0].to(torch.int32)
+    return out
 
 
 def scatter_mean_plane_plain(values, cells, offsets, reso: int):
@@ -87,11 +99,28 @@ def scatter_mean_plain(values, cells, offsets, reso: int):
     return _tile_mean_plain(values, cells, offsets[:, ::TILE_CELLS], reso, 0, True)
 
 
-def aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso: int, finest: int):
+def aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso: int, finest: int,
+                                     with_counts: bool = False):
     """K12's function: (B, Npad, F) values, (B, Npad) finest ids, (B, T + 1)
-    tile offsets at ``reso`` -> (B, reso, reso, F)."""
+    tile offsets at ``reso`` -> (B, reso, reso, F), and with ``with_counts``
+    the (B, reso, reso) int32 counts."""
     return _tile_mean_plain(values, cells, tile_offsets, reso, level_shift(reso, finest),
-                            False)
+                            False, with_counts)
+
+
+def aligned_scatter_mean_plane_bwd_plain(g_plane, cells, counts, reso: int,
+                                         finest: int) -> torch.Tensor:
+    """K12's backward written out as the JAX ``_tile_scatter_bwd``: each row
+    whose cell ``cells >> shift`` is in range takes ``g_plane`` at its cell
+    over max(count, 1); pad rows 0. g_plane (B, reso, reso, F), counts
+    (B, reso, reso) -> (B, Npad, F)."""
+    ncell = reso * reso
+    cell = cells.long() >> level_shift(reso, finest)
+    valid = (cells >= 0) & (cell < ncell)
+    per_cell = plane_to_morton(g_plane / counts.clamp_min(1).to(g_plane.dtype)[..., None])
+    idx = torch.where(valid, cell, torch.zeros_like(cell))
+    dv = torch.gather(per_cell, 1, idx[..., None].expand(*idx.shape, g_plane.shape[-1]))
+    return torch.where(valid[..., None], dv, torch.zeros_like(dv))
 
 
 def scatter_mean_plane_v3_plain(values, cells, tile_offsets, reso: int, finest: int):
@@ -127,25 +156,27 @@ def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
 
 
 def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int,
-                  morton: bool = False):
+                  morton: bool = False, with_counts: bool = False):
     """Launch ``t2h_scatter_runs`` with the tile check (K11-K14): a row adds
     into its cell ``cells >> shift`` when it lies in the rows
     [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t. Returns the
     row-major plane (B, reso, reso, F), or with ``morton`` the Morton-ordered
-    cell vector (B, reso**2, F)."""
+    cell vector (B, reso**2, F); with ``with_counts`` (row-major only) also
+    the (B, reso, reso) int32 counts."""
     dev = values.device
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
     cells_shape = (b, reso * reso) if morton else (b, reso, reso)
     out = torch.empty(cells_shape + (f,), device=dev, dtype=torch.float32)
     flags = torch.empty(cells_shape, device=dev, dtype=torch.uint8)
+    counts = torch.empty(cells_shape, device=dev, dtype=torch.int32) if with_counts else None
     err = runtime.library().t2h_scatter_runs(
-        values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), out.data_ptr(), 0,
-        flags.data_ptr(), b, n, f, reso, shift, toff.shape[1], step, int(morton),
-        runtime.stream_ptr(dev))
+        values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), out.data_ptr(),
+        0 if counts is None else counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift,
+        toff.shape[1], step, int(morton), runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
-    return out
+    return (out, counts) if with_counts else out
 
 
 def scatter_mean_plane(values, cells, offsets, reso: int):
@@ -173,7 +204,8 @@ def scatter_mean(values, cells, offsets, reso: int):
                          morton=True)
 
 
-def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: int):
+def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: int,
+                               with_counts: bool = False):
     """K12: aligned-layout rows -> (B, reso, reso, F) row-major plane.
 
     Args:
@@ -182,13 +214,44 @@ def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: i
         tile_offsets: (B, reso**2 / 256 + 1) int32 row offsets at this
             resolution (every 4**level-th finest tile offset).
         finest: the resolution of ``cells``.
+        with_counts: also return the (B, reso, reso) int32 counts (written
+            by the same launch), which the backward reads.
     Not differentiable itself: the model calls it through
     ``ops.fused.tile_scatter_mean``.
     """
     if runtime.on_cpu(values):
-        return aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso, finest)
+        return aligned_scatter_mean_plane_plain(values, cells, tile_offsets, reso, finest,
+                                                with_counts)
     return _scatter_runs("aligned_scatter_mean_plane", values, cells, tile_offsets, reso,
-                         level_shift(reso, finest), 1)
+                         level_shift(reso, finest), 1, with_counts=with_counts)
+
+
+def aligned_scatter_mean_plane_bwd(g_plane, cells, counts, reso: int,
+                                   finest: int) -> torch.Tensor:
+    """K12's backward: the arguments and return of
+    :func:`aligned_scatter_mean_plane_bwd_plain`; on a card one launch of K2
+    alone (``t2h_pool_gather`` at the level's shift, no mask), all tensors
+    contiguous, g_plane f32, cells and counts int32. Counted in
+    ``LAUNCHES['aligned_scatter_mean_plane_bwd']`` besides K2's own
+    ``pool_gather``."""
+    if runtime.on_cpu(g_plane):
+        return aligned_scatter_mean_plane_bwd_plain(g_plane, cells, counts, reso, finest)
+    dev = g_plane.device
+    b, r, _, f = g_plane.shape
+    n = cells.shape[-1]
+    if r != reso:
+        raise ValueError(f"g_plane resolution {r} != reso {reso}")
+    runtime.require(g_plane, "g_plane", torch.float32, (b, r, r, f), dev)
+    runtime.require(cells, "cells", torch.int32, (b, n), dev)
+    runtime.require(counts, "counts", torch.int32, (b, r, r), dev)
+    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    err = runtime.library().t2h_pool_gather(
+        g_plane.data_ptr(), cells.data_ptr(), 0, counts.data_ptr(), out.data_ptr(), b, n, f,
+        reso, level_shift(reso, finest), runtime.stream_ptr(dev))
+    runtime.check(err, "pool_gather")
+    runtime.LAUNCHES["pool_gather"] += 1
+    runtime.LAUNCHES["aligned_scatter_mean_plane_bwd"] += 1
+    return out
 
 
 def scatter_mean_plane_v3(values, cells, tile_offsets, reso: int, finest: int):

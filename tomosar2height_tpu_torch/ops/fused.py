@@ -1,17 +1,32 @@
 """Differentiable wrappers over the aligned Morton tile kernels of
 ``sorted_impl='fused'``: K9 (sample), K10 (local pooling), K12 (scatter-mean).
 
-Counterpart of ``tomosar2height_tpu/ops/pallas/fused.py``. As there, the
-forward is the kernel and the backward is the autograd of the plain
-composition (grid_sample, the segment ops), recomputed in the backward by
-:class:`~tomosar2height_tpu_torch.ops.cuda.conv_kernel.PlainVjp`; no backward
-kernel. For max pooling the subgradient therefore follows the plain
-``segment_max`` (ties share it evenly, as JAX's segment_max vjp does).
+Counterpart of ``tomosar2height_tpu/ops/pallas/fused.py``: each function is a
+``torch.autograd.Function`` whose forward is the kernel and whose backward
+is the JAX custom_vjp's rule, on a kernel that adds in a fixed order, so a
+training step on this layout is bit-equal run to run:
 
-The JAX module's ``make_aux``/``chunk_cells`` reshape coordinates and ids
-into the TPU kernels' 128-lane rows; the kernels here read the (B, N, 2)
-coordinates and (B, N) ids as they are, so these functions take those.
-Layout contract: ``host_morton_bucket_aligned`` with ``tile_cells=256``.
+- K9 ``tile_gather``: grid_sample's transpose of the masked cotangent into
+  the plane (``_tile_gather_bwd``, fused.py:65-74) on K5's d_plane pass
+  (:func:`~tomosar2height_tpu_torch.ops.cuda.gather_kernel.tile_gather_bwd`);
+- K10 ``tile_pool``: the vjp of ``segment_max``/``segment_mean`` and the
+  gather-back (``_tile_pool_bwd``, fused.py:118-124; max's ties split the
+  cell's cotangent evenly) on the run kernel
+  (:func:`~tomosar2height_tpu_torch.ops.cuda.pool_kernel.tile_pool_bwd`);
+- K12 ``tile_scatter_mean``: each row's cell cotangent over the cell's count
+  (``_tile_scatter_bwd``, fused.py:149-173) on K2 alone at the level's shift
+  (:func:`~tomosar2height_tpu_torch.ops.cuda.scatter_kernel.aligned_scatter_mean_plane_bwd`),
+  with the counts the forward's run scatter wrote.
+
+:func:`sorted_sample` is the sample of the sorted layouts that K9 does not
+take (``cumsum``, ``pallas``, ``fused`` below 32^2): ``grid_sample_2d``
+forward, the same d_plane pass backward.
+
+On CPU tensors the wrappers run the plain versions both ways. The JAX
+module's ``make_aux``/``chunk_cells`` reshape coordinates and ids into the
+TPU kernels' 128-lane rows; the kernels here read the (B, N, 2) coordinates
+and (B, N) ids as they are, so these functions take those. Layout contract:
+``host_morton_bucket_aligned`` with ``tile_cells=256``.
 """
 
 from __future__ import annotations
@@ -19,51 +34,105 @@ from __future__ import annotations
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
+from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import pool_kernel as pk
 from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
-from tomosar2height_tpu_torch.ops.cuda.conv_kernel import PlainVjp
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
-from tomosar2height_tpu_torch.ops.scatter import segment_max, segment_mean
-from tomosar2height_tpu_torch.ops.sorted_scatter import gather_cells_sorted
 
 
 def _masked(mask, out):
     return torch.where(mask[..., None], out, torch.zeros_like(out))
 
 
-def _gather_plain(plane, xy, mask, tile_offsets):
-    return _masked(mask, grid_sample_2d(plane, xy))
+class _SortedSample(torch.autograd.Function):
+    """The bilinear sample on a Morton-sorted layout: K9 with ``tile_offsets``
+    (masked rows 0), else ``grid_sample_2d``. Backward: K5's d_plane pass
+    either way (K9's as ``tile_gather_bwd``), which needs each finest cell's
+    valid rows contiguous, as every sorted layout has them."""
+
+    @staticmethod
+    def forward(ctx, plane, xy, mask, cells, tile_offsets, reso: int, finest: int):
+        if tile_offsets is None:
+            out = grid_sample_2d(plane, xy)
+        else:
+            out = _masked(mask, gk.tile_gather(plane, xy, tile_offsets))
+        ctx.save_for_backward(xy, mask, cells)
+        ctx.reso, ctx.finest, ctx.k9 = reso, finest, tile_offsets is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        xy, mask, cells = ctx.saved_tensors
+        d_plane = (gk.tile_gather_bwd if ctx.k9 else lk.level_d_plane)(
+            g.contiguous(), xy, cells, mask, ctx.reso, ctx.finest)
+        return d_plane, None, None, None, None, None, None
 
 
-def tile_gather(plane, xy, mask, tile_offsets, reso: int) -> torch.Tensor:
+class _TilePool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, cells, tile_offsets, mask, kind: str):
+        out = _masked(mask, pk.tile_pool(values, cells, tile_offsets, kind))
+        ctx.save_for_backward(values, cells, tile_offsets, mask, out)
+        ctx.kind = kind
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        values, cells, tile_offsets, mask, out = ctx.saved_tensors
+        dv = pk.tile_pool_bwd(_masked(mask, g).contiguous(), values, out, cells,
+                              tile_offsets, ctx.kind)
+        return dv, None, None, None, None
+
+
+class _TileScatterMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, values, cells, tile_offsets, reso: int, finest: int):
+        plane, counts = sk.aligned_scatter_mean_plane(values, cells, tile_offsets, reso,
+                                                      finest, with_counts=True)
+        ctx.save_for_backward(cells, counts)
+        ctx.reso, ctx.finest = reso, finest
+        return plane
+
+    @staticmethod
+    def backward(ctx, g_plane):
+        cells, counts = ctx.saved_tensors
+        dv = sk.aligned_scatter_mean_plane_bwd(g_plane.contiguous(), cells, counts, ctx.reso,
+                                               ctx.finest)
+        return dv, None, None, None, None
+
+
+def tile_gather(plane, xy, mask, cells, tile_offsets, reso: int, finest: int) -> torch.Tensor:
     """Bilinear-sample the (B, R, R, F) ``plane`` at aligned (B, N, 2) ``xy``;
-    masked rows are 0. K9 forward; differentiable in ``plane``.
+    masked rows are 0. K9 forward; differentiable in ``plane`` (backward: K5's
+    d_plane pass, which reads the finest ids ``cells`` at ``finest``).
     ``tile_offsets``: (B, R*R/256 + 1) at this resolution."""
     if plane.shape[1] != reso:
         raise ValueError(f"plane resolution {plane.shape[1]} != reso {reso}")
+    return _SortedSample.apply(plane, xy, mask, cells, tile_offsets.contiguous(), reso,
+                               finest)
 
-    def kernel(p, x, m, toff):
-        return _masked(m, gk.tile_gather(p, x, toff))
 
-    return PlainVjp.apply(kernel, _gather_plain, plane, xy, mask,
-                          tile_offsets.contiguous())
+def sorted_sample(plane, xy, mask, cells, finest: int) -> torch.Tensor:
+    """``grid_sample_2d`` of the (B, R, R, F) ``plane`` at (B, N, 2) ``xy`` on
+    a Morton-sorted layout without K9 (``cumsum``/``pallas``, and ``fused``
+    below 32^2), differentiable in ``plane`` through K5's d_plane pass: a
+    fixed-order sum, so the step is bit-equal run to run. ``cells``: finest
+    ids at ``finest``; the masked rows' cotangent is ignored (it is 0: no
+    scatter reads them)."""
+    return _SortedSample.apply(plane, xy, mask, cells, None, plane.shape[1], finest)
 
 
 def tile_pool(values, cells, tile_offsets, mask, reso: int, kind: str) -> torch.Tensor:
     """Per-cell ``kind`` reduce + per-row gather-back (pool_local, reference
     pointnet.py:92-99) on the aligned layout; masked rows are 0. K10 forward;
-    differentiable in ``values``. ``cells``: finest ids at ``reso``."""
+    differentiable in ``values``. ``cells``: finest ids at ``reso``, whose
+    256-cell tiles ``tile_offsets`` delimit."""
     if kind not in ("max", "mean"):
         raise ValueError(f"kind must be 'max' or 'mean', got {kind!r}")
-
-    def kernel(v, c, toff, m):
-        return _masked(m, pk.tile_pool(v, c, toff, kind))
-
-    def plain(v, c, toff, m):
-        reduce = segment_max if kind == "max" else segment_mean
-        return _masked(m, gather_cells_sorted(reduce(v, c, reso * reso, m), c))
-
-    return PlainVjp.apply(kernel, plain, values, cells, tile_offsets, mask)
+    if (tile_offsets.shape[1] - 1) * 256 != reso * reso:
+        raise ValueError(f"{tile_offsets.shape[1] - 1} tiles of 256 cells do not cover "
+                         f"{reso}^2")
+    return _TilePool.apply(values, cells, tile_offsets, mask, kind)
 
 
 def tile_scatter_mean(values, cells, tile_offsets, reso: int, finest: int) -> torch.Tensor:
@@ -71,7 +140,4 @@ def tile_scatter_mean(values, cells, tile_offsets, reso: int, finest: int) -> to
     (sentinel ids) add nothing and get a zero gradient. K12 forward;
     differentiable in ``values``. ``tile_offsets``: at ``reso``; ``cells``:
     finest ids at ``finest``."""
-    return PlainVjp.apply(
-        lambda v, c, t: sk.aligned_scatter_mean_plane(v, c, t, reso, finest),
-        lambda v, c, t: sk.aligned_scatter_mean_plane_plain(v, c, t, reso, finest),
-        values, cells, tile_offsets.contiguous())
+    return _TileScatterMean.apply(values, cells, tile_offsets.contiguous(), reso, finest)

@@ -8,7 +8,9 @@ so a batch built here is bit-identical to one built there: same Morton ids,
 same ``PCHUNK``-aligned tiles, same pad rows.
 
 On the device, a segment reduction over sorted rows is a cumulative sum, two
-gathers and a difference (:func:`sorted_segment_mean`, the ``cumsum`` path);
+gathers and a difference (:func:`sorted_segment_mean`, the ``cumsum`` path),
+and its backward, as that of the gather-back (:func:`gather_sorted_rows`),
+runs in a fixed order: no scatter adds with atomics;
 coarser resolutions reuse the finest sort, since a Morton parent covers a
 contiguous run of children (:func:`coarsen_offsets`). ``impl='pallas'``
 routes the per-cell means through the tile kernels K11/K13
@@ -19,6 +21,32 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+POINT_WIRE_SCALE = 65535.0
+"""u16 point wire: coordinates in [0, 1] ship as uint16 (6 bytes a point
+instead of 12), ~7.8 mm xy / ~3 mm z at the flagship's patch extents. The
+dequantization is one f32 multiply by ``float32(1 / 65535)``, the same on the
+host and on the card, so cell ids recomputed on the card equal the host
+layout's (the JAX package's ``ops/sorted_scatter.py:73-97``)."""
+
+_DEQ16 = np.float32(1.0 / POINT_WIRE_SCALE)
+
+
+def quantize_points_u16(points: np.ndarray) -> np.ndarray:
+    """f32 [0, 1] coordinates -> the uint16 wire."""
+    return np.clip(np.round(points * POINT_WIRE_SCALE), 0.0,
+                   POINT_WIRE_SCALE).astype(np.uint16)
+
+
+def dequantize_points_np(q: np.ndarray) -> np.ndarray:
+    """uint16 wire points -> f32, bit-equal to :func:`dequantize_points`."""
+    return q.astype(np.float32) * _DEQ16
+
+
+def dequantize_points(q: torch.Tensor) -> torch.Tensor:
+    """uint16 wire points -> f32 on their device: the host's multiply."""
+    return q.to(torch.float32) * float(_DEQ16)
+
 
 PAD_CELL_SENTINEL = np.int32(1 << 30)
 """Cell id of padding rows in the aligned layout: ``sentinel >> 2*level`` is
@@ -179,14 +207,10 @@ def coarsen_offsets(offsets: torch.Tensor, levels: int) -> torch.Tensor:
     return offsets[..., :: 4 ** levels]
 
 
-def sorted_segment_sum_counts(values: torch.Tensor, offsets: torch.Tensor):
-    """Per-segment (sums (B, S, C), counts (B, S, 1)) of cell-sorted (B, N, C)
-    values with (B, S + 1) segment offsets; rows past ``offsets[:, -1]`` (the
-    pads) are in no segment.
-
-    The JAX package sums in float32; the port's cumulative sum runs in
-    float64, so a segment's sum does not inherit the rounding of a large
-    running total (a float32 total of 1e4 rounds in steps of ~1e-3)."""
+def _segment_sums(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
+    """(B, S, C) sums of the row ranges [offsets[s], offsets[s + 1]) of
+    (B, N, C) values: differences of a float64 running sum, in the values'
+    dtype. A fixed order: bit-equal run to run."""
     b, _, c = values.shape
     csum = torch.cumsum(values, dim=1, dtype=torch.float64)
     csum = torch.cat([csum.new_zeros(b, 1, c), csum], dim=1)  # (B, N + 1, C)
@@ -195,8 +219,68 @@ def sorted_segment_sum_counts(values: torch.Tensor, offsets: torch.Tensor):
     def take(idx):
         return torch.gather(csum, 1, idx[..., None].expand(*idx.shape, c))
 
-    sums = (take(ends) - take(starts)).to(values.dtype)
-    counts = (ends - starts)[..., None].to(values.dtype)
+    return (take(ends) - take(starts)).to(values.dtype)
+
+
+def _row_segments(offsets: torch.Tensor, n: int):
+    """(segment id, in a segment) of each of n rows under (B, S + 1) offsets."""
+    rows = torch.arange(n, device=offsets.device, dtype=offsets.dtype)
+    rows = rows.expand(offsets.shape[0], n).contiguous()
+    seg = torch.searchsorted(offsets.contiguous(), rows, right=True) - 1
+    inside = (rows >= offsets[:, :1]) & (rows < offsets[:, -1:])
+    return seg.clamp(0, offsets.shape[1] - 2).long(), inside
+
+
+class _SortedSegmentSum(torch.autograd.Function):
+    """:func:`_segment_sums`, whose backward hands each row in a segment its
+    segment's cotangent (a gather: no scatter, no atomics), so training on
+    the cumsum path is bit-equal run to run."""
+
+    @staticmethod
+    def forward(ctx, values, offsets):
+        ctx.save_for_backward(offsets)
+        ctx.n = values.shape[1]
+        return _segment_sums(values, offsets)
+
+    @staticmethod
+    def backward(ctx, g):
+        (offsets,) = ctx.saved_tensors
+        seg, inside = _row_segments(offsets, ctx.n)
+        dv = torch.gather(g, 1, seg[..., None].expand(*seg.shape, g.shape[-1]))
+        return torch.where(inside[..., None], dv, torch.zeros_like(dv)), None
+
+
+class _SortedGather(torch.autograd.Function):
+    """Per-row gather-back of cell values on the plain sorted layout, whose
+    backward sums each cell's rows (the rows past the last offset, the pads,
+    clip to the last cell, as the forward reads them) with
+    :func:`_segment_sums`: a fixed order, bit-equal run to run."""
+
+    @staticmethod
+    def forward(ctx, cell_values, cells, offsets):
+        ctx.save_for_backward(offsets)
+        ctx.n = cells.shape[1]
+        return gather_cells_sorted(cell_values, cells)
+
+    @staticmethod
+    def backward(ctx, g):
+        (offsets,) = ctx.saved_tensors
+        ends = offsets.clone()
+        ends[:, -1] = ctx.n  # the pads read the last cell
+        return _segment_sums(g, ends), None, None
+
+
+def sorted_segment_sum_counts(values: torch.Tensor, offsets: torch.Tensor):
+    """Per-segment (sums (B, S, C), counts (B, S, 1)) of cell-sorted (B, N, C)
+    values with (B, S + 1) segment offsets; rows past ``offsets[:, -1]`` (the
+    pads) are in no segment.
+
+    The JAX package sums in float32; the port's cumulative sum runs in
+    float64, so a segment's sum does not inherit the rounding of a large
+    running total (a float32 total of 1e4 rounds in steps of ~1e-3). Its
+    backward gathers each row's segment cotangent (:class:`_SortedSegmentSum`)."""
+    sums = _SortedSegmentSum.apply(values, offsets)
+    counts = (offsets[:, 1:] - offsets[:, :-1]).long()[..., None].to(values.dtype)
     return sums, counts
 
 
@@ -213,6 +297,14 @@ def gather_cells_sorted(cell_values: torch.Tensor, cell_ids: torch.Tensor) -> to
     s, c = cell_values.shape[1], cell_values.shape[-1]
     idx = cell_ids.long().clamp_max(s - 1)
     return torch.gather(cell_values, 1, idx[..., None].expand(*idx.shape, c))
+
+
+def gather_sorted_rows(cell_values: torch.Tensor, cells: torch.Tensor,
+                       offsets: torch.Tensor) -> torch.Tensor:
+    """:func:`gather_cells_sorted` on the plain sorted layout (``offsets``
+    its per-cell offsets), differentiable in ``cell_values`` with a
+    fixed-order backward (:class:`_SortedGather`)."""
+    return _SortedGather.apply(cell_values, cells, offsets)
 
 
 def scatter_mean_morton(values: torch.Tensor, offsets: torch.Tensor, cells: torch.Tensor,

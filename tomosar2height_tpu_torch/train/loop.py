@@ -34,8 +34,9 @@ the entry point generates the vis split's nDSM and evaluates it) every
 the host's RSS (``misc/host_rss_bytes``); the logger's ``watch`` adds the
 per-module parameter norms. Visualization counts as aux time.
 
-Not here yet: prefetch threads and worker pools (ROADMAP: wires and the host
-side).
+The loader's own prefetch thread and worker pool (``PatchLoader(prefetch=,
+n_workers=)``) collate batches ahead of this loop; the loader phase then
+times the wait for the next collated batch and its upload.
 """
 
 from __future__ import annotations

@@ -3,8 +3,11 @@
 Counterpart of ``tomosar2height_tpu/train/trainer.py`` on one device, eager
 PyTorch. The same step semantics:
 
-- inputs: the points (``use_cloud``) and, with ``use_image``, the
-  normalized image crop (trainer.py:160-169); the f32 image wire only;
+- inputs: the points (``use_cloud``; f32, or u16 on the u16 wire, which
+  the model dequantizes) and, with ``use_image``, the image crop: normalized
+  on the f32 wire, raw u8 on the u8 wire, normalized inside the step as
+  ``(x - mean) / std`` with the dataset's ``image_norm`` (trainer.py:97-100,
+  :164-169);
 - loss: the masked per-patch mean L1 of the height raster against the GT nDSM
   (``masked_patch_mean``, trainer.py:71-75, :173-187); invalid (empty) patches
   stay in the batch and weigh 0. With ``use_footprint`` also ``loss_ce``:
@@ -24,9 +27,13 @@ PyTorch. The same step semantics:
   param_norm of the parameters it ran with), read by the host once per window
   (trainer.py:201-209, :275-292);
 - wire: the DSM target is clipped to the wire dtype's range and cast
-  (float16 by default, trainer.py:240-246), the loss computes in f32; no
-  cell ids are sent, the model recomputes them from points and mask (the
-  JAX default ``wire_cells='device'``, trainer.py:237-238);
+  (float16 by default, trainer.py:240-246), the loss computes in f32; with
+  ``wire_cells='device'`` (the default) no cell ids are sent, the model
+  recomputes them from points and mask; ``'host'`` uploads the loader's
+  (trainer.py:119-123, :237-238). Every sorted layout's batch (the aligned
+  ones of ``fused2`` and ``fused``, the plain sorted one of ``cumsum``)
+  uploads as it comes: its tile or per-cell offsets and, on ``'host'``, its
+  cells;
 - precision: every cuDNN convolution of the step, backward included, runs
   in full float32 whatever the caller's TF32 flags, with deterministic
   algorithms only (``fp32_convs(deterministic=True)``): with the port's
@@ -47,7 +54,7 @@ from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
 FOOTPRINT_THRESHOLD = 1e-4  # dsm above it is "building" (trainer.py:34)
 METRIC_KEYS = ("loss", "loss_l1", "loss_ce", "grad_norm", "param_norm")
 EVAL_KEYS = ("loss", "loss_l1", "loss_ce")
-DEVICE_KEYS = ("points", "point_mask", "image", "dsm", "patch_valid", "cell_offsets")
+DEVICE_KEYS = ("points", "point_mask", "image", "dsm", "patch_valid", "cell", "cell_offsets")
 
 
 def masked_patch_mean(per_pixel: torch.Tensor, patch_valid: torch.Tensor) -> torch.Tensor:
@@ -79,7 +86,9 @@ class Trainer:
             the image-only network is not ported.
         use_footprint: the footprint head's BCE loss, weighted by
             ``weight_ce``; the model needs the head.
-        image_norm: the u8 image wire's (mean, std); not ported, must be None.
+        image_norm: the u8 image wire's (mean, std) per channel (the
+            dataset's ``image_norm``), applied to the u8 crops inside the
+            step; None on the f32 wire.
     """
 
     def __init__(self, model: torch.nn.Module, cfg_training: Dict,
@@ -89,9 +98,6 @@ class Trainer:
         if not use_cloud:
             raise NotImplementedError("the image-only network is not ported "
                                       "(ROADMAP: alternates)")
-        if image_norm is not None:
-            raise NotImplementedError("the u8 image wire (image_norm) is not ported "
-                                      "(ROADMAP: wires)")
         if use_footprint and model.decoder.conv_decoder_footprint is None:
             raise ValueError("use_footprint: the model has no footprint head "
                              "(decoder_pixel_kwargs.use_footprint)")
@@ -100,13 +106,17 @@ class Trainer:
         self.use_footprint = bool(use_footprint)
         self.weight_ce = float(weight_ce)
         self.device = next(model.parameters()).device
+        self.image_norm = None if image_norm is None else tuple(
+            torch.as_tensor(np.asarray(x, dtype=np.float32), device=self.device)
+            for x in image_norm)
         self.optimize_every = int(cfg_training["optimize_every"])
         self.grad_reduction = str(cfg_training.get("grad_reduction", "mean"))
         if self.grad_reduction not in ("mean", "sum"):
             raise ValueError(f"Invalid grad_reduction: {self.grad_reduction}")
         self.wire_dsm_dtype = np.dtype(str(cfg_training.get("wire_dsm_dtype", "float16")))
-        if cfg_training.get("wire_cells", "device") != "device":
-            raise NotImplementedError("only wire_cells='device' is ported (ROADMAP: wires)")
+        self.wire_cells = str(cfg_training.get("wire_cells", "device"))
+        if self.wire_cells not in ("device", "host"):
+            raise ValueError(f"Invalid wire_cells: {self.wire_cells}")
         self.params = [p for p in model.parameters() if p.requires_grad]
         self.optimizer = torch.optim.AdamW(
             self.params, lr=float(cfg_training.get("learning_rate", 1e-4)),
@@ -129,8 +139,8 @@ class Trainer:
         out = {}
         cuda = self.device.type == "cuda"
         for k in DEVICE_KEYS:
-            if k not in batch:
-                continue
+            if k not in batch or (k == "cell" and self.wire_cells == "device"):
+                continue  # 'device': the model recomputes the cells
             v = np.asarray(batch[k])
             if k == "dsm" and v.dtype != self.wire_dsm_dtype:
                 # clip to the wire dtype's range: garbage targets of invalid
@@ -147,6 +157,9 @@ class Trainer:
     def loss(self, batch: Dict[str, torch.Tensor]):
         """(loss, {'loss', 'loss_l1', 'loss_ce'}) of a prepared batch."""
         image = batch.get("image") if self.use_image else None
+        if image is not None and self.image_norm is not None:
+            mean, std = self.image_norm
+            image = (image.to(torch.float32) - mean) / std
         pa, pb = self.model(batch["points"], batch["point_mask"], image,
                             batch.get("cell"), batch.get("cell_offsets"),
                             footprint=self.use_footprint)
