@@ -12,7 +12,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    counts of the tensor-core kernels (K4, K5's row pass and reduction, the
    implicit-GEMM conv of K6-K8 and K6's head conv), and a check that the
    SASS of every instance of each holds TF32 tensor-core instructions
-   (HMMA; ``cuobjdump -sass``);
+   (HMMA; ``cuobjdump -sass``), BF16 ones in the conv core's bf16
+   instances;
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout, whose
    largest run of one cell is logged; the conv
@@ -26,8 +27,11 @@ Phases, one line each; any failure raises and the script exits non-zero:
    of the kernel's route, whichever is larger: fp32 FMA, or 3xTF32 on the
    tensor cores for K4, K5 (its row pass and weight sums, each also a row of
    its own) and K6-K8 (K6's head on fp32 FMA), whose log lines also give the
-   bound were those operations on fp32 FMA); K8's time at each of its 43
-   shapes beside cuDNN's, K7's at each of its 20 beside two cuDNN convs';
+   bound were those operations on fp32 FMA); then K6-K8 on bf16 activations
+   at the same shapes (rows ``conv3x3_bf16``, ``conv_pair_bf16``,
+   ``conv_decoder_bf16``: each within twice its bf16 plain version's
+   distance from float64 plus one bf16 ulp, bit-equal on a second launch,
+   bound at the bf16 tensor-core rate; K8 beside ``F.conv2d`` in bf16);
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -87,20 +91,29 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``cli.train`` in a child process beside the steps;
 11. headline-train: the headline network (``headline_config()``: the
    cloud+image network with ALTO depth 6 and the footprint head) trained at
-   full width, batch 8, ``optimize_every`` 8, on random patches of the city
+   full width, batch 8, ``optimize_every`` 4, on random patches of the city
    with its nDSM and RGB image: the kernel path (fused2 + K6/K7) for
    HEADLINE_STEPS (2) optimizer steps, a checkpoint after each, through
    ``train/loop.py``
    (launches per mini-step asserted against HEADLINE_TRAIN_LAUNCHES), the
-   plain path from the same weights on the same patches (loss_l1 and
-   loss_ce of each window held within their tolerances), the checkpoint's
+   plain path from the same weights on the same patches for the first step
+   (its window's loss_l1 and loss_ce held within their tolerances), the
+   checkpoint's
    size and round trip, then a child process that resumes from the
    iteration-1 checkpoint and runs iteration 2: its parameters must be
    bit-equal to the uninterrupted run's and its window losses equal;
-12. cli: the entry points on the city written to disk (``write_city``: LAS,
+12. bf16: the headline network in bf16 (``model.dtype=bfloat16``) on the
+   unsorted point path at full width against the same network in f32 from
+   the same weights (``bf16_phase``): serving with K6/K7, with K8 alone
+   (the flags off, FAST_CONV) and in f32, the rasters within the JAX
+   package's bf16 gate; a warm-up and a timed optimizer step each
+   (``optimize_every`` 4), window losses within 0.15 x scale, the bf16
+   step rerun from the same weights (differing tensors counted); bf16 on
+   the sorted layout refused by ``build_model``;
+13. cli: the entry points on the city written to disk (``write_city``: LAS,
    nDSM, masks, RGB): ``cli.build_dataset`` (two 1024 m chunks),
    ``cli.train`` (the headline network at full width, batch 8,
-   ``optimize_every`` 8, 2 iterations, validation, a checkpoint and the vis
+   ``optimize_every`` 4, 2 iterations, validation, a checkpoint and the vis
    split's nDSM at the second) and ``cli.test`` on the checkpoint it wrote; the
    build's seconds, train patches/s, test tiles/s, the checkpoint's MiB and
    the report's RMSE/MAE/NMAD beside the card's name and power limit; the
@@ -171,9 +184,13 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 TF32_FLOP_S = 495e12
 TF32X3_FLOP_S = TF32_FLOP_S / 3
-# the kernels that must hold TF32 tensor-core instructions (HMMA) in their
-# SASS: K4, K5's row pass and weight-gradient reduction, the implicit-GEMM
-# conv of K6's first two passes, K7 and K8, and K6's third conv with the head
+# dense bf16 FLOP/s on the tensor cores: the bf16 conv kernels (K6-K8 on bf16
+# activations, one bf16 product per product)
+BF16_FLOP_S = 989e12
+# the kernels that must hold tensor-core instructions (HMMA) in their SASS:
+# K4, K5's row pass and weight-gradient reduction, the implicit-GEMM conv of
+# K6's first two passes, K7 and K8, and K6's third conv with the head; TF32
+# HMMA in every instance, bf16 HMMA in the conv core's bf16 instances
 TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
                        "conv3x3_igemm", "conv3x3_head_igemm")
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
@@ -226,13 +243,26 @@ def build():
         f" | nvcc {info['seconds']:.1f} s | load {time.perf_counter() - t0:.1f} s")
     log("build", f"ptxas registers/spill bytes: {ptxas_registers(info['log'])}; run "
         f"kernels {ptxas_registers(info['log'], RUN_KERNELS)}")
-    check_sass(info["path"], runtime.nvcc_path())
-    return info
+    return start_sass(info["path"], runtime.nvcc_path())
+
+
+def start_sass(so_path: str, nvcc: str):
+    """Start ``cuobjdump -sass`` of the built library (beside nvcc) into a
+    temporary file, to run beside the kernel phase; ``check_sass`` waits for
+    it and reads it."""
+    import tempfile
+
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    with tempfile.NamedTemporaryFile("w", suffix=".sass", delete=False) as out:
+        proc = subprocess.Popen([cuobjdump, "-sass", so_path], stdout=out,
+                                stderr=subprocess.PIPE, text=True)
+    return proc, out.name
 
 
 def ptxas_registers(build_log: str, kernels=TENSOR_CORE_KERNELS) -> dict:
     """{kernel<template arguments>: "registers/spill bytes"} of ``kernels``
-    (default the tensor-core ones), from nvcc's -Xptxas -v report."""
+    (default the tensor-core ones), from nvcc's -Xptxas -v report; a bf16
+    instance's arguments start with bf16."""
     import re
 
     regs, key, spill = {}, None, 0
@@ -242,6 +272,8 @@ def ptxas_registers(build_log: str, kernels=TENSOR_CORE_KERNELS) -> dict:
             key = next((k for k in kernels if k in name), None)
             if key:
                 args = re.findall(r"L[ib](\d+)E", name[name.index(key):].split("Ev")[0])
+                if "bfloat16" in name:
+                    args = ["bf16"] + args
                 key = f"{key}<{','.join(args)}>"
             spill = 0
         elif key and "spill stores" in line:
@@ -252,28 +284,40 @@ def ptxas_registers(build_log: str, kernels=TENSOR_CORE_KERNELS) -> dict:
     return regs
 
 
-def check_sass(so_path: str, nvcc: str) -> None:
+def check_sass(job) -> None:
     """Fail unless every kernel in TENSOR_CORE_KERNELS is in the built
-    library's SASS (cuobjdump beside nvcc) and every instance of each (each
-    template instance in each source's cubin) holds TF32 HMMA instructions."""
-    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    sass = _run([cuobjdump, "-sass", so_path])
-    found, fn = [], None  # [key, symbol, HMMA count] per function instance
+    library's SASS (``start_sass``'s job) and every instance of each (each
+    template instance in each source's cubin) holds tensor-core HMMA
+    instructions of its type: TF32, or BF16 in the conv core's bf16
+    instances (and then no TF32)."""
+    proc, path = job
+    _, err = proc.communicate(timeout=600)
+    with open(path) as f:
+        sass = f.read()
+    os.remove(path)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {err[-2000:]}")
+    found, fn = [], None  # [key, symbol, its HMMA type, count, other HMMA] per instance
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             key = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
-            fn = [key, name, 0] if key else None
+            fn = [key, name, "BF16" if "bfloat16" in name else "TF32", 0, 0] if key else None
             if fn:
                 found.append(fn)
-        elif fn and "HMMA" in line and "TF32" in line:
-            fn[2] += 1
-    counts = {k: [c for key, _, c in found if key == k] for k in TENSOR_CORE_KERNELS}
-    log("build", f"TF32 HMMA instructions in the SASS, by instance: {counts}")
-    missing = ([k for k, v in counts.items() if not v]
-               + [name for _, name, c in found if c == 0])
+        elif fn and "HMMA" in line:
+            fn[3 if fn[2] in line else 4] += 1
+    counts = {f"{k} {t}": [c for key, _, ty, c, _ in found if key == k and ty == t]
+              for k in TENSOR_CORE_KERNELS for t in ("TF32", "BF16")}
+    log("build", f"HMMA instructions in the SASS, by kernel, type and instance: "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    missing = ([k for k in TENSOR_CORE_KERNELS if not any(f[0] == k for f in found)]
+               + [name for _, name, _, c, other in found if c == 0 or other]
+               + [k for k in ("conv3x3_igemm BF16", "conv3x3_head_igemm BF16")
+                  if not counts[k]])
     if missing:
-        raise AssertionError(f"no TF32 HMMA in the SASS of {missing}")
+        raise AssertionError(f"no HMMA of their type, or HMMA of another, in the SASS of "
+                             f"{missing}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -457,6 +501,9 @@ def _weight_tol(ref):
     return WEIGHT_RTOL * float(ref.abs().max()), WEIGHT_RTOL
 
 
+ROUTES = {FP32_FLOP_S: "fp32 FMA", TF32X3_FLOP_S: "3xTF32", BF16_FLOP_S: "bf16"}
+
+
 def _entry_fn(rows):
     def entry(name, source, replaces, pairs, kfn, pfn, work, lfn=None,
               tol=f"{TOL:g} abs+rel", iters=20):
@@ -477,9 +524,7 @@ def _entry_fn(rows):
         bound_ms, bound_by = bound(*work)
         ops = work[1] if isinstance(work[1], (list, tuple)) else [(work[1], FP32_FLOP_S)]
         flops = sum(f for f, _ in ops)
-        route = " + ".join(f"{f / 1e12:.4f} TFLOP at "
-                           f"{'3xTF32' if rate == TF32X3_FLOP_S else 'fp32 FMA'}"
-                           for f, rate in ops)
+        route = " + ".join(f"{f / 1e12:.4f} TFLOP at {ROUTES[rate]}" for f, rate in ops)
         fp32 = ""
         if any(rate != FP32_FLOP_S for _, rate in ops):
             fp32 = f"; all on fp32 FMA {bound(work[0], flops)[0]:.4f} ms"
@@ -841,6 +886,7 @@ def check_kernels(seed: int = 0):
     for part, fn, args in (("C3 stress", stress_level, (level_args,)),
                            ("depth-6 level", check_wide_level, (seed,)),
                            ("K6-K8", check_conv_kernels, (entry, seed)),
+                           ("K6-K8 in bf16", check_conv_kernels_bf16, (entry, seed)),
                            ("K9-K14 and the fused backwards", check_tile_kernels,
                             (entry, seed))):
         fn(*args)
@@ -980,7 +1026,8 @@ def check_conv_kernels(entry, seed: int = 0):
     """K8 at the 43 convs, K7 at the 20 pairs and K6 at the decoder of a
     batch-8 fusion forward, each held to its plain version run in float64
     (``_held_to_float64``) and timed beside the fp32 plain version; K8 also
-    beside one ``F.conv2d`` (cuDNN, full fp32) per conv."""
+    beside one ``F.conv2d`` (cuDNN, full fp32) per conv. (The per-shape
+    times of K8 and K7 are ``tools/time_conv_pair.py``'s.)"""
     import torch
     import torch.nn.functional as F
 
@@ -990,10 +1037,11 @@ def check_conv_kernels(entry, seed: int = 0):
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(seed + 7)
+    xgen = torch.Generator(device=dev).manual_seed(seed + 7)  # inputs drawn on the card
     b = 8
-    x_of = lambda h, c: torch.randn(b, h, h, c, generator=gen).to(dev)  # noqa: E731
+    x_of = lambda h, c: torch.randn(b, h, h, c, generator=xgen, device=dev)  # noqa: E731
 
-    pairs, kfns, pfns, lfns, work, by_shape = [], [], [], [], [0, 0], []
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
     for h, cin, cout in CONVS:
         x = x_of(h, cin)
         w, bias = _conv_w(gen, cin, cout, 3, dev)
@@ -1007,17 +1055,13 @@ def check_conv_kernels(entry, seed: int = 0):
         kfns.append(lambda a=args: ck.conv3x3(*a, True))
         pfns.append(lambda a=args: ck.conv3x3_plain(*a, True))
         lfns.append(lambda a=(x_nchw, w_oihw, bias): F.conv2d(*a, padding=1))
-        by_shape.append(f"{h}^2 {cin}->{cout} {graph_ms(kfns[-1], 3, 1):.3f}/"
-                        f"{graph_ms(pfns[-1], 3, 1):.3f}/{graph_ms(lfns[-1], 3, 1):.3f}")
-    log("kernels", "conv3x3 by shape, kernel/plain/F.conv2d ms (median of 3): "
-        + "; ".join(by_shape))
     entry("conv3x3", "tomosar2height_tpu_torch/csrc/conv.cu",
           "tomosar2height_tpu/ops/pallas/conv_kernel.py:43", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
           (work[0], [(work[1], TF32X3_FLOP_S)]), lambda: [fn() for fn in lfns], iters=3)
     del pairs, kfns, pfns, lfns
 
-    pairs, kfns, pfns, work, by_shape = [], [], [], [0, 0], []
+    pairs, kfns, pfns, work = [], [], [], [0, 0]
     for h, cin, c, pool in ALTO_PAIRS + IMAGE_PAIRS:
         x = x_of(h, cin)
         args = (x, *_conv_w(gen, cin, c, 3, dev), *_conv_w(gen, c, c, 3, dev))
@@ -1030,9 +1074,6 @@ def check_conv_kernels(entry, seed: int = 0):
         work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
         kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
         pfns.append(lambda a=args, p=pool: cpk.conv_pair_plain(*a, p))
-        by_shape.append(f"{h}^2 {cin}->{c}{' pool' if pool else ''} "
-                        f"{graph_ms(kfns[-1], 3, 1):.3f}/{graph_ms(pfns[-1], 3, 1):.3f}")
-    log("kernels", "conv_pair by shape, kernel/plain ms (median of 3): " + "; ".join(by_shape))
     entry("conv_pair", "tomosar2height_tpu_torch/csrc/convpair.cu",
           "tomosar2height_tpu/ops/pallas/convpair_kernel.py:36", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
@@ -1053,6 +1094,125 @@ def check_conv_kernels(entry, seed: int = 0):
                            dk.conv_decoder_plain, args),
           lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
           (nbytes(*args, got), ops), iters=5)
+    torch.cuda.synchronize()
+
+
+def _bf16_rule(name, kernel_fn, plain_fn, args):
+    """[(kernel output, float64 reference, tolerance, 0)] of a bf16 conv kernel
+    (a pair for each output): the reference is the plain function evaluated
+    in float64 on the same operands (bf16 values), and the kernel's distance
+    from it may be at most 2x the bf16 plain version's plus one bf16 ulp of
+    the output's scale (2^-7 of the power of two at or below its largest
+    |value|). The kernel is also held bit-equal on a second launch. Returns
+    (pairs, (the largest share of its tolerance the kernel used, a note with
+    the share of outputs where kernel and plain differ))."""
+    import torch
+
+    got, again, want = kernel_fn(*args), kernel_fn(*args), plain_fn(*args)
+    ref = plain_fn(*(a.double() for a in args))
+    got, again, want, ref = ((t if isinstance(t, tuple) else (t,)) for t in (got, again,
+                                                                           want, ref))
+    pairs, worst = [], (0.0, "")
+    for g, a, w, r in zip(got, again, want, ref):
+        if g is None:
+            continue
+        if not torch.equal(g, a):
+            raise AssertionError(f"{name}: two launches differ")
+        ulp = 2.0 ** (float(torch.floor(torch.log2(r.abs().max()))) - 7)
+        plain_err = float((w.double() - r).abs().max())
+        tol = 2 * plain_err + ulp
+        err = float((g.double() - r).abs().max())
+        pairs.append((g.double(), r, tol, 0.0))
+        worst = max(worst, (err / tol, f"{name}: kernel {err:.3g}, plain {plain_err:.3g} "
+                            f"from float64 (tol {tol:.3g}); kernel != plain at "
+                            f"{float((g != w).float().mean()):.3g} of the outputs"))
+    return pairs, worst
+
+
+def check_conv_kernels_bf16(entry, seed: int = 0):
+    """K8, K7 and K6 on bf16 activations at the shapes of the f32 rows
+    (CONVS, ALTO_PAIRS + IMAGE_PAIRS, DECODER), batch 8: each held to
+    ``_bf16_rule`` and timed beside its bf16 plain version; K8 also beside
+    ``F.conv2d`` in bf16 on ``channels_last`` (cuDNN). Operands are bf16
+    values: x and K8's kernel in bf16, K7's and K6's weights and biases
+    rounded to bf16 and passed in f32, as the model passes its parameters;
+    K8's bias f32."""
+    import torch
+    import torch.nn.functional as F
+
+    from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
+    from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
+    from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
+
+    dev, bf = torch.device(DEVICE), torch.bfloat16
+    gen = torch.Generator().manual_seed(seed + 8)
+    xgen = torch.Generator(device=dev).manual_seed(seed + 8)
+    b = 8
+    x_of = lambda h, c: torch.randn(b, h, h, c, generator=xgen, device=dev).to(bf)  # noqa: E731
+
+    def w_of(cin, cout, k=3):
+        return tuple(t.to(bf).float() for t in _conv_w(gen, cin, cout, k, dev))
+
+    pairs, notes, kfns, pfns, lfns, work = [], [], [], [], [], [0, 0]
+    for h, cin, cout in CONVS:
+        w, bias = _conv_w(gen, cin, cout, 3, dev)
+        args = (x_of(h, cin), w.to(bf), bias)
+        got, note = _bf16_rule(f"conv3x3_bf16 {h}^2 {cin}->{cout}",
+                               lambda *a: ck.conv3x3(*a, True),
+                               lambda *a: ck.conv3x3_plain(*a, True), args)
+        pairs += got
+        notes.append(note)
+        lib = (args[0].permute(0, 3, 1, 2), args[1].permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last), args[2].to(bf))
+        work[0] += nbytes(*args) + b * h * h * cout * 2
+        work[1] += 2 * b * h * h * 9 * cin * cout
+        kfns.append(lambda a=args: ck.conv3x3(*a, True))
+        pfns.append(lambda a=args: ck.conv3x3_plain(*a, True))
+        lfns.append(lambda a=lib: F.conv2d(*a, padding=1))
+    log("kernels", f"conv3x3_bf16 at the {len(CONVS)} shapes, the largest share of its "
+        f"tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}")
+    entry("conv3x3_bf16", "tomosar2height_tpu_torch/csrc/conv.cu",
+          "tomosar2height_tpu/ops/pallas/conv_kernel.py:43", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
+          (work[0], [(work[1], BF16_FLOP_S)]), lambda: [fn() for fn in lfns],
+          tol="2x plain's distance from float64 + 1 bf16 ulp", iters=3)
+    del pairs, kfns, pfns, lfns
+
+    pairs, notes, kfns, pfns, work = [], [], [], [], [0, 0]
+    for h, cin, c, pool in ALTO_PAIRS + IMAGE_PAIRS:
+        args = (x_of(h, cin), *w_of(cin, c), *w_of(c, c))
+        got, note = _bf16_rule(f"conv_pair_bf16 {h}^2 {cin}->{c}->{c}",
+                               lambda *a, p=pool: cpk.conv_pair(*a, p),
+                               lambda *a, p=pool: cpk.conv_pair_plain(*a, p), args)
+        pairs += got
+        notes.append(note)
+        work[0] += nbytes(*args) + b * h * h * c * 2 * (1.25 if pool else 1)
+        work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
+        kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
+        pfns.append(lambda a=args, p=pool: cpk.conv_pair_plain(*a, p))
+    log("kernels", f"conv_pair_bf16 at the {len(ALTO_PAIRS + IMAGE_PAIRS)} shapes, the "
+        f"largest share of its tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}")
+    entry("conv_pair_bf16", "tomosar2height_tpu_torch/csrc/convpair.cu",
+          "tomosar2height_tpu/ops/pallas/convpair_kernel.py:36", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
+          (work[0], [(work[1], BF16_FLOP_S)]),
+          tol="2x plain's distance from float64 + 1 bf16 ulp", iters=3)
+    del pairs, kfns, pfns
+
+    h, c0, (c1, c2, c3), co = DECODER
+    args = (x_of(h, c0), *w_of(c0, c1), *w_of(c1, c2), *w_of(c2, c3),
+            *w_of(c0 + c1 + c2 + c3, co, 1))
+    got, note = _bf16_rule("conv_decoder_bf16", dk.conv_decoder, dk.conv_decoder_plain, args)
+    log("kernels", f"conv_decoder_bf16, the share of its tolerance: {note[0]:.3f}, "
+        f"{note[1]}")
+    # the three convs on bf16 tensor cores, the 1x1 head on fp32 FMA
+    ops = [(2 * b * h * h * 9 * (c0 * c1 + c1 * c2 + c2 * c3), BF16_FLOP_S),
+           (2 * b * h * h * (c0 + c1 + c2 + c3) * co, FP32_FLOP_S)]
+    entry("conv_decoder_bf16", "tomosar2height_tpu_torch/csrc/decoder.cu",
+          "tomosar2height_tpu/ops/pallas/decoder_kernel.py:85", got,
+          lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
+          (nbytes(*args) + b * h * h * co * 4, ops),
+          tol="2x plain's distance from float64 + 1 bf16 ulp", iters=5)
     torch.cuda.synchronize()
 
 
@@ -2115,29 +2275,46 @@ def _footprint_tol(cfg) -> float:
     return 2e-4 * cfg["training"]["weight_ce"]
 
 
-def _headline_parts(seed: int, kernels: bool):
+def headline_unsorted(dtype: str, fused: bool = True):
+    """``headline_config()`` on the unsorted point path in ``dtype``
+    (``model.dtype``), the conv kernel flags (K6, K7) kept or, without
+    ``fused``, off."""
+    from tomosar2height_tpu_torch.config import headline_config
+
+    cfg = headline_config()
+    cfg["dataset"]["points"]["sort"] = False
+    cfg["model"]["dtype"] = dtype
+    if not fused:
+        cfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = False
+        cfg["model"]["encoder2_kwargs"]["fused_convs"] = False
+        cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
+    return cfg
+
+
+HEADLINE_OPTIMIZE_EVERY = 4  # mini-steps an optimizer step (headline_config()'s is 8)
+
+
+def _headline_parts(seed: int, kernels: bool, cfg=None):
     """The headline config (``kernels``: fused2 + K6/K7; else the unsorted
-    path with the kernel flags off), its training keys with a checkpoint
-    every iteration and no validation, and a det_stream loader of one
-    optimizer step's random patches a pass over the synthetic city, with the
-    city's nDSM as target and its RGB image."""
+    path with the kernel flags off; or ``cfg``, unsorted), its training keys
+    with a checkpoint every iteration, no validation and
+    HEADLINE_OPTIMIZE_EVERY mini-steps an optimizer step, and a det_stream
+    loader of one optimizer step's random patches a pass over the synthetic
+    city, with the city's nDSM as target and its RGB image."""
     from tomosar2height_tpu_torch.config import headline_config
     from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
     from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
     from tomosar2height_tpu_torch.geo import RasterData
 
-    cfg = headline_config()
-    if not kernels:
-        cfg["dataset"]["points"]["sort"] = False
-        cfg["model"]["encoder_kwargs"]["unet_kwargs"]["fused_convs"] = False
-        cfg["model"]["encoder2_kwargs"]["fused_convs"] = False
-        cfg["model"]["decoder_pixel_kwargs"]["fused_head"] = False
+    if cfg is None:
+        cfg = headline_config() if kernels else headline_unsorted("float32", fused=False)
     w, h = CITY["W"], CITY["H"]
     ndsm, pts, rgb = build_city(seed, **CITY)
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
                "points": pts}]
     grid = RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0))
-    tcfg = {**cfg["training"], "checkpoint_every": 1, "validate_every": 0}
+    tcfg = {**cfg["training"], "checkpoint_every": 1, "validate_every": 0,
+            "optimize_every": HEADLINE_OPTIMIZE_EVERY}
     dcfg = cfg["dataset"]
     bsz = tcfg["batch_size"]
     ds = SceneDataset(chunks, dcfg, random_sample=True,
@@ -2194,12 +2371,13 @@ HEADLINE_STEPS = 2  # optimizer steps of each path: the warm-up and one timed
 
 def headline_train(seed: int = 0):
     """The headline network trained at full width on the synthetic city with
-    its RGB image, batch 8, ``optimize_every`` 8: the kernel path (fused2 +
+    its RGB image, batch 8, ``optimize_every`` 4: the kernel path (fused2 +
     K6/K7) for HEADLINE_STEPS optimizer steps with a checkpoint after each
     (the first the warm-up, the timed run the second), launches per
     mini-step asserted; the plain path (unsorted, kernel flags off) from the
-    same weights on the same patches for as many steps, its window losses
-    held within ``_height_tol`` (loss_l1) and ``_footprint_tol`` (loss_ce);
+    same weights on the same patches for the first of them (its mini-step
+    ms the median of that step's mini-steps after the first), its window
+    losses held within ``_height_tol`` (loss_l1) and ``_footprint_tol`` (loss_ce);
     the checkpoint's size and round trip; then a child process resumes from
     the iteration-1 checkpoint and runs on to iteration HEADLINE_STEPS: 0
     tensors may differ from the uninterrupted run, and the window losses
@@ -2230,14 +2408,16 @@ def headline_train(seed: int = 0):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             runtime.reset_launches()
-            out = train(trainer, sched, loader, tcfg, max_iteration=HEADLINE_STEPS,
+            out = train(trainer, sched, loader, tcfg,
+                        max_iteration=HEADLINE_STEPS if name == "kernels" else 1,
                         checkpoint_io=io if name == "kernels" else None)
             torch.cuda.synchronize()
-            timed = out["windows"][1:]
+            timed = out["windows"][1:] or out["windows"]
             wall = sum(w["time_loader_s"] + w["time_step_s"] + w["time_log_s"] for w in timed)
             patches = sum(w["n_patches"] for w in timed)
             runs[name] = {"windows": out["windows"], "launches": dict(runtime.LAUNCHES),
-                          "ms": float(np.median(out["step_ms"][k:])), "n": len(out["step_ms"]),
+                          "ms": float(np.median(out["step_ms"][k:] or out["step_ms"][1:])),
+                          "n": len(out["step_ms"]),
                           "patches_s": patches / wall, "patches": patches, "wall": wall,
                           "peak": torch.cuda.max_memory_allocated(),
                           "aux": [w["time_aux_s"] for w in out["windows"]]}
@@ -2248,9 +2428,10 @@ def headline_train(seed: int = 0):
                 f"{[round(w['loss_l1'], 6) for w in out['windows']]}, ce "
                 f"{[round(w['loss_ce'], 6) for w in out['windows']]}) | grad_norm "
                 f"{gn} | mini-step "
-                f"{r['ms']:.1f} ms (median of the timed {r['n'] - k}, CUDA events) | "
-                f"{patches} patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s "
-                f"(windows 2-{len(out['windows'])}, checkpoints not counted) | peak "
+                f"{r['ms']:.1f} ms (median of the timed {max(r['n'] - k, r['n'] - 1)}, CUDA "
+                f"events) | {patches} patches in {wall:.3f} s = {r['patches_s']:.2f} train "
+                f"patches/s (windows {'2-' if len(out['windows']) > 1 else ''}"
+                f"{len(out['windows'])}, checkpoints not counted) | peak "
                 f"{r['peak'] / 2**30:.2f} GiB"
                 + (f" | checkpoint writes {[round(x, 3) for x in r['aux']]} s"
                    if name == "kernels" else ""))
@@ -2329,6 +2510,191 @@ def headline_train(seed: int = 0):
     return {key: kern["launches"][key] for key in ("conv_pair", "conv_decoder")}
 
 
+# conv kernel launches per batch-8 forward of the headline network on the
+# unsorted path with the kernel flags on: the 11 ALTO and 11 image U-Net conv
+# pairs (K7) and the height decoder (K6; serving skips the footprint head);
+# with the flags off under FAST_CONV, its 47 Conv3x3 (K8); per training
+# mini-step the ALTO pairs twice (remat's recompute), the image pairs once and
+# both heads. The f32 runs launch the same kernels' f32 entries.
+BF16_SERVE_LAUNCHES = {"conv_pair_bf16": 22, "conv_decoder_bf16": 1}
+BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47}
+BF16_TRAIN_LAUNCHES = {"conv_pair_bf16": 33, "conv_decoder_bf16": 2}
+
+
+def _f32_launches(counts: dict) -> dict:
+    return {k.replace("_bf16", ""): v for k, v in counts.items()}
+
+
+def bf16_phase(seed: int = 0):
+    """The headline network in bf16 (``model.dtype=bfloat16``) at full width
+    on the unsorted point path, weights from ``seed``, against the same in
+    f32 from the same weights:
+
+    - serving the synthetic city with its RGB image under FAST_CONV: bf16
+      with the kernel flags (K6, K7), bf16 with the flags off (every Conv3x3
+      on K8) and f32 with the flags; each timed ``generate_dsm`` (the second)
+      with its tiles/s, forward ms, peak memory and launches (asserted); each
+      bf16 raster against the f32 raster within the JAX package's bf16 gate
+      (max |d| <= 0.15 x scale, correlation > 0.99; tests/test_bf16.py), NaN
+      masks equal;
+    - training, ``optimize_every`` HEADLINE_OPTIMIZE_EVERY: a warm-up and a
+      timed optimizer step in bf16 (launches per mini-step asserted) and in
+      f32 on the same patches, mini-step ms, train patches/s, peak memory,
+      |window loss bf16 - f32| <= 0.15 x scale (an L1 loss moves at most as
+      far as the heights); the bf16 first step run again from the same
+      weights, and the tensors that differ counted (logged: the unsorted
+      scatters add with float atomics);
+    - bf16 on the sorted layout (``headline_config()``) refused by
+      ``build_model`` in a child process beside the rest.
+
+    Returns the bf16 kernels' launches of the timed bf16 runs."""
+    import tempfile
+
+    import torch
+
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+    from tomosar2height_tpu_torch.infer.generator import make_generator
+    from tomosar2height_tpu_torch.models import build_model, init_weights
+    from tomosar2height_tpu_torch.models.blocks import set_fast_conv
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import train
+
+    refusal = subprocess.Popen(
+        [sys.executable, "-c", "from tomosar2height_tpu_torch.config import headline_config; "
+         "from tomosar2height_tpu_torch.models import build_model; c = headline_config(); "
+         "c['model']['dtype'] = 'bfloat16'; build_model(c)"],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    w, h = CITY["W"], CITY["H"]
+    _, pts, rgb = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    image = (rgb, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+    cfgs = {"bf16": headline_unsorted("bfloat16"),
+            "bf16 fast_conv": headline_unsorted("bfloat16", fused=False),
+            "f32": headline_unsorted("float32")}
+    models = {name: build_model(cfg, DEVICE) for name, cfg in cfgs.items()}
+    init_weights(models["bf16"], torch.Generator().manual_seed(seed))
+    state0 = {n: v.detach().clone() for n, v in models["bf16"].state_dict().items()}
+    for name in ("bf16 fast_conv", "f32"):
+        models[name].load_state_dict(state0)
+
+    served, total = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, per_batch in (("bf16", BF16_SERVE_LAUNCHES),
+                                ("bf16 fast_conv", BF16_FAST_CONV_LAUNCHES),
+                                ("f32", _f32_launches(BF16_SERVE_LAUNCHES))):
+            model = models[name].eval()
+            set_fast_conv(True)
+            gen = make_generator(model, cfgs[name], chunks, image=image)
+            n_batches = len(gen.data_loader)
+            batch = next(iter(gen.data_loader))
+            up = {k: torch.from_numpy(batch[k]).to(DEVICE)
+                  for k in ("points", "point_mask", "image")}
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
+                                               footprint=False), iters=3, warmup=1)
+            warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            runtime.reset_launches()
+            r = gen.generate_dsm(os.path.join(tmp, f"{name}.tif"))
+            torch.cuda.synchronize()
+            launches = dict(runtime.LAUNCHES)
+            set_fast_conv(False)
+            stats = gen.last_stats
+            served[name] = r.data
+            log("bf16", f"serve {name}: {stats['n_patches']} tiles in {n_batches} batches | "
+                f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s) | forward "
+                f"{fwd_ms:.1f} ms per batch (median of 3) | peak "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | bit-equal to its "
+                f"warm-up run {np.array_equal(warm.data, r.data, equal_nan=True)} | launches "
+                f"per forward {({k: v / n_batches for k, v in launches.items() if v})}")
+            want = {k: per_batch.get(k, 0) * n_batches for k in launches}
+            if launches != want:
+                raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+            if name != "f32":
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            del gen, warm, r
+    ref = served["f32"]
+    nan = np.isnan(ref)
+    if ref.shape != (h, w) or nan.all():
+        raise AssertionError(f"bad f32 raster {ref.shape}")
+    scale = max(1.0, float(np.abs(ref[~nan]).max()))
+    for name in ("bf16", "bf16 fast_conv"):
+        da = served[name]
+        if da.shape != ref.shape or not np.array_equal(np.isnan(da), nan):
+            raise AssertionError(f"{name}: raster differs from f32 in shape or NaN mask")
+        d = np.abs(da[~nan] - ref[~nan])
+        corr = float(np.corrcoef(da[~nan], ref[~nan])[0, 1])
+        log("bf16", f"serve {name} vs f32 raster: max|d| {float(d.max()):.4g} m (tol "
+            f"{0.15 * scale:.4g} m = 0.15 x scale {scale:.4g} m), mean|d| "
+            f"{float(d.mean()):.4g} m, correlation {corr:.6f} (tol > 0.99), NaN px "
+            f"{int(nan.sum())}")
+        if d.max() > 0.15 * scale or corr <= 0.99:
+            raise AssertionError(f"{name} raster off the f32 raster: {d.max()} m, corr {corr}")
+
+    def run(name, steps, label):
+        model = models[name]
+        model.load_state_dict(state0)
+        cfg, tcfg, loader = _headline_parts(seed, False, cfgs[name])
+        trainer, sched = _headline_trainer(cfg, tcfg, model)
+        windows, first = [], None
+        if steps > 1:
+            windows += train(trainer, sched, loader, tcfg, max_iteration=1)["windows"]
+            first = {n: v.detach().clone() for n, v in model.state_dict().items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out = train(trainer, sched, loader, tcfg, max_iteration=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        windows += out["windows"]
+        r = {"first": first or {n: v.detach().clone() for n, v in model.state_dict().items()},
+             "losses": [x["loss_l1"] for x in windows], "ms": out["median_step_ms"],
+             "n": out["n_ministeps"], "patches": out["n_patches"], "wall": wall,
+             "peak": torch.cuda.max_memory_allocated(), "launches": dict(runtime.LAUNCHES)}
+        log("bf16", f"train {label}: window L1 losses {[f'{x:.6f}' for x in r['losses']]} | "
+            f"mini-step {r['ms']:.1f} ms (median of {r['n']}, CUDA events) | {r['patches']} "
+            f"patches in {wall:.3f} s = {r['patches'] / wall:.2f} train patches/s | peak "
+            f"{r['peak'] / 2**30:.2f} GiB")
+        if not all(np.isfinite(r["losses"])):
+            raise AssertionError(f"{name}: window losses {r['losses']}")
+        return r
+
+    runs = {"bf16": run("bf16", 2, "bf16"), "f32": run("f32", 2, "f32")}
+    runs["bf16 again"] = run("bf16", 1, "bf16 again")
+    bf, f32, again = runs["bf16"], runs["f32"], runs["bf16 again"]
+    err = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
+    unequal = _differing(bf["first"], again["first"])
+    log("bf16", f"train bf16 vs f32 window L1 losses: max|d| {err:.4g} m (tol "
+        f"{0.15 * scale:.4g} m) | bf16 first step run twice from the same weights on the "
+        f"same patches: {len(unequal)} of {len(bf['first'])} tensors differ, window loss "
+        f"equal {bf['losses'][:1] == again['losses']} (the unsorted scatters add with "
+        f"float atomics) | mini-step bf16 {bf['ms']:.1f} ms, f32 {f32['ms']:.1f} ms")
+    if err > 0.15 * scale:
+        raise AssertionError(f"bf16 and f32 window losses differ by {err} m")
+    for name, per_step in (("bf16", BF16_TRAIN_LAUNCHES),
+                           ("f32", _f32_launches(BF16_TRAIN_LAUNCHES))):
+        r = runs[name]
+        want = {**dict.fromkeys(r["launches"], 0),
+                **{key: v * r["n"] for key, v in per_step.items()}}
+        if r["launches"] != want:
+            raise AssertionError(f"train {name}: launch counts {r['launches']}, expected {want}")
+    for k, v in bf["launches"].items():
+        total[k] = total.get(k, 0) + v
+    _, stderr = refusal.communicate(timeout=300)
+    said = stderr.strip().splitlines()[-1:]
+    log("bf16", f"bf16 on the sorted layout refused by build_model: exit "
+        f"{refusal.returncode}, {said}")
+    if refusal.returncode == 0 or "ROADMAP: bf16" not in str(said):
+        raise AssertionError(f"build_model did not refuse bf16 on the sorted layout: "
+                             f"{refusal.returncode} {said}")
+    return _nonzero(total)
+
+
 # the "cli" phase's city on disk: CITY's scene of the other phases (build_city's
 # 90 buildings) written as scripts/make_synthetic_city.py writes its files,
 # two 1024 m chunks (train; val, vis and test)
@@ -2347,7 +2713,7 @@ def _cli_overrides(root: str) -> list:
     """``dataset=synthetic`` on the city under ``root`` with the headline
     network (``headline_config()``'s model subtree: ALTO depth 6, the image
     U-Net, the footprint head, fused2 and the conv kernel flags), the base
-    config's point buckets, batch 8, ``optimize_every`` 8, 2 iterations,
+    config's point buckets, batch 8, ``optimize_every`` 4, 2 iterations,
     validation, a checkpoint and the vis split's nDSM at the second (every
     iteration until PR 15: two of its four 1.1 GB checkpoint writes go)."""
     from tomosar2height_tpu_torch.config import CONV_KERNELS, KERNEL_PATH
@@ -2365,7 +2731,7 @@ def _cli_overrides(root: str) -> list:
             "model.encoder_kwargs.unet_kwargs.depth=6",
             "dataset.points.bucket_sizes=[2048,4096,8192,16384,32768,65536]",
             "dataset.points.train_bucket=16384", "training.batch_size=8",
-            "training.optimize_every=8", "training.val_batch_size=8",
+            "training.optimize_every=4", "training.val_batch_size=8",
             "training.max_iteration=2", "training.validate_every=2",
             "training.checkpoint_every=2", "training.visualize_every=2"
             ] + KERNEL_PATH + CONV_KERNELS
@@ -2559,8 +2925,9 @@ def timed(phase: str, fn, *args):
 def main():
     t0 = time.perf_counter()
     smi = card()
-    timed("build", build)
+    sass = timed("build", build)
     rows = timed("kernels", check_kernels)
+    timed("sass", check_sass, sass)
     timed("model", check_model)
     serve_launches = timed("serve", serve)
     fusion_launches = timed("fusion-serve", fusion_serve)
@@ -2569,6 +2936,7 @@ def main():
     launches = timed("train", train_phase)
     sorted_train_launches = timed("sorted-train", sorted_train)
     headline_launches = timed("headline-train", headline_train)
+    bf16_launches = timed("bf16", bf16_phase)
     cli_launches = timed("cli", cli_phase, smi)
     log("time", f"all phases {time.perf_counter() - t0:.1f} s")
     import torch
@@ -2577,13 +2945,15 @@ def main():
         # K1-K5 (K5's d_plane pass too) and the backwards: the flagship
         # training step; K6 and K7: fusion serving and headline training; K8:
         # fusion serving; K9-K13: sorted serving (K14 is on no model path);
-        # the fused layout's backwards: its training step
+        # the fused layout's backwards: its training step; K6-K8 in bf16:
+        # the bf16 phase's serving and its timed training step
         name = row["name"]
         key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
         row["launches"] = (launches.get(key)
                            or fusion_launches.get(key, 0) + headline_launches.get(key, 0)
                            or sorted_launches.get(key, 0)
-                           or sorted_train_launches.get(key, 0))
+                           or sorted_train_launches.get(key, 0)
+                           or bf16_launches.get(key, 0))
         row["launches_serve"] = serve_launches.get(name, 0)
         row["launches_sorted_train"] = sorted_train_launches.get(key, 0)
         row["launches_cli"] = cli_launches.get(key, 0)

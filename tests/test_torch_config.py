@@ -155,7 +155,7 @@ def test_select_device_cpu_and_card():
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ("device.dtype=bfloat16", NotImplementedError, "ROADMAP: bf16"),
+    ("device.dtype=bfloat16", NotImplementedError, "compute dtype is model.dtype"),
     ("device.mesh.data=2", NotImplementedError, "ROADMAP: data parallelism"),
     ("device.distributed.num_processes=2", NotImplementedError, "ROADMAP: data parallelism"),
     ("device.platform=tpu", ValueError, "device.platform"),

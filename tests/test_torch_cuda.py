@@ -21,6 +21,9 @@ rel (3xTF32 on the tensor cores, in another order than cuDNN's full-fp32
 convolutions; K6's head in fp32 FMA). The backwards of K9/K10/K12 are the plain
 composition's autograd: 1e-5. The port's own cuDNN convolutions run in full
 float32 under PyTorch's default flags (TF32 on for cuDNN): held to float64.
+K6-K8 on bf16 activations (one bf16 pass on the tensor cores): their
+distance from the float64 evaluation of the same operands at most twice the
+bf16 plain version's plus one bf16 ulp of the output's scale.
 """
 
 from __future__ import annotations
@@ -1390,6 +1393,127 @@ class TestConvKernels:
         k, b = (t(a, cuda) for a in conv_weights(rng, 3, 8))
         with pytest.raises(ValueError, match="contiguous"):
             ck.conv3x3(x, k, b)
+
+
+BF = torch.bfloat16
+
+
+def _bf16_held(got, want, ref):
+    """A bf16 conv kernel's output within 2x its bf16 plain version's
+    distance from float64 plus one bf16 ulp of the output's scale."""
+    ulp = 2.0 ** (float(torch.floor(torch.log2(ref.abs().max()))) - 7)
+    tol = 2 * float((want.double() - ref).abs().max()) + ulp
+    assert float((got.double() - ref).abs().max()) <= tol
+
+
+def _bf16_weights(rng, cin, cout, device, k=3):
+    """conv_weights rounded to bf16, in float32 (the model's parameters as
+    K6 and K7 take them)."""
+    return tuple(t(a, device).to(BF).float() for a in conv_weights(rng, cin, cout, k))
+
+
+@pytest.mark.cuda
+class TestBf16ConvKernels:
+    """K8, K7 and K6 on bf16 activations (``t2h_*_bf16``), at the edges of
+    the core's bf16 path: Cin 3, 5 and 33 on the flat-K steps with 2-byte
+    loads, 8-aligned Cin on 16-byte copies of 8 channels, Cout 130 (a ragged
+    128-channel tile) and 7 (2-byte weight loads, scalar stores)."""
+
+    @pytest.mark.parametrize("relu", [True, False])
+    @pytest.mark.parametrize("h,w,cin,cout", [
+        (111, 107, 3, 32), (37, 29, 33, 72), (13, 19, 64, 130), (9, 11, 1024, 40),
+        (24, 16, 5, 7), (16, 16, 8, 64)])
+    def test_conv3x3_matches_plain(self, cuda, h, w, cin, cout, relu):
+        rng = np.random.default_rng(20)
+        x = t(rng.normal(0, 1, (3, h, w, cin)).astype(np.float32), cuda).to(BF)
+        k, b = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        k = k.to(BF)
+        before = dict(runtime.LAUNCHES)
+        got = ck.conv3x3(x, k, b, relu)
+        want = ck.conv3x3_plain(x, k, b, relu)
+        torch.cuda.synchronize()
+        _launched("conv3x3_bf16", before)
+        assert got.dtype == BF and torch.equal(ck.conv3x3(x, k, b, relu), got)
+        _bf16_held(got, want, ck.conv3x3_plain(x.double(), k.double(), b.double(), relu))
+
+    def test_conv3x3_unaligned_input_takes_the_scalar_copies(self, cuda):
+        rng = np.random.default_rng(21)
+        n = 2 * 12 * 20 * 16
+        x = torch.empty(n + 1, device=cuda, dtype=BF)[1:].view(2, 12, 20, 16)
+        x.copy_(t(rng.normal(0, 1, (2, 12, 20, 16)).astype(np.float32), cuda))
+        kw, b = conv_weights(rng, 16, 16)
+        k, b = t(kw, cuda).to(BF), t(b, cuda)
+        assert x.data_ptr() % 16 and x.is_contiguous()
+        got = ck.conv3x3(x, k, b, True)
+        want = ck.conv3x3_plain(x, k, b, True)
+        torch.cuda.synchronize()
+        _bf16_held(got, want, ck.conv3x3_plain(x.double(), k.double(), b.double(), True))
+
+    @pytest.mark.parametrize("b,h,w,cin,c1,c2,pool", [
+        (2, 24, 16, 3, 8, 12, True), (2, 128, 136, 32, 64, 64, True),
+        (8, 16, 16, 512, 1024, 1024, True), (3, 12, 16, 8, 16, 320, True),
+        (2, 10, 14, 5, 6, 7, True), (2, 24, 24, 32, 32, 32, False)])
+    def test_conv_pair_matches_plain(self, cuda, b, h, w, cin, c1, c2, pool):
+        rng = np.random.default_rng(22)
+        x = t(rng.normal(0, 1, (b, h, w, cin)).astype(np.float32), cuda).to(BF)
+        args = (x, *_bf16_weights(rng, cin, c1, cuda), *_bf16_weights(rng, c1, c2, cuda))
+        before = dict(runtime.LAUNCHES)
+        got = cpk.conv_pair(*args, pool)
+        want = cpk.conv_pair_plain(*args, pool)
+        ref = cpk.conv_pair_plain(*(a.double() for a in args), pool)
+        torch.cuda.synchronize()
+        _launched("conv_pair_bf16", before)
+        for i in (0, 1) if pool else (0,):
+            assert got[i].dtype == BF
+            _bf16_held(got[i], want[i], ref[i])
+
+    @pytest.mark.parametrize("c0,co,c3", [(3, 1, 64), (32, 1, 64), (33, 2, 20)])
+    def test_conv_decoder_matches_plain(self, cuda, c0, co, c3):
+        rng = np.random.default_rng(23)
+        x = t(rng.normal(0, 1, (3, 13, 21, c0)).astype(np.float32), cuda).to(BF)
+        args = (x, *_bf16_weights(rng, c0, 64, cuda), *_bf16_weights(rng, 64, 128, cuda),
+                *_bf16_weights(rng, 128, c3, cuda),
+                *_bf16_weights(rng, c0 + 192 + c3, co, cuda, k=1))
+        before = dict(runtime.LAUNCHES)
+        got = dk.conv_decoder(*args)
+        want = dk.conv_decoder_plain(*args)
+        torch.cuda.synchronize()
+        _launched("conv_decoder_bf16", before)
+        assert got.dtype == torch.float32 and torch.equal(dk.conv_decoder(*args), got)
+        _bf16_held(got, want, dk.conv_decoder_plain(*(a.double() for a in args)))
+
+    def test_backward_is_the_f32_composition(self, cuda):
+        """bf16 in, each gradient in its input's dtype: x's bf16, the f32
+        weights' f32, as the f32 composition's autograd on the upcast inputs
+        gives them for the same cotangents."""
+        rng = np.random.default_rng(24)
+        x = t(rng.normal(0, 1, (2, 16, 16, 8)).astype(np.float32), cuda).to(BF)
+        ws = [a.requires_grad_() for a in (*_bf16_weights(rng, 8, 16, cuda),
+                                           *_bf16_weights(rng, 16, 16, cuda))]
+        x.requires_grad_()
+        y, p = cpk.conv_pair(x, *ws, True)
+        gy, gp = torch.ones_like(y), p.detach().clone()
+        torch.autograd.backward([y, p], [gy, gp])
+        got = [a.grad for a in (x, *ws)]
+        leaves = [a.detach().float().requires_grad_() for a in (x, *ws)]
+        y32, p32 = cpk.conv_pair_plain(*leaves, True)
+        want = torch.autograd.grad([y32, p32], leaves, [gy.float(), gp.float()])
+        assert got[0].dtype == BF and all(a.dtype == torch.float32 for a in got[1:])
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a.float(), b.to(a.dtype).float(), rtol=1e-2, atol=1e-3)
+
+    def test_mixed_dtypes_raise(self, cuda):
+        rng = np.random.default_rng(25)
+        x = t(rng.normal(0, 1, (2, 8, 8, 8)).astype(np.float32), cuda)
+        k, b = (t(a, cuda) for a in conv_weights(rng, 8, 8))
+        with pytest.raises(TypeError, match="dtype"):
+            ck.conv3x3(x.to(BF), k, b)  # K8 takes the kernel in x's dtype
+        with pytest.raises(TypeError, match="dtype"):
+            ck.conv3x3(x.to(BF), k.to(BF), b.to(BF))  # and the bias in f32
+        with pytest.raises(TypeError, match="dtype"):
+            cpk.conv_pair(x.to(BF), k.to(BF), b, k.to(BF), b)  # K7 takes f32 weights
+        with pytest.raises(TypeError, match="dtype"):
+            ck.conv3x3(x.half(), k.half(), b)
 
 
 def _launched(name, before, n=1):

@@ -199,3 +199,52 @@ def test_resume_from_checkpoint(trained):
         f"training.resume_from={ckpt}", "training.max_iteration=3"])
     assert n_iter == 3 and np.isfinite(best)
     assert os.path.exists(f"{run_dir(root)}/check_points/model_3.ckpt")
+
+
+BF16 = ["model.dtype=bfloat16", "run_suffix=-bf16", "training.max_iteration=1",
+        "training.visualize_every=0",
+        "model.encoder_kwargs.unet_kwargs.fused_convs=true",
+        "model.encoder2_kwargs.fused_convs=true",
+        "model.decoder_pixel_kwargs.fused_head=true"]
+
+
+def _tree_of(path):
+    """{key path: (shape, dtype)} of the arrays of a checkpoint file's
+    pytrees (the model's and the optimizer's, each a msgpack blob)."""
+    from tomosar2height_tpu_torch.train.checkpoint import unpack
+
+    with open(path, "rb") as f:
+        tree = {k: unpack(v) for k, v in unpack(f.read())["pytrees"].items()}
+    out = {}
+
+    def walk(v, key):
+        items = v.items() if isinstance(v, dict) else (
+            enumerate(v) if isinstance(v, list) else ())
+        for k, x in items:
+            walk(x, key + (k,))
+        if isinstance(v, np.ndarray):
+            out[key] = (v.shape, str(v.dtype))
+    walk(tree, ())
+    return out
+
+
+def test_bf16_trains_and_tests_through_the_cli(trained):
+    """model.dtype=bfloat16 on the unsorted point path with the conv kernels'
+    flags: cli.train writes a checkpoint of the f32 run's arrays (float32
+    parameters and optimizer state), cli.test serves it to finite heights."""
+    root, ov, out = trained
+    bf = cli_train.run(ov + BF16)
+    assert bf["n_iter"] == 1 and np.isfinite(bf["windows"][0]["loss"])
+    tree = _tree_of(f"{run_dir(root, '-bf16')}/check_points/model_1.ckpt")
+    assert tree == _tree_of(f"{run_dir(root)}/check_points/model_1.ckpt")
+    assert len(tree) > 100 and {d for k, (_, d) in tree.items() if k[0] == "model"} == {
+        "float32"}
+    res = cli_test.run(ov + BF16[:2])
+    dsm = RasterReader(res["dsm_path"]).get_data()
+    assert np.isfinite(dsm).any() and res["stats"]["overall"]["RMSE"] is not None
+
+
+def test_bf16_on_the_sorted_layout_refused(trained):
+    root, ov, out = trained
+    with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
+        cli_train.run(ov + KERNEL_PATH + ["model.dtype=bfloat16", "run_suffix=-bf16s"])

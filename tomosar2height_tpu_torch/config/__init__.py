@@ -72,7 +72,10 @@ def select_device(cfg) -> torch.device:
     - ``platform``: null (the default) is the card, and with no card this
       raises: nothing falls back to the CPU. ``'cpu'`` is the CPU (the tests);
       ``'cuda'``/``'gpu'`` the card as null. Anything else raises.
-    - ``dtype``: float32 only (bf16 is ROADMAP: bf16).
+    - ``dtype``: float32 only. The compute dtype is ``model.dtype``
+      (float32 or bfloat16, ``models.build_model``); the JAX package reads
+      ``device.dtype`` nowhere, and the port refuses any other value rather
+      than ignore it.
     - ``mesh.data``: the port runs on one card; -1 (all cards) runs on the
       first, a count above 1 raises (ROADMAP: data parallelism).
     - ``distributed.*``: a multi-process cluster raises (ROADMAP: data
@@ -84,7 +87,9 @@ def select_device(cfg) -> torch.device:
     platform: Optional[str] = cfg.select("device.platform")
     dtype = str(cfg.select("device.dtype", "float32"))
     if dtype != "float32":
-        raise NotImplementedError(f"device.dtype={dtype!r}: bf16 is ROADMAP: bf16")
+        raise NotImplementedError(
+            f"device.dtype={dtype!r}: the compute dtype is model.dtype (float32 or "
+            "bfloat16); device.dtype takes float32 only")
     mesh = int(cfg.select("device.mesh.data", -1) or -1)
     if mesh > 1:
         raise NotImplementedError(f"device.mesh.data={mesh}: the port runs on one card "

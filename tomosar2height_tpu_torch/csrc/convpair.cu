@@ -26,10 +26,30 @@
 // Bound on the H100: the MACs, 9 (Cin C1 + C1 C2) per output pixel (1.54
 // TFLOP for the 20 pairs of a batch-8 fusion forward), three TF32 products
 // each: 9.3 ms at 495/3 TFLOP/s.
+//
+// t2h_conv_pair_bf16: the JAX kernel's bf16 rule (convpair_kernel.py:99,
+// 122-142): bf16 x, weights and mid (relu(conv1) rounded to bf16 before
+// conv2, as its scratch is in the model dtype), biases rounded to bf16 and
+// added in fp32, fp32 accumulation, bf16 y and pool; one bf16 mma.sync pass
+// a conv (1.6 ms of MACs at 989 TFLOP/s for the 20 pairs).
 
 #include "igemm_conv.cuh"
 
 using namespace t2h;
+
+namespace {
+
+template <typename E>
+int conv_pair(const E* x, const E* w1, const float* b1, const E* w2, const float* b2, E* mid,
+              E* y, E* pooled, int B, int H, int W, int Cin, int C1, int C2,
+              cudaStream_t stream) {
+  if ((long long)B * H * W * C2 == 0) return 0;
+  cudaError_t err = conv3x3_bias(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, true, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(conv3x3_bias(mid, w2, b2, y, pooled, B, H, W, C1, C2, true, stream));
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -39,10 +59,14 @@ extern "C" {
 int t2h_conv_pair(const float* x, const float* w1, const float* b1, const float* w2,
                   const float* b2, float* mid, float* y, float* pooled, int B, int H, int W,
                   int Cin, int C1, int C2, cudaStream_t stream) {
-  if ((long long)B * H * W * C2 == 0) return 0;
-  cudaError_t err = conv3x3_bias(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, true, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(conv3x3_bias(mid, w2, b2, y, pooled, B, H, W, C1, C2, true, stream));
+  return conv_pair(x, w1, b1, w2, b2, mid, y, pooled, B, H, W, Cin, C1, C2, stream);
+}
+
+// The same on bf16 x, w1, w2, mid, y and pooled; b1, b2 fp32 (bf16-rounded).
+int t2h_conv_pair_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                       const float* b2, bf16* mid, bf16* y, bf16* pooled, int B, int H, int W,
+                       int Cin, int C1, int C2, cudaStream_t stream) {
+  return conv_pair(x, w1, b1, w2, b2, mid, y, pooled, B, H, W, Cin, C1, C2, stream);
 }
 
 }  // extern "C"

@@ -147,7 +147,7 @@ __device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* A,
 
 // --- cp.async ------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async16(float* smem, const float* gmem, int src_bytes) {
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
                "r"(src_bytes));
@@ -171,18 +171,21 @@ __device__ __forceinline__ void cp_async_wait() {
 // Rows [r0, r0 + TR) x columns [c0, c0 + TC) of a row-major global matrix g
 // (row stride ld; rows < rmax and columns < cmax exist) -> s (row stride
 // sld), zero where the matrix has no element. vec: 16-byte copies, which
-// needs ld, c0 and cmax multiples of 4 and g 16-byte aligned; else 4-byte
-// copies. Every one of the block's NTH threads calls it.
-template <int TR, int TC, int NTH = kThreads>
-__device__ __forceinline__ void cp_tile(float* s, int sld, const float* __restrict__ g,
-                                        long long ld, long long r0, long long rmax, int c0,
-                                        int cmax, bool vec, int tid) {
+// needs ld, c0 and cmax multiples of 16 / sizeof(E) and g 16-byte aligned;
+// else element copies: cp.async of 4 bytes for fp32, and loads through
+// registers for 2-byte elements (cp.async copies 4, 8 or 16 bytes). Every
+// one of the block's NTH threads calls it.
+template <int TR, int TC, int NTH = kThreads, typename E>
+__device__ __forceinline__ void cp_tile(E* s, int sld, const E* __restrict__ g, long long ld,
+                                        long long r0, long long rmax, int c0, int cmax,
+                                        bool vec, int tid) {
   if (vec) {
-    constexpr int kCh = TC / 4;
+    constexpr int kV = 16 / sizeof(E);
+    constexpr int kCh = TC / kV;
 #pragma unroll
     for (int e = tid; e < TR * kCh; e += NTH) {
       const int r = e / kCh;
-      const int c = (e - r * kCh) * 4;
+      const int c = (e - r * kCh) * kV;
       const bool ok = r0 + r < rmax && c0 + c < cmax;
       cp_async16(s + r * sld + c, ok ? g + (r0 + r) * ld + c0 + c : g, ok ? 16 : 0);
     }
@@ -191,7 +194,13 @@ __device__ __forceinline__ void cp_tile(float* s, int sld, const float* __restri
       const int r = e / TC;
       const int c = e - r * TC;
       const bool ok = r0 + r < rmax && c0 + c < cmax;
-      cp_async4(s + r * sld + c, ok ? g + (r0 + r) * ld + c0 + c : g, ok ? 4 : 0);
+      if constexpr (sizeof(E) == 4) {
+        cp_async4(s + r * sld + c, ok ? g + (r0 + r) * ld + c0 + c : g, ok ? 4 : 0);
+      } else {
+        static_assert(sizeof(E) == 2, "4- or 2-byte elements");
+        reinterpret_cast<unsigned short*>(s)[r * sld + c] =
+            ok ? reinterpret_cast<const unsigned short*>(g)[(r0 + r) * ld + c0 + c] : 0;
+      }
     }
   }
 }

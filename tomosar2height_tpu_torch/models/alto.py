@@ -20,7 +20,9 @@ cumulative sums over the coarsened per-cell offsets on ``pallas``/``cumsum``;
 plain segment ops otherwise). Every path reads the same ``fc_comm``/``fc_c``
 parameters. Under ``fused_convs`` each
 level's conv pair is one K7 call (``ops/cuda/convpair_kernel.conv_pair``). Planes are NCHW-logical in
-``channels_last`` memory; the public interface is NHWC.
+``channels_last`` memory; the public interface is NHWC. Every layer computes
+in ``dtype``; the sample of a bf16 plane comes back float32 (its f32
+weights promote it, JAX ops/sampling.py:45-60) and ``fc_comm`` casts it.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ import torch.nn as nn
 from tomosar2height_tpu_torch.models.blocks import (
     MLP2,
     Conv3x3,
+    Dense,
     conv1x1,
     fusable,
     fused_pair,
@@ -146,14 +149,15 @@ class AltoDownConv(nn.Module):
     """Encoder level (reference alto.py:48-138)."""
 
     def __init__(self, in_channels: int, features: int, level: int, pooling: bool,
-                 prev_features: Optional[int], c_dim: int, fused_convs: bool = False):
+                 prev_features: Optional[int], c_dim: int, fused_convs: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.level, self.pooling, self.fused_convs = level, pooling, fused_convs
-        self.conv1 = Conv3x3(in_channels, features, relu=True)
-        self.conv2 = Conv3x3(features, features, relu=True)
-        self.res1x1 = conv1x1(prev_features, features) if prev_features else None
-        self.fc_comm = MLP2(features)
-        self.fc_c = nn.Linear(c_dim, features)
+        self.conv1 = Conv3x3(in_channels, features, relu=True, dtype=dtype)
+        self.conv2 = Conv3x3(features, features, relu=True, dtype=dtype)
+        self.res1x1 = conv1x1(prev_features, features, dtype) if prev_features else None
+        self.fc_comm = MLP2(features, dtype)
+        self.fc_c = Dense(c_dim, features, dtype=dtype)
 
     def forward(self, xy, x, x_after_conv, c_last, mask, cache):
         x = _conv_pair(self, x)
@@ -173,22 +177,23 @@ class AltoUpConv(nn.Module):
     point round trip."""
 
     def __init__(self, up_channels: int, features: int, level: int, depth: int,
-                 prev_features: int, c_dim: int, fused_convs: bool = False):
+                 prev_features: int, c_dim: int, fused_convs: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.last = level == depth - 2
         self.fused_convs = fused_convs
         if self.last:
-            self.upconv_noup = conv1x1(up_channels, features)
+            self.upconv_noup = conv1x1(up_channels, features, dtype)
         else:
-            self.upconv = upconv2x2(up_channels, features)
-        self.conv1 = Conv3x3(2 * features, features, relu=True)
-        self.conv2 = Conv3x3(features, features, relu=True)
+            self.upconv = upconv2x2(up_channels, features, dtype)
+        self.conv1 = Conv3x3(2 * features, features, relu=True, dtype=dtype)
+        self.conv2 = Conv3x3(features, features, relu=True, dtype=dtype)
         if self.last:
-            self.res1x1 = conv1x1(prev_features, features)
+            self.res1x1 = conv1x1(prev_features, features, dtype)
         else:
-            self.res_up = upconv2x2(prev_features, features)
-            self.fc_comm = MLP2(features)
-            self.fc_c = nn.Linear(c_dim, features)
+            self.res_up = upconv2x2(prev_features, features, dtype)
+            self.fc_comm = MLP2(features, dtype)
+            self.fc_c = Dense(c_dim, features, dtype=dtype)
 
     def forward(self, xy, from_down, from_up, x_after_conv, c_last, mask, cache):
         from_up = self.upconv_noup(from_up) if self.last else self.upconv(from_up)
@@ -212,7 +217,7 @@ class AltoUNet(nn.Module):
     def __init__(self, num_classes: int, in_channels: int, c_dim: int,
                  depth: int = 5, start_filts: int = 32, merge_mode: str = "concat",
                  up_mode: str = "transpose", sample_mode: str = "bilinear",
-                 fused_convs: bool = False):
+                 fused_convs: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         if (merge_mode, up_mode, sample_mode) != ("concat", "transpose", "bilinear"):
             raise NotImplementedError(
@@ -226,14 +231,15 @@ class AltoUNet(nn.Module):
             pooling = 0 < i < depth - 1
             prev = feats[i - 1] if i > 0 else None
             self.add_module(f"down{i}", AltoDownConv(cin, feats[i], i, pooling, prev, cd,
-                                                     fused_convs))
+                                                     fused_convs, dtype))
             cin = cd = feats[i]
         up_in = prev = feats[-1]
         for i in range(depth - 1):
             f = feats[depth - 2 - i]
-            self.add_module(f"up{i}", AltoUpConv(up_in, f, i, depth, prev, cd, fused_convs))
+            self.add_module(f"up{i}", AltoUpConv(up_in, f, i, depth, prev, cd, fused_convs,
+                                                 dtype))
             up_in = prev = cd = f
-        self.conv_final = conv1x1(start_filts, num_classes)
+        self.conv_final = conv1x1(start_filts, num_classes, dtype)
 
     def forward(self, points: torch.Tensor, plane: torch.Tensor, c: torch.Tensor,
                 mask: torch.Tensor, buckets: Optional[Dict] = None) -> torch.Tensor:

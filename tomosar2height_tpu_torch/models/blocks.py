@@ -7,6 +7,14 @@ Convolutions are NCHW-logical; the U-Net keeps its planes in
 ``torch.channels_last`` memory, so an NHWC view of a plane costs no copy.
 Every conv layer runs its cuDNN convolution in full float32, whatever the
 caller's TF32 flags (``ops/cuda/conv_kernel.fp32_convs``).
+
+The dtype policy is the JAX package's ``model.dtype``: each layer takes a
+``dtype`` (float32 by default) and computes in it, as a flax layer built
+with ``dtype=``. Parameters stay float32; under bfloat16 a layer casts its
+input, weight and bias to bf16 (:func:`cast`, flax's ``promote_dtype``),
+takes the product in bf16 (float32 accumulation, the output rounded) and adds
+the bias in bf16, so it returns bf16. A float32 layer runs the code it always
+ran.
 """
 
 from __future__ import annotations
@@ -19,6 +27,16 @@ import torch.nn.functional as F
 
 from tomosar2height_tpu_torch.ops.cuda.conv_kernel import conv3x3, in_fp32_convs
 from tomosar2height_tpu_torch.ops.cuda.convpair_kernel import conv_pair
+
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+"""``model.dtype`` values the port computes in."""
+
+
+def cast(dtype: torch.dtype, *tensors):
+    """The tensors in ``dtype`` (None passes): a layer's input and
+    parameters under flax's ``promote_dtype``."""
+    return tuple(None if t is None else t.to(dtype) for t in tensors)
 
 
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
@@ -37,16 +55,34 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
+class Dense(nn.Linear):
+    """``nn.Linear`` in ``dtype`` (flax ``nn.Dense(dtype=...)``): under bf16
+    the product of the cast input and weight, then the cast bias added."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, bias)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        x, w, b = cast(self.dtype, x, self.weight, self.bias)
+        y = F.linear(x, w)
+        return y if b is None else y + b
+
+
 class ResnetBlockFC(nn.Module):
     """x_s + fc_1(relu(fc_0(relu(x)))), linear shortcut when the width changes."""
 
-    def __init__(self, size_in: int, size_out: Optional[int] = None):
+    def __init__(self, size_in: int, size_out: Optional[int] = None,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         size_out = size_in if size_out is None else size_out
         size_h = min(size_in, size_out)
-        self.fc_0 = nn.Linear(size_in, size_h)
-        self.fc_1 = nn.Linear(size_h, size_out)
-        self.shortcut = (nn.Linear(size_in, size_out, bias=False)
+        self.fc_0 = Dense(size_in, size_h, dtype=dtype)
+        self.fc_1 = Dense(size_h, size_out, dtype=dtype)
+        self.shortcut = (Dense(size_in, size_out, bias=False, dtype=dtype)
                          if size_in != size_out else None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -89,17 +125,28 @@ def hwio(conv: nn.Conv2d) -> torch.Tensor:
 
 class Conv3x3(nn.Conv2d):
     """3x3 SAME conv with an optional fused ReLU (NCHW); K8 under
-    :func:`set_fast_conv`."""
+    :func:`set_fast_conv`. Under bf16 (JAX models/blocks.py:95-110) x and
+    the kernel are cast; K8 takes them with the float32 bias, the plain path
+    rounds the conv to bf16 and adds the bf16 bias."""
 
-    def __init__(self, cin: int, cout: int, relu: bool = False):
+    def __init__(self, cin: int, cout: int, relu: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, 3, padding=1)
         self.use_relu = relu
+        self.dtype = dtype
 
     @in_fp32_convs
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.weight
+        if self.dtype != torch.float32:
+            x, w = cast(self.dtype, x, w)
         if _fast_conv_on(x):
-            return nchw(conv3x3(nhwc(x), hwio(self), self.bias, self.use_relu))
-        y = super().forward(x)
+            return nchw(conv3x3(nhwc(x), w.permute(2, 3, 1, 0).contiguous(), self.bias,
+                                self.use_relu))
+        if self.dtype == torch.float32:
+            y = super().forward(x)
+        else:
+            y = F.conv2d(x, w, padding=1) + self.bias.to(self.dtype)[:, None, None]
         return torch.relu(y) if self.use_relu else y
 
 
@@ -112,36 +159,51 @@ def fusable(fused_convs: bool, x: torch.Tensor) -> bool:
 
 def fused_pair(conv1: Conv3x3, conv2: Conv3x3, x: torch.Tensor, pool: bool):
     """K7 over conv1 -> conv2 (both with ReLU) on an NCHW plane: (y, pooled
-    or None), NCHW on ``channels_last`` memory."""
+    or None), NCHW on ``channels_last`` memory. x goes in conv1's dtype; the
+    float32 parameters are cast inside, as the JAX kernel's are."""
+    if conv1.dtype != torch.float32:
+        x = x.to(conv1.dtype)
     y, pooled = conv_pair(nhwc(x), hwio(conv1), conv1.bias, hwio(conv2), conv2.bias, pool)
     return nchw(y), (nchw(pooled) if pool else None)
 
 
 class Conv1x1(nn.Conv2d):
-    """1x1 conv (full float32)."""
+    """1x1 conv (full float32, or in ``dtype`` as flax ``nn.Conv``)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, 1)
+        self.dtype = dtype
 
-    forward = in_fp32_convs(nn.Conv2d.forward)
+    @in_fp32_convs
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        x, w, b = cast(self.dtype, x, self.weight, self.bias)
+        return F.conv2d(x, w) + b[:, None, None]
 
 
 class UpConv2x2(nn.ConvTranspose2d):
-    """2x2 stride-2 transpose conv (full float32): exactly 2x the spatial
-    size."""
+    """2x2 stride-2 transpose conv (full float32, or in ``dtype`` as flax
+    ``nn.ConvTranspose``): exactly 2x the spatial size."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__(cin, cout, 2, stride=2)
+        self.dtype = dtype
 
-    forward = in_fp32_convs(nn.ConvTranspose2d.forward)
+    @in_fp32_convs
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype == torch.float32:
+            return super().forward(x)
+        x, w, b = cast(self.dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, stride=2) + b[:, None, None]
 
 
-def conv1x1(cin: int, cout: int) -> nn.Conv2d:
-    return Conv1x1(cin, cout)
+def conv1x1(cin: int, cout: int, dtype: torch.dtype = torch.float32) -> nn.Conv2d:
+    return Conv1x1(cin, cout, dtype)
 
 
-def upconv2x2(cin: int, cout: int) -> nn.ConvTranspose2d:
-    return UpConv2x2(cin, cout)
+def upconv2x2(cin: int, cout: int, dtype: torch.dtype = torch.float32) -> nn.ConvTranspose2d:
+    return UpConv2x2(cin, cout, dtype)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -151,10 +213,10 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
 class MLP2(nn.Module):
     """Linear(d, 2d) -> ReLU -> Linear(2d, d): ALTO's ``fc_comm``."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.fc_in = nn.Linear(features, 2 * features)
-        self.fc_out = nn.Linear(2 * features, features)
+        self.fc_in = Dense(features, 2 * features, dtype=dtype)
+        self.fc_out = Dense(2 * features, features, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc_out(torch.relu(self.fc_in(x)))

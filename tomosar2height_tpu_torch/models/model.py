@@ -11,6 +11,7 @@ import torch
 import torch.nn as nn
 from torch.utils.checkpoint import checkpoint
 
+from tomosar2height_tpu_torch.models.blocks import DTYPES
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
 from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
 from tomosar2height_tpu_torch.models.unet import UNet
@@ -26,7 +27,8 @@ class TomoSAR2Height(nn.Module):
                  encoder2: str = "unet",
                  encoder2_kwargs: Optional[Dict[str, Any]] = None,
                  decoder_kwargs: Optional[Dict[str, Any]] = None,
-                 z_scale: float = 1.0, remat: bool = False):
+                 z_scale: float = 1.0, remat: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if not use_cloud:
             raise NotImplementedError("the image-only network is not ported (ROADMAP: alternates)")
@@ -38,10 +40,11 @@ class TomoSAR2Height(nn.Module):
             raise NotImplementedError(
                 f"encoder={encoder!r} is not ported yet (ROADMAP: alternates)")
         kwargs = dict(encoder_kwargs or {})
-        self.point_encoder = LocalPoolPointnet(**kwargs)
-        self.image_encoder = UNet(**dict(encoder2_kwargs or {})) if use_image else None
+        self.point_encoder = LocalPoolPointnet(**kwargs, dtype=dtype)
+        self.image_encoder = (UNet(**dict(encoder2_kwargs or {}), dtype=dtype)
+                              if use_image else None)
         self.decoder = PixelwiseDecoder(kwargs.get("feature_dim", 32),
-                                        **dict(decoder_kwargs or {}))
+                                        **dict(decoder_kwargs or {}), dtype=dtype)
         self.z_scale = float(z_scale)
         # rematerialize the point encoder (ALTO U-Net included) in the
         # backward, as the JAX model's nn.remat (models/model.py:46-49,90-91):
@@ -75,21 +78,31 @@ class TomoSAR2Height(nn.Module):
         if self.image_encoder is not None:
             planes = {**planes, "image": self.image_encoder(input_image)}
         pa, pb = self.decoder(planes, footprint)
-        return pa * self.z_scale, pb  # reference model.py:67
+        # float32 whatever the compute dtype, the z-rescale included (JAX
+        # models/model.py:114-119; reference model.py:67)
+        return pa.float() * self.z_scale, (None if pb is None else pb.float())
 
 
 def build_model(cfg, device="cuda") -> TomoSAR2Height:
     """Build the network from the global config tree (same keys as the JAX
     package's ``build_model``) on ``device``: the card unless the caller asks
     for ``"cpu"``; there is no fallback. Seeded weights:
-    ``blocks.init_weights`` (equal on every device)."""
+    ``blocks.init_weights`` (equal on every device). ``model.dtype`` is the
+    compute dtype, 'float32' or 'bfloat16' (float32 parameters either way);
+    bf16 runs on the unsorted point path only and raises with
+    ``dataset.points.sort`` (ROADMAP: bf16)."""
+    cfg_model = cfg["model"]
+    name = str(cfg_model.get("dtype", "float32"))
+    if name not in DTYPES:
+        raise NotImplementedError(f"model.dtype={name!r}: one of {tuple(DTYPES)}")
+    dtype = DTYPES[name]
+    if dtype != torch.float32 and (cfg["dataset"].get("points") or {}).get("sort", False):
+        raise NotImplementedError(
+            f"model.dtype={name!r} with dataset.points.sort=true: the sorted layouts' "
+            "kernels run in float32 only (ROADMAP: bf16)")
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA card here; pass device='cpu' to "
                            "build on the CPU")
-    cfg_model = cfg["model"]
-    dtype = cfg_model.get("dtype", "float32")
-    if dtype != "float32":
-        raise NotImplementedError(f"model.dtype={dtype!r}: bf16 is ROADMAP: bf16")
     z_bound = cfg["dataset"]["normalize"]["z_bound"]
     model = TomoSAR2Height(
         use_cloud=bool(cfg["use_cloud"]),
@@ -101,5 +114,6 @@ def build_model(cfg, device="cuda") -> TomoSAR2Height:
         decoder_kwargs=dict(cfg_model.get("decoder_pixel_kwargs", {}) or {}),
         z_scale=float(z_bound[1]) - float(z_bound[0]),
         remat=bool(cfg_model.get("remat", False)),
+        dtype=dtype,
     )
     return model.to(device)

@@ -16,6 +16,10 @@ loader ships Morton-sorted rows (``offsets`` given), else unsorted:
   the tile kernels K13/K11 (``pallas``) or cumulative sums (``cumsum``);
 - the unsorted plain path: cell ids from the coordinates and plain torch
   segment ops.
+
+``dtype`` is the compute dtype (``blocks`` module docstring). In bf16 only
+the unsorted plain path runs: the sorted paths run K1-K5 and K9-K14, whose
+bf16 variants are not ported (ROADMAP: bf16), and raise.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import torch
 import torch.nn as nn
 
 from tomosar2height_tpu_torch.models.alto import AltoUNet
-from tomosar2height_tpu_torch.models.blocks import ResnetBlockFC
+from tomosar2height_tpu_torch.models.blocks import Dense, ResnetBlockFC
 from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import pool2, scatter_plane2
 from tomosar2height_tpu_torch.ops.fused import tile_pool, tile_scatter_mean
 from tomosar2height_tpu_torch.ops.scatter import (
@@ -55,7 +59,7 @@ class LocalPoolPointnet(nn.Module):
     def __init__(self, feature_dim: int = 32, hidden_dim: int = 32,
                  scatter_type: str = "max", unet_type: str = "alto",
                  unet_kwargs: Optional[dict] = None, plane_resolution: int = 256,
-                 sorted_impl: str = "cumsum"):
+                 sorted_impl: str = "cumsum", dtype: torch.dtype = torch.float32):
         super().__init__()
         if scatter_type not in ("max", "mean"):
             raise ValueError(f"Invalid scatter type: {scatter_type}")
@@ -68,12 +72,13 @@ class LocalPoolPointnet(nn.Module):
         self.reso = plane_resolution
         self.scatter_type = scatter_type
         self.sorted_impl = sorted_impl
-        self.fc_pos = nn.Linear(3, 2 * hidden_dim)
+        self.dtype = dtype
+        self.fc_pos = Dense(3, 2 * hidden_dim, dtype=dtype)
         for i in range(self.N_BLOCKS):
-            self.add_module(f"block{i}", ResnetBlockFC(2 * hidden_dim, hidden_dim))
-        self.fc_c = nn.Linear(hidden_dim, feature_dim)
+            self.add_module(f"block{i}", ResnetBlockFC(2 * hidden_dim, hidden_dim, dtype))
+        self.fc_c = Dense(hidden_dim, feature_dim, dtype=dtype)
         self.unet = AltoUNet(feature_dim, feature_dim, feature_dim,
-                             **dict(unet_kwargs or {}))
+                             **dict(unet_kwargs or {}), dtype=dtype)
 
     def forward(self, points: torch.Tensor, mask: torch.Tensor,
                 cells: Optional[torch.Tensor] = None,
@@ -94,6 +99,10 @@ class LocalPoolPointnet(nn.Module):
         b = points.shape[0]
         xy = points[..., :2]
         impl = self.sorted_impl if offsets is not None else None
+        if impl is not None and self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"dtype {self.dtype} on the sorted layout ({impl}): its kernels run in "
+                "float32 only; bf16 takes the unsorted path (ROADMAP: bf16)")
         if impl is not None:
             if cells is None:
                 # pads: the sentinel on the aligned layouts, reso**2 on the plain

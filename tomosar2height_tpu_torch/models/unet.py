@@ -8,6 +8,7 @@ Under ``fused_convs`` each level's conv pair is one K7 call
 (``ops/cuda/convpair_kernel.conv_pair``), whose pooled output feeds the next
 down-level, where the JAX package fuses it (``blocks.fusable``). Planes are
 NCHW-logical in ``channels_last`` memory; the public interface is NHWC.
+Every layer computes in ``dtype``.
 """
 
 from __future__ import annotations
@@ -29,11 +30,11 @@ class DownConv(nn.Module):
     """(conv3x3 + ReLU) x2, optional 2x2 max pool (reference unet.py:48-73)."""
 
     def __init__(self, in_channels: int, features: int, pooling: bool,
-                 fused_convs: bool = False):
+                 fused_convs: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pooling, self.fused_convs = pooling, fused_convs
-        self.conv1 = Conv3x3(in_channels, features, relu=True)
-        self.conv2 = Conv3x3(features, features, relu=True)
+        self.conv1 = Conv3x3(in_channels, features, relu=True, dtype=dtype)
+        self.conv2 = Conv3x3(features, features, relu=True, dtype=dtype)
 
     def forward(self, x):
         """Returns (the next level's input, before_pool)."""
@@ -48,12 +49,13 @@ class UpConv(nn.Module):
     """2x2 transpose-conv upsample + concat merge + (conv3x3 + ReLU) x2
     (reference unet.py:76-109)."""
 
-    def __init__(self, in_channels: int, features: int, fused_convs: bool = False):
+    def __init__(self, in_channels: int, features: int, fused_convs: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fused_convs = fused_convs
-        self.upconv = upconv2x2(in_channels, features)
-        self.conv1 = Conv3x3(2 * features, features, relu=True)
-        self.conv2 = Conv3x3(features, features, relu=True)
+        self.upconv = upconv2x2(in_channels, features, dtype)
+        self.conv1 = Conv3x3(2 * features, features, relu=True, dtype=dtype)
+        self.conv2 = Conv3x3(features, features, relu=True, dtype=dtype)
 
     def forward(self, from_down, from_up):
         x = torch.cat([self.upconv(from_up), from_down], dim=1)
@@ -69,7 +71,8 @@ class UNet(nn.Module):
 
     def __init__(self, num_classes: int, in_channels: int = 3, depth: int = 5,
                  start_filts: int = 64, up_mode: str = "transpose",
-                 merge_mode: str = "concat", fused_convs: bool = False):
+                 merge_mode: str = "concat", fused_convs: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if (up_mode, merge_mode) != ("transpose", "concat"):
             raise NotImplementedError(
@@ -79,12 +82,12 @@ class UNet(nn.Module):
         cin = in_channels
         for i in range(depth):
             f = start_filts * 2 ** i
-            self.add_module(f"down{i}", DownConv(cin, f, i < depth - 1, fused_convs))
+            self.add_module(f"down{i}", DownConv(cin, f, i < depth - 1, fused_convs, dtype))
             cin = f
         for i in range(depth - 1):
-            self.add_module(f"up{i}", UpConv(cin, cin // 2, fused_convs))
+            self.add_module(f"up{i}", UpConv(cin, cin // 2, fused_convs, dtype))
             cin //= 2
-        self.conv_final = conv1x1(cin, num_classes)
+        self.conv_final = conv1x1(cin, num_classes, dtype)
 
     def forward(self, image: torch.Tensor) -> torch.Tensor:
         """(B, H, W, C_in) NHWC -> (B, H, W, num_classes) NHWC."""

@@ -37,7 +37,8 @@ LAUNCHES = {"pool2": 0, "pool_gather": 0, "scatter_plane2": 0,
             "fused_level": 0, "fused_level_scatter": 0, "fused_level_bwd": 0,
             "level_d_plane": 0, "level_bwd_reduce": 0,
             "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
-            "conv_decoder": 0, "tile_gather": 0, "tile_pool": 0,
+            "conv_decoder": 0, "conv3x3_bf16": 0, "conv_pair_bf16": 0,
+            "conv_decoder_bf16": 0, "tile_gather": 0, "tile_pool": 0,
             "scatter_mean_plane": 0, "aligned_scatter_mean_plane": 0, "scatter_mean": 0,
             "scatter_mean_plane_v3": 0, "tile_gather_bwd": 0, "tile_pool_bwd": 0,
             "aligned_scatter_mean_plane_bwd": 0}
@@ -66,6 +67,9 @@ _SIGNATURES = {
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 12 + [_I] * 8 + [_P],
+    "t2h_conv3x3_bf16": [_P] * 4 + [_I] * 6 + [_P],
+    "t2h_conv_pair_bf16": [_P] * 8 + [_I] * 6 + [_P],
+    "t2h_conv_decoder_bf16": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
 }
 

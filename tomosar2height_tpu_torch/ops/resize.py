@@ -10,6 +10,11 @@ transposes of the two interpolation matrices (``torch.matmul``), as the JAX
 package's does: ``F.interpolate``'s own backward adds into each input pixel
 with atomics on the card, in no fixed order, so a training step would not be
 bit-equal run to run.
+
+A bf16 x goes as the JAX package's bf16 resize goes on the CPU (its
+``preferred_element_type=x.dtype`` einsums, ops/resize.py:110-115, take the
+interpolation matrix in bf16): both ways, two contractions with the
+bf16-rounded matrices, each summed in float32 and rounded to bf16.
 """
 
 from __future__ import annotations
@@ -35,10 +40,21 @@ def interp_matrix(n_out: int, n_in: int, like: torch.Tensor) -> torch.Tensor:
     return (1 - frac) * (cols == i0) + frac * (cols == i1)
 
 
+def _bf16_matrix(n_out: int, n_in: int, like: torch.Tensor) -> torch.Tensor:
+    """The float32 :func:`interp_matrix` rounded to bf16, in float32."""
+    return interp_matrix(n_out, n_in, like.new_zeros((), dtype=torch.float32)).to(
+        torch.bfloat16).float()
+
+
 class _ResizeBilinear(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, out_hw):
         ctx.in_hw = tuple(x.shape[1:3])
+        if x.dtype == torch.bfloat16:
+            (b, h, w, c), (ho, wo) = x.shape, out_hw
+            t = torch.matmul(_bf16_matrix(ho, h, x), x.float().reshape(b, h, w * c))
+            y = torch.matmul(_bf16_matrix(wo, w, x), t.to(x.dtype).float().reshape(b, ho, w, c))
+            return y.to(x.dtype)
         y = F.interpolate(x.permute(0, 3, 1, 2), size=out_hw, mode="bilinear",
                           align_corners=True)
         return y.permute(0, 2, 3, 1)
@@ -48,6 +64,10 @@ class _ResizeBilinear(torch.autograd.Function):
         (h, w), (b, ho, wo, c) = ctx.in_hw, g.shape
         # g (B, Ho, Wo, C): contract Wo with the width matrix, then Ho with
         # the height matrix; each output element is one fixed-order sum
+        if g.dtype == torch.bfloat16:
+            t = torch.matmul(_bf16_matrix(wo, w, g).t(), g.float()).to(g.dtype)
+            dx = torch.matmul(_bf16_matrix(ho, h, g).t(), t.float().reshape(b, ho, w * c))
+            return dx.to(g.dtype).reshape(b, h, w, c), None
         t = torch.matmul(interp_matrix(wo, w, g).t(), g)  # (B, Ho, W, C)
         dx = torch.matmul(interp_matrix(ho, h, g).t(), t.reshape(b, ho, w * c))
         return dx.reshape(b, h, w, c), None
