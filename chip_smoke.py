@@ -12,8 +12,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    counts of the tensor-core kernels (K4, K5's row pass and reduction, the
    implicit-GEMM conv of K6-K8 and K6's head conv), and a check that the
    SASS of every instance of each holds TF32 tensor-core instructions
-   (HMMA; ``cuobjdump -sass``), BF16 ones in the conv core's bf16
-   instances;
+   (HMMA; ``cuobjdump -sass``), BF16 ones in every bf16 instance (K4,
+   K5's row pass and weight sums, the conv core);
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout, whose
    largest run of one cell is logged; the conv
@@ -31,7 +31,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    at the same shapes (rows ``conv3x3_bf16``, ``conv_pair_bf16``,
    ``conv_decoder_bf16``: each within twice its bf16 plain version's
    distance from float64 plus one bf16 ulp, bit-equal on a second launch,
-   bound at the bf16 tensor-core rate; K8 beside ``F.conv2d`` in bf16);
+   bound at the bf16 tensor-core rate; K8 beside ``F.conv2d`` in bf16); and
+   K1-K5 with their backwards in bf16 at the flagship shapes (rows
+   ``*_bf16``: the run kernels, K2 and K5's d_plane pass and weight sums
+   within one bf16 ulp of their bf16 plain versions, pool2's max exact; K4,
+   K5 and its row pass under the JAX package's bf16 rule, BF16_RULE; each
+   bit-equal on a second launch, K4 also over STRESS_LAUNCHES; bound at the
+   bf16 tensor-core rate, bf16 library yardsticks);
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -102,14 +108,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    size and round trip, then a child process that resumes from the
    iteration-1 checkpoint and runs iteration 2: its parameters must be
    bit-equal to the uninterrupted run's and its window losses equal;
-12. bf16: the headline network in bf16 (``model.dtype=bfloat16``) on the
-   unsorted point path at full width against the same network in f32 from
-   the same weights (``bf16_phase``): serving with K6/K7, with K8 alone
-   (the flags off, FAST_CONV) and in f32, the rasters within the JAX
-   package's bf16 gate; a warm-up and a timed optimizer step each
-   (``optimize_every`` 4), window losses within 0.15 x scale, the bf16
-   step rerun from the same weights (differing tensors counted); bf16 on
-   the sorted layout refused by ``build_model``;
+12. bf16: the headline network in bf16 (``model.dtype=bfloat16``) on its
+   fused2 kernel path at full width (K1-K5 and K6/K7 at their bf16
+   instances) against the same network in f32 from the same weights
+   (``bf16_phase``): serving bf16 and f32 on fused2 (launches asserted, the
+   bf16 raster bit-equal to its warm-up's) and bf16 on the unsorted path
+   once, each bf16 raster within the JAX package's bf16 gate of the f32
+   one; a warm-up and a timed optimizer step (``optimize_every`` 4) on
+   headline-train's patches, window losses within 0.15 x scale of
+   headline-train's f32 kernel run, the bf16 first step rerun from the same
+   weights, every parameter and the loss bit-equal; bf16 on the ``fused``
+   and ``cumsum`` layouts refused by ``build_model``;
 13. cli: the entry points on the city written to disk (``write_city``: LAS,
    nDSM, masks, RGB): ``cli.build_dataset`` (two 1024 m chunks),
    ``cli.train`` (the headline network at full width, batch 8,
@@ -121,7 +130,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    checkpoint over the in-memory SceneDataset of the same city, the report's
    statistics within STAT_TOL of a float64 recomputation from the two
    rasters, ``metrics.jsonl`` holding both iterations' losses and ``nDSM/``
-   entries, and every kernel of the path launched.
+   entries, and every kernel of the path launched; then in bf16
+   (``model.dtype=bfloat16``) ``cli.train`` one iteration and ``cli.test``
+   on the f32 checkpoint, the raster within the bf16 gate of the f32 one,
+   every bf16 kernel of the training path launched.
 
 Phase 3 also holds every backward (K5 at the eight levels: its row pass,
 its d_plane pass (a warp a pixel, the rows of its rectangle of finest
@@ -141,7 +153,7 @@ cell written once, the empty cells zeroed in the same launch; K13 in Morton
 order), K10 on pool2's run kernel under the tile rule; K4, K5 (and its
 d_plane pass alone) and every run kernel are also held bit-equal on a
 second launch, and K4 at each flagship level over STRESS_LAUNCHES launches
-(``stress_level``). K10-K13 are timed on three copies of their inputs, K10
+(``stress_level``), in f32 and in bf16. K10-K13 are timed on three copies of their inputs, K10
 logged by kind, K11 and K13 at each of their 9 shapes and K12 at each of
 its 10. Bounds count per-row inputs only on the rows a kernel reads them
 for.
@@ -152,7 +164,8 @@ and the backwards, from the timed fusion-serve runs and the headline-train
 kernel run for K6 and K7, from the fusion-serve runs for K8, from the
 timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
 the main path that runs it; K14 is on none, 0; so is ``pool2_mean``, the
-run kernel's mean pooling, as the flagship pools by max), from the timed
+run kernel's mean pooling, as the flagship pools by max; the bf16 rows
+from the bf16 phase's timed serving and training runs), from the timed
 'fused' training run for the fused layout's backwards, ``launches_serve`` from the
 timed cloud-only serving run, ``launches_sorted_train`` from that 'fused'
 training run, ``launches_cli`` from the "cli" phase. Each phase's seconds are
@@ -190,8 +203,9 @@ BF16_FLOP_S = 989e12
 # the kernels that must hold tensor-core instructions (HMMA) in their SASS:
 # K4, K5's row pass and weight-gradient reduction, the implicit-GEMM conv of
 # K6's first two passes, K7 and K8, and K6's third conv with the head; TF32
-# HMMA in every instance, bf16 HMMA in the conv core's bf16 instances
-TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_tf32x3",
+# HMMA in every f32 instance, bf16 HMMA in every bf16 instance (each kernel
+# has some)
+TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_mma",
                        "conv3x3_igemm", "conv3x3_head_igemm")
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
 # K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
@@ -288,8 +302,8 @@ def check_sass(job) -> None:
     """Fail unless every kernel in TENSOR_CORE_KERNELS is in the built
     library's SASS (``start_sass``'s job) and every instance of each (each
     template instance in each source's cubin) holds tensor-core HMMA
-    instructions of its type: TF32, or BF16 in the conv core's bf16
-    instances (and then no TF32)."""
+    instructions of its type: TF32, or BF16 in the bf16 instances (and then
+    no TF32); each kernel has bf16 instances."""
     proc, path = job
     _, err = proc.communicate(timeout=600)
     with open(path) as f:
@@ -313,8 +327,7 @@ def check_sass(job) -> None:
         f"{ {k: v for k, v in counts.items() if v} }")
     missing = ([k for k in TENSOR_CORE_KERNELS if not any(f[0] == k for f in found)]
                + [name for _, name, _, c, other in found if c == 0 or other]
-               + [k for k in ("conv3x3_igemm BF16", "conv3x3_head_igemm BF16")
-                  if not counts[k]])
+               + [f"{k} BF16" for k in TENSOR_CORE_KERNELS if not counts[f"{k} BF16"]])
     if missing:
         raise AssertionError(f"no HMMA of their type, or HMMA of another, in the SASS of "
                              f"{missing}")
@@ -475,7 +488,7 @@ def _xavier(gen, fan_in, fan_out, device):
     import torch
 
     a = (6.0 / (fan_in + fan_out)) ** 0.5
-    return ((torch.rand(fan_in, fan_out, generator=gen) * 2 - 1) * a).to(device)
+    return ((torch.rand(fan_in, fan_out, generator=gen, device=gen.device) * 2 - 1) * a).to(device)
 
 
 def _compare(got, ref, atol=TOL, rtol=TOL):
@@ -502,6 +515,7 @@ def _weight_tol(ref):
 
 
 ROUTES = {FP32_FLOP_S: "fp32 FMA", TF32X3_FLOP_S: "3xTF32", BF16_FLOP_S: "bf16"}
+PLAIN_ITERS = 5  # graph_ms samples of a row's plain version and library call
 
 
 def _entry_fn(rows):
@@ -519,8 +533,10 @@ def _entry_fn(rows):
         errs = [_compare(*pair) for pair in pairs]
         err = max(e for e, _ in errs)
         ok = all(o for _, o in errs)
-        ms, plain_ms = graph_ms(kfn, iters), graph_ms(pfn, iters)
-        lib_ms = graph_ms(lfn, iters) if lfn is not None else None
+        # the plain version and the library call, slower and no row's
+        # subject, on at most PLAIN_ITERS samples
+        ms, plain_ms = graph_ms(kfn, iters), graph_ms(pfn, min(iters, PLAIN_ITERS))
+        lib_ms = graph_ms(lfn, min(iters, PLAIN_ITERS)) if lfn is not None else None
         bound_ms, bound_by = bound(*work)
         ops = work[1] if isinstance(work[1], (list, tuple)) else [(work[1], FP32_FLOP_S)]
         flops = sum(f for f, _ in ops)
@@ -569,38 +585,124 @@ def _explain_level(shape, ko, po, args):
         f"{float((again[1] - ko[1]).abs().max()):.3g}")
 
 
-def check_kernels(seed: int = 0):
-    """Each kernel against its plain version at the flagship shapes."""
+# The bf16 rows' tolerances: the run kernels, K2, K5's d_plane pass and its
+# weight sums within one bf16 ulp of their bf16 plain versions (f32 sums in
+# two orders, each output rounded once; pool2's max exact); K4, K5 and K5's
+# row pass under the JAX package's bf16 rule (tests/test_fused_level_bwd.py:
+# 184-190), the f32 plain version on the same bf16 operands as the reference
+ULP_RULE = "1 bf16 ulp of the plain version (floored at 2^-16 x scale)"
+BF16_RULE = ("max(1.5 x the bf16 plain version's distance from the f32 plain version, "
+             "0.02 x scale), from both")
+
+
+def _ulp_tol(ref):
+    """One bf16 ulp of each element of ``ref`` (2^-7 of the power of two at
+    or below it), floored at 2^-16 of ref's scale where a sum cancels: an
+    atol tensor for ``_compare``."""
     import torch
 
-    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
-    from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
-    from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d
+    r = ref.float().abs()
+    ulp = torch.exp2(torch.floor(torch.log2(r.clamp_min(2.0 ** -126))) - 7)
+    return ulp.clamp_min(2.0 ** -16 * float(r.max()))
+
+
+def _bf16_rule_pairs(got, want, ref):
+    """K4's and K5's bf16 rule: each kernel output no further from ``ref``
+    (the f32 plain version on the same bf16 operands) than max(1.5x the bf16
+    plain version's distance from it, 0.02 x scale), checked here, and as
+    ``_compare`` pairs no further than that from the bf16 plain version
+    ``want`` (so a row's max|d| is the kernel's distance from its plain
+    version)."""
+    pairs = []
+    for g, w, r in zip(got, want, ref):
+        g, w, r = g.float(), w.float(), r.float()
+        bound = max(1.5 * float((w - r).abs().max()), 0.02 * float(r.abs().max()))
+        far = float((g - r).abs().max())
+        if far > bound:
+            raise AssertionError(f"a bf16 kernel output lies {far} from its f32 plain "
+                                 f"version, past {bound}")
+        pairs.append((g, w, bound, 0.0))
+    return pairs
+
+
+def _upcast(args):
+    """Arguments with every bf16 tensor (also inside tuples) in float32."""
+    import torch
+
+    def up(a):
+        if isinstance(a, tuple):
+            return tuple(up(x) for x in a)
+        return a.float() if torch.is_tensor(a) and a.dtype == torch.bfloat16 else a
+    return tuple(up(a) for a in args)
+
+
+def check_kernels(seed: int = 0):
+    """Each kernel against its plain version at the flagship shapes; K1-K5
+    in f32, then in bf16."""
+    import torch
 
     t_start = time.perf_counter()
     dev = torch.device(DEVICE)
     _, _, apts, amask, acell, _ = flagship_batch(seed)
     b, npad = amask.shape
     reso = 256
-    gen = torch.Generator().manual_seed(seed)
-    pts = torch.from_numpy(apts).to(dev)
-    xy = pts[..., :2].contiguous()
+    gen = torch.Generator(device=dev).manual_seed(seed)  # inputs drawn on the card
+    xy = torch.from_numpy(apts[..., :2]).to(dev).contiguous()
     mask = torch.from_numpy(amask).to(dev)
     cells = torch.from_numpy(acell).to(dev)
-    vals = (torch.randn(b, npad, 32, generator=gen).to(dev)
-            * mask[..., None]).contiguous()
     log("kernels", f"B={b} Npad={npad} valid={int(amask.sum())} reso={reso}")
     rows = []
-
     entry = _entry_fn(rows)
-
-    ncell = reso * reso
-    runs = run_lengths(acell, ncell)
+    runs = run_lengths(acell, reso * reso)
     log("kernels", f"pool2 runs at the flagship shapes: {runs.size} runs, largest "
         f"{int(runs.max())} rows, mean {runs.mean():.3f}, {int((runs > 32).sum())} longer "
         f"than a warp's 32-row span")
-    nf = vals.shape[-1]
+    level_args = {}
+    for dt in (torch.float32, torch.bfloat16):
+        _pool_rows(entry, dt, cells, mask, reso, gen)
+        level_args[dt] = _level_rows(entry, dt, xy, cells, mask, reso, gen)
+        torch.cuda.synchronize()
+        log("time", f"kernels: K1-K5 in {dt} done at {time.perf_counter() - t_start:.1f} s")
+    for part, fn, args in (("C3 stress", stress_level, (level_args[torch.float32],)),
+                           ("C3 stress in bf16", stress_level, (level_args[torch.bfloat16],)),
+                           ("depth-6 level", check_wide_level, (seed,)),
+                           ("K6-K8", check_conv_kernels, (entry, seed)),
+                           ("K6-K8 in bf16", check_conv_kernels_bf16, (entry, seed)),
+                           ("K9-K14 and the fused backwards", check_tile_kernels,
+                            (entry, seed))):
+        fn(*args)
+        log("time", f"kernels: {part} done at {time.perf_counter() - t_start:.1f} s")
+    # free the cuBLAS workspace of graph_ms's stream (32 MiB), so that the
+    # later phases' peak memory holds what the parent's does
+    torch._C._cuda_clearCublasWorkspaces()
+    return rows
+
+
+def _pool_rows(entry, dt, cells, mask, reso: int, gen):
+    """The rows of pool2.cu in ``dt`` (float32, or bfloat16: rows named
+    ``*_bf16``) at the flagship shapes, on random values with F = 32: pool2
+    on the run kernel (K1 + K2 in one launch; max exact, mean and sum within
+    TOL or ULP_RULE), K3 on the run scatter (counts exact), pool2's backward
+    (max and mean) and K2 alone (scatter_plane2's backward), each run twice
+    and held bit-equal, each timed on three copies of its inputs in turn
+    (one copy, ~40 MB in f32, would stay in the 50 MB L2 between replays),
+    beside one library call of the same function."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
+
+    dev = mask.device
+    b, npad = mask.shape
+    f32 = dt == torch.float32
+    sfx = "" if f32 else "_bf16"
+    ncell = reso * reso
+    nf = 32
+    vals = (torch.randn(b, npad, nf, generator=gen, device=dev) * mask[..., None]).to(dt)
     arange_b = torch.arange(b, device=dev)[:, None]
+
+    def close(got, want):
+        """A pair held to TOL (f32) or to one bf16 ulp."""
+        return (got, want) if f32 else (got.float(), want.float(), _ulp_tol(want), 0.0)
 
     def flat_cells(c, m):
         """The library yardsticks' index into the flat (B * ncell) cells;
@@ -611,14 +713,12 @@ def check_kernels(seed: int = 0):
     def pooled_by_library(src, reduce, flat):
         """scatter_reduce into the flat cells, then index_select back to the
         rows: K1's and K2's library yardsticks in turn."""
-        cellv = torch.zeros(b * ncell + 1, nf, device=dev).scatter_reduce_(
+        cellv = torch.zeros(b * ncell + 1, nf, device=dev, dtype=dt).scatter_reduce_(
             0, flat[:, None].expand(-1, nf), src.reshape(-1, nf), reduce, include_self=False)
         return cellv.index_select(0, flat)
 
-    # the rows of pool2.cu are timed on three copies of their inputs in turn
-    # (graph_ms): one copy (~40 MB) would stay in the 50 MB L2 between replays
-    g = torch.randn(vals.shape, generator=gen).to(dev)
-    g_plane = torch.randn(b, reso, reso, nf, generator=gen).to(dev)
+    g = torch.randn(vals.shape, generator=gen, device=dev).to(dt)
+    g_plane = torch.randn(b, reso, reso, nf, generator=gen, device=dev).to(dt)
     sets = [{"v": vals, "c": cells, "m": mask, "g": g, "gp": g_plane}]
     sets += [{k: t.clone() for k, t in sets[0].items()} for _ in range(2)]
     for s in sets:
@@ -630,18 +730,17 @@ def check_kernels(seed: int = 0):
         that the run kernel, K2 and K3 read only there."""
         return nbytes(*tensors) * valid_rows // (b * npad)
 
-    # pool2 on the run kernel (K1 + K2 in one launch): max exact, mean and sum
-    # (the max backward's kind) within TOL; each kind twice, bit-equal. Bytes:
-    # values on the valid rows, cells and mask read, out written
+    # pool2 on the run kernel; each kind twice, bit-equal. Bytes: values on
+    # the valid rows, cells and mask read, out written
     fwd = {k: pk.pool2_fwd(vals, cells, mask, reso, k) for k in ("max", "mean", "sum")}
     repeat = all(torch.equal(pk.pool2_fwd(vals, cells, mask, reso, k), v) for k, v in fwd.items())
     fwd_bytes = on_valid_rows(vals) + nbytes(cells, mask, fwd["max"])
     want = {k: pk.pool2_plain(vals, cells, mask, reso, k) for k in fwd}
     for name, kind, lib, pairs, tol in (
             ("pool2", "max", "amax", [(fwd["max"], want["max"], 0.0, 0.0)], "exact"),
-            ("pool2_mean", "mean", "mean", [(fwd[k], want[k]) for k in ("mean", "sum")],
-             f"{TOL:g} abs+rel, mean and sum")):
-        entry(name, "tomosar2height_tpu_torch/csrc/pool2.cu",
+            ("pool2_mean", "mean", "mean", [close(fwd[k], want[k]) for k in ("mean", "sum")],
+             f"{TOL:g} abs+rel, mean and sum" if f32 else f"{ULP_RULE}, mean and sum")):
+        entry(name + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
               "tomosar2height_tpu/ops/pallas/pool2_kernel.py:46", pairs,
               [lambda s=s, k=kind: pk.pool2_fwd(s["v"], s["c"], s["m"], reso, k) for s in sets],
               [lambda s=s, k=kind: pk.pool2_plain(s["v"], s["c"], s["m"], reso, k)
@@ -650,28 +749,29 @@ def check_kernels(seed: int = 0):
               [lambda s=s, r=lib: pooled_by_library(s["v"], r, s["flat"]) for s in sets],
               tol=tol)
     del want
-    # K3 on the run scatter: counts exact, the plane within TOL, and a second
-    # launch bit-equal. Bytes: values on the valid rows, cells and mask read,
-    # the plane and counts written once
+    # K3 on the run scatter: counts exact, the plane within TOL (one bf16
+    # ulp), and a second launch bit-equal. Bytes: values on the valid rows,
+    # cells and mask read, the plane and counts written once
     kp, kc = pk.scatter_plane2(vals, cells, mask, reso)
     pp, pc = pk.scatter_plane2_plain(vals, cells, mask, reso)
     if not torch.equal(kc, pc):
-        raise AssertionError("scatter_plane2 counts differ")
+        raise AssertionError(f"scatter_plane2{sfx} counts differ")
     again = pk.scatter_plane2(vals, cells, mask, reso)
     k3_repeat = torch.equal(kp, again[0]) and torch.equal(kc, again[1])
-    log("kernels", f"scatter_plane2 bit-equal on a second launch: {k3_repeat}; occupied "
+    log("kernels", f"scatter_plane2{sfx} bit-equal on a second launch: {k3_repeat}; occupied "
         f"cells {int((kc > 0).sum())} of {kc.numel()}")
     if not k3_repeat:
-        raise AssertionError("scatter_plane2 differs between two launches")
+        raise AssertionError(f"scatter_plane2{sfx} differs between two launches")
     del again
-    entry("scatter_plane2", "tomosar2height_tpu_torch/csrc/pool2.cu",
-          "tomosar2height_tpu/ops/pallas/pool2_kernel.py:263", [(kp, pp)],
+    entry("scatter_plane2" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
+          "tomosar2height_tpu/ops/pallas/pool2_kernel.py:263", [close(kp, pp)],
           [lambda s=s: pk.scatter_plane2(s["v"], s["c"], s["m"], reso) for s in sets],
           [lambda s=s: pk.scatter_plane2_plain(s["v"], s["c"], s["m"], reso) for s in sets],
           (on_valid_rows(vals) + nbytes(cells, mask, kp, kc), vals.numel()),
-          [lambda s=s: torch.zeros(b * ncell + 1, nf, device=dev).scatter_reduce_(
+          [lambda s=s: torch.zeros(b * ncell + 1, nf, device=dev, dtype=dt).scatter_reduce_(
               0, s["flat"][:, None].expand(-1, nf), s["v"].reshape(-1, nf), "mean",
-              include_self=False) for s in sets])
+              include_self=False) for s in sets],
+          tol=f"{TOL:g} abs+rel" if f32 else ULP_RULE)
 
     # pool2's backward on the run kernel (max: the run sum of g gated by
     # values == out; mean: the run mean of g), twice each, bit-equal; and
@@ -682,7 +782,7 @@ def check_kernels(seed: int = 0):
     for kind in ("max", "mean"):
         a = (g, vals, fwd[kind], cells, mask, reso, kind)
         dv = pk.pool2_bwd(*a)
-        pairs.append((dv, pk.pool2_bwd_plain(*a)))
+        pairs.append(close(dv, pk.pool2_bwd_plain(*a)))
         repeat = repeat and torch.equal(dv, pk.pool2_bwd(*a))
         # g on the valid rows (and values, out there for max's gate), cells
         # and mask read, dv written
@@ -697,14 +797,15 @@ def check_kernels(seed: int = 0):
         return (torch.where(s["v"] == s["out"]["max"], cell_sum, 0),
                 pooled_by_library(s["g"], "mean", s["flat"]))
 
-    entry("pool2_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+    entry("pool2_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:492", pairs,
           [lambda s=s: [pk.pool2_bwd(*a) for a in bwd_args(s)] for s in sets],
           [lambda s=s: [pk.pool2_bwd_plain(*a) for a in bwd_args(s)] for s in sets],
-          (moved, 2 * vals.numel()), [lambda s=s: bwd_by_library(s) for s in sets])
-    log("kernels", f"pool2 forward and backward bit-equal run to run: {repeat}")
+          (moved, 2 * vals.numel()), [lambda s=s: bwd_by_library(s) for s in sets],
+          tol=f"{TOL:g} abs+rel" if f32 else ULP_RULE)
+    log("kernels", f"pool2{sfx} forward and backward bit-equal run to run: {repeat}")
     if not repeat:
-        raise AssertionError("pool2's run kernel differs between two runs")
+        raise AssertionError(f"pool2{sfx}'s run kernel differs between two runs")
     # K2 reads the plane and the counts only at the cells that hold a valid row
     occupied = int((kc > 0).sum())
     for s in sets:
@@ -715,93 +816,133 @@ def check_kernels(seed: int = 0):
         ok = s["m"] & (s["c"] >= 0) & (s["c"] < ncell)
         rm = morton_rowmajor(torch.where(ok, s["c"], 0), reso) + ncell * arange_b
         s["rm"] = torch.where(ok, rm, torch.full_like(rm, b * ncell)).reshape(-1)
-        s["gp_pad"] = torch.cat([s["gp"].reshape(-1, nf), torch.zeros(1, nf, device=dev)])
+        s["gp_pad"] = torch.cat([s["gp"].reshape(-1, nf),
+                                 torch.zeros(1, nf, device=dev, dtype=dt)])
         s["kc_pad"] = torch.cat([s["kc"].reshape(-1), torch.ones(1, device=dev,
                                                                   dtype=torch.int32)])
     # K2 alone, held bit-equal on a second launch
     a = (g_plane, cells, mask, kc)
     k2 = pk.scatter_plane2_bwd(*a)
     k2_repeat = torch.equal(k2, pk.scatter_plane2_bwd(*a))
-    log("kernels", f"scatter_plane2_bwd bit-equal on a second launch: {k2_repeat}")
+    log("kernels", f"scatter_plane2_bwd{sfx} bit-equal on a second launch: {k2_repeat}")
     if not k2_repeat:
-        raise AssertionError("scatter_plane2_bwd differs between two launches")
-    entry("scatter_plane2_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+        raise AssertionError(f"scatter_plane2_bwd{sfx} differs between two launches")
+    entry("scatter_plane2_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:133",
-          [(k2, pk.scatter_plane2_bwd_plain(*a))],
+          [close(k2, pk.scatter_plane2_bwd_plain(*a))],
           [lambda s=s: pk.scatter_plane2_bwd(s["gp"], s["c"], s["m"], s["kc"]) for s in sets],
           [lambda s=s: pk.scatter_plane2_bwd_plain(s["gp"], s["c"], s["m"], s["kc"])
            for s in sets],
           ((nbytes(g_plane, kc) * occupied // kc.numel() + nbytes(cells, mask, vals)),
            vals.numel()),
           [lambda s=s: s["gp_pad"].index_select(0, s["rm"])
-           / s["kc_pad"].index_select(0, s["rm"]).clamp_min(1)[:, None] for s in sets])
-    del sets
+           / s["kc_pad"].index_select(0, s["rm"]).clamp_min(1)[:, None] for s in sets],
+          tol=f"{TOL:g} abs+rel" if f32 else ULP_RULE)
 
+
+def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
+    """K4 and K5 in ``dt`` (float32 on 3xTF32, or bfloat16 on one bf16
+    pass: rows named ``*_bf16``) at the eight flagship levels (LEVEL_SHAPES):
+    K4 (plane and c_out, counts exact), K5 on random output cotangents on the
+    rows off the ReLU kink (KINK) and each of its parts (the row pass, the
+    d_plane pass on the kernel's d_s, the weight sums on random rows) a row
+    of its own; f32 at TOL, BWD_TOL and the weight tolerance, bf16 at
+    BF16_RULE (the d_plane pass and weight sums at ULP_RULE); every one
+    bit-equal on a second launch. Returns K4's arguments at each level."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+
+    dev = mask.device
+    b, npad = mask.shape
+    f32 = dt == torch.float32
+    sfx = "" if f32 else "_bf16"
+    rate = TF32X3_FLOP_S if f32 else BF16_FLOP_S
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
     red_l, rows_pairs, rows_k, rows_p = [], [], [], []
     dp_pairs, dp_k, dp_p, dp_l, level_args = [], [], [], [], []
-    # bytes, then operations, all on 3xTF32: K4's; K5's (its row pass, then
-    # its weight sums); the row pass alone; the reductions alone; and the
-    # d_plane pass's bytes and fp32 operations
+    # bytes, then operations on the route's tensor cores: K4's; K5's (its
+    # row pass, then its weight sums); the row pass alone; the reductions
+    # alone; and the d_plane pass's bytes and fp32 operations
     work = {"level": [0, 0], "bwd": [0, 0, 0], "rows": [0, 0], "reduce": [0, 0],
             "d_plane": [0, 0]}
     valid = int(mask.sum())
     for r, f, fl in LEVEL_SHAPES:
-        plane = torch.randn(b, r, r, f, generator=gen).to(dev)
-        c_last = (torch.randn(b, npad, fl, generator=gen).to(dev)
-                  * mask[..., None]).contiguous()
-        w = (_xavier(gen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
-             _xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
-             _xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
+        plane = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
+        c_last = (torch.randn(b, npad, fl, generator=gen, device=dev) * mask[..., None]).to(dt)
+        w = tuple(x.to(dt) for x in (
+            _xavier(gen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
+            _xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
+            _xavier(gen, fl, f, dev), torch.zeros(f, device=dev)))
         args = (plane, c_last, w, xy, cells, mask, r, reso)
         level_args.append(args)
         ko = lk.fused_level(*args)
         po = lk.fused_level_plain(*args)
         if not torch.equal(ko[2], po[2]):
-            raise AssertionError(f"fused_level counts differ at {(r, f, fl)}")
+            raise AssertionError(f"fused_level{sfx} counts differ at {(r, f, fl)}")
         # K4's plane on the run scatter: plane, c_out and counts bit-equal on
         # a second launch
         if not all(torch.equal(x, y) for x, y in zip(lk.fused_level(*args), ko)):
-            raise AssertionError(f"fused_level differs between two launches at {(r, f, fl)}")
-        e0, e1 = _compare(ko[0], po[0]), _compare(ko[1], po[1])
-        if not (e0[1] and e1[1]):
-            _explain_level((r, f, fl), ko, po, args)
-        pairs += [(ko[0], po[0]), (ko[1], po[1])]
+            raise AssertionError(f"fused_level{sfx} differs between two launches at "
+                                 f"{(r, f, fl)}")
+        if f32:
+            level_pairs = [(ko[0], po[0]), (ko[1], po[1])]
+            if not all(_compare(*pair)[1] for pair in level_pairs):
+                _explain_level((r, f, fl), ko, po, args)
+        else:
+            level_pairs = _bf16_rule_pairs(ko[:2], po[:2],
+                                           lk.fused_level_plain(*_upcast(args))[:2])
+        e_fwd = max(_compare(*pair)[0] for pair in level_pairs)
+        pairs += level_pairs
         work["level"][0] += nbytes(plane, c_last, xy, cells, mask, *w, *ko)
         work["level"][1] += 2 * valid * (4 * f * f + f * fl)
         kfns.append(lambda a=args: lk.fused_level(*a))
         pfns.append(lambda a=args: lk.fused_level_plain(*a))
         # K5 on random output cotangents, rows off the ReLU kink (KINK), with
         # the counts of the forward on those rows
-        pre = grid_sample_2d(plane, xy) @ w[0] + w[1]
+        pre = lk.mm(lk.level_sample(plane, xy), w[0]) + w[1]
         mask5 = mask & ~(pre.abs() < KINK).any(-1)
         del pre
         counts5 = lk.fused_level(plane, c_last, w, xy, cells, mask5, r, reso)[2]
-        g_p = torch.randn(b, r, r, f, generator=gen).to(dev)
-        g_c = torch.randn(b, npad, f, generator=gen).to(dev)
+        g_p = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
+        g_c = torch.randn(b, npad, f, generator=gen, device=dev).to(dt)
         bargs = (plane, c_last, w, xy, cells, mask5, counts5, g_p, g_c, r, reso)
         kb, pb = lk.fused_level_bwd(*bargs), lk.fused_level_bwd_plain(*bargs)
+        flat_kb, flat_pb = list(kb[:2]) + list(kb[2]), list(pb[:2]) + list(pb[2])
         again = lk.fused_level_bwd(*bargs)
-        if not all(torch.equal(x, y) for x, y in zip(again[:2] + again[2], kb[:2] + kb[2])):
-            raise AssertionError(f"fused_level_bwd differs between two launches at "
+        if not all(torch.equal(x, y) for x, y in zip(list(again[:2]) + list(again[2]),
+                                                     flat_kb)):
+            raise AssertionError(f"fused_level_bwd{sfx} differs between two launches at "
                                  f"{(r, f, fl)}")
         del again
-        level_pairs = [(kb[0], pb[0], *BWD_TOL), (kb[1], pb[1], *BWD_TOL)]
-        level_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
+        if f32:
+            level_pairs = [(kb[0], pb[0], *BWD_TOL), (kb[1], pb[1], *BWD_TOL)]
+            level_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kb[2], pb[2])]
+        else:
+            ref = lk.fused_level_bwd_plain(*_upcast(bargs))
+            level_pairs = _bf16_rule_pairs(flat_kb, flat_pb, list(ref[:2]) + list(ref[2]))
+            del ref
         bwd_pairs += level_pairs
         work["bwd"][0] += nbytes(plane, c_last, xy, cells, mask5, counts5, g_p, g_c, *w,
-                                 kb[0], kb[1], *kb[2])
+                                 *flat_kb)
         work["bwd"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
         work["bwd"][2] += 2 * int(mask5.sum()) * (4 * f * f + f * fl)
         # the row pass alone: d_c_last, and its scratch rows on the rows it
-        # computes (s and h at K4's tolerance, d_o exact up to the count's
-        # division, d_h and d_s at K5's)
+        # computes (f32: s and h at K4's tolerance, d_o exact up to the
+        # count's division, d_h and d_s at K5's)
         kr, pr = lk.fused_level_bwd_rows(*bargs), lk.fused_level_bwd_rows_plain(*bargs)
         v5 = mask5.reshape(-1)
-        rows_pairs += [(kr[0], pr[0], *BWD_TOL)]
-        rows_pairs += [(k[v5], p[v5], *tol) for k, p, tol in zip(
-            kr[1:], pr[1:], ((TOL, TOL), (TOL, TOL), (TOL, TOL), BWD_TOL, BWD_TOL))]
+        if f32:
+            rows_pairs += [(kr[0], pr[0], *BWD_TOL)]
+            rows_pairs += [(k[v5], p[v5], *tol) for k, p, tol in zip(
+                kr[1:], pr[1:], ((TOL, TOL), (TOL, TOL), (TOL, TOL), BWD_TOL, BWD_TOL))]
+        else:
+            ref = lk.fused_level_bwd_rows_plain(*_upcast(bargs))
+            rows_pairs += _bf16_rule_pairs(
+                [kr[0]] + [k[v5] for k in kr[1:]], [pr[0]] + [p[v5] for p in pr[1:]],
+                [ref[0]] + [x[v5] for x in ref[1:]])
+            del ref
         work["rows"][0] += nbytes(plane, xy, cells, mask5, counts5, g_p, g_c, w[0], w[1], w[2],
                                   w[4], *kr)
         work["rows"][1] += 2 * int(mask5.sum()) * (6 * f * f + f * fl)
@@ -817,84 +958,76 @@ def check_kernels(seed: int = 0):
         dargs = (d_s, xy, cells, mask5, r, reso)
         kd, pd = lk.level_d_plane(*dargs), lk.level_d_plane_plain(*dargs)
         if not torch.equal(lk.level_d_plane(*dargs), kd):
-            raise AssertionError(f"level_d_plane differs between two launches at {(r, f)}")
-        dp_pairs.append((kd, pd, *BWD_TOL))
+            raise AssertionError(f"level_d_plane{sfx} differs between two launches at "
+                                 f"{(r, f)}")
+        dp_pairs.append((kd, pd, *BWD_TOL) if f32 else
+                        (kd.float(), pd.float(), _ulp_tol(pd), 0.0))
         n5 = int(mask5.sum())
-        work["d_plane"][0] += (n5 * (f + 2) * 4 + nbytes(cells, mask5, kd)
+        work["d_plane"][0] += (n5 * (f * d_s.element_size() + 8) + nbytes(cells, mask5, kd)
                                + 2 * 2 * b * reso * reso * 4)
         work["d_plane"][1] += 2 * 4 * n5 * f
         dp_k.append(lambda a=dargs: lk.level_d_plane(*a))
         dp_p.append(lambda a=dargs: lk.level_d_plane_plain(*a))
         gin = plane.permute(0, 3, 1, 2).contiguous()
         gout = d_s.permute(0, 2, 1)[..., None].contiguous()
-        grid = (2 * xy - 1)[:, :, None, :].contiguous()
+        grid = (2 * xy - 1)[:, :, None, :].to(dt).contiguous()
         dp_l.append(lambda a=(gout, gin, grid): torch.ops.aten.grid_sampler_2d_backward(
             *a, 0, 1, True, [True, False])[0])
         del kr, pr, pd
         ed = max(_compare(*pair)[0] for pair in level_pairs)
-        log("kernels", f"fused_level R={r} F={f} Fl={fl}: max|d| plane "
-            f"{e0[0]:.3g} c_out {e1[0]:.3g} | backward {ed:.3g} on "
-            f"{int(mask5.sum())} of {int(mask.sum())} rows (the rest within {KINK:g} "
-            f"of the ReLU kink)")
+        log("kernels", f"fused_level{sfx} R={r} F={f} Fl={fl}: max|d| forward {e_fwd:.3g} "
+            f"| backward {ed:.3g} on {int(mask5.sum())} of {valid} rows (the rest within "
+            f"{KINK:g} of the ReLU kink)")
         bwd_k.append(lambda a=bargs: lk.fused_level_bwd(*a))
         bwd_p.append(lambda a=bargs: lk.fused_level_bwd_plain(*a))
         # K5's reductions alone, on random rows of this level's shapes
         m = b * npad
         for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False)):
-            ra = torch.randn(m, ka, generator=gen).to(dev)
-            rb = torch.randn(m, nb, generator=gen).to(dev)
+            ra = torch.randn(m, ka, generator=gen, device=dev).to(dt)
+            rb = torch.randn(m, nb, generator=gen, device=dev).to(dt)
             kr = lk.level_bwd_reduce(ra, rb, bias)
             pr = lk.level_bwd_reduce_plain(ra, rb, bias)
-            red_pairs += [(x, y, *_weight_tol(y)) for x, y in zip(kr, pr) if y is not None]
+            red_pairs += [(x, y, *_weight_tol(y)) if f32 else
+                          (x.float(), y.float(), _ulp_tol(y).max(), 0.0)
+                          for x, y in zip(kr, pr) if y is not None]
             work["reduce"][0] += nbytes(ra, rb, *kr)
             work["reduce"][1] += 2 * m * ka * nb
             red_l.append(lambda a=(ra, rb): torch.matmul(a[0].t(), a[1]))
             red_k.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce(*a))
             red_p.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce_plain(*a))
-    entry("fused_level", "tomosar2height_tpu_torch/csrc/level.cu",
+    entry("fused_level" + sfx, "tomosar2height_tpu_torch/csrc/level.cu",
           "tomosar2height_tpu/ops/pallas/level_kernel.py:110", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
-          (work["level"][0], [(work["level"][1], TF32X3_FLOP_S)]))
+          (work["level"][0], [(work["level"][1], rate)]),
+          tol=f"{TOL:g} abs+rel" if f32 else BF16_RULE)
     bwd_tol = (f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; weights "
-               f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
-    entry("fused_level_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+               f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel") if f32 else BF16_RULE
+    entry("fused_level_bwd" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", bwd_pairs,
           lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p],
-          (work["bwd"][0], [(work["bwd"][1], TF32X3_FLOP_S), (work["bwd"][2], TF32X3_FLOP_S)]),
+          (work["bwd"][0], [(work["bwd"][1], rate), (work["bwd"][2], rate)]),
           tol=bwd_tol)
-    entry("fused_level_bwd_rows", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+    entry("fused_level_bwd_rows" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", rows_pairs,
           lambda: [fn() for fn in rows_k], lambda: [fn() for fn in rows_p],
-          (work["rows"][0], [(work["rows"][1], TF32X3_FLOP_S)]),
-          tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; s, h, d_o {TOL:g} abs+rel")
-    entry("level_bwd_reduce", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          (work["rows"][0], [(work["rows"][1], rate)]),
+          tol=(f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; s, h, d_o {TOL:g} abs+rel" if f32
+               else BF16_RULE))
+    entry("level_bwd_reduce" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
           lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
-          (work["reduce"][0], [(work["reduce"][1], TF32X3_FLOP_S)]),
+          (work["reduce"][0], [(work["reduce"][1], rate)]),
           lambda: [fn() for fn in red_l],
-          tol=f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel")
-    entry("level_d_plane", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          tol=(f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel" if f32 else
+               "1 bf16 ulp of the plain version's scale"))
+    entry("level_d_plane" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", dp_pairs,
           lambda: [fn() for fn in dp_k], lambda: [fn() for fn in dp_p],
           tuple(work["d_plane"]), lambda: [fn() for fn in dp_l],
-          tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel")
-    log("kernels", "K4 (plane, c_out, counts), K5 (d_plane, d_c_last, weights) and K5's "
-        "d_plane pass bit-equal on a second launch at every level: True")
-    del dp_pairs, dp_k, dp_p, dp_l
-    torch.cuda.synchronize()
-    log("time", f"kernels: K1-K5 done at {time.perf_counter() - t_start:.1f} s")
-    for part, fn, args in (("C3 stress", stress_level, (level_args,)),
-                           ("depth-6 level", check_wide_level, (seed,)),
-                           ("K6-K8", check_conv_kernels, (entry, seed)),
-                           ("K6-K8 in bf16", check_conv_kernels_bf16, (entry, seed)),
-                           ("K9-K14 and the fused backwards", check_tile_kernels,
-                            (entry, seed))):
-        fn(*args)
-        log("time", f"kernels: {part} done at {time.perf_counter() - t_start:.1f} s")
-    # free the cuBLAS workspace of graph_ms's stream (32 MiB), so that the
-    # later phases' peak memory holds what the parent's does
-    torch._C._cuda_clearCublasWorkspaces()
-    return rows
+          tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel" if f32 else ULP_RULE)
+    log("kernels", f"K4{sfx} (plane, c_out, counts), K5{sfx} (d_plane, d_c_last, weights) and "
+        f"its d_plane pass bit-equal on a second launch at every level: True")
+    return level_args
 
 
 STRESS_LAUNCHES = 200
@@ -903,30 +1036,37 @@ STRESS_LAUNCHES = 200
 def stress_level(level_args):
     """K4's rare disagreement with its plain version (ROADMAP: K4 stress
     check): K4 at every flagship level (``level_args``: its arguments
-    at each of LEVEL_SHAPES), STRESS_LAUNCHES launches each, every one
-    bit-equal (plane, c_out, counts) to the first, which is within TOL of
-    the plain version. On a failure ``_explain_level`` logs both sides'
-    distance from float64, then the smoke fails."""
+    at each of LEVEL_SHAPES, f32 or bf16), STRESS_LAUNCHES launches each,
+    every one bit-equal (plane, c_out, counts) to the first, which is within
+    TOL (bf16: BF16_RULE) of the plain version. On an f32 failure
+    ``_explain_level`` logs both sides' distance from float64, then the
+    smoke fails."""
     import torch
 
     from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 
     t0 = time.perf_counter()
+    f32 = level_args[0][0].dtype == torch.float32
     for shape, args in zip(LEVEL_SHAPES, level_args):
         first, po = lk.fused_level(*args), lk.fused_level_plain(*args)
-        ok = _compare(first[0], po[0])[1] and _compare(first[1], po[1])[1]
+        pairs = ([(first[0], po[0]), (first[1], po[1])] if f32 else
+                 _bf16_rule_pairs(first[:2], po[:2], lk.fused_level_plain(*_upcast(args))[:2]))
+        ok = all(_compare(*pair)[1] for pair in pairs)
         bad = 0
         for _ in range(STRESS_LAUNCHES - 1):
             again = lk.fused_level(*args)
             bad += not all(torch.equal(x, y) for x, y in zip(again, first))
         if not ok or bad:
-            _explain_level(shape, first, po, args)
-            raise AssertionError(f"fused_level {shape}: within TOL of plain {ok}, {bad} of "
-                                 f"{STRESS_LAUNCHES - 1} launches differ from the first")
-        del first, po
-    log("kernels", f"C3 stress: K4 at the {len(level_args)} levels, {STRESS_LAUNCHES} "
-        f"launches each: every launch bit-equal to the first, the first within {TOL:g} of "
-        f"plain ({time.perf_counter() - t0:.1f} s)")
+            if f32:
+                _explain_level(shape, first, po, args)
+            raise AssertionError(f"fused_level {shape} {args[0].dtype}: within its tolerance "
+                                 f"of plain {ok}, {bad} of {STRESS_LAUNCHES - 1} launches "
+                                 f"differ from the first")
+        del first, po, pairs
+    log("kernels", f"C3 stress{'' if f32 else ' (bf16)'}: K4 at the {len(level_args)} levels, "
+        f"{STRESS_LAUNCHES} launches each: every launch bit-equal to the first, the first "
+        f"within {f'{TOL:g}' if f32 else BF16_RULE} of plain ({time.perf_counter() - t0:.1f} "
+        f"s)")
 
 
 def check_wide_level(seed: int = 0):
@@ -940,14 +1080,14 @@ def check_wide_level(seed: int = 0):
 
     dev = torch.device(DEVICE)
     _, _, apts, amask, acell, _ = flagship_batch(seed + 3)
-    gen = torch.Generator().manual_seed(seed + 3)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
     xy = torch.from_numpy(apts[..., :2]).to(dev).contiguous()
     mask = torch.from_numpy(amask).to(dev)
     cells = torch.from_numpy(acell).to(dev)
     b, npad = amask.shape
     r, f, fl = 32, 512, 1024
-    plane = torch.randn(b, r, r, f, generator=gen).to(dev)
-    c_last = (torch.randn(b, npad, fl, generator=gen).to(dev) * mask[..., None]).contiguous()
+    plane = torch.randn(b, r, r, f, generator=gen, device=dev)
+    c_last = (torch.randn(b, npad, fl, generator=gen, device=dev) * mask[..., None]).contiguous()
     w = (_xavier(gen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
          _xavier(gen, 2 * f, f, dev), torch.zeros(f, device=dev),
          _xavier(gen, fl, f, dev), torch.zeros(f, device=dev))
@@ -957,8 +1097,8 @@ def check_wide_level(seed: int = 0):
     mask5 = mask & ~(pre.abs() < KINK).any(-1)
     del pre
     counts5 = lk.fused_level(plane, c_last, w, xy, cells, mask5, r, 256)[2]
-    g_p = torch.randn(b, r, r, f, generator=gen).to(dev)
-    g_c = torch.randn(b, npad, f, generator=gen).to(dev)
+    g_p = torch.randn(b, r, r, f, generator=gen, device=dev)
+    g_c = torch.randn(b, npad, f, generator=gen, device=dev)
     bargs = (plane, c_last, w, xy, cells, mask5, counts5, g_p, g_c, r, 256)
     kb, pb = lk.fused_level_bwd(*bargs), lk.fused_level_bwd_plain(*bargs)
     fwd = [_compare(ko[0], po[0]), _compare(ko[1], po[1])]
@@ -1253,7 +1393,7 @@ def check_tile_kernels(entry, seed: int = 0):
 
     dev = torch.device(DEVICE)
     pts, mask_np, apts, amask, acell, toff_np = flagship_batch(seed + 5, tile_cells=256)
-    gen = torch.Generator().manual_seed(seed + 5)
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     xy, mask, cells, toff = up(apts[..., :2]), up(amask), up(acell), up(toff_np)
     b, npad = amask.shape
@@ -1263,7 +1403,7 @@ def check_tile_kernels(entry, seed: int = 0):
         return toff[:, :: 4 ** ((256).bit_length() - r.bit_length())].contiguous()
 
     def rows_of(f, n=npad, m=mask):
-        return (torch.randn(b, n, f, generator=gen).to(dev) * m[..., None]).contiguous()
+        return (torch.randn(b, n, f, generator=gen, device=dev) * m[..., None]).contiguous()
 
     # bounds count what each kernel must read: values on the rows that add
     # into a cell (in range and in their tile), the cell ids of the rows it
@@ -1289,7 +1429,7 @@ def check_tile_kernels(entry, seed: int = 0):
 
     pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
     for r, f in TILE_GATHER_SHAPES:
-        plane = torch.randn(b, r, r, f, generator=gen).to(dev)
+        plane = torch.randn(b, r, r, f, generator=gen, device=dev)
         a = (plane, xy, level_toff(r))
         out = gk.tile_gather(*a)
         pairs.append((out, gk.tile_gather_plain(*a)))
@@ -1449,11 +1589,11 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
     from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
     from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
 
-    gen = torch.Generator().manual_seed(17)
+    gen = torch.Generator(device=dev).manual_seed(17)
     n_valid = int(mask.sum())
     pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
     for r, f in TILE_GATHER_SHAPES:
-        g = (torch.randn(b, npad, f, generator=gen).to(dev) * mask[..., None]).contiguous()
+        g = (torch.randn(b, npad, f, generator=gen, device=dev) * mask[..., None]).contiguous()
         a = (g, xy, cells, mask, r, 256)
         out = gk.tile_gather_bwd(*a)
         if not torch.equal(gk.tile_gather_bwd(*a), out):
@@ -1482,7 +1622,7 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
     # K10's backward at the four poolings' width (F=32 at 256^2)
     vals = rows_of(32)
     g = rows_of(32)
-    ties = (torch.randint(0, 3, vals.shape, generator=gen).to(dev).float()
+    ties = (torch.randint(0, 3, vals.shape, generator=gen, device=dev).float()
             * mask[..., None]).contiguous()
     pairs, by_kind, repeat = [], [], True
     copies = {}
@@ -1526,7 +1666,7 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         tl = toff[:, :: 4 ** (shift // 2)].contiguous()
         _, counts = sk.aligned_scatter_mean_plane(rows_of(f), cells, tl, r, 256,
                                                   with_counts=True)
-        gp = torch.randn(b, r, r, f, generator=gen).to(dev)
+        gp = torch.randn(b, r, r, f, generator=gen, device=dev)
         a = (gp, cells, counts, r, 256)
         dv = sk.aligned_scatter_mean_plane_bwd(*a)
         if not torch.equal(sk.aligned_scatter_mean_plane_bwd(*a), dv):
@@ -2507,44 +2647,63 @@ def headline_train(seed: int = 0):
             or sorted(child["state"]) != sorted(final)):
         raise AssertionError(f"the resumed run differs: {len(differ)} tensors "
                              f"({differ[:4]}), window losses {got} vs {ref}")
-    return {key: kern["launches"][key] for key in ("conv_pair", "conv_decoder")}
+    return {"launches": {key: kern["launches"][key] for key in ("conv_pair", "conv_decoder")},
+            **{key: kern[key] for key in ("windows", "ms", "patches_s", "peak")}}
 
 
-# conv kernel launches per batch-8 forward of the headline network on the
-# unsorted path with the kernel flags on: the 11 ALTO and 11 image U-Net conv
-# pairs (K7) and the height decoder (K6; serving skips the footprint head);
-# with the flags off under FAST_CONV, its 47 Conv3x3 (K8); per training
-# mini-step the ALTO pairs twice (remat's recompute), the image pairs once and
-# both heads. The f32 runs launch the same kernels' f32 entries.
-BF16_SERVE_LAUNCHES = {"conv_pair_bf16": 22, "conv_decoder_bf16": 1}
+# kernel launches per batch-8 forward of the headline network in bf16: on
+# fused2 (K1-K4 at their bf16 instances: pool2 4, scatter_plane2 1, K4 and
+# its plane at the nine levels of 32^2 and more) with the conv kernels' flags,
+# 11 ALTO and 11 image U-Net conv pairs (K7) and the height decoder (K6;
+# serving skips the footprint head); on the unsorted path with the flags off
+# under FAST_CONV its 47 Conv3x3 (K8). Per training mini-step on fused2
+# HEADLINE_TRAIN_LAUNCHES' kernels at their bf16 instances (remat's
+# recompute doubles the forward's).
+BF16_SERVE_LAUNCHES = {"pool2_bf16": 4, "scatter_plane2_bf16": 1, "fused_level_bf16": 9,
+                       "fused_level_scatter_bf16": 9, "conv_pair_bf16": 22,
+                       "conv_decoder_bf16": 1}
 BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47}
-BF16_TRAIN_LAUNCHES = {"conv_pair_bf16": 33, "conv_decoder_bf16": 2}
+BF16_TRAIN_LAUNCHES = {f"{k}_bf16": v for k, v in HEADLINE_TRAIN_LAUNCHES.items()}
 
 
 def _f32_launches(counts: dict) -> dict:
     return {k.replace("_bf16", ""): v for k, v in counts.items()}
 
 
-def bf16_phase(seed: int = 0):
+def headline_bf16(sort: bool = True):
+    """``headline_config()`` in bf16 (``model.dtype=bfloat16``): on its
+    fused2 kernel path, or with ``sort`` False on the unsorted point path
+    with the conv kernel flags off."""
+    from tomosar2height_tpu_torch.config import headline_config
+
+    cfg = headline_config() if sort else headline_unsorted("bfloat16", fused=False)
+    cfg["model"]["dtype"] = "bfloat16"
+    return cfg
+
+
+def bf16_phase(f32_train: dict, seed: int = 0):
     """The headline network in bf16 (``model.dtype=bfloat16``) at full width
-    on the unsorted point path, weights from ``seed``, against the same in
+    on its fused2 kernel path (K1-K5 and K6/K7 at their bf16 instances),
+    weights from ``seed`` as headline-train's, against the same network in
     f32 from the same weights:
 
-    - serving the synthetic city with its RGB image under FAST_CONV: bf16
-      with the kernel flags (K6, K7), bf16 with the flags off (every Conv3x3
-      on K8) and f32 with the flags; each timed ``generate_dsm`` (the second)
-      with its tiles/s, forward ms, peak memory and launches (asserted); each
-      bf16 raster against the f32 raster within the JAX package's bf16 gate
-      (max |d| <= 0.15 x scale, correlation > 0.99; tests/test_bf16.py), NaN
-      masks equal;
+    - serving the synthetic city with its RGB image: bf16 on fused2 and f32
+      on fused2, each timed ``generate_dsm`` (the second) with its tiles/s,
+      forward ms, peak memory and launches (asserted), the bf16 timed raster
+      bit-equal to its warm-up raster; then bf16 on the unsorted path with
+      the flags off under FAST_CONV (K8), one run; each bf16 raster against
+      the f32 raster within the JAX package's
+      bf16 gate (max |d| <= 0.15 x scale, correlation > 0.99;
+      tests/test_bf16.py), NaN masks equal;
     - training, ``optimize_every`` HEADLINE_OPTIMIZE_EVERY: a warm-up and a
-      timed optimizer step in bf16 (launches per mini-step asserted) and in
-      f32 on the same patches, mini-step ms, train patches/s, peak memory,
-      |window loss bf16 - f32| <= 0.15 x scale (an L1 loss moves at most as
-      far as the heights); the bf16 first step run again from the same
-      weights, and the tensors that differ counted (logged: the unsorted
-      scatters add with float atomics);
-    - bf16 on the sorted layout (``headline_config()``) refused by
+      timed optimizer step in bf16 on fused2 (launches per mini-step
+      asserted), on headline-train's patches: its window losses within 0.15
+      x scale of ``f32_train``'s (headline-train's kernel run: the same
+      weights, patches and steps in f32; an L1 loss moves at most as far as
+      the heights), mini-step ms, train patches/s and peak memory beside
+      it; the bf16 first step run again from the same weights, and every
+      parameter and the window loss bit-equal to the first run's;
+    - bf16 on the ``fused`` and ``cumsum`` layouts refused by
       ``build_model`` in a child process beside the rest.
 
     Returns the bf16 kernels' launches of the timed bf16 runs."""
@@ -2552,6 +2711,7 @@ def bf16_phase(seed: int = 0):
 
     import torch
 
+    from tomosar2height_tpu_torch.config import headline_config
     from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
     from tomosar2height_tpu_torch.geo import RasterData
     from tomosar2height_tpu_torch.infer.generator import make_generator
@@ -2560,41 +2720,45 @@ def bf16_phase(seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import runtime
     from tomosar2height_tpu_torch.train import train
 
-    refusal = subprocess.Popen(
+    refusals = {impl: subprocess.Popen(
         [sys.executable, "-c", "from tomosar2height_tpu_torch.config import headline_config; "
          "from tomosar2height_tpu_torch.models import build_model; c = headline_config(); "
-         "c['model']['dtype'] = 'bfloat16'; build_model(c)"],
+         f"c['model']['dtype'] = 'bfloat16'; c['model']['encoder_kwargs']['sorted_impl'] = "
+         f"{impl!r}; build_model(c)"],
         cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for impl in ("fused", "cumsum")}
     w, h = CITY["W"], CITY["H"]
     _, pts, rgb = build_city(seed, **CITY)
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
                "points": pts}]
     image = (rgb, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
-    cfgs = {"bf16": headline_unsorted("bfloat16"),
-            "bf16 fast_conv": headline_unsorted("bfloat16", fused=False),
-            "f32": headline_unsorted("float32")}
+    cfgs = {"bf16": headline_bf16(), "f32": headline_config(),
+            "bf16 fast_conv": headline_bf16(sort=False)}
     models = {name: build_model(cfg, DEVICE) for name, cfg in cfgs.items()}
     init_weights(models["bf16"], torch.Generator().manual_seed(seed))
     state0 = {n: v.detach().clone() for n, v in models["bf16"].state_dict().items()}
-    for name in ("bf16 fast_conv", "f32"):
+    for name in ("f32", "bf16 fast_conv"):
         models[name].load_state_dict(state0)
 
     served, total = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, per_batch in (("bf16", BF16_SERVE_LAUNCHES),
-                                ("bf16 fast_conv", BF16_FAST_CONV_LAUNCHES),
-                                ("f32", _f32_launches(BF16_SERVE_LAUNCHES))):
+                                ("f32", _f32_launches(BF16_SERVE_LAUNCHES)),
+                                ("bf16 fast_conv", BF16_FAST_CONV_LAUNCHES)):
             model = models[name].eval()
-            set_fast_conv(True)
+            set_fast_conv(name == "bf16 fast_conv")
             gen = make_generator(model, cfgs[name], chunks, image=image)
             n_batches = len(gen.data_loader)
-            batch = next(iter(gen.data_loader))
-            up = {k: torch.from_numpy(batch[k]).to(DEVICE)
-                  for k in ("points", "point_mask", "image")}
-            with torch.inference_mode():
-                fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
-                                               footprint=False), iters=3, warmup=1)
-            warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            warm = None
+            if name != "bf16 fast_conv":  # one raster is all it gives
+                batch = next(iter(gen.data_loader))
+                up = {k: torch.from_numpy(batch[k]).to(DEVICE)
+                      for k in ("points", "point_mask", "image", "cell_offsets") if k in batch}
+                with torch.inference_mode():
+                    fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
+                                                   None, up.get("cell_offsets"),
+                                                   footprint=False), iters=3, warmup=1)
+                warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             runtime.reset_launches()
@@ -2604,15 +2768,18 @@ def bf16_phase(seed: int = 0):
             set_fast_conv(False)
             stats = gen.last_stats
             served[name] = r.data
+            again = warm is not None and np.array_equal(warm.data, r.data, equal_nan=True)
             log("bf16", f"serve {name}: {stats['n_patches']} tiles in {n_batches} batches | "
-                f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s) | forward "
-                f"{fwd_ms:.1f} ms per batch (median of 3) | peak "
-                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | bit-equal to its "
-                f"warm-up run {np.array_equal(warm.data, r.data, equal_nan=True)} | launches "
+                f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s)"
+                + (f" | forward {fwd_ms:.1f} ms per batch (median of 3) | bit-equal to its "
+                   f"warm-up run {again}" if warm is not None else "")
+                + f" | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
                 f"per forward {({k: v / n_batches for k, v in launches.items() if v})}")
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}
             if launches != want:
                 raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
+            if warm is not None and not again:
+                raise AssertionError(f"{name}: the timed raster differs from the warm-up's")
             if name != "f32":
                 for k, v in launches.items():
                     total[k] = total.get(k, 0) + v
@@ -2634,11 +2801,12 @@ def bf16_phase(seed: int = 0):
             f"{int(nan.sum())}")
         if d.max() > 0.15 * scale or corr <= 0.99:
             raise AssertionError(f"{name} raster off the f32 raster: {d.max()} m, corr {corr}")
+    del models["f32"], models["bf16 fast_conv"]
 
-    def run(name, steps, label):
-        model = models[name]
+    def run(steps, label):
+        model = models["bf16"]
         model.load_state_dict(state0)
-        cfg, tcfg, loader = _headline_parts(seed, False, cfgs[name])
+        cfg, tcfg, loader = _headline_parts(seed, True, cfgs["bf16"])
         trainer, sched = _headline_trainer(cfg, tcfg, model)
         windows, first = [], None
         if steps > 1:
@@ -2661,37 +2829,39 @@ def bf16_phase(seed: int = 0):
             f"patches in {wall:.3f} s = {r['patches'] / wall:.2f} train patches/s | peak "
             f"{r['peak'] / 2**30:.2f} GiB")
         if not all(np.isfinite(r["losses"])):
-            raise AssertionError(f"{name}: window losses {r['losses']}")
+            raise AssertionError(f"bf16: window losses {r['losses']}")
         return r
 
-    runs = {"bf16": run("bf16", 2, "bf16"), "f32": run("f32", 2, "f32")}
-    runs["bf16 again"] = run("bf16", 1, "bf16 again")
-    bf, f32, again = runs["bf16"], runs["f32"], runs["bf16 again"]
-    err = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
+    bf, again = run(2, "bf16"), run(1, "bf16 again")
+    f32_losses = [x["loss_l1"] for x in f32_train["windows"]]
+    err = max(abs(a - b) for a, b in zip(bf["losses"], f32_losses))
     unequal = _differing(bf["first"], again["first"])
-    log("bf16", f"train bf16 vs f32 window L1 losses: max|d| {err:.4g} m (tol "
-        f"{0.15 * scale:.4g} m) | bf16 first step run twice from the same weights on the "
-        f"same patches: {len(unequal)} of {len(bf['first'])} tensors differ, window loss "
-        f"equal {bf['losses'][:1] == again['losses']} (the unsorted scatters add with "
-        f"float atomics) | mini-step bf16 {bf['ms']:.1f} ms, f32 {f32['ms']:.1f} ms")
+    log("bf16", f"train bf16 vs f32 (headline-train's kernel run, same weights and patches) "
+        f"window L1 losses: max|d| {err:.4g} m (tol {0.15 * scale:.4g} m) | mini-step bf16 "
+        f"{bf['ms']:.1f} ms, f32 {f32_train['ms']:.1f} ms | train patches/s bf16 "
+        f"{bf['patches'] / bf['wall']:.2f}, f32 {f32_train['patches_s']:.2f} | peak bf16 "
+        f"{bf['peak'] / 2**30:.2f} GiB, f32 {f32_train['peak'] / 2**30:.2f} GiB | bf16 first "
+        f"step run twice from the same weights on the same patches: {len(unequal)} of "
+        f"{len(bf['first'])} tensors differ {unequal[:4]}, window loss equal "
+        f"{bf['losses'][:1] == again['losses']}")
     if err > 0.15 * scale:
         raise AssertionError(f"bf16 and f32 window losses differ by {err} m")
-    for name, per_step in (("bf16", BF16_TRAIN_LAUNCHES),
-                           ("f32", _f32_launches(BF16_TRAIN_LAUNCHES))):
-        r = runs[name]
-        want = {**dict.fromkeys(r["launches"], 0),
-                **{key: v * r["n"] for key, v in per_step.items()}}
-        if r["launches"] != want:
-            raise AssertionError(f"train {name}: launch counts {r['launches']}, expected {want}")
+    if unequal or bf["losses"][:1] != again["losses"]:
+        raise AssertionError(f"the bf16 rerun differs: {len(unequal)} tensors {unequal[:4]}")
+    want = {**dict.fromkeys(bf["launches"], 0),
+            **{key: v * bf["n"] for key, v in BF16_TRAIN_LAUNCHES.items()}}
+    if bf["launches"] != want:
+        raise AssertionError(f"train bf16: launch counts {bf['launches']}, expected {want}")
     for k, v in bf["launches"].items():
         total[k] = total.get(k, 0) + v
-    _, stderr = refusal.communicate(timeout=300)
-    said = stderr.strip().splitlines()[-1:]
-    log("bf16", f"bf16 on the sorted layout refused by build_model: exit "
-        f"{refusal.returncode}, {said}")
-    if refusal.returncode == 0 or "ROADMAP: bf16" not in str(said):
-        raise AssertionError(f"build_model did not refuse bf16 on the sorted layout: "
-                             f"{refusal.returncode} {said}")
+    for impl, proc in refusals.items():
+        _, stderr = proc.communicate(timeout=300)
+        said = stderr.strip().splitlines()[-1:]
+        log("bf16", f"bf16 on the {impl} layout refused by build_model: exit "
+            f"{proc.returncode}, {said}")
+        if proc.returncode == 0 or "ROADMAP: bf16" not in str(said):
+            raise AssertionError(f"build_model did not refuse bf16 on {impl}: "
+                                 f"{proc.returncode} {said}")
     return _nonzero(total)
 
 
@@ -2760,7 +2930,10 @@ def cli_phase(smi: str, seed: int = 0):
     test raster held bit-equal to an in-process DSMGenerator that loads the
     same checkpoint over the in-memory SceneDataset of the same city, the
     report's statistics to a float64 recomputation from the two rasters,
-    ``metrics.jsonl`` read back. Returns the launches of the phase."""
+    ``metrics.jsonl`` read back; then in bf16 (``model.dtype=bfloat16``)
+    ``cli.train`` one iteration and ``cli.test`` on the f32 checkpoint, its
+    raster within the bf16 gate of the f32 one and every bf16 kernel of the
+    path launched. Returns the launches of the phase."""
     import tempfile
 
     import torch
@@ -2835,6 +3008,7 @@ def cli_phase(smi: str, seed: int = 0):
         bit_equal = dsm.shape == inproc.shape and np.array_equal(dsm, inproc, equal_nan=True)
         del model, gen
 
+
         # the report against float64 from the two rasters
         gt_reader = RasterReader(city["ndsm"])
         col, row = gt_reader.query_col_row(*(res["raster"].T * (0.5, 0.5)))
@@ -2877,6 +3051,30 @@ def cli_phase(smi: str, seed: int = 0):
                     and all(np.isfinite(r["train/loss"]) for r in recs)
                     and "val/loss" in recs[1] and "nDSM/overall/RMSE" in recs[1]
                     and "nDSM/building/NMAD" in recs[1])
+
+        # bf16 through the entry points: cli.train an iteration from scratch
+        # (a run of its own), cli.test on the f32 run's checkpoint (the file
+        # holds the same f32 arrays in either dtype), after the f32 run's
+        # report and log are read: cli.test writes to the same paths
+        ov16 = ov + ["model.dtype=bfloat16"]
+        runtime.reset_launches()
+        t0 = time.perf_counter()
+        out16 = cli_train.run(ov16 + ["run_suffix=-bf16", "training.max_iteration=1",
+                                      "training.validate_every=0",
+                                      "training.visualize_every=0"])
+        res16 = cli_test.run(ov16)
+        torch.cuda.synchronize()
+        bf16_s = time.perf_counter() - t0
+        bf16_launches = dict(runtime.LAUNCHES)
+        loss16 = out16["windows"][0]["loss"]
+        dsm16 = RasterReader(res16["dsm_path"]).get_data()
+        nan = np.isnan(dsm)
+        scale = max(1.0, float(np.abs(dsm[~nan]).max()))
+        d16 = np.abs(dsm16[~nan] - dsm[~nan])
+        corr16 = float(np.corrcoef(dsm16[~nan], dsm[~nan])[0, 1])
+        bf16_ok = (np.isfinite(loss16) and np.array_equal(np.isnan(dsm16), nan)
+                   and d16.max() <= 0.15 * scale and corr16 > 0.99)
+        del out16, res16
     ov_ = stats["overall"]
     log("cli", f"{smi} | write_city {write_s:.2f} s ({city['n_points']} points), "
         f"build_dataset {build_s:.3f} s ({len(chunks)} chunks) | cli.train "
@@ -2893,16 +3091,24 @@ def cli_phase(smi: str, seed: int = 0):
         f"{report_ok} | metrics.jsonl iterations and nDSM entries {jsonl_ok} | launches "
         f"cli.train {_nonzero(train_launches)}, cli.test {_nonzero(test_launches)}, "
         f"in-process {_nonzero(inproc_launches)}")
+    log("cli", f"bf16 (model.dtype=bfloat16): cli.train one iteration and cli.test on the f32 "
+        f"checkpoint {bf16_s:.1f} s, window loss {loss16:.4f} | test raster vs the f32 "
+        f"cli.test raster: max|d| {float(d16.max()):.4g} m (tol {0.15 * scale:.4g} m), "
+        f"correlation {corr16:.6f}, NaN masks equal {np.array_equal(np.isnan(dsm16), nan)} "
+        f"| launches {_nonzero(bf16_launches)}")
     if not bit_equal:
         raise AssertionError("cli.test and the in-process generator gave different rasters")
     if not report_ok or not jsonl_ok:
         raise AssertionError(f"eval.txt {report_ok}, metrics.jsonl {jsonl_ok}")
+    if not bf16_ok:
+        raise AssertionError("the bf16 entry points' loss or raster is off")
     missing = ([k for k in CLI_TRAIN_KERNELS if not train_launches.get(k)]
-               + [k for k in CLI_TEST_KERNELS if not test_launches.get(k)])
+               + [k for k in CLI_TEST_KERNELS if not test_launches.get(k)]
+               + [f"{k}_bf16" for k in CLI_TRAIN_KERNELS if not bf16_launches.get(f"{k}_bf16")])
     if missing:
         raise AssertionError(f"the cli phase did not launch {missing}")
-    return {k: train_launches.get(k, 0) + test_launches.get(k, 0)
-            for k in set(train_launches) | set(test_launches)}
+    return {k: train_launches.get(k, 0) + test_launches.get(k, 0) + bf16_launches.get(k, 0)
+            for k in set(train_launches) | set(test_launches) | set(bf16_launches)}
 
 
 def _nonzero(counts: dict) -> dict:
@@ -2935,8 +3141,9 @@ def main():
     timed("munich-depth6", munich_depth6)
     launches = timed("train", train_phase)
     sorted_train_launches = timed("sorted-train", sorted_train)
-    headline_launches = timed("headline-train", headline_train)
-    bf16_launches = timed("bf16", bf16_phase)
+    headline = timed("headline-train", headline_train)
+    headline_launches = headline["launches"]
+    bf16_launches = timed("bf16", bf16_phase, headline)
     cli_launches = timed("cli", cli_phase, smi)
     log("time", f"all phases {time.perf_counter() - t0:.1f} s")
     import torch
@@ -2945,10 +3152,11 @@ def main():
         # K1-K5 (K5's d_plane pass too) and the backwards: the flagship
         # training step; K6 and K7: fusion serving and headline training; K8:
         # fusion serving; K9-K13: sorted serving (K14 is on no model path);
-        # the fused layout's backwards: its training step; K6-K8 in bf16:
-        # the bf16 phase's serving and its timed training step
+        # the fused layout's backwards: its training step; K1-K8 in bf16:
+        # the bf16 phase's serving (K8 on the unsorted path under
+        # FAST_CONV) and its timed training step
         name = row["name"]
-        key = "fused_level_bwd" if name == "fused_level_bwd_rows" else name
+        key = name.replace("fused_level_bwd_rows", "fused_level_bwd")
         row["launches"] = (launches.get(key)
                            or fusion_launches.get(key, 0) + headline_launches.get(key, 0)
                            or sorted_launches.get(key, 0)

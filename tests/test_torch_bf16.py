@@ -22,7 +22,9 @@ CPU.
   where JAX's is below it.
 
 The weights are flax's init with biases drawn at std 0.1.
-- bf16 on the sorted layouts and unknown dtypes refused.
+- bf16 on the sorted layouts without bf16 kernels (``fused``, ``pallas``,
+  ``cumsum``) and unknown dtypes refused; fused2 in bf16 accepted
+  (``tests/test_torch_bf16_sorted.py`` holds it to the JAX package).
 
 The JAX references are computed once per module (fixtures): its bf16
 gradient at a larger size does not finish in 100 s on this CPU.
@@ -383,12 +385,21 @@ def test_step_gradients_within_jax_floor(steps):
 
 # -- refusals ------------------------------------------------------------------
 
-def test_build_refuses_bf16_on_sorted_layouts():
+@pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
+def test_build_refuses_bf16_on_sorted_layouts(impl):
+    cfg = net_cfg("bfloat16", sort=True)
+    cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
     with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
-        build_model(net_cfg("bfloat16", sort=True), device="cpu")
+        build_model(cfg, device="cpu")
 
 
-@pytest.mark.parametrize("impl", ["fused2", "fused", "pallas", "cumsum"])
+def test_build_accepts_bf16_on_fused2():
+    model = build_model(net_cfg("bfloat16", sort=True), device="cpu")
+    assert model.point_encoder.sorted_impl == "fused2"
+    assert model.point_encoder.dtype == BF
+
+
+@pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
 def test_encoder_refuses_bf16_sorted_batches(impl):
     cfg = net_cfg("bfloat16")
     cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
@@ -397,6 +408,23 @@ def test_encoder_refuses_bf16_sorted_batches(impl):
     offsets = torch.zeros((B, 2), dtype=torch.int32)
     with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
         model(t(x["points"]), t(x["point_mask"]), t(x["image"]), None, offsets)
+
+
+def test_encoder_serves_bf16_fused2_batches():
+    """The aligned layout's batch (cells recomputed from the points) runs in
+    bf16 on fused2 to finite f32 heights."""
+    from tomosar2height_tpu_torch.ops.sorted_scatter import host_morton_bucket_aligned
+
+    x = inputs()
+    rows = [host_morton_bucket_aligned(x["points"][i], x["point_mask"][i], RESO)
+            for i in range(B)]
+    pts, mask, offsets = (torch.from_numpy(np.stack([r[k] for r in rows]))
+                          for k in ("points", "mask", "tile_offsets"))
+    model = build_model(net_cfg("bfloat16"), device="cpu")
+    with torch.no_grad():
+        pa, _ = model(pts, mask, t(x["image"]), None, offsets)
+    assert pa.dtype == torch.float32 and pa.shape == (B, OUT, OUT, 1)
+    assert torch.isfinite(pa).all()
 
 
 @pytest.mark.parametrize("dtype", ["float16", "float64", "bf16"])

@@ -23,7 +23,11 @@ composition's autograd: 1e-5. The port's own cuDNN convolutions run in full
 float32 under PyTorch's default flags (TF32 on for cuDNN): held to float64.
 K6-K8 on bf16 activations (one bf16 pass on the tensor cores): their
 distance from the float64 evaluation of the same operands at most twice the
-bf16 plain version's plus one bf16 ulp of the output's scale.
+bf16 plain version's plus one bf16 ulp of the output's scale. K1-K5's bf16
+instances: the run kernels, K2, K5's d_plane pass and weight sums within one
+bf16 ulp of their bf16 plain versions (f32 sums in two orders, each output
+rounded once; max exact); K4 and K5 under the JAX package's bf16 rule
+(``bf16_level_held``).
 """
 
 from __future__ import annotations
@@ -1849,3 +1853,202 @@ def test_u16_points_dequantize_on_the_card(cuda):
     dev = torch.from_numpy(q).pin_memory().to(cuda, non_blocking=True)
     got = dequantize_points(dev).cpu().numpy()
     np.testing.assert_array_equal(got, dequantize_points_np(q))
+
+
+def bf16_ulps(got, want) -> float:
+    """The largest |got - want| in bf16 ulps of want (2^-7 of the power of
+    two at or below |want|), the ulp floored at 2^-16 of want's scale, where
+    a sum cancels and two f32 orders leave more than an ulp of it."""
+    w = want.double()
+    floor = 2.0 ** -16 * float(w.abs().max())
+    ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0 ** -126))) - 7)
+    return float(((got.double() - w).abs() / ulp.clamp_min(floor)).max())
+
+
+def bf16_level_held(got, want, ref):
+    """K4's and K5's bf16 rule (tests/test_fused_level_bwd.py:184-190): the
+    kernel no further from ``ref``, the plain version in float32 on the same
+    bf16 operands, than max(1.5x the bf16 plain version's distance, 0.02 x
+    scale), and no further than that from the bf16 plain version."""
+    r = ref.double()
+    bound = max(1.5 * float((want.double() - r).abs().max()),
+                0.02 * float(r.abs().max()) + 1e-12)
+    assert got.dtype == want.dtype == BF
+    assert float((got.double() - r).abs().max()) <= bound
+    assert float((got.double() - want.double()).abs().max()) <= bound
+
+
+def _bf(x, device):
+    return t(x, device).to(BF)
+
+
+@pytest.mark.cuda
+class TestBf16RunAndLevelKernels:
+    """K1-K5's bf16 instances (``t2h_*_bf16``, counted under ``*_bf16``)
+    against their bf16 plain versions: the run kernels and K2 within one
+    bf16 ulp (their f32 sums in another order, each output rounded once;
+    max exact; K2 alone bit-equal, one division rounded), K4 and K5 under
+    the JAX package's bf16 rule (``bf16_level_held``), K5's d_plane pass and
+    weight sums within one bf16 ulp; each bit-equal on a second launch."""
+
+    @pytest.mark.parametrize("f", [8, 40, 128])
+    @pytest.mark.parametrize("kind", ["max", "mean", "sum"])
+    def test_pool2_matches_plain(self, cuda, kind, f):
+        _, mask, cells, _, vals = run_batch(6, f=f)
+        v, c, m = _bf(vals, cuda), t(cells, cuda), t(mask, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = pk.pool2_fwd(v, c, m, RESO, kind)
+        want = pk.pool2_plain(v, c, m, RESO, kind)
+        torch.cuda.synchronize()
+        _launched("pool2_bf16", before)
+        assert runtime.LAUNCHES["pool2"] == before["pool2"]
+        assert got.dtype == BF and torch.equal(pk.pool2_fwd(v, c, m, RESO, kind), got)
+        if kind == "max":
+            assert torch.equal(got, want)
+        else:
+            assert bf16_ulps(got, want) <= 1
+
+    @pytest.mark.parametrize("holes", [False, True])
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    def test_pool2_backward_matches_plain(self, cuda, kind, holes):
+        _, mask, cells, _, vals = run_batch(7, f=40, holes=holes)
+        v, c, m = _bf(vals, cuda), t(cells, cuda), t(mask, cuda)
+        g = torch.randn(v.shape, generator=torch.Generator().manual_seed(4)).to(cuda, BF)
+        out = pk.pool2(v, c, m, RESO, kind)
+        before = dict(runtime.LAUNCHES)
+        got = pk.pool2_bwd(g, v, out, c, m, RESO, kind)
+        want = pk.pool2_bwd_plain(g, v, out, c, m, RESO, kind)
+        torch.cuda.synchronize()
+        _launched("pool2_bwd_bf16", before)
+        assert got.dtype == BF and torch.equal(pk.pool2_bwd(g, v, out, c, m, RESO, kind), got)
+        assert bf16_ulps(got, want) <= 1
+
+    @pytest.mark.parametrize("f", [8, 40, 64, 128])
+    def test_scatter_plane2_matches_plain(self, cuda, f):
+        """F 8 and 40: a lane a feature; 64: two; 128: four (8-byte loads)."""
+        _, mask, cells, _, vals = run_batch(8, f=f)
+        v, c, m = _bf(vals, cuda), t(cells, cuda), t(mask, cuda)
+        before = dict(runtime.LAUNCHES)
+        plane, counts = pk.scatter_plane2(v, c, m, RESO)
+        want_plane, want_counts = pk.scatter_plane2_plain(v, c, m, RESO)
+        torch.cuda.synchronize()
+        _launched("scatter_plane2_bf16", before)
+        assert plane.dtype == BF and torch.equal(counts, want_counts)
+        assert bf16_ulps(plane, want_plane) <= 1
+        again = pk.scatter_plane2(v, c, m, RESO)
+        assert torch.equal(again[0], plane) and torch.equal(again[1], counts)
+        g = torch.randn(plane.shape, generator=torch.Generator().manual_seed(5)).to(cuda, BF)
+        before = dict(runtime.LAUNCHES)
+        dv = pk.scatter_plane2_bwd(g, c, m, counts)
+        torch.cuda.synchronize()
+        _launched("pool_gather_bf16", before)
+        assert dv.dtype == BF and torch.equal(dv, pk.scatter_plane2_bwd_plain(g, c, m, counts))
+
+    @pytest.mark.parametrize("reso,level_reso,f,fl", [
+        (64, 64, 8, 4), (64, 32, 16, 16), (32, 32, 8, 8), (256, 32, 512, 256),
+        (256, 32, 512, 1024), (64, 32, 64, 600), (256, 128, 128, 64)])
+    def test_level_matches_plain(self, cuda, reso, level_reso, f, fl):
+        """Fl 4 and 600 take the 2-byte copies of c_last; F 8 a warp's one
+        n8 tile."""
+        inp = level_inputs(reso, level_reso, f, fl, seed=27, empty_last=True)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        args = (_bf(plane, cuda), _bf(c_last, cuda), tuple(_bf(w, cuda) for w in weights),
+                t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda), level_reso, reso)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level(*args)
+        want = lk.fused_level_plain(*args)
+        ref = lk.fused_level_plain(args[0].float(), args[1].float(),
+                                   tuple(w.float() for w in args[2]), *args[3:])
+        torch.cuda.synchronize()
+        _launched("fused_level_bf16", before)
+        _launched("fused_level_scatter_bf16", before)
+        assert runtime.LAUNCHES["fused_level"] == before["fused_level"]
+        for i in (0, 1):
+            bf16_level_held(got[i], want[i], ref[i])
+        assert torch.equal(got[2], want[2]) and (got[1][-1] == 0).all()
+        assert all(torch.equal(a, b) for a, b in zip(lk.fused_level(*args), got))
+
+    @pytest.mark.parametrize("reso,level_reso,f,fl", [
+        (64, 64, 8, 4), (64, 32, 16, 16), (32, 32, 8, 8), (256, 32, 512, 256),
+        (256, 64, 256, 512), (256, 32, 512, 1024)])
+    def test_level_backward_matches_plain(self, cuda, reso, level_reso, f, fl):
+        inp = level_inputs(reso, level_reso, f, fl, seed=29, empty_last=True)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        g_p, g_c = level_cotangents(inp, seed=7)
+        fwd = (_bf(plane, cuda), _bf(c_last, cuda), tuple(_bf(w, cuda) for w in weights),
+               t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda))
+        counts = lk.fused_level(*fwd, level_reso, reso)[2]
+        args = fwd + (counts, _bf(g_p, cuda), _bf(g_c, cuda), level_reso, reso)
+        up = tuple(tuple(w.float() for w in a) if isinstance(a, tuple) else
+                   a.float() if torch.is_tensor(a) and a.dtype == BF else a for a in args)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level_bwd(*args)
+        want = lk.fused_level_bwd_plain(*args)
+        ref = lk.fused_level_bwd_plain(*up)
+        torch.cuda.synchronize()
+        _launched("fused_level_bwd_bf16", before)
+        _launched("level_d_plane_bf16", before)
+        _launched("level_bwd_reduce_bf16", before, 3)
+        flat = lambda x: [x[0], x[1], *x[2]]  # noqa: E731
+        for a, b, r in zip(flat(got), flat(want), flat(ref)):
+            bf16_level_held(a, b, r)
+        again = lk.fused_level_bwd(*args)
+        assert all(torch.equal(a, b) for a, b in zip(flat(again), flat(got)))
+
+    @pytest.mark.parametrize("level_reso,f", [(256, 32), (256, 64), (128, 128), (32, 512),
+                                              (32, 9)])
+    def test_d_plane_matches_plain(self, cuda, level_reso, f):
+        inp = level_inputs(256, level_reso, f, 4, seed=47, b=3, n=3000, empty_last=True)
+        pts, mask, cells = inp[:3]
+        rng = np.random.default_rng(f)
+        d_s = _bf(rng.normal(size=mask.shape + (f,)).astype(np.float32), cuda)
+        xy, c, m = t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_d_plane(d_s, xy, c, m, level_reso, 256)
+        want = lk.level_d_plane_plain(d_s, xy, c, m, level_reso, 256)
+        torch.cuda.synchronize()
+        _launched("level_d_plane_bf16", before)
+        assert got.dtype == BF and bf16_ulps(got, want) <= 1 and (got[-1] == 0).all()
+        assert torch.equal(lk.level_d_plane(d_s, xy, c, m, level_reso, 256), got)
+
+    @pytest.mark.parametrize("m,ka,nb,bias", [
+        (50001, 32, 32, True), (20011, 1024, 512, False), (4099, 512, 1024, True),
+        (777, 33, 65, True), (163843, 32, 1024, True)])
+    def test_reduce_matches_plain(self, cuda, m, ka, nb, bias):
+        """Ka 33 and Nb 65 take the 2-byte copies; each output within one
+        bf16 ulp of its scale (f32 sums in two orders, rounded once)."""
+        rng = np.random.default_rng(m + ka)
+        a = _bf(rng.normal(size=(m, ka)).astype(np.float32), cuda)
+        b = _bf(rng.normal(size=(m, nb)).astype(np.float32), cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_bwd_reduce(a, b, bias)
+        want = lk.level_bwd_reduce_plain(a, b, bias)
+        torch.cuda.synchronize()
+        _launched("level_bwd_reduce_bf16", before)
+        for x, y in zip(got, want):
+            if y is not None:
+                ulp = 2.0 ** (float(torch.floor(torch.log2(y.float().abs().max()))) - 7)
+                assert x.dtype == BF and float((x.float() - y.float()).abs().max()) <= ulp
+        again = lk.level_bwd_reduce(a, b, bias)
+        assert all(y is None or torch.equal(x, y) for x, y in zip(again, got))
+
+    def test_autograd_runs_the_bf16_kernels(self, cuda):
+        inp = level_inputs(64, 32, 16, 16, seed=4)
+        pts, mask, cells, _, plane, c_last, weights = inp
+        p = _bf(plane, cuda).requires_grad_()
+        w = tuple(_bf(x, cuda).requires_grad_() for x in weights)
+        v = _bf(np.random.default_rng(0).normal(size=mask.shape + (16,)), cuda)
+        v.requires_grad_()
+        c, m = t(cells, cuda), t(mask, cuda)
+        before = dict(runtime.LAUNCHES)
+        c_last = pk.pool2(v, c, m, 64, "max")
+        po, co, _ = lk.fused_level(p, c_last, w, t(pts[..., :2], cuda), c, m, 32, 64)
+        plane2, _ = pk.scatter_plane2(co, c, m, 64)
+        (po.float().sum() + plane2.float().sum()).backward()
+        torch.cuda.synchronize()
+        for name in ("pool2", "fused_level", "scatter_plane2", "pool2_bwd", "fused_level_bwd",
+                     "scatter_plane2_bwd"):
+            _launched(f"{name}_bf16", before)
+            assert runtime.LAUNCHES[name] == before[name]
+        assert all(x.grad.dtype == BF and torch.isfinite(x.grad.float()).all()
+                   for x in (p, v, *w))

@@ -245,6 +245,23 @@ def test_bf16_trains_and_tests_through_the_cli(trained):
 
 
 def test_bf16_on_the_sorted_layout_refused(trained):
+    """bf16 on ``sorted_impl=fused``, whose kernels (K9-K14) have no bf16
+    variants yet."""
     root, ov, out = trained
+    fused = [o.replace("=fused2", "=fused") for o in KERNEL_PATH]
     with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
-        cli_train.run(ov + KERNEL_PATH + ["model.dtype=bfloat16", "run_suffix=-bf16s"])
+        cli_train.run(ov + fused + ["model.dtype=bfloat16", "run_suffix=-bf16s"])
+
+
+def test_bf16_on_fused2_trains_and_tests_through_the_cli(trained):
+    """model.dtype=bfloat16 on the kernel path (fused2, K1-K7): cli.train
+    writes the f32 run's checkpoint arrays, cli.test serves it to finite
+    heights."""
+    root, ov, out = trained
+    bf = cli_train.run(ov + KERNEL_PATH + BF16[:4] + ["run_suffix=-bf16f2"])
+    assert bf["n_iter"] == 1 and np.isfinite(bf["windows"][0]["loss"])
+    tree = _tree_of(f"{run_dir(root, '-bf16f2')}/check_points/model_1.ckpt")
+    assert tree == _tree_of(f"{run_dir(root)}/check_points/model_1.ckpt")
+    res = cli_test.run(ov + KERNEL_PATH + ["model.dtype=bfloat16", "run_suffix=-bf16f2"])
+    dsm = RasterReader(res["dsm_path"]).get_data()
+    assert np.isfinite(dsm).any() and res["stats"]["overall"]["RMSE"] is not None

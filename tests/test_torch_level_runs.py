@@ -178,7 +178,7 @@ def test_k4_launches_the_run_scatter():
 
     src = inspect.getsource(lk._fused_level)
     assert "scatter_runs_masked(" in src and "level_shift(reso, finest)" in src
-    assert 'LAUNCHES["fused_level_scatter"]' in src and 'LAUNCHES["fused_level"]' in src
+    assert 'launched("fused_level_scatter"' in src and 'launched("fused_level"' in src
     body = open(os.path.join(CSRC, "level.cu")).read()
     assert "plane_out" not in body and "atomicAdd(" not in body
 
@@ -395,7 +395,7 @@ def test_d_plane_wrapper_and_source():
     import inspect
 
     src = inspect.getsource(lk.level_d_plane)
-    assert "t2h_level_d_plane" in src and 'LAUNCHES["level_d_plane"]' in src
+    assert 'entry("level_d_plane"' in src and 'launched("level_d_plane"' in src
     bwd = inspect.getsource(lk.fused_level_bwd)
     assert bwd.index("fused_level_bwd_rows(") < bwd.index("level_d_plane(") < bwd.index(
         "level_bwd_reduce(")

@@ -365,7 +365,7 @@ def test_k10_launches_the_run_kernel():
     assert "t2h_tile_pool" not in runtime._SIGNATURES
     assert not os.path.exists(os.path.join(os.path.dirname(SOURCE), "tile_pool.cu"))
     body = open(SOURCE).read()
-    body = body[body.index("pool_runs(const float*"):body.index("// K2 alone")]
+    body = body[body.index("pool_runs(const T*"):body.index("// K2 alone")]
     assert "TILED" in body and "in_tile(" in body
 
 
@@ -482,11 +482,11 @@ def test_gather_mutants_fail(mutant):
 def test_gather_source_matches_the_emulation():
     """K2 alone runs on the span partition: no atomic, no element loop with
     64-bit divides, the reuse decided on the previous valid row; its wrapper
-    launches ``t2h_pool_gather``."""
+    launches ``t2h_pool_gather`` (``t2h_pool_gather_bf16`` in bf16)."""
     import inspect
 
     src = open(SOURCE).read()
-    body = src[src.index("pool_gather(const float*"):src.index("// A row's cell at this")]
+    body = src[src.index("pool_gather(const T*"):src.index("// A row's cell at this")]
     assert "atomic" not in body and "long long t" not in body and "grid_for" not in body
     assert "__shfl_sync(kFull, dst, below" in body and "dprev != dst" in body
-    assert "t2h_pool_gather" in inspect.getsource(pk.scatter_plane2_bwd)
+    assert 'entry("pool_gather"' in inspect.getsource(pk.scatter_plane2_bwd)

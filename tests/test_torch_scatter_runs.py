@@ -477,7 +477,7 @@ def test_k13_launches_the_run_kernel():
     assert "t2h_tile_scatter_mean" not in inspect.getsource(sk)
     body = open(SOURCE).read()
     mark = body[body.index("void mark_cells("):body.index("void store_mean(")]
-    runs = body[body.index("scatter_runs(const float*"):body.index("}  // namespace t2h")]
+    runs = body[body.index("scatter_runs(const T*"):body.index("int launch_pool_runs(")]
     assert "MORTON ? c : morton_to_rowmajor(c, reso)" in mark
     assert "MORTON ? c : morton_to_rowmajor(c, reso)" in runs
     assert not os.path.exists(os.path.join(os.path.dirname(SOURCE), "tile_scatter.cu"))

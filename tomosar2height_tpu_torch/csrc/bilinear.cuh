@@ -6,7 +6,7 @@
 // the last pixel is clamped onto it, where its weight is exactly 0.
 #pragma once
 
-#include "common.cuh"
+#include "dtype.cuh"
 
 namespace t2h {
 
@@ -39,6 +39,34 @@ __device__ __forceinline__ float bilinear_at(const float* __restrict__ p, const 
   const float top = p[o] * (1.0f - c.wx) + p[o + ox] * c.wx;
   const float bot = p[o + oy] * (1.0f - c.wx) + p[o + oy + ox] * c.wx;
   return top * (1.0f - c.wy) + bot * c.wy;
+}
+
+// The four corner weights, (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1,
+// y0 + 1), each cut to bf16: the bf16 rule of K4 and K5
+// (level_kernel.py:234-245, level_bwd_kernel.py:214).
+__device__ __forceinline__ void cut_weights(const Corner& c, float (&w)[4]) {
+  const float ax = 1.0f - c.wx, ay = 1.0f - c.wy;
+  w[0] = round_as<bf16>(ax * ay);
+  w[1] = round_as<bf16>(c.wx * ay);
+  w[2] = round_as<bf16>(ax * c.wy);
+  w[3] = round_as<bf16>(c.wx * c.wy);
+}
+
+// The bf16 sample of channel ch: the cut weights times the bf16 corner
+// values (exact in f32), summed in f32 in the corner order above, rounded
+// to bf16 once (returned as its f32 value).
+__device__ __forceinline__ float bilinear_at(const bf16* __restrict__ p, const Corner& c,
+                                             int R, int F, int ch) {
+  const long long o = ((long long)c.y0 * R + c.x0) * F + ch;
+  const long long ox = (long long)c.dx * F;
+  const long long oy = (long long)c.dy * R * F;
+  float w[4];
+  cut_weights(c, w);
+  float s = w[0] * to_f32(p[o]);
+  s += w[1] * to_f32(p[o + ox]);
+  s += w[2] * to_f32(p[o + oy]);
+  s += w[3] * to_f32(p[o + oy + ox]);
+  return round_as<bf16>(s);
 }
 
 }  // namespace t2h

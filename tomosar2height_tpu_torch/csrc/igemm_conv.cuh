@@ -47,22 +47,18 @@
 
 #pragma once
 
-#include <type_traits>
-
-#include "common.cuh"
+#include "dtype.cuh"
 #include "mma_bf16.cuh"
 #include "mma_tf32x3.cuh"
 
 namespace t2h {
-
-using bf16 = __nv_bfloat16;
 
 constexpr int kCBK = 32;     // input channels per K step
 constexpr int kCStages = 3;  // K steps in flight
 
 template <typename T, int BM, int BN>
 struct ConvTile {
-  static constexpr bool kBf16 = std::is_same<T, bf16>::value;
+  static constexpr bool kBf16 = kIsBf16<T>;
   static constexpr int kWarpsN = BN / 32;
   static constexpr int kT = 32 * (BM / 32) * kWarpsN;  // threads
   // blocks an SM that ptxas must leave room for: 512 threads' worth, so at
@@ -108,17 +104,6 @@ struct DecoderHead {
 
 __device__ __forceinline__ float ldg_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ldg_f32(const bf16* p) { return __bfloat162float(__ldg(p)); }
-
-// v in T: itself, or rounded to the nearest bf16
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
 
 // Four consecutive staged fp32 values (16-byte aligned) -> dst in T.
 __device__ __forceinline__ void store4(float* dst, const float* src) {

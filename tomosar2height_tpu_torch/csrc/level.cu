@@ -33,6 +33,16 @@
 // eight levels (the 32^2 level with F=512 alone 1.2M), three TF32 products
 // each; the plane traffic is small beside it. 64 rows a block halve the
 // weight reads from L2 of a 32-row block (4.5 MB a block at F = 512).
+// bf16 (fused_level_fwd<bf16>, t2h_fused_level_bf16): bf16 plane, c_last and
+// weights, the same blocks, ring and warp layout, its tiles in bf16 and the
+// products one bf16 mma.sync pass into f32 (mma_bf16.cuh); the JAX kernel's
+// rounding points (level_kernel.py:234-258): the sample's four weights cut
+// to bf16, the sample summed in f32 and rounded (bilinear.cuh); h =
+// relu(bf16(bf16(s W_in) + b_in)); c_last W_c rounded to bf16 and parked in
+// c_out (each thread its own elements) while acc takes h W_out; then o =
+// bf16(h W_out) + b_out, + the parked value, + b_c, each add rounded. Its
+// plane: t2h_scatter_runs_bf16. Half the shared memory and operand bytes.
+//
 // Shared memory: 211 KiB at F = 512 (a 2-slot ring), 136 KiB at F = 256,
 // 104 KiB at F = 128 (one block an SM), 88 KiB at F = 64 (two blocks of 8
 // warps). Blocks whose 64 rows are all padding write zeros to
@@ -42,8 +52,7 @@
 // the shared memory at F = 512 beside the 64-row sample.
 
 #include "bilinear.cuh"
-#include "common.cuh"
-#include "mma_tf32x3.cuh"
+#include "mma_bf16.cuh"
 
 namespace t2h {
 
@@ -61,7 +70,10 @@ constexpr int kHC = 64;   // hidden columns per chunk
 //   spilled).
 // Warps are 2 row halves x kWQ column groups, of o and of the hidden chunk
 // alike.
-template <int FP>
+// T = bf16 keeps the layout with bf16 tiles: strides of 8 (mod 64) elements,
+// so that the eight 16-byte rows an ldmatrix phase reads fall in eight bank
+// groups.
+template <typename T, int FP>
 struct LevelCfg {
   static constexpr int kT = FP == 128 || FP == 512 ? 512 : 256;
   static constexpr int kWQ = kT / 64;
@@ -71,33 +83,56 @@ struct LevelCfg {
   static constexpr int kNT1 = kWH / 8;
   static constexpr int kKS1 = FP >= 64 ? 64 : 32;   // w_in tile rows (<= FP: As's width)
   static constexpr int kKS2 = FP >= 256 ? 16 : 32;  // w_out/w_c tile rows
-  static constexpr int kLdA = FP + 4;     // A buffer (c_last chunk, then the sample)
-  static constexpr int kLdH = kHC + 4;    // hidden chunk
+  static constexpr int kPadA = kIsBf16<T> ? 8 : 4;
+  static constexpr int kLdA = FP + kPadA;   // A buffer (c_last chunk, then the sample)
+  static constexpr int kLdH = kHC + kPadA;  // hidden chunk
   static constexpr int kLdW1 = kHC + 8;   // w_in tile
   static constexpr int kLdW2 = FP + 8;    // w_out / w_c tile
   static constexpr int kSlot = kKS1 * kLdW1 > kKS2 * kLdW2 ? kKS1 * kLdW1 : kKS2 * kLdW2;
   static constexpr int kStages = FP >= 512 ? 2 : 3;
   static constexpr int kMinBlocks = FP >= 128 ? 1 : 2;
   static constexpr size_t kSmem =
-      sizeof(float) * ((size_t)kBM * kLdA + (size_t)kBM * kLdH + (size_t)kStages * kSlot);
+      sizeof(T) * ((size_t)kBM * kLdA + (size_t)kBM * kLdH + (size_t)kStages * kSlot);
   static_assert(kKS1 <= FP && kKS2 <= FP && FP % kKS2 == 0 && kHC % kKS2 == 0,
                 "tiles must not reach past the A buffer or a K-chunk");
 };
 
-template <int FP>
-__global__ void __launch_bounds__(LevelCfg<FP>::kT, LevelCfg<FP>::kMinBlocks)
-fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,
+// A warp's o fragment (rows wm.., columns wq * kWN..) rounded to T ->
+// c_out, on the rows and columns that exist; with zero, acc is then cleared.
+template <typename C, typename T, int NT>
+__device__ __forceinline__ void stash_o(float (&acc)[2][NT][4], T* __restrict__ c_out,
+                                        long long row_b, int rows, int F, int wm, int wq, int g,
+                                        int q, bool zero) {
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wm + mt * 16 + g + (i >> 1) * 8;
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
+        if (r < rows && n < F) c_out[(row_b + r) * F + n] = from_f32<T>(acc[mt][nt][i]);
+        if (zero) acc[mt][nt][i] = 0.0f;
+      }
+    }
+}
+
+template <typename T, int FP>
+__global__ void __launch_bounds__(LevelCfg<T, FP>::kT, LevelCfg<T, FP>::kMinBlocks)
+fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
                 const float* __restrict__ xy, const uint8_t* __restrict__ mask,
-                const float* __restrict__ w_in, const float* __restrict__ b_in,
-                const float* __restrict__ w_out, const float* __restrict__ b_out,
-                const float* __restrict__ w_c, const float* __restrict__ b_c,
-                float* __restrict__ c_out, int N, int R, int F, int Fl, bool vec_w,
+                const T* __restrict__ w_in, const T* __restrict__ b_in,
+                const T* __restrict__ w_out, const T* __restrict__ b_out,
+                const T* __restrict__ w_c, const T* __restrict__ b_c,
+                T* __restrict__ c_out, int N, int R, int F, int Fl, bool vec_w,
                 bool vec_c) {
-  using C = LevelCfg<FP>;
+  using C = LevelCfg<T, FP>;
+  constexpr bool kBf = kIsBf16<T>;
+  constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [kBM][kLdA]: c_last chunk, then s
-  float* Hs = As + kBM * C::kLdA;               // [kBM][kLdH]: a hidden chunk
-  float* ring = Hs + kBM * C::kLdH;             // [kStages][kSlot]: weight tiles
+  T* As = reinterpret_cast<T*>(smem4);  // [kBM][kLdA]: c_last chunk, then s
+  T* Hs = As + kBM * C::kLdA;           // [kBM][kLdH]: a hidden chunk
+  T* ring = Hs + kBM * C::kLdH;         // [kStages][kSlot]: weight tiles
 
   __shared__ int s_valid[kBM];
   __shared__ Corner s_corner[kBM];
@@ -133,7 +168,7 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   const long long row_b = (long long)b * N + i0;
   const int rows = min(kBM, N - i0);
   if (!s_any) {  // all 64 rows are padding: c_out is exactly 0 there
-    for (int e = tid; e < rows * F; e += C::kT) c_out[row_b * F + e] = 0.0f;
+    for (int e = tid; e < rows * F; e += C::kT) c_out[row_b * F + e] = from_f32<T>(0.0f);
     return;
   }
 
@@ -143,10 +178,10 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   const int n1 = (F + C::kKS1 - 1) / C::kKS1;
   constexpr int n2 = kHC / C::kKS2;
   const int nH = (H + kHC - 1) / kHC;
-  const int T = nC + nH * (n1 + n2);
+  const int n_tiles = nC + nH * (n1 + n2);
   auto issue = [&](int t) {
-    if (t < T) {
-      float* slot = ring + (t % C::kStages) * C::kSlot;
+    if (t < n_tiles) {
+      T* slot = ring + (t % C::kStages) * C::kSlot;
       if (t < nC) {
         cp_tile<C::kKS2, FP, C::kT>(slot, C::kLdW2, w_c, F, (long long)t * C::kKS2, Fl, 0, F,
                                     vec_w, tid);
@@ -168,9 +203,10 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
 
   float acc[2][C::kNT][4] = {};  // o: rows wm.., columns wq * kWN..
   float hacc[2][C::kNT1][4];     // h chunk: rows wm.., columns wq * kWH..
+  const int g = lane >> 2, q = lane & 3;
 #pragma unroll
   for (int t = 0; t < C::kStages - 1; ++t) issue(t);
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < n_tiles; ++t) {
     int kind, off, c = 0, v = 0;  // kind 0: w_c, 1: w_in, 2: w_out
     if (t < nC) {
       kind = 0;
@@ -179,20 +215,20 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
       if (off == 0) {  // the next K-chunk of c_last -> As (zeros past Fl and N)
         __syncthreads();
         if (vec_c) {
-          for (int e = tid; e < kBM * FP / 4; e += C::kT) {
-            const int r = e / (FP / 4);
-            const int cc = (e - r * (FP / 4)) * 4;
-            float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int e = tid; e < kBM * FP / kV; e += C::kT) {
+            const int r = e / (FP / kV);
+            const int cc = (e - r * (FP / kV)) * kV;
+            uint4 x = make_uint4(0u, 0u, 0u, 0u);
             if (r < rows && k + cc < Fl)
-              x = *reinterpret_cast<const float4*>(clast + (row_b + r) * Fl + k + cc);
-            *reinterpret_cast<float4*>(As + r * C::kLdA + cc) = x;
+              x = *reinterpret_cast<const uint4*>(clast + (row_b + r) * Fl + k + cc);
+            *reinterpret_cast<uint4*>(As + r * C::kLdA + cc) = x;
           }
         } else {
           for (int e = tid; e < kBM * FP; e += C::kT) {
             const int r = e / FP;
             const int cc = e - r * FP;
             As[r * C::kLdA + cc] =
-                r < rows && k + cc < Fl ? clast[(row_b + r) * Fl + k + cc] : 0.0f;
+                r < rows && k + cc < Fl ? clast[(row_b + r) * Fl + k + cc] : from_f32<T>(0.0f);
           }
         }
       }
@@ -204,15 +240,21 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
         kind = 1;
         off = v * C::kKS1;
         if (v == 0) {
-          if (c == 0) {  // the bilinear sample -> As (zeros past F)
+          if (c == 0) {
+            if constexpr (kBf) {
+              // bf16: c_last W_c, rounded, waits in c_out (each thread its
+              // own elements, read back in the epilogue) while acc takes h W_out
+              stash_o<C>(acc, c_out, row_b, rows, F, wm, wq, g, q, true);
+            }
+            // the bilinear sample -> As (zeros past F)
             __syncthreads();
-            const float* pl = plane + (long long)b * RR * F;
+            const T* pl = plane + (long long)b * RR * F;
             for (int e = tid; e < kBM * FP; e += C::kT) {
               const int r = e / FP;
               const int cc = e - r * FP;
-              As[r * C::kLdA + cc] = cc < F && r < rows && s_valid[r]
-                                         ? bilinear_at(pl, s_corner[r], R, F, cc)
-                                         : 0.0f;
+              As[r * C::kLdA + cc] = from_f32<T>(cc < F && r < rows && s_valid[r]
+                                                     ? bilinear_at(pl, s_corner[r], R, F, cc)
+                                                     : 0.0f);
             }
           }
 #pragma unroll
@@ -230,15 +272,15 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
     cp_async_wait<C::kStages - 2>();
     __syncthreads();  // tile t landed for every thread; tile t - 1's slot is free
     issue(t + C::kStages - 1);
-    const float* W = ring + (t % C::kStages) * C::kSlot;
+    const T* W = ring + (t % C::kStages) * C::kSlot;
     if (kind == 0) {
-      warp_mma<C::kKS2, C::kNT>(acc, As + off, C::kLdA, W, C::kLdW2, wm, wq * C::kWN, lane);
+      warp_mma_t<C::kKS2, C::kNT>(acc, As + off, C::kLdA, W, C::kLdW2, wm, wq * C::kWN, lane);
     } else if (kind == 2) {
-      warp_mma<C::kKS2, C::kNT>(acc, Hs + off, C::kLdH, W, C::kLdW2, wm, wq * C::kWN, lane);
+      warp_mma_t<C::kKS2, C::kNT>(acc, Hs + off, C::kLdH, W, C::kLdW2, wm, wq * C::kWN, lane);
     } else {
-      warp_mma<C::kKS1, C::kNT1>(hacc, As + off, C::kLdA, W, C::kLdW1, wm, wq * C::kWH, lane);
+      warp_mma_t<C::kKS1, C::kNT1>(hacc, As + off, C::kLdA, W, C::kLdW1, wm, wq * C::kWH,
+                                   lane);
       if (v == n1 - 1) {  // h chunk c = relu(. + b_in) -> Hs (0 past 2F)
-        const int g = lane >> 2, q = lane & 3;
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -248,7 +290,10 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
               const int r = wm + mt * 16 + g + (i >> 1) * 8;
               const int col = wq * C::kWH + nt * 8 + 2 * q + (i & 1);
               const int n = c * kHC + col;
-              Hs[r * C::kLdH + col] = n < H ? fmaxf(hacc[mt][nt][i] + b_in[n], 0.0f) : 0.0f;
+              // bf16: the product rounded, then the bias add rounded
+              const float pre =
+                  n < H ? round_as<T>(round_as<T>(hacc[mt][nt][i]) + to_f32(b_in[n])) : 0.0f;
+              Hs[r * C::kLdH + col] = from_f32<T>(fmaxf(pre, 0.0f));
             }
       }
     }
@@ -256,7 +301,9 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
   cp_async_wait<0>();
 
   // --- o + b_out + b_c (0 on padding rows) -> c_out ----------------------------
-  const int g = lane >> 2, q = lane & 3;
+  // f32: acc holds c_last W_c + h W_out. bf16, in JAX's order: o = (h W_out)
+  // rounded, + b_out rounded; + (c_last W_c) from the stash, rounded; + b_c
+  // rounded.
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -264,34 +311,68 @@ fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast
       const int r = wm + mt * 16 + g + (i >> 1) * 8;
       if (r >= rows) continue;
       const bool valid = s_valid[r] != 0;
-      float* crow = c_out + (row_b + r) * F;
+      T* crow = c_out + (row_b + r) * F;
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
         const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
         if (n >= F) continue;
-        crow[n] = valid ? acc[mt][nt][i] + b_out[n] + b_c[n] : 0.0f;
+        float o;
+        if constexpr (kBf) {
+          o = round_as<T>(round_as<T>(acc[mt][nt][i]) + to_f32(b_out[n]));
+          o = round_as<T>(o + to_f32(crow[n]));
+          o = o + to_f32(b_c[n]);
+        } else {
+          o = acc[mt][nt][i] + b_out[n] + b_c[n];
+        }
+        crow[n] = from_f32<T>(valid ? o : 0.0f);
       }
     }
 }
 
-template <int FP>
-cudaError_t launch_level(const float* plane, const float* clast, const float* xy,
-                         const uint8_t* mask, const float* w_in, const float* b_in,
-                         const float* w_out, const float* b_out, const float* w_c,
-                         const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
-                         cudaStream_t stream) {
-  using C = LevelCfg<FP>;
+template <typename T, int FP>
+cudaError_t launch_level(const T* plane, const T* clast, const float* xy, const uint8_t* mask,
+                         const T* w_in, const T* b_in, const T* w_out, const T* b_out,
+                         const T* w_c, const T* b_c, T* c_out, int B, int N, int R, int F,
+                         int Fl, cudaStream_t stream) {
+  using C = LevelCfg<T, FP>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_level_fwd<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_level_fwd<T, FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
-  const bool vec_w = F % 4 == 0 && aligned16(w_in) && aligned16(w_out) && aligned16(w_c);
-  const bool vec_c = Fl % 4 == 0 && aligned16(clast);
+  constexpr int kV = 16 / sizeof(T);
+  const bool vec_w = F % kV == 0 && aligned16(w_in) && aligned16(w_out) && aligned16(w_c);
+  const bool vec_c = Fl % kV == 0 && aligned16(clast);
   const dim3 grid((N + kBM - 1) / kBM, B);
-  fused_level_fwd<FP><<<grid, C::kT, C::kSmem, stream>>>(
+  fused_level_fwd<T, FP><<<grid, C::kT, C::kSmem, stream>>>(
       plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, N, R, F, Fl, vec_w,
       vec_c);
   return cudaGetLastError();
+}
+
+template <typename T>
+int fused_level(const T* plane, const T* clast, const float* xy, const uint8_t* mask,
+                const T* w_in, const T* b_in, const T* w_out, const T* b_out, const T* w_c,
+                const T* b_c, T* c_out, int B, int N, int R, int F, int Fl,
+                cudaStream_t stream) {
+  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
+  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
+  cudaError_t err;
+#define T2H_LEVEL(FP)                                                                     \
+  case FP:                                                                                \
+    err = launch_level<T, FP>(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, \
+                              c_out, B, N, R, F, Fl, stream);                             \
+    break;
+  switch (fp) {
+    T2H_LEVEL(32)
+    T2H_LEVEL(64)
+    T2H_LEVEL(128)
+    T2H_LEVEL(256)
+    default:
+    T2H_LEVEL(512)
+  }
+#undef T2H_LEVEL
+  return static_cast<int>(err);
 }
 
 }  // namespace t2h
@@ -309,25 +390,20 @@ int t2h_fused_level(const float* plane, const float* clast, const float* xy,
                     const float* w_out, const float* b_out, const float* w_c,
                     const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
                     cudaStream_t stream) {
-  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
-  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
-  cudaError_t err;
-#define T2H_LEVEL(FP)                                                                     \
-  case FP:                                                                                \
-    err = launch_level<FP>(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c,    \
-                           c_out, B, N, R, F, Fl, stream);                                \
-    break;
-  switch (fp) {
-    T2H_LEVEL(32)
-    T2H_LEVEL(64)
-    T2H_LEVEL(128)
-    T2H_LEVEL(256)
-    default:
-    T2H_LEVEL(512)
-  }
-#undef T2H_LEVEL
-  return static_cast<int>(err);
+  return fused_level(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, B, N,
+                     R, F, Fl, stream);
+}
+
+// The same on bf16 plane, c_last, weights and c_out (xy f32): K4's bf16 rule
+// (level_kernel.py:234-258): the sample's weights cut to bf16, each product
+// rounded, then each bias add; its plane is t2h_scatter_runs_bf16.
+int t2h_fused_level_bf16(const bf16* plane, const bf16* clast, const float* xy,
+                         const uint8_t* mask, const bf16* w_in, const bf16* b_in,
+                         const bf16* w_out, const bf16* b_out, const bf16* w_c,
+                         const bf16* b_c, bf16* c_out, int B, int N, int R, int F, int Fl,
+                         cudaStream_t stream) {
+  return fused_level(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, B, N,
+                     R, F, Fl, stream);
 }
 
 }  // extern "C"

@@ -37,7 +37,7 @@
 //         shared memory, so 64 rows fit at F = 512 (219 KB).
 //    The rows' s, h, d_o, d_h and d_s go to scratch (M x 7F floats, M = B*N
 //    rows): s, h, d_o and d_h for phase 2, d_s for phase 3.
-// 2. t2h_level_bwd_reduce (atb_tf32x3 + sum_splits), three calls: each
+// 2. t2h_level_bwd_reduce (atb_mma + sum_splits), three calls: each
 //    weight gradient is A^T B over all M rows, split-K on the tensor cores
 //    at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh): a block owns one
 //    128 x 128 output tile (64 where Ka or Nb is 64 or less) and one
@@ -71,6 +71,18 @@
 // hidden chunk (pre, d_o W_out^T) give each warp one or two n-tiles a k8
 // step, so the operand splits outweigh the MMAs there; F-wide chunks with
 // d_h read back from scratch spilled at F = 512 and ran slower at F = 256.
+// bf16 (each phase templated on the element type, t2h_*_bf16): bf16 inputs,
+// scratch rows and outputs, f32 accumulators, the JAX kernel's rounding
+// points (level_bwd_kernel.py:206-256): phase 1 recomputes s and pre as K4's
+// bf16 instance, the relu gate from the rounded pre, d_o = bf16(g_c +
+// bf16(g_plane / count)), d_h, d_s and d_c_last each rounded once from
+// their f32 products, on one bf16 mma.sync pass (mma_bf16.cuh); phase 2
+// takes its bf16 rows through one bf16 pass (A's fragments by
+// ldmatrix.trans) into f32 and rounds dw and db once; phase 3 cuts each
+// corner weight to bf16 as the forward does and rounds each pixel's f32
+// sum once (JAX rounds each tile's halo window, then folds the windows in
+// bf16: a deliberate difference, tests/test_torch_bf16_sorted.py).
+//
 // Phase 3 is bound by bytes (d_s on the valid rows, d_plane written once);
 // each d_s row is read by its four pixels' warps, mostly from L2, and a
 // warp's walk is a chain of dependent loads (offsets, corners, d_s), which
@@ -79,8 +91,7 @@
 #include <algorithm>
 
 #include "bilinear.cuh"
-#include "common.cuh"
-#include "mma_tf32x3.cuh"
+#include "mma_bf16.cuh"
 
 namespace t2h {
 
@@ -96,7 +107,8 @@ constexpr int kRHC = 64;  // hidden columns per chunk
 // halves x kWQ column groups, of d_c_last / d_s and of the hidden chunk
 // alike. Each thread keeps kGate gate bits per hidden chunk (its elements
 // of the chunk), packed in kGateWords words of shared memory.
-template <int FP>
+// T = bf16: bf16 tiles, strides of 8 (mod 64) elements (level.cu LevelCfg).
+template <typename T, int FP>
 struct RowCfg {
   static constexpr int kT = FP == 128 || FP == 512 ? 512 : 256;
   static constexpr int kWQ = kT / 64;
@@ -106,8 +118,9 @@ struct RowCfg {
   static constexpr int kNT1 = kWH / 8;
   static constexpr int kKS1 = FP >= 64 ? 64 : 32;   // w_in / w_out^T tile rows
   static constexpr int kKS2 = FP >= 256 ? 16 : 32;  // w_c^T / w_in^T tile rows
-  static constexpr int kLdA = FP + 4;     // A buffer: s, then d_o
-  static constexpr int kLdH = kRHC + 4;   // d_h chunk
+  static constexpr int kPadA = kIsBf16<T> ? 8 : 4;
+  static constexpr int kLdA = FP + kPadA;    // A buffer: s, then d_o
+  static constexpr int kLdH = kRHC + kPadA;  // d_h chunk
   static constexpr int kLdW1 = kRHC + 8;  // w_in / w_out^T tile
   static constexpr int kLdW2 = FP + 8;    // w_c^T / w_in^T tile
   static constexpr int kSlot = kKS1 * kLdW1 > kKS2 * kLdW2 ? kKS1 * kLdW1 : kKS2 * kLdW2;
@@ -116,31 +129,32 @@ struct RowCfg {
   static constexpr int kGate = 2 * kNT1 * 4;
   static constexpr int kGateWords = (2 * FP / kRHC * kGate + 31) / 32;
   static constexpr size_t kSmem =
-      sizeof(float) * ((size_t)kRB * kLdA + (size_t)kRB * kLdH + (size_t)kStages * kSlot) +
+      sizeof(T) * ((size_t)kRB * kLdA + (size_t)kRB * kLdH + (size_t)kStages * kSlot) +
       sizeof(uint32_t) * (size_t)kGateWords * kT;
   static_assert(kKS1 <= FP && FP % kKS1 == 0 && kKS2 <= FP && FP % kKS2 == 0 &&
                     kRHC % kKS2 == 0 && 32 % kGate == 0,
                 "tiles must not reach past the A buffer or a chunk");
 };
 
-template <int FP>
-__global__ void __launch_bounds__(RowCfg<FP>::kT, RowCfg<FP>::kMinBlocks)
-fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ xy,
+template <typename T, int FP>
+__global__ void __launch_bounds__(RowCfg<T, FP>::kT, RowCfg<T, FP>::kMinBlocks)
+fused_level_bwd_rows(const T* __restrict__ plane, const float* __restrict__ xy,
                      const int* __restrict__ cells, const uint8_t* __restrict__ mask,
-                     const int* __restrict__ counts, const float* __restrict__ g_plane,
-                     const float* __restrict__ g_c, const float* __restrict__ w_in,
-                     const float* __restrict__ b_in, const float* __restrict__ w_out_t,
-                     const float* __restrict__ w_c_t, const float* __restrict__ w_in_t,
-                     float* __restrict__ d_clast, float* __restrict__ s_buf,
-                     float* __restrict__ h_buf, float* __restrict__ do_buf,
-                     float* __restrict__ dh_buf, float* __restrict__ ds_buf, int N, int R,
-                     int F, int Fl, int shift, bool vec_h, bool vec_f, bool vec_l) {
-  using C = RowCfg<FP>;
+                     const int* __restrict__ counts, const T* __restrict__ g_plane,
+                     const T* __restrict__ g_c, const T* __restrict__ w_in,
+                     const T* __restrict__ b_in, const T* __restrict__ w_out_t,
+                     const T* __restrict__ w_c_t, const T* __restrict__ w_in_t,
+                     T* __restrict__ d_clast, T* __restrict__ s_buf, T* __restrict__ h_buf,
+                     T* __restrict__ do_buf, T* __restrict__ dh_buf, T* __restrict__ ds_buf,
+                     int N, int R, int F, int Fl, int shift, bool vec_h, bool vec_f,
+                     bool vec_l) {
+  using C = RowCfg<T, FP>;
   extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);  // [kRB][kLdA]: s, then d_o
-  float* Hs = As + kRB * C::kLdA;               // [kRB][kLdH]: a d_h chunk
-  float* ring = Hs + kRB * C::kLdH;             // [kStages][kSlot]: weight tiles
+  T* As = reinterpret_cast<T*>(smem4);  // [kRB][kLdA]: s, then d_o
+  T* Hs = As + kRB * C::kLdA;           // [kRB][kLdH]: a d_h chunk
+  T* ring = Hs + kRB * C::kLdH;         // [kStages][kSlot]: weight tiles
   uint32_t* gate = reinterpret_cast<uint32_t*>(ring + C::kStages * C::kSlot);  // [words][kT]
+  const T zero = from_f32<T>(0.0f);
 
   __shared__ int s_valid[kRB];
   __shared__ int s_cell[kRB];  // row-major cell at this level, -1 if none
@@ -191,25 +205,25 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   const int rows = min(kRB, N - i0);
   if (!s_any) {  // all rows are padding: every output and scratch row is 0
     for (int e = tid; e < rows * H; e += C::kT) {
-      h_buf[rowb * H + e] = 0.0f;
-      dh_buf[rowb * H + e] = 0.0f;
+      h_buf[rowb * H + e] = zero;
+      dh_buf[rowb * H + e] = zero;
     }
     for (int e = tid; e < rows * F; e += C::kT) {
-      s_buf[rowb * F + e] = 0.0f;
-      do_buf[rowb * F + e] = 0.0f;
-      ds_buf[rowb * F + e] = 0.0f;
+      s_buf[rowb * F + e] = zero;
+      do_buf[rowb * F + e] = zero;
+      ds_buf[rowb * F + e] = zero;
     }
-    for (int e = tid; e < rows * Fl; e += C::kT) d_clast[rowb * Fl + e] = 0.0f;
+    for (int e = tid; e < rows * Fl; e += C::kT) d_clast[rowb * Fl + e] = zero;
     return;
   }
 
   // --- the bilinear sample -> As (zeros past F and on padding), scratch s ------
-  const float* pl = plane + (long long)b * RR * F;
+  const T* pl = plane + (long long)b * RR * F;
   for (int e = tid; e < kRB * FP; e += C::kT) {
     const int r = e / FP;
     const int c = e - r * FP;
-    const float v = c < F && r < rows && s_valid[r] ? bilinear_at(pl, s_corner[r], R, F, c)
-                                                    : 0.0f;
+    const T v = from_f32<T>(
+        c < F && r < rows && s_valid[r] ? bilinear_at(pl, s_corner[r], R, F, c) : 0.0f);
     As[r * C::kLdA + c] = v;
     if (c < F && r < rows) s_buf[(rowb + r) * F + c] = v;
   }
@@ -224,7 +238,7 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   const int nJ = (Fl + FP - 1) / FP;
   const int TA = nH * n1;
   const int TB = TA + nJ * nK;
-  const int T = TB + nH * (n1 + n2);
+  const int n_tiles = TB + nH * (n1 + n2);
   // kind 0: w_in (a), 1: w_c^T (b), 2: w_out^T (c), 3: w_in^T (c); c: the
   // hidden (or column) chunk, v: the tile within it
   auto decode = [&](int t, int& kind, int& c, int& v) {
@@ -245,8 +259,8 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
     }
   };
   auto issue = [&](int t) {
-    if (t < T) {
-      float* slot = ring + (t % C::kStages) * C::kSlot;
+    if (t < n_tiles) {
+      T* slot = ring + (t % C::kStages) * C::kSlot;
       int kind, c, v;
       decode(t, kind, c, v);
       if (kind == 0 || kind == 2) {
@@ -267,22 +281,24 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
   float hacc[2][C::kNT1][4];  // pre or d_o W_out^T chunk: rows wm.., columns wq * kWH..
 #pragma unroll
   for (int t = 0; t < C::kStages - 1; ++t) issue(t);
-  for (int t = 0; t < T; ++t) {
+  for (int t = 0; t < n_tiles; ++t) {
     int kind, c, v;
     decode(t, kind, c, v);
     if (t == TA) {  // d_o = (g_c + g_plane[cell] / count) * valid -> As, scratch d_o
+      // (bf16: the quotient rounded, then the sum: level_bwd_kernel.py:228-243)
       __syncthreads();  // every warp is done with the sample
-      const float* gp = g_plane + (long long)b * RR * F;
+      const T* gp = g_plane + (long long)b * RR * F;
       for (int e = tid; e < kRB * FP; e += C::kT) {
         const int r = e / FP;
         const int cc = e - r * FP;
         float x = 0.0f;
         if (cc < F && r < rows && s_valid[r]) {
-          x = g_c[(rowb + r) * F + cc];
-          if (s_cell[r] >= 0) x += gp[(long long)s_cell[r] * F + cc] / s_cnt[r];
+          x = to_f32(g_c[(rowb + r) * F + cc]);
+          if (s_cell[r] >= 0)
+            x += round_as<T>(to_f32(gp[(long long)s_cell[r] * F + cc]) / s_cnt[r]);
         }
-        As[r * C::kLdA + cc] = x;
-        if (cc < F && r < rows) do_buf[(rowb + r) * F + cc] = x;
+        As[r * C::kLdA + cc] = from_f32<T>(x);
+        if (cc < F && r < rows) do_buf[(rowb + r) * F + cc] = from_f32<T>(x);
       }
     }
     if (v == 0 && kind != 3) {
@@ -306,10 +322,15 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
     cp_async_wait<C::kStages - 2>();
     __syncthreads();  // tile t landed for every thread; tile t - 1's slot is free
     issue(t + C::kStages - 1);
-    const float* W = ring + (t % C::kStages) * C::kSlot;
+    const T* W = ring + (t % C::kStages) * C::kSlot;
     if (kind == 1) {
-      warp_mma<C::kKS2, C::kNT, true>(acc, As + v * C::kKS2, C::kLdA, W, C::kLdW2, wm,
-                                      wq * C::kWN, lane, Fl - c * FP);
+      if constexpr (kIsBf16<T>) {  // no clip: the tile's columns past Fl are zeros
+        warp_mma_bf16<C::kKS2, C::kNT>(acc, As + v * C::kKS2, C::kLdA, W, C::kLdW2, wm,
+                                       wq * C::kWN, lane);
+      } else {
+        warp_mma<C::kKS2, C::kNT, true>(acc, As + v * C::kKS2, C::kLdA, W, C::kLdW2, wm,
+                                        wq * C::kWN, lane, Fl - c * FP);
+      }
       if (v == nK - 1) {  // d_c_last's column chunk c -> global
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
@@ -317,20 +338,20 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
           for (int i = 0; i < 4; ++i) {
             const int r = wm + mt * 16 + g + (i >> 1) * 8;
             if (r >= rows) continue;
-            float* crow = d_clast + (rowb + r) * Fl;
+            T* crow = d_clast + (rowb + r) * Fl;
 #pragma unroll
             for (int nt = 0; nt < C::kNT; ++nt) {
               const int n = c * FP + wq * C::kWN + nt * 8 + 2 * q + (i & 1);
-              if (n < Fl) crow[n] = acc[mt][nt][i];
+              if (n < Fl) crow[n] = from_f32<T>(acc[mt][nt][i]);
             }
           }
       }
     } else if (kind == 3) {
-      warp_mma<C::kKS2, C::kNT>(acc, Hs + v * C::kKS2, C::kLdH, W, C::kLdW2, wm,
-                                wq * C::kWN, lane);
+      warp_mma_t<C::kKS2, C::kNT>(acc, Hs + v * C::kKS2, C::kLdH, W, C::kLdW2, wm,
+                                  wq * C::kWN, lane);
     } else {
-      warp_mma<C::kKS1, C::kNT1>(hacc, As + v * C::kKS1, C::kLdA, W, C::kLdW1, wm,
-                                 wq * C::kWH, lane);
+      warp_mma_t<C::kKS1, C::kNT1>(hacc, As + v * C::kKS1, C::kLdA, W, C::kLdW1, wm,
+                                   wq * C::kWH, lane);
       if (v == n1 - 1) {
         // (a) h = relu(pre + b_in) -> scratch, gates -> bits; (c) d_h =
         // (d_o W_out^T) * gate -> scratch and Hs (0 past 2F)
@@ -348,11 +369,13 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
               const int col = wq * C::kWH + nt * 8 + 2 * q + (i & 1);
               const int n = c * kRHC + col;
               if (kind == 0) {
-                const float pre = n < H ? hacc[mt][nt][i] + b_in[n] : 0.0f;
+                // bf16: the product rounded, then the bias add (K4's pre)
+                const float pre =
+                    n < H ? round_as<T>(round_as<T>(hacc[mt][nt][i]) + to_f32(b_in[n])) : 0.0f;
                 if (pre > 0.0f) bits |= 1u << e;
-                if (r < rows && n < H) h_buf[(rowb + r) * H + n] = fmaxf(pre, 0.0f);
+                if (r < rows && n < H) h_buf[(rowb + r) * H + n] = from_f32<T>(fmaxf(pre, 0.0f));
               } else {
-                const float d = (bits >> e) & 1u ? hacc[mt][nt][i] : 0.0f;
+                const T d = from_f32<T>((bits >> e) & 1u ? hacc[mt][nt][i] : 0.0f);
                 Hs[r * C::kLdH + col] = d;
                 if (r < rows && n < H) dh_buf[(rowb + r) * H + n] = d;
               }
@@ -370,33 +393,32 @@ fused_level_bwd_rows(const float* __restrict__ plane, const float* __restrict__ 
     for (int i = 0; i < 4; ++i) {
       const int r = wm + mt * 16 + g + (i >> 1) * 8;
       if (r >= rows) continue;
-      float* drow = ds_buf + (rowb + r) * F;
+      T* drow = ds_buf + (rowb + r) * F;
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
         const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
-        if (n < F) drow[n] = acc[mt][nt][i];
+        if (n < F) drow[n] = from_f32<T>(acc[mt][nt][i]);
       }
     }
 }
 
-template <int FP>
-cudaError_t launch_rows(const float* plane, const float* xy, const int* cells,
-                        const uint8_t* mask, const int* counts, const float* g_plane,
-                        const float* g_c, const float* w_in, const float* b_in,
-                        const float* w_out_t, const float* w_c_t, const float* w_in_t,
-                        float* d_clast, float* s_buf, float* h_buf, float* do_buf,
-                        float* dh_buf, float* ds_buf, int B, int N, int R, int F, int Fl,
-                        int shift, cudaStream_t stream) {
-  using C = RowCfg<FP>;
-  cudaError_t err = cudaFuncSetAttribute(fused_level_bwd_rows<FP>,
+template <typename T, int FP>
+cudaError_t launch_rows(const T* plane, const float* xy, const int* cells, const uint8_t* mask,
+                        const int* counts, const T* g_plane, const T* g_c, const T* w_in,
+                        const T* b_in, const T* w_out_t, const T* w_c_t, const T* w_in_t,
+                        T* d_clast, T* s_buf, T* h_buf, T* do_buf, T* dh_buf, T* ds_buf, int B,
+                        int N, int R, int F, int Fl, int shift, cudaStream_t stream) {
+  using C = RowCfg<T, FP>;
+  cudaError_t err = cudaFuncSetAttribute(fused_level_bwd_rows<T, FP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
-  const bool vec_h = F % 2 == 0 && aligned16(w_in) && aligned16(w_out_t);
-  const bool vec_f = F % 4 == 0 && aligned16(w_in_t);
-  const bool vec_l = Fl % 4 == 0 && aligned16(w_c_t);
+  constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
+  const bool vec_h = (2 * F) % kV == 0 && aligned16(w_in) && aligned16(w_out_t);
+  const bool vec_f = F % kV == 0 && aligned16(w_in_t);
+  const bool vec_l = Fl % kV == 0 && aligned16(w_c_t);
   const dim3 grid((N + kRB - 1) / kRB, B);
-  fused_level_bwd_rows<FP><<<grid, C::kT, C::kSmem, stream>>>(
+  fused_level_bwd_rows<T, FP><<<grid, C::kT, C::kSmem, stream>>>(
       plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t, w_c_t, w_in_t,
       d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, N, R, F, Fl, shift, vec_h, vec_f, vec_l);
   return cudaGetLastError();
@@ -414,7 +436,7 @@ cudaError_t launch_rows(const float* plane, const float* xy, const int* cells,
 // and Bm's rows row-major, both padded to a stride of 8 (mod 32) floats.
 constexpr int kRThreads = 256;  // threads of a reduction block
 
-template <int BK, int BN>
+template <typename E, int BK, int BN>
 struct ReduceTile {
   static constexpr int kWarpsK = BK >= 128 ? 4 : 2;
   static constexpr int kWarpsN = kRThreads / 32 / kWarpsK;
@@ -425,17 +447,22 @@ struct ReduceTile {
   static constexpr int kLdA = BK + 8;
   static constexpr int kLdB = BN + 8;
   static constexpr int kStage = kRM * (kLdA + kLdB);
-  static constexpr size_t kSmem = sizeof(float) * kRStages * kStage;
+  static constexpr size_t kSmem = sizeof(E) * kRStages * kStage;
 };
 
-template <int BK, int BN>
+// E = bf16: one bf16 pass a k16 step (mma_bf16.cuh), A's fragments by
+// ldmatrix.trans from its column-major stage, B's as warp_mma_bf16 takes
+// them; bf16 rows of BK + 8 and BN + 8 elements put an ldmatrix phase's
+// eight 16-byte rows in eight bank groups. The step's two k16 products
+// chain into tmp as the 3xTF32 steps do.
+template <typename E, int BK, int BN>
 __global__ void __launch_bounds__(kRThreads, 1)
-atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long M, int Ka,
-           int Nb, long long rows_per_split, int Kout, bool vec_a, bool vec_b,
+atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, int Nb,
+           long long rows_per_split, int Kout, bool vec_a, bool vec_b,
            float* __restrict__ part) {
-  using T = ReduceTile<BK, BN>;
+  using T = ReduceTile<E, BK, BN>;
   extern __shared__ float4 smem4[];
-  float* sm = reinterpret_cast<float*>(smem4);
+  E* sm = reinterpret_cast<E*>(smem4);
   __shared__ float s_bias[kRThreads];
   const int n0 = blockIdx.x * BN;
   const int k0 = blockIdx.y * BK;
@@ -454,7 +481,7 @@ atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long 
 
   auto issue = [&](int s) {
     if (s < steps) {
-      float* st = sm + (s % kRStages) * T::kStage;
+      E* st = sm + (s % kRStages) * T::kStage;
       const long long m0 = m_begin + (long long)s * kRM;
       cp_tile<kRM, BK, kRThreads>(st, T::kLdA, A, Ka, m0, m_end, k0, Ka, vec_a, tid);
       cp_tile<kRM, BN, kRThreads>(st + kRM * T::kLdA, T::kLdB, Bm, Nb, m0, m_end, n0, Nb,
@@ -471,23 +498,44 @@ atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long 
     cp_async_wait<kRStages - 2>();
     __syncthreads();  // step s landed for every thread; step s - 1's slot is free
     issue(s + kRStages - 1);
-    const float* As = sm + (s % kRStages) * T::kStage;
-    const float* Bs = As + kRM * T::kLdA;
-    // the step's four k8 steps chain in the tensor cores into tmp, which
+    const E* As = sm + (s % kRStages) * T::kStage;
+    const E* Bs = As + kRM * T::kLdA;
+    // the step's k8 (k16) steps chain in the tensor cores into tmp, which
     // joins acc by a rounded add (mma_tf32x3.cuh)
     float tmp[T::kMT][T::kNT][4] = {};
+    if constexpr (kIsBf16<E>) {
 #pragma unroll
-    for (int kk = 0; kk < kRM; kk += 8) {
-      FragA a[T::kMT];
+      for (int kk = 0; kk < kRM; kk += 16) {
+        uint32_t a[T::kMT][4];
 #pragma unroll
-      for (int mt = 0; mt < T::kMT; ++mt)
-        load_a_col(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
+        for (int mt = 0; mt < T::kMT; ++mt)
+          load_a_col_bf16(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
 #pragma unroll
-      for (int nt = 0; nt < T::kNT; ++nt) {
-        FragB bf;
-        load_b(bf, Bs + kk * T::kLdB + wn + nt * 8, T::kLdB, lane);
+        for (int np = 0; np < T::kNT / 2; ++np) {
+          uint32_t b[4];
+          ldmatrix_x4_trans(b, Bs + (kk + (lane & 15)) * T::kLdB + wn + 16 * np +
+                                   (lane >> 4) * 8);
 #pragma unroll
-        for (int mt = 0; mt < T::kMT; ++mt) mma3(tmp[mt][nt], a[mt], bf);
+          for (int mt = 0; mt < T::kMT; ++mt) {
+            mma_bf16(tmp[mt][2 * np], a[mt], b[0], b[1]);
+            mma_bf16(tmp[mt][2 * np + 1], a[mt], b[2], b[3]);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < kRM; kk += 8) {
+        FragA a[T::kMT];
+#pragma unroll
+        for (int mt = 0; mt < T::kMT; ++mt)
+          load_a_col(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
+#pragma unroll
+        for (int nt = 0; nt < T::kNT; ++nt) {
+          FragB bf;
+          load_b(bf, Bs + kk * T::kLdB + wn + nt * 8, T::kLdB, lane);
+#pragma unroll
+          for (int mt = 0; mt < T::kMT; ++mt) mma3(tmp[mt][nt], a[mt], bf);
+        }
       }
     }
 #pragma unroll
@@ -496,7 +544,7 @@ atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long 
       for (int nt = 0; nt < T::kNT; ++nt) add4(acc[mt][nt], tmp[mt][nt]);
     if (bias) {
 #pragma unroll
-      for (int r = 0; r < kBRows; ++r) bsum += Bs[(brow + r) * T::kLdB + bcol];
+      for (int r = 0; r < kBRows; ++r) bsum += to_f32(Bs[(brow + r) * T::kLdB + bcol]);
     }
   }
   cp_async_wait<0>();
@@ -524,26 +572,29 @@ atb_tf32x3(const float* __restrict__ A, const float* __restrict__ Bm, long long 
   }
 }
 
-template <int BK, int BN>
-cudaError_t launch_atb(const float* A, const float* Bm, int M, int Ka, int Nb, int Kout,
-                       int splits, float* part, cudaStream_t stream) {
-  using T = ReduceTile<BK, BN>;
+template <typename E, int BK, int BN>
+cudaError_t launch_atb(const E* A, const E* Bm, int M, int Ka, int Nb, int Kout, int splits,
+                       float* part, cudaStream_t stream) {
+  using T = ReduceTile<E, BK, BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      atb_tf32x3<BK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      atb_mma<E, BK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return err;
   const long long rps = ((long long)M + splits - 1) / splits;
   const dim3 grid((Nb + BN - 1) / BN, (Ka + BK - 1) / BK, splits);
-  const bool vec_a = Ka % 4 == 0 && aligned16(A);
-  const bool vec_b = Nb % 4 == 0 && aligned16(Bm);
-  atb_tf32x3<BK, BN><<<grid, kRThreads, T::kSmem, stream>>>(A, Bm, M, Ka, Nb, rps, Kout,
-                                                            vec_a, vec_b, part);
+  constexpr int kV = 16 / sizeof(E);  // elements of a 16-byte copy
+  const bool vec_a = Ka % kV == 0 && aligned16(A);
+  const bool vec_b = Nb % kV == 0 && aligned16(Bm);
+  atb_mma<E, BK, BN><<<grid, kRThreads, T::kSmem, stream>>>(A, Bm, M, Ka, Nb, rps, Kout,
+                                                               vec_a, vec_b, part);
   return cudaGetLastError();
 }
 
-// Sum the splits in order: rows k < Ka -> dw (Ka x Nb), row Ka -> db (Nb).
+// Sum the splits in order: rows k < Ka -> dw (Ka x Nb), row Ka -> db (Nb),
+// each rounded to E once.
+template <typename E>
 __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, int Kout,
-                           int Nb, float* __restrict__ dw, float* __restrict__ db) {
+                           int Nb, E* __restrict__ dw, E* __restrict__ db) {
   const long long n_out = (long long)Kout * Nb;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n_out;
        t += (long long)gridDim.x * blockDim.x) {
@@ -551,9 +602,9 @@ __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, i
     for (int sp = 0; sp < splits; ++sp) s += part[sp * n_out + t];
     const int k = static_cast<int>(t / Nb);
     if (k < Ka) {
-      dw[t] = s;
+      dw[t] = from_f32<E>(s);
     } else {
-      db[t - (long long)Ka * Nb] = s;
+      db[t - (long long)Ka * Nb] = from_f32<E>(s);
     }
   }
 }
@@ -603,32 +654,22 @@ __device__ __forceinline__ void cell_span(int p, int R, int fr, int& lo, int& hi
 // The weight with which a row's sample reads pixel (px, py): the sum of its
 // corners' weights there, in grid_sample_2d_adjoint's corner order (two
 // corners meet only on the last pixel, where the +1 one weighs 0).
+// T = bf16: each corner's weight cut to bf16 (K4's bf16 sample,
+// bilinear.cuh cut_weights).
+template <typename T>
 __device__ __forceinline__ float corner_weight(const Corner& c, int px, int py) {
   const int x1 = c.x0 + c.dx, y1 = c.y0 + c.dy;
   const float ax = 1.0f - c.wx, ay = 1.0f - c.wy;
   float w = 0.0f;
   if (c.y0 == py) {
-    if (c.x0 == px) w += ax * ay;
-    if (x1 == px) w += c.wx * ay;
+    if (c.x0 == px) w += round_as<T>(ax * ay);
+    if (x1 == px) w += round_as<T>(c.wx * ay);
   }
   if (y1 == py) {
-    if (c.x0 == px) w += ax * c.wy;
-    if (x1 == px) w += c.wx * c.wy;
+    if (c.x0 == px) w += round_as<T>(ax * c.wy);
+    if (x1 == px) w += round_as<T>(c.wx * c.wy);
   }
   return w;
-}
-
-template <int VEC>
-__device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x, r[1] = t.y;
-  } else {
-    r[0] = *p;
-  }
 }
 
 // A warp a (pixel, chunk of 32 * VEC features), chunk fastest, lanes on
@@ -638,12 +679,14 @@ __device__ __forceinline__ void load_row(const float* __restrict__ p, float (&r)
 // list is read 32 rows a step, lane l taking row l: its mask, xy and corner
 // weight at the pixel. The rows of nonzero weight are added in list order,
 // their d_s loaded kLoads at a time, so the sum, and the pixel's one store,
-// are the same in every run.
-template <int VEC>
+// are the same in every run. T = bf16: d_s in bf16, the sum in f32, each
+// pixel rounded to bf16 once (JAX rounds each tile's halo window, then folds
+// the windows in bf16: windows_to_plane, level_bwd_kernel.py:403).
+template <typename T, int VEC>
 __global__ void __launch_bounds__(kThreads)
-d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
+d_plane_gather(const T* __restrict__ ds, const float* __restrict__ xy,
                const uint8_t* __restrict__ mask, const int* __restrict__ start,
-               const int* __restrict__ end, float* __restrict__ d_plane, int N, int R, int F,
+               const int* __restrict__ end, T* __restrict__ d_plane, int N, int R, int F,
                int fr, long long warps, int chunks) {
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (warp >= warps) return;  // warp-uniform
@@ -662,7 +705,7 @@ d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
   const int f = (fc * 32 + lane) * VEC;
   const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
   const long long base = b * N;
-  const float* dsf = ds + base * F + f;
+  const T* dsf = ds + base * F + f;
   const long long cell0 = b * fr * fr;
 
   float acc[VEC] = {};
@@ -693,7 +736,7 @@ d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
       float w = 0.0f;
       if (tt < total && mask[base + row] != 0) {
         const long long q = 2 * (base + row);
-        w = corner_weight(bilinear_corner(xy[q], xy[q + 1], R), px, py);
+        w = corner_weight<T>(bilinear_corner(xy[q], xy[q + 1], R), px, py);
       }
       unsigned hits = __ballot_sync(kFullMask, w != 0.0f);
       while (hits != 0u) {  // warp-uniform
@@ -709,7 +752,7 @@ d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
             hits &= hits - 1u;
             wv[u] = __shfl_sync(kFullMask, w, h);
             const int r = __shfl_sync(kFullMask, row, h);
-            if (fin) load_row<VEC>(dsf + (long long)r * F, v[u]);
+            if (fin) load_vec<VEC>(dsf + (long long)r * F, v[u]);
             got = u + 1;
           }
         }
@@ -722,15 +765,87 @@ d_plane_gather(const float* __restrict__ ds, const float* __restrict__ xy,
       }
     }
   }
-  if (!fin) return;
-  float* out = d_plane + pix * F + f;
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(out) = make_float4(acc[0], acc[1], acc[2], acc[3]);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(out) = make_float2(acc[0], acc[1]);
-  } else {
-    *out = acc[0];
+  if (fin) store_vec<VEC>(d_plane + pix * F + f, acc);
+}
+
+// The entry points' launches, for either element type (below).
+template <typename T>
+int level_bwd_rows(const T* plane, const float* xy, const int* cells, const uint8_t* mask,
+                   const int* counts, const T* g_plane, const T* g_c, const T* w_in,
+                   const T* b_in, const T* w_out_t, const T* w_c_t, const T* w_in_t,
+                   T* d_clast, T* s_buf, T* h_buf, T* do_buf, T* dh_buf, T* ds_buf, int B,
+                   int N, int R, int F, int Fl, int shift, cudaStream_t stream) {
+  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
+  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
+  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
+  cudaError_t err;
+#define T2H_ROWS(FP)                                                                        \
+  case FP:                                                                                  \
+    err = launch_rows<T, FP>(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in,       \
+                             w_out_t, w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf,  \
+                             ds_buf, B, N, R, F, Fl, shift, stream);                         \
+    break;
+  switch (fp) {
+    T2H_ROWS(32)
+    T2H_ROWS(64)
+    T2H_ROWS(128)
+    T2H_ROWS(256)
+    default:
+    T2H_ROWS(512)
   }
+#undef T2H_ROWS
+  return static_cast<int>(err);
+}
+
+template <typename T>
+int level_d_plane(const T* ds, const float* xy, const int* cells, const uint8_t* mask,
+                  int* offs, T* d_plane, int B, int N, int R, int F, int fr,
+                  cudaStream_t stream) {
+  if (R < 1 || fr < R || (long long)fr * fr >= (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long ncell = (long long)B * fr * fr;
+  if ((long long)B * R * R * F == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(offs, 0, 2 * ncell * sizeof(int), stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (N > 0)
+    cell_rows<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
+        cells, offs, offs + ncell, N, fr);
+  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for rows not
+  // aligned to 16 bytes)
+  const bool aligned = aligned16(ds) && aligned16(d_plane);
+  const int vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
+  const int chunks = (F + 32 * vec - 1) / (32 * vec);
+  const long long warps = (long long)B * R * R * chunks;
+  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
+  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+#define T2H_GATHER(V)                                                                     \
+  d_plane_gather<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(           \
+      ds, xy, mask, offs, offs + ncell, d_plane, N, R, F, fr, warps, chunks)
+  if (vec == 4) T2H_GATHER(4);
+  else if (vec == 2) T2H_GATHER(2);
+  else T2H_GATHER(1);
+#undef T2H_GATHER
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The side of a reduction's output tile along a gradient side of n: 128, or
+// 64 where n is 64 or less.
+inline int reduce_tile(int n) { return n > 64 ? 128 : 64; }
+
+template <typename E>
+int level_bwd_reduce(const E* A, const E* Bm, int M, int Ka, int Nb, int splits, float* part,
+                     E* dw, E* db, cudaStream_t stream) {
+  const int Kout = db != nullptr ? Ka + 1 : Ka;
+  const bool wide_k = reduce_tile(Ka) == 128, wide_n = reduce_tile(Nb) == 128;
+  const cudaError_t err =
+      wide_k ? (wide_n ? launch_atb<E, 128, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<E, 128, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream))
+             : (wide_n ? launch_atb<E, 64, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<E, 64, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  sum_splits<E><<<grid_for((long long)Kout * Nb), kThreads, 0, stream>>>(part, splits, Ka,
+                                                                         Kout, Nb, dw, db);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace t2h
@@ -753,26 +868,25 @@ int t2h_fused_level_bwd(const float* plane, const float* xy, const int* cells,
                         float* d_clast, float* s_buf, float* h_buf, float* do_buf,
                         float* dh_buf, float* ds_buf, int B, int N, int R, int F, int Fl,
                         int shift, cudaStream_t stream) {
-  if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
-  if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
-  const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
-  cudaError_t err;
-#define T2H_ROWS(FP)                                                                        \
-  case FP:                                                                                  \
-    err = launch_rows<FP>(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t, \
-                          w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, B, N, \
-                          R, F, Fl, shift, stream);                                          \
-    break;
-  switch (fp) {
-    T2H_ROWS(32)
-    T2H_ROWS(64)
-    T2H_ROWS(128)
-    T2H_ROWS(256)
-    default:
-    T2H_ROWS(512)
-  }
-#undef T2H_ROWS
-  return static_cast<int>(err);
+  return level_bwd_rows(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t,
+                        w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, B, N, R,
+                        F, Fl, shift, stream);
+}
+
+// The same in bf16 (xy f32, counts i32): K5's bf16 rule
+// (level_bwd_kernel.py:206-256): the sample with the cut weights, pre and
+// the relu gate as K4's, (g_plane / count) rounded before its sum with g_c,
+// d_h, d_s and d_c_last each rounded once from their f32 products.
+int t2h_fused_level_bwd_bf16(const bf16* plane, const float* xy, const int* cells,
+                             const uint8_t* mask, const int* counts, const bf16* g_plane,
+                             const bf16* g_c, const bf16* w_in, const bf16* b_in,
+                             const bf16* w_out_t, const bf16* w_c_t, const bf16* w_in_t,
+                             bf16* d_clast, bf16* s_buf, bf16* h_buf, bf16* do_buf,
+                             bf16* dh_buf, bf16* ds_buf, int B, int N, int R, int F, int Fl,
+                             int shift, cudaStream_t stream) {
+  return level_bwd_rows(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t,
+                        w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, B, N, R,
+                        F, Fl, shift, stream);
 }
 
 // Phase 3. ds (B*N,F) the rows' d_s, xy (B,N,2), cells (B,N) finest Morton
@@ -784,36 +898,16 @@ int t2h_fused_level_bwd(const float* plane, const float* xy, const int* cells,
 int t2h_level_d_plane(const float* ds, const float* xy, const int* cells, const uint8_t* mask,
                       int* offs, float* d_plane, int B, int N, int R, int F, int fr,
                       cudaStream_t stream) {
-  if (R < 1 || fr < R || (long long)fr * fr >= (1LL << 30))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long ncell = (long long)B * fr * fr;
-  if ((long long)B * R * R * F == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(offs, 0, 2 * ncell * sizeof(int), stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (N > 0)
-    cell_rows<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
-        cells, offs, offs + ncell, N, fr);
-  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for rows not
-  // aligned to 16 bytes)
-  const bool aligned = aligned16(ds) && aligned16(d_plane);
-  const int vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
-  const int chunks = (F + 32 * vec - 1) / (32 * vec);
-  const long long warps = (long long)B * R * R * chunks;
-  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-#define T2H_GATHER(V)                                                                     \
-  d_plane_gather<V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(              \
-      ds, xy, mask, offs, offs + ncell, d_plane, N, R, F, fr, warps, chunks)
-  if (vec == 4) T2H_GATHER(4);
-  else if (vec == 2) T2H_GATHER(2);
-  else T2H_GATHER(1);
-#undef T2H_GATHER
-  return static_cast<int>(cudaGetLastError());
+  return level_d_plane(ds, xy, cells, mask, offs, d_plane, B, N, R, F, fr, stream);
 }
 
-// The side of a reduction's output tile along a gradient side of n: 128, or
-// 64 where n is 64 or less.
-static int reduce_tile(int n) { return n > 64 ? 128 : 64; }
+// The same on bf16 ds and d_plane: the weights cut to bf16, each pixel's
+// f32 sum rounded once.
+int t2h_level_d_plane_bf16(const bf16* ds, const float* xy, const int* cells,
+                           const uint8_t* mask, int* offs, bf16* d_plane, int B, int N, int R,
+                           int F, int fr, cudaStream_t stream) {
+  return level_d_plane(ds, xy, cells, mask, offs, d_plane, B, N, R, F, fr, stream);
+}
 
 // Output tiles of a (Ka x Nb) weight gradient; the wrapper sizes its row
 // splits by them. Returns the count, not an error code.
@@ -829,17 +923,16 @@ int t2h_level_bwd_reduce_tiles(int Ka, int Nb) {
 int t2h_level_bwd_reduce(const float* A, const float* Bm, int M, int Ka, int Nb,
                          int splits, float* part, float* dw, float* db,
                          cudaStream_t stream) {
-  const int Kout = db != nullptr ? Ka + 1 : Ka;
-  const bool wide_k = reduce_tile(Ka) == 128, wide_n = reduce_tile(Nb) == 128;
-  const cudaError_t err =
-      wide_k ? (wide_n ? launch_atb<128, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
-                       : launch_atb<128, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream))
-             : (wide_n ? launch_atb<64, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
-                       : launch_atb<64, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits<<<grid_for((long long)Kout * Nb), kThreads, 0, stream>>>(part, splits, Ka,
-                                                                      Kout, Nb, dw, db);
-  return static_cast<int>(cudaGetLastError());
+  return level_bwd_reduce(A, Bm, M, Ka, Nb, splits, part, dw, db, stream);
+}
+
+// The same on bf16 A and Bm: one bf16 mma.sync pass into f32 sums, dw and
+// db rounded to bf16 once (JAX's f32 accumulators cast to the weights'
+// dtype, level_kernel.py:653-659).
+int t2h_level_bwd_reduce_bf16(const bf16* A, const bf16* Bm, int M, int Ka, int Nb,
+                              int splits, float* part, bf16* dw, bf16* db,
+                              cudaStream_t stream) {
+  return level_bwd_reduce(A, Bm, M, Ka, Nb, splits, part, dw, db, stream);
 }
 
 }  // extern "C"

@@ -1,5 +1,6 @@
-// The bf16 tensor-core products of the conv core (igemm_conv.cuh) for K6-K8
-// on bf16 activations: warp-level mma.sync.m16n8k16 with bf16 operands and
+// The bf16 tensor-core products of the port's bf16 kernels, the conv core
+// (igemm_conv.cuh, K6-K8) and the level kernels (level.cu K4, level_bwd.cu
+// K5's row pass and weight sums): warp-level mma.sync.m16n8k16 with bf16 operands and
 // fp32 accumulators, one pass where 3xTF32 (mma_tf32x3.cuh) makes three
 // (989 TFLOP/s dense on the H100 against 495/3), fragments loaded from
 // padded shared tiles with ldmatrix.
@@ -26,9 +27,8 @@
 // weights' HWIO rows as they lie in memory, copied as they are.
 #pragma once
 
-#include <cuda_bf16.h>
-
-#include "common.cuh"
+#include "dtype.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace t2h {
 
@@ -48,6 +48,14 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "memory");
 }
 
+__device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2], const void* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(s)
+               : "memory");
+}
+
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(
@@ -60,13 +68,14 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // acc (a warp's 32 rows x 8*NT columns) += A[rows wm.., KS columns] @
 // B[KS rows][columns wn..]: A row-major in shared (stride lda), B row-major
 // [k][n] in shared (stride ldb); both strides in elements, rows 16-byte
-// aligned.
+// aligned. n8 tiles go in pairs (one ldmatrix.x4.trans); an odd last one
+// alone (x2: lanes 0-15 name its rows).
 template <int KS, int NT>
 __device__ __forceinline__ void warp_mma_bf16(float (&acc)[2][NT][4],
                                               const __nv_bfloat16* A, int lda,
                                               const __nv_bfloat16* B, int ldb, int wm, int wn,
                                               int lane) {
-  static_assert(KS % 16 == 0 && NT % 2 == 0, "k16 steps, pairs of n8 tiles");
+  static_assert(KS % 16 == 0, "k16 steps");
 #pragma unroll
   for (int kk = 0; kk < KS; kk += 16) {
     uint32_t a[2][4];
@@ -83,7 +92,34 @@ __device__ __forceinline__ void warp_mma_bf16(float (&acc)[2][NT][4],
         mma_bf16(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
       }
     }
+    if constexpr (NT % 2 == 1) {
+      uint32_t b[2];
+      ldmatrix_x2_trans(b, B + (kk + (lane & 15)) * ldb + wn + 8 * (NT - 1));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) mma_bf16(acc[mt][NT - 1], a[mt], b[0], b[1]);
+    }
   }
+}
+
+// The same product for either element type: 3xTF32 from fp32 tiles
+// (mma_tf32x3.cuh warp_mma, strides as it wants them), or one bf16 pass
+// from bf16 tiles. The level kernels (K4, K5's row pass) take it.
+template <int KS, int NT, typename T>
+__device__ __forceinline__ void warp_mma_t(float (&acc)[2][NT][4], const T* A, int lda,
+                                           const T* B, int ldb, int wm, int wn, int lane) {
+  if constexpr (kIsBf16<T>) {
+    warp_mma_bf16<KS, NT>(acc, A, lda, B, ldb, wm, wn, lane);
+  } else {
+    warp_mma<KS, NT>(acc, A, lda, B, ldb, wm, wn, lane);
+  }
+}
+
+// The A fragment (16 x 16) whose (0, 0) element is at p in a column-major
+// bf16 tile (element (i, k) at p[k * ld + i]): one ldmatrix.x4.trans, lanes
+// 8j..8j+7 naming the rows k of matrix j (j & 1: i + 8; j >> 1: k + 8).
+__device__ __forceinline__ void load_a_col_bf16(uint32_t (&a)[4], const __nv_bfloat16* p,
+                                                int ld, int lane) {
+  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8);
 }
 
 }  // namespace t2h

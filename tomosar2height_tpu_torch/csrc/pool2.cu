@@ -118,8 +118,18 @@
 // mask, K3; tile offsets, K11-K13), the plane and counts written once (+ the
 // flags). K3 at B = 8, Npad = 20480, F = 32: ~16 MB of values and ~67 MB of
 // plane, ~26 us at 3.35 TB/s; the zeros are most of it.
+//
+// bf16 (the model's bf16 dtype): pool_runs, pool_gather and scatter_runs
+// are templated on the value type T (dtype.cuh). A bf16 instance reads bf16
+// values (scatter_runs: 2, 4 or 8 bytes a lane), sums or maxes them in f32
+// registers in the same row order as the f32 instance, and rounds each
+// output to bf16 once, where it stores it: the JAX kernels' bf16 rule
+// (pool2_kernel.py:88-117 f32 accumulators cast to the dtype, :148-158 the
+// gather in the dtype, :292-334 the plane mean in f32 written in the dtype,
+// :424-453 (g / count) rounded then gathered, :514 the tie gate in f32).
+// Counts stay int32; the bytes of the values and outputs halve.
 
-#include "common.cuh"
+#include "dtype.cuh"
 
 namespace t2h {
 
@@ -169,12 +179,12 @@ __device__ __forceinline__ unsigned run_step(const int* __restrict__ cb,
 // lanes take 32 features of every row; F > 32 loops over feature chunks.
 // Three blocks an SM (<= 80 registers) without the gate; with it, two (its 96
 // loads in flight take 128 registers, and spill under 80).
-template <int KIND, bool TIE, bool TILED>
+template <typename T, int KIND, bool TIE, bool TILED>
 __global__ void __launch_bounds__(kThreads, TIE ? 2 : 3)
-pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
+pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
           const uint8_t* __restrict__ mask, const int* __restrict__ toff,
-          const float* __restrict__ tie_a, const float* __restrict__ tie_b,
-          float* __restrict__ out, int B, int N, int F, int ncell) {
+          const T* __restrict__ tie_a, const T* __restrict__ tie_b,
+          T* __restrict__ out, int B, int N, int F, int ncell) {
   const int lane = threadIdx.x & 31;
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int spans = (N + kSpan - 1) / kSpan;
@@ -222,9 +232,9 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
   for (int f0 = 0; f0 < F; f0 += 32) {
     const int f = f0 + lane;
     const bool fin = f < F;
-    const float* xf = x + base * F + f;
-    const float* af = TIE ? tie_a + base * F + f : nullptr;
-    const float* bf = TIE ? tie_b + base * F + f : nullptr;
+    const T* xf = x + base * F + f;
+    const T* af = TIE ? tie_a + base * F + f : nullptr;
+    const T* bf = TIE ? tie_b + base * F + f : nullptr;
     // every load of the span first (with the gate's, into arrays of their
     // own: compared as they arrive, they came one latency after another)
     float v[kSpan], ta[TIE ? kSpan : 1], tb[TIE ? kSpan : 1];
@@ -232,10 +242,10 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
     for (int k = 0; k < kSpan; ++k) {
       const long long i = (long long)(s0 + k) * F;
       const bool load = fin && (own >> k & 1u);
-      v[k] = load ? xf[i] : 0.0f;
+      v[k] = load ? to_f32(xf[i]) : 0.0f;
       if (TIE) {
-        ta[k] = load ? af[i] : 0.0f;
-        tb[k] = load ? bf[i] : 0.0f;
+        ta[k] = load ? to_f32(af[i]) : 0.0f;
+        tb[k] = load ? to_f32(bf[i]) : 0.0f;
       }
     }
     unsigned tied = 0;  // TIE: bit k where tie_a == tie_b on row s0 + k
@@ -263,8 +273,8 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
         for (int k = 0; k < kSpan; ++k) {
           if (!fin || !(tv >> k & 1u)) continue;
           const long long i = (long long)(j0 + k) * F;
-          acc = run_combine<KIND>(acc, xf[i]);
-          if (KIND == 3 && af[i] == bf[i]) ++tail_tied;
+          acc = run_combine<KIND>(acc, to_f32(xf[i]));
+          if (KIND == 3 && to_f32(af[i]) == to_f32(bf[i])) ++tail_tied;
         }
         tail_count += __popc(tv);
       }
@@ -295,7 +305,7 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
       v[k] = cur;
     }
 
-    float* of = out + base * F + f;
+    T* of = out + base * F + f;
     if (fin) {
 #pragma unroll
       for (int k = 0; k < kSpan; ++k) {
@@ -304,11 +314,11 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
         if (s0 + k >= N || (!mine && (valid >> k & 1u))) continue;  // an earlier run's row
         float o = mine ? v[k] : 0.0f;
         if (TIE && !(tied >> k & 1u)) o = 0.0f;
-        of[i] = o;
+        of[i] = from_f32<T>(o);
       }
     }
     if (cont) {  // the last run's rows past the span
-      const float r = v[kSpan - 1];
+      const T r = from_f32<T>(v[kSpan - 1]);
       for (int done = 0, len = kSpan; len == kSpan; done += len) {
         const int j0 = s0 + kSpan + done;
         const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
@@ -316,7 +326,7 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
         for (int k = 0; k < kSpan; ++k) {
           if (!fin || !(tv >> k & 1u)) continue;
           const long long i = (long long)(j0 + k) * F;
-          of[i] = TIE && af[i] != bf[i] ? 0.0f : r;
+          of[i] = TIE && to_f32(af[i]) != to_f32(bf[i]) ? from_f32<T>(0.0f) : r;
         }
       }
     }
@@ -350,10 +360,11 @@ pool_runs(const float* __restrict__ x, const int* __restrict__ cells,
 // ~36 MB, ~11 us.
 constexpr int kGatherGroup = 16;  // rows loaded at once
 
+template <typename T>
 __global__ void __launch_bounds__(kThreads, 3)
-pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
+pool_gather(const T* __restrict__ plane, const int* __restrict__ cells,
             const uint8_t* __restrict__ mask, const int* __restrict__ counts,
-            float* __restrict__ out, int N, int F, int reso, int shift, unsigned warps,
+            T* __restrict__ out, int N, int F, int reso, int shift, unsigned warps,
             unsigned spans, unsigned chunks) {
   const int lane = threadIdx.x & 31;
   const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
@@ -386,8 +397,8 @@ pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
 
   const int f = fc * 32 + lane;
   const bool fin = f < F;
-  const float* pb = plane + (long long)b * ncell * F + f;
-  float* ob = out + base * F + f;
+  const T* pb = plane + (long long)b * ncell * F + f;
+  T* ob = out + base * F + f;
   float cur = 0.0f;  // the latest load, divided
 #pragma unroll
   for (int g = 0; g < kSpan; g += kGatherGroup) {
@@ -395,14 +406,14 @@ pool_gather(const float* __restrict__ plane, const int* __restrict__ cells,
 #pragma unroll
     for (int k = 0; k < kGatherGroup; ++k) {
       const int d = __shfl_sync(kFull, dst, g + k);
-      v[k] = fin && (loads >> (g + k) & 1u) ? pb[(long long)d * F] : 0.0f;
+      v[k] = fin && (loads >> (g + k) & 1u) ? to_f32(pb[(long long)d * F]) : 0.0f;
     }
 #pragma unroll
     for (int k = 0; k < kGatherGroup; ++k) {
       const int r = g + k;
       const float nr = __shfl_sync(kFull, n, r);
       if (loads >> r & 1u) cur = v[k] / nr;
-      if (fin && r < rows) ob[(long long)(s0 + r) * F] = valid >> r & 1u ? cur : 0.0f;
+      if (fin && r < rows) ob[(long long)(s0 + r) * F] = from_f32<T>(valid >> r & 1u ? cur : 0.0f);
     }
   }
 }
@@ -418,10 +429,12 @@ __device__ __forceinline__ int level_cell(int raw, int shift, int ncell) {
 // Block `block` of `blocks`; a thread takes kZeroItems items, a grid's width
 // apart (each store coalesced), their flags loaded first; an item is a float4
 // (vec: F % 4 == 0) or a float; q = items a cell, qshift = log2(q) when q is
-// a power of two (no division), else -1.
+// a power of two (no division), else -1. A float4 item is four values of T
+// (8 bytes in bf16).
 constexpr int kZeroItems = 4;
 
-__device__ __forceinline__ void zero_empty_cells(float* __restrict__ plane,
+template <typename T>
+__device__ __forceinline__ void zero_empty_cells(T* __restrict__ plane,
                                                  int* __restrict__ counts,
                                                  const uint8_t* __restrict__ flags,
                                                  unsigned block, unsigned blocks, unsigned n,
@@ -441,9 +454,10 @@ __device__ __forceinline__ void zero_empty_cells(float* __restrict__ plane,
     if (!empty[k]) continue;
     const unsigned i = i0 + k * stride;
     if (vec) {
-      reinterpret_cast<float4*>(plane)[i] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      store_vec<4>(plane + 4 * (long long)i, zero);
     } else {
-      plane[i] = 0.0f;
+      plane[i] = from_f32<T>(0.0f);
     }
     if (counts != nullptr && i == cell[k] * q) counts[cell[k]] = 0;
   }
@@ -469,31 +483,13 @@ __global__ void mark_cells(const int* __restrict__ cells, const uint8_t* __restr
     flags[b * ncell + (MORTON ? c : morton_to_rowmajor(c, reso))] = 1;
 }
 
-// VEC consecutive features of a row, loaded and stored as one vector.
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* __restrict__ p, float (&r)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 t = *reinterpret_cast<const float4*>(p);
-    r[0] = t.x, r[1] = t.y, r[2] = t.z, r[3] = t.w;
-  } else if constexpr (VEC == 2) {
-    const float2 t = *reinterpret_cast<const float2*>(p);
-    r[0] = t.x, r[1] = t.y;
-  } else {
-    r[0] = *p;
-  }
-}
-
-template <int VEC>
-__device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&a)[VEC],
-                                           int count) {
+template <int VEC, typename T>
+__device__ __forceinline__ void store_mean(T* __restrict__ p, const float (&a)[VEC], int count) {
   const float n = static_cast<float>(count);
-  if constexpr (VEC == 4) {
-    *reinterpret_cast<float4*>(p) = make_float4(a[0] / n, a[1] / n, a[2] / n, a[3] / n);
-  } else if constexpr (VEC == 2) {
-    *reinterpret_cast<float2*>(p) = make_float2(a[0] / n, a[1] / n);
-  } else {
-    *p = a[0] / n;
-  }
+  float m[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) m[e] = a[e] / n;
+  store_vec<VEC>(p, m);
 }
 
 // K3 and K4's plane (TILED false: mask) and K11-K14 (TILED true: tile offsets, no mask;
@@ -505,11 +501,11 @@ __device__ __forceinline__ void store_mean(float* __restrict__ p, const float (&
 // are one 512-byte load). The span's rows load in groups of 32 / VEC (4 KB a
 // warp in flight, 32 registers of values) and are summed as they come, each
 // run's end written at once. Three blocks an SM (<= 80 registers).
-template <bool TILED, int VEC, bool MORTON>
+template <typename T, bool TILED, int VEC, bool MORTON>
 __global__ void __launch_bounds__(kThreads, 3)
-scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
+scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
              const uint8_t* __restrict__ mask, const int* __restrict__ toff,
-             float* __restrict__ plane, int* __restrict__ counts,
+             T* __restrict__ plane, int* __restrict__ counts,
              const uint8_t* __restrict__ flags, int B, int N, int F, int reso, int shift,
              int toff_row, int toff_step, unsigned run_blocks, unsigned zero_blocks,
              unsigned zero_n, unsigned zero_q, int zero_qshift) {
@@ -571,8 +567,8 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
 
   const int f = (fc * 32 + lane) * VEC;
   const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
-  const float* xf = x + base * F + f;
-  float* pb = plane + b * ncell * F + f;
+  const T* xf = x + base * F + f;
+  T* pb = plane + b * ncell * F + f;
   // lane k: row k's cell in the output (the index the mark pass flagged)
   const int my_dst = ok ? (MORTON ? c : morton_to_rowmajor(c, reso)) : 0;
   auto write = [&](int k, const float (&a)[VEC], int count) {
@@ -660,6 +656,109 @@ scatter_runs(const float* __restrict__ x, const int* __restrict__ cells,
   }
 }
 
+// The entry points' launches, for either element type (below).
+template <typename T>
+int launch_pool_runs(const T* x, const int* cells, const uint8_t* mask, const int* toff,
+                     const T* tie_a, const T* tie_b, T* out, int B, int N, int F, int ncell,
+                     int kind, cudaStream_t stream) {
+  const bool tie = tie_a != nullptr;
+  const bool tiled = toff != nullptr;
+  if (kind < 0 || kind > 3 || tie != (tie_b != nullptr) || (tie && kind < 2) ||
+      (kind == 3 && !(tie && tiled)) || tiled == (mask != nullptr) ||
+      (tiled && (kind == 2 || ncell % 256 != 0)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * 32;
+  if (threads == 0 || F == 0) return static_cast<int>(cudaGetLastError());
+  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+#define T2H_RUNS(K, TI, TL)                                                          \
+  pool_runs<T, K, TI, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a, \
+                                                           tie_b, out, B, N, F, ncell)
+  if (tiled && kind == 3) T2H_RUNS(3, true, true);
+  else if (tiled && kind == 0) T2H_RUNS(0, false, true);
+  else if (tiled) T2H_RUNS(1, false, true);
+  else if (tie) T2H_RUNS(2, true, false);
+  else if (kind == 0) T2H_RUNS(0, false, false);
+  else if (kind == 1) T2H_RUNS(1, false, false);
+  else T2H_RUNS(2, false, false);
+#undef T2H_RUNS
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_pool_gather(const T* plane, const int* cells, const uint8_t* mask,
+                       const int* counts, T* out, int B, int N, int F, int reso, int shift,
+                       cudaStream_t stream) {
+  const long long spans = (N + kSpan - 1) / kSpan;
+  const long long chunks = (F + 31) / 32;
+  const long long warps = (long long)B * spans * chunks;
+  if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
+  if (warps > 0)
+    pool_gather<T><<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads,
+                     0, stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
+                                  static_cast<unsigned>(warps), static_cast<unsigned>(spans),
+                                  static_cast<unsigned>(chunks));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_scatter_runs(const T* values, const int* cells, const uint8_t* mask,
+                        const int* toff, T* plane, int* counts, uint8_t* flags, int B, int N,
+                        int F, int reso, int shift, int toff_row, int toff_step, int morton,
+                        cudaStream_t stream) {
+  const bool tiled = toff != nullptr;
+  const long long ncells = (long long)B * reso * reso;
+  const bool vec = F % 4 == 0;
+  const long long items = ncells * (vec ? F / 4 : F);
+  if (tiled == (mask != nullptr) || (!tiled && counts == nullptr) || items >= (1LL << 31) ||
+      (morton && (!tiled || counts != nullptr)) ||
+      (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
+                 toff_row < (reso * reso / 256) * toff_step + 1)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (items == 0) return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (N > 0) {
+    const dim3 grid((N + kThreads - 1) / kThreads, B);
+#define T2H_MARK(TI, M)                                                                   \
+  mark_cells<TI, M><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift, \
+                                                   toff_row, toff_step)
+    if (morton) T2H_MARK(true, true);
+    else if (tiled) T2H_MARK(true, false);
+    else T2H_MARK(false, false);
+#undef T2H_MARK
+  }
+  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
+  // not aligned to 16 bytes)
+  const bool aligned = reinterpret_cast<uintptr_t>(values) % 16 == 0;
+  const int run_vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
+  const long long threads =
+      (long long)B * ((N + kSpan - 1) / kSpan) * ((F + 32 * run_vec - 1) / (32 * run_vec)) * 32;
+  const unsigned run_blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
+  const unsigned q = vec ? F / 4 : F;
+  const int qshift = (q & (q - 1)) == 0 ? __builtin_ctz(q) : -1;
+  const unsigned zero_blocks =
+      static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems));
+#define T2H_SCATTER_RUNS(TI, V, M)                                                        \
+  scatter_runs<T, TI, V, M><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(           \
+      values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
+      toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
+  if (morton) {
+    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, true);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, true);
+    else T2H_SCATTER_RUNS(true, 1, true);
+  } else if (tiled) {
+    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, false);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, false);
+    else T2H_SCATTER_RUNS(true, 1, false);
+  } else {
+    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4, false);
+    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2, false);
+    else T2H_SCATTER_RUNS(false, 1, false);
+  }
+#undef T2H_SCATTER_RUNS
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace t2h
 
 using namespace t2h;
@@ -681,27 +780,19 @@ const char* t2h_error_string(int err) {
 int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const int* toff,
                   const float* tie_a, const float* tie_b, float* out, int B, int N, int F,
                   int ncell, int kind, cudaStream_t stream) {
-  const bool tie = tie_a != nullptr;
-  const bool tiled = toff != nullptr;
-  if (kind < 0 || kind > 3 || tie != (tie_b != nullptr) || (tie && kind < 2) ||
-      (kind == 3 && !(tie && tiled)) || tiled == (mask != nullptr) ||
-      (tiled && (kind == 2 || ncell % 256 != 0)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * 32;
-  if (threads == 0 || F == 0) return static_cast<int>(cudaGetLastError());
-  const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-#define T2H_RUNS(K, T, TL)                                                          \
-  pool_runs<K, T, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a, tie_b, \
-                                                       out, B, N, F, ncell)
-  if (tiled && kind == 3) T2H_RUNS(3, true, true);
-  else if (tiled && kind == 0) T2H_RUNS(0, false, true);
-  else if (tiled) T2H_RUNS(1, false, true);
-  else if (tie) T2H_RUNS(2, true, false);
-  else if (kind == 0) T2H_RUNS(0, false, false);
-  else if (kind == 1) T2H_RUNS(1, false, false);
-  else T2H_RUNS(2, false, false);
-#undef T2H_RUNS
-  return static_cast<int>(cudaGetLastError());
+  return launch_pool_runs(x, cells, mask, toff, tie_a, tie_b, out, B, N, F, ncell, kind,
+                          stream);
+}
+
+// The same on bf16 x, tie_a, tie_b and out (K1 + K2 in the model's bf16
+// dtype, JAX pool2_kernel.py:88-117,148-158,492-517): the values summed
+// (or maxed) in f32 in the same run order, each output rounded to bf16 once,
+// the tie gate compared in f32.
+int t2h_pool_runs_bf16(const bf16* x, const int* cells, const uint8_t* mask, const int* toff,
+                       const bf16* tie_a, const bf16* tie_b, bf16* out, int B, int N, int F,
+                       int ncell, int kind, cudaStream_t stream) {
+  return launch_pool_runs(x, cells, mask, toff, tie_a, tie_b, out, B, N, F, ncell, kind,
+                          stream);
 }
 
 // plane (B,reso,reso,F) row-major, cells (B,N) Morton ids (the cell at reso
@@ -711,16 +802,15 @@ int t2h_pool_runs(const float* x, const int* cells, const uint8_t* mask, const i
 int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
                     const int* counts, float* out, int B, int N, int F, int reso, int shift,
                     cudaStream_t stream) {
-  const long long spans = (N + kSpan - 1) / kSpan;
-  const long long chunks = (F + 31) / 32;
-  const long long warps = (long long)B * spans * chunks;
-  if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
-  if (warps > 0)
-    pool_gather<<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads, 0,
-                  stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
-                            static_cast<unsigned>(warps), static_cast<unsigned>(spans),
-                            static_cast<unsigned>(chunks));
-  return static_cast<int>(cudaGetLastError());
+  return launch_pool_gather(plane, cells, mask, counts, out, B, N, F, reso, shift, stream);
+}
+
+// The same on a bf16 plane and out: the f32 quotient rounded to bf16 once
+// (JAX pool2_kernel.py:424-453 rounds (g / count) to the dtype, then gathers).
+int t2h_pool_gather_bf16(const bf16* plane, const int* cells, const uint8_t* mask,
+                         const int* counts, bf16* out, int B, int N, int F, int reso,
+                         int shift, cudaStream_t stream) {
+  return launch_pool_gather(plane, cells, mask, counts, out, B, N, F, reso, shift, stream);
 }
 
 // values (B,N,F) f32, cells (B,N) i32 Morton ids (finest; the cell at reso
@@ -739,58 +829,19 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      const int* toff, float* plane, int* counts, uint8_t* flags, int B,
                      int N, int F, int reso, int shift, int toff_row, int toff_step,
                      int morton, cudaStream_t stream) {
-  const bool tiled = toff != nullptr;
-  const long long ncells = (long long)B * reso * reso;
-  const bool vec = F % 4 == 0;
-  const long long items = ncells * (vec ? F / 4 : F);
-  if (tiled == (mask != nullptr) || (!tiled && counts == nullptr) || items >= (1LL << 31) ||
-      (morton && (!tiled || counts != nullptr)) ||
-      (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
-                 toff_row < (reso * reso / 256) * toff_step + 1)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (items == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (N > 0) {
-    const dim3 grid((N + kThreads - 1) / kThreads, B);
-#define T2H_MARK(T, M)                                                                   \
-  mark_cells<T, M><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift, \
-                                                  toff_row, toff_step)
-    if (morton) T2H_MARK(true, true);
-    else if (tiled) T2H_MARK(true, false);
-    else T2H_MARK(false, false);
-#undef T2H_MARK
-  }
-  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
-  // not aligned to 16 bytes)
-  const bool aligned = reinterpret_cast<uintptr_t>(values) % 16 == 0;
-  const int run_vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
-  const long long threads =
-      (long long)B * ((N + kSpan - 1) / kSpan) * ((F + 32 * run_vec - 1) / (32 * run_vec)) * 32;
-  const unsigned run_blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  const unsigned q = vec ? F / 4 : F;
-  const int qshift = (q & (q - 1)) == 0 ? __builtin_ctz(q) : -1;
-  const unsigned zero_blocks =
-      static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems));
-#define T2H_SCATTER_RUNS(T, V, M)                                                         \
-  scatter_runs<T, V, M><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(               \
-      values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
-      toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
-  if (morton) {
-    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, true);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, true);
-    else T2H_SCATTER_RUNS(true, 1, true);
-  } else if (tiled) {
-    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, false);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, false);
-    else T2H_SCATTER_RUNS(true, 1, false);
-  } else {
-    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4, false);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2, false);
-    else T2H_SCATTER_RUNS(false, 1, false);
-  }
-#undef T2H_SCATTER_RUNS
-  return static_cast<int>(cudaGetLastError());
+  return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
+                             shift, toff_row, toff_step, morton, stream);
+}
+
+// The same on bf16 values and plane (K3 and K4's plane in the model's bf16
+// dtype, JAX pool2_kernel.py:292-334, level_kernel.py:281-310): each run's
+// row-order sum in f32, its mean rounded to bf16 once.
+int t2h_scatter_runs_bf16(const bf16* values, const int* cells, const uint8_t* mask,
+                          const int* toff, bf16* plane, int* counts, uint8_t* flags, int B,
+                          int N, int F, int reso, int shift, int toff_row, int toff_step,
+                          int morton, cudaStream_t stream) {
+  return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
+                             shift, toff_row, toff_step, morton, stream);
 }
 
 }  // extern "C"

@@ -23,6 +23,11 @@ level's conv pair is one K7 call (``ops/cuda/convpair_kernel.conv_pair``). Plane
 ``channels_last`` memory; the public interface is NHWC. Every layer computes
 in ``dtype``; the sample of a bf16 plane comes back float32 (its f32
 weights promote it, JAX ops/sampling.py:45-60) and ``fc_comm`` casts it.
+So it does below 32 on ``fused2``, whose scatter sums bf16 point features in
+float32 and rounds each cell's sum once before the bf16 division by its
+count (JAX's segment_mean in bf16, models/alto.py:73-85). A fused2 round
+trip at >= 32 in bf16 is K4's bf16 instance: the six weights and c_last
+cast to bf16 (JAX models/alto.py:164-167), c comes back bf16.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from tomosar2height_tpu_torch.models.blocks import (
     MLP2,
     Conv3x3,
     Dense,
+    cast,
     conv1x1,
     fusable,
     fused_pair,
@@ -114,23 +120,29 @@ def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):
         weights = (fc_in.weight.t().contiguous(), fc_in.bias,
                    fc_out.weight.t().contiguous(), fc_out.bias,
                    fc_c.weight.t().contiguous(), fc_c.bias)
-        plane = x.permute(0, 2, 3, 1).contiguous()
-        plane_out, c, _ = fused_level(plane, c_last.contiguous(), weights, cache["xy"],
-                                      cache["cells"], mask, reso, cache["finest"])
+        plane, c_last = x.permute(0, 2, 3, 1).contiguous(), c_last.contiguous()
+        if fc_in.dtype != torch.float32:  # every operand of K4's bf16 instance in bf16
+            weights = cast(fc_in.dtype, *weights)
+            plane, c_last = cast(fc_in.dtype, plane, c_last)
+        plane_out, c, _ = fused_level(plane, c_last, weights, cache["xy"], cache["cells"],
+                                      mask, reso, cache["finest"])
         return plane_out.permute(0, 3, 1, 2), c
     if cache.get("impl") == "fused2":
-        # no atomics below 32 either: the plain segment ops add with them
+        # no atomics below 32 either: the plain segment ops add with them.
+        # bf16: the sample and the sums in float32 (the bf16 values exact in
+        # it), each sum rounded to bf16, then divided in bf16
+        wide = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
         mats = cache.get(("dense", reso))
         if mats is None:
-            cells = cell_matrix(xy, reso, mask, x.dtype)
-            mats = cache[("dense", reso)] = (bilinear_matrix(xy, reso, reso).to(x.dtype),
+            cells = cell_matrix(xy, reso, mask, wide)
+            mats = cache[("dense", reso)] = (bilinear_matrix(xy, reso, reso).to(wide),
                                              cells.transpose(1, 2),
                                              cells.sum(1)[..., None].clamp_min(1.0))
         sample, members, counts = mats
         b, ch = x.shape[:2]
-        s = torch.bmm(sample, x.permute(0, 2, 3, 1).reshape(b, reso * reso, ch))
+        s = torch.bmm(sample, x.permute(0, 2, 3, 1).reshape(b, reso * reso, ch).to(wide))
         c = level.fc_comm(s) + level.fc_c(c_last)
-        plane = torch.bmm(members, c) / counts
+        plane = torch.bmm(members, c.to(wide)).to(c.dtype) / counts.to(c.dtype)
         return plane.reshape(b, reso, reso, -1).permute(0, 3, 1, 2), c
     c = level.fc_comm(_sample_plane(x, xy, mask, cache)) + level.fc_c(c_last)
     return _scatter_plane(xy, c, reso, mask, cache), c

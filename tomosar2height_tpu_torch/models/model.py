@@ -13,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tomosar2height_tpu_torch.models.blocks import DTYPES
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
-from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
+from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet, refuse_bf16_layout
 from tomosar2height_tpu_torch.models.unet import UNet
 from tomosar2height_tpu_torch.ops.sorted_scatter import dequantize_points
 
@@ -89,17 +89,16 @@ def build_model(cfg, device="cuda") -> TomoSAR2Height:
     for ``"cpu"``; there is no fallback. Seeded weights:
     ``blocks.init_weights`` (equal on every device). ``model.dtype`` is the
     compute dtype, 'float32' or 'bfloat16' (float32 parameters either way);
-    bf16 runs on the unsorted point path only and raises with
-    ``dataset.points.sort`` (ROADMAP: bf16)."""
+    bf16 runs on the unsorted point path and, with ``dataset.points.sort``,
+    on ``fused2`` only: the other sorted layouts raise (ROADMAP: bf16)."""
     cfg_model = cfg["model"]
     name = str(cfg_model.get("dtype", "float32"))
     if name not in DTYPES:
         raise NotImplementedError(f"model.dtype={name!r}: one of {tuple(DTYPES)}")
     dtype = DTYPES[name]
-    if dtype != torch.float32 and (cfg["dataset"].get("points") or {}).get("sort", False):
-        raise NotImplementedError(
-            f"model.dtype={name!r} with dataset.points.sort=true: the sorted layouts' "
-            "kernels run in float32 only (ROADMAP: bf16)")
+    if (cfg["dataset"].get("points") or {}).get("sort", False):
+        refuse_bf16_layout(dtype, (cfg_model.get("encoder_kwargs") or {}).get(
+            "sorted_impl", "cumsum"))
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA card here; pass device='cpu' to "
                            "build on the CPU")

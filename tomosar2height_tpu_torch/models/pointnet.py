@@ -17,9 +17,10 @@ loader ships Morton-sorted rows (``offsets`` given), else unsorted:
 - the unsorted plain path: cell ids from the coordinates and plain torch
   segment ops.
 
-``dtype`` is the compute dtype (``blocks`` module docstring). In bf16 only
-the unsorted plain path runs: the sorted paths run K1-K5 and K9-K14, whose
-bf16 variants are not ported (ROADMAP: bf16), and raise.
+``dtype`` is the compute dtype (``blocks`` module docstring). In bf16 the
+unsorted plain path and ``fused2`` run (K1-K5 have bf16 instances); the
+``fused``, ``pallas`` and ``cumsum`` layouts raise, since K9-K14 have no bf16
+variants yet (ROADMAP: bf16).
 """
 
 from __future__ import annotations
@@ -49,6 +50,17 @@ from tomosar2height_tpu_torch.ops.sorted_scatter import (
 )
 
 SORTED_IMPLS = ("cumsum", "pallas", "fused", "fused2")
+BF16_IMPLS = ("fused2",)
+"""The sorted layouts that run in bf16."""
+
+
+def refuse_bf16_layout(dtype: torch.dtype, impl: str) -> None:
+    """Raise for a sorted layout that has no bf16 kernels yet."""
+    if dtype != torch.float32 and impl not in BF16_IMPLS:
+        raise NotImplementedError(
+            f"dtype {dtype} on the sorted layout {impl!r}: its kernels (K9-K14) and ops "
+            f"run in float32 only; bf16 runs unsorted or on {', '.join(BF16_IMPLS)} "
+            "(ROADMAP: bf16)")
 
 
 class LocalPoolPointnet(nn.Module):
@@ -99,11 +111,8 @@ class LocalPoolPointnet(nn.Module):
         b = points.shape[0]
         xy = points[..., :2]
         impl = self.sorted_impl if offsets is not None else None
-        if impl is not None and self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"dtype {self.dtype} on the sorted layout ({impl}): its kernels run in "
-                "float32 only; bf16 takes the unsorted path (ROADMAP: bf16)")
         if impl is not None:
+            refuse_bf16_layout(self.dtype, impl)
             if cells is None:
                 # pads: the sentinel on the aligned layouts, reso**2 on the plain
                 # sorted one (pointnet.py:83-86)

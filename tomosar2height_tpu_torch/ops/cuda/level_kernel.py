@@ -37,6 +37,26 @@ bilinear transpose of the rows' d_s, gathered by its pixels in a fixed
 order) and three weight-gradient reductions (:func:`level_bwd_reduce`, the
 kernel's ``dwi_ref += ...`` sums, :260-279), all bit-equal run to run; or on
 the CPU :func:`fused_level_bwd_plain`, which writes K5's math out in torch.
+
+**bf16** (``model.dtype=bfloat16``): plane, c_last and the six weights all
+bf16 (xy f32) launch the bf16 instances (``t2h_*_bf16``, counted under
+``<name>_bf16``), with the JAX kernels' rounding points, which the plain
+versions write out in torch (:func:`mm`: a product of bf16 operands summed
+in f32 and rounded once):
+
+- K4 (level_kernel.py:234-258): the bilinear weights cut to bf16, the
+  sample summed in f32 and rounded; h = relu(bf16(s W_in) + b_in); o =
+  bf16(h W_out) + b_out, then + bf16(c_last W_c), then + b_c, each add
+  rounded; c_out bf16; the plane the f32 run mean of c_out rounded once.
+- K5 (level_bwd_kernel.py:206-256): s and pre recomputed as K4's, the relu
+  gate from pre; g_pt = bf16(g_plane / count) gathered; d_o = bf16(g_c +
+  g_pt); d_h = bf16(d_o W_out^T) gated; d_s = bf16(d_h W_in^T); d_c_last =
+  bf16(d_o W_c^T); the weight sums in f32, cast to bf16 once
+  (level_kernel.py:653-659). The d_plane pass takes the same cut weights
+  and rounds each pixel's f32 sum once, where JAX rounds each tile's halo
+  window and folds the windows in bf16 (level_bwd_kernel.py:385-403): a
+  deliberate difference, held to JAX's own bf16 gate
+  (tests/test_torch_bf16_sorted.py).
 """
 
 from __future__ import annotations
@@ -46,8 +66,17 @@ import functools
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
-from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import pool_gather_plain, scatter_runs_masked
-from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d, grid_sample_2d_adjoint
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import (
+    VALUE_DTYPES,
+    acc_dtype,
+    pool_gather_plain,
+    scatter_runs_masked,
+)
+from tomosar2height_tpu_torch.ops.sampling import (
+    grid_sample_2d,
+    grid_sample_2d_adjoint,
+    grid_sample_2d_cut,
+)
 from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
 from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
 
@@ -57,20 +86,36 @@ def level_shift(reso: int, finest: int) -> int:
     return 2 * (int(finest).bit_length() - int(reso).bit_length())
 
 
+def mm(a, b):
+    """a @ b in a's dtype; bf16 operands multiply exactly and sum in f32, the
+    sum rounded once (a JAX dot with f32 accumulation, cast to the dtype)."""
+    return (acc_dtype(a) @ acc_dtype(b)).to(a.dtype)
+
+
+def level_sample(plane, xy):
+    """K4's bilinear sample of the (B, R, R, F) plane: ``grid_sample_2d``,
+    or in bf16 its weights cut to bf16 (``grid_sample_2d_cut``)."""
+    if plane.dtype == torch.bfloat16:
+        return grid_sample_2d_cut(plane, xy)
+    return grid_sample_2d(plane, xy)
+
+
 def fused_level_plain(plane, c_last, weights, xy, cells, mask, reso: int,
                       finest: int):
     """The level round trip as plain torch ops. Same arguments and returns as
-    :func:`fused_level`."""
+    :func:`fused_level`; in bf16 with its rounding points (module
+    docstring)."""
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    sampled = grid_sample_2d(plane, xy)
-    h = torch.relu(sampled @ w_in + b_in)
-    o = (h @ w_out + b_out) + (c_last @ w_c + b_c)
+    h = torch.relu(mm(level_sample(plane, xy), w_in) + b_in)
+    o = mm(h, w_out) + b_out
+    o = o + mm(c_last, w_c) + b_c
     ncell = reso * reso
     cell_r = cells >> level_shift(reso, finest)
     valid = mask & (cells >= 0) & (cell_r < ncell)
     idx = torch.where(valid, cell_r, torch.zeros_like(cell_r))
     counts = segment_counts(idx, ncell, valid)
-    plane_out = morton_to_plane(segment_mean(o, idx, ncell, valid, counts=counts), reso)
+    vec = segment_mean(acc_dtype(o), idx, ncell, valid, counts=counts).to(o.dtype)
+    plane_out = morton_to_plane(vec, reso)
     c_out = torch.where(mask[..., None], o, torch.zeros_like(o))
     counts = morton_to_plane(counts, reso)[..., 0].to(torch.int32)
     return plane_out, c_out, counts
@@ -81,16 +126,17 @@ def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, 
     """K5's row pass in plain torch. Same arguments and returns as
     :func:`fused_level_bwd_rows`."""
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    s = grid_sample_2d(plane, xy)
-    pre = s @ w_in + b_in
+    s = level_sample(plane, xy)
+    pre = mm(s, w_in) + b_in
     h = torch.relu(pre)
     cell_r = cells >> level_shift(reso, finest)
-    scaled = plane_to_morton(g_plane / counts.clamp_min(1).to(g_plane.dtype)[..., None])
+    g = acc_dtype(g_plane)
+    scaled = plane_to_morton((g / counts.clamp_min(1).to(g.dtype)[..., None]).to(g_plane.dtype))
     g_pt = pool_gather_plain(scaled, cell_r, mask & (cells >= 0))
     d_o = torch.where(mask[..., None], g_c + g_pt, torch.zeros_like(g_c))
-    d_h = (d_o @ w_out.t()) * (pre > 0)
-    d_s = d_h @ w_in.t()
-    d_c_last = d_o @ w_c.t()
+    d_h = mm(d_o, w_out.t()) * (pre > 0)
+    d_s = mm(d_h, w_in.t())
+    d_c_last = mm(d_o, w_c.t())
 
     def rows(t):
         return t.reshape(-1, t.shape[-1])
@@ -100,9 +146,11 @@ def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, 
 
 def level_d_plane_plain(d_s, xy, cells, mask, reso: int, finest: int):
     """K5's d_plane in plain torch. Same arguments and returns as
-    :func:`level_d_plane`."""
+    :func:`level_d_plane`; in bf16 the weights cut as K4's and each pixel's
+    f32 sum rounded once."""
     d_s = torch.where(mask[..., None], d_s, torch.zeros_like(d_s))
-    return grid_sample_2d_adjoint(d_s, xy, reso, reso)
+    cut = d_s.dtype if d_s.dtype == torch.bfloat16 else None
+    return grid_sample_2d_adjoint(acc_dtype(d_s), xy, reso, reso, cut).to(d_s.dtype)
 
 
 def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
@@ -121,8 +169,8 @@ def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_pla
 
 def level_bwd_reduce_plain(a, b, bias: bool):
     """(a^T b, colsum(b) if ``bias`` else None) over the rows of (M, K) a and
-    (M, N) b."""
-    return a.t() @ b, (b.sum(0) if bias else None)
+    (M, N) b; bf16 ones summed in f32 and rounded once."""
+    return mm(a.t(), b), (acc_dtype(b).sum(0).to(b.dtype) if bias else None)
 
 
 def _splits(m: int, k: int, n: int, device: torch.device) -> int:
@@ -143,23 +191,25 @@ def level_bwd_reduce(a, b, bias: bool):
     :func:`level_bwd_reduce_plain`, a hand-written split-K reduction over
     the rows on the tensor cores at fp32 accuracy (3xTF32;
     ``csrc/level_bwd.cu`` ``t2h_level_bwd_reduce``). Deterministic: the
-    splits are summed in a fixed order."""
+    splits are summed in a fixed order. bf16 a and b: one bf16 pass into f32
+    sums, dw and db rounded to bf16 once."""
     if runtime.on_cpu(a):
         return level_bwd_reduce_plain(a, b, bias)
-    dev = a.device
+    dev, dt = a.device, a.dtype
     m, k = a.shape
     n = b.shape[1]
-    runtime.require(a, "a", torch.float32, (m, k), dev)
-    runtime.require(b, "b", torch.float32, (m, n), dev)
+    _check_dtype(dt)
+    runtime.require(a, "a", dt, (m, k), dev)
+    runtime.require(b, "b", dt, (m, n), dev)
     splits = _splits(m, k, n, dev)
     part = torch.empty(splits * (k + bias) * n, device=dev, dtype=torch.float32)
-    dw = torch.empty((k, n), device=dev, dtype=torch.float32)
-    db = torch.empty(n, device=dev, dtype=torch.float32) if bias else None
-    err = runtime.library().t2h_level_bwd_reduce(
+    dw = torch.empty((k, n), device=dev, dtype=dt)
+    db = torch.empty(n, device=dev, dtype=dt) if bias else None
+    err = runtime.entry("level_bwd_reduce", dt)(
         a.data_ptr(), b.data_ptr(), m, k, n, splits, part.data_ptr(), dw.data_ptr(),
         db.data_ptr() if bias else None, runtime.stream_ptr(dev))
     runtime.check(err, "level_bwd_reduce")
-    runtime.LAUNCHES["level_bwd_reduce"] += 1
+    runtime.launched("level_bwd_reduce", dt)
     return dw, db
 
 
@@ -170,7 +220,8 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
     accuracy (3xTF32), 64 rows a block.
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
-    cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
+    cotangents g_plane (B, R, R, F), g_c (B, N, F), all in the plane's dtype
+    (f32 or bf16) and contiguous.
 
     Returns:
         d_c_last (B, N, Fl), and the rows (M = B*N): s (M, F) the recomputed
@@ -180,35 +231,35 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
         samples them.
 
     Takes F <= 512 and any Fl: its shared memory (219 KB at F = 512) does
-    not grow with Fl. Allocates the 7F floats a row of those rows: ~2.3 GB
-    at the flagship's F=512 level. Each output element is written once.
+    not grow with Fl. Allocates the 7F values a row of those rows: ~2.3 GB
+    at the flagship's F=512 level in f32. Each output element is written
+    once; every output in the plane's dtype.
     """
     if runtime.on_cpu(plane):
         return fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts,
                                           g_plane, g_c, reso, finest)
-    dev = plane.device
+    dev, dt = plane.device, plane.dtype
     b, r, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[-1]
     h = 2 * f
     w_in, b_in, w_out, _, w_c, _ = weights
-    f32 = torch.float32
     _check_level(plane, c_last, weights, xy, cells, mask, reso)
     runtime.require(counts, "counts", torch.int32, (b, r, r), dev)
-    runtime.require(g_plane, "g_plane", f32, (b, r, r, f), dev)
-    runtime.require(g_c, "g_c", f32, (b, n, f), dev)
+    runtime.require(g_plane, "g_plane", dt, (b, r, r, f), dev)
+    runtime.require(g_c, "g_c", dt, (b, n, f), dev)
     m = b * n
-    new = lambda *shape: torch.empty(shape, device=dev, dtype=f32)  # noqa: E731
+    new = lambda *shape: torch.empty(shape, device=dev, dtype=dt)  # noqa: E731
     w_out_t, w_c_t, w_in_t = (w.t().contiguous() for w in (w_out, w_c, w_in))
     d_c_last = new(b, n, fl)
     s, hs, d_o, d_h, d_s = new(m, f), new(m, h), new(m, f), new(m, h), new(m, f)
-    err = runtime.library().t2h_fused_level_bwd(
+    err = runtime.entry("fused_level_bwd", dt)(
         plane.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(),
         counts.data_ptr(), g_plane.data_ptr(), g_c.data_ptr(), w_in.data_ptr(),
         b_in.data_ptr(), w_out_t.data_ptr(), w_c_t.data_ptr(), w_in_t.data_ptr(),
         d_c_last.data_ptr(), s.data_ptr(), hs.data_ptr(), d_o.data_ptr(), d_h.data_ptr(),
         d_s.data_ptr(), b, n, r, f, fl, level_shift(reso, finest), runtime.stream_ptr(dev))
     runtime.check(err, "fused_level_bwd")
-    runtime.LAUNCHES["fused_level_bwd"] += 1
+    runtime.launched("fused_level_bwd", dt)
     return d_c_last, s, hs, d_o, d_h, d_s
 
 
@@ -219,32 +270,34 @@ def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int):
     once from one fixed-order sum (bit-equal run to run).
 
     Args:
-        d_s: (B, N, F) f32 the rows' d_s (:func:`fused_level_bwd_rows`).
+        d_s: (B, N, F) f32 or bf16 the rows' d_s (:func:`fused_level_bwd_rows`).
         xy, cells, mask: the forward's (B, N, 2) f32, (B, N) int32 finest
             Morton ids at ``finest``, (B, N) bool.
         reso: the plane's resolution R; finest: the layout's.
 
-    Returns d_plane (B, R, R, F). On the card the rows of each finest cell
+    Returns d_plane (B, R, R, F) in d_s's dtype (bf16: the weights cut as
+    K4's, each pixel's f32 sum rounded once). On the card the rows of each finest cell
     must be contiguous and a row's cell within one cell of trunc(xy *
     finest), as on the aligned layout (the module's contract).
     """
     if runtime.on_cpu(d_s):
         return level_d_plane_plain(d_s, xy, cells, mask, reso, finest)
-    dev = d_s.device
+    dev, dt = d_s.device, d_s.dtype
     b, n, f = d_s.shape
-    runtime.require(d_s, "d_s", torch.float32, (b, n, f), dev)
+    _check_dtype(dt)
+    runtime.require(d_s, "d_s", dt, (b, n, f), dev)
     runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     if finest < reso:
         raise ValueError(f"finest resolution {finest} < reso {reso}")
-    d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=dt)
     offs = torch.empty(2 * b * finest * finest, device=dev, dtype=torch.int32)
-    err = runtime.library().t2h_level_d_plane(
+    err = runtime.entry("level_d_plane", dt)(
         d_s.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(), offs.data_ptr(),
         d_plane.data_ptr(), b, n, reso, f, finest, runtime.stream_ptr(dev))
     runtime.check(err, "level_d_plane")
-    runtime.LAUNCHES["level_d_plane"] += 1
+    runtime.launched("level_d_plane", dt)
     return d_plane
 
 
@@ -255,16 +308,17 @@ def fused_level_bwd(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_
     (:func:`level_d_plane`), then three :func:`level_bwd_reduce` calls.
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
-    cotangents g_plane (B, R, R, F), g_c (B, N, F), all f32 and contiguous.
+    cotangents g_plane (B, R, R, F), g_c (B, N, F), all in the plane's dtype
+    and contiguous.
 
     Returns:
         d_plane (B, R, R, F), d_c_last (B, N, Fl), and the weight cotangents
         (dw_in, db_in, dw_out, db_out, dw_c, db_c), db_c equal to db_out
         (both biases add into o).
 
-    The row pass's 7F floats of scratch a row (B*N rows), ~2.3 GB at the
-    flagship's F=512 level, are freed on return, d_s (F of them) before the
-    reductions.
+    The row pass's 7F values of scratch a row (B*N rows), ~2.3 GB at the
+    flagship's F=512 level in f32, are freed on return, d_s (F of them)
+    before the reductions. Every cotangent comes in its input's dtype.
     """
     if runtime.on_cpu(plane):
         return fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts,
@@ -306,10 +360,11 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
     :func:`fused_level_bwd`).
 
     Args:
-        plane: (B, R, R, F) f32 NHWC plane (post-convs), R == ``reso``.
-        c_last: (B, N, Fl) f32 previous level's point features.
+        plane: (B, R, R, F) NHWC plane (post-convs), R == ``reso``; f32 or
+            bf16 (the bf16 rule: module docstring).
+        c_last: (B, N, Fl) previous level's point features, in plane's dtype.
         weights: (w_in (F, 2F), b_in (2F,), w_out (2F, F), b_out (F,),
-            w_c (Fl, F), b_c (F,)), f32, row-major (in, out).
+            w_c (Fl, F), b_c (F,)), in plane's dtype, row-major (in, out).
         xy: (B, N, 2) f32 point coordinates in [0, 1].
         cells: (B, N) int32 finest Morton ids (PAD_CELL_SENTINEL on pads).
         mask: (B, N) bool validity.
@@ -318,7 +373,7 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
     Returns:
         plane_out (B, R, R, F) scatter-mean of the new point features (empty
         cells 0), c_out (B, N, F) new point features (0 on masked rows),
-        counts (B, R, R) int32 points per cell.
+        both in plane's dtype, counts (B, R, R) int32 points per cell.
 
     K4 runs its three products on the tensor cores at fp32 accuracy
     (3xTF32, ``csrc/mma_tf32x3.cuh``), 64 points a block; it takes F <= 512
@@ -330,25 +385,30 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 
 
+def _check_dtype(dt: torch.dtype) -> None:
+    if dt not in VALUE_DTYPES:
+        raise TypeError(f"dtype {dt}: the level kernels take float32 or bfloat16")
+
+
 def _check_level(plane, c_last, weights, xy, cells, mask, reso: int) -> None:
-    dev = plane.device
+    dev, dt = plane.device, plane.dtype
     b, r, _, f = plane.shape
     if r != reso:
         raise ValueError(f"plane resolution {r} != reso {reso}")
+    _check_dtype(dt)
     n, fl = c_last.shape[1], c_last.shape[-1]
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    f32 = torch.float32
-    runtime.require(plane, "plane", f32, (b, r, r, f), dev)
-    runtime.require(c_last, "c_last", f32, (b, n, fl), dev)
-    runtime.require(xy, "xy", f32, (b, n, 2), dev)
+    runtime.require(plane, "plane", dt, (b, r, r, f), dev)
+    runtime.require(c_last, "c_last", dt, (b, n, fl), dev)
+    runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
-    runtime.require(w_in, "w_in", f32, (f, 2 * f), dev)
-    runtime.require(b_in, "b_in", f32, (2 * f,), dev)
-    runtime.require(w_out, "w_out", f32, (2 * f, f), dev)
-    runtime.require(b_out, "b_out", f32, (f,), dev)
-    runtime.require(w_c, "w_c", f32, (fl, f), dev)
-    runtime.require(b_c, "b_c", f32, (f,), dev)
+    runtime.require(w_in, "w_in", dt, (f, 2 * f), dev)
+    runtime.require(b_in, "b_in", dt, (2 * f,), dev)
+    runtime.require(w_out, "w_out", dt, (2 * f, f), dev)
+    runtime.require(b_out, "b_out", dt, (f,), dev)
+    runtime.require(w_c, "w_c", dt, (fl, f), dev)
+    runtime.require(b_c, "b_c", dt, (f,), dev)
 
 
 def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int):
@@ -356,19 +416,19 @@ def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int
         return fused_level_plain(plane, c_last, weights, xy, cells, mask, reso,
                                  finest)
     _check_level(plane, c_last, weights, xy, cells, mask, reso)
-    dev = plane.device
+    dev, dt = plane.device, plane.dtype
     b, r, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[-1]
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    c_out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_fused_level(
+    c_out = torch.empty((b, n, f), device=dev, dtype=dt)
+    err = runtime.entry("fused_level", dt)(
         plane.data_ptr(), c_last.data_ptr(), xy.data_ptr(), mask.data_ptr(),
         w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
         w_c.data_ptr(), b_c.data_ptr(), c_out.data_ptr(), b, n, r, f, fl,
         runtime.stream_ptr(dev))
     runtime.check(err, "fused_level")
-    runtime.LAUNCHES["fused_level"] += 1
+    runtime.launched("fused_level", dt)
     plane_out, counts = scatter_runs_masked(c_out, cells, mask, reso,
                                             level_shift(reso, finest))
-    runtime.LAUNCHES["fused_level_scatter"] += 1
+    runtime.launched("fused_level_scatter", dt)
     return plane_out, c_out, counts

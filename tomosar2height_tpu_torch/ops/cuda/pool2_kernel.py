@@ -23,6 +23,15 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
   cell once, the empty cells (marked first) zeroed in the same launch; no
   atomics.
 
+Each takes float32 or bfloat16 values (the model's ``model.dtype``), its
+outputs in the values' dtype, and launches its instance for that dtype
+(``t2h_*`` or ``t2h_*_bf16``; counted under ``<name>`` or ``<name>_bf16``).
+bf16 follows the JAX kernels' rule (pool2_kernel.py:88-117,148-158,292-334):
+bf16 values summed (or maxed) in f32 in the same run order, each output
+rounded to bf16 once; the plain versions do the same in torch (an f32
+reduction rounded once), so a bf16 kernel and its plain version differ only
+by the f32 summation order.
+
 They read only the finest Morton cell ids and the mask: the TPU's chunk
 metadata (ct/pt/tmask) served its sequential grid and has no use here. What
 bounds them on the H100 and how the design answers it is noted in the CUDA
@@ -49,7 +58,11 @@ take any order and are the oracle.
 - scatter_plane2: ``dv[i] = g_plane[cell_i] / max(count, 1)`` on valid rows,
   one K2 launch reading the row-major plane. It divides, as the plain
   version does (bit-equal to it); JAX multiplies by ``1 / max(count, 1)``
-  (pool2_kernel.py:448), within one rounding of that.
+  (pool2_kernel.py:448), within one rounding of that. In bf16 the f32
+  quotient is rounded to bf16 once, then gathered (:424-453).
+
+In bf16 the max backward's tie gate compares the bf16 values (exact in f32,
+as :514 compares them) and each gradient is rounded once, as JAX's.
 """
 
 from __future__ import annotations
@@ -68,6 +81,13 @@ from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_t
 _KINDS = {"max": 0, "mean": 1, "sum": 2}
 
 
+def acc_dtype(x: torch.Tensor) -> torch.Tensor:
+    """x in the dtype its sums are taken in: float32 for bfloat16 values (the
+    JAX kernels' f32 accumulators), else its own (float32, or the float64
+    the step tests run in)."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def _valid_index(cells: torch.Tensor, mask: torch.Tensor, ncell: int):
     valid = mask & (cells >= 0) & (cells < ncell)
     return torch.where(valid, cells, torch.zeros_like(cells)), valid
@@ -77,13 +97,11 @@ def _valid_index(cells: torch.Tensor, mask: torch.Tensor, ncell: int):
 
 
 def pool_reduce_plain(values, cells, mask, ncell: int, kind: str) -> torch.Tensor:
-    """(B, N, F) values -> (B, ncell, F) per-cell max/mean/sum in Morton order."""
+    """(B, N, F) values -> (B, ncell, F) per-cell max/mean/sum in Morton order,
+    reduced in float32 and rounded to the values' dtype once."""
     idx, valid = _valid_index(cells, mask, ncell)
-    if kind == "max":
-        return segment_max(values, idx, ncell, valid)
-    if kind == "sum":
-        return segment_sum(values, idx, ncell, valid)
-    return segment_mean(values, idx, ncell, valid)
+    reduce = {"max": segment_max, "sum": segment_sum, "mean": segment_mean}[kind]
+    return reduce(acc_dtype(values), idx, ncell, valid).to(values.dtype)
 
 
 def pool_gather_plain(cellv, cells, mask) -> torch.Tensor:
@@ -101,12 +119,12 @@ def pool2_plain(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
 
 
 def scatter_plane2_plain(values, cells, mask, reso: int):
-    """Masked scatter-mean -> (plane (B, reso, reso, F), counts (B, reso, reso)
-    int32)."""
+    """Masked scatter-mean -> (plane (B, reso, reso, F) in the values' dtype,
+    the f32 mean rounded once; counts (B, reso, reso) int32)."""
     ncell = reso * reso
     idx, valid = _valid_index(cells, mask, ncell)
     counts = segment_counts(idx, ncell, valid)
-    vec = segment_mean(values, idx, ncell, valid, counts=counts)
+    vec = segment_mean(acc_dtype(values), idx, ncell, valid, counts=counts).to(values.dtype)
     plane = morton_to_plane(vec, reso)
     return plane, morton_to_plane(counts, reso)[..., 0].to(torch.int32)
 
@@ -123,17 +141,25 @@ def pool2_bwd_plain(g, values, out, cells, mask, reso: int, kind: str) -> torch.
 
 def scatter_plane2_bwd_plain(g_plane, cells, mask, counts) -> torch.Tensor:
     """Cotangent of :func:`scatter_plane2` w.r.t. ``values``: each valid row
-    reads g_plane at its cell divided by max(count, 1); 0 elsewhere."""
-    scaled = g_plane / counts.clamp_min(1).to(g_plane.dtype)[..., None]
+    reads g_plane at its cell divided by max(count, 1) (the f32 quotient in
+    g_plane's dtype); 0 elsewhere."""
+    g = acc_dtype(g_plane)
+    scaled = (g / counts.clamp_min(1).to(g.dtype)[..., None]).to(g_plane.dtype)
     return pool_gather_plain(plane_to_morton(scaled), cells, mask)
 
 
 # --- kernels ----------------------------------------------------------------------
 
+VALUE_DTYPES = (torch.float32, torch.bfloat16)
+"""The value dtypes the run kernels and K2 have instances for."""
+
+
 def _check_points(values, cells, mask):
     dev = values.device
     b, n, f = values.shape
-    runtime.require(values, "values", torch.float32, (b, n, f), dev)
+    if values.dtype not in VALUE_DTYPES:
+        raise TypeError(f"values: dtype {values.dtype}, expected float32 or bfloat16")
+    runtime.require(values, "values", values.dtype, (b, n, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     return b, n, f
@@ -145,10 +171,10 @@ def _pool_runs(x, cells, mask, reso: int, kind: str, tie=None) -> torch.Tensor:
     b, n, f = _check_points(x, cells, mask)
     if tie is not None:
         for name, t in zip(("values", "out"), tie):
-            runtime.require(t, name, torch.float32, (b, n, f), x.device)
+            runtime.require(t, name, x.dtype, (b, n, f), x.device)
     out = torch.empty_like(x)
     a, c = (0, 0) if tie is None else (tie[0].data_ptr(), tie[1].data_ptr())
-    err = runtime.library().t2h_pool_runs(
+    err = runtime.entry("pool_runs", x.dtype)(
         x.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, a, c, out.data_ptr(), b, n, f,
         reso * reso, _KINDS[kind], runtime.stream_ptr(x.device))
     runtime.check(err, "pool_runs")
@@ -164,7 +190,7 @@ def pool2_fwd(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
     if runtime.on_cpu(values):
         return pool2_plain(values, cells, mask, reso, kind)
     out = _pool_runs(values, cells, mask, reso, kind)
-    runtime.LAUNCHES["pool2"] += 1
+    runtime.launched("pool2", values.dtype)
     return out
 
 
@@ -176,7 +202,7 @@ def pool2_bwd(g, values, out, cells, mask, reso: int, kind: str) -> torch.Tensor
         return pool2_bwd_plain(g, values, out, cells, mask, reso, kind)
     dv = _pool_runs(g, cells, mask, reso, "mean" if kind == "mean" else "sum",
                     None if kind == "mean" else (values, out))
-    runtime.LAUNCHES["pool2_bwd"] += 1
+    runtime.launched("pool2_bwd", g.dtype)
     return dv
 
 
@@ -186,20 +212,22 @@ def scatter_plane2_bwd(g_plane, cells, mask, counts) -> torch.Tensor:
     ``LAUNCHES['scatter_plane2_bwd']`` besides K2's own ``pool_gather``."""
     if runtime.on_cpu(g_plane):
         return scatter_plane2_bwd_plain(g_plane, cells, mask, counts)
-    dev = g_plane.device
+    dev, dt = g_plane.device, g_plane.dtype
     b, reso, _, f = g_plane.shape
     n = cells.shape[-1]
-    runtime.require(g_plane, "g_plane", torch.float32, (b, reso, reso, f), dev)
+    if dt not in VALUE_DTYPES:
+        raise TypeError(f"g_plane: dtype {dt}, expected float32 or bfloat16")
+    runtime.require(g_plane, "g_plane", dt, (b, reso, reso, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     runtime.require(counts, "counts", torch.int32, (b, reso, reso), dev)
-    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_pool_gather(
+    out = torch.empty((b, n, f), device=dev, dtype=dt)
+    err = runtime.entry("pool_gather", dt)(
         g_plane.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(),
         out.data_ptr(), b, n, f, reso, 0, runtime.stream_ptr(dev))
     runtime.check(err, "pool_gather")
-    runtime.LAUNCHES["pool_gather"] += 1
-    runtime.LAUNCHES["scatter_plane2_bwd"] += 1
+    runtime.launched("pool_gather", dt)
+    runtime.launched("scatter_plane2_bwd", dt)
     return out
 
 
@@ -239,7 +267,7 @@ def pool2(values, cells, mask, reso: int, kind: str) -> torch.Tensor:
     (module docstring).
 
     Args:
-        values: (B, N, F) f32 point features.
+        values: (B, N, F) f32 or bf16 point features.
         cells: (B, N) int32 finest Morton ids (PAD_CELL_SENTINEL on pads),
             the rows of each cell, and so its valid rows, contiguous.
         mask: (B, N) bool validity.
@@ -263,7 +291,7 @@ def _scatter_plane2(values, cells, mask, reso: int):
     if runtime.on_cpu(values):
         return scatter_plane2_plain(values, cells, mask, reso)
     out = scatter_runs_masked(values, cells, mask, reso, 0)
-    runtime.LAUNCHES["scatter_plane2"] += 1
+    runtime.launched("scatter_plane2", values.dtype)
     return out
 
 
@@ -271,15 +299,16 @@ def scatter_runs_masked(values, cells, mask, reso: int, shift: int):
     """Launch the run scatter (``t2h_scatter_runs``) with the mask: the masked
     scatter-mean of (B, N, F) ``values`` into cell ``cells >> shift`` of a
     row-major plane -> (plane (B, reso, reso, F), counts (B, reso, reso)
-    int32), each cell written once. K3 (shift 0) and K4's plane
-    (``level_kernel``, the level's shift) take it; their wrappers count the
-    launch. Each cell's valid rows must be one run (the module's contract)."""
+    int32), each cell written once; the plane in the values' dtype (f32 or
+    bf16). K3 (shift 0) and K4's plane (``level_kernel``, the level's shift)
+    take it; their wrappers count the launch. Each cell's valid rows must be
+    one run (the module's contract)."""
     b, n, f = _check_points(values, cells, mask)
     dev = values.device
-    plane = torch.empty((b, reso, reso, f), device=dev, dtype=torch.float32)
+    plane = torch.empty((b, reso, reso, f), device=dev, dtype=values.dtype)
     counts = torch.empty((b, reso, reso), device=dev, dtype=torch.int32)
     flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)
-    err = runtime.library().t2h_scatter_runs(
+    err = runtime.entry("scatter_runs", values.dtype)(
         values.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, plane.data_ptr(),
         counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift, 0, 0, 0,
         runtime.stream_ptr(dev))

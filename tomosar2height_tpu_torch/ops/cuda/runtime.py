@@ -33,16 +33,17 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"pool2": 0, "pool_gather": 0, "scatter_plane2": 0,
-            "fused_level": 0, "fused_level_scatter": 0, "fused_level_bwd": 0,
-            "level_d_plane": 0, "level_bwd_reduce": 0,
-            "pool2_bwd": 0, "scatter_plane2_bwd": 0, "conv3x3": 0, "conv_pair": 0,
-            "conv_decoder": 0, "conv3x3_bf16": 0, "conv_pair_bf16": 0,
-            "conv_decoder_bf16": 0, "tile_gather": 0, "tile_pool": 0,
-            "scatter_mean_plane": 0, "aligned_scatter_mean_plane": 0, "scatter_mean": 0,
-            "scatter_mean_plane_v3": 0, "tile_gather_bwd": 0, "tile_pool_bwd": 0,
-            "aligned_scatter_mean_plane_bwd": 0}
-"""Kernel launches per wrapper since the last :func:`reset_launches`."""
+_BF16_TOO = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_level_scatter",
+             "fused_level_bwd", "level_d_plane", "level_bwd_reduce", "pool2_bwd",
+             "scatter_plane2_bwd", "conv3x3", "conv_pair", "conv_decoder")
+LAUNCHES = {**{k: 0 for n in _BF16_TOO for k in (n, f"{n}_bf16")},
+            **dict.fromkeys(("tile_gather", "tile_pool", "scatter_mean_plane",
+                             "aligned_scatter_mean_plane", "scatter_mean",
+                             "scatter_mean_plane_v3", "tile_gather_bwd", "tile_pool_bwd",
+                             "aligned_scatter_mean_plane_bwd"), 0)}
+"""Kernel launches per wrapper since the last :func:`reset_launches`; a
+kernel with a bf16 instance counts its launches on bf16 tensors under
+``<name>_bf16`` (:func:`launched`)."""
 
 BUILD_INFO: dict = {}
 """Of the library this process loaded: path, whether it was built now, build
@@ -56,13 +57,14 @@ _I = ctypes.c_int
 _SIGNATURES = {
     # name: argtypes (every function returns an int: cudaError_t, or the
     # count that t2h_level_bwd_reduce_tiles computes)
-    "t2h_pool_runs": [_P] * 7 + [_I] * 5 + [_P],
-    "t2h_pool_gather": [_P] * 5 + [_I] * 5 + [_P],
-    "t2h_scatter_runs": [_P] * 7 + [_I] * 8 + [_P],
-    "t2h_fused_level": [_P] * 11 + [_I] * 5 + [_P],
-    "t2h_fused_level_bwd": [_P] * 18 + [_I] * 6 + [_P],
-    "t2h_level_d_plane": [_P] * 6 + [_I] * 5 + [_P],
-    "t2h_level_bwd_reduce": [_P, _P] + [_I] * 4 + [_P] * 4,
+    **{f"t2h_{name}{suffix}": argtypes for name, argtypes in (
+        ("pool_runs", [_P] * 7 + [_I] * 5 + [_P]),
+        ("pool_gather", [_P] * 5 + [_I] * 5 + [_P]),
+        ("scatter_runs", [_P] * 7 + [_I] * 8 + [_P]),
+        ("fused_level", [_P] * 11 + [_I] * 5 + [_P]),
+        ("fused_level_bwd", [_P] * 18 + [_I] * 6 + [_P]),
+        ("level_d_plane", [_P] * 6 + [_I] * 5 + [_P]),
+        ("level_bwd_reduce", [_P, _P] + [_I] * 4 + [_P] * 4)) for suffix in ("", "_bf16")},
     "t2h_level_bwd_reduce_tiles": [_I, _I],
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
@@ -72,6 +74,20 @@ _SIGNATURES = {
     "t2h_conv_decoder_bf16": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
 }
+
+
+_SUFFIX = {torch.float32: "", torch.bfloat16: "_bf16"}
+
+
+def entry(name: str, dtype: torch.dtype):
+    """The C entry point ``t2h_<name>`` of the kernel's instance for
+    ``dtype``: float32, or ``t2h_<name>_bf16`` for bfloat16."""
+    return getattr(library(), f"t2h_{name}{_SUFFIX[dtype]}")
+
+
+def launched(name: str, dtype: torch.dtype) -> None:
+    """Count one launch of kernel ``name``'s instance for ``dtype``."""
+    LAUNCHES[f"{name}{_SUFFIX[dtype]}"] += 1
 
 
 def reset_launches() -> None:
@@ -105,15 +121,15 @@ def _digest() -> str:
 
 
 def _run_all(cmds) -> str:
-    """Run the commands at once and wait for every one; raise if one failed.
-    Returns their joined output."""
+    """Run the commands at once and wait for every one; raise if any failed,
+    with the output of each that did. Returns their joined output."""
     procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                     stderr=subprocess.STDOUT, text=True))
              for cmd in cmds]
     outs = [(cmd, proc.communicate()[0], proc.returncode) for cmd, proc in procs]
-    for cmd, out, rc in outs:
-        if rc != 0:
-            raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+    failed = [f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}" for cmd, out, rc in outs if rc]
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return "".join(out for _, out, _ in outs)
 
 

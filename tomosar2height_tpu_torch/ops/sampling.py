@@ -42,6 +42,14 @@ def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
     return top * (1 - wy) + bot * wy
 
 
+def _corner_weights(coords: torch.Tensor, h: int, w: int):
+    """The four corners (y, x) of each point's sample and their weights, in
+    the order (y0, x0), (y0, x1), (y1, x0), (y1, x1)."""
+    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
+    return ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
+            (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy))
+
+
 def bilinear_matrix(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(B, N, H*W) weights of :func:`grid_sample_2d`: row i holds point i's
     four bilinear weights at its pixels, so ``bilinear_matrix(xy, H, W) @
@@ -50,24 +58,40 @@ def bilinear_matrix(coords: torch.Tensor, h: int, w: int) -> torch.Tensor:
     corners share a pixel (the clamp at the last pixel), one of their weights
     is exactly 0, so the one add that can collide adds a zero."""
     b, n, _ = coords.shape
-    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
-    idx = torch.stack([y0 * w + x0, y0 * w + x1, y1 * w + x0, y1 * w + x1], -1).long()
-    wts = torch.cat([(1 - wx) * (1 - wy), wx * (1 - wy), (1 - wx) * wy, wx * wy], -1)
+    corners = _corner_weights(coords, h, w)
+    idx = torch.stack([yi * w + xi for yi, xi, _ in corners], -1).long()
+    wts = torch.cat([wgt for _, _, wgt in corners], -1)
     out = torch.zeros(b, n, h * w, device=coords.device, dtype=coords.dtype)
     return out.scatter_add_(2, idx, wts)
 
 
-def grid_sample_2d_adjoint(g: torch.Tensor, coords: torch.Tensor, h: int,
-                           w: int) -> torch.Tensor:
+def grid_sample_2d_cut(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """The bilinear sample as the fused level kernel takes it in bf16
+    (JAX ops/pallas/level_kernel.py:234-245): each corner's weight cut to
+    the plane's dtype, the four exact products summed in float32 in corner
+    order, the sum rounded to the plane's dtype once."""
+    b, h, w, c = plane.shape
+    flat = plane.reshape(b, h * w, c)
+    s = None
+    for yi, xi, wgt in _corner_weights(coords, h, w):
+        idx = (yi * w + xi).long()[..., None].expand(*yi.shape, c)
+        term = torch.gather(flat, 1, idx).float() * wgt.to(plane.dtype).float()
+        s = term if s is None else s + term
+    return s.to(plane.dtype)
+
+
+def grid_sample_2d_adjoint(g: torch.Tensor, coords: torch.Tensor, h: int, w: int,
+                           cut: torch.dtype | None = None) -> torch.Tensor:
     """The transpose of :func:`grid_sample_2d`: add each point's (B, N, C)
     cotangent into its four pixels of a (B, H, W, C) plane, weighted as the
-    sample weighs them."""
+    sample weighs them; with ``cut``, each weight first cut to that dtype
+    (the transpose of :func:`grid_sample_2d_cut`)."""
     b, n, c = g.shape
-    x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
     base = (torch.arange(b, device=g.device) * (h * w))[:, None]
     out = torch.zeros(b * h * w, c, device=g.device, dtype=g.dtype)
-    for yi, xi, wgt in ((y0, x0, (1 - wx) * (1 - wy)), (y0, x1, wx * (1 - wy)),
-                        (y1, x0, (1 - wx) * wy), (y1, x1, wx * wy)):
+    for yi, xi, wgt in _corner_weights(coords, h, w):
+        if cut is not None:
+            wgt = wgt.to(cut).to(g.dtype)
         idx = (base + (yi * w + xi).long()).reshape(-1)
         out.index_add_(0, idx, (g * wgt).reshape(b * n, c))
     return out.reshape(b, h, w, c)
