@@ -37,7 +37,12 @@ Phases, one line each; any failure raises and the script exits non-zero:
    within one bf16 ulp of their bf16 plain versions, pool2's max exact; K4,
    K5 and its row pass under the JAX package's bf16 rule, BF16_RULE; each
    bit-equal on a second launch, K4 also over STRESS_LAUNCHES; bound at the
-   bf16 tensor-core rate, bf16 library yardsticks);
+   bf16 tensor-core rate, bf16 library yardsticks); and K9-K14 with the
+   'fused' layout's backwards in bf16 at the shapes of their f32 rows (rows
+   ``*_bf16``: within one bf16 ulp of their bf16 plain versions, the max
+   exact, each bit-equal on a second launch, bounds in bf16 bytes, bf16
+   library yardsticks), with the d_plane pass from f32 cotangents into a
+   bf16 plane (``level_d_plane_wide_bf16``, the 'cumsum' samples' backward);
 4. model: the full-width flagship network (random weights from a seed) on
    the ``fused2`` kernel path against the unsorted plain path;
 5. serving: a synthetic city (the port's ``build_city``) through the port's
@@ -117,8 +122,15 @@ Phases, one line each; any failure raises and the script exits non-zero:
    one; a warm-up and a timed optimizer step (``optimize_every`` 4) on
    headline-train's patches, window losses within 0.15 x scale of
    headline-train's f32 kernel run, the bf16 first step rerun from the same
-   weights, every parameter and the loss bit-equal; bf16 on the ``fused``
-   and ``cumsum`` layouts refused by ``build_model``;
+   weights, every parameter and the loss bit-equal; then the sorted
+   layouts in bf16 (``sorted_bf16``): the city served on 'fused', 'pallas'
+   (and one batch with mean pooling, K13) and 'cumsum' from sorted-serve's
+   weights, each raster within the bf16 gate of sorted-serve's f32 raster on
+   its layout, bit-equal to its warm-up, launches asserted (every kernel at
+   its bf16 instance, no f32 launch); a warm-up and a timed optimizer step on
+   'fused' and on 'cumsum' from sorted-train's weights on its patches, window
+   losses within 0.15 x scale of its f32 windows, the first step rerun: 0
+   tensors apart, losses equal;
 13. cli: the entry points on the city written to disk (``write_city``: LAS,
    nDSM, masks, RGB): ``cli.build_dataset`` (two 1024 m chunks),
    ``cli.train`` (the headline network at full width, batch 8,
@@ -163,9 +175,10 @@ kernel table as JSON: ``launches`` from the timed training run for K1-K5
 and the backwards, from the timed fusion-serve runs and the headline-train
 kernel run for K6 and K7, from the fusion-serve runs for K8, from the
 timed sorted-serve runs for K9-K12 and its mean-pooling batch for K13 (each
-the main path that runs it; K14 is on none, 0; so is ``pool2_mean``, the
-run kernel's mean pooling, as the flagship pools by max; the bf16 rows
-from the bf16 phase's timed serving and training runs), from the timed
+the main path that runs it; K14 is on none, 0 in both dtypes; so is
+``pool2_mean``, the run kernel's mean pooling, as the flagship pools by max;
+the bf16 rows from the bf16 phase's timed serving and training runs, those
+of K9-K13 and their backwards from its sorted runs), from the timed
 'fused' training run for the fused layout's backwards, ``launches_serve`` from the
 timed cloud-only serving run, ``launches_sorted_train`` from that 'fused'
 training run, ``launches_cli`` from the "cli" phase. Each phase's seconds are
@@ -669,7 +682,9 @@ def check_kernels(seed: int = 0):
                            ("K6-K8", check_conv_kernels, (entry, seed)),
                            ("K6-K8 in bf16", check_conv_kernels_bf16, (entry, seed)),
                            ("K9-K14 and the fused backwards", check_tile_kernels,
-                            (entry, seed))):
+                            (entry, seed)),
+                           ("K9-K14 and the fused backwards in bf16", check_tile_kernels,
+                            (entry, seed, torch.bfloat16))):
         fn(*args)
         log("time", f"kernels: {part} done at {time.perf_counter() - t_start:.1f} s")
     # free the cuBLAS workspace of graph_ms's stream (32 MiB), so that the
@@ -1365,8 +1380,8 @@ TILE_GATHER_SHAPES = [(r, f) for r, f, _ in LEVEL_SHAPES]
 
 def _scatter_yardstick(vals, cells, shift, ncell, dev, reduce="mean"):
     """One ``scatter_reduce`` (mean, or amax for a max pooling) over the flat
-    (B * ncell) cells, rows with no cell in one spare row: the library call
-    that computes a tile scatter-mean (or pooling)."""
+    (B * ncell) cells in the values' dtype, rows with no cell in one spare
+    row: the library call that computes a tile scatter-mean (or pooling)."""
     import torch
 
     b, n, f = vals.shape
@@ -1375,15 +1390,30 @@ def _scatter_yardstick(vals, cells, shift, ncell, dev, reduce="mean"):
                        torch.full_like(cell, b * ncell)).reshape(-1)
     idx = flat[:, None].expand(-1, f)
     src = vals.reshape(-1, f)
-    return lambda: torch.zeros(b * ncell + 1, f, device=dev).scatter_reduce_(
+    return lambda: torch.zeros(b * ncell + 1, f, device=dev, dtype=vals.dtype).scatter_reduce_(
         0, idx, src, reduce, include_self=False)
 
 
-def check_tile_kernels(entry, seed: int = 0):
+def _dtype_rule(dt):
+    """(row suffix, the maker of comparison pairs, tolerance text) of the rows in
+    ``dt``: float32 held to TOL, bfloat16 to one bf16 ulp of the bf16 plain
+    version (ULP_RULE)."""
+    import torch
+
+    if dt == torch.float32:
+        return "", lambda got, want: (got, want), f"{TOL:g} abs+rel"
+    return ("_bf16", lambda got, want: (got.float(), want.float(), _ulp_tol(want), 0.0),
+            ULP_RULE)
+
+
+def check_tile_kernels(entry, seed: int = 0, dt=None):
     """K9-K14 against their plain versions at every shape one flagship
-    forward gives them: K9/K12/K10 on the aligned layout with 256-cell tiles
-    ('fused'), K11/K13 on the plain sorted layout ('pallas'), K14 at 256-32;
-    B=8, 16384-point buckets."""
+    forward gives them, in ``dt`` (float32, or bfloat16: rows ``*_bf16``
+    within one bf16 ulp of their bf16 plain versions, max exact): K9/K12/K10
+    on the aligned layout with 256-cell tiles ('fused'), K11/K13 on the plain
+    sorted layout ('pallas'), K14 at 256-32; B=8, 16384-point buckets. In
+    bf16 also the d_plane pass from f32 cotangents into a bf16 plane (the
+    backward of the 'cumsum' layout's samples) on the plain sorted layout."""
     import torch
     import torch.nn.functional as F
 
@@ -1391,19 +1421,23 @@ def check_tile_kernels(entry, seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
     from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
 
+    dt = dt or torch.float32
+    sfx, close, tol = _dtype_rule(dt)
     dev = torch.device(DEVICE)
     pts, mask_np, apts, amask, acell, toff_np = flagship_batch(seed + 5, tile_cells=256)
     gen = torch.Generator(device=dev).manual_seed(seed + 5)
     up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
     xy, mask, cells, toff = up(apts[..., :2]), up(amask), up(acell), up(toff_np)
     b, npad = amask.shape
-    log("kernels", f"tile kernels: B={b} Npad={npad} (256-cell tiles) valid={int(amask.sum())}")
+    log("kernels", f"tile kernels in {dt}: B={b} Npad={npad} (256-cell tiles) "
+        f"valid={int(amask.sum())}")
 
     def level_toff(r):
         return toff[:, :: 4 ** ((256).bit_length() - r.bit_length())].contiguous()
 
     def rows_of(f, n=npad, m=mask):
-        return (torch.randn(b, n, f, generator=gen, device=dev) * m[..., None]).contiguous()
+        return (torch.randn(b, n, f, generator=gen, device=dev) * m[..., None]).to(
+            dt).contiguous()
 
     # bounds count what each kernel must read: values on the rows that add
     # into a cell (in range and in their tile), the cell ids of the rows it
@@ -1412,7 +1446,8 @@ def check_tile_kernels(entry, seed: int = 0):
         """Bytes of a tile scatter of v (B, N, F) at r^2 under tile offsets
         tl: ``walked`` (B, N) marks the rows whose ids it reads."""
         valid = sk.tile_rows(c, tl, shift, r * r)[1]
-        return (int(valid.sum()) * v.shape[-1] * 4 + int(walked.sum()) * 4 + nbytes(tl, out))
+        return (int(valid.sum()) * v.shape[-1] * v.element_size() + int(walked.sum()) * 4
+                + nbytes(tl, out))
 
     in_tiles = torch.arange(npad, device=dev)[None, :] < toff[:, -1:]  # rows in the tiles
 
@@ -1427,49 +1462,58 @@ def check_tile_kernels(entry, seed: int = 0):
                for x in (x0, (x0 + 1).clamp(max=r - 1))]
         return int(torch.unique(torch.cat(idx)).numel())
 
-    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    pairs, kfns, pfns, lfns, work, repeat = [], [], [], [], [0, 0], True
+    esize = torch.empty((), dtype=dt).element_size()
     for r, f in TILE_GATHER_SHAPES:
-        plane = torch.randn(b, r, r, f, generator=gen, device=dev)
+        plane = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
         a = (plane, xy, level_toff(r))
         out = gk.tile_gather(*a)
-        pairs.append((out, gk.tile_gather_plain(*a)))
-        work[0] += touched_pixels(r) * f * 4 + int(in_tiles.sum()) * 8 + nbytes(a[2], out)
+        repeat = repeat and torch.equal(out, gk.tile_gather(*a))
+        pairs.append(close(out, gk.tile_gather_plain(*a)))
+        work[0] += touched_pixels(r) * f * esize + int(in_tiles.sum()) * 8 + nbytes(a[2], out)
         work[1] += 8 * b * npad * f
         kfns.append(lambda a=a: gk.tile_gather(*a))
         pfns.append(lambda a=a: gk.tile_gather_plain(*a))
-        grid = (2 * xy - 1)[:, :, None, :]
+        grid = (2 * xy - 1)[:, :, None, :].to(dt)
         lfns.append(lambda p=plane.permute(0, 3, 1, 2), g=grid: F.grid_sample(
             p, g, padding_mode="border", align_corners=True))
-    entry("tile_gather", "tomosar2height_tpu_torch/csrc/tile_gather.cu",
+    log("kernels", f"tile_gather{sfx} bit-equal on a second launch at its 8 shapes: {repeat}")
+    if not repeat:
+        raise AssertionError(f"tile_gather{sfx} differs between two launches")
+    entry("tile_gather" + sfx, "tomosar2height_tpu_torch/csrc/tile_gather.cu",
           "tomosar2height_tpu/ops/pallas/gather_kernel.py:69", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
-          lambda: [fn() for fn in lfns])
+          lambda: [fn() for fn in lfns], tol=tol)
     del pairs, kfns, pfns, lfns
 
     # K10: the four poolings (F=32 at 256^2), max and mean, on pool2's run
     # kernel under the tile rule: three copies of its inputs in turn (as
     # pool2.cu's rows), each kind logged, a second launch held bit-equal;
-    # every row written
+    # every row written; max exact in bf16
     vals = rows_of(32)
     copies = [(vals, cells, toff)] + [tuple(x.clone() for x in (vals, cells, toff))
                                       for _ in range(2)]
     pairs, by_kind, repeat = [], [], True
     for k in ("max", "mean"):
         out = tpk.tile_pool(vals, cells, toff, k)
-        pairs.append((out, tpk.tile_pool_plain(vals, cells, toff, k)))
+        want = tpk.tile_pool_plain(vals, cells, toff, k)
+        pairs.append((out.float(), want.float(), 0.0, 0.0) if k == "max" and sfx
+                     else close(out, want))
         repeat = repeat and torch.equal(out, tpk.tile_pool(vals, cells, toff, k))
         ms = graph_ms([lambda a=a, k=k: tpk.tile_pool(*a, k) for a in copies])
         by_kind.append(f"{k} {ms:.4f}")
-    log("kernels", f"tile_pool by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
+    log("kernels", f"tile_pool{sfx} by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
         f"bit-equal on a second launch: {repeat}")
     if not repeat:
-        raise AssertionError("tile_pool differs between two launches")
-    entry("tile_pool", "tomosar2height_tpu_torch/csrc/pool2.cu",
+        raise AssertionError(f"tile_pool{sfx} differs between two launches")
+    entry("tile_pool" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool_kernel.py:36", pairs,
           [lambda a=a: tpk.tile_pool(*a, "max") for a in copies],
           [lambda a=a: tpk.tile_pool_plain(*a, "max") for a in copies],
-          (scatter_bytes(vals, cells, toff, 0, 256, pairs[0][0], in_tiles), vals.numel()),
-          _scatter_yardstick(vals, cells, 0, 256 * 256, dev, "amax"))
+          (scatter_bytes(vals, cells, toff, 0, 256, pairs[0][0].to(dt), in_tiles),
+           vals.numel()),
+          _scatter_yardstick(vals, cells, 0, 256 * 256, dev, "amax"),
+          tol=tol + ("; max exact" if sfx else ""))
     del pairs, vals, copies
 
     def run_scatter_row(name, replaces, fn, plain, shapes):
@@ -1482,7 +1526,7 @@ def check_tile_kernels(entry, seed: int = 0):
         for label, shape_args, bytes_of, lfn in shapes:
             a = shape_args[0]
             out = fn(*a)
-            pairs.append((out, plain(*a)))
+            pairs.append(close(out, plain(*a)))
             repeat = repeat and torch.equal(out, fn(*a))
             moved = bytes_of(out)
             work[0] += moved
@@ -1500,7 +1544,7 @@ def check_tile_kernels(entry, seed: int = 0):
         entry(name, "tomosar2height_tpu_torch/csrc/pool2.cu", replaces, pairs,
               [lambda sa=sa: [fn(*a) for a in sa] for sa in args],
               [lambda sa=sa: [plain(*a) for a in sa] for sa in args],
-              work, lambda: [f() for f in lfns])
+              work, lambda: [f() for f in lfns], tol=tol)
 
     # K12 (the nine scatters, plus 16^2 at F=1024) on the run scatter. It
     # reads every row's id, and clears and reads B * r^2 bytes of flags
@@ -1515,12 +1559,13 @@ def check_tile_kernels(entry, seed: int = 0):
                        lambda out, a=sa[0], shift=shift, r=r: b * r * r + scatter_bytes(
                            a[0], cells, a[2], shift, r, out, torch.ones_like(mask)),
                        _scatter_yardstick(v, cells, shift, r * r, dev)))
-    run_scatter_row("aligned_scatter_mean_plane",
+    run_scatter_row("aligned_scatter_mean_plane" + sfx,
                     "tomosar2height_tpu/ops/pallas/scatter_kernel.py:242",
                     sk.aligned_scatter_mean_plane, sk.aligned_scatter_mean_plane_plain, shapes)
     del shapes, copies
 
-    check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes)
+    check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes,
+                         dt)
 
     # K14 (256-32 .. 32-512) on 'fused', on the run scatter from the finest
     # tile offsets (read every 4**level-th), held bit-equal on a second
@@ -1531,19 +1576,21 @@ def check_tile_kernels(entry, seed: int = 0):
         a = (rows_of(f), cells, toff, r, 256)
         out = sk.scatter_mean_plane_v3(*a)
         if not torch.equal(sk.scatter_mean_plane_v3(*a), out):
-            raise AssertionError(f"scatter_mean_plane_v3 differs between two launches at {r}")
-        pairs.append((out, sk.scatter_mean_plane_v3_plain(*a)))
+            raise AssertionError(f"scatter_mean_plane_v3{sfx} differs between two launches "
+                                 f"at {r}")
+        pairs.append(close(out, sk.scatter_mean_plane_v3_plain(*a)))
         tl = toff[:, :: 4 ** (shift // 2)].contiguous()
         work[0] += scatter_bytes(a[0], cells, tl, shift, r, out, in_tiles)
         work[1] += a[0].numel()
         kfns.append(lambda a=a: sk.scatter_mean_plane_v3(*a))
         pfns.append(lambda a=a: sk.scatter_mean_plane_v3_plain(*a))
         lfns.append(_scatter_yardstick(a[0], cells, shift, r * r, dev))
-    log("kernels", "scatter_mean_plane_v3 bit-equal on a second launch at its 4 shapes: True")
-    entry("scatter_mean_plane_v3", "tomosar2height_tpu_torch/csrc/pool2.cu",
+    log("kernels", f"scatter_mean_plane_v3{sfx} bit-equal on a second launch at its 4 "
+        "shapes: True")
+    entry("scatter_mean_plane_v3" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/scatter_kernel.py:495", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], work,
-          lambda: [fn() for fn in lfns])
+          lambda: [fn() for fn in lfns], tol=tol)
     del pairs, kfns, pfns, lfns
 
     # K11 on the plain sorted layout: the nine plane scatters, on the run
@@ -1565,23 +1612,70 @@ def check_tile_kernels(entry, seed: int = 0):
                        lambda out, a=sa[0], tl=tl, r=r, w=walked: scatter_bytes(
                            a[0], a[1], tl, 0, r, out, w),
                        _scatter_yardstick(v, sa[0][1], 0, r * r, dev)))
-    run_scatter_row("scatter_mean_plane", "tomosar2height_tpu/ops/pallas/scatter_kernel.py:124",
+    run_scatter_row("scatter_mean_plane" + sfx,
+                    "tomosar2height_tpu/ops/pallas/scatter_kernel.py:124",
                     sk.scatter_mean_plane, sk.scatter_mean_plane_plain, shapes)
-    run_scatter_row("scatter_mean", "tomosar2height_tpu/ops/pallas/scatter_kernel.py:65",
+    run_scatter_row("scatter_mean" + sfx, "tomosar2height_tpu/ops/pallas/scatter_kernel.py:65",
                     sk.scatter_mean, sk.scatter_mean_plain, shapes)
     del shapes, copies
+    if sfx:
+        check_wide_d_plane(entry, spts[..., :2].contiguous(), smask, scells, gen)
     torch.cuda.synchronize()
 
 
-def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes):
+def check_wide_d_plane(entry, xy, mask, cells, gen):
+    """The d_plane pass from f32 cotangents into a bf16 plane
+    (``level_d_plane_wide_bf16``): the backward of the f32 sample of a bf16
+    plane on the 'cumsum' (and 'pallas') layout, at the eight round trips'
+    shapes on the plain sorted layout, within one bf16 ulp of its plain
+    version (the same f32 sums rounded once), bit-equal on a second launch;
+    yardstick ``F.grid_sample``'s backward in f32."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+
+    dev = xy.device
+    b, n = mask.shape
+    n_valid = int(mask.sum())
+    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    for r, f in TILE_GATHER_SHAPES:
+        g = (torch.randn(b, n, f, generator=gen, device=dev) * mask[..., None]).contiguous()
+        a = (g, xy, cells, mask, r, 256, torch.bfloat16)
+        out = lk.level_d_plane(*a)
+        if not torch.equal(lk.level_d_plane(*a), out):
+            raise AssertionError(f"level_d_plane_wide_bf16 differs between two launches at {r}")
+        want = lk.level_d_plane_plain(*a)
+        pairs.append((out.float(), want.float(), _ulp_tol(want), 0.0))
+        # g and xy on the valid rows, every row's id and mask, the finest
+        # cells' row ranges cleared, written and read, d_plane written once
+        work[0] += n_valid * (f + 2) * 4 + nbytes(cells, mask, out) + 2 * 2 * b * 256 * 256 * 4
+        work[1] += 2 * 4 * n_valid * f
+        kfns.append(lambda a=a: lk.level_d_plane(*a))
+        pfns.append(lambda a=a: lk.level_d_plane_plain(*a))
+        gin = torch.empty(b, f, r, r, device=dev)
+        gout = g.permute(0, 2, 1)[..., None].contiguous()
+        grid = (2 * xy - 1)[:, :, None, :].contiguous()
+        lfns.append(lambda a=(gout, gin, grid): torch.ops.aten.grid_sampler_2d_backward(
+            *a, 0, 1, True, [True, False])[0])
+    log("kernels", "level_d_plane_wide_bf16 bit-equal on a second launch at its 8 shapes: True")
+    entry("level_d_plane_wide_bf16", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+          "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", pairs,
+          lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),
+          lambda: [fn() for fn in lfns], tol=ULP_RULE)
+
+
+def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, scatter_bytes,
+                         dt):
     """The fused layout's backwards (its training step) against their plain
-    versions at every shape a flagship step gives them, each bit-equal on a
-    second launch: K9's on K5's d_plane pass (the eight samples, K5's d_plane
-    rule; yardstick F.grid_sample's backward), K10's on the run kernel (max:
-    each run's cotangent split among its rows tied with the max; mean; on
-    three input copies, and once more on integral values, whose cells tie),
-    K12's on K2 alone at the level's shift with the forward's counts (its
-    ten shapes; yardstick an index_select as K2's)."""
+    versions at every shape a flagship step gives them, in ``dt`` (bfloat16:
+    rows ``*_bf16`` within one bf16 ulp of their bf16 plain versions), each
+    bit-equal on a second launch: K9's on K5's d_plane pass (the eight
+    samples, K5's d_plane rule; yardstick F.grid_sample's backward), K10's
+    on the run kernel (max: each run's cotangent split among its rows tied
+    with the max; mean; on three input copies, and once more on integral
+    values, whose cells tie), K12's on K2 alone at the level's shift with the
+    forward's counts (bf16: each count cut to bf16; its ten shapes;
+    yardstick an index_select as K2's)."""
     import torch
 
     from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
@@ -1589,48 +1683,53 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
     from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk
     from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk
 
+    sfx, close, tol = _dtype_rule(dt)
+    esize = torch.empty((), dtype=dt).element_size()
     gen = torch.Generator(device=dev).manual_seed(17)
     n_valid = int(mask.sum())
     pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
     for r, f in TILE_GATHER_SHAPES:
-        g = (torch.randn(b, npad, f, generator=gen, device=dev) * mask[..., None]).contiguous()
+        g = (torch.randn(b, npad, f, generator=gen, device=dev) * mask[..., None]).to(
+            dt).contiguous()
         a = (g, xy, cells, mask, r, 256)
         out = gk.tile_gather_bwd(*a)
         if not torch.equal(gk.tile_gather_bwd(*a), out):
-            raise AssertionError(f"tile_gather_bwd differs between two launches at {r}")
-        pairs.append((out, lk.level_d_plane_plain(*a), *BWD_TOL))
+            raise AssertionError(f"tile_gather_bwd{sfx} differs between two launches at {r}")
+        want = lk.level_d_plane_plain(*a)
+        pairs.append(close(out, want) if sfx else (out, want, *BWD_TOL))
         # g and xy on the valid rows, every row's id and mask, the finest
         # cells' row ranges cleared, written and read, d_plane written once;
         # a multiply-add a corner and feature
-        work[0] += (n_valid * (f + 2) * 4 + nbytes(cells, mask, out)
+        work[0] += (n_valid * (f * esize + 8) + nbytes(cells, mask, out)
                     + 2 * 2 * b * 256 * 256 * 4)
         work[1] += 2 * 4 * n_valid * f
         kfns.append(lambda a=a: gk.tile_gather_bwd(*a))
         pfns.append(lambda a=a: lk.level_d_plane_plain(*a))
-        gin = torch.empty(b, f, r, r, device=dev)
+        gin = torch.empty(b, f, r, r, device=dev, dtype=dt)
         gout = g.permute(0, 2, 1)[..., None].contiguous()
-        grid = (2 * xy - 1)[:, :, None, :].contiguous()
+        grid = (2 * xy - 1)[:, :, None, :].to(dt).contiguous()
         lfns.append(lambda a=(gout, gin, grid): torch.ops.aten.grid_sampler_2d_backward(
             *a, 0, 1, True, [True, False])[0])
-    log("kernels", "tile_gather_bwd bit-equal on a second launch at its 8 shapes: True")
-    entry("tile_gather_bwd", "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+    log("kernels", f"tile_gather_bwd{sfx} bit-equal on a second launch at its 8 shapes: True")
+    entry("tile_gather_bwd" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
           "tomosar2height_tpu/ops/pallas/fused.py:65", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),
-          lambda: [fn() for fn in lfns], tol=f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel")
+          lambda: [fn() for fn in lfns],
+          tol=tol if sfx else f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel")
     del pairs, kfns, pfns, lfns
 
     # K10's backward at the four poolings' width (F=32 at 256^2)
     vals = rows_of(32)
     g = rows_of(32)
     ties = (torch.randint(0, 3, vals.shape, generator=gen, device=dev).float()
-            * mask[..., None]).contiguous()
+            * mask[..., None]).to(dt).contiguous()
     pairs, by_kind, repeat = [], [], True
     copies = {}
     for k in ("max", "mean"):
         out = tpk.tile_pool(vals, cells, toff, k)
         a = (g, vals, out, cells, toff, k)
         dv = tpk.tile_pool_bwd(*a)
-        pairs.append((dv, tpk.tile_pool_bwd_plain(*a)))
+        pairs.append(close(dv, tpk.tile_pool_bwd_plain(*a)))
         repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
         copies[k] = [a] + [tuple(x.clone() if torch.is_tensor(x) else x for x in a)
                            for _ in range(2)]
@@ -1639,23 +1738,23 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
     t_out = tpk.tile_pool(ties, cells, toff, "max")
     a = (g, ties, t_out, cells, toff, "max")
     dv = tpk.tile_pool_bwd(*a)
-    pairs.append((dv, tpk.tile_pool_bwd_plain(*a)))
+    pairs.append(close(dv, tpk.tile_pool_bwd_plain(*a)))
     repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
     tied = int(((ties == t_out) & mask[..., None]).sum())
-    log("kernels", f"tile_pool_bwd by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
-        f"on integral values {tied} tied row features | bit-equal on a second launch: "
-        f"{repeat}")
+    log("kernels", f"tile_pool_bwd{sfx} by kind, kernel ms (three copies): "
+        f"{'; '.join(by_kind)} | on integral values {tied} tied row features | bit-equal on "
+        f"a second launch: {repeat}")
     if not repeat:
-        raise AssertionError("tile_pool_bwd differs between two launches")
+        raise AssertionError(f"tile_pool_bwd{sfx} differs between two launches")
     in_tiles = torch.arange(npad, device=dev)[None, :] < toff[:, -1:]
-    entry("tile_pool_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+    entry("tile_pool_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/fused.py:118", pairs,
           [lambda a=a: tpk.tile_pool_bwd(*a) for a in copies["max"]],
           [lambda a=a: tpk.tile_pool_bwd_plain(*a) for a in copies["max"]],
           # g, values and out on the valid rows (the gate), ids and tile
           # offsets, dv written
-          (scatter_bytes(g, cells, toff, 0, 256, pairs[0][0], in_tiles)
-           + 2 * n_valid * 32 * 4, 2 * g.numel()), None)
+          (scatter_bytes(g, cells, toff, 0, 256, dv, in_tiles)
+           + 2 * n_valid * 32 * esize, 2 * g.numel()), None, tol=tol)
     del pairs, copies
 
     # K12's backward at its ten shapes, with the forward's counts
@@ -1666,13 +1765,13 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         tl = toff[:, :: 4 ** (shift // 2)].contiguous()
         _, counts = sk.aligned_scatter_mean_plane(rows_of(f), cells, tl, r, 256,
                                                   with_counts=True)
-        gp = torch.randn(b, r, r, f, generator=gen, device=dev)
+        gp = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
         a = (gp, cells, counts, r, 256)
         dv = sk.aligned_scatter_mean_plane_bwd(*a)
         if not torch.equal(sk.aligned_scatter_mean_plane_bwd(*a), dv):
-            raise AssertionError(f"aligned_scatter_mean_plane_bwd differs between two "
+            raise AssertionError(f"aligned_scatter_mean_plane_bwd{sfx} differs between two "
                                  f"launches at {r}")
-        pairs.append((dv, sk.aligned_scatter_mean_plane_bwd_plain(*a)))
+        pairs.append(close(dv, sk.aligned_scatter_mean_plane_bwd_plain(*a)))
         occupied = int((counts > 0).sum())
         work[0] += (nbytes(gp, counts) * occupied // counts.numel()
                     + nbytes(cells, dv))
@@ -1681,20 +1780,21 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         pfns.append(lambda a=a: sk.aligned_scatter_mean_plane_bwd_plain(*a))
         # the yardstick: one index_select of the row-major plane (a zero row
         # appended for the pad rows) and one of the counts, then the division
+        # (in bf16 the counts promote to bf16, as K12's backward cuts them)
         c = cells.long() >> shift
         ok = c < r * r
         rm = morton_rowmajor(torch.where(ok, c, 0), r) + r * r * arange_b
         rm = torch.where(ok, rm, torch.full_like(rm, b * r * r)).reshape(-1)
-        gp_pad = torch.cat([gp.reshape(-1, f), torch.zeros(1, f, device=dev)])
+        gp_pad = torch.cat([gp.reshape(-1, f), torch.zeros(1, f, device=dev, dtype=dt)])
         kc_pad = torch.cat([counts.reshape(-1), torch.ones(1, device=dev, dtype=torch.int32)])
         lfns.append(lambda a=(gp_pad, kc_pad, rm): a[0].index_select(0, a[2])
                     / a[1].index_select(0, a[2]).clamp_min(1)[:, None])
-    log("kernels", "aligned_scatter_mean_plane_bwd bit-equal on a second launch at its 10 "
-        "shapes: True")
-    entry("aligned_scatter_mean_plane_bwd", "tomosar2height_tpu_torch/csrc/pool2.cu",
+    log("kernels", f"aligned_scatter_mean_plane_bwd{sfx} bit-equal on a second launch at its "
+        "10 shapes: True")
+    entry("aligned_scatter_mean_plane_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/fused.py:149", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),
-          lambda: [fn() for fn in lfns])
+          lambda: [fn() for fn in lfns], tol=tol)
 
 
 def flagship_model(seed: int):
@@ -1997,11 +2097,78 @@ def _city(seed: int):
              "points": pts}]
 
 
+def _serve_sorted(cfg, state, chunks, tmp: str, label: str):
+    """The city served on the sorted layout of ``cfg`` with weights
+    ``state``: the forward of the first batch timed (median of 3), then a
+    warm-up and a timed ``generate_dsm``. Returns the timed run's raster
+    (and the warm-up's), its stats, forward ms, peak memory, launches and
+    batches, and the first batch's forward arguments."""
+    import torch
+
+    from tomosar2height_tpu_torch.infer.generator import make_generator
+    from tomosar2height_tpu_torch.models import build_model
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    model = build_model(cfg, DEVICE)
+    model.load_state_dict(state)
+    gen = make_generator(model.eval(), cfg, chunks)
+    n_batches = len(gen.data_loader)
+    batch = next(iter(gen.data_loader))
+    keys = ("points", "point_mask", "cell", "cell_offsets")
+    dev = {k: torch.from_numpy(batch[k]).to(DEVICE) for k in keys}
+    fwd_args = (dev["points"], dev["point_mask"], None,
+                None if gen.data_loader.aligned else dev["cell"], dev["cell_offsets"])
+    with torch.inference_mode():
+        fwd_ms = cuda_ms(lambda: model(*fwd_args, footprint=False), iters=3, warmup=1)
+    warm = gen.generate_dsm(os.path.join(tmp, f"{label}-warmup.tif"))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    r = gen.generate_dsm(os.path.join(tmp, f"{label}.tif"))
+    torch.cuda.synchronize()
+    return {"raster": r.data, "warm": warm.data, "transform": r.transform,
+            "stats": gen.last_stats, "fwd_ms": fwd_ms, "peak": torch.cuda.max_memory_allocated(),
+            "launches": dict(runtime.LAUNCHES), "n_batches": n_batches, "fwd_args": fwd_args}
+
+
+def _pallas_mean_batch(state, fwd_args, dtype: str):
+    """One batch of 'pallas' with mean pooling (K13) in ``dtype``: its
+    heights' shape, whether they are finite, and the launches."""
+    import torch
+
+    from tomosar2height_tpu_torch.config import sorted_config
+    from tomosar2height_tpu_torch.models import build_model
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+
+    mcfg = sorted_config("pallas")
+    mcfg["model"]["encoder_kwargs"]["scatter_type"] = "mean"
+    mcfg["model"]["dtype"] = dtype
+    mean_model = build_model(mcfg, DEVICE)
+    mean_model.load_state_dict(state)
+    runtime.reset_launches()
+    with torch.inference_mode():
+        h = mean_model.eval()(*fwd_args, footprint=False)[0]
+    torch.cuda.synchronize()
+    return tuple(h.shape), bool(torch.isfinite(h).all()), _nonzero(runtime.LAUNCHES)
+
+
+def _serve_line(impl: str, s: dict) -> str:
+    stats = s["stats"]
+    return (f"{impl}: {stats['n_patches']} tiles in {s['n_batches']} batches "
+            f"| {stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
+            f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
+            f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
+            f"{stats['finalize_write_s']:.3f}) | forward {s['fwd_ms']:.1f} ms per batch "
+            f"(median of 3) | peak {s['peak'] / 2**30:.2f} GiB")
+
+
 def sorted_serve(seed: int = 0):
     """The synthetic city served with ``sorted_config('fused')``, ``('pallas')``
     and ``('cumsum')`` on one set of random weights, each raster held to the
     unsorted plain path's; launches per forward asserted (SORTED_LAUNCHES),
-    and one batch of 'pallas' with mean pooling (K13)."""
+    and one batch of 'pallas' with mean pooling (K13). Returns the launches,
+    the weights and each layout's timed run (``_serve_sorted``), which the
+    bf16 phase serves again in bf16."""
     import tempfile
 
     import torch
@@ -2009,7 +2176,6 @@ def sorted_serve(seed: int = 0):
     from tomosar2height_tpu_torch.config import sorted_config
     from tomosar2height_tpu_torch.infer.generator import make_generator
     from tomosar2height_tpu_torch.models import build_model, init_weights
-    from tomosar2height_tpu_torch.ops.cuda import runtime
 
     chunks = _city(seed)
     plain_cfg = sorted_config("cumsum")
@@ -2017,7 +2183,7 @@ def sorted_serve(seed: int = 0):
     plain = init_weights(build_model(plain_cfg, DEVICE), torch.Generator().manual_seed(seed))
     state = plain.state_dict()
     tol = _height_tol(plain_cfg)
-    launches_all = {}
+    launches_all, served = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         ref = make_generator(plain.eval(), plain_cfg, chunks).generate_dsm(
             os.path.join(tmp, "plain.tif"))
@@ -2025,38 +2191,14 @@ def sorted_serve(seed: int = 0):
         if nan.all():
             raise AssertionError("the plain raster is all NaN")
         for impl, per_batch in SORTED_LAUNCHES.items():
-            cfg = sorted_config(impl)
-            model = build_model(cfg, DEVICE)
-            model.load_state_dict(state)
-            gen = make_generator(model.eval(), cfg, chunks)
-            n_batches = len(gen.data_loader)
-            batch = next(iter(gen.data_loader))
-            keys = ("points", "point_mask", "cell", "cell_offsets")
-            dev = {k: torch.from_numpy(batch[k]).to(DEVICE) for k in keys}
-            fwd_args = (dev["points"], dev["point_mask"], None,
-                        None if gen.data_loader.aligned else dev["cell"], dev["cell_offsets"])
-            with torch.inference_mode():
-                fwd_ms = cuda_ms(lambda: model(*fwd_args, footprint=False), iters=3, warmup=1)
-            gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            runtime.reset_launches()
-            r = gen.generate_dsm(os.path.join(tmp, f"{impl}.tif"))
-            torch.cuda.synchronize()
-            launches = dict(runtime.LAUNCHES)
-            peak = torch.cuda.max_memory_allocated()
-            stats = gen.last_stats
+            s = served[impl] = _serve_sorted(sorted_config(impl), state, chunks, tmp, impl)
+            launches, n_batches = s["launches"], s["n_batches"]
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}
-            da = r.data
-            same = (da.shape == ref.data.shape and r.transform == ref.transform
+            da = s["raster"]
+            same = (da.shape == ref.data.shape and s["transform"] == ref.transform
                     and np.array_equal(np.isnan(da), nan))
             err = float(np.abs(da[~nan] - ref.data[~nan]).max()) if same else float("inf")
-            log("sorted-serve", f"{impl}: {stats['n_patches']} tiles in {n_batches} batches "
-                f"| {stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
-                f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
-                f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
-                f"{stats['finalize_write_s']:.3f}) | forward {fwd_ms:.1f} ms per batch "
-                f"(median of 3) | peak {peak / 2**30:.2f} GiB | raster vs plain max|d| "
+            log("sorted-serve", f"{_serve_line(impl, s)} | raster vs plain max|d| "
                 f"{err:.3g} m (tol {tol:.3g} m), NaN px {int(nan.sum())} | launches per "
                 f"forward {({k: v / n_batches for k, v in launches.items() if v})}")
             if not same or err > tol:
@@ -2065,22 +2207,15 @@ def sorted_serve(seed: int = 0):
                 raise AssertionError(f"{impl}: launch counts {launches}, expected {want}")
             launches_all.update({k: v for k, v in launches.items() if v})
             if impl == "pallas":
-                mcfg = sorted_config("pallas")
-                mcfg["model"]["encoder_kwargs"]["scatter_type"] = "mean"
-                mean_model = build_model(mcfg, DEVICE)
-                mean_model.load_state_dict(state)
-                runtime.reset_launches()
-                with torch.inference_mode():
-                    h = mean_model.eval()(*fwd_args, footprint=False)[0]
-                torch.cuda.synchronize()
-                got = {k: v for k, v in runtime.LAUNCHES.items() if v}
-                log("sorted-serve", f"pallas, scatter_type=mean: one batch, heights "
-                    f"{tuple(h.shape)} finite {bool(torch.isfinite(h).all())} | launches {got}")
-                if got != PALLAS_MEAN_LAUNCHES or not torch.isfinite(h).all():
+                shape, finite, got = _pallas_mean_batch(state, s["fwd_args"], "float32")
+                log("sorted-serve", f"pallas, scatter_type=mean: one batch, heights {shape} "
+                    f"finite {finite} | launches {got}")
+                if got != PALLAS_MEAN_LAUNCHES or not finite:
                     raise AssertionError(f"pallas mean: launches {got}, expected "
                                          f"{PALLAS_MEAN_LAUNCHES}")
                 launches_all["scatter_mean"] = got.get("scatter_mean", 0)
-    return launches_all
+            del s["fwd_args"]
+    return {"launches": launches_all, "state": state, "served": served}
 
 
 def munich_depth6(seed: int = 0):
@@ -2248,6 +2383,14 @@ SORTED_TRAIN_LAUNCHES = {"tile_gather": 16, "tile_pool": 8, "aligned_scatter_mea
 # ... and of one 'cumsum' mini-step: its samples' backward, K5's d_plane pass
 # at the eight round trips (``ops/fused.sorted_sample``); the rest is torch
 CUMSUM_TRAIN_LAUNCHES = {"level_d_plane": 8}
+# the same in bf16 (``model.dtype=bfloat16``): every kernel at its bf16
+# instance, no f32 launch; 'cumsum''s samples come back f32 (JAX promotes
+# them), so their backward is the d_plane pass from f32 into bf16
+SORTED_BF16_LAUNCHES = {impl: {f"{k}_bf16": v for k, v in per.items()}
+                        for impl, per in SORTED_LAUNCHES.items()}
+PALLAS_MEAN_BF16_LAUNCHES = {f"{k}_bf16": v for k, v in PALLAS_MEAN_LAUNCHES.items()}
+SORTED_TRAIN_BF16_LAUNCHES = {f"{k}_bf16": v for k, v in SORTED_TRAIN_LAUNCHES.items()}
+CUMSUM_TRAIN_BF16_LAUNCHES = {"level_d_plane_wide_bf16": 8}
 
 
 def _differing(a: dict, b: dict) -> list:
@@ -2255,6 +2398,77 @@ def _differing(a: dict, b: dict) -> list:
     import torch
 
     return [n for n, v in a.items() if not torch.equal(b[n], v)]
+
+
+def _sorted_train_config(impl: str, dtype: str = "float32"):
+    """``sorted_config(impl)`` with flip/rotate augmentation, in ``dtype``."""
+    from tomosar2height_tpu_torch.config import sorted_config
+
+    cfg = sorted_config(impl)
+    cfg["training"]["augmentation"]["flip"] = cfg["training"]["augmentation"]["rotate"] = True
+    cfg["model"]["dtype"] = dtype
+    return cfg
+
+
+def _sorted_train_data(seed: int):
+    """The city's chunks and its nDSM as the training target."""
+    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+    from tomosar2height_tpu_torch.geo import RasterData
+
+    w, h = CITY["W"], CITY["H"]
+    ndsm, pts, _ = build_city(seed, **CITY)
+    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
+               "points": pts}]
+    return chunks, (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
+
+
+def _sorted_run(cfg, model, state0, data, sort: bool, steps: int, seed: int):
+    """``steps`` optimizer steps of ``model`` (its layout's: ``cfg``; the
+    unsorted plain path unless ``sort``) from ``state0`` on the city's random
+    patches with augmentation, the last one timed: window losses, the state
+    after the first step (two steps or more) and at the end, mini-step ms,
+    train patches/s, peak memory and the timed step's launches."""
+    import torch
+
+    from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset, tile_cells_for_impl
+    from tomosar2height_tpu_torch.ops.cuda import runtime
+    from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
+
+    chunks, dsm = data
+    tcfg, dcfg = cfg["training"], cfg["dataset"]
+    bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
+    reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
+    impl = cfg["model"]["encoder_kwargs"]["sorted_impl"]
+    aug = tcfg["augmentation"]
+    ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k, dsm=dsm,
+                      flip_augm=aug["flip"], rotate_augm=aug["rotate"])
+    loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
+                         fixed_bucket=dcfg["points"]["train_bucket"],
+                         sort_reso=reso if sort else None, aligned=impl == "fused",
+                         tile_cells=tile_cells_for_impl(impl), shuffle=True,
+                         drop_last=True, seed=seed, det_stream=True,
+                         prefetch=cfg["dataloader"]["prefetch"])
+    model.load_state_dict(state0)
+    trainer = Trainer(model, tcfg)
+    sched = build_scheduler(tcfg)
+    windows, first = [], None
+    if steps > 1:
+        windows += train(trainer, sched, loader, tcfg, max_iteration=1)["windows"]
+        first = {n: v.detach().clone() for n, v in model.state_dict().items()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runtime.reset_launches()
+    t0 = time.perf_counter()
+    out = train(trainer, sched, loader, tcfg, max_iteration=1)
+    wall = time.perf_counter() - t0
+    launches = dict(runtime.LAUNCHES)
+    windows += out["windows"]
+    return {"state": {n: v.detach().clone() for n, v in model.state_dict().items()},
+            "first": first, "losses": [r["loss"] for r in windows],
+            "ms": out["median_step_ms"],
+            "patches_s": out["n_patches"] / wall, "n": out["n_ministeps"],
+            "patches": out["n_patches"], "wall": wall,
+            "peak": torch.cuda.max_memory_allocated(), "launches": launches}
 
 
 def sorted_train(seed: int = 0):
@@ -2273,65 +2487,20 @@ def sorted_train(seed: int = 0):
     the model's refusal is ``tests/test_torch_cuda.py``'s)."""
     import torch
 
-    from tomosar2height_tpu_torch.config import sorted_config
-    from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset, tile_cells_for_impl
-    from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
-    from tomosar2height_tpu_torch.geo import RasterData
     from tomosar2height_tpu_torch.models import build_model, init_weights
-    from tomosar2height_tpu_torch.ops.cuda import runtime
-    from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
 
-    w, h = CITY["W"], CITY["H"]
-    ndsm, pts, _ = build_city(seed, **CITY)
-    chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
-               "points": pts}]
-    dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
     models, state0 = {}, None
     for impl in ("fused", "cumsum"):
-        cfg = sorted_config(impl)
-        cfg["training"]["augmentation"]["flip"] = cfg["training"]["augmentation"]["rotate"] = True
+        cfg = _sorted_train_config(impl)
         models[impl] = (cfg, build_model(cfg, DEVICE))
         if state0 is None:
             init_weights(models[impl][1], torch.Generator().manual_seed(seed))
             state0 = {n: v.detach().clone() for n, v in models[impl][1].state_dict().items()}
     cfg = models["fused"][0]
-    tcfg, dcfg = cfg["training"], cfg["dataset"]
-    bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
-    reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
-    aug = tcfg["augmentation"]
+    data = _sorted_train_data(seed)
 
     def run(impl, sort, steps):
-        cfg_i, model = models[impl]
-        ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k, dsm=dsm,
-                          flip_augm=aug["flip"], rotate_augm=aug["rotate"])
-        loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
-                             fixed_bucket=dcfg["points"]["train_bucket"],
-                             sort_reso=reso if sort else None, aligned=impl == "fused",
-                             tile_cells=tile_cells_for_impl(impl), shuffle=True,
-                             drop_last=True, seed=seed, det_stream=True,
-                             prefetch=cfg_i["dataloader"]["prefetch"])
-        model.load_state_dict(state0)
-        trainer = Trainer(model, cfg_i["training"])
-        sched = build_scheduler(cfg_i["training"])
-        windows, first = [], None
-        if steps > 1:
-            windows += train(trainer, sched, loader, cfg_i["training"], max_iteration=1)[
-                "windows"]
-            first = {n: v.detach().clone() for n, v in model.state_dict().items()}
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        runtime.reset_launches()
-        t0 = time.perf_counter()
-        out = train(trainer, sched, loader, cfg_i["training"], max_iteration=1)
-        wall = time.perf_counter() - t0
-        launches = dict(runtime.LAUNCHES)
-        windows += out["windows"]
-        return {"state": {n: v.detach().clone() for n, v in model.state_dict().items()},
-                "first": first, "losses": [r["loss"] for r in windows],
-                "ms": out["median_step_ms"],
-                "patches_s": out["n_patches"] / wall, "n": out["n_ministeps"],
-                "patches": out["n_patches"], "wall": wall,
-                "peak": torch.cuda.max_memory_allocated(), "launches": launches}
+        return _sorted_run(*models[impl], state0, data, sort, steps, seed)
 
     # the refusal runs beside the steps: a process of its own, since the
     # smoke holds no exception handler
@@ -2390,7 +2559,9 @@ def sorted_train(seed: int = 0):
     log("sorted-train", f"pallas refused by cli.train: exit {refusal.returncode}, {said}")
     if refusal.returncode == 0 or "no gradient either" not in str(said):
         raise AssertionError(f"cli.train did not refuse pallas: {refusal.returncode} {said}")
-    return fused["launches"]
+    keep = ("losses", "ms", "patches_s", "peak")
+    return {"launches": fused["launches"], "state0": state0,
+            "f32": {impl: {k: runs[impl][k] for k in keep} for impl in ("fused", "cumsum")}}
 
 
 # kernel launches of one headline training mini-step (``headline_config``:
@@ -2681,7 +2852,116 @@ def headline_bf16(sort: bool = True):
     return cfg
 
 
-def bf16_phase(f32_train: dict, seed: int = 0):
+def sorted_bf16(serve_f32: dict, train_f32: dict, seed: int = 0):
+    """The sorted layouts in bf16 (``model.dtype=bfloat16``) from the f32
+    phases' weights:
+
+    - serving the city on 'fused' (K9, K10, K12 at their bf16 instances),
+      'pallas' (K11; K13 on one batch with mean pooling) and 'cumsum' (no
+      kernel) with sorted-serve's weights: a warm-up and a timed
+      ``generate_dsm`` each, bit-equal, launches asserted
+      (SORTED_BF16_LAUNCHES: no f32 launch), each raster against
+      sorted-serve's f32 raster on the same layout within the JAX package's
+      bf16 gate (max |d| <= 0.15 x scale, correlation > 0.99), NaN masks
+      equal; tiles/s, forward ms and peak memory beside f32's;
+    - training on 'fused' (K9, K10, K12 and their backwards at their bf16
+      instances) and 'cumsum' (its samples' backward on K5's d_plane pass
+      from f32 into bf16) with sorted-train's weights, augmentation and
+      patches: a warm-up and a timed optimizer step (launches per mini-step
+      asserted, no f32 launch), window losses within 0.15 x scale of
+      sorted-train's f32 windows, then the first step rerun from the same
+      weights: every parameter and the window loss bit-equal.
+
+    Returns the bf16 kernels' launches of the timed runs."""
+    import tempfile
+
+    from tomosar2height_tpu_torch.config import sorted_config
+    from tomosar2height_tpu_torch.models import build_model
+
+    chunks, total = _city(seed), {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for impl, per_batch in SORTED_BF16_LAUNCHES.items():
+            cfg = sorted_config(impl)
+            cfg["model"]["dtype"] = "bfloat16"
+            s = _serve_sorted(cfg, serve_f32["state"], chunks, tmp, f"{impl}-bf16")
+            f32 = serve_f32["served"][impl]
+            ref, da = f32["raster"], s["raster"]
+            nan = np.isnan(ref)
+            scale = max(1.0, float(np.abs(ref[~nan]).max()))
+            if da.shape != ref.shape or not np.array_equal(np.isnan(da), nan):
+                raise AssertionError(f"{impl} bf16: raster differs from f32 in shape or NaN mask")
+            d = np.abs(da[~nan] - ref[~nan])
+            corr = float(np.corrcoef(da[~nan], ref[~nan])[0, 1])
+            again = np.array_equal(s["warm"], da, equal_nan=True)
+            n_batches = s["n_batches"]
+            log("bf16", f"serve {_serve_line(impl, s)} (f32 "
+                f"{f32['stats']['patches_per_s']:.2f} tiles/s, forward {f32['fwd_ms']:.1f} ms, "
+                f"peak {f32['peak'] / 2**30:.2f} GiB) | bit-equal to its warm-up run {again} | "
+                f"vs f32 raster max|d| {float(d.max()):.4g} m (tol {0.15 * scale:.4g} m = "
+                f"0.15 x scale {scale:.4g} m), mean|d| {float(d.mean()):.4g} m, correlation "
+                f"{corr:.6f} (tol > 0.99) | launches per forward "
+                f"{({k: v / n_batches for k, v in s['launches'].items() if v})}")
+            want = {k: per_batch.get(k, 0) * n_batches for k in s["launches"]}
+            if s["launches"] != want:
+                raise AssertionError(f"{impl} bf16: launch counts {s['launches']}, expected "
+                                     f"{want}")
+            if not again:
+                raise AssertionError(f"{impl} bf16: the timed raster differs from the warm-up's")
+            if d.max() > 0.15 * scale or corr <= 0.99:
+                raise AssertionError(f"{impl} bf16 raster off the f32 raster: {d.max()} m, "
+                                     f"corr {corr}")
+            for k, v in s["launches"].items():
+                total[k] = total.get(k, 0) + v
+            if impl == "pallas":
+                shape, finite, got = _pallas_mean_batch(serve_f32["state"], s["fwd_args"],
+                                                        "bfloat16")
+                log("bf16", f"pallas bf16, scatter_type=mean: one batch, heights {shape} "
+                    f"finite {finite} | launches {got}")
+                if got != PALLAS_MEAN_BF16_LAUNCHES or not finite:
+                    raise AssertionError(f"pallas bf16 mean: launches {got}, expected "
+                                         f"{PALLAS_MEAN_BF16_LAUNCHES}")
+                total["scatter_mean_bf16"] = got.get("scatter_mean_bf16", 0)
+            del s
+
+    data = _sorted_train_data(seed)
+    ref = serve_f32["served"]["fused"]["raster"]
+    scale = max(1.0, float(np.abs(ref[~np.isnan(ref)]).max()))  # the f32 heights' scale
+    for impl, per_step in (("fused", SORTED_TRAIN_BF16_LAUNCHES),
+                           ("cumsum", CUMSUM_TRAIN_BF16_LAUNCHES)):
+        cfg = _sorted_train_config(impl, "bfloat16")
+        model = build_model(cfg, DEVICE)
+        bf = _sorted_run(cfg, model, train_f32["state0"], data, True, 2, seed)
+        rerun = _sorted_run(cfg, model, train_f32["state0"], data, True, 1, seed)
+        f32 = train_f32["f32"][impl]
+        err = max(abs(a - b) for a, b in zip(bf["losses"], f32["losses"]))
+        unequal = _differing(bf["first"], rerun["state"])
+        log("bf16", f"train {impl} bf16: window losses {[f'{x:.6f}' for x in bf['losses']]} "
+            f"(f32 {[f'{x:.6f}' for x in f32['losses']]}, max|d| {err:.4g} m, tol "
+            f"{0.15 * scale:.4g} m) | mini-step {bf['ms']:.1f} ms (median of {bf['n']}, CUDA "
+            f"events; f32 {f32['ms']:.1f}) | {bf['patches']} patches in {bf['wall']:.3f} s = "
+            f"{bf['patches_s']:.2f} train patches/s (f32 {f32['patches_s']:.2f}) | peak "
+            f"{bf['peak'] / 2**30:.2f} GiB (f32 {f32['peak'] / 2**30:.2f}) | first step run "
+            f"twice from the same weights on the same patches: {len(unequal)} of "
+            f"{len(bf['first'])} tensors differ {unequal[:4]}, window loss equal "
+            f"{bf['losses'][:1] == rerun['losses']}")
+        if not all(np.isfinite(bf["losses"])) or err > 0.15 * scale:
+            raise AssertionError(f"{impl} bf16: window losses {bf['losses']}, f32 "
+                                 f"{f32['losses']}")
+        if unequal or bf["losses"][:1] != rerun["losses"]:
+            raise AssertionError(f"{impl} bf16: the rerun differs: {len(unequal)} tensors "
+                                 f"{unequal[:4]}")
+        want = {**dict.fromkeys(bf["launches"], 0),
+                **{key: v * bf["n"] for key, v in per_step.items()}}
+        if bf["launches"] != want:
+            raise AssertionError(f"{impl} bf16: launch counts {bf['launches']}, expected {want}")
+        for k, v in bf["launches"].items():
+            total[k] = total.get(k, 0) + v
+        del model, bf, rerun
+    return _nonzero(total)
+
+
+def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
+               seed: int = 0):
     """The headline network in bf16 (``model.dtype=bfloat16``) at full width
     on its fused2 kernel path (K1-K5 and K6/K7 at their bf16 instances),
     weights from ``seed`` as headline-train's, against the same network in
@@ -2703,8 +2983,8 @@ def bf16_phase(f32_train: dict, seed: int = 0):
       the heights), mini-step ms, train patches/s and peak memory beside
       it; the bf16 first step run again from the same weights, and every
       parameter and the window loss bit-equal to the first run's;
-    - bf16 on the ``fused`` and ``cumsum`` layouts refused by
-      ``build_model`` in a child process beside the rest.
+    - then the sorted layouts in bf16 (``sorted_bf16``) from the weights of
+      ``sorted_serve_out`` and ``sorted_train_out``.
 
     Returns the bf16 kernels' launches of the timed bf16 runs."""
     import tempfile
@@ -2720,13 +3000,6 @@ def bf16_phase(f32_train: dict, seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import runtime
     from tomosar2height_tpu_torch.train import train
 
-    refusals = {impl: subprocess.Popen(
-        [sys.executable, "-c", "from tomosar2height_tpu_torch.config import headline_config; "
-         "from tomosar2height_tpu_torch.models import build_model; c = headline_config(); "
-         f"c['model']['dtype'] = 'bfloat16'; c['model']['encoder_kwargs']['sorted_impl'] = "
-         f"{impl!r}; build_model(c)"],
-        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for impl in ("fused", "cumsum")}
     w, h = CITY["W"], CITY["H"]
     _, pts, rgb = build_city(seed, **CITY)
     chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + w, Y0 + h],
@@ -2854,14 +3127,9 @@ def bf16_phase(f32_train: dict, seed: int = 0):
         raise AssertionError(f"train bf16: launch counts {bf['launches']}, expected {want}")
     for k, v in bf["launches"].items():
         total[k] = total.get(k, 0) + v
-    for impl, proc in refusals.items():
-        _, stderr = proc.communicate(timeout=300)
-        said = stderr.strip().splitlines()[-1:]
-        log("bf16", f"bf16 on the {impl} layout refused by build_model: exit "
-            f"{proc.returncode}, {said}")
-        if proc.returncode == 0 or "ROADMAP: bf16" not in str(said):
-            raise AssertionError(f"build_model did not refuse bf16 on {impl}: "
-                                 f"{proc.returncode} {said}")
+    del models, bf, again
+    for k, v in sorted_bf16(sorted_serve_out, sorted_train_out, seed).items():
+        total[k] = total.get(k, 0) + v
     return _nonzero(total)
 
 
@@ -3137,13 +3405,16 @@ def main():
     timed("model", check_model)
     serve_launches = timed("serve", serve)
     fusion_launches = timed("fusion-serve", fusion_serve)
-    sorted_launches = timed("sorted-serve", sorted_serve)
+    sorted_out = timed("sorted-serve", sorted_serve)
+    sorted_launches = sorted_out["launches"]
     timed("munich-depth6", munich_depth6)
     launches = timed("train", train_phase)
-    sorted_train_launches = timed("sorted-train", sorted_train)
+    sorted_train_out = timed("sorted-train", sorted_train)
+    sorted_train_launches = sorted_train_out["launches"]
     headline = timed("headline-train", headline_train)
     headline_launches = headline["launches"]
-    bf16_launches = timed("bf16", bf16_phase, headline)
+    bf16_launches = timed("bf16", bf16_phase, headline, sorted_out, sorted_train_out)
+    del sorted_out, sorted_train_out
     cli_launches = timed("cli", cli_phase, smi)
     log("time", f"all phases {time.perf_counter() - t0:.1f} s")
     import torch

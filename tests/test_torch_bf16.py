@@ -22,9 +22,9 @@ CPU.
   where JAX's is below it.
 
 The weights are flax's init with biases drawn at std 0.1.
-- bf16 on the sorted layouts without bf16 kernels (``fused``, ``pallas``,
-  ``cumsum``) and unknown dtypes refused; fused2 in bf16 accepted
-  (``tests/test_torch_bf16_sorted.py`` holds it to the JAX package).
+- bf16 accepted on every sorted layout (``tests/test_torch_bf16_sorted.py``
+  holds fused2 to the JAX package, ``tests/test_torch_bf16_tiles.py``
+  ``fused``, ``pallas`` and ``cumsum``); unknown dtypes refused.
 
 The JAX references are computed once per module (fixtures): its bf16
 gradient at a larger size does not finish in 100 s on this CPU.
@@ -383,14 +383,17 @@ def test_step_gradients_within_jax_floor(steps):
     assert np.sqrt(num) <= 2 * np.sqrt(floor)
 
 
-# -- refusals ------------------------------------------------------------------
+# -- the sorted layouts, and refusals -----------------------------------------------
 
 @pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
 def test_build_refuses_bf16_on_sorted_layouts(impl):
+    """No sorted layout is refused in bf16 any longer: ``build_model`` builds
+    each (its kernels K9-K14 have bf16 instances)."""
     cfg = net_cfg("bfloat16", sort=True)
     cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
-        build_model(cfg, device="cpu")
+    model = build_model(cfg, device="cpu")
+    assert model.point_encoder.sorted_impl == impl
+    assert model.point_encoder.dtype == BF
 
 
 def test_build_accepts_bf16_on_fused2():
@@ -401,13 +404,33 @@ def test_build_accepts_bf16_on_fused2():
 
 @pytest.mark.parametrize("impl", ["fused", "pallas", "cumsum"])
 def test_encoder_refuses_bf16_sorted_batches(impl):
+    """The point encoder no longer refuses a sorted batch in bf16: each
+    layout's batch (cells recomputed from the points) serves to finite f32
+    heights."""
+    from tomosar2height_tpu_torch.ops.sorted_scatter import (
+        host_morton_bucket,
+        host_morton_bucket_aligned,
+    )
+
     cfg = net_cfg("bfloat16")
     cfg["model"]["encoder_kwargs"]["sorted_impl"] = impl
     model = build_model(cfg, device="cpu")
     x = inputs()
-    offsets = torch.zeros((B, 2), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
-        model(t(x["points"]), t(x["point_mask"]), t(x["image"]), None, offsets)
+    if impl == "fused":
+        rows = [host_morton_bucket_aligned(x["points"][i], x["point_mask"][i], RESO,
+                                           tile_cells=256) for i in range(B)]
+        pts, mask, offsets = (torch.from_numpy(np.stack([r[k] for r in rows]))
+                              for k in ("points", "mask", "tile_offsets"))
+    else:
+        rows = [host_morton_bucket(x["points"][i], x["point_mask"][i], RESO) for i in range(B)]
+        pts = torch.from_numpy(np.stack([x["points"][i][o] for i, (o, _, _) in enumerate(rows)]))
+        mask = torch.from_numpy(np.stack([x["point_mask"][i][o]
+                                          for i, (o, _, _) in enumerate(rows)]))
+        offsets = torch.from_numpy(np.stack([off for _, _, off in rows]))
+    with torch.no_grad():
+        pa, _ = model(pts, mask, t(x["image"]), None, offsets)
+    assert pa.dtype == torch.float32 and pa.shape == (B, OUT, OUT, 1)
+    assert torch.isfinite(pa).all()
 
 
 def test_encoder_serves_bf16_fused2_batches():

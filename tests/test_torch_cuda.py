@@ -27,7 +27,9 @@ bf16 plain version's plus one bf16 ulp of the output's scale. K1-K5's bf16
 instances: the run kernels, K2, K5's d_plane pass and weight sums within one
 bf16 ulp of their bf16 plain versions (f32 sums in two orders, each output
 rounded once; max exact); K4 and K5 under the JAX package's bf16 rule
-(``bf16_level_held``).
+(``bf16_level_held``). K9-K14's bf16 modes and the ``fused``/``cumsum``
+backwards in bf16: within one bf16 ulp of their bf16 plain versions (max
+and K12's backward bit-equal).
 """
 
 from __future__ import annotations
@@ -2052,3 +2054,203 @@ class TestBf16RunAndLevelKernels:
             assert runtime.LAUNCHES[name] == before[name]
         assert all(x.grad.dtype == BF and torch.isfinite(x.grad.float()).all()
                    for x in (p, v, *w))
+
+
+@pytest.mark.cuda
+class TestBf16TileKernels:
+    """K9-K14's bf16 modes and the backwards of the ``fused`` and ``cumsum``
+    layouts in bf16 (counted under ``*_bf16``, no f32 launch) against their
+    bf16 plain versions: K9, K11-K14 and the means within one bf16 ulp (f32
+    sums in another order, each output rounded once; K9's four products in
+    the plain version's order, measured bit-equal), max exact; K12's
+    backward (the count cut to bf16, one division rounded) bit-equal; the
+    d_plane passes within one bf16 ulp; each bit-equal on a second launch.
+    Then a bf16 mini-step of the flagship on ``fused`` and on ``cumsum``:
+    the launches ``chip_smoke`` counts, its gradients bit-equal on a rerun."""
+
+    @pytest.mark.parametrize("reso,finest,edge", [
+        (64, 64, "none"), (32, 64, "empty"), (32, 32, "border"), (256, 256, "none")])
+    def test_tile_gather(self, cuda, reso, finest, edge):
+        pts, mask, _, toff, _ = tile_batch(13, reso=finest, edge=edge)
+        rng = np.random.default_rng(1)
+        plane = _bf(rng.normal(size=(2, reso, reso, 48)).astype(np.float32), cuda)
+        xy = t(pts[..., :2], cuda)
+        lvl_toff = t(toff[:, :: 4 ** ((finest.bit_length() - reso.bit_length()))], cuda)
+        before = dict(runtime.LAUNCHES)
+        got = gk.tile_gather(plane, xy, lvl_toff)
+        want = gk.tile_gather_plain(plane, xy, lvl_toff)
+        torch.cuda.synchronize()
+        _launched("tile_gather_bf16", before)
+        assert runtime.LAUNCHES["tile_gather"] == before["tile_gather"]
+        assert got.dtype == BF and bf16_ulps(got, want) <= 1
+        assert torch.equal(gk.tile_gather(plane, xy, lvl_toff), got)
+
+    @pytest.mark.parametrize("kind", ["max", "mean"])
+    @pytest.mark.parametrize("edge", ["none", "one_cell", "empty"])
+    def test_tile_pool_and_backward(self, cuda, kind, edge):
+        _, mask, cells, toff, vals = tile_batch(41, f=40, edge=edge)
+        vals[~mask] = 0.0
+        if edge == "none":  # ties
+            vals = np.where(mask[..., None], np.random.default_rng(4).integers(0, 3, vals.shape),
+                            vals).astype(np.float32)
+        v, c, tt = _bf(vals, cuda), t(cells, cuda), t(toff, cuda)
+        g = (torch.randn(vals.shape, generator=torch.Generator().manual_seed(5)).to(cuda, BF)
+             * t(mask, cuda)[..., None]).contiguous()
+        before = dict(runtime.LAUNCHES)
+        out = tpk.tile_pool(v, c, tt, kind)
+        dv = tpk.tile_pool_bwd(g, v, out, c, tt, kind)
+        torch.cuda.synchronize()
+        _launched("tile_pool_bf16", before)
+        _launched("tile_pool_bwd_bf16", before)
+        assert runtime.LAUNCHES["tile_pool"] == before["tile_pool"]
+        want = tpk.tile_pool_plain(v, c, tt, kind)
+        assert out.dtype == dv.dtype == BF and (out[t(~mask, cuda)] == 0).all()
+        if kind == "max":
+            assert torch.equal(out, want)
+        else:
+            assert bf16_ulps(out, want) <= 1
+        assert bf16_ulps(dv, tpk.tile_pool_bwd_plain(g, v, out, c, tt, kind)) <= 1
+        assert torch.equal(tpk.tile_pool(v, c, tt, kind), out)
+        assert torch.equal(tpk.tile_pool_bwd(g, v, out, c, tt, kind), dv)
+
+    @pytest.mark.parametrize("reso,finest,f,edge", [
+        (64, 64, 32, "none"), (32, 64, 40, "empty"), (16, 64, 1024, "none"),
+        (16, 64, 8, "one_cell")])
+    def test_aligned_scatter_and_backward(self, cuda, reso, finest, f, edge):
+        """K12 and K14 (>= 32^2), and K12's backward with the count cut to
+        bf16 (a cell of ~800 rows at 16^2)."""
+        _, _, cells, toff, vals = tile_batch(7, reso=finest, f=f, edge=edge)
+        level = finest.bit_length() - reso.bit_length()
+        v, c = _bf(vals, cuda), t(cells, cuda)
+        lvl_toff = t(toff[:, :: 4 ** level], cuda)
+        before = dict(runtime.LAUNCHES)
+        got, counts = sk.aligned_scatter_mean_plane(v, c, lvl_toff, reso, finest,
+                                                    with_counts=True)
+        torch.cuda.synchronize()
+        _launched("aligned_scatter_mean_plane_bf16", before)
+        want, want_counts = sk.aligned_scatter_mean_plane_plain(v, c, lvl_toff, reso, finest,
+                                                                with_counts=True)
+        assert got.dtype == BF and torch.equal(counts, want_counts)
+        assert bf16_ulps(got, want) <= 1
+        assert torch.equal(sk.aligned_scatter_mean_plane(v, c, lvl_toff, reso, finest), got)
+        if reso >= 32:
+            got3 = sk.scatter_mean_plane_v3(v, c, t(toff, cuda), reso, finest)
+            assert got3.dtype == BF and bf16_ulps(got3, want) <= 1
+            assert torch.equal(sk.scatter_mean_plane_v3(v, c, t(toff, cuda), reso, finest),
+                               got3)
+        g = torch.randn(got.shape, generator=torch.Generator().manual_seed(6)).to(cuda, BF)
+        before = dict(runtime.LAUNCHES)
+        dv = sk.aligned_scatter_mean_plane_bwd(g, c, counts, reso, finest)
+        torch.cuda.synchronize()
+        _launched("aligned_scatter_mean_plane_bwd_bf16", before)
+        _launched("pool_gather_bf16", before)
+        assert runtime.LAUNCHES["pool_gather"] == before["pool_gather"]
+        assert dv.dtype == BF
+        assert torch.equal(dv, sk.aligned_scatter_mean_plane_bwd_plain(g, c, counts, reso,
+                                                                       finest))
+        assert torch.equal(sk.aligned_scatter_mean_plane_bwd(g, c, counts, reso, finest), dv)
+        if edge == "one_cell":
+            assert int(counts.max()) > 256
+
+    @pytest.mark.parametrize("reso,f,one_cell", [(32, 8, False), (16, 4, True),
+                                                 (64, 96, False)])
+    def test_sorted_scatter_mean(self, cuda, reso, f, one_cell):
+        vals, cells, offs = sorted_batch(3, reso=reso, f=f, one_cell=one_cell)
+        v, c, o = _bf(vals, cuda), t(cells, cuda), t(offs, cuda)
+        before = dict(runtime.LAUNCHES)
+        plane = sk.scatter_mean_plane(v, c, o, reso)
+        vec = sk.scatter_mean(v, c, o, reso)
+        torch.cuda.synchronize()
+        _launched("scatter_mean_plane_bf16", before)
+        _launched("scatter_mean_bf16", before)
+        assert plane.dtype == vec.dtype == BF
+        assert bf16_ulps(plane, sk.scatter_mean_plane_plain(v, c, o, reso)) <= 1
+        assert bf16_ulps(vec, sk.scatter_mean_plain(v, c, o, reso)) <= 1
+        assert torch.equal(sk.scatter_mean(v, c, o, reso), vec)
+
+    @pytest.mark.parametrize("reso,finest,edge", [(64, 64, "empty"), (32, 64, "border"),
+                                                  (32, 32, "one_cell")])
+    def test_tile_gather_bwd(self, cuda, reso, finest, edge):
+        pts, mask, cells, _, _ = tile_batch(5, n=800, reso=finest, f=24, edge=edge)
+        g = torch.randn(*mask.shape, 24, generator=torch.Generator().manual_seed(3))
+        args = (g.to(cuda, BF), t(pts[..., :2].copy(), cuda), t(cells, cuda), t(mask, cuda),
+                reso, finest)
+        before = dict(runtime.LAUNCHES)
+        got = gk.tile_gather_bwd(*args)
+        torch.cuda.synchronize()
+        _launched("tile_gather_bwd_bf16", before)
+        _launched("level_d_plane_bf16", before)
+        assert got.dtype == BF and bf16_ulps(got, lk.level_d_plane_plain(*args)) <= 1
+        assert torch.equal(gk.tile_gather_bwd(*args), got)
+
+    @pytest.mark.parametrize("impl,reso", [("cumsum", 256), ("cumsum", 32), ("fused", 16)])
+    def test_sorted_sample_bwd(self, cuda, impl, reso):
+        """The f32 sample of a bf16 plane; its backward from the f32
+        cotangent on K5's d_plane pass from f32 into bf16
+        (``level_d_plane_wide_bf16``)."""
+        import chip_smoke as cs
+
+        pts, mask, apts, amask, acells, _ = cs.flagship_batch(2, b=2, n=4000, tile_cells=256)
+        if impl == "cumsum":
+            apts, amask, acells, _ = cs.sorted_layout(pts, mask)
+        xy, m, c = t(apts[..., :2].copy(), cuda), t(amask, cuda), t(acells, cuda)
+        gen = torch.Generator().manual_seed(5)
+        plane = torch.randn(2, reso, reso, 40, generator=gen).to(cuda, BF).requires_grad_()
+        g = torch.randn(*amask.shape, 40, generator=gen).to(cuda)
+        before = dict(runtime.LAUNCHES)
+        out = fused.sorted_sample(plane, xy, m, c, 256)
+        got, again = (torch.autograd.grad(fused.sorted_sample(plane, xy, m, c, 256), plane,
+                                          g)[0] for _ in range(2))
+        torch.cuda.synchronize()
+        _launched("level_d_plane_wide_bf16", before, 2)
+        assert runtime.LAUNCHES["level_d_plane"] == before["level_d_plane"]
+        assert out.dtype == torch.float32 and got.dtype == BF and torch.equal(got, again)
+        want = lk.level_d_plane_plain(g, xy, c, m, reso, 256, BF)
+        assert bf16_ulps(got, want) <= 1
+
+    @pytest.mark.parametrize("impl", ["fused", "cumsum"])
+    def test_bf16_step_launches_and_repeats(self, cuda, impl):
+        """The flagship in bf16 at full width on 2 patches: one mini-step
+        launches what ``chip_smoke.SORTED_TRAIN_BF16_LAUNCHES`` (``cumsum``:
+        ``CUMSUM_TRAIN_BF16_LAUNCHES``) counts, its loss within 0.15 x
+        z_scale of the f32 step's, and a second step from the same weights
+        gives the same gradients, bit for bit."""
+        import chip_smoke as cs
+        from tomosar2height_tpu_torch.config import sorted_config
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+        from tomosar2height_tpu_torch.ops.cuda.conv_kernel import fp32_convs
+        from tomosar2height_tpu_torch.train import Trainer
+
+        cfg = sorted_config(impl)
+        model = init_weights(build_model(cfg, "cuda"), torch.Generator().manual_seed(0))
+        cfg16 = sorted_config(impl)
+        cfg16["model"]["dtype"] = "bfloat16"
+        model16 = build_model(cfg16, "cuda")
+        model16.load_state_dict(model.state_dict())
+        pts, mask, apts, amask, _, toff = cs.flagship_batch(1, b=2, tile_cells=256)
+        if impl == "cumsum":
+            apts, amask, _, toff = cs.sorted_layout(pts, mask)
+        side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
+        rng = np.random.default_rng(2)
+        batch = {"points": apts, "point_mask": amask, "cell_offsets": toff,
+                 "dsm": rng.uniform(0, 40, (2, side, side)).astype(np.float32),
+                 "patch_valid": np.ones(2, bool)}
+
+        def step(m):
+            trainer = Trainer(m, cfg["training"])
+            dev = trainer.prepare_batch(batch)
+            runtime.reset_launches()
+            with fp32_convs(deterministic=True):
+                loss, _ = trainer.loss(dev)
+                grads = torch.autograd.grad(loss, trainer.params)
+            torch.cuda.synchronize()
+            return float(loss), grads, {k: v for k, v in runtime.LAUNCHES.items() if v}
+
+        loss, grads, launched = step(model16)
+        assert launched == (cs.SORTED_TRAIN_BF16_LAUNCHES if impl == "fused"
+                            else cs.CUMSUM_TRAIN_BF16_LAUNCHES)
+        _, grads2, _ = step(model16)
+        assert all(torch.equal(a, b) for a, b in zip(grads, grads2))
+        ref, _, _ = step(model)
+        z = cfg["dataset"]["normalize"]["z_bound"]
+        assert abs(loss - ref) <= 0.15 * (z[1] - z[0]), (loss, ref)

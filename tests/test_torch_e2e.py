@@ -245,12 +245,20 @@ def test_bf16_trains_and_tests_through_the_cli(trained):
 
 
 def test_bf16_on_the_sorted_layout_refused(trained):
-    """bf16 on ``sorted_impl=fused``, whose kernels (K9-K14) have no bf16
-    variants yet."""
+    """bf16 on ``sorted_impl=fused`` is no longer refused: cli.train trains
+    one iteration (K9, K10, K12 and their backwards at their bf16
+    instances on a card) and writes the f32 run's checkpoint arrays, and
+    cli.test serves it to finite heights."""
     root, ov, out = trained
     fused = [o.replace("=fused2", "=fused") for o in KERNEL_PATH]
-    with pytest.raises(NotImplementedError, match="ROADMAP: bf16"):
-        cli_train.run(ov + fused + ["model.dtype=bfloat16", "run_suffix=-bf16s"])
+    bf = cli_train.run(ov + fused + ["model.dtype=bfloat16", "run_suffix=-bf16s",
+                                     "training.max_iteration=1", "training.visualize_every=0"])
+    assert bf["n_iter"] == 1 and np.isfinite(bf["windows"][0]["loss"])
+    tree = _tree_of(f"{run_dir(root, '-bf16s')}/check_points/model_1.ckpt")
+    assert tree == _tree_of(f"{run_dir(root)}/check_points/model_1.ckpt")
+    res = cli_test.run(ov + fused + ["model.dtype=bfloat16", "run_suffix=-bf16s"])
+    dsm = RasterReader(res["dsm_path"]).get_data()
+    assert np.isfinite(dsm).any() and res["stats"]["overall"]["RMSE"] is not None
 
 
 def test_bf16_on_fused2_trains_and_tests_through_the_cli(trained):

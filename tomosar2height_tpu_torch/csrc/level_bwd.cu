@@ -679,14 +679,19 @@ __device__ __forceinline__ float corner_weight(const Corner& c, int px, int py) 
 // list is read 32 rows a step, lane l taking row l: its mask, xy and corner
 // weight at the pixel. The rows of nonzero weight are added in list order,
 // their d_s loaded kLoads at a time, so the sum, and the pixel's one store,
-// are the same in every run. T = bf16: d_s in bf16, the sum in f32, each
-// pixel rounded to bf16 once (JAX rounds each tile's halo window, then folds
-// the windows in bf16: windows_to_plane, level_bwd_kernel.py:403).
-template <typename T, int VEC>
+// are the same in every run. TS = bf16: d_s in bf16 (the cotangent of a
+// bf16 sample, whose weights were cut: K4's, K9's), the weights cut the same
+// way, the sum in f32, each pixel rounded to TP once (JAX rounds each tile's
+// halo window, then folds the windows in bf16: windows_to_plane,
+// level_bwd_kernel.py:403). TS = float and TP = bf16: the f32 cotangent of
+// a bf16 plane's f32 sample (grid_sample_2d promotes it, JAX
+// ops/sampling.py:28-46), the weights uncut, each pixel's f32 sum rounded
+// to bf16 once, as JAX's vjp rounds its f32 d_plane to the plane's dtype.
+template <typename TS, typename TP, int VEC>
 __global__ void __launch_bounds__(kThreads)
-d_plane_gather(const T* __restrict__ ds, const float* __restrict__ xy,
+d_plane_gather(const TS* __restrict__ ds, const float* __restrict__ xy,
                const uint8_t* __restrict__ mask, const int* __restrict__ start,
-               const int* __restrict__ end, T* __restrict__ d_plane, int N, int R, int F,
+               const int* __restrict__ end, TP* __restrict__ d_plane, int N, int R, int F,
                int fr, long long warps, int chunks) {
   const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   if (warp >= warps) return;  // warp-uniform
@@ -705,7 +710,7 @@ d_plane_gather(const T* __restrict__ ds, const float* __restrict__ xy,
   const int f = (fc * 32 + lane) * VEC;
   const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
   const long long base = b * N;
-  const T* dsf = ds + base * F + f;
+  const TS* dsf = ds + base * F + f;
   const long long cell0 = b * fr * fr;
 
   float acc[VEC] = {};
@@ -736,7 +741,7 @@ d_plane_gather(const T* __restrict__ ds, const float* __restrict__ xy,
       float w = 0.0f;
       if (tt < total && mask[base + row] != 0) {
         const long long q = 2 * (base + row);
-        w = corner_weight<T>(bilinear_corner(xy[q], xy[q + 1], R), px, py);
+        w = corner_weight<TS>(bilinear_corner(xy[q], xy[q + 1], R), px, py);
       }
       unsigned hits = __ballot_sync(kFullMask, w != 0.0f);
       while (hits != 0u) {  // warp-uniform
@@ -797,9 +802,9 @@ int level_bwd_rows(const T* plane, const float* xy, const int* cells, const uint
   return static_cast<int>(err);
 }
 
-template <typename T>
-int level_d_plane(const T* ds, const float* xy, const int* cells, const uint8_t* mask,
-                  int* offs, T* d_plane, int B, int N, int R, int F, int fr,
+template <typename TS, typename TP>
+int level_d_plane(const TS* ds, const float* xy, const int* cells, const uint8_t* mask,
+                  int* offs, TP* d_plane, int B, int N, int R, int F, int fr,
                   cudaStream_t stream) {
   if (R < 1 || fr < R || (long long)fr * fr >= (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -819,7 +824,7 @@ int level_d_plane(const T* ds, const float* xy, const int* cells, const uint8_t*
   const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
   if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
 #define T2H_GATHER(V)                                                                     \
-  d_plane_gather<T, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(           \
+  d_plane_gather<TS, TP, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(      \
       ds, xy, mask, offs, offs + ncell, d_plane, N, R, F, fr, warps, chunks)
   if (vec == 4) T2H_GATHER(4);
   else if (vec == 2) T2H_GATHER(2);
@@ -906,6 +911,15 @@ int t2h_level_d_plane(const float* ds, const float* xy, const int* cells, const 
 int t2h_level_d_plane_bf16(const bf16* ds, const float* xy, const int* cells,
                            const uint8_t* mask, int* offs, bf16* d_plane, int B, int N, int R,
                            int F, int fr, cudaStream_t stream) {
+  return level_d_plane(ds, xy, cells, mask, offs, d_plane, B, N, R, F, fr, stream);
+}
+
+// The same on f32 ds into a bf16 d_plane: the weights uncut, each pixel's
+// f32 sum rounded to bf16 once (the backward of the f32 sample of a bf16
+// plane on the sorted layouts without K9: ops/fused.sorted_sample).
+int t2h_level_d_plane_wide_bf16(const float* ds, const float* xy, const int* cells,
+                                const uint8_t* mask, int* offs, bf16* d_plane, int B, int N,
+                                int R, int F, int fr, cudaStream_t stream) {
   return level_d_plane(ds, xy, cells, mask, offs, d_plane, B, N, R, F, fr, stream);
 }
 

@@ -358,9 +358,14 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
 // every row's cell id and mask, the output written once. At B = 8, Npad =
 // 20480, F = 32 the output alone is 21 MB (~6.3 us at 3.35 TB/s); all of it
 // ~36 MB, ~11 us.
+//
+// CUT: the count rounded to bf16 before the division, as JAX's K12 backward
+// divides by counts.astype(bf16) (fused.py:170): a cell of more than 256 rows
+// takes the nearest bf16 count. fused2's K2 (scatter_plane2's backward,
+// pool2_kernel.py:424-453) divides by the exact count and takes CUT false.
 constexpr int kGatherGroup = 16;  // rows loaded at once
 
-template <typename T>
+template <typename T, bool CUT>
 __global__ void __launch_bounds__(kThreads, 3)
 pool_gather(const T* __restrict__ plane, const int* __restrict__ cells,
             const uint8_t* __restrict__ mask, const int* __restrict__ counts,
@@ -387,6 +392,7 @@ pool_gather(const T* __restrict__ plane, const int* __restrict__ cells,
       dst = morton_to_rowmajor(c, reso);
       const int k = counts[(long long)b * ncell + dst];
       n = static_cast<float>(k > 1 ? k : 1);
+      if (CUT) n = round_as<bf16>(n);
     }
   }
   const unsigned valid = __ballot_sync(kFull, dst >= 0);
@@ -684,7 +690,7 @@ int launch_pool_runs(const T* x, const int* cells, const uint8_t* mask, const in
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+template <typename T, bool CUT>
 int launch_pool_gather(const T* plane, const int* cells, const uint8_t* mask,
                        const int* counts, T* out, int B, int N, int F, int reso, int shift,
                        cudaStream_t stream) {
@@ -693,10 +699,11 @@ int launch_pool_gather(const T* plane, const int* cells, const uint8_t* mask,
   const long long warps = (long long)B * spans * chunks;
   if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
   if (warps > 0)
-    pool_gather<T><<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads,
-                     0, stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
-                                  static_cast<unsigned>(warps), static_cast<unsigned>(spans),
-                                  static_cast<unsigned>(chunks));
+    pool_gather<T, CUT>
+        <<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads, 0,
+           stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
+                     static_cast<unsigned>(warps), static_cast<unsigned>(spans),
+                     static_cast<unsigned>(chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -802,7 +809,8 @@ int t2h_pool_runs_bf16(const bf16* x, const int* cells, const uint8_t* mask, con
 int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
                     const int* counts, float* out, int B, int N, int F, int reso, int shift,
                     cudaStream_t stream) {
-  return launch_pool_gather(plane, cells, mask, counts, out, B, N, F, reso, shift, stream);
+  return launch_pool_gather<float, false>(plane, cells, mask, counts, out, B, N, F, reso,
+                                          shift, stream);
 }
 
 // The same on a bf16 plane and out: the f32 quotient rounded to bf16 once
@@ -810,7 +818,18 @@ int t2h_pool_gather(const float* plane, const int* cells, const uint8_t* mask,
 int t2h_pool_gather_bf16(const bf16* plane, const int* cells, const uint8_t* mask,
                          const int* counts, bf16* out, int B, int N, int F, int reso,
                          int shift, cudaStream_t stream) {
-  return launch_pool_gather(plane, cells, mask, counts, out, B, N, F, reso, shift, stream);
+  return launch_pool_gather<bf16, false>(plane, cells, mask, counts, out, B, N, F, reso,
+                                         shift, stream);
+}
+
+// The same with each count rounded to bf16 before the division: K12's
+// backward in bf16 (JAX fused.py:149-173 divides the bf16 cotangent by
+// counts.astype(bf16)), the quotient rounded to bf16 once.
+int t2h_pool_gather_cut_bf16(const bf16* plane, const int* cells, const uint8_t* mask,
+                             const int* counts, bf16* out, int B, int N, int F, int reso,
+                             int shift, cudaStream_t stream) {
+  return launch_pool_gather<bf16, true>(plane, cells, mask, counts, out, B, N, F, reso,
+                                        shift, stream);
 }
 
 // values (B,N,F) f32, cells (B,N) i32 Morton ids (finest; the cell at reso

@@ -22,6 +22,16 @@
 // the plane and the coordinates read once: at the flagship's 256^2 level with
 // F=64 (B=8, ~33k rows each) ~68 MB written and 134 MB of plane, ~60 us at
 // 3.35 TB/s.
+//
+// bf16 (the model's bf16 dtype): the kernel is templated on the element type
+// V (dtype.cuh). A bf16 instance reads the bf16 plane (a warp's corner read
+// is a 64-byte line), cuts the four bilinear weights to bf16, sums the four
+// exact products in f32 in corner order and rounds each output to bf16 once
+// (bilinear.cuh's bf16 bilinear_at): the JAX kernel's rule with a bf16
+// plane, where the one-hot weight matrix is cast to the plane's dtype and
+// contracted into f32 (gather_kernel.py:174-186), the f32 coordinates as
+// they are. The coordinates stay f32; the plane's and the output's bytes
+// halve.
 
 #include "bilinear.cuh"
 #include "common.cuh"
@@ -30,23 +40,34 @@ namespace t2h {
 
 constexpr int kGatherRows = kThreads / 32;  // rows per block, one per warp
 
+template <typename V>
 __global__ void __launch_bounds__(kThreads)
-tile_gather_kernel(const float* __restrict__ plane, const float* __restrict__ xy,
-                   const int* __restrict__ toff, float* __restrict__ out, int N, int R,
+tile_gather_kernel(const V* __restrict__ plane, const float* __restrict__ xy,
+                   const int* __restrict__ toff, V* __restrict__ out, int N, int R,
                    int F, int T) {
   const int b = blockIdx.y;
   const int i = blockIdx.x * kGatherRows + (threadIdx.x >> 5);
   const int lane = threadIdx.x & 31;
   if (i >= N) return;
   const long long p = (long long)b * N + i;
-  float* o = out + p * F;
+  V* o = out + p * F;
   if (i >= toff[(long long)b * (T + 1) + T]) {
-    for (int ch = lane; ch < F; ch += 32) o[ch] = 0.0f;
+    for (int ch = lane; ch < F; ch += 32) o[ch] = from_f32<V>(0.0f);
     return;
   }
   const Corner c = bilinear_corner(xy[2 * p], xy[2 * p + 1], R);
-  const float* pl = plane + (long long)b * R * R * F;
-  for (int ch = lane; ch < F; ch += 32) o[ch] = bilinear_at(pl, c, R, F, ch);
+  const V* pl = plane + (long long)b * R * R * F;
+  for (int ch = lane; ch < F; ch += 32) o[ch] = from_f32<V>(bilinear_at(pl, c, R, F, ch));
+}
+
+template <typename V>
+int launch_tile_gather(const V* plane, const float* xy, const int* toff, V* out, int B,
+                       int N, int R, int F, int T, cudaStream_t stream) {
+  if ((long long)B * N * F > 0) {
+    const dim3 grid((N + kGatherRows - 1) / kGatherRows, B);
+    tile_gather_kernel<V><<<grid, kThreads, 0, stream>>>(plane, xy, toff, out, N, R, F, T);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace t2h
@@ -60,11 +81,14 @@ extern "C" {
 // sample on rows [0, toff[b,T]), 0 past them.
 int t2h_tile_gather(const float* plane, const float* xy, const int* toff, float* out,
                     int B, int N, int R, int F, int T, cudaStream_t stream) {
-  if ((long long)B * N * F > 0) {
-    const dim3 grid((N + kGatherRows - 1) / kGatherRows, B);
-    tile_gather_kernel<<<grid, kThreads, 0, stream>>>(plane, xy, toff, out, N, R, F, T);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_tile_gather(plane, xy, toff, out, B, N, R, F, T, stream);
+}
+
+// The same on a bf16 plane and out: the weights cut to bf16, each sample's
+// f32 sum rounded to bf16 once (JAX gather_kernel.py:174-186).
+int t2h_tile_gather_bf16(const bf16* plane, const float* xy, const int* toff, bf16* out,
+                         int B, int N, int R, int F, int T, cudaStream_t stream) {
+  return launch_tile_gather(plane, xy, toff, out, B, N, R, F, T, stream);
 }
 
 }  // extern "C"

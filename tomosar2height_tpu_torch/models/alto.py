@@ -27,7 +27,10 @@ So it does below 32 on ``fused2``, whose scatter sums bf16 point features in
 float32 and rounds each cell's sum once before the bf16 division by its
 count (JAX's segment_mean in bf16, models/alto.py:73-85). A fused2 round
 trip at >= 32 in bf16 is K4's bf16 instance: the six weights and c_last
-cast to bf16 (JAX models/alto.py:164-167), c comes back bf16.
+cast to bf16 (JAX models/alto.py:164-167), c comes back bf16. On ``fused``
+in bf16, K9's sample at >= 32 comes back bf16 (its weights cut to bf16),
+``sorted_sample`` below 32 f32; K12's plane, K11's (``pallas``) and the
+cumulative sums' (``cumsum``) are bf16, as flax's are.
 """
 
 from __future__ import annotations

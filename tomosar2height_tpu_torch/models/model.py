@@ -13,7 +13,7 @@ from torch.utils.checkpoint import checkpoint
 
 from tomosar2height_tpu_torch.models.blocks import DTYPES
 from tomosar2height_tpu_torch.models.decoder import PixelwiseDecoder
-from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet, refuse_bf16_layout
+from tomosar2height_tpu_torch.models.pointnet import LocalPoolPointnet
 from tomosar2height_tpu_torch.models.unet import UNet
 from tomosar2height_tpu_torch.ops.sorted_scatter import dequantize_points
 
@@ -88,17 +88,13 @@ def build_model(cfg, device="cuda") -> TomoSAR2Height:
     package's ``build_model``) on ``device``: the card unless the caller asks
     for ``"cpu"``; there is no fallback. Seeded weights:
     ``blocks.init_weights`` (equal on every device). ``model.dtype`` is the
-    compute dtype, 'float32' or 'bfloat16' (float32 parameters either way);
-    bf16 runs on the unsorted point path and, with ``dataset.points.sort``,
-    on ``fused2`` only: the other sorted layouts raise (ROADMAP: bf16)."""
+    compute dtype, 'float32' or 'bfloat16' (float32 parameters either way),
+    on the unsorted point path and on every sorted layout."""
     cfg_model = cfg["model"]
     name = str(cfg_model.get("dtype", "float32"))
     if name not in DTYPES:
         raise NotImplementedError(f"model.dtype={name!r}: one of {tuple(DTYPES)}")
     dtype = DTYPES[name]
-    if (cfg["dataset"].get("points") or {}).get("sort", False):
-        refuse_bf16_layout(dtype, (cfg_model.get("encoder_kwargs") or {}).get(
-            "sorted_impl", "cumsum"))
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("build_model: no CUDA card here; pass device='cpu' to "
                            "build on the CPU")

@@ -17,10 +17,12 @@ loader ships Morton-sorted rows (``offsets`` given), else unsorted:
 - the unsorted plain path: cell ids from the coordinates and plain torch
   segment ops.
 
-``dtype`` is the compute dtype (``blocks`` module docstring). In bf16 the
-unsorted plain path and ``fused2`` run (K1-K5 have bf16 instances); the
-``fused``, ``pallas`` and ``cumsum`` layouts raise, since K9-K14 have no bf16
-variants yet (ROADMAP: bf16).
+``dtype`` is the compute dtype (``blocks`` module docstring). Every path
+runs in bf16: the kernels of ``fused2`` (K1-K5) and of ``fused``/``pallas``
+(K9-K13) have bf16 instances, each with its JAX kernel's rounding points;
+``segment_max`` is exact in bf16, and the cumulative sums of ``cumsum`` run
+in float64 and round each cell's sum to bf16 once, its counts cast to bf16
+and the mean divided in bf16 (JAX ops/sorted_scatter.py:301-315).
 """
 
 from __future__ import annotations
@@ -50,17 +52,6 @@ from tomosar2height_tpu_torch.ops.sorted_scatter import (
 )
 
 SORTED_IMPLS = ("cumsum", "pallas", "fused", "fused2")
-BF16_IMPLS = ("fused2",)
-"""The sorted layouts that run in bf16."""
-
-
-def refuse_bf16_layout(dtype: torch.dtype, impl: str) -> None:
-    """Raise for a sorted layout that has no bf16 kernels yet."""
-    if dtype != torch.float32 and impl not in BF16_IMPLS:
-        raise NotImplementedError(
-            f"dtype {dtype} on the sorted layout {impl!r}: its kernels (K9-K14) and ops "
-            f"run in float32 only; bf16 runs unsorted or on {', '.join(BF16_IMPLS)} "
-            "(ROADMAP: bf16)")
 
 
 class LocalPoolPointnet(nn.Module):
@@ -112,7 +103,6 @@ class LocalPoolPointnet(nn.Module):
         xy = points[..., :2]
         impl = self.sorted_impl if offsets is not None else None
         if impl is not None:
-            refuse_bf16_layout(self.dtype, impl)
             if cells is None:
                 # pads: the sentinel on the aligned layouts, reso**2 on the plain
                 # sorted one (pointnet.py:83-86)

@@ -144,13 +144,15 @@ def fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts, 
     return d_c_last, rows(s), rows(h), rows(d_o), rows(d_h), rows(d_s)
 
 
-def level_d_plane_plain(d_s, xy, cells, mask, reso: int, finest: int):
+def level_d_plane_plain(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=None):
     """K5's d_plane in plain torch. Same arguments and returns as
     :func:`level_d_plane`; in bf16 the weights cut as K4's and each pixel's
-    f32 sum rounded once."""
+    f32 sum rounded once (an f32 ``d_s`` into a bf16 ``out_dtype``: the
+    weights uncut, the f32 sum rounded once)."""
     d_s = torch.where(mask[..., None], d_s, torch.zeros_like(d_s))
     cut = d_s.dtype if d_s.dtype == torch.bfloat16 else None
-    return grid_sample_2d_adjoint(acc_dtype(d_s), xy, reso, reso, cut).to(d_s.dtype)
+    return grid_sample_2d_adjoint(acc_dtype(d_s), xy, reso, reso, cut).to(
+        out_dtype or d_s.dtype)
 
 
 def fused_level_bwd_plain(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
@@ -263,7 +265,7 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
     return d_c_last, s, hs, d_o, d_h, d_s
 
 
-def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int):
+def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=None):
     """K5's d_plane pass (``t2h_level_d_plane``): the bilinear transpose of the
     rows' sample cotangents, d_plane[b, y, x] = sum over the valid rows whose
     sample reads pixel (x, y) of its weight times d_s, each pixel written
@@ -274,30 +276,45 @@ def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int):
         xy, cells, mask: the forward's (B, N, 2) f32, (B, N) int32 finest
             Morton ids at ``finest``, (B, N) bool.
         reso: the plane's resolution R; finest: the layout's.
+        out_dtype: d_plane's dtype, d_s's by default; bfloat16 for an f32
+            d_s is the backward of a bf16 plane's f32 sample
+            (``ops.fused.sorted_sample``: ``t2h_level_d_plane_wide_bf16``,
+            counted under ``level_d_plane_wide_bf16``).
 
-    Returns d_plane (B, R, R, F) in d_s's dtype (bf16: the weights cut as
-    K4's, each pixel's f32 sum rounded once). On the card the rows of each finest cell
-    must be contiguous and a row's cell within one cell of trunc(xy *
-    finest), as on the aligned layout (the module's contract).
+    Returns d_plane (B, R, R, F) in ``out_dtype`` (a bf16 d_s: the weights
+    cut as K4's, each pixel's f32 sum rounded once; an f32 d_s into bf16:
+    the weights uncut, the f32 sum rounded once). On the card the rows of
+    each finest cell must be contiguous and a row's cell within one cell of
+    trunc(xy * finest), as on the aligned layout (the module's contract).
     """
     if runtime.on_cpu(d_s):
-        return level_d_plane_plain(d_s, xy, cells, mask, reso, finest)
+        return level_d_plane_plain(d_s, xy, cells, mask, reso, finest, out_dtype)
     dev, dt = d_s.device, d_s.dtype
+    out_dtype = out_dtype or dt
     b, n, f = d_s.shape
     _check_dtype(dt)
+    wide = out_dtype != dt
+    if wide and (dt, out_dtype) != (torch.float32, torch.bfloat16):
+        raise TypeError(f"d_plane pass from {dt} into {out_dtype}: only float32 into "
+                        "bfloat16 besides a dtype into itself")
     runtime.require(d_s, "d_s", dt, (b, n, f), dev)
     runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     if finest < reso:
         raise ValueError(f"finest resolution {finest} < reso {reso}")
-    d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=dt)
+    d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=out_dtype)
     offs = torch.empty(2 * b * finest * finest, device=dev, dtype=torch.int32)
-    err = runtime.entry("level_d_plane", dt)(
-        d_s.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(), offs.data_ptr(),
-        d_plane.data_ptr(), b, n, reso, f, finest, runtime.stream_ptr(dev))
+    fn = (runtime.entry("level_d_plane_wide", out_dtype) if wide
+          else runtime.entry("level_d_plane", dt))
+    err = fn(d_s.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(),
+             offs.data_ptr(), d_plane.data_ptr(), b, n, reso, f, finest,
+             runtime.stream_ptr(dev))
     runtime.check(err, "level_d_plane")
-    runtime.launched("level_d_plane", dt)
+    if wide:
+        runtime.launched("level_d_plane_wide", out_dtype)
+    else:
+        runtime.launched("level_d_plane", dt)
     return d_plane
 
 

@@ -151,15 +151,21 @@ def scatter_plane2_bwd_plain(g_plane, cells, mask, counts) -> torch.Tensor:
 # --- kernels ----------------------------------------------------------------------
 
 VALUE_DTYPES = (torch.float32, torch.bfloat16)
-"""The value dtypes the run kernels and K2 have instances for."""
+"""The value dtypes the run kernels, K2 and the tile kernels have instances
+for."""
+
+
+def value_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """x's dtype if the kernels have an instance for it; else raise."""
+    if x.dtype not in VALUE_DTYPES:
+        raise TypeError(f"{name}: dtype {x.dtype}, expected float32 or bfloat16")
+    return x.dtype
 
 
 def _check_points(values, cells, mask):
     dev = values.device
     b, n, f = values.shape
-    if values.dtype not in VALUE_DTYPES:
-        raise TypeError(f"values: dtype {values.dtype}, expected float32 or bfloat16")
-    runtime.require(values, "values", values.dtype, (b, n, f), dev)
+    runtime.require(values, "values", value_dtype("values", values), (b, n, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     return b, n, f
@@ -212,11 +218,9 @@ def scatter_plane2_bwd(g_plane, cells, mask, counts) -> torch.Tensor:
     ``LAUNCHES['scatter_plane2_bwd']`` besides K2's own ``pool_gather``."""
     if runtime.on_cpu(g_plane):
         return scatter_plane2_bwd_plain(g_plane, cells, mask, counts)
-    dev, dt = g_plane.device, g_plane.dtype
+    dev, dt = g_plane.device, value_dtype("g_plane", g_plane)
     b, reso, _, f = g_plane.shape
     n = cells.shape[-1]
-    if dt not in VALUE_DTYPES:
-        raise TypeError(f"g_plane: dtype {dt}, expected float32 or bfloat16")
     runtime.require(g_plane, "g_plane", dt, (b, reso, reso, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(mask, "mask", torch.bool, (b, n), dev)

@@ -25,6 +25,17 @@ split evenly among the run's rows that tie with the max, feature by
 feature (``t2h_pool_runs`` kind 3: the tie gate counts them, no atomics).
 pool2's backward on fused2 gives each tied row the whole sum instead (the
 JAX pool2's rule); the two layouts keep their packages' rules.
+
+bf16 values (the model's bf16 dtype) take the run kernel's bf16 instance
+(``t2h_pool_runs_bf16``; counted under ``tile_pool_bf16`` and
+``tile_pool_bwd_bf16``) and the JAX kernel's rule with bf16 values
+(pool_kernel.py:111-150): the max exact (the scan in f32, cast back), the
+mean an f32 sum over f32 counts rounded to bf16 once, the cell values
+gathered back in bf16. The backward sums the cotangent in f32 and rounds
+each row's share once, ties compared in f32; JAX's vjp (``_pool_ref``'s
+segment_max/segment_mean in bf16 through XLA) rounds its sums in bf16 as it
+goes, so the two differ by more than an ulp on long runs: held to JAX's
+bf16 gate (``tests/test_torch_bf16_tiles.py``).
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from __future__ import annotations
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, value_dtype
 from tomosar2height_tpu_torch.ops.cuda.scatter_kernel import TILE_CELLS, tile_rows
 from tomosar2height_tpu_torch.ops.scatter import (
     gather_cells,
@@ -46,37 +58,40 @@ _SPLIT = 3  # t2h_pool_runs: the run sum split among its tied rows
 
 def tile_pool_plain(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     """K10's function: (B, Npad, F) values, (B, Npad) finest ids, (B, T + 1)
-    tile offsets -> (B, Npad, F) per-row cell max/mean, 0 on rows outside
-    their tile's cells."""
+    tile offsets -> (B, Npad, F) per-row cell max/mean in the values' dtype
+    (reduced in float32 for bf16, rounded once), 0 on rows outside their
+    tile's cells."""
     ncell = (tile_offsets.shape[1] - 1) * TILE_CELLS
     idx, valid = tile_rows(cells, tile_offsets, 0, ncell)
     reduce = segment_max if kind == "max" else segment_mean
-    out = gather_cells(reduce(values, idx, ncell, valid), idx)
+    cellv = reduce(acc_dtype(values), idx, ncell, valid).to(values.dtype)
+    out = gather_cells(cellv, idx)
     return torch.where(valid[..., None], out, torch.zeros_like(out))
 
 
 def tile_pool(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     """K10: the same arguments and return as :func:`tile_pool_plain`; on a
-    CUDA tensor values (B, Npad, F) f32, cells (B, Npad) int32 and
+    CUDA tensor values (B, Npad, F) f32 or bf16, cells (B, Npad) int32 and
     tile_offsets (B, T + 1) int32, all contiguous, each cell's rows contiguous
-    (module docstring). Not differentiable itself: the model calls it through
-    ``ops.fused.tile_pool``."""
+    (module docstring): one launch of ``t2h_pool_runs`` (``_bf16``) with the
+    tile offsets and no mask. Not differentiable itself: the model calls it
+    through ``ops.fused.tile_pool``."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'max' or 'mean', got {kind!r}")
     if runtime.on_cpu(values):
         return tile_pool_plain(values, cells, tile_offsets, kind)
-    dev = values.device
+    dev, dt = values.device, value_dtype("values", values)
     b, n, f = values.shape
     t = tile_offsets.shape[1] - 1
-    runtime.require(values, "values", torch.float32, (b, n, f), dev)
+    runtime.require(values, "values", dt, (b, n, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
-    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_pool_runs(
+    out = torch.empty((b, n, f), device=dev, dtype=dt)
+    err = runtime.entry("pool_runs", dt)(
         values.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(), 0, 0,
         out.data_ptr(), b, n, f, t * TILE_CELLS, _KINDS[kind], runtime.stream_ptr(dev))
     runtime.check(err, "tile_pool")
-    runtime.LAUNCHES["tile_pool"] += 1
+    runtime.launched("tile_pool", dt)
     return out
 
 
@@ -85,16 +100,18 @@ def tile_pool_bwd_plain(g, values, out, cells, tile_offsets, kind: str) -> torch
     (B, Npad, F), ``out`` its forward, written out as autograd computes it
     (and JAX's segment_max/segment_mean vjps): 'mean' -> the mean pool of g;
     'max' -> each cell's sum of g over its valid rows, split evenly among the
-    rows where ``values == out``, feature by feature, 0 on the others."""
+    rows where ``values == out``, feature by feature, 0 on the others. bf16:
+    the sums in float32, each share rounded to bf16 once."""
     ncell = (tile_offsets.shape[1] - 1) * TILE_CELLS
     idx, valid = tile_rows(cells, tile_offsets, 0, ncell)
     g = torch.where(valid[..., None], g, torch.zeros_like(g))
     if kind == "mean":
         return tile_pool_plain(g, cells, tile_offsets, "mean")
     tied = valid[..., None] & (values == out)
-    sums = segment_sum(g, idx, ncell, valid)
-    ties = segment_sum(tied.to(g.dtype), idx, ncell, valid)
-    share = gather_cells(sums / ties.clamp_min(1.0), idx)
+    wide = acc_dtype(g)
+    sums = segment_sum(wide, idx, ncell, valid)
+    ties = segment_sum(tied.to(wide.dtype), idx, ncell, valid)
+    share = gather_cells((sums / ties.clamp_min(1.0)).to(g.dtype), idx)
     return torch.where(tied, share, torch.zeros_like(share))
 
 
@@ -102,25 +119,26 @@ def tile_pool_bwd(g, values, out, cells, tile_offsets, kind: str) -> torch.Tenso
     """K10's backward, one launch of the run kernel under the tile rule:
     'mean' -> the run mean of ``g``; 'max' -> the run sum of ``g`` divided by
     the number of the run's rows where ``values == out`` (``out`` K10's
-    forward), on those rows, 0 elsewhere. Shapes as :func:`tile_pool`.
-    Counted in ``LAUNCHES['tile_pool_bwd']``."""
+    forward), on those rows, 0 elsewhere. Shapes and dtypes as
+    :func:`tile_pool`, all four value tensors in one dtype. Counted in
+    ``LAUNCHES['tile_pool_bwd']`` (``_bf16``)."""
     if kind not in _KINDS:
         raise ValueError(f"kind must be 'max' or 'mean', got {kind!r}")
     if runtime.on_cpu(g):
         return tile_pool_bwd_plain(g, values, out, cells, tile_offsets, kind)
-    dev = g.device
+    dev, dt = g.device, value_dtype("g", g)
     b, n, f = g.shape
     t = tile_offsets.shape[1] - 1
     for name, x in (("g", g), ("values", values), ("out", out)):
-        runtime.require(x, name, torch.float32, (b, n, f), dev)
+        runtime.require(x, name, dt, (b, n, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
-    dv = torch.empty((b, n, f), device=dev, dtype=torch.float32)
+    dv = torch.empty((b, n, f), device=dev, dtype=dt)
     tie = kind == "max"
-    err = runtime.library().t2h_pool_runs(
+    err = runtime.entry("pool_runs", dt)(
         g.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(),
         values.data_ptr() if tie else 0, out.data_ptr() if tie else 0, dv.data_ptr(), b, n,
         f, t * TILE_CELLS, _SPLIT if tie else _KINDS["mean"], runtime.stream_ptr(dev))
     runtime.check(err, "tile_pool_bwd")
-    runtime.LAUNCHES["tile_pool_bwd"] += 1
+    runtime.launched("tile_pool_bwd", dt)
     return dv

@@ -33,17 +33,18 @@ BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_BF16_TOO = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_level_scatter",
-             "fused_level_bwd", "level_d_plane", "level_bwd_reduce", "pool2_bwd",
-             "scatter_plane2_bwd", "conv3x3", "conv_pair", "conv_decoder")
-LAUNCHES = {**{k: 0 for n in _BF16_TOO for k in (n, f"{n}_bf16")},
-            **dict.fromkeys(("tile_gather", "tile_pool", "scatter_mean_plane",
-                             "aligned_scatter_mean_plane", "scatter_mean",
-                             "scatter_mean_plane_v3", "tile_gather_bwd", "tile_pool_bwd",
-                             "aligned_scatter_mean_plane_bwd"), 0)}
-"""Kernel launches per wrapper since the last :func:`reset_launches`; a
-kernel with a bf16 instance counts its launches on bf16 tensors under
-``<name>_bf16`` (:func:`launched`)."""
+_KERNELS = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_level_scatter",
+            "fused_level_bwd", "level_d_plane", "level_bwd_reduce", "pool2_bwd",
+            "scatter_plane2_bwd", "conv3x3", "conv_pair", "conv_decoder", "tile_gather",
+            "tile_pool", "scatter_mean_plane", "aligned_scatter_mean_plane", "scatter_mean",
+            "scatter_mean_plane_v3", "tile_gather_bwd", "tile_pool_bwd",
+            "aligned_scatter_mean_plane_bwd")
+LAUNCHES = {**{k: 0 for n in _KERNELS for k in (n, f"{n}_bf16")},
+            "level_d_plane_wide_bf16": 0}
+"""Kernel launches per wrapper since the last :func:`reset_launches`; each
+kernel counts its launches on bf16 tensors under ``<name>_bf16``
+(:func:`launched`); ``level_d_plane_wide_bf16`` counts the d_plane pass from
+f32 cotangents into a bf16 plane."""
 
 BUILD_INFO: dict = {}
 """Of the library this process loaded: path, whether it was built now, build
@@ -73,6 +74,9 @@ _SIGNATURES = {
     "t2h_conv_pair_bf16": [_P] * 8 + [_I] * 6 + [_P],
     "t2h_conv_decoder_bf16": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
+    "t2h_tile_gather_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    "t2h_pool_gather_cut_bf16": [_P] * 5 + [_I] * 5 + [_P],
+    "t2h_level_d_plane_wide_bf16": [_P] * 6 + [_I] * 5 + [_P],
 }
 
 

@@ -42,6 +42,17 @@ its forward then also writes the cells' counts, and its backward
 the cell's count, pad rows 0) is K2 alone (``csrc/pool2.cu``
 ``pool_gather``) at the level's shift with no mask: a warp a 32-row span,
 each run's cell read once, each row written once.
+
+bf16 values (the model's bf16 dtype) take the run scatter's bf16 instance
+(``t2h_scatter_runs_bf16``; counted under ``<name>_bf16``) and the JAX
+kernels' rule with bf16 values: each cell's sum of the (exact) bf16 values
+in f32 over its f32 count, the mean rounded to bf16 once, the output bf16
+(scatter_kernel.py:108-121,155-175 sum f32 copies; :301-317 a bf16 one-hot
+into f32; K14 :613-624). K12's backward in bf16 follows JAX's
+``_tile_scatter_bwd`` (fused.py:149-173): the bf16 cotangent divided by
+the count cast to bf16 (a count above 256 takes the nearest bf16, as JAX's
+does), the quotient rounded once: ``t2h_pool_gather_cut_bf16``, K2's
+instance with the count cut, which fused2's K2 does not take.
 """
 
 from __future__ import annotations
@@ -50,6 +61,7 @@ import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import level_shift
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, value_dtype
 from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
 from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
 
@@ -75,12 +87,13 @@ def tile_rows(cells, toff, shift: int, ncell: int):
 
 def _tile_mean_plain(values, cells, toff, reso: int, shift: int, morton_out: bool,
                      with_counts: bool = False):
-    """The shared function over tile offsets ``toff`` (B, T + 1); with
+    """The shared function over tile offsets ``toff`` (B, T + 1), in the
+    values' dtype (bf16: the means in float32, rounded once); with
     ``with_counts`` also the row-major (B, reso, reso) int32 counts."""
     ncell = reso * reso
     idx, valid = tile_rows(cells, toff, shift, ncell)
     counts = segment_counts(idx, ncell, valid)
-    vec = segment_mean(values, idx, ncell, valid, counts=counts)
+    vec = segment_mean(acc_dtype(values), idx, ncell, valid, counts=counts).to(values.dtype)
     out = vec if morton_out else morton_to_plane(vec, reso)
     if with_counts:
         return out, morton_to_plane(counts, reso)[..., 0].to(torch.int32)
@@ -112,7 +125,8 @@ def aligned_scatter_mean_plane_bwd_plain(g_plane, cells, counts, reso: int,
                                          finest: int) -> torch.Tensor:
     """K12's backward written out as the JAX ``_tile_scatter_bwd``: each row
     whose cell ``cells >> shift`` is in range takes ``g_plane`` at its cell
-    over max(count, 1); pad rows 0. g_plane (B, reso, reso, F), counts
+    over max(count, 1), the count in g_plane's dtype (bf16: rounded, and the
+    quotient rounded once); pad rows 0. g_plane (B, reso, reso, F), counts
     (B, reso, reso) -> (B, Npad, F)."""
     ncell = reso * reso
     cell = cells.long() >> level_shift(reso, finest)
@@ -148,7 +162,7 @@ def _check_tiles(name, values, cells, toff, reso: int, step: int) -> None:
         raise ValueError(f"{name}: reso**2 = {reso * reso} is not a multiple of "
                          f"{TILE_CELLS}")
     tiles = reso * reso // TILE_CELLS
-    runtime.require(values, "values", torch.float32, (b, n, f), dev)
+    runtime.require(values, "values", value_dtype("values", values), (b, n, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(toff, "tile offsets", torch.int32, (b, toff.shape[1]), dev)
     if toff.shape[1] < tiles * step + 1:
@@ -162,20 +176,22 @@ def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int,
     [toff[b, t*step], toff[b, (t+1)*step]) of the cell's tile t. Returns the
     row-major plane (B, reso, reso, F), or with ``morton`` the Morton-ordered
     cell vector (B, reso**2, F); with ``with_counts`` (row-major only) also
-    the (B, reso, reso) int32 counts."""
-    dev = values.device
+    the (B, reso, reso) int32 counts. The output in the values' dtype (f32 or
+    bf16: ``t2h_scatter_runs_bf16``), counted under ``name`` or
+    ``<name>_bf16``."""
+    dev, dt = values.device, values.dtype
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
     cells_shape = (b, reso * reso) if morton else (b, reso, reso)
-    out = torch.empty(cells_shape + (f,), device=dev, dtype=torch.float32)
+    out = torch.empty(cells_shape + (f,), device=dev, dtype=dt)
     flags = torch.empty(cells_shape, device=dev, dtype=torch.uint8)
     counts = torch.empty(cells_shape, device=dev, dtype=torch.int32) if with_counts else None
-    err = runtime.library().t2h_scatter_runs(
+    err = runtime.entry("scatter_runs", dt)(
         values.data_ptr(), cells.data_ptr(), 0, toff.data_ptr(), out.data_ptr(),
         0 if counts is None else counts.data_ptr(), flags.data_ptr(), b, n, f, reso, shift,
         toff.shape[1], step, int(morton), runtime.stream_ptr(dev))
     runtime.check(err, name)
-    runtime.LAUNCHES[name] += 1
+    runtime.launched(name, dt)
     return (out, counts) if with_counts else out
 
 
@@ -183,7 +199,7 @@ def scatter_mean_plane(values, cells, offsets, reso: int):
     """K11: Morton-sorted rows -> (B, reso, reso, C) row-major plane.
 
     Args:
-        values: (B, N, C) f32, Morton-cell-sorted.
+        values: (B, N, C) f32 or bf16, Morton-cell-sorted.
         cells: (B, N) int32 Morton ids at ``reso`` (pads >= reso**2).
         offsets: (B, reso**2 + 1) int32 per-cell segment offsets.
     Forward-only.
@@ -209,7 +225,7 @@ def aligned_scatter_mean_plane(values, cells, tile_offsets, reso: int, finest: i
     """K12: aligned-layout rows -> (B, reso, reso, F) row-major plane.
 
     Args:
-        values: (B, Npad, F) f32.
+        values: (B, Npad, F) f32 or bf16.
         cells: (B, Npad) int32 finest Morton ids (``PAD_CELL_SENTINEL`` on pads).
         tile_offsets: (B, reso**2 / 256 + 1) int32 row offsets at this
             resolution (every 4**level-th finest tile offset).
@@ -230,27 +246,29 @@ def aligned_scatter_mean_plane_bwd(g_plane, cells, counts, reso: int,
                                    finest: int) -> torch.Tensor:
     """K12's backward: the arguments and return of
     :func:`aligned_scatter_mean_plane_bwd_plain`; on a card one launch of K2
-    alone (``t2h_pool_gather`` at the level's shift, no mask), all tensors
-    contiguous, g_plane f32, cells and counts int32. Counted in
+    alone (``t2h_pool_gather`` at the level's shift, no mask; bf16:
+    ``t2h_pool_gather_cut_bf16``, the counts cut to bf16), all tensors
+    contiguous, g_plane f32 or bf16, cells and counts int32. Counted in
     ``LAUNCHES['aligned_scatter_mean_plane_bwd']`` besides K2's own
-    ``pool_gather``."""
+    ``pool_gather`` (each ``_bf16`` in bf16)."""
     if runtime.on_cpu(g_plane):
         return aligned_scatter_mean_plane_bwd_plain(g_plane, cells, counts, reso, finest)
-    dev = g_plane.device
+    dev, dt = g_plane.device, value_dtype("g_plane", g_plane)
     b, r, _, f = g_plane.shape
     n = cells.shape[-1]
     if r != reso:
         raise ValueError(f"g_plane resolution {r} != reso {reso}")
-    runtime.require(g_plane, "g_plane", torch.float32, (b, r, r, f), dev)
+    runtime.require(g_plane, "g_plane", dt, (b, r, r, f), dev)
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(counts, "counts", torch.int32, (b, r, r), dev)
-    out = torch.empty((b, n, f), device=dev, dtype=torch.float32)
-    err = runtime.library().t2h_pool_gather(
-        g_plane.data_ptr(), cells.data_ptr(), 0, counts.data_ptr(), out.data_ptr(), b, n, f,
-        reso, level_shift(reso, finest), runtime.stream_ptr(dev))
+    out = torch.empty((b, n, f), device=dev, dtype=dt)
+    k2 = (runtime.library().t2h_pool_gather if dt == torch.float32
+          else runtime.library().t2h_pool_gather_cut_bf16)
+    err = k2(g_plane.data_ptr(), cells.data_ptr(), 0, counts.data_ptr(), out.data_ptr(), b, n,
+             f, reso, level_shift(reso, finest), runtime.stream_ptr(dev))
     runtime.check(err, "pool_gather")
-    runtime.LAUNCHES["pool_gather"] += 1
-    runtime.LAUNCHES["aligned_scatter_mean_plane_bwd"] += 1
+    runtime.launched("pool_gather", dt)
+    runtime.launched("aligned_scatter_mean_plane_bwd", dt)
     return out
 
 

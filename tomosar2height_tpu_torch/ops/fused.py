@@ -22,6 +22,15 @@ training step on this layout is bit-equal run to run:
 take (``cumsum``, ``pallas``, ``fused`` below 32^2): ``grid_sample_2d``
 forward, the same d_plane pass backward.
 
+In bf16 (the model's bf16 dtype) each function takes and returns bf16 and
+each kernel its bf16 instance, both ways. Two sample rules meet here: K9's
+output is bf16 (its weights cut to bf16) and so is its cotangent, whose
+d_plane pass takes the transpose of the cut weights; ``sorted_sample``'s
+output is float32 (the f32 weights promote a bf16 plane, JAX
+ops/sampling.py:28-46), and so is its cotangent, whose d_plane pass sums
+with the uncut weights in f32 and rounds each pixel to bf16 once, as JAX's
+vjp rounds its f32 d_plane to the plane's dtype.
+
 On CPU tensors the wrappers run the plain versions both ways. The JAX
 module's ``make_aux``/``chunk_cells`` reshape coordinates and ids into the
 TPU kernels' 128-lane rows; the kernels here read the (B, N, 2) coordinates
@@ -58,13 +67,17 @@ class _SortedSample(torch.autograd.Function):
             out = _masked(mask, gk.tile_gather(plane, xy, tile_offsets))
         ctx.save_for_backward(xy, mask, cells)
         ctx.reso, ctx.finest, ctx.k9 = reso, finest, tile_offsets is not None
+        ctx.plane_dtype = plane.dtype
         return out
 
     @staticmethod
     def backward(ctx, g):
         xy, mask, cells = ctx.saved_tensors
-        d_plane = (gk.tile_gather_bwd if ctx.k9 else lk.level_d_plane)(
-            g.contiguous(), xy, cells, mask, ctx.reso, ctx.finest)
+        args = (g.contiguous(), xy, cells, mask, ctx.reso, ctx.finest)
+        if ctx.k9:
+            d_plane = gk.tile_gather_bwd(*args)
+        else:
+            d_plane = lk.level_d_plane(*args, out_dtype=ctx.plane_dtype)
         return d_plane, None, None, None, None, None, None
 
 

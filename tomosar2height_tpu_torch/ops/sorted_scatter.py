@@ -278,14 +278,17 @@ def sorted_segment_sum_counts(values: torch.Tensor, offsets: torch.Tensor):
     The JAX package sums in float32; the port's cumulative sum runs in
     float64, so a segment's sum does not inherit the rounding of a large
     running total (a float32 total of 1e4 rounds in steps of ~1e-3). Its
-    backward gathers each row's segment cotangent (:class:`_SortedSegmentSum`)."""
+    backward gathers each row's segment cotangent (:class:`_SortedSegmentSum`).
+    bf16 values: each sum rounded to bf16 once, the counts cast to bf16 (the
+    nearest bf16 above 256 rows), as JAX's ops/sorted_scatter.py:301-315."""
     sums = _SortedSegmentSum.apply(values, offsets)
     counts = (offsets[:, 1:] - offsets[:, :-1]).long()[..., None].to(values.dtype)
     return sums, counts
 
 
 def sorted_segment_mean(values: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
-    """Per-cell mean over cell-sorted rows; empty cells are 0."""
+    """Per-cell mean over cell-sorted rows; empty cells are 0. bf16: the
+    bf16 sum over the bf16 count, divided in bf16 (JAX's rounding points)."""
     sums, counts = sorted_segment_sum_counts(values, offsets)
     return sums / counts.clamp_min(1.0)
 
