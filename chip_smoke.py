@@ -10,10 +10,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
 2. build: the kernels (``tomosar2height_tpu_torch/csrc/*.cu``) with nvcc for
    sm_90a, into ``tomosar2height_tpu_torch/_build/``; ptxas's register
    counts of the tensor-core kernels (K4, K5's row pass and reduction, the
-   implicit-GEMM conv of K6-K8 and K6's head conv), and a check that the
+   implicit-GEMM conv of K6-K8 and K6's head conv, and the two wgmma
+   kernels: K5's bf16 weight sums and K8 in bf16), and a check that the
    SASS of every instance of each holds TF32 tensor-core instructions
    (HMMA; ``cuobjdump -sass``), BF16 ones in every bf16 instance (K4,
-   K5's row pass and weight sums, the conv core);
+   K5's row pass, the conv core; the f32 weight sums have no bf16
+   instance), and bf16 warpgroup products (HGMMA) and TMA loads (UTMALDG)
+   in every instance of the wgmma kernels;
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout, whose
    largest run of one cell is logged; the conv
@@ -213,13 +216,20 @@ TF32X3_FLOP_S = TF32_FLOP_S / 3
 # dense bf16 FLOP/s on the tensor cores: the bf16 conv kernels (K6-K8 on bf16
 # activations, one bf16 product per product)
 BF16_FLOP_S = 989e12
-# the kernels that must hold tensor-core instructions (HMMA) in their SASS:
-# K4, K5's row pass and weight-gradient reduction, the implicit-GEMM conv of
-# K6's first two passes, K7 and K8, and K6's third conv with the head; TF32
-# HMMA in every f32 instance, bf16 HMMA in every bf16 instance (each kernel
-# has some)
-TENSOR_CORE_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_mma",
-                       "conv3x3_igemm", "conv3x3_head_igemm")
+# the kernels that must hold warp-level tensor-core instructions (HMMA) in
+# their SASS: K4, K5's row pass and f32 weight-gradient reduction, the
+# implicit-GEMM conv of K6's first two passes, K7 and K8's flat-K route, and
+# K6's third conv with the head; TF32 HMMA in every f32 instance, bf16 HMMA
+# in every bf16 instance (each kernel has some, but the f32 weight sums,
+# F32_ONLY: their bf16 instance is atb_wgmma)
+MMA_SYNC_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_mma",
+                    "conv3x3_igemm", "conv3x3_head_igemm")
+F32_ONLY = ("atb_mma",)
+# the kernels on Hopper's warpgroup products fed by the TMA: K5's bf16
+# weight sums (csrc/reduce_bf16.cu) and K8 in bf16 (csrc/conv_bf16.cu);
+# bf16 HGMMA and UTMALDG in every instance
+WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma")
+TENSOR_CORE_KERNELS = MMA_SYNC_KERNELS + WGMMA_KERNELS
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
 # K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
 # and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the gather)
@@ -314,9 +324,10 @@ def ptxas_registers(build_log: str, kernels=TENSOR_CORE_KERNELS) -> dict:
 def check_sass(job) -> None:
     """Fail unless every kernel in TENSOR_CORE_KERNELS is in the built
     library's SASS (``start_sass``'s job) and every instance of each (each
-    template instance in each source's cubin) holds tensor-core HMMA
-    instructions of its type: TF32, or BF16 in the bf16 instances (and then
-    no TF32); each kernel has bf16 instances."""
+    template instance in each source's cubin) holds its tensor-core
+    instructions: for MMA_SYNC_KERNELS HMMA of its type, TF32, or BF16 in
+    the bf16 instances (and then no TF32), each kernel with bf16 instances
+    but F32_ONLY's; for WGMMA_KERNELS bf16 HGMMA and TMA loads (UTMALDG)."""
     proc, path = job
     _, err = proc.communicate(timeout=600)
     with open(path) as f:
@@ -324,26 +335,38 @@ def check_sass(job) -> None:
     os.remove(path)
     if proc.returncode != 0:
         raise RuntimeError(f"cuobjdump failed ({proc.returncode}): {err[-2000:]}")
-    found, fn = [], None  # [key, symbol, its HMMA type, count, other HMMA] per instance
+    # [key, symbol, its type, count of its type, count of another] per
+    # instance; a wgmma kernel's type is "HGMMA", and the other count that of
+    # its UTMALDG
+    found, fn = [], None
     for line in sass.splitlines():
         if "Function : " in line:
             name = line.split("Function : ")[1].strip()
             key = next((k for k in TENSOR_CORE_KERNELS if k in name), None)
-            fn = [key, name, "BF16" if "bfloat16" in name else "TF32", 0, 0] if key else None
+            ty = ("HGMMA" if key in WGMMA_KERNELS else
+                  "BF16" if "bfloat16" in name else "TF32")
+            fn = [key, name, ty, 0, 0] if key else None
             if fn:
                 found.append(fn)
+        elif fn and fn[2] == "HGMMA":
+            fn[3] += "HGMMA" in line and ".BF16" in line
+            fn[4] += "UTMALDG" in line
         elif fn and "HMMA" in line:
             fn[3 if fn[2] in line else 4] += 1
     counts = {f"{k} {t}": [c for key, _, ty, c, _ in found if key == k and ty == t]
-              for k in TENSOR_CORE_KERNELS for t in ("TF32", "BF16")}
-    log("build", f"HMMA instructions in the SASS, by kernel, type and instance: "
-        f"{ {k: v for k, v in counts.items() if v} }")
+              for k in TENSOR_CORE_KERNELS for t in ("TF32", "BF16", "HGMMA")}
+    tma = {k: [o for key, _, ty, _, o in found if key == k] for k in WGMMA_KERNELS}
+    log("build", f"tensor-core instructions in the SASS, by kernel, type and instance: "
+        f"{ {k: v for k, v in counts.items() if v} }; UTMALDG by instance {tma}")
     missing = ([k for k in TENSOR_CORE_KERNELS if not any(f[0] == k for f in found)]
-               + [name for _, name, _, c, other in found if c == 0 or other]
-               + [f"{k} BF16" for k in TENSOR_CORE_KERNELS if not counts[f"{k} BF16"]])
+               + [name for _, name, ty, c, other in found
+                  if c == 0 or (other if ty != "HGMMA" else not other)]
+               + [f"{k} BF16" for k in MMA_SYNC_KERNELS
+                  if k not in F32_ONLY and not counts[f"{k} BF16"]])
     if missing:
-        raise AssertionError(f"no HMMA of their type, or HMMA of another, in the SASS of "
-                             f"{missing}")
+        raise AssertionError(f"no tensor-core instructions of their type (bf16 HGMMA and "
+                             f"UTMALDG in the wgmma kernels), or HMMA of another, in the "
+                             f"SASS of {missing}")
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -875,7 +898,7 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
     rate = TF32X3_FLOP_S if f32 else BF16_FLOP_S
     pairs, kfns, pfns = [], [], []
     bwd_pairs, bwd_k, bwd_p, red_pairs, red_k, red_p = [], [], [], [], [], []
-    red_l, rows_pairs, rows_k, rows_p = [], [], [], []
+    red_l, rows_pairs, rows_k, rows_p, red_by_shape = [], [], [], [], []
     dp_pairs, dp_k, dp_p, dp_l, level_args = [], [], [], [], []
     # bytes, then operations on the route's tensor cores: K4's; K5's (its
     # row pass, then its weight sums); the row pass alone; the reductions
@@ -1005,6 +1028,8 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
             red_pairs += [(x, y, *_weight_tol(y)) if f32 else
                           (x.float(), y.float(), _ulp_tol(y).max(), 0.0)
                           for x, y in zip(kr, pr) if y is not None]
+            if not f32:
+                red_by_shape.append(_reduce_shape((ra, rb, bias), kr, pr))
             work["reduce"][0] += nbytes(ra, rb, *kr)
             work["reduce"][1] += 2 * m * ka * nb
             red_l.append(lambda a=(ra, rb): torch.matmul(a[0].t(), a[1]))
@@ -1028,7 +1053,13 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
           (work["rows"][0], [(work["rows"][1], rate)]),
           tol=(f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; s, h, d_o {TOL:g} abs+rel" if f32
                else BF16_RULE))
-    entry("level_bwd_reduce" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+    if red_by_shape:
+        log("kernels", "level_bwd_reduce_bf16 by (Ka x Nb, +b with the bias): kernel / "
+            "torch.matmul ms (graph replays, median of 5), the distance of the kernel and "
+            "of its plain version from the float64 product in bf16 ulps of the scale: "
+            + "; ".join(red_by_shape))
+    entry("level_bwd_reduce" + sfx, "tomosar2height_tpu_torch/csrc/"
+          + ("level_bwd.cu" if f32 else "reduce_bf16.cu"),
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:260", red_pairs,
           lambda: [fn() for fn in red_k], lambda: [fn() for fn in red_p],
           (work["reduce"][0], [(work["reduce"][1], rate)]),
@@ -1043,6 +1074,33 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
     log("kernels", f"K4{sfx} (plane, c_out, counts), K5{sfx} (d_plane, d_c_last, weights) and "
         f"its d_plane pass bit-equal on a second launch at every level: True")
     return level_args
+
+
+def _reduce_shape(args, got, want) -> str:
+    """One bf16 weight sum (``args``: a, b, bias; ``got`` the kernel's,
+    ``want`` the plain version's outputs): its kernel and ``torch.matmul``
+    times (graph replays, median of 5) and the distance of each from the
+    float64 product over all rows, in bf16 ulps of the output's scale: the
+    check of the wgmma chains' truncation (csrc/reduce_bf16.cu) at the
+    flagship's M."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
+
+    a, b, bias = args
+    refs = (a.double().t() @ b.double(), b.double().sum(0) if bias else None)
+    ulps = []
+    for out in (got, want):
+        worst = 0.0
+        for x, r in zip(out, refs):
+            if r is not None:
+                ulp = 2.0 ** (float(torch.floor(torch.log2(r.abs().max()))) - 7)
+                worst = max(worst, float((x.double() - r).abs().max()) / ulp)
+        ulps.append(worst)
+    ms = graph_ms(lambda: lk.level_bwd_reduce(*args), 5)
+    lib = graph_ms(lambda: torch.matmul(a.t(), b), 5)
+    return (f"{a.shape[1]}x{b.shape[1]}{'+b' if bias else ''} {ms:.4f} / {lib:.4f} ms, "
+            f"{ulps[0]:.3f} / {ulps[1]:.3f} ulp")
 
 
 STRESS_LAUNCHES = 200
@@ -1288,7 +1346,9 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
     """K8, K7 and K6 on bf16 activations at the shapes of the f32 rows
     (CONVS, ALTO_PAIRS + IMAGE_PAIRS, DECODER), batch 8: each held to
     ``_bf16_rule`` and timed beside its bf16 plain version; K8 also beside
-    ``F.conv2d`` in bf16 on ``channels_last`` (cuDNN). Operands are bf16
+    ``F.conv2d`` in bf16 on ``channels_last`` (cuDNN), in all and at each
+    shape, with the route each shape takes (``conv3x3_bf16_wgmma``, or
+    ``conv3x3_bf16_flat`` for Cin = 3). Operands are bf16
     values: x and K8's kernel in bf16, K7's and K6's weights and biases
     rounded to bf16 and passed in f32, as the model passes its parameters;
     K8's bias f32."""
@@ -1298,6 +1358,7 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
     from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
     from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
     from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
+    from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 
     dev, bf = torch.device(DEVICE), torch.bfloat16
     gen = torch.Generator().manual_seed(seed + 8)
@@ -1308,7 +1369,9 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
     def w_of(cin, cout, k=3):
         return tuple(t.to(bf).float() for t in _conv_w(gen, cin, cout, k, dev))
 
-    pairs, notes, kfns, pfns, lfns, work = [], [], [], [], [], [0, 0]
+    pairs, notes, kfns, pfns, lfns, work, per = [], [], [], [], [], [0, 0], []
+    routes = ("conv3x3_bf16_wgmma", "conv3x3_bf16_flat")
+    before = {k: runtime.LAUNCHES[k] for k in routes}
     for h, cin, cout in CONVS:
         w, bias = _conv_w(gen, cin, cout, 3, dev)
         args = (x_of(h, cin), w.to(bf), bias)
@@ -1324,9 +1387,16 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
         kfns.append(lambda a=args: ck.conv3x3(*a, True))
         pfns.append(lambda a=args: ck.conv3x3_plain(*a, True))
         lfns.append(lambda a=lib: F.conv2d(*a, padding=1))
+        per.append(f"{h}^2 {cin}->{cout} {tile_plan.conv_route(cin, cout)}")
+    by_route = {k: runtime.LAUNCHES[k] - before[k] for k in routes}
     log("kernels", f"conv3x3_bf16 at the {len(CONVS)} shapes, the largest share of its "
-        f"tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}")
-    entry("conv3x3_bf16", "tomosar2height_tpu_torch/csrc/conv.cu",
+        f"tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}; launches by route (two a "
+        f"shape) {by_route}")
+    per = [f"{p} {graph_ms(k, 3):.4f}/{graph_ms(lf, 3):.4f}"
+           for p, k, lf in zip(per, kfns, lfns)]
+    log("kernels", "conv3x3_bf16 by shape (route, kernel / cuDNN bf16 channels_last ms, "
+        "graph replays, median of 3): " + "; ".join(per))
+    entry("conv3x3_bf16", "tomosar2height_tpu_torch/csrc/conv_bf16.cu",
           "tomosar2height_tpu/ops/pallas/conv_kernel.py:43", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
           (work[0], [(work[1], BF16_FLOP_S)]), lambda: [fn() for fn in lfns],
@@ -2827,13 +2897,15 @@ def headline_train(seed: int = 0):
 # its plane at the nine levels of 32^2 and more) with the conv kernels' flags,
 # 11 ALTO and 11 image U-Net conv pairs (K7) and the height decoder (K6;
 # serving skips the footprint head); on the unsorted path with the flags off
-# under FAST_CONV its 47 Conv3x3 (K8). Per training mini-step on fused2
+# under FAST_CONV its 47 Conv3x3 (K8): 46 on its wgmma route, the image
+# U-Net's first (Cin 3) on the flat-K route. Per training mini-step on fused2
 # HEADLINE_TRAIN_LAUNCHES' kernels at their bf16 instances (remat's
 # recompute doubles the forward's).
 BF16_SERVE_LAUNCHES = {"pool2_bf16": 4, "scatter_plane2_bf16": 1, "fused_level_bf16": 9,
                        "fused_level_scatter_bf16": 9, "conv_pair_bf16": 22,
                        "conv_decoder_bf16": 1}
-BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47}
+BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47, "conv3x3_bf16_wgmma": 46,
+                           "conv3x3_bf16_flat": 1}
 BF16_TRAIN_LAUNCHES = {f"{k}_bf16": v for k, v in HEADLINE_TRAIN_LAUNCHES.items()}
 
 
@@ -3023,14 +3095,14 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
             gen = make_generator(model, cfgs[name], chunks, image=image)
             n_batches = len(gen.data_loader)
             warm = None
+            batch = next(iter(gen.data_loader))
+            up = {k: torch.from_numpy(batch[k]).to(DEVICE)
+                  for k in ("points", "point_mask", "image", "cell_offsets") if k in batch}
+            with torch.inference_mode():
+                fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
+                                               None, up.get("cell_offsets"),
+                                               footprint=False), iters=3, warmup=1)
             if name != "bf16 fast_conv":  # one raster is all it gives
-                batch = next(iter(gen.data_loader))
-                up = {k: torch.from_numpy(batch[k]).to(DEVICE)
-                      for k in ("points", "point_mask", "image", "cell_offsets") if k in batch}
-                with torch.inference_mode():
-                    fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
-                                                   None, up.get("cell_offsets"),
-                                                   footprint=False), iters=3, warmup=1)
                 warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -3043,9 +3115,9 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
             served[name] = r.data
             again = warm is not None and np.array_equal(warm.data, r.data, equal_nan=True)
             log("bf16", f"serve {name}: {stats['n_patches']} tiles in {n_batches} batches | "
-                f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s)"
-                + (f" | forward {fwd_ms:.1f} ms per batch (median of 3) | bit-equal to its "
-                   f"warm-up run {again}" if warm is not None else "")
+                f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s) | forward "
+                f"{fwd_ms:.1f} ms per batch (median of 3)"
+                + (f" | bit-equal to its warm-up run {again}" if warm is not None else "")
                 + f" | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
                 f"per forward {({k: v / n_batches for k, v in launches.items() if v})}")
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}

@@ -1423,7 +1423,9 @@ class TestBf16ConvKernels:
     """K8, K7 and K6 on bf16 activations (``t2h_*_bf16``), at the edges of
     the core's bf16 path: Cin 3, 5 and 33 on the flat-K steps with 2-byte
     loads, 8-aligned Cin on 16-byte copies of 8 channels, Cout 130 (a ragged
-    128-channel tile) and 7 (2-byte weight loads, scalar stores)."""
+    128-channel tile) and 7 (2-byte weight loads, scalar stores). K8 takes
+    that path where Cin or Cout is not a multiple of 8 or x is unaligned;
+    its other cases run on ``csrc/conv_bf16.cu``'s wgmma route."""
 
     @pytest.mark.parametrize("relu", [True, False])
     @pytest.mark.parametrize("h,w,cin,cout", [
@@ -2254,3 +2256,86 @@ class TestBf16TileKernels:
         ref, _, _ = step(model)
         z = cfg["dataset"]["normalize"]["z_bound"]
         assert abs(loss - ref) <= 0.15 * (z[1] - z[0]), (loss, ref)
+
+
+@pytest.mark.cuda
+class TestWgmmaBf16Kernels:
+    """The two bf16 kernels on the TMA and wgmma: K5's weight sums
+    (``csrc/reduce_bf16.cu``) at odd M, at Ka and Nb of 32, 64 and 1024,
+    with and without the bias, within one bf16 ulp of their bf16 plain
+    version; K8 in bf16 (``csrc/conv_bf16.cu``) at 16^2, 32^2 and 512^2, Cin
+    3 (the flat-K route), 32 (32-channel boxes) and 64, held as
+    ``_bf16_held``; each bit-equal on a second launch, the route's launches
+    counted apart."""
+
+    @pytest.mark.parametrize("m,ka,nb,bias", [
+        (777, 32, 64, True), (777, 1024, 32, False), (50001, 64, 1024, True),
+        (50001, 1024, 1024, True), (163843, 32, 32, True), (163843, 1024, 64, False),
+        (4097, 64, 64, False), (12345, 1024, 1024, False)])
+    def test_reduce_matches_plain(self, cuda, m, ka, nb, bias):
+        rng = np.random.default_rng(m + ka + nb)
+        a = _bf(rng.normal(size=(m, ka)).astype(np.float32), cuda)
+        b = _bf(rng.normal(size=(m, nb)).astype(np.float32), cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_bwd_reduce(a, b, bias)
+        want = lk.level_bwd_reduce_plain(a, b, bias)
+        torch.cuda.synchronize()
+        _launched("level_bwd_reduce_bf16", before)
+        assert (got[1] is None) == (not bias)
+        for x, y in zip(got, want):
+            if y is not None:
+                ulp = 2.0 ** (float(torch.floor(torch.log2(y.float().abs().max()))) - 7)
+                assert x.dtype == BF and x.shape == y.shape
+                assert float((x.float() - y.float()).abs().max()) <= ulp
+
+    def test_reduce_is_bit_equal_run_to_run(self, cuda):
+        rng = np.random.default_rng(5)
+        a = _bf(rng.normal(size=(20011, 512)).astype(np.float32), cuda)
+        b = _bf(rng.normal(size=(20011, 1024)).astype(np.float32), cuda)
+        first = lk.level_bwd_reduce(a, b, True)
+        again = lk.level_bwd_reduce(a, b, True)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+
+    def test_reduce_plan_is_the_kernels(self, cuda):
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan
+
+        lib = runtime.library()
+        for ka in (8, 32, 64, 72, 128, 136, 256, 512, 1024):
+            for nb in (8, 32, 64, 72, 128, 200, 256, 512, 1024):
+                nx, ny = tile_plan.reduce_grid(ka, nb)
+                assert lib.t2h_level_bwd_reduce_tiles_bf16(ka, nb) == nx * ny
+
+    @pytest.mark.parametrize("relu", [True, False])
+    @pytest.mark.parametrize("b,h,cin,cout", [
+        (2, 16, 3, 32), (2, 16, 32, 64), (2, 16, 64, 1024), (2, 32, 64, 128),
+        (2, 32, 32, 256), (1, 512, 64, 32), (1, 512, 32, 64), (1, 512, 3, 32)])
+    def test_conv3x3_matches_plain(self, cuda, b, h, cin, cout, relu):
+        rng = np.random.default_rng(h + cin + cout)
+        x = t(rng.normal(0, 1, (b, h, h, cin)).astype(np.float32), cuda).to(BF)
+        k, bias = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        k = k.to(BF)
+        before = dict(runtime.LAUNCHES)
+        got = ck.conv3x3(x, k, bias, relu)
+        torch.cuda.synchronize()
+        route = "flat" if cin == 3 else "wgmma"
+        _launched("conv3x3_bf16", before)
+        _launched(f"conv3x3_bf16_{route}", before)
+        want = ck.conv3x3_plain(x, k, bias, relu)
+        assert got.dtype == BF and torch.equal(ck.conv3x3(x, k, bias, relu), got)
+        _bf16_held(got, want, ck.conv3x3_plain(x.double(), k.double(), bias.double(), relu))
+
+    @pytest.mark.parametrize("h,w,cin,cout", [(9, 11, 40, 72), (20, 136, 8, 200)])
+    def test_conv3x3_ragged_rectangles(self, cuda, h, w, cin, cout):
+        """Rectangles past the image (W 11: 11 x 11 pixels a block, H 9; W
+        136: a second 128-pixel rectangle of 8), Cin and Cout past the
+        channel boxes: the TMA's zero fill and dropped stores."""
+        rng = np.random.default_rng(w)
+        x = t(rng.normal(0, 1, (3, h, w, cin)).astype(np.float32), cuda).to(BF)
+        k, bias = (t(a, cuda) for a in conv_weights(rng, cin, cout))
+        k = k.to(BF)
+        before = dict(runtime.LAUNCHES)
+        got = ck.conv3x3(x, k, bias, True)
+        torch.cuda.synchronize()
+        _launched("conv3x3_bf16_wgmma", before)
+        _bf16_held(got, ck.conv3x3_plain(x, k, bias, True),
+                   ck.conv3x3_plain(x.double(), k.double(), bias.double(), True))

@@ -15,6 +15,11 @@ inline unsigned int grid_for(long long n) {
   return static_cast<unsigned int>(blocks < 1 ? 1 : blocks);
 }
 
+// Whether p is 16-byte aligned (a 16-byte copy's or the TMA's alignment).
+inline bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
 // Every other bit of v (bit 2k -> bit k): the x half of a Morton code.
 __device__ __forceinline__ int compact1by1(int v) {
   unsigned int x = static_cast<unsigned int>(v) & 0x55555555u;

@@ -17,10 +17,7 @@
 // the 43 convs of a batch-8 fusion forward), three TF32 products each: 13.6
 // ms at 495/3 TFLOP/s; the bytes it must move are ~100x less.
 //
-// t2h_conv3x3_bf16 is the same conv on bf16 x, w and y with the fp32 bias
-// (the JAX kernel's bf16 rule, conv_kernel.py:57-73: bf16 products summed
-// in fp32 onto the bias, the ReLU, one rounding): one bf16 mma.sync pass
-// (igemm_conv.cuh), 2.3 ms of MACs at 989 TFLOP/s for those 43 convs.
+// Its bf16 instance, t2h_conv3x3_bf16, is conv_bf16.cu's (TMA and wgmma).
 
 #include "igemm_conv.cuh"
 
@@ -31,14 +28,6 @@ extern "C" {
 // x (B,H,W,Cin) NHWC, w (3,3,Cin,Cout) HWIO, bias (Cout) -> y (B,H,W,Cout).
 int t2h_conv3x3(const float* x, const float* w, const float* bias, float* y, int B,
                 int H, int W, int Cin, int Cout, int relu, cudaStream_t stream) {
-  if ((long long)B * H * W * Cout == 0) return 0;
-  return static_cast<int>(
-      conv3x3_bias(x, w, bias, y, nullptr, B, H, W, Cin, Cout, relu != 0, stream));
-}
-
-// The same on bf16 x, w, y; bias fp32.
-int t2h_conv3x3_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y, int B, int H,
-                     int W, int Cin, int Cout, int relu, cudaStream_t stream) {
   if ((long long)B * H * W * Cout == 0) return 0;
   return static_cast<int>(
       conv3x3_bias(x, w, bias, y, nullptr, B, H, W, Cin, Cout, relu != 0, stream));

@@ -77,8 +77,8 @@
 // bf16 instance, the relu gate from the rounded pre, d_o = bf16(g_c +
 // bf16(g_plane / count)), d_h, d_s and d_c_last each rounded once from
 // their f32 products, on one bf16 mma.sync pass (mma_bf16.cuh); phase 2
-// takes its bf16 rows through one bf16 pass (A's fragments by
-// ldmatrix.trans) into f32 and rounds dw and db once; phase 3 cuts each
+// in bf16 is reduce_bf16.cu's (t2h_level_bwd_reduce_bf16: TMA and wgmma,
+// the f32 sums rounded to bf16 once); phase 3 cuts each
 // corner weight to bf16 as the forward does and rounds each pixel's f32
 // sum once (JAX rounds each tile's halo window, then folds the windows in
 // bf16: a deliberate difference, tests/test_torch_bf16_sorted.py).
@@ -436,7 +436,7 @@ cudaError_t launch_rows(const T* plane, const float* xy, const int* cells, const
 // and Bm's rows row-major, both padded to a stride of 8 (mod 32) floats.
 constexpr int kRThreads = 256;  // threads of a reduction block
 
-template <typename E, int BK, int BN>
+template <int BK, int BN>
 struct ReduceTile {
   static constexpr int kWarpsK = BK >= 128 ? 4 : 2;
   static constexpr int kWarpsN = kRThreads / 32 / kWarpsK;
@@ -447,22 +447,16 @@ struct ReduceTile {
   static constexpr int kLdA = BK + 8;
   static constexpr int kLdB = BN + 8;
   static constexpr int kStage = kRM * (kLdA + kLdB);
-  static constexpr size_t kSmem = sizeof(E) * kRStages * kStage;
+  static constexpr size_t kSmem = sizeof(float) * kRStages * kStage;
 };
 
-// E = bf16: one bf16 pass a k16 step (mma_bf16.cuh), A's fragments by
-// ldmatrix.trans from its column-major stage, B's as warp_mma_bf16 takes
-// them; bf16 rows of BK + 8 and BN + 8 elements put an ldmatrix phase's
-// eight 16-byte rows in eight bank groups. The step's two k16 products
-// chain into tmp as the 3xTF32 steps do.
-template <typename E, int BK, int BN>
+template <int BK, int BN>
 __global__ void __launch_bounds__(kRThreads, 1)
-atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, int Nb,
-           long long rows_per_split, int Kout, bool vec_a, bool vec_b,
-           float* __restrict__ part) {
-  using T = ReduceTile<E, BK, BN>;
+atb_mma(const float* __restrict__ A, const float* __restrict__ Bm, long long M, int Ka, int Nb,
+        long long rows_per_split, int Kout, bool vec_a, bool vec_b, float* __restrict__ part) {
+  using T = ReduceTile<BK, BN>;
   extern __shared__ float4 smem4[];
-  E* sm = reinterpret_cast<E*>(smem4);
+  float* sm = reinterpret_cast<float*>(smem4);
   __shared__ float s_bias[kRThreads];
   const int n0 = blockIdx.x * BN;
   const int k0 = blockIdx.y * BK;
@@ -481,7 +475,7 @@ atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, 
 
   auto issue = [&](int s) {
     if (s < steps) {
-      E* st = sm + (s % kRStages) * T::kStage;
+      float* st = sm + (s % kRStages) * T::kStage;
       const long long m0 = m_begin + (long long)s * kRM;
       cp_tile<kRM, BK, kRThreads>(st, T::kLdA, A, Ka, m0, m_end, k0, Ka, vec_a, tid);
       cp_tile<kRM, BN, kRThreads>(st + kRM * T::kLdA, T::kLdB, Bm, Nb, m0, m_end, n0, Nb,
@@ -498,44 +492,23 @@ atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, 
     cp_async_wait<kRStages - 2>();
     __syncthreads();  // step s landed for every thread; step s - 1's slot is free
     issue(s + kRStages - 1);
-    const E* As = sm + (s % kRStages) * T::kStage;
-    const E* Bs = As + kRM * T::kLdA;
+    const float* As = sm + (s % kRStages) * T::kStage;
+    const float* Bs = As + kRM * T::kLdA;
     // the step's k8 (k16) steps chain in the tensor cores into tmp, which
     // joins acc by a rounded add (mma_tf32x3.cuh)
     float tmp[T::kMT][T::kNT][4] = {};
-    if constexpr (kIsBf16<E>) {
 #pragma unroll
-      for (int kk = 0; kk < kRM; kk += 16) {
-        uint32_t a[T::kMT][4];
+    for (int kk = 0; kk < kRM; kk += 8) {
+      FragA a[T::kMT];
 #pragma unroll
-        for (int mt = 0; mt < T::kMT; ++mt)
-          load_a_col_bf16(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
+      for (int mt = 0; mt < T::kMT; ++mt)
+        load_a_col(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
 #pragma unroll
-        for (int np = 0; np < T::kNT / 2; ++np) {
-          uint32_t b[4];
-          ldmatrix_x4_trans(b, Bs + (kk + (lane & 15)) * T::kLdB + wn + 16 * np +
-                                   (lane >> 4) * 8);
+      for (int nt = 0; nt < T::kNT; ++nt) {
+        FragB bf;
+        load_b(bf, Bs + kk * T::kLdB + wn + nt * 8, T::kLdB, lane);
 #pragma unroll
-          for (int mt = 0; mt < T::kMT; ++mt) {
-            mma_bf16(tmp[mt][2 * np], a[mt], b[0], b[1]);
-            mma_bf16(tmp[mt][2 * np + 1], a[mt], b[2], b[3]);
-          }
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kRM; kk += 8) {
-        FragA a[T::kMT];
-#pragma unroll
-        for (int mt = 0; mt < T::kMT; ++mt)
-          load_a_col(a[mt], As + kk * T::kLdA + wk + mt * 16, T::kLdA, lane);
-#pragma unroll
-        for (int nt = 0; nt < T::kNT; ++nt) {
-          FragB bf;
-          load_b(bf, Bs + kk * T::kLdB + wn + nt * 8, T::kLdB, lane);
-#pragma unroll
-          for (int mt = 0; mt < T::kMT; ++mt) mma3(tmp[mt][nt], a[mt], bf);
-        }
+        for (int mt = 0; mt < T::kMT; ++mt) mma3(tmp[mt][nt], a[mt], bf);
       }
     }
 #pragma unroll
@@ -544,7 +517,7 @@ atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, 
       for (int nt = 0; nt < T::kNT; ++nt) add4(acc[mt][nt], tmp[mt][nt]);
     if (bias) {
 #pragma unroll
-      for (int r = 0; r < kBRows; ++r) bsum += to_f32(Bs[(brow + r) * T::kLdB + bcol]);
+      for (int r = 0; r < kBRows; ++r) bsum += Bs[(brow + r) * T::kLdB + bcol];
     }
   }
   cp_async_wait<0>();
@@ -572,29 +545,26 @@ atb_mma(const E* __restrict__ A, const E* __restrict__ Bm, long long M, int Ka, 
   }
 }
 
-template <typename E, int BK, int BN>
-cudaError_t launch_atb(const E* A, const E* Bm, int M, int Ka, int Nb, int Kout, int splits,
-                       float* part, cudaStream_t stream) {
-  using T = ReduceTile<E, BK, BN>;
+template <int BK, int BN>
+cudaError_t launch_atb(const float* A, const float* Bm, int M, int Ka, int Nb, int Kout,
+                       int splits, float* part, cudaStream_t stream) {
+  using T = ReduceTile<BK, BN>;
   cudaError_t err = cudaFuncSetAttribute(
-      atb_mma<E, BK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      atb_mma<BK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(T::kSmem));
   if (err != cudaSuccess) return err;
   const long long rps = ((long long)M + splits - 1) / splits;
   const dim3 grid((Nb + BN - 1) / BN, (Ka + BK - 1) / BK, splits);
-  constexpr int kV = 16 / sizeof(E);  // elements of a 16-byte copy
-  const bool vec_a = Ka % kV == 0 && aligned16(A);
-  const bool vec_b = Nb % kV == 0 && aligned16(Bm);
-  atb_mma<E, BK, BN><<<grid, kRThreads, T::kSmem, stream>>>(A, Bm, M, Ka, Nb, rps, Kout,
+  const bool vec_a = Ka % 4 == 0 && aligned16(A);  // 16-byte copies of 4 floats
+  const bool vec_b = Nb % 4 == 0 && aligned16(Bm);
+  atb_mma<BK, BN><<<grid, kRThreads, T::kSmem, stream>>>(A, Bm, M, Ka, Nb, rps, Kout,
                                                                vec_a, vec_b, part);
   return cudaGetLastError();
 }
 
-// Sum the splits in order: rows k < Ka -> dw (Ka x Nb), row Ka -> db (Nb),
-// each rounded to E once.
-template <typename E>
+// Sum the splits in order: rows k < Ka -> dw (Ka x Nb), row Ka -> db (Nb).
 __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, int Kout,
-                           int Nb, E* __restrict__ dw, E* __restrict__ db) {
+                           int Nb, float* __restrict__ dw, float* __restrict__ db) {
   const long long n_out = (long long)Kout * Nb;
   for (long long t = blockIdx.x * (long long)blockDim.x + threadIdx.x; t < n_out;
        t += (long long)gridDim.x * blockDim.x) {
@@ -602,9 +572,9 @@ __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, i
     for (int sp = 0; sp < splits; ++sp) s += part[sp * n_out + t];
     const int k = static_cast<int>(t / Nb);
     if (k < Ka) {
-      dw[t] = from_f32<E>(s);
+      dw[t] = s;
     } else {
-      db[t - (long long)Ka * Nb] = from_f32<E>(s);
+      db[t - (long long)Ka * Nb] = s;
     }
   }
 }
@@ -837,18 +807,17 @@ int level_d_plane(const TS* ds, const float* xy, const int* cells, const uint8_t
 // 64 where n is 64 or less.
 inline int reduce_tile(int n) { return n > 64 ? 128 : 64; }
 
-template <typename E>
-int level_bwd_reduce(const E* A, const E* Bm, int M, int Ka, int Nb, int splits, float* part,
-                     E* dw, E* db, cudaStream_t stream) {
+int level_bwd_reduce(const float* A, const float* Bm, int M, int Ka, int Nb, int splits,
+                     float* part, float* dw, float* db, cudaStream_t stream) {
   const int Kout = db != nullptr ? Ka + 1 : Ka;
   const bool wide_k = reduce_tile(Ka) == 128, wide_n = reduce_tile(Nb) == 128;
   const cudaError_t err =
-      wide_k ? (wide_n ? launch_atb<E, 128, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
-                       : launch_atb<E, 128, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream))
-             : (wide_n ? launch_atb<E, 64, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
-                       : launch_atb<E, 64, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream));
+      wide_k ? (wide_n ? launch_atb<128, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<128, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream))
+             : (wide_n ? launch_atb<64, 128>(A, Bm, M, Ka, Nb, Kout, splits, part, stream)
+                       : launch_atb<64, 64>(A, Bm, M, Ka, Nb, Kout, splits, part, stream));
   if (err != cudaSuccess) return static_cast<int>(err);
-  sum_splits<E><<<grid_for((long long)Kout * Nb), kThreads, 0, stream>>>(part, splits, Ka,
+  sum_splits<<<grid_for((long long)Kout * Nb), kThreads, 0, stream>>>(part, splits, Ka,
                                                                          Kout, Nb, dw, db);
   return static_cast<int>(cudaGetLastError());
 }
@@ -937,15 +906,6 @@ int t2h_level_bwd_reduce_tiles(int Ka, int Nb) {
 int t2h_level_bwd_reduce(const float* A, const float* Bm, int M, int Ka, int Nb,
                          int splits, float* part, float* dw, float* db,
                          cudaStream_t stream) {
-  return level_bwd_reduce(A, Bm, M, Ka, Nb, splits, part, dw, db, stream);
-}
-
-// The same on bf16 A and Bm: one bf16 mma.sync pass into f32 sums, dw and
-// db rounded to bf16 once (JAX's f32 accumulators cast to the weights'
-// dtype, level_kernel.py:653-659).
-int t2h_level_bwd_reduce_bf16(const bf16* A, const bf16* Bm, int M, int Ka, int Nb,
-                              int splits, float* part, bf16* dw, bf16* db,
-                              cudaStream_t stream) {
   return level_bwd_reduce(A, Bm, M, Ka, Nb, splits, part, dw, db, stream);
 }
 

@@ -1,6 +1,7 @@
 // The bf16 tensor-core products of the port's bf16 kernels, the conv core
-// (igemm_conv.cuh, K6-K8) and the level kernels (level.cu K4, level_bwd.cu
-// K5's row pass and weight sums): warp-level mma.sync.m16n8k16 with bf16 operands and
+// (igemm_conv.cuh: K6, K7 and K8's flat-K route) and the level kernels
+// (level.cu K4, level_bwd.cu K5's row pass; K5's weight sums and K8's other
+// convs run on wgmma, wgmma_bf16.cuh): warp-level mma.sync.m16n8k16 with bf16 operands and
 // fp32 accumulators, one pass where 3xTF32 (mma_tf32x3.cuh) makes three
 // (989 TFLOP/s dense on the H100 against 495/3), fragments loaded from
 // padded shared tiles with ldmatrix.
@@ -112,14 +113,6 @@ __device__ __forceinline__ void warp_mma_t(float (&acc)[2][NT][4], const T* A, i
   } else {
     warp_mma<KS, NT>(acc, A, lda, B, ldb, wm, wn, lane);
   }
-}
-
-// The A fragment (16 x 16) whose (0, 0) element is at p in a column-major
-// bf16 tile (element (i, k) at p[k * ld + i]): one ldmatrix.x4.trans, lanes
-// 8j..8j+7 naming the rows k of matrix j (j & 1: i + 8; j >> 1: k + 8).
-__device__ __forceinline__ void load_a_col_bf16(uint32_t (&a)[4], const __nv_bfloat16* p,
-                                                int ld, int lane) {
-  ldmatrix_x4_trans(a, p + ((lane & 7) + ((lane >> 4) & 1) * 8) * ld + ((lane >> 3) & 1) * 8);
 }
 
 }  // namespace t2h

@@ -205,8 +205,4 @@ __device__ __forceinline__ void cp_tile(E* s, int sld, const E* __restrict__ g, 
   }
 }
 
-inline bool aligned16(const void* p) {
-  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
-}
-
 }  // namespace t2h

@@ -20,7 +20,12 @@ that reason (:func:`kernel_vjp`).
 Each kernel takes bf16 activations as its JAX kernel does (bf16 operands,
 f32 accumulation): K8 a bf16 x and kernel with the f32 bias, the sum of the
 bf16 products in f32 onto the bias, the ReLU and one rounding to bf16
-(conv_kernel.py:43-73). Its bf16 entry point is ``t2h_conv3x3_bf16``.
+(conv_kernel.py:43-73). Its bf16 entry point is ``t2h_conv3x3_bf16``
+(``csrc/conv_bf16.cu``): an implicit GEMM on wgmma fed by TMA boxes of the
+input, or, where Cin or Cout is not a multiple of 8 (Cin = 3) or a tensor is
+not 16-byte aligned, the conv core's flat-K path (``tile_plan.conv_route``;
+the launches of each route are counted apart, ``conv3x3_bf16_wgmma`` and
+``conv3x3_bf16_flat``).
 
 PyTorch runs a float32 cuDNN convolution in TF32 (about three decimal
 digits) unless ``torch.backends.cudnn.allow_tf32`` is False, and that flag
@@ -41,7 +46,7 @@ import functools
 import torch
 import torch.nn.functional as F
 
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 
 
 @contextlib.contextmanager
@@ -157,6 +162,9 @@ def _conv3x3_kernel(x, w, b, relu: bool):
         int(relu), runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
+    if dt == torch.bfloat16:
+        aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, y))
+        runtime.LAUNCHES[f"{name}_{tile_plan.conv_route(cin, cout, aligned)}"] += 1
     return y
 
 

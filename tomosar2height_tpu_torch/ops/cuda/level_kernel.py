@@ -62,10 +62,11 @@ in f32 and rounded once):
 from __future__ import annotations
 
 import functools
+import math
 
 import torch
 
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import (
     VALUE_DTYPES,
     acc_dtype,
@@ -176,9 +177,9 @@ def level_bwd_reduce_plain(a, b, bias: bool):
 
 
 def _splits(m: int, k: int, n: int, device: torch.device) -> int:
-    """Row splits of K5's weight-gradient reduction: two blocks an SM over
-    the output's tiles (two waves of its one block an SM; the kernel picks
-    the tile), at most one per 512 rows."""
+    """Row splits of K5's f32 weight-gradient reduction: two blocks an SM
+    over the output's tiles (two waves of its one block an SM; the kernel
+    picks the tile), at most one per 512 rows."""
     tiles = runtime.library().t2h_level_bwd_reduce_tiles(k, n)
     return max(1, min(2 * _sm_count(device.index) // tiles, -(-m // 512)))
 
@@ -188,13 +189,24 @@ def _sm_count(index) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def _tma_rows(t):
+    """t as the bf16 weight sums' TMA takes it: zero columns up to a multiple
+    of 8 and a 16-byte aligned start (a copy only where t lacks either)."""
+    pad = -t.shape[1] % 8
+    if pad == 0 and t.data_ptr() % 16 == 0:
+        return t
+    return torch.nn.functional.pad(t, (0, pad))
+
+
 def level_bwd_reduce(a, b, bias: bool):
     """K5's second kernel, one weight gradient: the same returns as
-    :func:`level_bwd_reduce_plain`, a hand-written split-K reduction over
-    the rows on the tensor cores at fp32 accuracy (3xTF32;
-    ``csrc/level_bwd.cu`` ``t2h_level_bwd_reduce``). Deterministic: the
-    splits are summed in a fixed order. bf16 a and b: one bf16 pass into f32
-    sums, dw and db rounded to bf16 once."""
+    :func:`level_bwd_reduce_plain`. f32 a and b: a hand-written split-K
+    reduction over the rows on the tensor cores at fp32 accuracy (3xTF32;
+    ``csrc/level_bwd.cu`` ``t2h_level_bwd_reduce``); bf16: TMA-fed wgmma
+    into f32 sums, dw and db rounded to bf16 once (``csrc/reduce_bf16.cu``,
+    its splits and scratch from ``tile_plan``; widths not a multiple of 8
+    are zero-padded for its TMA, the padding sliced off). Deterministic:
+    the splits are summed in a fixed order."""
     if runtime.on_cpu(a):
         return level_bwd_reduce_plain(a, b, bias)
     dev, dt = a.device, a.dtype
@@ -203,15 +215,28 @@ def level_bwd_reduce(a, b, bias: bool):
     _check_dtype(dt)
     runtime.require(a, "a", dt, (m, k), dev)
     runtime.require(b, "b", dt, (m, n), dev)
-    splits = _splits(m, k, n, dev)
-    part = torch.empty(splits * (k + bias) * n, device=dev, dtype=torch.float32)
-    dw = torch.empty((k, n), device=dev, dtype=dt)
-    db = torch.empty(n, device=dev, dtype=dt) if bias else None
+    if dt == torch.bfloat16:
+        a, b = _tma_rows(a), _tma_rows(b)
+        kp, np_ = a.shape[1], b.shape[1]
+        if runtime.library().t2h_level_bwd_reduce_tiles_bf16(kp, np_) != math.prod(
+                tile_plan.reduce_grid(kp, np_)):
+            raise RuntimeError("tile_plan.reduce_grid disagrees with csrc/reduce_bf16.cu")
+        splits = tile_plan.reduce_splits(m, kp, np_, _sm_count(dev.index))
+        rows = tile_plan.reduce_part_rows(kp, np_, bias)
+    else:
+        kp, np_ = k, n
+        splits = _splits(m, k, n, dev)
+        rows = k + bias
+    part = torch.empty(splits * rows * np_, device=dev, dtype=torch.float32)
+    dw = torch.empty((kp, np_), device=dev, dtype=dt)
+    db = torch.empty(np_, device=dev, dtype=dt) if bias else None
     err = runtime.entry("level_bwd_reduce", dt)(
-        a.data_ptr(), b.data_ptr(), m, k, n, splits, part.data_ptr(), dw.data_ptr(),
+        a.data_ptr(), b.data_ptr(), m, kp, np_, splits, part.data_ptr(), dw.data_ptr(),
         db.data_ptr() if bias else None, runtime.stream_ptr(dev))
     runtime.check(err, "level_bwd_reduce")
     runtime.launched("level_bwd_reduce", dt)
+    if (kp, np_) != (k, n):
+        dw, db = dw[:k, :n].contiguous(), (db[:n].contiguous() if bias else None)
     return dw, db
 
 

@@ -40,11 +40,13 @@ _KERNELS = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_leve
             "scatter_mean_plane_v3", "tile_gather_bwd", "tile_pool_bwd",
             "aligned_scatter_mean_plane_bwd")
 LAUNCHES = {**{k: 0 for n in _KERNELS for k in (n, f"{n}_bf16")},
-            "level_d_plane_wide_bf16": 0}
+            "level_d_plane_wide_bf16": 0, "conv3x3_bf16_wgmma": 0, "conv3x3_bf16_flat": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`; each
 kernel counts its launches on bf16 tensors under ``<name>_bf16``
 (:func:`launched`); ``level_d_plane_wide_bf16`` counts the d_plane pass from
-f32 cotangents into a bf16 plane."""
+f32 cotangents into a bf16 plane; ``conv3x3_bf16_wgmma`` and
+``conv3x3_bf16_flat`` split K8's bf16 launches by the route
+``t2h_conv3x3_bf16`` takes (``tile_plan.conv_route``)."""
 
 BUILD_INFO: dict = {}
 """Of the library this process loaded: path, whether it was built now, build
@@ -57,7 +59,7 @@ _I = ctypes.c_int
 
 _SIGNATURES = {
     # name: argtypes (every function returns an int: cudaError_t, or the
-    # count that t2h_level_bwd_reduce_tiles computes)
+    # count that t2h_level_bwd_reduce_tiles(_bf16) computes)
     **{f"t2h_{name}{suffix}": argtypes for name, argtypes in (
         ("pool_runs", [_P] * 7 + [_I] * 5 + [_P]),
         ("pool_gather", [_P] * 5 + [_I] * 5 + [_P]),
@@ -67,6 +69,7 @@ _SIGNATURES = {
         ("level_d_plane", [_P] * 6 + [_I] * 5 + [_P]),
         ("level_bwd_reduce", [_P, _P] + [_I] * 4 + [_P] * 4)) for suffix in ("", "_bf16")},
     "t2h_level_bwd_reduce_tiles": [_I, _I],
+    "t2h_level_bwd_reduce_tiles_bf16": [_I, _I],
     "t2h_conv3x3": [_P] * 4 + [_I] * 6 + [_P],
     "t2h_conv_pair": [_P] * 8 + [_I] * 6 + [_P],
     "t2h_conv_decoder": [_P] * 12 + [_I] * 8 + [_P],

@@ -1,0 +1,106 @@
+"""The host-side plans of the two bf16 kernels on the TMA and wgmma, in plain
+Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``) and K8 in bf16
+(``csrc/conv_bf16.cu``). The C launchers compute the same plans (the
+functions there of the same names); the wrappers size their scratch and
+splits from these, and ``tests/test_torch_tile_plan.py`` emulates them in
+numpy: every output element covered once, the sums equal to the plain
+versions'.
+
+The weight sums ``dw = A^T B``, ``db = colsum(B)`` over M rows: a block owns
+a ``bk`` x ``bn`` tile of dw and one split of the rows, streamed in stages of
+:data:`REDUCE_ROWS` rows; the ``ny`` tiles along Ka each sum the bias over
+the stages ``s % ny == y`` of their split, so the scratch holds ``Ka + ny``
+rows a split with a bias.
+
+K8: a block owns :data:`CONV_PIXELS` output pixels, a ``th`` x ``tw``
+rectangle of one image, by ``bn`` output channels; its K steps run over the
+nine taps, then the ``ck``-channel chunks, each loading the input box
+(``ck``, ``tw``, ``th``) whose origin is the rectangle's moved by the tap
+(:func:`tap_origin`), zero outside the image and past Cin.
+"""
+
+from __future__ import annotations
+
+REDUCE_ROWS = 64
+"""Rows a stage of the weight sums (``kRows``)."""
+
+CONV_PIXELS = 128
+"""Output pixels a block of K8 in bf16 (``kPix``)."""
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def reduce_tile(ka: int, nb: int) -> tuple[int, int]:
+    """(bk, bn): the weight sums' output tile along Ka (64, or 128: two
+    consumer warpgroups) and along Nb (64, 128 or 256)."""
+    return (64 if ka <= 64 else 128), (64 if nb <= 64 else 128 if nb <= 128 else 256)
+
+
+def reduce_grid(ka: int, nb: int) -> tuple[int, int]:
+    """(nx, ny): the tiles along Nb and along Ka."""
+    bk, bn = reduce_tile(ka, nb)
+    return cdiv(nb, bn), cdiv(ka, bk)
+
+
+def reduce_splits(m: int, ka: int, nb: int, sms: int) -> int:
+    """Row splits: about one block an SM over the tiles, at least four stages
+    a split, and no split past the rows."""
+    nx, ny = reduce_grid(ka, nb)
+    first = max(1, min(sms // (nx * ny), cdiv(m, 4 * REDUCE_ROWS)))
+    return cdiv(m, reduce_rows_per_split(m, first))
+
+
+def reduce_rows_per_split(m: int, splits: int) -> int:
+    """Rows of a split: ceil(m / splits) up to whole stages; the last split
+    ends at m (later ones, if any, are empty and write zeros)."""
+    return cdiv(cdiv(m, splits), REDUCE_ROWS) * REDUCE_ROWS
+
+
+def reduce_part_rows(ka: int, nb: int, bias: bool) -> int:
+    """Rows of a split's f32 partial sums: Ka, and the ny bias rows."""
+    return ka + (reduce_grid(ka, nb)[1] if bias else 0)
+
+
+def conv_route(cin: int, cout: int, aligned: bool = True) -> str:
+    """"wgmma" (``conv3x3_wgmma``: the TMA wants 16-byte row pitches and
+    addresses) or "flat" (the conv core's flat-K path: Cin = 3)."""
+    return "wgmma" if cin % 8 == 0 and cout % 8 == 0 and aligned else "flat"
+
+
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> dict:
+    """K8 bf16's blocks: the rectangle (tw, th), its counts along x and y,
+    the rectangles (b * tiles_y * tiles_x), the channel chunk ck and the
+    output tile bn (256 where Cout > 128 and that still gives ``sms``
+    blocks), and the blocks (rectangles x channel tiles)."""
+    tw = min(w, CONV_PIXELS)
+    th = CONV_PIXELS // tw
+    tiles_x, tiles_y = cdiv(w, tw), cdiv(h, th)
+    rects = b * tiles_y * tiles_x
+    ck = 32 if cin <= 32 else 64
+    if cout <= 64:
+        bn = 64
+    elif cout <= 128 or rects * cdiv(cout, 256) < sms:
+        bn = 128
+    else:
+        bn = 256
+    return {"tw": tw, "th": th, "tiles_x": tiles_x, "tiles_y": tiles_y, "rects": rects,
+            "ck": ck, "bn": bn, "blocks": rects * cdiv(cout, bn)}
+
+
+def conv_block(plan: dict, cout: int, block: int) -> tuple[int, int, int, int]:
+    """(image, x0, y0, n0) of block ``block``: a rectangle's channel tiles
+    are neighbours, rectangles run x fastest, then y, then image."""
+    ntn = cdiv(cout, plan["bn"])
+    rect, nt = divmod(block, ntn)
+    tx = rect % plan["tiles_x"]
+    ty = (rect // plan["tiles_x"]) % plan["tiles_y"]
+    return rect // (plan["tiles_x"] * plan["tiles_y"]), tx * plan["tw"], ty * plan["th"], \
+        nt * plan["bn"]
+
+
+def tap_origin(x0: int, y0: int, tap: int) -> tuple[int, int]:
+    """The (x, y) origin of tap ``tap``'s input box (HWIO tap order: dy =
+    tap // 3 - 1, dx = tap % 3 - 1) for the rectangle at (x0, y0)."""
+    return x0 + tap % 3 - 1, y0 + tap // 3 - 1

@@ -5,7 +5,11 @@ card, from the port in a given checkout, beside their plain versions:
   (``chip_smoke.ALTO_PAIRS + IMAGE_PAIRS``); plain: two cuDNN convs in full
   float32, the pool as ``F.max_pool2d``;
 - ``--kernel conv3x3``: K8 (``conv3x3``, with ReLU) at the 43 convs
-  (``chip_smoke.CONVS``); plain: one cuDNN conv in full float32;
+  (``chip_smoke.CONVS``); plain: one cuDNN conv in full float32; with
+  ``--dtype bfloat16`` on bf16 x and kernel (the f32 bias), each shape
+  also beside one ``F.conv2d`` in bf16 on ``channels_last`` (cuDNN: the
+  library yardstick), all timed by CUDA graph replays (``chip_smoke.graph_ms``,
+  as the smoke's kernel rows);
 - ``--kernel decoder``: K6 (``conv_decoder``) at the decoder
   (``chip_smoke.DECODER``); plain: three cuDNN convs and the head.
 
@@ -27,9 +31,11 @@ import subprocess
 import sys
 
 
-def _cases(kernel, cs, gen, dev):
-    """(name, kernel fn, plain fn) for each shape of ``kernel``."""
+def _cases(kernel, cs, gen, dev, dtype):
+    """(name, kernel fn, plain fn, library fn or None) for each shape of
+    ``kernel``."""
     import torch
+    import torch.nn.functional as F
 
     from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
     from tomosar2height_tpu_torch.ops.cuda import convpair_kernel as cpk
@@ -41,18 +47,24 @@ def _cases(kernel, cs, gen, dev):
             a = (x_of(h, cin), *cs._conv_w(gen, cin, c, 3, dev), *cs._conv_w(gen, c, c, 3, dev))
             yield (f"{h}^2 {cin}->{c}{' pool' if pool else ''}",
                    lambda a=a, p=pool: cpk.conv_pair(*a, p),
-                   lambda a=a, p=pool: cpk.conv_pair_plain(*a, p))
+                   lambda a=a, p=pool: cpk.conv_pair_plain(*a, p), None)
     elif kernel == "conv3x3":
         for h, cin, cout in cs.CONVS:
-            a = (x_of(h, cin), *cs._conv_w(gen, cin, cout, 3, dev))
+            w, bias = cs._conv_w(gen, cin, cout, 3, dev)
+            a = (x_of(h, cin).to(dtype), w.to(dtype), bias)
+            lib = None
+            if dtype == torch.bfloat16:
+                lib = (a[0].permute(0, 3, 1, 2), a[1].permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last), bias.to(dtype))
             yield (f"{h}^2 {cin}->{cout}", lambda a=a: ck.conv3x3(*a, True),
-                   lambda a=a: ck.conv3x3_plain(*a, True))
+                   lambda a=a: ck.conv3x3_plain(*a, True),
+                   lib and (lambda a=lib: F.conv2d(*a, padding=1)))
     else:
         h, c0, (c1, c2, c3), co = cs.DECODER
         a = (x_of(h, c0), *cs._conv_w(gen, c0, c1, 3, dev), *cs._conv_w(gen, c1, c2, 3, dev),
              *cs._conv_w(gen, c2, c3, 3, dev), *cs._conv_w(gen, c0 + c1 + c2 + c3, co, 1, dev))
         yield (f"{h}^2 {c0}->{c1}->{c2}->{c3} head {co}", lambda: dk.conv_decoder(*a),
-               lambda: dk.conv_decoder_plain(*a))
+               lambda: dk.conv_decoder_plain(*a), None)
 
 
 def main() -> None:
@@ -61,6 +73,7 @@ def main() -> None:
         os.path.abspath(__file__)))))
     ap.add_argument("--kernel", choices=("pair", "conv3x3", "decoder"), default="pair")
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -80,14 +93,27 @@ def main() -> None:
                          check=True).stdout.strip())
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    names, kfns, pfns = zip(*_cases(args.kernel, cs, torch.Generator().manual_seed(7), dev))
-    total = cs.cuda_ms(lambda: [fn() for fn in kfns], iters=args.iters)
-    plain = cs.cuda_ms(lambda: [fn() for fn in pfns], iters=args.iters)
-    per = "; ".join(f"{n} {cs.cuda_ms(k, args.iters, 1):.3f}/{cs.cuda_ms(p, args.iters, 1):.3f}"
-                    for n, k, p in zip(names, kfns, pfns))
-    print(f"{args.kernel} {root}: {total:.4f} ms for the {len(names)} shapes, plain "
-          f"{plain:.4f} ms (median of {args.iters}); by shape, kernel/plain ms: {per}",
-          flush=True)
+    dtype = getattr(torch, args.dtype)
+    if dtype == torch.bfloat16 and args.kernel != "conv3x3":
+        raise SystemExit("--dtype bfloat16 times conv3x3 only")
+    names, kfns, pfns, lfns = zip(*_cases(args.kernel, cs, torch.Generator().manual_seed(7),
+                                          dev, dtype))
+    if dtype == torch.bfloat16:  # device time by graph replays, as the smoke's rows
+        def ms(fn, warmup=1):
+            return cs.graph_ms(fn, args.iters, warmup)
+    else:
+        def ms(fn, warmup=3):
+            return cs.cuda_ms(fn, args.iters, warmup)
+    total = ms(lambda: [fn() for fn in kfns])
+    plain = ms(lambda: [fn() for fn in pfns])
+    lib = f", library {ms(lambda: [fn() for fn in lfns]):.4f} ms" if all(lfns) else ""
+    per = "; ".join(
+        f"{n} {ms(k, 1):.3f}/{ms(p, 1):.3f}" + (f"/{ms(lf, 1):.3f}" if lf else "")
+        for n, k, p, lf in zip(names, kfns, pfns, lfns))
+    print(f"{args.kernel} {args.dtype} {root}: {total:.4f} ms for the {len(names)} shapes, "
+          f"plain {plain:.4f} ms{lib} (median of {args.iters}"
+          f"{', graph replays' if dtype == torch.bfloat16 else ''}); by shape, kernel/plain"
+          f"{'/library' if lib else ''} ms: {per}", flush=True)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,10 @@ each level's shapes, as ``chip_smoke.check_kernels`` draws them, beside
 ``torch.matmul`` of the same product), the card's name and power limit. With ``--profile``, also the
 device time by kernel name of one pass of the 24 reductions and of the 24
 ``torch.matmul`` calls (``torch.profiler``) and the device busy share of
-each pass. Needs one CUDA card.
+each pass. With ``--dtype bfloat16``, the 24 reductions alone on bf16 rows
+(``csrc/reduce_bf16.cu`` where the checkout has it) beside ``torch.matmul``
+in bf16, all at once and each by (Ka, Nb), timed by CUDA graph replays
+(``chip_smoke.graph_ms``, as the smoke's kernel rows). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ def main() -> None:
         os.path.abspath(__file__)))))
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -63,6 +67,9 @@ def main() -> None:
     cells = torch.from_numpy(acell).to(dev)
     b, npad = amask.shape
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.dtype == "bfloat16":
+        _time_bf16_reduce(cs, lk, gen, dev, b * npad, root, args.iters)
+        return
     fns, bwd, rows_fns, red, mm, dplane = {}, {}, {}, {}, {}, {}
     m = b * npad
     for r, f, fl in cs.LEVEL_SHAPES:
@@ -99,6 +106,30 @@ def main() -> None:
     if args.profile:
         for name, group in (("reduce", red), ("torch.matmul", mm)):
             _profile(name, lambda g=group: [fn() for fn in g.values()])
+
+
+def _time_bf16_reduce(cs, lk, gen, dev, m, root, iters):
+    """The 24 weight sums of the eight levels on bf16 rows (as
+    ``chip_smoke.check_kernels`` draws them, on the card) beside
+    ``torch.matmul`` in bf16: all at once, and each by (Ka, Nb), by CUDA
+    graph replays (device time)."""
+    import torch
+
+    bf = torch.bfloat16
+    cgen = torch.Generator(device=dev).manual_seed(0)
+    red, mm = {}, {}
+    for _, f, fl in cs.LEVEL_SHAPES:
+        for ka, nb, bias in ((f, 2 * f, True), (2 * f, f, True), (fl, f, False)):
+            rows = (torch.randn(m, ka, generator=cgen, device=dev).to(bf),
+                    torch.randn(m, nb, generator=cgen, device=dev).to(bf), bias)
+            key = f"{ka}x{nb}{'+b' if bias else ''}#{len(red)}"
+            red[key] = lambda x=rows: lk.level_bwd_reduce(*x)
+            mm[key] = lambda x=rows: torch.matmul(x[0].t(), x[1])
+    for name, group in (("reduce bf16", red), ("torch.matmul bf16", mm)):
+        total = cs.graph_ms(lambda g=group: [fn() for fn in g.values()], iters)
+        per = {k: round(cs.graph_ms(fn, iters), 4) for k, fn in group.items()}
+        print(f"{name} {root}: {total:.4f} ms for the 24 sums (graph replays, median of "
+              f"{iters}); by (Ka x Nb, +b with the bias) {per}", flush=True)
 
 
 def _row_pass(lk, runtime, bargs):
