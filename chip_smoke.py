@@ -220,15 +220,17 @@ BF16_FLOP_S = 989e12
 # their SASS: K4, K5's row pass and f32 weight-gradient reduction, the
 # implicit-GEMM conv of K6's first two passes, K7 and K8's flat-K route, and
 # K6's third conv with the head; TF32 HMMA in every f32 instance, bf16 HMMA
-# in every bf16 instance (each kernel has some, but the f32 weight sums,
-# F32_ONLY: their bf16 instance is atb_wgmma)
+# in every bf16 instance (each kernel has some, but F32_ONLY's: the f32
+# weight sums, whose bf16 instance is atb_wgmma, and K4, whose bf16
+# instance is fused_level_wgmma)
 MMA_SYNC_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_mma",
                     "conv3x3_igemm", "conv3x3_head_igemm")
-F32_ONLY = ("atb_mma",)
+F32_ONLY = ("atb_mma", "fused_level_fwd")
 # the kernels on Hopper's warpgroup products fed by the TMA: K5's bf16
-# weight sums (csrc/reduce_bf16.cu) and K8 in bf16 (csrc/conv_bf16.cu);
-# bf16 HGMMA and UTMALDG in every instance
-WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma")
+# weight sums (csrc/reduce_bf16.cu), K8 and both convs of K7 in bf16
+# (csrc/conv_bf16.cu) and K4 in bf16 (csrc/level_bf16.cu); bf16 HGMMA and
+# UTMALDG in every instance
+WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma", "fused_level_wgmma")
 TENSOR_CORE_KERNELS = MMA_SYNC_KERNELS + WGMMA_KERNELS
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
 # K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
@@ -1035,11 +1037,14 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
             red_l.append(lambda a=(ra, rb): torch.matmul(a[0].t(), a[1]))
             red_k.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce(*a))
             red_p.append(lambda a=(ra, rb, bias): lk.level_bwd_reduce_plain(*a))
-    entry("fused_level" + sfx, "tomosar2height_tpu_torch/csrc/level.cu",
+    entry("fused_level" + sfx, "tomosar2height_tpu_torch/csrc/"
+          + ("level.cu" if f32 else "level_bf16.cu"),
           "tomosar2height_tpu/ops/pallas/level_kernel.py:110", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
           (work["level"][0], [(work["level"][1], rate)]),
           tol=f"{TOL:g} abs+rel" if f32 else BF16_RULE)
+    if not f32:
+        _level_by_shape(kfns)
     bwd_tol = (f"{BWD_TOL[0]:g} abs + {BWD_TOL[1]:g} rel; weights "
                f"{WEIGHT_RTOL:g}*max|ref| abs + {WEIGHT_RTOL:g} rel") if f32 else BF16_RULE
     entry("fused_level_bwd" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
@@ -1074,6 +1079,28 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
     log("kernels", f"K4{sfx} (plane, c_out, counts), K5{sfx} (d_plane, d_c_last, weights) and "
         f"its d_plane pass bit-equal on a second launch at every level: True")
     return level_args
+
+
+def _level_by_shape(kfns) -> None:
+    """K4 bf16 at each of LEVEL_SHAPES (``kfns``: its calls, K4 and its run
+    scatter, as the row times them): graph replays, median of 5, with the
+    plan each level takes (``tile_plan.level_plan``: rows a block, o's
+    columns split between the warpgroups or not, the ring's stages) and its
+    launches by route (one route: every width on csrc/level_bf16.cu)."""
+    from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
+
+    before = runtime.LAUNCHES["fused_level_bf16"]
+    for fn in kfns:
+        fn()
+    launched = runtime.LAUNCHES["fused_level_bf16"] - before
+    per = []
+    for (r, f, fl), fn in zip(LEVEL_SHAPES, kfns):
+        p = tile_plan.level_plan(f, fl)
+        per.append(f"{r}/{f}/{fl} {graph_ms(fn, 5):.4f} ({p['bm']} rows, "
+                   f"{'cols split' if p['cols'] else 'rows split'}, {p['stages']} stages)")
+    log("kernels", "fused_level_bf16 by level (R/F/Fl: K4 + its run scatter ms, graph "
+        "replays, median of 5; the plan): " + "; ".join(per) + f"; launches by route: wgmma "
+        f"{launched} of {len(kfns)} calls")
 
 
 def _reduce_shape(args, got, want) -> str:
@@ -1145,7 +1172,9 @@ def stress_level(level_args):
 def check_wide_level(seed: int = 0):
     """K4 and K5 at the first up level of a depth-6 U-Net, (R, F, Fl) =
     (32, 512, 1024), at the flagship shapes: c_last is contracted in 512-row
-    K-chunks (logged beside the kernel table, not in K4's row)."""
+    K-chunks (logged beside the kernel table, not in K4's row); then K4 in
+    bf16 on the same inputs rounded to bf16, under BF16_RULE and bit-equal on
+    a second launch (its c_last in 32 boxes of 32 columns)."""
     import torch
 
     from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
@@ -1186,6 +1215,18 @@ def check_wide_level(seed: int = 0):
         f"{bwd_ms:.3f} ms | {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("K4/K5 disagree with their plain versions at Fl=1024")
+    del kb, pb, bargs, ko, po
+    bf = (plane.bfloat16(), c_last.bfloat16(), tuple(x.bfloat16() for x in w), *args[3:])
+    ko = lk.fused_level(*bf)
+    pairs = _bf16_rule_pairs(ko[:2], lk.fused_level_plain(*bf)[:2],
+                             lk.fused_level_plain(*_upcast(bf))[:2])
+    again = all(torch.equal(x, y) for x, y in zip(lk.fused_level(*bf), ko))
+    ms = graph_ms(lambda: lk.fused_level(*bf), iters=10)
+    log("kernels", f"fused_level_bf16 R={r} F={f} Fl={fl} (depth-6 up level): max|d| "
+        f"{max(_compare(*p)[0] for p in pairs):.3g} ({BF16_RULE}), bit-equal on a second "
+        f"launch {again}, {ms:.3f} ms")
+    if not (again and all(_compare(*p)[1] for p in pairs)):
+        raise AssertionError("K4 bf16 disagrees with its plain version at Fl=1024")
 
 
 # (H = W, Cin, C, pool) of the 20 conv pairs of a fusion forward (K7): the
@@ -1403,7 +1444,9 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
           tol="2x plain's distance from float64 + 1 bf16 ulp", iters=3)
     del pairs, kfns, pfns, lfns
 
-    pairs, notes, kfns, pfns, work = [], [], [], [], [0, 0]
+    pairs, notes, kfns, pfns, work, per, cudnn = [], [], [], [], [0, 0], [], []
+    routes = ("conv_pair_bf16_wgmma", "conv_pair_bf16_flat")
+    before = {k: runtime.LAUNCHES[k] for k in routes}
     for h, cin, c, pool in ALTO_PAIRS + IMAGE_PAIRS:
         args = (x_of(h, cin), *w_of(cin, c), *w_of(c, c))
         got, note = _bf16_rule(f"conv_pair_bf16 {h}^2 {cin}->{c}->{c}",
@@ -1415,9 +1458,27 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
         work[1] += 2 * b * h * h * 9 * (cin * c + c * c)
         kfns.append(lambda a=args, p=pool: cpk.conv_pair(*a, p))
         pfns.append(lambda a=args, p=pool: cpk.conv_pair_plain(*a, p))
+        # cuDNN's two bf16 convs at the pair's shapes (channels_last; no
+        # ReLU, no pool): information beside the row, not its library call
+        lib = [(t.permute(0, 3, 1, 2), k.to(bf).permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last), bb.to(bf)) for t, k, bb in (
+            (args[0], args[1], args[2]),
+            (torch.empty(b, h, h, c, device=dev, dtype=bf).normal_(generator=xgen),
+             args[3], args[4]))]
+        cudnn.append(lambda a=lib: [F.conv2d(*x, padding=1) for x in a])
+        per.append(f"{h}^2 {cin}->{c}->{c}{' pool' if pool else ''} "
+                   + "+".join(tile_plan.conv_route(*ch) for ch in ((cin, c), (c, c))))
+    by_route = {k: runtime.LAUNCHES[k] - before[k] for k in routes}
     log("kernels", f"conv_pair_bf16 at the {len(ALTO_PAIRS + IMAGE_PAIRS)} shapes, the "
-        f"largest share of its tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}")
-    entry("conv_pair_bf16", "tomosar2height_tpu_torch/csrc/convpair.cu",
+        f"largest share of its tolerance: {max(notes)[0]:.3f}, {max(notes)[1]}; its convs "
+        f"by route (two launches a shape, two convs each) {by_route}")
+    per = [f"{p} {graph_ms(k, 3):.4f}/{graph_ms(lf, 3):.4f}"
+           for p, k, lf in zip(per, kfns, cudnn)]
+    log("kernels", "conv_pair_bf16 by shape (the convs' routes, kernel / cuDNN's two bf16 "
+        "F.conv2d on channels_last ms, graph replays, median of 3): " + "; ".join(per)
+        + f"; all shapes: cuDNN's {graph_ms(lambda: [fn() for fn in cudnn], 3):.4f} ms")
+    del cudnn
+    entry("conv_pair_bf16", "tomosar2height_tpu_torch/csrc/conv_bf16.cu",
           "tomosar2height_tpu/ops/pallas/convpair_kernel.py:36", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns],
           (work[0], [(work[1], BF16_FLOP_S)]),
@@ -2898,15 +2959,20 @@ def headline_train(seed: int = 0):
 # 11 ALTO and 11 image U-Net conv pairs (K7) and the height decoder (K6;
 # serving skips the footprint head); on the unsorted path with the flags off
 # under FAST_CONV its 47 Conv3x3 (K8): 46 on its wgmma route, the image
-# U-Net's first (Cin 3) on the flat-K route. Per training mini-step on fused2
-# HEADLINE_TRAIN_LAUNCHES' kernels at their bf16 instances (remat's
-# recompute doubles the forward's).
+# U-Net's first (Cin 3) on the flat-K route; the 44 convs of its 22 pairs
+# (K7) likewise, 43 on the wgmma route and the Cin 3 one flat. Per training
+# mini-step on fused2 HEADLINE_TRAIN_LAUNCHES' kernels at their bf16
+# instances (remat's recompute doubles the point encoder's, whose ALTO
+# U-Net's 11 pairs all take the wgmma route).
 BF16_SERVE_LAUNCHES = {"pool2_bf16": 4, "scatter_plane2_bf16": 1, "fused_level_bf16": 9,
                        "fused_level_scatter_bf16": 9, "conv_pair_bf16": 22,
+                       "conv_pair_bf16_wgmma": 43, "conv_pair_bf16_flat": 1,
                        "conv_decoder_bf16": 1}
 BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47, "conv3x3_bf16_wgmma": 46,
                            "conv3x3_bf16_flat": 1}
-BF16_TRAIN_LAUNCHES = {f"{k}_bf16": v for k, v in HEADLINE_TRAIN_LAUNCHES.items()}
+BF16_TRAIN_LAUNCHES = {**{f"{k}_bf16": v for k, v in HEADLINE_TRAIN_LAUNCHES.items()},
+                       "conv_pair_bf16_wgmma": 2 * HEADLINE_TRAIN_LAUNCHES["conv_pair"] - 1,
+                       "conv_pair_bf16_flat": 1}
 
 
 def _f32_launches(counts: dict) -> dict:

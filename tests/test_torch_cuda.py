@@ -2339,3 +2339,103 @@ class TestWgmmaBf16Kernels:
         _launched("conv3x3_bf16_wgmma", before)
         _bf16_held(got, ck.conv3x3_plain(x, k, bias, True),
                    ck.conv3x3_plain(x.double(), k.double(), bias.double(), True))
+
+
+def _level_bf16_args(inp, level_reso, reso, device):
+    pts, mask, cells, _, plane, c_last, weights = inp
+    return (_bf(plane, device), _bf(c_last, device), tuple(_bf(w, device) for w in weights),
+            t(pts[..., :2], device), t(cells, device), t(mask, device), level_reso, reso)
+
+
+# (H = W, Cin, C, pool) of K7's 20 pairs (chip_smoke.ALTO_PAIRS + IMAGE_PAIRS)
+_PAIRS = [(256, 32, 32, False), (256, 32, 64, False), (128, 64, 128, False),
+          (64, 128, 256, False), (32, 256, 512, False), (64, 512, 256, False),
+          (128, 256, 128, False), (256, 128, 64, False), (256, 64, 32, False),
+          (512, 3, 32, True), (256, 32, 64, True), (128, 64, 128, True),
+          (64, 128, 256, True), (32, 256, 512, True), (16, 512, 1024, False),
+          (32, 1024, 512, False), (64, 512, 256, False), (128, 256, 128, False),
+          (256, 128, 64, False), (512, 64, 32, False)]
+
+
+@pytest.mark.cuda
+class TestWgmmaLevelAndPair:
+    """K4 in bf16 (``csrc/level_bf16.cu``) and both convs of K7 in bf16
+    (``csrc/conv_bf16.cu``, the pool in the second's epilogue) on the TMA
+    and wgmma: K4 at every width of the flagship's levels
+    (``chip_smoke.LEVEL_SHAPES``) and at Fl = 1024, on rows that end inside
+    a block, with a patch of padding rows only, under the JAX package's bf16
+    rule (``bf16_level_held``); K7 at every pair shape of a fusion forward at
+    batch 1-2, pooled and not, held as ``_bf16_held``, its convs counted by
+    route (the Cin = 3 conv on the flat-K path). Each bit-equal on a second
+    launch."""
+
+    @pytest.mark.parametrize("level_reso,f,fl", [
+        (256, 32, 32), (256, 64, 32), (128, 128, 64), (64, 256, 128), (32, 512, 256),
+        (64, 256, 512), (128, 128, 256), (256, 64, 128), (32, 512, 1024), (64, 256, 1024)])
+    def test_level_matches_plain(self, cuda, level_reso, f, fl):
+        inp = level_inputs(256, level_reso, f, fl, seed=31, b=3, n=1500, empty_last=True)
+        cut = inp[1].shape[1] - 37  # rows that end inside a 128- or 64-row block
+        inp = tuple(x[:, :cut] if i in (0, 1, 2, 5) else x for i, x in enumerate(inp))
+        args = _level_bf16_args(inp, level_reso, 256, cuda)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level(*args)
+        want = lk.fused_level_plain(*args)
+        ref = lk.fused_level_plain(args[0].float(), args[1].float(),
+                                   tuple(w.float() for w in args[2]), *args[3:])
+        torch.cuda.synchronize()
+        _launched("fused_level_bf16", before)
+        assert got[1].shape == (3, cut, f)
+        for i in (0, 1):
+            bf16_level_held(got[i], want[i], ref[i])
+        assert torch.equal(got[2], want[2])
+        assert (got[1][-1] == 0).all() and (got[1][~args[5]] == 0).all()
+        assert all(torch.equal(a, b) for a, b in zip(lk.fused_level(*args), got))
+
+    @pytest.mark.parametrize("f,fl", [(8, 4), (20, 12), (24, 600), (200, 40)])
+    def test_level_pads_ragged_widths(self, cuda, f, fl):
+        """F or Fl not a multiple of 8 (zero columns added for the TMA, and
+        c_out's sliced off), F 24 (a k16 step half past F) and F 200 (a W_in
+        stage cut short)."""
+        inp = level_inputs(64, 32, f, fl, seed=33, b=2, n=600)
+        args = _level_bf16_args(inp, 32, 64, cuda)
+        got = lk.fused_level(*args)
+        want = lk.fused_level_plain(*args)
+        ref = lk.fused_level_plain(args[0].float(), args[1].float(),
+                                   tuple(w.float() for w in args[2]), *args[3:])
+        torch.cuda.synchronize()
+        assert got[1].shape == want[1].shape and got[1].is_contiguous()
+        for i in (0, 1):
+            bf16_level_held(got[i], want[i], ref[i])
+
+    def test_level_unaligned_operands_are_copied(self, cuda):
+        inp = level_inputs(64, 32, 64, 64, seed=35, b=2, n=600)
+        args = list(_level_bf16_args(inp, 32, 64, cuda))
+        c = args[1]
+        shifted = torch.empty(c.numel() + 1, device=cuda, dtype=BF)[1:].view(c.shape)
+        shifted.copy_(c)
+        assert shifted.data_ptr() % 16 and shifted.is_contiguous()
+        got = lk.fused_level(args[0], shifted, *args[2:])
+        want = lk.fused_level(*args)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    @pytest.mark.parametrize("pool", [False, True])
+    @pytest.mark.parametrize("h,cin,c,model_pool", _PAIRS)
+    def test_conv_pair_matches_plain(self, cuda, h, cin, c, model_pool, pool):
+        rng = np.random.default_rng(h + cin + c)
+        b = 1 if h >= 256 else 2
+        x = t(rng.normal(0, 1, (b, h, h, cin)).astype(np.float32), cuda).to(BF)
+        args = (x, *_bf16_weights(rng, cin, c, cuda), *_bf16_weights(rng, c, c, cuda))
+        before = dict(runtime.LAUNCHES)
+        got = cpk.conv_pair(*args, pool)
+        torch.cuda.synchronize()
+        _launched("conv_pair_bf16", before)
+        _launched("conv_pair_bf16_wgmma", before, 1 if cin == 3 else 2)
+        _launched("conv_pair_bf16_flat", before, 1 if cin == 3 else 0)
+        want = cpk.conv_pair_plain(*args, pool)
+        ref = cpk.conv_pair_plain(*(a.double() for a in args), pool)
+        again = cpk.conv_pair(*args, pool)
+        for i in (0, 1) if pool else (0,):
+            assert got[i].dtype == BF and torch.equal(again[i], got[i])
+            _bf16_held(got[i], want[i], ref[i])
+        assert (got[1] is None) == (not pool)

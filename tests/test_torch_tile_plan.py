@@ -1,7 +1,7 @@
-"""The host plans of the two bf16 kernels on the TMA and wgmma
-(``ops/cuda/tile_plan.py``, mirrored by ``csrc/reduce_bf16.cu`` and
-``csrc/conv_bf16.cu``), emulated in numpy on the CPU (the sums in float64,
-the convs in float32):
+"""The host plans of the bf16 kernels on the TMA and wgmma
+(``ops/cuda/tile_plan.py``, mirrored by ``csrc/reduce_bf16.cu``,
+``csrc/conv_bf16.cu`` and ``csrc/level_bf16.cu``), emulated in numpy on the
+CPU (the sums in float64, the convs in float32):
 
 - K5's bf16 weight sums at every reduction of the flagship's eight levels
   (``chip_smoke.LEVEL_SHAPES``) and at ragged widths: each block's tile and
@@ -14,7 +14,18 @@ the convs in float32):
   block's rectangle and channel tile, each tap's input box from
   ``tile_plan.tap_origin`` with zeros past the image and past Cin, summed
   over the taps and channel chunks. Every output element is covered once;
-  the result equals ``conv3x3_plain``'s.
+  the result equals ``conv3x3_plain``'s. K7's pooled second conv at the
+  five pooled pairs of ``chip_smoke.IMAGE_PAIRS`` (batch 1, reduced widths)
+  and at ragged shapes: every rectangle of even height and width at even
+  origins, each pooled pixel taken once from one rectangle's staged tile,
+  equal to the 2x2 max pool of the plain relu(conv).
+- K4 in bf16 at every level of ``chip_smoke.LEVEL_SHAPES`` at full width,
+  at Fl = 1024 and at ragged widths (a few hundred rows): each block's rows,
+  each warpgroup's rows and o columns (split by columns at F = 512), the
+  hidden chunks' halves, the W_in stages (their k16 steps cut at F rounded
+  to 16), the W_out and c_last stages, o1 parked and c_last W_c added last.
+  Every row and output column covered once, every hidden column once a
+  row, every K index once a product; c_out equals the plain MLP's.
 
 The card's tests check that the C side takes the same tiles
 (``tests/test_torch_cuda.py::TestWgmmaBf16Kernels``).
@@ -109,14 +120,16 @@ def test_reduce_plan_covers_and_sums(ka, nb, bias, sms):
         assert db is None and want_b is None
 
 
-def emulate_conv(x, w, bias, sms: int):
+def emulate_conv(x, w, bias, sms: int, pool: bool = False):
     """y = conv3x3(x, w) + bias as the plan computes it: per block its
     rectangle and channel tile, each tap's box at ``tap_origin``, zeros past
     the image and past Cin, summed over the taps and the ck-channel chunks.
-    Returns y and the coverage count of each output element."""
+    Returns y and the coverage count of each output element; with ``pool``
+    (K7's pooled conv: relu, then the 2x2 max pool of each block's staged
+    tile) also the pooled output and its coverage counts."""
     bsz, h, wd, cin = x.shape
     cout = w.shape[-1]
-    plan = tp.conv_plan(bsz, h, wd, cin, cout, sms)
+    plan = tp.conv_plan(bsz, h, wd, cin, cout, sms, pool)
     tw, th, ck_, bn = plan["tw"], plan["th"], plan["ck"], plan["bn"]
     blocks = [tp.conv_block(plan, cout, i) for i in range(plan["blocks"])]
     assert len({blk for blk in blocks}) == plan["blocks"]
@@ -143,8 +156,12 @@ def emulate_conv(x, w, bias, sms: int):
             sl = slice(c * ck_, (c + 1) * ck_)
             tiles += box[..., sl] @ wp[tap, sl]
     tiles += bias
+    if pool:
+        tiles = np.maximum(tiles, 0)
     y = np.zeros((bsz, h, wd, cout), np.float32)
     cover = np.zeros((bsz, h, wd, cout), np.int32)
+    pooled = np.zeros((bsz, h // 2, wd // 2, cout), np.float32)
+    pcover = np.zeros(pooled.shape, np.int32)
     index = {tuple(r): i for i, r in enumerate(rect)}
     for b_, xx, yy, n0 in blocks:
         t = tiles[index[(b_, xx, yy)]]
@@ -152,6 +169,14 @@ def emulate_conv(x, w, bias, sms: int):
         nn = min(bn, cout - n0)
         y[b_, yy:yy + hh, xx:xx + ww, n0:n0 + nn] = t[:hh, :ww, n0:n0 + nn]
         cover[b_, yy:yy + hh, xx:xx + ww, n0:n0 + nn] += 1
+        if pool:  # the epilogue's windows: pooled pixels inside the image
+            assert th % 2 == 0 and tw % 2 == 0 and xx % 2 == 0 and yy % 2 == 0
+            ph, pw = min(th // 2, h // 2 - yy // 2), min(tw // 2, wd // 2 - xx // 2)
+            win = t[:2 * ph, :2 * pw, n0:n0 + nn].reshape(ph, 2, pw, 2, nn).max((1, 3))
+            pooled[b_, yy // 2:yy // 2 + ph, xx // 2:xx // 2 + pw, n0:n0 + nn] = win
+            pcover[b_, yy // 2:yy // 2 + ph, xx // 2:xx // 2 + pw, n0:n0 + nn] += 1
+    if pool:
+        return y, cover, pooled, pcover
     return y, cover
 
 
@@ -226,3 +251,186 @@ def test_conv_plan_tiles():
     assert (p["tw"], p["th"], p["bn"], p["blocks"]) == (64, 2, 256, 256)
     assert tp.reduce_tile(32, 1024) == (64, 256) and tp.reduce_tile(1024, 32) == (128, 64)
     assert tp.reduce_splits(163840, 512, 1024, SMS) == 8
+
+
+@pytest.mark.parametrize("bsz,h,wd,cin,cout", [
+    (1, h, h, _narrow(c), _narrow(c)) for h, _, c, pool in cs.IMAGE_PAIRS if pool] + [
+    (2, 10, 14, 8, 16), (1, 6, 200, 16, 72), (2, 12, 24, 8, 8)])
+def test_pooled_conv_plan_covers_and_pools(bsz, h, wd, cin, cout):
+    """K7's pooled second conv (Cin = Cout, the pair's C) at the five pooled
+    pairs (2 x 64 rectangles wherever W >= 128, 8 x 16 at 16^2 and so on)
+    and at ragged shapes (W 14: 14 x 8 rectangles past H 10; W 200: a
+    partial last rectangle; W 24: 24 x 4): every output and pooled pixel
+    covered once, the pool the plain version's."""
+    rng = np.random.default_rng(h * wd + cin)
+    x = rng.normal(size=(bsz, h, wd, cin))
+    w = rng.normal(size=(3, 3, cin, cout)) / np.sqrt(9 * cin)
+    bias = rng.normal(size=cout)
+    plan = tp.conv_plan(bsz, h, wd, cin, cout, SMS, pool=True)
+    assert plan["th"] * plan["tw"] <= tp.CONV_PIXELS and plan["th"] % 2 == 0
+    y, cover, pooled, pcover = emulate_conv(x, w, bias, SMS, pool=True)
+    assert (cover == 1).all() and (pcover == 1).all()
+    want_y = ck.conv3x3_plain(*(torch.from_numpy(t).float() for t in (x, w, bias)), True)
+    want_p = torch.nn.functional.max_pool2d(want_y.permute(0, 3, 1, 2), 2).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(y, want_y.numpy(), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(pooled, want_p.numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_pooled_conv_plan_tiles():
+    """The pooled rectangles the C launcher cuts: 2 x 64 at W >= 128, the
+    unpooled plan's below (even heights there)."""
+    for h, _, c, pool in cs.IMAGE_PAIRS:
+        p = tp.conv_plan(8, h, h, c, c, SMS, pool=pool)
+        if pool:
+            assert (p["tw"], p["th"]) == ((64, 2) if h >= 128 else (h, 128 // h))
+            assert p["tw"] % 2 == 0 and p["th"] % 2 == 0
+        q = tp.conv_plan(8, h, h, c, c, SMS)
+        if h < 128:
+            assert (q["tw"], q["th"]) == (p["tw"], p["th"])
+
+
+def emulate_level(s, c_last, weights, mask, f: int, fl: int):
+    """c_out of K4 bf16's plan in float64 without its roundings, on one batch
+    entry: s (N, F) the sample, c_last (N, Fl), weights as the wrapper
+    passes them, mask (N,). Each block's two warpgroups walk the tiles of
+    ``tile_plan.level_tiles`` in order: a chunk's hidden tile is written
+    after its last W_in tile, and a W_out tile must find its chunk in the
+    tile; o1 is parked at the first c_last tile. Returns c_out and the coverage
+    counts of c_out, of the hidden columns (a row) and of the K indices of
+    the three products (a row and output column's sum)."""
+    p = tp.level_plan(f, fl)
+    n = s.shape[0]
+    fp, bm, hc, on, ki, ko = (p[k] for k in ("fp", "bm", "hc", "on", "ki", "ko"))
+    f16 = -(-f // 16) * 16
+    w_in, b_in, w_out, b_out, w_c, b_c = weights
+    nb = -(-n // bm)
+    # zeros where the TMA zero-fills or the sample is zero
+    sp = np.zeros((nb * bm, fp))
+    sp[:n, :f] = s
+    cp = np.zeros((nb * bm, p["n_c"] * ko))
+    cp[:n, :fl] = c_last
+    wi = np.zeros((p["n_in"] * ki, p["n_h"] * hc))
+    wi[:f, :2 * f] = w_in
+    wo = np.zeros((p["n_h"] * hc, fp))
+    wo[:2 * f, :f] = w_out
+    wc = np.zeros((p["n_c"] * ko, fp))
+    wc[:fl, :f] = w_c
+    bi = np.zeros(p["n_h"] * hc)
+    bi[:2 * f] = b_in
+    pad = lambda v: np.pad(v, (0, fp - f))  # noqa: E731
+    bo, bc = pad(b_out), pad(b_c)
+    out = np.zeros((n, f))
+    cover = np.zeros((n, f), int)
+    hcover = np.zeros((n, 2 * f), int)
+    kcover = {"in": np.zeros(f, int), "out": np.zeros(2 * f, int), "c": np.zeros(fl, int)}
+    tiles = tp.level_tiles(p)
+    for blk in range(nb):
+        i0 = blk * bm
+        # per warpgroup: its rows, o columns and chunk columns
+        wgs = [(slice(i0 + (0 if p["cols"] else 64 * w), i0 + (0 if p["cols"] else 64 * w) + 64),
+                slice(on * w if p["cols"] else 0, (on * w if p["cols"] else 0) + on),
+                64 * w if p["cols"] else 0) for w in (0, 1)]
+        hacc = [np.zeros((64, p["hn"])) for _ in wgs]
+        buf = [None for _ in wgs]  # (chunk, its part of the hidden tile)
+        o = [np.zeros((64, on)) for _ in wgs]
+        o1 = [None for _ in wgs]
+
+        def tile_done(w, c):  # chunk c's part -> the hidden tile
+            rows, _, hc0 = wgs[w]
+            cols = slice(c * hc + hc0, c * hc + hc0 + p["hn"])
+            h = np.maximum(hacc[w] + bi[cols], 0)
+            h[:, np.arange(cols.start, cols.stop) >= 2 * f] = 0
+            for r in range(rows.start, min(rows.stop, n)):
+                hcover[r, cols.start:min(cols.stop, 2 * f)] += 1
+            buf[w] = (c, h)
+            hacc[w] = np.zeros((64, p["hn"]))
+
+        for t, (kind, c, v) in enumerate(tiles):
+            for w, (rows, oc, hc0) in enumerate(wgs):
+                first = blk == 0 and w == 0
+                if kind == "in":
+                    cols = slice(c * hc + hc0, c * hc + hc0 + p["hn"])
+                    for kk in range(min(ki, f16 - v * ki) // 16):
+                        k = slice(v * ki + 16 * kk, v * ki + 16 * kk + 16)
+                        hacc[w] += sp[rows, k] @ wi[k, cols]
+                        if first and c == 0:
+                            kcover["in"][k.start:min(k.stop, f)] += 1
+                    if v == p["n_in"] - 1:
+                        tile_done(w, c)
+                elif kind == "out":
+                    # the chunk's tile: both halves at F = 512, the own one below
+                    parts = [buf[x] for x in ((0, 1) if p["cols"] else (w,))]
+                    assert all(part is not None and part[0] == c for part in parts)
+                    h = np.concatenate([part[1] for part in parts], 1)
+                    kr = slice(v * ko, v * ko + ko)
+                    o[w] += h[:, kr] @ wo[c * hc + kr.start:c * hc + kr.stop, oc]
+                    if first:
+                        lo = c * hc + kr.start
+                        kcover["out"][lo:max(lo, min(lo + ko, 2 * f))] += 1
+                else:
+                    if v == 0:  # park o1, then o takes c_last W_c
+                        o1[w], o[w] = o[w] + bo[oc], np.zeros((64, on))
+                    k = slice(v * ko, v * ko + ko)
+                    o[w] += cp[rows, k] @ wc[k, oc]
+                    if first:
+                        kcover["c"][k.start:min(k.stop, fl)] += 1
+        for w, (rows, oc, _) in enumerate(wgs):
+            res = o1[w] + o[w] + bc[oc]
+            lo, hi = rows.start, min(rows.stop, n)
+            ncol = max(0, min(oc.stop, f) - oc.start)
+            if hi > lo and ncol:
+                out[lo:hi, oc.start:oc.start + ncol] = res[:hi - lo, :ncol]
+                cover[lo:hi, oc.start:oc.start + ncol] += 1
+    out[~mask] = 0
+    return out, cover, hcover, kcover
+
+
+def _level_cases():
+    seen = [(f, fl) for _, f, fl in cs.LEVEL_SHAPES]
+    return list(dict.fromkeys(seen)) + [(512, 1024), (256, 1024), (8, 8), (24, 600),
+                                        (200, 40), (64, 4 * 8)]
+
+
+@pytest.mark.parametrize("f,fl", _level_cases())
+def test_level_plan_covers_and_sums(f, fl):
+    """K4 bf16's plan at every flagship level, at Fl = 1024 (the depth-6 up
+    level) and at ragged widths (F 8 and 24: the last k16 step of the
+    sample half past F; F 200: a cut W_in stage; Fl 600: a ragged c_last
+    box), on 300
+    rows (a ragged last block) with padding rows."""
+    rng = np.random.default_rng(f + fl)
+    n = 300
+    s = rng.normal(size=(n, f))
+    c_last = rng.normal(size=(n, fl))
+    weights = (rng.normal(size=(f, 2 * f)) / np.sqrt(f), rng.normal(size=2 * f),
+               rng.normal(size=(2 * f, f)) / np.sqrt(2 * f), rng.normal(size=f),
+               rng.normal(size=(fl, f)) / np.sqrt(fl), rng.normal(size=f))
+    mask = rng.random(n) > 0.2
+    out, cover, hcover, kcover = emulate_level(s, c_last, weights, mask, f, fl)
+    assert (cover == 1).all() and (hcover == 1).all()
+    assert all((k == 1).all() for k in kcover.values())
+    w_in, b_in, w_out, b_out, w_c, b_c = weights
+    want = np.maximum(s @ w_in + b_in, 0) @ w_out + b_out + c_last @ w_c + b_c
+    np.testing.assert_allclose(out, np.where(mask[:, None], want, 0), rtol=1e-12, atol=1e-10)
+
+
+def test_level_plan_tiles():
+    """The plan's classes: 128 rows a block up to F = 256, 64 at F = 512
+    (o's columns split); the ring's stages fit the shared memory the C
+    config asserts; the tile order takes every tile once, a chunk's W_in
+    tiles before its W_out tiles."""
+    assert [tp.level_plan(f, 64)["bm"] for f in (8, 32, 64, 128, 256, 512)] == [128] * 5 + [64]
+    p = tp.level_plan(512, 256)
+    assert p["cols"] and (p["on"], p["hc"], p["n_h"], p["n_in"], p["n_out"], p["n_c"]) == \
+        (256, 128, 8, 4, 4, 8)
+    for f in (64, 128, 256, 512):
+        q = tp.level_plan(f, 64)
+        stage = q["bm"] * q["ko"] * 2 + max(q["ki"] * q["hc"] * 2, q["ko"] * q["fp"] * 2)
+        smem = 1024 + q["bm"] * q["fp"] * 2 + 16 * 1024 + q["stages"] * stage
+        assert smem + 4096 <= 232448 // (2 if f == 64 else 1)
+    tiles = tp.level_tiles(p)
+    assert len(tiles) == len(set(tiles)) == p["n_h"] * (p["n_in"] + p["n_out"]) + p["n_c"]
+    assert tiles[:12] == ([("in", 0, v) for v in range(4)] + [("out", 0, v) for v in range(4)]
+                          + [("in", 1, v) for v in range(4)])
+    with pytest.raises(ValueError):
+        tp.level_plan(520, 8)

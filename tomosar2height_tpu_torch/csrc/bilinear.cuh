@@ -1,5 +1,6 @@
 // The bilinear sample's corner math, shared by the level kernels (K4
-// level.cu, K5 level_bwd.cu) and the tile gather (K9 tile_gather.cu):
+// level.cu and level_bf16.cu, K5 level_bwd.cu) and the tile gather (K9
+// tile_gather.cu):
 // grid_sample on an R x R plane with the border clamp and align_corners=True
 // (tomosar2height_tpu_torch/ops/sampling.py). A normalized coordinate u in
 // [0, 1] maps to pixel u * (R - 1), clamped to the plane; the +1 neighbour of

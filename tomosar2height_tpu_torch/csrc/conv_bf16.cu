@@ -1,20 +1,31 @@
-// K8 in bf16: one 3x3 SAME convolution + f32 bias (+ReLU), NHWC x HWIO ->
-// NHWC, bf16 x, kernel and y: the Hopper version of _conv_kernel in
+// K8 and K7 in bf16 on one pipeline: a 3x3 SAME convolution + f32 bias
+// (+ReLU), NHWC x HWIO -> NHWC, bf16 x, kernel and y, with an optional 2x2
+// max pool of y in its epilogue. The Hopper version of _conv_kernel in
 // tomosar2height_tpu/ops/pallas/conv_kernel.py:43 (launched by _conv_impl)
 // on bf16 operands (:57-73: the bf16 products summed in f32 onto the bias,
 // the ReLU, one rounding to bf16), which runs every Conv3x3 of a bf16 model
-// under FAST_CONV.
+// under FAST_CONV (t2h_conv3x3_bf16), and of _pair_kernel in
+// tomosar2height_tpu/ops/pallas/convpair_kernel.py:36 with bf16 x (:99,
+// 122-142), which opens every ALTO and image U-Net level under fused_convs
+// (t2h_conv_pair_bf16: two launches, relu(conv1) rounded to bf16 into the
+// wrapper's scratch and read back by conv2, whose SAME padding stays 0 and
+// not relu(b1); the biases rounded to bf16 and added in f32; the five
+// pooled pairs pool in conv2's epilogue).
 //
 // Bound on the H100: the MACs, 9 Cin Cout a pixel: 2.24 TFLOP for the 43
 // convs of a batch-8 fusion forward, 2.26 ms at 989 TFLOP/s (bf16 dense);
-// the bytes (x and the weights read once, y written once) weigh less except
-// at the 512^2 convs with 32-64 channels. The design, an implicit GEMM
-// (M = pixels, N = Cout, K = 9 Cin) on warpgroup products fed by the TMA:
+// 1.54 TFLOP, 1.56 ms, for its 20 pairs; the bytes (x and the weights read
+// once, y written once) weigh less except at the 512^2 convs with 32-64
+// channels. The design, an implicit GEMM (M = pixels, N = Cout, K = 9 Cin)
+// on warpgroup products fed by the TMA:
 //
 // - Tiles: a block owns 128 output pixels, a TH x TW rectangle of one image
 //   (TW = min(W, 128), TH = 128 / TW: 1 x 128 at 512^2, 8 x 16 at 16^2), by
 //   BN = 64, 128 or 256 output channels (256 where Cout >= 256 still gives
-//   a block an SM). Two consumer warpgroups own 64 pixels each.
+//   a block an SM). Two consumer warpgroups own 64 pixels each. With the
+//   pool the rectangle has an even height at an even row, so that it holds
+//   whole 2x2 windows: TW = min(W, 64), TH = 128 / TW rounded down to even
+//   (2 x 64 wherever W >= 128; the same as unpooled below W = 128).
 // - A operand: per K step (tap, CK-channel chunk), one TMA load of the 4-D
 //   box (CK, TW, TH, 1) of the NHWC input at (c0, x0 + dx - 1, y0 + dy - 1,
 //   b): the TMA zero-fills what lies outside the image (the SAME padding)
@@ -31,17 +42,21 @@
 // - Epilogue: bias + ReLU in f32 in registers and one rounding to bf16,
 //   into the ring as 64-channel boxes in the 128-byte swizzle (conflict-free
 //   stores), then TMA stores of the (64, TW, TH, 1) boxes (writes past the
-//   image or Cout dropped).
+//   image or Cout dropped). The pool reads the same staged boxes while the
+//   TMA stores them: a thread a pooled pixel and 8 channels takes the max
+//   of the four bf16-rounded values (the max of the rounded y, as JAX pools
+//   its bf16 y; rounding is monotone) and stores 16 bytes.
 // - Numerics: each wgmma adds its 16 products into the running f32 sum; a
 //   chain is 9 Cin / 16 adds (576 at Cin 1024), far below what reaches the
 //   one bf16 rounding. Each output is written once: bit-equal run to run.
 //
 // Cin or Cout not a multiple of 8 (the image U-Net's first conv, Cin = 3: a
 // 6-byte pixel pitch, which the TMA cannot take; it wants 16-byte strides)
-// or x, w, y not 16-byte aligned: the conv core's bf16 flat-K path instead
-// (igemm_conv.cuh conv3x3_igemm on mma.sync), chosen by shape here. The
-// host plan (the route, the rectangles, each tap's box origin, BN) is
-// mirrored by ops/cuda/tile_plan.py, which tests/test_torch_tile_plan.py
+// or x, w, y (or the pooled output) not 16-byte aligned: the conv core's
+// bf16 flat-K path instead (igemm_conv.cuh conv3x3_igemm on mma.sync, with
+// its own pool), chosen by shape here, conv by conv. The host plan (the
+// route, the rectangles, each tap's box origin, BN, the pooled rectangles)
+// is mirrored by ops/cuda/tile_plan.py, which tests/test_torch_tile_plan.py
 // emulates.
 
 #include "igemm_conv.cuh"
@@ -55,14 +70,19 @@ struct ConvPlan {
   int tw, th, tiles_x, tiles_y, rects, ck, bn;
 };
 
-inline bool conv_wgmma_route(int Cin, int Cout, const void* x, const void* w, const void* y) {
-  return Cin % 8 == 0 && Cout % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(y);
+inline bool conv_wgmma_route(int Cin, int Cout, const void* x, const void* w, const void* y,
+                             const void* pooled) {
+  return Cin % 8 == 0 && Cout % 8 == 0 && aligned16(x) && aligned16(w) && aligned16(y) &&
+         aligned16(pooled);
 }
 
-inline ConvPlan conv_plan(int B, int H, int W, int Cin, int Cout) {
+// pool: rectangles of whole 2x2 windows (even TW, TH and origins; W even)
+inline ConvPlan conv_plan(int B, int H, int W, int Cin, int Cout, bool pool) {
   ConvPlan p;
-  p.tw = W < kPix ? W : kPix;
+  const int wmax = pool ? kPix / 2 : kPix;
+  p.tw = W < wmax ? W : wmax;
   p.th = kPix / p.tw;
+  if (pool) p.th &= ~1;
   p.tiles_x = (W + p.tw - 1) / p.tw;
   p.tiles_y = (H + p.th - 1) / p.th;
   p.rects = B * p.tiles_y * p.tiles_x;
@@ -92,8 +112,9 @@ struct ConvCfg {
 template <int CK, int BN>
 __global__ void __launch_bounds__(ConvCfg<CK, BN>::kThreads, ConvCfg<CK, BN>::kMinBlocks)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
-              const __grid_constant__ CUtensorMap map_y, const float* __restrict__ bias, int Cin,
-              int Cout, int tw, int th, int tiles_x, int tiles_y, bool relu) {
+              const __grid_constant__ CUtensorMap map_y, const float* __restrict__ bias,
+              bf16* __restrict__ pooled, int H, int W, int Cin, int Cout, int tw, int th,
+              int tiles_x, int tiles_y, bool relu) {
   using C = ConvCfg<CK, BN>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -191,14 +212,49 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
   if (tid == 0) {
     for (int i = 0; i < C::kBBoxes && n0 + 64 * i < Cout; ++i)
       tma_store_4d(&map_y, ring + i * C::kOutBox, n0 + 64 * i, x0, y0, b);
-    tma_store_drain();
+    tma_store_commit();
   }
+  if (pooled != nullptr) {
+    // the 2x2 max pool from the staged boxes: pooled pixel (py, px) of the
+    // rectangle is the max of its pixels 2py tw + 2px, + 1, + tw, + tw + 1;
+    // a thread a pooled pixel and a 16-byte chunk of 8 channels (Cout % 8
+    // == 0 on this route, so a chunk lies wholly inside or past Cout)
+    const int pw = tw / 2, ph = th / 2, hp = H / 2, wp = W / 2;
+    constexpr int kChunks = BN / 8;
+    for (int e = tid; e < ph * pw * kChunks; e += C::kConsumers) {
+      const int q = e / kChunks, cj = e - q * kChunks;
+      const int py = q / pw, px = q - py * pw;
+      const int gy = y0 / 2 + py, gx = x0 / 2 + px, n = n0 + 8 * cj;
+      if (gy >= hp || gx >= wp || n >= Cout) continue;
+      const uint8_t* box = ring + (cj / 8) * C::kOutBox;
+      const int j = cj % 8, p = 2 * py * tw + 2 * px;
+      uint4 v[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int pc = p + (c & 1) + (c >> 1) * tw;
+        v[c] = *reinterpret_cast<const uint4*>(box + pc * 128 + ((j ^ (pc % 8)) << 4));
+      }
+      uint4 m;
+      uint32_t* mo = reinterpret_cast<uint32_t*>(&m);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const __nv_bfloat162 a = __hmax2(reinterpret_cast<const __nv_bfloat162*>(&v[0])[k],
+                                         reinterpret_cast<const __nv_bfloat162*>(&v[1])[k]);
+        const __nv_bfloat162 c = __hmax2(reinterpret_cast<const __nv_bfloat162*>(&v[2])[k],
+                                         reinterpret_cast<const __nv_bfloat162*>(&v[3])[k]);
+        const __nv_bfloat162 r = __hmax2(a, c);
+        mo[k] = *reinterpret_cast<const uint32_t*>(&r);
+      }
+      *reinterpret_cast<uint4*>(pooled + (((long long)b * hp + gy) * wp + gx) * Cout + n) = m;
+    }
+  }
+  if (tid == 0) tma_store_wait_read();
 }
 
 template <int CK, int BN>
 cudaError_t launch_conv_wgmma(const bf16* x, const bf16* w, const float* bias, bf16* y,
-                              const ConvPlan& p, int B, int H, int W, int Cin, int Cout,
-                              bool relu, cudaStream_t stream) {
+                              bf16* pooled, const ConvPlan& p, int B, int H, int W, int Cin,
+                              int Cout, bool relu, cudaStream_t stream) {
   using C = ConvCfg<CK, BN>;
   CUtensorMap map_x, map_w, map_y;
   const uint64_t cin = Cin, cout = Cout;
@@ -219,8 +275,29 @@ cudaError_t launch_conv_wgmma(const bf16* x, const bf16* w, const float* bias, b
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)p.rects * ((Cout + BN - 1) / BN);
   conv3x3_wgmma<CK, BN><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(
-      map_x, map_w, map_y, bias, Cin, Cout, p.tw, p.th, p.tiles_x, p.tiles_y, relu);
+      map_x, map_w, map_y, bias, pooled, H, W, Cin, Cout, p.tw, p.th, p.tiles_x, p.tiles_y,
+      relu);
   return cudaGetLastError();
+}
+
+// y = act(conv3x3(x, w) + bias), one rounding, and its 2x2 max pool into
+// pooled where that is not null (after the ReLU; H, W even): Cin and Cout
+// multiples of 8 with 16-byte aligned tensors on conv3x3_wgmma, any other
+// on the conv core's flat-K path.
+inline cudaError_t conv3x3_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y,
+                                bf16* pooled, int B, int H, int W, int Cin, int Cout, bool relu,
+                                cudaStream_t stream) {
+  if ((long long)B * H * W * Cout == 0) return cudaSuccess;
+  if (pooled != nullptr && (!relu || H % 2 || W % 2)) return cudaErrorInvalidValue;
+  if (!conv_wgmma_route(Cin, Cout, x, w, y, pooled))
+    return conv3x3_bias(x, w, bias, y, pooled, B, H, W, Cin, Cout, relu, stream);
+  const ConvPlan p = conv_plan(B, H, W, Cin, Cout, pooled != nullptr);
+#define T2H_CONV(CK, BN) \
+  launch_conv_wgmma<CK, BN>(x, w, bias, y, pooled, p, B, H, W, Cin, Cout, relu, stream)
+  if (p.ck == 32)
+    return p.bn == 64 ? T2H_CONV(32, 64) : p.bn == 128 ? T2H_CONV(32, 128) : T2H_CONV(32, 256);
+  return p.bn == 64 ? T2H_CONV(64, 64) : p.bn == 128 ? T2H_CONV(64, 128) : T2H_CONV(64, 256);
+#undef T2H_CONV
 }
 
 }  // namespace t2h
@@ -230,26 +307,26 @@ using namespace t2h;
 extern "C" {
 
 // x (B,H,W,Cin) NHWC, w (3,3,Cin,Cout) HWIO, y (B,H,W,Cout) in bf16, bias
-// (Cout) fp32: y = act(conv3x3(x, w) + bias), one rounding. Cin and Cout
-// multiples of 8 with 16-byte aligned tensors take conv3x3_wgmma, any other
-// the conv core's flat-K path.
+// (Cout) fp32: y = act(conv3x3(x, w) + bias), one rounding (K8).
 int t2h_conv3x3_bf16(const bf16* x, const bf16* w, const float* bias, bf16* y, int B, int H,
                      int W, int Cin, int Cout, int relu, cudaStream_t stream) {
-  if ((long long)B * H * W * Cout == 0) return 0;
-  if (!conv_wgmma_route(Cin, Cout, x, w, y))
-    return static_cast<int>(
-        conv3x3_bias(x, w, bias, y, nullptr, B, H, W, Cin, Cout, relu != 0, stream));
-  const ConvPlan p = conv_plan(B, H, W, Cin, Cout);
-  cudaError_t err;
-#define T2H_CONV(CK, BN) \
-  launch_conv_wgmma<CK, BN>(x, w, bias, y, p, B, H, W, Cin, Cout, relu != 0, stream)
-  if (p.ck == 32) {
-    err = p.bn == 64 ? T2H_CONV(32, 64) : p.bn == 128 ? T2H_CONV(32, 128) : T2H_CONV(32, 256);
-  } else {
-    err = p.bn == 64 ? T2H_CONV(64, 64) : p.bn == 128 ? T2H_CONV(64, 128) : T2H_CONV(64, 256);
-  }
-#undef T2H_CONV
-  return static_cast<int>(err);
+  return static_cast<int>(
+      conv3x3_bf16(x, w, bias, y, nullptr, B, H, W, Cin, Cout, relu != 0, stream));
+}
+
+// K7: x (B,H,W,Cin) NHWC; w1 (3,3,Cin,C1), w2 (3,3,C1,C2) HWIO; mid
+// (B,H,W,C1) scratch -> y (B,H,W,C2) and, when pooled is not null, pooled
+// (B,H/2,W/2,C2) (H, W even), all bf16; b1, b2 fp32 (bf16-rounded):
+// y = relu(conv3x3(relu(conv3x3(x, w1) + b1), w2) + b2), each conv's output
+// rounded to bf16 once; each conv takes its own route.
+int t2h_conv_pair_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                       const float* b2, bf16* mid, bf16* y, bf16* pooled, int B, int H, int W,
+                       int Cin, int C1, int C2, cudaStream_t stream) {
+  if ((long long)B * H * W * C2 == 0) return 0;
+  if (pooled != nullptr && (H % 2 || W % 2)) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = conv3x3_bf16(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, true, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(conv3x3_bf16(mid, w2, b2, y, pooled, B, H, W, C1, C2, true, stream));
 }
 
 }  // extern "C"

@@ -2,9 +2,9 @@
 // GEMM on the tensor cores at fp32 accuracy (3xTF32 mma.sync, mma_tf32x3.cuh),
 // with an optional 2x2 max pool (after a ReLU) or the conv decoder's 1x1 head
 // in its epilogue. The conv core of the port: K6 (decoder.cu), K7
-// (convpair.cu) and K8 (conv.cu) run their 3x3 convs on it; K8 in bf16 runs
-// on conv_bf16.cu's wgmma kernel instead, but for Cin or Cout not a
-// multiple of 8 (the image U-Net's Cin = 3 conv), which stays here.
+// (convpair.cu) and K8 (conv.cu) run their 3x3 convs on it; K7 and K8 in
+// bf16 run on conv_bf16.cu's wgmma kernel instead, but for Cin or Cout not
+// a multiple of 8 (the image U-Net's Cin = 3 conv), which stays here.
 //
 // The GEMM: M = output pixels (B*H*W), N = output channels, K = 9 * Cin,
 // walked tap by tap in kCBK-channel steps (tap-major, then channel: HWIO's

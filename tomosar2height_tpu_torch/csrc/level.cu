@@ -33,15 +33,8 @@
 // eight levels (the 32^2 level with F=512 alone 1.2M), three TF32 products
 // each; the plane traffic is small beside it. 64 rows a block halve the
 // weight reads from L2 of a 32-row block (4.5 MB a block at F = 512).
-// bf16 (fused_level_fwd<bf16>, t2h_fused_level_bf16): bf16 plane, c_last and
-// weights, the same blocks, ring and warp layout, its tiles in bf16 and the
-// products one bf16 mma.sync pass into f32 (mma_bf16.cuh); the JAX kernel's
-// rounding points (level_kernel.py:234-258): the sample's four weights cut
-// to bf16, the sample summed in f32 and rounded (bilinear.cuh); h =
-// relu(bf16(bf16(s W_in) + b_in)); c_last W_c rounded to bf16 and parked in
-// c_out (each thread its own elements) while acc takes h W_out; then o =
-// bf16(h W_out) + b_out, + the parked value, + b_c, each add rounded. Its
-// plane: t2h_scatter_runs_bf16. Half the shared memory and operand bytes.
+// The bf16 instance, t2h_fused_level_bf16, is csrc/level_bf16.cu (TMA-fed
+// wgmma).
 //
 // Shared memory: 211 KiB at F = 512 (a 2-slot ring), 136 KiB at F = 256,
 // 104 KiB at F = 128 (one block an SM), 88 KiB at F = 64 (two blocks of 8
@@ -52,7 +45,7 @@
 // the shared memory at F = 512 beside the 64-row sample.
 
 #include "bilinear.cuh"
-#include "mma_bf16.cuh"
+#include "mma_tf32x3.cuh"
 
 namespace t2h {
 
@@ -70,10 +63,7 @@ constexpr int kHC = 64;   // hidden columns per chunk
 //   spilled).
 // Warps are 2 row halves x kWQ column groups, of o and of the hidden chunk
 // alike.
-// T = bf16 keeps the layout with bf16 tiles: strides of 8 (mod 64) elements,
-// so that the eight 16-byte rows an ldmatrix phase reads fall in eight bank
-// groups.
-template <typename T, int FP>
+template <int FP>
 struct LevelCfg {
   static constexpr int kT = FP == 128 || FP == 512 ? 512 : 256;
   static constexpr int kWQ = kT / 64;
@@ -83,7 +73,7 @@ struct LevelCfg {
   static constexpr int kNT1 = kWH / 8;
   static constexpr int kKS1 = FP >= 64 ? 64 : 32;   // w_in tile rows (<= FP: As's width)
   static constexpr int kKS2 = FP >= 256 ? 16 : 32;  // w_out/w_c tile rows
-  static constexpr int kPadA = kIsBf16<T> ? 8 : 4;
+  static constexpr int kPadA = 4;
   static constexpr int kLdA = FP + kPadA;   // A buffer (c_last chunk, then the sample)
   static constexpr int kLdH = kHC + kPadA;  // hidden chunk
   static constexpr int kLdW1 = kHC + 8;   // w_in tile
@@ -92,43 +82,23 @@ struct LevelCfg {
   static constexpr int kStages = FP >= 512 ? 2 : 3;
   static constexpr int kMinBlocks = FP >= 128 ? 1 : 2;
   static constexpr size_t kSmem =
-      sizeof(T) * ((size_t)kBM * kLdA + (size_t)kBM * kLdH + (size_t)kStages * kSlot);
+      sizeof(float) * ((size_t)kBM * kLdA + (size_t)kBM * kLdH + (size_t)kStages * kSlot);
   static_assert(kKS1 <= FP && kKS2 <= FP && FP % kKS2 == 0 && kHC % kKS2 == 0,
                 "tiles must not reach past the A buffer or a K-chunk");
 };
 
-// A warp's o fragment (rows wm.., columns wq * kWN..) rounded to T ->
-// c_out, on the rows and columns that exist; with zero, acc is then cleared.
-template <typename C, typename T, int NT>
-__device__ __forceinline__ void stash_o(float (&acc)[2][NT][4], T* __restrict__ c_out,
-                                        long long row_b, int rows, int F, int wm, int wq, int g,
-                                        int q, bool zero) {
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = wm + mt * 16 + g + (i >> 1) * 8;
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
-        if (r < rows && n < F) c_out[(row_b + r) * F + n] = from_f32<T>(acc[mt][nt][i]);
-        if (zero) acc[mt][nt][i] = 0.0f;
-      }
-    }
-}
-
-template <typename T, int FP>
-__global__ void __launch_bounds__(LevelCfg<T, FP>::kT, LevelCfg<T, FP>::kMinBlocks)
-fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
+template <int FP>
+__global__ void __launch_bounds__(LevelCfg<FP>::kT, LevelCfg<FP>::kMinBlocks)
+fused_level_fwd(const float* __restrict__ plane, const float* __restrict__ clast,
                 const float* __restrict__ xy, const uint8_t* __restrict__ mask,
-                const T* __restrict__ w_in, const T* __restrict__ b_in,
-                const T* __restrict__ w_out, const T* __restrict__ b_out,
-                const T* __restrict__ w_c, const T* __restrict__ b_c,
-                T* __restrict__ c_out, int N, int R, int F, int Fl, bool vec_w,
+                const float* __restrict__ w_in, const float* __restrict__ b_in,
+                const float* __restrict__ w_out, const float* __restrict__ b_out,
+                const float* __restrict__ w_c, const float* __restrict__ b_c,
+                float* __restrict__ c_out, int N, int R, int F, int Fl, bool vec_w,
                 bool vec_c) {
-  using C = LevelCfg<T, FP>;
-  constexpr bool kBf = kIsBf16<T>;
-  constexpr int kV = 16 / sizeof(T);  // elements of a 16-byte copy
+  using C = LevelCfg<FP>;
+  using T = float;
+  constexpr int kV = 4;  // elements of a 16-byte copy
   extern __shared__ float4 smem4[];
   T* As = reinterpret_cast<T*>(smem4);  // [kBM][kLdA]: c_last chunk, then s
   T* Hs = As + kBM * C::kLdA;           // [kBM][kLdH]: a hidden chunk
@@ -168,7 +138,7 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
   const long long row_b = (long long)b * N + i0;
   const int rows = min(kBM, N - i0);
   if (!s_any) {  // all 64 rows are padding: c_out is exactly 0 there
-    for (int e = tid; e < rows * F; e += C::kT) c_out[row_b * F + e] = from_f32<T>(0.0f);
+    for (int e = tid; e < rows * F; e += C::kT) c_out[row_b * F + e] = 0.0f;
     return;
   }
 
@@ -227,8 +197,7 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
           for (int e = tid; e < kBM * FP; e += C::kT) {
             const int r = e / FP;
             const int cc = e - r * FP;
-            As[r * C::kLdA + cc] =
-                r < rows && k + cc < Fl ? clast[(row_b + r) * Fl + k + cc] : from_f32<T>(0.0f);
+            As[r * C::kLdA + cc] = r < rows && k + cc < Fl ? clast[(row_b + r) * Fl + k + cc] : 0.0f;
           }
         }
       }
@@ -241,20 +210,14 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
         off = v * C::kKS1;
         if (v == 0) {
           if (c == 0) {
-            if constexpr (kBf) {
-              // bf16: c_last W_c, rounded, waits in c_out (each thread its
-              // own elements, read back in the epilogue) while acc takes h W_out
-              stash_o<C>(acc, c_out, row_b, rows, F, wm, wq, g, q, true);
-            }
             // the bilinear sample -> As (zeros past F)
             __syncthreads();
             const T* pl = plane + (long long)b * RR * F;
             for (int e = tid; e < kBM * FP; e += C::kT) {
               const int r = e / FP;
               const int cc = e - r * FP;
-              As[r * C::kLdA + cc] = from_f32<T>(cc < F && r < rows && s_valid[r]
-                                                     ? bilinear_at(pl, s_corner[r], R, F, cc)
-                                                     : 0.0f);
+              As[r * C::kLdA + cc] =
+                  cc < F && r < rows && s_valid[r] ? bilinear_at(pl, s_corner[r], R, F, cc) : 0.0f;
             }
           }
 #pragma unroll
@@ -274,12 +237,11 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
     issue(t + C::kStages - 1);
     const T* W = ring + (t % C::kStages) * C::kSlot;
     if (kind == 0) {
-      warp_mma_t<C::kKS2, C::kNT>(acc, As + off, C::kLdA, W, C::kLdW2, wm, wq * C::kWN, lane);
+      warp_mma<C::kKS2, C::kNT>(acc, As + off, C::kLdA, W, C::kLdW2, wm, wq * C::kWN, lane);
     } else if (kind == 2) {
-      warp_mma_t<C::kKS2, C::kNT>(acc, Hs + off, C::kLdH, W, C::kLdW2, wm, wq * C::kWN, lane);
+      warp_mma<C::kKS2, C::kNT>(acc, Hs + off, C::kLdH, W, C::kLdW2, wm, wq * C::kWN, lane);
     } else {
-      warp_mma_t<C::kKS1, C::kNT1>(hacc, As + off, C::kLdA, W, C::kLdW1, wm, wq * C::kWH,
-                                   lane);
+      warp_mma<C::kKS1, C::kNT1>(hacc, As + off, C::kLdA, W, C::kLdW1, wm, wq * C::kWH, lane);
       if (v == n1 - 1) {  // h chunk c = relu(. + b_in) -> Hs (0 past 2F)
 #pragma unroll
         for (int mt = 0; mt < 2; ++mt)
@@ -290,10 +252,8 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
               const int r = wm + mt * 16 + g + (i >> 1) * 8;
               const int col = wq * C::kWH + nt * 8 + 2 * q + (i & 1);
               const int n = c * kHC + col;
-              // bf16: the product rounded, then the bias add rounded
-              const float pre =
-                  n < H ? round_as<T>(round_as<T>(hacc[mt][nt][i]) + to_f32(b_in[n])) : 0.0f;
-              Hs[r * C::kLdH + col] = from_f32<T>(fmaxf(pre, 0.0f));
+              const float pre = n < H ? hacc[mt][nt][i] + b_in[n] : 0.0f;
+              Hs[r * C::kLdH + col] = fmaxf(pre, 0.0f);
             }
       }
     }
@@ -301,9 +261,7 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
   cp_async_wait<0>();
 
   // --- o + b_out + b_c (0 on padding rows) -> c_out ----------------------------
-  // f32: acc holds c_last W_c + h W_out. bf16, in JAX's order: o = (h W_out)
-  // rounded, + b_out rounded; + (c_last W_c) from the stash, rounded; + b_c
-  // rounded.
+  // acc holds c_last W_c + h W_out.
 #pragma unroll
   for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
@@ -311,57 +269,50 @@ fused_level_fwd(const T* __restrict__ plane, const T* __restrict__ clast,
       const int r = wm + mt * 16 + g + (i >> 1) * 8;
       if (r >= rows) continue;
       const bool valid = s_valid[r] != 0;
-      T* crow = c_out + (row_b + r) * F;
+      float* crow = c_out + (row_b + r) * F;
 #pragma unroll
       for (int nt = 0; nt < C::kNT; ++nt) {
         const int n = wq * C::kWN + nt * 8 + 2 * q + (i & 1);
         if (n >= F) continue;
-        float o;
-        if constexpr (kBf) {
-          o = round_as<T>(round_as<T>(acc[mt][nt][i]) + to_f32(b_out[n]));
-          o = round_as<T>(o + to_f32(crow[n]));
-          o = o + to_f32(b_c[n]);
-        } else {
-          o = acc[mt][nt][i] + b_out[n] + b_c[n];
-        }
-        crow[n] = from_f32<T>(valid ? o : 0.0f);
+        const float o = acc[mt][nt][i] + b_out[n] + b_c[n];
+        crow[n] = valid ? o : 0.0f;
       }
     }
 }
 
-template <typename T, int FP>
-cudaError_t launch_level(const T* plane, const T* clast, const float* xy, const uint8_t* mask,
-                         const T* w_in, const T* b_in, const T* w_out, const T* b_out,
-                         const T* w_c, const T* b_c, T* c_out, int B, int N, int R, int F,
-                         int Fl, cudaStream_t stream) {
-  using C = LevelCfg<T, FP>;
+template <int FP>
+cudaError_t launch_level(const float* plane, const float* clast, const float* xy,
+                         const uint8_t* mask, const float* w_in, const float* b_in,
+                         const float* w_out, const float* b_out, const float* w_c,
+                         const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
+                         cudaStream_t stream) {
+  using C = LevelCfg<FP>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_level_fwd<T, FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_level_fwd<FP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(C::kSmem));
   if (err != cudaSuccess) return err;
-  constexpr int kV = 16 / sizeof(T);
+  constexpr int kV = 4;
   const bool vec_w = F % kV == 0 && aligned16(w_in) && aligned16(w_out) && aligned16(w_c);
   const bool vec_c = Fl % kV == 0 && aligned16(clast);
   const dim3 grid((N + kBM - 1) / kBM, B);
-  fused_level_fwd<T, FP><<<grid, C::kT, C::kSmem, stream>>>(
+  fused_level_fwd<FP><<<grid, C::kT, C::kSmem, stream>>>(
       plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, N, R, F, Fl, vec_w,
       vec_c);
   return cudaGetLastError();
 }
 
-template <typename T>
-int fused_level(const T* plane, const T* clast, const float* xy, const uint8_t* mask,
-                const T* w_in, const T* b_in, const T* w_out, const T* b_out, const T* w_c,
-                const T* b_c, T* c_out, int B, int N, int R, int F, int Fl,
-                cudaStream_t stream) {
+int fused_level(const float* plane, const float* clast, const float* xy, const uint8_t* mask,
+                const float* w_in, const float* b_in, const float* w_out, const float* b_out,
+                const float* w_c, const float* b_c, float* c_out, int B, int N, int R, int F,
+                int Fl, cudaStream_t stream) {
   if (F > 512) return static_cast<int>(cudaErrorInvalidValue);
   if ((long long)B * N == 0) return static_cast<int>(cudaGetLastError());
   const int fp = F <= 32 ? 32 : F <= 64 ? 64 : F <= 128 ? 128 : F <= 256 ? 256 : 512;
   cudaError_t err;
 #define T2H_LEVEL(FP)                                                                     \
   case FP:                                                                                \
-    err = launch_level<T, FP>(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, \
-                              c_out, B, N, R, F, Fl, stream);                             \
+    err = launch_level<FP>(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, \
+                           c_out, B, N, R, F, Fl, stream);                             \
     break;
   switch (fp) {
     T2H_LEVEL(32)
@@ -390,18 +341,6 @@ int t2h_fused_level(const float* plane, const float* clast, const float* xy,
                     const float* w_out, const float* b_out, const float* w_c,
                     const float* b_c, float* c_out, int B, int N, int R, int F, int Fl,
                     cudaStream_t stream) {
-  return fused_level(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, B, N,
-                     R, F, Fl, stream);
-}
-
-// The same on bf16 plane, c_last, weights and c_out (xy f32): K4's bf16 rule
-// (level_kernel.py:234-258): the sample's weights cut to bf16, each product
-// rounded, then each bias add; its plane is t2h_scatter_runs_bf16.
-int t2h_fused_level_bf16(const bf16* plane, const bf16* clast, const float* xy,
-                         const uint8_t* mask, const bf16* w_in, const bf16* b_in,
-                         const bf16* w_out, const bf16* b_out, const bf16* w_c,
-                         const bf16* b_c, bf16* c_out, int B, int N, int R, int F, int Fl,
-                         cudaStream_t stream) {
   return fused_level(plane, clast, xy, mask, w_in, b_in, w_out, b_out, w_c, b_c, c_out, B, N,
                      R, F, Fl, stream);
 }

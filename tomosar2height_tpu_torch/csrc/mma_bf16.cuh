@@ -1,7 +1,7 @@
 // The bf16 tensor-core products of the port's bf16 kernels, the conv core
-// (igemm_conv.cuh: K6, K7 and K8's flat-K route) and the level kernels
-// (level.cu K4, level_bwd.cu K5's row pass; K5's weight sums and K8's other
-// convs run on wgmma, wgmma_bf16.cuh): warp-level mma.sync.m16n8k16 with bf16 operands and
+// (igemm_conv.cuh: K6, and K7's and K8's flat-K route) and K5's row pass
+// (level_bwd.cu; K4, K5's weight sums and K7's and K8's other convs run on
+// wgmma, wgmma_bf16.cuh): warp-level mma.sync.m16n8k16 with bf16 operands and
 // fp32 accumulators, one pass where 3xTF32 (mma_tf32x3.cuh) makes three
 // (989 TFLOP/s dense on the H100 against 495/3), fragments loaded from
 // padded shared tiles with ldmatrix.
@@ -104,7 +104,7 @@ __device__ __forceinline__ void warp_mma_bf16(float (&acc)[2][NT][4],
 
 // The same product for either element type: 3xTF32 from fp32 tiles
 // (mma_tf32x3.cuh warp_mma, strides as it wants them), or one bf16 pass
-// from bf16 tiles. The level kernels (K4, K5's row pass) take it.
+// from bf16 tiles. K5's row pass takes it.
 template <int KS, int NT, typename T>
 __device__ __forceinline__ void warp_mma_t(float (&acc)[2][NT][4], const T* A, int lda,
                                            const T* B, int ldb, int wm, int wn, int lane) {

@@ -1,5 +1,6 @@
 // The Hopper building blocks of the port's bf16 wgmma kernels (reduce_bf16.cu:
-// K5's bf16 weight sums; conv_bf16.cu: K8 in bf16), in raw PTX:
+// K5's bf16 weight sums; conv_bf16.cu: K8 and K7 in bf16; level_bf16.cu: K4
+// in bf16), in raw PTX:
 //
 // - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which the
 //   CUDA runtime looks up in libcuda at run time (its entry-point query), so
@@ -198,10 +199,14 @@ __device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void*
       : "memory");
 }
 
-// the issuing thread's TMA stores committed, then waited for until they
-// have read their shared source
-__device__ __forceinline__ void tma_store_drain() {
+// the issuing thread's TMA stores committed as one group; then, before the
+// block's shared memory is reused or freed, waited for until they have read
+// their shared source
+__device__ __forceinline__ void tma_store_commit() {
   asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_read() {
   asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
 }
 

@@ -5,8 +5,9 @@ CUDA kernel K7 (``csrc/convpair.cu``) replaces ``_pair_kernel``
 (convpair_kernel.py:36, launched by ``_pair_impl``): under ``fused_convs``
 it opens every ALTO level (``models/alto.py``) and every image U-Net level
 (``models/unet.py``), the down-levels with its pooled output. What bounds it
-on the H100 and how the design answers it is noted in the CUDA source
-(``csrc/convpair.cu`` on the implicit-GEMM core ``csrc/igemm_conv.cuh``). A
+on the H100 and how the design answers it is noted in the CUDA sources
+(``csrc/convpair.cu`` on the implicit-GEMM core ``csrc/igemm_conv.cuh`` in
+f32; ``csrc/conv_bf16.cu`` in bf16). A
 CPU tensor takes :func:`conv_pair_plain`, a CUDA tensor the kernel; there is no
 fallback. The backward is the plain composition's autograd in f32, as the
 JAX custom_vjp's (convpair_kernel.py:161-170).
@@ -14,7 +15,12 @@ JAX custom_vjp's (convpair_kernel.py:161-170).
 A bf16 x takes the JAX kernel's bf16 rule (convpair_kernel.py:122-142): the
 float32 weights and biases rounded to bf16, f32 accumulation, relu(conv1)
 rounded to bf16 before conv2, and the output and pool in bf16
-(``t2h_conv_pair_bf16``). The weights' gradients stay float32.
+(``t2h_conv_pair_bf16``, ``csrc/conv_bf16.cu``: each conv on K8's TMA-fed
+wgmma pipeline, the pool in the second conv's epilogue; a conv whose Cin or
+Cout is not a multiple of 8 (Cin = 3), or whose tensors are not 16-byte
+aligned, on the conv core's flat-K path; its convs counted by route,
+``conv_pair_bf16_wgmma`` and ``conv_pair_bf16_flat``). The weights'
+gradients stay float32.
 """
 
 from __future__ import annotations
@@ -22,7 +28,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 from tomosar2height_tpu_torch.ops.cuda.conv_kernel import (
     bf16_rounded,
     conv3x3_plain,
@@ -71,6 +77,10 @@ def _conv_pair_kernel(x, w1, b1, w2, b2, pool: bool):
         c1, c2, runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
+    if dt == torch.bfloat16:
+        for cin_, cout_, ts in ((cin, c1, (x, w1, mid)), (c1, c2, (mid, w2, y, pooled))):
+            aligned = all(t.data_ptr() % 16 == 0 for t in ts if t is not None)
+            runtime.LAUNCHES[f"{name}_{tile_plan.conv_route(cin_, cout_, aligned)}"] += 1
     return (y, pooled) if pool else y
 
 
@@ -80,8 +90,9 @@ def conv_pair(x, w1, b1, w2, b2, pool: bool = False):
     x float32 or bf16 and the weights and biases float32 (the NHWC view of a
     ``channels_last`` plane is contiguous), and H and W even when pooling.
     The kernel runs the two convs as implicit GEMMs on the tensor cores
-    (3xTF32 at fp32 accuracy, or one bf16 pass), relu(conv1) through a
-    (B, H, W, C1) scratch tensor. Differentiable (plain backward)."""
+    (3xTF32 ``mma.sync`` at fp32 accuracy, or bf16 ``wgmma`` fed by the TMA),
+    relu(conv1) through a (B, H, W, C1) scratch tensor. Differentiable
+    (plain backward)."""
     if pool:
         return kernel_vjp(lambda *a: _conv_pair_kernel(*a, True),
                           lambda *a: conv_pair_plain(*a, True), x, w1, b1, w2, b2)

@@ -2,10 +2,11 @@
 
 Counterpart of ``tomosar2height_tpu/ops/pallas/level_kernel.py``. K4
 replaces ``_level_kernel`` (level_kernel.py:110, launched by
-``_fused_level_impl``) with two launches: ``csrc/level.cu`` bilinear-samples
-the plane at each point (border clamp, align_corners=True), runs
-``fc_comm`` (Linear(F,2F) -> ReLU -> Linear(2F,F)) plus the ``fc_c`` skip
-from the previous level's point features and zeros the padding rows (c_out);
+``_fused_level_impl``) with two launches: ``csrc/level.cu`` (in bf16
+``csrc/level_bf16.cu``) bilinear-samples the plane at each point (border
+clamp, align_corners=True), runs ``fc_comm`` (Linear(F,2F) -> ReLU ->
+Linear(2F,F)) plus the ``fc_c`` skip from the previous level's point
+features and zeros the padding rows (c_out);
 then ``csrc/pool2.cu``'s run scatter (``pool2_kernel.scatter_runs_masked``)
 writes the masked scatter-mean of c_out into the plane at this level's
 resolution (cell = finest Morton id >> 2*level), each cell once from its
@@ -48,6 +49,10 @@ in f32 and rounded once):
   sample summed in f32 and rounded; h = relu(bf16(s W_in) + b_in); o =
   bf16(h W_out) + b_out, then + bf16(c_last W_c), then + b_c, each add
   rounded; c_out bf16; the plane the f32 run mean of c_out rounded once.
+  Its kernel is ``csrc/level_bf16.cu``: wgmma fed by the TMA, 128 rows a
+  block (64 at F = 512), its plan ``tile_plan.level_plan``; F and Fl are
+  padded with zero columns to multiples of 8 for its TMA where they are not
+  (the padding changes no sum and is sliced off).
 - K5 (level_bwd_kernel.py:206-256): s and pre recomputed as K4's, the relu
   gate from pre; g_pt = bf16(g_plane / count) gathered; d_o = bf16(g_c +
   g_pt); d_h = bf16(d_o W_out^T) gated; d_s = bf16(d_h W_in^T); d_c_last =
@@ -417,12 +422,13 @@ def fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int)
         cells 0), c_out (B, N, F) new point features (0 on masked rows),
         both in plane's dtype, counts (B, R, R) int32 points per cell.
 
-    K4 runs its three products on the tensor cores at fp32 accuracy
-    (3xTF32, ``csrc/mma_tf32x3.cuh``), 64 points a block; it takes F <= 512
-    and any Fl (c_last is contracted in K-chunks of F's width rounded up to
-    a power of two, so Fl = 1024 at the first up level of a depth-6 U-Net
-    fits); a wider F raises. K5 takes the same F and Fl. On the card the
-    rows must follow the aligned layout (the module's contract).
+    K4 runs its three products on the tensor cores: in f32 at fp32 accuracy
+    (3xTF32 ``mma.sync``, ``csrc/mma_tf32x3.cuh``), 64 points a block; in
+    bf16 on ``wgmma`` fed by the TMA (``csrc/level_bf16.cu``), 128 points a
+    block (64 at F = 512). It takes F <= 512 and any Fl (c_last is
+    contracted in K-chunks, so Fl = 1024 at the first up level of a depth-6
+    U-Net fits); a wider F raises. K5 takes the same F and Fl. On the card
+    the rows must follow the aligned layout (the module's contract).
     """
     return _FusedLevel.apply(plane, c_last, xy, cells, mask, reso, finest, *weights)
 
@@ -453,6 +459,26 @@ def _check_level(plane, c_last, weights, xy, cells, mask, reso: int) -> None:
     runtime.require(b_c, "b_c", dt, (f,), dev)
 
 
+def _tma_level(plane, c_last, weights):
+    """K4 bf16's operands as its TMA takes them: F and Fl padded with zero
+    columns (and w_in's hidden columns, w_out's rows with them) to multiples
+    of 8, and a 16-byte aligned copy of any tensor that is not (a copy only
+    where needed). Zero columns add nothing to any sum."""
+    f, fl = plane.shape[-1], c_last.shape[-1]
+    pf, pl = -f % 8, -fl % 8
+
+    def ready(t, pads=()):
+        if any(pads):
+            return torch.nn.functional.pad(t, pads)
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    w_in, b_in, w_out, b_out, w_c, b_c = weights
+    return (ready(plane, (0, pf)), ready(c_last, (0, pl)),
+            (ready(w_in, (0, 2 * pf, 0, pf)), ready(b_in, (0, 2 * pf)),
+             ready(w_out, (0, pf, 0, 2 * pf)), ready(b_out, (0, pf)),
+             ready(w_c, (0, pf, 0, pl)), ready(b_c, (0, pf))))
+
+
 def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int):
     if runtime.on_cpu(plane):
         return fused_level_plain(plane, c_last, weights, xy, cells, mask, reso,
@@ -460,16 +486,21 @@ def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int
     _check_level(plane, c_last, weights, xy, cells, mask, reso)
     dev, dt = plane.device, plane.dtype
     b, r, _, f = plane.shape
+    if dt == torch.bfloat16:
+        plane, c_last, weights = _tma_level(plane, c_last, weights)
+    fk = plane.shape[-1]
     n, fl = c_last.shape[1], c_last.shape[-1]
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    c_out = torch.empty((b, n, f), device=dev, dtype=dt)
+    c_out = torch.empty((b, n, fk), device=dev, dtype=dt)
     err = runtime.entry("fused_level", dt)(
         plane.data_ptr(), c_last.data_ptr(), xy.data_ptr(), mask.data_ptr(),
         w_in.data_ptr(), b_in.data_ptr(), w_out.data_ptr(), b_out.data_ptr(),
-        w_c.data_ptr(), b_c.data_ptr(), c_out.data_ptr(), b, n, r, f, fl,
+        w_c.data_ptr(), b_c.data_ptr(), c_out.data_ptr(), b, n, r, fk, fl,
         runtime.stream_ptr(dev))
     runtime.check(err, "fused_level")
     runtime.launched("fused_level", dt)
+    if fk != f:
+        c_out = c_out[..., :f].contiguous()
     plane_out, counts = scatter_runs_masked(c_out, cells, mask, reso,
                                             level_shift(reso, finest))
     runtime.launched("fused_level_scatter", dt)

@@ -40,13 +40,16 @@ _KERNELS = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_leve
             "scatter_mean_plane_v3", "tile_gather_bwd", "tile_pool_bwd",
             "aligned_scatter_mean_plane_bwd")
 LAUNCHES = {**{k: 0 for n in _KERNELS for k in (n, f"{n}_bf16")},
-            "level_d_plane_wide_bf16": 0, "conv3x3_bf16_wgmma": 0, "conv3x3_bf16_flat": 0}
+            "level_d_plane_wide_bf16": 0, "conv3x3_bf16_wgmma": 0, "conv3x3_bf16_flat": 0,
+            "conv_pair_bf16_wgmma": 0, "conv_pair_bf16_flat": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`; each
 kernel counts its launches on bf16 tensors under ``<name>_bf16``
 (:func:`launched`); ``level_d_plane_wide_bf16`` counts the d_plane pass from
 f32 cotangents into a bf16 plane; ``conv3x3_bf16_wgmma`` and
 ``conv3x3_bf16_flat`` split K8's bf16 launches by the route
-``t2h_conv3x3_bf16`` takes (``tile_plan.conv_route``)."""
+``t2h_conv3x3_bf16`` takes (``tile_plan.conv_route``);
+``conv_pair_bf16_wgmma`` and ``conv_pair_bf16_flat`` count K7's bf16 convs
+(two a launch) by the route each takes."""
 
 BUILD_INFO: dict = {}
 """Of the library this process loaded: path, whether it was built now, build

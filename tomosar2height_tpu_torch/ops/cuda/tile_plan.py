@@ -1,10 +1,10 @@
-"""The host-side plans of the two bf16 kernels on the TMA and wgmma, in plain
-Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``) and K8 in bf16
-(``csrc/conv_bf16.cu``). The C launchers compute the same plans (the
-functions there of the same names); the wrappers size their scratch and
-splits from these, and ``tests/test_torch_tile_plan.py`` emulates them in
-numpy: every output element covered once, the sums equal to the plain
-versions'.
+"""The host-side plans of the bf16 kernels on the TMA and wgmma, in plain
+Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8 and K7 in bf16
+(``csrc/conv_bf16.cu``) and K4 in bf16 (``csrc/level_bf16.cu``). The C
+launchers compute the same plans (the functions and configs there of the
+same names); the wrappers size their scratch and splits from these, and
+``tests/test_torch_tile_plan.py`` emulates them in numpy: every output
+element covered once, the sums equal to the plain versions'.
 
 The weight sums ``dw = A^T B``, ``db = colsum(B)`` over M rows: a block owns
 a ``bk`` x ``bn`` tile of dw and one split of the rows, streamed in stages of
@@ -16,7 +16,17 @@ K8: a block owns :data:`CONV_PIXELS` output pixels, a ``th`` x ``tw``
 rectangle of one image, by ``bn`` output channels; its K steps run over the
 nine taps, then the ``ck``-channel chunks, each loading the input box
 (``ck``, ``tw``, ``th``) whose origin is the rectangle's moved by the tap
-(:func:`tap_origin`), zero outside the image and past Cin.
+(:func:`tap_origin`), zero outside the image and past Cin. K7 runs its two
+convs on the same plan; its second conv, where it pools, takes rectangles of
+whole 2x2 windows (even width, height and origins) and pools them in its
+epilogue.
+
+K4: a block owns ``bm`` rows of one batch entry (128, two warpgroups of 64;
+64 at F = 512, where the warpgroups split o's columns), in hidden chunks of
+``hc`` columns: ``n_in`` stages of ``ki`` W_in rows, then ``n_out`` of ``ko``
+W_out rows, a chunk; then ``n_c`` stages of ``ko`` c_last columns with W_c's
+rows, in the order of :func:`level_tiles`. Every width runs the one route
+(F and Fl padded to multiples of 8).
 """
 
 from __future__ import annotations
@@ -63,19 +73,60 @@ def reduce_part_rows(ka: int, nb: int, bias: bool) -> int:
     return ka + (reduce_grid(ka, nb)[1] if bias else 0)
 
 
+LEVEL_WIDTHS = (64, 128, 256, 512)
+"""K4 bf16's width classes (``level_fp``): F rounded up to one of them."""
+
+
+def level_plan(f: int, fl: int) -> dict:
+    """K4 bf16's block plan at widths (F, Fl) (``LevelWgmmaCfg``): the width
+    class fp; ``cols`` (F = 512: the warpgroups split o's columns); rows a
+    block bm; hidden chunk hc; o's and a chunk's columns a warpgroup (on,
+    hn); W_in rows a stage ki; W_out / W_c rows and c_last columns a stage
+    ko; the ring's stages; and the stage counts n_h (chunks), n_in and n_out
+    (a chunk), n_c (c_last)."""
+    if not 0 < f <= 512:
+        raise ValueError(f"K4 bf16 takes 0 < F <= 512, got {f}")
+    fp = next(w for w in LEVEL_WIDTHS if f <= w)
+    cols = fp == 512
+    hc = 128 if cols else 64
+    ki = 64 if fp == 64 else 128
+    ko = 64 if fp <= 128 else 32
+    return {"fp": fp, "cols": cols, "bm": 64 if cols else 128, "hc": hc,
+            "on": fp // 2 if cols else fp, "hn": 64, "ki": ki, "ko": ko,
+            "stages": {64: 3, 128: 4, 256: 5, 512: 3}[fp],
+            "n_h": cdiv(2 * f, hc), "n_in": cdiv(f, ki), "n_out": hc // ko,
+            "n_c": cdiv(fl, ko)}
+
+
+def level_tiles(plan: dict) -> list[tuple[str, int, int]]:
+    """K4 bf16's tile sequence, in the order thread 0 loads the ring and the
+    products take it: ("in", c, v) the v-th W_in tile of hidden chunk c,
+    ("out", c, v) its v-th W_out tile, ("c", 0, v) the v-th c_last box with
+    W_c's rows: chunk by chunk, its W_in tiles then its W_out tiles, the
+    c_last tiles last."""
+    tiles = [(kind, c, v) for c in range(plan["n_h"])
+             for kind, n in (("in", plan["n_in"]), ("out", plan["n_out"])) for v in range(n)]
+    return tiles + [("c", 0, v) for v in range(plan["n_c"])]
+
+
 def conv_route(cin: int, cout: int, aligned: bool = True) -> str:
     """"wgmma" (``conv3x3_wgmma``: the TMA wants 16-byte row pitches and
     addresses) or "flat" (the conv core's flat-K path: Cin = 3)."""
     return "wgmma" if cin % 8 == 0 and cout % 8 == 0 and aligned else "flat"
 
 
-def conv_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int) -> dict:
-    """K8 bf16's blocks: the rectangle (tw, th), its counts along x and y,
-    the rectangles (b * tiles_y * tiles_x), the channel chunk ck and the
-    output tile bn (256 where Cout > 128 and that still gives ``sms``
-    blocks), and the blocks (rectangles x channel tiles)."""
-    tw = min(w, CONV_PIXELS)
+def conv_plan(b: int, h: int, w: int, cin: int, cout: int, sms: int,
+              pool: bool = False) -> dict:
+    """K8 bf16's blocks (and K7's convs): the rectangle (tw, th), its counts
+    along x and y, the rectangles (b * tiles_y * tiles_x), the channel chunk
+    ck and the output tile bn (256 where Cout > 128 and that still gives
+    ``sms`` blocks), and the blocks (rectangles x channel tiles). With
+    ``pool`` (K7's pooled second conv; W even) the rectangles hold whole 2x2
+    windows: tw = min(W, 64), th = 128 / tw rounded down to even."""
+    tw = min(w, CONV_PIXELS // 2 if pool else CONV_PIXELS)
     th = CONV_PIXELS // tw
+    if pool:
+        th -= th % 2
     tiles_x, tiles_y = cdiv(w, tw), cdiv(h, th)
     rects = b * tiles_y * tiles_x
     ck = 32 if cin <= 32 else 64

@@ -2,7 +2,7 @@
 deterministic algorithms, and the convolution kernels cuDNN ran.
 
     python -m tomosar2height_tpu_torch.tools.profile_step [--root DIR]
-        [--deterministic 0|1] [--config flagship|headline]
+        [--deterministic 0|1] [--config flagship|headline] [--dtype bfloat16]
 
 Builds the flagship network (``--config flagship``, the default) or the
 headline network (``headline``: ``config.headline_config()``, the
@@ -25,8 +25,10 @@ it is; 0: cuDNN free to pick any algorithm), by the scope that
 tree whose step has no such choice it only sets the flag around the run.
 cuDNN's choice depends on the process's history, so run each setting in a
 fresh process. ``--root`` is the root of a checkout (default: this one;
-``--config headline`` needs a tree that has the headline network).
-Needs one CUDA card.
+``--config headline`` needs a tree that has the headline network). With
+``--dtype bfloat16`` (headline only) the network runs in bf16
+(``model.dtype=bfloat16``, as the smoke's phase "bf16" trains it), so that
+two checkouts' bf16 mini-steps compare in one call. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -46,7 +48,10 @@ def main() -> None:
         os.path.abspath(__file__)))))
     ap.add_argument("--deterministic", type=int, choices=(0, 1), default=1)
     ap.add_argument("--config", choices=("flagship", "headline"), default="flagship")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
+    if args.dtype == "bfloat16" and args.config != "headline":
+        raise SystemExit("--dtype bfloat16 takes --config headline")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     for name in [m for m in sys.modules if m.split(".")[0] == "tomosar2height_tpu_torch"]:
@@ -88,6 +93,7 @@ def main() -> None:
         from tomosar2height_tpu_torch.models import build_model, init_weights
 
         cfg = headline_config()
+        cfg["model"]["dtype"] = args.dtype
         model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
     else:
         cfg, model = cs.flagship_model(0)

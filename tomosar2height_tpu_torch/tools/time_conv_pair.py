@@ -3,7 +3,11 @@ card, from the port in a given checkout, beside their plain versions:
 
 - ``--kernel pair`` (default): K7 (``conv_pair``) at the 20 conv-pair shapes
   (``chip_smoke.ALTO_PAIRS + IMAGE_PAIRS``); plain: two cuDNN convs in full
-  float32, the pool as ``F.max_pool2d``;
+  float32, the pool as ``F.max_pool2d``; with ``--dtype bfloat16`` on bf16 x
+  (the weights and biases rounded to bf16, as the model passes them), each
+  pooled shape also without its pool (the pool's share), and each shape
+  beside cuDNN's two bf16 ``F.conv2d`` on ``channels_last`` (no ReLU or
+  pool: information, no library call computes a pair), by graph replays;
 - ``--kernel conv3x3``: K8 (``conv3x3``, with ReLU) at the 43 convs
   (``chip_smoke.CONVS``); plain: one cuDNN conv in full float32; with
   ``--dtype bfloat16`` on bf16 x and kernel (the f32 bias), each shape
@@ -43,11 +47,23 @@ def _cases(kernel, cs, gen, dev, dtype):
 
     x_of = lambda h, c: torch.randn(8, h, h, c, generator=gen).to(dev)  # noqa: E731
     if kernel == "pair":
+        bf = dtype == torch.bfloat16
         for h, cin, c, pool in cs.ALTO_PAIRS + cs.IMAGE_PAIRS:
-            a = (x_of(h, cin), *cs._conv_w(gen, cin, c, 3, dev), *cs._conv_w(gen, c, c, 3, dev))
-            yield (f"{h}^2 {cin}->{c}{' pool' if pool else ''}",
-                   lambda a=a, p=pool: cpk.conv_pair(*a, p),
-                   lambda a=a, p=pool: cpk.conv_pair_plain(*a, p), None)
+            w1, b1, w2, b2 = (*cs._conv_w(gen, cin, c, 3, dev), *cs._conv_w(gen, c, c, 3, dev))
+            if bf:
+                w1, b1, w2, b2 = (t.to(dtype).float() for t in (w1, b1, w2, b2))
+            a = (x_of(h, cin).to(dtype), w1, b1, w2, b2)
+            lib = None
+            if bf:  # cuDNN's two convs at the pair's shapes
+                mid = x_of(h, c).to(dtype)
+                lib = [(t.permute(0, 3, 1, 2), k.to(dtype).permute(3, 2, 0, 1).contiguous(
+                    memory_format=torch.channels_last), bb.to(dtype))
+                    for t, k, bb in ((a[0], w1, b1), (mid, w2, b2))]
+            for p in (True, False) if (pool and bf) else (pool,):
+                yield (f"{h}^2 {cin}->{c}{' pool' if p else ' pool off' if pool else ''}",
+                       lambda a=a, p=p: cpk.conv_pair(*a, p),
+                       lambda a=a, p=p: cpk.conv_pair_plain(*a, p),
+                       lib and (lambda lib=lib: [F.conv2d(*x, padding=1) for x in lib]))
     elif kernel == "conv3x3":
         for h, cin, cout in cs.CONVS:
             w, bias = cs._conv_w(gen, cin, cout, 3, dev)
@@ -94,23 +110,27 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     dtype = getattr(torch, args.dtype)
-    if dtype == torch.bfloat16 and args.kernel != "conv3x3":
-        raise SystemExit("--dtype bfloat16 times conv3x3 only")
+    if dtype == torch.bfloat16 and args.kernel == "decoder":
+        raise SystemExit("--dtype bfloat16 times conv3x3 and pair")
     names, kfns, pfns, lfns = zip(*_cases(args.kernel, cs, torch.Generator().manual_seed(7),
                                           dev, dtype))
+    # the model's calls (each shape with its own pool flag) make the totals;
+    # in bf16 the unpooled twins of the pooled pairs are logged by shape only
+    model = [i for i, n in enumerate(names) if not n.endswith("pool off")]
+    total_k = [kfns[i] for i in model]
     if dtype == torch.bfloat16:  # device time by graph replays, as the smoke's rows
         def ms(fn, warmup=1):
             return cs.graph_ms(fn, args.iters, warmup)
     else:
         def ms(fn, warmup=3):
             return cs.cuda_ms(fn, args.iters, warmup)
-    total = ms(lambda: [fn() for fn in kfns])
-    plain = ms(lambda: [fn() for fn in pfns])
-    lib = f", library {ms(lambda: [fn() for fn in lfns]):.4f} ms" if all(lfns) else ""
+    total = ms(lambda: [fn() for fn in total_k])
+    plain = ms(lambda: [pfns[i]() for i in model])
+    lib = f", library {ms(lambda: [lfns[i]() for i in model]):.4f} ms" if all(lfns) else ""
     per = "; ".join(
         f"{n} {ms(k, 1):.3f}/{ms(p, 1):.3f}" + (f"/{ms(lf, 1):.3f}" if lf else "")
         for n, k, p, lf in zip(names, kfns, pfns, lfns))
-    print(f"{args.kernel} {args.dtype} {root}: {total:.4f} ms for the {len(names)} shapes, "
+    print(f"{args.kernel} {args.dtype} {root}: {total:.4f} ms for the {len(model)} shapes, "
           f"plain {plain:.4f} ms{lib} (median of {args.iters}"
           f"{', graph replays' if dtype == torch.bfloat16 else ''}); by shape, kernel/plain"
           f"{'/library' if lib else ''} ms: {per}", flush=True)

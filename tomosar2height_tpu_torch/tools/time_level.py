@@ -19,10 +19,13 @@ each level's shapes, as ``chip_smoke.check_kernels`` draws them, beside
 ``torch.matmul`` of the same product), the card's name and power limit. With ``--profile``, also the
 device time by kernel name of one pass of the 24 reductions and of the 24
 ``torch.matmul`` calls (``torch.profiler``) and the device busy share of
-each pass. With ``--dtype bfloat16``, the 24 reductions alone on bf16 rows
-(``csrc/reduce_bf16.cu`` where the checkout has it) beside ``torch.matmul``
-in bf16, all at once and each by (Ka, Nb), timed by CUDA graph replays
-(``chip_smoke.graph_ms``, as the smoke's kernel rows). Needs one CUDA card.
+each pass. With ``--dtype bfloat16``: K4 in bf16 (``fused_level`` on bf16
+plane, c_last and weights, drawn on the card as ``chip_smoke._level_rows``
+draws them: its kernel and its run scatter) for the eight levels at once and
+for each, then the 24 reductions on bf16 rows (``csrc/reduce_bf16.cu`` where
+the checkout has it) beside ``torch.matmul`` in bf16, all at once and each
+by (Ka, Nb), all timed by CUDA graph replays (``chip_smoke.graph_ms``, as
+the smoke's kernel rows). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -68,6 +71,7 @@ def main() -> None:
     b, npad = amask.shape
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.dtype == "bfloat16":
+        _time_bf16_level(cs, lk, xy, cells, mask, root, args.iters)
         _time_bf16_reduce(cs, lk, gen, dev, b * npad, root, args.iters)
         return
     fns, bwd, rows_fns, red, mm, dplane = {}, {}, {}, {}, {}, {}
@@ -106,6 +110,33 @@ def main() -> None:
     if args.profile:
         for name, group in (("reduce", red), ("torch.matmul", mm)):
             _profile(name, lambda g=group: [fn() for fn in g.values()])
+
+
+def _time_bf16_level(cs, lk, xy, cells, mask, root, iters):
+    """K4 in bf16 at the eight flagship levels (``chip_smoke.LEVEL_SHAPES``)
+    on inputs drawn on the card as ``chip_smoke._level_rows`` draws them
+    (the plane, c_last on the valid rows, Xavier weights, zero biases, all
+    rounded to bf16): all at once and each by (R/F/Fl), graph replays."""
+    import torch
+
+    dev, bf = mask.device, torch.bfloat16
+    b, npad = mask.shape
+    cgen = torch.Generator(device=dev).manual_seed(0)
+    fns = {}
+    for r, f, fl in cs.LEVEL_SHAPES:
+        plane = torch.randn(b, r, r, f, generator=cgen, device=dev).to(bf)
+        c_last = (torch.randn(b, npad, fl, generator=cgen, device=dev)
+                  * mask[..., None]).to(bf)
+        w = tuple(x.to(bf) for x in (
+            cs._xavier(cgen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
+            cs._xavier(cgen, 2 * f, f, dev), torch.zeros(f, device=dev),
+            cs._xavier(cgen, fl, f, dev), torch.zeros(f, device=dev)))
+        fns[f"{r}/{f}/{fl}"] = lambda a=(plane, c_last, w, xy, cells, mask, r, 256): \
+            lk.fused_level(*a)
+    total = cs.graph_ms(lambda: [fn() for fn in fns.values()], iters)
+    per = {k: round(cs.graph_ms(fn, iters), 4) for k, fn in fns.items()}
+    print(f"K4 bf16 {root}: {total:.4f} ms for the eight levels (graph replays, median of "
+          f"{iters}); by level (R/F/Fl) {per}", flush=True)
 
 
 def _time_bf16_reduce(cs, lk, gen, dev, m, root, iters):
