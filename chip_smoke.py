@@ -62,9 +62,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    fused2 + fused_convs + fused_head (K1-K4, K6, K7), unsorted with
    FAST_CONV (K8 only) and unsorted plain (no kernel); tiles/s, forward ms,
    peak memory and launches per forward of each, the launch counts asserted
-   and the two kernel rasters held to the plain one, the kernel path's
-   timed raster bit-equal to its warm-up run's (the unsorted paths' plain
-   scatters add with atomics: logged); then the kernel path on every wire
+   and the two kernel rasters held to the plain one, each variant's timed
+   raster bit-equal to its warm-up run's (the unsorted paths' plain segment
+   ops and gathers add in a fixed order, ops/scatter.py); then the kernel
+   path on every wire
    (u16 points, u8 image crops cut on the card from the resident scene
    image, the host's cell ids, f16 tile rasters), held to the f32 wires'
    raster within the JAX package's bounds for them (the u16 one on the
@@ -111,7 +112,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    ``train/loop.py``
    (launches per mini-step asserted against HEADLINE_TRAIN_LAUNCHES), the
    plain path from the same weights on the same patches for the first step
-   (its window's loss_l1 and loss_ce held within their tolerances), the
+   (its window's loss_l1 and loss_ce held within their tolerances) and that
+   step once more (0 of 237 tensors may differ, window losses equal), the
    checkpoint's
    size and round trip, then a child process that resumes from the
    iteration-1 checkpoint and runs iteration 2: its parameters must be
@@ -121,11 +123,13 @@ Phases, one line each; any failure raises and the script exits non-zero:
    instances) against the same network in f32 from the same weights
    (``bf16_phase``): serving bf16 and f32 on fused2 (launches asserted, the
    bf16 raster bit-equal to its warm-up's) and bf16 on the unsorted path
-   once, each bf16 raster within the JAX package's bf16 gate of the f32
-   one; a warm-up and a timed optimizer step (``optimize_every`` 4) on
-   headline-train's patches, window losses within 0.15 x scale of
-   headline-train's f32 kernel run, the bf16 first step rerun from the same
-   weights, every parameter and the loss bit-equal; then the sorted
+   (its raster bit-equal to its warm-up's too), each bf16 raster within the
+   JAX package's bf16 gate of the f32 one; a warm-up and a timed optimizer
+   step (``optimize_every`` 4) on headline-train's patches, window losses
+   within 0.15 x scale of headline-train's f32 kernel run, the bf16 first
+   step rerun from the same weights, every parameter and the loss
+   bit-equal; the first step on the unsorted path in bf16 (the conv
+   kernels' flags on) twice, 0 of 237 tensors apart; then the sorted
    layouts in bf16 (``sorted_bf16``): the city served on 'fused', 'pallas'
    (and one batch with mean pooling, K13) and 'cumsum' from sorted-serve's
    weights, each raster within the bf16 gate of sorted-serve's f32 raster on
@@ -1488,13 +1492,25 @@ def check_conv_kernels_bf16(entry, seed: int = 0):
     h, c0, (c1, c2, c3), co = DECODER
     args = (x_of(h, c0), *w_of(c0, c1), *w_of(c1, c2), *w_of(c2, c3),
             *w_of(c0 + c1 + c2 + c3, co, 1))
+    routes = ("conv_decoder_bf16_wgmma", "conv_decoder_bf16_flat")
+    before = {k: runtime.LAUNCHES[k] for k in routes}
     got, note = _bf16_rule("conv_decoder_bf16", dk.conv_decoder, dk.conv_decoder_plain, args)
+    by_route = {k: runtime.LAUNCHES[k] - before[k] for k in routes}
+    # cuDNN's three bare bf16 convs at K6's shapes (channels_last; no ReLU,
+    # no head): information beside the row, not its library call
+    lib = [(t.permute(0, 3, 1, 2), k.to(bf).permute(3, 2, 0, 1).contiguous(
+        memory_format=torch.channels_last), bb.to(bf)) for t, k, bb in zip(
+        (args[0], x_of(h, c1), x_of(h, c2)), args[1:7:2], args[2:7:2])]
+    cudnn = graph_ms(lambda: [F.conv2d(*x, padding=1) for x in lib], 3)
     log("kernels", f"conv_decoder_bf16, the share of its tolerance: {note[0]:.3f}, "
-        f"{note[1]}")
+        f"{note[1]}; its convs by route (two launches, three convs each) {by_route}; "
+        f"cuDNN's three bare bf16 F.conv2d on channels_last at its shapes {cudnn:.4f} ms "
+        f"(graph replays, median of 3)")
+    del lib
     # the three convs on bf16 tensor cores, the 1x1 head on fp32 FMA
     ops = [(2 * b * h * h * 9 * (c0 * c1 + c1 * c2 + c2 * c3), BF16_FLOP_S),
            (2 * b * h * h * (c0 + c1 + c2 + c3) * co, FP32_FLOP_S)]
-    entry("conv_decoder_bf16", "tomosar2height_tpu_torch/csrc/decoder.cu",
+    entry("conv_decoder_bf16", "tomosar2height_tpu_torch/csrc/conv_bf16.cu",
           "tomosar2height_tpu/ops/pallas/decoder_kernel.py:85", got,
           lambda: dk.conv_decoder(*args), lambda: dk.conv_decoder_plain(*args),
           (nbytes(*args) + b * h * h * co * 4, ops),
@@ -2079,8 +2095,9 @@ def fusion_serve(seed: int = 0):
     image, batch 8, in three variants from the same weights: (a) fused2 +
     fused_convs + fused_head (K1-K4, K6, K7), (b) unsorted with FAST_CONV (K8
     only), (c) unsorted plain (no kernel). Each timed run is the second
-    ``generate_dsm`` of its variant, launches counted from 0 around it; (a)
-    and (b) are held to (c); then (a) on every wire, held to (a)."""
+    ``generate_dsm`` of its variant, launches counted from 0 around it, its
+    raster bit-equal to the first's; (a) and (b) are held to (c); then (a)
+    on every wire, held to (a)."""
     import tempfile
 
     import torch
@@ -2163,9 +2180,9 @@ def fusion_serve(seed: int = 0):
                 f"{({k: v / n_batches for k, v in launches.items() if v})}")
             if launches != want:
                 raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
-            # the kernel path adds in fixed orders; the unsorted paths'
-            # plain scatters add with atomics on the card (logged only)
-            if name in ("kernels", "wires") and not repeat:
+            # every path adds in a fixed order: the kernels, and the unsorted
+            # paths' plain segment ops and gathers (ops/scatter.py)
+            if not repeat:
                 raise AssertionError(f"two runs of the fusion {name} path gave different "
                                      "rasters")
     ref = out["plain"]["raster"]
@@ -2819,7 +2836,8 @@ def headline_train(seed: int = 0):
     mini-step asserted; the plain path (unsorted, kernel flags off) from the
     same weights on the same patches for the first of them (its mini-step
     ms the median of that step's mini-steps after the first), its window
-    losses held within ``_height_tol`` (loss_l1) and ``_footprint_tol`` (loss_ce);
+    losses held within ``_height_tol`` (loss_l1) and ``_footprint_tol`` (loss_ce),
+    and run once more (0 tensors may differ, the window losses equal);
     the checkpoint's size and round trip; then a child process resumes from
     the iteration-1 checkpoint and runs on to iteration HEADLINE_STEPS: 0
     tensors may differ from the uninterrupted run, and the window losses
@@ -2841,8 +2859,8 @@ def headline_train(seed: int = 0):
     runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         io = CheckpointIO(os.path.join(tmp, "kernels"))
-        for name in ("kernels", "plain"):
-            if name == "plain":
+        for name in ("kernels", "plain", "plain again"):
+            if name != "kernels":
                 pcfg, ptcfg, loader = _headline_parts(seed, False)
                 model = build_model(pcfg, DEVICE)
                 model.load_state_dict(state0)
@@ -2879,6 +2897,8 @@ def headline_train(seed: int = 0):
                    if name == "kernels" else ""))
             if not all(np.isfinite(w["loss"]) for w in out["windows"]):
                 raise AssertionError(f"{name}: window losses not finite")
+            if name != "kernels":
+                r["state"] = {n: v.detach().clone() for n, v in model.state_dict().items()}
             if name == "kernels":
                 # the round trip: the last checkpoint (its write is the last
                 # window's aux time) read back into the run's objects
@@ -2900,9 +2920,22 @@ def headline_train(seed: int = 0):
                 if back:
                     raise AssertionError(f"the checkpoint round trip changed {back[:4]}")
             del trainer, sched, out
-        kern, plain = runs["kernels"], runs["plain"]
-        if any(plain["launches"].values()):
+        kern, plain, again = runs["kernels"], runs["plain"], runs.pop("plain again")
+        if any(plain["launches"].values()) or any(again["launches"].values()):
             raise AssertionError(f"the plain path launched kernels: {plain['launches']}")
+        # the unsorted plain path's first step twice from the same weights on
+        # the same patches: its segment ops and gathers add in a fixed order
+        unequal = _differing(plain.pop("state"), again.pop("state"))
+        keys = ("loss", "loss_l1", "loss_ce")
+        same = ([[w[k] for k in keys] for w in plain["windows"]]
+                == [[w[k] for k in keys] for w in again["windows"]])
+        log("headline-train", f"plain (unsorted) first step run twice from the same weights "
+            f"on the same patches: {len(unequal)} of {len(final)} tensors differ "
+            f"{unequal[:4]}, window losses equal {same} | mini-step {plain['ms']:.1f} / "
+            f"{again['ms']:.1f} ms")
+        if unequal or not same:
+            raise AssertionError(f"the unsorted f32 rerun differs: {len(unequal)} tensors "
+                                 f"{unequal[:4]}, window losses equal {same}")
         want = {**dict.fromkeys(kern["launches"], 0),
                 **{key: v * kern["n"] for key, v in HEADLINE_TRAIN_LAUNCHES.items()}}
         per_step = {key: v / kern["n"] for key, v in kern["launches"].items() if v}
@@ -2963,16 +2996,18 @@ def headline_train(seed: int = 0):
 # (K7) likewise, 43 on the wgmma route and the Cin 3 one flat. Per training
 # mini-step on fused2 HEADLINE_TRAIN_LAUNCHES' kernels at their bf16
 # instances (remat's recompute doubles the point encoder's, whose ALTO
-# U-Net's 11 pairs all take the wgmma route).
+# U-Net's 11 pairs all take the wgmma route); K6's three convs a launch
+# all on the wgmma route, the head in the third's epilogue.
 BF16_SERVE_LAUNCHES = {"pool2_bf16": 4, "scatter_plane2_bf16": 1, "fused_level_bf16": 9,
                        "fused_level_scatter_bf16": 9, "conv_pair_bf16": 22,
                        "conv_pair_bf16_wgmma": 43, "conv_pair_bf16_flat": 1,
-                       "conv_decoder_bf16": 1}
+                       "conv_decoder_bf16": 1, "conv_decoder_bf16_wgmma": 3}
 BF16_FAST_CONV_LAUNCHES = {"conv3x3_bf16": 47, "conv3x3_bf16_wgmma": 46,
                            "conv3x3_bf16_flat": 1}
 BF16_TRAIN_LAUNCHES = {**{f"{k}_bf16": v for k, v in HEADLINE_TRAIN_LAUNCHES.items()},
                        "conv_pair_bf16_wgmma": 2 * HEADLINE_TRAIN_LAUNCHES["conv_pair"] - 1,
-                       "conv_pair_bf16_flat": 1}
+                       "conv_pair_bf16_flat": 1,
+                       "conv_decoder_bf16_wgmma": 3 * HEADLINE_TRAIN_LAUNCHES["conv_decoder"]}
 
 
 def _f32_launches(counts: dict) -> dict:
@@ -3109,7 +3144,8 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
       on fused2, each timed ``generate_dsm`` (the second) with its tiles/s,
       forward ms, peak memory and launches (asserted), the bf16 timed raster
       bit-equal to its warm-up raster; then bf16 on the unsorted path with
-      the flags off under FAST_CONV (K8), one run; each bf16 raster against
+      the flags off under FAST_CONV (K8), its timed raster bit-equal to its
+      warm-up's too; each bf16 raster against
       the f32 raster within the JAX package's
       bf16 gate (max |d| <= 0.15 x scale, correlation > 0.99;
       tests/test_bf16.py), NaN masks equal;
@@ -3120,7 +3156,10 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
       weights, patches and steps in f32; an L1 loss moves at most as far as
       the heights), mini-step ms, train patches/s and peak memory beside
       it; the bf16 first step run again from the same weights, and every
-      parameter and the window loss bit-equal to the first run's;
+      parameter and the window loss bit-equal to the first run's; the same
+      first step on the unsorted path in bf16 (``headline_unsorted``, the
+      conv kernels' flags on) run twice, bit-equal, its window L1 loss
+      within 0.15 x scale of f32's;
     - then the sorted layouts in bf16 (``sorted_bf16``) from the weights of
       ``sorted_serve_out`` and ``sorted_train_out``.
 
@@ -3168,8 +3207,7 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
                 fwd_ms = cuda_ms(lambda: model(up["points"], up["point_mask"], up["image"],
                                                None, up.get("cell_offsets"),
                                                footprint=False), iters=3, warmup=1)
-            if name != "bf16 fast_conv":  # one raster is all it gives
-                warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
+            warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             runtime.reset_launches()
@@ -3179,17 +3217,17 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
             set_fast_conv(False)
             stats = gen.last_stats
             served[name] = r.data
-            again = warm is not None and np.array_equal(warm.data, r.data, equal_nan=True)
+            again = np.array_equal(warm.data, r.data, equal_nan=True)
             log("bf16", f"serve {name}: {stats['n_patches']} tiles in {n_batches} batches | "
                 f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s) | forward "
-                f"{fwd_ms:.1f} ms per batch (median of 3)"
-                + (f" | bit-equal to its warm-up run {again}" if warm is not None else "")
-                + f" | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | launches "
-                f"per forward {({k: v / n_batches for k, v in launches.items() if v})}")
+                f"{fwd_ms:.1f} ms per batch (median of 3) | bit-equal to its warm-up run "
+                f"{again} | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
+                f"launches per forward "
+                f"{({k: v / n_batches for k, v in launches.items() if v})}")
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}
             if launches != want:
                 raise AssertionError(f"{name}: launch counts {launches}, expected {want}")
-            if warm is not None and not again:
+            if not again:
                 raise AssertionError(f"{name}: the timed raster differs from the warm-up's")
             if name != "f32":
                 for k, v in launches.items():
@@ -3266,6 +3304,39 @@ def bf16_phase(f32_train: dict, sorted_serve_out: dict, sorted_train_out: dict,
     for k, v in bf["launches"].items():
         total[k] = total.get(k, 0) + v
     del models, bf, again
+
+    # the unsorted point path in bf16 (the conv kernels' flags on): its first
+    # step twice from the same weights on the same patches
+    ucfg = headline_unsorted("bfloat16")
+    umodel = build_model(ucfg, DEVICE)
+
+    def unsorted_run():
+        umodel.load_state_dict(state0)
+        cfg, tcfg, loader = _headline_parts(seed, False, ucfg)
+        trainer, sched = _headline_trainer(cfg, tcfg, umodel)
+        runtime.reset_launches()
+        out = train(trainer, sched, loader, tcfg, max_iteration=1)
+        torch.cuda.synchronize()
+        return ({n: v.detach().clone() for n, v in umodel.state_dict().items()},
+                [[w[k] for k in ("loss", "loss_l1", "loss_ce")] for w in out["windows"]],
+                out["median_step_ms"], out["n_ministeps"], dict(runtime.LAUNCHES))
+
+    u1, u2 = unsorted_run(), unsorted_run()
+    unequal = _differing(u1[0], u2[0])
+    err = abs(u1[1][0][1] - f32_losses[0])
+    log("bf16", f"train bf16 unsorted (conv kernels on) first step run twice from the same "
+        f"weights on the same patches: {len(unequal)} of {len(u1[0])} tensors differ "
+        f"{unequal[:4]}, window losses equal {u1[1] == u2[1]} | window L1 loss "
+        f"{u1[1][0][1]:.6f}, f32's {f32_losses[0]:.6f} (max|d| {err:.4g} m, tol "
+        f"{0.15 * scale:.4g} m) | mini-step {u1[2]:.1f} / {u2[2]:.1f} ms (median of "
+        f"{u1[3]}, CUDA events) | launches per mini-step "
+        f"{({k: v / u1[3] for k, v in u1[4].items() if v})}")
+    if unequal or u1[1] != u2[1]:
+        raise AssertionError(f"the bf16 unsorted rerun differs: {len(unequal)} tensors "
+                             f"{unequal[:4]}, window losses {u1[1]} vs {u2[1]}")
+    if err > 0.15 * scale or not np.isfinite(u1[1][0][1]):
+        raise AssertionError(f"bf16 unsorted and f32 window losses differ by {err} m")
+    del umodel, u1, u2
     for k, v in sorted_bf16(sorted_serve_out, sorted_train_out, seed).items():
         total[k] = total.get(k, 0) + v
     return _nonzero(total)

@@ -2439,3 +2439,108 @@ class TestWgmmaLevelAndPair:
             assert got[i].dtype == BF and torch.equal(again[i], got[i])
             _bf16_held(got[i], want[i], ref[i])
         assert (got[1] is None) == (not pool)
+
+
+@pytest.mark.cuda
+class TestWgmmaDecoder:
+    """K6 in bf16 (``t2h_conv_decoder_bf16``, ``csrc/conv_bf16.cu``): its
+    three convs on the TMA-fed wgmma pipeline, the head in the third's
+    epilogue, at the model's shape (``chip_smoke.DECODER`` at batch 2) and
+    at small odd ones (rectangles past the image, x3 narrower than its
+    64-channel block, w4 in two passes of columns); held as ``_bf16_held``
+    to the plain version, bit-equal on a second launch, its convs counted by
+    route (``tile_plan.decoder_plan``)."""
+
+    @pytest.mark.parametrize("b,h,w,c0,c1,c2,c3,co", [
+        (2, 512, 512, 32, 64, 128, 64, 1), (3, 13, 21, 8, 16, 24, 16, 3),
+        (1, 9, 140, 16, 8, 32, 40, 25)])
+    def test_matches_plain(self, cuda, b, h, w, c0, c1, c2, c3, co):
+        rng = np.random.default_rng(h + w + c3)
+        x = t(rng.normal(0, 1, (b, h, w, c0)).astype(np.float32), cuda).to(BF)
+        args = (x, *_bf16_weights(rng, c0, c1, cuda), *_bf16_weights(rng, c1, c2, cuda),
+                *_bf16_weights(rng, c2, c3, cuda),
+                *_bf16_weights(rng, c0 + c1 + c2 + c3, co, cuda, k=1))
+        before = dict(runtime.LAUNCHES)
+        got = dk.conv_decoder(*args)
+        torch.cuda.synchronize()
+        _launched("conv_decoder_bf16", before)
+        _launched("conv_decoder_bf16_wgmma", before, 3)
+        _launched("conv_decoder_bf16_flat", before, 0)
+        assert got.dtype == torch.float32 and got.shape == (b, h, w, co)
+        assert torch.equal(dk.conv_decoder(*args), got)
+        want = dk.conv_decoder_plain(*args)
+        _bf16_held(got, want, dk.conv_decoder_plain(*(a.double() for a in args)))
+
+    def test_unaligned_input_takes_the_conv_core(self, cuda):
+        """x at an address that is not 16-byte aligned: conv1 and the head
+        take the conv core; the result is the aligned call's within the
+        rule (another order of the head's sums)."""
+        rng = np.random.default_rng(41)
+        x = t(rng.normal(0, 1, (2, 16, 24, 16)).astype(np.float32), cuda).to(BF)
+        shifted = torch.empty(x.numel() + 1, device=cuda, dtype=BF)[1:].view(x.shape)
+        shifted.copy_(x)
+        ws = (*_bf16_weights(rng, 16, 32, cuda), *_bf16_weights(rng, 32, 64, cuda),
+              *_bf16_weights(rng, 64, 64, cuda), *_bf16_weights(rng, 176, 1, cuda, k=1))
+        before = dict(runtime.LAUNCHES)
+        got = dk.conv_decoder(shifted, *ws)
+        torch.cuda.synchronize()
+        _launched("conv_decoder_bf16_wgmma", before, 1)
+        _launched("conv_decoder_bf16_flat", before, 2)
+        _bf16_held(got, dk.conv_decoder_plain(x, *ws),
+                   dk.conv_decoder_plain(x.double(), *(a.double() for a in ws)))
+
+
+@pytest.mark.cuda
+class TestUnsortedOrder:
+    """The unsorted point path's plain ops (``ops/scatter.py``: the segment
+    sums, means and counts, ``gather_cells``' backward; ``ops/sampling.py``:
+    ``grid_sample_2d``'s backward and the adjoint) at the flagship's sizes
+    (batch 8, 16384 rows, 256^2 cells), in float32 and bf16: each run twice
+    on the card, bit-equal, and within 1e-5 (bf16: 2^-5) of the scale of the
+    CPU's row-order result; the deterministic mode as it was after each."""
+
+    @staticmethod
+    def _inputs(dtype, device, c=32, reso=256):
+        rng = np.random.default_rng(43)
+        b, n = 8, 16384
+        xy = rng.uniform(0, 1, (b, n, 2)).astype(np.float32)
+        xy[:, : n // 4] = rng.uniform(0.40, 0.41, (b, n // 4, 2))  # crowded cells
+        vals = t(rng.normal(0, 1, (b, n, c)).astype(np.float32), device).to(dtype)
+        mask = t(rng.random((b, n)) > 0.1, device)
+        plane = t(rng.normal(0, 1, (b, reso, reso, c)).astype(np.float32), device).to(dtype)
+        return t(xy, device), vals, mask, plane
+
+    @pytest.mark.parametrize("dtype", [torch.float32, BF])
+    def test_ops_bit_equal_run_to_run(self, cuda, dtype):
+        from tomosar2height_tpu_torch.ops import sampling, scatter
+
+        xy, vals, mask, plane = self._inputs(dtype, cuda)
+        reso = plane.shape[1]
+        mode = torch.are_deterministic_algorithms_enabled()
+
+        def run(v, p, xy_):
+            v, p = v.clone().requires_grad_(), p.clone().requires_grad_()
+            i = scatter.cell_index(xy_, reso)
+            m = mask.to(v.device)
+            mean = scatter.segment_mean(v, i, reso * reso, m)
+            pooled = scatter.pool_local_max(v, i, reso, m)
+            sample = sampling.grid_sample_2d(p, xy_, m)
+            counts = scatter.segment_counts(i, reso * reso, m)
+            keep = m[..., None].float()  # the masked rows reach nothing, as in the model
+            loss = (mean.float().sum() + (pooled.float() * keep * 1.5).sum()
+                    + (sample.float() * v.float() * keep).sum())
+            dv, dp = torch.autograd.grad(loss, (v, p))
+            adj = sampling.grid_sample_2d_adjoint(v.float(), xy_, reso, reso)
+            return mean, pooled, sample, counts, dv, dp, adj
+
+        first, again = run(vals, plane, xy), run(vals, plane, xy)
+        torch.cuda.synchronize()
+        assert torch.are_deterministic_algorithms_enabled() == mode
+        for a, g in zip(first, again):
+            assert torch.equal(a, g)
+        host = run(vals.cpu(), plane.cpu(), xy.cpu())
+        for a, h in zip(first, host):
+            # bf16: sums of up to ~500 rows, each add rounded to bf16
+            scale = max(1.0, float(h.double().abs().max()))
+            tol = (2.0 ** -5 if dtype == BF else 1e-5) * scale
+            assert float((a.cpu().double() - h.double()).abs().max()) <= tol

@@ -19,6 +19,14 @@ CPU (the sums in float64, the convs in float32):
   and at ragged shapes: every rectangle of even height and width at even
   origins, each pooled pixel taken once from one rectangle's staged tile,
   equal to the 2x2 max pool of the plain relu(conv).
+- K6 in bf16: its plan (``tile_plan.decoder_plan``) at the model's widths
+  (``chip_smoke.DECODER``) and at ragged ones: conv1 and conv2 on K8's plan
+  by their own routes, conv3 with the head on BN = 64, one block column, so
+  that each block owns all of x3's channels for its rectangle; the head
+  emulated block by block: x3 from the emulated conv3 rounded to bf16, then
+  two threads a pixel over every other 16-byte chunk of x, x1, x2 and x3,
+  the halves added, the parts added onto b4 in order, w4's columns ``oc`` a
+  pass. Every output covered once; equal to ``conv_decoder_plain``'s.
 - K4 in bf16 at every level of ``chip_smoke.LEVEL_SHAPES`` at full width,
   at Fl = 1024 and at ragged widths (a few hundred rows): each block's rows,
   each warpgroup's rows and o columns (split by columns at F = 512), the
@@ -39,6 +47,7 @@ import torch
 
 import chip_smoke as cs
 from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
+from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
 
@@ -434,3 +443,106 @@ def test_level_plan_tiles():
                           + [("in", 1, v) for v in range(4)])
     with pytest.raises(ValueError):
         tp.level_plan(520, 8)
+
+
+def _bf16(a):
+    return torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def emulate_head(x, x1, x2, w3, b3, w4, b4, plan):
+    """K6's conv3 and head as the plan computes them: per block (one block
+    column: n0 = 0) its rectangle of x3 = bf16(relu(conv3 + b3)) from
+    ``emulate_conv``, then each pixel's two threads, thread hf on the
+    16-byte chunks hf, hf + 2, ... of each part, their sums added, the parts
+    added onto b4 in order; w4's columns ``oc`` a pass. Returns out and its
+    coverage counts."""
+    bsz, h, wd, c0 = x.shape
+    c1, c2, c3, co = x1.shape[-1], x2.shape[-1], w3.shape[-1], w4.shape[-1]
+    y3, cover3 = emulate_conv(x2, w3, b3, SMS)
+    assert (cover3 == 1).all()
+    x3 = _bf16(np.maximum(y3, 0))
+    tw, th, oc = plan["tw"], plan["th"], plan["oc"]
+    out = np.zeros((bsz, h, wd, co))
+    cover = np.zeros((bsz, h, wd, co), np.int32)
+    offs = np.cumsum([0, c0, c1, c2, c3])
+    for blk in range(plan["blocks"]):
+        b_, x0, y0, n0 = tp.conv_block(plan, c3, blk)
+        assert n0 == 0  # one block column: all of x3's channels
+        py, px = np.divmod(np.arange(tp.CONV_PIXELS), tw)
+        keep = (py < th) & (y0 + py < h) & (x0 + px < wd)
+        ys, xs = y0 + py[keep], x0 + px[keep]
+        for o0 in range(0, co, oc):
+            cols = slice(o0, min(o0 + oc, co))
+            acc = np.broadcast_to(b4[cols], (len(ys), cols.stop - o0)).astype(np.float64)
+            for i, part in enumerate((x, x1, x2, x3)):
+                v = part[b_, ys, xs]  # (pixels, C)
+                wk = w4[offs[i]:offs[i + 1], cols]
+                chunk = np.arange(v.shape[-1]) // 8
+                halves = [v[:, chunk % tp.HEAD_THREADS == hf] @ wk[chunk % tp.HEAD_THREADS == hf]
+                          for hf in range(tp.HEAD_THREADS)]
+                acc = acc + (halves[0] + halves[1])
+            out[b_, ys, xs, cols] = acc
+            cover[b_, ys, xs, cols] += 1
+    return out, cover
+
+
+@pytest.mark.parametrize("bsz,h,wd,c0,c1,c2,c3,co", [
+    (1, 12, 136, 32, 64, 128, 64, 1), (2, 9, 11, 8, 16, 24, 16, 3),
+    (1, 6, 20, 16, 8, 8, 64, 25), (1, 4, 130, 8, 8, 16, 40, 2)])
+def test_decoder_plan_covers_and_decodes(bsz, h, wd, c0, c1, c2, c3, co):
+    """The model's widths on a strip with a partial last rectangle (W 136),
+    rectangles past the image (W 11: 11 x 11 pixels a block), two passes of
+    w4's columns (CT 96, CO 25: 21 a pass), x3 narrower than its 64-channel
+    block (C3 16, 40)."""
+    rng = np.random.default_rng(h * wd + c3)
+    x = _bf16(rng.normal(size=(bsz, h, wd, c0)))
+    ws = [(_bf16(rng.normal(size=(3, 3, ci, c)) / np.sqrt(9 * ci)),
+           _bf16(rng.normal(size=c) * 0.1)) for ci, c in ((c0, c1), (c1, c2), (c2, c3))]
+    ct = c0 + c1 + c2 + c3
+    w4 = _bf16(rng.normal(size=(ct, co)) / np.sqrt(ct))
+    b4 = _bf16(rng.normal(size=co) * 0.1)
+    plan = tp.decoder_plan(bsz, h, wd, c0, c1, c2, c3, co, SMS)
+    assert plan["routes"] == ("wgmma",) * 3
+    head = plan["head"]
+    assert head["bn"] == 64 and head["blocks"] == head["rects"]
+    assert head["oc"] == max(1, min(tp.HEAD_W4_BYTES // (4 * ct), co))
+    assert -(-co // head["oc"]) == (2 if co == 25 else 1)
+    x1 = ck.conv3x3_plain(torch.from_numpy(x).to(torch.bfloat16),
+                          torch.from_numpy(ws[0][0]).to(torch.bfloat16),
+                          torch.from_numpy(ws[0][1]), True)
+    x2 = ck.conv3x3_plain(x1, torch.from_numpy(ws[1][0]).to(torch.bfloat16),
+                          torch.from_numpy(ws[1][1]), True)
+    out, cover = emulate_head(x, x1.float().numpy(), x2.float().numpy(), ws[2][0], ws[2][1],
+                              w4, b4, head)
+    assert (cover == 1).all()
+    args = [torch.from_numpy(a) for a in (x, ws[0][0], ws[0][1], ws[1][0], ws[1][1],
+                                          ws[2][0], ws[2][1], w4[None, None], b4)]
+    want = dk.conv_decoder_plain(args[0].to(torch.bfloat16), *args[1:]).numpy()
+    # x3's rounding may land one bf16 ulp apart where two f32 sums straddle
+    # a rounding point: that moves out by at most ulp x |w4| summed over x3
+    ulp = 2.0 ** -7 * max(1.0, float(np.abs(want).max()))
+    np.testing.assert_allclose(out, want, rtol=1e-5, atol=ulp)
+
+
+def test_decoder_plan_routes():
+    """A width that is not a multiple of 8 (C0 = 3, C3 = 20), an unaligned
+    tensor, or C3 past one 64-channel block column takes the conv core
+    (or is refused); the model's decoder takes wgmma everywhere, with conv1
+    on 32-channel chunks (CK 32) and 64 output channels, conv2 on 128, conv3
+    on 64, and w4's one column in one pass."""
+    h, c0, (c1, c2, c3), co = cs.DECODER
+    p = tp.decoder_plan(8, h, h, c0, c1, c2, c3, co, SMS)
+    assert p["routes"] == ("wgmma",) * 3
+    assert (p["conv1"]["ck"], p["conv1"]["bn"], p["conv2"]["bn"]) == (32, 64, 128)
+    assert (p["head"]["ck"], p["head"]["bn"], p["head"]["oc"]) == (64, 64, 1)
+    assert (p["head"]["tw"], p["head"]["th"], p["head"]["blocks"]) == (128, 1, 8 * h * 4)
+    assert tp.decoder_plan(2, 8, 8, 3, 64, 128, 64, 1, SMS)["routes"] == \
+        ("flat", "wgmma", "flat")
+    assert tp.decoder_plan(2, 8, 8, 32, 64, 128, 20, 1, SMS)["routes"] == \
+        ("wgmma", "wgmma", "flat")
+    assert tp.decoder_plan(2, 8, 8, 32, 64, 128, 64, 1, SMS, (True, False, False))["routes"] \
+        == ("wgmma", "flat", "flat")
+    assert tp.head_columns(288, 1) == 1 and tp.head_columns(288, 100) == 7
+    assert tp.head_columns(4096, 5) == 1
+    with pytest.raises(ValueError):
+        tp.decoder_plan(2, 8, 8, 32, 64, 128, 72, 1, SMS)

@@ -1,6 +1,7 @@
-// K8 and K7 in bf16 on one pipeline: a 3x3 SAME convolution + f32 bias
+// K8, K7 and K6 in bf16 on one pipeline: a 3x3 SAME convolution + f32 bias
 // (+ReLU), NHWC x HWIO -> NHWC, bf16 x, kernel and y, with an optional 2x2
-// max pool of y in its epilogue. The Hopper version of _conv_kernel in
+// max pool of y, or the conv decoder's 1x1 head, in its epilogue. The
+// Hopper version of _conv_kernel in
 // tomosar2height_tpu/ops/pallas/conv_kernel.py:43 (launched by _conv_impl)
 // on bf16 operands (:57-73: the bf16 products summed in f32 onto the bias,
 // the ReLU, one rounding to bf16), which runs every Conv3x3 of a bf16 model
@@ -10,7 +11,12 @@
 // (t2h_conv_pair_bf16: two launches, relu(conv1) rounded to bf16 into the
 // wrapper's scratch and read back by conv2, whose SAME padding stays 0 and
 // not relu(b1); the biases rounded to bf16 and added in f32; the five
-// pooled pairs pool in conv2's epilogue).
+// pooled pairs pool in conv2's epilogue), and of _decoder_kernel in
+// tomosar2height_tpu/ops/pallas/decoder_kernel.py:85 with bf16 x (:26-30,
+// 242-267), the fused_head decoder (t2h_conv_decoder_bf16: x1 =
+// relu(conv1(x)), x2 = relu(conv2(x1)) through the wrapper's bf16 scratch,
+// then conv3 with the head out = b4 + [x, x1, x2, x3] @ w4 in its epilogue,
+// f32 out; every weight and bias rounded to bf16, x1, x2 and x3 too).
 //
 // Bound on the H100: the MACs, 9 Cin Cout a pixel: 2.24 TFLOP for the 43
 // convs of a batch-8 fusion forward, 2.26 ms at 989 TFLOP/s (bf16 dense);
@@ -46,6 +52,19 @@
 //   TMA stores them: a thread a pooled pixel and 8 channels takes the max
 //   of the four bf16-rounded values (the max of the rounded y, as JAX pools
 //   its bf16 y; rounding is monotone) and stores 16 bytes.
+// - K6's head (conv3, Cout = C3 <= 64: BN = 64, one block owns all of x3's
+//   channels for its 128 pixels): the epilogue rounds relu(acc + b3) to
+//   bf16 into the staged box as above and stores nothing; then two threads
+//   a pixel contract x3's staged row, and x, x1 and x2 read at the pixel
+//   (contiguous NHWC rows, 16-byte loads; x2 was just read through L2 by
+//   the taps), with w4 (f32 in shared memory after the ring, loaded before
+//   the products; 8 KB of columns a pass), the two halves added, the parts
+//   summed onto b4 in the plain composition's order; f32 out. x3 never
+//   leaves the block. The head is 288 of ~166k MACs a pixel at the model's
+//   widths (32, 64, 128, 64), so fp32 FMA serves it; its bytes, x, x1 and x2
+//   read once more (0.94 GB at batch 8 and 512^2), are the larger cost.
+//   Bound: 0.697 TFLOP of bf16 products, 0.70 ms at 989 TFLOP/s; x1 and x2
+//   written and read once, x read twice, ~2.6 GB, ~0.8 ms at 3.35 TB/s.
 // - Numerics: each wgmma adds its 16 products into the running f32 sum; a
 //   chain is 9 Cin / 16 adds (576 at Cin 1024), far below what reaches the
 //   one bf16 rounding. Each output is written once: bit-equal run to run.
@@ -54,10 +73,12 @@
 // 6-byte pixel pitch, which the TMA cannot take; it wants 16-byte strides)
 // or x, w, y (or the pooled output) not 16-byte aligned: the conv core's
 // bf16 flat-K path instead (igemm_conv.cuh conv3x3_igemm on mma.sync, with
-// its own pool), chosen by shape here, conv by conv. The host plan (the
-// route, the rectangles, each tap's box origin, BN, the pooled rectangles)
-// is mirrored by ops/cuda/tile_plan.py, which tests/test_torch_tile_plan.py
-// emulates.
+// its own pool), chosen by shape here, conv by conv; K6's third conv with
+// its head takes the core's conv3x3_head_igemm unless C0..C3 are all
+// multiples of 8 and x, x1, x2, w3 16-byte aligned. The host plan (the
+// route, the rectangles, each tap's box origin, BN, the pooled rectangles,
+// the head's w4 columns a pass) is mirrored by ops/cuda/tile_plan.py, which
+// tests/test_torch_tile_plan.py emulates.
 
 #include "igemm_conv.cuh"
 #include "wgmma_bf16.cuh"
@@ -109,18 +130,104 @@ struct ConvCfg {
   static_assert(kStages >= 3 && kBBoxes * kOutBox <= kStages * kStage, "ring");
 };
 
-template <int CK, int BN>
+// The decoder head's columns of w4 a pass (HEAD): ``oc`` of them, as f32
+// rows of oc in shared memory after the ring, so that w4s[k oc + j] is w4's
+// row k, column o0 + j.
+__device__ __forceinline__ void load_head_w4(float* w4s, const DecoderHead<bf16>& h, int ct,
+                                             int o0, int oc, int tid, int nthreads) {
+  const int on = min(oc, h.CO - o0);
+  for (int i = tid; i < ct * on; i += nthreads) {
+    const int k = i / on, j = i - k * on;
+    w4s[k * oc + j] = __bfloat162float(h.w4[(long long)k * h.CO + o0 + j]);
+  }
+}
+
+// one part of the head: the C (a multiple of 8) bf16 values at row (16-byte
+// aligned) against w4s rows koff.., column j; this thread's 16-byte chunks
+// are hf, hf + 2, ...
+__device__ __forceinline__ float head_part(const bf16* __restrict__ row, int C, const float* w4s,
+                                           int koff, int oc, int j, int hf) {
+  float s = 0.0f;
+#pragma unroll 4
+  for (int q = hf; q < C / 8; q += 2) {
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(row) + q);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+    const float* w = w4s + (koff + 8 * q) * oc + j;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f = __bfloat1622float2(h2[e]);
+      s = fmaf(f.x, w[(2 * e) * oc], s);
+      s = fmaf(f.y, w[(2 * e + 1) * oc], s);
+    }
+  }
+  return s;
+}
+
+// K6's head in conv3's epilogue: out = b4 + [x, x1, x2, x3] @ w4 at the
+// block's pixels, x3 (Cout <= 64 channels, one 64-channel box) as staged in
+// the ring in bf16; x, x1 and x2 read at the pixels (contiguous NHWC rows,
+// 16-byte loads). Two threads a pixel, each on every other 16-byte chunk of
+// each part; their sums added, then the parts in the plain composition's
+// order onto b4. w4's columns oc at a time (one pass where CO <= oc).
+__device__ __forceinline__ void run_head(const uint8_t* ring, float* w4s,
+                                         const DecoderHead<bf16>& h, int ct, int oc, int b,
+                                         int x0, int y0, int tw, int th, int H, int W, int C3,
+                                         int tid) {
+  constexpr int kConsumers = 256;
+  const int p = tid >> 1, hf = tid & 1;
+  const int py = p / tw, px = p - py * tw;
+  const int gy = y0 + py, gx = x0 + px;
+  const bool in = py < th && gy < H && gx < W;
+  const long long pix = ((long long)b * H + (in ? gy : 0)) * W + (in ? gx : 0);
+  const int c01 = h.C0 + h.C1, c012 = c01 + h.C2;
+  for (int o0 = 0; o0 < h.CO; o0 += oc) {
+    if (o0 > 0) {
+      named_barrier(1, kConsumers);  // every thread is done with the columns before
+      load_head_w4(w4s, h, ct, o0, oc, tid, kConsumers);
+      named_barrier(1, kConsumers);
+    }
+    const int on = min(oc, h.CO - o0);
+    for (int j = 0; j < on; ++j) {
+      float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (in) {
+        s[0] = head_part(h.x0 + pix * h.C0, h.C0, w4s, 0, oc, j, hf);
+        s[1] = head_part(h.x1 + pix * h.C1, h.C1, w4s, h.C0, oc, j, hf);
+        s[2] = head_part(h.x2 + pix * h.C2, h.C2, w4s, c01, oc, j, hf);
+        for (int q = hf; q < C3 / 8; q += 2) {
+          const uint4 v =
+              *reinterpret_cast<const uint4*>(ring + p * 128 + ((q ^ (p % 8)) << 4));
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&v);
+          const float* w = w4s + (c012 + 8 * q) * oc + j;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            s[3] = fmaf(f.x, w[(2 * e) * oc], s[3]);
+            s[3] = fmaf(f.y, w[(2 * e + 1) * oc], s[3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[i] += __shfl_xor_sync(0xffffffffu, s[i], 1);
+      if (in && hf == 0)
+        h.out[pix * h.CO + o0 + j] = (((__ldg(h.b4 + o0 + j) + s[0]) + s[1]) + s[2]) + s[3];
+    }
+  }
+}
+
+template <int CK, int BN, bool HEAD>
 __global__ void __launch_bounds__(ConvCfg<CK, BN>::kThreads, ConvCfg<CK, BN>::kMinBlocks)
 conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__ CUtensorMap map_w,
               const __grid_constant__ CUtensorMap map_y, const float* __restrict__ bias,
               bf16* __restrict__ pooled, int H, int W, int Cin, int Cout, int tw, int th,
-              int tiles_x, int tiles_y, bool relu) {
+              int tiles_x, int tiles_y, bool relu, const DecoderHead<bf16> head, int oc) {
   using C = ConvCfg<CK, BN>;
   constexpr int S = C::kStages;
   extern __shared__ uint8_t smem_raw[];
   __shared__ __align__(8) uint64_t full[S], empty[S];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  float* w4s = reinterpret_cast<float*>(ring + (size_t)S * C::kStage);  // HEAD: w4's columns
+  const int ct = head.C0 + head.C1 + head.C2 + Cout;                     // HEAD: w4's rows
 
   // block -> (image b, rectangle (tx, ty), channel tile): a rectangle's
   // channel tiles are neighbours, so its input boxes are shared through L2
@@ -162,6 +269,7 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
     return;
   }
 
+  if constexpr (HEAD) load_head_w4(w4s, head, ct, 0, oc, tid, C::kConsumers);
   const int wg = tid / 128;  // pixels 64 wg .. + 64 of the rectangle
   float acc[BN / 2];
 #pragma unroll
@@ -207,6 +315,11 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
                                          (((j % 8) ^ (p % 8)) << 4) + 4 * (lane % 4)) = v;
     }
   }
+  if constexpr (HEAD) {
+    named_barrier(1, C::kConsumers);  // x3 staged; w4's first columns loaded
+    run_head(ring, w4s, head, ct, oc, b, x0, y0, tw, th, H, W, Cout, tid);
+    return;
+  }
   fence_async_shared();
   named_barrier(1, C::kConsumers);
   if (tid == 0) {
@@ -251,10 +364,13 @@ conv3x3_wgmma(const __grid_constant__ CUtensorMap map_x, const __grid_constant__
   if (tid == 0) tma_store_wait_read();
 }
 
-template <int CK, int BN>
+// HEAD: conv3 of K6 with the decoder head in its epilogue (y null: x3 is
+// not written; the head's w4 columns, oc a pass, after the ring)
+template <int CK, int BN, bool HEAD = false>
 cudaError_t launch_conv_wgmma(const bf16* x, const bf16* w, const float* bias, bf16* y,
                               bf16* pooled, const ConvPlan& p, int B, int H, int W, int Cin,
-                              int Cout, bool relu, cudaStream_t stream) {
+                              int Cout, bool relu, cudaStream_t stream,
+                              const DecoderHead<bf16>& head = {}, int oc = 0) {
   using C = ConvCfg<CK, BN>;
   CUtensorMap map_x, map_w, map_y;
   const uint64_t cin = Cin, cout = Cout;
@@ -265,18 +381,21 @@ cudaError_t launch_conv_wgmma(const bf16* x, const bf16* w, const float* bias, b
   if (err == cudaSuccess)
     err = bf16_tensor_map<3>(&map_w, w, {cout, cin, 9}, {cout * 2, cout * 2 * cin},
                              {64u, (uint32_t)CK, 1u}, 128);
-  if (err == cudaSuccess)
+  if (err == cudaSuccess && !HEAD)
     err = bf16_tensor_map<4>(&map_y, y, {cout, (uint64_t)W, (uint64_t)H, (uint64_t)B},
                              {cout * 2, cout * 2 * W, cout * 2 * W * H},
                              {64u, (uint32_t)p.tw, (uint32_t)p.th, 1u}, 128);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(conv3x3_wgmma<CK, BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(C::kSmem));
+  if (HEAD) map_y = map_x;  // unused
+  const size_t smem =
+      C::kSmem + (HEAD ? (size_t)(head.C0 + head.C1 + head.C2 + Cout) * oc * sizeof(float) : 0);
+  err = cudaFuncSetAttribute(conv3x3_wgmma<CK, BN, HEAD>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const long long blocks = (long long)p.rects * ((Cout + BN - 1) / BN);
-  conv3x3_wgmma<CK, BN><<<static_cast<unsigned>(blocks), C::kThreads, C::kSmem, stream>>>(
+  conv3x3_wgmma<CK, BN, HEAD><<<static_cast<unsigned>(blocks), C::kThreads, smem, stream>>>(
       map_x, map_w, map_y, bias, pooled, H, W, Cin, Cout, p.tw, p.th, p.tiles_x, p.tiles_y,
-      relu);
+      relu, head, oc);
   return cudaGetLastError();
 }
 
@@ -298,6 +417,44 @@ inline cudaError_t conv3x3_bf16(const bf16* x, const bf16* w, const float* bias,
     return p.bn == 64 ? T2H_CONV(32, 64) : p.bn == 128 ? T2H_CONV(32, 128) : T2H_CONV(32, 256);
   return p.bn == 64 ? T2H_CONV(64, 64) : p.bn == 128 ? T2H_CONV(64, 128) : T2H_CONV(64, 256);
 #undef T2H_CONV
+}
+
+constexpr int kHeadW4Bytes = 8192;  // shared memory for w4's columns a pass
+
+// The w4 columns a pass of K6's head (tile_plan.decoder_plan's "oc"): as
+// many as fit kHeadW4Bytes of f32 rows, at least one, at most CO.
+inline int head_columns(int ct, int CO) {
+  const int oc = kHeadW4Bytes / (ct * (int)sizeof(float));
+  return oc < 1 ? 1 : oc > CO ? CO : oc;
+}
+
+// The head's wgmma route: every width a multiple of 8 (16-byte rows for the
+// TMA and the head's loads) and x3's within one 64-channel block column,
+// every tensor the head or the conv reads 16-byte aligned.
+inline bool head_wgmma_route(const DecoderHead<bf16>& h, const bf16* x2, const bf16* w3,
+                             int C3) {
+  return h.C0 % 8 == 0 && h.C1 % 8 == 0 && h.C2 % 8 == 0 && C3 % 8 == 0 && C3 <= 64 &&
+         aligned16(h.x0) && aligned16(h.x1) && aligned16(x2) && aligned16(w3);
+}
+
+// K6's third conv with the head in its epilogue: x3 = relu(conv3x3(x2, w3)
+// + b3) rounded to bf16 in shared memory, then h.out = b4 + [x, x1, x2, x3]
+// @ w4; x3 never written. On conv3x3_wgmma (BN = 64: one block owns all of
+// x3's channels for its 128 pixels) where head_wgmma_route holds, else on
+// the conv core (conv3x3_head_igemm).
+inline cudaError_t conv3x3_head_bf16(const bf16* x2, const bf16* w3, const float* b3, int B,
+                                     int H, int W, int C2, int C3, const DecoderHead<bf16>& h,
+                                     cudaStream_t stream) {
+  if (C3 > 64) return cudaErrorInvalidValue;
+  if ((long long)B * H * W * h.CO == 0) return cudaSuccess;
+  if (!head_wgmma_route(h, x2, w3, C3))
+    return conv3x3_head(x2, w3, b3, B, H, W, C2, C3, h, stream);
+  const ConvPlan p = conv_plan(B, H, W, C2, C3, false);
+  const int oc = head_columns(h.C0 + h.C1 + h.C2 + C3, h.CO);
+  return p.ck == 32 ? launch_conv_wgmma<32, 64, true>(x2, w3, b3, nullptr, nullptr, p, B, H, W,
+                                                      C2, C3, true, stream, h, oc)
+                    : launch_conv_wgmma<64, 64, true>(x2, w3, b3, nullptr, nullptr, p, B, H, W,
+                                                      C2, C3, true, stream, h, oc);
 }
 
 }  // namespace t2h
@@ -327,6 +484,26 @@ int t2h_conv_pair_bf16(const bf16* x, const bf16* w1, const float* b1, const bf1
   const cudaError_t err = conv3x3_bf16(x, w1, b1, mid, nullptr, B, H, W, Cin, C1, true, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(conv3x3_bf16(mid, w2, b2, y, pooled, B, H, W, C1, C2, true, stream));
+}
+
+// K6 in bf16: x (B,H,W,C0) NHWC; w1 (3,3,C0,C1), w2 (3,3,C1,C2), w3
+// (3,3,C2,C3) HWIO; w4 (C0+C1+C2+C3, CO); x1 (B,H,W,C1) and x2 (B,H,W,C2)
+// scratch, all bf16; biases and b4 fp32 (bf16-rounded) -> out (B,H,W,CO)
+// fp32. x1 and x2 each rounded to bf16 once, x3 too, in shared memory; C3
+// <= 64. Each conv takes its own route (conv1 and conv2 conv3x3_bf16's,
+// conv3 and the head conv3x3_head_bf16's).
+int t2h_conv_decoder_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                          const float* b2, const bf16* w3, const float* b3, const bf16* w4,
+                          const float* b4, bf16* x1, bf16* x2, float* out, int B, int H,
+                          int W, int C0, int C1, int C2, int C3, int CO, cudaStream_t stream) {
+  if ((long long)B * H * W * CO == 0) return 0;
+  if (C3 > 64) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = conv3x3_bf16(x, w1, b1, x1, nullptr, B, H, W, C0, C1, true, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = conv3x3_bf16(x1, w2, b2, x2, nullptr, B, H, W, C1, C2, true, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const DecoderHead<bf16> head = {x, x1, x2, w4, b4, out, C0, C1, C2, CO};
+  return static_cast<int>(conv3x3_head_bf16(x2, w3, b3, B, H, W, C2, C3, head, stream));
 }
 
 }  // extern "C"

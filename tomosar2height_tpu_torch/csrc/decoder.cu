@@ -24,11 +24,8 @@
 // three TF32 products each (0.697 TFLOP per batch-8 forward at 512^2, 4.2
 // ms at 495/3 TFLOP/s), plus the head's 288 MAC at fp32 FMA.
 //
-// t2h_conv_decoder_bf16: the JAX kernel's bf16 rule (decoder_kernel.py:
-// 26-30,242-267): bf16 x, weights, w4, x1 and x2, biases and b4 rounded to
-// bf16 and added in fp32, x3 rounded to bf16 in shared memory before the
-// head, fp32 accumulation and a fp32 out; one bf16 mma.sync pass a conv
-// (0.70 ms of MACs at 989 TFLOP/s).
+// K6 in bf16 (t2h_conv_decoder_bf16) runs on conv_bf16.cu's TMA-fed wgmma
+// pipeline instead, the head in its third conv's epilogue.
 
 #include "igemm_conv.cuh"
 
@@ -36,18 +33,17 @@ using namespace t2h;
 
 namespace {
 
-template <typename E>
-int conv_decoder(const E* x, const E* w1, const float* b1, const E* w2, const float* b2,
-                 const E* w3, const float* b3, const E* w4, const float* b4, E* x1, E* x2,
-                 float* out, int B, int H, int W, int C0, int C1, int C2, int C3, int CO,
-                 cudaStream_t stream) {
+int conv_decoder(const float* x, const float* w1, const float* b1, const float* w2,
+                 const float* b2, const float* w3, const float* b3, const float* w4,
+                 const float* b4, float* x1, float* x2, float* out, int B, int H, int W, int C0,
+                 int C1, int C2, int C3, int CO, cudaStream_t stream) {
   if ((long long)B * H * W * CO == 0) return 0;
   if (C3 > 64) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = conv3x3_bias(x, w1, b1, x1, nullptr, B, H, W, C0, C1, true, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = conv3x3_bias(x1, w2, b2, x2, nullptr, B, H, W, C1, C2, true, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const DecoderHead<E> head = {x, x1, x2, w4, b4, out, C0, C1, C2, CO};
+  const DecoderHead<float> head = {x, x1, x2, w4, b4, out, C0, C1, C2, CO};
   return static_cast<int>(conv3x3_head(x2, w3, b3, B, H, W, C2, C3, head, stream));
 }
 
@@ -62,16 +58,6 @@ int t2h_conv_decoder(const float* x, const float* w1, const float* b1, const flo
                      const float* b2, const float* w3, const float* b3, const float* w4,
                      const float* b4, float* x1, float* x2, float* out, int B, int H, int W,
                      int C0, int C1, int C2, int C3, int CO, cudaStream_t stream) {
-  return conv_decoder(x, w1, b1, w2, b2, w3, b3, w4, b4, x1, x2, out, B, H, W, C0, C1, C2,
-                      C3, CO, stream);
-}
-
-// The same on bf16 x, weights, w4, x1 and x2; biases and b4 fp32
-// (bf16-rounded); out fp32.
-int t2h_conv_decoder_bf16(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
-                          const float* b2, const bf16* w3, const float* b3, const bf16* w4,
-                          const float* b4, bf16* x1, bf16* x2, float* out, int B, int H,
-                          int W, int C0, int C1, int C2, int C3, int CO, cudaStream_t stream) {
   return conv_decoder(x, w1, b1, w2, b2, w3, b3, w4, b4, x1, x2, out, B, H, W, C0, C1, C2,
                       C3, CO, stream);
 }

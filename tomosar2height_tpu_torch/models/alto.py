@@ -101,7 +101,8 @@ def _sample_plane(x, xy, mask, cache) -> torch.Tensor:
     (alto.py:91-105); on the other sorted layouts (and ``fused`` below 32)
     ``sorted_sample``: ``grid_sample_2d`` whose backward is K5's d_plane
     pass, as K9's is, so that they train bit-equal run to run; on the
-    unsorted plain path ``grid_sample_2d``."""
+    unsorted plain path ``grid_sample_2d``, its backward in a fixed order
+    over the valid rows (the masked ones reach nothing)."""
     plane = x.permute(0, 2, 3, 1)
     reso = plane.shape[1]
     impl = cache.get("impl")
@@ -112,7 +113,7 @@ def _sample_plane(x, xy, mask, cache) -> torch.Tensor:
                            cache["finest"])
     if impl is not None:
         return sorted_sample(plane, cache["xy"], mask, cache["cells"], cache["finest"])
-    return grid_sample_2d(plane, xy)
+    return grid_sample_2d(plane, xy, mask)
 
 
 def _round_trip(level: nn.Module, x, xy, c_last, mask, cache):

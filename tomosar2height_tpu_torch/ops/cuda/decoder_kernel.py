@@ -16,14 +16,19 @@ JAX custom_vjp's (decoder_kernel.py:274-279).
 A bf16 x takes the JAX kernel's bf16 rule (decoder_kernel.py:242-267): every
 weight and bias (w4 and b4 too) rounded to bf16, x1, x2 and x3 rounded to
 bf16, f32 accumulation, and the head's sum of bf16 parts times bf16 w4 in
-f32 onto the rounded b4; the output is float32 (``t2h_conv_decoder_bf16``).
+f32 onto the rounded b4; the output is float32 (``t2h_conv_decoder_bf16``,
+``csrc/conv_bf16.cu``: the three convs on K8's TMA-fed wgmma pipeline, the
+head in the third's epilogue; a conv whose widths are not multiples of 8, or
+whose tensors are not 16-byte aligned, on the conv core instead; its convs
+counted by route, ``conv_decoder_bf16_wgmma`` and ``conv_decoder_bf16_flat``,
+``tile_plan.decoder_plan``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 from tomosar2height_tpu_torch.ops.cuda.conv_kernel import (
     bf16_rounded,
     conv3x3_plain,
@@ -86,6 +91,12 @@ def _conv_decoder_kernel(x, w1, b1, w2, b2, w3, b3, w4, b4):
         runtime.stream_ptr(dev))
     runtime.check(err, name)
     runtime.LAUNCHES[name] += 1
+    if dt == torch.bfloat16:
+        aligned = [all(t.data_ptr() % 16 == 0 for t in ts)
+                   for ts in ((x, w1, x1), (x1, w2, x2), (x, x1, x2, w3))]
+        for route in tile_plan.decoder_plan(bsz, h, wd, c0, c1, c2, c3, co, 1,
+                                            aligned)["routes"]:
+            runtime.LAUNCHES[f"{name}_{route}"] += 1
     return out
 
 

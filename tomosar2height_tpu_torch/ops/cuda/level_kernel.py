@@ -157,7 +157,7 @@ def level_d_plane_plain(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=
     weights uncut, the f32 sum rounded once)."""
     d_s = torch.where(mask[..., None], d_s, torch.zeros_like(d_s))
     cut = d_s.dtype if d_s.dtype == torch.bfloat16 else None
-    return grid_sample_2d_adjoint(acc_dtype(d_s), xy, reso, reso, cut).to(
+    return grid_sample_2d_adjoint(acc_dtype(d_s), xy, reso, reso, cut, mask).to(
         out_dtype or d_s.dtype)
 
 

@@ -41,7 +41,8 @@ _KERNELS = ("pool2", "pool_gather", "scatter_plane2", "fused_level", "fused_leve
             "aligned_scatter_mean_plane_bwd")
 LAUNCHES = {**{k: 0 for n in _KERNELS for k in (n, f"{n}_bf16")},
             "level_d_plane_wide_bf16": 0, "conv3x3_bf16_wgmma": 0, "conv3x3_bf16_flat": 0,
-            "conv_pair_bf16_wgmma": 0, "conv_pair_bf16_flat": 0}
+            "conv_pair_bf16_wgmma": 0, "conv_pair_bf16_flat": 0,
+            "conv_decoder_bf16_wgmma": 0, "conv_decoder_bf16_flat": 0}
 """Kernel launches per wrapper since the last :func:`reset_launches`; each
 kernel counts its launches on bf16 tensors under ``<name>_bf16``
 (:func:`launched`); ``level_d_plane_wide_bf16`` counts the d_plane pass from
@@ -49,7 +50,9 @@ f32 cotangents into a bf16 plane; ``conv3x3_bf16_wgmma`` and
 ``conv3x3_bf16_flat`` split K8's bf16 launches by the route
 ``t2h_conv3x3_bf16`` takes (``tile_plan.conv_route``);
 ``conv_pair_bf16_wgmma`` and ``conv_pair_bf16_flat`` count K7's bf16 convs
-(two a launch) by the route each takes."""
+(two a launch) by the route each takes, ``conv_decoder_bf16_wgmma`` and
+``conv_decoder_bf16_flat`` K6's (three a launch, the third with the
+head)."""
 
 BUILD_INFO: dict = {}
 """Of the library this process loaded: path, whether it was built now, build

@@ -1,6 +1,6 @@
 """The host-side plans of the bf16 kernels on the TMA and wgmma, in plain
-Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8 and K7 in bf16
-(``csrc/conv_bf16.cu``) and K4 in bf16 (``csrc/level_bf16.cu``). The C
+Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8, K7 and K6 in
+bf16 (``csrc/conv_bf16.cu``) and K4 in bf16 (``csrc/level_bf16.cu``). The C
 launchers compute the same plans (the functions and configs there of the
 same names); the wrappers size their scratch and splits from these, and
 ``tests/test_torch_tile_plan.py`` emulates them in numpy: every output
@@ -20,6 +20,12 @@ nine taps, then the ``ck``-channel chunks, each loading the input box
 convs on the same plan; its second conv, where it pools, takes rectangles of
 whole 2x2 windows (even width, height and origins) and pools them in its
 epilogue.
+
+K6 runs its three convs on K8's plan: conv1 and conv2 as K8 (each by its
+own route), conv3 with the decoder head in its epilogue on the plan of
+Cin = C2, Cout = C3 (bn 64: one block column owns all of x3's channels), w4's
+columns ``oc`` a pass (:func:`decoder_plan`); two threads a pixel, each on
+every other 16-byte chunk of each part (:data:`HEAD_THREADS`).
 
 K4: a block owns ``bm`` rows of one batch entry (128, two warpgroups of 64;
 64 at F = 512, where the warpgroups split o's columns), in hidden chunks of
@@ -155,3 +161,44 @@ def tap_origin(x0: int, y0: int, tap: int) -> tuple[int, int]:
     """The (x, y) origin of tap ``tap``'s input box (HWIO tap order: dy =
     tap // 3 - 1, dx = tap % 3 - 1) for the rectangle at (x0, y0)."""
     return x0 + tap % 3 - 1, y0 + tap // 3 - 1
+
+
+HEAD_W4_BYTES = 8192
+"""Shared memory for w4's f32 columns a pass of K6's head (``kHeadW4Bytes``)."""
+
+HEAD_THREADS = 2
+"""Threads a pixel in K6's head (the 256 consumer threads over 128 pixels)."""
+
+
+def head_columns(ct: int, co: int) -> int:
+    """w4's columns a pass of K6's head (``head_columns``): as many as fit
+    HEAD_W4_BYTES of f32 rows of ``ct`` = C0 + C1 + C2 + C3, at least one,
+    at most CO."""
+    return max(1, min(HEAD_W4_BYTES // (4 * ct), co))
+
+
+def head_route(c0: int, c1: int, c2: int, c3: int, aligned: bool = True) -> str:
+    """"wgmma" (conv3 and the head on ``conv3x3_wgmma``: every width a
+    multiple of 8, x3 within one 64-channel block column) or "flat" (the
+    conv core's ``conv3x3_head_igemm``)."""
+    ok = all(c % 8 == 0 for c in (c0, c1, c2, c3)) and c3 <= 64 and aligned
+    return "wgmma" if ok else "flat"
+
+
+def decoder_plan(b: int, h: int, w: int, c0: int, c1: int, c2: int, c3: int, co: int,
+                 sms: int, aligned=(True, True, True)) -> dict:
+    """K6 in bf16: the route of each conv (conv1, conv2, conv3 with the
+    head; ``aligned`` says for each whether the tensors it reads and writes
+    are 16-byte aligned: x, w1, x1; x1, w2, x2; x, x1, x2, w3), conv1's and
+    conv2's plans (:func:`conv_plan`, None on the flat route), and conv3's
+    with the head's columns ``oc`` a pass (None on the flat route). C3 must
+    be at most 64."""
+    if c3 > 64:
+        raise ValueError(f"K6 takes C3 <= 64, got {c3}")
+    routes = (conv_route(c0, c1, aligned[0]), conv_route(c1, c2, aligned[1]),
+              head_route(c0, c1, c2, c3, aligned[2]))
+    plans = [conv_plan(b, h, w, ci, c, sms) if r == "wgmma" else None
+             for r, (ci, c) in zip(routes, ((c0, c1), (c1, c2), (c2, c3)))]
+    if plans[2] is not None:
+        plans[2] = {**plans[2], "oc": head_columns(c0 + c1 + c2 + c3, co)}
+    return {"routes": routes, "conv1": plans[0], "conv2": plans[1], "head": plans[2]}

@@ -3,12 +3,23 @@
 Counterpart of ``tomosar2height_tpu/ops/sampling.py``: torch
 ``F.grid_sample(plane, 2*xy-1, padding_mode='border', align_corners=True)``
 semantics on an NHWC plane. A normalized coordinate u in [0, 1] maps to pixel
-``u * (size - 1)``; out-of-range positions clamp to the border.
+``u * (size - 1)``; out-of-range positions clamp to the border. The sample's
+gathers and the adjoint's adds run in a fixed order on the card
+(``ops/scatter.py``: ``gather_cells``, ``index_add_rows``).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+
+from tomosar2height_tpu_torch.ops.scatter import (
+    TRASH_ROWS,
+    flat_segments,
+    gather_cells,
+    index_add_rows,
+)
 
 
 def _corners(coords: torch.Tensor, h: int, w: int):
@@ -26,15 +37,17 @@ def _corners(coords: torch.Tensor, h: int, w: int):
     return x0, y0, x1, y1, wx, wy
 
 
-def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+def grid_sample_2d(plane: torch.Tensor, coords: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bilinear sample of a (B, H, W, C) plane (row = y, col = x) at (B, N, 2)
-    xy in [0, 1]; returns (B, N, C)."""
+    xy in [0, 1]; returns (B, N, C). With a (B, N) ``mask``, masked rows are
+    sampled too but their cotangents are not added back into the plane (for
+    callers whose masked rows reach nothing: ``ops/scatter.gather_cells``)."""
     b, h, w, c = plane.shape
     flat = plane.reshape(b, h * w, c)
 
     def take(yi, xi):
-        idx = (yi * w + xi).long()[..., None].expand(*yi.shape, c)
-        return torch.gather(flat, 1, idx)
+        return gather_cells(flat, yi * w + xi, mask)
 
     x0, y0, x1, y1, wx, wy = _corners(coords, h, w)
     top = take(y0, x0) * (1 - wx) + take(y0, x1) * wx
@@ -81,17 +94,20 @@ def grid_sample_2d_cut(plane: torch.Tensor, coords: torch.Tensor) -> torch.Tenso
 
 
 def grid_sample_2d_adjoint(g: torch.Tensor, coords: torch.Tensor, h: int, w: int,
-                           cut: torch.dtype | None = None) -> torch.Tensor:
+                           cut: torch.dtype | None = None,
+                           mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The transpose of :func:`grid_sample_2d`: add each point's (B, N, C)
     cotangent into its four pixels of a (B, H, W, C) plane, weighted as the
     sample weighs them; with ``cut``, each weight first cut to that dtype
-    (the transpose of :func:`grid_sample_2d_cut`)."""
+    (the transpose of :func:`grid_sample_2d_cut`); with a (B, N) ``mask``,
+    the rows it keeps only (for cotangents that are zeros at the masked
+    rows: ``ops/scatter.py`` says why)."""
     b, n, c = g.shape
-    base = (torch.arange(b, device=g.device) * (h * w))[:, None]
-    out = torch.zeros(b * h * w, c, device=g.device, dtype=g.dtype)
+    trash = TRASH_ROWS if mask is not None else 0
+    out = torch.zeros(b * h * w + trash, c, device=g.device, dtype=g.dtype)
     for yi, xi, wgt in _corner_weights(coords, h, w):
         if cut is not None:
             wgt = wgt.to(cut).to(g.dtype)
-        idx = (base + (yi * w + xi).long()).reshape(-1)
-        out.index_add_(0, idx, (g * wgt).reshape(b * n, c))
-    return out.reshape(b, h, w, c)
+        idx = flat_segments(yi * w + xi, mask, h * w)
+        index_add_rows(out, idx, (g * wgt).reshape(b * n, c))
+    return out[: b * h * w].reshape(b, h, w, c)

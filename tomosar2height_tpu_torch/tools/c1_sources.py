@@ -1,13 +1,15 @@
-"""Tell apart the sources of run-to-run differences in fused2 training.
+"""Tell apart the sources of run-to-run differences in training.
 
-    python -m tomosar2height_tpu_torch.tools.c1_sources [--root DIR]
+    python -m tomosar2height_tpu_torch.tools.c1_sources [--root DIR] [--path fused2|unsorted]
 
-Runs ``chip_smoke.train_phase``'s determinism check (the flagship fused2
-training step on random patches of the synthetic city: 1 warm-up and 2
-timed optimizer steps of 8 mini-steps, run twice from the same weights on
-the same patches) under several configurations, and prints for each how
-many parameter tensors differ between the two runs, the largest difference
-and the largest window-loss difference:
+Runs ``chip_smoke.train_phase``'s determinism check (the flagship training
+step on random patches of the synthetic city: 1 warm-up and 2 timed
+optimizer steps of 8 mini-steps, run twice from the same weights on the
+same patches), on the fused2 kernel path or (``--path unsorted``) on the
+unsorted point path (``dataset.points.sort: false``, the default config's:
+plain segment ops, gathers and samples), under several configurations, and
+prints for each how many parameter tensors differ between the two runs, the
+largest difference and the largest window-loss difference:
 
 - ``as is``: nothing changed;
 - ``K4 plane plain``: K4's plane (``fused_level``'s scatter-mean) recomputed
@@ -25,6 +27,12 @@ and the largest window-loss difference:
   warnings are printed once each; the mode also switches ops that have one,
   cuDNN's convolutions among them, to it).
 
+On the unsorted path the default configurations are ``as is`` and ``as is
++ warn``: the others replace parts of the fused2 kernels, which that path
+does not run. Its ops switch the mode on for themselves and back to what
+it was (``ops/scatter.fixed_order``), so ``+ warn`` still names any op on
+the path that has no deterministic implementation.
+
 ``--root`` is the root of a checkout (default: this one); its package and
 its ``chip_smoke.py`` are imported from there, so that a parent commit can
 be examined. The replacements patch functions that trees with the atomic
@@ -38,6 +46,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import subprocess
 import sys
@@ -133,9 +142,14 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
-    ap.add_argument("--configs", default="as is,as is + warn,K4 plane plain,"
-                    "K5 d_plane plain,resize plain,cudnn deterministic,all,all + warn")
+    ap.add_argument("--path", choices=("fused2", "unsorted"), default="fused2")
+    ap.add_argument("--configs", default=None, help="default: every configuration on "
+                    "fused2, 'as is,as is + warn' on the unsorted path")
     args = ap.parse_args()
+    if args.configs is None:
+        args.configs = ("as is,as is + warn" if args.path == "unsorted" else
+                        "as is,as is + warn,K4 plane plain,K5 d_plane plain,resize plain,"
+                        "cudnn deterministic,all,all + warn")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     for name in [m for m in sys.modules if m.split(".")[0] == "tomosar2height_tpu_torch"]:
@@ -147,6 +161,7 @@ def main() -> None:
     from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
     from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
     from tomosar2height_tpu_torch.geo import RasterData
+    from tomosar2height_tpu_torch.models import build_model
     from tomosar2height_tpu_torch.models import decoder as dec
     from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
     from tomosar2height_tpu_torch.train import Trainer, build_scheduler, train
@@ -167,6 +182,12 @@ def main() -> None:
                "points": pts}]
     dsm = (ndsm, RasterData((X0, Y0), (X0 + w, Y0 + h), (1.0, 1.0)))
     cfg, model = cs.flagship_model(0)
+    if args.path == "unsorted":
+        cfg = json.loads(json.dumps(cfg))
+        cfg["dataset"]["points"]["sort"] = False
+        weights = model.state_dict()
+        model = build_model(cfg, "cuda")
+        model.load_state_dict(weights)
     tcfg, dcfg = cfg["training"], cfg["dataset"]
     bsz, k = tcfg["batch_size"], tcfg["optimize_every"]
     reso = cfg["model"]["encoder_kwargs"]["plane_resolution"]
@@ -175,7 +196,8 @@ def main() -> None:
     def run():
         ds = SceneDataset(chunks, dcfg, random_sample=True, random_length=bsz * k, dsm=dsm)
         loader = PatchLoader(ds, bsz, dcfg["points"]["bucket_sizes"],
-                             fixed_bucket=dcfg["points"]["train_bucket"], sort_reso=reso,
+                             fixed_bucket=dcfg["points"]["train_bucket"],
+                             sort_reso=reso if args.path == "fused2" else None,
                              shuffle=True, drop_last=True, seed=0, det_stream=True)
         model.load_state_dict(state0)
         trainer = Trainer(model, tcfg)
@@ -234,14 +256,15 @@ def main() -> None:
             key = ".".join(n.split(".")[:2])
             by_module[key] = by_module.get(key, 0) + 1
         dl = max(abs(a - b) for a, b in zip(l1, l2))
-        print(f"[{name}] {len(unequal)} of {len(diff)} tensors differ (largest max|d| "
+        print(f"[{args.path} {name}] {len(unequal)} of {len(diff)} tensors differ (largest max|d| "
               f"{max(diff.values()):.3g}) | window losses max|d| {dl:.3g} m (tol {tol:.3g}) "
               f"| losses {[f'{x:.6f}' for x in l1]} | by module {by_module} | "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         if name.endswith("+ warn"):
             msgs = sorted({str(wm.message).split("\n")[0][:300] for wm in caught
                            if "determinis" in str(wm.message)})
-            print(f"[{name}] {len(msgs)} distinct nondeterminism warnings:", flush=True)
+            print(f"[{args.path} {name}] {len(msgs)} distinct nondeterminism warnings:",
+                  flush=True)
             for m in msgs:
                 print(f"  - {m}", flush=True)
         if not all(np.isfinite(l1 + l2)):

@@ -15,7 +15,13 @@ card, from the port in a given checkout, beside their plain versions:
   library yardstick), all timed by CUDA graph replays (``chip_smoke.graph_ms``,
   as the smoke's kernel rows);
 - ``--kernel decoder``: K6 (``conv_decoder``) at the decoder
-  (``chip_smoke.DECODER``); plain: three cuDNN convs and the head.
+  (``chip_smoke.DECODER``); plain: three cuDNN convs and the head; with
+  ``--dtype bfloat16`` on bf16 x (the weights and biases rounded to bf16,
+  as the model passes them), beside cuDNN's three bare bf16 ``F.conv2d`` on
+  ``channels_last`` at its conv shapes (no ReLU or head: information, no
+  library call computes the decoder), by graph replays; and its first two
+  convs alone on K8 (``conv3x3``, the same kernel at the same shapes), so
+  that the third conv's and the head's share is the rest.
 
     python -m tomosar2height_tpu_torch.tools.time_conv_pair [--root DIR] [--kernel K]
 
@@ -77,10 +83,25 @@ def _cases(kernel, cs, gen, dev, dtype):
                    lib and (lambda a=lib: F.conv2d(*a, padding=1)))
     else:
         h, c0, (c1, c2, c3), co = cs.DECODER
-        a = (x_of(h, c0), *cs._conv_w(gen, c0, c1, 3, dev), *cs._conv_w(gen, c1, c2, 3, dev),
-             *cs._conv_w(gen, c2, c3, 3, dev), *cs._conv_w(gen, c0 + c1 + c2 + c3, co, 1, dev))
+        ws = (*cs._conv_w(gen, c0, c1, 3, dev), *cs._conv_w(gen, c1, c2, 3, dev),
+              *cs._conv_w(gen, c2, c3, 3, dev), *cs._conv_w(gen, c0 + c1 + c2 + c3, co, 1, dev))
+        lib = None
+        if dtype == torch.bfloat16:
+            ws = tuple(t.to(dtype).float() for t in ws)
+            xs = [x_of(h, c).to(dtype) for c in (c0, c1, c2)]
+            lib = [(t.permute(0, 3, 1, 2), k.to(dtype).permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last), bb.to(dtype))
+                for t, k, bb in zip(xs, ws[0:6:2], ws[1:6:2])]
+        a = (x_of(h, c0).to(dtype), *ws)
         yield (f"{h}^2 {c0}->{c1}->{c2}->{c3} head {co}", lambda: dk.conv_decoder(*a),
-               lambda: dk.conv_decoder_plain(*a), None)
+               lambda: dk.conv_decoder_plain(*a),
+               lib and (lambda: [F.conv2d(*x, padding=1) for x in lib]))
+        if dtype == torch.bfloat16:  # conv1 and conv2 alone, as K8 runs them
+            for i, (ci, c) in enumerate(((c0, c1), (c1, c2))):
+                one = (xs[i], ws[2 * i].to(dtype), ws[2 * i + 1])
+                yield (f"conv{i + 1} {h}^2 {ci}->{c} alone", lambda a=one: ck.conv3x3(*a, True),
+                       lambda a=one: ck.conv3x3_plain(*a, True),
+                       lambda x=lib[i]: F.conv2d(*x, padding=1))
 
 
 def main() -> None:
@@ -110,13 +131,12 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     dtype = getattr(torch, args.dtype)
-    if dtype == torch.bfloat16 and args.kernel == "decoder":
-        raise SystemExit("--dtype bfloat16 times conv3x3 and pair")
     names, kfns, pfns, lfns = zip(*_cases(args.kernel, cs, torch.Generator().manual_seed(7),
                                           dev, dtype))
     # the model's calls (each shape with its own pool flag) make the totals;
-    # in bf16 the unpooled twins of the pooled pairs are logged by shape only
-    model = [i for i, n in enumerate(names) if not n.endswith("pool off")]
+    # in bf16 the unpooled twins of the pooled pairs, and the decoder's convs
+    # alone, are logged by shape only
+    model = [i for i, n in enumerate(names) if not n.endswith(("pool off", "alone"))]
     total_k = [kfns[i] for i in model]
     if dtype == torch.bfloat16:  # device time by graph replays, as the smoke's rows
         def ms(fn, warmup=1):
