@@ -155,8 +155,9 @@ Phases, one line each; any failure raises and the script exits non-zero:
    every bf16 kernel of the training path launched.
 
 Phase 3 also holds every backward (K5 at the eight levels: its row pass,
-its d_plane pass (a warp a pixel, the rows of its rectangle of finest
-cells in a fixed order; beside ``F.grid_sample``'s backward) and its weight
+its d_plane pass (a block a tile of pixels; each pixel the rows of its
+rectangle of finest cells in a fixed order; beside ``F.grid_sample``'s
+backward) and its weight
 sums, each a row of its own, pool2's on its run kernel (K1 + K2 in one
 launch, forward and backward each run twice and held bit-equal),
 scatter_plane2's on K2 alone (a warp a 32-row span, each run's cell read
@@ -225,22 +226,23 @@ BF16_FLOP_S = 989e12
 # implicit-GEMM conv of K6's first two passes, K7 and K8's flat-K route, and
 # K6's third conv with the head; TF32 HMMA in every f32 instance, bf16 HMMA
 # in every bf16 instance (each kernel has some, but F32_ONLY's: the f32
-# weight sums, whose bf16 instance is atb_wgmma, and K4, whose bf16
-# instance is fused_level_wgmma)
+# weight sums, whose bf16 instance is atb_wgmma, K4, whose bf16 instance is
+# fused_level_wgmma, and K5's row pass, whose bf16 instance is
+# fused_level_bwd_wgmma)
 MMA_SYNC_KERNELS = ("fused_level_fwd", "fused_level_bwd_rows", "atb_mma",
                     "conv3x3_igemm", "conv3x3_head_igemm")
-F32_ONLY = ("atb_mma", "fused_level_fwd")
+F32_ONLY = ("atb_mma", "fused_level_fwd", "fused_level_bwd_rows")
 # the kernels on Hopper's warpgroup products fed by the TMA: K5's bf16
 # weight sums (csrc/reduce_bf16.cu), K8 and both convs of K7 in bf16
-# (csrc/conv_bf16.cu) and K4 in bf16 (csrc/level_bf16.cu); bf16 HGMMA and
-# UTMALDG in every instance
-WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma", "fused_level_wgmma")
+# (csrc/conv_bf16.cu), K4 in bf16 (csrc/level_bf16.cu) and K5's bf16 row
+# pass (csrc/level_bwd_bf16.cu); bf16 HGMMA and UTMALDG in every instance
+WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma", "fused_level_wgmma", "fused_level_bwd_wgmma")
 TENSOR_CORE_KERNELS = MMA_SYNC_KERNELS + WGMMA_KERNELS
 # the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
 # K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
-# and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the gather)
+# and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the tile gather)
 RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells", "cell_rows",
-               "d_plane_gather")
+               "d_plane_tiles")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -1056,7 +1058,8 @@ def _level_rows(entry, dt, xy, cells, mask, reso: int, gen):
           lambda: [fn() for fn in bwd_k], lambda: [fn() for fn in bwd_p],
           (work["bwd"][0], [(work["bwd"][1], rate), (work["bwd"][2], rate)]),
           tol=bwd_tol)
-    entry("fused_level_bwd_rows" + sfx, "tomosar2height_tpu_torch/csrc/level_bwd.cu",
+    entry("fused_level_bwd_rows" + sfx, "tomosar2height_tpu_torch/csrc/"
+          + ("level_bwd.cu" if f32 else "level_bwd_bf16.cu"),
           "tomosar2height_tpu/ops/pallas/level_bwd_kernel.py:68", rows_pairs,
           lambda: [fn() for fn in rows_k], lambda: [fn() for fn in rows_p],
           (work["rows"][0], [(work["rows"][1], rate)]),

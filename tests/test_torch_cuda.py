@@ -2544,3 +2544,94 @@ class TestUnsortedOrder:
             scale = max(1.0, float(h.double().abs().max()))
             tol = (2.0 ** -5 if dtype == BF else 1e-5) * scale
             assert float((a.cpu().double() - h.double()).abs().max()) <= tol
+
+
+@pytest.mark.cuda
+class TestWgmmaRowPassAndDPlaneTiles:
+    """K5's bf16 row pass on the TMA and wgmma (``csrc/level_bwd_bf16.cu``,
+    its plan ``tile_plan.level_bwd_plan``) at every width class, Fl up to
+    1024, rows that end inside a block, a patch of padding rows only, valid
+    rows with no cell (-1) and ragged widths (padded to multiples of 8),
+    under the JAX package's bf16 rule (``bf16_level_held``) on the rows off
+    the ReLU kink; and K5's d_plane pass as a pixel-tile gather
+    (``d_plane_tiles``) in its three instances at R = 1, 2, 32 and 256, fr =
+    R, and ragged F (the value-at-a-time path), the f32 instance at K5's
+    tolerance of the float64 transpose, the bf16 ones within one bf16 ulp of
+    their plain versions. Each counted and bit-equal on a second launch."""
+
+    @pytest.mark.parametrize("level_reso,f,fl", [
+        (256, 32, 32), (256, 64, 128), (128, 128, 64), (64, 256, 128), (64, 256, 512),
+        (32, 512, 256), (32, 512, 1024), (128, 128, 1024), (64, 20, 12), (32, 8, 8)])
+    def test_bf16_rows_match_plain(self, cuda, level_reso, f, fl):
+        inp = level_inputs(256, level_reso, f, fl, seed=41, b=3, n=1500, empty_last=True)
+        cut = inp[1].shape[1] - 37  # rows that end inside a 128- or 64-row block
+        pts, mask, cells, toff, plane, c_last, weights = (
+            x[:, :cut] if i in (0, 1, 2, 5) else x for i, x in enumerate(inp))
+        cells = cells.copy()
+        cells[0, 3:300:7] = -1  # valid rows with no cell: d_o = g_c there
+        fwd = list(_level_bf16_args((pts, mask, cells, toff, plane, c_last, weights),
+                                    level_reso, 256, cuda))
+        pre = lk.mm(lk.level_sample(fwd[0], fwd[3]), fwd[2][0]) + fwd[2][1]
+        m5 = fwd[5] & ~(pre.float().abs() < 2e-5).any(-1)
+        fwd[5] = m5
+        counts = lk.fused_level_plain(*fwd)[2]
+        g_p, g_c = (_bf(x, cuda) for x in level_cotangents(inp, seed=9))
+        args = (*fwd[:6], counts, g_p, g_c[:, :cut].contiguous(), level_reso, 256)
+        before = dict(runtime.LAUNCHES)
+        got = lk.fused_level_bwd_rows(*args)
+        want = lk.fused_level_bwd_rows_plain(*args)
+        up = tuple(tuple(w.float() for w in a) if isinstance(a, tuple) else
+                   a.float() if torch.is_tensor(a) and a.dtype == BF else a for a in args)
+        ref = lk.fused_level_bwd_rows_plain(*up)
+        torch.cuda.synchronize()
+        _launched("fused_level_bwd_bf16", before)
+        assert got[0].shape == (3, cut, fl) and got[2].shape == (3 * cut, 2 * f)
+        assert all(x.is_contiguous() for x in got)
+        v = m5.reshape(-1)
+        bf16_level_held(got[0], want[0], ref[0])
+        for a, b, r in zip(got[1:], want[1:], ref[1:]):
+            bf16_level_held(a[v], b[v], r[v])
+        assert (got[0][-1] == 0).all()  # the patch of padding rows
+        assert all((x.reshape(3, cut, -1)[-1] == 0).all() for x in got[1:])
+        pad = ~t(mask, cuda).reshape(-1)
+        assert all((x[pad] == 0).all() for x in (got[3], got[4], got[5]))  # d_o, d_h, d_s
+        again = lk.fused_level_bwd_rows(*args)
+        assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+    def test_bf16_rows_plan_matches_the_c_side(self, cuda):
+        """The wrapper holds tile_plan.level_bwd_plan to the C side's at
+        every width class (``t2h_level_bwd_plan_bf16``)."""
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
+        for f, fl in ((32, 32), (64, 128), (128, 1024), (256, 512), (512, 256), (512, 1024)):
+            assert lk._bwd_plan(f, fl) == tp.level_bwd_plan(f, fl)
+
+    @pytest.mark.parametrize("reso,level_reso,f", [
+        (256, 1, 64), (256, 2, 24), (256, 32, 512), (256, 256, 32), (256, 256, 9),
+        (32, 32, 64), (64, 64, 100)])
+    @pytest.mark.parametrize("kind", ["f32", "bf16", "wide"])
+    def test_d_plane_tiles_match_plain(self, cuda, reso, level_reso, f, kind):
+        inp = level_inputs(reso, level_reso, 8, 4, seed=53 + f, b=3, n=2500, empty_last=True)
+        pts, mask, cells = inp[:3]
+        rng = np.random.default_rng(level_reso + f)
+        d_s = t(rng.normal(size=mask.shape + (f,)).astype(np.float32), cuda)
+        if kind == "bf16":
+            d_s = d_s.to(BF)
+        out = BF if kind == "wide" else None
+        xy, c, m = t(pts[..., :2], cuda), t(cells, cuda), t(mask, cuda)
+        name = {"f32": "level_d_plane", "bf16": "level_d_plane_bf16",
+                "wide": "level_d_plane_wide_bf16"}[kind]
+        before = dict(runtime.LAUNCHES)
+        got = lk.level_d_plane(d_s, xy, c, m, level_reso, reso, out)
+        torch.cuda.synchronize()
+        _launched(name, before)
+        assert got.shape == (3, level_reso, level_reso, f) and (got[-1] == 0).all()
+        if kind == "f32":
+            want = lk.level_d_plane_plain(d_s.double(), xy.double(), c, m, level_reso, reso)
+            torch.testing.assert_close(got.double(), want, atol=2e-5, rtol=2e-4)
+        else:
+            want = lk.level_d_plane_plain(d_s, xy, c, m, level_reso, reso, out)
+            assert got.dtype == BF and bf16_ulps(got, want) <= 1
+        assert torch.equal(lk.level_d_plane(d_s, xy, c, m, level_reso, reso, out), got)
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
+        assert lk._d_plane_plan(level_reso, f, reso, d_s.element_size()) == tp.d_plane_plan(
+            level_reso, f, reso, d_s.element_size())

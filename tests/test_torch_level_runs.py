@@ -11,11 +11,13 @@ step by step on fused2's aligned layout (finest 256^2, 1024-cell tiles).
   mode) at 1e-5, every plane cell written once.
 - K5's d_plane (``level_d_plane``, ``csrc/level_bwd.cu``
   ``t2h_level_d_plane``): the mark pass writes each finest cell's row range;
-  a warp a (pixel, feature chunk) walks the pixel's rectangle of finest
-  cells (``cell_span``: the cells of the rows whose corner can touch the
-  pixel, widened by ``MARGIN`` cells each side) in row-major order and each
-  cell's rows in row order, adding weight x d_s where the row's corner
-  touches the pixel. The emulation sums in that order and is held to
+  each pixel adds the rows of its rectangle of finest cells (``cell_span``:
+  the cells of the rows whose corner can touch the pixel, widened by
+  ``MARGIN`` cells each side) in row-major order and each cell's rows in row
+  order, weight x d_s where the row's corner touches the pixel (a block a
+  tile of pixels walks the union of their rectangles in that order:
+  ``tests/test_torch_tile_plan.py`` holds each pixel's terms to this
+  walk's). The emulation sums in that order and is held to
   ``grid_sample_2d_adjoint`` (``level_d_plane_plain``) and to the d_plane of
   the JAX ``fused_level_bwd_call`` (``jax.grad`` of ``fused_level``,
   interpret mode) at K5's tolerance (2e-5 abs + 2e-4 rel), on layouts with
@@ -44,6 +46,7 @@ from test_torch_level import run_jax  # noqa: E402
 from test_torch_level_bwd import jax_grads  # noqa: E402
 from test_torch_scatter_runs import emulate_scatter, rowmajor  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import tile_plan  # noqa: E402
 from tomosar2height_tpu_torch.ops.sorted_scatter import (  # noqa: E402
     PAD_CELL_SENTINEL,
     host_morton_bucket_aligned,
@@ -270,14 +273,22 @@ def emulate_d_plane(d_s, xy, cells, mask, reso, fr=FINEST, margin=MARGIN):
         keys = np.array(keys)
         order = np.lexsort((keys[:, 2], keys[:, 1], keys[:, 0]))  # the warps' sum order
         np.add.at(out, keys[order, 0], np.array(vals, np.float32)[order])
-    # the stores: warp = (pixel, chunk of 32 * VEC features), chunk fastest
-    vec = 4 if f % 4 == 0 and f >= 128 else 2 if f % 2 == 0 and f >= 64 else 1
-    chunks = -(-f // (32 * vec))
-    writes = np.zeros((b * reso * reso, f), np.int64)
-    pix, fc = np.divmod(np.arange(b * reso * reso * chunks), chunks)
-    for k in range(chunks):
-        np.add.at(writes[:, k * 32 * vec:(k + 1) * 32 * vec], pix[fc == k], 1)
-    return (out.reshape(b, reso, reso, f), writes.reshape(b, reso, reso, f), used)
+    # the stores: block = (tile of pixels, chunk of fc features), a thread
+    # (pixel, vec features) (tile_plan.d_plane_plan)
+    p = tile_plan.d_plane_plan(reso, f, fr, d_s.itemsize)
+    writes = np.zeros((b, reso, reso, f), np.int64)
+    pid, g = np.divmod(np.arange(p["threads"]), p["tpp"])
+    for ty in range(p["tiles_y"]):
+        for tx in range(p["tiles_x"]):
+            px, py = tx * p["tx"] + pid % p["tx"], ty * p["ty"] + pid // p["tx"]
+            ok = (pid < p["tx"] * p["ty"]) & (px < reso) & (py < reso)
+            for ch in range(p["chunks"]):
+                for lane in range(p["groups"]):  # thread g's lanes lane * tpp + g
+                    for v in range(p["vec"]):
+                        ff = ch * p["fc"] + (lane * p["tpp"] + g) * p["vec"] + v
+                        k = ok & (ff < f)
+                        np.add.at(writes, (slice(None), py[k], px[k], ff[k]), 1)
+    return out.reshape(b, reso, reso, f), writes, used
 
 
 def pixels_touched(xy, mask, reso):
@@ -391,7 +402,9 @@ def test_d_plane_sums_in_a_fixed_order(layout):
 def test_d_plane_wrapper_and_source():
     """The wrapper launches ``t2h_level_d_plane`` and counts it; K5 runs the
     row pass, then the d_plane pass, then the three reductions; the source
-    keeps the emulated margin and walks the rectangle as emulated."""
+    keeps the emulated margin, walks a tile's rectangle of cells in
+    row-major order and adds to each pixel only the rows of its own
+    rectangle, as emulated."""
     import inspect
 
     src = inspect.getsource(lk.level_d_plane)
@@ -403,7 +416,9 @@ def test_d_plane_wrapper_and_source():
     assert f"constexpr int kMargin = {MARGIN};" in body
     assert "(long long)(p - 1) * fr / (R - 1)) - kMargin" in body
     assert "(long long)(p + 1) * fr / (R - 1)) + kMargin" in body
-    assert "(long long)(loy + ky) * fr + lox + (k - ky * span_x)" in body
+    assert "(long long)(cly + ky) * fr + clx + (k - ky * span_x)" in body
+    assert "if (cy <= hiy && cx >= lox && cx <= hix) {" in body  # the pixel's own cells
+    assert "if ((s_ent[l0 + mid].x >> 16) < loy) e0w = mid + 1;" in body
 
 
 def test_csrc_has_no_atomics():

@@ -1,7 +1,8 @@
-"""The host plans of the bf16 kernels on the TMA and wgmma
-(``ops/cuda/tile_plan.py``, mirrored by ``csrc/reduce_bf16.cu``,
-``csrc/conv_bf16.cu`` and ``csrc/level_bf16.cu``), emulated in numpy on the
-CPU (the sums in float64, the convs in float32):
+"""The host plans of the bf16 kernels on the TMA and wgmma and of K5's
+d_plane pass (``ops/cuda/tile_plan.py``, mirrored by ``csrc/reduce_bf16.cu``,
+``csrc/conv_bf16.cu``, ``csrc/level_bf16.cu``, ``csrc/level_bwd_bf16.cu``
+and ``csrc/level_bwd.cu``), emulated in numpy on the CPU (the sums in
+float64, the convs and the d_plane folds in float32):
 
 - K5's bf16 weight sums at every reduction of the flagship's eight levels
   (``chip_smoke.LEVEL_SHAPES``) and at ragged widths: each block's tile and
@@ -34,6 +35,19 @@ CPU (the sums in float64, the convs in float32):
   to 16), the W_out and c_last stages, o1 parked and c_last W_c added last.
   Every row and output column covered once, every hidden column once a
   row, every K index once a product; c_out equals the plain MLP's.
+- K5's bf16 row pass at the flagship's levels (F = 512 cut to 264, which
+  keeps the split two-phase plan, and at full width), at Fl = 1024 and at
+  ragged widths: each warpgroup's rings taken in order, every row, hidden
+  column and output column covered once, every K index once a product;
+  d_c_last, h, d_h and d_s equal to the plain row pass's (float64, without
+  the bf16 roundings).
+- K5's d_plane pass at every R of the flagship's levels (widths cut) and at
+  R = 1, 2, 3 and fr = R, in both element sizes, on the aligned layout with
+  a crowded corner, masked rows in valid cells and an empty entry: each
+  pixel's rows, as its tile's walk meets them, are a walk of its own
+  rectangle's rows in the same order (the kernel it replaced sums them so:
+  the same bits); every pixel and feature stored once; the float32 folds
+  equal the plain transpose.
 
 The card's tests check that the C side takes the same tiles
 (``tests/test_torch_cuda.py::TestWgmmaBf16Kernels``).
@@ -546,3 +560,452 @@ def test_decoder_plan_routes():
     assert tp.head_columns(4096, 5) == 1
     with pytest.raises(ValueError):
         tp.decoder_plan(2, 8, 8, 32, 64, 128, 72, 1, SMS)
+
+
+# --- K5's bf16 row pass ----------------------------------------------------------------
+
+
+def emulate_level_bwd(s, d_o, weights, f: int, fl: int):
+    """K5 bf16's row pass as its plan computes it, in float64 without its
+    roundings, on one batch entry: s (N, F) the sample, d_o (N, F), weights
+    as the wrapper passes them. Each warpgroup takes its rings' tiles
+    (``tile_plan.level_bwd_tiles``) in order. F <= 256: both warpgroups, for
+    their own 64 rows, ring B's d_c_last stages, then per hidden chunk ring
+    A's boxes for the pre-activation, ring B's W_out^T slices for d_h, and
+    ring A's boxes again, K-major, for d_s. F = 512: warpgroup w, for all 64
+    rows, phase A's pre-activations of its chunks, its half of d_c_last's
+    columns, then per pair of chunks d_h of its chunk (its own gates) and
+    its d_s columns from both chunks' d_h. Returns (d_c_last, h, d_h, d_s)
+    and the coverage counts of each output element and of the K indices of
+    the four products."""
+    p = tp.level_bwd_plan(f, fl)
+    n = s.shape[0]
+    fp, bm, nc, kc, ns, sl = (p[k] for k in ("fp", "bm", "nc", "kc", "ns", "ki"))
+    f16 = -(-f // 16) * 16
+    w_in, b_in, w_out, _, w_c, _ = weights
+    nb = -(-n // bm)
+    # zeros where the TMA zero-fills or the tiles hold zeros
+    sp = np.zeros((nb * bm, fp))
+    sp[:n, :f] = s
+    dp = np.zeros((nb * bm, fp))
+    dp[:n, :f] = d_o
+    wi = np.zeros((fp, p["n_h"] * sl))  # W_in (F, 2F)
+    wi[:f, :2 * f] = w_in
+    wot = np.zeros((fp, p["n_h"] * sl))  # W_out^T (F, 2F)
+    wot[:f, :2 * f] = w_out.T
+    wct = np.zeros((p["n_kc"] * kc, p["n_dc"] * nc))  # W_c^T (F, Fl)
+    wct[:f, :fl] = w_c.T
+    bi = np.zeros(p["n_h"] * sl)
+    bi[:2 * f] = b_in
+    outs = {"d_c_last": np.zeros((n, fl)), "h": np.zeros((n, 2 * f)),
+            "d_h": np.zeros((n, 2 * f)), "d_s": np.zeros((n, f))}
+    cover = {k: np.zeros(v.shape, int) for k, v in outs.items()}
+    kcover = {k: np.zeros(w, int) for k, w in (("c", f), ("pre", f), ("dh", f), ("ds", 2 * f))}
+    tiles = tp.level_bwd_tiles(p)
+
+    def store(key, rows, cols, val):
+        r_hi, c_hi = min(rows.stop, n), min(cols.stop, outs[key].shape[1])
+        if r_hi > rows.start and c_hi > cols.start:
+            outs[key][rows.start:r_hi, cols.start:c_hi] = val[:r_hi - rows.start,
+                                                              :c_hi - cols.start]
+            cover[key][rows.start:r_hi, cols.start:c_hi] += 1
+
+    def k16(v, depth):  # the k16 steps of stage v of `depth` K rows, cut at F16
+        return [slice(v * depth + 16 * kk, v * depth + 16 * kk + 16)
+                for kk in range(max(0, min(depth, f16 - v * depth)) // 16)]
+
+    def mark(key, ks, first, hi):
+        if first:
+            for k in ks:
+                kcover[key][k.start:min(k.stop, hi)] += 1
+
+    def pre_epilogue(acc, rows, c):
+        cols = slice(c * sl, (c + 1) * sl)
+        pre = acc + bi[cols]
+        pre[:, np.arange(cols.start, cols.stop) >= 2 * f] = 0
+        store("h", rows, cols, np.maximum(pre, 0))
+        return pre > 0
+
+    for blk in range(nb):
+        i0, first = blk * bm, blk == 0
+        if not p["split"]:
+            for w in (0, 1):  # a warpgroup's own rows, every tile in order
+                rows = slice(i0 + 64 * w, i0 + 64 * w + 64)
+                ring_a, ring_b = iter(tiles["a"]), iter(tiles["b"])
+                for j in range(p["n_dc"]):
+                    acc = np.zeros((64, nc))
+                    for v in range(p["n_kc"]):
+                        assert next(ring_b) == ("c", j, v)
+                        for k in k16(v, kc):
+                            acc += dp[rows, k] @ wct[k, j * nc:(j + 1) * nc]
+                        mark("c", k16(v, kc), first and w == 0 and j == 0, f)
+                    store("d_c_last", rows, slice(j * nc, (j + 1) * nc), acc)
+                ds = np.zeros((64, ns))
+                for c in range(p["n_h"]):
+                    cols = slice(c * sl, (c + 1) * sl)
+                    acc = np.zeros((64, sl))
+                    for v in range(p["n_in"]):
+                        assert next(ring_a) == ("in", c, v)
+                        for k in k16(v, sl):
+                            acc += sp[rows, k] @ wi[k, cols]
+                        mark("pre", k16(v, sl), first and w == 0 and c == 0, f)
+                    gate = pre_epilogue(acc, rows, c)
+                    acc = np.zeros((64, sl))
+                    for v in range(p["n_in"]):
+                        assert next(ring_b) == ("out", c, v)
+                        for k in k16(v, sl):
+                            acc += dp[rows, k] @ wot[k, cols]
+                        mark("dh", k16(v, sl), first and w == 0 and c == 0, f)
+                    dh = np.where(gate, acc, 0)
+                    store("d_h", rows, cols, dh)
+                    ds += dh @ wi[:ns, cols].T  # ring A's boxes again, K-major
+                    if first and w == 0:
+                        kcover["ds"][cols.start:min(cols.stop, 2 * f)] += 1
+                store("d_s", rows, slice(0, ns), ds)
+            continue
+        rows = slice(i0, i0 + 64)
+        seq = [list(tiles["wg0"]), list(tiles["wg1"])]
+
+        def take(w, kind):
+            t = seq[w].pop(0)
+            assert t[0] == kind, (t, kind)
+            return t
+
+        gates = {}
+        for w in (0, 1):  # phase A: the pre-activations of the warpgroup's chunks
+            while seq[w] and seq[w][0][0] == "in":
+                c = seq[w][0][1]
+                assert c % 2 == w
+                acc = np.zeros((64, sl))
+                for v in range(p["n_in"]):
+                    assert take(w, "in") == ("in", c, v)
+                    for k in k16(v, sl):
+                        acc += sp[rows, k] @ wi[k, c * sl:(c + 1) * sl]
+                    mark("pre", k16(v, sl), first and c == 0, f)
+                gates[c] = (w, pre_epilogue(acc, rows, c))
+        half = nc // 2
+        for w in (0, 1):  # d_c_last: half of each column chunk's columns
+            for j in range(p["n_dc"]):
+                cols = slice(j * nc + half * w, j * nc + half * w + half)
+                acc = np.zeros((64, half))
+                for v in range(p["n_kc"]):
+                    assert take(w, "c") == ("c", j, v)
+                    for k in k16(v, kc):
+                        acc += dp[rows, k] @ wct[k, cols]
+                    mark("c", k16(v, kc), first and w == 0 and j == 0, f)
+                store("d_c_last", rows, cols, acc)
+        ds = [np.zeros((64, ns)) for _ in (0, 1)]
+        for pr in range(-(-p["n_h"] // 2)):
+            dh = {}
+            for w in (0, 1):  # d_h of the warpgroup's chunk of the pair
+                c = 2 * pr + w
+                if c >= p["n_h"]:
+                    continue
+                acc = np.zeros((64, sl))
+                for v in range(p["n_in"]):
+                    assert take(w, "out") == ("out", c, v)
+                    for k in k16(v, sl):
+                        acc += dp[rows, k] @ wot[k, c * sl:(c + 1) * sl]
+                    mark("dh", k16(v, sl), first and c == 0, f)
+                owner, gate = gates[c]
+                assert owner == w  # its own gates
+                dh[c] = np.where(gate, acc, 0)
+                store("d_h", rows, slice(c * sl, (c + 1) * sl), dh[c])
+            for w in (0, 1):  # its d_s columns from both chunks' d_h
+                while seq[w] and seq[w][0][0] == "ds" and seq[w][0][1] // 2 == pr:
+                    _, c, v = take(w, "ds")
+                    assert 4 * w <= v < 4 * w + 4
+                    nr = slice(v * sl, (v + 1) * sl)  # the box's rows: d_s columns
+                    ds[w][:, nr.start - ns * w:nr.stop - ns * w] += \
+                        dh[c] @ wi[nr, c * sl:(c + 1) * sl].T
+                    if first and v == 0:
+                        kcover["ds"][c * sl:min((c + 1) * sl, 2 * f)] += 1
+        assert not seq[0] and not seq[1]
+        for w in (0, 1):
+            store("d_s", rows, slice(ns * w, ns * w + ns), ds[w])
+    return outs, cover, kcover
+
+
+def _level_bwd_cases():
+    seen = [(_narrow_level(f), _narrow_level(fl)) for _, f, fl in cs.LEVEL_SHAPES]
+    return list(dict.fromkeys(seen)) + [(512, 256), (512, 1024), (256, 128), (8, 8), (24, 600),
+                                        (200, 40), (96, 8)]
+
+
+def _narrow_level(w: int) -> int:
+    """A level width cut for the CPU: each width class kept (32 and 64 in
+    FP = 64, 128, 256), 512 cut to 264 (FP = 512: the split plan)."""
+    return {512: 264}.get(w, w)
+
+
+@pytest.mark.parametrize("f,fl", _level_bwd_cases())
+def test_level_bwd_plan_covers_and_sums(f, fl):
+    """K5 bf16's row-pass plan at the flagship's levels (F = 512 cut to 264,
+    which keeps the split plan of FP = 512, and at full width), at Fl = 1024
+    and at ragged widths (F 8, 24: k16 steps past F; 200: a cut box; Fl 600:
+    a ragged column chunk), on 300 rows (a ragged last block): every row,
+    hidden column and output column covered once, every K index once a
+    product, and d_c_last, h, d_h and d_s equal to the plain row pass's."""
+    rng = np.random.default_rng(f + 7 * fl)
+    n = 300 if f < 256 else 130
+    s = rng.normal(size=(n, f))
+    d_o = rng.normal(size=(n, f))
+    weights = (rng.normal(size=(f, 2 * f)) / np.sqrt(f), rng.normal(size=2 * f),
+               rng.normal(size=(2 * f, f)) / np.sqrt(2 * f), rng.normal(size=f),
+               rng.normal(size=(fl, f)) / np.sqrt(fl), rng.normal(size=f))
+    outs, cover, kcover = emulate_level_bwd(s, d_o, weights, f, fl)
+    assert all((c == 1).all() for c in cover.values())
+    assert all((k == 1).all() for k in kcover.values())
+    w_in, b_in, w_out, _, w_c, _ = weights
+    pre = s @ w_in + b_in
+    d_h = (d_o @ w_out.T) * (pre > 0)
+    want = {"d_c_last": d_o @ w_c.T, "h": np.maximum(pre, 0), "d_h": d_h, "d_s": d_h @ w_in.T}
+    for k, v in want.items():
+        np.testing.assert_allclose(outs[k], v, rtol=1e-12, atol=1e-10, err_msg=k)
+
+
+def test_level_bwd_plan_tiles():
+    """The plan's classes: 128 rows a block up to F = 256, 64 and the split
+    at F = 512; every class's shared memory fits (two blocks an SM at FP =
+    64) with room for the static part; ring A holds one chunk of W_in; ring
+    B takes d_c_last's stages first, then each chunk's W_out^T slices; at F
+    = 512 each warpgroup's ring its phase-A boxes, its d_c_last stages, then
+    per pair its d_h slices and its d_s boxes."""
+    assert [tp.level_bwd_plan(f, 64)["bm"] for f in (8, 32, 64, 128, 256, 512)] == \
+        [128] * 5 + [64]
+    for f in (64, 128, 256, 512):
+        q = tp.level_bwd_plan(f, 64)
+        assert q["smem"] + 6144 <= 232448 // (2 if f == 64 else 1)
+        assert q["ns"] * (2 if q["split"] else 1) == q["fp"]
+        assert q["kc"] * q["nc"] * (1 if q["split"] else 2) == tp.LEVEL_BWD_STAGE
+    q = tp.level_bwd_plan(256, 128)
+    assert q["slots"] * q["ki"] == q["fp"] and (q["stages"], q["kc"]) == (5, 16)
+    t = tp.level_bwd_tiles(q)
+    assert t["b"][:16] == [("c", 0, v) for v in range(16)] and t["b"][16:20] == \
+        [("out", 0, v) for v in range(4)] and len(t["a"]) == 8 * 4
+    p = tp.level_bwd_plan(512, 256)
+    assert p["split"] and (p["n_h"], p["n_in"], p["n_dc"], p["n_kc"], p["stages"], p["kc"]) == \
+        (16, 8, 1, 16, 8, 32)
+    t = tp.level_bwd_tiles(p)
+    w0, w1 = t["wg0"], t["wg1"]
+    assert w0[:8] == [("in", 0, v) for v in range(8)] and w1[:8] == [("in", 1, v) for v in range(8)]
+    assert w0[64:80] == [("c", 0, v) for v in range(16)]
+    assert w0[80:88] == [("out", 0, v) for v in range(8)]
+    assert w0[88:96] == [("ds", 0, v) for v in range(4)] + [("ds", 1, v) for v in range(4)]
+    assert w1[88:96] == [("ds", 0, v) for v in range(4, 8)] + [("ds", 1, v) for v in range(4, 8)]
+    assert len(w0) == len(w1) == 64 + 16 + 8 * 16
+    assert tuple(tp.LEVEL_BWD_PLAN_KEYS) == tuple(p)
+    with pytest.raises(ValueError):
+        tp.level_bwd_plan(520, 8)
+
+
+# --- K5's d_plane pass ------------------------------------------------------------------
+
+
+def _rowmajor(code, reso):
+    return cs.morton_rowmajor(np.asarray(code, np.int64), reso)
+
+
+def _corner(u, v, r):
+    """csrc/bilinear.cuh bilinear_corner in float32: x0, y0, x1, y1, wx, wy."""
+    rmax = np.float32(r - 1)
+    x = np.minimum(np.maximum(u * rmax, np.float32(0)), rmax)
+    y = np.minimum(np.maximum(v * rmax, np.float32(0)), rmax)
+    x0 = np.clip(np.floor(x).astype(np.int64), 0, r - 1)
+    y0 = np.clip(np.floor(y).astype(np.int64), 0, r - 1)
+    wx = (x - x0.astype(np.float32)).astype(np.float32)
+    wy = (y - y0.astype(np.float32)).astype(np.float32)
+    return x0, y0, np.minimum(x0 + 1, r - 1), np.minimum(y0 + 1, r - 1), wx, wy
+
+
+def _corner_weight(corner, px, py):
+    """csrc/level_bwd.cu corner_weight at (px, py), uncut (float32)."""
+    x0, y0, x1, y1, wx, wy = corner
+    one = np.float32(1)
+    w = np.zeros(np.shape(x0), np.float32)
+    for yy, xx, wt in ((y0, x0, (one - wx) * (one - wy)), (y0, x1, wx * (one - wy)),
+                       (y1, x0, (one - wx) * wy), (y1, x1, wx * wy)):
+        w = np.where((yy == py) & (xx == px), w + wt, w).astype(np.float32)
+    return w
+
+
+def d_plane_layout(seed: int, fr: int, n: int, b: int = 2):
+    """b patches of n points on the aligned layout at finest resolution fr
+    (pads past the points, cells PAD_CELL_SENTINEL), entry 0 with a crowded
+    corner and some valid cells' rows masked, the last entry empty. Returns
+    xy (b, Npad, 2), cells (b, Npad), mask (b, Npad) and each finest cell's
+    row range (start, end) at its row-major index, as the mark pass writes
+    it."""
+    from tomosar2height_tpu_torch.ops.sorted_scatter import host_morton_bucket_aligned
+
+    rng = np.random.default_rng(seed)
+    tile = min(1024, fr * fr)
+    out = []
+    for i in range(b):
+        p = rng.uniform(0, 1, (n, 3)).astype(np.float32)
+        p[:3, :2] = [[0, 0], [1, 1], [0.5, 0.5]]
+        if i == 0:
+            p[3:n // 4, :2] = rng.uniform(0.0, 0.08, (n // 4 - 3, 2))
+        m = np.full(n, i < b - 1)
+        a = host_morton_bucket_aligned(p, m, fr, tile_cells=tile)
+        out.append(a)
+    npad = max(len(a["mask"]) for a in out)
+    xy = np.full((b, npad, 2), 0.5, np.float32)
+    cells = np.full((b, npad), np.iinfo(np.int32).max, np.int64)
+    mask = np.zeros((b, npad), bool)
+    for i, a in enumerate(out):
+        k = len(a["mask"])
+        xy[i, :k], cells[i, :k], mask[i, :k] = a["points"][:, :2], a["cells"], a["mask"]
+    mask[0, ::7] = False  # masked rows inside valid cells
+    start = np.zeros((b, fr * fr), np.int64)
+    end = np.zeros((b, fr * fr), np.int64)
+    for i in range(b):
+        ok = cells[i] < fr * fr
+        rm = _rowmajor(cells[i][ok], fr)
+        rows = np.flatnonzero(ok)
+        for c in np.unique(rm):
+            sel = rows[rm == c]
+            assert (np.diff(sel) == 1).all()  # one run a cell
+            start[i, c], end[i, c] = sel[0], sel[-1] + 1
+    return xy, cells.astype(np.int32), mask, start, end
+
+
+def emulate_d_plane_tiles(d_s, xy, mask, start, end, r: int, fr: int, elem: int, picks=()):
+    """``d_plane_tiles`` as its plan walks: per tile, the cells under its
+    rectangle in row-major order, ``cells`` a step, their rows in order,
+    ``cap`` a batch; each pixel adds, in that order, the rows of its own
+    rectangle whose corner weight there is not 0. Returns d_plane (B, R, R,
+    F; float32 folds), the row sequences of the pixels ``picks`` ({(b, py,
+    px): [rows]}), and the stores' counts (B, R, R, F)."""
+    b, _, f = d_s.shape
+    p = tp.d_plane_plan(r, f, fr, elem)
+    out = np.zeros((b, r, r, f), np.float32)
+    seqs = {}
+    picks = set(picks)
+    lo, hi = np.array([tp.cell_span(v, r, fr) for v in range(r)]).T
+    for bi in range(b):
+        corner = _corner(xy[bi, :, 0], xy[bi, :, 1], r)
+        for ty in range(p["tiles_y"]):
+            for tx in range(p["tiles_x"]):
+                (x0, x1, y0, y1), (cx0, cx1, cy0, cy1) = tp.d_plane_tile_rect(p, r, fr, tx, ty)
+                cy, cx = np.divmod(np.arange((cy1 - cy0 + 1) * (cx1 - cx0 + 1)), cx1 - cx0 + 1)
+                cy, cx = cy + cy0, cx + cx0
+                at = cy * fr + cx
+                # the list: the steps of `cells` cells in order, each cell's
+                # rows in order (the batches of `cap` rows keep that order)
+                n = end[bi, at] - start[bi, at]
+                if n.sum() == 0:
+                    continue
+                first = np.repeat(start[bi, at] - np.cumsum(n) + n, n)
+                lst = first + np.arange(n.sum())
+                lcy, lcx = np.repeat(cy, n), np.repeat(cx, n)
+                pys, pxs = np.meshgrid(np.arange(y0, y1 + 1), np.arange(x0, x1 + 1), indexing="ij")
+                pys, pxs = pys.ravel()[:, None], pxs.ravel()[:, None]
+                inr = ((lcy >= lo[pys]) & (lcy <= hi[pys]) & (lcx >= lo[pxs])
+                       & (lcx <= hi[pxs]) & mask[bi, lst])
+                w = _corner_weight(tuple(c[lst] for c in corner), pxs, pys)
+                w = np.where(inr, w, np.float32(0))
+                pys, pxs = pys[:, 0], pxs[:, 0]
+                acc = np.zeros((len(pys), f), np.float32)
+                for e, row in enumerate(lst):  # the fold, in list order
+                    hit = w[:, e] != 0
+                    if hit.any():
+                        acc[hit] = (acc[hit] + w[hit, e, None] * d_s[bi, row]).astype(np.float32)
+                out[bi, pys, pxs] = acc
+                for k, (y, x) in enumerate(zip(pys, pxs)):
+                    if (bi, y, x) in picks:
+                        seqs[(bi, y, x)] = list(lst[w[k] != 0])
+    # the stores: block (tile, chunk), thread -> (pixel, vec features)
+    writes = np.zeros((b, r, r, f), int)
+    tid = np.arange(p["threads"])
+    pid, g = np.divmod(tid, p["tpp"])
+    for ty in range(p["tiles_y"]):
+        for tx in range(p["tiles_x"]):
+            px, py = tx * p["tx"] + pid % p["tx"], ty * p["ty"] + pid // p["tx"]
+            ok = (pid < p["tx"] * p["ty"]) & (px < r) & (py < r)
+            for ch in range(p["chunks"]):
+                for lane in range(p["groups"]):  # thread g's lanes lane * tpp + g
+                    for v in range(p["vec"]):
+                        ff = ch * p["fc"] + (lane * p["tpp"] + g) * p["vec"] + v
+                        k = ok & (ff < f)
+                        np.add.at(writes, (slice(None), py[k], px[k], ff[k]), 1)
+    return out, seqs, writes
+
+
+def own_walk(xy, mask, start, end, r: int, fr: int, bi: int, px: int, py: int):
+    """The rows a walk of pixel (px, py)'s own rectangle adds, in its order
+    (the cells row-major, each cell's rows in order, nonzero weights)."""
+    lox, hix = tp.cell_span(px, r, fr)
+    loy, hiy = tp.cell_span(py, r, fr)
+    rows = [np.arange(start[bi, cy * fr + cx], end[bi, cy * fr + cx])
+            for cy in range(loy, hiy + 1) for cx in range(lox, hix + 1)]
+    rows = np.concatenate(rows) if rows else np.zeros(0, int)
+    rows = rows[mask[bi, rows]]
+    w = _corner_weight(_corner(xy[bi, rows, 0], xy[bi, rows, 1], r), px, py)
+    return list(rows[w != 0])
+
+
+def _d_plane_cases():
+    seen = [(r, _narrow_dplane(f), 256) for r, f, _ in cs.LEVEL_SHAPES]
+    return list(dict.fromkeys(seen)) + [(1, 8, 8), (2, 24, 8), (3, 8, 16), (32, 8, 32),
+                                        (16, 40, 16)]
+
+
+def _narrow_dplane(f: int) -> int:
+    """A level width cut for the CPU: 512 to 264 (at R = 32 still 16 threads
+    a pixel, a ragged last lane group)."""
+    return {512: 264}.get(f, f)
+
+
+@pytest.mark.parametrize("r,f,fr", _d_plane_cases())
+@pytest.mark.parametrize("elem", [2, 4])
+def test_d_plane_plan_walks_each_pixel_in_its_order(r, f, fr, elem):
+    """The d_plane pass's tiles at every level R of the flagship (fr = 256,
+    widths cut) and at R = 1, 2, 3, fr = R and a ragged F, on the aligned
+    layout with a crowded corner, masked rows in valid cells and an empty
+    entry: each pixel's rows are those of a walk of its own rectangle, in
+    the same order (the parent kernel's sum, term by term); every pixel and
+    feature stored once; the sums equal the plain transpose."""
+    n = (1000 if r == 256 else 1200) if fr == 256 else 60 * fr // 8 + 40
+    xy, cells, mask, start, end = d_plane_layout(r * 31 + f + fr, fr, n)
+    rng = np.random.default_rng(r + f)
+    d_s = rng.normal(size=mask.shape + (f,)).astype(np.float32)
+    b = mask.shape[0]
+    picks = [(bi, py, px) for bi in range(b) for py in range(r) for px in range(r)]
+    step = max(1, len(picks) // 300)  # a sample of the pixels, corners included
+    picks = picks[::step] + [(0, 0, 0), (0, r - 1, r - 1), (0, 0, r - 1)]
+    out, seqs, writes = emulate_d_plane_tiles(d_s, xy, mask, start, end, r, fr, elem, picks)
+    assert (writes == 1).all()
+    for bi, py, px in picks:
+        assert seqs.get((bi, py, px), []) == own_walk(xy, mask, start, end, r, fr, bi, px, py)
+    want = lk.level_d_plane_plain(torch.from_numpy(d_s), torch.from_numpy(xy),
+                                  torch.from_numpy(cells), torch.from_numpy(mask), r, fr)
+    np.testing.assert_allclose(out, want.numpy(), rtol=2e-4, atol=2e-5)
+    assert (out[-1] == 0).all()
+
+
+def test_d_plane_plan_tiles():
+    """The plan's shapes: 16-byte lanes; more pixels at fine levels (R = fr:
+    a thread takes up to 32 sums, 256 pixels a block at F = 32 in bf16),
+    fewer at coarse ones (R = fr / 8: 16 threads a pixel, 16 pixels, a 4 x 4
+    tile, F = 512 in one chunk); a ragged F in f32 at R = fr; the line
+    buffers hold 24 KB; the tiles cover R; the C side's key order."""
+    p = tp.d_plane_plan(256, 32, 256, 2)
+    assert (p["vec"], p["fc"], p["tpp"], p["groups"], p["tx"], p["ty"], p["chunks"]) == \
+        (8, 32, 1, 4, 16, 16, 1)
+    p = tp.d_plane_plan(128, 128, 256, 2)
+    assert (p["tpp"], p["groups"], p["tx"], p["ty"], p["chunks"]) == (4, 4, 8, 8, 1)
+    p = tp.d_plane_plan(32, 512, 256, 2)
+    assert (p["fc"], p["tpp"], p["groups"], p["tx"], p["ty"], p["chunks"], p["lines"]) == \
+        (512, 16, 4, 4, 4, 1, 24)
+    p = tp.d_plane_plan(32, 512, 256, 4)
+    assert (p["vec"], p["fc"], p["groups"], p["chunks"], p["tiles_x"], p["tiles_y"]) == \
+        (4, 512, 8, 1, 8, 8)
+    p = tp.d_plane_plan(64, 100, 64, 4)
+    assert (p["tpp"], p["groups"], p["fc"], p["chunks"]) == (4, 7, 112, 1)
+    p = tp.d_plane_plan(3, 4, 3, 4)
+    assert (p["tpp"], p["tx"], p["ty"], p["tiles_x"], p["tiles_y"]) == (1, 16, 16, 1, 1)
+    assert p["lines"] == p["cap"] == p["cells"] == 512
+    assert tuple(tp.D_PLANE_PLAN_KEYS) == tuple(p)
+    with pytest.raises(ValueError):
+        tp.d_plane_plan(64, 8, 32, 4)

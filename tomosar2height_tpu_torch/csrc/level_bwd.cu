@@ -45,18 +45,21 @@
 //    ring of 32-row steps; the blocks of the first k-tile also sum the
 //    columns of the B tiles they hold (the bias gradient), and a second pass
 //    sums the splits in a fixed order.
-// 3. t2h_level_d_plane (cell_rows + d_plane_gather): d_plane, the bilinear
+// 3. t2h_level_d_plane (cell_rows + d_plane_tiles): d_plane, the bilinear
 //    transpose of d_s, gathered by its pixels. Pixel (px, py) receives from
 //    the rows whose corner has x0 in {px-1, px} and y0 in {py-1, py}, so u *
 //    (R-1) in [px-1, px+1): their finest cells (the host's trunc(u * fr),
 //    fr the finest resolution) lie in a rectangle, widened by one cell on
 //    each side against rounding (cell_span). A mark pass writes each finest
 //    cell's row range [start, end) (its rows are contiguous on the aligned
-//    layout: the run head writes start, the run tail end); a warp a
-//    (pixel, feature chunk), lanes on features, walks the rectangle's cells
-//    in row-major order and each cell's rows in row order, recomputes each
-//    row's corner with bilinear_corner and adds w * d_s where the corner
-//    touches the pixel. Each pixel is written once, from one fixed-order sum.
+//    layout: the run head writes start, the run tail end); a block owns a
+//    tile of pixels and a chunk of features, walks the cells under the
+//    union of its pixels' rectangles in row-major order and each cell's
+//    rows in row order (each row's corner computed once, its d_s line read
+//    once into shared memory), and each pixel adds w * d_s of the rows of
+//    its own rectangle whose corner touches it, in that order: each pixel
+//    written once, from the fixed-order sum a walk of its own rectangle
+//    takes.
 //
 // Bound on the H100: the MACs. A row costs 10F^2 + 2F*Fl MAC (6F^2 + F*Fl
 // in phase 1, 4F^2 + F*Fl in phase 2), three TF32 products each, ~2.9M at
@@ -71,22 +74,24 @@
 // hidden chunk (pre, d_o W_out^T) give each warp one or two n-tiles a k8
 // step, so the operand splits outweigh the MMAs there; F-wide chunks with
 // d_h read back from scratch spilled at F = 512 and ran slower at F = 256.
-// bf16 (each phase templated on the element type, t2h_*_bf16): bf16 inputs,
-// scratch rows and outputs, f32 accumulators, the JAX kernel's rounding
-// points (level_bwd_kernel.py:206-256): phase 1 recomputes s and pre as K4's
-// bf16 instance, the relu gate from the rounded pre, d_o = bf16(g_c +
-// bf16(g_plane / count)), d_h, d_s and d_c_last each rounded once from
-// their f32 products, on one bf16 mma.sync pass (mma_bf16.cuh); phase 2
-// in bf16 is reduce_bf16.cu's (t2h_level_bwd_reduce_bf16: TMA and wgmma,
-// the f32 sums rounded to bf16 once); phase 3 cuts each
+// bf16 (t2h_*_bf16): bf16 inputs, scratch rows and outputs, f32
+// accumulators, the JAX kernel's rounding points (level_bwd_kernel.py:
+// 206-256). Phase 1 in bf16 is level_bwd_bf16.cu's (TMA and wgmma: s and
+// pre recomputed as K4's bf16 instance, the relu gate from the rounded pre,
+// d_o = bf16(g_c + bf16(g_plane / count)), d_h, d_s and d_c_last each
+// rounded once from their f32 products); fused_level_bwd_rows here is f32
+// only. Phase 2 in bf16 is reduce_bf16.cu's (t2h_level_bwd_reduce_bf16:
+// TMA and wgmma, the f32 sums rounded to bf16 once); phase 3 cuts each
 // corner weight to bf16 as the forward does and rounds each pixel's f32
 // sum once (JAX rounds each tile's halo window, then folds the windows in
 // bf16: a deliberate difference, tests/test_torch_bf16_sorted.py).
 //
-// Phase 3 is bound by bytes (d_s on the valid rows, d_plane written once);
-// each d_s row is read by its four pixels' warps, mostly from L2, and a
-// warp's walk is a chain of dependent loads (offsets, corners, d_s), which
-// the loads of 8 rows at once shorten.
+// Phase 3 is bound by bytes (d_s on the valid rows, d_plane written once).
+// A warp a pixel read each row's d_s once for each pixel whose rectangle
+// holds it (4-9 of them), recomputed its corner as often, and walked its
+// rectangle as a chain of dependent loads (offsets, rows, corners, d_s);
+// a tile's block reads each row's line once (the tiles' rectangles overlap
+// by their margins) in three dependent steps a walk step.
 
 #include <algorithm>
 
@@ -583,7 +588,6 @@ __global__ void sum_splits(const float* __restrict__ part, int splits, int Ka, i
 
 constexpr unsigned kFullMask = 0xffffffffu;
 constexpr int kMargin = 1;  // finest cells added on each side of a pixel's rectangle
-constexpr int kLoads = 8;   // d_s rows a warp loads at once
 
 // The mark pass: each finest cell's row range [start, end) in batch entry
 // blockIdx.y, at the cell's row-major index (a thread a row). A cell's rows
@@ -642,105 +646,334 @@ __device__ __forceinline__ float corner_weight(const Corner& c, int px, int py) 
   return w;
 }
 
-// A warp a (pixel, chunk of 32 * VEC features), chunk fastest, lanes on
-// features. The pixel's rectangle of finest cells is walked 32 cells at a
-// time in row-major order: lane k loads cell k's row range, a warp scan
-// places each cell's rows in one list (cell order, then row order), and the
-// list is read 32 rows a step, lane l taking row l: its mask, xy and corner
-// weight at the pixel. The rows of nonzero weight are added in list order,
-// their d_s loaded kLoads at a time, so the sum, and the pixel's one store,
-// are the same in every run. TS = bf16: d_s in bf16 (the cotangent of a
-// bf16 sample, whose weights were cut: K4's, K9's), the weights cut the same
-// way, the sum in f32, each pixel rounded to TP once (JAX rounds each tile's
-// halo window, then folds the windows in bf16: windows_to_plane,
-// level_bwd_kernel.py:403). TS = float and TP = bf16: the f32 cotangent of
+// The plan of the d_plane pass (tile_plan.d_plane_plan, which the wrapper
+// checks against t2h_level_d_plane_plan): vec features a 16-byte lane; tpp
+// threads a pixel and `groups` lanes a thread (lane k * tpp + g for thread
+// g of its pixel; at most 32 f32 sums a thread), so fc = tpp x groups x vec
+// features a block; the block's tx x ty pixels (256 / tpp of them), the
+// tiles along x and y, the feature chunks, and the rows of a line batch
+// (kDPlaneLines bytes of d_s lines in shared memory). By level: where a
+// pixel spans one finest cell (R = fr) a thread takes all the lanes it can
+// (up to 256 pixels a block); where it spans rho = fr / R of them along
+// each axis, tpp is at least 2 rho (up to 16: 16 pixels a block), so that
+// a block's list of rows stays short and its walk shares each row's line
+// among fewer pixels. The walk takes kDPlaneStep cells a step
+// (kDPlaneCells a thread) and as many rows an entry batch.
+constexpr int kDPlaneThreads = 256;
+constexpr int kDPlaneCells = 2;
+constexpr int kDPlaneStep = kDPlaneThreads * kDPlaneCells;
+constexpr int kDPlaneLines = 24576;  // a buffer of two
+constexpr int kDPlaneSums = 32;  // f32 sums a thread: groups x vec
+constexpr int kNoCorner = 0x7fff7fff;  // a padding row's corner: touches no pixel
+constexpr int kWalk = 4;  // entries a thread weighs before it adds their terms
+
+struct DPlanePlan {
+  int vec, fc, tpp, groups, tx, ty, tiles_x, tiles_y, chunks, lines;
+};
+
+inline DPlanePlan d_plane_plan(int R, int F, int fr, int elem) {
+  DPlanePlan p;
+  p.vec = 16 / elem;
+  const int lanes = (F + p.vec - 1) / p.vec;
+  const int gmax = kDPlaneSums / p.vec;
+  const int rho = std::max(1, fr / std::max(R, 1));
+  const int level = rho <= 1 ? 1 : std::min(16, 2 * rho);
+  p.tpp = std::min({lanes, 16, std::max(level, (lanes + gmax - 1) / gmax)});
+  p.groups = std::min(gmax, (lanes + p.tpp - 1) / p.tpp);
+  p.fc = p.tpp * p.groups * p.vec;
+  const int pixels = kDPlaneThreads / p.tpp;
+  p.tx = pixels >= 128 ? 16 : pixels >= 32 ? 8 : 4;
+  p.ty = pixels / p.tx;
+  p.tiles_x = (R + p.tx - 1) / p.tx;
+  p.tiles_y = (R + p.ty - 1) / p.ty;
+  p.chunks = (F + p.fc - 1) / p.fc;
+  p.lines = std::min(kDPlaneStep, kDPlaneLines / (p.fc * elem));
+  return p;
+}
+
+// The dynamic shared memory of d_plane_tiles: the step's cells' prefix sums
+// and first rows, the entry batch's rows and entries (cell, corner x0 | y0
+// << 16, weights: 16 bytes), and the line batch's d_s lines.
+constexpr size_t kDPlaneSmem = (size_t)kDPlaneStep * (4 * 3 + 16) + 2 * kDPlaneLines;
+
+// VEC values (16 bytes) stored to p: store_vec's, or 8 bf16 values.
+template <int VEC, typename T>
+__device__ __forceinline__ void store_line(T* p, const float (&r)[VEC]) {
+  if constexpr (VEC == 8) {
+    static_assert(kIsBf16<T>, "eight values of a 16-byte line are bf16");
+    uint4 u;
+    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(r[2 * i], r[2 * i + 1]);
+    *reinterpret_cast<uint4*>(p) = u;
+  } else {
+    store_vec<VEC>(p, r);
+  }
+}
+
+// VEC values of T at a 16-byte aligned shared address, as floats.
+template <int VEC, typename T>
+__device__ __forceinline__ void load_line16(const T* p, float (&v)[VEC]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const T* e = reinterpret_cast<const T*>(&u);
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) v[i] = to_f32(e[i]);
+}
+
+// A block a (tile of tx x ty pixels, chunk of fc features) of one batch
+// entry (blockIdx.z); tpp threads a pixel. The block walks the finest cells
+// under the union of its pixels' rectangles (from the first pixel's
+// cell_span lower bound to the last's upper one, along each axis) in
+// row-major order, kDPlaneStep cells a step: a thread loads two cells' row
+// ranges, a block scan places each cell's rows in one list (cell order,
+// then row order), and the list is taken kDPlaneStep rows an entry batch: a
+// thread places two rows, their cells and corners (computed once, from xy;
+// a padding row gets a corner that touches no pixel); then `lines` rows at
+// a time the block copies their d_s lines into shared memory (16-byte
+// cp.async, zero on padding rows and past F; two buffers, the next rows'
+// copies in flight while these are walked) and each thread adds, in list
+// order, w * d_s of the rows in its pixel's own rectangle of cells whose
+// corner weight w at the pixel (corner_weight) is not 0, by fmaf into f32
+// from 0, for its lanes: from the first entry in the pixel's rows of cells
+// (a binary search), kWalk entries at a time, to the first past them.
+// 62 KB of shared memory and 80 registers a thread: three blocks an SM, so
+// that other blocks' steps cover each one's chain of dependent loads (row
+// ranges, then rows' masks and coordinates, then lines). Row-major order over the tile's rectangle
+// restricted to a pixel's rectangle is row-major order over the pixel's
+// rectangle, so each pixel's sum takes the same terms in the same order as a
+// walk of its own rectangle (the warp-a-pixel kernel this replaced): the
+// same bits. Each pixel's chunk is stored once, rounded to TP. Types as the
+// entry points below: TS = bf16 d_s in bf16 (the cotangent of a bf16
+// sample, whose weights were cut: K4's, K9's), the weights cut the same
+// way, the sum in f32, each pixel rounded to TP once (JAX rounds each
+// tile's halo window, then folds the windows in bf16: windows_to_plane,
+// level_bwd_kernel.py:403); TS = float and TP = bf16: the f32 cotangent of
 // a bf16 plane's f32 sample (grid_sample_2d promotes it, JAX
 // ops/sampling.py:28-46), the weights uncut, each pixel's f32 sum rounded
 // to bf16 once, as JAX's vjp rounds its f32 d_plane to the plane's dtype.
-template <typename TS, typename TP, int VEC>
-__global__ void __launch_bounds__(kThreads)
-d_plane_gather(const TS* __restrict__ ds, const float* __restrict__ xy,
-               const uint8_t* __restrict__ mask, const int* __restrict__ start,
-               const int* __restrict__ end, TP* __restrict__ d_plane, int N, int R, int F,
-               int fr, long long warps, int chunks) {
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  if (warp >= warps) return;  // warp-uniform
-  const int lane = threadIdx.x & 31;
-  const int fc = static_cast<int>(warp % chunks);
-  const long long pix = warp / chunks;  // b * R^2 + py * R + px
-  const int RR = R * R;
-  const long long b = pix / RR;
-  const int p = static_cast<int>(pix - b * RR);
-  const int py = p / R, px = p - (p / R) * R;
-  int lox, hix, loy, hiy;
-  cell_span(px, R, fr, lox, hix);
-  cell_span(py, R, fr, loy, hiy);
-  const int span_x = hix - lox + 1;
-  const int ncells = span_x * (hiy - loy + 1);
-  const int f = (fc * 32 + lane) * VEC;
-  const bool fin = f < F;  // F % VEC == 0: a lane's VEC features all in range
+// kVec: F * sizeof(TS) a multiple of 16 and ds, d_plane 16-byte aligned;
+// otherwise the lines are copied and stored a value at a time.
+template <typename TS, typename TP, bool kVec>
+__global__ void __launch_bounds__(kDPlaneThreads, 3)
+d_plane_tiles(const TS* __restrict__ ds, const float* __restrict__ xy,
+              const uint8_t* __restrict__ mask, const int* __restrict__ start,
+              const int* __restrict__ end, TP* __restrict__ d_plane, int N, int R, int F,
+              int fr, DPlanePlan p) {
+  constexpr int VEC = 16 / sizeof(TS);
+  constexpr int kT = kDPlaneThreads;
+  extern __shared__ float4 dplane_smem[];
+  int* s_incl = reinterpret_cast<int*>(dplane_smem);  // the step's cells: inclusive row sums
+  int* s_first = s_incl + kDPlaneStep;                  // and first rows
+  int* s_row = s_first + kDPlaneStep;                   // the entry batch's rows
+  // and their entries: cell (cy << 16) | cx, corner x0 | y0 << 16, wx, wy
+  int4* s_ent = reinterpret_cast<int4*>(s_row + kDPlaneStep);
+  TS* s_ds = reinterpret_cast<TS*>(s_ent + kDPlaneStep);  // two line batches: lines x fc
+  __shared__ int s_warp[kT / 32];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long b = blockIdx.z;
+  const int chunk = blockIdx.y;
+  const int tyi = blockIdx.x / p.tiles_x, txi = blockIdx.x - tyi * p.tiles_x;
+  const int px0 = txi * p.tx, py0 = tyi * p.ty;
+  int clx, chx, cly, chy, unused;
+  cell_span(px0, R, fr, clx, unused);
+  cell_span(min(px0 + p.tx, R) - 1, R, fr, unused, chx);
+  cell_span(py0, R, fr, cly, unused);
+  cell_span(min(py0 + p.ty, R) - 1, R, fr, unused, chy);
+  const int span_x = chx - clx + 1;
+  const int ncells = span_x * (chy - cly + 1);
+  // this thread's pixel, its lanes, and its pixel's rectangle of cells
+  const int pid = tid / p.tpp, g = tid - pid * p.tpp;
+  const int px = px0 + pid % p.tx, py = py0 + pid / p.tx;
+  const bool active = pid < p.tx * p.ty && px < R && py < R;
+  int lox = 0, hix = -1, loy = 0, hiy = -1;
+  if (active) {
+    cell_span(px, R, fr, lox, hix);
+    cell_span(py, R, fr, loy, hiy);
+  }
+  const int f0 = chunk * p.fc;
   const long long base = b * N;
-  const TS* dsf = ds + base * F + f;
   const long long cell0 = b * fr * fr;
 
-  float acc[VEC] = {};
-  for (int c0 = 0; c0 < ncells; c0 += 32) {
-    const int k = c0 + lane;
-    int st = 0, n = 0;
-    if (k < ncells) {
-      const int ky = k / span_x;
-      const long long at = cell0 + (long long)(loy + ky) * fr + lox + (k - ky * span_x);
-      st = start[at];
-      n = end[at] - st;
+  constexpr int kG = kDPlaneSums / VEC;  // the most lanes a thread
+  float acc[kG][VEC] = {};
+  for (int c0 = 0; c0 < ncells; c0 += kDPlaneStep) {
+    int st[kDPlaneCells], n[kDPlaneCells], sum = 0;
+#pragma unroll
+    for (int i = 0; i < kDPlaneCells; ++i) {
+      const int k = c0 + kDPlaneCells * tid + i;
+      st[i] = 0;
+      n[i] = 0;
+      if (k < ncells) {
+        const int ky = k / span_x;
+        const long long at = cell0 + (long long)(cly + ky) * fr + clx + (k - ky * span_x);
+        st[i] = start[at];
+        n[i] = end[at] - st[i];
+      }
+      sum += n[i];
     }
-    int incl = n;  // inclusive prefix sum of the lanes' row counts
+    int incl = sum;  // the block's inclusive prefix sum of the threads' row counts
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
       const int up = __shfl_up_sync(kFullMask, incl, d);
       if (lane >= d) incl += up;
     }
-    const int total = __shfl_sync(kFullMask, incl, 31);
-    const int excl = incl - n;
-    for (int t0 = 0; t0 < total; t0 += 32) {
-      const int tt = t0 + lane;
-      int j = 0;  // the lane (cell) whose rows hold list entry tt: the first with incl > tt
+    if (lane == 31) s_warp[warp] = incl;
+    __syncthreads();  // (also: the step before is done with s_incl and s_first)
+    int run = incl - sum, total = 0;
 #pragma unroll
-      for (int s = 16; s > 0; s >>= 1)
-        if (__shfl_sync(kFullMask, incl, j + s - 1) <= tt) j += s;
-      const int row = __shfl_sync(kFullMask, st, j) + tt - __shfl_sync(kFullMask, excl, j);
-      float w = 0.0f;
-      if (tt < total && mask[base + row] != 0) {
-        const long long q = 2 * (base + row);
-        w = corner_weight<TS>(bilinear_corner(xy[q], xy[q + 1], R), px, py);
+    for (int w = 0; w < kT / 32; ++w) {
+      run += w < warp ? s_warp[w] : 0;
+      total += s_warp[w];
+    }
+#pragma unroll
+    for (int i = 0; i < kDPlaneCells; ++i) {
+      run += n[i];
+      s_incl[kDPlaneCells * tid + i] = run;
+      s_first[kDPlaneCells * tid + i] = st[i];
+    }
+    __syncthreads();
+    for (int e0 = 0; e0 < total; e0 += kDPlaneStep) {
+      const int ne = min(kDPlaneStep, total - e0);
+      // this thread's entries i * kT + tid: their rows and cells from the
+      // scan, then their masks and coordinates, all loaded before any is used
+      int row[kDPlaneCells], cxy[kDPlaneCells];
+      uint8_t mk[kDPlaneCells];
+      float u[kDPlaneCells], v[kDPlaneCells];
+#pragma unroll
+      for (int i = 0; i < kDPlaneCells; ++i) {
+        const int e = i * kT + tid;
+        row[i] = -1;
+        if (e >= ne) continue;
+        const int tt = e0 + e;
+        int j = 0;  // the step's cell whose rows hold list entry tt: the first with incl > tt
+#pragma unroll
+        for (int s = kDPlaneStep / 2; s > 0; s >>= 1)
+          if (s_incl[j + s - 1] <= tt) j += s;
+        row[i] = s_first[j] + tt - (j > 0 ? s_incl[j - 1] : 0);
+        const int kc = c0 + j, ky = kc / span_x;
+        s_row[e] = row[i];
+        cxy[i] = ((cly + ky) << 16) | (clx + kc - ky * span_x);
       }
-      unsigned hits = __ballot_sync(kFullMask, w != 0.0f);
-      while (hits != 0u) {  // warp-uniform
-        float v[kLoads][VEC], wv[kLoads];
-        int got = 0;
 #pragma unroll
-        for (int u = 0; u < kLoads; ++u) {
-          wv[u] = 0.0f;
+      for (int i = 0; i < kDPlaneCells; ++i) {
+        if (row[i] < 0) continue;
+        const long long q = base + row[i];
+        mk[i] = mask[q];
+        u[i] = xy[2 * q];
+        v[i] = xy[2 * q + 1];
+      }
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) v[u][e] = 0.0f;
-          if (hits != 0u) {
-            const int h = __ffs(hits) - 1;
-            hits &= hits - 1u;
-            wv[u] = __shfl_sync(kFullMask, w, h);
-            const int r = __shfl_sync(kFullMask, row, h);
-            if (fin) load_vec<VEC>(dsf + (long long)r * F, v[u]);
-            got = u + 1;
+      for (int i = 0; i < kDPlaneCells; ++i) {
+        if (row[i] < 0) continue;
+        const int e = i * kT + tid;
+        int c = kNoCorner;
+        float wx = 0.0f, wy = 0.0f;
+        if (mk[i] != 0) {
+          const Corner cr = bilinear_corner(u[i], v[i], R);
+          c = cr.x0 | (cr.y0 << 16);
+          wx = cr.wx;
+          wy = cr.wy;
+        }
+        s_ent[e] = make_int4(cxy[i], c, __float_as_int(wx), __float_as_int(wy));
+      }
+      __syncthreads();
+      // the batch's d_s lines, `lines` rows at a time into two buffers in
+      // turn: the next rows' copies fly while these rows are walked
+      auto copy_lines = [&](int l0) {
+        const int nl = min(p.lines, ne - l0);
+        TS* dst = s_ds + ((l0 / p.lines) & 1) * p.lines * p.fc;
+        if constexpr (kVec) {
+          const int parts = p.fc / VEC;
+          for (int q = tid; q < nl * parts; q += kT) {
+            const int e = q / parts, f = (q - e * parts) * VEC;
+            const bool ok = s_ent[l0 + e].y != kNoCorner && f0 + f < F;
+            cp_async16(dst + e * p.fc + f, ok ? ds + (base + s_row[l0 + e]) * F + f0 + f : ds,
+                       ok ? 16 : 0);
+          }
+        } else {
+          for (int q = tid; q < nl * p.fc; q += kT) {
+            const int e = q / p.fc, f = q - e * p.fc;
+            const bool ok = s_ent[l0 + e].y != kNoCorner && f0 + f < F;
+            dst[e * p.fc + f] = ok ? ds[(base + s_row[l0 + e]) * F + f0 + f] : from_f32<TS>(0.0f);
           }
         }
-#pragma unroll
-        for (int u = 0; u < kLoads; ++u)
-          if (u < got) {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[e] += wv[u] * v[u][e];
+        cp_async_commit();  // (an empty group on the value-at-a-time path)
+      };
+      copy_lines(0);
+      for (int l0 = 0; l0 < ne; l0 += p.lines) {
+        const int nl = min(p.lines, ne - l0);
+        const TS* lines = s_ds + ((l0 / p.lines) & 1) * p.lines * p.fc;
+        if (l0 + p.lines < ne) {
+          copy_lines(l0 + p.lines);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        if (active) {
+          // the list runs in row-major cell order: from the first entry in
+          // the pixel's rows of cells, kWalk entries at a time (their
+          // weights first, then their terms in order), to the first past them
+          int e0w = 0, hi = nl;
+          while (e0w < hi) {
+            const int mid = (e0w + hi) >> 1;
+            if ((s_ent[l0 + mid].x >> 16) < loy) e0w = mid + 1; else hi = mid;
           }
+          for (int e = e0w; e < nl; e += kWalk) {
+            int4 en[kWalk];
+            float w[kWalk];
+#pragma unroll
+            for (int u = 0; u < kWalk; ++u)
+              en[u] = e + u < nl ? s_ent[l0 + e + u] : make_int4(0x7fffffff, kNoCorner, 0, 0);
+#pragma unroll
+            for (int u = 0; u < kWalk; ++u) {
+              const int cy = en[u].x >> 16, cx = en[u].x & 0xffff;
+              w[u] = 0.0f;
+              if (cy <= hiy && cx >= lox && cx <= hix) {
+                Corner cr;
+                cr.x0 = en[u].y & 0xffff;
+                cr.y0 = en[u].y >> 16;
+                cr.dx = cr.x0 + 1 < R ? 1 : 0;  // bilinear_corner's
+                cr.dy = cr.y0 + 1 < R ? 1 : 0;
+                cr.wx = __int_as_float(en[u].z);
+                cr.wy = __int_as_float(en[u].w);
+                w[u] = corner_weight<TS>(cr, px, py);
+              }
+            }
+#pragma unroll
+            for (int u = 0; u < kWalk; ++u) {
+              if (w[u] == 0.0f) continue;
+#pragma unroll
+              for (int k = 0; k < kG; ++k) {
+                if (k >= p.groups) break;
+                float v[VEC];
+                load_line16<VEC>(lines + (e + u) * p.fc + (k * p.tpp + g) * VEC, v);
+#pragma unroll
+                for (int i = 0; i < VEC; ++i) acc[k][i] = fmaf(w[u], v[i], acc[k][i]);
+              }
+            }
+            if ((en[kWalk - 1].x >> 16) > hiy) break;
+          }
+        }
+        __syncthreads();  // these lines are read before their buffer takes others
       }
     }
   }
-  if (fin) store_vec<VEC>(d_plane + pix * F + f, acc);
+  if (!active) return;
+  TP* out = d_plane + ((b * R + py) * R + px) * (long long)F;
+#pragma unroll
+  for (int k = 0; k < kG; ++k) {
+    if (k >= p.groups) break;
+    const int f = f0 + (k * p.tpp + g) * VEC;
+    if (kVec && f + VEC <= F) {
+      store_line<VEC>(out + f, acc[k]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i)
+        if (f + i < F) out[f + i] = from_f32<TP>(acc[k][i]);
+    }
+  }
 }
 
 // The entry points' launches, for either element type (below).
@@ -785,21 +1018,22 @@ int level_d_plane(const TS* ds, const float* xy, const int* cells, const uint8_t
   if (N > 0)
     cell_rows<<<dim3((N + kThreads - 1) / kThreads, B), kThreads, 0, stream>>>(
         cells, offs, offs + ncell, N, fr);
-  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for rows not
-  // aligned to 16 bytes)
-  const bool aligned = aligned16(ds) && aligned16(d_plane);
-  const int vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
-  const int chunks = (F + 32 * vec - 1) / (32 * vec);
-  const long long warps = (long long)B * R * R * chunks;
-  const long long blocks = (warps * 32 + kThreads - 1) / kThreads;
-  if (blocks >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
-#define T2H_GATHER(V)                                                                     \
-  d_plane_gather<TS, TP, V><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(      \
-      ds, xy, mask, offs, offs + ncell, d_plane, N, R, F, fr, warps, chunks)
-  if (vec == 4) T2H_GATHER(4);
-  else if (vec == 2) T2H_GATHER(2);
-  else T2H_GATHER(1);
-#undef T2H_GATHER
+  const DPlanePlan p = d_plane_plan(R, F, fr, sizeof(TS));
+  if ((long long)p.tiles_x * p.tiles_y >= (1LL << 31) || p.chunks > 65535 || B > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(p.tiles_x * p.tiles_y, p.chunks, B);
+  const bool vec = (F * sizeof(TS)) % 16 == 0 && aligned16(ds) && aligned16(d_plane);
+  auto kernel = vec ? d_plane_tiles<TS, TP, true> : d_plane_tiles<TS, TP, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(kDPlaneSmem));
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const size_t smem =
+      (size_t)kDPlaneStep * (4 * 3 + 16) + 2 * (size_t)p.lines * p.fc * sizeof(TS);
+  kernel<<<grid, kDPlaneThreads, smem, stream>>>(ds, xy, mask, offs, offs + ncell, d_plane, N,
+                                                 R, F, fr, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -847,22 +1081,6 @@ int t2h_fused_level_bwd(const float* plane, const float* xy, const int* cells,
                         F, Fl, shift, stream);
 }
 
-// The same in bf16 (xy f32, counts i32): K5's bf16 rule
-// (level_bwd_kernel.py:206-256): the sample with the cut weights, pre and
-// the relu gate as K4's, (g_plane / count) rounded before its sum with g_c,
-// d_h, d_s and d_c_last each rounded once from their f32 products.
-int t2h_fused_level_bwd_bf16(const bf16* plane, const float* xy, const int* cells,
-                             const uint8_t* mask, const int* counts, const bf16* g_plane,
-                             const bf16* g_c, const bf16* w_in, const bf16* b_in,
-                             const bf16* w_out_t, const bf16* w_c_t, const bf16* w_in_t,
-                             bf16* d_clast, bf16* s_buf, bf16* h_buf, bf16* do_buf,
-                             bf16* dh_buf, bf16* ds_buf, int B, int N, int R, int F, int Fl,
-                             int shift, cudaStream_t stream) {
-  return level_bwd_rows(plane, xy, cells, mask, counts, g_plane, g_c, w_in, b_in, w_out_t,
-                        w_c_t, w_in_t, d_clast, s_buf, h_buf, do_buf, dh_buf, ds_buf, B, N, R,
-                        F, Fl, shift, stream);
-}
-
 // Phase 3. ds (B*N,F) the rows' d_s, xy (B,N,2), cells (B,N) finest Morton
 // ids at fr (each finest cell's rows contiguous, pads out of range), mask
 // (B,N) u8; offs: 2 * B * fr * fr ints of scratch -> d_plane (B,R,R,F), each
@@ -890,6 +1108,18 @@ int t2h_level_d_plane_wide_bf16(const float* ds, const float* xy, const int* cel
                                 const uint8_t* mask, int* offs, bf16* d_plane, int B, int N,
                                 int R, int F, int fr, cudaStream_t stream) {
   return level_d_plane(ds, xy, cells, mask, offs, d_plane, B, N, R, F, fr, stream);
+}
+
+// The d_plane pass's plan at (R, F, fr) for d_s elements of `elem` bytes:
+// the integers of tile_plan.d_plane_plan in the order of
+// tile_plan.D_PLANE_PLAN_KEYS -> out[13]. Returns 0.
+int t2h_level_d_plane_plan(int R, int F, int fr, int elem, int* out) {
+  const DPlanePlan p = d_plane_plan(R, F, fr, elem);
+  const int v[] = {p.vec,     p.fc,      p.tpp,    p.groups,       p.tx,
+                   p.ty,      p.tiles_x, p.tiles_y, p.chunks,      kDPlaneThreads,
+                   kDPlaneStep, kDPlaneStep, p.lines};
+  for (int i = 0; i < 13; ++i) out[i] = v[i];
+  return 0;
 }
 
 // Output tiles of a (Ka x Nb) weight gradient; the wrapper sizes its row

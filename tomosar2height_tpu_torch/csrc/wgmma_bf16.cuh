@@ -1,6 +1,6 @@
 // The Hopper building blocks of the port's bf16 wgmma kernels (reduce_bf16.cu:
-// K5's bf16 weight sums; conv_bf16.cu: K8 and K7 in bf16; level_bf16.cu: K4
-// in bf16), in raw PTX:
+// K5's bf16 weight sums; conv_bf16.cu: K8, K7 and K6 in bf16; level_bf16.cu:
+// K4 in bf16; level_bwd_bf16.cu: K5's bf16 row pass), in raw PTX:
 //
 // - TMA tensor maps, encoded on the host by cuTensorMapEncodeTiled, which the
 //   CUDA runtime looks up in libcuda at run time (its entry-point query), so
@@ -17,7 +17,10 @@
 // - warpgroup matrix products wgmma.mma_async m64nNk16, bf16 operands from
 //   shared memory through 64-bit matrix descriptors, f32 accumulators in
 //   registers (N = 64, 128, 256: N / 2 floats a thread), with either operand
-//   K-major or MN-major (the transpose bits, which exist for 16-bit types).
+//   K-major or MN-major (the transpose bits, which exist for 16-bit types);
+//   a B operand K-major (its N rows of 128 bytes, 8-row groups SBO = 1024
+//   bytes apart, a k16 step 32 bytes on) is the K-major A layout read with
+//   the transpose bit off.
 //
 // Shared layouts (all 128- or 64-byte swizzled, as TMA writes them; a
 // stage's tiles start on 1024-byte boundaries, so the descriptors' base
@@ -312,6 +315,46 @@ __device__ __forceinline__ void wgmma_m64n256(float (&d)[128], uint64_t da, uint
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
+
+// d[OFF ..+ 32] (64 x 64, f32) += A B, or d[OFF ..+ 64] (64 x 128): the
+// products of wgmma_m64n64 / wgmma_m64n128 into a slice of a wider
+// accumulator (its n8 chunks OFF / 4 ..), the slice fixed at compile time so
+// that the accumulator stays in registers.
+#define T2H_ACC8(d, o)                                                                 \
+  "+f"(d[(o) + 0]), "+f"(d[(o) + 1]), "+f"(d[(o) + 2]), "+f"(d[(o) + 3]), "+f"(d[(o) + 4]), \
+      "+f"(d[(o) + 5]), "+f"(d[(o) + 6]), "+f"(d[(o) + 7])
+
+template <int OFF, int TA, int TB, int K>
+__device__ __forceinline__ void wgmma_m64n64_at(float (&d)[K], uint64_t da, uint64_t db) {
+  static_assert(OFF % 4 == 0 && OFF + 32 <= K, "a slice of the accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : T2H_ACC8(d, OFF), T2H_ACC8(d, OFF + 8), T2H_ACC8(d, OFF + 16), T2H_ACC8(d, OFF + 24)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+template <int OFF, int TA, int TB, int K>
+__device__ __forceinline__ void wgmma_m64n128_at(float (&d)[K], uint64_t da, uint64_t db) {
+  static_assert(OFF % 4 == 0 && OFF + 64 <= K, "a slice of the accumulator");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+      : T2H_ACC8(d, OFF), T2H_ACC8(d, OFF + 8), T2H_ACC8(d, OFF + 16), T2H_ACC8(d, OFF + 24),
+        T2H_ACC8(d, OFF + 32), T2H_ACC8(d, OFF + 40), T2H_ACC8(d, OFF + 48),
+        T2H_ACC8(d, OFF + 56)
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+#undef T2H_ACC8
 
 template <int N, int TA, int TB>
 __device__ __forceinline__ void wgmma_bf16(float (&d)[N / 2], uint64_t da, uint64_t db) {

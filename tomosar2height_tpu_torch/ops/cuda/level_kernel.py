@@ -57,7 +57,10 @@ in f32 and rounded once):
   gate from pre; g_pt = bf16(g_plane / count) gathered; d_o = bf16(g_c +
   g_pt); d_h = bf16(d_o W_out^T) gated; d_s = bf16(d_h W_in^T); d_c_last =
   bf16(d_o W_c^T); the weight sums in f32, cast to bf16 once
-  (level_kernel.py:653-659). The d_plane pass takes the same cut weights
+  (level_kernel.py:653-659). Its row pass is ``csrc/level_bwd_bf16.cu``:
+  wgmma fed by the TMA, 128 rows a block (64 at F = 512), W_in read once a
+  block for both of its products, its plan ``tile_plan.level_bwd_plan``; F
+  and Fl padded as K4's. The d_plane pass takes the same cut weights
   and rounds each pixel's f32 sum once, where JAX rounds each tile's halo
   window and folds the windows in bf16 (level_bwd_kernel.py:385-403): a
   deliberate difference, held to JAX's own bf16 gate
@@ -66,6 +69,7 @@ in f32 and rounded once):
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 
@@ -248,8 +252,12 @@ def level_bwd_reduce(a, b, bias: bool):
 def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plane, g_c,
                          reso: int, finest: int):
     """K5's row pass (``t2h_fused_level_bwd``): d_c_last and the rows the
-    weight gradients and the d_plane pass need, on the tensor cores at fp32
-    accuracy (3xTF32), 64 rows a block.
+    weight gradients and the d_plane pass need. In f32 on the tensor cores
+    at fp32 accuracy (3xTF32 ``mma.sync``, ``csrc/level_bwd.cu``), 64 rows a
+    block; in bf16 on ``wgmma`` fed by the TMA (``csrc/level_bwd_bf16.cu``),
+    128 rows a block (64 at F = 512), its plan ``tile_plan.level_bwd_plan``
+    (checked against the C side's), F and Fl padded with zero columns to
+    multiples of 8 for its TMA where they are not (sliced off again).
 
     Args: the forward's inputs, its counts (B, R, R) int32, and the output
     cotangents g_plane (B, R, R, F), g_c (B, N, F), all in the plane's dtype
@@ -262,10 +270,11 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
         are 0 there); the kernel's s is 0 there too, the plain version
         samples them.
 
-    Takes F <= 512 and any Fl: its shared memory (219 KB at F = 512) does
-    not grow with Fl. Allocates the 7F values a row of those rows: ~2.3 GB
-    at the flagship's F=512 level in f32. Each output element is written
-    once; every output in the plane's dtype.
+    Takes F <= 512 and any Fl: neither kernel's shared memory grows with Fl
+    (f32: 219 KB at F = 512; bf16: 217 KB at F = 256 and 512). Allocates
+    the 7F values a row of those rows: ~2.3 GB at the flagship's F=512
+    level in f32. Each output element is written once; every output in the
+    plane's dtype.
     """
     if runtime.on_cpu(plane):
         return fused_level_bwd_rows_plain(plane, c_last, weights, xy, cells, mask, counts,
@@ -273,33 +282,88 @@ def fused_level_bwd_rows(plane, c_last, weights, xy, cells, mask, counts, g_plan
     dev, dt = plane.device, plane.dtype
     b, r, _, f = plane.shape
     n, fl = c_last.shape[1], c_last.shape[-1]
-    h = 2 * f
-    w_in, b_in, w_out, _, w_c, _ = weights
     _check_level(plane, c_last, weights, xy, cells, mask, reso)
     runtime.require(counts, "counts", torch.int32, (b, r, r), dev)
     runtime.require(g_plane, "g_plane", dt, (b, r, r, f), dev)
     runtime.require(g_c, "g_c", dt, (b, n, f), dev)
+    w_in, b_in, w_out, _, w_c, _ = weights
+    if dt == torch.bfloat16:
+        plane, g_plane, g_c, w_in, b_in, w_out_t, w_c_t = _tma_rows_pass(
+            plane, g_plane, g_c, weights)
+        fk, flk = plane.shape[-1], w_c_t.shape[1]
+        _bwd_plan(fk, flk)
+        w_in_t = None  # not read: the kernel reads W_in's boxes both ways
+    else:
+        fk, flk = f, fl
+        w_out_t, w_c_t, w_in_t = (w.t().contiguous() for w in (w_out, w_c, w_in))
     m = b * n
     new = lambda *shape: torch.empty(shape, device=dev, dtype=dt)  # noqa: E731
-    w_out_t, w_c_t, w_in_t = (w.t().contiguous() for w in (w_out, w_c, w_in))
-    d_c_last = new(b, n, fl)
-    s, hs, d_o, d_h, d_s = new(m, f), new(m, h), new(m, f), new(m, h), new(m, f)
+    d_c_last = new(b, n, flk)
+    s, hs, d_o, d_h, d_s = new(m, fk), new(m, 2 * fk), new(m, fk), new(m, 2 * fk), new(m, fk)
     err = runtime.entry("fused_level_bwd", dt)(
         plane.data_ptr(), xy.data_ptr(), cells.data_ptr(), mask.data_ptr(),
         counts.data_ptr(), g_plane.data_ptr(), g_c.data_ptr(), w_in.data_ptr(),
-        b_in.data_ptr(), w_out_t.data_ptr(), w_c_t.data_ptr(), w_in_t.data_ptr(),
+        b_in.data_ptr(), w_out_t.data_ptr(), w_c_t.data_ptr(),
+        None if w_in_t is None else w_in_t.data_ptr(),
         d_c_last.data_ptr(), s.data_ptr(), hs.data_ptr(), d_o.data_ptr(), d_h.data_ptr(),
-        d_s.data_ptr(), b, n, r, f, fl, level_shift(reso, finest), runtime.stream_ptr(dev))
+        d_s.data_ptr(), b, n, r, fk, flk, level_shift(reso, finest), runtime.stream_ptr(dev))
     runtime.check(err, "fused_level_bwd")
     runtime.launched("fused_level_bwd", dt)
+    if (fk, flk) != (f, fl):
+        d_c_last = d_c_last[..., :fl].contiguous()
+        s, hs, d_o, d_h, d_s = (x[:, :w].contiguous() for x, w in (
+            (s, f), (hs, 2 * f), (d_o, f), (d_h, 2 * f), (d_s, f)))
     return d_c_last, s, hs, d_o, d_h, d_s
+
+
+def _tma_rows_pass(plane, g_plane, g_c, weights):
+    """K5 bf16's row-pass operands as its TMA and 16-byte loads take them:
+    (plane, g_plane, g_c, w_in, b_in, w_out^T, w_c^T) with F and Fl padded
+    with zero columns to multiples of 8 (w_in's hidden columns and w_out's
+    rows with them, at the end) and 16-byte aligned (a copy only where
+    needed). Zero columns add nothing to any sum and open no gate."""
+    f, fl = plane.shape[-1], weights[4].shape[0]
+    pf, pl = -f % 8, -fl % 8
+    w_in, b_in, w_out, _, w_c, _ = weights
+    return (_tma_ready(plane, (0, pf)), _tma_ready(g_plane, (0, pf)),
+            _tma_ready(g_c, (0, pf)), _tma_ready(w_in, (0, 2 * pf, 0, pf)),
+            _tma_ready(b_in, (0, 2 * pf)), _tma_ready(w_out, (0, pf, 0, 2 * pf)).t().contiguous(),
+            _tma_ready(w_c, (0, pf, 0, pl)).t().contiguous())
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_plan(f: int, fl: int) -> dict:
+    """``tile_plan.level_bwd_plan(f, fl)``, once held equal to the plan the
+    C side computes (``t2h_level_bwd_plan_bf16``)."""
+    return _c_plan(tile_plan.level_bwd_plan(f, fl), tile_plan.LEVEL_BWD_PLAN_KEYS,
+                   runtime.library().t2h_level_bwd_plan_bf16, f, fl)
+
+
+@functools.lru_cache(maxsize=None)
+def _d_plane_plan(r: int, f: int, fr: int, elem: int) -> dict:
+    """``tile_plan.d_plane_plan``, once held equal to the C side's
+    (``t2h_level_d_plane_plan``)."""
+    return _c_plan(tile_plan.d_plane_plan(r, f, fr, elem), tile_plan.D_PLANE_PLAN_KEYS,
+                   runtime.library().t2h_level_d_plane_plan, r, f, fr, elem)
+
+
+def _c_plan(plan: dict, keys, fn, *args) -> dict:
+    out = (ctypes.c_int * len(keys))()
+    runtime.check(fn(*args, ctypes.addressof(out)), fn.__name__)
+    want = tuple(int(plan[k]) for k in keys)
+    if tuple(out) != want:
+        raise RuntimeError(f"{fn.__name__}{args}: the C side plans {tuple(out)}, "
+                           f"tile_plan {want} ({', '.join(keys)})")
+    return plan
 
 
 def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=None):
     """K5's d_plane pass (``t2h_level_d_plane``): the bilinear transpose of the
     rows' sample cotangents, d_plane[b, y, x] = sum over the valid rows whose
     sample reads pixel (x, y) of its weight times d_s, each pixel written
-    once from one fixed-order sum (bit-equal run to run).
+    once from one fixed-order sum (bit-equal run to run): a block a tile of
+    pixels and a chunk of features (``tile_plan.d_plane_plan``, checked
+    against the C side's), each row's d_s line read once a block.
 
     Args:
         d_s: (B, N, F) f32 or bf16 the rows' d_s (:func:`fused_level_bwd_rows`).
@@ -333,6 +397,7 @@ def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=None):
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     if finest < reso:
         raise ValueError(f"finest resolution {finest} < reso {reso}")
+    _d_plane_plan(reso, f, finest, d_s.element_size())
     d_plane = torch.empty((b, reso, reso, f), device=dev, dtype=out_dtype)
     offs = torch.empty(2 * b * finest * finest, device=dev, dtype=torch.int32)
     fn = (runtime.entry("level_d_plane_wide", out_dtype) if wide
@@ -466,17 +531,19 @@ def _tma_level(plane, c_last, weights):
     where needed). Zero columns add nothing to any sum."""
     f, fl = plane.shape[-1], c_last.shape[-1]
     pf, pl = -f % 8, -fl % 8
-
-    def ready(t, pads=()):
-        if any(pads):
-            return torch.nn.functional.pad(t, pads)
-        return t if t.data_ptr() % 16 == 0 else t.clone()
-
     w_in, b_in, w_out, b_out, w_c, b_c = weights
-    return (ready(plane, (0, pf)), ready(c_last, (0, pl)),
-            (ready(w_in, (0, 2 * pf, 0, pf)), ready(b_in, (0, 2 * pf)),
-             ready(w_out, (0, pf, 0, 2 * pf)), ready(b_out, (0, pf)),
-             ready(w_c, (0, pf, 0, pl)), ready(b_c, (0, pf))))
+    return (_tma_ready(plane, (0, pf)), _tma_ready(c_last, (0, pl)),
+            (_tma_ready(w_in, (0, 2 * pf, 0, pf)), _tma_ready(b_in, (0, 2 * pf)),
+             _tma_ready(w_out, (0, pf, 0, 2 * pf)), _tma_ready(b_out, (0, pf)),
+             _tma_ready(w_c, (0, pf, 0, pl)), _tma_ready(b_c, (0, pf))))
+
+
+def _tma_ready(t, pads):
+    """t padded with zeros by ``pads`` (``F.pad``'s order), or, with no
+    padding, t itself if 16-byte aligned, else an aligned copy."""
+    if any(pads):
+        return torch.nn.functional.pad(t, pads)
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _fused_level(plane, c_last, weights, xy, cells, mask, reso: int, finest: int):

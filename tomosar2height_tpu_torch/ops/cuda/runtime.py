@@ -65,7 +65,8 @@ _I = ctypes.c_int
 
 _SIGNATURES = {
     # name: argtypes (every function returns an int: cudaError_t, or the
-    # count that t2h_level_bwd_reduce_tiles(_bf16) computes)
+    # count that t2h_level_bwd_reduce_tiles(_bf16) computes; the *_plan ones
+    # write a plan's integers to their last argument)
     **{f"t2h_{name}{suffix}": argtypes for name, argtypes in (
         ("pool_runs", [_P] * 7 + [_I] * 5 + [_P]),
         ("pool_gather", [_P] * 5 + [_I] * 5 + [_P]),
@@ -86,6 +87,8 @@ _SIGNATURES = {
     "t2h_tile_gather_bf16": [_P] * 4 + [_I] * 5 + [_P],
     "t2h_pool_gather_cut_bf16": [_P] * 5 + [_I] * 5 + [_P],
     "t2h_level_d_plane_wide_bf16": [_P] * 6 + [_I] * 5 + [_P],
+    "t2h_level_bwd_plan_bf16": [_I, _I, _P],
+    "t2h_level_d_plane_plan": [_I] * 4 + [_P],
 }
 
 

@@ -1,8 +1,11 @@
 """The host-side plans of the bf16 kernels on the TMA and wgmma, in plain
 Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8, K7 and K6 in
-bf16 (``csrc/conv_bf16.cu``) and K4 in bf16 (``csrc/level_bf16.cu``). The C
-launchers compute the same plans (the functions and configs there of the
-same names); the wrappers size their scratch and splits from these, and
+bf16 (``csrc/conv_bf16.cu``), K4 in bf16 (``csrc/level_bf16.cu``) and K5's
+bf16 row pass (``csrc/level_bwd_bf16.cu``); and of K5's d_plane pass in
+every dtype (``csrc/level_bwd.cu``). The C launchers compute the same plans
+(the functions and configs there of the same names); the wrappers size
+their scratch and splits from these, and check K5's two against the C
+side's at their first launch at each shape, and
 ``tests/test_torch_tile_plan.py`` emulates them in numpy: every output
 element covered once, the sums equal to the plain versions'.
 
@@ -33,6 +36,30 @@ K4: a block owns ``bm`` rows of one batch entry (128, two warpgroups of 64;
 W_out rows, a chunk; then ``n_c`` stages of ``ko`` c_last columns with W_c's
 rows, in the order of :func:`level_tiles`. Every width runs the one route
 (F and Fl padded to multiples of 8).
+
+K5's bf16 row pass (``csrc/level_bwd_bf16.cu``): F <= 256, a block owns
+``bm`` = 128 rows in two warpgroups of 64, with two rings of 8 KB TMA boxes:
+ring A holds the W_in columns of one hidden chunk (``slots`` boxes of
+:data:`LEVEL_BWD_SLICE` rows of F), read once by the pre-activation and once,
+transposed, by d_s, then loaded again with the next chunk's; ring B streams
+W_c^T's stages for d_c_last (``n_dc`` column chunks of ``nc``, ``n_kc``
+stages of ``kc`` rows each), then per hidden chunk its ``n_out`` W_out^T
+slices. F = 512 (``split``): 64 rows, in two phases, each warpgroup with a
+ring of its own: the pre-activations of its hidden chunks, then its half
+of d_c_last's columns, then per pair of chunks d_h of its chunk and its
+half of d_s's columns. The order of each ring is :func:`level_bwd_tiles`'s.
+Every width runs the one route (F and Fl padded to multiples of 8).
+
+K5's d_plane pass (``csrc/level_bwd.cu`` ``d_plane_tiles``): a block owns a
+``tx`` x ``ty`` tile of pixels of one batch entry and ``fc`` features
+(``tpp`` threads a pixel, ``groups`` 16-byte lanes a thread; more pixels
+at fine levels, fewer at coarse ones). It walks the
+finest cells under the union of its pixels' rectangles
+(:func:`d_plane_tile_rect`) in row-major order, ``cells`` at a time, and
+their rows in row order, ``cap`` at a time, their d_s lines ``lines`` rows
+at a time in shared memory; each pixel adds the rows of its own rectangle
+in that order, which is the order in which a walk of the pixel's own
+rectangle meets them.
 """
 
 from __future__ import annotations
@@ -202,3 +229,147 @@ def decoder_plan(b: int, h: int, w: int, c0: int, c1: int, c2: int, c3: int, co:
     if plans[2] is not None:
         plans[2] = {**plans[2], "oc": head_columns(c0 + c1 + c2 + c3, co)}
     return {"routes": routes, "conv1": plans[0], "conv2": plans[1], "head": plans[2]}
+
+
+LEVEL_BWD_SLICE = 64
+"""Rows of F a W_in or W_out^T box holds, and hidden columns a chunk, in K5's
+bf16 row pass (``kSlice``)."""
+
+LEVEL_BWD_STAGE = 8192
+"""Bytes of a ring slot of K5's bf16 row pass (``kStageBytes``)."""
+
+
+def level_bwd_plan(f: int, fl: int) -> dict:
+    """K5's bf16 row pass at widths (F, Fl) (``LevelBwdCfg`` and
+    ``LevelBwdSplitCfg``, mirrored by ``t2h_level_bwd_plan_bf16``): the width
+    class fp; ``split`` (F = 512: ``fused_level_bwd_wgmma_split``, the
+    warpgroups splitting the hidden chunks and d_s's columns, each with a
+    ring of its own); rows a block bm; hidden columns a chunk hc; F rows a
+    W_in / W_out^T box ki; ring A's slots (a chunk of W_in; none in the
+    split) and ring B's stages (the split: each warpgroup's ring's);
+    d_c_last's columns a chunk nc (the split: half a warpgroup) and W_c^T
+    rows a stage kc; d_s's columns a warpgroup ns; the counts n_h (chunks),
+    n_in (W_in boxes, W_out^T slices a chunk), n_dc (d_c_last column
+    chunks), n_kc (W_c^T stages a column chunk); and the dynamic shared
+    memory in bytes."""
+    if not 0 < f <= 512:
+        raise ValueError(f"K5's bf16 row pass takes 0 < F <= 512, got {f}")
+    fp = next(w for w in LEVEL_WIDTHS if f <= w)
+    sl, st = LEVEL_BWD_SLICE, LEVEL_BWD_STAGE
+    if fp == 512:
+        bm, nc, kc, ns, slots, stages = 64, 256, st // 256, 256, 0, 8
+        smem = 1024 + bm * fp * 2 + 2 * bm * sl * 2 + 2 * stages * st
+    else:
+        bm, nc, ns, slots = 128, fp, fp, fp // sl
+        kc, stages = st // (2 * nc), {64: 4, 128: 8, 256: 5}[fp]
+        smem = 1024 + 2 * bm * fp * 2 + bm * sl * 2 + (slots + stages) * st
+    return {"fp": fp, "split": fp == 512, "bm": bm, "hc": sl, "ki": sl, "slots": slots,
+            "stages": stages, "nc": nc, "kc": kc, "ns": ns, "n_h": cdiv(2 * f, sl),
+            "n_in": cdiv(f, sl), "n_dc": cdiv(fl, nc), "n_kc": cdiv(f, kc), "smem": smem}
+
+
+LEVEL_BWD_PLAN_KEYS = ("fp", "split", "bm", "hc", "ki", "slots", "stages", "nc", "kc", "ns",
+                       "n_h", "n_in", "n_dc", "n_kc", "smem")
+"""The order in which ``t2h_level_bwd_plan_bf16`` writes the plan's integers."""
+
+
+def level_bwd_tiles(plan: dict) -> dict:
+    """K5 bf16's tile sequences, each in the order its consumers take it.
+    F <= 256: ring "a", ("in", c, v), W_in's box v of hidden chunk c; ring
+    "b", ("c", j, v), W_c^T's stage v of d_c_last's column chunk j, all of
+    them first, then ("out", c, v), W_out^T's slice v of chunk c. F = 512:
+    ring "wg0" and "wg1", warpgroup w's: ("in", c, v) for its chunks c = w,
+    w + 2, .. (phase A); its ("c", j, v) stages (its half of chunk j's
+    columns); then per pair of chunks (2p, 2p + 1) its chunk's ("out", 2p +
+    w, v) slices, if it has one, and ("ds", c, v), the W_in boxes v of its
+    d_s rows (4w .. 4w + 3) for each chunk c of the pair."""
+    n_h, n_in = plan["n_h"], plan["n_in"]
+    cols = [("c", j, v) for j in range(plan["n_dc"]) for v in range(plan["n_kc"])]
+    if not plan["split"]:
+        return {"a": [("in", c, v) for c in range(n_h) for v in range(n_in)],
+                "b": cols + [("out", c, v) for c in range(n_h) for v in range(n_in)]}
+    rings = {}
+    for w in (0, 1):
+        half = range(4 * w, min(4 * w + 4, n_in))
+        seq = [("in", c, v) for c in range(w, n_h, 2) for v in range(n_in)] + list(cols)
+        for p in range(cdiv(n_h, 2)):
+            if 2 * p + w < n_h:
+                seq += [("out", 2 * p + w, v) for v in range(n_in)]
+            seq += [("ds", c, v) for c in range(2 * p, min(2 * p + 2, n_h)) for v in half]
+        rings[f"wg{w}"] = seq
+    return rings
+
+
+DPLANE_THREADS = 256
+"""Threads a block of K5's d_plane pass."""
+
+DPLANE_STEP = 512
+"""Finest cells a step of the d_plane pass's walk (two a thread), and rows
+an entry batch (two a thread)."""
+
+DPLANE_LINES = 24576
+"""Bytes of d_s lines in each of the two line buffers of a block of the
+d_plane pass (the next batch's lines load while this one's are walked)."""
+
+DPLANE_SUMS = 32
+"""The most f32 sums a thread of the d_plane pass keeps (groups x vec)."""
+
+
+def d_plane_plan(r: int, f: int, fr: int, elem: int) -> dict:
+    """K5's d_plane pass at resolution R, width F, finest resolution fr and
+    d_s elements of ``elem`` bytes (``t2h_level_d_plane_plan``): vec features
+    a 16-byte lane; tpp threads a pixel and ``groups`` lanes a thread (lane k
+    * tpp + g for thread g of its pixel, at most :data:`DPLANE_SUMS` sums a
+    thread), so fc = tpp x groups x vec features a block; the pixel tile tx
+    x ty (256 / tpp pixels) with its counts along x and y; the feature
+    chunks; the block's threads; the walk's cells a step and rows an entry
+    batch (``cells``, ``cap``: two a thread); and ``lines``, the rows of a
+    line batch (:data:`DPLANE_LINES` bytes of lines a buffer). Sized
+    by level: more pixels at fine levels, fewer at coarse ones. Where a
+    pixel spans one finest cell (R = fr) a thread takes as many lanes as it
+    can (up to 256 pixels a block); where it spans rho = fr / R cells along
+    each axis, tpp is at least 2 rho (up to 16: 16 pixels a block)."""
+    if r < 1 or fr < r:
+        raise ValueError(f"d_plane pass takes 1 <= R <= fr, got R={r}, fr={fr}")
+    vec = 16 // elem
+    lanes = cdiv(f, vec)
+    gmax = DPLANE_SUMS // vec
+    rho = max(1, fr // r)
+    level = 1 if rho <= 1 else min(16, 2 * rho)
+    tpp = min(lanes, 16, max(level, cdiv(lanes, gmax)))
+    groups = min(gmax, cdiv(lanes, tpp))
+    fc = tpp * groups * vec
+    pixels = DPLANE_THREADS // tpp
+    tx = 16 if pixels >= 128 else 8 if pixels >= 32 else 4
+    ty = pixels // tx
+    return {"vec": vec, "fc": fc, "tpp": tpp, "groups": groups, "tx": tx, "ty": ty,
+            "tiles_x": cdiv(r, tx), "tiles_y": cdiv(r, ty), "chunks": cdiv(f, fc),
+            "threads": DPLANE_THREADS, "cells": DPLANE_STEP, "cap": DPLANE_STEP,
+            "lines": min(DPLANE_STEP, DPLANE_LINES // (fc * elem))}
+
+
+D_PLANE_PLAN_KEYS = ("vec", "fc", "tpp", "groups", "tx", "ty", "tiles_x", "tiles_y", "chunks",
+                     "threads", "cells", "cap", "lines")
+"""The order in which ``t2h_level_d_plane_plan`` writes the plan's integers."""
+
+
+def cell_span(p: int, r: int, fr: int, margin: int = 1) -> tuple[int, int]:
+    """The finest cells [lo, hi] along one axis whose rows can touch pixel p
+    of R (``csrc/level_bwd.cu`` ``cell_span``): x0 in {p - 1, p} puts the
+    row's cell in [(p - 1) fr // (R - 1), (p + 1) fr // (R - 1)], widened by
+    ``margin`` cells each side and clipped; every cell where R < 2."""
+    if r < 2:
+        return 0, fr - 1
+    lo = (p - 1) * fr // (r - 1) - margin if p >= 1 else 0
+    hi = (p + 1) * fr // (r - 1) + margin
+    return max(lo, 0), min(hi, fr - 1)
+
+
+def d_plane_tile_rect(plan: dict, r: int, fr: int, tile_x: int, tile_y: int):
+    """The pixels (x0, x1, y0, y1, inclusive) of tile (tile_x, tile_y) and
+    the finest cells (cx0, cx1, cy0, cy1) under the union of their
+    rectangles: the first pixel's lower bound to the last's upper one."""
+    x0, y0 = tile_x * plan["tx"], tile_y * plan["ty"]
+    x1, y1 = min(x0 + plan["tx"], r) - 1, min(y0 + plan["ty"], r) - 1
+    return (x0, x1, y0, y1), (cell_span(x0, r, fr)[0], cell_span(x1, r, fr)[1],
+                              cell_span(y0, r, fr)[0], cell_span(y1, r, fr)[1])

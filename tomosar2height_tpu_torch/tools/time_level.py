@@ -24,8 +24,17 @@ plane, c_last and weights, drawn on the card as ``chip_smoke._level_rows``
 draws them: its kernel and its run scatter) for the eight levels at once and
 for each, then the 24 reductions on bf16 rows (``csrc/reduce_bf16.cu`` where
 the checkout has it) beside ``torch.matmul`` in bf16, all at once and each
-by (Ka, Nb), all timed by CUDA graph replays (``chip_smoke.graph_ms``, as
-the smoke's kernel rows). Needs one CUDA card.
+by (Ka, Nb), K5's bf16 row pass through its C entry point
+``t2h_fused_level_bwd_bf16`` (on random output cotangents with the
+forward's counts, outputs allocated once) for the eight levels at once and
+for each, and K5's d_plane pass in its five uses (bf16, f32, and f32 into a
+bf16 plane on K5's layout; K9's backward in f32 and bf16 on the ``fused``
+layout, 256-cell tiles) for the eight levels at once and for each, all
+timed by CUDA graph replays (``chip_smoke.graph_ms``, as the smoke's kernel
+rows). ``--dump DIR`` saves the d_plane outputs of every use and level to
+``DIR/d_plane.pt``; ``--against DIR`` counts the elements in which this
+checkout's differ from the ones saved there (0 where the two kernels give
+the same bits). Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -44,6 +53,9 @@ def main() -> None:
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
+    ap.add_argument("--dump", help="with --dtype bfloat16: save the d_plane outputs here")
+    ap.add_argument("--against", help="with --dtype bfloat16: count the d_plane elements "
+                    "that differ from the outputs --dump saved here")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -73,6 +85,8 @@ def main() -> None:
     if args.dtype == "bfloat16":
         _time_bf16_level(cs, lk, xy, cells, mask, root, args.iters)
         _time_bf16_reduce(cs, lk, gen, dev, b * npad, root, args.iters)
+        _time_bf16_rows(cs, lk, runtime, xy, cells, mask, root, args.iters)
+        _time_d_plane(cs, lk, xy, cells, mask, root, args.iters, args.dump, args.against)
         return
     fns, bwd, rows_fns, red, mm, dplane = {}, {}, {}, {}, {}, {}
     m = b * npad
@@ -163,10 +177,94 @@ def _time_bf16_reduce(cs, lk, gen, dev, m, root, iters):
               f"{iters}); by (Ka x Nb, +b with the bias) {per}", flush=True)
 
 
+def _time_bf16_rows(cs, lk, runtime, xy, cells, mask, root, iters):
+    """K5's bf16 row pass at the eight flagship levels, through its C entry
+    point (outputs allocated once; the transposes the entry takes made
+    once), on bf16 inputs drawn on the card as ``chip_smoke._level_rows``
+    draws them, random output cotangents and the forward's counts: all at
+    once and each by (R/F/Fl), graph replays."""
+    import torch
+
+    dev, bf = mask.device, torch.bfloat16
+    b, npad = mask.shape
+    cgen = torch.Generator(device=dev).manual_seed(1)
+    fns = {}
+    for r, f, fl in cs.LEVEL_SHAPES:
+        plane = torch.randn(b, r, r, f, generator=cgen, device=dev).to(bf)
+        c_last = (torch.randn(b, npad, fl, generator=cgen, device=dev)
+                  * mask[..., None]).to(bf)
+        w = tuple(x.to(bf) for x in (
+            cs._xavier(cgen, f, 2 * f, dev), torch.zeros(2 * f, device=dev),
+            cs._xavier(cgen, 2 * f, f, dev), torch.zeros(f, device=dev),
+            cs._xavier(cgen, fl, f, dev), torch.zeros(f, device=dev)))
+        counts = lk.fused_level(plane, c_last, w, xy, cells, mask, r, 256)[2]
+        g_p = torch.randn(b, r, r, f, generator=cgen, device=dev).to(bf)
+        g_c = torch.randn(b, npad, f, generator=cgen, device=dev).to(bf)
+        fns[f"{r}/{f}/{fl}"] = _row_pass(
+            lk, runtime, (plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, 256))
+    total = cs.graph_ms(lambda: [fn() for fn in fns.values()], iters)
+    per = {k: round(cs.graph_ms(fn, iters), 4) for k, fn in fns.items()}
+    print(f"K5 rows bf16 {root}: {total:.4f} ms for the eight levels (graph replays, median "
+          f"of {iters}); by level (R/F/Fl) {per}", flush=True)
+
+
+def _time_d_plane(cs, lk, xy, cells, mask, root, iters, dump, against):
+    """K5's d_plane pass in its five uses at the eight levels: on K5's layout
+    (the flagship batch) with d_s in bf16, in f32, and in f32 into a bf16
+    plane; as K9's backward (``gather_kernel.tile_gather_bwd``) on the
+    ``fused`` layout (256-cell tiles, the smoke's tile batch) in f32 and
+    bf16. Each use all at once and each level by (R/F), graph replays;
+    ``dump`` / ``against`` as the module says."""
+    import numpy as np
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
+
+    dev, bf = mask.device, torch.bfloat16
+    b, npad = mask.shape
+    _, _, tpts, tmask, tcell, _ = cs.flagship_batch(5, tile_cells=256)
+    up = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)  # noqa: E731
+    txy, tmask, tcells = up(tpts[..., :2]), up(tmask), up(tcell)
+    cgen = torch.Generator(device=dev).manual_seed(2)
+    uses = {}
+    for r, f, fl in cs.LEVEL_SHAPES:
+        d_s = torch.randn(b, npad, f, generator=cgen, device=dev) * mask[..., None]
+        g = torch.randn(tmask.shape + (f,), generator=cgen, device=dev) * tmask[..., None]
+        key = f"{r}/{f}/{fl}"
+        for use, fn in (
+                ("K5 bf16", lambda a=(d_s.to(bf), xy, cells, mask, r, 256): lk.level_d_plane(*a)),
+                ("K5 f32", lambda a=(d_s, xy, cells, mask, r, 256): lk.level_d_plane(*a)),
+                ("K5 f32 into bf16", lambda a=(d_s, xy, cells, mask, r, 256):
+                 lk.level_d_plane(*a, out_dtype=bf)),
+                ("K9 bwd f32", lambda a=(g, txy, tcells, tmask, r, 256): gk.tile_gather_bwd(*a)),
+                ("K9 bwd bf16", lambda a=(g.to(bf), txy, tcells, tmask, r, 256):
+                 gk.tile_gather_bwd(*a))):
+            uses.setdefault(use, {})[key] = fn
+    outs = {use: {k: fn().cpu() for k, fn in group.items()} for use, group in uses.items()}
+    if dump:
+        os.makedirs(dump, exist_ok=True)
+        torch.save(outs, os.path.join(dump, "d_plane.pt"))
+    if against:
+        ref = torch.load(os.path.join(against, "d_plane.pt"))
+        diff = {use: {k: int((outs[use][k] != ref[use][k]).sum()) for k in group}
+                for use, group in outs.items()}
+        total = sum(v for group in diff.values() for v in group.values())
+        n = sum(x.numel() for group in outs.values() for x in group.values())
+        print(f"d_plane {root} against {against}: {total} of {n} elements differ; by use and "
+              f"level {diff}", flush=True)
+    for use, group in uses.items():
+        total = cs.graph_ms(lambda g=group: [fn() for fn in g.values()], iters)
+        per = {k: round(cs.graph_ms(fn, iters), 4) for k, fn in group.items()}
+        print(f"d_plane {use} {root}: {total:.4f} ms for the eight levels (graph replays, "
+              f"median of {iters}); by level (R/F/Fl of the round trip) {per}", flush=True)
+
+
 def _row_pass(lk, runtime, bargs):
-    """K5's row pass alone, through its C entry point, outputs allocated
-    once: the entry point takes 18 pointers in every tree, d_plane first in
-    a tree without ``level_d_plane``, d_s last in one with it."""
+    """K5's row pass alone, through its C entry point for the plane's dtype,
+    outputs allocated once: the entry point takes 18 pointers in every tree,
+    d_plane first in a tree without ``level_d_plane``, d_s last in one with
+    it (the bf16 entry of a tree with ``csrc/level_bwd_bf16.cu`` does not
+    read w_in_t)."""
     import torch
 
     plane, c_last, w, xy, cells, mask, counts, g_p, g_c, r, reso = bargs
@@ -175,15 +273,20 @@ def _row_pass(lk, runtime, bargs):
     m = b * n
     shapes = [(b, n, fl), (m, f), (m, 2 * f), (m, f), (m, 2 * f)]
     shapes = shapes + [(m, f)] if hasattr(lk, "level_d_plane") else [(b, r, r, f)] + shapes
-    outs = [torch.empty(shape, device=plane.device) for shape in shapes]
+    outs = [torch.empty(shape, device=plane.device, dtype=plane.dtype) for shape in shapes]
     w_out_t, w_c_t, w_in_t = (x.t().contiguous() for x in (w[2], w[4], w[0]))
     ptrs = [t.data_ptr() for t in (plane, xy, cells, mask, counts, g_p, g_c, w[0], w[1],
                                    w_out_t, w_c_t, w_in_t, *outs)]
-    lib, stream = runtime.library(), runtime.stream_ptr(plane.device)
+    lib, dev = runtime.library(), plane.device
     shift = lk.level_shift(r, reso)
+    entry = (lib.t2h_fused_level_bwd_bf16 if plane.dtype == torch.bfloat16
+             else lib.t2h_fused_level_bwd)
 
-    def fn():
-        runtime.check(lib.t2h_fused_level_bwd(*ptrs, b, n, r, f, fl, shift, stream),
+    keep = (w_out_t, w_c_t, w_in_t, outs)
+
+    def fn():  # on the current stream (a graph capture's, under graph_ms)
+        assert keep  # the transposes and outputs live as long as fn
+        runtime.check(entry(*ptrs, b, n, r, f, fl, shift, runtime.stream_ptr(dev)),
                       "fused_level_bwd")
     return fn
 
