@@ -242,7 +242,7 @@ TENSOR_CORE_KERNELS = MMA_SYNC_KERNELS + WGMMA_KERNELS
 # K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
 # and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the tile gather)
 RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells", "cell_rows",
-               "d_plane_tiles")
+               "d_plane_tiles", "tile_gather_lanes")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -1614,20 +1614,25 @@ def check_tile_kernels(entry, seed: int = 0, dt=None):
 
     pairs, kfns, pfns, lfns, work, repeat = [], [], [], [], [0, 0], True
     esize = torch.empty((), dtype=dt).element_size()
+    by_shape = []
     for r, f in TILE_GATHER_SHAPES:
         plane = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
         a = (plane, xy, level_toff(r))
         out = gk.tile_gather(*a)
         repeat = repeat and torch.equal(out, gk.tile_gather(*a))
         pairs.append(close(out, gk.tile_gather_plain(*a)))
-        work[0] += touched_pixels(r) * f * esize + int(in_tiles.sum()) * 8 + nbytes(a[2], out)
+        moved = touched_pixels(r) * f * esize + int(in_tiles.sum()) * 8 + nbytes(a[2], out)
+        work[0] += moved
         work[1] += 8 * b * npad * f
         kfns.append(lambda a=a: gk.tile_gather(*a))
         pfns.append(lambda a=a: gk.tile_gather_plain(*a))
+        by_shape.append(f"{r}^2 F={f} {graph_ms(kfns[-1]):.4f}/{graph_ms(pfns[-1], 3, 1):.4f}/"
+                        f"{bound(moved, 8 * b * npad * f)[0]:.4f}")
         grid = (2 * xy - 1)[:, :, None, :].to(dt)
         lfns.append(lambda p=plane.permute(0, 3, 1, 2), g=grid: F.grid_sample(
             p, g, padding_mode="border", align_corners=True))
-    log("kernels", f"tile_gather{sfx} bit-equal on a second launch at its 8 shapes: {repeat}")
+    log("kernels", f"tile_gather{sfx} by shape, kernel/plain/bound ms: {'; '.join(by_shape)} | "
+        f"bit-equal on a second launch at its 8 shapes: {repeat}")
     if not repeat:
         raise AssertionError(f"tile_gather{sfx} differs between two launches")
     entry("tile_gather" + sfx, "tomosar2height_tpu_torch/csrc/tile_gather.cu",

@@ -2635,3 +2635,86 @@ class TestWgmmaRowPassAndDPlaneTiles:
         from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
         assert lk._d_plane_plan(level_reso, f, reso, d_s.element_size()) == tp.d_plane_plan(
             level_reso, f, reso, d_s.element_size())
+
+
+def _misaligned(x):
+    """A contiguous copy of ``x`` whose data starts 2 bytes past a 16-byte
+    boundary (the kernels' one-value-a-lane paths)."""
+    flat = torch.empty(x.numel() + 8, device=x.device, dtype=x.dtype)
+    view = flat[1:1 + x.numel()].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    return view
+
+
+@pytest.mark.cuda
+class TestSixteenByteLanes:
+    """K9 on its (row, 16-byte chunk) lane map and the run scatter's bf16
+    widths (``tile_plan.tile_gather_plan``, ``scatter_runs_plan``): the C
+    side plans as the host does; K9 at the flagship's widths, ragged ones
+    and on an unaligned plane against its plain version (bf16 bit-equal,
+    f32 within TOL); the bf16 run scatter at 16 bytes a lane (F = 256 to
+    1024) and below against its plain version, its counts exact; its steps
+    launched apart (``t2h_scatter_runs_parts``) give the whole call's bits;
+    each bit-equal on a second launch."""
+
+    def test_plans_match_the_c_side(self, cuda):
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
+        for f in (1, 6, 8, 12, 20, 24, 32, 40, 64, 128, 132, 256, 264, 512, 1024):
+            for elem in (2, 4):
+                for aligned in (True, False):
+                    assert gk._plan(f, elem, aligned) == tp.tile_gather_plan(f, elem, aligned)
+                    assert pk.runs_plan(f, elem, aligned) == tp.scatter_runs_plan(
+                        f, elem, aligned)
+
+    @pytest.mark.parametrize("f,dtype,aligned", [
+        (32, BF, True), (64, BF, True), (256, BF, True), (512, BF, True), (264, BF, True),
+        (24, BF, True), (64, BF, False), (512, torch.float32, True),
+        (256, torch.float32, True), (6, torch.float32, True), (64, torch.float32, False)])
+    def test_tile_gather_widths(self, cuda, f, dtype, aligned):
+        pts, _, _, toff, _ = tile_batch(17, reso=64, edge="empty")
+        rng = np.random.default_rng(3)
+        plane = t(rng.normal(size=(2, 32, 32, f)).astype(np.float32), cuda).to(dtype)
+        if not aligned:
+            plane = _misaligned(plane)
+        xy, lvl = t(pts[..., :2], cuda), t(toff[:, ::4], cuda)
+        got = gk.tile_gather(plane, xy, lvl)
+        want = gk.tile_gather_plain(plane, xy, lvl)
+        torch.cuda.synchronize()
+        if dtype == BF:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got, want, **TOL)
+        assert (got[1] == 0).all()  # the empty entry: every row past its last tile
+        assert torch.equal(gk.tile_gather(plane, xy, lvl), got)
+
+    @pytest.mark.parametrize("reso,f", [(64, 128), (32, 256), (16, 512), (16, 1024),
+                                        (32, 264)])
+    def test_scatter_runs_bf16_widths(self, cuda, reso, f):
+        _, _, cells, toff, vals = tile_batch(7, reso=64, f=f)
+        level = 7 - reso.bit_length()
+        v, c, lt = _bf(vals, cuda), t(cells, cuda), t(toff[:, :: 4 ** level], cuda)
+        got, counts = sk.aligned_scatter_mean_plane(v, c, lt, reso, 64, with_counts=True)
+        want, want_counts = sk.aligned_scatter_mean_plane_plain(v, c, lt, reso, 64,
+                                                                with_counts=True)
+        torch.cuda.synchronize()
+        assert torch.equal(counts, want_counts) and bf16_ulps(got, want) <= 1
+        assert torch.equal(sk.aligned_scatter_mean_plane(v, c, lt, reso, 64), got)
+
+    @pytest.mark.parametrize("dtype", [BF, torch.float32])
+    def test_scatter_parts_compose(self, cuda, dtype):
+        _, _, cells, toff, vals = tile_batch(9, reso=64, f=256)
+        v, c, lt = t(vals, cuda).to(dtype), t(cells, cuda), t(toff[:, ::4], cuda)
+        want, want_counts = sk.aligned_scatter_mean_plane(v, c, lt, 32, 64, with_counts=True)
+        b, n, f = v.shape
+        plane = torch.full_like(want, 7.0)
+        counts = torch.full_like(want_counts, 7)
+        flags = torch.empty((b, 32, 32), device=cuda, dtype=torch.uint8)
+        name = "t2h_scatter_runs_parts" + ("_bf16" if dtype == BF else "")
+        fn = getattr(runtime.library(), name)
+        for parts in (1 | 2, 4, 8):
+            runtime.check(fn(v.data_ptr(), c.data_ptr(), 0, lt.data_ptr(), plane.data_ptr(),
+                             counts.data_ptr(), flags.data_ptr(), b, n, f, 32, 2, lt.shape[1],
+                             1, 0, parts, runtime.stream_ptr(cuda)), name)
+        torch.cuda.synchronize()
+        assert torch.equal(plane, want) and torch.equal(counts, want_counts)

@@ -21,7 +21,10 @@ padded, rows cleared from the mask inside a run (K3), rows of another tile
 256^2 down to 16^2 (K12) and the plain sorted layout's, its ids shifted and
 its per-cell offsets strided as ``chip_smoke.check_tile_kernels`` does (K11,
 which reads every 256th offset: the tile-offset step; K13 on the same).
-Every plane cell must be written exactly once, and a mutant of the read-on,
+Since the bf16 redesign the emulation runs on ``tile_plan.scatter_runs_plan``'s
+lanes (16 bytes a lane from F = 256 in bf16) and 16-byte zero items, and
+bf16 values are held to the plain version and JAX's K3 within a bf16 ulp.
+Every plane value must be written exactly once, and a mutant of the read-on,
 of the zero pass, of K11's step or of K13's order (flags in one order, the
 store in the other) must fail. Tolerance 1e-5 abs + rel (the kernel sums in row
 order, the plain version in scatter order)."""
@@ -62,12 +65,18 @@ from test_torch_cuda import (  # noqa: E402
 )
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp  # noqa: E402
 from tomosar2height_tpu_torch.ops.sorted_scatter import PAD_CELL_SENTINEL  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 SPAN = 32  # rows a warp owns: kSpan in csrc/pool2.cu
 LEVELS = (256, 128, 64, 32, 16)
 SOURCE = os.path.join(os.path.dirname(pk.__file__), "..", "..", "csrc", "pool2.cu")
+
+
+def _bf16(a):
+    """float32 values rounded to bf16 (ties to even) and back."""
+    return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(torch.bfloat16).float().numpy()
 
 
 def _compact(v):
@@ -84,28 +93,41 @@ def rowmajor(code, reso):
 
 
 def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, morton=False,
-                    mutant=None):
+                    mutant=None, elem=4):
     """The steps of ``t2h_scatter_runs`` in numpy: K3 with ``mask``; K11-K13
     with ``toff``, tile t of entry i spanning rows [toff[i, t * step],
     toff[i, (t + 1) * step]) (K12: tile offsets at ``reso``, step 1; K11,
-    K13: per-cell offsets, step 256), and ``shift``. Returns (plane (B, reso,
-    reso, F), counts (B, reso, reso), writes (B, reso, reso): how often each
-    plane cell was stored); with ``morton`` (K13) the flags and the output
-    are in Morton order, (B, reso**2, F), (B, reso**2), (B, reso**2).
-    ``mutant``: 'no_read_on' drops the walk past the span, 'no_zero_pass'
-    the zero pass, 'no_step' reads the tile offsets with step 1 whatever
-    ``step`` says, 'mixed_order' stores row-major while the flags are in
-    ``morton``'s order."""
+    K13: per-cell offsets, step 256), and ``shift``; on the lanes and items
+    of ``tile_plan.scatter_runs_plan`` for values of ``elem`` bytes (2: x
+    holds bf16 values, each mean rounded to bf16 once). Returns (plane (B,
+    reso, reso, F), counts (B, reso, reso), writes (B, reso, reso, F): how
+    often each plane value was stored); with ``morton`` (K13) the flags and
+    the output are in Morton order, (B, reso**2, F), (B, reso**2), (B,
+    reso**2, F). ``mutant``: 'no_read_on' drops the walk past the span,
+    'no_zero_pass' the zero pass, 'no_step' reads the tile offsets with step
+    1 whatever ``step`` says, 'mixed_order' stores row-major while the flags
+    are in ``morton``'s order."""
     b, n, f = x.shape
     ncell = reso * reso
+    plan = tp.scatter_runs_plan(f, elem)
     plane = np.full((b, ncell, f), np.nan, np.float32)
     counts = np.full((b, ncell), -1, np.int64)
-    writes = np.zeros((b, ncell), np.int64)
+    writes = np.zeros((b, ncell, f), np.int64)
     flags = np.zeros((b, ncell), bool)  # cleared
     raw = cells.astype(np.int64)
     key = np.where((raw >= 0) & ((raw >> shift) < ncell), raw >> shift, -1)
     # key of row r at [i, r + 1]: -1 before the entry and past it
     keys = np.concatenate([np.full((b, 1), -1), key, np.full((b, SPAN + 1), -1)], axis=1)
+
+    # the run part's lanes: chunk fc, lane l store features (32 fc + l) vec onwards
+    cover = np.zeros(f, np.int64)
+    vec = plan["vec"]
+    for fc in range(plan["chunks"]):
+        for lane in range(32):
+            f0 = (32 * fc + lane) * vec
+            if f0 < f:
+                assert f0 + vec <= f  # a lane's bytes inside its row
+                cover[f0:f0 + vec] += 1
 
     st = 1 if mutant == "no_step" else step
 
@@ -117,6 +139,10 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, morto
         if toff is None:
             return bool(mask[i, r])
         return toff[i, (c >> 8) * st] <= r < toff[i, ((c >> 8) + 1) * st]
+
+    def mean(total, count):
+        m = (total / np.float32(count)).astype(np.float32)
+        return m if elem == 4 else _bf16(m)
 
     for i in range(b):  # the mark pass, a row at a time
         for r in np.flatnonzero(key[i] >= 0):
@@ -153,17 +179,31 @@ def emulate_scatter(x, cells, reso, mask=None, toff=None, shift=0, step=1, morto
                 if count == 0:
                     continue
                 dst = index(c[k], store=True)
-                plane[i, dst] = total / np.float32(count)
+                plane[i, dst] = mean(total, count)
                 counts[i, dst] = count
-                writes[i, dst] += 1
+                writes[i, dst] += cover
     if mutant != "no_zero_pass":  # the zero part: the cells whose flag is clear
-        plane[~flags] = 0
-        counts[~flags] = 0
-        writes[~flags] += 1
+        _zero_part(plane.reshape(b * ncell, f), counts.reshape(-1), writes.reshape(b * ncell, f),
+                   flags.reshape(-1), plan, mutant)
     if morton:
         return plane, counts, writes
     return (plane.reshape(b, reso, reso, f), counts.reshape(b, reso, reso),
-            writes.reshape(b, reso, reso))
+            writes.reshape(b, reso, reso, f))
+
+
+def _zero_part(plane, counts, writes, flags, plan, mutant=None):
+    """The zero part on the plan's items (``item`` values each, ``q`` a
+    cell, each loading its cell's flag): 0 to every value of every cell
+    whose flag is clear, and its count."""
+    q, item = plan["q"], plan["item"]
+    i = np.arange(flags.size * q)
+    cell = i // q
+    empty = np.flatnonzero(~flags[cell])
+    for e in range(item):
+        feat = (empty % q) * item + e
+        plane[cell[empty], feat] = 0
+        np.add.at(writes, (cell[empty], feat), 1)
+    counts[cell[empty[empty % q == 0]]] = 0
 
 
 def level_sorted(cells, offs, reso):
@@ -333,11 +373,21 @@ def test_emulation_sums_in_row_order(k3_layout):
 
 def test_kernel_source_matches_the_emulation():
     """The emulated span is the kernel's; the run scatter adds with no atomic,
-    and the atomic plane scatter is gone."""
+    and the atomic plane scatter is gone; the kernel takes its lanes, groups
+    and zero items from the plan that ``tile_plan.scatter_runs_plan`` mirrors
+    (checked against the C side at each wrapper's first launch), its groups
+    32 registers of values, bf16 kept as raw words, two to a register."""
     src = open(SOURCE).read()
-    assert f"constexpr int kSpan = {SPAN};" in src
+    assert f"constexpr int kSpan = {SPAN};" in src and tp.SPAN == SPAN
     body = src[src.index("scatter_runs(const float*"):src.index("}  // namespace t2h")]
     assert "atomic" not in body
+    launch = src[src.index("int launch_scatter_runs("):src.index("}  // namespace t2h")]
+    assert "runs_plan(F, sizeof(T), aligned16(values))" in launch and "p.vec == 8" in launch
+    assert "constexpr int kVec = 16 / sizeof(T);" in src  # 16-byte zero items
+    assert "static constexpr int kRegs = VEC == 1 ? 1 : VEC / 2;" in src  # bf16 raw words
+    assert "32 / RowVals<T, VEC>::kRegs" in src
+    assert "runs_plan(f, values.element_size()" in inspect.getsource(pk.scatter_runs_masked)
+    assert "runs_plan(f, values.element_size()" in inspect.getsource(sk._scatter_runs)
     assert "scatter_plane_accum" not in src and "t2h_scatter_plane(" not in src
     assert "scatter_runs_masked(" in inspect.getsource(pk._scatter_plane2)
     assert "t2h_scatter_runs" in inspect.getsource(pk.scatter_runs_masked)
@@ -528,3 +578,65 @@ def test_k14_launches_the_run_kernel(k12_layout):
     got, _, writes = _scatter_k14(vals, cells, toff, 32, "no_step")
     want = sk.scatter_mean_plane_v3_plain(t(vals), t(cells), t(toff), 32, FINEST).numpy()
     assert (writes != 1).any() or not np.allclose(got, want, **TOL)
+
+
+# --- the bf16 instance: 16-byte lanes from F = 256 on, whole spans in flight ----------
+
+
+def _ulp_close(got, want):
+    """Within one bf16 ulp of ``want`` (floored at 2^-126): the run's row-order
+    f32 sum against the plain version's scatter order, each rounded once."""
+    ulp = np.maximum(np.abs(want), 2.0 ** -126) * 2.0 ** -7
+    return bool((np.abs(got - want) <= ulp).all())
+
+
+@pytest.mark.parametrize("reso,f", [(64, 64), (32, 256), (16, 512), (32, 1024)])
+def test_k12_bf16_plan_emulation_matches_plain(reso, f):
+    """K12 on bf16 values at the widths where the bf16 plan differs from
+    f32's (8 features, 16 bytes, a lane from F = 256 on; two and four chunks
+    a span at 512 and 1024): every plane value written once, by one lane or
+    one zero item; within a bf16 ulp of the bf16 plain version."""
+    _, _, cells, toff, vals = tile_run_batch(11, f=f)
+    vals = _bf16(vals)
+    got, _, writes = emulate_scatter(vals, cells, reso, toff=level_toff(toff, reso),
+                                     shift=level_shift(reso), elem=2)
+    assert (writes == 1).all()
+    want = sk.aligned_scatter_mean_plane_plain(t(vals).to(torch.bfloat16), t(cells),
+                                               t(level_toff(toff, reso)), reso, FINEST)
+    assert _ulp_close(got, want.float().numpy())
+    assert (got[-1] == 0).all()
+
+
+def test_k3_bf16_plan_emulation_matches_jax():
+    """K3 on bf16 values at F = 32 (a lane a feature, the span's 32 rows at
+    once; zero items of 8 values) against the JAX kernel's bf16 rule in
+    interpret mode (pool2_kernel.py:292-334): within a bf16 ulp."""
+    _, mask, cells, toff, vals = run_batch(3, f=32)
+    vals = _bf16(vals)
+    ct, _ = chunk_metadata(jnp.asarray(toff), mask.shape[1], RESO, RESO)
+    want = np.asarray(jax_scatter_plane2(
+        jnp.asarray(vals, jnp.bfloat16), make_cells_row(jnp.asarray(cells)), ct,
+        empty_tile_mask(jnp.asarray(toff), RESO, RESO), jnp.asarray(mask), RESO))
+    got, _, writes = emulate_scatter(vals, cells, RESO, mask=mask, elem=2)
+    assert (writes == 1).all()
+    assert _ulp_close(got, want.astype(np.float32))
+
+
+def test_scatter_runs_plan_widths():
+    """Lane widths by bytes: bf16 8 features (16 bytes) a lane from F = 256
+    on; f32 unchanged (4 from 128); a group of 128 bytes a lane (bf16 twice
+    f32's rows at one width); zero items of 16 bytes, one value where F is
+    no multiple of them; q and its shift; the C side's key order."""
+    bf = {f: tp.scatter_runs_plan(f, 2) for f in (32, 64, 128, 256, 512, 1024)}
+    assert [(p["vec"], p["chunks"], p["group"], p["q"]) for p in bf.values()] == [
+        (1, 1, 32, 4), (2, 1, 32, 8), (4, 1, 16, 16), (8, 1, 8, 32), (8, 2, 8, 64),
+        (8, 4, 8, 128)]
+    f32 = {f: tp.scatter_runs_plan(f, 4) for f in (32, 64, 128, 256, 1024)}
+    assert [(p["vec"], p["chunks"], p["group"], p["q"]) for p in f32.values()] == [
+        (1, 1, 32, 8), (2, 1, 16, 16), (4, 1, 8, 32), (4, 2, 8, 64), (4, 8, 8, 256)]
+    assert tp.scatter_runs_plan(512, 2, aligned=False)["vec"] == 1
+    p = tp.scatter_runs_plan(20, 2)
+    assert (p["item"], p["q"], p["qshift"]) == (1, 20, -1)
+    p = tp.scatter_runs_plan(24, 2)
+    assert (p["item"], p["q"], p["qshift"]) == (8, 3, -1)
+    assert tuple(tp.SCATTER_RUNS_PLAN_KEYS) == tuple(p)

@@ -41,6 +41,12 @@ float64, the convs and the d_plane folds in float32):
   column and output column covered once, every K index once a product;
   d_c_last, h, d_h and d_s equal to the plain row pass's (float64, without
   the bf16 roundings).
+- K9 (``csrc/tile_gather.cu``) at the flagship's widths in bf16 and f32, at
+  ragged widths and on an unaligned plane: each (row, 16-byte chunk) item of
+  each warp's steps, its corner from its row's own lane; every output
+  element written once, no chunk past its row, rows past the last tile 0,
+  the bf16 samples the plain version's bits (and within a bf16 ulp of the
+  JAX kernel in interpret mode), the f32 ones within 1e-6.
 - K5's d_plane pass at every R of the flagship's levels (widths cut) and at
   R = 1, 2, 3 and fr = R, in both element sizes, on the aligned layout with
   a crowded corner, masked rows in valid cells and an empty entry: each
@@ -62,6 +68,7 @@ import torch
 import chip_smoke as cs
 from tomosar2height_tpu_torch.ops.cuda import conv_kernel as ck
 from tomosar2height_tpu_torch.ops.cuda import decoder_kernel as dk
+from tomosar2height_tpu_torch.ops.cuda import gather_kernel as gk
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
 from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
 
@@ -1009,3 +1016,156 @@ def test_d_plane_plan_tiles():
     assert tuple(tp.D_PLANE_PLAN_KEYS) == tuple(p)
     with pytest.raises(ValueError):
         tp.d_plane_plan(64, 8, 32, 4)
+
+
+# --- K9: the tile gather on 16-byte lanes ----------------------------------------------
+
+
+def _bf16_round(x):
+    return torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(torch.bfloat16).float().numpy()
+
+
+def emulate_tile_gather(plane, xy, toff, elem: int, aligned: bool = True):
+    """K9 (``csrc/tile_gather.cu`` ``tile_gather_lanes``) in numpy on
+    ``tile_plan.tile_gather_plan``, every warp's lanes at once: lane r
+    computes the corner of the warp's row r; in each step a lane's items e
+    (row (e // lpr) % 32, chunk (e // (32 lpr)) lpr + e % lpr) take the
+    corner from the row's lane, load vec features of the four corners and
+    write them once (0 past the entry's last tile offset). ``elem`` 2: the plane's values are
+    bf16 (the weights cut, the exact products summed in float32 in corner
+    order, one rounding); 4: float32 (bilinear_mix without contraction).
+    Returns (out (B, N, F) float32, writes (B, N, F))."""
+    b, r, _, f = plane.shape
+    n = xy.shape[1]
+    p = tp.tile_gather_plan(f, elem, aligned)
+    vec, cpr, lpr, rows = p["vec"], p["cpr"], p["lpr"], p["rows"]
+    out = np.full((b, n, f), np.nan, np.float32)
+    writes = np.zeros((b, n, f), np.int64)
+    one = np.float32(1)
+    warps = tp.cdiv(n, p["block_rows"]) * tp.GATHER_WARPS
+    i0 = np.arange(warps)[:, None] * rows  # (W, 1): each warp's first row
+    lanes = np.arange(32)[None, :]
+    feats = np.arange(vec)
+    here = np.clip(n - i0, 0, rows)  # (W, 1): the warp's rows in the entry
+    for bi in range(b):
+        last = int(toff[bi, -1])
+        flat = plane[bi].reshape(r * r, f)
+        own = i0 + lanes < n  # lane r: the corner of the warp's row r (W, 32)
+        src = np.minimum(i0 + lanes, n - 1)
+        x0, y0, x1, y1, wx, wy = _corner(np.where(own, xy[bi, src, 0], 0).astype(np.float32),
+                                         np.where(own, xy[bi, src, 1], 0).astype(np.float32), r)
+        step = 32 * p["items"]
+        for e0 in range(0, rows * cpr, step):  # steps of ``items`` items a lane
+            assert e0 // step < p["steps"]
+            for half in range(0, step, 32):
+                e = e0 + half + lanes
+                h = e // lpr
+                row = h % rows
+                k = ((h // rows) * lpr + e % lpr) * vec
+                live = (e < rows * cpr) & (row < here)  # (W, 32)
+                wi, li = np.nonzero(live)
+                rr, kk = row[0, li], k[0, li]
+                assert (rr < 32).all() and (kk + vec <= f).all()  # a chunk inside its row
+                i = i0[wi, 0] + rr
+                fs = kk[:, None] + feats[None, :]
+                np.add.at(writes[bi], (i[:, None], fs), 1)
+                past = i >= last
+                out[bi, i[past, None], fs[past]] = 0
+                s_w, s_r, s_f = wi[~past], rr[~past], fs[~past]
+                assert own[s_w, s_r].all()  # the item's corner: its row's own lane
+                c = [flat[yy[s_w, s_r, None] * r + xx[s_w, s_r, None], s_f]
+                     for yy, xx in ((y0, x0), (y0, x1), (y1, x0), (y1, x1))]
+                bx, by = wx[s_w, s_r, None], wy[s_w, s_r, None]
+                ax, ay = one - bx, one - by
+                if elem == 2:
+                    wts = [_bf16_round(w) for w in (ax * ay, bx * ay, ax * by, bx * by)]
+                    acc = wts[0] * c[0]
+                    for t in (1, 2, 3):
+                        acc = (acc + wts[t] * c[t]).astype(np.float32)
+                    val = _bf16_round(acc)
+                else:
+                    val = (c[0] * ax + c[1] * bx) * ay + (c[2] * ax + c[3] * bx) * by
+                out[bi, i[~past, None], s_f] = val
+    return out, writes
+
+
+def _gather_case(seed: int, r: int, f: int, elem: int, edge: str = "border"):
+    """A 2-entry fused layout at finest 64^2 (the last entry empty with
+    ``edge`` 'empty'), the plane at R in the element type, the tile offsets
+    at R and the points' mask, as tests/test_torch_bf16_tiles.py builds
+    them."""
+    from test_torch_cuda import tile_batch
+
+    pts, mask, _, toff, _ = tile_batch(seed, n=300, reso=64, edge=edge)
+    plane = np.random.default_rng(seed + 1).normal(size=(2, r, r, f)).astype(np.float32)
+    if elem == 2:
+        plane = _bf16_round(plane)
+    lvl = np.ascontiguousarray(toff[:, :: 4 ** ((64).bit_length() - r.bit_length())])
+    return plane, np.ascontiguousarray(pts[..., :2]), lvl, mask
+
+
+@pytest.mark.parametrize("f,elem,aligned", [
+    (32, 2, True), (64, 2, True), (128, 2, True), (256, 2, True), (512, 2, True),
+    (24, 2, True), (40, 2, True), (12, 2, True), (32, 2, False), (264, 2, True),
+    (32, 4, True), (64, 4, True), (512, 4, True), (6, 4, True), (64, 4, False)])
+def test_tile_gather_plan_covers_and_samples(f, elem, aligned):
+    """Every (row, feature) of the output written once by one lane's chunk,
+    no chunk past its row, each item's corner from its row's own lane, rows
+    past the last tile 0, the samples equal to the plain version's (bf16:
+    the same bits; f32: 1e-6, the kernel contracts into FMAs)."""
+    plane, xy, lvl, _ = _gather_case(3, 32, f, elem)
+    out, writes = emulate_tile_gather(plane, xy, lvl, elem, aligned)
+    assert (writes == 1).all()
+    dt = torch.bfloat16 if elem == 2 else torch.float32
+    want = gk.tile_gather_plain(torch.from_numpy(plane).to(dt), torch.from_numpy(xy),
+                                torch.from_numpy(lvl)).float().numpy()
+    past = np.arange(xy.shape[1])[None, :] >= lvl[:, -1:]
+    assert past.any() and (out[past] == 0).all()
+    if elem == 2:
+        np.testing.assert_array_equal(out, want)
+    else:
+        np.testing.assert_allclose(out, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("r,finest_edge", [(32, "empty")])
+def test_tile_gather_emulation_matches_jax(r, finest_edge):
+    """The bf16 emulation at F = 64 against the JAX kernel in interpret mode
+    (its bf16 rule, gather_kernel.py:174-186) on the points' rows: within one
+    bf16 ulp, as tests/test_torch_bf16_tiles.py holds the plain version."""
+    jax = pytest.importorskip("jax")
+    jnp = jax.numpy
+    from tomosar2height_tpu.ops.pallas import fused as jfused
+    from tomosar2height_tpu.ops.pallas.gather_kernel import pallas_tile_gather
+
+    plane, xy, lvl, mask = _gather_case(5, r, 64, 2, finest_edge)
+    out, _ = emulate_tile_gather(plane, xy, lvl, 2)
+    ax, ay = jfused.make_aux(jnp.asarray(xy))
+    want = np.asarray(pallas_tile_gather(jnp.asarray(plane, jnp.bfloat16), ax, ay,
+                                         jnp.asarray(lvl), r, interpret=True)).astype(np.float32)
+    got, ref = out[mask], want[mask]
+    ulp = np.maximum(np.abs(ref), 2.0 ** -126) * 2.0 ** -7
+    assert (np.abs(got - ref) <= ulp).all()
+
+
+def test_tile_gather_plan_shapes():
+    """The maps: 32 rows a warp; in bf16 one item a lane at once, a row of F
+    = 32 on 4 lanes (8 rows a step), F = 256 on 32; past 32 chunks a row (F
+    = 512 in bf16, 256 and 512 in f32) 32 lanes a row, the warp's rows
+    walked once a group of 32 chunks; f32 two items a lane; an unaligned
+    plane or a ragged F on one feature a lane; one lane a row at F = 132 in
+    f32 (the largest power of two dividing 33 chunks); the C side's key
+    order."""
+    shapes = {f: tp.tile_gather_plan(f, 2) for f in (32, 64, 128, 256, 512)}
+    assert [(p["vec"], p["cpr"], p["lpr"], p["items"], p["steps"])
+            for p in shapes.values()] == [
+        (8, 4, 4, 1, 4), (8, 8, 8, 1, 8), (8, 16, 16, 1, 16), (8, 32, 32, 1, 32),
+        (8, 64, 32, 1, 64)]
+    p = tp.tile_gather_plan(512, 4)
+    assert (p["vec"], p["cpr"], p["lpr"], p["items"], p["rows"], p["steps"],
+            p["block_rows"]) == (4, 128, 32, 2, 32, 64, 256)
+    assert tp.tile_gather_plan(32, 2, aligned=False)["vec"] == 1
+    assert tp.tile_gather_plan(20, 2)["vec"] == 1 and tp.tile_gather_plan(20, 4)["vec"] == 4
+    assert tp.tile_gather_plan(132, 4)["lpr"] == 1
+    assert tuple(tp.TILE_GATHER_PLAN_KEYS) == tuple(p)
+    with pytest.raises(ValueError):
+        tp.tile_gather_plan(0, 2)

@@ -31,31 +31,52 @@ __device__ __forceinline__ Corner bilinear_corner(float u, float v, int R) {
   return c;
 }
 
+// The f32 sample from the values at the corners (x0, y0), (x0 + 1, y0),
+// (x0, y0 + 1), (x0 + 1, y0 + 1) and the weights of the +1 neighbours.
+__device__ __forceinline__ float bilinear_mix(float v00, float v10, float v01, float v11,
+                                              float wx, float wy) {
+  const float top = v00 * (1.0f - wx) + v10 * wx;
+  const float bot = v01 * (1.0f - wx) + v11 * wx;
+  return top * (1.0f - wy) + bot * wy;
+}
+
 // The sample of channel ch of an NHWC plane p (R x R x F, one batch entry).
 __device__ __forceinline__ float bilinear_at(const float* __restrict__ p, const Corner& c,
                                              int R, int F, int ch) {
   const long long o = ((long long)c.y0 * R + c.x0) * F + ch;
   const long long ox = (long long)c.dx * F;
   const long long oy = (long long)c.dy * R * F;
-  const float top = p[o] * (1.0f - c.wx) + p[o + ox] * c.wx;
-  const float bot = p[o + oy] * (1.0f - c.wx) + p[o + oy + ox] * c.wx;
-  return top * (1.0f - c.wy) + bot * c.wy;
+  return bilinear_mix(p[o], p[o + ox], p[o + oy], p[o + oy + ox], c.wx, c.wy);
 }
 
 // The four corner weights, (x0, y0), (x0 + 1, y0), (x0, y0 + 1), (x0 + 1,
 // y0 + 1), each cut to bf16: the bf16 rule of K4 and K5
 // (level_kernel.py:234-245, level_bwd_kernel.py:214).
-__device__ __forceinline__ void cut_weights(const Corner& c, float (&w)[4]) {
-  const float ax = 1.0f - c.wx, ay = 1.0f - c.wy;
+__device__ __forceinline__ void cut_weights(float wx, float wy, float (&w)[4]) {
+  const float ax = 1.0f - wx, ay = 1.0f - wy;
   w[0] = round_as<bf16>(ax * ay);
-  w[1] = round_as<bf16>(c.wx * ay);
-  w[2] = round_as<bf16>(ax * c.wy);
-  w[3] = round_as<bf16>(c.wx * c.wy);
+  w[1] = round_as<bf16>(wx * ay);
+  w[2] = round_as<bf16>(ax * wy);
+  w[3] = round_as<bf16>(wx * wy);
 }
 
-// The bf16 sample of channel ch: the cut weights times the bf16 corner
-// values (exact in f32), summed in f32 in the corner order above, rounded
-// to bf16 once (returned as its f32 value).
+__device__ __forceinline__ void cut_weights(const Corner& c, float (&w)[4]) {
+  cut_weights(c.wx, c.wy, w);
+}
+
+// The cut weights times the bf16 corner values (exact in f32), summed in f32
+// in the corner order above (not yet rounded).
+__device__ __forceinline__ float cut_mix(const float (&w)[4], float v00, float v10, float v01,
+                                         float v11) {
+  float s = w[0] * v00;
+  s += w[1] * v10;
+  s += w[2] * v01;
+  s += w[3] * v11;
+  return s;
+}
+
+// The bf16 sample of channel ch: cut_mix rounded to bf16 once (returned as
+// its f32 value).
 __device__ __forceinline__ float bilinear_at(const bf16* __restrict__ p, const Corner& c,
                                              int R, int F, int ch) {
   const long long o = ((long long)c.y0 * R + c.x0) * F + ch;
@@ -63,11 +84,8 @@ __device__ __forceinline__ float bilinear_at(const bf16* __restrict__ p, const C
   const long long oy = (long long)c.dy * R * F;
   float w[4];
   cut_weights(c, w);
-  float s = w[0] * to_f32(p[o]);
-  s += w[1] * to_f32(p[o + ox]);
-  s += w[2] * to_f32(p[o + oy]);
-  s += w[3] * to_f32(p[o + oy + ox]);
-  return round_as<bf16>(s);
+  return round_as<bf16>(cut_mix(w, to_f32(p[o]), to_f32(p[o + ox]), to_f32(p[o + oy]),
+                                to_f32(p[o + oy + ox])));
 }
 
 }  // namespace t2h

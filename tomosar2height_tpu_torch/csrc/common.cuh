@@ -7,6 +7,7 @@
 namespace t2h {
 
 constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;  // every lane of a warp
 
 // Blocks for a grid-stride loop over n elements.
 inline unsigned int grid_for(long long n) {

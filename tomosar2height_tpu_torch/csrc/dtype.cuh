@@ -36,6 +36,13 @@ __device__ __forceinline__ float round_as(float v) {
   return to_f32(from_f32<T>(v));
 }
 
+// VEC values of T moved as one aligned load or store (Pack<bf16, 8> and
+// Pack<float, 4>: 16 bytes).
+template <typename T, int VEC>
+struct alignas(sizeof(T) * VEC) Pack {
+  T v[VEC];
+};
+
 // VEC consecutive values of a row (VEC * sizeof(T) bytes, aligned to that)
 // loaded into float registers as one vector, and stored back from them.
 template <int VEC, typename T>
@@ -66,7 +73,12 @@ __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&r)[VEC
 template <int VEC, typename T>
 __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&r)[VEC]) {
   if constexpr (kIsBf16<T>) {
-    if constexpr (VEC == 4) {
+    if constexpr (VEC == 8) {
+      Pack<bf16, 8> u;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) u.v[e] = __float2bfloat16_rn(r[e]);
+      *reinterpret_cast<Pack<bf16, 8>*>(p) = u;
+    } else if constexpr (VEC == 4) {
       const __nv_bfloat162 lo = __floats2bfloat162_rn(r[0], r[1]);
       const __nv_bfloat162 hi = __floats2bfloat162_rn(r[2], r[3]);
       uint2 u;

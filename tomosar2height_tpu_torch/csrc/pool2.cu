@@ -103,16 +103,25 @@
 // its head, from its row-order sum; a run with none writes nothing.
 // Three steps in one stream: the flags (B * reso^2 bytes) are cleared; the
 // mark pass sets the flag of every cell that holds a valid row (a thread a
-// row, all storing 1); then one launch whose blocks alternate between the
-// run part (the occupied cells) and the zero part (0 to every cell, and
-// count, whose flag is clear), so the latency-bound walk of the runs and the
-// bandwidth-bound zeros (most of the plane: >= 75% of the cells at 256^2)
-// overlap, and no warp walks a gap of empty cells. Each plane cell and each
-// count is written once; no float atomic; bit-equal run to run. Cell ids
+// row, all storing 1); then one launch of the run part (the occupied cells)
+// and the zero part (0 to every cell, and count, whose flag is clear), so
+// the latency-bound walk of the runs and the bandwidth-bound zeros overlap,
+// and no warp walks a gap of empty cells. Where the level has more cells
+// than rows (256^2: the zeros are most of the plane, >= 75% of the cells)
+// the two parts' blocks alternate; else the run part's blocks come first
+// and the zero part's fill their tail (an SM's three blocks are shared, and
+// alternating blocks halve the run part's warps while the zeros last). Each
+// plane cell and each count is written once; no float atomic; bit-equal run
+// to run. Cell ids
 // cannot be binary-searched (pads carry the sentinel mid-entry), so every
 // row's id is read. The run part's grid is sized by spans x feature chunks,
 // not by tiles, so a level of few tiles (32^2, 16^2) gets as many warps as
-// 256^2; a lane takes 1, 2 or 4 features (F < 64, < 128, from 128 on).
+// 256^2; a lane takes 1, 2 or 4 features (F < 64, < 128, from 128 on), in
+// bf16 8 (16 bytes) from F = 256 on. Its time is the latency of a few
+// dependent loads a span (ids, tile offsets, values), not bytes
+// (tools/time_scatter.py --parts), so a bf16 lane keeps its loads' raw
+// words, two values a register: twice the rows in flight that f32 keeps at
+// one width. The zero part stores 16 bytes an item.
 //
 // Bound on the H100: bytes: values on the valid rows, every row's cell id (and
 // mask, K3; tile offsets, K11-K13), the plane and counts written once (+ the
@@ -121,7 +130,7 @@
 //
 // bf16 (the model's bf16 dtype): pool_runs, pool_gather and scatter_runs
 // are templated on the value type T (dtype.cuh). A bf16 instance reads bf16
-// values (scatter_runs: 2, 4 or 8 bytes a lane), sums or maxes them in f32
+// values (scatter_runs: 2, 4, 8 or 16 bytes a lane), sums or maxes them in f32
 // registers in the same row order as the f32 instance, and rounds each
 // output to bf16 once, where it stores it: the JAX kernels' bf16 rule
 // (pool2_kernel.py:88-117 f32 accumulators cast to the dtype, :148-158 the
@@ -134,7 +143,6 @@
 namespace t2h {
 
 constexpr int kSpan = 32;  // rows a warp owns (tests/test_torch_pool2_runs.py SPAN)
-constexpr unsigned kFull = 0xffffffffu;
 
 // kind: 0 = max, 1 = mean, 2 = sum, 3 = sum split among the tied rows.
 template <int KIND>
@@ -433,10 +441,11 @@ __device__ __forceinline__ int level_cell(int raw, int shift, int ncell) {
 
 // The zero part: 0 to every plane cell (and count) whose flag is clear.
 // Block `block` of `blocks`; a thread takes kZeroItems items, a grid's width
-// apart (each store coalesced), their flags loaded first; an item is a float4
-// (vec: F % 4 == 0) or a float; q = items a cell, qshift = log2(q) when q is
-// a power of two (no division), else -1. A float4 item is four values of T
-// (8 bytes in bf16).
+// apart (each store coalesced), their flags loaded first; an item is 16 bytes
+// of a cell (vec: F a multiple of 16 / sizeof(T): four floats or eight bf16)
+// or one value; q = items a cell, qshift = log2(q) when q is a power of two
+// (no division), else -1. (A flag loaded once a cell and shuffled to its
+// items' lanes was slower: the shuffles hold back the loads behind them.)
 constexpr int kZeroItems = 4;
 
 template <typename T>
@@ -445,6 +454,7 @@ __device__ __forceinline__ void zero_empty_cells(T* __restrict__ plane,
                                                  const uint8_t* __restrict__ flags,
                                                  unsigned block, unsigned blocks, unsigned n,
                                                  unsigned q, int qshift, bool vec) {
+  constexpr int kVec = 16 / sizeof(T);
   const unsigned stride = blocks * blockDim.x;
   const unsigned i0 = block * blockDim.x + threadIdx.x;
   unsigned cell[kZeroItems];
@@ -460,8 +470,10 @@ __device__ __forceinline__ void zero_empty_cells(T* __restrict__ plane,
     if (!empty[k]) continue;
     const unsigned i = i0 + k * stride;
     if (vec) {
-      const float zero[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-      store_vec<4>(plane + 4 * (long long)i, zero);
+      Pack<T, kVec> zero;
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) zero.v[e] = from_f32<T>(0.0f);
+      *reinterpret_cast<Pack<T, kVec>*>(plane + kVec * (long long)i) = zero;
     } else {
       plane[i] = from_f32<T>(0.0f);
     }
@@ -498,15 +510,69 @@ __device__ __forceinline__ void store_mean(T* __restrict__ p, const float (&a)[V
   store_vec<VEC>(p, m);
 }
 
+// One row's VEC values of a lane in the run scatter, as loaded: f32 as
+// floats; bf16 as the raw 32-bit words of its 16-byte, 8-byte, 4-byte or
+// 2-byte load (a bf16 is the top half of its f32, so at() converts with a
+// shift or a mask: exact, as __bfloat162float).
+template <typename T, int VEC>
+struct RowVals {
+  static constexpr int kRegs = VEC;
+  float v[VEC];
+  __device__ __forceinline__ void load(const float* __restrict__ p) { load_vec<VEC>(p, v); }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) v[e] = 0.0f;
+  }
+  __device__ __forceinline__ float at(int e) const { return v[e]; }
+};
+
+template <int VEC>
+struct RowVals<bf16, VEC> {
+  static constexpr int kRegs = VEC == 1 ? 1 : VEC / 2;
+  uint32_t w[kRegs];
+  __device__ __forceinline__ void load(const bf16* __restrict__ p) {
+    if constexpr (VEC == 8) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      w[0] = u.x, w[1] = u.y, w[2] = u.z, w[3] = u.w;
+    } else if constexpr (VEC == 4) {
+      const uint2 u = *reinterpret_cast<const uint2*>(p);
+      w[0] = u.x, w[1] = u.y;
+    } else if constexpr (VEC == 2) {
+      w[0] = *reinterpret_cast<const uint32_t*>(p);
+    } else {
+      w[0] = *reinterpret_cast<const uint16_t*>(p);
+    }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) w[i] = 0u;
+  }
+  __device__ __forceinline__ float at(int e) const {
+    const uint32_t u = w[e >> 1];
+    return __uint_as_float(e & 1 ? u & 0xffff0000u : u << 16);
+  }
+};
+
+// Rows of values a lane of the run scatter loads at once (a group): 32
+// registers of them, at most a span: f32 32 / VEC rows; bf16, two values a
+// register, twice that from VEC = 2 on (32 rows up to 4 bytes a lane, 16 at
+// 8, 8 at 16).
+template <typename T, int VEC>
+constexpr int kRunGroup = 32 / RowVals<T, VEC>::kRegs < kSpan ? 32 / RowVals<T, VEC>::kRegs
+                                                               : kSpan;
+
 // K3 and K4's plane (TILED false: mask) and K11-K14 (TILED true: tile offsets, no mask;
 // K13 MORTON: the output in Morton order): the run part and the zero part in
 // one launch, after the mark pass. The run part's
 // warp = (batch entry, span, chunk of 32 * VEC features), chunk fastest, so a
 // block's warps share the span's ids in L1 when there are 8 chunks or more;
-// a lane loads VEC features of a row at once (VEC 4: a row's 128 features
-// are one 512-byte load). The span's rows load in groups of 32 / VEC (4 KB a
-// warp in flight, 32 registers of values) and are summed as they come, each
-// run's end written at once. Three blocks an SM (<= 80 registers).
+// a lane loads VEC features of a row at once (f32 VEC 4: a row's 128 features
+// are one 512-byte load; bf16 VEC 8 from F = 256 on: a row's 256 features are
+// one 512-byte load, 16 bytes a lane). The span's rows load in groups of 32
+// registers of values a lane (kRunGroup; in bf16 the raw words, two values a
+// register, so twice f32's rows from VEC = 2 on) and are summed as they
+// come, each run's end written at once. Three blocks an SM (<= 80
+// registers).
 template <typename T, bool TILED, int VEC, bool MORTON>
 __global__ void __launch_bounds__(kThreads, 3)
 scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
@@ -514,15 +580,19 @@ scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
              T* __restrict__ plane, int* __restrict__ counts,
              const uint8_t* __restrict__ flags, int B, int N, int F, int reso, int shift,
              int toff_row, int toff_step, unsigned run_blocks, unsigned zero_blocks,
-             unsigned zero_n, unsigned zero_q, int zero_qshift) {
-  constexpr int kGroup = kSpan / VEC;  // rows loaded at once
-  // blocks alternate between the two parts while both have blocks left
-  const unsigned pairs = min(run_blocks, zero_blocks);
-  const bool zero_part = blockIdx.x < 2 * pairs ? blockIdx.x & 1u : run_blocks < zero_blocks;
-  const unsigned part_block = blockIdx.x < 2 * pairs ? blockIdx.x >> 1 : blockIdx.x - pairs;
+             unsigned zero_n, unsigned zero_q, int zero_qshift, bool runs_first) {
+  constexpr int kGroup = kRunGroup<T, VEC>;  // rows loaded at once
+  // the parts' blocks alternate while both have blocks left (none with
+  // runs_first), then come the run part's rest, then the zero part's
+  const unsigned pairs = runs_first ? 0u : min(run_blocks, zero_blocks);
+  const bool zero_part =
+      blockIdx.x < 2 * pairs ? blockIdx.x & 1u : blockIdx.x >= run_blocks + pairs;
+  const unsigned part_block = blockIdx.x < 2 * pairs ? blockIdx.x >> 1
+                              : zero_part            ? blockIdx.x - run_blocks
+                                                     : blockIdx.x - pairs;
   if (zero_part) {
     zero_empty_cells(plane, counts, flags, part_block, zero_blocks, zero_n, zero_q,
-                     zero_qshift, F % 4 == 0);
+                     zero_qshift, zero_q != static_cast<unsigned>(F));
     return;
   }
   const int lane = threadIdx.x & 31;
@@ -587,14 +657,13 @@ scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
   float acc[VEC] = {};
 #pragma unroll
   for (int g = 0; g < kSpan; g += kGroup) {
-    float v[kGroup][VEC];
+    RowVals<T, VEC> v[kGroup];
 #pragma unroll
     for (int k = 0; k < kGroup; ++k) {
       if (fin && (own >> (g + k) & 1u)) {
-        load_vec<VEC>(xf + (long long)(s0 + g + k) * F, v[k]);
+        v[k].load(xf + (long long)(s0 + g + k) * F);
       } else {
-#pragma unroll
-        for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+        v[k].zero();
       }
     }
 #pragma unroll
@@ -603,7 +672,7 @@ scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         if (heads >> r & 1u) acc[e] = 0.0f;
-        if (own >> r & 1u) acc[e] += v[k][e];
+        if (own >> r & 1u) acc[e] += v[k].at(e);
       }
       if (ends >> r & 1u) {
         const int count = __shfl_sync(kFull, run_count, r);
@@ -637,21 +706,20 @@ scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
       }
 #pragma unroll
       for (int g = 0; g < kSpan; g += kGroup) {
-        float v[kGroup][VEC];
+        RowVals<T, VEC> v[kGroup];
 #pragma unroll
         for (int k = 0; k < kGroup; ++k) {
           if (fin && (tv >> (g + k) & 1u)) {
-            load_vec<VEC>(xf + (long long)(j0 + g + k) * F, v[k]);
+            v[k].load(xf + (long long)(j0 + g + k) * F);
           } else {
-#pragma unroll
-            for (int e = 0; e < VEC; ++e) v[k][e] = 0.0f;
+            v[k].zero();
           }
         }
 #pragma unroll
         for (int k = 0; k < kGroup; ++k)
           if (tv >> (g + k) & 1u) {
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) acc[e] += v[k][e];
+            for (int e = 0; e < VEC; ++e) acc[e] += v[k].at(e);
           }
       }
       count += __popc(tv);
@@ -707,24 +775,56 @@ int launch_pool_gather(const T* plane, const int* cells, const uint8_t* mask,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The run scatter's plan at width F for values of `elem` bytes (16-byte
+// aligned or not), tile_plan.scatter_runs_plan: features a lane of the run
+// part (vec: in bf16 8 from F = 256 on; 4 from F = 128 on, 2 from 64, 1 for
+// unaligned values), feature chunks a span (warps), rows a group
+// (kRunGroup), values a zero item (16 bytes where F is a multiple of it,
+// else 1), items a cell q and log2(q) (-1 when q is no power of two).
+struct RunsPlan {
+  int vec, chunks, group, item, q, qshift;
+};
+
+inline RunsPlan runs_plan(int F, int elem, bool aligned) {
+  RunsPlan p;
+  p.vec = !aligned                              ? 1
+          : elem == 2 && F % 8 == 0 && F >= 256 ? 8
+          : F % 4 == 0 && F >= 128              ? 4
+          : F % 2 == 0 && F >= 64               ? 2
+                                                : 1;
+  p.chunks = (F + 32 * p.vec - 1) / (32 * p.vec);
+  const int regs = elem == 2 && p.vec > 1 ? p.vec / 2 : p.vec;  // RowVals::kRegs
+  p.group = 32 / regs < kSpan ? 32 / regs : kSpan;
+  p.item = F % (16 / elem) == 0 ? 16 / elem : 1;
+  p.q = F / p.item;
+  p.qshift = p.q > 0 && (p.q & (p.q - 1)) == 0 ? __builtin_ctz(p.q) : -1;
+  return p;
+}
+
+// The steps of a run scatter, for timing them apart (t2h_scatter_runs_parts):
+// clear the flags, mark, the run part, the zero part.
+constexpr int kClear = 1, kMark = 2, kRuns = 4, kZeros = 8, kAllParts = 15;
+
 template <typename T>
 int launch_scatter_runs(const T* values, const int* cells, const uint8_t* mask,
                         const int* toff, T* plane, int* counts, uint8_t* flags, int B, int N,
                         int F, int reso, int shift, int toff_row, int toff_step, int morton,
-                        cudaStream_t stream) {
+                        int parts, cudaStream_t stream) {
   const bool tiled = toff != nullptr;
   const long long ncells = (long long)B * reso * reso;
-  const bool vec = F % 4 == 0;
-  const long long items = ncells * (vec ? F / 4 : F);
-  if (tiled == (mask != nullptr) || (!tiled && counts == nullptr) || items >= (1LL << 31) ||
-      (morton && (!tiled || counts != nullptr)) ||
+  const RunsPlan p = runs_plan(F, sizeof(T), aligned16(values));
+  const long long items = ncells * p.q;
+  if (F < 0 || tiled == (mask != nullptr) || (!tiled && counts == nullptr) ||
+      items >= (1LL << 31) || (morton && (!tiled || counts != nullptr)) ||
       (tiled && ((reso * reso) % 256 != 0 || toff_step < 1 ||
                  toff_row < (reso * reso / 256) * toff_step + 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (items == 0) return static_cast<int>(cudaGetLastError());
-  cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (N > 0) {
+  if (parts & kClear) {
+    const cudaError_t err = cudaMemsetAsync(flags, 0, ncells, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if ((parts & kMark) && N > 0) {
     const dim3 grid((N + kThreads - 1) / kThreads, B);
 #define T2H_MARK(TI, M)                                                                   \
   mark_cells<TI, M><<<grid, kThreads, 0, stream>>>(cells, mask, toff, flags, N, reso, shift, \
@@ -734,34 +834,37 @@ int launch_scatter_runs(const T* values, const int* cells, const uint8_t* mask,
     else T2H_MARK(false, false);
 #undef T2H_MARK
   }
-  // a lane takes VEC features: 4 from F = 128 on, 2 from 64 (1 for values
-  // not aligned to 16 bytes)
-  const bool aligned = reinterpret_cast<uintptr_t>(values) % 16 == 0;
-  const int run_vec = !aligned ? 1 : F % 4 == 0 && F >= 128 ? 4 : F % 2 == 0 && F >= 64 ? 2 : 1;
-  const long long threads =
-      (long long)B * ((N + kSpan - 1) / kSpan) * ((F + 32 * run_vec - 1) / (32 * run_vec)) * 32;
-  const unsigned run_blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-  const unsigned q = vec ? F / 4 : F;
-  const int qshift = (q & (q - 1)) == 0 ? __builtin_ctz(q) : -1;
+  const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * p.chunks * 32;
+  const unsigned run_blocks =
+      parts & kRuns ? static_cast<unsigned>((threads + kThreads - 1) / kThreads) : 0u;
   const unsigned zero_blocks =
-      static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems));
+      parts & kZeros
+          ? static_cast<unsigned>((items + kThreads * kZeroItems - 1) / (kThreads * kZeroItems))
+          : 0u;
+  if (run_blocks + zero_blocks == 0) return static_cast<int>(cudaGetLastError());
+  // the run blocks first where the level has no more cells than rows (its
+  // zero part is small and fills the run part's tail), else the two parts'
+  // blocks alternating
+  const bool runs_first = reso * reso <= N;
 #define T2H_SCATTER_RUNS(TI, V, M)                                                        \
   scatter_runs<T, TI, V, M><<<run_blocks + zero_blocks, kThreads, 0, stream>>>(           \
       values, cells, mask, toff, plane, counts, flags, B, N, F, reso, shift, toff_row,    \
-      toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), q, qshift)
+      toff_step, run_blocks, zero_blocks, static_cast<unsigned>(items), p.q, p.qshift,    \
+      runs_first)
+#define T2H_SCATTER_WIDTHS(TI, M)                                 \
+  if (p.vec == 8) {                                               \
+    if constexpr (kIsBf16<T>) T2H_SCATTER_RUNS(TI, 8, M);         \
+  } else if (p.vec == 4) T2H_SCATTER_RUNS(TI, 4, M);              \
+  else if (p.vec == 2) T2H_SCATTER_RUNS(TI, 2, M);                \
+  else T2H_SCATTER_RUNS(TI, 1, M)
   if (morton) {
-    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, true);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, true);
-    else T2H_SCATTER_RUNS(true, 1, true);
+    T2H_SCATTER_WIDTHS(true, true);
   } else if (tiled) {
-    if (run_vec == 4) T2H_SCATTER_RUNS(true, 4, false);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(true, 2, false);
-    else T2H_SCATTER_RUNS(true, 1, false);
+    T2H_SCATTER_WIDTHS(true, false);
   } else {
-    if (run_vec == 4) T2H_SCATTER_RUNS(false, 4, false);
-    else if (run_vec == 2) T2H_SCATTER_RUNS(false, 2, false);
-    else T2H_SCATTER_RUNS(false, 1, false);
+    T2H_SCATTER_WIDTHS(false, false);
   }
+#undef T2H_SCATTER_WIDTHS
 #undef T2H_SCATTER_RUNS
   return static_cast<int>(cudaGetLastError());
 }
@@ -849,7 +952,27 @@ int t2h_scatter_runs(const float* values, const int* cells, const uint8_t* mask,
                      int N, int F, int reso, int shift, int toff_row, int toff_step,
                      int morton, cudaStream_t stream) {
   return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
-                             shift, toff_row, toff_step, morton, stream);
+                             shift, toff_row, toff_step, morton, kAllParts, stream);
+}
+
+// The run scatter's plan at width F (F > 0) for values of `elem` bytes,
+// 16-byte aligned or not: vec, chunks, group, item, q, qshift to out[0..5].
+int t2h_scatter_runs_plan(int F, int elem, int aligned, int* out) {
+  const RunsPlan p = runs_plan(F, elem, aligned != 0);
+  const int v[] = {p.vec, p.chunks, p.group, p.item, p.q, p.qshift};
+  for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// The same launching only the steps in `parts` (bits: 1 clear the flags, 2
+// mark, 4 the run part, 8 the zero part), for timing them apart
+// (tools/time_scatter.py --parts); parts 15 is t2h_scatter_runs.
+int t2h_scatter_runs_parts(const float* values, const int* cells, const uint8_t* mask,
+                           const int* toff, float* plane, int* counts, uint8_t* flags, int B,
+                           int N, int F, int reso, int shift, int toff_row, int toff_step,
+                           int morton, int parts, cudaStream_t stream) {
+  return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
+                             shift, toff_row, toff_step, morton, parts, stream);
 }
 
 // The same on bf16 values and plane (K3 and K4's plane in the model's bf16
@@ -860,7 +983,15 @@ int t2h_scatter_runs_bf16(const bf16* values, const int* cells, const uint8_t* m
                           int N, int F, int reso, int shift, int toff_row, int toff_step,
                           int morton, cudaStream_t stream) {
   return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
-                             shift, toff_row, toff_step, morton, stream);
+                             shift, toff_row, toff_step, morton, kAllParts, stream);
+}
+
+int t2h_scatter_runs_parts_bf16(const bf16* values, const int* cells, const uint8_t* mask,
+                                const int* toff, bf16* plane, int* counts, uint8_t* flags,
+                                int B, int N, int F, int reso, int shift, int toff_row,
+                                int toff_step, int morton, int parts, cudaStream_t stream) {
+  return launch_scatter_runs(values, cells, mask, toff, plane, counts, flags, B, N, F, reso,
+                             shift, toff_row, toff_step, morton, parts, stream);
 }
 
 }  // extern "C"

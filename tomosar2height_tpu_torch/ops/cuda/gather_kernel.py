@@ -7,7 +7,9 @@ kernel K9 (``csrc/tile_gather.cu`` ``t2h_tile_gather``) replaces
 align_corners=True (``ops/sampling.py``) at every row of the tiles' ranges.
 The TPU kernel's lane-packed coordinate rows (``make_aux``) and tile windows
 exist for the MXU and Mosaic; the kernel here reads the (B, N, 2) coordinates
-and only the last tile offset. Rows past the last tile's range come out 0
+and only the last tile offset, a (row, 16-byte chunk) item a lane
+(``tile_plan.tile_gather_plan``, checked against the C side's at the first
+launch at each width). Rows past the last tile's range come out 0
 (the TPU kernel leaves them undefined); pad rows inside the ranges are
 sampled and left for the caller's mask
 (:func:`tomosar2height_tpu_torch.ops.fused.tile_gather`). A CPU tensor takes
@@ -39,10 +41,12 @@ difference, held to JAX's bf16 gate by ``tests/test_torch_bf16_tiles.py``).
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import level_kernel as lk
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import value_dtype
 from tomosar2height_tpu_torch.ops.sampling import grid_sample_2d, grid_sample_2d_cut
 
@@ -79,12 +83,22 @@ def tile_gather(plane, xy, tile_offsets) -> torch.Tensor:
     runtime.require(xy, "xy", torch.float32, (b, n, 2), dev)
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
     out = torch.empty((b, n, f), device=dev, dtype=dt)
+    _plan(f, plane.element_size(), plane.data_ptr() % 16 == 0)
     err = runtime.entry("tile_gather", dt)(
         plane.data_ptr(), xy.data_ptr(), tile_offsets.data_ptr(), out.data_ptr(), b, n, r,
         f, t, runtime.stream_ptr(dev))
     runtime.check(err, "tile_gather")
     runtime.launched("tile_gather", dt)
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(f: int, elem: int, aligned: bool) -> dict:
+    """``tile_plan.tile_gather_plan``, once held equal to the C side's
+    (``t2h_tile_gather_plan``)."""
+    return runtime.checked_plan(tile_plan.tile_gather_plan(f, elem, aligned),
+                                tile_plan.TILE_GATHER_PLAN_KEYS, "t2h_tile_gather_plan", f,
+                                elem, int(aligned))
 
 
 def tile_gather_bwd(g, xy, cells, mask, reso: int, finest: int) -> torch.Tensor:

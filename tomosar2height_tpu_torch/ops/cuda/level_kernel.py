@@ -69,7 +69,6 @@ in f32 and rounded once):
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import math
 
@@ -335,26 +334,17 @@ def _tma_rows_pass(plane, g_plane, g_c, weights):
 def _bwd_plan(f: int, fl: int) -> dict:
     """``tile_plan.level_bwd_plan(f, fl)``, once held equal to the plan the
     C side computes (``t2h_level_bwd_plan_bf16``)."""
-    return _c_plan(tile_plan.level_bwd_plan(f, fl), tile_plan.LEVEL_BWD_PLAN_KEYS,
-                   runtime.library().t2h_level_bwd_plan_bf16, f, fl)
+    return runtime.checked_plan(tile_plan.level_bwd_plan(f, fl),
+                                tile_plan.LEVEL_BWD_PLAN_KEYS, "t2h_level_bwd_plan_bf16", f, fl)
 
 
 @functools.lru_cache(maxsize=None)
 def _d_plane_plan(r: int, f: int, fr: int, elem: int) -> dict:
     """``tile_plan.d_plane_plan``, once held equal to the C side's
     (``t2h_level_d_plane_plan``)."""
-    return _c_plan(tile_plan.d_plane_plan(r, f, fr, elem), tile_plan.D_PLANE_PLAN_KEYS,
-                   runtime.library().t2h_level_d_plane_plan, r, f, fr, elem)
-
-
-def _c_plan(plan: dict, keys, fn, *args) -> dict:
-    out = (ctypes.c_int * len(keys))()
-    runtime.check(fn(*args, ctypes.addressof(out)), fn.__name__)
-    want = tuple(int(plan[k]) for k in keys)
-    if tuple(out) != want:
-        raise RuntimeError(f"{fn.__name__}{args}: the C side plans {tuple(out)}, "
-                           f"tile_plan {want} ({', '.join(keys)})")
-    return plan
+    return runtime.checked_plan(tile_plan.d_plane_plan(r, f, fr, elem),
+                                tile_plan.D_PLANE_PLAN_KEYS, "t2h_level_d_plane_plan", r, f,
+                                fr, elem)
 
 
 def level_d_plane(d_s, xy, cells, mask, reso: int, finest: int, out_dtype=None):

@@ -67,9 +67,11 @@ as :514 compares them) and each gradient is rounded once, as JAX's.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from tomosar2height_tpu_torch.ops.cuda import runtime
+from tomosar2height_tpu_torch.ops.cuda import runtime, tile_plan
 from tomosar2height_tpu_torch.ops.scatter import (
     segment_counts,
     segment_max,
@@ -299,6 +301,16 @@ def _scatter_plane2(values, cells, mask, reso: int):
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def runs_plan(f: int, elem: int, aligned: bool) -> dict:
+    """``tile_plan.scatter_runs_plan``, once held equal to the C side's
+    (``t2h_scatter_runs_plan``): the run scatter's lane widths and zero
+    items."""
+    return runtime.checked_plan(tile_plan.scatter_runs_plan(f, elem, aligned),
+                                tile_plan.SCATTER_RUNS_PLAN_KEYS, "t2h_scatter_runs_plan", f,
+                                elem, int(aligned))
+
+
 def scatter_runs_masked(values, cells, mask, reso: int, shift: int):
     """Launch the run scatter (``t2h_scatter_runs``) with the mask: the masked
     scatter-mean of (B, N, F) ``values`` into cell ``cells >> shift`` of a
@@ -309,6 +321,7 @@ def scatter_runs_masked(values, cells, mask, reso: int, shift: int):
     one run (the module's contract)."""
     b, n, f = _check_points(values, cells, mask)
     dev = values.device
+    runs_plan(f, values.element_size(), values.data_ptr() % 16 == 0)
     plane = torch.empty((b, reso, reso, f), device=dev, dtype=values.dtype)
     counts = torch.empty((b, reso, reso), device=dev, dtype=torch.int32)
     flags = torch.empty((b, reso, reso), device=dev, dtype=torch.uint8)

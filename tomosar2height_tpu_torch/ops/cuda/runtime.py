@@ -71,6 +71,7 @@ _SIGNATURES = {
         ("pool_runs", [_P] * 7 + [_I] * 5 + [_P]),
         ("pool_gather", [_P] * 5 + [_I] * 5 + [_P]),
         ("scatter_runs", [_P] * 7 + [_I] * 8 + [_P]),
+        ("scatter_runs_parts", [_P] * 7 + [_I] * 9 + [_P]),
         ("fused_level", [_P] * 11 + [_I] * 5 + [_P]),
         ("fused_level_bwd", [_P] * 18 + [_I] * 6 + [_P]),
         ("level_d_plane", [_P] * 6 + [_I] * 5 + [_P]),
@@ -85,6 +86,8 @@ _SIGNATURES = {
     "t2h_conv_decoder_bf16": [_P] * 12 + [_I] * 8 + [_P],
     "t2h_tile_gather": [_P] * 4 + [_I] * 5 + [_P],
     "t2h_tile_gather_bf16": [_P] * 4 + [_I] * 5 + [_P],
+    "t2h_tile_gather_plan": [_I] * 3 + [_P],
+    "t2h_scatter_runs_plan": [_I] * 3 + [_P],
     "t2h_pool_gather_cut_bf16": [_P] * 5 + [_I] * 5 + [_P],
     "t2h_level_d_plane_wide_bf16": [_P] * 6 + [_I] * 5 + [_P],
     "t2h_level_bwd_plan_bf16": [_I, _I, _P],
@@ -110,6 +113,19 @@ def reset_launches() -> None:
     """Set every launch count to 0."""
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def checked_plan(plan: dict, keys, name: str, *args) -> dict:
+    """``plan`` (a ``tile_plan`` function's), once held equal to the one the C
+    launcher computes: ``t2h_<...>_plan(*args, out)`` writes the integers of
+    ``keys`` in that order. Raises where they differ."""
+    out = (ctypes.c_int * len(keys))()
+    check(getattr(library(), name)(*args, ctypes.addressof(out)), name)
+    want = tuple(int(plan[k]) for k in keys)
+    if tuple(out) != want:
+        raise RuntimeError(f"{name}{args}: the C side plans {tuple(out)}, "
+                           f"tile_plan {want} ({', '.join(keys)})")
+    return plan
 
 
 def nvcc_path() -> str:

@@ -61,7 +61,7 @@ import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import level_shift
-from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, value_dtype
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, runs_plan, value_dtype
 from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
 from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
 
@@ -182,6 +182,7 @@ def _scatter_runs(name, values, cells, toff, reso: int, shift: int, step: int,
     dev, dt = values.device, values.dtype
     b, n, f = values.shape
     _check_tiles(name, values, cells, toff, reso, step)
+    runs_plan(f, values.element_size(), values.data_ptr() % 16 == 0)
     cells_shape = (b, reso * reso) if morton else (b, reso, reso)
     out = torch.empty(cells_shape + (f,), device=dev, dtype=dt)
     flags = torch.empty(cells_shape, device=dev, dtype=torch.uint8)

@@ -1,13 +1,19 @@
 """The host-side plans of the bf16 kernels on the TMA and wgmma, in plain
 Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8, K7 and K6 in
 bf16 (``csrc/conv_bf16.cu``), K4 in bf16 (``csrc/level_bf16.cu``) and K5's
-bf16 row pass (``csrc/level_bwd_bf16.cu``); and of K5's d_plane pass in
-every dtype (``csrc/level_bwd.cu``). The C launchers compute the same plans
-(the functions and configs there of the same names); the wrappers size
-their scratch and splits from these, and check K5's two against the C
-side's at their first launch at each shape, and
-``tests/test_torch_tile_plan.py`` emulates them in numpy: every output
+bf16 row pass (``csrc/level_bwd_bf16.cu``); of K5's d_plane pass in every
+dtype (``csrc/level_bwd.cu``); of K9 (``csrc/tile_gather.cu``) and of the
+run scatter (``csrc/pool2.cu`` ``scatter_runs``). The C launchers
+compute the same plans (the functions and configs there of the same names);
+the wrappers size their scratch and splits from these, and check K5's two,
+K9's and the run scatter's against the C side's at their first launch at
+each shape, and ``tests/test_torch_tile_plan.py`` and
+``tests/test_torch_scatter_runs.py`` emulate them in numpy: every output
 element covered once, the sums equal to the plain versions'.
+
+K9: a warp owns 32 rows, a (row, 16-byte chunk) item a lane, one or two a
+lane at once (their corner loads in flight); a row takes ``lpr`` lanes
+(:func:`tile_gather_plan`).
 
 The weight sums ``dw = A^T B``, ``db = colsum(B)`` over M rows: a block owns
 a ``bk`` x ``bn`` tile of dw and one split of the rows, streamed in stages of
@@ -373,3 +379,80 @@ def d_plane_tile_rect(plan: dict, r: int, fr: int, tile_x: int, tile_y: int):
     x1, y1 = min(x0 + plan["tx"], r) - 1, min(y0 + plan["ty"], r) - 1
     return (x0, x1, y0, y1), (cell_span(x0, r, fr)[0], cell_span(x1, r, fr)[1],
                               cell_span(y0, r, fr)[0], cell_span(y1, r, fr)[1])
+
+
+GATHER_WARPS = 8
+"""Warps a block of K9 (``kGatherWarps``)."""
+
+GATHER_ROWS = 32
+"""Rows a warp of K9 (``kGatherRows``): one a lane for the corners."""
+
+GATHER_LANES = 32
+"""Lanes a row of K9 at most past 32 chunks a row (``kGatherLanes``)."""
+
+
+def tile_gather_plan(f: int, elem: int, aligned: bool = True) -> dict:
+    """K9's row -> lane map at width F for elements of ``elem`` bytes
+    (``gather_plan`` in ``csrc/tile_gather.cu``, mirrored by
+    ``t2h_tile_gather_plan``): vec features a lane's 16-byte chunk (one where
+    F is no multiple of 16 / elem or the plane or output is not 16-byte
+    aligned); cpr chunks a row; lpr lanes a row (cpr up to 32, past it the
+    largest power of two up to :data:`GATHER_LANES` dividing cpr); items a
+    lane at once (one at vec = 8, bf16's 16 bytes, else two: 32 corner
+    values a lane in flight); rows a warp (:data:`GATHER_ROWS`), taken in
+    steps of 32 x items items; rows a block. Lane l's items in step s are
+    e = 32 (items s + u) + l for u < items: row (e // lpr) % 32, chunk
+    (e // (32 lpr)) lpr + e % lpr, features chunk * vec onwards (rows past
+    the entry's last skipped)."""
+    if f < 1:
+        raise ValueError(f"K9 takes F >= 1, got {f}")
+    vec = 16 // elem if aligned and f % (16 // elem) == 0 else 1
+    cpr = f // vec
+    lpr = cpr
+    if cpr > 32:
+        lpr = GATHER_LANES
+        while cpr % lpr:
+            lpr //= 2
+    items = 1 if vec == 8 else 2
+    return {"vec": vec, "cpr": cpr, "lpr": lpr, "items": items, "rows": GATHER_ROWS,
+            "steps": cdiv(GATHER_ROWS * cpr, 32 * items),
+            "block_rows": GATHER_ROWS * GATHER_WARPS}
+
+
+TILE_GATHER_PLAN_KEYS = ("vec", "cpr", "lpr", "items", "rows", "steps", "block_rows")
+"""The order in which ``t2h_tile_gather_plan`` writes the plan's integers."""
+
+
+SPAN = 32
+"""Rows a warp of the run scatter owns (``kSpan`` in ``csrc/pool2.cu``)."""
+
+
+def scatter_runs_plan(f: int, elem: int, aligned: bool = True) -> dict:
+    """The run scatter's plan at width F for values of ``elem`` bytes
+    (``runs_plan`` in ``csrc/pool2.cu``, mirrored by
+    ``t2h_scatter_runs_plan``): vec features a lane of the run part (bf16: 8,
+    16 bytes, from F = 256 on; 4 from F = 128 on, 2 from 64, else 1; 1 for
+    values not 16-byte aligned); chunks of 32 vec features a span (a warp
+    each); group, the rows a lane loads at once (32 registers of values, at
+    most a span: bf16 keeps two values a register from vec = 2 on); item,
+    the values a zero item stores (16 bytes where F is a multiple of 16 /
+    elem, else 1); q items a cell and qshift = log2(q), or -1 where q is no
+    power of two."""
+    if aligned and elem == 2 and f % 8 == 0 and f >= 256:
+        vec = 8
+    elif aligned and f % 4 == 0 and f >= 128:
+        vec = 4
+    elif aligned and f % 2 == 0 and f >= 64:
+        vec = 2
+    else:
+        vec = 1
+    regs = vec // 2 if elem == 2 and vec > 1 else vec  # registers a row's values take
+    group = min(SPAN, 32 // regs)
+    item = 16 // elem if f % (16 // elem) == 0 else 1
+    q = f // item
+    return {"vec": vec, "chunks": cdiv(f, 32 * vec), "group": group, "item": item, "q": q,
+            "qshift": q.bit_length() - 1 if q > 0 and q & (q - 1) == 0 else -1}
+
+
+SCATTER_RUNS_PLAN_KEYS = ("vec", "chunks", "group", "item", "q", "qshift")
+"""The order in which ``t2h_scatter_runs_plan`` writes the plan's integers."""

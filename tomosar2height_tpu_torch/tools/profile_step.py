@@ -1,17 +1,21 @@
-"""A fused2 training mini-step on the card, with or without cuDNN's
-deterministic algorithms, and the convolution kernels cuDNN ran.
+"""A training mini-step on the card, with or without cuDNN's deterministic
+algorithms, and the convolution kernels cuDNN ran; and the forward.
 
     python -m tomosar2height_tpu_torch.tools.profile_step [--root DIR]
-        [--deterministic 0|1] [--config flagship|headline] [--dtype bfloat16]
+        [--deterministic 0|1] [--config flagship|headline|fused] [--dtype bfloat16]
 
 Builds the flagship network (``--config flagship``, the default) or the
 headline network (``headline``: ``config.headline_config()``, the
 cloud+image network with ALTO depth 6 and the footprint head, K6 and K7 on)
-with random weights from seed 0 and a Trainer (batch 8, ``optimize_every``
-8, remat) as ``chip_smoke`` does, on one batch of 8 random patches of 16384
-points on the aligned layout (``chip_smoke.flagship_batch``) with random
-targets (half the pixels ground) and, for the headline network, a random
-normalized image. After 8 warm
+or the flagship on the ``fused`` layout (``fused``:
+``config.sorted_config('fused')``, K9, K10, K12 and their backwards) with
+random weights from seed 0 and a Trainer (batch 8, ``optimize_every`` 8,
+remat) as ``chip_smoke`` does, on one batch of 8 random patches of 16384
+points on the aligned layout (``chip_smoke.flagship_batch``: 1024-cell
+tiles, 256-cell ones for ``fused``) with random targets (half the pixels
+ground) and, for the headline network, a random normalized image. It first
+times the serving forward (eval mode, no gradient, no footprint head, as
+``DSMGenerator`` calls it; median of 16 after 3 warm, CUDA events). After 8 warm
 mini-steps it times 16 with CUDA events (median), then records 8 with
 ``torch.profiler`` and prints the device time a mini-step by kernel name
 for the kernels cuDNN and cuBLAS ran (names holding conv, wgrad, dgrad,
@@ -26,9 +30,10 @@ tree whose step has no such choice it only sets the flag around the run.
 cuDNN's choice depends on the process's history, so run each setting in a
 fresh process. ``--root`` is the root of a checkout (default: this one;
 ``--config headline`` needs a tree that has the headline network). With
-``--dtype bfloat16`` (headline only) the network runs in bf16
-(``model.dtype=bfloat16``, as the smoke's phase "bf16" trains it), so that
-two checkouts' bf16 mini-steps compare in one call. Needs one CUDA card.
+``--dtype bfloat16`` (headline and fused) the network runs in bf16
+(``model.dtype=bfloat16``, as the smoke's phase "bf16" serves and trains
+it), so that two checkouts' bf16 forwards and mini-steps compare in one
+call. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -47,11 +52,11 @@ def main() -> None:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__)))))
     ap.add_argument("--deterministic", type=int, choices=(0, 1), default=1)
-    ap.add_argument("--config", choices=("flagship", "headline"), default="flagship")
+    ap.add_argument("--config", choices=("flagship", "headline", "fused"), default="flagship")
     ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32")
     args = ap.parse_args()
-    if args.dtype == "bfloat16" and args.config != "headline":
-        raise SystemExit("--dtype bfloat16 takes --config headline")
+    if args.dtype == "bfloat16" and args.config == "flagship":
+        raise SystemExit("--dtype bfloat16 takes --config headline or fused")
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
     for name in [m for m in sys.modules if m.split(".")[0] == "tomosar2height_tpu_torch"]:
@@ -88,17 +93,19 @@ def main() -> None:
                 torch.backends.cudnn.deterministic = prev
 
     tr.fp32_convs = step_scope  # the step's scope, with this run's choice
-    if args.config == "headline":
-        from tomosar2height_tpu_torch.config import headline_config
+    if args.config == "flagship":
+        cfg, model = cs.flagship_model(0)
+    else:
+        from tomosar2height_tpu_torch import config
         from tomosar2height_tpu_torch.models import build_model, init_weights
 
-        cfg = headline_config()
+        cfg = config.headline_config() if args.config == "headline" else \
+            config.sorted_config("fused")
         cfg["model"]["dtype"] = args.dtype
         model = init_weights(build_model(cfg), torch.Generator().manual_seed(0))
-    else:
-        cfg, model = cs.flagship_model(0)
     tcfg = cfg["training"]
-    _, _, apts, amask, _, toff = cs.flagship_batch(1)
+    _, _, apts, amask, _, toff = cs.flagship_batch(
+        1, tile_cells=256 if args.config == "fused" else 1024)
     b = len(apts)
     side = cfg["model"]["decoder_pixel_kwargs"]["output_size"]
     rng = np.random.default_rng(2)
@@ -113,6 +120,13 @@ def main() -> None:
     else:
         trainer = Trainer(model, tcfg)
     dev = trainer.prepare_batch(batch)
+    model.eval()
+    with torch.no_grad():
+        fwd = cs.cuda_ms(lambda: model(dev["points"], dev["point_mask"], dev.get("image"),
+                                       dev.get("cell"), dev.get("cell_offsets"),
+                                       footprint=False), iters=16)
+    print(f"{args.config} {args.dtype} forward (eval, no gradient): {fwd:.2f} ms (median of "
+          "16, CUDA events)", flush=True)
     for _ in range(8):
         trainer.train_step(dev, 1e-4)
     torch.cuda.synchronize()
@@ -147,7 +161,7 @@ def main() -> None:
             if (any(w in ev.name.lower() for w in KERNEL_WORDS)
                     and not any(k in ev.name for k in port_kernels)):
                 by_name[ev.name] = by_name.get(ev.name, 0.0) + ms
-    print(f"{args.config} mini-step cudnn.deterministic={det}: "
+    print(f"{args.config} {args.dtype} mini-step cudnn.deterministic={det}: "
           f"{float(np.median(times)):.2f} ms "
           f"(median of 16, CUDA events; min {min(times):.2f}, max {max(times):.2f}) | "
           f"device {total / steps:.2f} ms, busy {_busy_ms(events) / steps:.2f} ms a "
