@@ -238,11 +238,14 @@ F32_ONLY = ("atb_mma", "fused_level_fwd", "fused_level_bwd_rows")
 # pass (csrc/level_bwd_bf16.cu); bf16 HGMMA and UTMALDG in every instance
 WGMMA_KERNELS = ("atb_wgmma", "conv3x3_wgmma", "fused_level_wgmma", "fused_level_bwd_wgmma")
 TENSOR_CORE_KERNELS = MMA_SYNC_KERNELS + WGMMA_KERNELS
-# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10; K2 alone;
-# K3, K4's plane and K11-K14), whose register budget sets three blocks an SM,
-# and K5's d_plane pass (csrc/level_bwd.cu: the mark pass and the tile gather)
-RUN_KERNELS = ("pool_runs", "pool_gather", "scatter_runs", "mark_cells", "cell_rows",
-               "d_plane_tiles", "tile_gather_lanes")
+# the run kernels of csrc/pool2.cu (K1 + K2 on pool2's path, K10: their
+# staged route and the lane-a-feature one; K2 alone: its 16-byte items and
+# the lane-a-feature route; K3, K4's plane and K11-K14), whose register budget
+# sets three blocks an SM (the staged route four), and K5's d_plane pass
+# (csrc/level_bwd.cu: the mark pass and the tile gather); a name that holds
+# another comes first
+RUN_KERNELS = ("pool_runs_staged", "pool_runs", "pool_gather_items", "pool_gather",
+               "scatter_runs", "mark_cells", "cell_rows", "d_plane_tiles", "tile_gather_lanes")
 CITY = {"density": 0.06, "W": 2048, "H": 1536}  # ~16k points per 512 m tile, 35 tiles
 
 
@@ -461,6 +464,51 @@ def bound(nbytes: float, ops):
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def pool_route(kernel: str) -> str:
+    """The route the latest launch of the run kernel (``kernel`` 'runs') or
+    of K2 alone ('gather') took: the plan its wrapper checked from every
+    pointer the C launcher tests (``pool2_kernel.LAST_PLAN``)."""
+    from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
+
+    p = pk.LAST_PLAN[kernel]
+    if kernel == "gather":
+        return (f"pool_gather_items ({p['lpr']} lanes a row, {p['segs']} segments of "
+                f"{p['seg_rows']} rows, {p['chunks']} chunk group(s))" if p["items"]
+                else "pool_gather (a lane a feature)")
+    return (f"pool_runs_staged ({p['pieces']} 16-byte copies a row of a {p['chunk']}-feature "
+            "step)" if p["staged"] else "pool_runs (a lane a feature)")
+
+
+def misaligned(t):
+    """A copy of ``t`` whose data starts one element past a 16-byte boundary:
+    on it the run kernel and K2 take their lane-a-feature route."""
+    import torch
+
+    view = torch.empty(t.numel() + 1, device=t.device, dtype=t.dtype)[1:].view(t.shape)
+    return view.copy_(t)
+
+
+def other_route(name: str, kernel: str, fn, args, want) -> str:
+    """``fn(*args)`` again with its first tensor misaligned, so that the run
+    kernel (``kernel`` 'runs') or K2 alone ('gather') takes its
+    lane-a-feature route: held bit-equal to ``want`` (the 16-byte route's
+    output on the same values) and on a second launch. Raises where it is
+    not, or where the call did not take that route; returns the route."""
+    import torch
+
+    from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk
+
+    a = (misaligned(args[0]), *args[1:])
+    got = fn(*a)
+    route = pool_route(kernel)
+    if pk.LAST_PLAN[kernel]["staged" if kernel == "runs" else "items"]:
+        raise AssertionError(f"{name} on misaligned values took the 16-byte route")
+    if not (torch.equal(got, want) and torch.equal(fn(*a), got)):
+        raise AssertionError(f"{name} on {route} differs from the 16-byte route or between "
+                             "two launches")
+    return route
 
 
 def flagship_batch(seed: int, b: int = 8, n: int = 16384, reso: int = 256,
@@ -778,7 +826,10 @@ def _pool_rows(entry, dt, cells, mask, reso: int, gen):
 
     # pool2 on the run kernel; each kind twice, bit-equal. Bytes: values on
     # the valid rows, cells and mask read, out written
-    fwd = {k: pk.pool2_fwd(vals, cells, mask, reso, k) for k in ("max", "mean", "sum")}
+    fwd, routes = {}, {}
+    for k in ("max", "mean", "sum"):
+        fwd[k] = pk.pool2_fwd(vals, cells, mask, reso, k)
+        routes[f"pool2 {k}"] = pool_route("runs")
     repeat = all(torch.equal(pk.pool2_fwd(vals, cells, mask, reso, k), v) for k, v in fwd.items())
     fwd_bytes = on_valid_rows(vals) + nbytes(cells, mask, fwd["max"])
     want = {k: pk.pool2_plain(vals, cells, mask, reso, k) for k in fwd}
@@ -828,8 +879,10 @@ def _pool_rows(entry, dt, cells, mask, reso: int, gen):
     for kind in ("max", "mean"):
         a = (g, vals, fwd[kind], cells, mask, reso, kind)
         dv = pk.pool2_bwd(*a)
+        routes["pool2_bwd"] = pool_route("runs")
         pairs.append(close(dv, pk.pool2_bwd_plain(*a)))
         repeat = repeat and torch.equal(dv, pk.pool2_bwd(*a))
+        other = other_route(f"pool2_bwd{sfx} {kind}", "runs", pk.pool2_bwd, a, dv)
         # g on the valid rows (and values, out there for max's gate), cells
         # and mask read, dv written
         moved += (on_valid_rows(g, *((vals, fwd[kind]) if kind == "max" else ()))
@@ -869,10 +922,22 @@ def _pool_rows(entry, dt, cells, mask, reso: int, gen):
     # K2 alone, held bit-equal on a second launch
     a = (g_plane, cells, mask, kc)
     k2 = pk.scatter_plane2_bwd(*a)
+    routes["scatter_plane2_bwd"] = pool_route("gather")
     k2_repeat = torch.equal(k2, pk.scatter_plane2_bwd(*a))
     log("kernels", f"scatter_plane2_bwd{sfx} bit-equal on a second launch: {k2_repeat}")
     if not k2_repeat:
         raise AssertionError(f"scatter_plane2_bwd{sfx} differs between two launches")
+    # each use again on its other route (values one element off a 16-byte
+    # boundary), bit-equal to the 16-byte route and on a second launch
+    for kind in ("max", "mean", "sum"):
+        other_route(f"pool2{sfx} {kind}", "runs", pk.pool2_fwd,
+                    (vals, cells, mask, reso, kind), fwd[kind])
+    k2_other = other_route(f"scatter_plane2_bwd{sfx}", "gather", pk.scatter_plane2_bwd, a, k2)
+    log("kernels", f"routes in {dt}: pool2{sfx} {routes['pool2 max']}; pool2_mean{sfx} (mean, "
+        f"sum) {routes['pool2 mean']}; pool2_bwd{sfx} {routes['pool2_bwd']}; "
+        f"scatter_plane2_bwd{sfx} "
+        f"{routes['scatter_plane2_bwd']} | on misaligned values {other} and {k2_other}, "
+        "bit-equal to the 16-byte routes and on a second launch: True")
     entry("scatter_plane2_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/pool2_kernel.py:133",
           [close(k2, pk.scatter_plane2_bwd_plain(*a))],
@@ -1655,10 +1720,14 @@ def check_tile_kernels(entry, seed: int = 0, dt=None):
         pairs.append((out.float(), want.float(), 0.0, 0.0) if k == "max" and sfx
                      else close(out, want))
         repeat = repeat and torch.equal(out, tpk.tile_pool(vals, cells, toff, k))
+        route = pool_route("runs")
+        other = other_route(f"tile_pool{sfx} {k}", "runs", tpk.tile_pool,
+                            (vals, cells, toff, k), out)
         ms = graph_ms([lambda a=a, k=k: tpk.tile_pool(*a, k) for a in copies])
         by_kind.append(f"{k} {ms:.4f}")
     log("kernels", f"tile_pool{sfx} by kind, kernel ms (three copies): {'; '.join(by_kind)} | "
-        f"bit-equal on a second launch: {repeat}")
+        f"bit-equal on a second launch: {repeat} | route {route}; on misaligned values "
+        f"{other}, bit-equal to it and on a second launch: True")
     if not repeat:
         raise AssertionError(f"tile_pool{sfx} differs between two launches")
     entry("tile_pool" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
@@ -1884,8 +1953,10 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         out = tpk.tile_pool(vals, cells, toff, k)
         a = (g, vals, out, cells, toff, k)
         dv = tpk.tile_pool_bwd(*a)
+        route = pool_route("runs")
         pairs.append(close(dv, tpk.tile_pool_bwd_plain(*a)))
         repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
+        other = other_route(f"tile_pool_bwd{sfx} {k}", "runs", tpk.tile_pool_bwd, a, dv)
         copies[k] = [a] + [tuple(x.clone() if torch.is_tensor(x) else x for x in a)
                            for _ in range(2)]
         ms = graph_ms([lambda a=a: tpk.tile_pool_bwd(*a) for a in copies[k]])
@@ -1895,10 +1966,12 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
     dv = tpk.tile_pool_bwd(*a)
     pairs.append(close(dv, tpk.tile_pool_bwd_plain(*a)))
     repeat = repeat and torch.equal(dv, tpk.tile_pool_bwd(*a))
+    other_route(f"tile_pool_bwd{sfx} max on ties", "runs", tpk.tile_pool_bwd, a, dv)
     tied = int(((ties == t_out) & mask[..., None]).sum())
     log("kernels", f"tile_pool_bwd{sfx} by kind, kernel ms (three copies): "
         f"{'; '.join(by_kind)} | on integral values {tied} tied row features | bit-equal on "
-        f"a second launch: {repeat}")
+        f"a second launch: {repeat} | route {route}; on misaligned cotangents {other}, "
+        "bit-equal to it (also on the ties) and on a second launch: True")
     if not repeat:
         raise AssertionError(f"tile_pool_bwd{sfx} differs between two launches")
     in_tiles = torch.arange(npad, device=dev)[None, :] < toff[:, -1:]
@@ -1912,8 +1985,9 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
            + 2 * n_valid * 32 * esize, 2 * g.numel()), None, tol=tol)
     del pairs, copies
 
-    # K12's backward at its ten shapes, with the forward's counts
-    pairs, kfns, pfns, lfns, work = [], [], [], [], [0, 0]
+    # K12's backward at its ten shapes, with the forward's counts, each
+    # logged kernel/plain/bound ms with its route
+    pairs, kfns, pfns, lfns, work, by_shape = [], [], [], [], [0, 0], []
     arange_b = torch.arange(b, device=dev)[:, None]
     for r, f in TILE_SCATTER_SHAPES + [(16, 1024)]:
         shift = 2 * (9 - r.bit_length())
@@ -1923,16 +1997,21 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         gp = torch.randn(b, r, r, f, generator=gen, device=dev).to(dt)
         a = (gp, cells, counts, r, 256)
         dv = sk.aligned_scatter_mean_plane_bwd(*a)
+        route = pool_route("gather").split(" (")[0]
         if not torch.equal(sk.aligned_scatter_mean_plane_bwd(*a), dv):
             raise AssertionError(f"aligned_scatter_mean_plane_bwd{sfx} differs between two "
                                  f"launches at {r}")
+        other = other_route(f"aligned_scatter_mean_plane_bwd{sfx} at {r}^2 F={f}", "gather",
+                            sk.aligned_scatter_mean_plane_bwd, a, dv).split(" (")[0]
         pairs.append(close(dv, sk.aligned_scatter_mean_plane_bwd_plain(*a)))
         occupied = int((counts > 0).sum())
-        work[0] += (nbytes(gp, counts) * occupied // counts.numel()
-                    + nbytes(cells, dv))
+        moved = nbytes(gp, counts) * occupied // counts.numel() + nbytes(cells, dv)
+        work[0] += moved
         work[1] += dv.numel()
         kfns.append(lambda a=a: sk.aligned_scatter_mean_plane_bwd(*a))
         pfns.append(lambda a=a: sk.aligned_scatter_mean_plane_bwd_plain(*a))
+        by_shape.append(f"{r}^2 F={f} {graph_ms(kfns[-1]):.4f}/{graph_ms(pfns[-1], 3, 1):.4f}/"
+                        f"{bound(moved, dv.numel())[0]:.4f} {route}")
         # the yardstick: one index_select of the row-major plane (a zero row
         # appended for the pad rows) and one of the counts, then the division
         # (in bf16 the counts promote to bf16, as K12's backward cuts them)
@@ -1944,8 +2023,10 @@ def check_tile_backwards(entry, dev, b, npad, xy, mask, cells, toff, rows_of, sc
         kc_pad = torch.cat([counts.reshape(-1), torch.ones(1, device=dev, dtype=torch.int32)])
         lfns.append(lambda a=(gp_pad, kc_pad, rm): a[0].index_select(0, a[2])
                     / a[1].index_select(0, a[2]).clamp_min(1)[:, None])
-    log("kernels", f"aligned_scatter_mean_plane_bwd{sfx} bit-equal on a second launch at its "
-        "10 shapes: True")
+    log("kernels", f"aligned_scatter_mean_plane_bwd{sfx} by shape, kernel/plain/bound ms "
+        f"and route: {'; '.join(by_shape)} | bit-equal on a second launch at its 10 shapes: "
+        f"True; on a misaligned plane {other}, bit-equal to it and on a second launch at "
+        "each: True")
     entry("aligned_scatter_mean_plane_bwd" + sfx, "tomosar2height_tpu_torch/csrc/pool2.cu",
           "tomosar2height_tpu/ops/pallas/fused.py:149", pairs,
           lambda: [fn() for fn in kfns], lambda: [fn() for fn in pfns], tuple(work),

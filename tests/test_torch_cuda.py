@@ -2718,3 +2718,130 @@ class TestSixteenByteLanes:
                              1, 0, parts, runtime.stream_ptr(cuda)), name)
         torch.cuda.synchronize()
         assert torch.equal(plane, want) and torch.equal(counts, want_counts)
+
+
+def exact_values(rng, shape):
+    """Values that bf16 holds exactly, k / 256 with |k| <= 255, whose sums
+    over any run of these layouts (at most a few thousand rows) are exact in
+    float32: every summation order gives the same bits, so the run kernels
+    equal their plain versions bit for bit in both dtypes."""
+    return (np.clip(np.round(rng.normal(size=shape) * 64), -255, 255) / 256).astype(np.float32)
+
+
+@pytest.mark.cuda
+class TestPoolSixteenByteRoutes:
+    """K2 alone (``pool_gather``) and the run kernel (``pool_runs``) on both
+    routes of their plans (``tile_plan.pool_gather_plan``,
+    ``pool_runs_plan``): the 16-byte items (``pool_gather_items``) and the
+    staged span (``pool_runs_staged``) where F is a multiple of 16 bytes'
+    values and the tensors are aligned, else a lane a feature. The C side
+    plans as the host does; in both dtypes K2 (scatter_plane2's backward
+    with holes, K12's backward with the count cut to bf16 at a cell of more
+    than 256 rows), pool2 forward and backward (ties, holes, a 300-row cell)
+    and K10 forward and backward (the tile rule, ties split) on values whose
+    sums are exact equal their plain versions bit for bit, and a second
+    launch the first."""
+
+    def test_plans_match_the_c_side(self, cuda):
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
+        for f in (1, 6, 8, 12, 24, 32, 40, 64, 128, 256, 264, 512, 1024):
+            for elem in (2, 4):
+                for aligned in (True, False):
+                    assert pk.gather_plan(f, elem, aligned) == tp.pool_gather_plan(
+                        f, elem, aligned)
+                    for kind, tiled in ((0, False), (0, True), (1, False), (2, False),
+                                        (3, True)):
+                        assert pk.runs_kernel_plan(f, elem, aligned, kind, tiled) == (
+                            tp.pool_runs_plan(f, elem, aligned, kind, tiled))
+
+    @staticmethod
+    def _route(plan_fn, key, f, dtype, aligned, *kind_tiled):
+        from tomosar2height_tpu_torch.ops.cuda import tile_plan as tp
+        return getattr(tp, plan_fn)(f, torch.empty((), dtype=dtype).element_size(),
+                                    aligned, *kind_tiled)[key]
+
+    @pytest.mark.parametrize("dtype", [BF, torch.float32])
+    @pytest.mark.parametrize("f,aligned", [(32, True), (40, True), (256, True), (1024, True),
+                                           (12, True), (32, False)])
+    def test_gather_routes(self, cuda, dtype, f, aligned):
+        items = self._route("pool_gather_plan", "items", f, dtype, aligned)
+        assert items == (aligned and f % (16 // torch.empty((), dtype=dtype).element_size())
+                         == 0)
+        _, mask, cells, _, vals = run_batch(9, f=8, holes=True)
+        c, m = t(cells, cuda), t(mask, cuda)
+        counts = pk.scatter_plane2(t(vals, cuda), c, m, RESO)[1]
+        rng = np.random.default_rng(10)
+        g = t(rng.normal(size=(4, RESO, RESO, f)).astype(np.float32), cuda).to(dtype)
+        g = g if aligned else _misaligned(g)
+        got = pk.scatter_plane2_bwd(g, c, m, counts)
+        torch.cuda.synchronize()
+        assert pk.LAST_PLAN["gather"]["items"] == items
+        assert torch.equal(got, pk.scatter_plane2_bwd_plain(g, c, m, counts))
+        assert torch.equal(pk.scatter_plane2_bwd(g, c, m, counts), got)
+        # K12's backward at 16^2 of a 64^2 layout: one cell of ~800 rows
+        _, _, tcells, toff, tvals = tile_batch(7, reso=64, f=8, edge="one_cell")
+        tc, lt = t(tcells, cuda), t(toff[:, ::16], cuda)
+        counts = sk.aligned_scatter_mean_plane(t(tvals, cuda), tc, lt, 16, 64,
+                                               with_counts=True)[1]
+        assert int(counts.max()) > 256
+        gp = t(rng.normal(size=(2, 16, 16, f)).astype(np.float32), cuda).to(dtype)
+        gp = gp if aligned else _misaligned(gp)
+        got = sk.aligned_scatter_mean_plane_bwd(gp, tc, counts, 16, 64)
+        torch.cuda.synchronize()
+        assert pk.LAST_PLAN["gather"]["items"] == items
+        assert torch.equal(got, sk.aligned_scatter_mean_plane_bwd_plain(gp, tc, counts, 16, 64))
+        assert torch.equal(sk.aligned_scatter_mean_plane_bwd(gp, tc, counts, 16, 64), got)
+
+    @pytest.mark.parametrize("dtype", [BF, torch.float32])
+    @pytest.mark.parametrize("f,aligned", [(32, True), (40, True), (128, True), (12, True),
+                                           (8, True), (32, False)])
+    def test_run_kernel_routes(self, cuda, dtype, f, aligned):
+        staged = self._route("pool_runs_plan", "staged", f, dtype, aligned)
+        assert staged == (aligned and f % (16 // torch.empty((), dtype=dtype).element_size())
+                          == 0)
+        # the f32 max under the mask keeps a lane a feature
+        k1_max = staged and dtype == BF
+        assert self._route("pool_runs_plan", "staged", f, dtype, aligned, 0, False) == k1_max
+        rng = np.random.default_rng(11)
+        _, mask, cells, _, vals = run_batch(12, f=f, holes=True)
+        vals = np.where(np.arange(4)[:, None, None] == 2, vals, exact_values(rng, vals.shape))
+        v, c, m = t(vals, cuda).to(dtype), t(cells, cuda), t(mask, cuda)
+        v = v if aligned else _misaligned(v)
+        g = t(exact_values(rng, vals.shape), cuda).to(dtype)
+        g = g if aligned else _misaligned(g)
+        for kind in ("max", "mean", "sum"):
+            got = pk.pool2_fwd(v, c, m, RESO, kind)
+            torch.cuda.synchronize()
+            assert pk.LAST_PLAN["runs"]["staged"] == (k1_max if kind == "max" else staged), kind
+            assert torch.equal(got, pk.pool2_plain(v, c, m, RESO, kind)), kind
+            assert torch.equal(pk.pool2_fwd(v, c, m, RESO, kind), got), kind
+            if kind == "sum":
+                continue
+            out = got if aligned else _misaligned(got)
+            dv = pk.pool2_bwd(g, v, out, c, m, RESO, kind)
+            torch.cuda.synchronize()
+            assert pk.LAST_PLAN["runs"]["staged"] == staged, kind
+            assert torch.equal(dv, pk.pool2_bwd_plain(g, v, out, c, m, RESO, kind)), kind
+            assert torch.equal(pk.pool2_bwd(g, v, out, c, m, RESO, kind), dv), kind
+        # K10 and its backward: the tile rule, rows of other tiles and past
+        # the last tile, ties (integral values) split among the tied rows
+        _, tmask, tcells, toff, tvals = tile_run_batch(13, f=f, foreign=True, past=True)
+        ties = rng.integers(0, 3, tvals.shape).astype(np.float32)
+        for vals_np in (np.where(tmask[..., None], exact_values(rng, tvals.shape), 1e9), ties):
+            tv = t(vals_np.astype(np.float32), cuda).to(dtype)
+            tv = tv if aligned else _misaligned(tv)
+            tc, tt = t(tcells, cuda), t(toff, cuda)
+            tg = t(exact_values(rng, tvals.shape) * tmask[..., None], cuda).to(dtype)
+            tg = tg if aligned else _misaligned(tg)
+            for kind in ("max", "mean"):
+                out = tpk.tile_pool(tv, tc, tt, kind)
+                torch.cuda.synchronize()
+                assert pk.LAST_PLAN["runs"]["staged"] == staged, kind
+                assert torch.equal(out, tpk.tile_pool_plain(tv, tc, tt, kind)), kind
+                assert torch.equal(tpk.tile_pool(tv, tc, tt, kind), out), kind
+                out = out if aligned else _misaligned(out)
+                dv = tpk.tile_pool_bwd(tg, tv, out, tc, tt, kind)
+                torch.cuda.synchronize()
+                assert pk.LAST_PLAN["runs"]["staged"] == staged, kind
+                assert torch.equal(dv, tpk.tile_pool_bwd_plain(tg, tv, out, tc, tt, kind)), kind
+                assert torch.equal(tpk.tile_pool_bwd(tg, tv, out, tc, tt, kind), dv), kind

@@ -48,10 +48,12 @@ from tomosar2height_tpu.ops.pallas.pool2_kernel import (  # noqa: E402
     scatter_plane2 as jax_scatter_plane2,
 )
 from tomosar2height_tpu.ops.pallas.pool_kernel import pallas_tile_pool  # noqa: E402
-from test_torch_cuda import RESO, run_batch, t, tile_run_batch  # noqa: E402
+from test_torch_cuda import RESO, exact_values, run_batch, t, tile_run_batch  # noqa: E402
 from test_torch_scatter_runs import rowmajor  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import pool2_kernel as pk  # noqa: E402
 from tomosar2height_tpu_torch.ops.cuda import pool_kernel as tpk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import scatter_kernel as sk  # noqa: E402
+from tomosar2height_tpu_torch.ops.cuda import tile_plan  # noqa: E402
 from tomosar2height_tpu_torch.ops.sorted_scatter import PAD_CELL_SENTINEL  # noqa: E402
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -490,3 +492,395 @@ def test_gather_source_matches_the_emulation():
     assert "atomic" not in body and "long long t" not in body and "grid_for" not in body
     assert "__shfl_sync(kFull, dst, below" in body and "dprev != dst" in body
     assert 'entry("pool_gather"' in inspect.getsource(pk.scatter_plane2_bwd)
+
+
+# --- the 16-byte routes: pool_runs_staged and pool_gather_items ----------------
+
+
+def bf16_round(x):
+    """float32 values rounded to the nearest bfloat16 (ties to even), held in
+    float32: the kernels' ``from_f32<bf16>``."""
+    u = np.ascontiguousarray(x, np.float32).view(np.uint32)
+    r = (u + np.uint32(0x7FFF) + ((u >> np.uint32(16)) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return r.view(np.float32)
+
+
+def _rounder(elem):
+    return bf16_round if elem == 2 else (lambda v: np.asarray(v, np.float32))
+
+
+def emulate_staged_runs(x, cells, mask, ncell, kind, tie=None, toff=None, elem=2,
+                        mutant=None):
+    """``pool_runs_staged`` in numpy, warp by warp, on its plan
+    (``tile_plan.pool_runs_plan``): returns (out, writes), writes (B, N, F)
+    counting how often each element was stored. Per span, each step of
+    ``chunk`` features copies the own rows' slices into a tile, 16 bytes
+    (vec values) a copy; the scan reads only copied slots (it fails on any
+    other), writes each run's result (rounded to the values' type: bf16 for
+    ``elem`` 2) into its last row's slot, a backward pass fills the rows, and
+    the rows this warp stores go out a copy at a time; the last run, where
+    it goes on past the span, reads on a row at a time and writes its rows
+    after. x holds values of the type (bf16-valued for elem 2); kind, tie and
+    toff as :func:`emulate_runs`. ``mutant`` 'earlier_row' also stores the
+    valid rows before the span's first head, an earlier warp's run's."""
+    b, n, f = x.shape
+    plan = tile_plan.pool_runs_plan(f, elem)
+    assert plan["staged"]
+    vec, chunk = plan["vec"], plan["chunk"]
+    rnd = _rounder(elem)
+    out = np.full_like(x, np.nan)
+    writes = np.zeros(x.shape, np.int64)
+    ident = np.float32(-np.inf if kind == "max" else 0.0)
+    comb = np.maximum if kind == "max" else np.add
+
+    def result(acc, count, ntied):
+        if kind == "split":
+            return np.where(ntied > 0, acc / np.maximum(ntied, 1).astype(np.float32),
+                            np.float32(0))
+        return acc / np.float32(max(count, 1)) if kind == "mean" else acc
+
+    for i in range(b):
+        def cell(r):
+            return int(cells[i, r]) if 0 <= r < n else -1
+
+        def is_valid(r):
+            c = cell(r)
+            if not 0 <= c < ncell:
+                return False
+            if toff is None:
+                return bool(mask[i, r])
+            return toff[i, c >> 8] <= r < toff[i, (c >> 8) + 1]
+
+        def tied_at(r, f0, fw):
+            return tie[0][i, r, f0:f0 + fw] == tie[1][i, r, f0:f0 + fw]
+
+        for s0 in range(0, n, SPAN):
+            ids = [cell(s0 + k) for k in range(-1, SPAN + 1)]  # rows s0 - 1 .. s0 + 32
+            ok = [0 <= ids[k + 1] < ncell for k in range(SPAN)]
+            if not any(ok):  # no run: every row of the span stores 0
+                out[i, s0:s0 + SPAN] = 0
+                writes[i, s0:s0 + SPAN] += 1
+                continue
+            heads = [ok[k] and ids[k] != ids[k + 1] for k in range(SPAN)]
+            valid = [ok[k] and is_valid(s0 + k) for k in range(SPAN)]
+            first = heads.index(True) if any(heads) else SPAN
+            own = [valid[k] and k >= first for k in range(SPAN)]
+            cont = ok[-1] and first < SPAN and ids[SPAN + 1] == ids[SPAN]
+            last_head = max(k for k in range(SPAN) if heads[k]) if cont else SPAN
+            deferred = [own[k] and k >= last_head for k in range(SPAN)]
+            ends = [ok[k] and (ids[k + 2] != ids[k + 1] or k == SPAN - 1)
+                    and not (cont and k == SPAN - 1) for k in range(SPAN)]
+            stores = [s0 + k < n and not deferred[k]
+                      and (mutant == "earlier_row" or not (valid[k] and not own[k]))
+                      for k in range(SPAN)]
+            count, run = [], None  # own rows of the run from its head to row k
+            for k in range(SPAN):
+                run = 0 if heads[k] else run
+                run = run + own[k] if run is not None else None
+                count.append(run or 0)
+            tail = []
+            if cont:
+                j = s0 + SPAN
+                while cell(j) == cell(s0 + SPAN - 1):
+                    if is_valid(j):
+                        tail.append(j)
+                    j += 1
+            for f0 in range(0, f, chunk):
+                fw = min(chunk, f - f0)
+                tile = np.full((SPAN, fw), np.nan, np.float32)
+                for k in range(SPAN):
+                    if own[k]:
+                        for q in range(fw // vec):
+                            tile[k, q * vec:(q + 1) * vec] = x[i, s0 + k, f0 + q * vec:
+                                                               f0 + (q + 1) * vec]
+                acc = np.full(fw, ident, np.float32)
+                ntied = np.zeros(fw, np.int64)
+                tied = np.zeros((SPAN, fw), bool)
+                for k in range(SPAN):
+                    if heads[k]:
+                        acc, ntied = np.full(fw, ident, np.float32), np.zeros(fw, np.int64)
+                    if own[k]:
+                        assert not np.isnan(tile[k]).any()  # only copied slots are read
+                        acc = comb(acc, tile[k])
+                        if tie is not None:
+                            tied[k] = tied_at(s0 + k, f0, fw)
+                            ntied = ntied + tied[k]
+                    if ends[k]:
+                        tile[k] = rnd(result(acc, count[k], ntied))
+                cur = np.zeros(fw, np.float32)
+                for k in reversed(range(SPAN)):
+                    if ends[k]:
+                        cur = tile[k].copy()
+                    v = cur if own[k] else np.zeros(fw, np.float32)
+                    tile[k] = np.where(tied[k], v, 0) if tie is not None else v
+                tile = rnd(tile)  # each row's value stored in the type (exact here)
+                for k in range(SPAN):
+                    if stores[k]:
+                        for q in range(fw // vec):
+                            cols = slice(f0 + q * vec, f0 + (q + 1) * vec)
+                            out[i, s0 + k, cols] = tile[k, q * vec:(q + 1) * vec]
+                            writes[i, s0 + k, cols] += 1
+                if cont:
+                    nt = ntied.copy()
+                    for j in tail:
+                        acc = comb(acc, x[i, j, f0:f0 + fw])
+                        if kind == "split":
+                            nt = nt + tied_at(j, f0, fw)
+                    r = rnd(result(acc, count[SPAN - 1] + len(tail), nt))
+                    for k in range(SPAN):
+                        if deferred[k]:
+                            out[i, s0 + k, f0:f0 + fw] = np.where(tied[k], r, 0) \
+                                if tie is not None else r
+                            writes[i, s0 + k, f0:f0 + fw] += 1
+                    for j in tail:
+                        out[i, j, f0:f0 + fw] = np.where(tied_at(j, f0, fw), r, 0) \
+                            if tie is not None else r
+                        writes[i, j, f0:f0 + fw] += 1
+    return out, writes
+
+
+def emulate_gather_items(g_plane, cells, mask, counts, shift=0, cut=False, elem=2,
+                         mutant=None):
+    """``pool_gather_items`` in numpy, warp by warp, on its plan
+    (``tile_plan.pool_gather_plan``): returns (out, writes, loads), writes
+    (B, N, F) counting each element's stores and loads the 16-byte plane
+    chunks read. A warp's span splits into ``segs`` segments of ``seg_rows``
+    rows, lpr lanes each on a chunk group; a lane walks its segment in row
+    order and loads (and divides, by the count cut to bf16 under ``cut``)
+    only where a valid row is its segment's first or its cell differs from
+    the previous valid row's. cells >> shift is the cell at reso; ``mask``
+    None takes every row whose cell is in range (K12's backward).
+    ``mutant``: 'skip_chunk' leaves each row's last chunk out, 'uncut'
+    divides by the exact count under ``cut``."""
+    b, reso, _, f = g_plane.shape
+    plan = tile_plan.pool_gather_plan(f, elem)
+    assert plan["items"]
+    vec, cpr, lpr, segs, seg_rows = (plan[k] for k in ("vec", "cpr", "lpr", "segs", "seg_rows"))
+    ncell, n = reso * reso, cells.shape[1]
+    flat, cnt = g_plane.reshape(b, ncell, f), counts.reshape(b, ncell)
+    rnd = _rounder(elem)
+    out = np.full((b, n, f), np.nan, np.float32)
+    writes = np.zeros((b, n, f), np.int64)
+    loads = 0
+    for i in range(b):
+        def dst(r):  # row r's row-major cell and divisor; -1 where not valid
+            raw = int(cells[i, r])
+            c = raw >> shift
+            if (mask is None or mask[i, r]) and raw >= 0 and c < ncell:
+                d = rowmajor(c, reso)
+                k = np.float32(max(int(cnt[i, d]), 1))
+                return d, bf16_round(k) if cut and mutant != "uncut" else k
+            return -1, np.float32(1)
+
+        for s0 in range(0, n, SPAN):
+            rows = min(SPAN, n - s0)
+            d = [dst(s0 + r) for r in range(rows)]
+            if mutant is None and all(cell_r < 0 for cell_r, _ in d):
+                out[i, s0:s0 + rows] = 0  # no valid row: every item stores 0
+                writes[i, s0:s0 + rows] += 1
+                continue
+            for cg in range(plan["chunks"]):
+                ch = [cg * lpr + c for c in range(lpr) if cg * lpr + c < cpr]
+                if mutant == "skip_chunk":
+                    ch = [c for c in ch if c != cpr - 1]
+                feats = np.concatenate([np.arange(c * vec, (c + 1) * vec) for c in ch]) \
+                    if ch else np.zeros(0, np.int64)
+                for g in range(segs):
+                    cur, prev = np.zeros(feats.size, np.float32), None
+                    for r in range(g * seg_rows, min((g + 1) * seg_rows, rows)):
+                        cell_r, nr = d[r]
+                        if cell_r >= 0 and cell_r != prev:
+                            cur = rnd(flat[i, cell_r, feats] / nr)
+                            loads += len(ch)
+                            prev = cell_r
+                        out[i, s0 + r, feats] = cur if cell_r >= 0 else 0
+                        writes[i, s0 + r, feats] += 1
+    return out, writes, loads
+
+
+@pytest.fixture(scope="module")
+def wide_layouts():
+    """run_batch at F = 40 (two steps of the staged kernel, the second of 8
+    features; five 16-byte chunks a bf16 row, ten an f32 one), with and
+    without holes."""
+    return {holes: run_batch(3, f=40, holes=holes) for holes in (False, True)}
+
+
+@pytest.mark.parametrize("holes,elem", [(False, 2), (True, 2), (True, 4)])
+def test_staged_runs_match_the_span_kernel(wide_layouts, holes, elem):
+    """Forward (max, mean, sum) and backward (max's tie gate, mean) on the
+    staged route: every element stored once, by one warp; bit-equal to
+    ``emulate_runs`` rounded once (the same row-order sums), in bf16 on
+    bf16-valued inputs; on exact sums bit-equal to the plain versions."""
+    _, mask, cells, _, vals = wide_layouts[holes]
+    rnd = _rounder(elem)
+    x = rnd(vals)
+    g = rnd(np.random.default_rng(5).normal(size=vals.shape).astype(np.float32))
+    for kind in ("max", "mean", "sum"):
+        got, writes = emulate_staged_runs(x, cells, mask, NCELL, kind, elem=elem)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(got, rnd(emulate_runs(x, cells, mask, NCELL, kind)[0]))
+        if kind == "max":
+            want, _ = emulate_runs(g, cells, mask, NCELL, "sum", (x, got))
+            dv, writes = emulate_staged_runs(g, cells, mask, NCELL, "sum", (x, got), elem=elem)
+        else:
+            want, _ = emulate_runs(g, cells, mask, NCELL, kind)
+            dv, writes = emulate_staged_runs(g, cells, mask, NCELL, kind, elem=elem)
+        assert (writes == 1).all()
+        np.testing.assert_array_equal(dv, rnd(want))
+    dt = torch.bfloat16 if elem == 2 else torch.float32
+    ex = exact_values(np.random.default_rng(6), vals.shape)
+    ex[2] = vals[2]  # entry 2: values in {0, 1, 2}, ties in max
+    for kind in ("max", "mean", "sum"):
+        got, _ = emulate_staged_runs(ex, cells, mask, NCELL, kind, elem=elem)
+        want = pk.pool2_plain(t(ex).to(dt), t(cells), t(mask), RESO, kind).float().numpy()
+        np.testing.assert_array_equal(got, want)
+
+
+def test_staged_runs_sum_in_row_order(wide_layouts):
+    """The 300-row run (ten spans) read on past its head's span: its sum is
+    the float32 left fold over its rows."""
+    _, mask, cells, _, vals = wide_layouts[False]
+    got, _ = emulate_staged_runs(vals, cells, mask, NCELL, "sum", elem=4)
+    rows = np.flatnonzero(mask[1] & (cells[1] == np.bincount(cells[1][mask[1]]).argmax()))
+    assert rows.size == 300
+    fold = np.zeros(vals.shape[-1], np.float32)
+    for r in rows:
+        fold = fold + vals[1, r]
+    np.testing.assert_array_equal(got[1, rows], np.broadcast_to(fold, (300, vals.shape[-1])))
+
+
+def test_staged_k10_matches_the_span_kernel():
+    """K10 in bf16 under the tile rule (pads at tile ends, rows of another
+    tile, rows past the last tile, a 300-row cell, an empty entry) and its
+    backward (each run's cotangent split among its tied rows, on integral
+    values): every element stored once; bit-equal to ``emulate_runs``
+    rounded once, and on exact sums to the plain versions. (The tile rule
+    does not depend on the dtype; f32 takes the same partition above.)"""
+    _, mask, cells, toff, vals = tile_run_batch(11, f=40, foreign=True, past=True)
+    ncell = (toff.shape[1] - 1) * 256
+    elem = 2
+    rnd = _rounder(elem)
+    rng = np.random.default_rng(12)
+    x = rnd(vals)
+    for kind in ("max", "mean"):
+        got, writes = emulate_staged_runs(x, cells, mask, ncell, kind, toff=toff, elem=elem)
+        assert (writes == 1).all()
+        want, _ = emulate_runs(x, cells, mask, ncell, kind, toff=toff)
+        np.testing.assert_array_equal(got, rnd(want))
+    dt = torch.bfloat16 if elem == 2 else torch.float32
+    ties = np.where(mask[..., None], rng.integers(0, 3, vals.shape), 1e9).astype(np.float32)
+    g = (exact_values(rng, vals.shape) * mask[..., None]).astype(np.float32)
+    out = tpk.tile_pool_plain(t(ties).to(dt), t(cells), t(toff), "max").float().numpy()
+    dv, writes = emulate_staged_runs(g, cells, mask, ncell, "split", (ties, out), toff=toff,
+                                     elem=elem)
+    assert (writes == 1).all()
+    want, _ = emulate_runs(g, cells, mask, ncell, "split", (ties, out), toff=toff)
+    np.testing.assert_array_equal(dv, rnd(want))
+    plain = tpk.tile_pool_bwd_plain(t(g).to(dt), t(ties).to(dt), t(out).to(dt), t(cells),
+                                    t(toff), "max").float().numpy()
+    np.testing.assert_array_equal(dv, plain)
+
+
+def test_staged_mutant_fails(wide_layouts):
+    """An item that also stores an earlier warp's row (a valid row before
+    its span's first head) writes it twice and leaves the plain version."""
+    _, mask, cells, _, vals = wide_layouts[False]
+    got, writes = emulate_staged_runs(vals, cells, mask, NCELL, "mean", elem=4,
+                                      mutant="earlier_row")
+    assert (writes > 1).any()
+    want = pk.pool2_plain(t(vals), t(cells), t(mask), RESO, "mean").numpy()
+    assert not np.allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("elem,f", [(2, 40), (2, 264), (4, 40), (4, 8)])
+@pytest.mark.parametrize("order", ["sorted", "unsorted"])
+def test_gather_items_match_the_span_kernel(wide_layouts, order, elem, f):
+    """K2 alone on (row, 16-byte chunk) items, on the holes layout and its
+    rows unsorted, at widths whose chunks fill uneven segments (F = 40 in
+    bf16: 5 lanes a row, 6 segments of 6 rows) and two chunk groups (F = 264
+    in bf16): every element stored once; bit-equal to ``emulate_gather``
+    rounded once and to the plain version; each run's chunk read once a
+    segment (unsorted rows read more)."""
+    lay = wide_layouts[True] if order == "sorted" else unsorted(wide_layouts[True])
+    _, mask, cells, _, vals = lay
+    counts = pk.scatter_plane2_plain(t(vals), t(cells), t(mask), RESO)[1].numpy()
+    rnd = _rounder(elem)
+    g = rnd(np.random.default_rng(7).normal(size=(4, RESO, RESO, f)).astype(np.float32))
+    got, writes, loads = emulate_gather_items(g, cells, mask, counts, elem=elem)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, rnd(emulate_gather(g, cells, mask, counts)[0]))
+    dt = torch.bfloat16 if elem == 2 else torch.float32
+    want = pk.scatter_plane2_bwd_plain(t(g).to(dt), t(cells), t(mask), t(counts))
+    np.testing.assert_array_equal(got, want.float().numpy())
+    plan = tile_plan.pool_gather_plan(f, elem)
+    assert loads <= int(mask.sum()) * plan["cpr"]
+    if order == "sorted":
+        assert loads < int(mask.sum()) * plan["cpr"]
+
+
+@pytest.fixture(scope="module")
+def k12_layout():
+    """tile_run_batch at 16^2 (finest 256^2, shift 8): K12's forward counts,
+    one of them above 256 and not a bf16 integer."""
+    _, _, cells, toff, vals = tile_run_batch(11, f=8, foreign=True, past=True)
+    counts = sk.aligned_scatter_mean_plane_plain(t(vals), t(cells), t(toff[:, ::256]), 16, 256,
+                                                 with_counts=True)[1].numpy()
+    big = counts[counts > 256].astype(np.float32)
+    assert (bf16_round(big) != big).any()
+    return cells, counts
+
+
+@pytest.mark.parametrize("elem", [2, 4])
+def test_gather_items_k12_backward(k12_layout, elem):
+    """K12's backward on the items: no mask, the cell at the level's shift,
+    in bf16 the counts cut to bf16 (``t2h_pool_gather_cut_bf16``): every
+    element stored once, bit-equal to the plain version."""
+    cells, counts = k12_layout
+    rnd = _rounder(elem)
+    f = 264 if elem == 2 else 40  # bf16: two chunk groups, the second of one chunk
+    g = rnd(np.random.default_rng(8).normal(size=(4, 16, 16, f)).astype(np.float32))
+    got, writes, _ = emulate_gather_items(g, cells, None, counts, shift=8, cut=elem == 2,
+                                          elem=elem)
+    assert (writes == 1).all()
+    dt = torch.bfloat16 if elem == 2 else torch.float32
+    want = sk.aligned_scatter_mean_plane_bwd_plain(t(g).to(dt), t(cells), t(counts), 16, 256)
+    np.testing.assert_array_equal(got, want.float().numpy())
+
+
+@pytest.mark.parametrize("mutant", ["skip_chunk", "uncut"])
+def test_gather_items_mutants_fail(k12_layout, mutant):
+    """An item that skips a row's last chunk leaves it unwritten; dividing
+    by the exact count where K12's bf16 backward cuts it leaves the plain
+    version at the cell of a count bf16 does not hold."""
+    cells, counts = k12_layout
+    g = bf16_round(np.random.default_rng(9).normal(size=(4, 16, 16, 40)).astype(np.float32))
+    got, writes, _ = emulate_gather_items(g, cells, None, counts, shift=8, cut=True, elem=2,
+                                          mutant=mutant)
+    want = sk.aligned_scatter_mean_plane_bwd_plain(t(g).to(torch.bfloat16), t(cells),
+                                                   t(counts), 16, 256).float().numpy()
+    if mutant == "skip_chunk":
+        assert (writes == 0).any()
+    assert not np.array_equal(got, want)
+
+
+def test_routes_follow_the_plans():
+    """The wrappers check each plan against the C side's at its first
+    launch; the 16-byte routes need F a multiple of 16 bytes' values and
+    aligned tensors, else a lane a feature."""
+    import inspect
+
+    for f, elem, aligned, route in [(32, 2, True, 1), (40, 2, True, 1), (12, 2, True, 0),
+                                    (12, 4, True, 1), (32, 2, False, 0), (6, 4, True, 0)]:
+        assert tile_plan.pool_gather_plan(f, elem, aligned)["items"] == route
+        assert tile_plan.pool_runs_plan(f, elem, aligned)["staged"] == route
+    # the f32 max under the mask (K1 max) keeps a lane a feature; K10's f32
+    # max and every bf16 max take the staged span
+    for elem, kind, tiled, staged in [(4, 0, False, 0), (4, 0, True, 1), (2, 0, False, 1),
+                                      (4, 1, False, 1), (4, 2, False, 1), (4, 3, True, 1)]:
+        assert tile_plan.pool_runs_plan(32, elem, True, kind, tiled)["staged"] == staged
+    assert "check_runs_plan" in inspect.getsource(pk._pool_runs)
+    assert "check_runs_plan" in inspect.getsource(tpk.tile_pool)
+    assert "check_runs_plan" in inspect.getsource(tpk.tile_pool_bwd)
+    assert "check_gather_plan" in inspect.getsource(pk.scatter_plane2_bwd)
+    assert "check_gather_plan" in inspect.getsource(sk.aligned_scatter_mean_plane_bwd)

@@ -145,29 +145,6 @@ __device__ __forceinline__ void warp_mma(float (&acc)[2][NT][4], const float* A,
   }
 }
 
-// --- cp.async ------------------------------------------------------------------
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, int src_bytes) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
-               "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
 // Rows [r0, r0 + TR) x columns [c0, c0 + TC) of a row-major global matrix g
 // (row stride ld; rows < rmax and columns < cmax exist) -> s (row stride
 // sld), zero where the matrix has no element. vec: 16-byte copies, which

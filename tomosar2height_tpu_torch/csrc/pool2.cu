@@ -130,13 +130,19 @@
 //
 // bf16 (the model's bf16 dtype): pool_runs, pool_gather and scatter_runs
 // are templated on the value type T (dtype.cuh). A bf16 instance reads bf16
-// values (scatter_runs: 2, 4, 8 or 16 bytes a lane), sums or maxes them in f32
-// registers in the same row order as the f32 instance, and rounds each
+// values (scatter_runs: 2, 4, 8 or 16 bytes a lane; pool_runs_staged and
+// pool_gather_items, the routes of pool_runs and pool_gather for aligned
+// tensors whose F is a multiple of 16 bytes' values: 16 bytes a lane), sums or
+// maxes them in f32 in the same row order as the f32 instance, and rounds each
 // output to bf16 once, where it stores it: the JAX kernels' bf16 rule
 // (pool2_kernel.py:88-117 f32 accumulators cast to the dtype, :148-158 the
 // gather in the dtype, :292-334 the plane mean in f32 written in the dtype,
 // :424-453 (g / count) rounded then gathered, :514 the tie gate in f32).
-// Counts stay int32; the bytes of the values and outputs halve.
+// Counts stay int32; the bytes of the values and outputs halve. With a lane
+// a feature, a bf16 warp instruction moves 64 bytes, and the lane-a-feature
+// kernels took longer in bf16 than in f32 (instructions and latency, not
+// bytes): hence the 16-byte routes, each bit-equal to the kernel it
+// replaces on its shapes, which stays the route for the others.
 
 #include "dtype.cuh"
 
@@ -182,6 +188,81 @@ __device__ __forceinline__ unsigned run_step(const int* __restrict__ cb,
   return __ballot_sync(kFull, lane < *len && (TILED ? lo <= j && j < hi : mb[j] != 0));
 }
 
+// A warp's span in a launch of pool_runs or pool_runs_staged, and the span's
+// runs as the warp finds them: lane = row of the span, -1 (no cell) past the
+// end; the neighbours' ids by shuffles, lanes 0 and 31 read the rows beside
+// the span. false where the warp has no span (warp-uniform).
+struct Span {
+  long long base;                    // first row of the batch entry
+  int s0;                            // the span's first row
+  const int* cb;                     // the entry's cell ids
+  const uint8_t* mb;                 // and its mask (not TILED)
+  unsigned heads, ends, valid, own;  // bits by row of the span
+  bool cont;                         // the last run goes on past the span
+  int c_last, lo, hi;                // its cell; TILED: the row range of its tile
+  int run_count;  // lane k: the valid rows of the run that ends at row k, from its head on
+};
+
+template <bool TILED>
+__device__ __forceinline__ bool find_span(const int* __restrict__ cells,
+                                          const uint8_t* __restrict__ mask,
+                                          const int* __restrict__ toff, int B, int N,
+                                          int ncell, int lane, Span& sp);  // below pool_runs
+
+// A run's result from its accumulator, its valid rows and (KIND 3) its tied
+// rows.
+template <int KIND>
+__device__ __forceinline__ float run_result(float acc, int count, int ntied) {
+  return KIND == 3 ? (ntied > 0 ? acc / static_cast<float>(ntied) : 0.0f)
+                   : run_finalize<KIND>(acc, count);
+}
+
+// The last run's walk past its head's span (sp.cont), 32 rows a step, lane =
+// feature (xf, af, bf: x, tie_a, tie_b at this lane's feature of the entry's
+// first row): folds each valid row into acc in row order (KIND 3: counts the
+// tied ones into *tied) and returns the rows' count. U: the inner loop's
+// unroll (pool_runs unrolls it fully; pool_runs_staged by 4, where a full
+// unroll spilled).
+template <typename T, int KIND, bool TILED, int U>
+__device__ __forceinline__ int walk_tail(const Span& sp, const T* __restrict__ xf,
+                                         const T* __restrict__ af, const T* __restrict__ bf,
+                                         int N, int F, bool fin, int lane, float* acc,
+                                         int* tied) {
+  int count = 0;
+  for (int rows = 0, len = kSpan; len == kSpan; rows += len) {
+    const int j0 = sp.s0 + kSpan + rows;
+    const unsigned tv = run_step<TILED>(sp.cb, sp.mb, sp.lo, sp.hi, j0, N, sp.c_last, lane, &len);
+#pragma unroll (U)
+    for (int k = 0; k < kSpan; ++k) {
+      if (!fin || !(tv >> k & 1u)) continue;
+      const long long i = (long long)(j0 + k) * F;
+      *acc = run_combine<KIND>(*acc, to_f32(xf[i]));
+      if (KIND == 3 && to_f32(af[i]) == to_f32(bf[i])) ++*tied;
+    }
+    count += __popc(tv);
+  }
+  return count;
+}
+
+// The same walk writing the run's result r to each of its valid rows past the
+// span (of: out at this lane's feature of the entry's first row; TIE: 0 where
+// the row does not tie).
+template <typename T, bool TIE, bool TILED, int U>
+__device__ __forceinline__ void fill_tail(const Span& sp, T* __restrict__ of,
+                                          const T* __restrict__ af, const T* __restrict__ bf,
+                                          T r, int N, int F, bool fin, int lane) {
+  for (int done = 0, len = kSpan; len == kSpan; done += len) {
+    const int j0 = sp.s0 + kSpan + done;
+    const unsigned tv = run_step<TILED>(sp.cb, sp.mb, sp.lo, sp.hi, j0, N, sp.c_last, lane, &len);
+#pragma unroll (U)
+    for (int k = 0; k < kSpan; ++k) {
+      if (!fin || !(tv >> k & 1u)) continue;
+      const long long i = (long long)(j0 + k) * F;
+      of[i] = TIE && to_f32(af[i]) != to_f32(bf[i]) ? from_f32<T>(0.0f) : r;
+    }
+  }
+}
+
 // TIE: the max-pool backward's gate (KIND 2 and 3). TILED: K10's validity,
 // the tile offsets toff (B, ncell / 256 + 1) in place of the mask. A warp's
 // lanes take 32 features of every row; F > 32 loops over feature chunks.
@@ -194,48 +275,13 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
           const T* __restrict__ tie_a, const T* __restrict__ tie_b,
           T* __restrict__ out, int B, int N, int F, int ncell) {
   const int lane = threadIdx.x & 31;
-  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int spans = (N + kSpan - 1) / kSpan;
-  if (warp >= (long long)B * spans) return;  // warp-uniform
-  const long long b = warp / spans;
-  const int s0 = static_cast<int>(warp - b * spans) * kSpan;
-  const long long base = b * N;  // first row of batch entry b
-  const int* cb = cells + base;
-  const uint8_t* mb = TILED ? nullptr : mask + base;
-  const int* to = TILED ? toff + b * ((ncell >> 8) + 1) : nullptr;
-
-  // lane = row of the span; -1 (no cell) past the end; the neighbours' ids by
-  // shuffles, lanes 0 and 31 read the rows beside the span
-  const int row = s0 + lane;
-  const bool in = row < N;
-  const int c = in ? cb[row] : -1;
-  const bool ok = c >= 0 && c < ncell;
-  const bool m = TILED ? ok && in_tile(to, 1, c, row) : in && mb[row] != 0;
-  int edge = -1;
-  if (lane == 0 && s0 > 0) edge = cb[s0 - 1];
-  if (lane == kSpan - 1 && row + 1 < N) edge = cb[row + 1];
-  int cprev = __shfl_up_sync(kFull, c, 1);
-  int cnext = __shfl_down_sync(kFull, c, 1);
-  if (lane == 0) cprev = edge;
-  if (lane == kSpan - 1) cnext = edge;
-  const unsigned heads = __ballot_sync(kFull, ok && cprev != c);
-  const unsigned same_next = __ballot_sync(kFull, ok && cnext == c);
-  // a run's last row in the span: the next row holds another cell, or lane 31
-  const unsigned ends = __ballot_sync(kFull, ok && (cnext != c || lane == kSpan - 1));
-  const unsigned valid = __ballot_sync(kFull, ok && m);
-  const unsigned before = heads ? (heads & (0u - heads)) - 1u : kFull;  // below the first head
-  const unsigned own = valid & ~before;  // valid rows of runs headed in this span
-  const bool cont = (same_next & ~before) >> (kSpan - 1);  // the last run goes on
-  const int c_last = __shfl_sync(kFull, c, kSpan - 1);
-  int lo = 0, hi = 0;  // TILED: the row range of the last run's tile
-  if (TILED && cont) {
-    lo = to[c_last >> 8];
-    hi = to[(c_last >> 8) + 1];
-  }
-  // lane k: the valid rows of the run that ends at row k, from its head on
-  const unsigned upto = lane == kSpan - 1 ? kFull : (2u << lane) - 1u;
-  const unsigned hb = heads & upto;
-  const int run_count = __popc(own & upto & ~(hb ? (1u << (31 - __clz(hb))) - 1u : 0u));
+  Span sp;
+  if (!find_span<TILED>(cells, mask, toff, B, N, ncell, lane, sp)) return;  // warp-uniform
+  const long long base = sp.base;
+  const int s0 = sp.s0;
+  const unsigned heads = sp.heads, ends = sp.ends, valid = sp.valid, own = sp.own;
+  const bool cont = sp.cont;
+  const int run_count = sp.run_count;
 
   for (int f0 = 0; f0 < F; f0 += 32) {
     const int f = f0 + lane;
@@ -272,21 +318,10 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
     }
 
     // the last run past the span, in row order (KIND 3: and its tied rows)
-    int tail_rows = 0, tail_count = 0, tail_tied = 0;
-    if (cont) {
-      for (int len = kSpan; len == kSpan; tail_rows += len) {
-        const int j0 = s0 + kSpan + tail_rows;
-        const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
-#pragma unroll
-        for (int k = 0; k < kSpan; ++k) {
-          if (!fin || !(tv >> k & 1u)) continue;
-          const long long i = (long long)(j0 + k) * F;
-          acc = run_combine<KIND>(acc, to_f32(xf[i]));
-          if (KIND == 3 && to_f32(af[i]) == to_f32(bf[i])) ++tail_tied;
-        }
-        tail_count += __popc(tv);
-      }
-    }
+    int tail_count = 0, tail_tied = 0;
+    if (cont)
+      tail_count = walk_tail<T, KIND, TILED, kSpan>(sp, xf, af, bf, N, F, fin, lane, &acc,
+                                                    &tail_tied);
 
     // backward fill: every row of a run gets the run's result
     float cur = 0.0f;
@@ -307,8 +342,7 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
           count += tail_count;
           ntied += tail_tied;
         }
-        cur = KIND == 3 ? (ntied > 0 ? a / static_cast<float>(ntied) : 0.0f)
-                        : run_finalize<KIND>(a, count);
+        cur = run_result<KIND>(a, count, ntied);
       }
       v[k] = cur;
     }
@@ -325,18 +359,201 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
         of[i] = from_f32<T>(o);
       }
     }
-    if (cont) {  // the last run's rows past the span
-      const T r = from_f32<T>(v[kSpan - 1]);
-      for (int done = 0, len = kSpan; len == kSpan; done += len) {
-        const int j0 = s0 + kSpan + done;
-        const unsigned tv = run_step<TILED>(cb, mb, lo, hi, j0, N, c_last, lane, &len);
+    if (cont)  // the last run's rows past the span
+      fill_tail<T, TIE, TILED, kSpan>(sp, of, af, bf, from_f32<T>(v[kSpan - 1]), N, F, fin,
+                                      lane);
+  }
+}
+
+template <bool TILED>
+__device__ __forceinline__ bool find_span(const int* __restrict__ cells,
+                                          const uint8_t* __restrict__ mask,
+                                          const int* __restrict__ toff, int B, int N,
+                                          int ncell, int lane, Span& sp) {
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int spans = (N + kSpan - 1) / kSpan;
+  if (warp >= (long long)B * spans) return false;
+  const long long b = warp / spans;
+  const int s0 = static_cast<int>(warp - b * spans) * kSpan;
+  const long long base = b * N;
+  const int* cb = cells + base;
+  const uint8_t* mb = TILED ? nullptr : mask + base;
+  const int* to = TILED ? toff + b * ((ncell >> 8) + 1) : nullptr;
+  const int row = s0 + lane;
+  const bool in = row < N;
+  const int c = in ? cb[row] : -1;
+  const bool ok = c >= 0 && c < ncell;
+  const bool m = TILED ? ok && in_tile(to, 1, c, row) : in && mb[row] != 0;
+  int edge = -1;
+  if (lane == 0 && s0 > 0) edge = cb[s0 - 1];
+  if (lane == kSpan - 1 && row + 1 < N) edge = cb[row + 1];
+  int cprev = __shfl_up_sync(kFull, c, 1);
+  int cnext = __shfl_down_sync(kFull, c, 1);
+  if (lane == 0) cprev = edge;
+  if (lane == kSpan - 1) cnext = edge;
+  const unsigned heads = __ballot_sync(kFull, ok && cprev != c);
+  const unsigned same_next = __ballot_sync(kFull, ok && cnext == c);
+  // a run's last row in the span: the next row holds another cell, or lane 31
+  const unsigned ends = __ballot_sync(kFull, ok && (cnext != c || lane == kSpan - 1));
+  const unsigned valid = __ballot_sync(kFull, ok && m);
+  const unsigned before = heads ? (heads & (0u - heads)) - 1u : kFull;  // below the first head
+  const unsigned own = valid & ~before;  // valid rows of runs headed in this span
+  const bool cont = (same_next & ~before) >> (kSpan - 1);
+  const int c_last = __shfl_sync(kFull, c, kSpan - 1);
+  int lo = 0, hi = 0;
+  if (TILED && cont) {
+    lo = to[c_last >> 8];
+    hi = to[(c_last >> 8) + 1];
+  }
+  const unsigned upto = lane == kSpan - 1 ? kFull : (2u << lane) - 1u;
+  const unsigned hb = heads & upto;
+  const int run_count = __popc(own & upto & ~(hb ? (1u << (31 - __clz(hb))) - 1u : 0u));
+  sp = Span{base, s0, cb, mb, heads, ends, valid, own, cont, c_last, lo, hi, run_count};
+  return true;
+}
+
+// pool_runs with the span staged in shared memory (the route for values,
+// outputs and tie values 16-byte aligned with F a multiple of 16 / sizeof(T):
+// pool_runs_plan). The partition, the row order of each sum and each run's
+// finalisation are pool_runs', so the two give the same bits; only where the
+// values wait differs. A warp owns a span as there, and takes its features
+// 32 at a time (a step): its lanes copy the step's 32-feature slice of each
+// own row into a tile of its own in shared memory, 16 bytes a copy with
+// cp.async (8 rows a warp instruction at F = 32 in bf16; under the gate
+// tie_a's and tie_b's slices into two more tiles), so no value waits in a
+// register. Lane f then scans the tile's column f in row order (each run's
+// result written into its last row's slot, whose value it has read), fills
+// every row of the span from the results in a backward pass (0 on the rows
+// that are not own, and under the gate on the rows that do not tie), and
+// the lanes store the rows this warp writes, 16 bytes a lane, from the tile.
+// The last run's rows, where it goes on past the span, wait for its walk
+// past the span, which loads its rows as pool_runs does (a lane a feature;
+// on the flagship's layouts few runs reach it). No value array lives in
+// registers: with the gate the bf16 instance keeps four blocks an SM (48 KB
+// of tiles a block), where pool_runs keeps two (its 96 values in flight a
+// lane); the f32 one two (96 KB a block).
+template <typename T, int KIND, bool TIE, bool TILED>
+__global__ void __launch_bounds__(kThreads, 4)
+pool_runs_staged(const T* __restrict__ x, const int* __restrict__ cells,
+                 const uint8_t* __restrict__ mask, const int* __restrict__ toff,
+                 const T* __restrict__ tie_a, const T* __restrict__ tie_b,
+                 T* __restrict__ out, int B, int N, int F, int ncell) {
+  constexpr int kChunk = 32;               // features a step (lane = feature in the scans)
+  constexpr int kVec = 16 / sizeof(T);     // values a 16-byte copy
+  constexpr int kPieces = kChunk / kVec;   // copies a row of a step
+  constexpr int kTile = kSpan * kChunk;    // values a tile
+  extern __shared__ __align__(16) unsigned char pool_staged_smem[];
+  T* tile = reinterpret_cast<T*>(pool_staged_smem) + (threadIdx.x >> 5) * (TIE ? 3 : 1) * kTile;
+  T* tile_a = tile + kTile;  // TIE: tie_a's and tie_b's slices
+  T* tile_b = tile_a + kTile;
+  const int lane = threadIdx.x & 31;
+  Span sp;
+  if (!find_span<TILED>(cells, mask, toff, B, N, ncell, lane, sp)) return;  // warp-uniform
+  const long long base = sp.base;
+  const int s0 = sp.s0;
+  const unsigned heads = sp.heads, ends = sp.ends, valid = sp.valid, own = sp.own;
+  const bool cont = sp.cont;
+  const int run_count = sp.run_count;
+  // where the last run goes on: its own rows wait for its walk (heads is not
+  // 0 then), and its end is not one of the span's
+  const unsigned deferred = cont ? own & ~((1u << (31 - __clz(heads))) - 1u) : 0u;
+  const unsigned ends_here = ends & ~(cont ? 1u << (kSpan - 1) : 0u);
+  // the rows this warp stores from the tile: every row of the span but the
+  // valid rows of an earlier warp's run and the deferred ones
+  const int rows = min(kSpan, N - s0);
+  const unsigned stores =
+      (rows == kSpan ? kFull : (1u << rows) - 1u) & ~(valid & ~own) & ~deferred;
+
+  for (int f0 = 0; f0 < F; f0 += kChunk) {
+    const int pieces = min(kChunk, F - f0) / kVec;  // F % kVec == 0
+    const long long row0 = (base + s0) * F + f0;     // the span's first value of the step
+    // the own rows' slices into the tiles, 16 bytes a copy
 #pragma unroll
-        for (int k = 0; k < kSpan; ++k) {
-          if (!fin || !(tv >> k & 1u)) continue;
-          const long long i = (long long)(j0 + k) * F;
-          of[i] = TIE && to_f32(af[i]) != to_f32(bf[i]) ? from_f32<T>(0.0f) : r;
+    for (int j = 0; j < kPieces; ++j) {  // copy p = 32 j + lane: row p / kPieces
+      const int p = 32 * j + lane;
+      const int k = p / kPieces;
+      const int q = p - k * kPieces;
+      if (q < pieces && (own >> k & 1u)) {
+        const long long i = row0 + k * F + q * kVec;
+        const int o = k * kChunk + q * kVec;
+        cp_async16(tile + o, x + i, 16);
+        if (TIE) {
+          cp_async16(tile_a + o, tie_a + i, 16);
+          cp_async16(tile_b + o, tie_b + i, 16);
         }
       }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();
+
+    // segmented scan of column `lane` in row order; a run's result into its
+    // last row's slot
+    const bool fin = f0 + lane < F;
+    float acc = run_identity<KIND>();
+    int ntied = 0;      // KIND 3: the run's own rows so far that tie
+    unsigned tied = 0;  // TIE: bit k where tie_a == tie_b on own row s0 + k
+#pragma unroll 4
+    for (int k = 0; k < kSpan; ++k) {
+      const int o = k * kChunk + lane;
+      if (heads >> k & 1u) {
+        acc = run_identity<KIND>();
+        ntied = 0;
+      }
+      if (fin && (own >> k & 1u)) {
+        acc = run_combine<KIND>(acc, to_f32(tile[o]));
+        if (TIE && to_f32(tile_a[o]) == to_f32(tile_b[o])) {
+          tied |= 1u << k;
+          ++ntied;
+        }
+      }
+      if (ends_here >> k & 1u) {
+        const int count = __shfl_sync(kFull, run_count, k);
+        if (fin) tile[o] = from_f32<T>(run_result<KIND>(acc, count, ntied));
+      }
+    }
+    // backward fill: every row of a run gets the run's result
+    if (fin) {
+      float cur = 0.0f;
+#pragma unroll 4
+      for (int k = kSpan - 1; k >= 0; --k) {
+        const int o = k * kChunk + lane;
+        if (ends_here >> k & 1u) cur = to_f32(tile[o]);
+        float v = own >> k & 1u ? cur : 0.0f;
+        if (TIE && !(tied >> k & 1u)) v = 0.0f;
+        tile[o] = from_f32<T>(v);
+      }
+    }
+    __syncwarp();
+#pragma unroll
+    for (int j = 0; j < kPieces; ++j) {  // copy p = 32 j + lane: row p / kPieces
+      const int p = 32 * j + lane;
+      const int k = p / kPieces;
+      const int q = p - k * kPieces;
+      if (q < pieces && (stores >> k & 1u))
+        *reinterpret_cast<uint4*>(out + row0 + k * F + q * kVec) =
+            *reinterpret_cast<const uint4*>(tile + k * kChunk + q * kVec);
+    }
+    __syncwarp();  // the next step's copies reuse the tiles
+
+    if (cont) {  // the last run past the span, in row order, as pool_runs walks it
+      const int f = f0 + lane;
+      const T* xf = x + base * F + f;
+      const T* af = TIE ? tie_a + base * F + f : nullptr;
+      const T* bf = TIE ? tie_b + base * F + f : nullptr;
+      int tail_tied = 0;
+      const int tail_count =
+          walk_tail<T, KIND, TILED, 4>(sp, xf, af, bf, N, F, fin, lane, &acc, &tail_tied);
+      const int count = __shfl_sync(kFull, run_count, kSpan - 1) + tail_count;
+      const T r = from_f32<T>(run_result<KIND>(acc, count, ntied + tail_tied));
+      T* of = out + base * F + f;
+      if (fin) {  // its rows in the span
+        for (unsigned d = deferred; d != 0; d &= d - 1u) {
+          const int k = __ffs(d) - 1;
+          of[(long long)(s0 + k) * F] = TIE && !(tied >> k & 1u) ? from_f32<T>(0.0f) : r;
+        }
+      }
+      fill_tail<T, TIE, TILED, 4>(sp, of, af, bf, r, N, F, fin, lane);  // and past it
     }
   }
 }
@@ -371,6 +588,29 @@ pool_runs(const T* __restrict__ x, const int* __restrict__ cells,
 // divides by counts.astype(bf16) (fused.py:170): a cell of more than 256 rows
 // takes the nearest bf16 count. fused2's K2 (scatter_plane2's backward,
 // pool2_kernel.py:424-453) divides by the exact count and takes CUT false.
+// Row `row` of batch entry b (its first row at base) in K2: its row-major
+// cell at reso (cells >> shift), -1 where the row is not valid (past N,
+// masked, out of range), and in *n that cell's count as a float, at least 1
+// (CUT: rounded to bf16).
+template <bool CUT>
+__device__ __forceinline__ int gather_row(const int* __restrict__ cells,
+                                          const uint8_t* __restrict__ mask,
+                                          const int* __restrict__ counts, long long base,
+                                          unsigned b, int row, int N, int reso, int shift,
+                                          float* n) {
+  *n = 1.0f;
+  if (row >= N) return -1;
+  const int ncell = reso * reso;
+  const int raw = cells[base + row];
+  const int c = raw >> shift;
+  if ((mask != nullptr && mask[base + row] == 0) || raw < 0 || c >= ncell) return -1;
+  const int dst = morton_to_rowmajor(c, reso);
+  const int k = counts[(long long)b * ncell + dst];
+  *n = static_cast<float>(k > 1 ? k : 1);
+  if (CUT) *n = round_as<bf16>(*n);
+  return dst;
+}
+
 constexpr int kGatherGroup = 16;  // rows loaded at once
 
 template <typename T, bool CUT>
@@ -390,19 +630,8 @@ pool_gather(const T* __restrict__ plane, const int* __restrict__ cells,
   const int ncell = reso * reso;
 
   // lane = row of the span: its row-major cell (-1: not valid) and count
-  const int row = s0 + lane;
-  int dst = -1;
-  float n = 1.0f;
-  if (row < N) {
-    const int raw = cells[base + row];
-    const int c = raw >> shift;
-    if ((mask == nullptr || mask[base + row] != 0) && raw >= 0 && c < ncell) {
-      dst = morton_to_rowmajor(c, reso);
-      const int k = counts[(long long)b * ncell + dst];
-      n = static_cast<float>(k > 1 ? k : 1);
-      if (CUT) n = round_as<bf16>(n);
-    }
-  }
+  float n;
+  const int dst = gather_row<CUT>(cells, mask, counts, base, b, s0 + lane, N, reso, shift, &n);
   const unsigned valid = __ballot_sync(kFull, dst >= 0);
   const unsigned below = valid & ((1u << lane) - 1u);  // valid rows before this one
   const int dprev = __shfl_sync(kFull, dst, below ? 31 - __clz(below) : lane);
@@ -428,6 +657,90 @@ pool_gather(const T* __restrict__ plane, const int* __restrict__ cells,
       const float nr = __shfl_sync(kFull, n, r);
       if (loads >> r & 1u) cur = v[k] / nr;
       if (fin && r < rows) ob[(long long)(s0 + r) * F] = from_f32<T>(valid >> r & 1u ? cur : 0.0f);
+    }
+  }
+}
+
+// K2 alone on (row, 16-byte chunk) items: the route where F is a multiple of
+// 16 / sizeof(T) and the plane and output are 16-byte aligned
+// (pool_gather_plan; pool_gather is the other). A warp owns a 32-row span and
+// every feature of it: lane r takes row r's cell, mask byte and count once,
+// as pool_gather. An item is a row's 16-byte chunk (VEC values): it loads
+// the plane's chunk at the row's cell, divides each value in f32 by the
+// row's count (cut to bf16 under CUT) and stores 16 bytes, so a warp
+// instruction covers 32 / lpr rows (8 at F = 32 in bf16, a whole row of 512
+// bytes from F = 256 on). The span's rows split into segs segments of
+// seg_rows consecutive rows, one a group of lpr lanes (lpr = chunks a row,
+// at most 32; past 32 the warp walks the chunk groups in turn), and each
+// lane walks its segment in row order: it loads only where a row is valid
+// and the first valid row of the segment or its cell differs from the
+// previous valid row's, divides there, and the rows then take that quotient
+// from a register (kGatherBatch rows' loads in flight at once). So each
+// run's plane chunk is read and divided once a segment (a span from F = 256
+// on, where the coarse levels' cells hold tens of rows), each value is the
+// plain version's quotient (bit-equal to pool_gather), and each output
+// element is written once, by one warp.
+constexpr int kGatherBatch = 4;  // rows of a segment whose loads go out at once
+
+template <typename T, bool CUT, int VEC>
+__global__ void __launch_bounds__(kThreads, 3)
+pool_gather_items(const T* __restrict__ plane, const int* __restrict__ cells,
+                  const uint8_t* __restrict__ mask, const int* __restrict__ counts,
+                  T* __restrict__ out, int N, int F, int reso, int shift, unsigned warps,
+                  unsigned spans, int lpr, int segs, int seg_rows, int chunks) {
+  using P = Pack<T, VEC>;
+  const int lane = threadIdx.x & 31;
+  const unsigned warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  if (warp >= warps) return;  // warp-uniform
+  const unsigned b = warp / spans;
+  const int s0 = static_cast<int>(warp - b * spans) * kSpan;
+  const long long base = (long long)b * N;  // first row of batch entry b
+  const int ncell = reso * reso;
+
+  // lane = row of the span: its row-major cell (-1: not valid) and count
+  float n;
+  const int dst = gather_row<CUT>(cells, mask, counts, base, b, s0 + lane, N, reso, shift, &n);
+  const unsigned valid = __ballot_sync(kFull, dst >= 0);
+  const unsigned below = valid & ((1u << lane) - 1u);  // valid rows before this one
+  const int dprev = __shfl_sync(kFull, dst, below ? 31 - __clz(below) : lane);
+  // the valid rows before this one in its segment
+  const unsigned seg_below = below & ~((1u << (lane / seg_rows * seg_rows)) - 1u);
+  const unsigned loads = __ballot_sync(kFull, dst >= 0 && (seg_below == 0 || dprev != dst));
+  const int rows = min(kSpan, N - s0);
+
+  // item lane: segment g (rows r0 .. r0 + seg_rows - 1), chunk c of a group
+  const int g = lane / lpr;
+  const int c = lane - g * lpr;
+  const int r0 = g * seg_rows;
+  const T* pb = plane + (long long)b * ncell * F;
+  T* ob = out + (base + s0) * F;
+  P zero;
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) zero.v[e] = from_f32<T>(0.0f);
+  for (int cg = 0; cg < chunks; ++cg) {
+    const int k = (cg * lpr + c) * VEC;  // the item's first feature
+    const bool on = g < segs && k < F;
+    P cur = zero;  // the latest load, divided
+    for (int s = 0; s < seg_rows; s += kGatherBatch) {
+      P v[kGatherBatch];
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u) {
+        const int r = r0 + s + u;
+        const int d = __shfl_sync(kFull, dst, r & 31);
+        if (on && s + u < seg_rows && r < rows && (loads >> r & 1u))
+          v[u] = *reinterpret_cast<const P*>(pb + (long long)d * F + k);
+      }
+#pragma unroll
+      for (int u = 0; u < kGatherBatch; ++u) {
+        const int r = r0 + s + u;
+        const float nr = __shfl_sync(kFull, n, r & 31);
+        if (!on || s + u >= seg_rows || r >= rows) continue;
+        if (loads >> r & 1u) {
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) cur.v[e] = from_f32<T>(to_f32(v[u].v[e]) / nr);
+        }
+        *reinterpret_cast<P*>(ob + (long long)r * F + k) = valid >> r & 1u ? cur : zero;
+      }
     }
   }
 }
@@ -730,6 +1043,73 @@ scatter_runs(const T* __restrict__ x, const int* __restrict__ cells,
   }
 }
 
+// pool_runs' plan at width F for values of `elem` bytes (x, out and, under
+// the gate, tie_a and tie_b 16-byte aligned or not) of kind `kind`, tiled
+// (K10's tile rule) or not, tile_plan.pool_runs_plan: staged (1:
+// pool_runs_staged, where F is a multiple of vec and the values aligned; 0:
+// pool_runs, a lane a feature), vec values a 16-byte copy, chunk features a
+// step, pieces copies a row of a step, and tile_bytes, one tile's shared
+// memory (a warp holds one, three under the gate). The f32 max under the
+// mask (K1 max) keeps pool_runs: staged it took 1-2% longer on the H100 at
+// the flagship's shape (its f32 loads already move 128 bytes a warp
+// instruction; PERF.md).
+struct PoolRunsPlan {
+  int staged, vec, chunk, pieces, tile_bytes;
+};
+
+inline PoolRunsPlan pool_runs_plan(int F, int elem, bool aligned, int kind, bool tiled) {
+  PoolRunsPlan p;
+  p.vec = 16 / elem;
+  p.staged = aligned && F % p.vec == 0 && !(elem == 4 && kind == 0 && !tiled) ? 1 : 0;
+  p.chunk = 32;
+  p.pieces = p.chunk / p.vec;
+  p.tile_bytes = kSpan * p.chunk * elem;
+  return p;
+}
+
+// K2 alone's plan at width F (F > 0) for values of `elem` bytes (the plane
+// and the output 16-byte aligned or not), tile_plan.pool_gather_plan: items
+// (1: pool_gather_items, where F is a multiple of 16 / elem and both are
+// aligned; 0: pool_gather), vec values an item (1: a lane a feature), cpr
+// chunks a row, lpr lanes a row (min(cpr, 32)), segs segments a span and
+// seg_rows rows a segment (32 / lpr and 32 / segs, rounded up), chunks the
+// chunk groups a warp walks (pool_gather: the warps a span, one each 32
+// features), batch the rows whose loads go out at once.
+struct PoolGatherPlan {
+  int items, vec, cpr, lpr, segs, seg_rows, chunks, batch;
+};
+
+inline PoolGatherPlan pool_gather_plan(int F, int elem, bool aligned) {
+  PoolGatherPlan p;
+  p.items = aligned && F % (16 / elem) == 0 ? 1 : 0;
+  p.vec = p.items ? 16 / elem : 1;
+  p.cpr = F / p.vec;
+  p.lpr = p.items && p.cpr < 32 ? p.cpr : 32;
+  p.segs = p.items ? 32 / p.lpr : 1;
+  p.seg_rows = (kSpan + p.segs - 1) / p.segs;
+  p.chunks = (p.cpr + p.lpr - 1) / p.lpr;
+  p.batch = p.items ? kGatherBatch : kGatherGroup;
+  return p;
+}
+
+// pool_runs_staged with its shared memory (above 48 KB only after the opt-in:
+// f32 with the gate, 96 KB a block).
+template <typename T, int KIND, bool TIE, bool TILED>
+cudaError_t launch_staged(unsigned blocks, int smem, cudaStream_t stream, const T* x,
+                          const int* cells, const uint8_t* mask, const int* toff,
+                          const T* tie_a, const T* tie_b, T* out, int B, int N, int F,
+                          int ncell) {
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        pool_runs_staged<T, KIND, TIE, TILED>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  pool_runs_staged<T, KIND, TIE, TILED><<<blocks, kThreads, smem, stream>>>(
+      x, cells, mask, toff, tie_a, tie_b, out, B, N, F, ncell);
+  return cudaGetLastError();
+}
+
 // The entry points' launches, for either element type (below).
 template <typename T>
 int launch_pool_runs(const T* x, const int* cells, const uint8_t* mask, const int* toff,
@@ -744,16 +1124,31 @@ int launch_pool_runs(const T* x, const int* cells, const uint8_t* mask, const in
   const long long threads = (long long)B * ((N + kSpan - 1) / kSpan) * 32;
   if (threads == 0 || F == 0) return static_cast<int>(cudaGetLastError());
   const unsigned blocks = static_cast<unsigned>((threads + kThreads - 1) / kThreads);
-#define T2H_RUNS(K, TI, TL)                                                          \
-  pool_runs<T, K, TI, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a, \
+  const PoolRunsPlan p = pool_runs_plan(
+      F, sizeof(T),
+      aligned16(x) && aligned16(out) && (!tie || (aligned16(tie_a) && aligned16(tie_b))),
+      kind, tiled);
+  const int smem = (kThreads / 32) * p.tile_bytes * (tie ? 3 : 1);
+#define T2H_RUNS(K, TI, TL)                                                                 \
+  if (p.staged) return static_cast<int>(launch_staged<T, K, TI, TL>(                       \
+      blocks, smem, stream, x, cells, mask, toff, tie_a, tie_b, out, B, N, F, ncell));     \
+  pool_runs<T, K, TI, TL><<<blocks, kThreads, 0, stream>>>(x, cells, mask, toff, tie_a,     \
                                                            tie_b, out, B, N, F, ncell)
-  if (tiled && kind == 3) T2H_RUNS(3, true, true);
-  else if (tiled && kind == 0) T2H_RUNS(0, false, true);
-  else if (tiled) T2H_RUNS(1, false, true);
-  else if (tie) T2H_RUNS(2, true, false);
-  else if (kind == 0) T2H_RUNS(0, false, false);
-  else if (kind == 1) T2H_RUNS(1, false, false);
-  else T2H_RUNS(2, false, false);
+  if (tiled && kind == 3) {
+    T2H_RUNS(3, true, true);
+  } else if (tiled && kind == 0) {
+    T2H_RUNS(0, false, true);
+  } else if (tiled) {
+    T2H_RUNS(1, false, true);
+  } else if (tie) {
+    T2H_RUNS(2, true, false);
+  } else if (kind == 0) {
+    T2H_RUNS(0, false, false);
+  } else if (kind == 1) {
+    T2H_RUNS(1, false, false);
+  } else {
+    T2H_RUNS(2, false, false);
+  }
 #undef T2H_RUNS
   return static_cast<int>(cudaGetLastError());
 }
@@ -762,16 +1157,21 @@ template <typename T, bool CUT>
 int launch_pool_gather(const T* plane, const int* cells, const uint8_t* mask,
                        const int* counts, T* out, int B, int N, int F, int reso, int shift,
                        cudaStream_t stream) {
+  if ((long long)B * N * F <= 0) return static_cast<int>(cudaGetLastError());
+  const PoolGatherPlan p = pool_gather_plan(F, sizeof(T), aligned16(plane) && aligned16(out));
   const long long spans = (N + kSpan - 1) / kSpan;
-  const long long chunks = (F + 31) / 32;
-  const long long warps = (long long)B * spans * chunks;
+  const long long warps = (long long)B * spans * (p.items ? 1 : p.chunks);
   if (warps * 32 >= (1LL << 32)) return static_cast<int>(cudaErrorInvalidValue);
-  if (warps > 0)
-    pool_gather<T, CUT>
-        <<<static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads), kThreads, 0,
-           stream>>>(plane, cells, mask, counts, out, N, F, reso, shift,
-                     static_cast<unsigned>(warps), static_cast<unsigned>(spans),
-                     static_cast<unsigned>(chunks));
+  const unsigned blocks = static_cast<unsigned>((warps * 32 + kThreads - 1) / kThreads);
+  constexpr int kVec = 16 / sizeof(T);
+  if (p.items)
+    pool_gather_items<T, CUT, kVec><<<blocks, kThreads, 0, stream>>>(
+        plane, cells, mask, counts, out, N, F, reso, shift, static_cast<unsigned>(warps),
+        static_cast<unsigned>(spans), p.lpr, p.segs, p.seg_rows, p.chunks);
+  else
+    pool_gather<T, CUT><<<blocks, kThreads, 0, stream>>>(
+        plane, cells, mask, counts, out, N, F, reso, shift, static_cast<unsigned>(warps),
+        static_cast<unsigned>(spans), static_cast<unsigned>(p.chunks));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -961,6 +1361,25 @@ int t2h_scatter_runs_plan(int F, int elem, int aligned, int* out) {
   const RunsPlan p = runs_plan(F, elem, aligned != 0);
   const int v[] = {p.vec, p.chunks, p.group, p.item, p.q, p.qshift};
   for (int i = 0; i < 6; ++i) out[i] = v[i];
+  return 0;
+}
+
+// pool_runs' plan at width F (F > 0) for values of `elem` bytes, aligned or
+// not, of kind `kind` (0 max, 1 mean, 2 sum, 3 tied sum), tiled or not:
+// staged, vec, chunk, pieces, tile_bytes to out[0..4].
+int t2h_pool_runs_plan(int F, int elem, int aligned, int kind, int tiled, int* out) {
+  const PoolRunsPlan p = pool_runs_plan(F, elem, aligned != 0, kind, tiled != 0);
+  const int v[] = {p.staged, p.vec, p.chunk, p.pieces, p.tile_bytes};
+  for (int i = 0; i < 5; ++i) out[i] = v[i];
+  return 0;
+}
+
+// K2 alone's plan at width F (F > 0) for values of `elem` bytes, aligned or
+// not: items, vec, cpr, lpr, segs, seg_rows, chunks, batch to out[0..7].
+int t2h_pool_gather_plan(int F, int elem, int aligned, int* out) {
+  const PoolGatherPlan p = pool_gather_plan(F, elem, aligned != 0);
+  const int v[] = {p.items, p.vec, p.cpr, p.lpr, p.segs, p.seg_rows, p.chunks, p.batch};
+  for (int i = 0; i < 8; ++i) out[i] = v[i];
   return 0;
 }
 

@@ -23,6 +23,17 @@ Counterpart of ``tomosar2height_tpu/ops/pallas/pool2_kernel.py``. CUDA kernels
   cell once, the empty cells (marked first) zeroed in the same launch; no
   atomics.
 
+The run kernel and K2 each take one of two routes, as their plans say
+(``tile_plan.pool_runs_plan``, ``pool_gather_plan``; :func:`runs_kernel_plan`
+and :func:`gather_plan` hold each equal to the C side's at its first launch
+at a width): where F is a multiple of 16 bytes' values and the tensors are
+16-byte aligned, 16 bytes a lane (``pool_runs_staged``: a span's rows copied
+into shared memory, scanned there and stored from it; ``pool_gather_items``:
+(row, 16-byte chunk) items, each run's chunk read and divided once a
+segment of rows); else a lane a feature (``pool_runs``, ``pool_gather``),
+as is the f32 max under the mask (K1 max), which took longer staged. The
+two routes give the same bits.
+
 Each takes float32 or bfloat16 values (the model's ``model.dtype``), its
 outputs in the values' dtype, and launches its instance for that dtype
 (``t2h_*`` or ``t2h_*_bf16``; counted under ``<name>`` or ``<name>_bf16``).
@@ -173,6 +184,56 @@ def _check_points(values, cells, mask):
     return b, n, f
 
 
+def aligned16(*tensors) -> bool:
+    """Whether every tensor's data starts on a 16-byte boundary (the 16-byte
+    routes of ``pool_gather`` and ``pool_runs`` need it)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+@functools.lru_cache(maxsize=None)
+def gather_plan(f: int, elem: int, aligned: bool) -> dict:
+    """``tile_plan.pool_gather_plan``, once held equal to the C side's
+    (``t2h_pool_gather_plan``): K2's route and lane map."""
+    return runtime.checked_plan(tile_plan.pool_gather_plan(f, elem, aligned),
+                                tile_plan.POOL_GATHER_PLAN_KEYS, "t2h_pool_gather_plan", f,
+                                elem, int(aligned))
+
+
+@functools.lru_cache(maxsize=None)
+def runs_kernel_plan(f: int, elem: int, aligned: bool, kind: int, tiled: bool) -> dict:
+    """``tile_plan.pool_runs_plan``, once held equal to the C side's
+    (``t2h_pool_runs_plan``): the run kernel's route."""
+    return runtime.checked_plan(tile_plan.pool_runs_plan(f, elem, aligned, kind, tiled),
+                                tile_plan.POOL_RUNS_PLAN_KEYS, "t2h_pool_runs_plan", f, elem,
+                                int(aligned), kind, int(tiled))
+
+
+LAST_PLAN = {"runs": None, "gather": None}
+"""The plan of the latest launch of the run kernel ('runs') and of K2 alone
+('gather'), from every pointer its C launcher tests: the route it took."""
+
+
+def check_runs_plan(x, out, kind: int, tiled: bool, tie=()) -> dict:
+    """The run kernel's plan for (B, N, F) values ``x`` into ``out`` (the tie
+    values beside them) of ``kind`` (0-3, as launched), tiled or not,
+    checked against the C side's at the first launch at this width,
+    alignment and kind, and kept in :data:`LAST_PLAN`; None where F is 0
+    (nothing launches)."""
+    f = x.shape[-1]
+    LAST_PLAN["runs"] = (runs_kernel_plan(f, x.element_size(), aligned16(x, out, *tie), kind,
+                                          tiled) if f else None)
+    return LAST_PLAN["runs"]
+
+
+def check_gather_plan(g_plane, out) -> dict:
+    """K2's plan for the cotangent plane ``g_plane`` into ``out``, checked and
+    kept as :func:`check_runs_plan`; None where F is 0."""
+    f = g_plane.shape[-1]
+    LAST_PLAN["gather"] = (gather_plan(f, g_plane.element_size(), aligned16(g_plane, out))
+                           if f else None)
+    return LAST_PLAN["gather"]
+
+
 def _pool_runs(x, cells, mask, reso: int, kind: str, tie=None) -> torch.Tensor:
     """Launch the run kernel on (B, N, F) rows; ``tie`` = (values, out) gates
     a 'sum' by values == out (max pooling's backward)."""
@@ -181,6 +242,7 @@ def _pool_runs(x, cells, mask, reso: int, kind: str, tie=None) -> torch.Tensor:
         for name, t in zip(("values", "out"), tie):
             runtime.require(t, name, x.dtype, (b, n, f), x.device)
     out = torch.empty_like(x)
+    check_runs_plan(x, out, _KINDS[kind], False, tie or ())
     a, c = (0, 0) if tie is None else (tie[0].data_ptr(), tie[1].data_ptr())
     err = runtime.entry("pool_runs", x.dtype)(
         x.data_ptr(), cells.data_ptr(), mask.data_ptr(), 0, a, c, out.data_ptr(), b, n, f,
@@ -228,6 +290,7 @@ def scatter_plane2_bwd(g_plane, cells, mask, counts) -> torch.Tensor:
     runtime.require(mask, "mask", torch.bool, (b, n), dev)
     runtime.require(counts, "counts", torch.int32, (b, reso, reso), dev)
     out = torch.empty((b, n, f), device=dev, dtype=dt)
+    check_gather_plan(g_plane, out)
     err = runtime.entry("pool_gather", dt)(
         g_plane.data_ptr(), cells.data_ptr(), mask.data_ptr(), counts.data_ptr(),
         out.data_ptr(), b, n, f, reso, 0, runtime.stream_ptr(dev))

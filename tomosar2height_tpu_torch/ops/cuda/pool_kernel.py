@@ -43,7 +43,11 @@ from __future__ import annotations
 import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
-from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, value_dtype
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import (
+    acc_dtype,
+    check_runs_plan,
+    value_dtype,
+)
 from tomosar2height_tpu_torch.ops.cuda.scatter_kernel import TILE_CELLS, tile_rows
 from tomosar2height_tpu_torch.ops.scatter import (
     gather_cells,
@@ -87,6 +91,7 @@ def tile_pool(values, cells, tile_offsets, kind: str) -> torch.Tensor:
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
     out = torch.empty((b, n, f), device=dev, dtype=dt)
+    check_runs_plan(values, out, _KINDS[kind], True)
     err = runtime.entry("pool_runs", dt)(
         values.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(), 0, 0,
         out.data_ptr(), b, n, f, t * TILE_CELLS, _KINDS[kind], runtime.stream_ptr(dev))
@@ -135,10 +140,12 @@ def tile_pool_bwd(g, values, out, cells, tile_offsets, kind: str) -> torch.Tenso
     runtime.require(tile_offsets, "tile_offsets", torch.int32, (b, t + 1), dev)
     dv = torch.empty((b, n, f), device=dev, dtype=dt)
     tie = kind == "max"
+    run_kind = _SPLIT if tie else _KINDS["mean"]
+    check_runs_plan(g, dv, run_kind, True, (values, out) if tie else ())
     err = runtime.entry("pool_runs", dt)(
         g.data_ptr(), cells.data_ptr(), 0, tile_offsets.data_ptr(),
         values.data_ptr() if tie else 0, out.data_ptr() if tie else 0, dv.data_ptr(), b, n,
-        f, t * TILE_CELLS, _SPLIT if tie else _KINDS["mean"], runtime.stream_ptr(dev))
+        f, t * TILE_CELLS, run_kind, runtime.stream_ptr(dev))
     runtime.check(err, "tile_pool_bwd")
     runtime.launched("tile_pool_bwd", dt)
     return dv

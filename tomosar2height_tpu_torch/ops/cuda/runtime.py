@@ -88,6 +88,8 @@ _SIGNATURES = {
     "t2h_tile_gather_bf16": [_P] * 4 + [_I] * 5 + [_P],
     "t2h_tile_gather_plan": [_I] * 3 + [_P],
     "t2h_scatter_runs_plan": [_I] * 3 + [_P],
+    "t2h_pool_gather_plan": [_I] * 3 + [_P],
+    "t2h_pool_runs_plan": [_I] * 5 + [_P],
     "t2h_pool_gather_cut_bf16": [_P] * 5 + [_I] * 5 + [_P],
     "t2h_level_d_plane_wide_bf16": [_P] * 6 + [_I] * 5 + [_P],
     "t2h_level_bwd_plan_bf16": [_I, _I, _P],

@@ -61,7 +61,12 @@ import torch
 
 from tomosar2height_tpu_torch.ops.cuda import runtime
 from tomosar2height_tpu_torch.ops.cuda.level_kernel import level_shift
-from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import acc_dtype, runs_plan, value_dtype
+from tomosar2height_tpu_torch.ops.cuda.pool2_kernel import (
+    acc_dtype,
+    check_gather_plan,
+    runs_plan,
+    value_dtype,
+)
 from tomosar2height_tpu_torch.ops.scatter import segment_counts, segment_mean
 from tomosar2height_tpu_torch.ops.sorted_scatter import morton_to_plane, plane_to_morton
 
@@ -263,6 +268,7 @@ def aligned_scatter_mean_plane_bwd(g_plane, cells, counts, reso: int,
     runtime.require(cells, "cells", torch.int32, (b, n), dev)
     runtime.require(counts, "counts", torch.int32, (b, r, r), dev)
     out = torch.empty((b, n, f), device=dev, dtype=dt)
+    check_gather_plan(g_plane, out)
     k2 = (runtime.library().t2h_pool_gather if dt == torch.float32
           else runtime.library().t2h_pool_gather_cut_bf16)
     err = k2(g_plane.data_ptr(), cells.data_ptr(), 0, counts.data_ptr(), out.data_ptr(), b, n,

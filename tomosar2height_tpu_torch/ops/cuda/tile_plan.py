@@ -2,14 +2,16 @@
 Python: K5's bf16 weight sums (``csrc/reduce_bf16.cu``), K8, K7 and K6 in
 bf16 (``csrc/conv_bf16.cu``), K4 in bf16 (``csrc/level_bf16.cu``) and K5's
 bf16 row pass (``csrc/level_bwd_bf16.cu``); of K5's d_plane pass in every
-dtype (``csrc/level_bwd.cu``); of K9 (``csrc/tile_gather.cu``) and of the
-run scatter (``csrc/pool2.cu`` ``scatter_runs``). The C launchers
+dtype (``csrc/level_bwd.cu``); of K9 (``csrc/tile_gather.cu``), of the
+run scatter (``csrc/pool2.cu`` ``scatter_runs``), of K2 alone
+(``pool_gather``) and of the run kernel (``pool_runs``). The C launchers
 compute the same plans (the functions and configs there of the same names);
 the wrappers size their scratch and splits from these, and check K5's two,
-K9's and the run scatter's against the C side's at their first launch at
-each shape, and ``tests/test_torch_tile_plan.py`` and
-``tests/test_torch_scatter_runs.py`` emulate them in numpy: every output
-element covered once, the sums equal to the plain versions'.
+K9's, the run scatter's, K2's and the run kernel's against the C side's at
+their first launch at each shape, and ``tests/test_torch_tile_plan.py``,
+``tests/test_torch_scatter_runs.py`` and ``tests/test_torch_pool2_runs.py``
+emulate them in numpy: every output element covered once, the sums equal to
+the plain versions'.
 
 K9: a warp owns 32 rows, a (row, 16-byte chunk) item a lane, one or two a
 lane at once (their corner loads in flight); a row takes ``lpr`` lanes
@@ -456,3 +458,69 @@ def scatter_runs_plan(f: int, elem: int, aligned: bool = True) -> dict:
 
 SCATTER_RUNS_PLAN_KEYS = ("vec", "chunks", "group", "item", "q", "qshift")
 """The order in which ``t2h_scatter_runs_plan`` writes the plan's integers."""
+
+
+GATHER_BATCH = 4
+"""Rows of a segment whose loads go out at once in K2's items route
+(``kGatherBatch`` in ``csrc/pool2.cu``)."""
+
+GATHER_GROUP = 16
+"""Rows whose loads go out at once in K2's lane-a-feature route
+(``kGatherGroup``)."""
+
+
+def pool_gather_plan(f: int, elem: int, aligned: bool = True) -> dict:
+    """K2 alone's plan (``csrc/pool2.cu`` ``pool_gather_plan``, mirrored by
+    ``t2h_pool_gather_plan``) at width F for values of ``elem`` bytes, the
+    plane and the output 16-byte aligned or not: ``items`` 1 takes
+    ``pool_gather_items`` (F a multiple of 16 / elem, aligned), 0
+    ``pool_gather`` (a lane a feature, a warp a span and 32 features); vec
+    values an item (16 bytes; 1 on ``pool_gather``); cpr chunks a row; lpr
+    lanes a row (min(cpr, 32)); segs segments a span, of seg_rows
+    consecutive rows each (32 / lpr, and 32 / segs rounded up), lane l
+    taking chunk l % lpr of segment l // lpr's rows in row order; chunks,
+    the chunk groups a warp walks (``pool_gather``: the warps a span, one
+    each 32 features); batch, the rows whose loads go out at once."""
+    if f < 1:
+        raise ValueError(f"K2 takes F >= 1, got {f}")
+    items = aligned and f % (16 // elem) == 0
+    vec = 16 // elem if items else 1
+    cpr = f // vec
+    lpr = min(cpr, 32) if items else 32
+    segs = 32 // lpr if items else 1
+    return {"items": int(items), "vec": vec, "cpr": cpr, "lpr": lpr, "segs": segs,
+            "seg_rows": cdiv(SPAN, segs), "chunks": cdiv(cpr, lpr),
+            "batch": GATHER_BATCH if items else GATHER_GROUP}
+
+
+POOL_GATHER_PLAN_KEYS = ("items", "vec", "cpr", "lpr", "segs", "seg_rows", "chunks", "batch")
+"""The order in which ``t2h_pool_gather_plan`` writes the plan's integers."""
+
+
+POOL_CHUNK = 32
+"""Features a step of ``pool_runs_staged`` (lane = feature in its scans)."""
+
+
+def pool_runs_plan(f: int, elem: int, aligned: bool = True, kind: int = 2,
+                   tiled: bool = False) -> dict:
+    """``pool_runs``' plan (``csrc/pool2.cu`` ``pool_runs_plan``, mirrored by
+    ``t2h_pool_runs_plan``) at width F for values of ``elem`` bytes, x, out
+    and the tie values 16-byte aligned or not, of ``kind`` (0 max, 1 mean, 2
+    sum, 3 sum split among the tied rows), under K10's tile rule or the mask:
+    ``staged`` 1 takes ``pool_runs_staged`` (F a multiple of vec, aligned: a
+    warp copies each step's :data:`POOL_CHUNK`-feature slice of its own rows
+    into a tile in shared memory, 16 bytes a copy, and stores its rows from
+    it), 0 ``pool_runs`` (a lane a feature; also the f32 max under the mask,
+    K1 max, which took 1-2% longer staged); vec values a copy; chunk
+    features a step; pieces copies a row of a step; tile_bytes a tile's
+    bytes (one a warp, three with the tie gate)."""
+    if f < 1:
+        raise ValueError(f"pool_runs takes F >= 1, got {f}")
+    vec = 16 // elem
+    staged = aligned and f % vec == 0 and not (elem == 4 and kind == 0 and not tiled)
+    return {"staged": int(staged), "vec": vec, "chunk": POOL_CHUNK,
+            "pieces": POOL_CHUNK // vec, "tile_bytes": SPAN * POOL_CHUNK * elem}
+
+
+POOL_RUNS_PLAN_KEYS = ("staged", "vec", "chunk", "pieces", "tile_bytes")
+"""The order in which ``t2h_pool_runs_plan`` writes the plan's integers."""
