@@ -16,7 +16,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    (HMMA; ``cuobjdump -sass``), BF16 ones in every bf16 instance (K4,
    K5's row pass, the conv core; the f32 weight sums have no bf16
    instance), and bf16 warpgroup products (HGMMA) and TMA loads (UTMALDG)
-   in every instance of the wgmma kernels;
+   in every instance of the wgmma kernels; and the C++ host runtime
+   (``csrc/host_runtime.cpp``) with g++;
 3. kernels: each kernel against its plain torch version at the flagship
    shapes (batch 8, 16384-point buckets on the aligned layout, whose
    largest run of one cell is logged; the conv
@@ -54,7 +55,17 @@ Phases, one line each; any failure raises and the script exits non-zero:
    the timed run (the synchronous loader), its raster held bit-equal to the
    warm-up run's; then the loader with SERVE_WORKERS patch threads and a
    prefetch thread SERVE_PREFETCH batches ahead, its raster bit-equal to the
-   synchronous one, tiles/s and loader seconds of both;
+   synchronous one, tiles/s and loader seconds of both. The loader's crops,
+   normalize and aligned layout and the host blend run in the C++ host
+   runtime (``tomosar2height_tpu_torch/native``, built with g++ in the build
+   phase); its calls on the timed run are logged and SERVE_CALLS required,
+   and the same two loaders on its numpy plain versions (``native=False``)
+   give bit-equal rasters, their tiles/s, loader and blend seconds logged
+   beside. Then the device blend (``device_blend=True``: float32 rasters on
+   the card, bands fetched as they finish) on the f32 and f16 wires, each
+   run twice (bit-equal) and held to the host blend's raster within the JAX
+   package's bounds (atol 2e-3 + rtol 1e-4, the f16 wire + scale * 2^-10;
+   NaN masks equal), tiles/s, drain and fetch seconds logged;
 6. fusion-serve: the cloud+image fusion network (``fusion_config()``: the
    flagship plus the depth-6 image U-Net over the city's RGB image) serving
    the same city at batch 8 in three variants from one set of weights
@@ -71,7 +82,10 @@ Phases, one line each; any failure raises and the script exits non-zero:
    raster within the JAX package's bounds for them (the u16 one on the
    distribution, the f16 rounding of the heights) with equal NaN masks,
    its forward ms the model's plus the wires' work on the card (the crops,
-   the u8 normalisation, the f16 cast);
+   the u8 normalisation, the f16 cast); then the same wires through the
+   device blend (variant ``device-blend``: launches asserted, bit-equal to
+   its warm-up run), held to the wires' host-blend raster within the JAX
+   package's f16 bound (its launches are left out of the kernel table's);
 7. train: the flagship training step (batch 8, 16384-point buckets,
    TRAIN_OPTIMIZE_EVERY mini-steps per optimizer step, remat) on random
    patches of the same city
@@ -84,7 +98,8 @@ Phases, one line each; any failure raises and the script exits non-zero:
    parameters and window losses must be bit-equal to the first run's (every
    kernel writes each output once in a fixed order, and the step keeps
    cuDNN to deterministic algorithms; which tensors differ is logged by
-   module).
+   module); each run's ``time_loader_s`` on the C++ host runtime's route
+   and its calls (the crop-transform required, the layout on fused2).
 
 8. sorted-serve: the same city served with ``sorted_config(impl)`` for
    impl 'fused' (K9, K10, K12), 'pallas' (K11; with mean pooling also K13)
@@ -291,6 +306,13 @@ def build():
         f" | nvcc {info['seconds']:.1f} s | load {time.perf_counter() - t0:.1f} s")
     log("build", f"ptxas registers/spill bytes: {ptxas_registers(info['log'])}; run "
         f"kernels {ptxas_registers(info['log'], RUN_KERNELS)}")
+    from tomosar2height_tpu_torch import native
+
+    native.library()
+    host = native.BUILD_INFO
+    log("build", f"host runtime: {'built' if host['built'] else 'loaded'} "
+        f"{os.path.basename(host['path'])} | g++ {host['seconds']:.1f} s | "
+        f"{' '.join(native.CXX_FLAGS)}")
     return start_sass(info["path"], runtime.nvcc_path())
 
 
@@ -2079,15 +2101,45 @@ def check_model(seed: int = 0):
 
 
 SERVE_WORKERS, SERVE_PREFETCH = 4, 2  # the serving phase's worker-pool run
+SERVE_ROUNDS = 3  # alternating runs of the C++ and numpy routes, each loader
+# the C++ host runtime's entry points the flagship's serving path must call
+SERVE_CALLS = ("crop_pc_2d", "crop_transform_patch", "morton_align", "blend_accumulate_batch")
+
+
+def _blend_bound(got, ref, atol: float, rtol: float, what: str) -> str:
+    """Hold a device-blend raster to a host-blend one: NaN masks equal and
+    |got - ref| <= atol + rtol * |ref| (``tests/test_sharded_infer.py:115-145``).
+    Returns the log text."""
+    nan = np.isnan(ref)
+    if got.shape != ref.shape or not np.array_equal(np.isnan(got), nan) or nan.all():
+        raise AssertionError(f"{what}: raster differs from the host blend's in shape or "
+                             "NaN mask")
+    d = np.abs(got[~nan].astype(np.float64) - ref[~nan])
+    over = float((d - (atol + rtol * np.abs(ref[~nan]))).max())
+    text = (f"vs the host blend max|d| {float(d.max()):.3g} m (bound {atol:.3g} m + "
+            f"{rtol:g} x |h|; worst margin {over:.3g}), NaN masks equal")
+    if over > 0:
+        raise AssertionError(f"{what}: {text}")
+    return text
+
+
+def _device_blend_line(stats: dict) -> str:
+    return (f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
+            f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} drain "
+            f"{stats['drain_s']:.3f} fetch {stats['fetch_wait_s']:.3f} write "
+            f"{stats['finalize_write_s']:.3f})")
 
 
 def serve(seed: int = 0):
     """A synthetic city through the port's loader and DSMGenerator, batch 8,
-    on the fused2 kernel path (timed, launches counted) and the plain path."""
+    on the fused2 kernel path (timed, launches counted) and the plain path;
+    the host runtime's C++ route against its numpy route, synchronous and
+    pooled; the device blend on the f32 and f16 wires."""
     import tempfile
 
     import torch
 
+    from tomosar2height_tpu_torch import native
     from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
     from tomosar2height_tpu_torch.infer.generator import make_generator
     from tomosar2height_tpu_torch.ops.cuda import runtime
@@ -2106,14 +2158,19 @@ def serve(seed: int = 0):
     pool_cfg = json.loads(json.dumps(cfg))
     pool_cfg["dataloader"] = {"n_workers": SERVE_WORKERS, "prefetch": SERVE_PREFETCH}
     pool_gen = make_generator(model, pool_cfg, chunks)
+    # the host runtime's numpy plain versions, synchronous and pooled
+    numpy_gens = {"sync": make_generator(model, cfg, chunks, native=False),
+                  "pool": make_generator(model, pool_cfg, chunks, native=False)}
     n_batches = len(gen.data_loader)
     with tempfile.TemporaryDirectory() as tmp:
         warm = gen.generate_dsm(os.path.join(tmp, "warmup.tif"))
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runtime.reset_launches()
+        native.reset_calls()
         a = gen.generate_dsm(os.path.join(tmp, "fused2.tif"))
         launches = dict(runtime.LAUNCHES)
+        calls = dict(native.CALLS)
         # every kernel on the path writes each output once in a fixed order
         repeat = np.array_equal(warm.data, a.data, equal_nan=True)
         stats = dict(gen.last_stats)
@@ -2121,6 +2178,32 @@ def serve(seed: int = 0):
         pool_gen.generate_dsm(os.path.join(tmp, "pool_warmup.tif"))
         pooled = pool_gen.generate_dsm(os.path.join(tmp, "pool.tif"))
         pool_stats = dict(pool_gen.last_stats)
+        # the two routes paired: each numpy generator warmed up as its C++
+        # counterpart was, then the routes alternated SERVE_ROUNDS times
+        cpp_gens = {"sync": (gen, a.data), "pool": (pool_gen, pooled.data)}
+        routes = {}
+        for name, ngen in numpy_gens.items():
+            ngen.generate_dsm(os.path.join(tmp, f"numpy_{name}_warmup.tif"))
+            cgen, ref = cpp_gens[name]
+            runs = {"C++": [], "numpy": []}
+            equal = True
+            for i in range(SERVE_ROUNDS):
+                for route, rgen in (("C++", cgen), ("numpy", ngen)):
+                    native.reset_calls()
+                    r = rgen.generate_dsm(os.path.join(tmp, f"{route}_{name}_{i}.tif"))
+                    if route == "numpy" and any(native.CALLS.values()):
+                        raise AssertionError("the numpy route called the C++ runtime: "
+                                             f"{native.CALLS}")
+                    equal &= np.array_equal(r.data, ref, equal_nan=True)
+                    runs[route].append(dict(rgen.last_stats))
+            routes[name] = (runs, equal)
+        dev = {}
+        for wire in ("float32", "float16"):
+            dgen = make_generator(model, cfg, chunks, device_blend=True, wire_dtype=wire)
+            first = dgen.generate_dsm(os.path.join(tmp, f"dev_{wire}_0.tif")).data
+            second = dgen.generate_dsm(os.path.join(tmp, f"dev_{wire}.tif")).data
+            dev[wire] = (second, np.array_equal(first, second, equal_nan=True),
+                         dict(dgen.last_stats))
         runtime.reset_launches()
         b = plain_gen.generate_dsm(os.path.join(tmp, "plain.tif"))
         if any(runtime.LAUNCHES.values()):
@@ -2164,6 +2247,37 @@ def serve(seed: int = 0):
         raise AssertionError("the worker pool's raster differs from the synchronous one")
     if launches != want:
         raise AssertionError(f"launch counts {launches}, expected {want}")
+    # the host runtime: the C++ route against its numpy plain versions
+    log("serve", f"host runtime calls on the timed run: {_nonzero(calls)}")
+    missing = [k for k in SERVE_CALLS if not calls.get(k)]
+    if missing:
+        raise AssertionError(f"serving did not call the C++ runtime's {missing}: {calls}")
+    for name, (runs, equal) in routes.items():
+        parts = []
+        for route, rs in runs.items():
+            parts.append(f"{route} " + ", ".join(
+                f"{key} {min(r[key] for r in rs):.3f}-{max(r[key] for r in rs):.3f}"
+                for key in ("patches_per_s", "loader_s", "blend_cpu_s")))
+        cpp_tps = [r["patches_per_s"] for r in runs["C++"]]
+        np_tps = [r["patches_per_s"] for r in runs["numpy"]]
+        apart = min(cpp_tps) > max(np_tps) or min(np_tps) > max(cpp_tps)
+        log("serve", f"{name} loader, {SERVE_ROUNDS} alternating runs a route (tiles/s, "
+            f"loader s, blend s, min-max): {' | '.join(parts)} | tiles/s ranges "
+            f"{'apart' if apart else 'overlap'} | rasters bit-equal {equal}")
+        if not equal:
+            raise AssertionError(f"{name}: the numpy route's raster differs from the C++ "
+                                 "route's")
+    # the device blend against the host blend, within the JAX package's
+    # bounds: f32 accumulation, and on the f16 wire the raster's rounding
+    scale = max(1.0, float(np.abs(da[~nan]).max()))
+    for wire, atol, rtol in (("float32", 2e-3, 1e-4), ("float16", 2e-3 + scale * 2.0 ** -10,
+                                                       1e-4)):
+        raster, again, dstats = dev[wire]
+        text = _blend_bound(raster, da, atol, rtol, f"device blend {wire}")
+        log("serve", f"device blend {wire}: {_device_blend_line(dstats)} | {text} | "
+            f"bit-equal to its first run {again}")
+        if not again:
+            raise AssertionError(f"two device-blend runs ({wire}) gave different rasters")
     return launches
 
 
@@ -2222,7 +2336,11 @@ def fusion_serve(seed: int = 0):
                 "fast_conv": (plain_cfg, plain_model.eval(), True, FAST_CONV_LAUNCHES, {}),
                 "plain": (plain_cfg, plain_model, False, {}, {}),
                 "wires": (wires_cfg, model, False, FUSION_LAUNCHES,
-                          {"wire_dtype": "float16", "wire_cells": "host"})}
+                          {"wire_dtype": "float16", "wire_cells": "host"}),
+                # the same wires blended on the card, the raster rounded once
+                "device-blend": (wires_cfg, model, False, FUSION_LAUNCHES,
+                                 {"wire_dtype": "float16", "wire_cells": "host",
+                                  "device_blend": True})}
     out = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name, (vcfg, vmodel, fast, per_batch, gen_kw) in variants.items():
@@ -2234,7 +2352,7 @@ def fusion_serve(seed: int = 0):
                   for k in ("points", "point_mask", "image", "cell", "cell_offsets")
                   if k in batch}
             with torch.inference_mode():
-                if name == "wires":
+                if name in ("wires", "device-blend"):
                     # the model's forward plus the wires' work on the card:
                     # the crops, the u8 normalisation, the f16 cast
                     def fwd():
@@ -2259,11 +2377,13 @@ def fusion_serve(seed: int = 0):
             want = {k: per_batch.get(k, 0) * n_batches for k in launches}
             out[name] = {"raster": r.data, "transform": r.transform, "launches": launches,
                          "fwd_ms": fwd_ms}
+            timing = (_device_blend_line(stats) if gen.device_blend else
+                      f"{stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
+                      f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
+                      f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
+                      f"{stats['finalize_write_s']:.3f})")
             log("fusion-serve", f"{name}: {stats['n_patches']} tiles in {n_batches} batches "
-                f"| {stats['patches_per_s']:.2f} tiles/s ({stats['total_s']:.3f} s: loader "
-                f"{stats['loader_s']:.3f} dispatch {stats['dispatch_s']:.3f} wait "
-                f"{stats['fetch_wait_s']:.3f} blend {stats['blend_cpu_s']:.3f} write "
-                f"{stats['finalize_write_s']:.3f}) | forward {fwd_ms:.1f} ms per batch "
+                f"| {timing} | forward {fwd_ms:.1f} ms per batch "
                 f"(median of 3) | peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB | "
                 f"bit-equal to its warm-up run {repeat} | launches per forward "
                 f"{({k: v / n_batches for k, v in launches.items() if v})}")
@@ -2307,6 +2427,12 @@ def fusion_serve(seed: int = 0):
         f"{0.05 * scale + r16:.3g} m {far:.3g} (tol 5e-3)")
     if mean > 1e-3 * scale + r16 or far >= 5e-3:
         raise AssertionError(f"wires raster off the f32 wires: mean {mean}, far {far}")
+    # the device blend on the same wires against their host blend: each
+    # rounds to f16 once (the tiles, or the stitched raster)
+    text = _blend_bound(out["device-blend"]["raster"], da, 2e-3 + scale * 2.0 ** -10, 1e-4,
+                        "fusion device blend")
+    log("fusion-serve", f"device-blend (the wires' device-crop path blended on the card) "
+        f"{text}")
     total: dict = {}
     for name in ("kernels", "fast_conv", "wires"):
         for k, v in out[name]["launches"].items():
@@ -2515,6 +2641,7 @@ def train_phase(seed: int = 0):
     adds in a fixed order and the step keeps cuDNN deterministic)."""
     import torch
 
+    from tomosar2height_tpu_torch import native
     from tomosar2height_tpu_torch.data import PatchLoader, SceneDataset
     from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
     from tomosar2height_tpu_torch.geo import RasterData
@@ -2549,10 +2676,12 @@ def train_phase(seed: int = 0):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         runtime.reset_launches()
+        native.reset_calls()
         t0 = time.perf_counter()
         out = train(trainer, sched, loader, tcfg, max_iteration=1)
         wall = time.perf_counter() - t0
         launches = dict(runtime.LAUNCHES)
+        calls = _nonzero(native.CALLS)
         losses = [r["loss"] for r in warm["windows"] + out["windows"]]
         moved = any(not torch.equal(v, state0[n]) for n, v in model.state_dict().items())
         runs[name] = {"state": {n: v.detach().clone() for n, v in model.state_dict().items()},
@@ -2563,13 +2692,17 @@ def train_phase(seed: int = 0):
                       "lrs": [r["lr"] for r in warm["windows"] + out["windows"]],
                       "grad_norm": [r["grad_norm"] for r in warm["windows"] + out["windows"]]}
         r = runs[name]
+        loader_s = sum(w["time_loader_s"] for w in out["windows"])
         log("train", f"{name}: window losses {[f'{x:.6f}' for x in losses]} | grad_norm "
             f"{[f'{x:.4g}' for x in r['grad_norm']]} | lr {r['lrs']} | mini-step "
             f"{r['ms']:.1f} ms (median of {r['n']}, CUDA events) | {r['patches']} "
-            f"patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s | peak "
+            f"patches in {wall:.3f} s = {r['patches_s']:.2f} train patches/s | time_loader_s "
+            f"{loader_s:.3f} (C++ host runtime, calls {calls}) | peak "
             f"{r['peak'] / 2**30:.2f} GiB | parameters moved {moved}")
         if not all(np.isfinite(losses)) or not moved:
             raise AssertionError(f"{name}: losses {losses}, parameters moved {moved}")
+        if not calls.get("crop_transform_patch") or (sort and not calls.get("morton_align")):
+            raise AssertionError(f"{name}: the loader did not call the C++ runtime: {calls}")
     fused, plain, again = runs["fused2"], runs["plain"], runs["fused2 again"]
     tol = _height_tol(cfg)
     # run-to-run determinism: every kernel writes each output once in a fixed

@@ -2845,3 +2845,57 @@ class TestPoolSixteenByteRoutes:
                 assert pk.LAST_PLAN["runs"]["staged"] == staged, kind
                 assert torch.equal(dv, tpk.tile_pool_bwd_plain(tg, tv, out, tc, tt, kind)), kind
                 assert torch.equal(tpk.tile_pool_bwd(tg, tv, out, tc, tt, kind), dv), kind
+
+
+@pytest.mark.cuda
+class TestServingBlends:
+    """The flagship (``flagship_config``: full width, fused2, batch 8) serving
+    a synthetic city of 9 tiles and two bands on the card: the host blend's
+    raster on the C++ host runtime's route bit-equal to the numpy route's (the
+    runtime's crop-transform, layout and batch blend called); the device
+    blend bit-equal on a second run and to ``blend_loop='scan'``, and within
+    the JAX package's bounds of the host blend (atol 2e-3 + rtol 1e-4; the
+    f16 wire + scale * 2^-10, ``tests/test_sharded_infer.py:115-145``), NaN
+    masks equal."""
+
+    def test_blends_and_routes(self, cuda, tmp_path):
+        from tomosar2height_tpu_torch import native
+        from tomosar2height_tpu_torch.config import flagship_config
+        from tomosar2height_tpu_torch.data.synthetic import X0, Y0, build_city
+        from tomosar2height_tpu_torch.infer.generator import make_generator
+        from tomosar2height_tpu_torch.models import build_model, init_weights
+
+        side = 1024
+        _, pts, _ = build_city(0, density=0.06, W=side, H=side)
+        chunks = [{"name": "city", "min_bound": [X0, Y0], "max_bound": [X0 + side, Y0 + side],
+                   "points": pts}]
+        cfg = flagship_config()
+        cfg["dataloader"] = {"n_workers": 0, "prefetch": 0}
+        model = init_weights(build_model(cfg, "cuda"), torch.Generator().manual_seed(0)).eval()
+
+        def run(tag, **kw):
+            gen = make_generator(model, cfg, chunks, **kw)
+            out = gen.generate_dsm(str(tmp_path / f"{tag}.tif")).data
+            assert gen.last_stats["n_patches"] == 9
+            return out
+
+        native.reset_calls()
+        host = run("host")
+        for name in ("crop_pc_2d", "crop_transform_patch", "morton_align",
+                     "blend_accumulate_batch"):
+            assert native.CALLS[name] > 0, name
+        calls = dict(native.CALLS)
+        assert np.array_equal(run("numpy", native=False), host, equal_nan=True)
+        assert native.CALLS == calls  # the numpy route calls no entry point
+        nan = np.isnan(host)
+        assert host.shape == (side, side) and not nan.all()
+        dev = run("dev", device_blend=True)
+        assert np.array_equal(run("dev2", device_blend=True), dev, equal_nan=True)
+        assert np.array_equal(run("scan", device_blend=True, blend_loop="scan"), dev,
+                              equal_nan=True)
+        scale = max(1.0, float(np.abs(host[~nan]).max()))
+        for got, atol, rtol in ((dev, 2e-3, 1e-4),
+                                (run("dev16", device_blend=True, wire_dtype="float16"),
+                                 2e-3 + scale * 2.0 ** -10, 0.0)):
+            assert np.array_equal(np.isnan(got), nan)
+            np.testing.assert_allclose(got[~nan], host[~nan], atol=atol, rtol=rtol)

@@ -21,7 +21,11 @@ of ``batch_size * max(prefetch + 1, 2)``, yielded in order; each patch's
 generator is keyed by its position in the epoch, so the batches do not depend
 on either setting. ``wire_points='uint16'`` (aligned layouts only) ships the
 points quantized to u16, the layout built on the dequantized coordinates so
-the cell ids the model recomputes match it.
+the cell ids the model recomputes match it. The aligned layout is built by the
+C++ host runtime (``native.morton_align``, straight into the batch arrays;
+a ctypes call releases the GIL, so the worker threads run it side by side);
+``native=False`` takes its numpy plain version, ``host_morton_bucket_aligned``,
+bit-equal to it.
 """
 
 from __future__ import annotations
@@ -34,9 +38,11 @@ from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 
+from tomosar2height_tpu_torch import native as host_runtime
 from tomosar2height_tpu_torch.ops.sorted_scatter import (
     ALIGNED_TILE_CELLS,
     PAD_CELL_SENTINEL,
+    PCHUNK,
     aligned_bucket_size,
     dequantize_points_np,
     host_morton_bucket,
@@ -118,7 +124,9 @@ class PatchLoader:
     on the u8 wire) when they carry image crops, image_origin (B, 2) int32
     on the device-crop wire (zeros on pad entries); with ``det_stream`` also
     ``_stream_pos`` (epoch, next batch). A short last batch is padded with
-    invalid patches, so every batch has ``batch_size`` entries.
+    invalid patches, so every batch has ``batch_size`` entries. ``native``:
+    the aligned layout in the C++ host runtime (the default) or in numpy
+    (False: the plain version).
     """
 
     def __init__(self, dataset, batch_size: int, bucket_sizes: Sequence[int],
@@ -126,8 +134,9 @@ class PatchLoader:
                  shuffle: bool = False, drop_last: bool = False, seed: int = 0,
                  det_stream: bool = False, aligned: bool = True,
                  tile_cells: Optional[int] = None, prefetch: int = 0, n_workers: int = 0,
-                 wire_points: str = "float32"):
+                 wire_points: str = "float32", native: bool = True):
         self.dataset = dataset
+        self.native = bool(native)
         self.batch_size = int(batch_size)
         self.bucket_sizes = sorted(int(b) for b in bucket_sizes)
         self.fixed_bucket = int(fixed_bucket) if fixed_bucket else None
@@ -241,6 +250,23 @@ class PatchLoader:
         out["_stream_pos"] = (epoch, bi + 1)
         return out
 
+    def _align_native(self, pts: np.ndarray, bucket: int, rng, npad: int, u16: bool, out):
+        """One patch's aligned layout by the C++ runtime into its batch rows
+        ``out``: the points as ``pad_points`` leaves them (subsampled past the
+        bucket with the same draw; the pad rows it would add are masked and
+        drop out of the layout), dequantized first on the u16 wire."""
+        if len(pts) > bucket:
+            pts, _ = pad_points(pts, bucket, rng)
+        if u16:
+            pts = dequantize_points_np(quantize_points_u16(pts))
+            tmp = (np.empty((npad, 3), dtype=np.float32),) + tuple(out[1:])
+            a = host_runtime.morton_align(pts, None, self.sort_reso, PCHUNK, self.tile_cells,
+                                    npad, int(PAD_CELL_SENTINEL), out=tmp)
+            out[0][:] = quantize_points_u16(a["points"])
+        else:
+            host_runtime.morton_align(pts, None, self.sort_reso, PCHUNK, self.tile_cells, npad,
+                                int(PAD_CELL_SENTINEL), out=out)
+
     def collate(self, patches: List[dict], rng: Optional[np.random.Generator] = None):
         n_real = len(patches)
         if n_real < self.batch_size:
@@ -282,8 +308,11 @@ class PatchLoader:
             if not p["is_valid"]:
                 continue
             patch_valid[i] = True
-            pts_i, mask_i = pad_points(p["inputs"], bucket, rng)
-            if self.aligned:
+            if self.aligned and self.native:
+                self._align_native(p["inputs"], bucket, rng, npad, u16,
+                                   (points[i], point_mask[i], cells[i], offsets[i]))
+            elif self.aligned:
+                pts_i, mask_i = pad_points(p["inputs"], bucket, rng)
                 if u16:
                     # the layout on the dequantized coordinates: the cell ids
                     # the model recomputes from the wire then match it
@@ -294,11 +323,12 @@ class PatchLoader:
                 point_mask[i] = a["mask"]
                 cells[i], offsets[i] = a["cells"], a["tile_offsets"]
             elif self.sort_reso:
+                pts_i, mask_i = pad_points(p["inputs"], bucket, rng)
                 order, cells[i], offsets[i] = host_morton_bucket(pts_i, mask_i,
                                                                  self.sort_reso)
                 points[i], point_mask[i] = pts_i[order], mask_i[order]
             else:
-                points[i], point_mask[i] = pts_i, mask_i
+                points[i], point_mask[i] = pad_points(p["inputs"], bucket, rng)
             if "dsm" in p:
                 if dsm is None:
                     dsm = np.zeros((bsz,) + p["dsm"].shape, dtype=np.float32)

@@ -15,9 +15,15 @@ with ``image_norm`` = (mean, std) for the device to apply (the u8 wire,
 dataset.py:93-123); or, on the device-crop wire (serving loaders only: no
 random anchors, augmentation or target), no crop but the crop's pixel
 origin ``image_origin`` in the scene image (:meth:`scene_image_hwc`,
-dataset.py:125-136, :318-327). A patch here is bit-identical to the JAX
-dataset's numpy path (its C++ fast path for patches of >= 4096 points
-rounds the same transform to within ~1e-7). Chunks come in as arrays and
+dataset.py:125-136, :318-327). The patch's world crop (the grid index's
+exact filter) and its normalize (transform, float32 cast, recrop) run in the
+port's C++ host runtime (``native.crop_pc_2d_index``,
+``native.crop_transform_patch``), which releases the GIL; ``native=False``
+takes their numpy plain versions, bit-equal to it. Both sum the transform
+elementwise (``geo.transform_points``), where the JAX dataset's numpy path
+takes a BLAS product and its C++ path (patches of >= 4096 points) fused
+multiply-adds: each within an ulp of float64 of the other, the same float32
+point but where an ulp crosses a rounding edge. Chunks come in as arrays and
 rasters; :class:`~tomosar2height_tpu_torch.data.dataset.TomoSARDataset`
 reads them from a built dataset on disk and hands them here.
 """
@@ -28,14 +34,14 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from tomosar2height_tpu_torch import native as host_runtime
 from tomosar2height_tpu_torch.geo import (
     FLIP_MATRICES,
     ROT_MATRICES,
     GridIndex2D,
-    apply_transform,
-    crop_pc_2d,
     invert_transform,
 )
+from tomosar2height_tpu_torch.native import plain
 
 
 class SceneDataset:
@@ -70,11 +76,15 @@ class SceneDataset:
             from its generator, applied to the points, the image and the
             target alike; each valid patch carries ``flip``, ``rotate`` and
             ``transform`` (the inverse normalization).
+        native: the crops and the normalize in the C++ host runtime (the
+            default), or in numpy (False: the plain version).
     """
 
     def __init__(self, chunks: Sequence[Dict], cfg_dataset: Dict, split: str = "test",
                  random_sample: bool = False, random_length: Optional[int] = None,
-                 dsm=None, image=None, flip_augm: bool = False, rotate_augm: bool = False):
+                 dsm=None, image=None, flip_augm: bool = False, rotate_augm: bool = False,
+                 native: bool = True):
+        self.native = bool(native)
         self.flip_augm, self.rotate_augm = bool(flip_augm), bool(rotate_augm)
         self.patch_size = np.asarray(cfg_dataset["patch_size"], dtype=np.float64)
         norm = cfg_dataset["normalize"]
@@ -138,7 +148,8 @@ class SceneDataset:
                     "max_bound": list(ch["max_bound"])}
             self.chunk_info_ls.append(info)
             self.data.append({"name": ch["name"], "inputs": pts,
-                              "index": GridIndex2D(pts, cell_size=float(self.patch_size[0]) / 2.0)})
+                              "index": GridIndex2D(pts, float(self.patch_size[0]) / 2.0,
+                                                   native=self.native)})
             if self.random_sample:
                 continue
             mn = np.asarray(info["min_bound"], dtype=np.float64)
@@ -165,10 +176,15 @@ class SceneDataset:
     def __len__(self) -> int:
         return self.random_length if self.random_sample else len(self.anchor_points)
 
-    def _normalize_points(self, inputs, normalize_mat):
-        inputs_norm = apply_transform(inputs, normalize_mat).astype(np.float32)
-        inputs_norm, _ = crop_pc_2d(inputs_norm, self._min_norm_bound, self._max_norm_bound)
-        return inputs_norm
+    def _normalize_points(self, inputs, min_bound, max_bound, normalize_mat):
+        """World points -> float32 points strictly inside the normalized
+        bounds (dataset.py:231-243): the world crop, the transform, the cast
+        and the recrop in one C++ pass, or their numpy plain versions."""
+        if self.native:
+            return host_runtime.crop_transform_patch(inputs, min_bound, max_bound, normalize_mat,
+                                               self._min_norm_bound, self._max_norm_bound)
+        return plain.crop_transform_patch(inputs, min_bound, max_bound, normalize_mat,
+                                          self._min_norm_bound, self._max_norm_bound)
 
     def scene_image_hwc(self) -> np.ndarray:
         """The whole scene image as one (H, W, C) array in the wire's dtype,
@@ -213,7 +229,8 @@ class SceneDataset:
         flip_dim = int(r.choice([-1, 0, 1])) if self.flip_augm else -1
         normalize_mat = (self.shift_norm @ FLIP_MATRICES[flip_dim] @ ROT_MATRICES[rot_times]
                          @ invert_transform(transform_mat))
-        out = {"name": name, "inputs": self._normalize_points(inputs, normalize_mat),
+        out = {"name": name,
+               "inputs": self._normalize_points(inputs, min_bound, max_bound, normalize_mat),
                "transform": invert_transform(normalize_mat),
                "min_bound": min_bound.copy(), "max_bound": max_bound.copy(),
                "flip": flip_dim, "rotate": rot_times, "is_valid": True}

@@ -27,4 +27,5 @@ from tomosar2height_tpu_torch.geo.transform import (  # noqa: F401
     Affine,
     apply_transform,
     invert_transform,
+    transform_points,
 )

@@ -3,9 +3,10 @@
 pts/txt, ``load_las_as_numpy`` (LAS 1.0-1.4 public header, scale and
 offset applied to each record's int32 x/y/z; no LAZ), ``save_las`` (LAS 1.2,
 point format 0), ``load_ply`` (ASCII or binary little-endian) and
-``save_pc_to_ply`` (binary little-endian). The JAX package reads LAS with its
-C++ runtime when that is built; the port reads it in numpy, to the same
-float64 values.
+``save_pc_to_ply`` (binary little-endian). ``load_pc`` reads LAS with the
+port's C++ runtime (``native.las_read``); ``load_las_as_numpy`` is its plain
+version, and the two give the same float64
+bits (the JAX package's numpy reader's too).
 """
 
 from __future__ import annotations
@@ -14,6 +15,8 @@ import struct
 from typing import Optional
 
 import numpy as np
+
+from tomosar2height_tpu_torch import native as host_runtime
 
 # LAS point record: offset of x,y,z int32 triplet is always 0; record length varies.
 _LAS_SUPPORTED_VERSIONS = {(1, 0), (1, 1), (1, 2), (1, 3), (1, 4)}
@@ -173,10 +176,11 @@ def save_pc_to_ply(pc_path: str, points: np.ndarray, colors: Optional[np.ndarray
 
 
 def load_pc(pc_path: str) -> np.ndarray:
-    """Load a point cloud from las/npy/npz/ply/xyz/pts/txt by its extension."""
+    """Load a point cloud from las/npy/npz/ply/xyz/pts/txt by its extension;
+    LAS through the C++ runtime."""
     ext = pc_path.split(".")[-1].lower()
     if ext == "las":
-        return load_las_as_numpy(pc_path)
+        return host_runtime.las_read(pc_path)
     if ext == "npy":
         return np.load(pc_path)
     if ext == "npz":

@@ -1,6 +1,10 @@
 """Open-bbox 2D crops of point arrays. Counterpart of
 ``tomosar2height_tpu/geo/crop.py`` (``crop_pc_2d``, ``GridIndex2D``): strict
-inequalities, so normalized points land inside the open unit square."""
+inequalities, so normalized points land inside the open unit square.
+
+With ``native`` (the default) the float64 crops run in the C++ host runtime
+(``native.crop_pc_2d_index``, bit-equal); ``native=False`` takes numpy, the
+plain version."""
 
 from __future__ import annotations
 
@@ -8,25 +12,40 @@ from typing import Tuple
 
 import numpy as np
 
+from tomosar2height_tpu_torch import native as host_runtime
+
 
 def _inside(p: np.ndarray, p_min, p_max) -> np.ndarray:
     return ((p[:, 0] > p_min[0]) & (p[:, 0] < p_max[0])
             & (p[:, 1] > p_min[1]) & (p[:, 1] < p_max[1]))
 
 
-def crop_pc_2d(points: np.ndarray, p_min, p_max) -> Tuple[np.ndarray, np.ndarray]:
-    """Points strictly inside the (x, y) bbox and their ascending indices."""
+def crop_pc_2d_index(points: np.ndarray, p_min, p_max) -> np.ndarray:
+    """Ascending indices of the points strictly inside the (x, y) bbox (numpy)."""
+    return np.nonzero(_inside(np.asarray(points), p_min, p_max))[0]
+
+
+def crop_pc_2d(points: np.ndarray, p_min, p_max,
+               native: bool = True) -> Tuple[np.ndarray, np.ndarray]:
+    """Points strictly inside the (x, y) bbox and their ascending indices;
+    ``native`` takes float64 points (world clouds) to the C++ runtime, whose
+    crop is defined on float64; other dtypes compare in numpy."""
     p = np.asarray(points)
-    idx = np.nonzero(_inside(p, p_min, p_max))[0]
+    if native and p.dtype == np.float64:
+        idx = host_runtime.crop_pc_2d_index(p, p_min, p_max)
+    else:
+        idx = crop_pc_2d_index(p, p_min, p_max)
     return p[idx], idx
 
 
 class GridIndex2D:
     """Uniform-grid index for repeated bbox crops of one cloud: one argsort at
     build, then each query touches only the grid cells under the box and
-    returns exactly what ``crop_pc_2d`` would."""
+    returns exactly what ``crop_pc_2d`` would (its exact filter of the
+    candidates in the C++ runtime where ``native``)."""
 
-    def __init__(self, points: np.ndarray, cell_size: float):
+    def __init__(self, points: np.ndarray, cell_size: float, native: bool = True):
+        self.native = bool(native)
         xy = np.asarray(points)[:, :2]
         self.cell = float(cell_size)
         self.x0 = float(xy[:, 0].min()) if len(xy) else 0.0
@@ -63,6 +82,5 @@ class GridIndex2D:
     def query(self, points: np.ndarray, p_min, p_max):
         """(cropped points, indices), as ``crop_pc_2d`` on the indexed cloud."""
         cand = self.query_index(p_min, p_max)
-        p = np.asarray(points)[cand]
-        keep = _inside(p, p_min, p_max)
-        return p[keep], cand[keep]
+        p, keep = crop_pc_2d(np.asarray(points)[cand], p_min, p_max, native=self.native)
+        return p, cand[keep]

@@ -74,6 +74,24 @@ def apply_transform(points: np.ndarray, m: np.ndarray) -> np.ndarray:
     return out[:, :3] / out[:, 3:4]
 
 
+def transform_points(points: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """(N, 3) points through a 4x4 homogeneous transform, row by row as
+    ``m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3]`` summed left to right
+    in float64, divided by w only where the last row is not (0, 0, 0, 1): the
+    C++ runtime's order, so the two agree bit for bit (:func:`apply_transform`
+    goes through a BLAS product, whose order and fused multiply-adds are the
+    library's; the two agree to within an ulp)."""
+    p = np.asarray(points, dtype=np.float64)
+    m = np.asarray(m, dtype=np.float64)
+    x, y, z = p[:, 0], p[:, 1], p[:, 2]
+    out = np.empty((p.shape[0], 3), dtype=np.float64)
+    for i in range(3):
+        out[:, i] = m[i, 0] * x + m[i, 1] * y + m[i, 2] * z + m[i, 3]
+    if not np.array_equal(m[3], [0.0, 0.0, 0.0, 1.0]):
+        out /= (m[3, 0] * x + m[3, 1] * y + m[3, 2] * z + m[3, 3])[:, None]
+    return out
+
+
 def invert_transform(m: np.ndarray) -> np.ndarray:
     """Inverse of a 4x4 homogeneous transform."""
     return np.linalg.inv(np.asarray(m, dtype=np.float64))
